@@ -1,0 +1,202 @@
+"""The whole-ray render kernel: PE -> field -> alpha compositing for
+whole rays, reading only per-ray inputs. The counterpart of
+``nerf_rs_tpu/kernels/fused_ray.py``.
+
+``fused_ray_render`` launches the CUDA kernel (``csrc/fused_ray.cu``)
+for CUDA tensors, and runs ``fused_ray_render_reference``, its plain
+PyTorch version, for CPU tensors. There is no other switch: on a CUDA
+tensor it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from nerf_rs_tpu.config import ModelConfig
+
+from . import build
+from .fused_render import PackedWeights, pe_encode
+
+_SIGMA_ACT = {"relu": 0, "softplus": 1}
+TILE_ROWS = 128  # sample rows per CTA (kRows in csrc/fused_ray.cu)
+
+_SHAPE_ERRORS = {
+    -1: "num_samples must divide the kernel's 128-row tile",
+    -2: "the packed weights do not match the kernel's layer list",
+    -3: "layer widths and padded encodings must be multiples of 16",
+    -4: "the encoding does not fit its padded width",
+    -5: "the layer widths need more shared memory than a CTA has",
+    -6: "sigma_activation must be relu or softplus",
+}
+
+Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _check(packed: PackedWeights, origins, dirs, viewdirs, ts, deltas,
+           cfg: ModelConfig, num_samples: int) -> None:
+    """Shape and config checks, the same on every device."""
+    n = origins.shape[0]
+    if num_samples < 1 or TILE_ROWS % num_samples:
+        raise ValueError(f"num_samples={num_samples}: the kernel takes whole rays "
+                         f"in {TILE_ROWS}-row tiles, so it must divide {TILE_ROWS}")
+    if ts.shape != (n, num_samples) or deltas.shape != (n, num_samples):
+        raise ValueError(f"ts/deltas must be ({n}, {num_samples}), got "
+                         f"{tuple(ts.shape)} / {tuple(deltas.shape)}")
+    for name, a in (("origins", origins), ("dirs", dirs),
+                    ("viewdirs", viewdirs)):
+        if a.shape != (n, 3):
+            raise ValueError(f"{name} must be ({n}, 3), got {tuple(a.shape)}")
+    if cfg.sigma_activation not in _SIGMA_ACT:
+        raise ValueError(
+            f"sigma_activation={cfg.sigma_activation!r}: the kernel takes "
+            f"{sorted(_SIGMA_ACT)}")
+    got = (packed.depth, packed.skip_layer, packed.pos_levels,
+           packed.dir_levels, packed.W, packed.F, packed.V)
+    want = (cfg.net_depth, cfg.skip_layer, cfg.pos_enc_levels,
+            cfg.dir_enc_levels, cfg.net_width, cfg.feature_width,
+            cfg.view_head_width)
+    if got != want:
+        raise ValueError(f"packed weights are for {got}, cfg asks {want}")
+
+
+def fused_ray_render(
+    packed: PackedWeights,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    viewdirs: torch.Tensor,
+    ts: torch.Tensor,
+    deltas: torch.Tensor,
+    cfg: ModelConfig,
+    num_samples: int,
+) -> Out:
+    """Render N rays whole: origins/dirs/viewdirs (N, 3), ts/deltas
+    (N, S) f32. Returns (rgb (N, 3), acc (N,), depth (N,), weights
+    (N, S), sigma (N, S)); a white background stays with the caller.
+
+    Any N: the kernel masks the ragged last tile. S must divide 128.
+    Launches on the current stream without synchronising.
+    """
+    _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples)
+    if origins.device.type == "cpu":
+        return fused_ray_render_reference(
+            packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples)
+    if origins.device.type != "cuda":
+        raise ValueError(f"no kernel for device {origins.device}")
+    ins = (origins, dirs, viewdirs, ts, deltas)
+    for a in ins:
+        if a.device != origins.device or a.dtype != torch.float32:
+            raise ValueError("ray inputs must be f32 on one CUDA device")
+        if not a.is_contiguous():
+            raise ValueError("ray inputs must be contiguous")
+    if (packed.w.device != origins.device or packed.w.dtype != torch.bfloat16
+            or packed.b.device != origins.device
+            or packed.b.dtype != torch.float32):
+        raise ValueError("packed weights must be bf16/f32 on the rays' device")
+
+    n, S = ts.shape
+    rgb = torch.empty(n, 3, device=origins.device)
+    acc = torch.empty(n, device=origins.device)
+    depth = torch.empty(n, device=origins.device)
+    w = torch.empty(n, S, device=origins.device)
+    sigma = torch.empty(n, S, device=origins.device)
+    lib = _library()
+    w_off = (ctypes.c_longlong * len(packed.w_off))(*packed.w_off)
+    b_off = (ctypes.c_longlong * len(packed.b_off))(*packed.b_off)
+    stream = torch.cuda.current_stream(origins.device).cuda_stream
+    rc = lib.nerf_fused_ray_render(
+        *(a.data_ptr() for a in ins), packed.w.data_ptr(), packed.b.data_ptr(),
+        w_off, len(packed.w_off), b_off, len(packed.b_off),
+        rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), w.data_ptr(),
+        sigma.data_ptr(), n, S, packed.depth, packed.skip_layer, packed.W,
+        packed.F, packed.V, packed.P, packed.D, packed.pos_levels,
+        packed.dir_levels, _SIGMA_ACT[cfg.sigma_activation], stream,
+    )
+    if rc < 0:
+        raise ValueError(f"fused_ray kernel refused the call: {_SHAPE_ERRORS[rc]}")
+    if rc > 0:
+        msg = lib.nerf_cuda_error_string(rc).decode()
+        raise RuntimeError(f"fused_ray kernel launch failed: CUDA error {rc} ({msg})")
+    fused_ray_render.launches += 1
+    return rgb, acc, depth, w, sigma
+
+
+# kernel launches so far in this process; a run reads it to show that
+# its path went through the kernel
+fused_ray_render.launches = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("fused_ray")
+    fn = lib.nerf_fused_ray_render
+    if fn.argtypes is None:
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = (
+            [vp] * 7
+            + [ctypes.POINTER(i64), i32, ctypes.POINTER(i64), i32]
+            + [vp] * 5
+            + [i64] + [i32] * 11
+            + [vp]
+        )
+        fn.restype = i32
+        lib.nerf_cuda_error_string.argtypes = [i32]
+        lib.nerf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def fused_ray_render_reference(
+    packed: PackedWeights,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    viewdirs: torch.Tensor,
+    ts: torch.Tensor,
+    deltas: torch.Tensor,
+    cfg: ModelConfig,
+    num_samples: int,
+) -> Out:
+    """The kernel's plain PyTorch version, with its numerics: bf16
+    operands, f32 products and sums (bf16 x bf16 products are exact in
+    f32), f32 bias and relu, then rounding to bf16 between layers; f32
+    compositing. On CUDA it needs full-f32 matmuls
+    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples)
+    n, S = ts.shape
+    bf = torch.bfloat16
+    mats = [m.float() for m in packed.matrices()]
+    bias = packed.biases()
+    depth, skip, Fw = packed.depth, packed.skip_layer, packed.F
+
+    pts = (origins[:, None, :] + ts[:, :, None] * dirs[:, None, :]).reshape(n * S, 3)
+    x = pe_encode(pts, packed.pos_levels, packed.P).to(bf)
+    dv = pe_encode(viewdirs, packed.dir_levels, packed.D).to(bf)
+    dv = dv.repeat_interleave(S, dim=0)
+
+    def mm(a, w):
+        return a.float() @ w
+
+    h = x
+    for i in range(depth):
+        acc = mm(h, mats[i])
+        if i == skip and i > 0:
+            acc = acc + mm(x, mats[depth])
+        h = F.relu(acc + bias[i]).to(bf)
+    sf = mm(h, mats[depth + 1]) + bias[depth]
+    sigma_raw = sf[:, Fw]
+    feat = sf[:, :Fw].to(bf)
+    hv = mm(feat, mats[depth + 2]) + mm(dv, mats[depth + 3])
+    hv = F.relu(hv + bias[depth + 1]).to(bf)
+    rgb = torch.sigmoid(mm(hv, mats[depth + 4]) + bias[depth + 2])[:, :3]
+
+    if cfg.sigma_activation == "relu":
+        sigma = F.relu(sigma_raw)
+    else:
+        sigma = torch.logaddexp(sigma_raw, torch.zeros_like(sigma_raw))
+    sigma = sigma.reshape(n, S)
+    a = sigma * deltas
+    excl = torch.cat([torch.zeros_like(a[:, :1]), torch.cumsum(a[:, :-1], dim=-1)], -1)
+    w = torch.exp(-excl) * (1.0 - torch.exp(-a))
+    rgb = (w[:, :, None] * rgb.reshape(n, S, 3)).sum(dim=1)
+    return rgb, w.sum(dim=-1), (w * ts).sum(dim=-1), w, sigma

@@ -1,0 +1,164 @@
+"""Weight packing and the positional encoding of the whole-ray render
+kernel, the counterpart of ``nerf_rs_tpu/kernels/fused_render.py``.
+
+The CUDA kernel (``csrc/fused_ray.cu``) multiplies with
+``mma.sync.m16n8k16`` bf16 tensor-core instructions. ``pack_weights``
+lays every matrix out so that each warp reads its B fragments as one
+coalesced 8-byte load per lane:
+
+    for each 8-column n-tile, for each 16-row k-step, for each lane
+    (g = lane // 4, t = lane % 4): the bf16 pairs
+    W[16k + 2t + {0,1}, 8n + g] and W[16k + 8 + 2t + {0,1}, 8n + g]
+
+All matrices share one flat bf16 buffer and all biases one flat f32
+buffer; ``w_off``/``b_off`` give each one's start. Padding follows the
+tensor-core tile, not the TPU's lanes: the encodings pad to a multiple
+of 16 rows (PE(x) 63 -> 64, PE(d) 27 -> 32), the [feature | sigma] head
+to F + 8 columns (sigma in column F) and rgb to 8 columns.
+
+As in the JAX packing, the skip layer's weight splits in two: rows
+[:W] multiply the hidden state and rows [W:] (the encoded input) become
+``skip_w``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from nerf_rs_tpu.config import ModelConfig
+
+from ..models.encoding import posenc
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def enc_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(pos_dim, pos_pad, dir_dim, dir_pad): true encoding widths and
+    the widths padded to the tensor-core k-step of 16."""
+    pos = 3 + 6 * cfg.pos_enc_levels
+    dird = 3 + 6 * cfg.dir_enc_levels
+    return pos, _round_up(pos, 16), dird, _round_up(dird, 16)
+
+
+def pe_encode(p: torch.Tensor, levels: int, pad: int) -> torch.Tensor:
+    """posenc of (ROWS, 3) points -> (ROWS, pad) f32 with zero pad
+    columns: raw p, then per level [sin(2^l p), cos(2^l p)]. The scales
+    are exact powers of two and the arguments f32; a low-precision
+    argument loses the high-frequency phases (sin(2^9 x))."""
+    enc = posenc(p, levels, include_input=True)
+    return F.pad(enc, (0, pad - enc.shape[-1]))
+
+
+@dataclass(frozen=True)
+class PackedWeights:
+    """All kernel weights in two flat buffers (see the module note)."""
+
+    # flat bf16, swizzled matrices in kernel order:
+    # trunk[0..depth), skip, sf, view (feature part), view (dir part), rgb
+    w: torch.Tensor
+    b: torch.Tensor  # flat f32, padded biases: trunk[0..depth), sf, view, rgb
+    w_off: Tuple[int, ...]  # element offset of each matrix in w
+    w_shape: Tuple[Tuple[int, int], ...]  # (K, N) of each matrix
+    b_off: Tuple[int, ...]  # element offset of each bias in b
+    depth: int
+    skip_layer: int
+    W: int  # trunk width
+    F: int  # feature width
+    V: int  # view-head width
+    P: int  # padded PE(x) width
+    D: int  # padded PE(d) width
+    pos_levels: int
+    dir_levels: int
+
+    def matrices(self) -> List[torch.Tensor]:
+        """The (K, N) bf16 matrices in kernel order, un-swizzled."""
+        return [
+            _unswizzle(self.w[o:o + k * n], k, n)
+            for o, (k, n) in zip(self.w_off, self.w_shape)
+        ]
+
+    def biases(self) -> List[torch.Tensor]:
+        """The padded f32 biases in kernel order."""
+        ends = list(self.b_off[1:]) + [self.b.numel()]
+        return [self.b[o:e] for o, e in zip(self.b_off, ends)]
+
+
+def _swizzle(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) -> flat bf16 in the kernel's fragment order. K % 16 == 0,
+    N % 8 == 0. Index (kt, h, t, p, nt, g) of the view below is row
+    16kt + 8h + 2t + p, column 8nt + g."""
+    k, n = w.shape
+    v = w.to(torch.bfloat16).reshape(k // 16, 2, 4, 2, n // 8, 8)
+    return v.permute(4, 0, 5, 2, 1, 3).reshape(-1)
+
+
+def _unswizzle(flat: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Inverse of ``_swizzle``."""
+    v = flat.reshape(n // 8, k // 16, 8, 4, 2, 2)
+    return v.permute(1, 4, 3, 5, 0, 2).reshape(k, n)
+
+
+def pack_weights(params, cfg: ModelConfig) -> PackedWeights:
+    """Repack a ``NerfMLP`` into the kernel layout (bf16 weights, f32
+    biases). Inference only: the result carries no gradient."""
+    if cfg.compat or not cfg.use_viewdirs or not cfg.include_input_in_enc:
+        raise ValueError("the fused kernel covers the paper architecture")
+    pos, P, dird, D = enc_dims(cfg)
+    W, Fw, V = cfg.net_width, cfg.feature_width, cfg.view_head_width
+    for name, v in (("net_width", W), ("feature_width", Fw),
+                    ("view_head_width", V)):
+        if v % 16:
+            raise ValueError(f"{name}={v}: the kernel needs a multiple of 16")
+    dev = params.sigma.w.device
+
+    def padw(w, rows, cols):
+        w = w.detach().float()
+        return F.pad(w, (0, cols - w.shape[1], 0, rows - w.shape[0]))
+
+    def padb(b, cols):
+        return F.pad(b.detach().float(), (0, cols - b.shape[0]))
+
+    mats, biases = [], []
+    skip_w = torch.zeros(P, W, device=dev)
+    for i, layer in enumerate(params.trunk):
+        if i == 0:
+            mats.append(padw(layer.w, P, W))
+        elif i == cfg.skip_layer:
+            mats.append(padw(layer.w[:W], W, W))
+            skip_w = padw(layer.w[W:], P, W)
+        else:
+            mats.append(padw(layer.w, W, W))
+        biases.append(padb(layer.b, W))
+    sf_w = torch.cat([padw(params.feature.w, W, Fw),
+                      padw(params.sigma.w, W, 8)], dim=1)
+    sf_b = torch.cat([padb(params.feature.b, Fw), padb(params.sigma.b, 8)])
+    vw = params.view1.w
+    mats += [skip_w, sf_w, padw(vw[:Fw], Fw, V), padw(vw[Fw:], D, V),
+             padw(params.rgb.w, V, 8)]
+    biases += [sf_b, padb(params.view1.b, V), padb(params.rgb.b, 8)]
+
+    def offsets(sizes):
+        out, at = [], 0
+        for s in sizes:
+            out.append(at)
+            at += s
+        return tuple(out)
+
+    return PackedWeights(
+        w=torch.cat([_swizzle(m) for m in mats]).contiguous(),
+        b=torch.cat(biases).contiguous(),
+        w_off=offsets(m.numel() for m in mats),
+        w_shape=tuple(tuple(m.shape) for m in mats),
+        b_off=offsets(b.numel() for b in biases),
+        depth=cfg.net_depth,
+        skip_layer=cfg.skip_layer,
+        W=W, F=Fw, V=V, P=P, D=D,
+        pos_levels=cfg.pos_enc_levels,
+        dir_levels=cfg.dir_enc_levels,
+    )

@@ -1,0 +1,87 @@
+"""The PyTorch port stands without JAX: every module of nerf_rs_tpu_torch
+imports, and a frame renders, in a process that never loads jax, jaxlib,
+flax or optax. Plus two checks of chip_smoke.py, which runs only on the
+card: an undefined-name lint (the idea of test_bench_lint.py), and that
+without a card it exits non-zero instead of falling back to the CPU.
+"""
+
+import builtins
+import os
+import pathlib
+import subprocess
+import symtable
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import torch
+torch.set_num_threads(1)
+import nerf_rs_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(nerf_rs_tpu_torch.__path__, "nerf_rs_tpu_torch.")
+         if m.name != "nerf_rs_tpu_torch.__main__"]
+for name in names:
+    importlib.import_module(name)
+from nerf_rs_tpu_torch import CameraConfig, Config, RenderConfig
+from nerf_rs_tpu_torch.models.mlp import init_nerf_params
+from nerf_rs_tpu_torch.ops import rays
+from nerf_rs_tpu_torch.render import render_frame
+cfg = Config(camera=CameraConfig(width=8, height=8), render=RenderConfig(num_samples=8))
+model = init_nerf_params(cfg.model, torch.Generator().manual_seed(0))
+o, d = rays.ray_grid(rays.pose_from_yaw_pitch(0.3, 0.2), cfg.camera)
+rgb, depth, acc = render_frame(cfg, model, o, d)
+assert rgb.shape == (8, 8, 3) and bool(torch.isfinite(rgb).all())
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+print("modules", len(names), "jax-family", bad)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return env
+
+
+def test_port_imports_and_renders_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    last = proc.stdout.strip().splitlines()[-1]
+    assert last.endswith("jax-family []"), last
+    assert int(last.split()[1]) >= 15  # every module was walked
+
+
+def _bound_names(tab):
+    return {s.get_name() for s in tab.get_symbols()
+            if s.is_local() or s.is_parameter() or s.is_imported()}
+
+
+def _undefined(tab, enclosing, problems):
+    for child in tab.get_children():
+        bound = enclosing
+        if child.get_type() == "function":
+            bound = enclosing | _bound_names(child)
+            for s in child.get_symbols():
+                n = s.get_name()
+                if s.is_referenced() and n not in bound and not hasattr(builtins, n):
+                    problems.append(f"{child.get_name()}(): {n}")
+        _undefined(child, bound, problems)
+
+
+def test_chip_smoke_has_no_undefined_names():
+    src = (REPO / "chip_smoke.py").read_text()
+    tab = symtable.symtable(src, "chip_smoke.py", "exec")
+    problems = []
+    _undefined(tab, {s.get_name() for s in tab.get_symbols()}, problems)
+    assert not problems, f"chip_smoke.py would raise NameError: {problems}"
+    assert "import jax" not in src and "from nerf_rs_tpu." not in src
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, env=_env(),
+                          capture_output=True, text=True, timeout=240)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+    assert "no CUDA device" in proc.stderr

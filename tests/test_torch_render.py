@@ -1,0 +1,255 @@
+"""The PyTorch port's render slice as a whole on the CPU: full-frame
+rendering of the full-width paper field against the JAX package's
+``train.loop.render_frame`` on converted weights, the eager field path,
+compositing and metrics, the sphere dataset, checkpoints, PNG output,
+and the port's ``cli render``.
+"""
+
+import dataclasses
+import os
+import struct
+import types
+import zlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nerf_rs_tpu.config import CameraConfig, Config, ModelConfig, RenderConfig
+from nerf_rs_tpu.data import factory as jfactory
+from nerf_rs_tpu.models import mlp as jmlp
+from nerf_rs_tpu.ops import rays as jrays
+from nerf_rs_tpu.ops import render as jrender
+from nerf_rs_tpu.parallel import dp as jdp
+from nerf_rs_tpu.parallel import mesh as jmesh
+from nerf_rs_tpu.train import loop as jloop
+from nerf_rs_tpu_torch import cli
+from nerf_rs_tpu_torch.convert import params_from_numpy
+from nerf_rs_tpu_torch.data.factory import make_dataset
+from nerf_rs_tpu_torch.data.images import save_png
+from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
+from nerf_rs_tpu_torch.models.mlp import NerfMLP, init_nerf_params
+from nerf_rs_tpu_torch.ops import rays
+from nerf_rs_tpu_torch.ops import render as render_ops
+from nerf_rs_tpu_torch.render import default_render_chunk, make_render, render_frame
+from nerf_rs_tpu_torch.train import checkpoint as ckpt
+
+torch.set_num_threads(2)
+
+
+def _sphere_cfg(white: bool, size: int = 16, samples: int = 16) -> Config:
+    return Config(camera=CameraConfig(width=size, height=size),
+                  render=RenderConfig(num_samples=samples, white_background=white),
+                  data=dataclasses.replace(Config().data, dataset="sphere"))
+
+
+def _converted(cfg: ModelConfig, seed=0):
+    params = jmlp.init_nerf_params(jax.random.PRNGKey(seed), cfg)
+    model = NerfMLP(cfg)
+    model.load_state_dict(params_from_numpy(jax.tree.map(np.asarray, params)))
+    return params, model
+
+
+def _read_png(path):
+    """(H, W, C) uint8 of an 8-bit, filter-0 PNG (what save_png writes)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos, idat = 8, b""
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        assert struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] == zlib.crc32(kind + body)
+        if kind == b"IHDR":
+            w, h, depth, ctype = struct.unpack(">IIBB", body[:10])
+            assert depth == 8
+            c = {2: 3, 6: 4}[ctype]
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + w * c)
+    assert not raw[:, 0].any()
+    return raw[:, 1:].reshape(h, w, c)
+
+
+@pytest.mark.parametrize("white", [False, True])
+def test_render_frame_matches_jax(white):
+    """Full-width 8x256 field, 16x16 sphere view, S=16, through the JAX
+    render path (fused kernel, interpret mode) and the port's (the
+    kernel's plain version on the CPU). Bars: the JAX package's
+    kernel-vs-XLA bars, since both are bf16 fields with f32 sums and
+    JAX's interpret-mode bf16 dot sums slightly off f32 (see
+    test_torch_fused_ray.py)."""
+    cfg = _sphere_cfg(white)
+    params, model = _converted(cfg.model)
+    jds = jfactory.make_dataset(cfg)
+    o_j, d_j = jds.view_rays(5)
+    state = types.SimpleNamespace(params=params, fine_params=None, grid=None)
+    want = jloop.render_frame(cfg, state, o_j, d_j, jmesh.make_mesh(1))
+    ds = make_dataset(cfg)
+    o, d = ds.view_rays(5)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=1e-6)
+    np.testing.assert_allclose(d.numpy(), np.asarray(d_j), atol=1e-6)
+    got = render_frame(cfg, model, o, d)
+    for name, g, w, tol in zip(("rgb", "depth", "acc"), got, want, (3e-3, 5e-3, 3e-3)):
+        assert g.shape == w.shape, name
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=tol, err_msg=name)
+    np.testing.assert_allclose(ds.view_gold(5).numpy(), np.asarray(jds.view_gold(5)), atol=0)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_eager_render_rays_matches_jax(dtype):
+    """The non-kernel path: apply_nerf + composite. f32: summation order
+    only (atol 1e-4). bf16 ("mixed"): every layer rounded to bf16 on both
+    sides, so one-ulp flips propagate (atol 1e-2 on composited rgb)."""
+    mcfg = ModelConfig(net_depth=4, net_width=64, skip_layer=2, feature_width=64,
+                       view_head_width=32)
+    rcfg = RenderConfig(num_samples=16, white_background=True)
+    cam = CameraConfig(width=8, height=8)
+    params, model = _converted(mcfg)
+    pose = np.eye(3, dtype=np.float32)
+    o_j, d_j = jrays.ray_grid(jnp.asarray(pose), cam)
+    o, d = rays.ray_grid(torch.from_numpy(pose), cam)
+    jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (None, None)
+    want, _ = jrender.render_rays(params, o_j, d_j, jax.random.PRNGKey(0), mcfg, rcfg,
+                                  cam, randomized=False, dtype=jd)
+    with torch.no_grad():
+        got, fine = render_ops.render_rays(model, o, d, mcfg, rcfg, cam,
+                                           randomized=False, dtype=td)
+    assert fine is None
+    tol = 1e-2 if dtype == "bf16" else 1e-4
+    for name in ("rgb", "weights", "sigma", "depth", "acc", "ts"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(want, name)), atol=tol, err_msg=name)
+
+
+def test_composite_and_psnr_match_jax():
+    rng = np.random.default_rng(0)
+    sigma = rng.uniform(0, 3, (6, 10)).astype(np.float32)
+    colors = rng.uniform(0, 1, (6, 10, 3)).astype(np.float32)
+    deltas = rng.uniform(0, 0.3, (6, 10)).astype(np.float32)
+    ts = np.cumsum(deltas, -1)
+    for white in (False, True):
+        got = render_ops.composite(*map(torch.from_numpy, (sigma, colors, deltas)),
+                                   white_background=white, ts=torch.from_numpy(ts))
+        want = jrender.composite(*map(jnp.asarray, (sigma, colors, deltas)),
+                                 white_background=white, ts=jnp.asarray(ts))
+        for name in ("rgb", "weights", "depth", "acc"):
+            np.testing.assert_allclose(getattr(got, name).numpy(),
+                                       np.asarray(getattr(want, name)), atol=1e-6)
+    a, b = colors[..., 0], colors[..., 1]
+    np.testing.assert_allclose(
+        float(render_ops.psnr(torch.from_numpy(a), torch.from_numpy(b))),
+        float(jrender.psnr(jnp.asarray(a), jnp.asarray(b))), rtol=1e-6)
+
+
+def test_default_render_chunk_matches_jax():
+    mc = ModelConfig()
+    for rc in (RenderConfig(), RenderConfig(num_samples=16),
+               RenderConfig(num_samples=192), RenderConfig(num_fine_samples=128)):
+        for fused in (False, True):
+            assert default_render_chunk(rc, fused, mc) == jdp.default_render_chunk(rc, fused, mc)
+    assert default_render_chunk(RenderConfig(), fused=True) == 262144
+
+
+def test_make_render_packs_once_and_chunks_without_padding(monkeypatch):
+    """Ragged chunking gives the same frame as one call; weights are
+    packed once per frame, outside the chunk loop."""
+    from nerf_rs_tpu_torch.kernels import fused_render
+
+    cfg = _sphere_cfg(False, size=8, samples=8)
+    model = init_nerf_params(cfg.model, torch.Generator().manual_seed(0))
+    ds = make_dataset(cfg)
+    o, d = (a.reshape(-1, 3) for a in ds.view_rays(0))
+    packs = []
+    real = fused_render.pack_weights
+    monkeypatch.setattr(fused_render, "pack_weights", lambda *a: packs.append(1) or real(*a))
+    whole = make_render(cfg)(model, o, d)
+    chunked = make_render(cfg, chunk=23)(model, o, d)  # 64 rays -> 23 + 23 + 18
+    assert len(packs) == 2
+    for a, b in zip(whole, chunked):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+
+
+def test_checkpoint_round_trip_and_latest(tmp_path):
+    cfg = ModelConfig(net_depth=2, net_width=16, skip_layer=1, feature_width=16,
+                      view_head_width=16)
+    a = init_nerf_params(cfg, torch.Generator().manual_seed(0))
+    b = init_nerf_params(cfg, torch.Generator().manual_seed(1))
+    p1 = ckpt.save(a, str(tmp_path), step=7, ts=100)
+    p2 = ckpt.save(b, str(tmp_path), step=9, ts=100)
+    ckpt.save(a, str(tmp_path), step=3, ts=99)
+    assert os.path.basename(p1) == "checkpoint-100-7.pt"
+    assert ckpt.latest_checkpoint(str(tmp_path)) == p2
+    assert ckpt.latest_checkpoint(str(tmp_path / "missing")) is None
+    c = init_nerf_params(cfg, torch.Generator().manual_seed(2))
+    assert ckpt.restore_weights(p1, c) == 7
+    for k, v in a.state_dict().items():
+        assert torch.equal(v, c.state_dict()[k]), k
+
+
+def test_save_png_writes_what_it_is_given(tmp_path):
+    rng = np.random.default_rng(0)
+    for c in (3, 4):
+        img = rng.uniform(-0.1, 1.1, (5, 7, c)).astype(np.float32)
+        path = str(tmp_path / f"img{c}.png")
+        save_png(path, torch.from_numpy(img))
+        want = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+        np.testing.assert_array_equal(_read_png(path), want)
+
+
+def test_cli_render_view_and_sweep(tmp_path, capsys):
+    cfg = _sphere_cfg(False, size=16, samples=16)
+    model = init_nerf_params(cfg.model, torch.Generator().manual_seed(3))
+    path = ckpt.save(model, str(tmp_path / "ckpt"), step=5)
+    common = ["--dataset", "sphere", "--width", "16", "--height", "16",
+              "--num_samples", "16", "--load_path", path]
+    assert cli.main(["render", *common, "--view", "0", "--out_dir", str(tmp_path / "v")]) == 0
+    out = capsys.readouterr().out
+    assert f"loaded {path} (step 5)" in out
+    ds = make_dataset(cfg)
+    rgb, _, _ = render_frame(cfg, model, *ds.view_rays(0))
+    psnr = float(render_ops.psnr(rgb, ds.view_gold(0)))
+    assert f"psnr={psnr:.2f}" in out
+    want = np.clip(rgb.numpy() * 255.0, 0, 255).astype(np.uint8)
+    np.testing.assert_array_equal(_read_png(str(tmp_path / "v" / "view-0.png")), want)
+
+    before = fused_ray_render.launches
+    assert cli.main(["render", *common, "--frames", "2", "--out_dir", str(tmp_path / "s")]) == 0
+    assert fused_ray_render.launches == before  # CPU: the plain version, no launch
+    assert sorted(os.listdir(tmp_path / "s")) == ["frame-000.png", "frame-001.png"]
+    assert "rendered 2 frames of 16x16" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    ["render", "--dataset", "sphere", "--num_fine_samples", "64"],
+    ["render", "--dataset", "sphere", "--preset", "full"],
+    ["render", "--dataset", "sphere", "--ipe", "true"],
+])
+def test_cli_refuses_unported_flags(argv, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv)
+    assert e.value.code == 2
+    assert "not ported" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("cmd", ["train", "eval", "export"])
+def test_cli_refuses_unported_commands(cmd, capsys):
+    assert cli.main([cmd, "--dataset", "sphere"]) == 2
+    assert "not ported yet" in capsys.readouterr().err
+
+
+def test_unported_dataset_and_render_options_raise():
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        make_dataset(Config())  # multiview_png
+    for rc in (RenderConfig(num_fine_samples=8), RenderConfig(occ_res=16),
+               RenderConfig(sampling_space="disparity")):
+        with pytest.raises(NotImplementedError, match="slice"):
+            make_render(Config(render=rc))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        render_ops.render_rays(None, torch.zeros(1, 3), torch.ones(1, 3), ModelConfig(),
+                               RenderConfig(raw_noise_std=1.0), CameraConfig(),
+                               randomized=True)
