@@ -5,17 +5,29 @@
 Phases, each fatal (any failure exits non-zero):
   1. device: a CUDA card must be present; prints nvidia-smi's name and
      power limit. Without a card the script exits 1 and prints no result.
-  2. build: compiles the whole-ray render kernel from
-     nerf_rs_tpu_torch/kernels/csrc/ with nvcc for sm_90a.
-  3. kernel vs its plain PyTorch version at the flagship width (8x256
-     trunk, skip 4, F 256, V 128, PE 10/4, S 64) on 4,103 rays of two
-     poses, with midpoint and jittered samples, relu and softplus sigma.
-  4. the port's main path through its CLI: `render --dataset sphere` of
-     an 800x800 view from a seed-0 checkpoint, counting kernel launches
-     (one per 262,144-ray chunk), then a 4-frame 128x128 sweep.
-  5. times: the 800x800 frame through the kernel and through the plain
-     version, best of 3 synchronised windows each.
-The line before the last is one JSON object describing the kernel; the
+  2. build: compiles the whole-ray render kernel (K1) and train kernel
+     (K2) from nerf_rs_tpu_torch/kernels/csrc/ with nvcc for sm_90a, both
+     at once; prints build seconds and ptxas' register and spill lines.
+  3. K1 vs its plain PyTorch version at the flagship width (8x256 trunk,
+     skip 4, F 256, V 128, PE 10/4, S 64) on 4,103 rays of two poses,
+     with midpoint and jittered samples, relu and softplus sigma.
+  4. K2 vs its plain version on the same rays with sphere gold and
+     jittered samples (relu, relu on white, softplus on white), vs
+     autograd of the eager path, and two launches bit-identical.
+  5. the render path through the CLI: `render --dataset sphere` of an
+     800x800 view from a seed-0 checkpoint, counting K1 launches (one
+     per 262,144-ray chunk), then a 4-frame 128x128 sweep.
+  6. the training path through the CLI: `train --preset full --dataset
+     sphere` for 201 steps (K2 once per step, K1 for the two evals), then
+     a resume to 211 (exactly 10 more K2 launches).
+  7. learning: the 64x64 verify drive through K2 must reach eval PSNR
+     above 20 at iteration 300; then `cli eval` and `cli render` on its
+     checkpoint.
+  8. times: the 800x800 frame and one 262,144-ray chunk through K1 and
+     the plain version; the flagship train step (4096 rays x 64) through
+     K2, through autograd and through the plain version, K2a and K2b
+     alone, and a profile of the K2 step.
+The line before the last is one JSON object describing the kernels; the
 last is {"ok": true, "device": {...}}.
 """
 
@@ -33,6 +45,7 @@ import sys
 import tempfile
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 
 # kernel vs plain version on the same card, same inputs. Both multiply
 # bf16 operands into f32 sums; they differ only in summation order,
@@ -41,9 +54,19 @@ import zlib
 # the JAX package's kernel-vs-XLA bars (3e-3, depth 5e-3, sigma 2e-2 in
 # tests/test_fused_ray.py) to ~5x the largest diffs seen on an H100.
 TOL = {"rgb": 1e-3, "acc": 1e-3, "depth": 2e-3, "weights": 1e-3, "sigma": 2e-2}
+# K2 vs its plain version: diag columns 0-4 and weights absolute, each
+# gradient leaf normalised by the plain leaf's max. Tightened from the
+# JAX package's kernel-vs-autodiff bars (rgb 2e-2, loss 2e-3, grads 4e-2,
+# tests/test_fused_train.py) to ~5x the largest diffs seen on an H100
+# over three sets of weights (diag 2.5e-4, weights 3.7e-4, grads 2.4e-3).
+# K2 vs autograd keeps the JAX bar: autograd rounds to bf16 at other points.
+TRAIN_TOL = {"diag": 1.5e-3, "weights": 2e-3, "grads": 1e-2}
+AUTOGRAD_TOL = {"rgb": 2e-2, "loss": 2e-3, "grads": 4e-2}
+VERIFY_PSNR = 20.0  # eval PSNR the 64x64 learning check must pass at iteration 300
 N_RAYS = 4103  # ragged: not a multiple of the kernel's 2-ray tile
 FRAME = 800
 PLAIN_CHUNK = 32768  # rays per call of the plain version (device memory)
+KERNELS = ("fused_ray", "fused_train")  # csrc/{name}.cu
 
 
 def fail(msg: str) -> None:
@@ -112,6 +135,269 @@ def event_ms(fn, reps: int = 3) -> float:
     return best
 
 
+def run_cli(argv) -> tuple:
+    """(rc, stdout) of one port CLI call; the output is printed too."""
+    from nerf_rs_tpu_torch import cli
+
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        rc = cli.main(argv)
+    print(log.getvalue().rstrip())
+    return rc, log.getvalue()
+
+
+def leaf_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
+
+
+def check_train_kernel(model, mcfg, rays, ts, gold, far) -> float:
+    """K2 against its plain version and against autograd of the eager
+    path, at the flagship width; two launches bit-identical. Returns the
+    largest absolute difference from the plain version."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import (
+        fused_train_grads, fused_train_grads_reference, unpack_grads)
+    from nerf_rs_tpu_torch.models.mlp import apply_nerf
+    from nerf_rs_tpu_torch.ops import render as render_ops, sampling
+
+    o, d, vd = rays
+    S = ts.shape[1]
+    deltas = sampling.deltas_from_ts(ts, far)
+    max_err = 0.0
+    for case, act, white in (("relu", "relu", False), ("relu, white bg", "relu", True),
+                             ("softplus, white bg", "softplus", True)):
+        cfg = dataclasses.replace(mcfg, sigma_activation=act)
+        pk = pack_weights(model, cfg)
+        args = (pk, pack_weights_t(pk), o, d, vd, ts, deltas, gold, cfg, S)
+        got = fused_train_grads(*args, white_bg=white)
+        torch.cuda.synchronize()
+        want = fused_train_grads_reference(*args, white_bg=white)
+        outs = (got.diag, got.weights, *got.dw, *got.db)
+        if not all(bool(torch.isfinite(t).all()) for t in outs):
+            fail(f"K2 [{case}]: non-finite outputs")
+        errs = {
+            "diag": float((got.diag[:, :5] - want.diag[:, :5]).abs().max()),
+            "weights": float((got.weights - want.weights).abs().max()),
+            "grads": max(leaf_err(g, w) for g, w in zip(got.dw + got.db, want.dw + want.db)),
+        }
+        max_err = max(max_err, *(float((g - w).abs().max()) for g, w in zip(
+            outs, (want.diag, want.weights, *want.dw, *want.db))))
+        print(f"K2 vs plain [{case}] max |diff|: "
+              + ", ".join(f"{k} {v:.3g} (tol {TRAIN_TOL[k]:g})" for k, v in errs.items()))
+        bad = [k for k, v in errs.items() if not v <= TRAIN_TOL[k]]
+        if bad:
+            fail(f"K2 [{case}] disagrees with its plain version on {bad}")
+
+        model.zero_grad(set_to_none=True)
+        sigma, rgb = apply_nerf(model, sampling.points_from_ts(o, d, ts), vd[:, None, :],
+                                cfg, torch.bfloat16)
+        out = render_ops.composite(sigma, rgb, deltas, white_background=white)
+        loss = render_ops.mse(out.rgb, gold)
+        loss.backward()
+        params = dict(model.named_parameters())
+        errs = {
+            "rgb": float((got.diag[:, :3] - out.rgb.detach()).abs().max()),
+            "loss": abs(float(got.diag[:, 4].mean()) - float(loss.detach())),
+            "grads": max(leaf_err(g, params[k].grad)
+                         for k, g in unpack_grads(got, model, cfg).items()),
+        }
+        print(f"K2 vs autograd [{case}] max |diff|: "
+              + ", ".join(f"{k} {v:.3g} (tol {AUTOGRAD_TOL[k]:g})" for k, v in errs.items()))
+        bad = [k for k, v in errs.items() if not v <= AUTOGRAD_TOL[k]]
+        if bad:
+            fail(f"K2 [{case}] disagrees with autograd on {bad}")
+    model.zero_grad(set_to_none=True)
+    again = fused_train_grads(*args, white_bg=white)
+    if not all(torch.equal(a, b) for a, b in zip(outs, (again.diag, again.weights,
+                                                        *again.dw, *again.db))):
+        fail("two K2 launches on the same inputs gave different bits")
+    print("K2: two launches on the same inputs give bit-identical outputs")
+    return max_err
+
+
+def drive_training(tmp: str) -> int:
+    """`cli train --preset full` for 201 steps, then a resume to 211;
+    returns K2's launches on the first run."""
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+    from nerf_rs_tpu_torch.train import checkpoint as ckpt
+
+    ckdir = os.path.join(tmp, "train")
+    argv = ["train", "--preset", "full", "--dataset", "sphere", "--num_iter", "201",
+            "--eval_steps", "100", "--save_steps", "1000", "--save_dir", ckdir,
+            "--log_dir", ckdir]
+    fused_train_grads.launches = 0
+    fused_ray_render.launches = 0
+    t0 = time.perf_counter()
+    rc, out = run_cli(argv)
+    k2, k1 = fused_train_grads.launches, fused_ray_render.launches
+    print(f"cli train --preset full, 201 steps: rc {rc}, K2 launches {k2}, K1 launches {k1}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    losses = [float(v) for v in re.findall(r"iter=\d+, loss=(\S+)", out)]
+    evals = [float(v) for v in re.findall(r"eval psnr=(\S+)", out)]
+    if rc != 0 or k2 != 201 or k1 != 2:
+        fail(f"train: rc {rc}, K2 launches {k2} (want 201), K1 launches {k1} (want 2)")
+    if len(losses) != 4 or not all(map(math.isfinite, losses + evals)) or len(evals) != 2:
+        fail(f"train: losses {losses}, eval psnrs {evals}")
+    if not str(ckpt.latest_checkpoint(ckdir)).endswith("-201.pt"):
+        fail(f"train wrote no step-201 checkpoint in {os.listdir(ckdir)}")
+
+    fused_train_grads.launches = 0
+    rc, out = run_cli([a if a != "201" else "211" for a in argv])
+    if rc != 0 or "at step 201" not in out or fused_train_grads.launches != 10:
+        fail(f"resume: rc {rc}, K2 launches {fused_train_grads.launches} (want 10)")
+    print(f"resume to 211: K2 launches {fused_train_grads.launches}")
+    return k2
+
+
+def verify_drive(tmp: str) -> None:
+    """The 64x64 learning check (the JAX package's verify drive) on the
+    port, then eval and render on its checkpoint."""
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
+
+    vdir = os.path.join(tmp, "verify")
+    common = ["--dataset", "sphere", "--width", "64", "--height", "64", "--num_samples", "32",
+              "--save_dir", vdir]
+    rc, out = run_cli(["train", *common, "--num_rays", "1024", "--num_iter", "301",
+                       "--eval_steps", "100", "--learning_rate", "1e-3",
+                       "--use_whole_ray_train", "true", "--log_dir", vdir])
+    psnr = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", out))
+    if rc != 0 or "300" not in psnr or not float(psnr["300"]) > VERIFY_PSNR:
+        fail(f"verify drive: rc {rc}, eval psnr {psnr} (need > {VERIFY_PSNR} at 300)")
+    print(f"verify drive: eval psnr at 100/200/300 = {psnr}")
+    for argv, launches in ((["eval", *common, "--max_views", "3"], 3),
+                           (["render", *common, "--view", "0",
+                             "--out_dir", os.path.join(tmp, "vrender")], 1)):
+        fused_ray_render.launches = 0
+        rc, out = run_cli(argv)
+        if rc != 0 or fused_ray_render.launches != launches or "psnr" not in out:
+            fail(f"{argv[0]} on the trained checkpoint: rc {rc}, "
+                 f"K1 launches {fused_ray_render.launches} (want {launches})")
+
+
+@contextlib.contextmanager
+def plain_train_route():
+    """Route the train step's kernel call to the plain version, for the
+    timing comparison only."""
+    from nerf_rs_tpu_torch.kernels import fused_train
+
+    real = fused_train.fused_train_grads
+    fused_train.fused_train_grads = fused_train.fused_train_grads_reference
+    try:
+        yield
+    finally:
+        fused_train.fused_train_grads = real
+
+
+def device_ms(prof) -> dict:
+    """Device time in ms by kernel name from a torch.profiler run."""
+    out = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if t > 0:
+            out[e.key] = out.get(e.key, 0.0) + t / 1000.0
+    return out
+
+
+def time_training(card: str) -> dict:
+    """The flagship step (4096 rays x 64 samples) through K2, autograd
+    and the plain version; K2a and K2b alone; a profile of the K2 step."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch import cli
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import (
+        fused_train_grads, fused_train_grads_reference)
+    from nerf_rs_tpu_torch.ops import sampling
+    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+
+    dev = torch.device("cuda")
+    argv = ["train", "--preset", "full", "--dataset", "sphere"]
+    args = cli.build_parser().parse_args(argv)
+    args._explicit = cli.explicit_dests(argv)
+    cfg = cli.config_from_args(args)
+    ds = make_dataset(cfg, dev)
+    samples = cfg.train.num_rays * cfg.render.num_samples
+
+    def stepper(c):
+        state = init_state(c, dev)
+        fn = make_train_step(c, ds)
+        it = [0]
+
+        def run(n):
+            nonlocal state
+            for _ in range(n):
+                state, _ = fn(state, step_generator(0, it[0], dev))
+                it[0] += 1
+        return run
+
+    times = {}
+    for name, c, window in (("K2", cfg, 20),
+                            ("autograd", dataclasses.replace(cfg, use_whole_ray_train=False), 20)):
+        run = stepper(c)
+        run(3)
+        times[name] = best_of(lambda: run(window)) / window
+    with plain_train_route():
+        run = stepper(cfg)
+        run(1)
+        times["plain"] = best_of(lambda: run(2)) / 2
+    for name, t in times.items():
+        print(f"flagship train step through {name} [{card}]: {t * 1e3:.3f} ms/step, "
+              f"{samples / t:.4g} ray-samples/s (best of 3 windows)")
+
+    # one K2 call at the step's shape, alone, and its plain version
+    batch = ds.sample_batch(step_generator(0, 0, dev), cfg.train.num_rays)
+    ts = sampling.stratified_ts(batch.origins.shape[0], cfg.render.num_samples,
+                                cfg.camera.near, cfg.camera.far, True,
+                                generator=step_generator(1, 0, dev), device=dev)
+    model = init_state(cfg, dev).params
+    pk = pack_weights(model, cfg.model)
+    vd = batch.dirs / torch.linalg.norm(batch.dirs, dim=-1, keepdim=True)
+    k2_args = (pk, pack_weights_t(pk), batch.origins.contiguous(), batch.dirs.contiguous(),
+               vd.contiguous(), ts, sampling.deltas_from_ts(ts, cfg.camera.far),
+               batch.gold.contiguous(), cfg.model, cfg.render.num_samples)
+    fused_train_grads(*k2_args)
+    k2_ms = event_ms(lambda: fused_train_grads(*k2_args))
+    plain_ms = event_ms(lambda: fused_train_grads_reference(*k2_args))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fused_train_grads(*k2_args)
+        torch.cuda.synchronize()
+    per = {k: v / 5 for k, v in device_ms(prof).items()}
+    k2a = sum(v for k, v in per.items() if "train_tile_kernel" in k)
+    k2b = sum(v for k, v in per.items() if re.search(r"dw_partial|colsum|reduce_kernel|feat_bias", k))
+    print(f"one K2 call, 4096 x 64 [{card}]: {k2_ms:.3f} ms (CUDA events), plain version "
+          f"{plain_ms:.3f} ms; device time K2a {k2a:.3f} ms, K2b {k2b:.3f} ms "
+          + "(" + ", ".join(f"{k.split('(')[0].split('::')[-1]} {v:.3f}" for k, v in
+                          sorted(per.items(), key=lambda kv: -kv[1])) + ")")
+
+    # where a K2 step's time goes: device time by kernel over 10 steps
+    run = stepper(cfg)
+    run(3)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(10)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 10
+    per = sorted(((v / 10, k) for k, v in device_ms(prof).items()), reverse=True)
+    busy = sum(v for v, _ in per)
+    print(f"K2 step profile [{card}]: wall {wall:.3f} ms/step (profiled), device busy "
+          f"{busy:.3f} ms/step, idle {100 * (1 - busy / wall):.1f}%")
+    for v, k in per[:12]:
+        print(f"  {v:8.3f} ms/step  {k[:100]}")
+    return {"k2_ms": k2_ms, "plain_ms": plain_ms}
+
+
 def main() -> int:
     import torch
 
@@ -126,6 +412,7 @@ def main() -> int:
 
     from nerf_rs_tpu_torch import CameraConfig, ModelConfig
     from nerf_rs_tpu_torch import cli
+    from nerf_rs_tpu_torch.data import synthetic
     from nerf_rs_tpu_torch.data.factory import make_dataset
     from nerf_rs_tpu_torch.kernels import build
     from nerf_rs_tpu_torch.kernels.fused_ray import (
@@ -136,17 +423,20 @@ def main() -> int:
     from nerf_rs_tpu_torch.render import make_render, render_frame
     from nerf_rs_tpu_torch.train import checkpoint as ckpt
 
-    # ---- 2. build ----
+    # ---- 2. build: one nvcc per kernel source, all started together ----
     t0 = time.perf_counter()
-    lib = build.build("fused_ray")
-    print(f"build: {time.perf_counter() - t0:.1f} s -> {lib.name}")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if re.search(r"registers|spill", line):
-            print("ptxas:", line.strip())
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
+    print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(KERNELS)}")
+    for name, lib in libs.items():
+        print(f"  {name} -> {lib.name}")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if re.search(r"registers|spill", line):
+                print(f"ptxas [{name}]:", line.strip())
 
     # ---- 3. kernel vs plain version ----
     mcfg = ModelConfig()  # flagship: 8x256, skip 4, F 256, V 128, PE 10/4
-    model = init_nerf_params(mcfg, torch.Generator().manual_seed(0), dev)
+    model = init_nerf_params(mcfg, 0, dev)
     packed = pack_weights(model, mcfg)
     cam = CameraConfig(width=64, height=64)
     poses = rays_ops.pose_from_yaw_pitch(
@@ -182,7 +472,12 @@ def main() -> int:
             fail(f"{case}: kernel disagrees with its plain version on {bad}")
         max_err = max(max_err, *errs.values())
 
-    # ---- 4. the main path through the CLI ----
+    # ---- 4. K2 vs its plain version and vs autograd ----
+    gold = synthetic.sphere_image(cam, device=dev)[..., :3].reshape(-1, 3)
+    gold = torch.cat([gold, gold])[:N_RAYS].contiguous()
+    train_err = check_train_kernel(model, mcfg, (o, d, vd), ts_jit, gold, cam.far)
+
+    # ---- 5. the render path through the CLI ----
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         path = ckpt.save(model, os.path.join(tmp, "ckpt"), step=0)
@@ -239,10 +534,16 @@ def main() -> int:
         if rc != 0 or len(frames) != 4 or fused_ray_render.launches != 1:
             fail(f"sweep: rc {rc}, frames {frames}, "
                  f"launches {fused_ray_render.launches}")
+
+        # ---- 6. the training path through the CLI ----
+        train_launches = drive_training(tmp)
+
+        # ---- 7. learning: the verify drive, then eval and render ----
+        verify_drive(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
-    # ---- 5. times ----
+    # ---- 8. times ----
     flat_o, flat_d = fo.reshape(-1, 3), fd.reshape(-1, 3)
     render_fn = make_render(cfg)
 
@@ -296,6 +597,8 @@ def main() -> int:
     print(f"one {n}-ray chunk [{card}]: kernel {ms:.3f} ms "
           f"(~{tflops:.1f} TFLOP/s bf16), plain {plain_ms:.3f} ms")
 
+    train_times = time_training(card)
+
     if "jax" in sys.modules:
         fail("jax was imported")
     print(json.dumps({"kernels": [{
@@ -307,6 +610,15 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "fused_train_grads",
+        "route": "cuda",
+        "source": "nerf_rs_tpu_torch/kernels/csrc/fused_train.cu",
+        "replaces": "nerf_rs_tpu/kernels/fused_train.py:93",
+        "launches": train_launches,
+        "max_abs_err": train_err,
+        "ms": train_times["k2_ms"],
+        "plain_ms": train_times["plain_ms"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

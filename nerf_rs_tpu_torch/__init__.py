@@ -2,9 +2,12 @@
 NVIDIA H100.
 
 The module tree mirrors ``nerf_rs_tpu`` so each counterpart is found by
-name. Plain tensor code is PyTorch; the whole-ray render kernel that the
-JAX package wrote in Pallas (``nerf_rs_tpu/kernels/fused_ray.py``) is a
-CUDA C++ kernel for ``sm_90a`` here (``kernels/csrc/fused_ray.cu``).
+name. Plain tensor code is PyTorch; the Pallas kernels the ported path
+runs are CUDA C++ kernels for ``sm_90a`` here: the whole-ray render
+kernel (``nerf_rs_tpu/kernels/fused_ray.py`` -> ``kernels/csrc/fused_ray.cu``)
+and the whole-ray train kernel (``nerf_rs_tpu/kernels/fused_train.py`` ->
+``kernels/csrc/fused_train.cu``). The ported path is the flagship's:
+``cli train``, ``cli eval`` and ``cli render`` on the sphere scene.
 
 The configuration dataclasses are shared with the JAX package rather
 than copied: ``nerf_rs_tpu.config`` is plain dataclasses and importing it
@@ -14,10 +17,13 @@ loads no JAX. This package itself never imports ``jax``.
 from nerf_rs_tpu.config import (
     CameraConfig,
     Config,
+    DataConfig,
     ModelConfig,
     RenderConfig,
+    TrainConfig,
 )
 
 __version__ = "0.1.0"
 
-__all__ = ["CameraConfig", "Config", "ModelConfig", "RenderConfig"]
+__all__ = ["CameraConfig", "Config", "DataConfig", "ModelConfig", "RenderConfig",
+           "TrainConfig"]

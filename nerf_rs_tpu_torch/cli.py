@@ -1,14 +1,19 @@
-"""CLI of the port: the ``render`` subcommand, the counterpart of
-``cmd_render`` in ``nerf_rs_tpu/cli.py``.
+"""CLI of the port: ``train``, ``eval`` and ``render``, the counterparts
+of ``cmd_train``, ``cmd_eval`` and ``cmd_render`` in
+``nerf_rs_tpu/cli.py``.
 
+  python -m nerf_rs_tpu_torch.cli train --preset full --dataset sphere
+  python -m nerf_rs_tpu_torch.cli eval --dataset sphere --max_views 3
   python -m nerf_rs_tpu_torch.cli render --dataset sphere --view 0
-  python -m nerf_rs_tpu_torch.cli render --dataset sphere --frames 40
 
-It takes the JAX parser's flags that the ported slice serves. Flags of
-slices not ported yet, and the ``train``/``eval``/``export``
-subcommands, are refused with an error rather than ignored. Renders run
-on the CUDA device when there is one (through the whole-ray kernel),
-else on the CPU.
+It takes the JAX parser's flags that the ported slices serve, with the
+JAX defaults (``--use_whole_ray_train`` is off unless a preset turns it
+on; ``--preset tiny`` and ``--preset full`` do, and explicit flags beat
+the preset). Flags, presets and values of slices not ported yet, and
+the ``export`` subcommand, are refused with an error that names the
+slice, never ignored. Runs go to the CUDA device when there is one
+(training through the whole-ray train kernel, rendering through the
+render kernel), else to the CPU.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from nerf_rs_tpu.config import (
@@ -30,8 +36,30 @@ from nerf_rs_tpu.config import (
     TrainConfig,
 )
 
-LATER = {"train": "the training slice", "eval": "the training slice",
-         "export": "slice 7"}
+from .train.loop import default_device
+
+LATER = {"export": "slice 7"}
+
+# the JAX parser's flags that later slices bring, by slice
+_LATER_FLAGS = {
+    2: "num_fine_samples share_network fine_mode",
+    3: "ipe multiscale_levels",
+    4: "occ_res occ_update_steps occ_threshold occ_aabb occ_bins occ_decay "
+       "occ_uniform_frac",
+    5: "contract sampling_space use_proposal proposal_samples proposal_levels "
+       "proposal_depth proposal_width proposal_anneal_steps distortion_weight",
+    6: "img_dir view_start view_end view_step num_views_per_hemisphere llff_factor "
+       "llff_holdout ndc ndc_near batch_mode views_per_batch prefetch data_workers "
+       "use_native_loader error_resample_frac error_resample_ema",
+    7: "ema_decay accumulation_steps profile_steps log_densities_only depth gif",
+    8: "num_devices shard_pixel_store scenes scene_index",
+    9: "arch hash_levels hash_table_log2 hash_base_res hash_max_res hash_aabb "
+       "hash_brick fac_levels fac_base_res fac_max_res fac_comps fac_aabb fac_l1",
+    10: "compat",
+}
+_FLAG_SLICE = {f: n for n, flags in _LATER_FLAGS.items() for f in flags.split()}
+_PRESET_SLICE = {"hierarchical": 2, "mipnerf": 3, "record": 4, "proposal": 5,
+                 "unbounded": 5, "pod": 6, "ngp": 9, "factored": 9}
 
 
 def _bool_flag(p, name, default, help=""):
@@ -46,23 +74,60 @@ def _bool_flag(p, name, default, help=""):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="nerf_rs_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
-    pr = sub.add_parser("render")
-    pr.add_argument("--dataset", default="multiview_png",
-                    choices=["multiview_png", "blender", "llff", "sphere",
-                             "flat_sphere"])
-    pr.add_argument("--width", type=int, default=128)
-    pr.add_argument("--height", type=int, default=128)
-    pr.add_argument("--near", type=float, default=0.05)
-    pr.add_argument("--far", type=float, default=2.0)
-    pr.add_argument("--num_samples", type=int, default=64)
-    pr.add_argument("--precision", default="mixed", choices=["f32", "bf16", "mixed"],
-                    help="matmul precision of the eager field path; the "
-                         "kernel always multiplies in bf16")
-    _bool_flag(pr, "white_background", False)
-    _bool_flag(pr, "use_fused_kernel", True,
-               "render through the whole-ray CUDA kernel")
-    pr.add_argument("--load_path", default="")
-    pr.add_argument("--save_dir", default="checkpoints")
+
+    common = argparse.ArgumentParser(add_help=False)
+    _bool_flag(common, "debug", False, "eval renders the gold view instead of predictions")
+    _bool_flag(common, "do_train", True)
+    _bool_flag(common, "eval_on_train", True)
+    _bool_flag(common, "live_preview", False,
+               "print eval frames in the terminal (ANSI half-blocks)")
+    common.add_argument("--log_dir", default="logs")
+    common.add_argument("--save_dir", default="checkpoints")
+    common.add_argument("--load_path", default="")
+    common.add_argument("--run_name", default="")
+    common.add_argument("--num_iter", type=int, default=50_000)
+    common.add_argument("--eval_steps", type=int, default=101)
+    common.add_argument("--logging_steps", type=int, default=101)
+    common.add_argument("--save_steps", type=int, default=1001)
+    common.add_argument("--learning_rate", type=float, default=5e-4)
+    common.add_argument("--lr_decay_steps", type=int, default=0,
+                        help="exponential decay horizon (0 = constant lr)")
+    common.add_argument("--lr_final", type=float, default=5e-6)
+    common.add_argument("--dataset", default="multiview_png",
+                        choices=["multiview_png", "blender", "llff", "sphere",
+                                 "flat_sphere"])
+    common.add_argument("--width", type=int, default=128)
+    common.add_argument("--height", type=int, default=128)
+    common.add_argument("--near", type=float, default=0.05)
+    common.add_argument("--far", type=float, default=2.0)
+    common.add_argument("--num_rays", type=int, default=4096)
+    common.add_argument("--num_samples", type=int, default=64)
+    _bool_flag(common, "white_background", False)
+    common.add_argument("--sigma_activation", default="relu", choices=["relu", "softplus"])
+    common.add_argument("--precision", default="mixed", choices=["f32", "bf16", "mixed"],
+                        help="matmul precision of the eager field path; the "
+                             "kernels always multiply in bf16")
+    common.add_argument("--seed", type=int, default=0)
+    _bool_flag(common, "use_fused_kernel", True,
+               "render through the whole-ray CUDA render kernel")
+    _bool_flag(common, "use_whole_ray_train", False,
+               "train through the whole-ray CUDA train kernel (presets tiny "
+               "and full turn it on)")
+
+    pt = sub.add_parser("train", parents=[common])
+    pt.add_argument("--preset", default="",
+                    choices=["", "tiny", "full", *sorted(_PRESET_SLICE)],
+                    help="tiny = 100x100 coarse-only 4096-ray fit; full = paper "
+                         "NeRF, stratified 64; both through the train kernel")
+
+    pe = sub.add_parser("eval", parents=[common])
+    pe.add_argument("--split", default="test", help="dataset split to evaluate")
+    pe.add_argument("--max_views", type=int, default=0, help="0 = all views")
+    pe.add_argument("--out_dir", default="", help="optionally dump per-view renders")
+    pe.add_argument("--scales", default="",
+                    help="downscales to evaluate; only 1 until slice 3")
+
+    pr = sub.add_parser("render", parents=[common])
     pr.add_argument("--out_dir", default="renders")
     pr.add_argument("--view", type=int, default=-1,
                     help="render one dataset view instead of a sweep")
@@ -71,39 +136,155 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def explicit_dests(argv) -> set:
+    """Dest names the user explicitly passed in ``argv``: re-parses with
+    every default suppressed, so presets never clobber an explicit
+    flag."""
+    p = build_parser()
+    stack = [p]
+    while stack:
+        parser = stack.pop()
+        for a in parser._actions:
+            if isinstance(a, argparse._SubParsersAction):
+                stack.extend(a.choices.values())
+            else:
+                a.default = argparse.SUPPRESS
+    ns, _ = p.parse_known_args(argv)
+    return set(vars(ns))
+
+
+def _apply_preset(args):
+    """Overlay the named preset onto parsed args: explicit user flags
+    (``args._explicit``) beat the preset, which beats parser defaults."""
+    p = getattr(args, "preset", "")
+    explicit = getattr(args, "_explicit", set())
+
+    def _set(**kw):
+        for name, value in kw.items():
+            if name not in explicit:
+                setattr(args, name, value)
+
+    if p in _PRESET_SLICE:
+        raise NotImplementedError(f"--preset {p} comes with slice {_PRESET_SLICE[p]} "
+                                  f"of the port")
+    if p == "tiny":
+        _set(width=100, height=100, num_rays=4096, num_samples=64,
+             use_whole_ray_train=True)
+    elif p == "full":
+        _set(num_samples=64, use_whole_ray_train=True)
+    return args
+
+
 def config_from_args(args) -> Config:
+    args = _apply_preset(args)
     return Config(
-        load_path=args.load_path,
+        debug=args.debug,
+        do_train=args.do_train,
+        eval_on_train=args.eval_on_train,
+        live_preview=args.live_preview,
+        log_dir=args.log_dir,
         save_dir=args.save_dir,
+        load_path=args.load_path,
+        run_name=args.run_name,
         camera=CameraConfig(width=args.width, height=args.height,
                             near=args.near, far=args.far),
-        model=ModelConfig(),
+        model=ModelConfig(sigma_activation=args.sigma_activation),
         render=RenderConfig(num_samples=args.num_samples,
                             white_background=args.white_background),
-        train=TrainConfig(precision=args.precision),
+        train=TrainConfig(
+            num_rays=args.num_rays,
+            learning_rate=args.learning_rate,
+            lr_decay_steps=args.lr_decay_steps,
+            lr_final=args.lr_final,
+            num_iter=args.num_iter,
+            eval_steps=args.eval_steps,
+            logging_steps=args.logging_steps,
+            save_steps=args.save_steps,
+            seed=args.seed,
+            precision=args.precision,
+        ),
         data=DataConfig(dataset=args.dataset),
         use_fused_kernel=args.use_fused_kernel,
+        use_whole_ray_train=args.use_whole_ray_train,
     )
+
+
+def _load_params(cfg: Config, device):
+    """The field with the weights of --load_path, else of the newest
+    checkpoint in --save_dir (weights only: inference does not depend on
+    the optimizer). Returns (params, path or None)."""
+    from .models.mlp import init_nerf_params
+    from .train import checkpoint as ckpt
+
+    params = init_nerf_params(cfg.model, cfg.train.seed, device)
+    load_path = cfg.load_path or ckpt.latest_checkpoint(cfg.save_dir)
+    if load_path:
+        step = ckpt.restore_weights(load_path, params)
+        print(f"loaded {load_path} (step {step})")
+    return params, load_path
+
+
+def cmd_train(args) -> int:
+    from .data.factory import make_dataset
+    from .train.loop import train
+
+    cfg = config_from_args(args)
+    state = train(cfg, dataset=make_dataset(cfg, default_device()))
+    print(f"done at step {state.step}")
+    return 0
+
+
+def cmd_eval(args) -> int:
+    """Per-view and mean PSNR and SSIM over a split, rendered with the
+    deterministic sampler."""
+    from .data.factory import make_dataset
+    from .data.images import save_png
+    from .ops import render as render_ops
+    from .ops.metrics import ssim as ssim_fn
+    from .render import make_render, render_frame
+
+    if args.scales not in ("", "1"):
+        raise NotImplementedError("multiscale eval (--scales) comes with slice 3 of the port")
+    cfg = config_from_args(args)
+    device = default_device()
+    dataset = make_dataset(cfg, device)
+    params, load_path = _load_params(cfg, device)
+    if not load_path:
+        print("error: no checkpoint found (use --load_path or --save_dir)")
+        return 1
+    render_fn = make_render(cfg)
+    n = dataset.num_views if args.max_views <= 0 else min(args.max_views, dataset.num_views)
+    if args.out_dir:
+        os.makedirs(args.out_dir, exist_ok=True)
+    psnrs, ssims = [], []
+    t0 = time.time()
+    for v in range(n):
+        rgb, _, _ = render_frame(cfg, params, *dataset.view_rays(v), render_fn)
+        gold = dataset.view_gold(v)
+        p = float(render_ops.psnr(rgb, gold))
+        s = float(ssim_fn(rgb, gold))
+        psnrs.append(p)
+        ssims.append(s)
+        print(f"view {v:3d}: psnr {p:.2f}  ssim {s:.4f}")
+        if args.out_dir:
+            save_png(os.path.join(args.out_dir, f"eval-{v:03d}.png"), rgb)
+    print(f"mean psnr over {n} {args.split} views: {np.mean(psnrs):.2f} "
+          f"(min {np.min(psnrs):.2f}, max {np.max(psnrs):.2f}), "
+          f"mean ssim {np.mean(ssims):.4f} in {time.time()-t0:.1f}s")
+    return 0
 
 
 def cmd_render(args) -> int:
     from .data.factory import make_dataset
     from .data.images import save_png
-    from .models.mlp import init_nerf_params
     from .ops import rays as rays_ops, render as render_ops
     from .render import make_render, render_frame
-    from .train import checkpoint as ckpt
 
     cfg = config_from_args(args)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = default_device()
     dataset = make_dataset(cfg, device)
-    params = init_nerf_params(
-        cfg.model, torch.Generator().manual_seed(cfg.train.seed), device)
-    load_path = cfg.load_path or ckpt.latest_checkpoint(cfg.save_dir)
-    if load_path:
-        step = ckpt.restore_weights(load_path, params)
-        print(f"loaded {load_path} (step {step})")
-    else:
+    params, load_path = _load_params(cfg, device)
+    if not load_path:
         print("warning: no checkpoint found; rendering an untrained field")
     render_fn = make_render(cfg)
 
@@ -135,6 +316,11 @@ def cmd_render(args) -> int:
     return 0
 
 
+def _later(flag: str) -> str:
+    n = _FLAG_SLICE.get(flag.lstrip("-").split("=")[0])
+    return f"{flag} (slice {n})" if n else flag
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] in LATER:
@@ -145,10 +331,16 @@ def main(argv=None) -> int:
     args, unknown = parser.parse_known_args(argv)
     if unknown:
         parser.error("not ported to the PyTorch package yet (later slices): "
-                     + " ".join(unknown))
-    # the kernel's plain reference and any f32 matmul must stay full f32
+                     + " ".join(_later(f) for f in unknown if f.startswith("-")))
+    args._explicit = explicit_dests(argv)
+    # the kernels' plain versions and any f32 matmul must stay full f32
     torch.backends.cuda.matmul.allow_tf32 = False
-    return cmd_render(args)
+    cmd = {"train": cmd_train, "eval": cmd_eval, "render": cmd_render}[args.cmd]
+    try:
+        return cmd(args)
+    except NotImplementedError as e:
+        print(f"error: not ported yet: {e}", file=sys.stderr)
+        return 2
 
 
 if __name__ == "__main__":

@@ -1,0 +1,444 @@
+// Device code shared by the whole-ray kernels: the render kernel K1
+// (fused_ray.cu) and the training kernel K2 (fused_train.cu).
+//
+// Both evaluate the paper field on a CTA tile of 128 sample rows (128 / S
+// whole rays): PE of the points and view directions into bf16 tiles in
+// shared memory, then every layer as bf16 x bf16 -> f32 tensor-core
+// products (mma.sync.m16n8k16) whose epilogues run in registers.
+//
+// Layout of a product. 16 warps tile the 128 rows 4 ways (32 rows each)
+// and the output columns in chunks of 64. A operands come from shared
+// memory through ldmatrix; B operands (weights) from global memory,
+// pre-packed by kernels/fused_render._swizzle so each lane reads its
+// fragment as one coalesced 8-byte load (the weights stay in L2).
+// Activations alternate between two buffers, so no warp overwrites rows
+// another warp still reads.
+//
+// Numerics: no fast math. sinf/cosf with exact ldexpf scales for the PE
+// (sin(2^9 x) loses its phase with a low-precision argument or sine);
+// points are o + t*d with the multiply and add rounded separately, as the
+// plain versions compute them.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace nerf {
+
+typedef __nv_bfloat16 bf16;
+
+constexpr int kRows = 128;                       // sample rows per CTA
+constexpr int kThreads = 512;                    // 16 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowGroups = 4;                    // warps tile rows 4 ways ...
+constexpr int kColGroups = kWarps / kRowGroups;  // ... and column chunks 4 ways
+constexpr int kWarpRows = kRows / kRowGroups;    // 32 rows per warp
+constexpr int kMT = kWarpRows / 16;              // m16 tiles per warp
+constexpr int kChunk = 8;                        // n8 tiles per warp pass (64 columns)
+constexpr int kMaxMats = 24;
+constexpr int kLdr = 24;                         // row stride of K2's 16-wide rgb-gradient tile
+
+// The field's inputs, packed weights and widths.
+struct Field {
+  const float* o;
+  const float* d;
+  const float* vd;
+  const float* ts;
+  const float* deltas;
+  const bf16* w;
+  const float* b;
+  long long w_off[kMaxMats];  // matrices: trunk[0..n_layers), skip, sf, view, view_dir, rgb
+  long long b_off[kMaxMats];  // biases: trunk[0..n_layers), sf, view, rgb
+  long long n_rays;
+  int S, n_layers, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act;
+  int ldb, ldx, ldd;  // shared-memory row strides in bf16 elements
+};
+
+// Fills f from the C entry point's arguments. Returns 0 or a negative
+// code for a shape the kernels do not take (kernels/fused_ray.py maps the
+// codes to messages).
+inline int init_field(Field* f, const void* o, const void* d, const void* vd, const void* ts,
+                      const void* deltas, const void* w, const void* b, const long long* w_off,
+                      int n_w, const long long* b_off, int n_b, long long n_rays, int S,
+                      int depth_l, int skip, int W, int F, int V, int P, int D, int pos_levels,
+                      int dir_levels, int sigma_act) {
+  if (S <= 0 || S > kRows || kRows % S != 0) return -1;
+  if (n_w != depth_l + 5 || n_b != depth_l + 3 || n_w > kMaxMats || depth_l < 1) return -2;
+  if (W % 16 || F % 16 || V % 16 || P % 16 || D % 16) return -3;
+  if (3 + 6 * pos_levels > P || 3 + 6 * dir_levels > D) return -4;
+  if (sigma_act != 0 && sigma_act != 1) return -6;
+  f->o = static_cast<const float*>(o);
+  f->d = static_cast<const float*>(d);
+  f->vd = static_cast<const float*>(vd);
+  f->ts = static_cast<const float*>(ts);
+  f->deltas = static_cast<const float*>(deltas);
+  f->w = static_cast<const bf16*>(w);
+  f->b = static_cast<const float*>(b);
+  for (int i = 0; i < kMaxMats; ++i) {
+    f->w_off[i] = i < n_w ? w_off[i] : 0;
+    f->b_off[i] = i < n_b ? b_off[i] : 0;
+  }
+  f->n_rays = n_rays;
+  f->S = S;
+  f->n_layers = depth_l;
+  f->skip = skip;
+  f->W = W;
+  f->F = F;
+  f->V = V;
+  f->P = P;
+  f->D = D;
+  f->pos_levels = pos_levels;
+  f->dir_levels = dir_levels;
+  f->sigma_act = sigma_act;
+  int widest = W > F ? W : F;
+  widest = widest > V ? widest : V;
+  f->ldb = widest + 8;  // +8 bf16 per row: conflict-free ldmatrix
+  f->ldx = P + 8;
+  f->ldd = D + 8;
+  return 0;
+}
+
+struct SmemLayout {
+  size_t buf0, buf1, xs, ds, sig_raw, rgb, ts, dl, w, sg, ray, dpe, drgb, dsig, total;
+};
+
+__host__ __device__ inline size_t take(size_t* at, size_t bytes) {
+  const size_t here = *at;
+  *at += (bytes + 15) & ~static_cast<size_t>(15);
+  return here;
+}
+
+// train adds K2's rgb-gradient tile and dsigma column (empty for K1)
+__host__ __device__ inline SmemLayout smem_layout(const Field& f, bool train) {
+  const int rays = kRows / f.S;
+  SmemLayout L;
+  size_t at = 0;
+  L.buf0 = take(&at, sizeof(bf16) * kRows * f.ldb);
+  L.buf1 = take(&at, sizeof(bf16) * kRows * f.ldb);
+  L.xs = take(&at, sizeof(bf16) * kRows * f.ldx);
+  L.ds = take(&at, sizeof(bf16) * kRows * f.ldd);
+  L.sig_raw = take(&at, sizeof(float) * kRows);
+  L.rgb = take(&at, sizeof(float) * kRows * 4);
+  L.ts = take(&at, sizeof(float) * kRows);
+  L.dl = take(&at, sizeof(float) * kRows);
+  L.w = take(&at, sizeof(float) * kRows);
+  L.sg = take(&at, sizeof(float) * kRows);
+  L.ray = take(&at, sizeof(float) * rays * 9);
+  L.dpe = take(&at, sizeof(float) * rays * f.D);
+  L.drgb = take(&at, train ? sizeof(bf16) * kRows * kLdr : 0);
+  L.dsig = take(&at, train ? sizeof(float) * kRows : 0);
+  L.total = at;
+  return L;
+}
+
+// The CTA's shared-memory regions.
+struct Tile {
+  bf16* buf0;
+  bf16* buf1;
+  bf16* xs;      // PE(points), bf16, row stride ldx
+  bf16* ds;      // PE(viewdir) per row, bf16, row stride ldd
+  float* sig_raw;
+  float* rgb;    // 4 floats per row
+  float* ts;
+  float* dl;
+  float* w;
+  float* sg;
+  float* ray;    // per ray: o, d, viewdir
+  float* dpe;    // per ray: PE(viewdir), f32
+  bf16* drgb;    // K2: d rgb_raw, 16 columns, row stride kLdr
+  float* dsig;   // K2: d sigma_raw rounded to bf16
+};
+
+__device__ inline Tile carve(unsigned char* smem, const SmemLayout& L) {
+  Tile t;
+  t.buf0 = reinterpret_cast<bf16*>(smem + L.buf0);
+  t.buf1 = reinterpret_cast<bf16*>(smem + L.buf1);
+  t.xs = reinterpret_cast<bf16*>(smem + L.xs);
+  t.ds = reinterpret_cast<bf16*>(smem + L.ds);
+  t.sig_raw = reinterpret_cast<float*>(smem + L.sig_raw);
+  t.rgb = reinterpret_cast<float*>(smem + L.rgb);
+  t.ts = reinterpret_cast<float*>(smem + L.ts);
+  t.dl = reinterpret_cast<float*>(smem + L.dl);
+  t.w = reinterpret_cast<float*>(smem + L.w);
+  t.sg = reinterpret_cast<float*>(smem + L.sg);
+  t.ray = reinterpret_cast<float*>(smem + L.ray);
+  t.dpe = reinterpret_cast<float*>(smem + L.dpe);
+  t.drgb = reinterpret_cast<bf16*>(smem + L.drgb);
+  t.dsig = reinterpret_cast<float*>(smem + L.dsig);
+  return t;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// PE column c of the scalar x: c < 3 is the raw value; otherwise with
+// r = c - 3 the level is r / 6 and the column sin (r % 6 < 3) or cos of
+// 2^level * x -- the layout of models/encoding.posenc.
+__device__ __forceinline__ float pe_value(float x, int c) {
+  if (c < 3) return x;
+  const int r = c - 3;
+  const float t = ldexpf(x, r / 6);
+  return (r % 6 < 3) ? sinf(t) : cosf(t);
+}
+
+typedef float Acc[kMT][kChunk][4];
+
+// acc += A[row0 : row0 + 32, 0 : K] @ Wm[:, 8 nt0 : 8 (nt0 + nts)]
+__device__ __forceinline__ void mma_accumulate(Acc& acc, const bf16* A, int lda, int K,
+                                               const uint2* Wm, int nt0, int nts, int row0,
+                                               int lane) {
+  const int KT = K / 16;
+  // ldmatrix x4 row addresses: lanes 0-15 rows 0-15 at k, lanes 16-31 rows 0-15 at k + 8
+  const bf16* a_row = A + (row0 + (lane & 15)) * lda + (lane >> 4) * 8;
+  for (int kt = 0; kt < KT; ++kt) {
+    uint32_t a[kMT][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) ldmatrix_x4(a[mt], a_row + mt * 16 * lda + kt * 16);
+#pragma unroll
+    for (int j = 0; j < kChunk; ++j) {
+      if (j < nts) {
+        const uint2 bw = __ldg(Wm + (static_cast<size_t>(nt0 + j) * KT + kt) * 32 + lane);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt) mma_16816(acc[mt][j], a[mt], bw.x, bw.y);
+      }
+    }
+  }
+}
+
+// out = epi(A1 @ W1 [+ A2 @ W2]) for the CTA's 128 rows and N columns
+template <class Epi>
+__device__ __forceinline__ void dense_layer(const bf16* A1, int lda1, int K1, const uint2* W1,
+                                            const bf16* A2, int lda2, int K2, const uint2* W2,
+                                            int N, const Epi& epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row0 = (warp % kRowGroups) * kWarpRows;
+  const int g = lane >> 2, t = lane & 3;
+  const int NT = N / 8;
+  const int chunks = (NT + kChunk - 1) / kChunk;
+  for (int ch = warp / kRowGroups; ch < chunks; ch += kColGroups) {
+    const int nt0 = ch * kChunk;
+    const int nts = min(kChunk, NT - nt0);
+    Acc acc;
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+    mma_accumulate(acc, A1, lda1, K1, W1, nt0, nts, row0, lane);
+    if (A2 != nullptr) mma_accumulate(acc, A2, lda2, K2, W2, nt0, nts, row0, lane);
+    // accumulator fragment: c0, c1 at (row g, cols 2t, 2t + 1); c2, c3 at row g + 8
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        if (j < nts) {
+          const int col = (nt0 + j) * 8 + 2 * t;
+          const int row = row0 + mt * 16 + g;
+          epi(row, col, acc[mt][j][0], acc[mt][j][1]);
+          epi(row + 8, col, acc[mt][j][2], acc[mt][j][3]);
+        }
+      }
+  }
+}
+
+__device__ __forceinline__ void store_pair(bf16* p, __nv_bfloat162 v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+
+// hidden layer: bf16(relu(acc + b)) into an activation buffer, and into a
+// global stash (K2's backward reads it; null for K1)
+struct ReluStore {
+  bf16* out;
+  int ldo;
+  const float* b;
+  bf16* stash;
+  int lds;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    v0 = fmaxf(v0 + b[c], 0.f);
+    v1 = fmaxf(v1 + b[c + 1], 0.f);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+    store_pair(out + r * ldo + c, h);
+    if (stash != nullptr) store_pair(stash + r * lds + c, h);
+  }
+};
+
+// [feature | sigma] head: bf16 feature (no activation), f32 raw sigma at
+// column F; the feature also into a global stash when one is given
+struct FeatSigmaStore {
+  bf16* feat;
+  int ldo;
+  const float* b;
+  float* sig_raw;
+  int F;
+  bf16* stash;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    if (c < F) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(v0 + b[c], v1 + b[c + 1]);
+      store_pair(feat + r * ldo + c, h);
+      if (stash != nullptr) store_pair(stash + r * F + c, h);
+    } else if (c == F) {
+      sig_raw[r] = v0 + b[c];
+    }
+  }
+};
+
+// rgb head: sigmoid in f32, three real columns of the 8
+struct RgbStore {
+  float* rgb;
+  const float* b;
+  __device__ void operator()(int r, int c, float v0, float v1) const {
+    if (c < 3) rgb[r * 4 + c] = 1.f / (1.f + expf(-(v0 + b[c])));
+    if (c + 1 < 3) rgb[r * 4 + c + 1] = 1.f / (1.f + expf(-(v1 + b[c + 1])));
+  }
+};
+
+// Global stashes of K2's forward, each offset to the CTA's first row and
+// row-major at its own width: x (P), h_l (W, layer l at h + l * h_stride),
+// feat (F), hv (V), dv (D). All null for K1.
+struct Stash {
+  bf16* x;
+  bf16* h;
+  long long h_stride;
+  bf16* feat;
+  bf16* hv;
+  bf16* dv;
+};
+
+// The field on the CTA's tile: inputs, encodings, trunk and heads. Leaves
+// raw sigma and rgb per row in t.sig_raw / t.rgb, ts and deltas in t.ts /
+// t.dl, and returns the buffers that hold hv and feat. Rows of rays past
+// the end of the batch compute on zero inputs: finite values the callers
+// never store.
+__device__ inline void field_forward(const Field& p, const Tile& t, long long ray0, int n_valid,
+                                     const Stash& st, bf16** hv_buf, bf16** feat_buf) {
+  const int S = p.S;
+  const int R = kRows / S;
+  const int tid = threadIdx.x;
+  const int rows_valid = n_valid * S;
+
+  // ---- inputs; zeros past the last ray ----
+  for (int i = tid; i < R * 9; i += kThreads) {
+    const int j = i / 9, k = i % 9;
+    float v = 0.f;
+    if (j < n_valid) {
+      const float* src = k < 3 ? p.o : (k < 6 ? p.d : p.vd);
+      v = src[(ray0 + j) * 3 + k % 3];
+    }
+    t.ray[i] = v;
+  }
+  for (int r = tid; r < kRows; r += kThreads) {
+    const bool ok = r < rows_valid;
+    t.ts[r] = ok ? p.ts[ray0 * S + r] : 0.f;
+    t.dl[r] = ok ? p.deltas[ray0 * S + r] : 0.f;
+  }
+  __syncthreads();
+
+  // ---- encodings: PE(o + t d) per row, PE(viewdir) once per ray ----
+  const int pos_dim = 3 + 6 * p.pos_levels;
+  for (int i = tid; i < kRows * p.P; i += kThreads) {
+    const int r = i / p.P, c = i % p.P;
+    float v = 0.f;
+    if (c < pos_dim) {
+      const float* ray = t.ray + (r / S) * 9;
+      const int dim = c < 3 ? c : (c - 3) % 3;
+      v = pe_value(__fadd_rn(ray[dim], __fmul_rn(t.ts[r], ray[3 + dim])), c);
+    }
+    const bf16 h = __float2bfloat16_rn(v);
+    t.xs[r * p.ldx + c] = h;
+    if (st.x != nullptr) st.x[i] = h;
+  }
+  const int dir_dim = 3 + 6 * p.dir_levels;
+  for (int i = tid; i < R * p.D; i += kThreads) {
+    const int j = i / p.D, c = i % p.D;
+    float v = 0.f;
+    if (c < dir_dim) v = pe_value(t.ray[j * 9 + 6 + (c < 3 ? c : (c - 3) % 3)], c);
+    t.dpe[i] = v;
+  }
+  __syncthreads();
+  for (int i = tid; i < kRows * p.D; i += kThreads) {
+    const int r = i / p.D, c = i % p.D;
+    const bf16 h = __float2bfloat16_rn(t.dpe[(r / S) * p.D + c]);
+    t.ds[r * p.ldd + c] = h;
+    if (st.dv != nullptr) st.dv[i] = h;
+  }
+  __syncthreads();
+
+  // ---- trunk ----
+  const uint2* skip_w = reinterpret_cast<const uint2*>(p.w + p.w_off[p.n_layers]);
+  const bf16* h = t.xs;
+  int ldh = p.ldx, kh = p.P;
+  for (int i = 0; i < p.n_layers; ++i) {
+    bf16* out = (i & 1) ? t.buf1 : t.buf0;
+    const bool skip = i == p.skip && i > 0;
+    bf16* stash = st.h != nullptr ? st.h + i * st.h_stride : nullptr;
+    dense_layer(h, ldh, kh, reinterpret_cast<const uint2*>(p.w + p.w_off[i]),
+                skip ? t.xs : nullptr, p.ldx, p.P, skip_w, p.W,
+                ReluStore{out, p.ldb, p.b + p.b_off[i], stash, p.W});
+    __syncthreads();
+    h = out;
+    ldh = p.ldb;
+    kh = p.W;
+  }
+  bf16* hbuf = const_cast<bf16*>(h);
+  bf16* other = hbuf == t.buf0 ? t.buf1 : t.buf0;
+  const int m = p.n_layers;  // w_off[m] is skip; heads follow; b_off[m] is the first head's
+
+  // ---- heads ----
+  dense_layer(hbuf, p.ldb, p.W, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 1]),
+              nullptr, 0, 0, nullptr, p.F + 8,
+              FeatSigmaStore{other, p.ldb, p.b + p.b_off[m], t.sig_raw, p.F, st.feat});
+  __syncthreads();
+  dense_layer(other, p.ldb, p.F, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 2]),
+              t.ds, p.ldd, p.D, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 3]), p.V,
+              ReluStore{hbuf, p.ldb, p.b + p.b_off[m + 1], st.hv, p.V});
+  __syncthreads();
+  dense_layer(hbuf, p.ldb, p.V, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 4]),
+              nullptr, 0, 0, nullptr, 8, RgbStore{t.rgb, p.b + p.b_off[m + 2]});
+  __syncthreads();
+  *hv_buf = hbuf;
+  *feat_buf = other;
+}
+
+// Sets the kernel's dynamic shared memory to `bytes`, or returns -5 when
+// the card's per-block opt-in maximum is smaller.
+template <class Kernel>
+inline int set_smem(Kernel kernel, size_t bytes) {
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (bytes > static_cast<size_t>(optin)) return -5;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  return static_cast<int>(err);
+}
+
+}  // namespace nerf

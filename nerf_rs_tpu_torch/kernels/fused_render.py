@@ -1,7 +1,8 @@
-"""Weight packing and the positional encoding of the whole-ray render
-kernel, the counterpart of ``nerf_rs_tpu/kernels/fused_render.py``.
+"""Weight packing and the positional encoding of the whole-ray kernels,
+the counterpart of ``nerf_rs_tpu/kernels/fused_render.py``.
 
-The CUDA kernel (``csrc/fused_ray.cu``) multiplies with
+The CUDA kernels (``csrc/fused_ray.cu``, ``csrc/fused_train.cu``, sharing
+``csrc/field.cuh``) multiply with
 ``mma.sync.m16n8k16`` bf16 tensor-core instructions. ``pack_weights``
 lays every matrix out so that each warp reads its B fragments as one
 coalesced 8-byte load per lane:
@@ -18,7 +19,8 @@ to F + 8 columns (sigma in column F) and rgb to 8 columns.
 
 As in the JAX packing, the skip layer's weight splits in two: rows
 [:W] multiply the hidden state and rows [W:] (the encoded input) become
-``skip_w``.
+``skip_w``. ``pack_weights_t`` packs the transposed matrices the train
+kernel's backward multiplies by, in the same layout.
 """
 
 from __future__ import annotations
@@ -142,23 +144,66 @@ def pack_weights(params, cfg: ModelConfig) -> PackedWeights:
     mats += [skip_w, sf_w, padw(vw[:Fw], Fw, V), padw(vw[Fw:], D, V),
              padw(params.rgb.w, V, 8)]
     biases += [sf_b, padb(params.view1.b, V), padb(params.rgb.b, 8)]
-
-    def offsets(sizes):
-        out, at = [], 0
-        for s in sizes:
-            out.append(at)
-            at += s
-        return tuple(out)
-
     return PackedWeights(
         w=torch.cat([_swizzle(m) for m in mats]).contiguous(),
         b=torch.cat(biases).contiguous(),
-        w_off=offsets(m.numel() for m in mats),
+        w_off=_offsets(m.numel() for m in mats),
         w_shape=tuple(tuple(m.shape) for m in mats),
-        b_off=offsets(b.numel() for b in biases),
+        b_off=_offsets(b.numel() for b in biases),
         depth=cfg.net_depth,
         skip_layer=cfg.skip_layer,
         W=W, F=Fw, V=V, P=P, D=D,
         pos_levels=cfg.pos_enc_levels,
         dir_levels=cfg.dir_enc_levels,
+    )
+
+
+def _offsets(sizes) -> Tuple[int, ...]:
+    out, at = [], 0
+    for s in sizes:
+        out.append(at)
+        at += s
+    return tuple(out)
+
+
+@dataclass(frozen=True)
+class PackedWeightsT:
+    """The transposed matrices the training kernel's backward multiplies
+    by, in the same fragment layout (the counterpart of
+    ``nerf_rs_tpu/kernels/fused_train.PackedWeightsT``)."""
+
+    # flat bf16, swizzled, in kernel order: trunk[1..depth)^T (W, W),
+    # feature part of [feature | sigma]^T (F, W), view (feature part)^T
+    # (V, F), rgb^T (16, V) with rows 3.. zero (the k-step of 16)
+    w: torch.Tensor
+    w_off: Tuple[int, ...]
+    w_shape: Tuple[Tuple[int, int], ...]
+    sigma_row: torch.Tensor  # (W,) f32: the sigma head's bf16 column
+
+    def matrices(self) -> List[torch.Tensor]:
+        """The (K, N) bf16 matrices in kernel order, un-swizzled."""
+        return [
+            _unswizzle(self.w[o:o + k * n], k, n)
+            for o, (k, n) in zip(self.w_off, self.w_shape)
+        ]
+
+
+def pack_weights_t(packed: PackedWeights) -> PackedWeightsT:
+    """Transpose the packed matrices the backward needs (the counterpart
+    of ``pack_weights_t`` in ``nerf_rs_tpu/kernels/fused_train.py``). The
+    values are the packed bf16 weights, so forward and backward multiply
+    by the same numbers."""
+    mats = packed.matrices()
+    L, Fw = packed.depth, packed.F
+    rgb_t = mats[L + 4].t()  # (8, V)
+    mats_t = [m.t() for m in mats[1:L]] + [
+        mats[L + 1][:, :Fw].t(),
+        mats[L + 2].t(),
+        F.pad(rgb_t, (0, 0, 0, 16 - rgb_t.shape[0])),
+    ]
+    return PackedWeightsT(
+        w=torch.cat([_swizzle(m) for m in mats_t]).contiguous(),
+        w_off=_offsets(m.numel() for m in mats_t),
+        w_shape=tuple(tuple(m.shape) for m in mats_t),
+        sigma_row=mats[L + 1][:, Fw].float().contiguous(),
     )

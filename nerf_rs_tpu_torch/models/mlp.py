@@ -20,6 +20,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -82,28 +83,35 @@ class NerfMLP(nn.Module):
         return apply_nerf(self, points, viewdirs, self.cfg, dtype)
 
 
-def init_nerf_params(
-    cfg: ModelConfig,
-    generator: Optional[torch.Generator] = None,
-    device=None,
-) -> NerfMLP:
+def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
+    """Standard normal draws cut at +-2, outliers redrawn (the
+    distribution of ``jax.random.truncated_normal(key, -2, 2)``)."""
+    x = rng.standard_normal(shape)
+    bad = np.abs(x) > 2.0
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(x) > 2.0
+    return x
+
+
+def init_nerf_params(cfg: ModelConfig, seed: int = 0, device=None) -> NerfMLP:
     """He truncated-normal weights (fan_in, ReLU gain, cut at 2 std) and
-    zero biases, drawn on the CPU from ``generator`` so that one seed
-    gives the same weights on every device.
+    zero biases, drawn with numpy from ``seed``: one seed gives the same
+    weights on every device and under every torch version (torch's own
+    truncated-normal draw changed between releases).
 
     Variance-preserving init is load-bearing for the deep trunk: with
     shrinking activations the sigma head's bias dominates, and if it
     lands negative relu(sigma) is 0 everywhere and the field is dead at
     init (see ``nerf_rs_tpu/models/mlp._init_linear``).
     """
+    rng = np.random.default_rng(seed)
     model = NerfMLP(cfg)
     with torch.no_grad():
         for layer in model.modules():
             if isinstance(layer, Dense):
                 std = math.sqrt(2.0 / layer.w.shape[0])
-                nn.init.trunc_normal_(layer.w, 0.0, 1.0, -2.0, 2.0,
-                                      generator=generator)
-                layer.w.mul_(std)
+                layer.w.copy_(torch.from_numpy(std * _truncated_normal(rng, tuple(layer.w.shape))))
     return model.to(device)
 
 

@@ -53,8 +53,9 @@ def composite(
                      acc=acc, ts=ts)
 
 
-def fused_supported(model_cfg: ModelConfig) -> bool:
-    """Configurations the whole-ray render kernel covers."""
+def train_fused_supported(model_cfg: ModelConfig) -> bool:
+    """Architectures the whole-ray train kernel covers: the paper field
+    with relu or softplus density."""
     return (
         not model_cfg.compat
         and model_cfg.arch == "nerf"
@@ -63,6 +64,12 @@ def fused_supported(model_cfg: ModelConfig) -> bool:
         and model_cfg.include_input_in_enc
         and model_cfg.sigma_activation in ("relu", "softplus")
     )
+
+
+def fused_supported(model_cfg: ModelConfig) -> bool:
+    """The whole-ray render kernel covers the same family as the train
+    kernel."""
+    return train_fused_supported(model_cfg)
 
 
 def check_render_supported(model_cfg: ModelConfig, render_cfg: RenderConfig) -> None:
@@ -104,7 +111,7 @@ def render_rays(
     use_fused = use_fused and fused_supported(model_cfg)
     rand = render_cfg.randomized if randomized is None else randomized
     if rand and render_cfg.raw_noise_std > 0.0:
-        raise NotImplementedError("sigma noise comes with the training slice")
+        raise NotImplementedError("sigma noise (raw_noise_std) comes with slice 7 of the port")
     shape = origins.shape[:-1]
     flat_o = origins.reshape(-1, 3)
     flat_d = dirs.reshape(-1, 3)

@@ -1,12 +1,13 @@
-"""Weight checkpoints, the counterpart of the weights half of
-``nerf_rs_tpu/train/checkpoint.py``.
+"""Checkpoints, the counterpart of ``nerf_rs_tpu/train/checkpoint.py``.
 
 The JAX package writes flax msgpack; the port writes ``torch.save``
 files under the same name pattern, ``checkpoint-{unix_ts}-{step}.pt``,
-and ``latest_checkpoint`` picks the newest by (timestamp, step).
-Loading uses ``weights_only=True``. Weights trained by the JAX package
-enter through ``convert.params_from_numpy``. Optimizer state comes with
-the training slice.
+and ``latest_checkpoint`` picks the newest by (timestamp, step). A file
+holds the step, the field's weights and, when saved from a
+``TrainState``, the optimizer's state (``restore`` resumes training
+from it; ``restore_weights`` reads the weights of either kind). Loading
+uses ``weights_only=True``. Weights trained by the JAX package enter
+through ``convert.params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import os
 import re
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -27,22 +28,55 @@ def checkpoint_path(save_dir: str, step: int, ts: Optional[int] = None) -> str:
     return os.path.join(save_dir, f"checkpoint-{ts}-{step}.pt")
 
 
-def save(params: nn.Module, save_dir: str, step: int = 0,
-         ts: Optional[int] = None) -> str:
-    """Write the field's weights and the step; returns the path."""
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cpu(v) for v in tree)
+    return tree
+
+
+def save(state: Union["TrainState", nn.Module], save_dir: str,  # noqa: F821
+         step: Optional[int] = None, ts: Optional[int] = None) -> str:
+    """Write a ``TrainState`` (step, weights, optimizer state) or a bare
+    field's weights (``step`` defaults to 0); returns the path."""
+    if isinstance(state, nn.Module):
+        params, opt, step = state, None, step or 0
+    else:
+        params, opt = state.params, state.optimizer
+        step = state.step if step is None else step
     os.makedirs(save_dir, exist_ok=True)
     path = checkpoint_path(save_dir, step, ts)
-    state = {k: v.detach().cpu() for k, v in params.state_dict().items()}
+    blob = {"step": step, "params": _cpu(params.state_dict())}
+    if opt is not None:
+        blob["optimizer"] = _cpu(opt.state_dict())
     tmp = path + ".tmp"
-    torch.save({"step": step, "params": state}, tmp)
+    torch.save(blob, tmp)
     os.replace(tmp, path)  # atomic: no torn checkpoints
     return path
+
+
+def _load(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def restore(path: str, state: "TrainState") -> "TrainState":  # noqa: F821
+    """Resume: the weights, the step and (when the file has it) the
+    optimizer state into ``state``, in place; returns it."""
+    ckpt = _load(path)
+    state.params.load_state_dict(ckpt["params"])
+    if "optimizer" in ckpt:
+        state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["step"])
+    return state
 
 
 def restore_weights(path: str, params: nn.Module) -> int:
     """Load the weights at ``path`` into ``params`` in place; returns
     the checkpoint's step."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    ckpt = _load(path)
     params.load_state_dict(ckpt["params"])
     return int(ckpt["step"])
 

@@ -1,5 +1,6 @@
-"""The whole-ray render kernel (csrc/fused_ray.cu) against its plain
-PyTorch version, on a CUDA card. Every case skips without one.
+"""The whole-ray render kernel (csrc/fused_ray.cu) and train kernel
+(csrc/fused_train.cu) against their plain PyTorch versions, on a CUDA
+card. Every case skips without one.
 
 This file imports neither JAX nor the JAX package's tests, so it runs on
 a machine with torch and CUDA alone (the repo's conftest.py needs JAX):
@@ -14,11 +15,19 @@ import torch
 from nerf_rs_tpu.config import ModelConfig
 from nerf_rs_tpu_torch.kernels.fused_ray import (
     fused_ray_render, fused_ray_render_reference)
-from nerf_rs_tpu_torch.kernels.fused_render import pack_weights
+from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+from nerf_rs_tpu_torch.kernels.fused_train import (
+    fused_train_grads, fused_train_grads_reference)
 from nerf_rs_tpu_torch.models.mlp import init_nerf_params
 
 SMALL = dict(net_depth=4, net_width=64, skip_layer=2, feature_width=64,
              view_head_width=32)
+# the train kernel against its plain version: diag columns 0-4 and weights
+# absolute (chip_smoke.py's bars), each gradient leaf normalised by the
+# plain leaf's max at the JAX package's kernel bar: on these random rays and
+# gold the card showed up to 1.2e-2 (trunk.1's dW, whose max is 3e-4), as
+# summation order flips bf16 roundings that accumulate down the backward
+TRAIN_TOL = {"diag": 1.5e-3, "weights": 2e-3, "grads": 4e-2}
 
 
 def _device() -> torch.device:
@@ -52,7 +61,7 @@ CASES = [
 def test_kernel_matches_plain_version(field, sigma_act, n, s):
     dev = _device()
     cfg = ModelConfig(sigma_activation=sigma_act, **field)
-    model = init_nerf_params(cfg, torch.Generator().manual_seed(0), dev)
+    model = init_nerf_params(cfg, 0, dev)
     args = (pack_weights(model, cfg), *_rays(n, s, dev), cfg, s)
     before = fused_ray_render.launches
     got = fused_ray_render(*args)
@@ -68,10 +77,55 @@ def test_kernel_matches_plain_version(field, sigma_act, n, s):
         assert float((g - w).abs().max()) <= tol, name
 
 
+def _train_args(field, sigma_act, n, s, dev):
+    cfg = ModelConfig(sigma_activation=sigma_act, **field)
+    model = init_nerf_params(cfg, 0, dev)
+    pk = pack_weights(model, cfg)
+    gold = torch.from_numpy(np.random.default_rng(1).uniform(size=(n, 3)).astype(np.float32))
+    return (pk, pack_weights_t(pk), *_rays(n, s, dev), gold.to(dev), cfg, s)
+
+
+# (field, sigma, white background, rays, samples): flagship and small
+# widths, both sigma activations, background on and off, ragged tails
+TRAIN_CASES = [
+    ({}, "relu", False, 1001, 64),
+    ({}, "softplus", True, 37, 64),
+    (SMALL, "relu", True, 37, 16),
+    (SMALL, "softplus", False, 5, 128),
+]
+
+
+@pytest.mark.parametrize("field,sigma_act,white,n,s", TRAIN_CASES)
+def test_train_kernel_matches_plain_version(field, sigma_act, white, n, s):
+    dev = _device()
+    args = _train_args(field, sigma_act, n, s, dev)
+    before = fused_train_grads.launches
+    got = fused_train_grads(*args, white_bg=white)
+    torch.cuda.synchronize()
+    assert fused_train_grads.launches == before + 1
+    want = fused_train_grads_reference(*args, white_bg=white)
+    # chip_smoke.py's bars: bf16 operands, f32 sums in another order
+    assert float((got.diag[:, :5] - want.diag[:, :5]).abs().max()) <= TRAIN_TOL["diag"]
+    assert float((got.weights - want.weights).abs().max()) <= TRAIN_TOL["weights"]
+    for i, (g, w) in enumerate(zip(got.dw + got.db, want.dw + want.db)):
+        assert bool(torch.isfinite(g).all()), i
+        scale = max(float(w.abs().max()), 1e-12)
+        assert float((g - w).abs().max()) / scale <= TRAIN_TOL["grads"], i
+
+
+def test_train_kernel_is_deterministic():
+    dev = _device()
+    args = _train_args({}, "relu", 333, 64, dev)
+    a = fused_train_grads(*args)
+    b = fused_train_grads(*args)
+    for x, y in zip((a.diag, a.weights, *a.dw, *a.db), (b.diag, b.weights, *b.dw, *b.db)):
+        assert torch.equal(x, y)
+
+
 def test_wrapper_refuses_non_contiguous_rays():
     dev = _device()
     cfg = ModelConfig(**SMALL)
-    model = init_nerf_params(cfg, torch.Generator().manual_seed(0), dev)
+    model = init_nerf_params(cfg, 0, dev)
     o, d, vd, ts, dl = _rays(8, 16, dev)
     strided = torch.zeros(8, 6, device=dev)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):

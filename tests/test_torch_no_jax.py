@@ -1,6 +1,6 @@
 """The PyTorch port stands without JAX: every module of nerf_rs_tpu_torch
-imports, and a frame renders, in a process that never loads jax, jaxlib,
-flax or optax. Plus two checks of chip_smoke.py, which runs only on the
+imports, a frame renders, and two train steps run (kernel path and
+autograd path), in a process that never loads jax, jaxlib, flax or optax. Plus two checks of chip_smoke.py, which runs only on the
 card: an undefined-name lint (the idea of test_bench_lint.py), and that
 without a card it exits non-zero instead of falling back to the CPU.
 """
@@ -28,10 +28,23 @@ from nerf_rs_tpu_torch.models.mlp import init_nerf_params
 from nerf_rs_tpu_torch.ops import rays
 from nerf_rs_tpu_torch.render import render_frame
 cfg = Config(camera=CameraConfig(width=8, height=8), render=RenderConfig(num_samples=8))
-model = init_nerf_params(cfg.model, torch.Generator().manual_seed(0))
+model = init_nerf_params(cfg.model, 0)
 o, d = rays.ray_grid(rays.pose_from_yaw_pitch(0.3, 0.2), cfg.camera)
 rgb, depth, acc = render_frame(cfg, model, o, d)
 assert rgb.shape == (8, 8, 3) and bool(torch.isfinite(rgb).all())
+import dataclasses
+from nerf_rs_tpu_torch import DataConfig, ModelConfig, TrainConfig
+from nerf_rs_tpu_torch.data.factory import make_dataset
+from nerf_rs_tpu_torch.train import step
+small = ModelConfig(net_depth=2, net_width=16, skip_layer=1, feature_width=16, view_head_width=16)
+for kernel in (True, False):  # the train kernel's plain version, then autograd
+    tcfg = dataclasses.replace(cfg, model=small, train=TrainConfig(num_rays=16),
+                               data=DataConfig(dataset="sphere"), use_whole_ray_train=kernel)
+    state = step.init_state(tcfg)
+    fn = step.make_train_step(tcfg, make_dataset(tcfg))
+    for it in range(2):
+        state, aux = fn(state, step.step_generator(0, it, "cpu"))
+    assert state.step == 2 and bool(torch.isfinite(aux["loss"]))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
 print("modules", len(names), "jax-family", bad)
 """
@@ -50,7 +63,7 @@ def test_port_imports_and_renders_without_jax():
     assert proc.returncode == 0, proc.stderr
     last = proc.stdout.strip().splitlines()[-1]
     assert last.endswith("jax-family []"), last
-    assert int(last.split()[1]) >= 15  # every module was walked
+    assert int(last.split()[1]) >= 22  # every module was walked
 
 
 def _bound_names(tab):
