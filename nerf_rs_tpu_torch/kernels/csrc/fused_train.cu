@@ -268,10 +268,10 @@ struct Job {  // dW (K, N) = A^T G over the rows
   int K, N, tiles_n, tile0;
 };
 
-struct BiasJob {  // db (N,) = sum_rows G
+struct BiasJob {  // db (N,) = sum_rows G, G's rows ld apart
   const bf16* g;
   long long out;
-  int N;
+  int N, ld;
 };
 
 struct ReduceParams {
@@ -370,8 +370,8 @@ __global__ void __launch_bounds__(kRedThreads) colsum_partial_kernel(const Reduc
   long long r = r_begin;
   for (; r + 4 <= r_end; r += 4)
 #pragma unroll
-    for (int q = 0; q < 4; ++q) s[q] += __bfloat162float(bj.g[(r + q) * bj.N + col]);
-  for (; r < r_end; ++r) s[0] += __bfloat162float(bj.g[r * bj.N + col]);
+    for (int q = 0; q < 4; ++q) s[q] += __bfloat162float(bj.g[(r + q) * bj.ld + col]);
+  for (; r < r_end; ++r) s[0] += __bfloat162float(bj.g[r * bj.ld + col]);
   p.partial[blockIdx.y * p.total + bj.out + col] = (s[0] + s[1]) + (s[2] + s[3]);
 }
 
@@ -533,14 +533,16 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   job(s.shv, V, s.grgb, 8, w_off[L + 4]);
   q.n_bias = 0;
   q.n_bias_cols = 0;
-  auto bias = [&](const bf16* g, int N, long long out) {
-    q.bias[q.n_bias++] = BiasJob{g, total_w + out, N};
+  auto bias = [&](const bf16* g, int N, int ld, long long out) {
+    q.bias[q.n_bias++] = BiasJob{g, total_w + out, N, ld};
     q.n_bias_cols += N;
   };
-  for (int l = 0; l < L; ++l) bias(s.gh + l * hs, W, b_off[l]);
-  bias(s.gsf, F + 8, b_off[L]);
-  bias(s.ghv, V, b_off[L + 1]);
-  bias(s.grgb, 8, b_off[L + 2]);
+  for (int l = 0; l < L; ++l) bias(s.gh + l * hs, W, W, b_off[l]);
+  // the sigma block of [dfeat | dsigma | 0] only: no partial holds d feat_b,
+  // which feat_bias_kernel writes over reduce_kernel's sum of those slots
+  bias(s.gsf + F, 8, F + 8, b_off[L] + F);
+  bias(s.ghv, V, V, b_off[L + 1]);
+  bias(s.grgb, 8, 8, b_off[L + 2]);
   const long long splits = splits_for(rows);
   q.rows = rows;
   q.rows_per_split = (rows + splits - 1) / splits;

@@ -28,6 +28,21 @@ from .fused_ray import _SHAPE_ERRORS, _SIGMA_ACT, _check
 from .fused_render import PackedWeights, PackedWeightsT, pe_encode
 
 
+# How far the kernels may stand from their plain version on the same card
+# and inputs (chip_smoke.py and tests/test_torch_cuda.py hold them to it,
+# and to the float64 witness): diag columns 0-4 and weights absolute, each
+# gradient leaf normalised by the plain leaf's max. Both multiply the same
+# bf16 operands into f32 sums in another order, which flips the bf16
+# rounding of some activations; a sample whose sigma_raw lies within that
+# noise of relu's kink then gets d sigma on one side and 0 on the other.
+# Largest readings on an H100 over 54 cases (3 input sets x 6 seeds of
+# weights x 3 sigma/background cases): diag 4.0e-4, weights 4.6e-4, grads
+# 1.2e-2 (two such kink samples of 64,064; 2.5e-3 without them, as far as
+# the f32 version itself stands from the float64 witness). The bars are
+# about 4x, 4x and 2x those.
+KERNEL_TOL = {"diag": 1.5e-3, "weights": 2e-3, "grads": 2.5e-2}
+
+
 class TrainGrads(NamedTuple):
     """Kernel outputs in the packed layout (``unpack_grads`` maps them
     onto the ``NerfMLP`` state dict)."""
@@ -184,6 +199,8 @@ def fused_train_grads_reference(
     cfg: ModelConfig,
     num_samples: int,
     white_bg: bool = False,
+    *,
+    dtype: torch.dtype = torch.float32,
 ) -> TrainGrads:
     """The kernels' plain PyTorch version, with their numerics: bf16
     operands, f32 products and sums, bf16 activations between layers, f32
@@ -191,22 +208,27 @@ def fused_train_grads_reference(
     backward (d rgb_raw, g_hv, dfeat, d sigma, every trunk g). The
     compositing VJP is written out, not taken from autograd. On CUDA it
     needs full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
-    False``)."""
+    False``).
+
+    ``dtype=torch.float64`` keeps every bf16 rounding point (and the f32
+    PE) but multiplies, sums and composites in float64: a witness of how
+    far f32 summation order alone moves the result, for the kernel and
+    the f32 version alike."""
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
                  num_samples)
     n, S = ts.shape
     rows = n * S
     bf = torch.bfloat16
-    mats = [m.float() for m in packed.matrices()]
-    mats_t = [m.float() for m in packed_t.matrices()]
-    bias = packed.biases()
+    mats = [m.to(dtype) for m in packed.matrices()]
+    mats_t = [m.to(dtype) for m in packed_t.matrices()]
+    bias = [b.to(dtype) for b in packed.biases()]
     L, skip, Fw = packed.depth, packed.skip_layer, packed.F
 
     def mm(a, m):
-        return a.float() @ m
+        return a.to(dtype) @ m
 
     def tmm(a, g):  # A^T G: a weight gradient summed over rows
-        return a.float().t() @ g.float()
+        return a.to(dtype).t() @ g.to(dtype)
 
     # ---- forward ----
     pts = (origins[:, None, :] + ts[:, :, None] * dirs[:, None, :]).reshape(rows, 3)
@@ -221,6 +243,7 @@ def fused_train_grads_reference(
         hs.append(h)
     sf = mm(h, mats[L + 1]) + bias[L]
     sigma_raw = sf[:, Fw].reshape(n, S)
+    deltas, gold = deltas.to(dtype), gold.to(dtype)
     feat = sf[:, :Fw].to(bf)
     hv = F.relu(mm(feat, mats[L + 2]) + mm(dv, mats[L + 3]) + bias[L + 1]).to(bf)
     rgb = torch.sigmoid(mm(hv, mats[L + 4]) + bias[L + 2])[:, :3]
@@ -261,7 +284,7 @@ def fused_train_grads_reference(
     g_hv = (mm(F.pad(drgb_raw, (0, 13)), mats_t[L + 1]) * (hv > 0)).to(bf)
     dfeat = mm(g_hv, mats_t[L])
     dfeat_bf = dfeat.to(bf)
-    dh = mm(dfeat_bf, mats_t[L - 1]) + dsig.float()[:, None] * packed_t.sigma_row
+    dh = mm(dfeat_bf, mats_t[L - 1]) + dsig.to(dtype)[:, None] * packed_t.sigma_row.to(dtype)
     G = [None] * L
     for li in range(L - 1, -1, -1):
         G[li] = (dh * (hs[li] > 0)).to(bf)
@@ -273,9 +296,9 @@ def fused_train_grads_reference(
     dw = [tmm(x if li == 0 else hs[li - 1], G[li]) for li in range(L)]
     dw.append(tmm(x, G[skip]) if 0 < skip < L else torch.zeros_like(mats[L]))
     dw += [tmm(hs[-1], g_sf), tmm(feat, g_hv), tmm(dv, g_hv), tmm(hv, g_rgb)]
-    db = [G[li].float().sum(dim=0) for li in range(L)]
-    db += [torch.cat([dfeat.sum(dim=0), g_sf[:, Fw:].float().sum(dim=0)]),
-           g_hv.float().sum(dim=0), g_rgb.float().sum(dim=0)]
+    db = [G[li].to(dtype).sum(dim=0) for li in range(L)]
+    db += [torch.cat([dfeat.sum(dim=0), g_sf[:, Fw:].to(dtype).sum(dim=0)]),
+           g_hv.to(dtype).sum(dim=0), g_rgb.to(dtype).sum(dim=0)]
     return TrainGrads(diag, w, tuple(dw), tuple(db))
 
 

@@ -1,7 +1,8 @@
 """Throughput accounting, the counterpart of ``Throughput`` in
 ``nerf_rs_tpu/utils/profiling.py`` (rays/s, ray-samples/s, step time
-over a window of train steps, on the host clock). The profiler trace
-window comes with slice 7 of the port.
+over a window of train steps, on the host clock), on one device: the
+per-chip rates come with multi-GPU training (slice 8 of the port), the
+profiler trace window with slice 7.
 """
 
 from __future__ import annotations
@@ -13,10 +14,9 @@ from typing import Dict
 class Throughput:
     """Windowed throughput over train steps."""
 
-    def __init__(self, num_rays: int, num_samples: int, num_chips: int = 1):
+    def __init__(self, num_rays: int, num_samples: int):
         self.num_rays = num_rays
         self.num_samples = num_samples
-        self.num_chips = max(1, num_chips)
         self.reset()
 
     def reset(self):
@@ -35,6 +35,5 @@ class Throughput:
         return {
             "step_time_ms": 1000.0 / steps_per_sec,
             "rays_per_sec": rays_per_sec,
-            "rays_per_sec_per_chip": rays_per_sec / self.num_chips,
-            "samples_per_sec_per_chip": rays_per_sec * self.num_samples / self.num_chips,
+            "samples_per_sec": rays_per_sec * self.num_samples,
         }

@@ -59,5 +59,5 @@ def test_throughput_counts_steps():
     assert thr.stats() == {}
     thr.tick(10)
     stats = thr.stats()
-    assert stats["samples_per_sec_per_chip"] == pytest.approx(stats["rays_per_sec"] * 64)
+    assert stats["samples_per_sec"] == pytest.approx(stats["rays_per_sec"] * 64)
     assert stats["step_time_ms"] > 0
