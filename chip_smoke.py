@@ -29,8 +29,27 @@ Phases, each fatal (any failure exits non-zero):
      the plain version; the flagship train step (4096 rays x 64) through
      K2, through autograd and through the plain version, K2a and K2b
      alone, and a profile of the K2 step.
-The line before the last is one JSON object describing the kernels; the
-last is {"ok": true, "device": {...}}.
+  9. the hierarchical branches of both kernels at the flagship width, vs
+     their plain versions (K2 also vs the float64 witness): IPE (relu and
+     softplus, jittered intervals, the camera's cone radius) and rays
+     longer than one tile (S = 192, the hierarchical union pass, and 193);
+     K2 bit-identical across launches at S = 192.
+ 10. the hierarchical path through the CLI, per preset (hierarchical:
+     two fields, 64 + 128 union; mipnerf: IPE, one field, 64 + 128
+     standalone): `train` for 51 steps at full width (exactly 2 K2
+     launches per step, K1 for the eval), `render --view 0` at 800x800
+     and `eval --max_views 2` on the checkpoint (2 K1 launches per chunk);
+     then a 64x64 learning drive per preset above its bar at iteration
+     300 (PRESET_PSNR).
+ 11. times: each preset's step through K2 and through autograd, its
+     800x800 frame through K1 (checked against the plain version on a
+     chunk of it), a profile of the hierarchical K2 step; the new
+     branches' kernel calls against their plain versions and bounds.
+Every kernel launch counter is set to 0 just before the path it counts
+and read just after. The line before the last is one JSON object
+describing the kernels (with each one's bound and a PyTorch library
+call's time at the flagship shape); the last is {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -61,11 +80,30 @@ TOL = {"rgb": 1e-3, "acc": 1e-3, "depth": 2e-3, "weights": 1e-3, "sigma": 2e-2}
 # JAX package's kernel-vs-autodiff bars (tests/test_fused_train.py):
 # autograd rounds to bf16 at other points.
 AUTOGRAD_TOL = {"rgb": 2e-2, "loss": 2e-3, "grads": 4e-2}
+# A preset's frame through K1 vs through the plain version, on the same
+# rays: the coarse pass at TOL; the fine pass samples where each route's
+# own coarse weights put it, so a fine sample can move within its bin and
+# the fine colors are held to a mean and a max of their own, ~3-4x the
+# readings on an H100 (hierarchical: mean 3.0e-5, max 1.2e-2; mipnerf:
+# 2.3e-5 and 1.5e-4).
+FINE_TOL = {"mean": 1e-4, "max": 5e-2}
 VERIFY_PSNR = 20.0  # eval PSNR the 64x64 learning check must pass at iteration 300
+# The presets' 64x64 learning drives (--num_samples 32 --num_fine_samples
+# 64, 1024 rays, lr 1e-3, 301 steps): eval PSNR at iteration 300 must pass
+# min(20 dB, the JAX package's own drive with the same flags on the CPU,
+# kernels off, less 1 dB). The JAX drives read 14.24 (hierarchical) and
+# 23.49 dB (mipnerf) at 300; PERF.md has the command and the whole curves.
+PRESET_PSNR = {"hierarchical": 13.24, "mipnerf": 20.0}
+PRESETS = ("hierarchical", "mipnerf")
+PRESET_STEPS = 51
 N_RAYS = 4103  # ragged: not a multiple of the kernel's 2-ray tile
+BRANCH_RAYS = 1031  # rays of the IPE and long-ray checks (ragged)
 FRAME = 800
 PLAIN_CHUNK = 32768  # rays per call of the plain version (device memory)
 KERNELS = ("fused_ray", "fused_train")  # csrc/{name}.cu
+# the card's published dense bf16 rate and memory rate (H100 SXM, 700 W)
+PEAK_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
 
 
 def fail(msg: str) -> None:
@@ -400,6 +438,443 @@ def time_training(card: str) -> dict:
     return {"k2_ms": k2_ms, "plain_ms": plain_ms}
 
 
+def branch_inputs(cam, dev):
+    """Jittered inputs of the branch checks on BRANCH_RAYS camera rays:
+    (name, ipe, S, ts or interval midpoints, deltas, radii) for IPE at the
+    mipnerf passes' 64 and 128 intervals, and rays of 192 and 193
+    samples (the hierarchical union pass; the record preset's)."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops import sampling
+
+    n = BRANCH_RAYS
+    gen = torch_generator(dev, 5)
+    radii = torch.full((n,), sampling.pixel_radius(cam), device=dev)
+    out = []
+    for name, ipe, s in (("IPE relu, S=64", True, 64), ("IPE softplus, S=128", True, 128),
+                         ("S=192 relu", False, 192), ("S=193 softplus", False, 193)):
+        if ipe:
+            edges = sampling.stratified_ts(n, s + 1, cam.near, cam.far, True, generator=gen,
+                                           device=dev)
+            ts = (0.5 * (edges[:, 1:] + edges[:, :-1])).contiguous()
+            dl = (edges[:, 1:] - edges[:, :-1]).contiguous()
+        else:
+            ts = sampling.stratified_ts(n, s, cam.near, cam.far, True, generator=gen, device=dev)
+            dl = sampling.deltas_from_ts(ts, cam.far)
+        out.append((name, ipe, s, ts, dl, radii if ipe else None))
+    return out
+
+
+def torch_generator(dev, seed):
+    import torch
+
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def branch_cfg(mcfg, name, ipe):
+    import dataclasses
+
+    return dataclasses.replace(mcfg, ipe=ipe,
+                               sigma_activation="softplus" if "softplus" in name else "relu")
+
+
+def check_render_branches(model, mcfg, o, d, vd, cam) -> float:
+    """K1's IPE and long-ray branches against the plain version at the
+    flagship width; returns the largest difference."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render, fused_ray_render_reference
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights
+
+    n = BRANCH_RAYS
+    rays = (o[:n].contiguous(), d[:n].contiguous(), vd[:n].contiguous())
+    max_err = 0.0
+    for name, ipe, s, ts, dl, radii in branch_inputs(cam, o.device):
+        cfg = branch_cfg(mcfg, name, ipe)
+        args = (pack_weights(model, cfg), *rays, ts, dl, cfg, s)
+        got = fused_ray_render(*args, radii=radii)
+        torch.cuda.synchronize()
+        want = fused_ray_render_reference(*args, radii=radii)
+        errs = {}
+        for key, a, b in zip(TOL, got, want):
+            if a.shape != b.shape or not torch.isfinite(a).all():
+                fail(f"K1 [{name}]: {key} has shape {tuple(a.shape)} or non-finite values")
+            errs[key] = float((a - b).abs().max())
+        print(f"K1 vs plain [{name}] max |diff|: "
+              + ", ".join(f"{k} {v:.3g} (tol {TOL[k]:g})" for k, v in errs.items()))
+        bad = [k for k, v in errs.items() if not v <= TOL[k]]
+        if bad:
+            fail(f"K1 [{name}] disagrees with its plain version on {bad}")
+        max_err = max(max_err, *errs.values())
+    return max_err
+
+
+def check_train_branches(model, mcfg, o, d, vd, gold, cam) -> float:
+    """K2's IPE and long-ray branches against the plain version and its
+    float64 witness at the flagship width (white background); two
+    launches at S = 192 bit-identical. Returns the largest difference
+    from the plain version."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import (
+        KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
+
+    n = BRANCH_RAYS
+    rays = (o[:n].contiguous(), d[:n].contiguous(), vd[:n].contiguous())
+    g = gold[:n].contiguous()
+    max_err = 0.0
+    for name, ipe, s, ts, dl, radii in branch_inputs(cam, o.device):
+        cfg = branch_cfg(mcfg, name, ipe)
+        pk = pack_weights(model, cfg)
+        args = (pk, pack_weights_t(pk), *rays, ts, dl, g, cfg, s)
+        got = fused_train_grads(*args, white_bg=True, radii=radii)
+        torch.cuda.synchronize()
+        outs = (got.diag, got.weights, *got.dw, *got.db)
+        if not all(bool(torch.isfinite(t).all()) for t in outs) or got.weights.shape != (n, s):
+            fail(f"K2 [{name}]: non-finite outputs or weights of shape {tuple(got.weights.shape)}")
+        for ref, dtype in (("plain", torch.float32), ("f64 witness", torch.float64)):
+            want = fused_train_grads_reference(*args, white_bg=True, radii=radii, dtype=dtype)
+            errs = {
+                "diag": float((got.diag[:, :5].double() - want.diag[:, :5]).abs().max()),
+                "weights": float((got.weights.double() - want.weights).abs().max()),
+                "grads": max(leaf_err(a.double(), b)
+                             for a, b in zip(got.dw + got.db, want.dw + want.db)),
+            }
+            if dtype == torch.float32:
+                max_err = max(max_err, *(float((a - b).abs().max()) for a, b in zip(
+                    outs, (want.diag, want.weights, *want.dw, *want.db))))
+            print(f"K2 vs {ref} [{name}] max |diff|: "
+                  + ", ".join(f"{k} {v:.3g} (tol {KERNEL_TOL[k]:g})" for k, v in errs.items()))
+            bad = [k for k, v in errs.items() if not v <= KERNEL_TOL[k]]
+            if bad:
+                fail(f"K2 vs {ref} [{name}] disagree on {bad}")
+        if s == 192:
+            again = fused_train_grads(*args, white_bg=True, radii=radii)
+            if not all(torch.equal(a, b) for a, b in zip(
+                    outs, (again.diag, again.weights, *again.dw, *again.db))):
+                fail("two K2 launches at S=192 gave different bits")
+            print("K2 at S=192: two launches on the same inputs give bit-identical outputs")
+    return max_err
+
+
+def preset_cfg(preset, *extra):
+    from nerf_rs_tpu_torch import cli
+
+    argv = ["train", "--preset", preset, "--dataset", "sphere", *extra]
+    args = cli.build_parser().parse_args(argv)
+    args._explicit = cli.explicit_dests(argv)
+    return cli.config_from_args(args)
+
+
+def drive_preset(tmp: str, preset: str) -> dict:
+    """`cli train --preset {preset}` for PRESET_STEPS steps at full width
+    (two K2 launches per step: coarse and fine), then `render --view 0`
+    at 800x800 and `eval --max_views 2` on its checkpoint (two K1
+    launches per chunk). Returns each path's launch counts."""
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+    from nerf_rs_tpu_torch.render import default_render_chunk
+
+    ckdir = os.path.join(tmp, preset)
+    fused_train_grads.launches = 0
+    fused_ray_render.launches = 0
+    t0 = time.perf_counter()
+    rc, out = run_cli(["train", "--preset", preset, "--dataset", "sphere", "--num_iter",
+                       str(PRESET_STEPS), "--eval_steps", "50", "--save_steps", "1000",
+                       "--save_dir", ckdir, "--log_dir", ckdir])
+    k2, k1 = fused_train_grads.launches, fused_ray_render.launches
+    print(f"cli train --preset {preset}, {PRESET_STEPS} steps: rc {rc}, K2 launches {k2}, "
+          f"K1 launches {k1}, {time.perf_counter() - t0:.1f} s")
+    losses = [float(v) for v in re.findall(r"iter=\d+, loss=(\S+)", out)]
+    evals = [float(v) for v in re.findall(r"eval psnr=(\S+)", out)]
+    if rc != 0 or k2 != 2 * PRESET_STEPS or k1 != 2:
+        fail(f"train --preset {preset}: rc {rc}, K2 launches {k2} (want {2 * PRESET_STEPS}), "
+             f"K1 launches {k1} (want 2: one eval, one chunk, two passes)")
+    if not losses or not all(map(math.isfinite, losses + evals)) or len(evals) != 1:
+        fail(f"train --preset {preset}: losses {losses}, eval psnrs {evals}")
+    counts = {"train": k2, "train_eval": k1}
+
+    cfg = preset_cfg(preset)
+    chunk = default_render_chunk(cfg.render, fused=True, model_cfg=cfg.model)
+    frame_launches = 2 * math.ceil(FRAME * FRAME / chunk)
+    eval_launches = 2 * 2 * math.ceil(cfg.camera.width * cfg.camera.height / chunk)
+    for key, argv, want in (
+            ("render", ["render", "--width", str(FRAME), "--height", str(FRAME), "--view", "0",
+                        "--out_dir", os.path.join(tmp, f"{preset}-render")], frame_launches),
+            ("eval", ["eval", "--max_views", "2"], eval_launches)):
+        fused_ray_render.launches = 0
+        rc, out = run_cli([*argv, "--preset", preset, "--dataset", "sphere", "--save_dir", ckdir])
+        k1 = fused_ray_render.launches
+        m = re.search(r"psnr[= ](\S+)", out)
+        print(f"cli {key} --preset {preset}: rc {rc}, K1 launches {k1} (want {want})")
+        if rc != 0 or k1 != want or m is None or not math.isfinite(float(m.group(1))):
+            fail(f"{key} --preset {preset}: rc {rc}, K1 launches {k1} (want {want}), "
+                 f"psnr {m and m.group(1)}")
+        counts[key] = k1
+    png = read_png(os.path.join(tmp, f"{preset}-render", "view-0.png"))
+    if png.shape != (FRAME, FRAME, 3):
+        fail(f"{preset} view-0.png has shape {png.shape}")
+    return counts
+
+
+def learning_drive(tmp: str, preset: str) -> dict:
+    """The preset's 64x64 learning drive through K2; eval PSNR at
+    iteration 300 must pass PRESET_PSNR[preset]."""
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+
+    vdir = os.path.join(tmp, f"learn-{preset}")
+    fused_train_grads.launches = 0
+    rc, out = run_cli(["train", "--preset", preset, "--dataset", "sphere", "--width", "64",
+                       "--height", "64", "--num_samples", "32", "--num_fine_samples", "64",
+                       "--num_rays", "1024", "--num_iter", "301", "--eval_steps", "100",
+                       "--learning_rate", "1e-3", "--save_dir", vdir, "--log_dir", vdir])
+    psnr = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", out))
+    bar = PRESET_PSNR[preset]
+    if rc != 0 or "300" not in psnr or not float(psnr["300"]) > bar:
+        fail(f"{preset} learning drive: rc {rc}, eval psnr {psnr} (need > {bar} at 300)")
+    if fused_train_grads.launches != 2 * 301:
+        fail(f"{preset} learning drive: K2 launches {fused_train_grads.launches} (want 602)")
+    print(f"{preset} learning drive (64x64, 32 + 64 samples): eval psnr at 100/200/300 = "
+          f"{psnr} (bar {bar})")
+    return psnr
+
+
+@contextlib.contextmanager
+def plain_render_route():
+    """Route the render path's kernel call to the plain version, for the
+    frame check only."""
+    from nerf_rs_tpu_torch.kernels import fused_ray
+
+    real = fused_ray.fused_ray_render
+    fused_ray.fused_ray_render = fused_ray.fused_ray_render_reference
+    try:
+        yield
+    finally:
+        fused_ray.fused_ray_render = real
+
+
+def flops_per_row(mcfg, backward: bool) -> float:
+    """Products one sample row needs, at the field's true widths (no pad
+    columns): the forward's; with ``backward`` also the input gradients
+    of every layer past the first and every weight gradient (K2)."""
+    W, L, F, V = mcfg.net_width, mcfg.net_depth, mcfg.feature_width, mcfg.view_head_width
+    pos, dird = 3 + 6 * mcfg.pos_enc_levels, 3 + 6 * mcfg.dir_enc_levels
+    fwd = pos * W + (L - 1) * W * W + pos * W + W * (F + 1) + (F + dird) * V + V * 3
+    if not backward:
+        return 2.0 * fwd
+    dx = (L - 1) * W * W + W * (F + 1) + F * V + V * 3  # no gradient into the encodings
+    return 2.0 * (2 * fwd + dx)
+
+
+def bound_ms(flops: float, nbytes: float) -> tuple:
+    """The least time for the work: (ms, what bounds it)."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def time_branches(card: str, model, mcfg, cam, flat_o, flat_d) -> list:
+    """Times of the new branches' kernel calls at the presets' shapes
+    against their plain versions and bounds; returns one row each."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import fused_train
+    from nerf_rs_tpu_torch.kernels.fused_ray import (
+        fused_ray_render, fused_ray_render_reference, padded_samples)
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import (
+        fused_train_grads, fused_train_grads_reference)
+    from nerf_rs_tpu_torch.ops import sampling
+
+    dev = flat_o.device
+    rows = []
+    gold = torch.rand(4096, 3, generator=torch_generator(dev, 9), device=dev)
+    for kernel, name, ipe, n, s in (("K1", "IPE, S=128", True, 131072, 128),
+                                    ("K1", "S=192", False, 65536, 192),
+                                    ("K2", "S=64", False, 4096, 64),
+                                    ("K2", "IPE, S=64", True, 4096, 64),
+                                    ("K2", "IPE, S=128", True, 4096, 128),
+                                    ("K2", "S=192", False, 4096, 192)):
+        cfg = dataclasses.replace(mcfg, ipe=ipe, sigma_activation="softplus" if ipe else "relu")
+        o, d = flat_o[:n].contiguous(), flat_d[:n].contiguous()
+        vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+        gen = torch_generator(dev, 3)
+        if ipe:
+            edges = sampling.stratified_ts(n, s + 1, cam.near, cam.far, True, generator=gen,
+                                           device=dev)
+            ts = (0.5 * (edges[:, 1:] + edges[:, :-1])).contiguous()
+            dl = (edges[:, 1:] - edges[:, :-1]).contiguous()
+            radii = torch.full((n,), sampling.pixel_radius(cam), device=dev)
+        else:
+            ts = sampling.stratified_ts(n, s, cam.near, cam.far, True, generator=gen, device=dev)
+            dl, radii = sampling.deltas_from_ts(ts, cam.far), None
+        pk = pack_weights(model, cfg)
+        io = n * (36 + 8 * s + (4 if ipe else 0))  # rays, samples and radii in
+        if kernel == "K1":
+            args = (pk, o, d, vd, ts, dl, cfg, s)
+            fn = lambda: fused_ray_render(*args, radii=radii)  # noqa: E731
+            plain = lambda: [fused_ray_render_reference(  # noqa: E731
+                pk, o[i:i + PLAIN_CHUNK], d[i:i + PLAIN_CHUNK], vd[i:i + PLAIN_CHUNK],
+                ts[i:i + PLAIN_CHUNK], dl[i:i + PLAIN_CHUNK], cfg, s,
+                radii=None if radii is None else radii[i:i + PLAIN_CHUNK])
+                for i in range(0, n, PLAIN_CHUNK)]
+            flops = flops_per_row(cfg, False) * n * s
+            nbytes = io + n * (20 + 8 * s) + 2 * pk.w.numel() + 4 * pk.b.numel()
+        else:
+            args = (pk, pack_weights_t(pk), o, d, vd, ts, dl, gold[:n], cfg, s)
+            fn = lambda: fused_train_grads(*args, white_bg=True, radii=radii)  # noqa: E731
+            plain = lambda: fused_train_grads_reference(  # noqa: E731
+                *args, white_bg=True, radii=radii)
+            flops = flops_per_row(cfg, True) * n * s
+            nbytes = io + n * (12 + 32 + 4 * s) + 2 * pk.w.numel() + 4 * (pk.w.numel()
+                                                                         + pk.b.numel())
+        fn()
+        ms = event_ms(fn)
+        plain_ms = event_ms(plain, reps=1)
+        b, by = bound_ms(flops, nbytes)
+        row = {"kernel": kernel, "case": name, "rays": n, "samples": s, "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": b, "bound_by": by}
+        if kernel == "K2":  # the stashes and dW partials of one call
+            row["scratch_bytes"] = fused_train._library().nerf_fused_train_scratch_bytes(
+                n, padded_samples(s), pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D,
+                pk.w.numel() + pk.b.numel())
+        print(f"{kernel} {name}, {n} rays [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"bound {b:.3f} ms ({by}), {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s"
+              + (f", scratch {row['scratch_bytes'] / 1e9:.3f} GB" if kernel == "K2" else ""))
+        rows.append(row)
+    return rows
+
+
+def time_presets(card: str) -> dict:
+    """Each preset's step (4096 rays, 64 + 128 samples) through K2 and
+    through autograd, its 800x800 frame through K1 (its first rays checked
+    against the plain version, pass by pass), and a profile of the
+    hierarchical K2 step."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.ops import render as render_ops
+    from nerf_rs_tpu_torch.render import make_render
+    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+
+    dev = torch.device("cuda")
+    out = {}
+    for preset in PRESETS:
+        cfg = preset_cfg(preset)
+        ds = make_dataset(cfg, dev)
+        times = {}
+        for name, c, window in (("K2", cfg, 10),
+                                ("autograd", dataclasses.replace(cfg, use_whole_ray_train=False),
+                                 5)):
+            state = init_state(c, dev)
+            fn = make_train_step(c, ds)
+            it = [0]
+
+            def run(k):
+                nonlocal state
+                for _ in range(k):
+                    state, _ = fn(state, step_generator(0, it[0], dev))
+                    it[0] += 1
+            run(2)
+            times[name] = best_of(lambda: run(window)) / window
+            if name == "K2" and preset == "hierarchical":
+                torch.cuda.synchronize()
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    run(5)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3 / 5
+                per = sorted(((v / 5, k) for k, v in device_ms(prof).items()), reverse=True)
+                busy = sum(v for v, _ in per)
+                print(f"hierarchical K2 step profile [{card}]: wall {wall:.3f} ms/step "
+                      f"(profiled), device busy {busy:.3f} ms/step, "
+                      f"idle {100 * (1 - busy / wall):.1f}%")
+                for v, k in per[:8]:
+                    print(f"  {v:8.3f} ms/step  {k[:100]}")
+            del state
+        for name, t in times.items():
+            print(f"{preset} train step through {name} [{card}]: {t * 1e3:.3f} ms/step")
+
+        fcfg = preset_cfg(preset, "--width", str(FRAME), "--height", str(FRAME))
+        fds = make_dataset(fcfg, dev)
+        fo, fd = (a.reshape(-1, 3) for a in fds.view_rays(0))
+        st = init_state(fcfg, dev)
+        render_fn = make_render(fcfg)
+        frame = lambda: render_fn(st.params, fo, fd, fine_params=st.fine_params)  # noqa: E731
+        if not bool(torch.isfinite(frame()[0]).all()):
+            fail(f"{preset} 800x800 frame: non-finite values")
+        # the frame's first rays through both routes, coarse and fine
+        k = PLAIN_CHUNK // 4
+        passes = []
+        for route in (contextlib.nullcontext, plain_render_route):
+            with route(), torch.no_grad():
+                passes.append(render_ops.render_rays(
+                    st.params, fo[:k], fd[:k], fcfg.model, fcfg.render, fcfg.camera,
+                    randomized=False, dtype=torch.bfloat16, use_fused=True,
+                    fine_params=st.fine_params))
+        coarse_err = float((passes[0][0].rgb - passes[1][0].rgb).abs().max())
+        fine_diff = (passes[0][1].rgb - passes[1][1].rgb).abs()
+        errs = {"coarse": coarse_err, "fine mean": float(fine_diff.mean()),
+                "fine max": float(fine_diff.max())}
+        print(f"{preset} frame, K1 vs plain on its first {k} rays: coarse rgb "
+              f"{coarse_err:.3g} (tol {TOL['rgb']:g}), fine rgb mean {errs['fine mean']:.3g} "
+              f"(tol {FINE_TOL['mean']:g}), max {errs['fine max']:.3g} (tol {FINE_TOL['max']:g})")
+        if not (coarse_err <= TOL["rgb"] and errs["fine mean"] <= FINE_TOL["mean"]
+                and errs["fine max"] <= FINE_TOL["max"]):
+            fail(f"{preset} frame: K1 and the plain version disagree: {errs}")
+        t_frame = best_of(frame)
+        print(f"{preset} 800x800 frame [{card}]: {t_frame:.4f} s through K1 (best of 3)")
+        out[preset] = {"k2_ms": times["K2"] * 1e3, "autograd_ms": times["autograd"] * 1e3,
+                       "frame_s": t_frame}
+    return out
+
+
+def library_times(card: str, model, mcfg, co, cd, ts, dl) -> dict:
+    """One PyTorch library path computing each kernel's function on its
+    flagship inputs, timed and used nowhere in the port: K1, the eager
+    field at bf16 (cuBLAS) + composite over the 262,144-ray chunk (in
+    four calls of 65,536 rays, for device memory); K2, autograd's
+    forward + backward of the eager loss at 4096 rays x 64 samples."""
+    import torch
+
+    from nerf_rs_tpu_torch.models.mlp import apply_nerf
+    from nerf_rs_tpu_torch.ops import render as render_ops, sampling
+
+    cvd = cd / torch.linalg.norm(cd, dim=-1, keepdim=True)
+
+    @torch.no_grad()
+    def k1_library():
+        for i in range(0, co.shape[0], 65536):
+            j = slice(i, i + 65536)
+            pts = sampling.points_from_ts(co[j], cd[j], ts[j])
+            sigma, rgb = apply_nerf(model, pts, cvd[j][:, None, :], mcfg, torch.bfloat16)
+            render_ops.composite(sigma, rgb, dl[j], ts=ts[j])
+
+    n = 4096
+    gold = torch.rand(n, 3, generator=torch_generator(co.device, 4), device=co.device)
+
+    def k2_library():
+        model.zero_grad(set_to_none=True)
+        pts = sampling.points_from_ts(co[:n], cd[:n], ts[:n])
+        sigma, rgb = apply_nerf(model, pts, cvd[:n][:, None, :], mcfg, torch.bfloat16)
+        out = render_ops.composite(sigma, rgb, dl[:n])
+        render_ops.mse(out.rgb, gold).backward()
+
+    k1_library()
+    k2_library()
+    times = {"fused_ray_render": event_ms(k1_library), "fused_train_grads": event_ms(k2_library)}
+    model.zero_grad(set_to_none=True)
+    print(f"library paths [{card}]: eager bf16 field + composite, 262,144 x 64: "
+          f"{times['fused_ray_render']:.3f} ms; autograd of the eager loss, 4096 x 64: "
+          f"{times['fused_train_grads']:.3f} ms")
+    return times
+
+
 def main() -> int:
     import torch
 
@@ -479,6 +954,10 @@ def main() -> int:
     gold = torch.cat([gold, gold])[:N_RAYS].contiguous()
     train_err = check_train_kernel(model, mcfg, (o, d, vd), ts_jit, gold, cam.far)
 
+    # ---- 9. the hierarchical branches: IPE, rays longer than one tile ----
+    max_err = max(max_err, check_render_branches(model, mcfg, o, d, vd, cam))
+    train_err = max(train_err, check_train_branches(model, mcfg, o, d, vd, gold, cam))
+
     # ---- 5. the render path through the CLI ----
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -542,6 +1021,10 @@ def main() -> int:
 
         # ---- 7. learning: the verify drive, then eval and render ----
         verify_drive(tmp)
+
+        # ---- 10. the hierarchical path through the CLI, per preset ----
+        preset_counts = {p: drive_preset(tmp, p) for p in PRESETS}
+        learned = {p: learning_drive(tmp, p) for p in PRESETS}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -601,27 +1084,55 @@ def main() -> int:
 
     train_times = time_training(card)
 
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    # ---- 11. times of the hierarchical path and the new branches ----
+    branch_rows = time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d)
+    preset_times = time_presets(card)
+    library = library_times(card, model, mcfg, co, cd, ts, dl)
+
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "nerf_rs_tpu"))
+    if bad:
+        fail(f"imported {bad}: the port stands without JAX and the JAX package")
+    # the flagship shapes' bounds: a 262,144-ray chunk at S=64 (K1), a
+    # 4096 x 64 step's call (K2); every input read once, output written once
+    k1_bound, k1_by = bound_ms(flops_per_row(mcfg, False) * n * S,
+                               n * (36 + 8 * S + 20 + 8 * S) + 2 * packed.w.numel())
+    k2_bound, k2_by = bound_ms(flops_per_row(mcfg, True) * 4096 * S,
+                               4096 * (36 + 8 * S + 12 + 32 + 4 * S)
+                               + 4 * (packed.w.numel() + packed.b.numel()))
+    k1_paths = {"render_flagship": launches,
+                **{f"{p}_{k}": c[k] for p, c in preset_counts.items()
+                   for k in ("train_eval", "render", "eval")}}
+    k2_paths = {"train_flagship": train_launches,
+                **{f"{p}_train": c["train"] for p, c in preset_counts.items()}}
     print(json.dumps({"kernels": [{
         "name": "fused_ray_render",
         "route": "cuda",
         "source": "nerf_rs_tpu_torch/kernels/csrc/fused_ray.cu",
         "replaces": "nerf_rs_tpu/kernels/fused_ray.py:45",
-        "launches": launches,
+        "launches": sum(k1_paths.values()),
+        "launches_by_path": k1_paths,
         "max_abs_err": max_err,
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": library["fused_ray_render"],
+        "branches": [r for r in branch_rows if r["kernel"] == "K1"],
     }, {
         "name": "fused_train_grads",
         "route": "cuda",
         "source": "nerf_rs_tpu_torch/kernels/csrc/fused_train.cu",
         "replaces": "nerf_rs_tpu/kernels/fused_train.py:93",
-        "launches": train_launches,
+        "launches": sum(k2_paths.values()),
+        "launches_by_path": k2_paths,
         "max_abs_err": train_err,
         "ms": train_times["k2_ms"],
         "plain_ms": train_times["plain_ms"],
-    }]}))
+        "bound_ms": k2_bound,
+        "bound_by": k2_by,
+        "library_ms": library["fused_train_grads"],
+        "branches": [r for r in branch_rows if r["kernel"] == "K2"],
+    }], "presets": preset_times, "learning": learned}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

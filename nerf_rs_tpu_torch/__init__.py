@@ -6,15 +6,15 @@ name. Plain tensor code is PyTorch; the Pallas kernels the ported path
 runs are CUDA C++ kernels for ``sm_90a`` here: the whole-ray render
 kernel (``nerf_rs_tpu/kernels/fused_ray.py`` -> ``kernels/csrc/fused_ray.cu``)
 and the whole-ray train kernel (``nerf_rs_tpu/kernels/fused_train.py`` ->
-``kernels/csrc/fused_train.cu``). The ported path is the flagship's:
-``cli train``, ``cli eval`` and ``cli render`` on the sphere scene.
+``kernels/csrc/fused_train.cu``). The ported paths are ``cli train``,
+``cli eval`` and ``cli render`` on the sphere scene, for the presets
+``tiny``, ``full``, ``hierarchical`` and ``mipnerf``.
 
-The configuration dataclasses are shared with the JAX package rather
-than copied: ``nerf_rs_tpu.config`` is plain dataclasses and importing it
-loads no JAX. This package itself never imports ``jax``.
+The configuration dataclasses are the port's own copy (``config.py``).
+This package imports neither ``jax`` nor anything of ``nerf_rs_tpu``.
 """
 
-from nerf_rs_tpu.config import (
+from .config import (
     CameraConfig,
     Config,
     DataConfig,

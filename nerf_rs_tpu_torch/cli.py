@@ -3,17 +3,22 @@ of ``cmd_train``, ``cmd_eval`` and ``cmd_render`` in
 ``nerf_rs_tpu/cli.py``.
 
   python -m nerf_rs_tpu_torch.cli train --preset full --dataset sphere
-  python -m nerf_rs_tpu_torch.cli eval --dataset sphere --max_views 3
+  python -m nerf_rs_tpu_torch.cli train --preset hierarchical --dataset sphere
+  python -m nerf_rs_tpu_torch.cli eval --preset mipnerf --dataset sphere --max_views 3
   python -m nerf_rs_tpu_torch.cli render --dataset sphere --view 0
 
 It takes the JAX parser's flags that the ported slices serve, with the
 JAX defaults (``--use_whole_ray_train`` is off unless a preset turns it
-on; ``--preset tiny`` and ``--preset full`` do, and explicit flags beat
-the preset). Flags, presets and values of slices not ported yet, and
-the ``export`` subcommand, are refused with an error that names the
-slice, never ignored. Runs go to the CUDA device when there is one
-(training through the whole-ray train kernel, rendering through the
-render kernel), else to the CPU.
+on; the presets ``tiny``, ``full``, ``hierarchical`` and ``mipnerf`` do,
+with the JAX package's values, and explicit flags beat the preset).
+Flags, presets and values of slices not ported yet, and the ``export``
+subcommand, are refused with an error that names the slice, never
+ignored.
+
+Runs go to the card (training through the whole-ray train kernel,
+rendering through the render kernel) unless ``--device cpu`` asks for
+the CPU, the port's counterpart of ``JAX_PLATFORMS=cpu``; without a
+card, ``--device cuda`` (the default) raises.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import time
 import numpy as np
 import torch
 
-from nerf_rs_tpu.config import (
+from .config import (
     CameraConfig,
     Config,
     DataConfig,
@@ -36,14 +41,13 @@ from nerf_rs_tpu.config import (
     TrainConfig,
 )
 
-from .train.loop import default_device
+from .train.loop import resolve_device
 
 LATER = {"export": "slice 7"}
 
 # the JAX parser's flags that later slices bring, by slice
 _LATER_FLAGS = {
-    2: "num_fine_samples share_network fine_mode",
-    3: "ipe multiscale_levels",
+    3: "multiscale_levels",
     4: "occ_res occ_update_steps occ_threshold occ_aabb occ_bins occ_decay "
        "occ_uniform_frac",
     5: "contract sampling_space use_proposal proposal_samples proposal_levels "
@@ -58,8 +62,8 @@ _LATER_FLAGS = {
     10: "compat",
 }
 _FLAG_SLICE = {f: n for n, flags in _LATER_FLAGS.items() for f in flags.split()}
-_PRESET_SLICE = {"hierarchical": 2, "mipnerf": 3, "record": 4, "proposal": 5,
-                 "unbounded": 5, "pod": 6, "ngp": 9, "factored": 9}
+_PRESET_SLICE = {"record": 4, "proposal": 5, "unbounded": 5, "pod": 6, "ngp": 9,
+                 "factored": 9}
 
 
 def _bool_flag(p, name, default, help=""):
@@ -102,30 +106,45 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("--far", type=float, default=2.0)
     common.add_argument("--num_rays", type=int, default=4096)
     common.add_argument("--num_samples", type=int, default=64)
+    common.add_argument("--num_fine_samples", type=int, default=0)
+    _bool_flag(common, "share_network", False,
+               "one field for both hierarchical passes")
+    common.add_argument(
+        "--fine_mode", default="union", choices=["union", "standalone"],
+        help="union: composite coarse+fine samples (paper); standalone: "
+             "composite only the fine samples",
+    )
     _bool_flag(common, "white_background", False)
     common.add_argument("--sigma_activation", default="relu", choices=["relu", "softplus"])
+    _bool_flag(common, "ipe", False,
+               "mip-NeRF: conical-frustum intervals with the integrated encoding")
     common.add_argument("--precision", default="mixed", choices=["f32", "bf16", "mixed"],
                         help="matmul precision of the eager field path; the "
                              "kernels always multiply in bf16")
     common.add_argument("--seed", type=int, default=0)
+    common.add_argument("--device", default="cuda",
+                        help="where the run goes: cuda (the card; raises without one) or cpu")
     _bool_flag(common, "use_fused_kernel", True,
                "render through the whole-ray CUDA render kernel")
     _bool_flag(common, "use_whole_ray_train", False,
-               "train through the whole-ray CUDA train kernel (presets tiny "
-               "and full turn it on)")
+               "train through the whole-ray CUDA train kernel (the presets "
+               "turn it on)")
+    common.add_argument("--preset", default="",
+                        choices=["", "tiny", "full", "hierarchical", "mipnerf",
+                                 *sorted(_PRESET_SLICE)],
+                        help="tiny = 100x100 coarse-only 4096-ray fit; full = paper "
+                             "NeRF, stratified 64; hierarchical = two fields, 64 + 128 "
+                             "union; mipnerf = IPE, one field, 64 + 128 standalone; all "
+                             "through the train kernel")
 
-    pt = sub.add_parser("train", parents=[common])
-    pt.add_argument("--preset", default="",
-                    choices=["", "tiny", "full", *sorted(_PRESET_SLICE)],
-                    help="tiny = 100x100 coarse-only 4096-ray fit; full = paper "
-                         "NeRF, stratified 64; both through the train kernel")
+    sub.add_parser("train", parents=[common])
 
     pe = sub.add_parser("eval", parents=[common])
     pe.add_argument("--split", default="test", help="dataset split to evaluate")
     pe.add_argument("--max_views", type=int, default=0, help="0 = all views")
     pe.add_argument("--out_dir", default="", help="optionally dump per-view renders")
     pe.add_argument("--scales", default="",
-                    help="downscales to evaluate; only 1 until slice 3")
+                    help="downscales to evaluate; only 1 until multiscale (slice 3)")
 
     pr = sub.add_parser("render", parents=[common])
     pr.add_argument("--out_dir", default="renders")
@@ -169,9 +188,20 @@ def _apply_preset(args):
                                   f"of the port")
     if p == "tiny":
         _set(width=100, height=100, num_rays=4096, num_samples=64,
-             use_whole_ray_train=True)
+             num_fine_samples=0, use_whole_ray_train=True)
     elif p == "full":
-        _set(num_samples=64, use_whole_ray_train=True)
+        _set(num_samples=64, num_fine_samples=0, use_whole_ray_train=True)
+    elif p == "hierarchical":
+        # NeRF section 5.2: separate coarse and fine fields, union fine pass
+        _set(num_samples=64, num_fine_samples=128, white_background=True,
+             use_whole_ray_train=True)
+    elif p == "mipnerf":
+        # mip-NeRF: IPE intervals, one field for both passes, the fine
+        # intervals composited standalone, softplus density
+        _set(ipe=True, share_network=True, fine_mode="standalone",
+             num_samples=64, num_fine_samples=128,
+             sigma_activation="softplus", white_background=True,
+             use_whole_ray_train=True)
     return args
 
 
@@ -188,8 +218,11 @@ def config_from_args(args) -> Config:
         run_name=args.run_name,
         camera=CameraConfig(width=args.width, height=args.height,
                             near=args.near, far=args.far),
-        model=ModelConfig(sigma_activation=args.sigma_activation),
+        model=ModelConfig(sigma_activation=args.sigma_activation, ipe=args.ipe),
         render=RenderConfig(num_samples=args.num_samples,
+                            num_fine_samples=args.num_fine_samples,
+                            share_network=args.share_network,
+                            fine_mode=args.fine_mode,
                             white_background=args.white_background),
         train=TrainConfig(
             num_rays=args.num_rays,
@@ -210,18 +243,19 @@ def config_from_args(args) -> Config:
 
 
 def _load_params(cfg: Config, device):
-    """The field with the weights of --load_path, else of the newest
-    checkpoint in --save_dir (weights only: inference does not depend on
-    the optimizer). Returns (params, path or None)."""
-    from .models.mlp import init_nerf_params
+    """The field (and the fine field of a two-field hierarchical run)
+    with the weights of --load_path, else of the newest checkpoint in
+    --save_dir (weights only: inference does not depend on the
+    optimizer). Returns (params, fine params or None, path or None)."""
     from .train import checkpoint as ckpt
+    from .train.step import init_state
 
-    params = init_nerf_params(cfg.model, cfg.train.seed, device)
+    state = init_state(cfg, device)
     load_path = cfg.load_path or ckpt.latest_checkpoint(cfg.save_dir)
     if load_path:
-        step = ckpt.restore_weights(load_path, params)
+        step = ckpt.restore_weights(load_path, state.params, state.fine_params)
         print(f"loaded {load_path} (step {step})")
-    return params, load_path
+    return state.params, state.fine_params, load_path
 
 
 def cmd_train(args) -> int:
@@ -229,7 +263,7 @@ def cmd_train(args) -> int:
     from .train.loop import train
 
     cfg = config_from_args(args)
-    state = train(cfg, dataset=make_dataset(cfg, default_device()))
+    state = train(cfg, dataset=make_dataset(cfg, resolve_device(args.device)))
     print(f"done at step {state.step}")
     return 0
 
@@ -244,11 +278,12 @@ def cmd_eval(args) -> int:
     from .render import make_render, render_frame
 
     if args.scales not in ("", "1"):
-        raise NotImplementedError("multiscale eval (--scales) comes with slice 3 of the port")
+        raise NotImplementedError("multiscale eval (--scales) comes with slice 3 of the port "
+                                  "(multiscale)")
     cfg = config_from_args(args)
-    device = default_device()
+    device = resolve_device(args.device)
     dataset = make_dataset(cfg, device)
-    params, load_path = _load_params(cfg, device)
+    params, fine_params, load_path = _load_params(cfg, device)
     if not load_path:
         print("error: no checkpoint found (use --load_path or --save_dir)")
         return 1
@@ -259,7 +294,8 @@ def cmd_eval(args) -> int:
     psnrs, ssims = [], []
     t0 = time.time()
     for v in range(n):
-        rgb, _, _ = render_frame(cfg, params, *dataset.view_rays(v), render_fn)
+        rgb, _, _ = render_frame(cfg, params, *dataset.view_rays(v), render_fn,
+                                 fine_params=fine_params)
         gold = dataset.view_gold(v)
         p = float(render_ops.psnr(rgb, gold))
         s = float(ssim_fn(rgb, gold))
@@ -281,9 +317,9 @@ def cmd_render(args) -> int:
     from .render import make_render, render_frame
 
     cfg = config_from_args(args)
-    device = default_device()
+    device = resolve_device(args.device)
     dataset = make_dataset(cfg, device)
-    params, load_path = _load_params(cfg, device)
+    params, fine_params, load_path = _load_params(cfg, device)
     if not load_path:
         print("warning: no checkpoint found; rendering an untrained field")
     render_fn = make_render(cfg)
@@ -292,7 +328,7 @@ def cmd_render(args) -> int:
     t0 = time.time()
     if args.view >= 0:
         o, d = dataset.view_rays(args.view)
-        rgb, _, _ = render_frame(cfg, params, o, d, render_fn)
+        rgb, _, _ = render_frame(cfg, params, o, d, render_fn, fine_params=fine_params)
         psnr = float(render_ops.psnr(rgb, dataset.view_gold(args.view)))
         path = os.path.join(args.out_dir, f"view-{args.view}.png")
         save_png(path, rgb)
@@ -306,7 +342,7 @@ def cmd_render(args) -> int:
     grids = [rays_ops.ray_grid(poses[i], cfg.camera) for i in range(args.frames)]
     big_o = torch.cat([o.reshape(-1, 3) for o, _ in grids]).reshape(args.frames * h, w, 3)
     big_d = torch.cat([d.reshape(-1, 3) for _, d in grids]).reshape(args.frames * h, w, 3)
-    rgb, _, _ = render_frame(cfg, params, big_o, big_d, render_fn)
+    rgb, _, _ = render_frame(cfg, params, big_o, big_d, render_fn, fine_params=fine_params)
     rgb = rgb.reshape(args.frames, h, w, 3).cpu()
     for i in range(args.frames):
         save_png(os.path.join(args.out_dir, f"frame-{i:03d}.png"), rgb[i])

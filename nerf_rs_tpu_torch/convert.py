@@ -9,6 +9,9 @@ the conversion renames and copies and never transposes:
     tree = jax.tree.map(np.asarray, params)
     model = NerfMLP(cfg)
     model.load_state_dict(params_from_numpy(tree))
+
+A hierarchical run's second field (``TrainState.fine_params`` in both
+packages) is a tree of the same layout and converts the same way.
 """
 
 from __future__ import annotations

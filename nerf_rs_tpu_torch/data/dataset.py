@@ -14,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from nerf_rs_tpu.config import CameraConfig
+from ..config import CameraConfig
 
 from ..ops import rays as rays_ops
 from ..train.step import Batch

@@ -5,7 +5,7 @@ datasets (multiview PNG, Blender, LLFF) come with slice 6 of the port.
 
 from __future__ import annotations
 
-from nerf_rs_tpu.config import Config
+from ..config import Config
 
 from ..ops import rays as rays_ops
 from . import synthetic

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from nerf_rs_tpu.config import CameraConfig
+from ..config import CameraConfig
 
 
 def sphere_image(camera: CameraConfig, radius_frac: float = 0.25,

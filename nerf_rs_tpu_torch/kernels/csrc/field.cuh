@@ -1,10 +1,19 @@
 // Device code shared by the whole-ray kernels: the render kernel K1
 // (fused_ray.cu) and the training kernel K2 (fused_train.cu).
 //
-// Both evaluate the paper field on a CTA tile of 128 sample rows (128 / S
-// whole rays): PE of the points and view directions into bf16 tiles in
-// shared memory, then every layer as bf16 x bf16 -> f32 tensor-core
-// products (mma.sync.m16n8k16) whose epilogues run in registers.
+// Both evaluate the paper field on a CTA tile of 128 sample rows: PE (or
+// mip-NeRF's integrated encoding, IPE) of the points and view directions
+// into bf16 tiles in shared memory, then every layer as bf16 x bf16 -> f32
+// tensor-core products (mma.sync.m16n8k16) whose epilogues run in
+// registers.
+//
+// Rays per CTA. A CTA takes whole rays: 128 / S of them when S divides
+// 128, or one ray of S = 256 samples in two passes of 128 rows (field.S is
+// what the wrappers pad S to, with zero-length intervals at the far end:
+// a power of two up to 128, else 256). The per-sample values the
+// compositing scan needs (raw sigma, rgb, ts, deltas; K2's gradients) are
+// kept for the CTA's whole rays, `rows` = max(128, S) of them, so a pass
+// writes its rows at offset s0 and the scan runs once over whole rays.
 //
 // Layout of a product. 16 warps tile the 128 rows 4 ways (32 rows each)
 // and the output columns in chunks of 64. A operands come from shared
@@ -17,7 +26,10 @@
 // Numerics: no fast math. sinf/cosf with exact ldexpf scales for the PE
 // (sin(2^9 x) loses its phase with a low-precision argument or sine);
 // points are o + t*d with the multiply and add rounded separately, as the
-// plain versions compute them.
+// plain versions compute them. IPE: the conical-frustum moments
+// (ipe_moments) round every operation on its own, in the plain version's
+// order, and the damping exp(-4^l var / 2) is expf of an exact ldexpf
+// scaling of the f32 variance (4^9 would swamp a bf16 one).
 
 #pragma once
 
@@ -39,6 +51,8 @@ constexpr int kMT = kWarpRows / 16;              // m16 tiles per warp
 constexpr int kChunk = 8;                        // n8 tiles per warp pass (64 columns)
 constexpr int kMaxMats = 24;
 constexpr int kLdr = 24;                         // row stride of K2's 16-wide rgb-gradient tile
+constexpr int kMaxSamples = 256;                 // samples per ray, after padding
+constexpr int kRayStride = 10;                   // per ray in shared memory: o, d, viewdir, radius
 
 // The field's inputs, packed weights and widths.
 struct Field {
@@ -47,12 +61,15 @@ struct Field {
   const float* vd;
   const float* ts;
   const float* deltas;
+  const float* radii;  // IPE: per-ray cone radius at unit distance; else null
   const bf16* w;
   const float* b;
   long long w_off[kMaxMats];  // matrices: trunk[0..n_layers), skip, sf, view, view_dir, rgb
   long long b_off[kMaxMats];  // biases: trunk[0..n_layers), sf, view, rgb
   long long n_rays;
-  int S, n_layers, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act;
+  int S, n_layers, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe;
+  int R;     // whole rays per CTA
+  int rows;  // sample rows per CTA, R * S: one 128-row pass, or S / 128 of them
   int ldb, ldx, ldd;  // shared-memory row strides in bf16 elements
 };
 
@@ -60,20 +77,22 @@ struct Field {
 // code for a shape the kernels do not take (kernels/fused_ray.py maps the
 // codes to messages).
 inline int init_field(Field* f, const void* o, const void* d, const void* vd, const void* ts,
-                      const void* deltas, const void* w, const void* b, const long long* w_off,
-                      int n_w, const long long* b_off, int n_b, long long n_rays, int S,
-                      int depth_l, int skip, int W, int F, int V, int P, int D, int pos_levels,
-                      int dir_levels, int sigma_act) {
-  if (S <= 0 || S > kRows || kRows % S != 0) return -1;
+                      const void* deltas, const void* radii, const void* w, const void* b,
+                      const long long* w_off, int n_w, const long long* b_off, int n_b,
+                      long long n_rays, int S, int depth_l, int skip, int W, int F, int V, int P,
+                      int D, int pos_levels, int dir_levels, int sigma_act, int ipe) {
+  if (S <= 0 || S > kMaxSamples || (S <= kRows ? kRows % S : S % kRows) != 0) return -1;
   if (n_w != depth_l + 5 || n_b != depth_l + 3 || n_w > kMaxMats || depth_l < 1) return -2;
   if (W % 16 || F % 16 || V % 16 || P % 16 || D % 16) return -3;
   if (3 + 6 * pos_levels > P || 3 + 6 * dir_levels > D) return -4;
   if (sigma_act != 0 && sigma_act != 1) return -6;
+  if ((ipe != 0 && ipe != 1) || (ipe == 1) != (radii != nullptr)) return -7;
   f->o = static_cast<const float*>(o);
   f->d = static_cast<const float*>(d);
   f->vd = static_cast<const float*>(vd);
   f->ts = static_cast<const float*>(ts);
   f->deltas = static_cast<const float*>(deltas);
+  f->radii = static_cast<const float*>(radii);
   f->w = static_cast<const bf16*>(w);
   f->b = static_cast<const float*>(b);
   for (int i = 0; i < kMaxMats; ++i) {
@@ -92,6 +111,9 @@ inline int init_field(Field* f, const void* o, const void* d, const void* vd, co
   f->pos_levels = pos_levels;
   f->dir_levels = dir_levels;
   f->sigma_act = sigma_act;
+  f->ipe = ipe;
+  f->R = S <= kRows ? kRows / S : 1;
+  f->rows = f->R * S;
   int widest = W > F ? W : F;
   widest = widest > V ? widest : V;
   f->ldb = widest + 8;  // +8 bf16 per row: conflict-free ldmatrix
@@ -101,7 +123,7 @@ inline int init_field(Field* f, const void* o, const void* d, const void* vd, co
 }
 
 struct SmemLayout {
-  size_t buf0, buf1, xs, ds, sig_raw, rgb, ts, dl, w, sg, ray, dpe, drgb, dsig, total;
+  size_t buf0, buf1, xs, ds, mv, sig_raw, rgb, ts, dl, w, sg, ray, dpe, drgb, dsig, total;
 };
 
 __host__ __device__ inline size_t take(size_t* at, size_t bytes) {
@@ -110,25 +132,28 @@ __host__ __device__ inline size_t take(size_t* at, size_t bytes) {
   return here;
 }
 
-// train adds K2's rgb-gradient tile and dsigma column (empty for K1)
+// The pass tiles (activations, encodings, moments) hold 128 rows; the
+// per-sample values of the CTA's whole rays hold f.rows. train adds K2's
+// rgb-gradient tile and dsigma column (empty for K1).
 __host__ __device__ inline SmemLayout smem_layout(const Field& f, bool train) {
-  const int rays = kRows / f.S;
+  const int rows = f.rows;
   SmemLayout L;
   size_t at = 0;
   L.buf0 = take(&at, sizeof(bf16) * kRows * f.ldb);
   L.buf1 = take(&at, sizeof(bf16) * kRows * f.ldb);
   L.xs = take(&at, sizeof(bf16) * kRows * f.ldx);
   L.ds = take(&at, sizeof(bf16) * kRows * f.ldd);
-  L.sig_raw = take(&at, sizeof(float) * kRows);
-  L.rgb = take(&at, sizeof(float) * kRows * 4);
-  L.ts = take(&at, sizeof(float) * kRows);
-  L.dl = take(&at, sizeof(float) * kRows);
-  L.w = take(&at, sizeof(float) * kRows);
-  L.sg = take(&at, sizeof(float) * kRows);
-  L.ray = take(&at, sizeof(float) * rays * 9);
-  L.dpe = take(&at, sizeof(float) * rays * f.D);
-  L.drgb = take(&at, train ? sizeof(bf16) * kRows * kLdr : 0);
-  L.dsig = take(&at, train ? sizeof(float) * kRows : 0);
+  L.mv = take(&at, sizeof(float) * kRows * 6);
+  L.sig_raw = take(&at, sizeof(float) * rows);
+  L.rgb = take(&at, sizeof(float) * rows * 4);
+  L.ts = take(&at, sizeof(float) * rows);
+  L.dl = take(&at, sizeof(float) * rows);
+  L.w = take(&at, sizeof(float) * rows);
+  L.sg = take(&at, sizeof(float) * rows);
+  L.ray = take(&at, sizeof(float) * f.R * kRayStride);
+  L.dpe = take(&at, sizeof(float) * f.R * f.D);
+  L.drgb = take(&at, train ? sizeof(bf16) * rows * kLdr : 0);
+  L.dsig = take(&at, train ? sizeof(float) * rows : 0);
   L.total = at;
   return L;
 }
@@ -139,13 +164,14 @@ struct Tile {
   bf16* buf1;
   bf16* xs;      // PE(points), bf16, row stride ldx
   bf16* ds;      // PE(viewdir) per row, bf16, row stride ldd
+  float* mv;     // per pass row: the point (or the Gaussian's mean), then its variance
   float* sig_raw;
   float* rgb;    // 4 floats per row
   float* ts;
   float* dl;
   float* w;
   float* sg;
-  float* ray;    // per ray: o, d, viewdir
+  float* ray;    // per ray: o, d, viewdir, radius (kRayStride floats)
   float* dpe;    // per ray: PE(viewdir), f32
   bf16* drgb;    // K2: d rgb_raw, 16 columns, row stride kLdr
   float* dsig;   // K2: d sigma_raw rounded to bf16
@@ -157,6 +183,7 @@ __device__ inline Tile carve(unsigned char* smem, const SmemLayout& L) {
   t.buf1 = reinterpret_cast<bf16*>(smem + L.buf1);
   t.xs = reinterpret_cast<bf16*>(smem + L.xs);
   t.ds = reinterpret_cast<bf16*>(smem + L.ds);
+  t.mv = reinterpret_cast<float*>(smem + L.mv);
   t.sig_raw = reinterpret_cast<float*>(smem + L.sig_raw);
   t.rgb = reinterpret_cast<float*>(smem + L.rgb);
   t.ts = reinterpret_cast<float*>(smem + L.ts);
@@ -205,6 +232,48 @@ __device__ __forceinline__ float pe_value(float x, int c) {
   const int r = c - 3;
   const float t = ldexpf(x, r / 6);
   return (r % 6 < 3) ? sinf(t) : cosf(t);
+}
+
+// IPE column c of the Gaussian (mean, var) of one coordinate: c < 3 is the
+// mean; otherwise sin or cos of 2^level * mean, as pe_value, damped by
+// exp(-4^level var / 2) -- kernels/fused_render.ipe_encode.
+__device__ __forceinline__ float ipe_value(float mean, float var, int c) {
+  if (c < 3) return mean;
+  const int r = c - 3, level = r / 6;
+  const float t = ldexpf(mean, level);
+  const float s = (r % 6 < 3) ? sinf(t) : cosf(t);
+  return __fmul_rn(s, expf(-ldexpf(var, 2 * level - 1)));
+}
+
+// The conical frustum [mu - delta / 2, mu + delta / 2] of a ray (o, d) with
+// cone radius `radius` as a Gaussian: mean into mv[0:3], diagonal variance
+// into mv[3:6] (ops/sampling.conical_gaussians' stable closed forms, the
+// order of kernels/fused_render.ipe_expand, every operation rounded).
+__device__ inline void ipe_moments(const float* o, const float* d, float mu, float delta,
+                                   float radius, float* mv) {
+  const float hw = __fmul_rn(0.5f, delta);
+  const float mu2 = __fmul_rn(mu, mu), hw2 = __fmul_rn(hw, hw);
+  const float denom = __fadd_rn(__fmul_rn(3.f, mu2), hw2);
+  const float t_mean = __fadd_rn(mu, __fdiv_rn(__fmul_rn(__fmul_rn(2.f, mu), hw2), denom));
+  const float hw4 = __fmul_rn(hw2, hw2);
+  const float t_var = __fsub_rn(
+      __fdiv_rn(hw2, 3.f),
+      __fmul_rn(4.f / 15.f, __fdiv_rn(__fmul_rn(hw4, __fsub_rn(__fmul_rn(12.f, mu2), hw2)),
+                                      __fmul_rn(denom, denom))));
+  const float r_var = __fmul_rn(
+      __fmul_rn(radius, radius),
+      __fsub_rn(__fadd_rn(__fdiv_rn(mu2, 4.f), __fmul_rn(5.f / 12.f, hw2)),
+                __fdiv_rn(__fmul_rn(__fmul_rn(4.f / 15.f, hw2), hw2), denom)));
+  float d2[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) d2[k] = __fmul_rn(d[k], d[k]);
+  const float dn2 = fmaxf(__fadd_rn(__fadd_rn(d2[0], d2[1]), d2[2]), 1e-10f);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    mv[k] = __fadd_rn(o[k], __fmul_rn(t_mean, d[k]));
+    mv[3 + k] = __fadd_rn(__fmul_rn(t_var, d2[k]),
+                          __fmul_rn(r_var, __fsub_rn(1.f, __fdiv_rn(d2[k], dn2))));
+  }
 }
 
 typedef float Acc[kMT][kChunk][4];
@@ -331,60 +400,82 @@ struct Stash {
   bf16* dv;
 };
 
-// The field on the CTA's tile: inputs, encodings, trunk and heads. Leaves
-// raw sigma and rgb per row in t.sig_raw / t.rgb, ts and deltas in t.ts /
-// t.dl, and returns the buffers that hold hv and feat. Rows of rays past
-// the end of the batch compute on zero inputs: finite values the callers
-// never store.
+// The field on one 128-row pass of the CTA's rays: inputs, encodings,
+// trunk and heads. CTA row s0 + r (ray (s0 + r) / S, sample (s0 + r) % S)
+// is the pass's row r. Leaves raw sigma and rgb in t.sig_raw / t.rgb and
+// ts and deltas in t.ts / t.dl, all at CTA row s0 + r, and returns the
+// buffers that hold hv and feat. The stashes `st` start at the pass's
+// first row. Rows of rays past the end of the batch compute on zero
+// inputs: finite values the callers never store.
 __device__ inline void field_forward(const Field& p, const Tile& t, long long ray0, int n_valid,
-                                     const Stash& st, bf16** hv_buf, bf16** feat_buf) {
+                                     int s0, const Stash& st, bf16** hv_buf, bf16** feat_buf) {
   const int S = p.S;
-  const int R = kRows / S;
   const int tid = threadIdx.x;
-  const int rows_valid = n_valid * S;
 
   // ---- inputs; zeros past the last ray ----
-  for (int i = tid; i < R * 9; i += kThreads) {
-    const int j = i / 9, k = i % 9;
+  for (int i = tid; i < p.R * kRayStride; i += kThreads) {
+    const int j = i / kRayStride, k = i % kRayStride;
     float v = 0.f;
     if (j < n_valid) {
-      const float* src = k < 3 ? p.o : (k < 6 ? p.d : p.vd);
-      v = src[(ray0 + j) * 3 + k % 3];
+      if (k < 9) {
+        const float* src = k < 3 ? p.o : (k < 6 ? p.d : p.vd);
+        v = src[(ray0 + j) * 3 + k % 3];
+      } else if (p.ipe) {
+        v = p.radii[ray0 + j];
+      }
     }
     t.ray[i] = v;
   }
   for (int r = tid; r < kRows; r += kThreads) {
-    const bool ok = r < rows_valid;
-    t.ts[r] = ok ? p.ts[ray0 * S + r] : 0.f;
-    t.dl[r] = ok ? p.deltas[ray0 * S + r] : 0.f;
+    const int cr = s0 + r;
+    const bool ok = cr / S < n_valid;
+    t.ts[cr] = ok ? p.ts[ray0 * S + cr] : 0.f;
+    t.dl[cr] = ok ? p.deltas[ray0 * S + cr] : 0.f;
   }
   __syncthreads();
 
-  // ---- encodings: PE(o + t d) per row, PE(viewdir) once per ray ----
+  // ---- per row: the point o + t d, or (IPE) the frustum's mean and variance ----
+  for (int r = tid; r < kRows; r += kThreads) {
+    const int cr = s0 + r;
+    const float* ray = t.ray + (cr / S) * kRayStride;
+    float* mv = t.mv + r * 6;
+    if (p.ipe && cr / S < n_valid) {
+      ipe_moments(ray, ray + 3, t.ts[cr], t.dl[cr], ray[9], mv);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        mv[k] = __fadd_rn(ray[k], __fmul_rn(t.ts[cr], ray[3 + k]));
+        mv[3 + k] = 0.f;
+      }
+    }
+  }
+  __syncthreads();
+
+  // ---- encodings: PE or IPE per row, PE(viewdir) once per ray ----
   const int pos_dim = 3 + 6 * p.pos_levels;
   for (int i = tid; i < kRows * p.P; i += kThreads) {
     const int r = i / p.P, c = i % p.P;
     float v = 0.f;
     if (c < pos_dim) {
-      const float* ray = t.ray + (r / S) * 9;
+      const float* mv = t.mv + r * 6;
       const int dim = c < 3 ? c : (c - 3) % 3;
-      v = pe_value(__fadd_rn(ray[dim], __fmul_rn(t.ts[r], ray[3 + dim])), c);
+      v = p.ipe ? ipe_value(mv[dim], mv[3 + dim], c) : pe_value(mv[dim], c);
     }
     const bf16 h = __float2bfloat16_rn(v);
     t.xs[r * p.ldx + c] = h;
     if (st.x != nullptr) st.x[i] = h;
   }
   const int dir_dim = 3 + 6 * p.dir_levels;
-  for (int i = tid; i < R * p.D; i += kThreads) {
+  for (int i = tid; i < p.R * p.D; i += kThreads) {
     const int j = i / p.D, c = i % p.D;
     float v = 0.f;
-    if (c < dir_dim) v = pe_value(t.ray[j * 9 + 6 + (c < 3 ? c : (c - 3) % 3)], c);
+    if (c < dir_dim) v = pe_value(t.ray[j * kRayStride + 6 + (c < 3 ? c : (c - 3) % 3)], c);
     t.dpe[i] = v;
   }
   __syncthreads();
   for (int i = tid; i < kRows * p.D; i += kThreads) {
     const int r = i / p.D, c = i % p.D;
-    const bf16 h = __float2bfloat16_rn(t.dpe[(r / S) * p.D + c]);
+    const bf16 h = __float2bfloat16_rn(t.dpe[((s0 + r) / S) * p.D + c]);
     t.ds[r * p.ldd + c] = h;
     if (st.dv != nullptr) st.dv[i] = h;
   }
@@ -413,14 +504,14 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
   // ---- heads ----
   dense_layer(hbuf, p.ldb, p.W, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 1]),
               nullptr, 0, 0, nullptr, p.F + 8,
-              FeatSigmaStore{other, p.ldb, p.b + p.b_off[m], t.sig_raw, p.F, st.feat});
+              FeatSigmaStore{other, p.ldb, p.b + p.b_off[m], t.sig_raw + s0, p.F, st.feat});
   __syncthreads();
   dense_layer(other, p.ldb, p.F, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 2]),
               t.ds, p.ldd, p.D, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 3]), p.V,
               ReluStore{hbuf, p.ldb, p.b + p.b_off[m + 1], st.hv, p.V});
   __syncthreads();
   dense_layer(hbuf, p.ldb, p.V, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 4]),
-              nullptr, 0, 0, nullptr, 8, RgbStore{t.rgb, p.b + p.b_off[m + 2]});
+              nullptr, 0, 0, nullptr, 8, RgbStore{t.rgb + s0 * 4, p.b + p.b_off[m + 2]});
   __syncthreads();
   *hv_buf = hbuf;
   *feat_buf = other;

@@ -1,19 +1,34 @@
 // Whole-ray NeRF render kernel for Hopper (sm_90a), K1.
 //
 // Replaces nerf_rs_tpu/kernels/fused_ray.py::_ray_kernel, the Pallas TPU
-// kernel, for the paper field (PE, trunk with skip, [feature | sigma]
-// head, view head, sigmoid rgb) and alpha compositing. Per ray it reads
-// (o, d, viewdir, ts, deltas) and writes rgb, acc, depth and the
-// per-sample weights and sigma; per-sample activations never leave the
-// SM.
+// kernel, for the paper field (PE or mip-NeRF's IPE, trunk with skip,
+// [feature | sigma] head, view head, sigmoid rgb) and alpha compositing.
+// Per ray it reads (o, d, viewdir, ts, deltas, and with IPE the cone
+// radius) and writes rgb, acc, depth and the per-sample weights and
+// sigma; per-sample activations never leave the SM.
 //
-// Design. One CTA of 16 warps takes a tile of 128 sample rows, which is
-// 128 / S whole rays (2 at S = 64), and runs the field on it with the
+// Design. One CTA of 16 warps takes the sample rows of whole rays -- 128 /
+// S rays when S divides 128 (2 at S = 64), or one ray of S = 256 in two
+// 128-row passes -- and runs the field on each 128-row pass with the
 // shared tensor-core machinery of field.cuh (mma.sync.m16n8k16, bf16
 // operands, f32 sums, epilogues in registers, weights L2-resident in a
 // fragment-native packing). Compositing is one sequential exclusive scan
-// per ray in f32: the TPU kernel's triangular-matmul prefix sum exists
-// only because Mosaic has no cumsum.
+// per ray in f32, after every pass: the TPU kernel's triangular-matmul
+// prefix sum exists only because Mosaic has no cumsum.
+//
+// IPE (cfg.ipe). ts are interval midpoints and deltas exact lengths; per
+// row the kernel forms the conical frustum's Gaussian (ipe_moments) and
+// encodes it as sin / cos damped by exp(-4^l var / 2) (ipe_value), in the
+// PE's column layout, so the packed weights and the trunk are the same.
+// It adds ~40 scalar operations (five divisions) per row and one expf per
+// encoded column: noise beside the ~1.3 MFLOP of products per row.
+//
+// Long rays. The wrapper (kernels/fused_ray.py) pads S with zero-length
+// intervals at the far end to a power of two, or to 256 above 128: such
+// an interval has a = sigma * 0 = 0, so its weight is exactly 0 and the
+// real samples' outputs are unchanged. S = 192 (the hierarchical union
+// pass) runs as 256, 1.33x the rows; packing rays across tiles would
+// recover that.
 //
 // What bounds it. Per sample row the field costs ~1.29 MFLOP of bf16
 // products (flops_row in the JAX wrapper) against ~36 B of input per ray
@@ -24,9 +39,9 @@
 // parallel scan.
 //
 // Numerics and traps: see field.cuh (no fast math, sinf/cosf with exact
-// ldexpf scales, o + t*d without FMA); expf in compositing. Rows of rays
-// past the end of the batch compute on zero inputs, which gives finite
-// values that are never stored.
+// ldexpf scales, o + t*d without FMA, IPE moments rounded op by op); expf
+// in compositing. Rows of rays past the end of the batch compute on zero
+// inputs, which gives finite values that are never stored.
 
 #include "field.cuh"
 
@@ -43,11 +58,16 @@ struct Params {
   float* sigma;
 };
 
+// kPasses: 128-row passes per CTA, 1 (S divides 128) or 2 (S = 256). A
+// compile-time count, so the one-pass kernel inlines the field once: with
+// a second inlined call, or a loop around it, nvcc keeps less of it in
+// registers and the kernel runs up to 1.8x slower.
+template <int kPasses>
 __global__ void __launch_bounds__(kThreads, 1) fused_ray_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Field& f = p.f;
   const int S = f.S;
-  const int R = kRows / S;
+  const int R = f.R;
   const int tid = threadIdx.x;
   const long long ray0 = static_cast<long long>(blockIdx.x) * R;
   const long long left = f.n_rays - ray0;
@@ -57,7 +77,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ray_kernel(const Params p) 
   const Tile t = carve(smem, smem_layout(f, false));
   bf16* hv;
   bf16* feat;
-  field_forward(f, t, ray0, n_valid, Stash{}, &hv, &feat);
+  field_forward(f, t, ray0, n_valid, 0, Stash{}, &hv, &feat);
+  if (kPasses == 2) field_forward(f, t, ray0, n_valid, kRows, Stash{}, &hv, &feat);
 
   // ---- compositing: one sequential exclusive scan per ray, f32 ----
   if (tid < n_valid) {
@@ -99,16 +120,17 @@ extern "C" {
 
 // Returns 0, a cudaError_t from the launch, or a negative code for a
 // shape the kernel does not take (see nerf_rs_tpu_torch/kernels/fused_ray.py).
+// radii: (n_rays,) f32 with ipe = 1, else null.
 int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const void* ts,
-                          const void* deltas, const void* w, const void* b,
+                          const void* deltas, const void* radii, const void* w, const void* b,
                           const long long* w_off, int n_w, const long long* b_off, int n_b,
                           void* rgb, void* acc, void* depth, void* wts, void* sigma,
                           long long n_rays, int S, int depth_l, int skip, int W, int F, int V,
-                          int P, int D, int pos_levels, int dir_levels, int sigma_act,
+                          int P, int D, int pos_levels, int dir_levels, int sigma_act, int ipe,
                           void* stream) {
   Params p;
-  int rc = init_field(&p.f, o, d, vd, ts, deltas, w, b, w_off, n_w, b_off, n_b, n_rays, S,
-                      depth_l, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act);
+  int rc = init_field(&p.f, o, d, vd, ts, deltas, radii, w, b, w_off, n_w, b_off, n_b, n_rays,
+                      S, depth_l, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe);
   if (rc != 0) return rc;
   p.rgb = static_cast<float*>(rgb);
   p.acc = static_cast<float*>(acc);
@@ -117,13 +139,17 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
   p.sigma = static_cast<float*>(sigma);
 
   const size_t smem = smem_layout(p.f, false).total;
-  rc = set_smem(fused_ray_kernel, smem);
+  const bool two = p.f.rows > kRows;
+  rc = two ? set_smem(fused_ray_kernel<2>, smem) : set_smem(fused_ray_kernel<1>, smem);
   if (rc != 0) return rc;
   if (n_rays == 0) return 0;
-  const int rays = kRows / S;
-  const long long grid = (n_rays + rays - 1) / rays;
-  fused_ray_kernel<<<static_cast<unsigned>(grid), kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(p);
+  const int rays = p.f.R;
+  const unsigned grid = static_cast<unsigned>((n_rays + rays - 1) / rays);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (two)
+    fused_ray_kernel<2><<<grid, kThreads, smem, st>>>(p);
+  else
+    fused_ray_kernel<1><<<grid, kThreads, smem, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

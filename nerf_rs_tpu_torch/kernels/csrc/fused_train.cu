@@ -2,20 +2,29 @@
 // forward + backward of the paper field over a batch of whole rays.
 //
 // Replaces nerf_rs_tpu/kernels/fused_train.py::_train_kernel, the Pallas
-// TPU kernel, for the PE path (no IPE, no contraction, no distortion
+// TPU kernel, for PE and mip-NeRF's IPE (no contraction, no distortion
 // loss) with relu or softplus sigma. Per ray it reads (o, d, viewdir, ts,
-// deltas, gold) and writes diag = [r, g, b, acc, sqerr, 0, 0, 0] and the
-// compositing weights; over the whole call it writes the f32 gradient of
-// loss = mean over rays and channels of (C - gold)^2 for every packed
-// matrix and bias.
+// deltas, gold, and with IPE the cone radius) and writes diag = [r, g, b,
+// acc, sqerr, 0, 0, 0] and the compositing weights; over the whole call it
+// writes the f32 gradient of loss = mean over rays and channels of
+// (C - gold)^2 for every packed matrix and bias.
+//
+// IPE and long rays. The forward is K1's (field.cuh): IPE moments and the
+// damped encoding per row, and rays of S = 256 (the wrapper's pad of 129
+// to 256 samples) in two 128-row passes. The backward needs nothing new
+// for IPE: positions carry no gradient, and the first layer's dW uses the
+// stashed encoding A. A long ray's compositing VJP needs the whole ray,
+// so K2a runs every pass's forward, then the per-ray scans, then each
+// pass's backward from its stashes. Zero-length pad intervals have w = 0
+// and d sigma = da * 0 = 0, so every gradient row they give is exactly 0.
 //
 // Why two kernels. The TPU kernel keeps a ray block's activations and the
 // dW accumulators in VMEM (120 MB). An H100 SM has 227 KB of shared
 // memory: at flagship width a 128-row tile's 8 x 128 x 256 bf16 post-relu
 // activations are 512 KB, and the dW accumulators ~600 k f32 (2.4 MB).
 // Neither fits on chip, so:
-//  * K2a (train_tile_kernel): one 16-warp CTA per 128-row tile, K1's
-//    layout and forward (field.cuh). It stashes each product's bf16 input
+//  * K2a (train_tile_kernel): one 16-warp CTA per 128-row tile of whole
+//    rays (two passes at S = 256), K1's layout and forward. It stashes each product's bf16 input
 //    (x, h_0..h_7, feat, hv, PE(d)) in global scratch, composites, takes
 //    the loss and its compositing VJP in f32 (one sequential scan per
 //    ray each way), then runs the backward through the heads and the
@@ -30,7 +39,8 @@
 //    in a fixed order. No float atomics: two calls on the same inputs
 //    give bit-identical gradients.
 // At flagship size (4096 rays x 64 samples) the stashes are ~5 KB per
-// sample row each way, ~2.6 GB per call, on an 80 GB card.
+// sample row each way, ~2.7 GB per call with the partials, on an 80 GB
+// card; the hierarchical fine pass (4096 x 256 padded rows) takes ~10.7 GB.
 //
 // What bounds each. K2a is tensor-core-bound at about 3x K1's FLOPs per
 // row (the forward, then the backward products through the heads and the
@@ -118,26 +128,36 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// kPasses: 128-row passes per CTA, 1 or 2, at compile time (see
+// fused_ray.cu: the one-pass kernel inlines the forward and the backward
+// once).
+template <int kPasses>
 __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Field& f = p.f;
   const int S = f.S;
-  const int R = kRows / S;
+  const int R = f.R;
+  const int rows = f.rows;
   const int tid = threadIdx.x;
   const long long ray0 = static_cast<long long>(blockIdx.x) * R;
   const long long left = f.n_rays - ray0;
   const int n_valid = left < R ? static_cast<int>(left) : R;
   const int rows_valid = n_valid * S;
-  const long long row0 = static_cast<long long>(blockIdx.x) * kRows;
+  const long long row0 = static_cast<long long>(blockIdx.x) * rows;
   const int W = f.W, F = f.F, V = f.V, L = f.n_layers;
   const long long hs = p.rows_pad * W;  // layer stride of the h and G stashes
 
   const Tile t = carve(smem, smem_layout(f, true));
-  const Stash st{p.sx + row0 * f.P, p.sh + row0 * W, hs, p.sfeat + row0 * F,
-                 p.shv + row0 * V, p.sdv + row0 * f.D};
+  // the stashes of the pass that starts at CTA row s0
+  auto stash = [&](int s0) {
+    const long long r = row0 + s0;
+    return Stash{p.sx + r * f.P, p.sh + r * W, hs, p.sfeat + r * F, p.shv + r * V,
+                 p.sdv + r * f.D};
+  };
   bf16* hv;
   bf16* feat;
-  field_forward(f, t, ray0, n_valid, st, &hv, &feat);
+  field_forward(f, t, ray0, n_valid, 0, stash(0), &hv, &feat);
+  if (kPasses == 2) field_forward(f, t, ray0, n_valid, kRows, stash(kRows), &hv, &feat);
 
   // ---- per ray: compositing, loss and the compositing VJP, f32 ----
   // t.w holds the weights, t.sg the transmittance T
@@ -209,47 +229,52 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
       }
     }
   }
-  for (int i = tid; i < kRows * 13; i += kThreads)  // the k16 pad of d rgb_raw
+  for (int i = tid; i < rows * 13; i += kThreads)  // the k16 pad of d rgb_raw
     t.drgb[(i / 13) * kLdr + 3 + i % 13] = __float2bfloat16_rn(0.f);
   __syncthreads();
 
   for (int r = tid; r < rows_valid; r += kThreads) p.wts[ray0 * S + r] = t.w[r];
   bf16* grgb = p.grgb + row0 * 8;
   bf16* gsf = p.gsf + row0 * (F + 8);
-  for (int i = tid; i < kRows * 8; i += kThreads) {
+  for (int i = tid; i < rows * 8; i += kThreads) {
     const int r = i / 8, c = i % 8;
     grgb[i] = c < 3 ? t.drgb[r * kLdr + c] : __float2bfloat16_rn(0.f);
     gsf[r * (F + 8) + F + c] = __float2bfloat16_rn(c == 0 ? t.dsig[r] : 0.f);
   }
 
-  // ---- backward products, heads then trunk ----
+  // ---- backward products, heads then trunk, pass by pass ----
   auto wt = [&](int i) { return reinterpret_cast<const uint2*>(p.wt + p.wt_off[i]); };
-  bf16* gh = p.gh + row0 * W;
-  bf16* ghv = p.ghv + row0 * V;
-  // g_hv = bf16((d rgb_raw @ rgb_w^T) [hv > 0]), over hv's buffer
-  dense_layer(t.drgb, kLdr, 16, wt(L + 1), nullptr, 0, 0, nullptr, V,
-              GradStore{hv, f.ldb, ghv, V, st.hv, nullptr, nullptr});
-  __syncthreads();
-  // dfeat = bf16(g_hv @ view_w^T), over feat's buffer
-  dense_layer(hv, f.ldb, V, wt(L), nullptr, 0, 0, nullptr, F,
-              FeatGradStore{feat, f.ldb, gsf, F + 8});
-  __syncthreads();
-  // g_{L-1} = bf16((dfeat @ feat_w^T + dsigma sigma_row) [h_{L-1} > 0])
-  dense_layer(feat, f.ldb, F, wt(L - 1), nullptr, 0, 0, nullptr, W,
-              GradStore{hv, f.ldb, gh + (L - 1) * hs, W, st.h + (L - 1) * hs, t.dsig,
-                        p.sigma_row});
-  __syncthreads();
-  bf16* cur = hv;
-  bf16* nxt = feat;
-  for (int l = L - 1; l >= 1; --l) {  // g_{l-1} = bf16((g_l @ W_l^T) [h_{l-1} > 0])
-    dense_layer(cur, f.ldb, W, wt(l - 1), nullptr, 0, 0, nullptr, W,
-                GradStore{nxt, f.ldb, gh + (l - 1) * hs, W, st.h + (l - 1) * hs, nullptr,
-                          nullptr});
+  auto backward = [&](int s0) {
+    const Stash st = stash(s0);
+    bf16* gh = p.gh + (row0 + s0) * W;
+    bf16* ghv = p.ghv + (row0 + s0) * V;
+    // g_hv = bf16((d rgb_raw @ rgb_w^T) [hv > 0]), over hv's buffer
+    dense_layer(t.drgb + s0 * kLdr, kLdr, 16, wt(L + 1), nullptr, 0, 0, nullptr, V,
+                GradStore{hv, f.ldb, ghv, V, st.hv, nullptr, nullptr});
     __syncthreads();
-    bf16* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
-  }
+    // dfeat = bf16(g_hv @ view_w^T), over feat's buffer
+    dense_layer(hv, f.ldb, V, wt(L), nullptr, 0, 0, nullptr, F,
+                FeatGradStore{feat, f.ldb, gsf + s0 * (F + 8), F + 8});
+    __syncthreads();
+    // g_{L-1} = bf16((dfeat @ feat_w^T + dsigma sigma_row) [h_{L-1} > 0])
+    dense_layer(feat, f.ldb, F, wt(L - 1), nullptr, 0, 0, nullptr, W,
+                GradStore{hv, f.ldb, gh + (L - 1) * hs, W, st.h + (L - 1) * hs, t.dsig + s0,
+                          p.sigma_row});
+    __syncthreads();
+    bf16* cur = hv;
+    bf16* nxt = feat;
+    for (int l = L - 1; l >= 1; --l) {  // g_{l-1} = bf16((g_l @ W_l^T) [h_{l-1} > 0])
+      dense_layer(cur, f.ldb, W, wt(l - 1), nullptr, 0, 0, nullptr, W,
+                  GradStore{nxt, f.ldb, gh + (l - 1) * hs, W, st.h + (l - 1) * hs, nullptr,
+                            nullptr});
+      __syncthreads();
+      bf16* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+  };
+  backward(0);
+  if (kPasses == 2) backward(kRows);
 }
 
 // ---- K2b: dW = A^T G and db = sum_rows G, split over rows ----
@@ -259,7 +284,7 @@ constexpr int kBK = 32;  // rows per step
 constexpr int kLdt = kBT + 8;
 constexpr int kRedThreads = 128;
 constexpr int kSplitRows = 8192;  // rows per split (at most kMaxSplits splits)
-constexpr int kMaxSplits = 64;
+constexpr int kMaxSplits = 128;   // 8,192 rows each up to 4096 rays x 256 samples
 
 struct Job {  // dW (K, N) = A^T G over the rows
   const bf16* a;
@@ -436,9 +461,10 @@ Scratch scratch_layout(unsigned char* base, long long rows_pad, long long rows, 
   return s;
 }
 
+// rows of every stash: the CTAs' whole tiles (R rays of S samples each)
 long long rows_padded(long long n_rays, int S) {
-  const int rays = kRows / S;
-  return (n_rays + rays - 1) / rays * kRows;
+  const int rays = S <= kRows ? kRows / S : 1;
+  return (n_rays + rays - 1) / rays * (rays * S);
 }
 
 }  // namespace
@@ -449,7 +475,7 @@ extern "C" {
 // gradient elements (packed matrices, then packed biases).
 long long nerf_fused_train_scratch_bytes(long long n_rays, int S, int depth_l, int W, int F,
                                          int V, int P, int D, long long total) {
-  if (S <= 0 || S > kRows || kRows % S != 0) return -1;
+  if (S <= 0 || S > kMaxSamples || (S <= kRows ? kRows % S : S % kRows) != 0) return -1;
   return static_cast<long long>(scratch_layout(nullptr, rows_padded(n_rays, S), n_rays * S,
                                                depth_l, W, F, V, P, D, total)
                                     .bytes);
@@ -459,17 +485,19 @@ long long nerf_fused_train_scratch_bytes(long long n_rays, int S, int depth_l, i
 // the kernels do not take (see nerf_rs_tpu_torch/kernels/fused_ray.py).
 // grads: f32, the packed matrices' gradients at w_off, then the biases'
 // at (matrix elements) + b_off.
+// radii: (n_rays,) f32 with ipe = 1, else null.
 int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const void* ts,
-                           const void* deltas, const void* gold, const void* w, const void* b,
-                           const long long* w_off, int n_w, const long long* b_off, int n_b,
-                           const void* wt, const long long* wt_off, int n_wt,
-                           const void* sigma_row, void* diag, void* wts, void* grads,
-                           void* scratch, long long n_rays, int S, int depth_l, int skip, int W,
-                           int F, int V, int P, int D, int pos_levels, int dir_levels,
-                           int sigma_act, int white_bg, float loss_scale, void* stream) {
+                           const void* deltas, const void* radii, const void* gold,
+                           const void* w, const void* b, const long long* w_off, int n_w,
+                           const long long* b_off, int n_b, const void* wt,
+                           const long long* wt_off, int n_wt, const void* sigma_row, void* diag,
+                           void* wts, void* grads, void* scratch, long long n_rays, int S,
+                           int depth_l, int skip, int W, int F, int V, int P, int D,
+                           int pos_levels, int dir_levels, int sigma_act, int ipe, int white_bg,
+                           float loss_scale, void* stream) {
   TrainParams p;
-  int rc = init_field(&p.f, o, d, vd, ts, deltas, w, b, w_off, n_w, b_off, n_b, n_rays, S,
-                      depth_l, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act);
+  int rc = init_field(&p.f, o, d, vd, ts, deltas, radii, w, b, w_off, n_w, b_off, n_b, n_rays,
+                      S, depth_l, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe);
   if (rc != 0) return rc;
   if (n_wt != depth_l + 2) return -2;
   const int L = depth_l;
@@ -499,11 +527,16 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   p.white_bg = white_bg;
 
   const size_t smem = smem_layout(p.f, true).total;
-  rc = set_smem(train_tile_kernel, smem);
+  const bool two = p.f.rows > kRows;
+  rc = two ? set_smem(train_tile_kernel<2>, smem) : set_smem(train_tile_kernel<1>, smem);
   if (rc != 0) return rc;
   if (n_rays == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  train_tile_kernel<<<static_cast<unsigned>(rows_pad / kRows), kThreads, smem, st>>>(p);
+  const unsigned ctas = static_cast<unsigned>(rows_pad / p.f.rows);
+  if (two)
+    train_tile_kernel<2><<<ctas, kThreads, smem, st>>>(p);
+  else
+    train_tile_kernel<1><<<ctas, kThreads, smem, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 

@@ -1,48 +1,80 @@
-"""The whole-ray render kernel: PE -> field -> alpha compositing for
-whole rays, reading only per-ray inputs. The counterpart of
+"""The whole-ray render kernel: PE or IPE -> field -> alpha compositing
+for whole rays, reading only per-ray inputs. The counterpart of
 ``nerf_rs_tpu/kernels/fused_ray.py``.
 
 ``fused_ray_render`` launches the CUDA kernel (``csrc/fused_ray.cu``)
 for CUDA tensors, and runs ``fused_ray_render_reference``, its plain
 PyTorch version, for CPU tensors. There is no other switch: on a CUDA
 tensor it launches the kernel or raises.
+
+Rays of 1 to 256 samples. The kernel takes whole rays in 128-row tiles,
+so the wrapper pads S to ``padded_samples(S)`` with zero-length
+intervals at the far end (``pad_samples``, the JAX wrappers' pad): such
+an interval has alpha = 1 - exp(-sigma * 0) = 0, so its weight is
+exactly 0, and the pads are trimmed from the weights and sigma. The
+plain version needs no pad.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from nerf_rs_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from . import build
-from .fused_render import PackedWeights, pe_encode
+from .fused_render import PackedWeights, ipe_encode, ipe_expand, pe_encode
 
 _SIGMA_ACT = {"relu": 0, "softplus": 1}
-TILE_ROWS = 128  # sample rows per CTA (kRows in csrc/fused_ray.cu)
+TILE_ROWS = 128  # sample rows per CTA pass (kRows in csrc/field.cuh)
+MAX_SAMPLES = 256  # samples per ray after padding (kMaxSamples)
 
 _SHAPE_ERRORS = {
-    -1: "num_samples must divide the kernel's 128-row tile",
+    -1: "padded num_samples must divide 128, or be 256",
     -2: "the packed weights do not match the kernel's layer list",
     -3: "layer widths and padded encodings must be multiples of 16",
     -4: "the encoding does not fit its padded width",
     -5: "the layer widths need more shared memory than a CTA has",
     -6: "sigma_activation must be relu or softplus",
+    -7: "radii must come with cfg.ipe and only with it",
 }
 
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
+def padded_samples(S: int) -> int:
+    """The samples per ray the kernels run for S: the next power of two
+    up to 128 (a divisor of the tile), else the next multiple of 128."""
+    if S <= TILE_ROWS:
+        return 1 << (S - 1).bit_length()
+    return -(-S // TILE_ROWS) * TILE_ROWS
+
+
+def pad_samples(ts: torch.Tensor, deltas: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, S) -> (N, padded_samples(S)): zero-length intervals at the far
+    end whose ts repeat the last one (so IPE moments stay finite). Their
+    weight is exactly 0 and so is every gradient they give."""
+    n, S = ts.shape
+    pad = padded_samples(S) - S
+    if pad == 0:
+        return ts, deltas
+    return (torch.cat([ts, ts[:, -1:].expand(n, pad)], dim=1),
+            torch.cat([deltas, deltas.new_zeros(n, pad)], dim=1))
+
+
 def _check(packed: PackedWeights, origins, dirs, viewdirs, ts, deltas,
-           cfg: ModelConfig, num_samples: int) -> None:
+           cfg: ModelConfig, num_samples: int, radii=None) -> None:
     """Shape and config checks, the same on every device."""
+    if cfg.contract:
+        raise NotImplementedError("the contraction branch of the whole-ray kernels comes with "
+                                  "slice 5 of the port")
     n = origins.shape[0]
-    if num_samples < 1 or TILE_ROWS % num_samples:
-        raise ValueError(f"num_samples={num_samples}: the kernel takes whole rays "
-                         f"in {TILE_ROWS}-row tiles, so it must divide {TILE_ROWS}")
+    if not 1 <= num_samples <= MAX_SAMPLES:
+        raise ValueError(f"num_samples={num_samples}: the kernels take 1 to {MAX_SAMPLES} "
+                         f"samples per ray")
     if ts.shape != (n, num_samples) or deltas.shape != (n, num_samples):
         raise ValueError(f"ts/deltas must be ({n}, {num_samples}), got "
                          f"{tuple(ts.shape)} / {tuple(deltas.shape)}")
@@ -50,6 +82,11 @@ def _check(packed: PackedWeights, origins, dirs, viewdirs, ts, deltas,
                     ("viewdirs", viewdirs)):
         if a.shape != (n, 3):
             raise ValueError(f"{name} must be ({n}, 3), got {tuple(a.shape)}")
+    if cfg.ipe and (radii is None or radii.shape != (n,)):
+        raise ValueError(f"cfg.ipe needs per-ray radii of shape ({n},), got "
+                         f"{None if radii is None else tuple(radii.shape)}")
+    if not cfg.ipe and radii is not None:
+        raise ValueError("radii are for cfg.ipe (interval midpoints and lengths) only")
     if cfg.sigma_activation not in _SIGMA_ACT:
         raise ValueError(
             f"sigma_activation={cfg.sigma_activation!r}: the kernel takes "
@@ -63,6 +100,14 @@ def _check(packed: PackedWeights, origins, dirs, viewdirs, ts, deltas,
         raise ValueError(f"packed weights are for {got}, cfg asks {want}")
 
 
+def _check_device(tensors, dev) -> None:
+    for a in tensors:
+        if a.device != dev or a.dtype != torch.float32:
+            raise ValueError("ray inputs must be f32 on one CUDA device")
+        if not a.is_contiguous():
+            raise ValueError("ray inputs must be contiguous")
+
+
 def fused_ray_render(
     packed: PackedWeights,
     origins: torch.Tensor,
@@ -72,48 +117,53 @@ def fused_ray_render(
     deltas: torch.Tensor,
     cfg: ModelConfig,
     num_samples: int,
+    radii: Optional[torch.Tensor] = None,
 ) -> Out:
     """Render N rays whole: origins/dirs/viewdirs (N, 3), ts/deltas
     (N, S) f32. Returns (rgb (N, 3), acc (N,), depth (N,), weights
     (N, S), sigma (N, S)); a white background stays with the caller.
 
-    Any N: the kernel masks the ragged last tile. S must divide 128.
+    ``cfg.ipe``: ts are interval midpoints, deltas exact interval
+    lengths, and ``radii`` (N,) f32 the cones' radii at unit distance;
+    the kernel encodes each interval's conical-frustum Gaussian.
+
+    Any N: the kernel masks the ragged last tile. 1 <= S <= 256.
     Launches on the current stream without synchronising.
     """
-    _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples)
+    _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples, radii)
     if origins.device.type == "cpu":
         return fused_ray_render_reference(
-            packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples)
+            packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples, radii)
     if origins.device.type != "cuda":
         raise ValueError(f"no kernel for device {origins.device}")
-    ins = (origins, dirs, viewdirs, ts, deltas)
-    for a in ins:
-        if a.device != origins.device or a.dtype != torch.float32:
-            raise ValueError("ray inputs must be f32 on one CUDA device")
-        if not a.is_contiguous():
-            raise ValueError("ray inputs must be contiguous")
-    if (packed.w.device != origins.device or packed.w.dtype != torch.bfloat16
-            or packed.b.device != origins.device
-            or packed.b.dtype != torch.float32):
+    dev = origins.device
+    _check_device((origins, dirs, viewdirs, ts, deltas)
+                  + ((radii,) if radii is not None else ()), dev)
+    if (packed.w.device != dev or packed.w.dtype != torch.bfloat16
+            or packed.b.device != dev or packed.b.dtype != torch.float32):
         raise ValueError("packed weights must be bf16/f32 on the rays' device")
 
-    n, S = ts.shape
-    rgb = torch.empty(n, 3, device=origins.device)
-    acc = torch.empty(n, device=origins.device)
-    depth = torch.empty(n, device=origins.device)
-    w = torch.empty(n, S, device=origins.device)
-    sigma = torch.empty(n, S, device=origins.device)
+    n = origins.shape[0]
+    ts_p, dl_p = pad_samples(ts, deltas)
+    S = ts_p.shape[1]
+    rgb = torch.empty(n, 3, device=dev)
+    acc = torch.empty(n, device=dev)
+    depth = torch.empty(n, device=dev)
+    w = torch.empty(n, S, device=dev)
+    sigma = torch.empty(n, S, device=dev)
     lib = _library()
     w_off = (ctypes.c_longlong * len(packed.w_off))(*packed.w_off)
     b_off = (ctypes.c_longlong * len(packed.b_off))(*packed.b_off)
-    stream = torch.cuda.current_stream(origins.device).cuda_stream
+    stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.nerf_fused_ray_render(
-        *(a.data_ptr() for a in ins), packed.w.data_ptr(), packed.b.data_ptr(),
+        origins.data_ptr(), dirs.data_ptr(), viewdirs.data_ptr(), ts_p.data_ptr(),
+        dl_p.data_ptr(), None if radii is None else radii.data_ptr(),
+        packed.w.data_ptr(), packed.b.data_ptr(),
         w_off, len(packed.w_off), b_off, len(packed.b_off),
         rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), w.data_ptr(),
         sigma.data_ptr(), n, S, packed.depth, packed.skip_layer, packed.W,
         packed.F, packed.V, packed.P, packed.D, packed.pos_levels,
-        packed.dir_levels, _SIGMA_ACT[cfg.sigma_activation], stream,
+        packed.dir_levels, _SIGMA_ACT[cfg.sigma_activation], int(cfg.ipe), stream,
     )
     if rc < 0:
         raise ValueError(f"fused_ray kernel refused the call: {_SHAPE_ERRORS[rc]}")
@@ -121,7 +171,7 @@ def fused_ray_render(
         msg = lib.nerf_cuda_error_string(rc).decode()
         raise RuntimeError(f"fused_ray kernel launch failed: CUDA error {rc} ({msg})")
     fused_ray_render.launches += 1
-    return rgb, acc, depth, w, sigma
+    return rgb, acc, depth, w[:, :num_samples], sigma[:, :num_samples]
 
 
 # kernel launches so far in this process; a run reads it to show that
@@ -135,10 +185,10 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = (
-            [vp] * 7
+            [vp] * 8
             + [ctypes.POINTER(i64), i32, ctypes.POINTER(i64), i32]
             + [vp] * 5
-            + [i64] + [i32] * 11
+            + [i64] + [i32] * 12
             + [vp]
         )
         fn.restype = i32
@@ -156,21 +206,22 @@ def fused_ray_render_reference(
     deltas: torch.Tensor,
     cfg: ModelConfig,
     num_samples: int,
+    radii: Optional[torch.Tensor] = None,
 ) -> Out:
     """The kernel's plain PyTorch version, with its numerics: bf16
     operands, f32 products and sums (bf16 x bf16 products are exact in
     f32), f32 bias and relu, then rounding to bf16 between layers; f32
-    compositing. On CUDA it needs full-f32 matmuls
-    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
-    _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples)
+    encodings (PE, or IPE from ``ipe_expand``) and compositing. On CUDA
+    it needs full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
+    False``)."""
+    _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples, radii)
     n, S = ts.shape
     bf = torch.bfloat16
     mats = [m.float() for m in packed.matrices()]
     bias = packed.biases()
     depth, skip, Fw = packed.depth, packed.skip_layer, packed.F
 
-    pts = (origins[:, None, :] + ts[:, :, None] * dirs[:, None, :]).reshape(n * S, 3)
-    x = pe_encode(pts, packed.pos_levels, packed.P).to(bf)
+    x = encode_samples(packed, origins, dirs, ts, deltas, radii).to(bf)
     dv = pe_encode(viewdirs, packed.dir_levels, packed.D).to(bf)
     dv = dv.repeat_interleave(S, dim=0)
 
@@ -200,3 +251,13 @@ def fused_ray_render_reference(
     w = torch.exp(-excl) * (1.0 - torch.exp(-a))
     rgb = (w[:, :, None] * rgb.reshape(n, S, 3)).sum(dim=1)
     return rgb, w.sum(dim=-1), (w * ts).sum(dim=-1), w, sigma
+
+
+def encode_samples(packed: PackedWeights, origins, dirs, ts, deltas, radii=None) -> torch.Tensor:
+    """The kernels' f32 encoding of every sample row, (N * S, P): PE of
+    o + t d, or with ``radii`` the IPE of each interval's frustum."""
+    if radii is not None:
+        mean, var = ipe_expand(origins, dirs, ts, deltas, radii)
+        return ipe_encode(mean, var, packed.pos_levels, packed.P)
+    pts = (origins[:, None, :] + ts[:, :, None] * dirs[:, None, :]).reshape(-1, 3)
+    return pe_encode(pts, packed.pos_levels, packed.P)

@@ -1,5 +1,6 @@
-"""Weight packing and the positional encoding of the whole-ray kernels,
-the counterpart of ``nerf_rs_tpu/kernels/fused_render.py``.
+"""Weight packing and the encodings of the whole-ray kernels (PE, and
+mip-NeRF's conical-frustum moments with the integrated encoding), the
+counterpart of ``nerf_rs_tpu/kernels/fused_render.py``.
 
 The CUDA kernels (``csrc/fused_ray.cu``, ``csrc/fused_train.cu``, sharing
 ``csrc/field.cuh``) multiply with
@@ -31,9 +32,9 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from nerf_rs_tpu.config import ModelConfig
+from ..config import ModelConfig
 
-from ..models.encoding import posenc
+from ..models.encoding import integrated_posenc, posenc
 
 
 def _round_up(x: int, m: int) -> int:
@@ -55,6 +56,39 @@ def pe_encode(p: torch.Tensor, levels: int, pad: int) -> torch.Tensor:
     argument loses the high-frequency phases (sin(2^9 x))."""
     enc = posenc(p, levels, include_input=True)
     return F.pad(enc, (0, pad - enc.shape[-1]))
+
+
+def ipe_encode(mean: torch.Tensor, var: torch.Tensor, levels: int, pad: int) -> torch.Tensor:
+    """The integrated encoding of (ROWS, 3) Gaussians (mean, var) ->
+    (ROWS, pad) f32 with zero pad columns, in ``pe_encode``'s layout:
+    raw mean, then per level [sin, cos](2^l mean) * exp(-4^l var / 2)
+    (``_ipe_encode`` in the JAX package). The damping is computed in f32
+    from the f32 variance: at 4^9 a low-precision var would swamp it."""
+    enc = integrated_posenc(mean, var, levels, include_input=True)
+    return F.pad(enc, (0, pad - enc.shape[-1]))
+
+
+def ipe_expand(origins: torch.Tensor, dirs: torch.Tensor, mids: torch.Tensor,
+               deltas: torch.Tensor, radii: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Conical-frustum Gaussians for the whole-ray kernels: per-ray
+    origins/dirs (N, 3), interval midpoints and exact lengths (N, S) and
+    cone radii (N,) -> means and diagonal variances (N * S, 3), with
+    ``ops/sampling.conical_gaussians``' closed forms in the order of the
+    JAX package's ``_ipe_expand`` (``csrc/field.cuh``'s ``ipe_moments``
+    rounds the same operations in the same order)."""
+    mu = mids
+    hw = 0.5 * deltas
+    mu2, hw2 = mu * mu, hw * hw
+    denom = 3.0 * mu2 + hw2
+    t_mean = mu + 2.0 * mu * hw2 / denom
+    t_var = hw2 / 3.0 - (4.0 / 15.0) * (hw2 * hw2 * (12.0 * mu2 - hw2) / (denom * denom))
+    r = radii[:, None]
+    r_var = r * r * (mu2 / 4.0 + (5.0 / 12.0) * hw2 - (4.0 / 15.0) * hw2 * hw2 / denom)
+    d2 = dirs * dirs
+    dn2 = torch.clamp(d2[:, 0] + d2[:, 1] + d2[:, 2], min=1e-10)[:, None]
+    mean = origins[:, None, :] + t_mean[:, :, None] * dirs[:, None, :]
+    var = t_var[:, :, None] * d2[:, None, :] + r_var[:, :, None] * (1.0 - d2 / dn2)[:, None, :]
+    return mean.reshape(-1, 3), var.reshape(-1, 3)
 
 
 @dataclass(frozen=True)

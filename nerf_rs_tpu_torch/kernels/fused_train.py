@@ -1,8 +1,10 @@
-"""The whole-ray training kernel: forward (PE -> field -> compositing ->
-MSE) and a hand-written backward (loss -> compositing VJP -> head and
-trunk VJPs -> dW) over whole rays. The counterpart of
-``nerf_rs_tpu/kernels/fused_train.py``, for the PE path (IPE comes with
-slice 3, contraction and the distortion loss with slice 5).
+"""The whole-ray training kernel: forward (PE or IPE -> field ->
+compositing -> MSE) and a hand-written backward (loss -> compositing VJP
+-> head and trunk VJPs -> dW) over whole rays. The counterpart of
+``nerf_rs_tpu/kernels/fused_train.py``, without its contraction and
+distortion-loss branches (slice 5). Rays of 1 to 256 samples, padded as
+``kernels/fused_ray.py`` pads them: a zero-length interval has weight 0
+and d sigma = da * 0 = 0, so every gradient row it gives is exactly 0.
 
 ``fused_train_grads`` launches the CUDA kernels (``csrc/fused_train.cu``:
 K2a, the per-tile forward and backward, and K2b, the dW and bias
@@ -16,15 +18,16 @@ from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from nerf_rs_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from . import build
-from .fused_ray import _SHAPE_ERRORS, _SIGMA_ACT, _check
+from .fused_ray import (_SHAPE_ERRORS, _SIGMA_ACT, _check, _check_device, encode_samples,
+                        pad_samples)
 from .fused_render import PackedWeights, PackedWeightsT, pe_encode
 
 
@@ -54,15 +57,9 @@ class TrainGrads(NamedTuple):
 
 
 def _check_train(packed: PackedWeights, packed_t: PackedWeightsT, origins, dirs, viewdirs,
-                 ts, deltas, gold, cfg: ModelConfig, num_samples: int) -> None:
+                 ts, deltas, gold, cfg: ModelConfig, num_samples: int, radii=None) -> None:
     """Shape and config checks, the same on every device."""
-    if cfg.ipe:
-        raise NotImplementedError("the IPE branch of the train kernel comes with slice 3 "
-                                  "of the port")
-    if cfg.contract:
-        raise NotImplementedError("the contraction branch of the train kernel comes with "
-                                  "slice 5 of the port")
-    _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples)
+    _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples, radii)
     n = origins.shape[0]
     if n == 0:
         raise ValueError("the train kernel needs at least one ray")
@@ -97,36 +94,37 @@ def fused_train_grads(
     cfg: ModelConfig,
     num_samples: int,
     white_bg: bool = False,
+    radii: Optional[torch.Tensor] = None,
 ) -> TrainGrads:
     """One fused forward + backward over N rays: origins/dirs/viewdirs
-    and gold (N, 3), ts/deltas (N, S) f32. Returns per-ray diagnostics,
-    the weights and the packed gradients of loss = mean over rays and
-    channels of (C - gold)^2, summed over all N rays.
+    and gold (N, 3), ts/deltas (N, S) f32 (with ``cfg.ipe``: interval
+    midpoints and exact lengths, and ``radii`` (N,) the cone radii).
+    Returns per-ray diagnostics, the weights and the packed gradients of
+    loss = mean over rays and channels of (C - gold)^2, summed over all N
+    rays.
 
     Any N: the kernel masks the ragged last tile (no padded ray enters
-    the loss). S must divide 128. Launches on the current stream without
+    the loss). 1 <= S <= 256. Launches on the current stream without
     synchronising; two calls on the same inputs give identical bits.
     """
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
-                 num_samples)
+                 num_samples, radii)
     if origins.device.type == "cpu":
         return fused_train_grads_reference(packed, packed_t, origins, dirs, viewdirs, ts,
-                                           deltas, gold, cfg, num_samples, white_bg)
+                                           deltas, gold, cfg, num_samples, white_bg, radii)
     if origins.device.type != "cuda":
         raise ValueError(f"no kernel for device {origins.device}")
-    ins = (origins, dirs, viewdirs, ts, deltas, gold)
-    for a in ins:
-        if a.device != origins.device or a.dtype != torch.float32:
-            raise ValueError("ray inputs must be f32 on one CUDA device")
-        if not a.is_contiguous():
-            raise ValueError("ray inputs must be contiguous")
+    dev = origins.device
+    _check_device((origins, dirs, viewdirs, ts, deltas, gold)
+                  + ((radii,) if radii is not None else ()), dev)
     for t, dtype in ((packed.w, torch.bfloat16), (packed.b, torch.float32),
                      (packed_t.w, torch.bfloat16), (packed_t.sigma_row, torch.float32)):
-        if t.device != origins.device or t.dtype != dtype:
+        if t.device != dev or t.dtype != dtype:
             raise ValueError("packed weights must be bf16/f32 on the rays' device")
 
-    n, S = ts.shape
-    dev = origins.device
+    n = origins.shape[0]
+    ts_p, dl_p = pad_samples(ts, deltas)
+    S = ts_p.shape[1]
     total = packed.w.numel() + packed.b.numel()
     diag = torch.empty(n, 8, device=dev)
     w = torch.empty(n, S, device=dev)
@@ -134,23 +132,22 @@ def fused_train_grads(
     lib = _library()
     nbytes = lib.nerf_fused_train_scratch_bytes(n, S, packed.depth, packed.W, packed.F,
                                                 packed.V, packed.P, packed.D, total)
-    # the stashes and dW partials; freed on return while the kernels may
-    # still run, which is safe: the caching allocator hands the block out
-    # again only in this stream's order
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    scratch = _scratch(dev, nbytes)
     i64 = ctypes.c_longlong
     w_off = (i64 * len(packed.w_off))(*packed.w_off)
     b_off = (i64 * len(packed.b_off))(*packed.b_off)
     wt_off = (i64 * len(packed_t.w_off))(*packed_t.w_off)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.nerf_fused_train_grads(
-        *(a.data_ptr() for a in ins), packed.w.data_ptr(), packed.b.data_ptr(),
+        origins.data_ptr(), dirs.data_ptr(), viewdirs.data_ptr(), ts_p.data_ptr(),
+        dl_p.data_ptr(), None if radii is None else radii.data_ptr(), gold.data_ptr(),
+        packed.w.data_ptr(), packed.b.data_ptr(),
         w_off, len(packed.w_off), b_off, len(packed.b_off),
         packed_t.w.data_ptr(), wt_off, len(packed_t.w_off), packed_t.sigma_row.data_ptr(),
         diag.data_ptr(), w.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
         n, S, packed.depth, packed.skip_layer, packed.W, packed.F, packed.V, packed.P,
         packed.D, packed.pos_levels, packed.dir_levels, _SIGMA_ACT[cfg.sigma_activation],
-        int(white_bg), 1.0 / (3.0 * n), stream,
+        int(cfg.ipe), int(white_bg), 1.0 / (3.0 * n), stream,
     )
     if rc < 0:
         raise ValueError(f"fused_train kernel refused the call: {_SHAPE_ERRORS[rc]}")
@@ -158,7 +155,30 @@ def fused_train_grads(
         msg = lib.nerf_cuda_error_string(rc).decode()
         raise RuntimeError(f"fused_train kernel launch failed: CUDA error {rc} ({msg})")
     fused_train_grads.launches += 1
-    return TrainGrads(diag, w, *_split(grads, packed))
+    return TrainGrads(diag, w[:, :num_samples], *_split(grads, packed))
+
+
+# The kernels' scratch (stashes and dW partials: ~10 KB per sample row,
+# ~10.7 GB for 4096 rays x 256 padded samples), kept per (device, size)
+# so a training run allocates each shape once, not once per step. The
+# two newest sizes are kept (the hierarchical step's coarse and fine
+# passes). A buffer is reused in the order of the stream that last used
+# it: a call on another stream first waits for that stream.
+_SCRATCH: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.cuda.Stream]] = {}
+
+
+def _scratch(dev: torch.device, nbytes: int) -> torch.Tensor:
+    stream = torch.cuda.current_stream(dev)
+    key = (dev, nbytes)
+    hit = _SCRATCH.pop(key, None)
+    if hit is None:
+        while len(_SCRATCH) >= 2:
+            del _SCRATCH[next(iter(_SCRATCH))]
+        hit = (torch.empty(nbytes, dtype=torch.uint8, device=dev), stream)
+    elif hit[1] != stream:
+        stream.wait_stream(hit[1])
+    _SCRATCH[key] = (hit[0], stream)  # newest last
+    return hit[0]
 
 
 # calls that launched the kernels so far in this process; a run reads it
@@ -173,10 +193,10 @@ def _library() -> ctypes.CDLL:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         p64 = ctypes.POINTER(i64)
         fn.argtypes = (
-            [vp] * 8 + [p64, i32, p64, i32]
+            [vp] * 9 + [p64, i32, p64, i32]
             + [vp, p64, i32, vp]
             + [vp] * 4
-            + [i64] + [i32] * 12 + [ctypes.c_float, vp]
+            + [i64] + [i32] * 13 + [ctypes.c_float, vp]
         )
         fn.restype = i32
         size = lib.nerf_fused_train_scratch_bytes
@@ -199,23 +219,24 @@ def fused_train_grads_reference(
     cfg: ModelConfig,
     num_samples: int,
     white_bg: bool = False,
+    radii: Optional[torch.Tensor] = None,
     *,
     dtype: torch.dtype = torch.float32,
 ) -> TrainGrads:
-    """The kernels' plain PyTorch version, with their numerics: bf16
-    operands, f32 products and sums, bf16 activations between layers, f32
-    compositing, and the TPU kernel's bf16 rounding points in the
-    backward (d rgb_raw, g_hv, dfeat, d sigma, every trunk g). The
-    compositing VJP is written out, not taken from autograd. On CUDA it
-    needs full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
-    False``).
+    """The kernels' plain PyTorch version, with their numerics: f32
+    encodings (PE, or IPE with ``radii``), bf16 operands, f32 products
+    and sums, bf16 activations between layers, f32 compositing, and the
+    TPU kernel's bf16 rounding points in the backward (d rgb_raw, g_hv,
+    dfeat, d sigma, every trunk g). The compositing VJP is written out,
+    not taken from autograd. On CUDA it needs full-f32 matmuls
+    (``torch.backends.cuda.matmul.allow_tf32 = False``).
 
     ``dtype=torch.float64`` keeps every bf16 rounding point (and the f32
-    PE) but multiplies, sums and composites in float64: a witness of how
-    far f32 summation order alone moves the result, for the kernel and
-    the f32 version alike."""
+    encoding) but multiplies, sums and composites in float64: a witness
+    of how far f32 summation order alone moves the result, for the kernel
+    and the f32 version alike."""
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
-                 num_samples)
+                 num_samples, radii)
     n, S = ts.shape
     rows = n * S
     bf = torch.bfloat16
@@ -231,8 +252,7 @@ def fused_train_grads_reference(
         return a.to(dtype).t() @ g.to(dtype)
 
     # ---- forward ----
-    pts = (origins[:, None, :] + ts[:, :, None] * dirs[:, None, :]).reshape(rows, 3)
-    x = pe_encode(pts, packed.pos_levels, packed.P).to(bf)
+    x = encode_samples(packed, origins, dirs, ts, deltas, radii).to(bf)
     dv = pe_encode(viewdirs, packed.dir_levels, packed.D).to(bf).repeat_interleave(S, dim=0)
     hs, h = [], x
     for i in range(L):

@@ -11,8 +11,9 @@ one to one (``convert.py``): every layer is a ``Dense`` holding ``w`` of
 shape (in, out) and ``b`` of shape (out,); the state-dict keys are
 ``trunk.{i}.w/b``, ``sigma``, ``feature``, ``view1`` and ``rgb``.
 
-Only the paper arch is ported so far; the others raise
-``NotImplementedError`` naming the slice that brings them.
+Only the paper arch is ported so far (with PE, or mip-NeRF's integrated
+encoding of Gaussians); the others raise ``NotImplementedError`` naming
+the slice that brings them.
 """
 
 from __future__ import annotations
@@ -25,9 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from nerf_rs_tpu.config import ModelConfig
+from ..config import ModelConfig
 
-from .encoding import posenc, posenc_dim
+from .encoding import integrated_posenc, posenc, posenc_dim
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -38,8 +39,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"arch={cfg.arch!r} comes with slice 9 of the port"
         )
-    if cfg.ipe:
-        raise NotImplementedError("--ipe comes with slice 3 of the port")
     if cfg.contract:
         raise NotImplementedError("--contract comes with slice 5 of the port")
 
@@ -94,18 +93,20 @@ def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
     return x
 
 
-def init_nerf_params(cfg: ModelConfig, seed: int = 0, device=None) -> NerfMLP:
+def init_nerf_params(cfg: ModelConfig, seed: int = 0, device=None, stream: int = 0) -> NerfMLP:
     """He truncated-normal weights (fan_in, ReLU gain, cut at 2 std) and
     zero biases, drawn with numpy from ``seed``: one seed gives the same
     weights on every device and under every torch version (torch's own
-    truncated-normal draw changed between releases).
+    truncated-normal draw changed between releases). ``stream`` > 0
+    draws an independent net from the same seed (the hierarchical fine
+    field takes stream 1).
 
     Variance-preserving init is load-bearing for the deep trunk: with
     shrinking activations the sigma head's bias dominates, and if it
     lands negative relu(sigma) is 0 everywhere and the field is dead at
     init (see ``nerf_rs_tpu/models/mlp._init_linear``).
     """
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed if stream == 0 else [seed, stream])
     model = NerfMLP(cfg)
     with torch.no_grad():
         for layer in model.modules():
@@ -139,6 +140,7 @@ def apply_nerf(
     viewdirs: Optional[torch.Tensor],
     cfg: ModelConfig,
     dtype=None,
+    pos_var: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Evaluate the field at (..., 3) points with (..., 3) unit view
     directions (broadcastable to the points). Returns sigma (...,) after
@@ -146,10 +148,18 @@ def apply_nerf(
 
     ``dtype=torch.bfloat16`` is the "mixed" precision: bf16 layers, and
     the heads cast back to f32 on the way out.
+
+    ``pos_var`` (..., 3) with ``cfg.ipe``: ``points`` are Gaussian means
+    and ``pos_var`` their diagonal variances, encoded with mip-NeRF's
+    integrated encoding (same width and layout as the PE, so the same
+    weights take either).
     """
     check_supported(cfg)
     low = dtype is not None and dtype != torch.float32
-    x = posenc(points, cfg.pos_enc_levels, cfg.include_input_in_enc)
+    if cfg.ipe and pos_var is not None:
+        x = integrated_posenc(points, pos_var, cfg.pos_enc_levels, cfg.include_input_in_enc)
+    else:
+        x = posenc(points, cfg.pos_enc_levels, cfg.include_input_in_enc)
     if low:
         x = x.to(dtype)
     h = x

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from nerf_rs_tpu.config import CameraConfig
+from ..config import CameraConfig
 
 
 def _as_f32(x, device=None) -> torch.Tensor:

@@ -1,12 +1,15 @@
 """Volume rendering: alpha compositing and the ray renderer, the
-counterpart of the coarse point-sampled part of
-``nerf_rs_tpu/ops/render.py``.
+counterpart of ``nerf_rs_tpu/ops/render.py``: point-sampled (PE) and
+interval-sampled (mip-NeRF's IPE) passes, and the hierarchical fine pass
+(NeRF section 5.2) in both fine modes, each through the whole-ray render
+kernel or the eager field.
 
 T_i = exp(-sum_{j<i} sigma_j delta_j) from one exclusive cumsum,
 w_i = T_i (1 - exp(-sigma_i delta_i)), C = sum_i w_i c_i.
 
-Fine (hierarchical), proposal, occupancy, IPE and compat passes come
-with later slices of the port and raise ``NotImplementedError``.
+The shared-network fast fine pass (the rest of slice 2), occupancy
+(slice 4), proposal, disparity sampling and contraction (slice 5) and
+compat passes (slice 10) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from nerf_rs_tpu.config import CameraConfig, ModelConfig, RenderConfig
+from ..config import CameraConfig, ModelConfig, RenderConfig
 
 from ..models.mlp import apply_nerf
 from . import sampling
@@ -28,7 +31,7 @@ class RenderOut(NamedTuple):
     sigma: torch.Tensor  # (..., S) densities (post-activation)
     depth: torch.Tensor  # (...,) expected termination depth
     acc: torch.Tensor  # (...,) accumulated opacity
-    ts: Optional[torch.Tensor] = None  # (..., S) sample distances
+    ts: Optional[torch.Tensor] = None  # (..., S) sample distances (IPE: interval midpoints)
 
 
 def composite(
@@ -74,16 +77,23 @@ def fused_supported(model_cfg: ModelConfig) -> bool:
 
 def check_render_supported(model_cfg: ModelConfig, render_cfg: RenderConfig) -> None:
     """Raise for the render options later slices of the port bring."""
-    if render_cfg.num_fine_samples > 0:
-        raise NotImplementedError("the fine pass comes with slice 2 of the port")
     if render_cfg.occ_res > 0:
         raise NotImplementedError("occupancy sampling comes with slice 4 of the port")
     if render_cfg.sampling_space != "linear":
         raise NotImplementedError("disparity sampling comes with slice 5 of the port")
     if render_cfg.compat_sampling or render_cfg.compat_density_color:
         raise NotImplementedError("compat rendering comes with slice 10 of the port")
-    if model_cfg.ipe:
-        raise NotImplementedError("IPE rendering comes with slice 3 of the port")
+
+
+def _shared_fast(render_cfg: RenderConfig, model_cfg: ModelConfig, fine_params,
+                 use_fused: bool) -> bool:
+    """Whether the JAX package takes its shared-network fast fine pass
+    (one net, union, point samples, eager field): the fine pass
+    evaluates only the new samples and composites the union from the
+    coarse pass's cached (sigma, rgb)."""
+    return (render_cfg.share_network and render_cfg.fine_mode != "standalone"
+            and render_cfg.num_fine_samples > 0 and fine_params is None
+            and not model_cfg.ipe and not use_fused)
 
 
 def render_rays(
@@ -98,58 +108,119 @@ def render_rays(
     dtype=None,
     use_fused: bool = False,
     packed=None,
-) -> Tuple[RenderOut, None]:
-    """Sample -> field -> composite for rays of any leading shape.
-    Returns (coarse, None); the fine pass comes with slice 2.
+    fine_params=None,
+    fine_packed=None,
+) -> Tuple[RenderOut, Optional[RenderOut]]:
+    """Sample -> field -> composite for rays of any leading shape, with
+    the hierarchical fine pass when ``render_cfg.num_fine_samples > 0``.
+    Returns (coarse, fine); fine is None without a fine pass.
 
-    ``use_fused`` renders through the whole-ray kernel
-    (``kernels/fused_ray.py``; pass ``packed`` to reuse weights packed
-    once per frame). Otherwise the field runs as ``apply_nerf`` at
-    ``dtype`` and composites in f32.
+    The fine pass resamples the coarse weights' histogram
+    (``sampling.sample_pdf``) and evaluates the fine samples alone
+    (``fine_mode="standalone"``) or their union with the coarse ones,
+    through ``fine_params`` when given (the paper's second net), else
+    through ``params``. With ``model_cfg.ipe`` every pass samples
+    intervals and encodes their conical-frustum Gaussians (mip-NeRF).
+
+    ``use_fused`` renders every pass through the whole-ray kernel
+    (``kernels/fused_ray.py``; pass ``packed``/``fine_packed`` to reuse
+    weights packed once per frame). Otherwise the field runs as
+    ``apply_nerf`` at ``dtype`` and composites in f32. Draws come from
+    ``generator``: the coarse jitter, then the fine pass's.
     """
     check_render_supported(model_cfg, render_cfg)
     use_fused = use_fused and fused_supported(model_cfg)
     rand = render_cfg.randomized if randomized is None else randomized
     if rand and render_cfg.raw_noise_std > 0.0:
         raise NotImplementedError("sigma noise (raw_noise_std) comes with slice 7 of the port")
+    if _shared_fast(render_cfg, model_cfg, fine_params, use_fused):
+        raise NotImplementedError("the shared-network fast fine pass (share_network, union, "
+                                  "point samples, eager field) comes with the rest of "
+                                  "slice 2 of the port")
     shape = origins.shape[:-1]
     flat_o = origins.reshape(-1, 3)
     flat_d = dirs.reshape(-1, 3)
     n = flat_o.shape[0]
-    S = render_cfg.num_samples
-    ts = sampling.stratified_ts(n, S, camera.near, camera.far, rand,
-                                generator=generator, device=flat_o.device)
-    deltas = sampling.deltas_from_ts(ts, camera.far)
+    S, S_f = render_cfg.num_samples, render_cfg.num_fine_samples
+    near, far = camera.near, camera.far
     viewdirs = flat_d / torch.linalg.norm(flat_d, dim=-1, keepdim=True)
-
+    radius = sampling.pixel_radius(camera) if model_cfg.ipe else None
     if use_fused:
-        from ..kernels.fused_ray import fused_ray_render
         from ..kernels.fused_render import pack_weights
 
-        pk = packed if packed is not None else pack_weights(params, model_cfg)
-        rgb, acc, depth, w, sig = fused_ray_render(
-            pk, flat_o.contiguous(), flat_d.contiguous(), viewdirs.contiguous(),
-            ts, deltas, model_cfg, S,
-        )
-        if render_cfg.white_background:
-            rgb = rgb + (1.0 - acc[..., None])
-        out = RenderOut(rgb=rgb, weights=w, sigma=sig, depth=depth, acc=acc,
-                        ts=ts)
-    else:
-        pts = sampling.points_from_ts(flat_o, flat_d, ts)
-        sigma, rgb = apply_nerf(params, pts, viewdirs[..., None, :],
-                                model_cfg, dtype)
-        out = composite(sigma, rgb[..., :3], deltas,
-                        white_background=render_cfg.white_background, ts=ts)
+        packed = packed if packed is not None else pack_weights(params, model_cfg)
+        if fine_params is not None and fine_packed is None:
+            fine_packed = pack_weights(fine_params, model_cfg)
 
-    return RenderOut(
-        rgb=out.rgb.reshape(*shape, 3),
-        weights=out.weights.reshape(*shape, S),
-        sigma=out.sigma.reshape(*shape, S),
-        depth=out.depth.reshape(shape),
-        acc=out.acc.reshape(shape),
-        ts=out.ts.reshape(*shape, S),
-    ), None
+    def run_pass(pass_params, pk, ts, edges=None) -> RenderOut:
+        """One pass over (N, S_p) point samples ``ts``, or (IPE) over the
+        S_p intervals between (N, S_p + 1) ``edges``."""
+        if edges is not None:
+            ts = 0.5 * (edges[..., :-1] + edges[..., 1:])
+            deltas = edges[..., 1:] - edges[..., :-1]
+        else:
+            deltas = sampling.deltas_from_ts(ts, far)
+        if use_fused:
+            from ..kernels.fused_ray import fused_ray_render
+
+            radii = (torch.full((n,), radius, device=flat_o.device)
+                     if radius is not None else None)
+            rgb, acc, depth, w, sig = fused_ray_render(
+                pk, flat_o.contiguous(), flat_d.contiguous(), viewdirs.contiguous(),
+                ts.contiguous(), deltas.contiguous(), model_cfg, ts.shape[-1], radii=radii)
+            if render_cfg.white_background:
+                rgb = rgb + (1.0 - acc[..., None])
+            return RenderOut(rgb=rgb, weights=w, sigma=sig, depth=depth, acc=acc, ts=ts)
+        if edges is not None:
+            mean, var, _, _ = sampling.conical_gaussians(flat_o, flat_d, edges, radius)
+            sigma, rgb = apply_nerf(pass_params, mean, viewdirs[..., None, :], model_cfg, dtype,
+                                    pos_var=var)
+        else:
+            pts = sampling.points_from_ts(flat_o, flat_d, ts)
+            sigma, rgb = apply_nerf(pass_params, pts, viewdirs[..., None, :], model_cfg, dtype)
+        return composite(sigma, rgb[..., :3], deltas,
+                         white_background=render_cfg.white_background, ts=ts)
+
+    if model_cfg.ipe:
+        # S + 1 stratified edges: S intervals, composited over their
+        # exact lengths; the edges are the fine pass's histogram bins
+        edges = sampling.stratified_ts(n, S + 1, near, far, rand, generator=generator,
+                                       device=flat_o.device)
+        coarse = run_pass(params, packed, None, edges)
+    else:
+        ts = sampling.stratified_ts(n, S, near, far, rand, generator=generator,
+                                    device=flat_o.device)
+        coarse = run_pass(params, packed, ts)
+
+    fine = None
+    if S_f > 0:
+        fparams, fpacked = ((fine_params, fine_packed) if fine_params is not None
+                            else (params, packed))
+        standalone = render_cfg.fine_mode == "standalone"
+        if model_cfg.ipe:
+            fine_edges = sampling.sample_pdf(edges, coarse.weights, S_f + 1, rand,
+                                             generator=generator)
+            if not standalone:
+                fine_edges = sampling.merge_ts(edges, fine_edges)
+            fine = run_pass(fparams, fpacked, None, fine_edges)
+        else:
+            mids = 0.5 * (ts[..., 1:] + ts[..., :-1])
+            bins = torch.cat([ts[..., :1], mids, ts[..., -1:]], dim=-1)
+            fine_ts = sampling.sample_pdf(bins, coarse.weights, S_f, rand, generator=generator)
+            all_ts = fine_ts if standalone else sampling.merge_ts(ts, fine_ts)
+            fine = run_pass(fparams, fpacked, all_ts)
+
+    def unflatten(out: RenderOut) -> RenderOut:
+        return RenderOut(
+            rgb=out.rgb.reshape(*shape, 3),
+            weights=out.weights.reshape(*shape, -1),
+            sigma=out.sigma.reshape(*shape, -1),
+            depth=out.depth.reshape(shape),
+            acc=out.acc.reshape(shape),
+            ts=out.ts.reshape(*shape, -1),
+        )
+
+    return unflatten(coarse), (unflatten(fine) if fine is not None else None)
 
 
 def mse(pred: torch.Tensor, gold: torch.Tensor) -> torch.Tensor:

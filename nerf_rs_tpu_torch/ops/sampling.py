@@ -1,15 +1,19 @@
-"""Point sampling along rays, the counterpart of the linear-space part
-of ``nerf_rs_tpu/ops/sampling.py``.
+"""Sampling along rays, the counterpart of the linear-space part of
+``nerf_rs_tpu/ops/sampling.py``: stratified point samples, mip-NeRF's
+conical-frustum Gaussians, and hierarchical resampling (``sample_pdf``,
+``merge_ts``).
 
 Random draws come from an explicit ``torch.Generator``; torch and JAX
 streams differ, so parity tests use ``randomized=False`` (bin
-midpoints) or hand both sides the same numbers. Disparity-space
-stratification comes with slice 5, hierarchical resampling with slice 2.
+midpoints) or hand both sides the same numbers (``invert_cdf`` takes
+the uniforms ``sample_pdf`` would draw). Disparity-space stratification
+comes with slice 5.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -49,3 +53,110 @@ def points_from_ts(
 ) -> torch.Tensor:
     """World-space sample points o + t*d: (..., S, 3)."""
     return origins[..., None, :] + ts[..., :, None] * dirs[..., None, :]
+
+
+def conical_gaussians(
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    edges: torch.Tensor,
+    base_radius,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-interval conical-frustum Gaussians for mip-NeRF's integrated
+    encoding (arXiv 2103.13415 eqs. 7 and 16, the stable form). The S =
+    edges.shape[-1] - 1 intervals [t0, t1] along a cone of base radius
+    ``base_radius`` (a float, or a (..., 1) tensor per ray) become
+    Gaussians with mean o + t_mean d and a diagonal covariance built
+    from the along-ray variance t_var and the across-ray r_var.
+
+    Returns (mean (..., S, 3), var (..., S, 3), midpoints (..., S),
+    exact interval lengths (..., S)).
+    """
+    t0, t1 = edges[..., :-1], edges[..., 1:]
+    mu = 0.5 * (t0 + t1)
+    hw = 0.5 * (t1 - t0)
+    mu2, hw2 = mu * mu, hw * hw
+    denom = 3.0 * mu2 + hw2
+    t_mean = mu + 2.0 * mu * hw2 / denom
+    t_var = hw2 / 3.0 - (4.0 / 15.0) * (hw2 * hw2 * (12.0 * mu2 - hw2) / (denom * denom))
+    r_var = base_radius * base_radius * (
+        mu2 / 4.0 + (5.0 / 12.0) * hw2 - (4.0 / 15.0) * hw2 * hw2 / denom)
+    d2 = dirs * dirs
+    dnorm2 = torch.clamp(torch.sum(d2, dim=-1, keepdim=True), min=1e-10)
+    mean = origins[..., None, :] + t_mean[..., :, None] * dirs[..., None, :]
+    var = (t_var[..., :, None] * d2[..., None, :]
+           + r_var[..., :, None] * (1.0 - d2[..., None, :] / dnorm2[..., None, :]))
+    return mean, var, mu, t1 - t0
+
+
+def pixel_radius(camera) -> float:
+    """The pixel's footprint at unit distance along the ray, the cone
+    base radius of mip-NeRF sampling: 2 / sqrt(12) of the pixel's width
+    in world units."""
+    focal = camera.focal
+    if focal is None:
+        focal = 0.5 * camera.width / math.tan(0.5 * camera.fov)
+    return float(2.0 / math.sqrt(12.0) / focal)
+
+
+def sample_pdf(
+    bins: torch.Tensor,
+    weights: torch.Tensor,
+    num_samples: int,
+    randomized: bool = True,
+    generator: Optional[torch.Generator] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Inverse-CDF sampling of the piecewise-constant ray PDF that
+    ``weights`` (..., B) put on the bins (..., B + 1) (NeRF section 5.2).
+    Returns (..., num_samples) new distances, sorted per ray: the draw
+    is stratified in CDF space (one jittered u per equal-mass bin), so u
+    rises along each ray and its inverse does too. Deterministic draws
+    are evenly spaced in [0, 1 - 1e-6]."""
+    shape = weights.shape[:-1] + (num_samples,)
+    dev = weights.device
+    if randomized:
+        jitter = torch.rand(shape, generator=generator,
+                            device=generator.device if generator is not None else dev)
+        u = (torch.arange(num_samples, dtype=torch.float32, device=dev)
+             + jitter.to(dev)) / num_samples
+    else:
+        u = torch.linspace(0.0, 1.0 - 1e-6, num_samples, device=dev).expand(shape)
+    return invert_cdf(bins, weights, u, eps)
+
+
+def invert_cdf(bins: torch.Tensor, weights: torch.Tensor, u: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """The inverse of the CDF of ``weights`` over ``bins`` at the sorted
+    draws ``u`` (..., F): the step of ``sample_pdf`` after the draw, with
+    the JAX package's arithmetic (weights + eps, the bracketing CDF and
+    bin entries, a denominator below eps read as 1)."""
+    weights = weights + eps  # no NaN on empty rays
+    pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
+    cdf = torch.cumsum(pdf, dim=-1)
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    u = u.contiguous()
+    # entries of the monotone cdf at or below u: the last of them brackets
+    # u from below, the first above it from above (the JAX masked max/min)
+    above = torch.searchsorted(cdf.contiguous(), u, right=True)
+    last = cdf.shape[-1] - 1
+    below = torch.clamp(above - 1, min=0)
+    above = torch.clamp(above, max=last)
+    cdf_below, cdf_above = cdf.gather(-1, below), cdf.gather(-1, above)
+    bins_below, bins_above = bins.gather(-1, below), bins.gather(-1, above)
+    denom = cdf_above - cdf_below
+    denom = torch.where(denom < eps, torch.ones_like(denom), denom)
+    frac = (u - cdf_below) / denom
+    return (bins_below + frac * (bins_above - bins_below)).detach()
+
+
+def merge_ts(coarse_ts: torch.Tensor, fine_ts: torch.Tensor) -> torch.Tensor:
+    """Union of two per-ray sorted sample sets, sorted (NeRF section 5.2:
+    the fine network evaluates the combined set). Each element lands at
+    its own rank plus the count of the other set's elements before it;
+    on a tie the coarse sample comes first."""
+    a, b = coarse_ts.contiguous(), fine_ts.contiguous()
+    sa, sb = a.shape[-1], b.shape[-1]
+    pa = torch.arange(sa, device=a.device) + torch.searchsorted(b, a, right=False)
+    pb = torch.arange(sb, device=a.device) + torch.searchsorted(a, b, right=True)
+    out = torch.empty(a.shape[:-1] + (sa + sb,), dtype=a.dtype, device=a.device)
+    return out.scatter_(-1, torch.cat([pa, pb], dim=-1), torch.cat([a, b], dim=-1))

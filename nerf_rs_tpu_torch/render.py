@@ -1,7 +1,8 @@
 """Full-frame rendering on one device: the counterpart of the render
 parts of ``nerf_rs_tpu/parallel/dp.py`` (``default_render_chunk``,
-``make_dp_render``) and ``nerf_rs_tpu/train/loop.py``
-(``render_frame``). Multi-GPU rendering comes with slice 8 of the port.
+``make_dp_render`` with its fine-field handling) and
+``nerf_rs_tpu/train/loop.py`` (``render_frame``). Multi-GPU rendering
+comes with slice 8 of the port.
 """
 
 from __future__ import annotations
@@ -10,12 +11,11 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
-from nerf_rs_tpu.config import CameraConfig, Config, RenderConfig
+from .config import CameraConfig, Config, RenderConfig
 
 from .ops import render as render_ops
 
-RenderFn = Callable[[torch.nn.Module, torch.Tensor, torch.Tensor],
-                    Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+RenderFn = Callable[..., Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
 
 def matmul_dtype(cfg: Config):
@@ -44,11 +44,15 @@ def default_render_chunk(render_cfg: RenderConfig, fused: bool = False,
 
 def make_render(cfg: Config, camera: Optional[CameraConfig] = None,
                 chunk: int = 0) -> RenderFn:
-    """Renderer over flat rays: fn(params, origins (N, 3), dirs (N, 3))
-    -> rgb (N, 3), depth (N,), acc (N,). Deterministic sampling (bin
-    midpoints). Through the kernel, the weights are packed once per
-    call, outside the chunk loop; the last chunk may be ragged (the
-    kernel masks it), so nothing is padded."""
+    """Renderer over flat rays: fn(params, origins (N, 3), dirs (N, 3),
+    fine_params=None) -> rgb (N, 3), depth (N,), acc (N,), of the fine
+    pass with hierarchical sampling (through ``fine_params`` when the
+    run has a fine field; ``share_network`` renders both passes with
+    ``params``). Deterministic sampling (bin midpoints). Through the
+    kernel, both fields' weights are packed once per call, outside the
+    chunk loop, and each chunk launches the kernel once per pass; the
+    last chunk may be ragged (the kernel masks it), so nothing is
+    padded."""
     camera = camera or cfg.camera
     render_ops.check_render_supported(cfg.model, cfg.render)
     dtype = matmul_dtype(cfg)
@@ -58,19 +62,23 @@ def make_render(cfg: Config, camera: Optional[CameraConfig] = None,
                                      model_cfg=cfg.model)
 
     @torch.no_grad()
-    def render(params, origins, dirs):
-        packed = None
+    def render(params, origins, dirs, fine_params=None):
+        packed = fine_packed = None
         if use_fused:
             from .kernels.fused_render import pack_weights
 
             packed = pack_weights(params, cfg.model)
+            if fine_params is not None:
+                fine_packed = pack_weights(fine_params, cfg.model)
         outs = []
         for i in range(0, origins.shape[0], chunk):
-            out, _ = render_ops.render_rays(
+            coarse, fine = render_ops.render_rays(
                 params, origins[i:i + chunk], dirs[i:i + chunk], cfg.model,
                 cfg.render, camera, randomized=False, dtype=dtype,
-                use_fused=use_fused, packed=packed,
+                use_fused=use_fused, packed=packed, fine_params=fine_params,
+                fine_packed=fine_packed,
             )
+            out = fine if fine is not None else coarse
             outs.append((out.rgb, out.depth, out.acc))
         rgb, depth, acc = (torch.cat(parts) for parts in zip(*outs))
         return rgb, depth, acc
@@ -85,10 +93,13 @@ def render_frame(
     dirs: torch.Tensor,
     render_fn: Optional[RenderFn] = None,
     chunk: int = 0,
+    fine_params: Optional[torch.nn.Module] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(H, W) rays -> (H, W, 3) rgb, (H, W) depth, (H, W) acc."""
+    """(H, W) rays -> (H, W, 3) rgb, (H, W) depth, (H, W) acc (the fine
+    pass's with hierarchical sampling)."""
     h, w = origins.shape[:2]
     if render_fn is None:
         render_fn = make_render(cfg, chunk=chunk)
-    rgb, depth, acc = render_fn(params, origins.reshape(-1, 3), dirs.reshape(-1, 3))
+    rgb, depth, acc = render_fn(params, origins.reshape(-1, 3), dirs.reshape(-1, 3),
+                                fine_params=fine_params)
     return rgb.reshape(h, w, 3), depth.reshape(h, w), acc.reshape(h, w)

@@ -3,11 +3,12 @@
 The JAX package writes flax msgpack; the port writes ``torch.save``
 files under the same name pattern, ``checkpoint-{unix_ts}-{step}.pt``,
 and ``latest_checkpoint`` picks the newest by (timestamp, step). A file
-holds the step, the field's weights and, when saved from a
-``TrainState``, the optimizer's state (``restore`` resumes training
-from it; ``restore_weights`` reads the weights of either kind). Loading
-uses ``weights_only=True``. Weights trained by the JAX package enter
-through ``convert.params_from_numpy``.
+holds the step, the field's weights, the fine field's when the run has
+one (hierarchical sampling with two nets), and, when saved from a
+``TrainState``, the optimizer's state over both (``restore`` resumes
+training from it; ``restore_weights`` reads the weights of either
+kind). Loading uses ``weights_only=True``. Weights trained by the JAX
+package enter through ``convert.params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -43,13 +44,15 @@ def save(state: Union["TrainState", nn.Module], save_dir: str,  # noqa: F821
     """Write a ``TrainState`` (step, weights, optimizer state) or a bare
     field's weights (``step`` defaults to 0); returns the path."""
     if isinstance(state, nn.Module):
-        params, opt, step = state, None, step or 0
+        params, fine, opt, step = state, None, None, step or 0
     else:
-        params, opt = state.params, state.optimizer
+        params, fine, opt = state.params, state.fine_params, state.optimizer
         step = state.step if step is None else step
     os.makedirs(save_dir, exist_ok=True)
     path = checkpoint_path(save_dir, step, ts)
     blob = {"step": step, "params": _cpu(params.state_dict())}
+    if fine is not None:
+        blob["fine_params"] = _cpu(fine.state_dict())
     if opt is not None:
         blob["optimizer"] = _cpu(opt.state_dict())
     tmp = path + ".tmp"
@@ -62,22 +65,36 @@ def _load(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def _load_fine(ckpt: dict, path: str, fine: Optional[nn.Module]) -> None:
+    """The fine field's weights into ``fine``; the file and the caller
+    must agree on whether there is one."""
+    if (fine is None) != ("fine_params" not in ckpt):
+        raise ValueError(f"{path} {'has' if fine is None else 'has no'} fine-field weights, "
+                         f"the run {'has no' if fine is None else 'has a'} fine field")
+    if fine is not None:
+        fine.load_state_dict(ckpt["fine_params"])
+
+
 def restore(path: str, state: "TrainState") -> "TrainState":  # noqa: F821
-    """Resume: the weights, the step and (when the file has it) the
-    optimizer state into ``state``, in place; returns it."""
+    """Resume: the weights (both fields' with a fine field), the step
+    and (when the file has it) the optimizer state into ``state``, in
+    place; returns it."""
     ckpt = _load(path)
     state.params.load_state_dict(ckpt["params"])
+    _load_fine(ckpt, path, state.fine_params)
     if "optimizer" in ckpt:
         state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
     return state
 
 
-def restore_weights(path: str, params: nn.Module) -> int:
-    """Load the weights at ``path`` into ``params`` in place; returns
-    the checkpoint's step."""
+def restore_weights(path: str, params: nn.Module, fine_params: Optional[nn.Module] = None) -> int:
+    """Load the weights at ``path`` into ``params`` (and the fine
+    field's into ``fine_params``) in place; returns the checkpoint's
+    step."""
     ckpt = _load(path)
     params.load_state_dict(ckpt["params"])
+    _load_fine(ckpt, path, fine_params)
     return int(ckpt["step"])
 
 

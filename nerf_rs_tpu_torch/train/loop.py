@@ -21,7 +21,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from nerf_rs_tpu.config import Config
+from ..config import Config
 
 from ..data.factory import make_dataset
 from ..ops import metrics, render as render_ops
@@ -44,10 +44,14 @@ class NullLogger:
         pass
 
 
-def default_device() -> torch.device:
-    """The card when there is one, else the CPU (the choice ``cli
-    render`` makes)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def resolve_device(name: str = "cuda") -> torch.device:
+    """The device a run asks for: the card unless the caller asks for
+    the CPU. Never falls back: asking for the card without one raises."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {name}: no CUDA device is visible; the port runs on "
+                           f"the card unless asked for the CPU (--device cpu)")
+    return dev
 
 
 def train(
@@ -57,9 +61,10 @@ def train(
     on_step: Optional[Callable[[int, Dict[str, float]], None]] = None,
     device=None,
 ) -> TrainState:
-    """Run the training loop; returns the final TrainState."""
+    """Run the training loop on ``dataset``'s device (without a dataset,
+    on ``device``, by default the card); returns the final TrainState."""
     if dataset is None:
-        dataset = make_dataset(cfg, device or default_device())
+        dataset = make_dataset(cfg, device if device is not None else resolve_device())
     device = dataset.images.device
     run_dir = os.path.join(cfg.log_dir, cfg.run_name or str(int(time.time())))
     os.makedirs(run_dir, exist_ok=True)
@@ -110,11 +115,13 @@ def train(
             if on_step:
                 on_step(it, {**stats, "loss": losses[-1] if losses else float("nan")})
 
-        # --- eval hook: render a view through the render kernel ---
+        # --- eval hook: render a view through the render kernel (the
+        # fine pass's colors with hierarchical sampling) ---
         if cfg.eval_on_train and it % cfg.train.eval_steps == 0 and it > 0:
             eval_ds = eval_dataset if eval_dataset is not None else dataset
             o, d = eval_ds.view_rays(0)
-            rgb, depth, _ = render_frame(cfg, state.params, o, d, render_fn)
+            rgb, depth, _ = render_frame(cfg, state.params, o, d, render_fn,
+                                         fine_params=state.fine_params)
             gold = eval_ds.view_gold(0)
             m = render_ops.mse(rgb, gold)
             psnr = float(render_ops.psnr_from_mse(m))

@@ -1,19 +1,26 @@
 """The single-device training step, the counterpart of
 ``nerf_rs_tpu/train/step.py``: MSE of composited colors against gold
-pixels, Adam at the configured rate.
+pixels (coarse plus fine with hierarchical sampling, paper eq. 6), Adam
+at the configured rate over every trainable net.
 
 Gradients come from the whole-ray training kernel
-(``kernels/fused_train.py``) whenever ``whole_ray_supported(cfg)`` holds,
-and from autograd of the eager path (``ops/render.render_rays``: the
-field at bf16, compositing in f32) otherwise -- the same choice
+(``kernels/fused_train.py``) whenever ``whole_ray_supported(cfg)`` holds
+-- hierarchical configs as the chain coarse kernel -> resample -> fine
+kernel -- and from autograd of the eager path (``ops/render.render_rays``:
+the field at bf16, compositing in f32) otherwise: the same choice
 ``train_step_core`` makes in the JAX package.
 
-Random draws (the batch, the stratified sample jitter) come from an
-explicit ``torch.Generator``; ``step_generator`` derives one per step
-from (seed, step), so a resumed run draws what an unbroken run draws.
-The fine pass (slice 2), IPE (slice 3), occupancy (slice 4), proposal
-sampling and the distortion loss (slice 5), error resampling (slice 6),
-EMA, gradient accumulation and sigma noise (slice 7) raise
+Two nets: with ``num_fine_samples > 0`` and no ``share_network`` the fine
+pass has its own field, ``TrainState.fine_params``; gradients and Adam
+state of both are keyed by parameter name, the fine net's under
+``fine.``.
+
+Random draws (the batch, the sample jitter, the fine pass's resampling)
+come from an explicit ``torch.Generator``; ``step_generator`` derives
+one per step from (seed, step), so a resumed run draws what an unbroken
+run draws. Occupancy (slice 4), proposal sampling and the distortion
+loss (slice 5), error resampling and multiscale batches (slice 6), EMA,
+gradient accumulation and sigma noise (slice 7) raise
 ``NotImplementedError``.
 """
 
@@ -24,7 +31,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from nerf_rs_tpu.config import Config
+from ..config import Config
 
 from ..models.mlp import NerfMLP, check_supported, init_nerf_params
 from ..ops import render, sampling
@@ -38,7 +45,8 @@ Aux = Dict[str, torch.Tensor]
 class TrainState:
     step: int
     params: NerfMLP
-    optimizer: torch.optim.Adam
+    optimizer: torch.optim.Adam  # one Adam over params and fine_params
+    fine_params: Optional[NerfMLP] = None  # the fine pass's own field (_has_fine_net)
     grid: None = None  # occupancy grid: slice 4
     ema: None = None  # EMA weights: slice 7
 
@@ -73,6 +81,21 @@ def check_train_supported(cfg: Config) -> None:
             raise NotImplementedError(f"{what} comes with slice {n} of the port")
 
 
+def _has_fine_net(cfg: Config) -> bool:
+    """A separate fine field (the paper's scheme); ``share_network``
+    runs both hierarchical passes through ``params``."""
+    return cfg.render.num_fine_samples > 0 and not cfg.render.share_network
+
+
+def named_trainable(state: TrainState):
+    """(name, parameter) of every trained weight: the field's under its
+    state-dict names, the fine field's under ``fine.``."""
+    yield from state.params.named_parameters()
+    if state.fine_params is not None:
+        for name, p in state.fine_params.named_parameters():
+            yield f"fine.{name}", p
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The generator of one training step, a fixed function of (seed,
     step) -- the port's ``jax.random.fold_in(key, step)``."""
@@ -91,42 +114,57 @@ def learning_rate(cfg: Config, count: int) -> float:
     return t.learning_rate
 
 
-def make_optimizer(cfg: Config, params: NerfMLP) -> torch.optim.Adam:
-    """Adam with optax's defaults (b1 0.9, b2 0.999, eps 1e-8); the
-    schedule is applied per update by ``apply_grads``."""
-    return torch.optim.Adam(params.parameters(), lr=learning_rate(cfg, 0),
-                            betas=(0.9, 0.999), eps=1e-8)
+def make_optimizer(cfg: Config, *nets: NerfMLP) -> torch.optim.Adam:
+    """One Adam over every net's parameters with optax's defaults (b1
+    0.9, b2 0.999, eps 1e-8), as optax's adam over the tuple of trees;
+    the schedule is applied per update by ``apply_grads``."""
+    return torch.optim.Adam([p for net in nets for p in net.parameters()],
+                            lr=learning_rate(cfg, 0), betas=(0.9, 0.999), eps=1e-8)
 
 
 def init_state(cfg: Config, device=None) -> TrainState:
-    """Fresh state: weights from ``cfg.train.seed`` (drawn on the CPU,
-    so one seed gives the same weights on every device), step 0."""
+    """Fresh state: weights from ``cfg.train.seed``, drawn with numpy on
+    the CPU (one seed gives the same weights on every device and torch
+    version); the fine field, when there is one, from its own stream of
+    the same seed. Step 0."""
     check_train_supported(cfg)
     params = init_nerf_params(cfg.model, cfg.train.seed, device)
-    return TrainState(step=0, params=params, optimizer=make_optimizer(cfg, params))
+    fine = (init_nerf_params(cfg.model, cfg.train.seed, device, stream=1)
+            if _has_fine_net(cfg) else None)
+    nets = (params,) if fine is None else (params, fine)
+    return TrainState(step=0, params=params, optimizer=make_optimizer(cfg, *nets),
+                      fine_params=fine)
 
 
 def loss_fn(params: NerfMLP, batch: Batch, generator: Optional[torch.Generator],
-            cfg: Config) -> Tuple[torch.Tensor, Aux]:
-    """MSE of the coarse pass's colors against the gold pixels, through
-    the eager (differentiable) path."""
-    coarse, _ = render.render_rays(
+            cfg: Config, fine_params: Optional[NerfMLP] = None) -> Tuple[torch.Tensor, Aux]:
+    """MSE of the coarse pass's colors against the gold pixels, plus the
+    fine pass's with hierarchical sampling (paper eq. 6), through the
+    eager (differentiable) path."""
+    coarse, fine = render.render_rays(
         params, batch.origins, batch.dirs, cfg.model, cfg.render, cfg.camera,
-        generator=generator, dtype=matmul_dtype(cfg),
+        generator=generator, dtype=matmul_dtype(cfg), fine_params=fine_params,
     )
     gold = batch.gold[..., :3]
-    loss = render.mse(coarse.rgb, gold)
-    aux = {
+    loss_c = render.mse(coarse.rgb, gold)
+    aux = {"loss_coarse": loss_c}
+    loss, finest = loss_c, coarse
+    if fine is not None:
+        loss_f = render.mse(fine.rgb, gold)
+        loss, finest = loss_c + loss_f, fine
+        aux["loss_fine"] = loss_f
+    aux.update({
         "loss": loss,
-        "loss_coarse": loss,
-        "psnr": render.psnr_from_mse(loss),
-        "ray_err": torch.mean((coarse.rgb - gold) ** 2, dim=-1),
-    }
+        "psnr": render.psnr_from_mse(aux.get("loss_fine", loss_c)),
+        "ray_err": torch.mean((finest.rgb - gold) ** 2, dim=-1),
+    })
     return loss, aux
 
 
 def whole_ray_supported(cfg: Config) -> bool:
-    """Configurations the whole-ray train kernel carries."""
+    """Configurations the whole-ray train kernel carries: coarse-only and
+    hierarchical (as a coarse kernel -> resample -> fine kernel chain),
+    PE and IPE."""
     return (
         cfg.use_whole_ray_train
         and render.train_fused_supported(cfg.model)
@@ -136,44 +174,90 @@ def whole_ray_supported(cfg: Config) -> bool:
     )
 
 
-def whole_ray_grads(params: NerfMLP, batch: Batch, generator: Optional[torch.Generator],
-                    cfg: Config) -> Tuple[Grads, Aux]:
-    """Gradients and aux from one launch of the whole-ray train kernel
-    (the one-pass branch of the JAX ``whole_ray_grads``)."""
+def _whole_ray_pass(params: NerfMLP, batch: Batch, vd: torch.Tensor, ts: torch.Tensor,
+                    deltas: torch.Tensor, cfg: Config, radii=None):
+    """One launch of the whole-ray train kernel over (N, S) samples:
+    (gradients keyed like ``params``' state dict, TrainGrads)."""
     from ..kernels.fused_render import pack_weights, pack_weights_t
     from ..kernels.fused_train import fused_train_grads, unpack_grads
 
-    check_train_supported(cfg)  # the fine, IPE, occupancy and proposal branches
-    rc = cfg.render
-    o, d = batch.origins, batch.dirs
-    n, S = o.shape[0], rc.num_samples
-    ts = sampling.stratified_ts(n, S, cfg.camera.near, cfg.camera.far, rc.randomized,
-                                generator=generator, device=o.device)
-    deltas = sampling.deltas_from_ts(ts, cfg.camera.far)
-    vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
     with torch.no_grad():
         pk = pack_weights(params, cfg.model)
         tg = fused_train_grads(
-            pk, pack_weights_t(pk), o.contiguous(), d.contiguous(), vd.contiguous(), ts,
-            deltas, batch.gold[..., :3].contiguous(), cfg.model, S,
-            white_bg=rc.white_background,
+            pk, pack_weights_t(pk), batch.origins.contiguous(), batch.dirs.contiguous(),
+            vd.contiguous(), ts.contiguous(), deltas.contiguous(),
+            batch.gold[..., :3].contiguous(), cfg.model, ts.shape[-1],
+            white_bg=cfg.render.white_background, radii=radii,
         )
-    loss = tg.diag[:, 4].mean()
-    aux = {
-        "loss": loss,
-        "loss_coarse": loss,
-        "psnr": render.psnr_from_mse(loss),
-        "ray_err": tg.diag[:, 4],
-    }
-    return unpack_grads(tg, params, cfg.model), aux
+    return unpack_grads(tg, params, cfg.model), tg
+
+
+def whole_ray_grads(params: NerfMLP, batch: Batch, generator: Optional[torch.Generator],
+                    cfg: Config, fine_params: Optional[NerfMLP] = None) -> Tuple[Grads, Aux]:
+    """Gradients and aux from the whole-ray train kernel: one launch, or
+    with hierarchical sampling the chain coarse kernel (which gives the
+    per-ray weights) -> inverse-CDF resample -> fine kernel. The losses
+    sum (paper eq. 6), and with one shared net so do the two passes'
+    gradients; a separate fine net's come under ``fine.``. IPE configs
+    sample S + 1 edges and hand the kernel interval midpoints, exact
+    lengths and the camera's cone radius."""
+    check_train_supported(cfg)  # the occupancy and proposal branches
+    rc, cam = cfg.render, cfg.camera
+    o, d = batch.origins, batch.dirs
+    n, S = o.shape[0], rc.num_samples
+    ipe = cfg.model.ipe
+    radii = (torch.full((n,), sampling.pixel_radius(cam), device=o.device)
+             if ipe else None)
+    if ipe:
+        edges = sampling.stratified_ts(n, S + 1, cam.near, cam.far, rc.randomized,
+                                       generator=generator, device=o.device)
+        ts, deltas = 0.5 * (edges[:, :-1] + edges[:, 1:]), edges[:, 1:] - edges[:, :-1]
+    else:
+        ts = sampling.stratified_ts(n, S, cam.near, cam.far, rc.randomized,
+                                    generator=generator, device=o.device)
+        deltas = sampling.deltas_from_ts(ts, cam.far)
+    vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    grads, tg_c = _whole_ray_pass(params, batch, vd, ts, deltas, cfg, radii)
+    loss_c = tg_c.diag[:, 4].mean()
+    if rc.num_fine_samples == 0:
+        return grads, {"loss": loss_c, "loss_coarse": loss_c,
+                       "psnr": render.psnr_from_mse(loss_c), "ray_err": tg_c.diag[:, 4]}
+
+    # the fine pass on samples drawn from the coarse kernel's weights
+    standalone = rc.fine_mode == "standalone"
+    if ipe:
+        fine_edges = sampling.sample_pdf(edges, tg_c.weights, rc.num_fine_samples + 1,
+                                         rc.randomized, generator=generator)
+        if not standalone:
+            fine_edges = sampling.merge_ts(edges, fine_edges)
+        all_ts = 0.5 * (fine_edges[:, :-1] + fine_edges[:, 1:])
+        fine_deltas = fine_edges[:, 1:] - fine_edges[:, :-1]
+    else:
+        mids = 0.5 * (ts[:, 1:] + ts[:, :-1])
+        bins = torch.cat([ts[:, :1], mids, ts[:, -1:]], dim=-1)
+        fine_ts = sampling.sample_pdf(bins, tg_c.weights, rc.num_fine_samples,
+                                      rc.randomized, generator=generator)
+        all_ts = fine_ts if standalone else sampling.merge_ts(ts, fine_ts)
+        fine_deltas = sampling.deltas_from_ts(all_ts, cam.far)
+    fnet = fine_params if fine_params is not None else params
+    grads_f, tg_f = _whole_ray_pass(fnet, batch, vd, all_ts, fine_deltas, cfg, radii)
+    loss_f = tg_f.diag[:, 4].mean()
+    if fine_params is not None:
+        grads.update((f"fine.{k}", v) for k, v in grads_f.items())
+    else:  # one shared net: both passes' gradients land on it
+        for k, v in grads_f.items():
+            grads[k] = grads[k] + v
+    return grads, {"loss": loss_c + loss_f, "loss_coarse": loss_c, "loss_fine": loss_f,
+                   "psnr": render.psnr_from_mse(loss_f), "ray_err": tg_f.diag[:, 4]}
 
 
 def apply_grads(state: TrainState, grads: Grads, cfg: Config) -> TrainState:
-    """The optimizer tail: one Adam update at the scheduled rate, then
-    step + 1. Updates ``state`` in place and returns it."""
+    """The optimizer tail: one Adam update of every trainable net at the
+    scheduled rate, then step + 1. ``grads`` is keyed as
+    ``named_trainable``. Updates ``state`` in place and returns it."""
     if cfg.train.ema_decay > 0.0:
         raise NotImplementedError("the EMA of the weights comes with slice 7 of the port")
-    for name, p in state.params.named_parameters():
+    for name, p in named_trainable(state):
         p.grad = grads[name]
     for group in state.optimizer.param_groups:
         group["lr"] = learning_rate(cfg, state.step)
@@ -188,22 +272,24 @@ def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Genera
     ``whole_ray_supported(cfg)``, else autograd of ``loss_fn``."""
     check_train_supported(cfg)
     if whole_ray_supported(cfg):
-        grads, aux = whole_ray_grads(state.params, batch, generator, cfg)
+        grads, aux = whole_ray_grads(state.params, batch, generator, cfg, state.fine_params)
     else:
-        state.params.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(state.params, batch, generator, cfg)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, aux = loss_fn(state.params, batch, generator, cfg, state.fine_params)
         loss.backward()
-        grads = {name: p.grad for name, p in state.params.named_parameters()}
+        grads = {name: p.grad for name, p in named_trainable(state)}
         aux = {k: v.detach() for k, v in aux.items()}
     return apply_grads(state, grads, cfg), aux
 
 
 @torch.no_grad()
 def eval_step(state: TrainState, batch: Batch, cfg: Config) -> Dict[str, torch.Tensor]:
-    """Deterministic (midpoint-sampled) evaluation pass."""
-    out, _ = render.render_rays(state.params, batch.origins, batch.dirs, cfg.model,
-                                cfg.render, cfg.camera, randomized=False,
-                                dtype=matmul_dtype(cfg))
+    """Deterministic (midpoint-sampled) evaluation pass; with
+    hierarchical sampling it reports the fine pass."""
+    coarse, fine = render.render_rays(state.params, batch.origins, batch.dirs, cfg.model,
+                                      cfg.render, cfg.camera, randomized=False,
+                                      dtype=matmul_dtype(cfg), fine_params=state.fine_params)
+    out = fine if fine is not None else coarse
     m = render.mse(out.rgb, batch.gold[..., :3])
     return {"mse": m, "psnr": render.psnr_from_mse(m), "rgb": out.rgb,
             "depth": out.depth, "acc": out.acc}

@@ -1,6 +1,7 @@
 """The whole-ray render kernel (csrc/fused_ray.cu) and train kernel
 (csrc/fused_train.cu) against their plain PyTorch versions, on a CUDA
-card. Every case skips without one.
+card: PE and IPE, rays that fit a 128-row tile and rays padded to 256
+samples. Every case skips without one.
 
 This file imports neither JAX nor the JAX package's tests, so it runs on
 a machine with torch and CUDA alone (the repo's conftest.py needs JAX):
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from nerf_rs_tpu.config import ModelConfig
+from nerf_rs_tpu_torch.config import ModelConfig
 from nerf_rs_tpu_torch.kernels.fused_ray import (
     fused_ray_render, fused_ray_render_reference)
 from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
@@ -39,6 +40,18 @@ def _rays(n, s, dev, seed=0):
     ts = torch.from_numpy(np.sort(rng.uniform(0.05, 2.0, (n, s)), -1).astype(np.float32)).to(dev)
     dl = torch.cat([ts[:, 1:], torch.full_like(ts[:, :1], 2.0)], -1) - ts
     return o, d, vd, ts, dl
+
+
+def _intervals(n, s, dev, seed=0):
+    """IPE inputs: rays, interval midpoints and exact lengths from sorted
+    jittered edges, and cone radii around a pixel's footprint."""
+    o, d, vd, _, _ = _rays(n, s, dev, seed)
+    rng = np.random.default_rng(seed + 7)
+    edges = torch.from_numpy(np.sort(rng.uniform(0.05, 2.0, (n, s + 1)), -1)
+                             .astype(np.float32)).to(dev)
+    mids = 0.5 * (edges[:, :-1] + edges[:, 1:])
+    radii = torch.from_numpy(rng.uniform(2e-3, 2e-2, n).astype(np.float32)).to(dev)
+    return o, d, vd, mids, edges[:, 1:] - edges[:, :-1], radii
 
 
 # (field, sigma, rays, samples): flagship and small widths, both sigma
@@ -71,12 +84,64 @@ def test_kernel_matches_plain_version(field, sigma_act, n, s):
         assert float((g - w).abs().max()) <= tol, name
 
 
-def _train_args(field, sigma_act, n, s, dev):
-    cfg = ModelConfig(sigma_activation=sigma_act, **field)
+# (field, sigma, IPE, rays, samples): the IPE branch, and rays padded to
+# 256 samples (192: the hierarchical union pass; 193: the record preset's)
+# or to a power of two (48)
+BRANCH_CASES = [
+    ({}, "softplus", True, 301, 64),
+    (SMALL, "relu", True, 9, 128),
+    (SMALL, "softplus", True, 5, 192),
+    ({}, "relu", False, 37, 192),
+    (SMALL, "softplus", False, 6, 193),
+    (SMALL, "relu", False, 11, 48),
+]
+
+
+def _branch_rays(ipe, n, s, dev):
+    if ipe:
+        o, d, vd, mids, dl, radii = _intervals(n, s, dev)
+        return (o, d, vd, mids, dl), radii
+    return _rays(n, s, dev), None
+
+
+@pytest.mark.parametrize("field,sigma_act,ipe,n,s", BRANCH_CASES)
+def test_kernel_branches_match_plain_version(field, sigma_act, ipe, n, s):
+    dev = _device()
+    cfg = ModelConfig(sigma_activation=sigma_act, ipe=ipe, **field)
+    model = init_nerf_params(cfg, 0, dev)
+    rays, radii = _branch_rays(ipe, n, s, dev)
+    args = (pack_weights(model, cfg), *rays, cfg, s)
+    got = fused_ray_render(*args, radii=radii)
+    torch.cuda.synchronize()
+    want = fused_ray_render_reference(*args, radii=radii)
+    for name, g, w, tol in zip(("rgb", "acc", "depth", "weights", "sigma"), got, want,
+                               (1e-3, 1e-3, 2e-3, 1e-3, 2e-2)):
+        assert g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert float((g - w).abs().max()) <= tol, name
+
+
+def _train_args(field, sigma_act, n, s, dev, ipe=False):
+    cfg = ModelConfig(sigma_activation=sigma_act, ipe=ipe, **field)
     model = init_nerf_params(cfg, 0, dev)
     pk = pack_weights(model, cfg)
     gold = torch.from_numpy(np.random.default_rng(1).uniform(size=(n, 3)).astype(np.float32))
-    return (pk, pack_weights_t(pk), *_rays(n, s, dev), gold.to(dev), cfg, s)
+    rays, radii = _branch_rays(ipe, n, s, dev)
+    return (pk, pack_weights_t(pk), *rays, gold.to(dev), cfg, s), radii
+
+
+def _check_train(got, args, white, radii):
+    """K2 against the plain version and the float64 witness at KERNEL_TOL."""
+    for dtype in (torch.float32, torch.float64):
+        want = fused_train_grads_reference(*args, white_bg=white, radii=radii, dtype=dtype)
+        diag_err = float((got.diag[:, :5].double() - want.diag[:, :5]).abs().max())
+        assert diag_err <= KERNEL_TOL["diag"], dtype
+        assert got.weights.shape == want.weights.shape
+        assert float((got.weights.double() - want.weights).abs().max()) <= KERNEL_TOL["weights"]
+        for i, (g, w) in enumerate(zip(got.dw + got.db, want.dw + want.db)):
+            assert bool(torch.isfinite(g).all()), i
+            scale = max(float(w.abs().max()), 1e-12)
+            assert float((g.double() - w).abs().max()) / scale <= KERNEL_TOL["grads"], (i, dtype)
 
 
 # (field, sigma, white background, rays, samples): flagship and small
@@ -92,28 +157,30 @@ TRAIN_CASES = [
 @pytest.mark.parametrize("field,sigma_act,white,n,s", TRAIN_CASES)
 def test_train_kernel_matches_plain_version(field, sigma_act, white, n, s):
     dev = _device()
-    args = _train_args(field, sigma_act, n, s, dev)
+    args, _ = _train_args(field, sigma_act, n, s, dev)
     before = fused_train_grads.launches
     got = fused_train_grads(*args, white_bg=white)
     torch.cuda.synchronize()
     assert fused_train_grads.launches == before + 1
     # the plain version, and the float64 witness with its rounding points
-    for dtype in (torch.float32, torch.float64):
-        want = fused_train_grads_reference(*args, white_bg=white, dtype=dtype)
-        diag_err = float((got.diag[:, :5].double() - want.diag[:, :5]).abs().max())
-        assert diag_err <= KERNEL_TOL["diag"], dtype
-        assert float((got.weights.double() - want.weights).abs().max()) <= KERNEL_TOL["weights"]
-        for i, (g, w) in enumerate(zip(got.dw + got.db, want.dw + want.db)):
-            assert bool(torch.isfinite(g).all()), i
-            scale = max(float(w.abs().max()), 1e-12)
-            assert float((g.double() - w).abs().max()) / scale <= KERNEL_TOL["grads"], (i, dtype)
+    _check_train(got, args, white, None)
 
 
-def test_train_kernel_is_deterministic():
+@pytest.mark.parametrize("field,sigma_act,ipe,n,s", BRANCH_CASES)
+def test_train_kernel_branches_match_plain_version(field, sigma_act, ipe, n, s):
     dev = _device()
-    args = _train_args({}, "relu", 333, 64, dev)
-    a = fused_train_grads(*args)
-    b = fused_train_grads(*args)
+    args, radii = _train_args(field, sigma_act, n, s, dev, ipe)
+    got = fused_train_grads(*args, white_bg=True, radii=radii)
+    torch.cuda.synchronize()
+    _check_train(got, args, True, radii)
+
+
+@pytest.mark.parametrize("s,ipe", [(64, False), (192, False), (128, True)])
+def test_train_kernel_is_deterministic(s, ipe):
+    dev = _device()
+    args, radii = _train_args({}, "relu", 333, s, dev, ipe)
+    a = fused_train_grads(*args, radii=radii)
+    b = fused_train_grads(*args, radii=radii)
     for x, y in zip((a.diag, a.weights, *a.dw, *a.db), (b.diag, b.weights, *b.dw, *b.db)):
         assert torch.equal(x, y)
 

@@ -18,11 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from nerf_rs_tpu.config import ModelConfig
 from nerf_rs_tpu.kernels import fused_ray as jfused
 from nerf_rs_tpu.kernels import fused_render as jrender
 from nerf_rs_tpu.models import mlp as jmlp
 from nerf_rs_tpu.ops import sampling as jsamp
+from nerf_rs_tpu_torch.config import ModelConfig
 from nerf_rs_tpu_torch.convert import params_from_numpy
 from nerf_rs_tpu_torch.kernels import fused_render
 from nerf_rs_tpu_torch.kernels.fused_ray import (
@@ -168,9 +168,16 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     o, d, vd, ts, dl = map(torch.from_numpy, rays)
     with pytest.raises(ValueError, match="ts/deltas"):
         fused_ray_render(pk, o, d, vd, ts, dl, CFG, S // 2)
-    with pytest.raises(ValueError, match="must divide 128"):  # on every device
-        ts48 = torch.linspace(0.1, 1.9, 48).expand(N, 48)
-        fused_ray_render(pk, o, d, vd, ts48, ts48, CFG, 48)
+    with pytest.raises(ValueError, match="1 to 256"):  # on every device
+        ts257 = torch.linspace(0.1, 1.9, 257).expand(N, 257)
+        fused_ray_render(pk, o, d, vd, ts257, ts257, CFG, 257)
+    with pytest.raises(ValueError, match="radii"):
+        fused_ray_render(pk, o, d, vd, ts, dl, ModelConfig(**{**CFG.__dict__, "ipe": True}), S)
+    with pytest.raises(ValueError, match="radii"):
+        fused_ray_render(pk, o, d, vd, ts, dl, CFG, S, radii=torch.ones(N))
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        fused_ray_render(pk, o, d, vd, ts, dl, ModelConfig(**{**CFG.__dict__, "contract": True}),
+                         S)
     with pytest.raises(ValueError, match="packed weights"):
         fused_ray_render(pk, o, d, vd, ts, dl, ModelConfig(), S)
     with pytest.raises(ValueError, match="sigma_activation"):

@@ -15,11 +15,11 @@ import numpy as np
 import pytest
 import torch
 
-from nerf_rs_tpu.config import ModelConfig
 from nerf_rs_tpu.kernels import fused_render as jrender
 from nerf_rs_tpu.kernels import fused_train as jtrain
 from nerf_rs_tpu.models import mlp as jmlp
 from nerf_rs_tpu.ops import sampling as jsamp
+from nerf_rs_tpu_torch.config import ModelConfig
 from nerf_rs_tpu_torch.convert import params_from_numpy, params_to_numpy
 from nerf_rs_tpu_torch.kernels import fused_render
 from nerf_rs_tpu_torch.kernels.fused_train import (
@@ -175,12 +175,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     pk = fused_render.pack_weights(model, CFG)
     pkt = fused_render.pack_weights_t(pk)
     o, d, vd, ts, dl, gold = map(torch.from_numpy, rays)
-    with pytest.raises(ValueError, match="must divide 128"):
-        ts48 = torch.linspace(0.1, 1.9, 48).expand(N, 48).contiguous()
-        fused_train_grads(pk, pkt, o, d, vd, ts48, ts48, gold, CFG, 48)
+    with pytest.raises(ValueError, match="1 to 256"):
+        ts257 = torch.linspace(0.1, 1.9, 257).expand(N, 257).contiguous()
+        fused_train_grads(pk, pkt, o, d, vd, ts257, ts257, gold, CFG, 257)
     with pytest.raises(ValueError, match="gold"):
         fused_train_grads(pk, pkt, o, d, vd, ts, dl, gold[:, :2], CFG, S)
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(ValueError, match="radii"):  # IPE needs the cone radii
         fused_train_grads(pk, pkt, o, d, vd, ts, dl, gold, dataclasses.replace(CFG, ipe=True), S)
     with pytest.raises(NotImplementedError, match="slice 5"):
         fused_train_grads(pk, pkt, o, d, vd, ts, dl, gold,

@@ -3,8 +3,11 @@ positional encoding, the paper MLP at f32 and "mixed" (bf16) precision,
 the seeded init, and the exact param conversion between the two.
 
 Inputs are made with numpy from a seed and handed to both packages; JAX
-params reach the port through ``convert.params_from_numpy``.
+params reach the port through ``convert.params_from_numpy``, and the
+JAX side gets the port's config as its own (``_jcfg``).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -12,9 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from nerf_rs_tpu.config import ModelConfig
+from nerf_rs_tpu import config as jconfig
 from nerf_rs_tpu.models import encoding as jenc
 from nerf_rs_tpu.models import mlp as jmlp
+from nerf_rs_tpu_torch.config import ModelConfig
 from nerf_rs_tpu_torch.convert import params_from_numpy, params_to_numpy
 from nerf_rs_tpu_torch.models import encoding, mlp
 
@@ -25,8 +29,12 @@ CFG = ModelConfig(net_depth=4, net_width=64, skip_layer=2, feature_width=64,
                   view_head_width=32)
 
 
+def _jcfg(cfg: ModelConfig) -> "jconfig.ModelConfig":
+    return jconfig.ModelConfig(**dataclasses.asdict(cfg))
+
+
 def _jax_tree(cfg, seed=0):
-    return jax.tree.map(np.asarray, jmlp.init_nerf_params(jax.random.PRNGKey(seed), cfg))
+    return jax.tree.map(np.asarray, jmlp.init_nerf_params(jax.random.PRNGKey(seed), _jcfg(cfg)))
 
 
 def _port_model(tree, cfg):
@@ -63,7 +71,7 @@ def test_apply_nerf_f32_matches_jax(sigma_act):
     tree = _jax_tree(cfg)
     pts, vd = _inputs()
     s_j, c_j = jmlp.apply_nerf(jax.tree.map(jnp.asarray, tree), jnp.asarray(pts),
-                               jnp.asarray(vd), cfg)
+                               jnp.asarray(vd), _jcfg(cfg))
     s_p, c_p = mlp.apply_nerf(_port_model(tree, cfg), torch.from_numpy(pts),
                               torch.from_numpy(vd), cfg)
     np.testing.assert_allclose(s_p.detach().numpy(), np.asarray(s_j), atol=1e-4)
@@ -80,12 +88,35 @@ def test_apply_nerf_mixed_matches_jax():
     tree = _jax_tree(CFG)
     pts, vd = _inputs()
     s_j, c_j = jmlp.apply_nerf(jax.tree.map(jnp.asarray, tree), jnp.asarray(pts),
-                               jnp.asarray(vd), CFG, dtype=jnp.bfloat16)
+                               jnp.asarray(vd), _jcfg(CFG), dtype=jnp.bfloat16)
     s_p, c_p = mlp.apply_nerf(_port_model(tree, CFG), torch.from_numpy(pts),
                               torch.from_numpy(vd), CFG, dtype=torch.bfloat16)
     assert s_p.dtype == torch.float32 and c_p.dtype == torch.float32
     np.testing.assert_allclose(s_p.detach().numpy(), np.asarray(s_j), atol=2e-2)
     np.testing.assert_allclose(c_p.detach().numpy(), np.asarray(c_j), atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_apply_nerf_ipe_matches_jax(dtype):
+    """The pos_var branch: Gaussian means encoded with the integrated
+    encoding, the weights unchanged. Bars as the PE path's: f32 1e-4,
+    bf16 ("mixed") sigma 2e-2 and rgb 5e-3."""
+    cfg = ModelConfig(**{**CFG.__dict__, "ipe": True, "sigma_activation": "softplus"})
+    tree = _jax_tree(cfg)
+    pts, vd = _inputs()
+    var = (np.random.default_rng(2).uniform(0, 1, pts.shape) ** 3 * 0.02).astype(np.float32)
+    jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (None, None)
+    s_j, c_j = jmlp.apply_nerf(jax.tree.map(jnp.asarray, tree), jnp.asarray(pts),
+                               jnp.asarray(vd), _jcfg(cfg), jd, pos_var=jnp.asarray(var))
+    s_p, c_p = mlp.apply_nerf(_port_model(tree, cfg), torch.from_numpy(pts),
+                              torch.from_numpy(vd), cfg, td, pos_var=torch.from_numpy(var))
+    tol_s, tol_c = (2e-2, 5e-3) if dtype == "bf16" else (1e-4, 1e-4)
+    np.testing.assert_allclose(s_p.detach().numpy(), np.asarray(s_j), atol=tol_s)
+    np.testing.assert_allclose(c_p.detach().numpy(), np.asarray(c_j), atol=tol_c)
+    # the variance damps the field's input: not the PE's answer
+    s_pe, _ = mlp.apply_nerf(_port_model(tree, cfg), torch.from_numpy(pts),
+                             torch.from_numpy(vd), cfg, td)
+    assert float((s_pe - s_p).detach().abs().max()) > 1e-3
 
 
 def test_convert_round_trip_is_exact():
@@ -130,7 +161,7 @@ def test_init_is_seeded_he_truncated_normal():
 
 
 @pytest.mark.parametrize("kw", [{"compat": True}, {"arch": "hashgrid"},
-                                {"arch": "factored"}, {"ipe": True},
+                                {"arch": "factored"}, {"ipe": True, "contract": True},
                                 {"contract": True}])
 def test_unported_models_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):

@@ -1,10 +1,14 @@
-"""The PyTorch port stands without JAX: every module of nerf_rs_tpu_torch
-imports, a frame renders, and two train steps run (kernel path and
-autograd path), in a process that never loads jax, jaxlib, flax or optax. Plus two checks of chip_smoke.py, which runs only on the
-card: an undefined-name lint (the idea of test_bench_lint.py), and that
+"""The PyTorch port stands without JAX and without the JAX package: every
+module of nerf_rs_tpu_torch imports, a frame renders, two train steps run
+(kernel path and autograd path), and one step each of the hierarchical
+and mipnerf settings, in a process that never loads jax, jaxlib, flax,
+optax or any module of nerf_rs_tpu. Plus checks of chip_smoke.py, which
+runs only on the card: an undefined-name lint (the idea of
+test_bench_lint.py), no import of the JAX package in any form, and that
 without a card it exits non-zero instead of falling back to the CPU.
 """
 
+import ast
 import builtins
 import os
 import pathlib
@@ -45,7 +49,20 @@ for kernel in (True, False):  # the train kernel's plain version, then autograd
     for it in range(2):
         state, aux = fn(state, step.step_generator(0, it, "cpu"))
     assert state.step == 2 and bool(torch.isfinite(aux["loss"]))
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax"))
+# one step of each hierarchical preset's settings, through the kernel chain
+hier = RenderConfig(num_samples=8, num_fine_samples=16, white_background=True)
+for model, render in ((small, hier),
+                      (dataclasses.replace(small, ipe=True, sigma_activation="softplus"),
+                       dataclasses.replace(hier, share_network=True, fine_mode="standalone"))):
+    tcfg = dataclasses.replace(cfg, model=model, render=render, train=TrainConfig(num_rays=16),
+                               data=DataConfig(dataset="sphere"), use_whole_ray_train=True)
+    state = step.init_state(tcfg)
+    fn = step.make_train_step(tcfg, make_dataset(tcfg))
+    state, aux = fn(state, step.step_generator(0, 0, "cpu"))
+    assert state.step == 1 and bool(torch.isfinite(aux["loss_fine"]))
+    assert (state.fine_params is None) == render.share_network
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_rs_tpu"))
 print("modules", len(names), "jax-family", bad)
 """
 
@@ -90,6 +107,26 @@ def test_chip_smoke_has_no_undefined_names():
     _undefined(tab, {s.get_name() for s in tab.get_symbols()}, problems)
     assert not problems, f"chip_smoke.py would raise NameError: {problems}"
     assert "import jax" not in src and "from nerf_rs_tpu." not in src
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_the_jax_package():
+    """Every import in chip_smoke.py, in any form (import x, import x.y,
+    from x import y, from x.y import z, importlib by name)."""
+    src = (REPO / "chip_smoke.py").read_text()
+    names = []
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+        elif isinstance(node, ast.Call) and node.args and isinstance(node.args[0], ast.Constant):
+            fn = node.func
+            if getattr(fn, "attr", getattr(fn, "id", "")) in ("import_module", "__import__"):
+                names.append(str(node.args[0].value))
+    bad = [n for n in names
+           if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_rs_tpu")]
+    assert not bad, bad
+    assert "nerf_rs_tpu_torch" in names
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -7,6 +7,7 @@ its 3x3 products at HIGHEST precision), so the bar is atol 1e-6: a few
 ulps of values that are O(1).
 """
 
+import dataclasses
 import math
 
 import jax.numpy as jnp
@@ -14,13 +15,19 @@ import numpy as np
 import pytest
 import torch
 
-from nerf_rs_tpu.config import CameraConfig
+from nerf_rs_tpu import config as jconfig
 from nerf_rs_tpu.ops import rays as jrays
 from nerf_rs_tpu.ops import sampling as jsamp
+from nerf_rs_tpu_torch.config import CameraConfig
 from nerf_rs_tpu_torch.ops import rays, sampling
 
 torch.set_num_threads(2)
 ATOL = 1e-6
+
+
+def _jcam(cam: CameraConfig) -> "jconfig.CameraConfig":
+    """The JAX package's camera with the port's values."""
+    return jconfig.CameraConfig(**dataclasses.asdict(cam))
 
 
 def _close(got, want):
@@ -51,7 +58,7 @@ def test_spherical_render_path_matches_jax():
 def test_ray_grid_matches_jax(posed):
     cam = CameraConfig(width=16, height=12)
     pose = jrays.pose_from_yaw_pitch(jnp.float32(0.37), jnp.float32(0.21)) if posed else None
-    o_j, d_j = jrays.ray_grid(pose, cam)
+    o_j, d_j = jrays.ray_grid(pose, _jcam(cam))
     o_p, d_p = rays.ray_grid(None if pose is None else torch.from_numpy(np.array(pose)), cam)
     assert o_p.shape == (12, 16, 3) and d_p.shape == (12, 16, 3)
     _close(o_p, o_j)
@@ -62,7 +69,7 @@ def test_rays_for_coords_matches_jax():
     cam = CameraConfig(width=32, height=32)
     coords = np.random.default_rng(1).uniform(0, 31, (40, 2)).astype(np.float32)
     pose = np.array(jrays.pose_from_yaw_pitch(jnp.float32(1.1), jnp.float32(0.5)))
-    o_j, d_j = jrays.rays_for_coords(jnp.asarray(coords), jnp.asarray(pose), cam)
+    o_j, d_j = jrays.rays_for_coords(jnp.asarray(coords), jnp.asarray(pose), _jcam(cam))
     o_p, d_p = rays.rays_for_coords(torch.from_numpy(coords), torch.from_numpy(pose), cam)
     _close(o_p, o_j)
     _close(d_p, d_j)

@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from nerf_rs_tpu.config import CameraConfig, Config, ModelConfig, RenderConfig
+from nerf_rs_tpu import config as jconfig
 from nerf_rs_tpu.data import factory as jfactory
 from nerf_rs_tpu.models import mlp as jmlp
 from nerf_rs_tpu.ops import rays as jrays
@@ -26,6 +26,7 @@ from nerf_rs_tpu.parallel import dp as jdp
 from nerf_rs_tpu.parallel import mesh as jmesh
 from nerf_rs_tpu.train import loop as jloop
 from nerf_rs_tpu_torch import cli
+from nerf_rs_tpu_torch.config import CameraConfig, Config, ModelConfig, RenderConfig
 from nerf_rs_tpu_torch.convert import params_from_numpy
 from nerf_rs_tpu_torch.data.factory import make_dataset
 from nerf_rs_tpu_torch.data.images import save_png
@@ -45,8 +46,15 @@ def _sphere_cfg(white: bool, size: int = 16, samples: int = 16) -> Config:
                   data=dataclasses.replace(Config().data, dataset="sphere"))
 
 
+def _j(cfg):
+    """The JAX package's config (or sub-config) with the port's values."""
+    if isinstance(cfg, Config):
+        return jconfig.Config.from_dict(cfg.to_dict())
+    return getattr(jconfig, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
 def _converted(cfg: ModelConfig, seed=0):
-    params = jmlp.init_nerf_params(jax.random.PRNGKey(seed), cfg)
+    params = jmlp.init_nerf_params(jax.random.PRNGKey(seed), _j(cfg))
     model = NerfMLP(cfg)
     model.load_state_dict(params_from_numpy(jax.tree.map(np.asarray, params)))
     return params, model
@@ -84,10 +92,10 @@ def test_render_frame_matches_jax(white):
     test_torch_fused_ray.py)."""
     cfg = _sphere_cfg(white)
     params, model = _converted(cfg.model)
-    jds = jfactory.make_dataset(cfg)
+    jds = jfactory.make_dataset(_j(cfg))
     o_j, d_j = jds.view_rays(5)
     state = types.SimpleNamespace(params=params, fine_params=None, grid=None)
-    want = jloop.render_frame(cfg, state, o_j, d_j, jmesh.make_mesh(1))
+    want = jloop.render_frame(_j(cfg), state, o_j, d_j, jmesh.make_mesh(1))
     ds = make_dataset(cfg)
     o, d = ds.view_rays(5)
     np.testing.assert_allclose(o.numpy(), np.asarray(o_j), atol=1e-6)
@@ -110,11 +118,11 @@ def test_eager_render_rays_matches_jax(dtype):
     cam = CameraConfig(width=8, height=8)
     params, model = _converted(mcfg)
     pose = np.eye(3, dtype=np.float32)
-    o_j, d_j = jrays.ray_grid(jnp.asarray(pose), cam)
+    o_j, d_j = jrays.ray_grid(jnp.asarray(pose), _j(cam))
     o, d = rays.ray_grid(torch.from_numpy(pose), cam)
     jd, td = (jnp.bfloat16, torch.bfloat16) if dtype == "bf16" else (None, None)
-    want, _ = jrender.render_rays(params, o_j, d_j, jax.random.PRNGKey(0), mcfg, rcfg,
-                                  cam, randomized=False, dtype=jd)
+    want, _ = jrender.render_rays(params, o_j, d_j, jax.random.PRNGKey(0), _j(mcfg), _j(rcfg),
+                                  _j(cam), randomized=False, dtype=jd)
     with torch.no_grad():
         got, fine = render_ops.render_rays(model, o, d, mcfg, rcfg, cam,
                                            randomized=False, dtype=td)
@@ -150,7 +158,8 @@ def test_default_render_chunk_matches_jax():
     for rc in (RenderConfig(), RenderConfig(num_samples=16),
                RenderConfig(num_samples=192), RenderConfig(num_fine_samples=128)):
         for fused in (False, True):
-            assert default_render_chunk(rc, fused, mc) == jdp.default_render_chunk(rc, fused, mc)
+            assert default_render_chunk(rc, fused, mc) == jdp.default_render_chunk(
+                _j(rc), fused, _j(mc))
     assert default_render_chunk(RenderConfig(), fused=True) == 262144
 
 
@@ -207,7 +216,8 @@ def test_cli_render_view_and_sweep(tmp_path, capsys):
     path = ckpt.save(model, str(tmp_path / "ckpt"), step=5)
     common = ["--dataset", "sphere", "--width", "16", "--height", "16",
               "--num_samples", "16", "--load_path", path]
-    assert cli.main(["render", *common, "--view", "0", "--out_dir", str(tmp_path / "v")]) == 0
+    assert cli.main(["render", *common, "--view", "0", "--out_dir", str(tmp_path / "v"),
+                     "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert f"loaded {path} (step 5)" in out
     ds = make_dataset(cfg)
@@ -218,16 +228,17 @@ def test_cli_render_view_and_sweep(tmp_path, capsys):
     np.testing.assert_array_equal(_read_png(str(tmp_path / "v" / "view-0.png")), want)
 
     before = fused_ray_render.launches
-    assert cli.main(["render", *common, "--frames", "2", "--out_dir", str(tmp_path / "s")]) == 0
+    assert cli.main(["render", *common, "--frames", "2", "--out_dir", str(tmp_path / "s"),
+                     "--device", "cpu"]) == 0
     assert fused_ray_render.launches == before  # CPU: the plain version, no launch
     assert sorted(os.listdir(tmp_path / "s")) == ["frame-000.png", "frame-001.png"]
     assert "rendered 2 frames of 16x16" in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("argv", [
-    ["render", "--dataset", "sphere", "--num_fine_samples", "64"],
-    ["render", "--dataset", "sphere", "--preset", "full"],
-    ["render", "--dataset", "sphere", "--ipe", "true"],
+    ["render", "--dataset", "sphere", "--occ_res", "64"],
+    ["render", "--dataset", "sphere", "--multiscale_levels", "2"],
+    ["render", "--dataset", "sphere", "--contract", "true"],
 ])
 def test_cli_refuses_unported_flags(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -237,7 +248,7 @@ def test_cli_refuses_unported_flags(argv, capsys):
 
 
 # train and eval are ported; what they refuse is what later slices bring
-_UNPORTED = {"train": ["--preset", "hierarchical"], "eval": ["--scales", "1,2"], "export": []}
+_UNPORTED = {"train": ["--preset", "record"], "eval": ["--scales", "1,2"], "export": []}
 
 
 @pytest.mark.parametrize("cmd", ["train", "eval", "export"])
@@ -246,13 +257,34 @@ def test_cli_refuses_unported_commands(cmd, capsys):
     assert "not ported yet" in capsys.readouterr().err
 
 
+def test_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, capsys):
+    """--device cuda (the default) without a card raises, and never falls
+    back to the CPU; --device cpu runs."""
+    argv = ["render", "--dataset", "sphere", "--width", "8", "--height", "8",
+            "--num_samples", "8", "--view", "0", "--out_dir", str(tmp_path),
+            "--save_dir", str(tmp_path / "none")]
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is available")
+    for extra in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv + extra)
+    assert not os.listdir(tmp_path)  # nothing rendered
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    assert "view-0.png" in capsys.readouterr().out
+
+
 def test_unported_dataset_and_render_options_raise():
     with pytest.raises(NotImplementedError, match="slice 6"):
         make_dataset(Config())  # multiview_png
-    for rc in (RenderConfig(num_fine_samples=8), RenderConfig(occ_res=16),
+    for rc in (RenderConfig(compat_density_color=True), RenderConfig(occ_res=16),
                RenderConfig(sampling_space="disparity")):
         with pytest.raises(NotImplementedError, match="slice"):
             make_render(Config(render=rc))
+    # the shared-network fast fine pass: one field, union, point samples, eager
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        render_ops.render_rays(None, torch.zeros(1, 3), torch.ones(1, 3), ModelConfig(),
+                               RenderConfig(num_fine_samples=8, share_network=True),
+                               CameraConfig(), randomized=False)
     with pytest.raises(NotImplementedError, match="slice 7"):
         render_ops.render_rays(None, torch.zeros(1, 3), torch.ones(1, 3), ModelConfig(),
                                RenderConfig(raw_noise_std=1.0), CameraConfig(),

@@ -18,10 +18,12 @@ import torch
 
 import bench
 from nerf_rs_tpu import cli as jcli
-from nerf_rs_tpu.config import CameraConfig, Config, DataConfig, ModelConfig, RenderConfig, TrainConfig
+from nerf_rs_tpu import config as jconfig
 from nerf_rs_tpu.data import factory as jfactory
 from nerf_rs_tpu.train import step as jstep
 from nerf_rs_tpu_torch import cli
+from nerf_rs_tpu_torch.config import (CameraConfig, Config, DataConfig, ModelConfig,
+                                      RenderConfig, TrainConfig)
 from nerf_rs_tpu_torch.convert import params_from_numpy, params_to_numpy
 from nerf_rs_tpu_torch.data.factory import make_dataset
 from nerf_rs_tpu_torch.kernels import fused_train
@@ -47,6 +49,11 @@ def _cfg(kernel: bool, precision="mixed", **train) -> Config:
     )
 
 
+def _j(cfg: Config) -> "jconfig.Config":
+    """The JAX package's config with the port's values."""
+    return jconfig.Config.from_dict(cfg.to_dict())
+
+
 def _rays(seed=0):
     rng = np.random.default_rng(seed)
     o = (rng.normal(size=(N, 3)) * 0.2).astype(np.float32)
@@ -56,7 +63,7 @@ def _rays(seed=0):
 
 
 def _converted_state(cfg, seed=2):
-    jstate = jstep.init_state(jax.random.PRNGKey(seed), cfg)
+    jstate = jstep.init_state(jax.random.PRNGKey(seed), _j(cfg))
     state = step.init_state(cfg)
     state.params.load_state_dict(params_from_numpy(jax.tree.map(np.asarray, jstate.params)))
     return jstate, state
@@ -75,7 +82,7 @@ def test_train_step_matches_jax(kernel):
     jstate, state = _converted_state(cfg)
     o, d, gold = _rays()
     new_j, aux_j = jstep.train_step(jstate, jstep.Batch(*map(jnp.asarray, (o, d, gold))),
-                                    jax.random.PRNGKey(0), cfg)
+                                    jax.random.PRNGKey(0), _j(cfg))
     calls = fused_train.fused_train_grads.launches
     state, aux = step.train_step(state, step.Batch(*map(torch.from_numpy, (o, d, gold))),
                                  None, cfg)
@@ -138,7 +145,7 @@ def test_lr_decay_schedule_matches_optax():
 
 def test_batch_from_idx_matches_jax():
     cfg = _cfg(False)
-    jds = jfactory.make_dataset(cfg)
+    jds = jfactory.make_dataset(_j(cfg))
     ds = make_dataset(cfg)
     idx = np.random.default_rng(3).integers(0, ds.num_views * 64, size=50)
     want = jds.batch_from_idx(jnp.asarray(idx, jnp.int32))
@@ -179,12 +186,13 @@ def test_cli_train_then_eval(tmp_path, capsys):
     common = ["--dataset", "sphere", "--width", "8", "--height", "8", "--num_samples", "8",
               "--save_dir", str(tmp_path / "ckpt")]
     assert cli.main(["train", *common, "--num_rays", "32", "--num_iter", "3",
-                     "--eval_steps", "2", "--log_dir", str(tmp_path / "logs")]) == 0
+                     "--eval_steps", "2", "--log_dir", str(tmp_path / "logs"),
+                     "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "iter=2, eval psnr=" in out and "done at step 3" in out
     assert ckpt.latest_checkpoint(str(tmp_path / "ckpt")).endswith("-3.pt")
     assert len(os.listdir(tmp_path / "logs")) == 1  # the run dir with its config.json
-    assert cli.main(["eval", *common, "--max_views", "1"]) == 0
+    assert cli.main(["eval", *common, "--max_views", "1", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert re.search(r"view   0: psnr \d+\.\d\d", out)
     assert "mean psnr over 1 test views" in out
@@ -197,24 +205,24 @@ def _resolve(mod, argv):
 
 
 def test_presets_resolve_like_the_jax_cli():
-    full = _resolve(cli, ["train", "--preset", "full"])
-    flag = bench.flagship_config()
-    for get in (lambda c: c.use_whole_ray_train, lambda c: c.use_fused_kernel,
-                lambda c: c.train.precision, lambda c: c.train.num_rays,
-                lambda c: c.render.num_samples, lambda c: c.render.num_fine_samples,
-                lambda c: c.model, lambda c: c.camera):
+    full = _resolve(cli, ["train", "--preset", "full"]).to_dict()
+    flag = bench.flagship_config().to_dict()
+    for get in (lambda c: c["use_whole_ray_train"], lambda c: c["use_fused_kernel"],
+                lambda c: c["train"]["precision"], lambda c: c["train"]["num_rays"],
+                lambda c: c["render"]["num_samples"], lambda c: c["render"]["num_fine_samples"],
+                lambda c: c["model"], lambda c: c["camera"]):
         assert get(full) == get(flag)
     for argv in (["train"], ["train", "--preset", "tiny", "--num_samples", "32"],
                  ["train", "--preset", "full", "--use_whole_ray_train", "false"]):
-        mine, jaxs = _resolve(cli, argv), _resolve(jcli, argv)
-        assert mine.use_whole_ray_train == jaxs.use_whole_ray_train
-        assert mine.camera == jaxs.camera and mine.render == jaxs.render
-        assert mine.train.num_rays == jaxs.train.num_rays
+        mine, jaxs = _resolve(cli, argv).to_dict(), _resolve(jcli, argv).to_dict()
+        assert mine["use_whole_ray_train"] == jaxs["use_whole_ray_train"]
+        assert mine["camera"] == jaxs["camera"] and mine["render"] == jaxs["render"]
+        assert mine["train"]["num_rays"] == jaxs["train"]["num_rays"]
     assert _resolve(cli, ["train"]).use_whole_ray_train is False
 
 
 @pytest.mark.parametrize("argv,slice_no", [
-    (["train", "--preset", "mipnerf"], 3),
+    (["train", "--multiscale_levels", "2"], 3),
     (["train", "--ema_decay", "0.9"], 7),
     (["eval", "--scales", "1,2"], 3),
 ])
