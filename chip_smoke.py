@@ -30,26 +30,41 @@ Phases, each fatal (any failure exits non-zero):
      K2, through autograd and through the plain version, K2a and K2b
      alone, and a profile of the K2 step.
   9. the hierarchical branches of both kernels at the flagship width, vs
-     their plain versions (K2 also vs the float64 witness): IPE (relu and
-     softplus, jittered intervals, the camera's cone radius) and rays
-     longer than one tile (S = 192, the hierarchical union pass, and 193);
-     K2 bit-identical across launches at S = 192.
+     their plain versions (K2 also vs the float64 witness) on the 4,103
+     rays of phase 3: IPE (relu and softplus, jittered intervals, the
+     camera's cone radius) and rays longer than one tile (S = 192, the
+     hierarchical union pass, and 193); K2 bit-identical across launches
+     at S = 192.
  10. the hierarchical path through the CLI, per preset (hierarchical:
      two fields, 64 + 128 union; mipnerf: IPE, one field, 64 + 128
      standalone): `train` for 51 steps at full width (exactly 2 K2
      launches per step, K1 for the eval), `render --view 0` at 800x800
      and `eval --max_views 2` on the checkpoint (2 K1 launches per chunk);
-     then a 64x64 learning drive per preset above its bar at iteration
-     300 (PRESET_PSNR).
+     then a 64x64 learning drive per preset and seed: the mean over
+     LEARN_SEEDS of `cli eval`'s mean PSNR over LEARN_VIEWS views at
+     iteration 301 must pass PRESET_PSNR.
  11. times: each preset's step through K2 and through autograd, its
      800x800 frame through K1 (checked against the plain version on a
      chunk of it), a profile of the hierarchical K2 step; the new
-     branches' kernel calls against their plain versions and bounds.
+     branches' kernel calls at the presets' shapes (a whole K1 chunk,
+     K2's 4096-ray calls), each held to its plain version and timed
+     against it, a PyTorch library path and the bound.
 Every kernel launch counter is set to 0 just before the path it counts
 and read just after. The line before the last is one JSON object
 describing the kernels (with each one's bound and a PyTorch library
 call's time at the flagship shape); the last is {"ok": true, "device":
 {...}}.
+
+    python3 chip_smoke.py --time-step ROOT
+
+times the flagship path of the checkout at ROOT instead (the train step
+through K2, autograd and the plain version, one K2 call and one K1
+chunk), with the helpers above. To compare two commits, unpack the other
+into a git-ignored directory (`git archive`) and run both in one call on
+one card, in turns:
+
+    for r in _scratch/parent . . _scratch/parent; do
+        python3 chip_smoke.py --time-step $r; done
 """
 
 from __future__ import annotations
@@ -89,17 +104,31 @@ AUTOGRAD_TOL = {"rgb": 2e-2, "loss": 2e-3, "grads": 4e-2}
 FINE_TOL = {"mean": 1e-4, "max": 5e-2}
 VERIFY_PSNR = 20.0  # eval PSNR the 64x64 learning check must pass at iteration 300
 # The presets' 64x64 learning drives (--num_samples 32 --num_fine_samples
-# 64, 1024 rays, lr 1e-3, 301 steps): eval PSNR at iteration 300 must pass
-# min(20 dB, the JAX package's own drive with the same flags on the CPU,
-# kernels off, less 1 dB). The JAX drives read 14.24 (hierarchical) and
-# 23.49 dB (mipnerf) at 300; PERF.md has the command and the whole curves.
-PRESET_PSNR = {"hierarchical": 13.24, "mipnerf": 20.0}
+# 64, 1024 rays, lr 1e-3, 301 steps), one per seed: the mean over seeds of
+# `cli eval`'s mean PSNR over the first LEARN_VIEWS views must pass
+# min(20 dB, the JAX package's own drives with the same flags and seeds on
+# the CPU, kernels off, less 1 dB). Those read 16.77 (hierarchical) and
+# 23.21 dB (mipnerf); PERF.md has the commands and each seed's reading.
+LEARN_SEEDS = (0, 1, 2)
+LEARN_VIEWS = 4
+PRESET_PSNR = {"hierarchical": 15.77, "mipnerf": 20.0}
 PRESETS = ("hierarchical", "mipnerf")
 PRESET_STEPS = 51
-N_RAYS = 4103  # ragged: not a multiple of the kernel's 2-ray tile
-BRANCH_RAYS = 1031  # rays of the IPE and long-ray checks (ragged)
+# ragged (not a multiple of the kernel's 2-ray tile), and more than the
+# 4096 rays of a train step, so the branch checks cover its K2b splits
+N_RAYS = 4103
 FRAME = 800
+CHUNK = 262144  # rays per K1 call of the flagship render path
 PLAIN_CHUNK = 32768  # rays per call of the plain version (device memory)
+# (kernel, case, ipe, rays, samples) of the new branches' calls on the
+# presets' main paths: a K1 chunk of the mipnerf fine pass and of the
+# hierarchical union pass; K2 per train step (the flagship's PE call too)
+BRANCH_SHAPES = (("K1", "IPE, S=128", True, 131072, 128),
+                 ("K1", "S=192", False, 65536, 192),
+                 ("K2", "S=64", False, 4096, 64),
+                 ("K2", "IPE, S=64", True, 4096, 64),
+                 ("K2", "IPE, S=128", True, 4096, 128),
+                 ("K2", "S=192", False, 4096, 192))
 KERNELS = ("fused_ray", "fused_train")  # csrc/{name}.cu
 # the card's published dense bf16 rate and memory rate (H100 SXM, 700 W)
 PEAK_FLOPS = 989e12
@@ -187,6 +216,52 @@ def leaf_err(got, want) -> float:
     return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-12)
 
 
+def hold(label: str, errs: dict, tol: dict) -> None:
+    """Print ``label``'s largest differences; fail past any bar."""
+    print(f"{label} max |diff|: "
+          + ", ".join(f"{k} {v:.3g} (tol {tol[k]:g})" for k, v in errs.items()))
+    bad = [k for k, v in errs.items() if not v <= tol[k]]
+    if bad:
+        fail(f"{label} disagree on {bad}")
+
+
+def k1_errs(label: str, got, want) -> dict:
+    """K1's largest absolute difference per output (TOL's keys); fails on
+    a wrong shape or a non-finite kernel value."""
+    import torch
+
+    errs = {}
+    for key, a, b in zip(TOL, got, want):
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            fail(f"{label}: {key} has shape {tuple(a.shape)} or non-finite values")
+        errs[key] = float((a - b).abs().max())
+    return errs
+
+
+def k2_outs(tg) -> tuple:
+    return (tg.diag, tg.weights, *tg.dw, *tg.db)
+
+
+def k2_errs(label: str, got, want) -> dict:
+    """K2 against a plain version (f32, or the float64 witness) at
+    KERNEL_TOL's keys; fails on a non-finite kernel output."""
+    import torch
+
+    if not all(bool(torch.isfinite(t).all()) for t in k2_outs(got)):
+        fail(f"{label}: non-finite outputs")
+    return {
+        "diag": float((got.diag[:, :5].double() - want.diag[:, :5]).abs().max()),
+        "weights": float((got.weights.double() - want.weights).abs().max()),
+        "grads": max(leaf_err(a.double(), b) for a, b in zip(got.dw + got.db,
+                                                              want.dw + want.db)),
+    }
+
+
+def k2_abs(got, want) -> float:
+    """The largest absolute difference over all of K2's outputs."""
+    return max(float((a - b).abs().max()) for a, b in zip(k2_outs(got), k2_outs(want)))
+
+
 def check_train_kernel(model, mcfg, rays, ts, gold, far) -> float:
     """K2 against its plain version, the float64 witness and autograd of
     the eager path, at the flagship width; two launches bit-identical.
@@ -214,23 +289,11 @@ def check_train_kernel(model, mcfg, rays, ts, gold, far) -> float:
         torch.cuda.synchronize()
         want = fused_train_grads_reference(*args, white_bg=white)
         witness = fused_train_grads_reference(*args, white_bg=white, dtype=torch.float64)
-        outs = (got.diag, got.weights, *got.dw, *got.db)
-        if not all(bool(torch.isfinite(t).all()) for t in outs):
-            fail(f"K2 [{case}]: non-finite outputs")
-        max_err = max(max_err, *(float((g - w).abs().max()) for g, w in zip(
-            outs, (want.diag, want.weights, *want.dw, *want.db))))
+        max_err = max(max_err, k2_abs(got, want))
         for name, a, b in (("K2 vs plain", got, want), ("K2 vs f64 witness", got, witness),
                            ("plain vs f64 witness", want, witness)):
-            errs = {
-                "diag": float((a.diag[:, :5].double() - b.diag[:, :5]).abs().max()),
-                "weights": float((a.weights.double() - b.weights).abs().max()),
-                "grads": max(leaf_err(g.double(), w) for g, w in zip(a.dw + a.db, b.dw + b.db)),
-            }
-            print(f"{name} [{case}] max |diff|: "
-                  + ", ".join(f"{k} {v:.3g} (tol {KERNEL_TOL[k]:g})" for k, v in errs.items()))
-            bad = [k for k, v in errs.items() if not v <= KERNEL_TOL[k]]
-            if bad:
-                fail(f"{name} [{case}] disagree on {bad}")
+            label = f"{name} [{case}]"
+            hold(label, k2_errs(label, a, b), KERNEL_TOL)
 
         model.zero_grad(set_to_none=True)
         sigma, rgb = apply_nerf(model, sampling.points_from_ts(o, d, ts), vd[:, None, :],
@@ -239,21 +302,15 @@ def check_train_kernel(model, mcfg, rays, ts, gold, far) -> float:
         loss = render_ops.mse(out.rgb, gold)
         loss.backward()
         params = dict(model.named_parameters())
-        errs = {
+        hold(f"K2 vs autograd [{case}]", {
             "rgb": float((got.diag[:, :3] - out.rgb.detach()).abs().max()),
             "loss": abs(float(got.diag[:, 4].mean()) - float(loss.detach())),
             "grads": max(leaf_err(g, params[k].grad)
                          for k, g in unpack_grads(got, model, cfg).items()),
-        }
-        print(f"K2 vs autograd [{case}] max |diff|: "
-              + ", ".join(f"{k} {v:.3g} (tol {AUTOGRAD_TOL[k]:g})" for k, v in errs.items()))
-        bad = [k for k, v in errs.items() if not v <= AUTOGRAD_TOL[k]]
-        if bad:
-            fail(f"K2 [{case}] disagrees with autograd on {bad}")
+        }, AUTOGRAD_TOL)
     model.zero_grad(set_to_none=True)
     again = fused_train_grads(*args, white_bg=white)
-    if not all(torch.equal(a, b) for a, b in zip(outs, (again.diag, again.weights,
-                                                        *again.dw, *again.db))):
+    if not all(torch.equal(a, b) for a, b in zip(k2_outs(got), k2_outs(again))):
         fail("two K2 launches on the same inputs gave different bits")
     print("K2: two launches on the same inputs give bit-identical outputs")
     return max_err
@@ -438,30 +495,36 @@ def time_training(card: str) -> dict:
     return {"k2_ms": k2_ms, "plain_ms": plain_ms}
 
 
-def branch_inputs(cam, dev):
-    """Jittered inputs of the branch checks on BRANCH_RAYS camera rays:
-    (name, ipe, S, ts or interval midpoints, deltas, radii) for IPE at the
-    mipnerf passes' 64 and 128 intervals, and rays of 192 and 193
-    samples (the hierarchical union pass; the record preset's)."""
+def sample_inputs(n, s, ipe, cam, gen):
+    """Jittered samples of ``n`` rays: (ts, deltas, edges, radii). With
+    ``ipe``, ts are the midpoints of s intervals between s + 1 edges,
+    deltas their exact lengths, radii the camera's cone radius per ray;
+    else ts are s stratified samples and edges and radii are None."""
     import torch
 
     from nerf_rs_tpu_torch.ops import sampling
 
-    n = BRANCH_RAYS
+    dev = gen.device
+    if not ipe:
+        ts = sampling.stratified_ts(n, s, cam.near, cam.far, True, generator=gen, device=dev)
+        return ts, sampling.deltas_from_ts(ts, cam.far), None, None
+    edges = sampling.stratified_ts(n, s + 1, cam.near, cam.far, True, generator=gen, device=dev)
+    return ((0.5 * (edges[:, 1:] + edges[:, :-1])).contiguous(),
+            (edges[:, 1:] - edges[:, :-1]).contiguous(), edges,
+            torch.full((n,), sampling.pixel_radius(cam), device=dev))
+
+
+def branch_inputs(cam, dev):
+    """Inputs of the branch checks on the N_RAYS rays: (name, ipe, S, ts
+    or interval midpoints, deltas, radii) for IPE at the mipnerf passes'
+    64 and 128 intervals, and rays of 192 and 193 samples (the
+    hierarchical union pass; the record preset's)."""
     gen = torch_generator(dev, 5)
-    radii = torch.full((n,), sampling.pixel_radius(cam), device=dev)
     out = []
     for name, ipe, s in (("IPE relu, S=64", True, 64), ("IPE softplus, S=128", True, 128),
                          ("S=192 relu", False, 192), ("S=193 softplus", False, 193)):
-        if ipe:
-            edges = sampling.stratified_ts(n, s + 1, cam.near, cam.far, True, generator=gen,
-                                           device=dev)
-            ts = (0.5 * (edges[:, 1:] + edges[:, :-1])).contiguous()
-            dl = (edges[:, 1:] - edges[:, :-1]).contiguous()
-        else:
-            ts = sampling.stratified_ts(n, s, cam.near, cam.far, True, generator=gen, device=dev)
-            dl = sampling.deltas_from_ts(ts, cam.far)
-        out.append((name, ipe, s, ts, dl, radii if ipe else None))
+        ts, dl, _, radii = sample_inputs(N_RAYS, s, ipe, cam, gen)
+        out.append((name, ipe, s, ts, dl, radii))
     return out
 
 
@@ -478,7 +541,7 @@ def branch_cfg(mcfg, name, ipe):
                                sigma_activation="softplus" if "softplus" in name else "relu")
 
 
-def check_render_branches(model, mcfg, o, d, vd, cam) -> float:
+def check_render_branches(model, mcfg, rays, cam) -> float:
     """K1's IPE and long-ray branches against the plain version at the
     flagship width; returns the largest difference."""
     import torch
@@ -486,30 +549,20 @@ def check_render_branches(model, mcfg, o, d, vd, cam) -> float:
     from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render, fused_ray_render_reference
     from nerf_rs_tpu_torch.kernels.fused_render import pack_weights
 
-    n = BRANCH_RAYS
-    rays = (o[:n].contiguous(), d[:n].contiguous(), vd[:n].contiguous())
     max_err = 0.0
-    for name, ipe, s, ts, dl, radii in branch_inputs(cam, o.device):
+    for name, ipe, s, ts, dl, radii in branch_inputs(cam, rays[0].device):
         cfg = branch_cfg(mcfg, name, ipe)
         args = (pack_weights(model, cfg), *rays, ts, dl, cfg, s)
         got = fused_ray_render(*args, radii=radii)
         torch.cuda.synchronize()
         want = fused_ray_render_reference(*args, radii=radii)
-        errs = {}
-        for key, a, b in zip(TOL, got, want):
-            if a.shape != b.shape or not torch.isfinite(a).all():
-                fail(f"K1 [{name}]: {key} has shape {tuple(a.shape)} or non-finite values")
-            errs[key] = float((a - b).abs().max())
-        print(f"K1 vs plain [{name}] max |diff|: "
-              + ", ".join(f"{k} {v:.3g} (tol {TOL[k]:g})" for k, v in errs.items()))
-        bad = [k for k, v in errs.items() if not v <= TOL[k]]
-        if bad:
-            fail(f"K1 [{name}] disagrees with its plain version on {bad}")
+        errs = k1_errs(f"K1 [{name}]", got, want)
+        hold(f"K1 vs plain [{name}]", errs, TOL)
         max_err = max(max_err, *errs.values())
     return max_err
 
 
-def check_train_branches(model, mcfg, o, d, vd, gold, cam) -> float:
+def check_train_branches(model, mcfg, rays, gold, cam) -> float:
     """K2's IPE and long-ray branches against the plain version and its
     float64 witness at the flagship width (white background); two
     launches at S = 192 bit-identical. Returns the largest difference
@@ -520,39 +573,25 @@ def check_train_branches(model, mcfg, o, d, vd, gold, cam) -> float:
     from nerf_rs_tpu_torch.kernels.fused_train import (
         KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
 
-    n = BRANCH_RAYS
-    rays = (o[:n].contiguous(), d[:n].contiguous(), vd[:n].contiguous())
-    g = gold[:n].contiguous()
     max_err = 0.0
-    for name, ipe, s, ts, dl, radii in branch_inputs(cam, o.device):
+    for name, ipe, s, ts, dl, radii in branch_inputs(cam, rays[0].device):
         cfg = branch_cfg(mcfg, name, ipe)
         pk = pack_weights(model, cfg)
-        args = (pk, pack_weights_t(pk), *rays, ts, dl, g, cfg, s)
+        args = (pk, pack_weights_t(pk), *rays, ts, dl, gold, cfg, s)
         got = fused_train_grads(*args, white_bg=True, radii=radii)
         torch.cuda.synchronize()
-        outs = (got.diag, got.weights, *got.dw, *got.db)
-        if not all(bool(torch.isfinite(t).all()) for t in outs) or got.weights.shape != (n, s):
-            fail(f"K2 [{name}]: non-finite outputs or weights of shape {tuple(got.weights.shape)}")
+        if got.weights.shape != (N_RAYS, s):
+            fail(f"K2 [{name}]: weights of shape {tuple(got.weights.shape)}")
         for ref, dtype in (("plain", torch.float32), ("f64 witness", torch.float64)):
             want = fused_train_grads_reference(*args, white_bg=True, radii=radii, dtype=dtype)
-            errs = {
-                "diag": float((got.diag[:, :5].double() - want.diag[:, :5]).abs().max()),
-                "weights": float((got.weights.double() - want.weights).abs().max()),
-                "grads": max(leaf_err(a.double(), b)
-                             for a, b in zip(got.dw + got.db, want.dw + want.db)),
-            }
             if dtype == torch.float32:
-                max_err = max(max_err, *(float((a - b).abs().max()) for a, b in zip(
-                    outs, (want.diag, want.weights, *want.dw, *want.db))))
-            print(f"K2 vs {ref} [{name}] max |diff|: "
-                  + ", ".join(f"{k} {v:.3g} (tol {KERNEL_TOL[k]:g})" for k, v in errs.items()))
-            bad = [k for k, v in errs.items() if not v <= KERNEL_TOL[k]]
-            if bad:
-                fail(f"K2 vs {ref} [{name}] disagree on {bad}")
+                max_err = max(max_err, k2_abs(got, want))
+            label = f"K2 vs {ref} [{name}]"
+            hold(label, k2_errs(label, got, want), KERNEL_TOL)
+            del want
         if s == 192:
             again = fused_train_grads(*args, white_bg=True, radii=radii)
-            if not all(torch.equal(a, b) for a, b in zip(
-                    outs, (again.diag, again.weights, *again.dw, *again.db))):
+            if not all(torch.equal(a, b) for a, b in zip(k2_outs(got), k2_outs(again))):
                 fail("two K2 launches at S=192 gave different bits")
             print("K2 at S=192: two launches on the same inputs give bit-identical outputs")
     return max_err
@@ -619,25 +658,39 @@ def drive_preset(tmp: str, preset: str) -> dict:
 
 
 def learning_drive(tmp: str, preset: str) -> dict:
-    """The preset's 64x64 learning drive through K2; eval PSNR at
-    iteration 300 must pass PRESET_PSNR[preset]."""
+    """The preset's 64x64 learning drive through K2, once per seed in
+    LEARN_SEEDS, then `cli eval` on each checkpoint: the mean over seeds
+    of the mean PSNR over the first LEARN_VIEWS views must pass
+    PRESET_PSNR[preset]. Returns each seed's readings and the mean."""
     from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
 
-    vdir = os.path.join(tmp, f"learn-{preset}")
-    fused_train_grads.launches = 0
-    rc, out = run_cli(["train", "--preset", preset, "--dataset", "sphere", "--width", "64",
-                       "--height", "64", "--num_samples", "32", "--num_fine_samples", "64",
-                       "--num_rays", "1024", "--num_iter", "301", "--eval_steps", "100",
-                       "--learning_rate", "1e-3", "--save_dir", vdir, "--log_dir", vdir])
-    psnr = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", out))
+    common = ["--preset", preset, "--dataset", "sphere", "--width", "64", "--height", "64",
+              "--num_samples", "32", "--num_fine_samples", "64"]
+    per_seed = {}
+    for seed in LEARN_SEEDS:
+        vdir = os.path.join(tmp, f"learn-{preset}-{seed}")
+        fused_train_grads.launches = 0
+        rc, out = run_cli(["train", *common, "--seed", str(seed), "--num_rays", "1024",
+                           "--num_iter", "301", "--eval_steps", "100", "--learning_rate", "1e-3",
+                           "--save_dir", vdir, "--log_dir", vdir])
+        curve = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", out))
+        if rc != 0 or fused_train_grads.launches != 2 * 301:
+            fail(f"{preset} learning drive, seed {seed}: rc {rc}, K2 launches "
+                 f"{fused_train_grads.launches} (want 602)")
+        rc, out = run_cli(["eval", *common, "--save_dir", vdir, "--max_views", str(LEARN_VIEWS)])
+        m = re.search(r"mean psnr over \d+ \S+ views: (\S+)", out)
+        if rc != 0 or m is None or not math.isfinite(float(m.group(1))):
+            fail(f"{preset} learning drive, seed {seed}: eval rc {rc}, no finite mean psnr")
+        per_seed[seed] = {"view0_curve": curve, "mean_psnr": float(m.group(1))}
+    mean = sum(r["mean_psnr"] for r in per_seed.values()) / len(per_seed)
     bar = PRESET_PSNR[preset]
-    if rc != 0 or "300" not in psnr or not float(psnr["300"]) > bar:
-        fail(f"{preset} learning drive: rc {rc}, eval psnr {psnr} (need > {bar} at 300)")
-    if fused_train_grads.launches != 2 * 301:
-        fail(f"{preset} learning drive: K2 launches {fused_train_grads.launches} (want 602)")
-    print(f"{preset} learning drive (64x64, 32 + 64 samples): eval psnr at 100/200/300 = "
-          f"{psnr} (bar {bar})")
-    return psnr
+    print(f"{preset} learning drives (64x64, 32 + 64 samples): mean psnr over {LEARN_VIEWS} "
+          f"views at 301 per seed {[r['mean_psnr'] for r in per_seed.values()]}, mean {mean:.3f} "
+          f"(bar {bar})")
+    if not mean > bar:
+        fail(f"{preset} learning drives: mean psnr {mean:.3f} over seeds {LEARN_SEEDS} "
+             f"(need > {bar})")
+    return {"seeds": per_seed, "mean_psnr": mean}
 
 
 @contextlib.contextmanager
@@ -673,9 +726,30 @@ def bound_ms(flops: float, nbytes: float) -> tuple:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def eager_field(model, cfg, o, d, vd, ts, edges=None, radius=None):
+    """The eager field at bf16 (cuBLAS products) on every sample of the
+    rays: at the points ts, or (IPE) on the conical Gaussians of the
+    intervals between ``edges``. (sigma, rgb), as apply_nerf gives them."""
+    import torch
+
+    from nerf_rs_tpu_torch.models.mlp import apply_nerf
+    from nerf_rs_tpu_torch.ops import sampling
+
+    if edges is None:
+        return apply_nerf(model, sampling.points_from_ts(o, d, ts), vd[:, None, :], cfg,
+                          torch.bfloat16)
+    mean, var, _, _ = sampling.conical_gaussians(o, d, edges, radius)
+    return apply_nerf(model, mean, vd[:, None, :], cfg, torch.bfloat16, pos_var=var)
+
+
 def time_branches(card: str, model, mcfg, cam, flat_o, flat_d) -> list:
-    """Times of the new branches' kernel calls at the presets' shapes
-    against their plain versions and bounds; returns one row each."""
+    """The new branches' kernel calls at the presets' shapes: a whole K1
+    chunk (the mipnerf fine pass's 131,072 rays x 128 IPE intervals, the
+    hierarchical union pass's 65,536 x 192) and K2's 4096-ray calls. Each
+    is held to its plain version (TOL, KERNEL_TOL) and timed against it,
+    against a PyTorch library path computing the same function (K1: the
+    eager bf16 field + composite; K2: autograd of the eager loss) and
+    against its bound. Returns one row each."""
     import dataclasses
 
     import torch
@@ -685,41 +759,42 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d) -> list:
         fused_ray_render, fused_ray_render_reference, padded_samples)
     from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
     from nerf_rs_tpu_torch.kernels.fused_train import (
-        fused_train_grads, fused_train_grads_reference)
-    from nerf_rs_tpu_torch.ops import sampling
+        KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
+    from nerf_rs_tpu_torch.ops import render as render_ops, sampling
 
     dev = flat_o.device
     rows = []
     gold = torch.rand(4096, 3, generator=torch_generator(dev, 9), device=dev)
-    for kernel, name, ipe, n, s in (("K1", "IPE, S=128", True, 131072, 128),
-                                    ("K1", "S=192", False, 65536, 192),
-                                    ("K2", "S=64", False, 4096, 64),
-                                    ("K2", "IPE, S=64", True, 4096, 64),
-                                    ("K2", "IPE, S=128", True, 4096, 128),
-                                    ("K2", "S=192", False, 4096, 192)):
+    for kernel, name, ipe, n, s in BRANCH_SHAPES:
         cfg = dataclasses.replace(mcfg, ipe=ipe, sigma_activation="softplus" if ipe else "relu")
         o, d = flat_o[:n].contiguous(), flat_d[:n].contiguous()
         vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
-        gen = torch_generator(dev, 3)
-        if ipe:
-            edges = sampling.stratified_ts(n, s + 1, cam.near, cam.far, True, generator=gen,
-                                           device=dev)
-            ts = (0.5 * (edges[:, 1:] + edges[:, :-1])).contiguous()
-            dl = (edges[:, 1:] - edges[:, :-1]).contiguous()
-            radii = torch.full((n,), sampling.pixel_radius(cam), device=dev)
-        else:
-            ts = sampling.stratified_ts(n, s, cam.near, cam.far, True, generator=gen, device=dev)
-            dl, radii = sampling.deltas_from_ts(ts, cam.far), None
+        ts, dl, edges, radii = sample_inputs(n, s, ipe, cam, torch_generator(dev, 3))
+        radius = sampling.pixel_radius(cam) if ipe else None
         pk = pack_weights(model, cfg)
         io = n * (36 + 8 * s + (4 if ipe else 0))  # rays, samples and radii in
+        label = f"{kernel} vs plain [{name}, {n} rays]"
         if kernel == "K1":
             args = (pk, o, d, vd, ts, dl, cfg, s)
+            chunks = [slice(i, i + PLAIN_CHUNK) for i in range(0, n, PLAIN_CHUNK)]
             fn = lambda: fused_ray_render(*args, radii=radii)  # noqa: E731
             plain = lambda: [fused_ray_render_reference(  # noqa: E731
-                pk, o[i:i + PLAIN_CHUNK], d[i:i + PLAIN_CHUNK], vd[i:i + PLAIN_CHUNK],
-                ts[i:i + PLAIN_CHUNK], dl[i:i + PLAIN_CHUNK], cfg, s,
-                radii=None if radii is None else radii[i:i + PLAIN_CHUNK])
-                for i in range(0, n, PLAIN_CHUNK)]
+                pk, o[j], d[j], vd[j], ts[j], dl[j], cfg, s,
+                radii=None if radii is None else radii[j]) for j in chunks]
+            got = fn()
+            torch.cuda.synchronize()
+            errs = k1_errs(label, got, [torch.cat(parts) for parts in zip(*plain())])
+            hold(label, errs, TOL)
+            err = max(errs.values())
+            lib_rays = (1 << 22) // s  # the eager activations of 4M rows at a time
+
+            @torch.no_grad()
+            def library():
+                for i in range(0, n, lib_rays):
+                    j = slice(i, i + lib_rays)
+                    sigma, rgb = eager_field(model, cfg, o[j], d[j], vd[j], ts[j],
+                                             None if edges is None else edges[j], radius)
+                    render_ops.composite(sigma, rgb, dl[j], ts=ts[j])
             flops = flops_per_row(cfg, False) * n * s
             nbytes = io + n * (20 + 8 * s) + 2 * pk.w.numel() + 4 * pk.b.numel()
         else:
@@ -727,21 +802,37 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d) -> list:
             fn = lambda: fused_train_grads(*args, white_bg=True, radii=radii)  # noqa: E731
             plain = lambda: fused_train_grads_reference(  # noqa: E731
                 *args, white_bg=True, radii=radii)
+            got = fn()
+            torch.cuda.synchronize()
+            want = plain()
+            hold(label, k2_errs(label, got, want), KERNEL_TOL)
+            err = k2_abs(got, want)
+
+            def library():
+                model.zero_grad(set_to_none=True)
+                sigma, rgb = eager_field(model, cfg, o, d, vd, ts, edges, radius)
+                out = render_ops.composite(sigma, rgb, dl, white_background=True)
+                render_ops.mse(out.rgb, gold[:n]).backward()
             flops = flops_per_row(cfg, True) * n * s
             nbytes = io + n * (12 + 32 + 4 * s) + 2 * pk.w.numel() + 4 * (pk.w.numel()
                                                                          + pk.b.numel())
-        fn()
+        got = want = None
         ms = event_ms(fn)
         plain_ms = event_ms(plain, reps=1)
+        library()
+        library_ms = event_ms(library)
+        model.zero_grad(set_to_none=True)
         b, by = bound_ms(flops, nbytes)
-        row = {"kernel": kernel, "case": name, "rays": n, "samples": s, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": b, "bound_by": by}
+        row = {"kernel": kernel, "case": name, "rays": n, "samples": s, "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b,
+               "bound_by": by}
         if kernel == "K2":  # the stashes and dW partials of one call
             row["scratch_bytes"] = fused_train._library().nerf_fused_train_scratch_bytes(
                 n, padded_samples(s), pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D,
                 pk.w.numel() + pk.b.numel())
         print(f"{kernel} {name}, {n} rays [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-              f"bound {b:.3f} ms ({by}), {flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s"
+              f"library {library_ms:.3f} ms, bound {b:.3f} ms ({by}), "
+              f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s"
               + (f", scratch {row['scratch_bytes'] / 1e9:.3f} GB" if kernel == "K2" else ""))
         rows.append(row)
     return rows
@@ -834,7 +925,53 @@ def time_presets(card: str) -> dict:
     return out
 
 
-def library_times(card: str, model, mcfg, co, cd, ts, dl) -> dict:
+def frame_rays(dev):
+    """The render config of an 800x800 sphere view and its rays, (cfg,
+    origins, dirs), each (H, W, 3)."""
+    from nerf_rs_tpu_torch import cli
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+
+    cfg = cli.config_from_args(cli.build_parser().parse_args(
+        ["render", "--dataset", "sphere", "--width", str(FRAME), "--height", str(FRAME)]))
+    return (cfg, *make_dataset(cfg, dev).view_rays(0))
+
+
+def time_chunk(card: str, packed, mcfg, cam, flat_o, flat_d) -> dict:
+    """One flagship render chunk (the first CHUNK rays of a frame, 64
+    midpoint samples) through K1 and through its plain version. Returns
+    both times and the chunk's inputs (origins, dirs, viewdirs, ts,
+    deltas)."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render, fused_ray_render_reference
+    from nerf_rs_tpu_torch.ops import sampling
+
+    n, s, dev = CHUNK, 64, flat_o.device
+    co, cd = flat_o[:n].contiguous(), flat_d[:n].contiguous()
+    cvd = cd / torch.linalg.norm(cd, dim=-1, keepdim=True)
+    ts = sampling.stratified_ts(n, s, cam.near, cam.far, False, device=dev)
+    dl = sampling.deltas_from_ts(ts, cam.far)
+
+    def kernel_chunk():
+        fused_ray_render(packed, co, cd, cvd, ts, dl, mcfg, s)
+
+    def plain_chunk():
+        for i in range(0, n, PLAIN_CHUNK):
+            j = slice(i, i + PLAIN_CHUNK)
+            fused_ray_render_reference(packed, co[j], cd[j], cvd[j], ts[j], dl[j], mcfg, s)
+
+    kernel_chunk()
+    ms = event_ms(kernel_chunk)
+    plain_ms = event_ms(plain_chunk)
+    # every packed matrix multiplies each sample row once
+    flops_row = 2 * sum(k * c for k, c in packed.w_shape)
+    print(f"one {n}-ray chunk [{card}]: kernel {ms:.3f} ms "
+          f"(~{flops_row * n * s / (ms * 1e-3) / 1e12:.1f} TFLOP/s bf16), "
+          f"plain {plain_ms:.3f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "inputs": (co, cd, cvd, ts, dl)}
+
+
+def library_times(card: str, model, mcfg, co, cd, cvd, ts, dl) -> dict:
     """One PyTorch library path computing each kernel's function on its
     flagship inputs, timed and used nowhere in the port: K1, the eager
     field at bf16 (cuBLAS) + composite over the 262,144-ray chunk (in
@@ -842,17 +979,13 @@ def library_times(card: str, model, mcfg, co, cd, ts, dl) -> dict:
     forward + backward of the eager loss at 4096 rays x 64 samples."""
     import torch
 
-    from nerf_rs_tpu_torch.models.mlp import apply_nerf
-    from nerf_rs_tpu_torch.ops import render as render_ops, sampling
-
-    cvd = cd / torch.linalg.norm(cd, dim=-1, keepdim=True)
+    from nerf_rs_tpu_torch.ops import render as render_ops
 
     @torch.no_grad()
     def k1_library():
         for i in range(0, co.shape[0], 65536):
             j = slice(i, i + 65536)
-            pts = sampling.points_from_ts(co[j], cd[j], ts[j])
-            sigma, rgb = apply_nerf(model, pts, cvd[j][:, None, :], mcfg, torch.bfloat16)
+            sigma, rgb = eager_field(model, mcfg, co[j], cd[j], cvd[j], ts[j])
             render_ops.composite(sigma, rgb, dl[j], ts=ts[j])
 
     n = 4096
@@ -860,8 +993,7 @@ def library_times(card: str, model, mcfg, co, cd, ts, dl) -> dict:
 
     def k2_library():
         model.zero_grad(set_to_none=True)
-        pts = sampling.points_from_ts(co[:n], cd[:n], ts[:n])
-        sigma, rgb = apply_nerf(model, pts, cvd[:n][:, None, :], mcfg, torch.bfloat16)
+        sigma, rgb = eager_field(model, mcfg, co[:n], cd[:n], cvd[:n], ts[:n])
         out = render_ops.composite(sigma, rgb, dl[:n])
         render_ops.mse(out.rgb, gold).backward()
 
@@ -873,6 +1005,36 @@ def library_times(card: str, model, mcfg, co, cd, ts, dl) -> dict:
           f"{times['fused_ray_render']:.3f} ms; autograd of the eager loss, 4096 x 64: "
           f"{times['fused_train_grads']:.3f} ms")
     return times
+
+
+def time_step(root: str) -> int:
+    """The flagship path's times for the checkout at ``root``: the train
+    step through K2, autograd and the plain version, one K2 call, and one
+    K1 chunk. Its kernels build into that checkout."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+
+    import nerf_rs_tpu_torch as pkg
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the kernels run on the card only")
+    if not os.path.abspath(pkg.__file__).startswith(root + os.sep):
+        fail(f"imported {pkg.__file__}, not the checkout at {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain version: full f32
+    from nerf_rs_tpu_torch import ModelConfig
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights
+    from nerf_rs_tpu_torch.models.mlp import init_nerf_params
+
+    card = card_line()
+    print(f"{root} [{card}]")
+    dev = torch.device("cuda")
+    time_training(card)
+    mcfg = ModelConfig()
+    cfg, fo, fd = frame_rays(dev)
+    time_chunk(card, pack_weights(init_nerf_params(mcfg, 0, dev), mcfg), mcfg, cfg.camera,
+               fo.reshape(-1, 3), fd.reshape(-1, 3))
+    return 0
 
 
 def main() -> int:
@@ -890,7 +1052,6 @@ def main() -> int:
     from nerf_rs_tpu_torch import CameraConfig, ModelConfig
     from nerf_rs_tpu_torch import cli
     from nerf_rs_tpu_torch.data import synthetic
-    from nerf_rs_tpu_torch.data.factory import make_dataset
     from nerf_rs_tpu_torch.kernels import build
     from nerf_rs_tpu_torch.kernels.fused_ray import (
         fused_ray_render, fused_ray_render_reference)
@@ -936,17 +1097,8 @@ def main() -> int:
         args = (packed, o, d, vd, ts, deltas, cfg_case, S)
         got = fused_ray_render(*args)
         torch.cuda.synchronize()
-        want = fused_ray_render_reference(*args)
-        errs = {}
-        for name, a, b in zip(TOL, got, want):
-            if not torch.isfinite(a).all():
-                fail(f"{case}: kernel {name} has non-finite values")
-            errs[name] = float((a - b).abs().max())
-        print(f"kernel vs plain [{case}] max |diff|: "
-              + ", ".join(f"{k} {v:.3g} (tol {TOL[k]:g})" for k, v in errs.items()))
-        bad = [k for k, v in errs.items() if not v <= TOL[k]]
-        if bad:
-            fail(f"{case}: kernel disagrees with its plain version on {bad}")
+        errs = k1_errs(f"K1 [{case}]", got, fused_ray_render_reference(*args))
+        hold(f"K1 vs plain [{case}]", errs, TOL)
         max_err = max(max_err, *errs.values())
 
     # ---- 4. K2 vs its plain version and vs autograd ----
@@ -955,8 +1107,8 @@ def main() -> int:
     train_err = check_train_kernel(model, mcfg, (o, d, vd), ts_jit, gold, cam.far)
 
     # ---- 9. the hierarchical branches: IPE, rays longer than one tile ----
-    max_err = max(max_err, check_render_branches(model, mcfg, o, d, vd, cam))
-    train_err = max(train_err, check_train_branches(model, mcfg, o, d, vd, gold, cam))
+    max_err = max(max_err, check_render_branches(model, mcfg, (o, d, vd), cam))
+    train_err = max(train_err, check_train_branches(model, mcfg, (o, d, vd), gold, cam))
 
     # ---- 5. the render path through the CLI ----
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -986,11 +1138,7 @@ def main() -> int:
             fail(f"view-0.png has shape {png.shape}")
 
         # the same frame again, outside the counted run, to inspect values
-        cfg = cli.config_from_args(cli.build_parser().parse_args(
-            ["render", "--dataset", "sphere", "--width", str(FRAME),
-             "--height", str(FRAME)]))
-        dataset = make_dataset(cfg, dev)
-        fo, fd = dataset.view_rays(0)
+        cfg, fo, fd = frame_rays(dev)
         rgb, depth, acc = render_frame(cfg, model, fo, fd)
         if not (torch.isfinite(rgb).all() and torch.isfinite(depth).all()):
             fail("800x800 frame has non-finite values")
@@ -1059,43 +1207,24 @@ def main() -> int:
           f"plain {t_plain:.4f} s (best of 3; kernel vs plain rgb {frame_err:.3g})")
 
     # one main-path chunk (262,144 rays) alone: kernel vs plain version
-    n = 262144
-    co, cd = flat_o[:n].contiguous(), flat_d[:n].contiguous()
-    cvd = cd / torch.linalg.norm(cd, dim=-1, keepdim=True)
-    ts = sampling.stratified_ts(n, S, cfg.camera.near, cfg.camera.far, False, device=dev)
-    dl = sampling.deltas_from_ts(ts, cfg.camera.far)
-
-    def kernel_chunk():
-        fused_ray_render(packed, co, cd, cvd, ts, dl, mcfg, S)
-
-    def plain_chunk():
-        for i in range(0, n, PLAIN_CHUNK):
-            j = slice(i, i + PLAIN_CHUNK)
-            fused_ray_render_reference(packed, co[j], cd[j], cvd[j], ts[j], dl[j], mcfg, S)
-
-    kernel_chunk()
-    ms = event_ms(kernel_chunk)
-    plain_ms = event_ms(plain_chunk)
-    # every packed matrix multiplies each sample row once
-    flops_row = 2 * sum(k * c for k, c in packed.w_shape)
-    tflops = flops_row * n * S / (ms * 1e-3) / 1e12
-    print(f"one {n}-ray chunk [{card}]: kernel {ms:.3f} ms "
-          f"(~{tflops:.1f} TFLOP/s bf16), plain {plain_ms:.3f} ms")
+    chunk = time_chunk(card, packed, mcfg, cfg.camera, flat_o, flat_d)
 
     train_times = time_training(card)
 
     # ---- 11. times of the hierarchical path and the new branches ----
     branch_rows = time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d)
+    max_err = max(max_err, *(r["max_abs_err"] for r in branch_rows if r["kernel"] == "K1"))
+    train_err = max(train_err, *(r["max_abs_err"] for r in branch_rows if r["kernel"] == "K2"))
     preset_times = time_presets(card)
-    library = library_times(card, model, mcfg, co, cd, ts, dl)
+    library = library_times(card, model, mcfg, *chunk["inputs"])
 
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "nerf_rs_tpu"))
     if bad:
         fail(f"imported {bad}: the port stands without JAX and the JAX package")
     # the flagship shapes' bounds: a 262,144-ray chunk at S=64 (K1), a
     # 4096 x 64 step's call (K2); every input read once, output written once
-    k1_bound, k1_by = bound_ms(flops_per_row(mcfg, False) * n * S,
-                               n * (36 + 8 * S + 20 + 8 * S) + 2 * packed.w.numel())
+    k1_bound, k1_by = bound_ms(flops_per_row(mcfg, False) * CHUNK * S,
+                               CHUNK * (36 + 8 * S + 20 + 8 * S) + 2 * packed.w.numel())
     k2_bound, k2_by = bound_ms(flops_per_row(mcfg, True) * 4096 * S,
                                4096 * (36 + 8 * S + 12 + 32 + 4 * S)
                                + 4 * (packed.w.numel() + packed.b.numel()))
@@ -1112,8 +1241,8 @@ def main() -> int:
         "launches": sum(k1_paths.values()),
         "launches_by_path": k1_paths,
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
+        "ms": chunk["ms"],
+        "plain_ms": chunk["plain_ms"],
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": library["fused_ray_render"],
@@ -1142,4 +1271,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--time-step"] and len(sys.argv) == 3:
+        sys.exit(time_step(sys.argv[2]))
+    if len(sys.argv) != 1:
+        fail("usage: python3 chip_smoke.py [--time-step ROOT]")
     sys.exit(main())

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -132,7 +132,10 @@ def fused_train_grads(
     lib = _library()
     nbytes = lib.nerf_fused_train_scratch_bytes(n, S, packed.depth, packed.W, packed.F,
                                                 packed.V, packed.P, packed.D, total)
-    scratch = _scratch(dev, nbytes)
+    # the stashes and dW partials; freed on return while the kernels may
+    # still run, which is safe: the caching allocator hands the block out
+    # again only in this stream's order
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     i64 = ctypes.c_longlong
     w_off = (i64 * len(packed.w_off))(*packed.w_off)
     b_off = (i64 * len(packed.b_off))(*packed.b_off)
@@ -156,29 +159,6 @@ def fused_train_grads(
         raise RuntimeError(f"fused_train kernel launch failed: CUDA error {rc} ({msg})")
     fused_train_grads.launches += 1
     return TrainGrads(diag, w[:, :num_samples], *_split(grads, packed))
-
-
-# The kernels' scratch (stashes and dW partials: ~10 KB per sample row,
-# ~10.7 GB for 4096 rays x 256 padded samples), kept per (device, size)
-# so a training run allocates each shape once, not once per step. The
-# two newest sizes are kept (the hierarchical step's coarse and fine
-# passes). A buffer is reused in the order of the stream that last used
-# it: a call on another stream first waits for that stream.
-_SCRATCH: Dict[Tuple[torch.device, int], Tuple[torch.Tensor, torch.cuda.Stream]] = {}
-
-
-def _scratch(dev: torch.device, nbytes: int) -> torch.Tensor:
-    stream = torch.cuda.current_stream(dev)
-    key = (dev, nbytes)
-    hit = _SCRATCH.pop(key, None)
-    if hit is None:
-        while len(_SCRATCH) >= 2:
-            del _SCRATCH[next(iter(_SCRATCH))]
-        hit = (torch.empty(nbytes, dtype=torch.uint8, device=dev), stream)
-    elif hit[1] != stream:
-        stream.wait_stream(hit[1])
-    _SCRATCH[key] = (hit[0], stream)  # newest last
-    return hit[0]
 
 
 # calls that launched the kernels so far in this process; a run reads it
