@@ -49,6 +49,27 @@ Phases, each fatal (any failure exits non-zero):
      branches' kernel calls at the presets' shapes (a whole K1 chunk,
      K2's 4096-ray calls), each held to its plain version and timed
      against it, a PyTorch library path and the bound.
+ 12. K3, the factored-encode kernel (forward and backward), vs its plain
+     versions, bf16 and f32, on the points of sphere rays with 128
+     jittered samples (every 8th pushed out past the AABB, so clipped):
+     4096 rays (524,288 points, a train step's call) and 4,103 rays
+     (ragged); two backward launches bit-identical.
+ 13. the factored path (FACTORED_CONFIG: the bench's factored window,
+     128x128 sphere, 4096 rays x 128 samples, mixed, lr 1e-2, with
+     fac_fused on): train/loop.train for FAC_STEPS steps (exactly one K3
+     forward per step and per eval chunk, one backward per step), an
+     800x800 render_frame (20 chunks, 20 forwards; its first chunk held to
+     the plain route) and an eval of 2 views; `cli train/eval/render
+     --preset factored`, whose route is the dense-hat encode (0 K3
+     launches, as in the JAX CLI); the 64x64 learning drive through K3
+     for LEARN_SEEDS, the mean over seeds of `cli eval`'s mean PSNR over
+     LEARN_VIEWS views above FAC_PSNR.
+ 14. times: the factored step through K3 and through the CLI's route, a
+     profile of the K3 step (device idle), K3's forward and backward at
+     524,288 points and its forward at a 4,194,304-point render chunk,
+     each beside its plain version, a PyTorch library path
+     (F.embedding_bag over the 2L taps per axis, and its autograd) and
+     its bound.
 Every kernel launch counter is set to 0 just before the path it counts
 and read just after. The line before the last is one JSON object
 describing the kernels (with each one's bound and a PyTorch library
@@ -129,10 +150,26 @@ BRANCH_SHAPES = (("K1", "IPE, S=128", True, 131072, 128),
                  ("K2", "IPE, S=64", True, 4096, 64),
                  ("K2", "IPE, S=128", True, 4096, 128),
                  ("K2", "S=192", False, 4096, 192))
-KERNELS = ("fused_ray", "fused_train")  # csrc/{name}.cu
-# the card's published dense bf16 rate and memory rate (H100 SXM, 700 W)
+KERNELS = ("fused_ray", "fused_train", "fused_factored")  # csrc/{name}.cu
+# the card's published dense bf16 rate, f32 rate outside the tensor cores,
+# and memory rate (H100 SXM, 700 W)
 PEAK_FLOPS = 989e12
+PEAK_F32 = 67e12
 PEAK_BYTES = 3.35e12
+# The factored path (phases 12-14). FAC_STEPS train steps with an eval at
+# step 50; the 64x64 learning drive (--preset factored --num_samples 32,
+# 1024 rays, lr 1e-2, 301 steps) through K3 must pass min(20 dB, the JAX
+# package's own drives on the same flags and seeds on the CPU, less 1 dB):
+# those read 19.14 / 19.36 / 19.50 dB, mean 19.33 (PERF.md has the commands).
+FAC_STEPS = 51
+FAC_PSNR = 18.33
+FAC_RAYS = 4096  # rays of a train step: 524,288 points at 128 samples
+FAC_CHUNK = 32768  # rays of a render chunk: 4,194,304 points
+# the frame's first chunk through K3 vs the plain route: both encode in f32
+# to within K3's KERNEL_TOL, and the bf16 heads could then round an
+# activation the other way. Both read 0 on an H100 (the bf16 route's
+# encodings came out bit-equal); the bars leave room for a few such flips.
+FAC_FRAME_TOL = {"mean": 1e-5, "max": 5e-3}
 
 
 def fail(msg: str) -> None:
@@ -720,9 +757,9 @@ def flops_per_row(mcfg, backward: bool) -> float:
     return 2.0 * (2 * fwd + dx)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple:
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> tuple:
     """The least time for the work: (ms, what bounds it)."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -1007,6 +1044,366 @@ def library_times(card: str, model, mcfg, co, cd, cvd, ts, dl) -> dict:
     return times
 
 
+def factored_config(run_dir=None, **train):
+    """FACTORED_CONFIG: the bench's factored window (bench.py:136-145) with
+    the kernel on; with ``run_dir``, the loop's logs and checkpoints go
+    there."""
+    from nerf_rs_tpu_torch import (CameraConfig, Config, DataConfig, ModelConfig, RenderConfig,
+                                   TrainConfig)
+
+    dirs = {} if run_dir is None else {"log_dir": run_dir, "save_dir": run_dir}
+    return Config(camera=CameraConfig(width=128, height=128),
+                  model=ModelConfig(arch="factored", sigma_activation="softplus", fac_fused=True),
+                  render=RenderConfig(num_samples=128, white_background=True),
+                  train=TrainConfig(num_rays=FAC_RAYS, precision="mixed", learning_rate=1e-2,
+                                    **train),
+                  data=DataConfig(dataset="sphere"), **dirs)
+
+
+def factored_points(ds, cam, n_rays: int, seed: int):
+    """(n_rays * 128, 3) points of sphere rays with 128 jittered samples,
+    every 8th pushed out to twice its place (past the AABB: clipped)."""
+    from nerf_rs_tpu_torch.ops import sampling
+
+    dev = ds.images.device
+    gen = torch_generator(dev, seed)
+    batch = ds.sample_batch(gen, n_rays)
+    ts = sampling.stratified_ts(n_rays, 128, cam.near, cam.far, True, generator=gen, device=dev)
+    pts = sampling.points_from_ts(batch.origins, batch.dirs, ts).reshape(-1, 3).clone()
+    pts[::8] *= 2.0
+    return pts.contiguous()
+
+
+def check_factored_kernel(ds, mcfg, cam, lines) -> dict:
+    """K3's forward and backward against their plain versions, bf16 and
+    f32, on a train step's 524,288 points and on 4,103 rays' (ragged);
+    two backward launches bit-identical. Returns the largest absolute
+    differences (enc, d_lines) and the largest d_lines one relative to its
+    axis's largest entry."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+
+    errs = {"enc": 0.0, "d_lines_abs": 0.0, "d_lines": 0.0}
+    for n_rays in (FAC_RAYS, N_RAYS):
+        pts = factored_points(ds, cam, n_rays, 11)
+        clipped = int((pts.abs() > mcfg.fac_aabb).any(-1).sum())
+        g = torch.randn(pts.shape[0], mcfg.fac_comps, generator=torch_generator(pts.device, 12),
+                        device=pts.device)
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+            enc = k3.fused_factored_encode_forward(lines, pts, mcfg, dtype)
+            d = k3.fused_factored_encode_backward(lines, pts, g, mcfg, dtype)
+            again = k3.fused_factored_encode_backward(lines, pts, g, mcfg, dtype)
+            torch.cuda.synchronize()
+            if not (bool(torch.isfinite(enc).all()) and bool(torch.isfinite(d).all())):
+                fail(f"K3 [{name}, {pts.shape[0]} points]: non-finite outputs")
+            if not torch.equal(d, again):
+                fail(f"two K3 backward launches [{name}, {pts.shape[0]} points] gave different bits")
+            want = k3.fused_factored_encode_backward_reference(lines, pts, g, mcfg, dtype)
+            got = {"enc": float((enc - k3.fused_factored_encode_reference(lines, pts, mcfg, dtype))
+                                .abs().max()),
+                   "d_lines": max(leaf_err(d[a], want[a]) for a in range(3))}
+            hold(f"K3 vs plain [{name}, {pts.shape[0]} points, {clipped} clipped]", got,
+                 k3.KERNEL_TOL)
+            errs["enc"] = max(errs["enc"], got["enc"])
+            errs["d_lines"] = max(errs["d_lines"], got["d_lines"])
+            errs["d_lines_abs"] = max(errs["d_lines_abs"], float((d - want).abs().max()))
+    print("K3 backward: two launches on the same inputs give bit-identical d_lines")
+    return errs
+
+
+@contextlib.contextmanager
+def plain_factored_route():
+    """Route K3's forward to its plain version, for the frame check only."""
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+
+    real = k3.fused_factored_encode_forward
+    k3.fused_factored_encode_forward = k3.fused_factored_encode_reference
+    try:
+        yield
+    finally:
+        k3.fused_factored_encode_forward = real
+
+
+def drive_factored(tmp: str, fo, fd, card: str) -> dict:
+    """The factored path through K3: train/loop.train on FACTORED_CONFIG
+    for FAC_STEPS steps (an eval at step 50), an 800x800 render_frame of
+    the rays (fo, fd) and an eval of 2 views, each with its exact K3
+    launch counts; the frame's first chunk held to the plain route. Then
+    (outside the counted runs) the frame's time. Returns the launch counts
+    by path and the frame's seconds."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+    from nerf_rs_tpu_torch.ops import render as render_ops
+    from nerf_rs_tpu_torch.render import default_render_chunk, render_frame
+    from nerf_rs_tpu_torch.train.loop import train
+
+    dev = fo.device
+    fwd, bwd = k3.fused_factored_encode, k3.fused_factored_encode_backward
+    cfg = factored_config(os.path.join(tmp, "factored"), num_iter=FAC_STEPS, eval_steps=50,
+                          save_steps=1000)
+    ds = make_dataset(cfg, dev)
+    chunk = default_render_chunk(cfg.render, model_cfg=cfg.model)
+    eval_chunks = math.ceil(cfg.camera.width * cfg.camera.height / chunk)
+    fwd.launches = bwd.launches = 0
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        state = train(cfg, ds)
+    counts = {"train": fwd.launches, "train_backward": bwd.launches}
+    print(log.getvalue().rstrip())
+    print(f"factored train, {FAC_STEPS} steps through K3: forward launches {fwd.launches}, "
+          f"backward {bwd.launches}, {time.perf_counter() - t0:.1f} s")
+    if (fwd.launches, bwd.launches) != (FAC_STEPS + eval_chunks, FAC_STEPS):
+        fail(f"factored train: K3 launches {fwd.launches} / {bwd.launches} (want "
+             f"{FAC_STEPS + eval_chunks} = steps + eval chunks / {FAC_STEPS})")
+    losses = [float(v) for v in re.findall(r"iter=\d+, loss=(\S+)", log.getvalue())]
+    evals = [float(v) for v in re.findall(r"eval psnr=(\S+)", log.getvalue())]
+    if not losses or len(evals) != 1 or not all(map(math.isfinite, losses + evals)):
+        fail(f"factored train: losses {losses}, eval psnrs {evals}")
+
+    fcfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, width=FRAME,
+                                                               height=FRAME))
+    frame_chunks = math.ceil(FRAME * FRAME / default_render_chunk(fcfg.render,
+                                                                  model_cfg=fcfg.model))
+    fwd.launches = 0
+    rgb, depth, acc = render_frame(fcfg, state.params, fo, fd)
+    torch.cuda.synchronize()
+    counts["frame"] = fwd.launches
+    if fwd.launches != frame_chunks or frame_chunks != 20:
+        fail(f"factored 800x800 frame: K3 launches {fwd.launches} (want {frame_chunks} = 20)")
+    if not (bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(depth).all())):
+        fail("factored 800x800 frame: non-finite values")
+    with plain_factored_route(), torch.no_grad():
+        plain, _ = render_ops.render_rays(
+            state.params, fo.reshape(-1, 3)[:chunk], fd.reshape(-1, 3)[:chunk], fcfg.model,
+            fcfg.render, fcfg.camera, randomized=False, dtype=torch.bfloat16)
+    diff = (rgb.reshape(-1, 3)[:chunk] - plain.rgb).abs()
+    errs = {"mean": float(diff.mean()), "max": float(diff.max())}
+    hold(f"factored frame, K3 vs plain route on its first {chunk} rays", errs, FAC_FRAME_TOL)
+    print(f"factored 800x800 frame: rgb in [{float(rgb.min()):.4f}, {float(rgb.max()):.4f}], "
+          f"mean acc {float(acc.mean()):.4f}")
+
+    fwd.launches = 0
+    psnrs = [float(render_ops.psnr(render_frame(cfg, state.params, *ds.view_rays(v))[0],
+                                   ds.view_gold(v))) for v in range(2)]
+    counts["eval"] = fwd.launches
+    print(f"factored eval of 2 views through K3: psnr {psnrs}, K3 launches {fwd.launches}")
+    if fwd.launches != 2 * eval_chunks or not all(map(math.isfinite, psnrs)):
+        fail(f"factored eval: K3 launches {fwd.launches} (want {2 * eval_chunks}), psnr {psnrs}")
+    counts["frame_s"] = best_of(lambda: render_frame(fcfg, state.params, fo, fd))
+    print(f"factored 800x800 frame [{card}]: {counts['frame_s']:.4f} s through K3 (best of 3)")
+    return counts
+
+
+def drive_factored_cli(tmp: str) -> None:
+    """`cli train/eval/render --preset factored` at full width: the CLI's
+    route is the dense-hat encode, so K3 is launched no time."""
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+
+    ckdir = os.path.join(tmp, "factored-cli")
+    common = ["--preset", "factored", "--dataset", "sphere", "--save_dir", ckdir]
+    k3.fused_factored_encode.launches = k3.fused_factored_encode_backward.launches = 0
+    for argv in (["train", *common, "--num_iter", "11", "--eval_steps", "10", "--save_steps",
+                  "1000", "--log_dir", ckdir],
+                 ["eval", *common, "--max_views", "1"],
+                 ["render", *common, "--view", "0", "--out_dir", os.path.join(tmp, "fac-render")]):
+        rc, out = run_cli(argv)
+        m = re.search(r"psnr[= ](\S+)", out)
+        if rc != 0 or m is None or not math.isfinite(float(m.group(1))):
+            fail(f"cli {argv[0]} --preset factored: rc {rc}, psnr {m and m.group(1)}")
+    launches = (k3.fused_factored_encode.launches, k3.fused_factored_encode_backward.launches)
+    print(f"cli train/eval/render --preset factored: K3 launches {launches} (want (0, 0))")
+    if launches != (0, 0):
+        fail(f"the CLI's factored route launched K3: {launches}")
+    if read_png(os.path.join(tmp, "fac-render", "view-0.png")).shape != (128, 128, 3):
+        fail("cli render --preset factored wrote no 128x128 view")
+
+
+def factored_learning(tmp: str, dev) -> dict:
+    """The 64x64 factored drive (the preset at --num_samples 32, 1024 rays,
+    301 steps) through K3 for each seed in LEARN_SEEDS, then `cli eval` on
+    its checkpoint: the mean over seeds of the mean PSNR over LEARN_VIEWS
+    views must pass FAC_PSNR."""
+    import dataclasses
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+    from nerf_rs_tpu_torch.train.loop import train
+
+    common = ["--preset", "factored", "--dataset", "sphere", "--width", "64", "--height", "64",
+              "--num_samples", "32"]
+    per_seed = {}
+    for seed in LEARN_SEEDS:
+        vdir = os.path.join(tmp, f"learn-factored-{seed}")
+        cfg = preset_cfg("factored", "--width", "64", "--height", "64", "--num_samples", "32",
+                         "--num_rays", "1024", "--num_iter", "301", "--eval_steps", "100",
+                         "--seed", str(seed), "--save_dir", vdir, "--log_dir", vdir)
+        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, fac_fused=True))
+        k3.fused_factored_encode_backward.launches = 0
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            train(cfg, make_dataset(cfg, dev))
+        curve = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", log.getvalue()))
+        if k3.fused_factored_encode_backward.launches != 301:
+            fail(f"factored learning drive, seed {seed}: K3 backward launches "
+                 f"{k3.fused_factored_encode_backward.launches} (want 301)")
+        rc, out = run_cli(["eval", *common, "--save_dir", vdir, "--max_views", str(LEARN_VIEWS)])
+        m = re.search(r"mean psnr over \d+ \S+ views: (\S+)", out)
+        if rc != 0 or m is None or not math.isfinite(float(m.group(1))):
+            fail(f"factored learning drive, seed {seed}: eval rc {rc}, no finite mean psnr")
+        per_seed[seed] = {"view0_curve": curve, "mean_psnr": float(m.group(1))}
+    mean = sum(r["mean_psnr"] for r in per_seed.values()) / len(per_seed)
+    print(f"factored learning drives through K3 (64x64, 32 samples): mean psnr over "
+          f"{LEARN_VIEWS} views at 301 per seed {[r['mean_psnr'] for r in per_seed.values()]}, "
+          f"mean {mean:.3f} (bar {FAC_PSNR})")
+    if not mean > FAC_PSNR:
+        fail(f"factored learning drives: mean psnr {mean:.3f} over seeds {LEARN_SEEDS} "
+             f"(need > {FAC_PSNR})")
+    return {"seeds": per_seed, "mean_psnr": mean}
+
+
+def library_factored(lines, pts, mcfg, dtype):
+    """A PyTorch library path computing K3's forward, used nowhere in the
+    port: the 2L taps per axis (indices and weights, as the kernel forms
+    them), one F.embedding_bag(mode="sum", per_sample_weights=...) per
+    axis over the operands rounded as the kernel rounds them, and the
+    product. ``lines`` (f32) may require grad: autograd of this is the
+    library backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from nerf_rs_tpu_torch.models.factored import fac_resolutions, unit_coords
+
+    u = unit_coords(pts, mcfg.fac_aabb)
+    idx, w, off = [], [], 0
+    for r in fac_resolutions(mcfg):
+        pos = u * float(r)
+        k0 = torch.clamp(torch.floor(pos), max=r - 1)
+        idx += [off + k0, off + k0 + 1]
+        w += [torch.relu(1.0 - (pos - k0).abs()), torch.relu(1.0 - (pos - k0 - 1.0).abs())]
+        off += r + 1
+    idx = torch.stack(idx, -1).long()  # (N, 3, 2L)
+    w = torch.stack(w, -1)
+    if dtype == torch.bfloat16:
+        w = w.bfloat16().float()
+        lines = lines.bfloat16().float()
+    enc = None
+    for a in range(3):
+        f = F.embedding_bag(idx[:, a], lines[a], per_sample_weights=w[:, a], mode="sum")
+        enc = f if enc is None else enc * f
+    return enc
+
+
+def time_factored(card: str, ds, lines) -> dict:
+    """The factored step through K3 and through the CLI's route, a profile
+    of the K3 step, and K3's calls at the main path's shapes (forward and
+    backward at 524,288 points, forward at a 4,194,304-point render chunk)
+    beside their plain versions, the library path and the bound."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+    from nerf_rs_tpu_torch.models.factored import basis_dim
+    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+
+    dev = ds.images.device
+    cfg = factored_config()
+    mcfg = cfg.model
+    bf16 = torch.bfloat16
+    out = {}
+
+    def stepper(c):
+        state = init_state(c, dev)
+        fn = make_train_step(c, ds)
+        it = [0]
+
+        def run(k):
+            nonlocal state
+            for _ in range(k):
+                state, _ = fn(state, step_generator(0, it[0], dev))
+                it[0] += 1
+        return run
+
+    for name, c in (("K3", cfg), ("the CLI route", dataclasses.replace(
+            cfg, model=dataclasses.replace(mcfg, fac_fused=False)))):
+        run = stepper(c)
+        run(3)
+        out[name] = best_of(lambda: run(10)) / 10 * 1e3
+        print(f"factored train step through {name} [{card}]: {out[name]:.3f} ms/step "
+              f"(best of 3 windows of 10)")
+    run = stepper(cfg)
+    run(3)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(5)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 5
+    per = sorted(((v / 5, k) for k, v in device_ms(prof).items()), reverse=True)
+    busy = sum(v for v, _ in per)
+    out["idle_pct"] = 100 * (1 - busy / wall)
+    print(f"factored K3 step profile [{card}]: wall {wall:.3f} ms/step (profiled), device busy "
+          f"{busy:.3f} ms/step, idle {out['idle_pct']:.1f}%")
+    for v, k in per[:10]:
+        print(f"  {v:8.3f} ms/step  {k[:100]}")
+
+    C, R = mcfg.fac_comps, basis_dim(mcfg)
+    rows = []
+    for kind, n_rays in (("forward", FAC_RAYS), ("backward", FAC_RAYS), ("forward", FAC_CHUNK)):
+        pts = factored_points(ds, cfg.camera, n_rays, 13)
+        n = pts.shape[0]
+        g = torch.randn(n, C, generator=torch_generator(dev, 14), device=dev)
+        lib_lines = lines.detach().clone().requires_grad_(kind == "backward")
+        if kind == "forward":
+            fn = lambda: k3.fused_factored_encode_forward(lines, pts, mcfg, bf16)  # noqa: E731
+            plain = lambda: k3.fused_factored_encode_reference(lines, pts, mcfg, bf16)  # noqa: E731
+            with torch.no_grad():
+                library = lambda: library_factored(lib_lines, pts, mcfg, bf16)  # noqa: E731
+                lib_err = float((library() - plain()).abs().max())
+            # points in, encodings out, the bf16 line tables; per point 3 axes
+            # x 2L taps x C products and sums, and the CP product
+            nbytes = n * (12 + 4 * C) + 2 * 3 * R * C
+            flops = n * (3 * 2 * 2 * mcfg.fac_levels * C + 2 * C)
+        else:
+            fn = lambda: k3.fused_factored_encode_backward(lines, pts, g, mcfg, bf16)  # noqa: E731
+            plain = lambda: k3.fused_factored_encode_backward_reference(  # noqa: E731
+                lines, pts, g, mcfg, bf16)
+            enc = library_factored(lib_lines, pts, mcfg, bf16)
+            library = lambda: torch.autograd.grad(enc, lib_lines, g, retain_graph=True)  # noqa: E731
+            lib_err = leaf_err(library()[0], plain())
+            # points and g in, the bf16 line tables, d_lines out; per point the
+            # three axis features (2L taps x C each), d_feat, and the scatter of
+            # w d_feat into 2L rows per axis
+            nbytes = n * (12 + 4 * C) + 2 * 3 * R * C + 4 * 3 * R * C
+            flops = n * (2 * 3 * 2 * 2 * mcfg.fac_levels * C + 3 * 2 * C)
+        fn()
+        ms = event_ms(fn)
+        plain_ms = event_ms(plain, reps=1)
+        library()
+        library_ms = event_ms(library)
+        b, by = bound_ms(flops, nbytes, PEAK_F32)
+        dense_ms = 3 * n * R * C * 2 * (2 if kind == "backward" else 1) / PEAK_FLOPS * 1e3
+        row = {"kernel": kind, "points": n, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "library_vs_plain": lib_err, "bound_ms": b,
+               "bound_by": by, "sparse_flops": flops, "bytes": nbytes,
+               "dense_bound_ms": dense_ms}
+        print(f"K3 {kind}, {n} points [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+              f"library {library_ms:.3f} ms (vs plain {lib_err:.3g}), bound {b:.4f} ms ({by}; "
+              f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at {PEAK_F32 / 1e12:.0f} "
+              f"TFLOP/s f32), {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s; the dense hat product "
+              f"the TPU ran would be {dense_ms:.3f} ms at {PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16")
+        rows.append(row)
+        del pts, g, lib_lines
+    out["calls"] = rows
+    return out
+
+
 def time_step(root: str) -> int:
     """The flagship path's times for the checkout at ``root``: the train
     step through K2, autograd and the plain version, one K2 call, and one
@@ -1052,6 +1449,7 @@ def main() -> int:
     from nerf_rs_tpu_torch import CameraConfig, ModelConfig
     from nerf_rs_tpu_torch import cli
     from nerf_rs_tpu_torch.data import synthetic
+    from nerf_rs_tpu_torch.data.factory import make_dataset
     from nerf_rs_tpu_torch.kernels import build
     from nerf_rs_tpu_torch.kernels.fused_ray import (
         fused_ray_render, fused_ray_render_reference)
@@ -1109,6 +1507,12 @@ def main() -> int:
     # ---- 9. the hierarchical branches: IPE, rays longer than one tile ----
     max_err = max(max_err, check_render_branches(model, mcfg, (o, d, vd), cam))
     train_err = max(train_err, check_train_branches(model, mcfg, (o, d, vd), gold, cam))
+
+    # ---- 12. K3 vs its plain versions ----
+    fcfg = factored_config()
+    fac_ds = make_dataset(fcfg, dev)
+    fac_lines = init_nerf_params(fcfg.model, 0, dev).lines.detach()
+    fac_errs = check_factored_kernel(fac_ds, fcfg.model, fcfg.camera, fac_lines)
 
     # ---- 5. the render path through the CLI ----
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -1173,6 +1577,11 @@ def main() -> int:
         # ---- 10. the hierarchical path through the CLI, per preset ----
         preset_counts = {p: drive_preset(tmp, p) for p in PRESETS}
         learned = {p: learning_drive(tmp, p) for p in PRESETS}
+
+        # ---- 13. the factored path: K3 through the library, the CLI's route ----
+        fac_counts = drive_factored(tmp, fo, fd, card)
+        drive_factored_cli(tmp)
+        fac_learned = factored_learning(tmp, dev)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1218,6 +1627,10 @@ def main() -> int:
     preset_times = time_presets(card)
     library = library_times(card, model, mcfg, *chunk["inputs"])
 
+    # ---- 14. times of the factored path and K3 ----
+    fac_times = time_factored(card, fac_ds, fac_lines)
+    fac_fwd, fac_bwd, fac_chunk = fac_times.pop("calls")
+
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "nerf_rs_tpu"))
     if bad:
         fail(f"imported {bad}: the port stands without JAX and the JAX package")
@@ -1233,6 +1646,8 @@ def main() -> int:
                    for k in ("train_eval", "render", "eval")}}
     k2_paths = {"train_flagship": train_launches,
                 **{f"{p}_train": c["train"] for p, c in preset_counts.items()}}
+    k3_paths = {f"factored_{k}": fac_counts[k] for k in ("train", "frame", "eval")}
+    k3b_paths = {"factored_train": fac_counts["train_backward"]}
     print(json.dumps({"kernels": [{
         "name": "fused_ray_render",
         "route": "cuda",
@@ -1261,7 +1676,39 @@ def main() -> int:
         "bound_by": k2_by,
         "library_ms": library["fused_train_grads"],
         "branches": [r for r in branch_rows if r["kernel"] == "K2"],
-    }], "presets": preset_times, "learning": learned}))
+    }, {
+        "name": "fused_factored_encode",
+        "route": "cuda",
+        "source": "nerf_rs_tpu_torch/kernels/csrc/fused_factored.cu",
+        "replaces": "nerf_rs_tpu/kernels/fused_factored.py:58",
+        "launches": sum(k3_paths.values()),
+        "launches_by_path": k3_paths,
+        "max_abs_err": fac_errs["enc"],
+        "ms": fac_fwd["ms"],
+        "plain_ms": fac_fwd["plain_ms"],
+        "bound_ms": fac_fwd["bound_ms"],
+        "bound_by": fac_fwd["bound_by"],
+        "library_ms": fac_fwd["library_ms"],
+        "points": fac_fwd["points"],
+        "cases": [fac_chunk],
+    }, {
+        "name": "fused_factored_encode_backward",
+        "route": "cuda",
+        "source": "nerf_rs_tpu_torch/kernels/csrc/fused_factored.cu",
+        "replaces": "nerf_rs_tpu/kernels/fused_factored.py:73",
+        "launches": sum(k3b_paths.values()),
+        "launches_by_path": k3b_paths,
+        "max_abs_err": fac_errs["d_lines_abs"],
+        "max_rel_err": fac_errs["d_lines"],
+        "ms": fac_bwd["ms"],
+        "plain_ms": fac_bwd["plain_ms"],
+        "bound_ms": fac_bwd["bound_ms"],
+        "bound_by": fac_bwd["bound_by"],
+        "library_ms": fac_bwd["library_ms"],
+        "points": fac_bwd["points"],
+    }], "presets": preset_times, "learning": learned,
+        "factored": {**fac_times, "frame_s": fac_counts["frame_s"],
+                     "learning": fac_learned}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

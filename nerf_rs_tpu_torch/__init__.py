@@ -2,13 +2,16 @@
 NVIDIA H100.
 
 The module tree mirrors ``nerf_rs_tpu`` so each counterpart is found by
-name. Plain tensor code is PyTorch; the Pallas kernels the ported path
-runs are CUDA C++ kernels for ``sm_90a`` here: the whole-ray render
-kernel (``nerf_rs_tpu/kernels/fused_ray.py`` -> ``kernels/csrc/fused_ray.cu``)
-and the whole-ray train kernel (``nerf_rs_tpu/kernels/fused_train.py`` ->
-``kernels/csrc/fused_train.cu``). The ported paths are ``cli train``,
-``cli eval`` and ``cli render`` on the sphere scene, for the presets
-``tiny``, ``full``, ``hierarchical`` and ``mipnerf``.
+name. Plain tensor code is PyTorch; the Pallas kernels the ported paths
+run are CUDA C++ kernels for ``sm_90a`` here: the whole-ray render
+kernel (``nerf_rs_tpu/kernels/fused_ray.py`` -> ``kernels/csrc/fused_ray.cu``),
+the whole-ray train kernel (``nerf_rs_tpu/kernels/fused_train.py`` ->
+``kernels/csrc/fused_train.cu``) and the factored-encode kernel, forward
+and backward (``nerf_rs_tpu/kernels/fused_factored.py`` ->
+``kernels/csrc/fused_factored.cu``, taken with ``ModelConfig.fac_fused``).
+The ported paths are ``cli train``, ``cli eval`` and ``cli render`` on the
+sphere scene, for the presets ``tiny``, ``full``, ``hierarchical``,
+``mipnerf`` and ``factored``.
 
 The configuration dataclasses are the port's own copy (``config.py``).
 This package imports neither ``jax`` nor anything of ``nerf_rs_tpu``.

@@ -5,18 +5,23 @@ of ``cmd_train``, ``cmd_eval`` and ``cmd_render`` in
   python -m nerf_rs_tpu_torch.cli train --preset full --dataset sphere
   python -m nerf_rs_tpu_torch.cli train --preset hierarchical --dataset sphere
   python -m nerf_rs_tpu_torch.cli eval --preset mipnerf --dataset sphere --max_views 3
+  python -m nerf_rs_tpu_torch.cli train --preset factored --dataset sphere
   python -m nerf_rs_tpu_torch.cli render --dataset sphere --view 0
 
 It takes the JAX parser's flags that the ported slices serve, with the
 JAX defaults (``--use_whole_ray_train`` is off unless a preset turns it
 on; the presets ``tiny``, ``full``, ``hierarchical`` and ``mipnerf`` do,
 with the JAX package's values, and explicit flags beat the preset).
+``--preset factored`` (or ``--arch factored``) selects the factored field,
+whose encode runs as the JAX CLI runs it, through the dense hat matrix:
+the factored-encode kernel is ``ModelConfig.fac_fused``, for which the
+parser has no flag.
 Flags, presets and values of slices not ported yet, and the ``export``
 subcommand, are refused with an error that names the slice, never
 ignored.
 
-Runs go to the card (training through the whole-ray train kernel,
-rendering through the render kernel) unless ``--device cpu`` asks for
+Runs go to the card (the paper field trains through the whole-ray train
+kernel and renders through the render kernel) unless ``--device cpu`` asks for
 the CPU, the port's counterpart of ``JAX_PLATFORMS=cpu``; without a
 card, ``--device cuda`` (the default) raises.
 """
@@ -57,13 +62,12 @@ _LATER_FLAGS = {
        "use_native_loader error_resample_frac error_resample_ema",
     7: "ema_decay accumulation_steps profile_steps log_densities_only depth gif",
     8: "num_devices shard_pixel_store scenes scene_index",
-    9: "arch hash_levels hash_table_log2 hash_base_res hash_max_res hash_aabb "
-       "hash_brick fac_levels fac_base_res fac_max_res fac_comps fac_aabb fac_l1",
+    "9 (hashgrid)": "hash_levels hash_table_log2 hash_base_res hash_max_res hash_aabb "
+                    "hash_brick",
     10: "compat",
 }
 _FLAG_SLICE = {f: n for n, flags in _LATER_FLAGS.items() for f in flags.split()}
-_PRESET_SLICE = {"record": 4, "proposal": 5, "unbounded": 5, "pod": 6, "ngp": 9,
-                 "factored": 9}
+_PRESET_SLICE = {"record": 4, "proposal": 5, "unbounded": 5, "pod": 6, "ngp": "9 (hashgrid)"}
 
 
 def _bool_flag(p, name, default, help=""):
@@ -118,6 +122,21 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("--sigma_activation", default="relu", choices=["relu", "softplus"])
     _bool_flag(common, "ipe", False,
                "mip-NeRF: conical-frustum intervals with the integrated encoding")
+    common.add_argument("--arch", default="nerf", choices=["nerf", "hashgrid", "factored"],
+                        help="field family: the paper NeRF, or the factored (CP) "
+                             "multiresolution lines with tiny heads; hashgrid comes with "
+                             "slice 9 (hashgrid)")
+    common.add_argument("--fac_levels", type=int, default=6,
+                        help="factored-family resolution-ladder levels")
+    common.add_argument("--fac_base_res", type=int, default=16)
+    common.add_argument("--fac_max_res", type=int, default=512,
+                        help="finest factored line resolution")
+    common.add_argument("--fac_comps", type=int, default=48,
+                        help="CP rank (channels per axis)")
+    common.add_argument("--fac_aabb", type=float, default=1.6,
+                        help="factored field AABB half-extent")
+    common.add_argument("--fac_l1", type=float, default=0.0,
+                        help="L1 penalty on the factored line tables")
     common.add_argument("--precision", default="mixed", choices=["f32", "bf16", "mixed"],
                         help="matmul precision of the eager field path; the "
                              "kernels always multiply in bf16")
@@ -130,12 +149,13 @@ def build_parser() -> argparse.ArgumentParser:
                "train through the whole-ray CUDA train kernel (the presets "
                "turn it on)")
     common.add_argument("--preset", default="",
-                        choices=["", "tiny", "full", "hierarchical", "mipnerf",
+                        choices=["", "tiny", "full", "hierarchical", "mipnerf", "factored",
                                  *sorted(_PRESET_SLICE)],
                         help="tiny = 100x100 coarse-only 4096-ray fit; full = paper "
                              "NeRF, stratified 64; hierarchical = two fields, 64 + 128 "
                              "union; mipnerf = IPE, one field, 64 + 128 standalone; all "
-                             "through the train kernel")
+                             "through the train kernel; factored = CP lines + tiny heads, "
+                             "softplus, lr 1e-2, 128 samples, white background")
 
     sub.add_parser("train", parents=[common])
 
@@ -202,11 +222,18 @@ def _apply_preset(args):
              num_samples=64, num_fine_samples=128,
              sigma_activation="softplus", white_background=True,
              use_whole_ray_train=True)
+    elif p == "factored":
+        # the CP-factored multiresolution field (models/factored.py); its
+        # grids learn at a high rate, like the ngp preset's
+        _set(arch="factored", sigma_activation="softplus", learning_rate=1e-2,
+             num_samples=128, white_background=True)
     return args
 
 
 def config_from_args(args) -> Config:
     args = _apply_preset(args)
+    if args.arch == "hashgrid":
+        raise NotImplementedError("--arch hashgrid comes with slice 9 (hashgrid) of the port")
     return Config(
         debug=args.debug,
         do_train=args.do_train,
@@ -218,7 +245,11 @@ def config_from_args(args) -> Config:
         run_name=args.run_name,
         camera=CameraConfig(width=args.width, height=args.height,
                             near=args.near, far=args.far),
-        model=ModelConfig(sigma_activation=args.sigma_activation, ipe=args.ipe),
+        model=ModelConfig(arch=args.arch, fac_levels=args.fac_levels,
+                          fac_base_res=args.fac_base_res, fac_max_res=args.fac_max_res,
+                          fac_comps=args.fac_comps, fac_aabb=args.fac_aabb,
+                          fac_l1=args.fac_l1, sigma_activation=args.sigma_activation,
+                          ipe=args.ipe),
         render=RenderConfig(num_samples=args.num_samples,
                             num_fine_samples=args.num_fine_samples,
                             share_network=args.share_network,

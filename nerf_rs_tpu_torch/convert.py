@@ -12,6 +12,11 @@ the conversion renames and copies and never transposes:
 
 A hierarchical run's second field (``TrainState.fine_params`` in both
 packages) is a tree of the same layout and converts the same way.
+
+The factored field's tree (``nerf_rs_tpu/models/factored.py``) holds a
+bare ``lines`` array (3, sumR, C) beside the heads' ``{w, b}`` dicts
+(``sigma1``, ``sigma2``, ``color1``, ``color2``, ``rgb``); its state dict
+has the keys ``lines`` and ``sigma1.w`` ...; ``FactoredField`` takes it.
 """
 
 from __future__ import annotations
@@ -24,20 +29,32 @@ import torch
 from torch import nn
 
 
+# the fields' state-dict order (NerfMLP's, then FactoredField's)
+_ORDER = ("trunk", "sigma", "feature", "view1", "lines", "sigma1", "sigma2", "color1",
+          "color2", "rgb")
+
+
 def params_from_numpy(tree: dict, device=None) -> "OrderedDict[str, torch.Tensor]":
-    """A numpy param pytree -> the port's state dict (f32 tensors)."""
+    """A numpy param pytree -> the port's state dict (f32 tensors), keyed
+    in the field's state-dict order."""
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
 
-    def put(prefix: str, layer: dict) -> None:
-        for leaf in ("w", "b"):
-            a = np.asarray(layer[leaf], dtype=np.float32)
-            out[f"{prefix}.{leaf}"] = torch.from_numpy(a.copy()).to(device)
+    def put(key: str, value) -> None:
+        a = np.asarray(value, dtype=np.float32)
+        out[key] = torch.from_numpy(a.copy()).to(device)
 
-    for i, layer in enumerate(tree["trunk"]):
-        put(f"trunk.{i}", layer)
-    for name in ("sigma", "feature", "view1", "rgb"):
-        if name in tree:
-            put(name, tree[name])
+    rank = {name: i for i, name in enumerate(_ORDER)}
+    for name in sorted(tree, key=lambda k: (rank.get(k, len(_ORDER)), k)):
+        value = tree[name]
+        if name == "trunk":
+            for i, layer in enumerate(value):
+                for leaf in ("w", "b"):
+                    put(f"trunk.{i}.{leaf}", layer[leaf])
+        elif isinstance(value, dict):
+            for leaf in ("w", "b"):
+                put(f"{name}.{leaf}", value[leaf])
+        else:  # a bare leaf: the factored field's lines
+            put(name, value)
     return out
 
 
@@ -46,15 +63,19 @@ def params_to_numpy(state: Union[nn.Module, Dict[str, torch.Tensor]]) -> dict:
     JAX layout (the inverse of ``params_from_numpy``)."""
     if isinstance(state, nn.Module):
         state = state.state_dict()
-    tree: dict = {"trunk": []}
+    tree: dict = {}
     for key, value in state.items():
         a = value.detach().to("cpu", torch.float32).numpy().copy()
+        if "." not in key:  # a bare leaf
+            tree[key] = a
+            continue
         name, leaf = key.rsplit(".", 1)
         if name.startswith("trunk."):
             i = int(name.split(".", 1)[1])
-            while len(tree["trunk"]) <= i:
-                tree["trunk"].append({})
-            tree["trunk"][i][leaf] = a
+            trunk = tree.setdefault("trunk", [])
+            while len(trunk) <= i:
+                trunk.append({})
+            trunk[i][leaf] = a
         else:
             tree.setdefault(name, {})[leaf] = a
     return tree

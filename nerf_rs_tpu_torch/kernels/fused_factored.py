@@ -1,0 +1,259 @@
+"""The factored-encode kernel K3, forward and backward: per axis the
+hat-basis weights of every level's two knots around the point times that
+axis's line table, then the CP product of the three axes; the backward
+gives the line tables' gradient. The counterpart of
+``nerf_rs_tpu/kernels/fused_factored.py``.
+
+``fused_factored_encode`` is the drop-in for
+``models/factored.factored_encode`` (same output, f32, as the JAX
+kernel's) as a ``torch.autograd.Function``. Its forward and backward
+launch the CUDA kernels (``csrc/fused_factored.cu``) for CUDA tensors
+and run the plain PyTorch versions (``fused_factored_encode_reference``,
+``fused_factored_encode_backward_reference``) for CPU tensors. There is
+no other switch: on a CUDA tensor they launch the kernels or raise.
+
+Numerics, as the JAX kernel's: with a bf16 ``dtype`` the hat weights
+(computed in f32) and the lines are rounded to bf16 and multiplied in
+f32, which is exact, and the products are summed in f32; the features
+and their CP product are f32. The backward rounds d_feat = (g * f_b) *
+f_c to bf16 and sums w * d_feat over the points in f32. With the f32
+``dtype`` nothing is rounded.
+
+There is no gradient for the points (the JAX kernel returns zeros for
+them): in every training path the points come from the rays and samples,
+which are not trained. ``models/factored.factored_encode`` differentiates
+in the points.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..config import ModelConfig
+from ..models.factored import basis_dim, fac_resolutions, hat_weights, unit_coords
+
+from . import build
+
+# points per call of the plain versions' dense (points, sumR) hat matrix
+PLAIN_CHUNK = 65536
+
+# How far the kernels may stand from their plain versions on the same card
+# and inputs (chip_smoke.py and tests/test_torch_cuda.py hold them to it):
+# enc absolute, d_lines per axis relative to the axis's largest entry. Both
+# multiply the same operands and sum in f32; only the order of the sums
+# differs (12 taps per axis in the forward; up to N points per knot in the
+# backward, in fixed-order partials in the kernel and in cuBLAS's order in
+# the plain version). The first readings on an H100, 524,288 random points:
+# enc 1.2e-6 (values up to 5.5), d_lines 1.1e-6; the bars are ~10x those.
+KERNEL_TOL = {"enc": 1e-5, "d_lines": 1e-5}
+
+_ERRORS = {
+    -1: "the line table of one axis does not fit a CTA's shared memory",
+    -2: "fac_levels above the kernel's 16",
+    -3: "fac_levels * fac_comps above 1024 threads",
+    -4: "every resolution must be at least 1",
+}
+
+
+def _bf16(dtype) -> bool:
+    return dtype == torch.bfloat16
+
+
+def _check(lines: torch.Tensor, points: torch.Tensor, cfg: ModelConfig,
+           g: Optional[torch.Tensor] = None) -> None:
+    """Shape checks, the same on every device."""
+    want = (3, basis_dim(cfg), cfg.fac_comps)
+    if tuple(lines.shape) != want:
+        raise ValueError(f"lines must be {want}, got {tuple(lines.shape)}")
+    if points.dim() != 2 or points.shape[1] != 3:
+        raise ValueError(f"points must be (N, 3), got {tuple(points.shape)}")
+    if g is not None and tuple(g.shape) != (points.shape[0], cfg.fac_comps):
+        raise ValueError(f"g must be ({points.shape[0]}, {cfg.fac_comps}), "
+                         f"got {tuple(g.shape)}")
+
+
+def _check_cuda(tensors, dev) -> None:
+    for name, t in tensors:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be f32 on the points' device ({dev})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch_args(lines: torch.Tensor, cfg: ModelConfig, dtype):
+    """The kernels' line operand (bf16 under a bf16 ``dtype``, as the JAX
+    wrapper casts it) and the C arguments of the geometry."""
+    res = fac_resolutions(cfg)
+    operand = lines.to(torch.bfloat16).contiguous() if _bf16(dtype) else lines
+    return (operand, (ctypes.c_int * len(res))(*res), len(res), cfg.fac_comps,
+            float(cfg.fac_aabb), 2.0 * float(cfg.fac_aabb), int(_bf16(dtype)))
+
+
+def _raise_on(rc: int, lib, what: str) -> None:
+    if rc < 0:
+        raise ValueError(f"fused_factored {what} kernel refused the call: {_ERRORS[rc]}")
+    if rc > 0:
+        msg = lib.nerf_cuda_error_string(rc).decode()
+        raise RuntimeError(f"fused_factored {what} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def fused_factored_encode_forward(lines: torch.Tensor, points: torch.Tensor,
+                                  cfg: ModelConfig, dtype=None) -> torch.Tensor:
+    """The forward alone: lines (3, sumR, C) f32 and points (N, 3) f32
+    -> enc (N, C) f32. Launches the forward kernel for CUDA tensors
+    (counted in ``fused_factored_encode.launches``), on the current
+    stream without synchronising; runs the plain version for CPU
+    tensors. Any N: the kernel masks the ragged last block."""
+    _check(lines, points, cfg)
+    if points.device.type == "cpu":
+        return fused_factored_encode_reference(lines, points, cfg, dtype)
+    if points.device.type != "cuda":
+        raise ValueError(f"no kernel for device {points.device}")
+    dev = points.device
+    _check_cuda((("points", points), ("lines", lines)), dev)
+    n = points.shape[0]
+    enc = torch.empty(n, cfg.fac_comps, device=dev)
+    operand, *geom = _launch_args(lines, cfg, dtype)
+    lib = _library()
+    rc = lib.nerf_factored_encode_fwd(points.data_ptr(), operand.data_ptr(), enc.data_ptr(), n,
+                                      *geom, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, lib, "forward")
+    fused_factored_encode.launches += 1
+    return enc
+
+
+def fused_factored_encode_backward(lines: torch.Tensor, points: torch.Tensor, g: torch.Tensor,
+                                   cfg: ModelConfig, dtype=None) -> torch.Tensor:
+    """The backward: the cotangent g (N, C) of the encoding -> d_lines
+    (3, sumR, C) f32. Launches the backward kernel and its fixed-order
+    reduction for CUDA tensors (counted in
+    ``fused_factored_encode_backward.launches``; two calls on the same
+    inputs give identical bits); runs the plain version for CPU
+    tensors."""
+    _check(lines, points, cfg, g)
+    if points.device.type == "cpu":
+        return fused_factored_encode_backward_reference(lines, points, g, cfg, dtype)
+    if points.device.type != "cuda":
+        raise ValueError(f"no kernel for device {points.device}")
+    dev = points.device
+    _check_cuda((("points", points), ("lines", lines), ("g", g)), dev)
+    n = points.shape[0]
+    d_lines = torch.empty(lines.shape, device=dev)
+    operand, res, L, C, aabb, two_aabb, bf16 = _launch_args(lines, cfg, dtype)
+    lib = _library()
+    # the per-CTA partial tables; freed on return while the kernels may
+    # still run, which is safe: the caching allocator hands the block out
+    # again only in this stream's order
+    scratch = torch.empty(lib.nerf_factored_bwd_scratch_bytes(n, basis_dim(cfg), C),
+                          dtype=torch.uint8, device=dev)
+    rc = lib.nerf_factored_encode_bwd(
+        points.data_ptr(), operand.data_ptr(), g.data_ptr(), d_lines.data_ptr(),
+        scratch.data_ptr(), n, res, L, C, aabb, two_aabb, bf16,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, lib, "backward")
+    fused_factored_encode_backward.launches += 1
+    return d_lines
+
+
+class _Encode(torch.autograd.Function):
+    """enc = K3(lines, points); d lines from the backward kernel (or its
+    plain version on the CPU), no gradient for the points."""
+
+    @staticmethod
+    def forward(ctx, lines, points, cfg, dtype):
+        ctx.save_for_backward(lines, points)
+        ctx.cfg, ctx.dtype = cfg, dtype
+        return fused_factored_encode_forward(lines, points, cfg, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        lines, points = ctx.saved_tensors
+        d_lines = fused_factored_encode_backward(lines, points, g.contiguous(), ctx.cfg,
+                                                 ctx.dtype)
+        return d_lines, None, None, None
+
+
+def fused_factored_encode(lines: torch.Tensor, points: torch.Tensor, cfg: ModelConfig,
+                          dtype=None) -> torch.Tensor:
+    """(..., 3) world points -> (..., C) f32 CP-product features, the
+    drop-in for ``models/factored.factored_encode`` through K3, with the
+    lines' gradient from K3's backward."""
+    lead = points.shape[:-1]
+    enc = _Encode.apply(lines, points.reshape(-1, 3).contiguous(), cfg, dtype)
+    return enc.reshape(*lead, cfg.fac_comps)
+
+
+# kernel launches so far in this process (forward; backward); a run reads
+# them to show that its path went through the kernels
+fused_factored_encode.launches = 0
+fused_factored_encode_backward.launches = 0
+
+
+def _library() -> ctypes.CDLL:
+    lib = build.load("fused_factored")
+    fwd = lib.nerf_factored_encode_fwd
+    if fwd.argtypes is None:
+        vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+        pres = ctypes.POINTER(i32)
+        fwd.argtypes = [vp] * 3 + [i64, pres, i32, i32, f32, f32, i32, vp]
+        fwd.restype = i32
+        bwd = lib.nerf_factored_encode_bwd
+        bwd.argtypes = [vp] * 5 + [i64, pres, i32, i32, f32, f32, i32, vp]
+        bwd.restype = i32
+        size = lib.nerf_factored_bwd_scratch_bytes
+        size.argtypes = [i64, i32, i32]
+        size.restype = i64
+        lib.nerf_cuda_error_string.argtypes = [i32]
+        lib.nerf_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _round(x: torch.Tensor, dtype) -> torch.Tensor:
+    """The kernels' rounding point: to bf16 and back under a bf16
+    ``dtype``, else nothing."""
+    return x.to(torch.bfloat16).float() if _bf16(dtype) else x
+
+
+def _plain_features(lines, u, cfg, dtype):
+    """The three axis features (N, C) of the plain versions: the dense
+    hat matrix (rounded as the kernel rounds) times the rounded lines in
+    f32, PLAIN_CHUNK points at a time. On CUDA it needs full-f32 matmuls
+    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    feats = []
+    for a in range(3):
+        la = _round(lines[a].float(), dtype)
+        feats.append(torch.cat([_round(hat_weights(u[i:i + PLAIN_CHUNK, a], cfg), dtype) @ la
+                                for i in range(0, u.shape[0], PLAIN_CHUNK)]))
+    return feats
+
+
+def fused_factored_encode_reference(lines: torch.Tensor, points: torch.Tensor,
+                                    cfg: ModelConfig, dtype=None) -> torch.Tensor:
+    """The forward kernel's plain PyTorch version: enc (N, C) f32 =
+    X * Y * Z of the f32 products of the rounded operands."""
+    _check(lines, points, cfg)
+    if points.shape[0] == 0:
+        return lines.new_zeros(0, cfg.fac_comps)
+    f = _plain_features(lines.detach(), unit_coords(points, cfg.fac_aabb), cfg, dtype)
+    return f[0] * f[1] * f[2]
+
+
+def fused_factored_encode_backward_reference(lines: torch.Tensor, points: torch.Tensor,
+                                             g: torch.Tensor, cfg: ModelConfig,
+                                             dtype=None) -> torch.Tensor:
+    """The backward kernel's plain PyTorch version: d_lines[a] = W_a^T
+    round((g * f_b) * f_c), f32 products of the rounded operands summed
+    in f32, PLAIN_CHUNK points at a time in order."""
+    _check(lines, points, cfg, g)
+    u = unit_coords(points, cfg.fac_aabb)
+    f = _plain_features(lines.detach(), u, cfg, dtype)
+    d_lines = torch.zeros(lines.shape, device=lines.device)
+    for a, (b, c) in enumerate(((1, 2), (0, 2), (0, 1))):
+        d_feat = _round((g.float() * f[b]) * f[c], dtype)
+        for i in range(0, u.shape[0], PLAIN_CHUNK):
+            w = _round(hat_weights(u[i:i + PLAIN_CHUNK, a], cfg), dtype)
+            d_lines[a] += w.t() @ d_feat[i:i + PLAIN_CHUNK]
+    return d_lines

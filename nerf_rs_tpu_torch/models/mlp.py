@@ -1,5 +1,6 @@
 """The paper NeRF field as an ``nn.Module``, the counterpart of the
-``nerf`` arch in ``nerf_rs_tpu/models/mlp.py``.
+``nerf`` arch in ``nerf_rs_tpu/models/mlp.py``, and the dispatch over
+the field families (``init_nerf_params``, ``apply_nerf``).
 
 gamma(x) -> depth x width ReLU trunk, with the encoded position
 re-injected (concatenated after the hidden state) before layer
@@ -11,9 +12,10 @@ one to one (``convert.py``): every layer is a ``Dense`` holding ``w`` of
 shape (in, out) and ``b`` of shape (out,); the state-dict keys are
 ``trunk.{i}.w/b``, ``sigma``, ``feature``, ``view1`` and ``rgb``.
 
-Only the paper arch is ported so far (with PE, or mip-NeRF's integrated
-encoding of Gaussians); the others raise ``NotImplementedError`` naming
-the slice that brings them.
+Ported so far: the paper arch (with PE, or mip-NeRF's integrated
+encoding of Gaussians) and the factored arch (``models/factored.py``);
+the hash grid and compat mode raise ``NotImplementedError`` naming the
+slice that brings them.
 """
 
 from __future__ import annotations
@@ -35,10 +37,8 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for the model options later slices of the port bring."""
     if cfg.compat:
         raise NotImplementedError("--compat comes with slice 10 of the port")
-    if cfg.arch != "nerf":
-        raise NotImplementedError(
-            f"arch={cfg.arch!r} comes with slice 9 of the port"
-        )
+    if cfg.arch == "hashgrid":
+        raise NotImplementedError("arch='hashgrid' comes with slice 9 (hashgrid) of the port")
     if cfg.contract:
         raise NotImplementedError("--contract comes with slice 5 of the port")
 
@@ -58,6 +58,9 @@ class NerfMLP(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         check_supported(cfg)
+        if cfg.arch != "nerf":
+            raise ValueError(f"NerfMLP is the paper field; arch={cfg.arch!r} is built by "
+                             f"init_nerf_params")
         self.cfg = cfg
         pos_dim = posenc_dim(3, cfg.pos_enc_levels, cfg.include_input_in_enc)
         dir_dim = posenc_dim(3, cfg.dir_enc_levels, cfg.include_input_in_enc)
@@ -93,26 +96,42 @@ def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
     return x
 
 
-def init_nerf_params(cfg: ModelConfig, seed: int = 0, device=None, stream: int = 0) -> NerfMLP:
-    """He truncated-normal weights (fan_in, ReLU gain, cut at 2 std) and
-    zero biases, drawn with numpy from ``seed``: one seed gives the same
-    weights on every device and under every torch version (torch's own
-    truncated-normal draw changed between releases). ``stream`` > 0
-    draws an independent net from the same seed (the hierarchical fine
-    field takes stream 1).
+def seed_rng(seed: int, stream: int = 0) -> np.random.Generator:
+    """numpy's generator for the draw of net ``stream`` from ``seed``."""
+    return np.random.default_rng(seed if stream == 0 else [seed, stream])
+
+
+def he_init_(model: nn.Module, rng: np.random.Generator) -> None:
+    """He truncated-normal weights (fan_in, ReLU gain, cut at 2 std) into
+    every ``Dense`` of ``model``, in module order; biases stay 0."""
+    with torch.no_grad():
+        for layer in model.modules():
+            if isinstance(layer, Dense):
+                std = math.sqrt(2.0 / layer.w.shape[0])
+                layer.w.copy_(torch.from_numpy(std * _truncated_normal(rng, tuple(layer.w.shape))))
+
+
+def init_nerf_params(cfg: ModelConfig, seed: int = 0, device=None, stream: int = 0) -> nn.Module:
+    """The field of ``cfg.arch``: a ``NerfMLP``, or a ``FactoredField``
+    (``models/factored.init_factored_params``). He truncated-normal
+    weights (fan_in, ReLU gain, cut at 2 std) and zero biases, drawn with
+    numpy from ``seed``: one seed gives the same weights on every device
+    and under every torch version (torch's own truncated-normal draw
+    changed between releases). ``stream`` > 0 draws an independent net
+    from the same seed (the hierarchical fine field takes stream 1).
 
     Variance-preserving init is load-bearing for the deep trunk: with
     shrinking activations the sigma head's bias dominates, and if it
     lands negative relu(sigma) is 0 everywhere and the field is dead at
     init (see ``nerf_rs_tpu/models/mlp._init_linear``).
     """
-    rng = np.random.default_rng(seed if stream == 0 else [seed, stream])
+    check_supported(cfg)
+    if cfg.arch == "factored":
+        from .factored import init_factored_params
+
+        return init_factored_params(cfg, seed, device, stream)
     model = NerfMLP(cfg)
-    with torch.no_grad():
-        for layer in model.modules():
-            if isinstance(layer, Dense):
-                std = math.sqrt(2.0 / layer.w.shape[0])
-                layer.w.copy_(torch.from_numpy(std * _truncated_normal(rng, tuple(layer.w.shape))))
+    he_init_(model, seed_rng(seed, stream))
     return model.to(device)
 
 
@@ -135,7 +154,7 @@ def sigma_activation(raw: torch.Tensor, act: str) -> torch.Tensor:
 
 
 def apply_nerf(
-    params: NerfMLP,
+    params: nn.Module,
     points: torch.Tensor,
     viewdirs: Optional[torch.Tensor],
     cfg: ModelConfig,
@@ -153,8 +172,18 @@ def apply_nerf(
     and ``pos_var`` their diagonal variances, encoded with mip-NeRF's
     integrated encoding (same width and layout as the PE, so the same
     weights take either).
+
+    The factored arch (``models/factored.apply_factored``) encodes the
+    points with its line tables and tiny heads; ``pos_var`` does not
+    apply to it, as in the JAX package.
     """
     check_supported(cfg)
+    if cfg.arch == "factored":
+        from .factored import apply_factored
+
+        sigma_raw, rgb_raw = apply_factored(params, points, viewdirs, cfg, dtype)
+        rgb = torch.sigmoid(rgb_raw) if cfg.rgb_activation == "sigmoid" else rgb_raw
+        return sigma_activation(sigma_raw, cfg.sigma_activation), rgb
     low = dtype is not None and dtype != torch.float32
     if cfg.ipe and pos_var is not None:
         x = integrated_posenc(points, pos_var, cfg.pos_enc_levels, cfg.include_input_in_enc)

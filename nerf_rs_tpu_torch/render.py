@@ -30,7 +30,8 @@ def default_render_chunk(render_cfg: RenderConfig, fused: bool = False,
     """Rays per render call for a fixed ray-sample budget (the JAX
     package's rule): 65536 rays at 64 samples, 4x that through the
     kernel (per-sample activations never reach device memory), scaled
-    down as samples per ray grow, power-of-two floored."""
+    down as samples per ray grow, power-of-two floored. The factored
+    field renders on the eager path: 32,768 rays at 128 samples."""
     s, f = render_cfg.num_samples, render_cfg.num_fine_samples
     s_total = max(s, f) if render_cfg.fine_mode == "standalone" else s + f
     mult = 4 if fused else 1

@@ -1,14 +1,17 @@
 """The single-device training step, the counterpart of
 ``nerf_rs_tpu/train/step.py``: MSE of composited colors against gold
-pixels (coarse plus fine with hierarchical sampling, paper eq. 6), Adam
-at the configured rate over every trainable net.
+pixels (coarse plus fine with hierarchical sampling, paper eq. 6), plus
+the factored field's L1 on its line tables (``fac_l1``), Adam at the
+configured rate over every trainable net.
 
 Gradients come from the whole-ray training kernel
 (``kernels/fused_train.py``) whenever ``whole_ray_supported(cfg)`` holds
 -- hierarchical configs as the chain coarse kernel -> resample -> fine
 kernel -- and from autograd of the eager path (``ops/render.render_rays``:
 the field at bf16, compositing in f32) otherwise: the same choice
-``train_step_core`` makes in the JAX package.
+``train_step_core`` makes in the JAX package. The factored field always
+takes autograd; with ``fac_fused`` its encode's gradient comes from K3's
+backward kernel (``kernels/fused_factored.py``).
 
 Two nets: with ``num_fine_samples > 0`` and no ``share_network`` the fine
 pass has its own field, ``TrainState.fine_params``; gradients and Adam
@@ -30,10 +33,11 @@ import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch import nn
 
 from ..config import Config
 
-from ..models.mlp import NerfMLP, check_supported, init_nerf_params
+from ..models.mlp import check_supported, init_nerf_params
 from ..ops import render, sampling
 from ..render import matmul_dtype
 
@@ -44,9 +48,9 @@ Aux = Dict[str, torch.Tensor]
 @dataclasses.dataclass
 class TrainState:
     step: int
-    params: NerfMLP
+    params: nn.Module  # NerfMLP or FactoredField, as cfg.model.arch says
     optimizer: torch.optim.Adam  # one Adam over params and fine_params
-    fine_params: Optional[NerfMLP] = None  # the fine pass's own field (_has_fine_net)
+    fine_params: Optional[nn.Module] = None  # the fine pass's own field (_has_fine_net)
     grid: None = None  # occupancy grid: slice 4
     ema: None = None  # EMA weights: slice 7
 
@@ -114,7 +118,7 @@ def learning_rate(cfg: Config, count: int) -> float:
     return t.learning_rate
 
 
-def make_optimizer(cfg: Config, *nets: NerfMLP) -> torch.optim.Adam:
+def make_optimizer(cfg: Config, *nets: nn.Module) -> torch.optim.Adam:
     """One Adam over every net's parameters with optax's defaults (b1
     0.9, b2 0.999, eps 1e-8), as optax's adam over the tuple of trees;
     the schedule is applied per update by ``apply_grads``."""
@@ -136,11 +140,21 @@ def init_state(cfg: Config, device=None) -> TrainState:
                       fine_params=fine)
 
 
-def loss_fn(params: NerfMLP, batch: Batch, generator: Optional[torch.Generator],
-            cfg: Config, fine_params: Optional[NerfMLP] = None) -> Tuple[torch.Tensor, Aux]:
+def _reg_loss(params: nn.Module, cfg: Config) -> Optional[torch.Tensor]:
+    """The architecture's parameter regulariser: for the factored field,
+    ``fac_l1`` * mean |lines| (TensoRF's L1 on the line tables); else
+    None."""
+    if cfg.model.arch == "factored" and cfg.model.fac_l1 > 0.0:
+        return cfg.model.fac_l1 * torch.mean(torch.abs(params.lines))
+    return None
+
+
+def loss_fn(params: nn.Module, batch: Batch, generator: Optional[torch.Generator],
+            cfg: Config, fine_params: Optional[nn.Module] = None) -> Tuple[torch.Tensor, Aux]:
     """MSE of the coarse pass's colors against the gold pixels, plus the
-    fine pass's with hierarchical sampling (paper eq. 6), through the
-    eager (differentiable) path."""
+    fine pass's with hierarchical sampling (paper eq. 6) and the field's
+    regulariser (``_reg_loss``), through the eager (differentiable)
+    path."""
     coarse, fine = render.render_rays(
         params, batch.origins, batch.dirs, cfg.model, cfg.render, cfg.camera,
         generator=generator, dtype=matmul_dtype(cfg), fine_params=fine_params,
@@ -149,9 +163,12 @@ def loss_fn(params: NerfMLP, batch: Batch, generator: Optional[torch.Generator],
     loss_c = render.mse(coarse.rgb, gold)
     aux = {"loss_coarse": loss_c}
     loss, finest = loss_c, coarse
+    reg = _reg_loss(params, cfg)
+    if reg is not None:
+        loss = loss + reg
     if fine is not None:
         loss_f = render.mse(fine.rgb, gold)
-        loss, finest = loss_c + loss_f, fine
+        loss, finest = loss + loss_f, fine
         aux["loss_fine"] = loss_f
     aux.update({
         "loss": loss,
@@ -174,7 +191,7 @@ def whole_ray_supported(cfg: Config) -> bool:
     )
 
 
-def _whole_ray_pass(params: NerfMLP, batch: Batch, vd: torch.Tensor, ts: torch.Tensor,
+def _whole_ray_pass(params: nn.Module, batch: Batch, vd: torch.Tensor, ts: torch.Tensor,
                     deltas: torch.Tensor, cfg: Config, radii=None):
     """One launch of the whole-ray train kernel over (N, S) samples:
     (gradients keyed like ``params``' state dict, TrainGrads)."""
@@ -192,8 +209,8 @@ def _whole_ray_pass(params: NerfMLP, batch: Batch, vd: torch.Tensor, ts: torch.T
     return unpack_grads(tg, params, cfg.model), tg
 
 
-def whole_ray_grads(params: NerfMLP, batch: Batch, generator: Optional[torch.Generator],
-                    cfg: Config, fine_params: Optional[NerfMLP] = None) -> Tuple[Grads, Aux]:
+def whole_ray_grads(params: nn.Module, batch: Batch, generator: Optional[torch.Generator],
+                    cfg: Config, fine_params: Optional[nn.Module] = None) -> Tuple[Grads, Aux]:
     """Gradients and aux from the whole-ray train kernel: one launch, or
     with hierarchical sampling the chain coarse kernel (which gives the
     per-ray weights) -> inverse-CDF resample -> fine kernel. The losses

@@ -81,6 +81,11 @@ def _resolve(mod, argv):
      "--sigma_activation", "relu"],
     ["render", "--preset", "mipnerf", "--dataset", "sphere", "--width", "800",
      "--height", "800"],
+    ["train", "--preset", "factored", "--dataset", "sphere"],
+    ["train", "--preset", "factored", "--dataset", "sphere", "--fac_levels", "3",
+     "--fac_base_res", "4", "--fac_max_res", "16", "--fac_comps", "8", "--fac_aabb", "1.2",
+     "--fac_l1", "1e-4", "--precision", "f32", "--sigma_activation", "relu"],
+    ["eval", "--arch", "factored", "--dataset", "sphere", "--num_samples", "32"],
 ])
 def test_cli_config_matches_the_jax_cli(argv):
     """Every field of the resolved config, presets and their precedence

@@ -1,7 +1,9 @@
-"""The whole-ray render kernel (csrc/fused_ray.cu) and train kernel
-(csrc/fused_train.cu) against their plain PyTorch versions, on a CUDA
+"""The whole-ray render kernel (csrc/fused_ray.cu), the train kernel
+(csrc/fused_train.cu) and the factored-encode kernel
+(csrc/fused_factored.cu) against their plain PyTorch versions, on a CUDA
 card: PE and IPE, rays that fit a 128-row tile and rays padded to 256
-samples. Every case skips without one.
+samples; the factored encode forward and backward at the main path's
+widths and at small ones. Every case skips without one.
 
 This file imports neither JAX nor the JAX package's tests, so it runs on
 a machine with torch and CUDA alone (the repo's conftest.py needs JAX):
@@ -14,11 +16,13 @@ import pytest
 import torch
 
 from nerf_rs_tpu_torch.config import ModelConfig
+from nerf_rs_tpu_torch.kernels import fused_factored as k3
 from nerf_rs_tpu_torch.kernels.fused_ray import (
     fused_ray_render, fused_ray_render_reference)
 from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
 from nerf_rs_tpu_torch.kernels.fused_train import (
     KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
+from nerf_rs_tpu_torch.models.factored import basis_dim
 from nerf_rs_tpu_torch.models.mlp import init_nerf_params
 
 SMALL = dict(net_depth=4, net_width=64, skip_layer=2, feature_width=64,
@@ -193,3 +197,74 @@ def test_wrapper_refuses_non_contiguous_rays():
     strided = torch.zeros(8, 6, device=dev)[:, ::2]
     with pytest.raises(ValueError, match="contiguous"):
         fused_ray_render(pack_weights(model, cfg), strided, d, vd, ts, dl, cfg, 16)
+
+
+FAC_MAIN = ModelConfig(arch="factored", sigma_activation="softplus")  # sumR 1,014, C 48
+FAC_SMALL = ModelConfig(arch="factored", fac_levels=3, fac_base_res=4, fac_max_res=16,
+                        fac_comps=8, fac_aabb=1.0)
+
+
+def _factored_inputs(cfg, n, dev, seed=0):
+    """Lines, points inside and outside the AABB (a corner, a clipped
+    point among them) and an encoding cotangent."""
+    rng = np.random.default_rng(seed)
+    lines = (0.25 * rng.normal(size=(3, basis_dim(cfg), cfg.fac_comps))).astype(np.float32)
+    a = cfg.fac_aabb
+    pts = rng.uniform(-1.2 * a, 1.2 * a, (n, 3)).astype(np.float32)
+    pts[:2] = [[a, -a, a], [2 * a, 0.0, -2 * a]]
+    g = rng.normal(size=(n, cfg.fac_comps)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (lines, pts, g))
+
+
+def _check_factored(enc, d, lines, pts, g, cfg, dtype):
+    """K3 against its plain versions at k3.KERNEL_TOL: enc absolute,
+    d_lines per axis relative to the axis's largest entry."""
+    want = k3.fused_factored_encode_reference(lines, pts, cfg, dtype)
+    assert enc.shape == want.shape and bool(torch.isfinite(enc).all())
+    assert float((enc - want).abs().max()) <= k3.KERNEL_TOL["enc"]
+    want_d = k3.fused_factored_encode_backward_reference(lines, pts, g, cfg, dtype)
+    for a in range(3):
+        scale = float(want_d[a].abs().max())
+        assert scale > 0
+        assert float((d[a] - want_d[a]).abs().max()) / scale <= k3.KERNEL_TOL["d_lines"], a
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+@pytest.mark.parametrize("cfg,n", [(FAC_MAIN, 100_003), (FAC_SMALL, 37)], ids=["main", "small"])
+def test_factored_kernels_match_plain_versions(cfg, n, dtype):
+    """Forward and backward, through the wrappers and through the
+    autograd.Function (whose backward launches the backward kernel)."""
+    dev = _device()
+    lines, pts, g = _factored_inputs(cfg, n, dev)
+    before = (k3.fused_factored_encode.launches, k3.fused_factored_encode_backward.launches)
+    enc = k3.fused_factored_encode_forward(lines, pts, cfg, dtype)
+    d = k3.fused_factored_encode_backward(lines, pts, g, cfg, dtype)
+    torch.cuda.synchronize()
+    assert (k3.fused_factored_encode.launches,
+            k3.fused_factored_encode_backward.launches) == (before[0] + 1, before[1] + 1)
+    _check_factored(enc, d, lines, pts, g, cfg, dtype)
+    leaf = lines.clone().requires_grad_()
+    out = k3.fused_factored_encode(leaf, pts.reshape(-1, 1, 3), cfg, dtype)
+    assert out.shape == (n, 1, cfg.fac_comps)
+    out.backward(g.reshape(n, 1, -1))
+    assert torch.equal(out.detach().reshape(n, -1), enc) and torch.equal(leaf.grad, d)
+
+
+def test_factored_backward_is_deterministic():
+    dev = _device()
+    lines, pts, g = _factored_inputs(FAC_MAIN, 300_001, dev, seed=1)
+    a = k3.fused_factored_encode_backward(lines, pts, g, FAC_MAIN, torch.bfloat16)
+    b = k3.fused_factored_encode_backward(lines, pts, g, FAC_MAIN, torch.bfloat16)
+    assert torch.equal(a, b)
+
+
+def test_factored_wrappers_refuse_what_the_kernels_do_not_take():
+    dev = _device()
+    lines, pts, g = _factored_inputs(FAC_SMALL, 8, dev)
+    strided = torch.zeros(8, 6, device=dev)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.fused_factored_encode_forward(lines, strided, FAC_SMALL)
+    with pytest.raises(ValueError, match="f32"):
+        k3.fused_factored_encode_forward(lines, pts.double(), FAC_SMALL)
+    with pytest.raises(ValueError, match="f32"):
+        k3.fused_factored_encode_backward(lines, pts, g.half(), FAC_SMALL)

@@ -160,9 +160,11 @@ def test_init_is_seeded_he_truncated_normal():
     np.testing.assert_allclose(m1.trunk[0].w.detach().reshape(-1)[:8].numpy(), first, rtol=1e-6)
 
 
+# the factored arch is ported (tests/test_torch_factored.py); compat wins
+# over any arch, as in the JAX package
 @pytest.mark.parametrize("kw", [{"compat": True}, {"arch": "hashgrid"},
-                                {"arch": "factored"}, {"ipe": True, "contract": True},
-                                {"contract": True}])
+                                {"compat": True, "arch": "factored"},
+                                {"ipe": True, "contract": True}, {"contract": True}])
 def test_unported_models_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         mlp.NerfMLP(ModelConfig(**kw))

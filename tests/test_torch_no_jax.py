@@ -1,7 +1,8 @@
 """The PyTorch port stands without JAX and without the JAX package: every
 module of nerf_rs_tpu_torch imports, a frame renders, two train steps run
-(kernel path and autograd path), and one step each of the hierarchical
-and mipnerf settings, in a process that never loads jax, jaxlib, flax,
+(kernel path and autograd path), one step each of the hierarchical and
+mipnerf settings and of the factored field (both encode routes), in a
+process that never loads jax, jaxlib, flax,
 optax or any module of nerf_rs_tpu. Plus checks of chip_smoke.py, which
 runs only on the card: an undefined-name lint (the idea of
 test_bench_lint.py), no import of the JAX package in any form, and that
@@ -61,6 +62,18 @@ for model, render in ((small, hier),
     state, aux = fn(state, step.step_generator(0, 0, "cpu"))
     assert state.step == 1 and bool(torch.isfinite(aux["loss_fine"]))
     assert (state.fine_params is None) == render.share_network
+# one step of the factored field, through K3's plain versions and through
+# the dense-hat encode
+fac = ModelConfig(arch="factored", fac_levels=2, fac_base_res=4, fac_max_res=8, fac_comps=4,
+                  sigma_activation="softplus")
+for fused in (True, False):
+    tcfg = dataclasses.replace(cfg, model=dataclasses.replace(fac, fac_fused=fused),
+                               train=TrainConfig(num_rays=16, learning_rate=1e-2),
+                               data=DataConfig(dataset="sphere"))
+    state = step.init_state(tcfg)
+    fn = step.make_train_step(tcfg, make_dataset(tcfg))
+    state, aux = fn(state, step.step_generator(0, 0, "cpu"))
+    assert state.step == 1 and bool(torch.isfinite(aux["loss"]))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_rs_tpu"))
 print("modules", len(names), "jax-family", bad)

@@ -154,13 +154,17 @@ def test_composite_and_psnr_match_jax():
 
 
 def test_default_render_chunk_matches_jax():
-    mc = ModelConfig()
-    for rc in (RenderConfig(), RenderConfig(num_samples=16),
-               RenderConfig(num_samples=192), RenderConfig(num_fine_samples=128)):
-        for fused in (False, True):
-            assert default_render_chunk(rc, fused, mc) == jdp.default_render_chunk(
-                _j(rc), fused, _j(mc))
+    for mc in (ModelConfig(), ModelConfig(arch="factored")):
+        for rc in (RenderConfig(), RenderConfig(num_samples=16), RenderConfig(num_samples=128),
+                   RenderConfig(num_samples=192), RenderConfig(num_fine_samples=128)):
+            for fused in (False, True):
+                assert default_render_chunk(rc, fused, mc) == jdp.default_render_chunk(
+                    _j(rc), fused, _j(mc))
     assert default_render_chunk(RenderConfig(), fused=True) == 262144
+    # the factored field renders on the eager path: 32,768 rays of 128
+    # samples, 20 chunks per 800x800 frame
+    fac = default_render_chunk(RenderConfig(num_samples=128), False, ModelConfig(arch="factored"))
+    assert fac == 32768 and -(-800 * 800 // fac) == 20
 
 
 def test_make_render_packs_once_and_chunks_without_padding(monkeypatch):

@@ -225,6 +225,9 @@ def test_presets_resolve_like_the_jax_cli():
     (["train", "--multiscale_levels", "2"], 3),
     (["train", "--ema_decay", "0.9"], 7),
     (["eval", "--scales", "1,2"], 3),
+    (["train", "--arch", "hashgrid"], "9 (hashgrid)"),
+    (["train", "--preset", "ngp"], "9 (hashgrid)"),
+    (["render", "--hash_levels", "8"], "9 (hashgrid)"),
 ])
 def test_cli_names_the_slice_of_what_it_refuses(argv, slice_no, capsys):
     try:
