@@ -70,6 +70,25 @@ Phases, each fatal (any failure exits non-zero):
      each beside its plain version, a PyTorch library path
      (F.embedding_bag over the 2L taps per axis, and its autograd) and
      its bound.
+ 15. K4, the row gather (gather_rows, gather_pairs), vs its plain versions,
+     bit for bit, on the indices of an ngp train step (4096 rays x 128
+     jittered samples, every 8th point past the AABB) captured from the
+     encodes: gather_rows on the (131,072, 128) brick table at a sub-chunk's
+     2,097,152 rows, at a ragged N and with repeated rows; gather_pairs on
+     the flat table at the step's 67,108,864 pairs.
+ 16. the hash-grid path through the CLI, for `--preset ngp` (brick) and
+     with `--hash_brick false` (flat): `train` for NGP_STEPS steps at full
+     width (4 gather_rows or 1 gather_pairs per step, and the eval at step
+     50), `render --view 0` at 800x800 (625 gather_rows, or 157
+     gather_pairs) and `eval --max_views 2`, each with its exact K4 launch
+     count; the frame's first chunk from the trained weights through K4 and
+     through the plain route, bit for bit; then the 64x64 learning drive of
+     `--preset ngp` for LEARN_SEEDS, the mean over seeds of `cli eval`'s mean
+     PSNR over LEARN_VIEWS views above NGP_PSNR.
+ 17. times: each layout's step (best of 3 windows) with a profile's device
+     idle share, each layout's 800x800 frame, and K4's two calls at the
+     main path's shapes beside their plain versions, torch.index_select and
+     their bounds.
 Every kernel launch counter is set to 0 just before the path it counts
 and read just after. The line before the last is one JSON object
 describing the kernels (with each one's bound and a PyTorch library
@@ -150,7 +169,7 @@ BRANCH_SHAPES = (("K1", "IPE, S=128", True, 131072, 128),
                  ("K2", "IPE, S=64", True, 4096, 64),
                  ("K2", "IPE, S=128", True, 4096, 128),
                  ("K2", "S=192", False, 4096, 192))
-KERNELS = ("fused_ray", "fused_train", "fused_factored")  # csrc/{name}.cu
+KERNELS = ("fused_ray", "fused_train", "fused_factored", "gather_rows")  # csrc/{name}.cu
 # the card's published dense bf16 rate, f32 rate outside the tensor cores,
 # and memory rate (H100 SXM, 700 W)
 PEAK_FLOPS = 989e12
@@ -170,6 +189,22 @@ FAC_CHUNK = 32768  # rays of a render chunk: 4,194,304 points
 # activation the other way. Both read 0 on an H100 (the bf16 route's
 # encodings came out bit-equal); the bars leave room for a few such flips.
 FAC_FRAME_TOL = {"mean": 1e-5, "max": 5e-3}
+# The hash-grid path (phases 15-17): `--preset ngp` is the brick table, and
+# `--hash_brick false` the flat one. The 64x64 learning drive (--preset ngp
+# --num_samples 32, 1024 rays, lr 1e-2, 301 steps) must pass min(20 dB, the
+# JAX package's own drives on the same flags and seeds on the CPU, less 1
+# dB): those read 17.07 / 17.29 / 17.63 dB, mean 17.33 (PERF.md has the
+# commands).
+NGP_LAYOUTS = {"brick": (), "flat": ("--hash_brick", "false")}
+NGP_STEPS = 51
+# K4 launches per train step, per 128x128 eval view and per 800x800 frame, as
+# the JAX chunking gives them: 2^17 points per gather_rows call, 32,768-ray
+# (brick) or 4096-ray (flat) render chunks
+NGP_K4 = {"brick": (4, 16, 625), "flat": (1, 4, 157)}
+NGP_PSNR = 16.33
+NGP_RAYS = 4096  # rays of a train step: 524,288 points at 128 samples
+NGP_RAGGED = 100_003
+GATHER_CALLS = 20  # K4 calls per timing window
 
 
 def fail(msg: str) -> None:
@@ -1404,6 +1439,352 @@ def time_factored(card: str, ds, lines) -> dict:
     return out
 
 
+def ngp_cfg(layout: str, *extra):
+    """`--preset ngp` (the brick table) or with `--hash_brick false` (flat)."""
+    return preset_cfg("ngp", *NGP_LAYOUTS[layout], *extra)
+
+
+def ngp_fetches(cfg, points: int) -> int:
+    """K4 launches of one encode of ``points`` points: one gather_pairs
+    (flat), or one gather_rows per _BRICK_CHUNK points (brick)."""
+    from nerf_rs_tpu_torch.models.hashgrid import _BRICK_CHUNK
+
+    return math.ceil(points / _BRICK_CHUNK) if cfg.model.hash_brick else 1
+
+
+def ngp_render_fetches(cfg, rays: int) -> int:
+    """K4 launches of rendering ``rays`` rays: the render chunks'
+    encodes."""
+    from nerf_rs_tpu_torch.render import default_render_chunk
+
+    chunk = default_render_chunk(cfg.render, model_cfg=cfg.model)
+    return sum(ngp_fetches(cfg, min(chunk, rays - i) * cfg.render.num_samples)
+               for i in range(0, rays, chunk))
+
+
+def k4_counts(brick: bool) -> tuple:
+    """(launches of the layout's K4 entry point, launches of the other)."""
+    from nerf_rs_tpu_torch.kernels import gather_rows as k4
+
+    rows, pairs = k4.gather_rows.launches, k4.gather_pairs.launches
+    return (rows, pairs) if brick else (pairs, rows)
+
+
+def reset_k4() -> None:
+    from nerf_rs_tpu_torch.kernels import gather_rows as k4
+
+    k4.gather_rows.launches = k4.gather_pairs.launches = 0
+
+
+def ngp_fetch_inputs(dev) -> dict:
+    """The K4 calls of one ngp train step (4096 rays x 128 jittered samples,
+    every 8th point pushed out past the AABB), captured from the encodes on
+    seed-0 tables: the brick layout's first gather_rows call (a sub-chunk of
+    2^17 points x 16 levels = 2^21 rows of the (131,072, 128) table) and the
+    flat layout's gather_pairs call (2^26 pairs of the (8,388,608, 2)
+    table)."""
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels import gather_rows as k4
+    from nerf_rs_tpu_torch.models import hashgrid
+    from nerf_rs_tpu_torch.models.mlp import init_nerf_params
+
+    seen = {}
+    real = k4.gather_rows, k4.gather_pairs
+
+    def spy(name, fn):
+        def call(table, idx):
+            seen.setdefault(name, (table, idx.clone()))
+            return fn(table, idx)
+        call.launches = 0  # the wrapper counts on the name it is bound to
+        return call
+
+    brick, flat = ngp_cfg("brick"), ngp_cfg("flat")
+    pts = factored_points(make_dataset(brick, dev), brick.camera, NGP_RAYS, 21)
+    k4.gather_rows, k4.gather_pairs = spy("rows", real[0]), spy("pairs", real[1])
+    try:
+        with torch.no_grad():
+            for cfg, encode in ((brick, hashgrid.brick_encode), (flat, hashgrid.hash_encode)):
+                encode(init_nerf_params(cfg.model, 0, dev).table.detach(), pts, cfg.model)
+    finally:
+        k4.gather_rows, k4.gather_pairs = real
+    return seen
+
+
+def check_gather_kernel(inputs) -> float:
+    """K4 against its plain versions on the card, bit for bit: gather_rows
+    at the brick sub-chunk's 2^21 rows, at a ragged N, and with each row
+    repeated 64 times; gather_pairs at the flat step's 2^26 pairs. Returns
+    the largest absolute difference (0 when the bits agree)."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import gather_rows as k4
+
+    table, idx = inputs["rows"]
+    flat, fidx = inputs["pairs"]
+    rep = idx[torch.arange(idx.shape[0], device=idx.device) // 64]
+    cases = [("gather_rows", k4.gather_rows, k4.gather_rows_reference, table, i, name)
+             for i, name in ((idx, "2^21 rows of a brick sub-chunk"),
+                             (idx[:NGP_RAGGED], f"{NGP_RAGGED} rows (ragged)"),
+                             (rep, "2^21 rows, each repeated 64 times"))]
+    cases.append(("gather_pairs", k4.gather_pairs, k4.gather_pairs_reference, flat, fidx,
+                  "2^26 pairs of a flat step"))
+    worst = 0.0
+    for kernel, fn, plain, t, i, name in cases:
+        got = fn(t, i)
+        torch.cuda.synchronize()
+        want = plain(t, i)
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+            fail(f"K4 {kernel} [{name}]: shape {tuple(got.shape)} or non-finite values")
+        err = float((got - want).abs().max())
+        print(f"K4 {kernel} vs plain [{name}]: max |diff| {err:g}, bit-equal "
+              f"{torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            fail(f"K4 {kernel} [{name}] differs from its plain version")
+        worst = max(worst, err)
+        del got, want
+    return worst
+
+
+@contextlib.contextmanager
+def plain_gather_route():
+    """Route the hash grid's table fetch to K4's plain versions, for the
+    frame check only."""
+    from nerf_rs_tpu_torch.kernels import gather_rows as k4
+
+    real = k4.gather_rows, k4.gather_pairs
+    k4.gather_rows, k4.gather_pairs = k4.gather_rows_reference, k4.gather_pairs_reference
+    try:
+        yield
+    finally:
+        k4.gather_rows, k4.gather_pairs = real
+
+
+def drive_ngp(tmp: str, layout: str, fo, fd) -> dict:
+    """`cli train --preset ngp` (brick, or flat with --hash_brick false) for
+    NGP_STEPS steps at full width with an eval at step 50, `render --view 0`
+    at 800x800 and `eval --max_views 2` on its checkpoint, each with its
+    exact K4 launch count (derived from the chunking, and held to the
+    counts the design gives: brick 4 per step, 16 per 128x128 view, 625
+    per frame; flat 1, 4 and 157). Then the frame's first render chunk from
+    the trained weights through K4 and through the plain route: the same
+    bits. Returns the launch counts by path."""
+    import torch
+
+    from nerf_rs_tpu_torch.ops import render as render_ops
+    from nerf_rs_tpu_torch.render import default_render_chunk
+    from nerf_rs_tpu_torch.train import checkpoint as ckpt
+    from nerf_rs_tpu_torch.train.step import init_state
+
+    brick = layout == "brick"
+    cfg = ngp_cfg(layout)
+    fcfg = ngp_cfg(layout, "--width", str(FRAME), "--height", str(FRAME))
+    S, view = cfg.render.num_samples, cfg.camera.width * cfg.camera.height
+    step_k4 = ngp_fetches(cfg, cfg.train.num_rays * S)
+    view_k4 = ngp_render_fetches(cfg, view)
+    frame_k4 = ngp_render_fetches(fcfg, FRAME * FRAME)
+    if (step_k4, view_k4, frame_k4) != NGP_K4[layout]:
+        fail(f"ngp {layout}: K4 launches per step, view and frame {step_k4, view_k4, frame_k4}")
+    ckdir = os.path.join(tmp, f"ngp-{layout}")
+    flags = ["--preset", "ngp", *NGP_LAYOUTS[layout], "--dataset", "sphere", "--save_dir", ckdir]
+    reset_k4()
+    t0 = time.perf_counter()
+    rc, out = run_cli(["train", *flags, "--num_iter", str(NGP_STEPS), "--eval_steps", "50",
+                       "--save_steps", "1000", "--log_dir", ckdir])
+    got, other = k4_counts(brick)
+    want = NGP_STEPS * step_k4 + view_k4
+    print(f"cli train --preset ngp [{layout}], {NGP_STEPS} steps: rc {rc}, K4 launches {got} "
+          f"(want {want}), {time.perf_counter() - t0:.1f} s")
+    losses = [float(v) for v in re.findall(r"iter=\d+, loss=(\S+)", out)]
+    evals = [float(v) for v in re.findall(r"eval psnr=(\S+)", out)]
+    if rc != 0 or (got, other) != (want, 0):
+        fail(f"train --preset ngp [{layout}]: rc {rc}, K4 launches {got} / {other} "
+             f"(want {want} / 0)")
+    if not losses or len(evals) != 1 or not all(map(math.isfinite, losses + evals)):
+        fail(f"train --preset ngp [{layout}]: losses {losses}, eval psnrs {evals}")
+    counts = {"train": got}
+    for key, argv, want in (
+            ("render", ["render", "--width", str(FRAME), "--height", str(FRAME), "--view", "0",
+                        "--out_dir", os.path.join(tmp, f"ngp-{layout}-render")], frame_k4),
+            ("eval", ["eval", "--max_views", "2"], 2 * view_k4)):
+        reset_k4()
+        rc, out = run_cli([*argv, *flags])
+        got, other = k4_counts(brick)
+        m = re.search(r"psnr[= ](\S+)", out)
+        print(f"cli {key} --preset ngp [{layout}]: rc {rc}, K4 launches {got} (want {want})")
+        if rc != 0 or (got, other) != (want, 0) or m is None or not math.isfinite(
+                float(m.group(1))):
+            fail(f"{key} --preset ngp [{layout}]: rc {rc}, K4 launches {got} / {other} "
+                 f"(want {want} / 0), psnr {m and m.group(1)}")
+        counts[key] = got
+    if read_png(os.path.join(tmp, f"ngp-{layout}-render", "view-0.png")).shape != (
+            FRAME, FRAME, 3):
+        fail(f"ngp [{layout}] wrote no {FRAME}x{FRAME} view")
+
+    # the frame's first chunk from the trained weights, K4 vs the plain route
+    params = init_state(fcfg, fo.device).params
+    ckpt.restore_weights(ckpt.latest_checkpoint(ckdir), params)
+    chunk = default_render_chunk(fcfg.render, model_cfg=fcfg.model)
+    rgbs = []
+    for route in (contextlib.nullcontext, plain_gather_route):
+        with route(), torch.no_grad():
+            rgbs.append(render_ops.render_rays(
+                params, fo.reshape(-1, 3)[:chunk], fd.reshape(-1, 3)[:chunk], fcfg.model,
+                fcfg.render, fcfg.camera, randomized=False, dtype=torch.bfloat16)[0].rgb)
+    err = float((rgbs[0] - rgbs[1]).abs().max())
+    print(f"ngp [{layout}] frame, K4 vs plain route on its first {chunk} rays: rgb max |diff| "
+          f"{err:g} (want the same bits); rgb in [{float(rgbs[0].min()):.4f}, "
+          f"{float(rgbs[0].max()):.4f}]")
+    if not torch.equal(rgbs[0], rgbs[1]):
+        fail(f"ngp [{layout}] frame: K4 and the plain route differ by {err}")
+    return counts
+
+
+def ngp_learning(tmp: str) -> dict:
+    """The 64x64 `--preset ngp` drive (--num_samples 32, 1024 rays, lr 1e-2,
+    301 steps) through K4 for each seed in LEARN_SEEDS, then `cli eval` on
+    its checkpoint: the mean over seeds of the mean PSNR over LEARN_VIEWS
+    views must pass NGP_PSNR."""
+    common = ["--preset", "ngp", "--dataset", "sphere", "--width", "64", "--height", "64",
+              "--num_samples", "32"]
+    cfg = ngp_cfg("brick", "--width", "64", "--height", "64", "--num_samples", "32",
+                  "--num_rays", "1024")
+    want = 301 * ngp_fetches(cfg, 1024 * 32) + 3 * ngp_render_fetches(cfg, 64 * 64)
+    per_seed, launches = {}, 0
+    for seed in LEARN_SEEDS:
+        vdir = os.path.join(tmp, f"learn-ngp-{seed}")
+        reset_k4()
+        rc, out = run_cli(["train", *common, "--seed", str(seed), "--num_rays", "1024",
+                           "--num_iter", "301", "--eval_steps", "100", "--save_dir", vdir,
+                           "--log_dir", vdir])
+        curve = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", out))
+        if rc != 0 or k4_counts(True) != (want, 0):
+            fail(f"ngp learning drive, seed {seed}: rc {rc}, K4 launches {k4_counts(True)} "
+                 f"(want {want} / 0)")
+        launches += want
+        rc, out = run_cli(["eval", *common, "--save_dir", vdir, "--max_views", str(LEARN_VIEWS)])
+        m = re.search(r"mean psnr over \d+ \S+ views: (\S+)", out)
+        if rc != 0 or m is None or not math.isfinite(float(m.group(1))):
+            fail(f"ngp learning drive, seed {seed}: eval rc {rc}, no finite mean psnr")
+        per_seed[seed] = {"view0_curve": curve, "mean_psnr": float(m.group(1))}
+    mean = sum(r["mean_psnr"] for r in per_seed.values()) / len(per_seed)
+    print(f"ngp learning drives through K4 (64x64, 32 samples): mean psnr over {LEARN_VIEWS} "
+          f"views at 301 per seed {[r['mean_psnr'] for r in per_seed.values()]}, mean "
+          f"{mean:.3f} (bar {NGP_PSNR})")
+    if not mean > NGP_PSNR:
+        fail(f"ngp learning drives: mean psnr {mean:.3f} over seeds {LEARN_SEEDS} "
+             f"(need > {NGP_PSNR})")
+    return {"seeds": per_seed, "mean_psnr": mean, "launches": launches}
+
+
+def time_ngp(card: str, fo, fd) -> dict:
+    """Each layout's ngp step (4096 rays x 128, mixed, the autograd path)
+    as the best of 3 windows of 10 steps, a profile of 5 steps (device
+    idle share), and its 800x800 frame (seed-0 weights), best of 3."""
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.render import render_frame
+    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+
+    dev = fo.device
+    out = {}
+    for layout in NGP_LAYOUTS:
+        cfg = ngp_cfg(layout)
+        state = init_state(cfg, dev)
+        fn = make_train_step(cfg, make_dataset(cfg, dev))
+        it = [0]
+
+        def run(k):
+            nonlocal state
+            for _ in range(k):
+                state, _ = fn(state, step_generator(0, it[0], dev))
+                it[0] += 1
+        run(3)
+        step_ms = best_of(lambda: run(10)) / 10 * 1e3
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(5)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 5
+        per = sorted(((v / 5, k) for k, v in device_ms(prof).items()), reverse=True)
+        busy = sum(v for v, _ in per)
+        idle = 100 * (1 - busy / wall)
+        print(f"ngp [{layout}] train step [{card}]: {step_ms:.3f} ms/step (best of 3 windows "
+              f"of 10); profile: wall {wall:.3f} ms/step, device busy {busy:.3f} ms/step, "
+              f"idle {idle:.1f}%")
+        for v, k in per[:10]:
+            print(f"  {v:8.3f} ms/step  {k[:100]}")
+        del state, fn
+        fcfg = ngp_cfg(layout, "--width", str(FRAME), "--height", str(FRAME))
+        params = init_state(fcfg, dev).params
+        frame = lambda: render_frame(fcfg, params, fo, fd)  # noqa: E731
+        if not bool(torch.isfinite(frame()[0]).all()):
+            fail(f"ngp [{layout}] 800x800 frame: non-finite values")
+        frame_s = best_of(frame)
+        print(f"ngp [{layout}] 800x800 frame [{card}]: {frame_s:.4f} s (best of 3)")
+        out[layout] = {"step_ms": step_ms, "idle_pct": idle, "profiled_wall_ms": wall,
+                       "busy_ms": busy, "frame_s": frame_s}
+        del params
+    return out
+
+
+def time_gather(card: str, inputs) -> dict:
+    """K4's calls at the main path's shapes (gather_rows at a brick
+    sub-chunk's 2^21 rows, gather_pairs at a flat step's 2^26 pairs), each
+    beside its plain version, the library call (torch.index_select, on the
+    table for gather_rows and on its (M/2, 2) view at fidx // 2 for
+    gather_pairs) and its bound: the bytes these indices need (each
+    distinct row or pair read once, the indices read, the output written)
+    over the memory rate. Each time is per call, over a CUDA-event window
+    of GATHER_CALLS calls: the wrapper's (gather_pairs' includes its
+    evenness check), and the kernel's own device time from a profile."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import gather_rows as k4
+
+    table, idx = inputs["rows"]
+    flat, fidx = inputs["pairs"]
+    pairs_view = flat.view(-1, 2)
+    half = fidx // 2
+    rows = {}
+    for name, fn, plain, lib, ids, width, tag in (
+            ("gather_rows", lambda: k4.gather_rows(table, idx),
+             lambda: k4.gather_rows_reference(table, idx),
+             lambda: torch.index_select(table, 0, idx), idx, table.shape[1], "gather_rows_kernel"),
+            ("gather_pairs", lambda: k4.gather_pairs(flat, fidx),
+             lambda: k4.gather_pairs_reference(flat, fidx),
+             lambda: torch.index_select(pairs_view, 0, half), half, 2, "gather_pairs_kernel")):
+        n = ids.shape[0]
+        distinct = int(torch.unique(ids).numel())
+        nbytes = distinct * width * 4 + n * 4 + n * width * 4
+        if not torch.equal(lib(), fn()):
+            fail(f"{name}: torch.index_select and K4 disagree")
+
+        def per_call(f):
+            def loop():
+                for _ in range(GATHER_CALLS):
+                    f()
+            return event_ms(loop) / GATHER_CALLS
+        ms, plain_ms, library_ms = per_call(fn), per_call(plain), per_call(lib)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(GATHER_CALLS):
+                fn()
+            torch.cuda.synchronize()
+        kernel_ms = sum(v for k, v in device_ms(prof).items() if tag in k) / GATHER_CALLS
+        b, by = bound_ms(0.0, nbytes)
+        print(f"K4 {name}, {n} indices ({distinct} distinct) [{card}]: wrapper {ms:.3f} ms "
+              f"(kernel alone {kernel_ms:.3f} ms, {nbytes / (kernel_ms * 1e-3) / 1e12:.2f} "
+              f"TB/s of needed bytes), plain {plain_ms:.3f} ms, torch.index_select "
+              f"{library_ms:.3f} ms, bound {b:.4f} ms ({by}, {nbytes / 1e9:.3f} GB)")
+        rows[name] = {"indices": n, "distinct": distinct, "ms": ms, "kernel_ms": kernel_ms,
+                      "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b,
+                      "bound_by": by, "bytes": nbytes}
+    return rows
+
+
 def time_step(root: str) -> int:
     """The flagship path's times for the checkout at ``root``: the train
     step through K2, autograd and the plain version, one K2 call, and one
@@ -1437,6 +1818,7 @@ def time_step(root: str) -> int:
 def main() -> int:
     import torch
 
+    t_start = time.perf_counter()
     # ---- 1. device ----
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the card only")
@@ -1514,6 +1896,10 @@ def main() -> int:
     fac_lines = init_nerf_params(fcfg.model, 0, dev).lines.detach()
     fac_errs = check_factored_kernel(fac_ds, fcfg.model, fcfg.camera, fac_lines)
 
+    # ---- 15. K4 vs its plain versions, at an ngp step's indices ----
+    k4_inputs = ngp_fetch_inputs(dev)
+    k4_err = check_gather_kernel(k4_inputs)
+
     # ---- 5. the render path through the CLI ----
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1582,6 +1968,10 @@ def main() -> int:
         fac_counts = drive_factored(tmp, fo, fd, card)
         drive_factored_cli(tmp)
         fac_learned = factored_learning(tmp, dev)
+
+        # ---- 16. the hash-grid path through the CLI, brick and flat ----
+        ngp_counts = {layout: drive_ngp(tmp, layout, fo, fd) for layout in NGP_LAYOUTS}
+        ngp_learned = ngp_learning(tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1631,6 +2021,10 @@ def main() -> int:
     fac_times = time_factored(card, fac_ds, fac_lines)
     fac_fwd, fac_bwd, fac_chunk = fac_times.pop("calls")
 
+    # ---- 17. times of the hash-grid path and K4 ----
+    ngp_times = time_ngp(card, fo, fd)
+    k4_times = time_gather(card, k4_inputs)
+
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "nerf_rs_tpu"))
     if bad:
         fail(f"imported {bad}: the port stands without JAX and the JAX package")
@@ -1648,6 +2042,10 @@ def main() -> int:
                 **{f"{p}_train": c["train"] for p, c in preset_counts.items()}}
     k3_paths = {f"factored_{k}": fac_counts[k] for k in ("train", "frame", "eval")}
     k3b_paths = {"factored_train": fac_counts["train_backward"]}
+    k4_paths = {layout: {f"ngp_{layout}_{k}": v for k, v in c.items()}
+                for layout, c in ngp_counts.items()}
+    k4_paths["brick"]["ngp_brick_learning"] = ngp_learned.pop("launches")
+    k4_rows = {"brick": ("gather_rows", ":54"), "flat": ("gather_pairs", ":133")}
     print(json.dumps({"kernels": [{
         "name": "fused_ray_render",
         "route": "cuda",
@@ -1706,9 +2104,22 @@ def main() -> int:
         "bound_by": fac_bwd["bound_by"],
         "library_ms": fac_bwd["library_ms"],
         "points": fac_bwd["points"],
-    }], "presets": preset_times, "learning": learned,
+    }, *({
+        "name": name,
+        "route": "cuda",
+        "source": "nerf_rs_tpu_torch/kernels/csrc/gather_rows.cu",
+        "replaces": f"nerf_rs_tpu/kernels/gather_rows.py{line}",
+        "launches": sum(k4_paths[layout].values()),
+        "launches_by_path": k4_paths[layout],
+        "max_abs_err": k4_err,
+        **{k: k4_times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                          "library_ms", "kernel_ms", "indices", "distinct")},
+    } for layout, (name, line) in k4_rows.items())],
+        "presets": preset_times, "learning": learned,
         "factored": {**fac_times, "frame_s": fac_counts["frame_s"],
-                     "learning": fac_learned}}))
+                     "learning": fac_learned},
+        "ngp": {**ngp_times, "learning": ngp_learned}}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, build included")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

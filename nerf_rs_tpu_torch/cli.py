@@ -6,6 +6,7 @@ of ``cmd_train``, ``cmd_eval`` and ``cmd_render`` in
   python -m nerf_rs_tpu_torch.cli train --preset hierarchical --dataset sphere
   python -m nerf_rs_tpu_torch.cli eval --preset mipnerf --dataset sphere --max_views 3
   python -m nerf_rs_tpu_torch.cli train --preset factored --dataset sphere
+  python -m nerf_rs_tpu_torch.cli train --preset ngp --dataset sphere [--hash_brick false]
   python -m nerf_rs_tpu_torch.cli render --dataset sphere --view 0
 
 It takes the JAX parser's flags that the ported slices serve, with the
@@ -15,7 +16,10 @@ with the JAX package's values, and explicit flags beat the preset).
 ``--preset factored`` (or ``--arch factored``) selects the factored field,
 whose encode runs as the JAX CLI runs it, through the dense hat matrix:
 the factored-encode kernel is ``ModelConfig.fac_fused``, for which the
-parser has no flag.
+parser has no flag. ``--preset ngp`` (or ``--arch hashgrid``) selects the
+hash-grid field, in the brick table layout with the preset and in the flat
+one with ``--hash_brick false``; every table fetch goes through the row-gather
+kernel.
 Flags, presets and values of slices not ported yet, and the ``export``
 subcommand, are refused with an error that names the slice, never
 ignored.
@@ -62,12 +66,10 @@ _LATER_FLAGS = {
        "use_native_loader error_resample_frac error_resample_ema",
     7: "ema_decay accumulation_steps profile_steps log_densities_only depth gif",
     8: "num_devices shard_pixel_store scenes scene_index",
-    "9 (hashgrid)": "hash_levels hash_table_log2 hash_base_res hash_max_res hash_aabb "
-                    "hash_brick",
     10: "compat",
 }
 _FLAG_SLICE = {f: n for n, flags in _LATER_FLAGS.items() for f in flags.split()}
-_PRESET_SLICE = {"record": 4, "proposal": 5, "unbounded": 5, "pod": 6, "ngp": "9 (hashgrid)"}
+_PRESET_SLICE = {"record": 4, "proposal": 5, "unbounded": 5, "pod": 6}
 
 
 def _bool_flag(p, name, default, help=""):
@@ -123,9 +125,20 @@ def build_parser() -> argparse.ArgumentParser:
     _bool_flag(common, "ipe", False,
                "mip-NeRF: conical-frustum intervals with the integrated encoding")
     common.add_argument("--arch", default="nerf", choices=["nerf", "hashgrid", "factored"],
-                        help="field family: the paper NeRF, or the factored (CP) "
-                             "multiresolution lines with tiny heads; hashgrid comes with "
-                             "slice 9 (hashgrid)")
+                        help="field family: the paper NeRF, the Instant-NGP hash encoding "
+                             "with tiny heads, or the factored (CP) multiresolution lines "
+                             "with tiny heads")
+    common.add_argument("--hash_levels", type=int, default=16,
+                        help="hashgrid resolution levels")
+    common.add_argument("--hash_table_log2", type=int, default=19,
+                        help="log2 entries per hash level")
+    common.add_argument("--hash_base_res", type=int, default=16)
+    common.add_argument("--hash_max_res", type=int, default=1024)
+    common.add_argument("--hash_aabb", type=float, default=1.6,
+                        help="hash grid AABB half-extent")
+    _bool_flag(common, "hash_brick", False,
+               "brick table layout: one 128-wide row per (point, level) instead of "
+               "8 corner pairs; same parameter count")
     common.add_argument("--fac_levels", type=int, default=6,
                         help="factored-family resolution-ladder levels")
     common.add_argument("--fac_base_res", type=int, default=16)
@@ -150,12 +163,14 @@ def build_parser() -> argparse.ArgumentParser:
                "turn it on)")
     common.add_argument("--preset", default="",
                         choices=["", "tiny", "full", "hierarchical", "mipnerf", "factored",
-                                 *sorted(_PRESET_SLICE)],
+                                 "ngp", *sorted(_PRESET_SLICE)],
                         help="tiny = 100x100 coarse-only 4096-ray fit; full = paper "
                              "NeRF, stratified 64; hierarchical = two fields, 64 + 128 "
                              "union; mipnerf = IPE, one field, 64 + 128 standalone; all "
                              "through the train kernel; factored = CP lines + tiny heads, "
-                             "softplus, lr 1e-2, 128 samples, white background")
+                             "softplus, lr 1e-2, 128 samples, white background; ngp = "
+                             "Instant-NGP hash grid in the brick layout, with the same "
+                             "heads and settings")
 
     sub.add_parser("train", parents=[common])
 
@@ -227,13 +242,18 @@ def _apply_preset(args):
         # grids learn at a high rate, like the ngp preset's
         _set(arch="factored", sigma_activation="softplus", learning_rate=1e-2,
              num_samples=128, white_background=True)
+    elif p == "ngp":
+        # the Instant-NGP family (models/hashgrid.py): hash tables learn at a
+        # much higher rate than MLPs (paper section 4); softplus keeps density
+        # gradients alive through the sparse table entries. The brick layout
+        # is the JAX preset's; --hash_brick false selects the paper's flat one
+        _set(arch="hashgrid", sigma_activation="softplus", hash_brick=True,
+             learning_rate=1e-2, num_samples=128, white_background=True)
     return args
 
 
 def config_from_args(args) -> Config:
     args = _apply_preset(args)
-    if args.arch == "hashgrid":
-        raise NotImplementedError("--arch hashgrid comes with slice 9 (hashgrid) of the port")
     return Config(
         debug=args.debug,
         do_train=args.do_train,
@@ -245,7 +265,11 @@ def config_from_args(args) -> Config:
         run_name=args.run_name,
         camera=CameraConfig(width=args.width, height=args.height,
                             near=args.near, far=args.far),
-        model=ModelConfig(arch=args.arch, fac_levels=args.fac_levels,
+        model=ModelConfig(arch=args.arch, hash_levels=args.hash_levels,
+                          hash_table_log2=args.hash_table_log2,
+                          hash_base_res=args.hash_base_res, hash_max_res=args.hash_max_res,
+                          hash_aabb=args.hash_aabb, hash_brick=args.hash_brick,
+                          fac_levels=args.fac_levels,
                           fac_base_res=args.fac_base_res, fac_max_res=args.fac_max_res,
                           fac_comps=args.fac_comps, fac_aabb=args.fac_aabb,
                           fac_l1=args.fac_l1, sigma_activation=args.sigma_activation,

@@ -17,6 +17,8 @@ The factored field's tree (``nerf_rs_tpu/models/factored.py``) holds a
 bare ``lines`` array (3, sumR, C) beside the heads' ``{w, b}`` dicts
 (``sigma1``, ``sigma2``, ``color1``, ``color2``, ``rgb``); its state dict
 has the keys ``lines`` and ``sigma1.w`` ...; ``FactoredField`` takes it.
+The hash grid's tree (``nerf_rs_tpu/models/hashgrid.py``) is the same with
+a bare ``table`` leaf, (L T, F) or (L Tb, 128), for ``HashGridField``.
 """
 
 from __future__ import annotations
@@ -29,8 +31,8 @@ import torch
 from torch import nn
 
 
-# the fields' state-dict order (NerfMLP's, then FactoredField's)
-_ORDER = ("trunk", "sigma", "feature", "view1", "lines", "sigma1", "sigma2", "color1",
+# the fields' state-dict order (NerfMLP's, then FactoredField's and HashGridField's)
+_ORDER = ("trunk", "sigma", "feature", "view1", "lines", "table", "sigma1", "sigma2", "color1",
           "color2", "rgb")
 
 
@@ -53,7 +55,7 @@ def params_from_numpy(tree: dict, device=None) -> "OrderedDict[str, torch.Tensor
         elif isinstance(value, dict):
             for leaf in ("w", "b"):
                 put(f"{name}.{leaf}", value[leaf])
-        else:  # a bare leaf: the factored field's lines
+        else:  # a bare leaf: the factored field's lines, the hash grid's table
             put(name, value)
     return out
 

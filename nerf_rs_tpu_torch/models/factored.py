@@ -35,7 +35,7 @@ from torch import nn
 
 from ..config import ModelConfig
 
-from .hashgrid import apply_tiny_heads, init_tiny_heads
+from .hashgrid import apply_tiny_heads, init_tiny_heads, unit_coords
 from .mlp import he_init_, seed_rng
 
 
@@ -92,14 +92,6 @@ def init_factored_params(cfg: ModelConfig, seed: int = 0, device=None,
         model.lines.copy_(torch.from_numpy(lines))
     he_init_(model, rng)
     return model.to(device)
-
-
-def unit_coords(points: torch.Tensor, aabb: float) -> torch.Tensor:
-    """(N, 3) world points -> clip((p + aabb) / (2 aabb), 0, 1), with an
-    IEEE f32 division (a CUDA division by a Python scalar multiplies by
-    its reciprocal instead, which can move a hat weight)."""
-    two = torch.full((), 2.0 * aabb, dtype=torch.float32, device=points.device)
-    return torch.clamp((points + aabb) / two, 0.0, 1.0)
 
 
 def hat_weights(u_axis: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -13,9 +13,10 @@ shape (in, out) and ``b`` of shape (out,); the state-dict keys are
 ``trunk.{i}.w/b``, ``sigma``, ``feature``, ``view1`` and ``rgb``.
 
 Ported so far: the paper arch (with PE, or mip-NeRF's integrated
-encoding of Gaussians) and the factored arch (``models/factored.py``);
-the hash grid and compat mode raise ``NotImplementedError`` naming the
-slice that brings them.
+encoding of Gaussians), the factored arch (``models/factored.py``) and
+the hash grid (``models/hashgrid.py``, both table layouts); compat mode
+and contraction raise ``NotImplementedError`` naming the slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -37,8 +38,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for the model options later slices of the port bring."""
     if cfg.compat:
         raise NotImplementedError("--compat comes with slice 10 of the port")
-    if cfg.arch == "hashgrid":
-        raise NotImplementedError("arch='hashgrid' comes with slice 9 (hashgrid) of the port")
     if cfg.contract:
         raise NotImplementedError("--contract comes with slice 5 of the port")
 
@@ -112,8 +111,9 @@ def he_init_(model: nn.Module, rng: np.random.Generator) -> None:
 
 
 def init_nerf_params(cfg: ModelConfig, seed: int = 0, device=None, stream: int = 0) -> nn.Module:
-    """The field of ``cfg.arch``: a ``NerfMLP``, or a ``FactoredField``
-    (``models/factored.init_factored_params``). He truncated-normal
+    """The field of ``cfg.arch``: a ``NerfMLP``, a ``FactoredField``
+    (``models/factored.init_factored_params``) or a ``HashGridField``
+    (``models/hashgrid.init_hash_params``). He truncated-normal
     weights (fan_in, ReLU gain, cut at 2 std) and zero biases, drawn with
     numpy from ``seed``: one seed gives the same weights on every device
     and under every torch version (torch's own truncated-normal draw
@@ -130,6 +130,10 @@ def init_nerf_params(cfg: ModelConfig, seed: int = 0, device=None, stream: int =
         from .factored import init_factored_params
 
         return init_factored_params(cfg, seed, device, stream)
+    if cfg.arch == "hashgrid":
+        from .hashgrid import init_hash_params
+
+        return init_hash_params(cfg, seed, device, stream)
     model = NerfMLP(cfg)
     he_init_(model, seed_rng(seed, stream))
     return model.to(device)
@@ -173,15 +177,18 @@ def apply_nerf(
     integrated encoding (same width and layout as the PE, so the same
     weights take either).
 
-    The factored arch (``models/factored.apply_factored``) encodes the
-    points with its line tables and tiny heads; ``pos_var`` does not
-    apply to it, as in the JAX package.
+    The factored arch (``models/factored.apply_factored``) and the hash
+    grid (``models/hashgrid.apply_hashgrid``) encode the points with their
+    tables and tiny heads; ``pos_var`` does not apply to them, as in the
+    JAX package.
     """
     check_supported(cfg)
-    if cfg.arch == "factored":
+    if cfg.arch in ("factored", "hashgrid"):
         from .factored import apply_factored
+        from .hashgrid import apply_hashgrid
 
-        sigma_raw, rgb_raw = apply_factored(params, points, viewdirs, cfg, dtype)
+        apply = apply_factored if cfg.arch == "factored" else apply_hashgrid
+        sigma_raw, rgb_raw = apply(params, points, viewdirs, cfg, dtype)
         rgb = torch.sigmoid(rgb_raw) if cfg.rgb_activation == "sigmoid" else rgb_raw
         return sigma_activation(sigma_raw, cfg.sigma_activation), rgb
     low = dtype is not None and dtype != torch.float32

@@ -9,9 +9,11 @@ Gradients come from the whole-ray training kernel
 -- hierarchical configs as the chain coarse kernel -> resample -> fine
 kernel -- and from autograd of the eager path (``ops/render.render_rays``:
 the field at bf16, compositing in f32) otherwise: the same choice
-``train_step_core`` makes in the JAX package. The factored field always
-takes autograd; with ``fac_fused`` its encode's gradient comes from K3's
-backward kernel (``kernels/fused_factored.py``).
+``train_step_core`` makes in the JAX package. The factored field and the
+hash grid always take autograd; with ``fac_fused`` the factored encode's
+gradient comes from K3's backward kernel (``kernels/fused_factored.py``),
+and the hash grid's table gradient is the scatter-add of its fetch
+(``models/hashgrid.py``). The hash grid has no regulariser.
 
 Two nets: with ``num_fine_samples > 0`` and no ``share_network`` the fine
 pass has its own field, ``TrainState.fine_params``; gradients and Adam
@@ -48,7 +50,7 @@ Aux = Dict[str, torch.Tensor]
 @dataclasses.dataclass
 class TrainState:
     step: int
-    params: nn.Module  # NerfMLP or FactoredField, as cfg.model.arch says
+    params: nn.Module  # NerfMLP, FactoredField or HashGridField, as cfg.model.arch says
     optimizer: torch.optim.Adam  # one Adam over params and fine_params
     fine_params: Optional[nn.Module] = None  # the fine pass's own field (_has_fine_net)
     grid: None = None  # occupancy grid: slice 4

@@ -86,6 +86,12 @@ def _resolve(mod, argv):
      "--fac_base_res", "4", "--fac_max_res", "16", "--fac_comps", "8", "--fac_aabb", "1.2",
      "--fac_l1", "1e-4", "--precision", "f32", "--sigma_activation", "relu"],
     ["eval", "--arch", "factored", "--dataset", "sphere", "--num_samples", "32"],
+    ["train", "--preset", "ngp", "--dataset", "sphere"],
+    ["train", "--preset", "ngp", "--dataset", "sphere", "--hash_brick", "false"],
+    ["render", "--preset", "ngp", "--dataset", "sphere", "--hash_levels", "4",
+     "--hash_table_log2", "10", "--hash_base_res", "4", "--hash_max_res", "32", "--hash_aabb",
+     "1.2", "--precision", "f32", "--learning_rate", "1e-3"],
+    ["eval", "--arch", "hashgrid", "--dataset", "sphere", "--hash_brick", "true"],
 ])
 def test_cli_config_matches_the_jax_cli(argv):
     """Every field of the resolved config, presets and their precedence

@@ -1,9 +1,11 @@
 """The whole-ray render kernel (csrc/fused_ray.cu), the train kernel
-(csrc/fused_train.cu) and the factored-encode kernel
-(csrc/fused_factored.cu) against their plain PyTorch versions, on a CUDA
-card: PE and IPE, rays that fit a 128-row tile and rays padded to 256
-samples; the factored encode forward and backward at the main path's
-widths and at small ones. Every case skips without one.
+(csrc/fused_train.cu), the factored-encode kernel (csrc/fused_factored.cu)
+and the row gather (csrc/gather_rows.cu) against their plain PyTorch
+versions, on a CUDA card: PE and IPE, rays that fit a 128-row tile and rays
+padded to 256 samples; the factored encode forward and backward at the main
+path's widths and at small ones; the row gather at ragged N, with repeated
+and out-of-table indices, and the hash-grid encodes through it. Every case
+skips without one.
 
 This file imports neither JAX nor the JAX package's tests, so it runs on
 a machine with torch and CUDA alone (the repo's conftest.py needs JAX):
@@ -17,11 +19,13 @@ import torch
 
 from nerf_rs_tpu_torch.config import ModelConfig
 from nerf_rs_tpu_torch.kernels import fused_factored as k3
+from nerf_rs_tpu_torch.kernels import gather_rows as k4
 from nerf_rs_tpu_torch.kernels.fused_ray import (
     fused_ray_render, fused_ray_render_reference)
 from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
 from nerf_rs_tpu_torch.kernels.fused_train import (
     KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
+from nerf_rs_tpu_torch.models import hashgrid
 from nerf_rs_tpu_torch.models.factored import basis_dim
 from nerf_rs_tpu_torch.models.mlp import init_nerf_params
 
@@ -268,3 +272,78 @@ def test_factored_wrappers_refuse_what_the_kernels_do_not_take():
         k3.fused_factored_encode_forward(lines, pts.double(), FAC_SMALL)
     with pytest.raises(ValueError, match="f32"):
         k3.fused_factored_encode_backward(lines, pts, g.half(), FAC_SMALL)
+
+
+@pytest.mark.parametrize("n", [0, 1, 37, 100_003])
+def test_gather_kernels_match_plain_versions(n):
+    """A gather copies: the kernels give the plain versions' bits, at
+    ragged N, with repeated indices, and NaN where an index leaves the
+    table (the kernel reads nothing there)."""
+    dev = _device()
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy(rng.normal(size=(5003, 128)).astype(np.float32)).to(dev)
+    idx = rng.integers(0, 5003, n).astype(np.int32)
+    idx[: n // 3] = idx[0] if n else 0  # a run of one repeated row
+    idx[1::97] = -5  # outside the table
+    idx[2::89] = 5003
+    idx = torch.from_numpy(idx).to(dev)
+    before = (k4.gather_rows.launches, k4.gather_pairs.launches)
+    rows = k4.gather_rows(table, idx)
+    flat = table.view(-1)
+    pairs = k4.gather_pairs(flat, 2 * idx + 6)
+    torch.cuda.synchronize()
+    assert (k4.gather_rows.launches, k4.gather_pairs.launches) == (
+        before[0] + (n > 0), before[1] + (n > 0))
+    want_rows = k4.gather_rows_reference(table, idx)
+    want_pairs = k4.gather_pairs_reference(flat, 2 * idx + 6)
+    assert rows.shape == (n, 128) and pairs.shape == (n, 2)
+    assert torch.equal(rows.isnan(), want_rows.isnan())
+    assert torch.equal(rows.nan_to_num(), want_rows.nan_to_num())
+    assert torch.equal(pairs.isnan(), want_pairs.isnan())
+    assert torch.equal(pairs.nan_to_num(), want_pairs.nan_to_num())
+    assert int(rows.isnan().any(-1).sum()) == int(((idx < 0) | (idx >= 5003)).sum())
+
+
+def test_gather_wrappers_refuse_what_the_kernel_does_not_take():
+    dev = _device()
+    table = torch.zeros(64, 128, device=dev)
+    idx = torch.zeros(8, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="even"):
+        k4.gather_pairs(table.view(-1), idx + 1)
+    with pytest.raises(ValueError, match="int32"):
+        k4.gather_rows(table, idx.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.gather_rows(torch.zeros(64, 256, device=dev)[:, ::2], idx)
+    with pytest.raises(ValueError, match="boundary"):
+        k4.gather_rows(torch.zeros(64 * 128 + 1, device=dev)[1:].view(64, 128), idx)
+    with pytest.raises(ValueError, match="boundary"):
+        k4.gather_pairs(torch.zeros(65, device=dev)[1:], idx)
+    with pytest.raises(ValueError, match="device"):
+        k4.gather_rows(table, idx.cpu())
+
+
+@pytest.mark.parametrize("brick", [True, False], ids=["brick", "flat"])
+def test_hash_encodes_through_k4_match_the_cpu(brick):
+    """The main widths' encode and its table gradient on the card (K4 on
+    every fetch, index_add_'s atomics for the gradient) against the CPU's
+    plain route: the same cells and weights, corner sums and gradient sums
+    in another order."""
+    dev = _device()
+    cfg = ModelConfig(arch="hashgrid", hash_brick=brick)
+    rng = np.random.default_rng(7)
+    table = rng.normal(size=hashgrid.table_shape(cfg)).astype(np.float32)
+    pts = rng.uniform(-2.0, 2.0, (300_001, 3)).astype(np.float32)
+    g = rng.normal(size=(300_001, 32)).astype(np.float32)
+    out = []
+    for d in ("cpu", dev):
+        t = torch.from_numpy(table).to(d).requires_grad_()
+        before = (k4.gather_rows.launches, k4.gather_pairs.launches)
+        enc = (hashgrid.brick_encode if brick else hashgrid.hash_encode)(
+            t, torch.from_numpy(pts).to(d), cfg)
+        (enc * torch.from_numpy(g).to(d)).sum().backward()
+        launched = (k4.gather_rows.launches - before[0], k4.gather_pairs.launches - before[1])
+        out.append((enc.detach().cpu(), t.grad.cpu(), launched))
+    (enc_c, grad_c, none), (enc_g, grad_g, launched) = out
+    assert none == (0, 0) and launched == ((3, 0) if brick else (0, 1))
+    assert float((enc_g - enc_c).abs().max()) <= 1e-6 * float(enc_c.abs().max())
+    assert float((grad_g - grad_c).abs().max()) <= 1e-5 * float(grad_c.abs().max())

@@ -160,9 +160,10 @@ def test_init_is_seeded_he_truncated_normal():
     np.testing.assert_allclose(m1.trunk[0].w.detach().reshape(-1)[:8].numpy(), first, rtol=1e-6)
 
 
-# the factored arch is ported (tests/test_torch_factored.py); compat wins
-# over any arch, as in the JAX package
-@pytest.mark.parametrize("kw", [{"compat": True}, {"arch": "hashgrid"},
+# the factored and hashgrid archs are ported (tests/test_torch_factored.py,
+# tests/test_torch_hashgrid.py); compat wins over any arch, as in the JAX
+# package
+@pytest.mark.parametrize("kw", [{"compat": True}, {"compat": True, "arch": "hashgrid"},
                                 {"compat": True, "arch": "factored"},
                                 {"ipe": True, "contract": True}, {"contract": True}])
 def test_unported_models_raise(kw):

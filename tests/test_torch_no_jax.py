@@ -1,7 +1,8 @@
 """The PyTorch port stands without JAX and without the JAX package: every
 module of nerf_rs_tpu_torch imports, a frame renders, two train steps run
 (kernel path and autograd path), one step each of the hierarchical and
-mipnerf settings and of the factored field (both encode routes), in a
+mipnerf settings, of the factored field (both encode routes) and of the
+hash grid (both table layouts), in a
 process that never loads jax, jaxlib, flax,
 optax or any module of nerf_rs_tpu. Plus checks of chip_smoke.py, which
 runs only on the card: an undefined-name lint (the idea of
@@ -69,6 +70,16 @@ fac = ModelConfig(arch="factored", fac_levels=2, fac_base_res=4, fac_max_res=8, 
 for fused in (True, False):
     tcfg = dataclasses.replace(cfg, model=dataclasses.replace(fac, fac_fused=fused),
                                train=TrainConfig(num_rays=16, learning_rate=1e-2),
+                               data=DataConfig(dataset="sphere"))
+    state = step.init_state(tcfg)
+    fn = step.make_train_step(tcfg, make_dataset(tcfg))
+    state, aux = fn(state, step.step_generator(0, 0, "cpu"))
+    assert state.step == 1 and bool(torch.isfinite(aux["loss"]))
+# one step of the hash grid in each table layout, through K4's plain versions
+for brick in (True, False):
+    hcfg = ModelConfig(arch="hashgrid", hash_levels=2, hash_table_log2=8, hash_base_res=4,
+                       hash_max_res=8, sigma_activation="softplus", hash_brick=brick)
+    tcfg = dataclasses.replace(cfg, model=hcfg, train=TrainConfig(num_rays=16, learning_rate=1e-2),
                                data=DataConfig(dataset="sphere"))
     state = step.init_state(tcfg)
     fn = step.make_train_step(tcfg, make_dataset(tcfg))
