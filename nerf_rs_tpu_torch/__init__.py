@@ -11,10 +11,13 @@ and backward (``nerf_rs_tpu/kernels/fused_factored.py`` ->
 ``kernels/csrc/fused_factored.cu``, taken with ``ModelConfig.fac_fused``)
 and the row gather of the hash grid's table fetch
 (``nerf_rs_tpu/kernels/gather_rows.py`` -> ``kernels/csrc/gather_rows.cu``).
-The ported paths are ``cli train``, ``cli eval`` and ``cli render`` on the
-sphere scene, for the presets ``tiny``, ``full``, ``hierarchical``,
-``mipnerf``, ``factored`` and ``ngp`` (brick table; ``--hash_brick false``
-for the flat one).
+The whole-ray kernels carry mip-NeRF 360's contraction and (the train
+kernel) its distortion loss; the hash grid's table gradient is a
+fixed-order scatter beside the row gather. The ported paths are ``cli
+train``, ``cli eval`` and ``cli render`` on the sphere scene, for the
+presets ``tiny``, ``full``, ``hierarchical``, ``mipnerf``, ``factored``,
+``ngp`` (brick table; ``--hash_brick false`` for the flat one),
+``proposal`` and ``unbounded``.
 
 The configuration dataclasses are the port's own copy (``config.py``).
 This package imports neither ``jax`` nor anything of ``nerf_rs_tpu``.
@@ -25,11 +28,12 @@ from .config import (
     Config,
     DataConfig,
     ModelConfig,
+    ProposalConfig,
     RenderConfig,
     TrainConfig,
 )
 
 __version__ = "0.1.0"
 
-__all__ = ["CameraConfig", "Config", "DataConfig", "ModelConfig", "RenderConfig",
-           "TrainConfig"]
+__all__ = ["CameraConfig", "Config", "DataConfig", "ModelConfig", "ProposalConfig",
+           "RenderConfig", "TrainConfig"]

@@ -7,11 +7,14 @@ of ``cmd_train``, ``cmd_eval`` and ``cmd_render`` in
   python -m nerf_rs_tpu_torch.cli eval --preset mipnerf --dataset sphere --max_views 3
   python -m nerf_rs_tpu_torch.cli train --preset factored --dataset sphere
   python -m nerf_rs_tpu_torch.cli train --preset ngp --dataset sphere [--hash_brick false]
+  python -m nerf_rs_tpu_torch.cli train --preset proposal --dataset sphere
+  python -m nerf_rs_tpu_torch.cli train --preset unbounded --dataset sphere
   python -m nerf_rs_tpu_torch.cli render --dataset sphere --view 0
 
 It takes the JAX parser's flags that the ported slices serve, with the
 JAX defaults (``--use_whole_ray_train`` is off unless a preset turns it
-on; the presets ``tiny``, ``full``, ``hierarchical`` and ``mipnerf`` do,
+on; the presets ``tiny``, ``full``, ``hierarchical``, ``mipnerf``,
+``proposal`` and ``unbounded`` do,
 with the JAX package's values, and explicit flags beat the preset).
 ``--preset factored`` (or ``--arch factored``) selects the factored field,
 whose encode runs as the JAX CLI runs it, through the dense hat matrix:
@@ -19,7 +22,12 @@ the factored-encode kernel is ``ModelConfig.fac_fused``, for which the
 parser has no flag. ``--preset ngp`` (or ``--arch hashgrid``) selects the
 hash-grid field, in the brick table layout with the preset and in the flat
 one with ``--hash_brick false``; every table fetch goes through the row-gather
-kernel.
+kernel. ``--preset proposal`` samples through a proposal net (2 x 64 ->
+128 main samples, annealed); ``--preset unbounded`` is mip-NeRF 360's
+recipe (contraction, disparity spacing, a 2-level annealed proposal, the
+distortion loss), both through the whole-ray kernels. Eval and render of a
+proposal checkpoint need the preset it was trained with (the file's second
+net is the proposal).
 Flags, presets and values of slices not ported yet, and the ``export``
 subcommand, are refused with an error that names the slice, never
 ignored.
@@ -46,6 +54,7 @@ from .config import (
     Config,
     DataConfig,
     ModelConfig,
+    ProposalConfig,
     RenderConfig,
     TrainConfig,
 )
@@ -59,8 +68,6 @@ _LATER_FLAGS = {
     3: "multiscale_levels",
     4: "occ_res occ_update_steps occ_threshold occ_aabb occ_bins occ_decay "
        "occ_uniform_frac",
-    5: "contract sampling_space use_proposal proposal_samples proposal_levels "
-       "proposal_depth proposal_width proposal_anneal_steps distortion_weight",
     6: "img_dir view_start view_end view_step num_views_per_hemisphere llff_factor "
        "llff_holdout ndc ndc_near batch_mode views_per_batch prefetch data_workers "
        "use_native_loader error_resample_frac error_resample_ema",
@@ -69,7 +76,7 @@ _LATER_FLAGS = {
     10: "compat",
 }
 _FLAG_SLICE = {f: n for n, flags in _LATER_FLAGS.items() for f in flags.split()}
-_PRESET_SLICE = {"record": 4, "proposal": 5, "unbounded": 5, "pod": 6}
+_PRESET_SLICE = {"record": 4, "pod": 6}
 
 
 def _bool_flag(p, name, default, help=""):
@@ -124,6 +131,27 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("--sigma_activation", default="relu", choices=["relu", "softplus"])
     _bool_flag(common, "ipe", False,
                "mip-NeRF: conical-frustum intervals with the integrated encoding")
+    _bool_flag(common, "contract", False,
+               "mip-NeRF 360 scene contraction (unbounded scenes): sample positions map "
+               "into the radius-2 ball before the encoding; pair with --sampling_space "
+               "disparity (--preset unbounded)")
+    common.add_argument("--sampling_space", default="linear", choices=["linear", "disparity"],
+                        help="spacing of the stratified draw: linear (NeRF eq. 2) or "
+                             "disparity (even in 1/t; needs --near > 0)")
+    _bool_flag(common, "use_proposal", False,
+               "proposal-net sampling (mip-NeRF 360): a small density MLP picks the main "
+               "field's samples, trained with the interlevel loss (num_fine_samples 0)")
+    common.add_argument("--proposal_samples", type=int, default=64,
+                        help="samples the proposal MLP evaluates per level")
+    common.add_argument("--proposal_levels", type=int, default=1,
+                        help="resampling rounds through the one proposal MLP")
+    common.add_argument("--proposal_depth", type=int, default=4)
+    common.add_argument("--proposal_width", type=int, default=64)
+    common.add_argument("--proposal_anneal_steps", type=int, default=0,
+                        help="mip-NeRF 360 resampling annealing horizon (0 = off)")
+    common.add_argument("--distortion_weight", type=float, default=0.0,
+                        help="mip-NeRF 360 distortion loss weight on the finest pass "
+                             "(0 = off; the paper uses 0.01)")
     common.add_argument("--arch", default="nerf", choices=["nerf", "hashgrid", "factored"],
                         help="field family: the paper NeRF, the Instant-NGP hash encoding "
                              "with tiny heads, or the factored (CP) multiresolution lines "
@@ -163,14 +191,17 @@ def build_parser() -> argparse.ArgumentParser:
                "turn it on)")
     common.add_argument("--preset", default="",
                         choices=["", "tiny", "full", "hierarchical", "mipnerf", "factored",
-                                 "ngp", *sorted(_PRESET_SLICE)],
+                                 "ngp", "proposal", "unbounded", *sorted(_PRESET_SLICE)],
                         help="tiny = 100x100 coarse-only 4096-ray fit; full = paper "
                              "NeRF, stratified 64; hierarchical = two fields, 64 + 128 "
                              "union; mipnerf = IPE, one field, 64 + 128 standalone; all "
                              "through the train kernel; factored = CP lines + tiny heads, "
                              "softplus, lr 1e-2, 128 samples, white background; ngp = "
                              "Instant-NGP hash grid in the brick layout, with the same "
-                             "heads and settings")
+                             "heads and settings; proposal = a proposal net picks 128 main "
+                             "samples (annealed over 1000 steps); unbounded = mip-NeRF 360: "
+                             "contraction, disparity sampling over [0.3, 60], a 2-level "
+                             "annealed proposal, distortion loss 0.01, softplus")
 
     sub.add_parser("train", parents=[common])
 
@@ -249,6 +280,21 @@ def _apply_preset(args):
         # is the JAX preset's; --hash_brick false selects the paper's flat one
         _set(arch="hashgrid", sigma_activation="softplus", hash_brick=True,
              learning_rate=1e-2, num_samples=128, white_background=True)
+    elif p == "proposal":
+        # a proposal net picks 128 main samples, the main pass through the
+        # train kernel; the anneal keeps early draws near-uniform
+        _set(num_samples=128, num_fine_samples=0, use_proposal=True,
+             proposal_samples=64, use_whole_ray_train=True,
+             white_background=True, proposal_anneal_steps=1000)
+    elif p == "unbounded":
+        # mip-NeRF 360's unbounded recipe: radius-2 contraction, disparity
+        # spacing, a 2-level annealed proposal and the distortion loss in
+        # disparity s-space, all through the whole-ray kernels
+        _set(contract=True, sampling_space="disparity", near=0.3, far=60.0,
+             use_proposal=True, proposal_samples=64, proposal_levels=2,
+             num_samples=64, num_fine_samples=0, proposal_anneal_steps=1000,
+             distortion_weight=0.01, sigma_activation="softplus",
+             white_background=False, use_whole_ray_train=True)
     return args
 
 
@@ -273,12 +319,13 @@ def config_from_args(args) -> Config:
                           fac_base_res=args.fac_base_res, fac_max_res=args.fac_max_res,
                           fac_comps=args.fac_comps, fac_aabb=args.fac_aabb,
                           fac_l1=args.fac_l1, sigma_activation=args.sigma_activation,
-                          ipe=args.ipe),
+                          ipe=args.ipe, contract=args.contract),
         render=RenderConfig(num_samples=args.num_samples,
                             num_fine_samples=args.num_fine_samples,
                             share_network=args.share_network,
                             fine_mode=args.fine_mode,
-                            white_background=args.white_background),
+                            white_background=args.white_background,
+                            sampling_space=args.sampling_space),
         train=TrainConfig(
             num_rays=args.num_rays,
             learning_rate=args.learning_rate,
@@ -290,18 +337,30 @@ def config_from_args(args) -> Config:
             save_steps=args.save_steps,
             seed=args.seed,
             precision=args.precision,
+            distortion_weight=args.distortion_weight,
         ),
-        data=DataConfig(dataset=args.dataset),
+        data=DataConfig(dataset=args.dataset,
+                        near_explicit="near" in getattr(args, "_explicit", set()),
+                        far_explicit="far" in getattr(args, "_explicit", set())),
+        proposal=ProposalConfig(
+            enabled=args.use_proposal,
+            num_samples=args.proposal_samples,
+            num_levels=args.proposal_levels,
+            net_depth=args.proposal_depth,
+            net_width=args.proposal_width,
+            anneal_steps=args.proposal_anneal_steps,
+        ),
         use_fused_kernel=args.use_fused_kernel,
         use_whole_ray_train=args.use_whole_ray_train,
     )
 
 
 def _load_params(cfg: Config, device):
-    """The field (and the fine field of a two-field hierarchical run)
-    with the weights of --load_path, else of the newest checkpoint in
-    --save_dir (weights only: inference does not depend on the
-    optimizer). Returns (params, fine params or None, path or None)."""
+    """The field (and the second net: the fine field of a two-field
+    hierarchical run, or the proposal net) with the weights of
+    --load_path, else of the newest checkpoint in --save_dir (weights
+    only: inference does not depend on the optimizer). Returns (params,
+    second net or None, path or None)."""
     from .train import checkpoint as ckpt
     from .train.step import init_state
 

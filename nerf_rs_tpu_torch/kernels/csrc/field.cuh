@@ -29,7 +29,10 @@
 // plain versions compute them. IPE: the conical-frustum moments
 // (ipe_moments) round every operation on its own, in the plain version's
 // order, and the damping exp(-4^l var / 2) is expf of an exact ldexpf
-// scaling of the f32 variance (4^9 would swamp a bf16 one).
+// scaling of the f32 variance (4^9 would swamp a bf16 one). Contraction
+// (contract_points, contract_gaussian): IEEE divisions and __fsqrt_rn, each
+// operation rounded on its own in ops/contract.py's order, no contraction
+// of a product into a later sum.
 
 #pragma once
 
@@ -276,6 +279,47 @@ __device__ inline void ipe_moments(const float* o, const float* d, float mu, flo
   }
 }
 
+// mip-NeRF 360's contraction of one point (ops/contract.contract; the JAX
+// package's _contract_points), in place: x where ||x|| <= 1, else
+// (2 - 1/||x||) x / ||x||. Positions carry no gradient, so there is no
+// backward. eps^2 = 1e-16 clamps the norm under the sqrt, as the JAX code.
+__device__ inline void contract_points(float* x) {
+  const float r2 =
+      __fadd_rn(__fadd_rn(__fmul_rn(x[0], x[0]), __fmul_rn(x[1], x[1])), __fmul_rn(x[2], x[2]));
+  const float r = __fsqrt_rn(fmaxf(r2, 1e-16f));
+  if (r <= 1.f) return;
+  const float g = __fsub_rn(2.f, __fdiv_rn(1.f, r));  // r > 1: max(r, 1) = r
+#pragma unroll
+  for (int k = 0; k < 3; ++k) x[k] = __fdiv_rn(__fmul_rn(g, x[k]), r);
+}
+
+// The contraction of a diagonal Gaussian, mean mv[0:3] and variance mv[3:6]
+// in place, by its closed-form linearisation (ops/contract.contract_gaussian;
+// the JAX package's _contract_gaussian), term for term: with
+// g = 2/r - 1/r^2 and gp = (-2/r^2 + 2/r^3) / r,
+//   var_k = max(g^2 s_k + 2 g gp x_k^2 s_k + gp^2 x_k^2 sum_j x_j^2 s_j, 0).
+__device__ inline void contract_gaussian(float* mv) {
+  float x2[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) x2[k] = __fmul_rn(mv[k], mv[k]);
+  const float r = __fsqrt_rn(fmaxf(__fadd_rn(__fadd_rn(x2[0], x2[1]), x2[2]), 1e-16f));
+  if (r <= 1.f) return;
+  const float s2 = __fmul_rn(r, r);
+  const float g = __fsub_rn(__fdiv_rn(2.f, r), __fdiv_rn(1.f, s2));
+  const float gp = __fdiv_rn(__fadd_rn(__fdiv_rn(-2.f, s2), __fdiv_rn(2.f, __fmul_rn(r, s2))), r);
+  const float quad = __fadd_rn(__fadd_rn(__fmul_rn(x2[0], mv[3]), __fmul_rn(x2[1], mv[4])),
+                               __fmul_rn(x2[2], mv[5]));
+  const float gg = __fmul_rn(g, g), g2gp = __fmul_rn(__fmul_rn(2.f, g), gp), gpgp = __fmul_rn(gp, gp);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float s = mv[3 + k];
+    const float v = __fadd_rn(__fadd_rn(__fmul_rn(gg, s), __fmul_rn(__fmul_rn(g2gp, x2[k]), s)),
+                              __fmul_rn(__fmul_rn(gpgp, x2[k]), quad));
+    mv[k] = __fmul_rn(g, mv[k]);
+    mv[3 + k] = fmaxf(v, 0.f);
+  }
+}
+
 typedef float Acc[kMT][kChunk][4];
 
 // acc += A[row0 : row0 + 32, 0 : K] @ Wm[:, 8 nt0 : 8 (nt0 + nts)]
@@ -406,7 +450,10 @@ struct Stash {
 // ts and deltas in t.ts / t.dl, all at CTA row s0 + r, and returns the
 // buffers that hold hv and feat. The stashes `st` start at the pass's
 // first row. Rows of rays past the end of the batch compute on zero
-// inputs: finite values the callers never store.
+// inputs: finite values the callers never store. kContract: the point, or
+// the IPE Gaussian, is contracted before the encoding (a compile-time
+// switch, so the kernels without it are the ones they were).
+template <bool kContract>
 __device__ inline void field_forward(const Field& p, const Tile& t, long long ray0, int n_valid,
                                      int s0, const Stash& st, bf16** hv_buf, bf16** feat_buf) {
   const int S = p.S;
@@ -447,6 +494,12 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
         mv[k] = __fadd_rn(ray[k], __fmul_rn(t.ts[cr], ray[3 + k]));
         mv[3 + k] = 0.f;
       }
+    }
+    if (kContract) {
+      if (p.ipe)
+        contract_gaussian(mv);
+      else
+        contract_points(mv);
     }
   }
   __syncthreads();

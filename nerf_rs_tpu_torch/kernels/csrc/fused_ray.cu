@@ -23,6 +23,14 @@
 // It adds ~40 scalar operations (five divisions) per row and one expf per
 // encoded column: noise beside the ~1.3 MFLOP of products per row.
 //
+// Contraction (cfg.contract, mip-NeRF 360's unbounded scenes; the TPU
+// kernel's contract branch, fused_ray.py:95-105). Each row's point, or its
+// IPE Gaussian, is contracted into the radius-2 ball before the encoding
+// (field.cuh's contract_points / contract_gaussian): ~20 scalar operations
+// and one sqrt per row, elementwise work that changes no bound. It is a
+// template parameter like the pass count, so the instances without it are
+// the kernels they were.
+//
 // Long rays. The wrapper (kernels/fused_ray.py) pads S with zero-length
 // intervals at the far end to a power of two, or to 256 above 128: such
 // an interval has a = sigma * 0 = 0, so its weight is exactly 0 and the
@@ -61,8 +69,9 @@ struct Params {
 // kPasses: 128-row passes per CTA, 1 (S divides 128) or 2 (S = 256). A
 // compile-time count, so the one-pass kernel inlines the field once: with
 // a second inlined call, or a loop around it, nvcc keeps less of it in
-// registers and the kernel runs up to 1.8x slower.
-template <int kPasses>
+// registers and the kernel runs up to 1.8x slower. kContract: the
+// contraction branch.
+template <int kPasses, bool kContract>
 __global__ void __launch_bounds__(kThreads, 1) fused_ray_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Field& f = p.f;
@@ -77,8 +86,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ray_kernel(const Params p) 
   const Tile t = carve(smem, smem_layout(f, false));
   bf16* hv;
   bf16* feat;
-  field_forward(f, t, ray0, n_valid, 0, Stash{}, &hv, &feat);
-  if (kPasses == 2) field_forward(f, t, ray0, n_valid, kRows, Stash{}, &hv, &feat);
+  field_forward<kContract>(f, t, ray0, n_valid, 0, Stash{}, &hv, &feat);
+  if (kPasses == 2) field_forward<kContract>(f, t, ray0, n_valid, kRows, Stash{}, &hv, &feat);
 
   // ---- compositing: one sequential exclusive scan per ray, f32 ----
   if (tid < n_valid) {
@@ -120,18 +129,19 @@ extern "C" {
 
 // Returns 0, a cudaError_t from the launch, or a negative code for a
 // shape the kernel does not take (see nerf_rs_tpu_torch/kernels/fused_ray.py).
-// radii: (n_rays,) f32 with ipe = 1, else null.
+// radii: (n_rays,) f32 with ipe = 1, else null. contract: 0 or 1.
 int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const void* ts,
                           const void* deltas, const void* radii, const void* w, const void* b,
                           const long long* w_off, int n_w, const long long* b_off, int n_b,
                           void* rgb, void* acc, void* depth, void* wts, void* sigma,
                           long long n_rays, int S, int depth_l, int skip, int W, int F, int V,
                           int P, int D, int pos_levels, int dir_levels, int sigma_act, int ipe,
-                          void* stream) {
+                          int contract, void* stream) {
   Params p;
   int rc = init_field(&p.f, o, d, vd, ts, deltas, radii, w, b, w_off, n_w, b_off, n_b, n_rays,
                       S, depth_l, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe);
   if (rc != 0) return rc;
+  if (contract != 0 && contract != 1) return -8;
   p.rgb = static_cast<float*>(rgb);
   p.acc = static_cast<float*>(acc);
   p.depth = static_cast<float*>(depth);
@@ -140,16 +150,14 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
 
   const size_t smem = smem_layout(p.f, false).total;
   const bool two = p.f.rows > kRows;
-  rc = two ? set_smem(fused_ray_kernel<2>, smem) : set_smem(fused_ray_kernel<1>, smem);
+  auto kernel = two ? (contract ? fused_ray_kernel<2, true> : fused_ray_kernel<2, false>)
+                    : (contract ? fused_ray_kernel<1, true> : fused_ray_kernel<1, false>);
+  rc = set_smem(kernel, smem);
   if (rc != 0) return rc;
   if (n_rays == 0) return 0;
   const int rays = p.f.R;
   const unsigned grid = static_cast<unsigned>((n_rays + rays - 1) / rays);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (two)
-    fused_ray_kernel<2><<<grid, kThreads, smem, st>>>(p);
-  else
-    fused_ray_kernel<1><<<grid, kThreads, smem, st>>>(p);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,12 +2,32 @@
 // forward + backward of the paper field over a batch of whole rays.
 //
 // Replaces nerf_rs_tpu/kernels/fused_train.py::_train_kernel, the Pallas
-// TPU kernel, for PE and mip-NeRF's IPE (no contraction, no distortion
-// loss) with relu or softplus sigma. Per ray it reads (o, d, viewdir, ts,
-// deltas, gold, and with IPE the cone radius) and writes diag = [r, g, b,
-// acc, sqerr, 0, 0, 0] and the compositing weights; over the whole call it
-// writes the f32 gradient of loss = mean over rays and channels of
-// (C - gold)^2 for every packed matrix and bias.
+// TPU kernel, for PE and mip-NeRF's IPE, each with or without mip-NeRF
+// 360's contraction and distortion loss, with relu or softplus sigma. Per
+// ray it reads (o, d, viewdir, ts, deltas, gold, and with IPE the cone
+// radius) and writes diag = [r, g, b, acc, sqerr, dist, 0, 0] and the
+// compositing weights; over the whole call it writes the f32 gradient of
+// loss = mean over rays and channels of (C - gold)^2, plus dist_weight x
+// the mean per-ray distortion loss when that is on, for every packed
+// matrix and bias.
+//
+// Contraction and the distortion loss (the TPU kernel's branches at
+// fused_train.py:183-199, :276-311 and :329-334). The contraction is K1's
+// (field.cuh), forward only: positions carry no gradient. The distortion
+// loss needs sums over the whole ray, so it lives in the per-ray scans that
+// already run after every pass's forward (at S = 256 both passes): with m
+// the sample's s-coordinate and dn its s-space length, the forward scan
+// takes the inclusive prefix sums cw of w and cwm of w m and forms
+//   A_i = m_i (2 cw_i - acc) + sum(w m) - 2 cwm_i,
+// writes the per-ray loss sum_i w_i A_i + w_i^2 dn_i / 3 to diag slot 5 and
+// keeps A_i in the dsigma column until the backward scan reads it; the
+// backward scan adds dist_scale (2 A_i + (2/3) w_i dn_i) to the compositing
+// cotangent u before the existing VJP. s is linear, (t - near) / (far -
+// near), or disparity, (1/near - 1/t) / (1/near - 1/far); under IPE the
+// interval's s-length is exact, dt / ((mid - dt/2)(mid + dt/2)). The pads'
+// repeated t keeps 1/t finite, and their w = 0 and dn = 0 add nothing. The
+// scans are sequential per ray already: the distortion adds ~15 scalar
+// operations per sample row to them.
 //
 // IPE and long rays. The forward is K1's (field.cuh): IPE moments and the
 // damped encoding per row, and rays of S = 256 (the wrapper's pad of 129
@@ -84,7 +104,25 @@ struct TrainParams {
   bf16* grgb;
   float loss_scale;            // d loss / d (sum of squared residuals) = 1 / (3 N)
   int white_bg;
+  float dist_scale;            // distortion-loss weight / N rays; 0: off
+  float dist_a, dist_b;        // linear: near, 1 / (far - near); disparity: 1 / near, 1 / (1/near - 1/far)
+  int dist_disparity;          // 1: s in disparity
 };
+
+// The distortion loss's s-coordinate m and s-space length dn of the sample
+// (t, dt): t is a point sample whose interval runs to t + dt, or with IPE
+// the midpoint of an interval of length dt
+__device__ __forceinline__ void dist_coords(const TrainParams& p, float t, float dt, float* m,
+                                            float* dn) {
+  if (p.dist_disparity) {
+    *m = (p.dist_a - 1.f / t) * p.dist_b;
+    const float den = p.f.ipe ? (t - 0.5f * dt) * (t + 0.5f * dt) : t * (t + dt);
+    *dn = dt / den * p.dist_b;
+  } else {
+    *m = (t - p.dist_a) * p.dist_b;
+    *dn = dt * p.dist_b;
+  }
+}
 
 // g = bf16((acc [+ dsig[r] sigma_row[c]]) * [act > 0]) into the next
 // product's A buffer and the layer's G stash
@@ -130,8 +168,8 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 // kPasses: 128-row passes per CTA, 1 or 2, at compile time (see
 // fused_ray.cu: the one-pass kernel inlines the forward and the backward
-// once).
-template <int kPasses>
+// once). kContract: the contraction branch, also at compile time.
+template <int kPasses, bool kContract>
 __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Field& f = p.f;
@@ -156,11 +194,13 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
   };
   bf16* hv;
   bf16* feat;
-  field_forward(f, t, ray0, n_valid, 0, stash(0), &hv, &feat);
-  if (kPasses == 2) field_forward(f, t, ray0, n_valid, kRows, stash(kRows), &hv, &feat);
+  field_forward<kContract>(f, t, ray0, n_valid, 0, stash(0), &hv, &feat);
+  if (kPasses == 2) field_forward<kContract>(f, t, ray0, n_valid, kRows, stash(kRows), &hv, &feat);
 
   // ---- per ray: compositing, loss and the compositing VJP, f32 ----
-  // t.w holds the weights, t.sg the transmittance T
+  // t.w holds the weights, t.sg the transmittance T; with the distortion
+  // loss, t.dsig holds A_i between the two scans
+  const bool dist = p.dist_scale != 0.f;
   if (tid < R) {
     const int r0 = tid * S;
     if (tid < n_valid) {
@@ -191,13 +231,34 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
       const float e0 = c0 - p.gold[ray * 3 + 0];
       const float e1 = c1 - p.gold[ray * 3 + 1];
       const float e2 = c2 - p.gold[ray * 3 + 2];
+      float ldist = 0.f;
+      if (dist) {  // the distortion loss: prefix sums of w and w m over the whole ray
+        float wm_tot = 0.f;
+        for (int s = 0; s < S; ++s) {
+          float m, dn;
+          dist_coords(p, t.ts[r0 + s], t.dl[r0 + s], &m, &dn);
+          wm_tot += t.w[r0 + s] * m;
+        }
+        float cw = 0.f, cwm = 0.f;
+        for (int s = 0; s < S; ++s) {
+          const int r = r0 + s;
+          float m, dn;
+          dist_coords(p, t.ts[r], t.dl[r], &m, &dn);
+          const float w = t.w[r];
+          cw += w;
+          cwm += w * m;
+          const float A = m * (2.f * cw - acc) + wm_tot - 2.f * cwm;
+          ldist += w * A + w * w * dn * (1.f / 3.f);
+          t.dsig[r] = A;
+        }
+      }
       float* dg = p.diag + ray * 8;
       dg[0] = c0;
       dg[1] = c1;
       dg[2] = c2;
       dg[3] = acc;
       dg[4] = (e0 * e0 + e1 * e1 + e2 * e2) / 3.f;
-      dg[5] = 0.f;
+      dg[5] = ldist;
       dg[6] = 0.f;
       dg[7] = 0.f;
 
@@ -212,6 +273,11 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
         float u = rgb[0] * dc[0] + rgb[1] * dc[1] + rgb[2] * dc[2];
         if (p.white_bg) u -= dsum;
         const float w = t.w[r];
+        if (dist) {  // d L_dist / d w = 2 A + (2/3) w dn, into the same cotangent
+          float m, dn;
+          dist_coords(p, t.ts[r], t.dl[r], &m, &dn);
+          u += p.dist_scale * (2.f * t.dsig[r] + (2.f / 3.f) * w * dn);
+        }
         const float da = u * (t.sg[r] - w) - suffix;
         suffix += u * w;
         const float raw = t.sig_raw[r];
@@ -494,12 +560,15 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
                            void* wts, void* grads, void* scratch, long long n_rays, int S,
                            int depth_l, int skip, int W, int F, int V, int P, int D,
                            int pos_levels, int dir_levels, int sigma_act, int ipe, int white_bg,
-                           float loss_scale, void* stream) {
+                           float loss_scale, int contract, float dist_scale, float dist_a,
+                           float dist_b, int dist_disparity, void* stream) {
   TrainParams p;
   int rc = init_field(&p.f, o, d, vd, ts, deltas, radii, w, b, w_off, n_w, b_off, n_b, n_rays,
                       S, depth_l, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe);
   if (rc != 0) return rc;
   if (n_wt != depth_l + 2) return -2;
+  if (contract != 0 && contract != 1) return -8;
+  if (dist_disparity != 0 && dist_disparity != 1) return -9;
   const int L = depth_l;
   const long long total_w = w_off[L + 4] + static_cast<long long>(V) * 8;
   const long long total = total_w + b_off[L + 2] + 8;
@@ -525,18 +594,21 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   p.grgb = s.grgb;
   p.loss_scale = loss_scale;
   p.white_bg = white_bg;
+  p.dist_scale = dist_scale;
+  p.dist_a = dist_a;
+  p.dist_b = dist_b;
+  p.dist_disparity = dist_disparity;
 
   const size_t smem = smem_layout(p.f, true).total;
   const bool two = p.f.rows > kRows;
-  rc = two ? set_smem(train_tile_kernel<2>, smem) : set_smem(train_tile_kernel<1>, smem);
+  auto tile = two ? (contract ? train_tile_kernel<2, true> : train_tile_kernel<2, false>)
+                  : (contract ? train_tile_kernel<1, true> : train_tile_kernel<1, false>);
+  rc = set_smem(tile, smem);
   if (rc != 0) return rc;
   if (n_rays == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const unsigned ctas = static_cast<unsigned>(rows_pad / p.f.rows);
-  if (two)
-    train_tile_kernel<2><<<ctas, kThreads, smem, st>>>(p);
-  else
-    train_tile_kernel<1><<<ctas, kThreads, smem, st>>>(p);
+  tile<<<ctas, kThreads, smem, st>>>(p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 

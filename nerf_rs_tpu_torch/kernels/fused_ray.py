@@ -1,5 +1,6 @@
-"""The whole-ray render kernel: PE or IPE -> field -> alpha compositing
-for whole rays, reading only per-ray inputs. The counterpart of
+"""The whole-ray render kernel: PE or IPE (of the contracted points or
+Gaussians with ``cfg.contract``) -> field -> alpha compositing for whole
+rays, reading only per-ray inputs. The counterpart of
 ``nerf_rs_tpu/kernels/fused_ray.py``.
 
 ``fused_ray_render`` launches the CUDA kernel (``csrc/fused_ray.cu``)
@@ -12,7 +13,8 @@ so the wrapper pads S to ``padded_samples(S)`` with zero-length
 intervals at the far end (``pad_samples``, the JAX wrappers' pad): such
 an interval has alpha = 1 - exp(-sigma * 0) = 0, so its weight is
 exactly 0, and the pads are trimmed from the weights and sigma. The
-plain version needs no pad.
+plain version needs no pad. The pads repeat the last t, so 1/t (the
+distortion loss's disparity) and the IPE moments stay finite.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 
 from . import build
-from .fused_render import PackedWeights, ipe_encode, ipe_expand, pe_encode
+from .fused_render import (PackedWeights, contract_gaussian, contract_points, ipe_encode,
+                           ipe_expand, pe_encode)
 
 _SIGMA_ACT = {"relu": 0, "softplus": 1}
 TILE_ROWS = 128  # sample rows per CTA pass (kRows in csrc/field.cuh)
@@ -40,6 +43,8 @@ _SHAPE_ERRORS = {
     -5: "the layer widths need more shared memory than a CTA has",
     -6: "sigma_activation must be relu or softplus",
     -7: "radii must come with cfg.ipe and only with it",
+    -8: "contract must be 0 or 1",
+    -9: "dist_disparity must be 0 or 1",
 }
 
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -68,9 +73,6 @@ def pad_samples(ts: torch.Tensor, deltas: torch.Tensor) -> Tuple[torch.Tensor, t
 def _check(packed: PackedWeights, origins, dirs, viewdirs, ts, deltas,
            cfg: ModelConfig, num_samples: int, radii=None) -> None:
     """Shape and config checks, the same on every device."""
-    if cfg.contract:
-        raise NotImplementedError("the contraction branch of the whole-ray kernels comes with "
-                                  "slice 5 of the port")
     n = origins.shape[0]
     if not 1 <= num_samples <= MAX_SAMPLES:
         raise ValueError(f"num_samples={num_samples}: the kernels take 1 to {MAX_SAMPLES} "
@@ -126,6 +128,8 @@ def fused_ray_render(
     ``cfg.ipe``: ts are interval midpoints, deltas exact interval
     lengths, and ``radii`` (N,) f32 the cones' radii at unit distance;
     the kernel encodes each interval's conical-frustum Gaussian.
+    ``cfg.contract``: the points (or Gaussians) are contracted into the
+    radius-2 ball before the encoding (mip-NeRF 360).
 
     Any N: the kernel masks the ragged last tile. 1 <= S <= 256.
     Launches on the current stream without synchronising.
@@ -163,7 +167,8 @@ def fused_ray_render(
         rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), w.data_ptr(),
         sigma.data_ptr(), n, S, packed.depth, packed.skip_layer, packed.W,
         packed.F, packed.V, packed.P, packed.D, packed.pos_levels,
-        packed.dir_levels, _SIGMA_ACT[cfg.sigma_activation], int(cfg.ipe), stream,
+        packed.dir_levels, _SIGMA_ACT[cfg.sigma_activation], int(cfg.ipe),
+        int(cfg.contract), stream,
     )
     if rc < 0:
         raise ValueError(f"fused_ray kernel refused the call: {_SHAPE_ERRORS[rc]}")
@@ -188,7 +193,7 @@ def _library() -> ctypes.CDLL:
             [vp] * 8
             + [ctypes.POINTER(i64), i32, ctypes.POINTER(i64), i32]
             + [vp] * 5
-            + [i64] + [i32] * 12
+            + [i64] + [i32] * 13
             + [vp]
         )
         fn.restype = i32
@@ -211,9 +216,9 @@ def fused_ray_render_reference(
     """The kernel's plain PyTorch version, with its numerics: bf16
     operands, f32 products and sums (bf16 x bf16 products are exact in
     f32), f32 bias and relu, then rounding to bf16 between layers; f32
-    encodings (PE, or IPE from ``ipe_expand``) and compositing. On CUDA
-    it needs full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32 =
-    False``)."""
+    encodings (PE, or IPE from ``ipe_expand``, after the contraction with
+    ``cfg.contract``) and compositing. On CUDA it needs full-f32 matmuls
+    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
     _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples, radii)
     n, S = ts.shape
     bf = torch.bfloat16
@@ -221,7 +226,7 @@ def fused_ray_render_reference(
     bias = packed.biases()
     depth, skip, Fw = packed.depth, packed.skip_layer, packed.F
 
-    x = encode_samples(packed, origins, dirs, ts, deltas, radii).to(bf)
+    x = encode_samples(packed, origins, dirs, ts, deltas, radii, cfg.contract).to(bf)
     dv = pe_encode(viewdirs, packed.dir_levels, packed.D).to(bf)
     dv = dv.repeat_interleave(S, dim=0)
 
@@ -253,11 +258,18 @@ def fused_ray_render_reference(
     return rgb, w.sum(dim=-1), (w * ts).sum(dim=-1), w, sigma
 
 
-def encode_samples(packed: PackedWeights, origins, dirs, ts, deltas, radii=None) -> torch.Tensor:
+def encode_samples(packed: PackedWeights, origins, dirs, ts, deltas, radii=None,
+                   contract: bool = False) -> torch.Tensor:
     """The kernels' f32 encoding of every sample row, (N * S, P): PE of
-    o + t d, or with ``radii`` the IPE of each interval's frustum."""
+    o + t d, or with ``radii`` the IPE of each interval's frustum; with
+    ``contract`` the point or the Gaussian is contracted first
+    (``contract_points``, ``contract_gaussian``)."""
     if radii is not None:
         mean, var = ipe_expand(origins, dirs, ts, deltas, radii)
+        if contract:
+            mean, var = contract_gaussian(mean, var)
         return ipe_encode(mean, var, packed.pos_levels, packed.P)
     pts = (origins[:, None, :] + ts[:, :, None] * dirs[:, None, :]).reshape(-1, 3)
+    if contract:
+        pts = contract_points(pts)
     return pe_encode(pts, packed.pos_levels, packed.P)

@@ -1,5 +1,6 @@
 """Weight packing and the encodings of the whole-ray kernels (PE, and
-mip-NeRF's conical-frustum moments with the integrated encoding), the
+mip-NeRF's conical-frustum moments with the integrated encoding, each
+after mip-NeRF 360's contraction when the config asks for it), the
 counterpart of ``nerf_rs_tpu/kernels/fused_render.py``.
 
 The CUDA kernels (``csrc/fused_ray.cu``, ``csrc/fused_train.cu``, sharing
@@ -35,6 +36,11 @@ import torch.nn.functional as F
 from ..config import ModelConfig
 
 from ..models.encoding import integrated_posenc, posenc
+# the plain versions of csrc/field.cuh's contract_points and
+# contract_gaussian (the JAX package's _contract_points and
+# _contract_gaussian) are ops/contract's functions: they take the device
+# functions' steps in the same order
+from ..ops.contract import contract as contract_points, contract_gaussian  # noqa: F401
 
 
 def _round_up(x: int, m: int) -> int:

@@ -1,10 +1,12 @@
-"""The whole-ray training kernel: forward (PE or IPE -> field ->
-compositing -> MSE) and a hand-written backward (loss -> compositing VJP
--> head and trunk VJPs -> dW) over whole rays. The counterpart of
-``nerf_rs_tpu/kernels/fused_train.py``, without its contraction and
-distortion-loss branches (slice 5). Rays of 1 to 256 samples, padded as
-``kernels/fused_ray.py`` pads them: a zero-length interval has weight 0
-and d sigma = da * 0 = 0, so every gradient row it gives is exactly 0.
+"""The whole-ray training kernel: forward (PE or IPE, of the contracted
+points or Gaussians with ``cfg.contract`` -> field -> compositing -> MSE,
+plus mip-NeRF 360's distortion loss with ``dist_weight``) and a
+hand-written backward (loss -> compositing VJP -> head and trunk VJPs ->
+dW) over whole rays. The counterpart of
+``nerf_rs_tpu/kernels/fused_train.py``. Rays of 1 to 256 samples, padded
+as ``kernels/fused_ray.py`` pads them: a zero-length interval has weight 0
+and d sigma = da * 0 = 0, so every gradient row it gives is exactly 0, and
+its distortion length is 0 too.
 
 ``fused_train_grads`` launches the CUDA kernels (``csrc/fused_train.cu``:
 K2a, the per-tile forward and backward, and K2b, the dW and bias
@@ -20,6 +22,7 @@ import ctypes
 from collections import OrderedDict
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -50,7 +53,7 @@ class TrainGrads(NamedTuple):
     """Kernel outputs in the packed layout (``unpack_grads`` maps them
     onto the ``NerfMLP`` state dict)."""
 
-    diag: torch.Tensor  # (N, 8): [r, g, b, acc, sqerr, dist = 0, 0, 0]
+    diag: torch.Tensor  # (N, 8): [r, g, b, acc, sqerr, dist, 0, 0] (dist 0 when off)
     weights: torch.Tensor  # (N, S) compositing weights (values, no gradient)
     dw: Tuple[torch.Tensor, ...]  # f32 (K, N) per packed matrix, kernel order
     db: Tuple[torch.Tensor, ...]  # f32 padded bias gradients, kernel order
@@ -70,6 +73,29 @@ def _check_train(packed: PackedWeights, packed_t: PackedWeightsT, origins, dirs,
     if packed_t.w_shape != want or packed_t.sigma_row.shape != (W,):
         raise ValueError(f"transposed weights are {packed_t.w_shape}, the packed "
                          f"weights need {want}")
+
+
+_DIST_SPACES = ("linear", "disparity")
+
+
+def dist_constants(near: float, far: float, dist_space: str,
+                   dist_weight: float) -> Tuple[float, float, bool]:
+    """(a, b, disparity) of the distortion loss's s-coordinates, as the
+    JAX wrapper forms them: linear s = (t - a) b with a = near, b = 1 /
+    (far - near); disparity s = (a - 1/t) b with a = 1/near, b = 1 /
+    (1/near - 1/far). Each rounded to f32, the kernel's type. With the
+    loss off, (0, 0, False)."""
+    if dist_space not in _DIST_SPACES:
+        raise ValueError(f"dist_space must be one of {_DIST_SPACES}, got {dist_space!r}")
+    if dist_weight == 0.0:
+        return 0.0, 0.0, False
+    if dist_space == "disparity":
+        g0, g1 = 1.0 / near, 1.0 / far
+        a, b = g0, 1.0 / (g0 - g1)
+    else:
+        a, b = near, 1.0 / (far - near)
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    return f32(a), f32(b), dist_space == "disparity"
 
 
 def _split(flat: torch.Tensor, packed: PackedWeights):
@@ -95,13 +121,21 @@ def fused_train_grads(
     num_samples: int,
     white_bg: bool = False,
     radii: Optional[torch.Tensor] = None,
+    dist_weight: float = 0.0,
+    near: float = 0.0,
+    far: float = 1.0,
+    dist_space: str = "linear",
 ) -> TrainGrads:
     """One fused forward + backward over N rays: origins/dirs/viewdirs
     and gold (N, 3), ts/deltas (N, S) f32 (with ``cfg.ipe``: interval
     midpoints and exact lengths, and ``radii`` (N,) the cone radii).
     Returns per-ray diagnostics, the weights and the packed gradients of
     loss = mean over rays and channels of (C - gold)^2, summed over all N
-    rays.
+    rays, plus ``dist_weight`` x the mean per-ray distortion loss when
+    ``dist_weight`` > 0 (its per-ray values in diag column 5; ``near``,
+    ``far`` and ``dist_space`` normalise the sample positions,
+    ``dist_constants``). ``cfg.contract`` contracts the points (or
+    Gaussians) before the encoding.
 
     Any N: the kernel masks the ragged last tile (no padded ray enters
     the loss). 1 <= S <= 256. Launches on the current stream without
@@ -109,9 +143,12 @@ def fused_train_grads(
     """
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
                  num_samples, radii)
+    dist = dict(dist_weight=dist_weight, near=near, far=far, dist_space=dist_space)
+    dist_a, dist_b, disparity = dist_constants(near, far, dist_space, dist_weight)
     if origins.device.type == "cpu":
         return fused_train_grads_reference(packed, packed_t, origins, dirs, viewdirs, ts,
-                                           deltas, gold, cfg, num_samples, white_bg, radii)
+                                           deltas, gold, cfg, num_samples, white_bg, radii,
+                                           **dist)
     if origins.device.type != "cuda":
         raise ValueError(f"no kernel for device {origins.device}")
     dev = origins.device
@@ -150,7 +187,8 @@ def fused_train_grads(
         diag.data_ptr(), w.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
         n, S, packed.depth, packed.skip_layer, packed.W, packed.F, packed.V, packed.P,
         packed.D, packed.pos_levels, packed.dir_levels, _SIGMA_ACT[cfg.sigma_activation],
-        int(cfg.ipe), int(white_bg), 1.0 / (3.0 * n), stream,
+        int(cfg.ipe), int(white_bg), 1.0 / (3.0 * n), int(cfg.contract), dist_weight / n,
+        dist_a, dist_b, int(disparity), stream,
     )
     if rc < 0:
         raise ValueError(f"fused_train kernel refused the call: {_SHAPE_ERRORS[rc]}")
@@ -176,7 +214,7 @@ def _library() -> ctypes.CDLL:
             [vp] * 9 + [p64, i32, p64, i32]
             + [vp, p64, i32, vp]
             + [vp] * 4
-            + [i64] + [i32] * 13 + [ctypes.c_float, vp]
+            + [i64] + [i32] * 13 + [ctypes.c_float, i32] + [ctypes.c_float] * 3 + [i32, vp]
         )
         fn.restype = i32
         size = lib.nerf_fused_train_scratch_bytes
@@ -200,6 +238,10 @@ def fused_train_grads_reference(
     num_samples: int,
     white_bg: bool = False,
     radii: Optional[torch.Tensor] = None,
+    dist_weight: float = 0.0,
+    near: float = 0.0,
+    far: float = 1.0,
+    dist_space: str = "linear",
     *,
     dtype: torch.dtype = torch.float32,
 ) -> TrainGrads:
@@ -208,8 +250,9 @@ def fused_train_grads_reference(
     and sums, bf16 activations between layers, f32 compositing, and the
     TPU kernel's bf16 rounding points in the backward (d rgb_raw, g_hv,
     dfeat, d sigma, every trunk g). The compositing VJP is written out,
-    not taken from autograd. On CUDA it needs full-f32 matmuls
-    (``torch.backends.cuda.matmul.allow_tf32 = False``).
+    not taken from autograd, and so is the distortion loss's cotangent
+    (the kernel's prefix-sum form, its f32 constants). On CUDA it needs
+    full-f32 matmuls (``torch.backends.cuda.matmul.allow_tf32 = False``).
 
     ``dtype=torch.float64`` keeps every bf16 rounding point (and the f32
     encoding) but multiplies, sums and composites in float64: a witness
@@ -217,6 +260,7 @@ def fused_train_grads_reference(
     and the f32 version alike."""
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
                  num_samples, radii)
+    dist_a, dist_b, disparity = dist_constants(near, far, dist_space, dist_weight)
     n, S = ts.shape
     rows = n * S
     bf = torch.bfloat16
@@ -232,7 +276,7 @@ def fused_train_grads_reference(
         return a.to(dtype).t() @ g.to(dtype)
 
     # ---- forward ----
-    x = encode_samples(packed, origins, dirs, ts, deltas, radii).to(bf)
+    x = encode_samples(packed, origins, dirs, ts, deltas, radii, cfg.contract).to(bf)
     dv = pe_encode(viewdirs, packed.dir_levels, packed.D).to(bf).repeat_interleave(S, dim=0)
     hs, h = [], x
     for i in range(L):
@@ -264,13 +308,29 @@ def fused_train_grads_reference(
         C = C + (1.0 - acc)[:, None]
     res = C - gold
     sqerr = (res * res).mean(dim=-1)
-    diag = torch.cat([C, acc[:, None], sqerr[:, None], torch.zeros_like(C)], dim=1)
+    ldist = torch.zeros_like(acc)
+    if dist_weight != 0.0:  # mip-NeRF 360's distortion loss, the kernel's prefix-sum form
+        t = ts.to(dtype)
+        if disparity:
+            m = (dist_a - 1.0 / t) * dist_b
+            den = (t - 0.5 * deltas) * (t + 0.5 * deltas) if radii is not None else t * (t + deltas)
+            dn = deltas / den * dist_b
+        else:
+            m = (t - dist_a) * dist_b
+            dn = deltas * dist_b
+        cw, cwm = torch.cumsum(w, dim=-1), torch.cumsum(w * m, dim=-1)
+        dist_A = m * (2.0 * cw - acc[:, None]) + (w * m).sum(dim=-1, keepdim=True) - 2.0 * cwm
+        ldist = (w * dist_A + w * w * dn * (1.0 / 3.0)).sum(dim=-1)
+    diag = torch.cat([C, acc[:, None], sqerr[:, None], ldist[:, None],
+                      torch.zeros_like(C[:, :2])], dim=1)
 
     # ---- compositing VJP, f32 ----
     dC = (2.0 / (3.0 * n)) * res
     u = (rgb_rs * dC[:, None, :]).sum(dim=-1)
     if white_bg:
         u = u - dC.sum(dim=-1, keepdim=True)
+    if dist_weight != 0.0:
+        u = u + (dist_weight / n) * (2.0 * dist_A + (2.0 / 3.0) * w * dn)
     uw = u * w
     suffix = torch.cat([uw.flip(-1).cumsum(-1).flip(-1)[:, 1:],
                         torch.zeros_like(uw[:, :1])], dim=-1)  # sum over i > k

@@ -20,14 +20,22 @@ multiple of 4, indices that are not contiguous int32 on the table's device,
 and odd pair indices. An index outside the table gives a NaN row (or pair)
 on either device: the kernel never reads outside the table.
 
-There is no backward: the JAX kernel has none either (``jnp.take``'s VJP is
-XLA's scatter-add). ``models/hashgrid.py`` scatter-adds the gradient with
-``index_add_``.
+The fetches' backward is ``scatter_rows``: the cotangents of the fetched
+values summed into the table per element in fetch order (the JAX package's
+``jnp.take`` VJP, an XLA scatter-add; it has no Pallas kernel). The order is
+fixed, so two calls give the same bits on the card, where ``index_add_``'s
+float atomics do not. The wrapper sorts the fetch keys with a stable sort,
+finds each distinct row's run and cuts it into chunks of SCATTER_CHUNK fetches
+(integer work, deterministic on either device); the kernels
+(``csrc/gather_rows.cu``) or the plain version ``scatter_rows_reference``
+then sum each chunk in fetch order and each row's chunks in chunk order, the
+same additions in the same order, so the two give the same bits.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional, Sequence
 
 import torch
 
@@ -100,10 +108,86 @@ def gather_pairs(table_flat: torch.Tensor, fidx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+SCATTER_CHUNK = 64  # fetches per partial sum: the longest sequential walk
+
+
+def _runs(key: torch.Tensor):
+    """(perm, rows, start, count): the stable order of the keys and, per
+    distinct key in ascending order, its first position in that order and
+    its number of entries."""
+    sorted_key, perm = torch.sort(key, stable=True)
+    rows, count = torch.unique_consecutive(sorted_key, return_counts=True)
+    start = torch.cumsum(count, 0) - count
+    return perm, rows, start, count
+
+
+def _chunks(start: torch.Tensor, count: torch.Tensor):
+    """Each run cut into chunks of at most SCATTER_CHUNK entries: (chunk
+    start, chunk count, each run's first chunk, each run's chunk count)."""
+    nchunk = (count + SCATTER_CHUNK - 1) // SCATTER_CHUNK
+    first = torch.cumsum(nchunk, 0) - nchunk
+    n_chunks = int(first[-1] + nchunk[-1])
+    owner = torch.repeat_interleave(torch.arange(count.shape[0], device=count.device), nchunk,
+                                    output_size=n_chunks)
+    cstart = start[owner] + (torch.arange(n_chunks, device=count.device) - first[owner]) * \
+        SCATTER_CHUNK
+    ccount = torch.clamp(start[owner] + count[owner] - cstart, max=SCATTER_CHUNK)
+    return cstart, ccount.int(), first, nchunk.int()
+
+
+def scatter_rows(g: torch.Tensor, key: torch.Tensor, lane0: Optional[torch.Tensor],
+                 lanes: Sequence[int], shape) -> torch.Tensor:
+    """The gradient of a (rows, width) f32 table of ``shape`` whose fetch j
+    read row ``key[j]`` at the columns ``lane0[j] + lanes[c]`` (``lane0``
+    None: 0) and received the cotangents ``g`` (M, C) f32: out[key[j],
+    lane0[j] + lanes[c]] += g[j, c], summed in a fixed order: per element,
+    the fetches of each chunk of SCATTER_CHUNK fetches of its row in fetch
+    order, then the chunks in order. ``key`` and ``lane0`` are (M,) int32;
+    width <= 128, C <= 32, and the columns of one fetch distinct and inside
+    the row. Launches the kernels for CUDA tensors (counted once per call in
+    ``scatter_rows.launches``), on the current stream; runs the plain version
+    for CPU tensors."""
+    rows_n, width = shape
+    M, C = g.shape
+    if len(lanes) != C or not 0 < C <= 32 or not 0 < width <= 128 or max(lanes) >= width:
+        raise ValueError(f"{C} lanes {tuple(lanes)} of a {width}-wide row: the kernel takes "
+                         f"C <= 32 distinct lanes inside a row of width <= 128")
+    for name, a in (("key", key), ("lane0", lane0)):
+        if a is not None and (a.shape != (M,) or a.dtype != torch.int32 or a.device != g.device
+                              or not a.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous ({M},) int32 tensor on g's device")
+    if g.dtype != torch.float32 or not g.is_contiguous():
+        raise ValueError("g must be a contiguous f32 tensor")
+    if g.device.type == "cpu":
+        return scatter_rows_reference(g, key, lane0, lanes, shape)
+    if g.device.type != "cuda":
+        raise ValueError(f"no kernel for device {g.device}")
+    out = torch.zeros(rows_n, width, device=g.device)
+    if M == 0:
+        return out
+    perm, rows, start, count = _runs(key)
+    cstart, ccount, first, nchunk = _chunks(start, count)
+    partial = torch.empty(cstart.shape[0], width, device=g.device)
+    lib = _library()
+    c_lanes = (ctypes.c_int * C)(*lanes)
+    rc = lib.nerf_scatter_rows(g.data_ptr(), perm.data_ptr(),
+                               None if lane0 is None else lane0.data_ptr(), cstart.data_ptr(),
+                               ccount.data_ptr(), cstart.shape[0], first.data_ptr(),
+                               nchunk.data_ptr(), rows.data_ptr(), rows.shape[0], c_lanes, C,
+                               partial.data_ptr(), out.data_ptr(), rows_n, width,
+                               torch.cuda.current_stream(g.device).cuda_stream)
+    if rc < 0:
+        raise ValueError("scatter_rows kernel refused the call: width or C out of range")
+    _raise_on(rc, lib, "scatter_rows")
+    scatter_rows.launches += 1
+    return out
+
+
 # kernel launches so far in this process; a run reads them to show that its
 # path went through the kernel
 gather_rows.launches = 0
 gather_pairs.launches = 0
+scatter_rows.launches = 0
 
 
 def _inside(i: torch.Tensor, size: int) -> torch.Tensor:
@@ -129,6 +213,55 @@ def gather_pairs_reference(table_flat: torch.Tensor, fidx: torch.Tensor) -> torc
                        torch.nan)
 
 
+def _ordered_sums(keys: torch.Tensor, vals: torch.Tensor):
+    """(distinct keys ascending, the sum of each key's values from 0 in
+    their order in ``vals``). The runs are walked position by position,
+    vectorised over the runs still going (longest first), so a call costs
+    as many steps as its longest run."""
+    order, uniq, start, count = _runs(keys)
+    vals = vals[order]
+    count, by_len = torch.sort(count, descending=True, stable=True)
+    start = start[by_len]
+    going = count.shape[0] - torch.cumsum(torch.bincount(count), 0)  # runs with count > step
+    acc = torch.zeros(count.shape[0], dtype=vals.dtype, device=vals.device)
+    for step, n in enumerate(going[:int(count[0])].tolist()):
+        acc[:n] += vals[start[:n] + step]
+    sums = torch.empty_like(acc)
+    sums[by_len] = acc
+    return uniq, sums
+
+
+def scatter_rows_reference(g: torch.Tensor, key: torch.Tensor, lane0: Optional[torch.Tensor],
+                           lanes: Sequence[int], shape) -> torch.Tensor:
+    """The plain version of ``scatter_rows``, the kernels' additions in
+    their order: per (element, chunk) the chunk's fetches in fetch order
+    from 0, then per element its chunks in order from 0. A fetch's chunk is
+    its rank in its row's run // SCATTER_CHUNK. Keys outside the table are
+    skipped, as the kernels skip them."""
+    rows_n, width = shape
+    M, C = g.shape
+    out = torch.zeros(rows_n * width, device=g.device)
+    if M == 0:
+        return out.view(rows_n, width)
+    perm, _, start, count = _runs(key)
+    rank = torch.empty(M, dtype=torch.int64, device=g.device)
+    rank[perm] = torch.arange(M, device=g.device) - torch.repeat_interleave(start, count)
+    chunk = rank // SCATTER_CHUNK
+    n_ch = int(chunk.max()) + 1
+    col = torch.as_tensor(list(lanes), dtype=torch.int64, device=g.device)[None, :]
+    if lane0 is not None:
+        col = lane0.long()[:, None] + col
+    k = key.long()[:, None]
+    keep = ((k >= 0) & (k < rows_n) & (col < width)).expand(M, C).reshape(-1)
+    group = ((k * width + col) * n_ch + chunk[:, None]).expand(M, C).reshape(-1)[keep]
+    if group.numel() == 0:
+        return out.view(rows_n, width)
+    groups, partial = _ordered_sums(group, g.reshape(-1)[keep])
+    elems, total = _ordered_sums(groups // n_ch, partial)
+    out[elems] = total
+    return out.view(rows_n, width)
+
+
 def _raise_on(rc: int, lib, what: str) -> None:
     if rc:
         msg = lib.nerf_cuda_error_string(rc).decode()
@@ -143,6 +276,9 @@ def _library() -> ctypes.CDLL:
         lib.nerf_gather_rows.restype = i32
         lib.nerf_gather_pairs.argtypes = [vp, i64, vp, vp, i64, vp]
         lib.nerf_gather_pairs.restype = i32
+        lib.nerf_scatter_rows.argtypes = ([vp] * 5 + [i64] + [vp] * 3
+                                           + [i64, ctypes.POINTER(i32), i32, vp, vp, i64, i32, vp])
+        lib.nerf_scatter_rows.restype = i32
         lib.nerf_cuda_error_string.argtypes = [i32]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -19,11 +19,11 @@ hash of ``_PRIMES``. Two table layouts, as in the JAX package:
   * brick (``brick_encode``, ``--preset ngp``): (L Tb, 128) rows, each a
     4^3-vertex brick of F = 2 features, one row per (point, level) through
     K4's ``gather_rows``, the 8 corners then picked from its lanes.
-The fetch is a ``torch.autograd.Function`` whose backward scatter-adds the
-cotangents of the fetched values into the table with ``index_add_`` (the
-JAX package's ``jnp.take`` VJP). It saves the indices, not the rows. On
-the card ``index_add_`` sums in an order that changes between runs, so the
-table's gradient varies in its last bits from run to run.
+The fetch is a ``torch.autograd.Function`` whose backward sums the
+cotangents of the fetched values into the table (the JAX package's
+``jnp.take`` VJP) through ``kernels/gather_rows.scatter_rows``, in a fixed
+order, so the table's gradient has the same bits on every run. It saves the
+indices, not the rows.
 
 The encode is f32 under every precision; the heads cast it to bf16 under
 "mixed". Hash arithmetic is the JAX package's uint32 product with
@@ -161,14 +161,6 @@ def init_hash_params(cfg: ModelConfig, seed: int = 0, device=None,
     return model.to(device)
 
 
-def _scatter(shape, pos: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """The gradient of a table of ``shape`` whose flat elements ``pos`` were
-    fetched and received the cotangents ``g``: their sum per element."""
-    d = g.new_zeros(math.prod(shape))
-    d.index_add_(0, pos.reshape(-1), g.reshape(-1).float())
-    return d.view(shape)
-
-
 def _check_int32(table: torch.Tensor) -> None:
     if table.numel() >= 2 ** 31:
         raise ValueError(f"K4 takes int32 indices: a table of {table.numel()} elements is too big")
@@ -176,7 +168,8 @@ def _check_int32(table: torch.Tensor) -> None:
 
 class _PairFetch(torch.autograd.Function):
     """(L T, 2) table, (M,) even flat element indices -> (M, 2) pairs
-    through ``gather_pairs``; the backward scatter-adds at fidx, fidx + 1."""
+    through ``gather_pairs``; the backward sums the cotangents into rows
+    fidx / 2 (``scatter_rows``)."""
 
     @staticmethod
     def forward(ctx, table, fidx):
@@ -188,9 +181,10 @@ class _PairFetch(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from ..kernels.gather_rows import scatter_rows
+
         (fidx,) = ctx.saved_tensors
-        pos = fidx.long()[:, None] + torch.arange(2, device=fidx.device)
-        return _scatter(ctx.shape, pos, g), None
+        return scatter_rows(g.float().contiguous(), fidx // 2, None, (0, 1), ctx.shape), None
 
 
 # lane of corner c's feature f in a brick row, less the point's base lane
@@ -201,7 +195,8 @@ _CORNER_LANES = [((dx * 4 + dy) * 4 + dz) * 2 + f for dx, dy, dz in _CORNERS for
 class _BrickFetch(torch.autograd.Function):
     """(L Tb, 128) table, (M,) row indices and (M,) base lanes -> (M, 16):
     the 8 corners' F = 2 features, one ``gather_rows`` row each then picked
-    from its lanes; the backward scatter-adds at row 128 + lane."""
+    from its lanes; the backward sums the cotangents into the rows at those
+    lanes (``scatter_rows``)."""
 
     @staticmethod
     def forward(ctx, table, rows_idx, base_lane):
@@ -213,9 +208,11 @@ class _BrickFetch(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from ..kernels.gather_rows import scatter_rows
+
         rows_idx, base_lane = ctx.saved_tensors
-        pos = rows_idx.long()[:, None] * ctx.shape[1] + _lanes(base_lane)
-        return _scatter(ctx.shape, pos, g), None, None
+        return (scatter_rows(g.float().contiguous(), rows_idx, base_lane, _CORNER_LANES,
+                             ctx.shape), None, None)
 
 
 def _constant(values, dtype, device) -> torch.Tensor:

@@ -14,9 +14,10 @@ shape (in, out) and ``b`` of shape (out,); the state-dict keys are
 
 Ported so far: the paper arch (with PE, or mip-NeRF's integrated
 encoding of Gaussians), the factored arch (``models/factored.py``) and
-the hash grid (``models/hashgrid.py``, both table layouts); compat mode
-and contraction raise ``NotImplementedError`` naming the slice that
-brings them.
+the hash grid (``models/hashgrid.py``, both table layouts), each with
+mip-NeRF 360's scene contraction in front of it (``cfg.contract``);
+compat mode raises ``NotImplementedError`` naming the slice that brings
+it.
 """
 
 from __future__ import annotations
@@ -38,8 +39,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise for the model options later slices of the port bring."""
     if cfg.compat:
         raise NotImplementedError("--compat comes with slice 10 of the port")
-    if cfg.contract:
-        raise NotImplementedError("--contract comes with slice 5 of the port")
 
 
 class Dense(nn.Module):
@@ -181,8 +180,20 @@ def apply_nerf(
     grid (``models/hashgrid.apply_hashgrid``) encode the points with their
     tables and tiny heads; ``pos_var`` does not apply to them, as in the
     JAX package.
+
+    ``cfg.contract``: the points (or, with ``pos_var``, the Gaussians,
+    through the closed-form linearisation) are contracted into the
+    radius-2 ball first (``ops/contract.py``), before the dispatch over
+    the families, as in the JAX package.
     """
     check_supported(cfg)
+    if cfg.contract:
+        from ..ops.contract import contract, contract_gaussian
+
+        if pos_var is not None:
+            points, pos_var = contract_gaussian(points, pos_var)
+        else:
+            points = contract(points)
     if cfg.arch in ("factored", "hashgrid"):
         from .factored import apply_factored
         from .hashgrid import apply_hashgrid

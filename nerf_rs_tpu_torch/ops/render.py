@@ -1,15 +1,15 @@
-"""Volume rendering: alpha compositing and the ray renderer, the
-counterpart of ``nerf_rs_tpu/ops/render.py``: point-sampled (PE) and
-interval-sampled (mip-NeRF's IPE) passes, and the hierarchical fine pass
-(NeRF section 5.2) in both fine modes, each through the whole-ray render
-kernel or the eager field.
+"""Volume rendering: alpha compositing, mip-NeRF 360's distortion loss
+and the ray renderer, the counterpart of ``nerf_rs_tpu/ops/render.py``:
+point-sampled (PE) and interval-sampled (mip-NeRF's IPE) passes, the
+hierarchical fine pass (NeRF section 5.2) in both fine modes, and
+proposal-guided sampling (mip-NeRF 360), each through the whole-ray render
+kernel or the eager field, in linear or disparity sample spacing.
 
 T_i = exp(-sum_{j<i} sigma_j delta_j) from one exclusive cumsum,
 w_i = T_i (1 - exp(-sigma_i delta_i)), C = sum_i w_i c_i.
 
 The shared-network fast fine pass (the rest of slice 2), occupancy
-(slice 4), proposal, disparity sampling and contraction (slice 5) and
-compat passes (slice 10) raise ``NotImplementedError``.
+(slice 4) and compat passes (slice 10) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ class RenderOut(NamedTuple):
     depth: torch.Tensor  # (...,) expected termination depth
     acc: torch.Tensor  # (...,) accumulated opacity
     ts: Optional[torch.Tensor] = None  # (..., S) sample distances (IPE: interval midpoints)
+    deltas: Optional[torch.Tensor] = None  # (..., S) exact interval lengths (IPE passes only)
 
 
 def composite(
@@ -54,6 +55,49 @@ def composite(
         rgb = rgb + (1.0 - acc[..., None])
     return RenderOut(rgb=rgb, weights=weights, sigma=sigma, depth=depth,
                      acc=acc, ts=ts)
+
+
+def distortion_loss(
+    weights: torch.Tensor,
+    ts: torch.Tensor,
+    near: float,
+    far: float,
+    space: str = "linear",
+    deltas: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """mip-NeRF 360's distortion loss (eq. 15, arXiv 2111.12077) for point
+    samples, the mean over rays of
+
+        L = sum_ij w_i w_j |s_i - s_j| + (1/3) sum_i w_i^2 d_i
+
+    with s the sample positions normalised to [0, 1] over [near, far] (in
+    t, or with ``space="disparity"`` in 1/t) and d their normalised
+    interval lengths. The double sum is O(S) through inclusive prefix sums:
+    sum_j w_j |s_i - s_j| = s_i (2 cw_i - W) + M - 2 cwm_i. Positions are
+    values: only the weights carry gradient.
+
+    ``deltas`` (IPE passes): ``ts`` are interval midpoints and ``deltas``
+    exact interval lengths, so the s-space lengths are exact (disparity:
+    dt / ((mid - dt/2)(mid + dt/2))); without them the point convention
+    applies (the last interval runs to the far plane)."""
+    ts = ts.detach()
+    if deltas is not None:
+        deltas = deltas.detach()
+    if space == "disparity":
+        g0, g1 = 1.0 / near, 1.0 / far
+        s = (g0 - 1.0 / ts) / (g0 - g1)
+        if deltas is not None:
+            d = deltas / ((ts - 0.5 * deltas) * (ts + 0.5 * deltas)) / (g0 - g1)
+        else:
+            d = torch.cat([s[..., 1:], torch.ones_like(s[..., :1])], dim=-1) - s
+    else:
+        inv_span = 1.0 / (far - near)
+        s = (ts - near) * inv_span
+        d = (deltas if deltas is not None else sampling.deltas_from_ts(ts, far)) * inv_span
+    cw = torch.cumsum(weights, dim=-1)
+    cwm = torch.cumsum(weights * s, dim=-1)
+    a = s * (2.0 * cw - cw[..., -1:]) + cwm[..., -1:] - 2.0 * cwm
+    return torch.mean(torch.sum(weights * a + weights * weights * d / 3.0, dim=-1))
 
 
 def train_fused_supported(model_cfg: ModelConfig) -> bool:
@@ -79,8 +123,6 @@ def check_render_supported(model_cfg: ModelConfig, render_cfg: RenderConfig) -> 
     """Raise for the render options later slices of the port bring."""
     if render_cfg.occ_res > 0:
         raise NotImplementedError("occupancy sampling comes with slice 4 of the port")
-    if render_cfg.sampling_space != "linear":
-        raise NotImplementedError("disparity sampling comes with slice 5 of the port")
     if render_cfg.compat_sampling or render_cfg.compat_density_color:
         raise NotImplementedError("compat rendering comes with slice 10 of the port")
 
@@ -110,6 +152,8 @@ def render_rays(
     packed=None,
     fine_params=None,
     fine_packed=None,
+    prop_params=None,
+    prop_cfg=None,
 ) -> Tuple[RenderOut, Optional[RenderOut]]:
     """Sample -> field -> composite for rays of any leading shape, with
     the hierarchical fine pass when ``render_cfg.num_fine_samples > 0``.
@@ -127,6 +171,12 @@ def render_rays(
     weights packed once per frame). Otherwise the field runs as
     ``apply_nerf`` at ``dtype`` and composites in f32. Draws come from
     ``generator``: the coarse jitter, then the fine pass's.
+
+    ``prop_params`` (a ``ProposalMLP``, with ``prop_cfg``): the point
+    samples of the one pass are proposal-guided (``ops/proposal.
+    proposal_resample``, without annealing) instead of stratified; the
+    interlevel loss lives in ``train/step.py``. IPE passes ignore it, as
+    in the JAX package (the config refuses IPE with a proposal).
     """
     check_render_supported(model_cfg, render_cfg)
     use_fused = use_fused and fused_supported(model_cfg)
@@ -170,14 +220,17 @@ def render_rays(
                 ts.contiguous(), deltas.contiguous(), model_cfg, ts.shape[-1], radii=radii)
             if render_cfg.white_background:
                 rgb = rgb + (1.0 - acc[..., None])
-            return RenderOut(rgb=rgb, weights=w, sigma=sig, depth=depth, acc=acc, ts=ts)
+            return RenderOut(rgb=rgb, weights=w, sigma=sig, depth=depth, acc=acc, ts=ts,
+                             deltas=deltas if edges is not None else None)
         if edges is not None:
             mean, var, _, _ = sampling.conical_gaussians(flat_o, flat_d, edges, radius)
             sigma, rgb = apply_nerf(pass_params, mean, viewdirs[..., None, :], model_cfg, dtype,
                                     pos_var=var)
-        else:
-            pts = sampling.points_from_ts(flat_o, flat_d, ts)
-            sigma, rgb = apply_nerf(pass_params, pts, viewdirs[..., None, :], model_cfg, dtype)
+            return composite(sigma, rgb[..., :3], deltas,
+                             white_background=render_cfg.white_background,
+                             ts=ts)._replace(deltas=deltas)
+        pts = sampling.points_from_ts(flat_o, flat_d, ts)
+        sigma, rgb = apply_nerf(pass_params, pts, viewdirs[..., None, :], model_cfg, dtype)
         return composite(sigma, rgb[..., :3], deltas,
                          white_background=render_cfg.white_background, ts=ts)
 
@@ -185,11 +238,19 @@ def render_rays(
         # S + 1 stratified edges: S intervals, composited over their
         # exact lengths; the edges are the fine pass's histogram bins
         edges = sampling.stratified_ts(n, S + 1, near, far, rand, generator=generator,
-                                       device=flat_o.device)
+                                       device=flat_o.device, space=render_cfg.sampling_space)
         coarse = run_pass(params, packed, None, edges)
     else:
-        ts = sampling.stratified_ts(n, S, near, far, rand, generator=generator,
-                                    device=flat_o.device)
+        if prop_params is not None:
+            from .proposal import proposal_resample
+
+            ts, _ = proposal_resample(flat_o, flat_d, prop_params, prop_cfg, S, camera, rand,
+                                      generator=generator, dtype=dtype,
+                                      space=render_cfg.sampling_space,
+                                      contract=model_cfg.contract)
+        else:
+            ts = sampling.stratified_ts(n, S, near, far, rand, generator=generator,
+                                        device=flat_o.device, space=render_cfg.sampling_space)
         coarse = run_pass(params, packed, ts)
 
     fine = None
@@ -218,6 +279,7 @@ def render_rays(
             depth=out.depth.reshape(shape),
             acc=out.acc.reshape(shape),
             ts=out.ts.reshape(*shape, -1),
+            deltas=None if out.deltas is None else out.deltas.reshape(*shape, -1),
         )
 
     return unflatten(coarse), (unflatten(fine) if fine is not None else None)

@@ -1,13 +1,12 @@
-"""Sampling along rays, the counterpart of the linear-space part of
-``nerf_rs_tpu/ops/sampling.py``: stratified point samples, mip-NeRF's
-conical-frustum Gaussians, and hierarchical resampling (``sample_pdf``,
-``merge_ts``).
+"""Sampling along rays, the counterpart of ``nerf_rs_tpu/ops/sampling.py``
+without its compat draw: stratified point samples (even in t, or in 1/t
+for unbounded scenes), mip-NeRF's conical-frustum Gaussians, and
+hierarchical resampling (``sample_pdf``, ``merge_ts``).
 
 Random draws come from an explicit ``torch.Generator``; torch and JAX
 streams differ, so parity tests use ``randomized=False`` (bin
 midpoints) or hand both sides the same numbers (``invert_cdf`` takes
-the uniforms ``sample_pdf`` would draw). Disparity-space stratification
-comes with slice 5.
+the uniforms ``sample_pdf`` would draw).
 """
 
 from __future__ import annotations
@@ -26,11 +25,21 @@ def stratified_ts(
     randomized: bool = True,
     generator: Optional[torch.Generator] = None,
     device=None,
+    space: str = "linear",
 ) -> torch.Tensor:
     """(num_rays, num_samples) sorted sample distances: [near, far] cut
     into num_samples even bins, one uniform draw per bin (NeRF eq. 2),
-    or the bin midpoints when ``randomized`` is False."""
-    bins = torch.linspace(near, far, num_samples + 1, device=device)
+    or the bin midpoints when ``randomized`` is False.
+
+    ``space="disparity"`` makes the bins even in 1/t between 1/near and
+    1/far (mip-NeRF 360's unbounded spacing; near > 0), laid out so that
+    the ts still ascend."""
+    if space == "disparity":
+        bins = 1.0 / torch.linspace(1.0 / near, 1.0 / far, num_samples + 1, device=device)
+    elif space == "linear":
+        bins = torch.linspace(near, far, num_samples + 1, device=device)
+    else:
+        raise ValueError(f"space must be 'linear' or 'disparity', got {space!r}")
     lower, upper = bins[:-1], bins[1:]
     if randomized:
         u = torch.rand((num_rays, num_samples), generator=generator,

@@ -1,6 +1,7 @@
 """Full-frame rendering on one device: the counterpart of the render
 parts of ``nerf_rs_tpu/parallel/dp.py`` (``default_render_chunk``,
-``make_dp_render`` with its fine-field handling) and
+``make_dp_render`` with its handling of the second net: a fine field, or
+the proposal net) and
 ``nerf_rs_tpu/train/loop.py`` (``render_frame``). Multi-GPU rendering
 comes with slice 8 of the port.
 """
@@ -50,8 +51,10 @@ def make_render(cfg: Config, camera: Optional[CameraConfig] = None,
     fine_params=None) -> rgb (N, 3), depth (N,), acc (N,), of the fine
     pass with hierarchical sampling (through ``fine_params`` when the
     run has a fine field; ``share_network`` renders both passes with
-    ``params``). Deterministic sampling (bin midpoints). Through the
-    kernel, both fields' weights are packed once per call, outside the
+    ``params``). With proposal sampling the second slot, ``fine_params``,
+    carries the proposal net: each chunk resamples through it (eager)
+    before its one pass. Deterministic sampling (bin midpoints). Through
+    the kernel, both fields' weights are packed once per call, outside the
     chunk loop, and each chunk launches the kernel once per pass; the
     last chunk may be ragged (the kernel masks it), so nothing is
     padded."""
@@ -65,6 +68,9 @@ def make_render(cfg: Config, camera: Optional[CameraConfig] = None,
 
     @torch.no_grad()
     def render(params, origins, dirs, fine_params=None):
+        prop_params = None
+        if cfg.proposal.enabled:  # the second slot carries the proposal net
+            prop_params, fine_params = fine_params, None
         packed = fine_packed = None
         if use_fused:
             from .kernels.fused_render import pack_weights
@@ -78,7 +84,7 @@ def make_render(cfg: Config, camera: Optional[CameraConfig] = None,
                 params, origins[i:i + chunk], dirs[i:i + chunk], cfg.model,
                 cfg.render, camera, randomized=False, dtype=dtype,
                 use_fused=use_fused, packed=packed, fine_params=fine_params,
-                fine_packed=fine_packed,
+                fine_packed=fine_packed, prop_params=prop_params, prop_cfg=cfg.proposal,
             )
             out = fine if fine is not None else coarse
             outs.append((out.rgb, out.depth, out.acc))

@@ -3,8 +3,9 @@
 The JAX package writes flax msgpack; the port writes ``torch.save``
 files under the same name pattern, ``checkpoint-{unix_ts}-{step}.pt``,
 and ``latest_checkpoint`` picks the newest by (timestamp, step). A file
-holds the step, the field's weights, the fine field's when the run has
-one (hierarchical sampling with two nets), and, when saved from a
+holds the step, the field's weights, the second net's when the run has
+one (the fine field of hierarchical sampling with two nets, or the
+proposal net; under the key ``fine_params``), and, when saved from a
 ``TrainState``, the optimizer's state over both (``restore`` resumes
 training from it; ``restore_weights`` reads the weights of either
 kind). Loading uses ``weights_only=True``. Weights trained by the JAX
@@ -66,11 +67,14 @@ def _load(path: str) -> dict:
 
 
 def _load_fine(ckpt: dict, path: str, fine: Optional[nn.Module]) -> None:
-    """The fine field's weights into ``fine``; the file and the caller
-    must agree on whether there is one."""
+    """The second net's weights (fine field or proposal) into ``fine``;
+    the file and the caller must agree on whether there is one, which is
+    why eval and render need the preset a run was trained with."""
     if (fine is None) != ("fine_params" not in ckpt):
-        raise ValueError(f"{path} {'has' if fine is None else 'has no'} fine-field weights, "
-                         f"the run {'has no' if fine is None else 'has a'} fine field")
+        raise ValueError(f"{path} {'has' if fine is None else 'has no'} second-net weights "
+                         f"(a fine field or a proposal net), the run "
+                         f"{'has none' if fine is None else 'has one'}: use the preset the "
+                         f"checkpoint was trained with")
     if fine is not None:
         fine.load_state_dict(ckpt["fine_params"])
 

@@ -1,8 +1,10 @@
 """The single-device training step, the counterpart of
 ``nerf_rs_tpu/train/step.py``: MSE of composited colors against gold
 pixels (coarse plus fine with hierarchical sampling, paper eq. 6), plus
-the factored field's L1 on its line tables (``fac_l1``), Adam at the
-configured rate over every trainable net.
+the factored field's L1 on its line tables (``fac_l1``), mip-NeRF 360's
+distortion loss on the finest pass (``distortion_weight``) and, with
+proposal sampling, the interlevel loss that trains the proposal net; Adam
+at the configured rate over every trainable net.
 
 Gradients come from the whole-ray training kernel
 (``kernels/fused_train.py``) whenever ``whole_ray_supported(cfg)`` holds
@@ -16,17 +18,20 @@ and the hash grid's table gradient is the scatter-add of its fetch
 (``models/hashgrid.py``). The hash grid has no regulariser.
 
 Two nets: with ``num_fine_samples > 0`` and no ``share_network`` the fine
-pass has its own field, ``TrainState.fine_params``; gradients and Adam
-state of both are keyed by parameter name, the fine net's under
-``fine.``.
+pass has its own field, and with ``cfg.proposal.enabled`` the proposal
+net (``models/proposal.py``) takes the same slot,
+``TrainState.fine_params``; gradients and Adam state of both are keyed by
+parameter name, the second net's under ``fine.``. Under proposal sampling
+the main field's gradient comes from the train kernel (or autograd) and
+the proposal's from autograd through its histograms alone
+(``_whole_ray_proposal_grads``).
 
-Random draws (the batch, the sample jitter, the fine pass's resampling)
-come from an explicit ``torch.Generator``; ``step_generator`` derives
-one per step from (seed, step), so a resumed run draws what an unbroken
-run draws. Occupancy (slice 4), proposal sampling and the distortion
-loss (slice 5), error resampling and multiscale batches (slice 6), EMA,
-gradient accumulation and sigma noise (slice 7) raise
-``NotImplementedError``.
+Random draws (the batch, the sample jitter, the fine pass's or the
+proposal levels' resampling) come from an explicit ``torch.Generator``;
+``step_generator`` derives one per step from (seed, step), so a resumed
+run draws what an unbroken run draws. Occupancy (slice 4), error
+resampling and multiscale batches (slice 6), EMA, gradient accumulation
+and sigma noise (slice 7) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -52,7 +58,9 @@ class TrainState:
     step: int
     params: nn.Module  # NerfMLP, FactoredField or HashGridField, as cfg.model.arch says
     optimizer: torch.optim.Adam  # one Adam over params and fine_params
-    fine_params: Optional[nn.Module] = None  # the fine pass's own field (_has_fine_net)
+    # the second net: the fine pass's own field (_has_fine_net) or the
+    # proposal net (cfg.proposal.enabled); the config allows one of them
+    fine_params: Optional[nn.Module] = None
     grid: None = None  # occupancy grid: slice 4
     ema: None = None  # EMA weights: slice 7
 
@@ -72,8 +80,6 @@ def check_train_supported(cfg: Config) -> None:
     render.check_render_supported(cfg.model, cfg.render)
     t, d = cfg.train, cfg.data
     later = [
-        (cfg.proposal.enabled, "proposal sampling", 5),
-        (t.distortion_weight > 0.0, "the distortion loss", 5),
         (d.batch_mode != "per_ray", f"batch_mode={d.batch_mode}", 6),
         (d.multiscale_levels > 1, "multiscale batches", 6),
         (t.error_resample_frac > 0.0, "error resampling", 6),
@@ -93,9 +99,14 @@ def _has_fine_net(cfg: Config) -> bool:
     return cfg.render.num_fine_samples > 0 and not cfg.render.share_network
 
 
+def _has_prop(cfg: Config) -> bool:
+    return cfg.proposal.enabled
+
+
 def named_trainable(state: TrainState):
     """(name, parameter) of every trained weight: the field's under its
-    state-dict names, the fine field's under ``fine.``."""
+    state-dict names, the second net's (fine field or proposal) under
+    ``fine.``."""
     yield from state.params.named_parameters()
     if state.fine_params is not None:
         for name, p in state.fine_params.named_parameters():
@@ -131,12 +142,19 @@ def make_optimizer(cfg: Config, *nets: nn.Module) -> torch.optim.Adam:
 def init_state(cfg: Config, device=None) -> TrainState:
     """Fresh state: weights from ``cfg.train.seed``, drawn with numpy on
     the CPU (one seed gives the same weights on every device and torch
-    version); the fine field, when there is one, from its own stream of
-    the same seed. Step 0."""
+    version); the fine field or the proposal net, when there is one, from
+    its own stream of the same seed. Step 0."""
     check_train_supported(cfg)
     params = init_nerf_params(cfg.model, cfg.train.seed, device)
-    fine = (init_nerf_params(cfg.model, cfg.train.seed, device, stream=1)
-            if _has_fine_net(cfg) else None)
+    if _has_prop(cfg):
+        if cfg.render.num_fine_samples != 0:
+            raise ValueError("proposal sampling is the hierarchy: set num_fine_samples=0")
+        from ..models.proposal import init_proposal_params
+
+        fine = init_proposal_params(cfg.proposal, cfg.train.seed, device)
+    else:
+        fine = (init_nerf_params(cfg.model, cfg.train.seed, device, stream=1)
+                if _has_fine_net(cfg) else None)
     nets = (params,) if fine is None else (params, fine)
     return TrainState(step=0, params=params, optimizer=make_optimizer(cfg, *nets),
                       fine_params=fine)
@@ -151,12 +169,31 @@ def _reg_loss(params: nn.Module, cfg: Config) -> Optional[torch.Tensor]:
     return None
 
 
+def _prop_anneal(cfg: Config, step: Optional[int]) -> Optional[float]:
+    """mip-NeRF 360's annealing exponent of the proposal's draw weights:
+    bias(step / anneal_steps, slope) = s x / ((s - 1) x + 1), ramping 0 ->
+    1 over ``proposal.anneal_steps``; None when off or without a step.
+    Computed in f32, as the JAX package computes it on the device."""
+    a = cfg.proposal.anneal_steps
+    if a <= 0 or step is None:
+        return None
+    f32 = np.float32
+    x = np.clip(f32(step) / f32(a), f32(0.0), f32(1.0))
+    s = f32(cfg.proposal.anneal_slope)
+    return float(s * x / ((s - f32(1.0)) * x + f32(1.0)))
+
+
 def loss_fn(params: nn.Module, batch: Batch, generator: Optional[torch.Generator],
-            cfg: Config, fine_params: Optional[nn.Module] = None) -> Tuple[torch.Tensor, Aux]:
+            cfg: Config, fine_params: Optional[nn.Module] = None,
+            step: Optional[int] = None) -> Tuple[torch.Tensor, Aux]:
     """MSE of the coarse pass's colors against the gold pixels, plus the
-    fine pass's with hierarchical sampling (paper eq. 6) and the field's
-    regulariser (``_reg_loss``), through the eager (differentiable)
-    path."""
+    fine pass's with hierarchical sampling (paper eq. 6), the field's
+    regulariser (``_reg_loss``) and the distortion loss on the finest pass,
+    through the eager (differentiable) path. With proposal sampling
+    ``fine_params`` is the proposal net and the loss is
+    ``_proposal_loss``'s."""
+    if _has_prop(cfg):
+        return _proposal_loss(params, fine_params, batch, generator, cfg, step=step)
     coarse, fine = render.render_rays(
         params, batch.origins, batch.dirs, cfg.model, cfg.render, cfg.camera,
         generator=generator, dtype=matmul_dtype(cfg), fine_params=fine_params,
@@ -172,12 +209,114 @@ def loss_fn(params: nn.Module, batch: Batch, generator: Optional[torch.Generator
         loss_f = render.mse(fine.rgb, gold)
         loss, finest = loss + loss_f, fine
         aux["loss_fine"] = loss_f
+    if cfg.train.distortion_weight > 0.0:
+        loss_d = render.distortion_loss(finest.weights, finest.ts, cfg.camera.near,
+                                        cfg.camera.far, space=cfg.render.sampling_space,
+                                        deltas=finest.deltas)
+        loss = loss + cfg.train.distortion_weight * loss_d
+        aux["loss_dist"] = loss_d
     aux.update({
         "loss": loss,
         "psnr": render.psnr_from_mse(aux.get("loss_fine", loss_c)),
         "ray_err": torch.mean((finest.rgb - gold) ** 2, dim=-1),
     })
     return loss, aux
+
+
+def _proposal_loss(params: nn.Module, prop_params: nn.Module, batch: Batch,
+                   generator: Optional[torch.Generator], cfg: Config,
+                   main_weights_fn: Optional[Callable] = None,
+                   step: Optional[int] = None) -> Tuple[torch.Tensor, Aux]:
+    """The photometric loss on proposal-guided samples, plus the
+    interlevel loss that trains the proposal (mip-NeRF 360's scheme) and
+    the distortion loss on the main pass, through the eager path.
+    ``main_weights_fn(ts) -> (rgb, weights)`` replaces the main pass (the
+    eager field + composite by default)."""
+    from ..models.mlp import apply_nerf
+    from ..ops import proposal as prop_ops
+
+    dtype = matmul_dtype(cfg)
+    o, d = batch.origins, batch.dirs
+    ts_m, hists = prop_ops.proposal_resample(
+        o, d, prop_params, cfg.proposal, cfg.render.num_samples, cfg.camera,
+        cfg.render.randomized, generator=generator, dtype=dtype,
+        anneal=_prop_anneal(cfg, step), space=cfg.render.sampling_space,
+        contract=cfg.model.contract)
+    gold = batch.gold[..., :3]
+    if main_weights_fn is None:
+        vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        sigma, rgb = apply_nerf(params, sampling.points_from_ts(o, d, ts_m), vd[..., None, :],
+                                cfg.model, dtype)
+        out = render.composite(sigma, rgb[..., :3], sampling.deltas_from_ts(ts_m, cfg.camera.far),
+                               white_background=cfg.render.white_background, ts=ts_m)
+        rgb_m, w_m = out.rgb, out.weights
+    else:
+        rgb_m, w_m = main_weights_fn(ts_m)
+    loss_photo = render.mse(rgb_m[..., :3], gold)
+    loss_il = prop_ops.multi_interlevel_loss(prop_ops.edges_from_ts(ts_m), w_m, hists)
+    loss = loss_photo + cfg.proposal.loss_mult * loss_il
+    reg = _reg_loss(params, cfg)
+    if reg is not None:
+        loss = loss + reg
+    aux = {"loss_coarse": loss_photo, "loss_prop": loss_il,
+           "psnr": render.psnr_from_mse(loss_photo),
+           "ray_err": torch.mean((rgb_m[..., :3] - gold) ** 2, dim=-1).detach()}
+    if cfg.train.distortion_weight > 0.0:
+        loss_d = render.distortion_loss(w_m, ts_m, cfg.camera.near, cfg.camera.far,
+                                        space=cfg.render.sampling_space)
+        loss = loss + cfg.train.distortion_weight * loss_d
+        aux["loss_dist"] = loss_d
+    aux["loss"] = loss
+    return loss, aux
+
+
+def _whole_ray_proposal_grads(params: nn.Module, prop_params: nn.Module, batch: Batch,
+                              generator: Optional[torch.Generator], cfg: Config,
+                              step: Optional[int] = None) -> Tuple[Grads, Aux]:
+    """Proposal-guided training through the train kernel: the proposal
+    net picks the samples (eager), one kernel launch gives the main
+    field's gradients on them (with the distortion loss in the kernel),
+    and the proposal's gradients come from autograd of the interlevel
+    loss through its histograms alone: the kernel's weights are values,
+    the stop-gradient mip-NeRF 360 wants. Draws as ``_proposal_loss``
+    makes them (``ops/proposal``'s order), so one generator gives both
+    routes the same samples."""
+    from ..ops import proposal as prop_ops
+
+    dtype = matmul_dtype(cfg)
+    pcfg, rc, cam = cfg.proposal, cfg.render, cfg.camera
+    o, d = batch.origins, batch.dirs
+    anneal = _prop_anneal(cfg, step)
+    with torch.enable_grad():
+        ts = sampling.stratified_ts(o.shape[0], pcfg.num_samples, cam.near, cam.far,
+                                    rc.randomized, generator=generator, device=o.device,
+                                    space=rc.sampling_space)
+        hists = []
+        for lvl in range(pcfg.num_levels):
+            w, bins = prop_ops.proposal_weights(prop_params, o, d, ts, pcfg, cam.far, dtype,
+                                                contract=cfg.model.contract)
+            hists.append((bins, w))
+            ts = sampling.sample_pdf(
+                bins, prop_ops.anneal_weights(w.detach(), anneal),
+                rc.num_samples if lvl == pcfg.num_levels - 1 else pcfg.num_samples,
+                rc.randomized, generator=generator)
+        vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        dist_w = cfg.train.distortion_weight
+        grads, tg = _whole_ray_pass(params, batch, vd, ts, sampling.deltas_from_ts(ts, cam.far),
+                                    cfg, dist=dist_w > 0.0)
+        loss_il = prop_ops.multi_interlevel_loss(prop_ops.edges_from_ts(ts), tg.weights, hists)
+        grads_p = torch.autograd.grad(pcfg.loss_mult * loss_il, list(prop_params.parameters()))
+    grads.update((f"fine.{name}", g) for (name, _), g in zip(prop_params.named_parameters(),
+                                                              grads_p))
+    loss_photo = tg.diag[:, 4].mean()
+    loss_il = loss_il.detach()
+    aux = {"loss": loss_photo + pcfg.loss_mult * loss_il, "loss_coarse": loss_photo,
+           "loss_prop": loss_il, "psnr": render.psnr_from_mse(loss_photo),
+           "ray_err": tg.diag[:, 4]}
+    if dist_w > 0.0:
+        aux["loss_dist"] = tg.diag[:, 5].mean()
+        aux["loss"] = aux["loss"] + dist_w * aux["loss_dist"]
+    return grads, aux
 
 
 def whole_ray_supported(cfg: Config) -> bool:
@@ -194,9 +333,11 @@ def whole_ray_supported(cfg: Config) -> bool:
 
 
 def _whole_ray_pass(params: nn.Module, batch: Batch, vd: torch.Tensor, ts: torch.Tensor,
-                    deltas: torch.Tensor, cfg: Config, radii=None):
+                    deltas: torch.Tensor, cfg: Config, radii=None, dist: bool = False):
     """One launch of the whole-ray train kernel over (N, S) samples:
-    (gradients keyed like ``params``' state dict, TrainGrads)."""
+    (gradients keyed like ``params``' state dict, TrainGrads). ``dist``
+    adds the distortion loss in the kernel (the finest pass only, as
+    ``loss_fn`` does)."""
     from ..kernels.fused_render import pack_weights, pack_weights_t
     from ..kernels.fused_train import fused_train_grads, unpack_grads
 
@@ -207,40 +348,55 @@ def _whole_ray_pass(params: nn.Module, batch: Batch, vd: torch.Tensor, ts: torch
             vd.contiguous(), ts.contiguous(), deltas.contiguous(),
             batch.gold[..., :3].contiguous(), cfg.model, ts.shape[-1],
             white_bg=cfg.render.white_background, radii=radii,
+            dist_weight=cfg.train.distortion_weight if dist else 0.0, near=cfg.camera.near,
+            far=cfg.camera.far, dist_space=cfg.render.sampling_space,
         )
     return unpack_grads(tg, params, cfg.model), tg
 
 
 def whole_ray_grads(params: nn.Module, batch: Batch, generator: Optional[torch.Generator],
-                    cfg: Config, fine_params: Optional[nn.Module] = None) -> Tuple[Grads, Aux]:
+                    cfg: Config, fine_params: Optional[nn.Module] = None,
+                    step: Optional[int] = None) -> Tuple[Grads, Aux]:
     """Gradients and aux from the whole-ray train kernel: one launch, or
     with hierarchical sampling the chain coarse kernel (which gives the
     per-ray weights) -> inverse-CDF resample -> fine kernel. The losses
     sum (paper eq. 6), and with one shared net so do the two passes'
     gradients; a separate fine net's come under ``fine.``. IPE configs
     sample S + 1 edges and hand the kernel interval midpoints, exact
-    lengths and the camera's cone radius."""
-    check_train_supported(cfg)  # the occupancy and proposal branches
+    lengths and the camera's cone radius. The distortion loss rides the
+    finest pass's launch. With proposal sampling ``fine_params`` is the
+    proposal net (``_whole_ray_proposal_grads``)."""
+    check_train_supported(cfg)  # the occupancy branch
+    if _has_prop(cfg):
+        return _whole_ray_proposal_grads(params, fine_params, batch, generator, cfg, step)
     rc, cam = cfg.render, cfg.camera
     o, d = batch.origins, batch.dirs
     n, S = o.shape[0], rc.num_samples
     ipe = cfg.model.ipe
     radii = (torch.full((n,), sampling.pixel_radius(cam), device=o.device)
              if ipe else None)
+    space = rc.sampling_space
     if ipe:
         edges = sampling.stratified_ts(n, S + 1, cam.near, cam.far, rc.randomized,
-                                       generator=generator, device=o.device)
+                                       generator=generator, device=o.device, space=space)
         ts, deltas = 0.5 * (edges[:, :-1] + edges[:, 1:]), edges[:, 1:] - edges[:, :-1]
     else:
         ts = sampling.stratified_ts(n, S, cam.near, cam.far, rc.randomized,
-                                    generator=generator, device=o.device)
+                                    generator=generator, device=o.device, space=space)
         deltas = sampling.deltas_from_ts(ts, cam.far)
     vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-    grads, tg_c = _whole_ray_pass(params, batch, vd, ts, deltas, cfg, radii)
+    dist_w = cfg.train.distortion_weight
+    one_pass = rc.num_fine_samples == 0
+    grads, tg_c = _whole_ray_pass(params, batch, vd, ts, deltas, cfg, radii,
+                                  dist=one_pass and dist_w > 0.0)
     loss_c = tg_c.diag[:, 4].mean()
-    if rc.num_fine_samples == 0:
-        return grads, {"loss": loss_c, "loss_coarse": loss_c,
-                       "psnr": render.psnr_from_mse(loss_c), "ray_err": tg_c.diag[:, 4]}
+    if one_pass:
+        aux = {"loss": loss_c, "loss_coarse": loss_c, "psnr": render.psnr_from_mse(loss_c),
+               "ray_err": tg_c.diag[:, 4]}
+        if dist_w > 0.0:
+            aux["loss_dist"] = tg_c.diag[:, 5].mean()
+            aux["loss"] = loss_c + dist_w * aux["loss_dist"]
+        return grads, aux
 
     # the fine pass on samples drawn from the coarse kernel's weights
     standalone = rc.fine_mode == "standalone"
@@ -259,15 +415,20 @@ def whole_ray_grads(params: nn.Module, batch: Batch, generator: Optional[torch.G
         all_ts = fine_ts if standalone else sampling.merge_ts(ts, fine_ts)
         fine_deltas = sampling.deltas_from_ts(all_ts, cam.far)
     fnet = fine_params if fine_params is not None else params
-    grads_f, tg_f = _whole_ray_pass(fnet, batch, vd, all_ts, fine_deltas, cfg, radii)
+    grads_f, tg_f = _whole_ray_pass(fnet, batch, vd, all_ts, fine_deltas, cfg, radii,
+                                    dist=dist_w > 0.0)
     loss_f = tg_f.diag[:, 4].mean()
     if fine_params is not None:
         grads.update((f"fine.{k}", v) for k, v in grads_f.items())
     else:  # one shared net: both passes' gradients land on it
         for k, v in grads_f.items():
             grads[k] = grads[k] + v
-    return grads, {"loss": loss_c + loss_f, "loss_coarse": loss_c, "loss_fine": loss_f,
-                   "psnr": render.psnr_from_mse(loss_f), "ray_err": tg_f.diag[:, 4]}
+    aux = {"loss": loss_c + loss_f, "loss_coarse": loss_c, "loss_fine": loss_f,
+           "psnr": render.psnr_from_mse(loss_f), "ray_err": tg_f.diag[:, 4]}
+    if dist_w > 0.0:
+        aux["loss_dist"] = tg_f.diag[:, 5].mean()
+        aux["loss"] = aux["loss"] + dist_w * aux["loss_dist"]
+    return grads, aux
 
 
 def apply_grads(state: TrainState, grads: Grads, cfg: Config) -> TrainState:
@@ -291,10 +452,11 @@ def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Genera
     ``whole_ray_supported(cfg)``, else autograd of ``loss_fn``."""
     check_train_supported(cfg)
     if whole_ray_supported(cfg):
-        grads, aux = whole_ray_grads(state.params, batch, generator, cfg, state.fine_params)
+        grads, aux = whole_ray_grads(state.params, batch, generator, cfg, state.fine_params,
+                                     state.step)
     else:
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(state.params, batch, generator, cfg, state.fine_params)
+        loss, aux = loss_fn(state.params, batch, generator, cfg, state.fine_params, state.step)
         loss.backward()
         grads = {name: p.grad for name, p in named_trainable(state)}
         aux = {k: v.detach() for k, v in aux.items()}
@@ -304,10 +466,15 @@ def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Genera
 @torch.no_grad()
 def eval_step(state: TrainState, batch: Batch, cfg: Config) -> Dict[str, torch.Tensor]:
     """Deterministic (midpoint-sampled) evaluation pass; with
-    hierarchical sampling it reports the fine pass."""
+    hierarchical sampling it reports the fine pass, with proposal sampling
+    the main pass on the proposal's samples."""
+    prop = _has_prop(cfg)
     coarse, fine = render.render_rays(state.params, batch.origins, batch.dirs, cfg.model,
                                       cfg.render, cfg.camera, randomized=False,
-                                      dtype=matmul_dtype(cfg), fine_params=state.fine_params)
+                                      dtype=matmul_dtype(cfg),
+                                      fine_params=None if prop else state.fine_params,
+                                      prop_params=state.fine_params if prop else None,
+                                      prop_cfg=cfg.proposal)
     out = fine if fine is not None else coarse
     m = render.mse(out.rgb, batch.gold[..., :3])
     return {"mse": m, "psnr": render.psnr_from_mse(m), "rgb": out.rgb,

@@ -63,6 +63,28 @@ def test_validation_is_the_same():
         assert errs[0] == errs[1]
 
 
+@pytest.mark.parametrize("kw", [
+    dict(model=dict(contract=True, compat=True)),
+    dict(model=dict(contract=True), camera=dict(ndc=True, near=0.0, far=1.0)),
+    dict(model=dict(contract=True), render=dict(occ_res=16)),
+    dict(render=dict(sampling_space="disparity"), camera=dict(near=0.0)),
+    dict(render=dict(sampling_space="disparity", compat_sampling=True)),
+    dict(proposal=dict(enabled=True), render=dict(occ_res=16)),
+    dict(model=dict(ipe=True), proposal=dict(enabled=True)),
+], ids=["contract-compat", "contract-ndc", "contract-occ", "disparity-near0",
+        "disparity-compat", "proposal-occ", "ipe-proposal"])
+def test_unbounded_validation_is_the_same(kw):
+    """The contraction, disparity spacing and proposal settings: both
+    packages refuse the same combinations with the same error."""
+    errs = []
+    for mod in (config, jconfig):
+        with pytest.raises(ValueError) as e:
+            mod.Config(**{k: getattr(mod, f"{k.capitalize()}Config")(**v)
+                          for k, v in kw.items()})
+        errs.append((type(e.value), str(e.value)))
+    assert errs[0] == errs[1]
+
+
 def _resolve(mod, argv):
     args = mod.build_parser().parse_args(argv)
     args._explicit = mod.explicit_dests(argv)
@@ -92,6 +114,14 @@ def _resolve(mod, argv):
      "--hash_table_log2", "10", "--hash_base_res", "4", "--hash_max_res", "32", "--hash_aabb",
      "1.2", "--precision", "f32", "--learning_rate", "1e-3"],
     ["eval", "--arch", "hashgrid", "--dataset", "sphere", "--hash_brick", "true"],
+    ["train", "--preset", "unbounded", "--dataset", "sphere"],
+    ["train", "--preset", "unbounded", "--dataset", "sphere", "--far", "30", "--near", "0.5",
+     "--proposal_levels", "1", "--distortion_weight", "0.1"],
+    ["train", "--preset", "proposal", "--dataset", "sphere"],
+    ["eval", "--preset", "proposal", "--dataset", "sphere", "--proposal_samples", "32",
+     "--proposal_depth", "2", "--proposal_width", "32", "--proposal_anneal_steps", "0"],
+    ["render", "--dataset", "sphere", "--contract", "true", "--sampling_space", "disparity",
+     "--use_proposal", "true"],
 ])
 def test_cli_config_matches_the_jax_cli(argv):
     """Every field of the resolved config, presets and their precedence

@@ -2,9 +2,11 @@
 (csrc/fused_train.cu), the factored-encode kernel (csrc/fused_factored.cu)
 and the row gather (csrc/gather_rows.cu) against their plain PyTorch
 versions, on a CUDA card: PE and IPE, rays that fit a 128-row tile and rays
-padded to 256 samples; the factored encode forward and backward at the main
+padded to 256 samples, the contraction and distortion-loss branches of both
+whole-ray kernels; the factored encode forward and backward at the main
 path's widths and at small ones; the row gather at ragged N, with repeated
-and out-of-table indices, and the hash-grid encodes through it. Every case
+and out-of-table indices, the hash-grid encodes through it, its fixed-order
+scatter, and the hash grid's table bits across two train steps. Every case
 skips without one.
 
 This file imports neither JAX nor the JAX package's tests, so it runs on
@@ -138,11 +140,13 @@ def _train_args(field, sigma_act, n, s, dev, ipe=False):
     return (pk, pack_weights_t(pk), *rays, gold.to(dev), cfg, s), radii
 
 
-def _check_train(got, args, white, radii):
-    """K2 against the plain version and the float64 witness at KERNEL_TOL."""
+def _check_train(got, args, white, radii, **dist):
+    """K2 against the plain version and the float64 witness at KERNEL_TOL
+    (diag slot 5, the distortion loss, among the diag columns)."""
     for dtype in (torch.float32, torch.float64):
-        want = fused_train_grads_reference(*args, white_bg=white, radii=radii, dtype=dtype)
-        diag_err = float((got.diag[:, :5].double() - want.diag[:, :5]).abs().max())
+        want = fused_train_grads_reference(*args, white_bg=white, radii=radii, dtype=dtype,
+                                           **dist)
+        diag_err = float((got.diag[:, :6].double() - want.diag[:, :6]).abs().max())
         assert diag_err <= KERNEL_TOL["diag"], dtype
         assert got.weights.shape == want.weights.shape
         assert float((got.weights.double() - want.weights).abs().max()) <= KERNEL_TOL["weights"]
@@ -347,3 +351,120 @@ def test_hash_encodes_through_k4_match_the_cpu(brick):
     assert none == (0, 0) and launched == ((3, 0) if brick else (0, 1))
     assert float((enc_g - enc_c).abs().max()) <= 1e-6 * float(enc_c.abs().max())
     assert float((grad_g - grad_c).abs().max()) <= 1e-5 * float(grad_c.abs().max())
+
+
+NEAR, FAR = 0.3, 12.0  # disparity spacing from inside the unit ball to far outside it
+
+
+def _unbounded_rays(n, s, ipe, dev, seed=3):
+    """Rays from near the origin with samples over [NEAR, FAR] even in
+    disparity, jittered: (o, d, vd, ts or midpoints, deltas), radii. Both
+    branches of the contraction are taken."""
+    rng = np.random.default_rng(seed)
+    o = torch.from_numpy((rng.normal(size=(n, 3)) * 0.2).astype(np.float32)).to(dev)
+    d = torch.nn.functional.normalize(
+        torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)), dim=-1).to(dev)
+    u = np.sort(rng.uniform(size=(n, s + int(ipe))), -1)
+    t = torch.from_numpy((1.0 / (1.0 / NEAR + u * (1.0 / FAR - 1.0 / NEAR))).astype(np.float32))
+    t = t.to(dev)
+    if ipe:
+        radii = torch.from_numpy(rng.uniform(2e-3, 2e-2, n).astype(np.float32)).to(dev)
+        return (o, d, d, 0.5 * (t[:, :-1] + t[:, 1:]), t[:, 1:] - t[:, :-1]), radii
+    dl = torch.cat([t[:, 1:], torch.full_like(t[:, :1], FAR)], -1) - t
+    return (o, d, d, t, dl), None
+
+
+# (field, sigma, IPE, contract, distortion space or None, rays, samples):
+# contraction under PE and IPE, the distortion loss in both spaces (with
+# exact IPE lengths), rays of one tile and rays padded to 256
+UNBOUNDED_CASES = [
+    ({}, "softplus", False, True, None, 301, 64),
+    (SMALL, "softplus", True, True, None, 37, 128),
+    (SMALL, "relu", False, False, "linear", 37, 64),
+    ({}, "softplus", False, True, "disparity", 101, 64),
+    (SMALL, "softplus", True, True, "disparity", 9, 192),
+    (SMALL, "relu", False, True, "disparity", 6, 193),
+]
+
+
+@pytest.mark.parametrize("field,sigma_act,ipe,contract,space,n,s", UNBOUNDED_CASES)
+def test_unbounded_branches_match_plain_version(field, sigma_act, ipe, contract, space, n, s):
+    dev = _device()
+    cfg = ModelConfig(sigma_activation=sigma_act, ipe=ipe, contract=contract, **field)
+    model = init_nerf_params(cfg, 0, dev)
+    rays, radii = _unbounded_rays(n, s, ipe, dev)
+    pk = pack_weights(model, cfg)
+    got = fused_ray_render(pk, *rays, cfg, s, radii=radii)
+    torch.cuda.synchronize()
+    want = fused_ray_render_reference(pk, *rays, cfg, s, radii=radii)
+    for name, g, w, tol in zip(("rgb", "acc", "depth", "weights", "sigma"), got, want,
+                               (1e-3, 1e-3, 2e-3 * FAR, 1e-3, 2e-2)):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all()), name
+        assert float((g - w).abs().max()) <= tol, name
+    gold = torch.from_numpy(np.random.default_rng(1).uniform(size=(n, 3)).astype(np.float32))
+    args = (pk, pack_weights_t(pk), *rays, gold.to(dev), cfg, s)
+    dist = ({} if space is None
+            else dict(dist_weight=0.01, near=NEAR, far=FAR, dist_space=space))
+    tg = fused_train_grads(*args, radii=radii, **dist)
+    torch.cuda.synchronize()
+    assert (float(tg.diag[:, 5].abs().max()) > 0) == (space is not None)
+    _check_train(tg, args, False, radii, **dist)
+
+
+def test_unbounded_train_kernel_is_deterministic():
+    dev = _device()
+    cfg = ModelConfig(sigma_activation="softplus", contract=True)
+    model = init_nerf_params(cfg, 0, dev)
+    rays, _ = _unbounded_rays(333, 192, False, dev)
+    pk = pack_weights(model, cfg)
+    gold = torch.rand(333, 3, device=dev)
+    args = (pk, pack_weights_t(pk), *rays, gold, cfg, 192)
+    dist = dict(dist_weight=0.01, near=NEAR, far=FAR, dist_space="disparity")
+    a, b = fused_train_grads(*args, **dist), fused_train_grads(*args, **dist)
+    for x, y in zip((a.diag, a.weights, *a.dw, *a.db), (b.diag, b.weights, *b.dw, *b.db)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [1, 37, 300_001])
+def test_scatter_matches_plain_version_bit_for_bit(n):
+    """scatter_rows against its plain version on the card, both table
+    layouts' shapes, keys crowded onto few rows (long runs)."""
+    dev = _device()
+    rng = np.random.default_rng(n)
+    for (rows, width), lanes, with_lane0 in (((4096, 128), hashgrid._CORNER_LANES, True),
+                                             ((65536, 2), (0, 1), False)):
+        key = torch.from_numpy((rng.zipf(1.5, n) % rows).astype(np.int32)).to(dev)
+        lane0 = (torch.from_numpy(rng.integers(0, 22, n).astype(np.int32) * 2).to(dev)
+                 if with_lane0 else None)
+        g = torch.from_numpy(rng.normal(size=(n, len(lanes))).astype(np.float32)).to(dev)
+        before = k4.scatter_rows.launches
+        got = k4.scatter_rows(g, key, lane0, lanes, (rows, width))
+        torch.cuda.synchronize()
+        assert k4.scatter_rows.launches == before + 1
+        assert torch.equal(got, k4.scatter_rows_reference(g, key, lane0, lanes, (rows, width)))
+
+
+@pytest.mark.parametrize("brick", [True, False], ids=["brick", "flat"])
+def test_hash_grid_table_gradient_is_deterministic(brick):
+    """Two train steps of the hash grid on the same inputs from the same
+    state give the same table bits: the table's gradient is summed in a
+    fixed order (index_add_'s float atomics did not give that)."""
+    from nerf_rs_tpu_torch.config import Config, DataConfig, RenderConfig, TrainConfig
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.train import step
+
+    dev = _device()
+    cfg = Config(model=ModelConfig(arch="hashgrid", hash_brick=brick,
+                                   sigma_activation="softplus"),
+                 render=RenderConfig(num_samples=64, white_background=True),
+                 train=TrainConfig(num_rays=2048, learning_rate=1e-2),
+                 data=DataConfig(dataset="sphere"))
+    ds = make_dataset(cfg, dev)
+    tables = []
+    for _ in range(2):
+        state = step.init_state(cfg, dev)
+        fn = step.make_train_step(cfg, ds)
+        for it in range(2):
+            state, _ = fn(state, step.step_generator(0, it, dev))
+        tables.append(state.params.table.detach().clone())
+    assert torch.equal(tables[0], tables[1])

@@ -175,9 +175,10 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         fused_ray_render(pk, o, d, vd, ts, dl, ModelConfig(**{**CFG.__dict__, "ipe": True}), S)
     with pytest.raises(ValueError, match="radii"):
         fused_ray_render(pk, o, d, vd, ts, dl, CFG, S, radii=torch.ones(N))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        fused_ray_render(pk, o, d, vd, ts, dl, ModelConfig(**{**CFG.__dict__, "contract": True}),
-                         S)
+    # the contraction branch is ported (tests/test_torch_unbounded.py): it runs
+    contracted = fused_ray_render(pk, o * 4.0, d, vd, ts, dl,
+                                  ModelConfig(**{**CFG.__dict__, "contract": True}), S)
+    assert all(bool(torch.isfinite(a).all()) for a in contracted)
     with pytest.raises(ValueError, match="packed weights"):
         fused_ray_render(pk, o, d, vd, ts, dl, ModelConfig(), S)
     with pytest.raises(ValueError, match="sigma_activation"):

@@ -182,8 +182,8 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         fused_train_grads(pk, pkt, o, d, vd, ts, dl, gold[:, :2], CFG, S)
     with pytest.raises(ValueError, match="radii"):  # IPE needs the cone radii
         fused_train_grads(pk, pkt, o, d, vd, ts, dl, gold, dataclasses.replace(CFG, ipe=True), S)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    with pytest.raises(ValueError, match="dist_space"):  # the contraction branch is ported
         fused_train_grads(pk, pkt, o, d, vd, ts, dl, gold,
-                          dataclasses.replace(CFG, contract=True), S)
+                          dataclasses.replace(CFG, contract=True), S, dist_space="cube")
     with pytest.raises(ValueError, match="no kernel"):
         fused_train_grads(pk, pkt, *(a.to("meta") for a in (o, d, vd, ts, dl, gold)), CFG, S)

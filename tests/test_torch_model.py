@@ -165,7 +165,8 @@ def test_init_is_seeded_he_truncated_normal():
 # package
 @pytest.mark.parametrize("kw", [{"compat": True}, {"compat": True, "arch": "hashgrid"},
                                 {"compat": True, "arch": "factored"},
-                                {"ipe": True, "contract": True}, {"contract": True}])
+                                {"compat": True, "ipe": True, "contract": True},
+                                {"compat": True, "contract": True}])
 def test_unported_models_raise(kw):
     with pytest.raises(NotImplementedError, match="slice"):
         mlp.NerfMLP(ModelConfig(**kw))

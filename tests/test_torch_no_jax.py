@@ -1,8 +1,9 @@
 """The PyTorch port stands without JAX and without the JAX package: every
 module of nerf_rs_tpu_torch imports, a frame renders, two train steps run
 (kernel path and autograd path), one step each of the hierarchical and
-mipnerf settings, of the factored field (both encode routes) and of the
-hash grid (both table layouts), in a
+mipnerf settings, of the factored field (both encode routes), of the
+hash grid (both table layouts) and of the unbounded and proposal
+settings (with a frame through the proposal), in a
 process that never loads jax, jaxlib, flax,
 optax or any module of nerf_rs_tpu. Plus checks of chip_smoke.py, which
 runs only on the card: an undefined-name lint (the idea of
@@ -85,6 +86,27 @@ for brick in (True, False):
     fn = step.make_train_step(tcfg, make_dataset(tcfg))
     state, aux = fn(state, step.step_generator(0, 0, "cpu"))
     assert state.step == 1 and bool(torch.isfinite(aux["loss"]))
+# one step of each unbounded-scene preset's settings through the kernel
+# route (the proposal net, the contraction, the distortion loss), then
+# a frame through the proposal
+from nerf_rs_tpu_torch import ProposalConfig
+unb = dataclasses.replace(cfg, model=dataclasses.replace(small, contract=True),
+                          camera=CameraConfig(width=8, height=8, near=0.3, far=60.0),
+                          render=RenderConfig(num_samples=8, sampling_space="disparity"),
+                          proposal=ProposalConfig(enabled=True, num_samples=8, num_levels=2,
+                                                  net_width=16, anneal_steps=10),
+                          train=TrainConfig(num_rays=16, distortion_weight=0.01),
+                          data=DataConfig(dataset="sphere"), use_whole_ray_train=True)
+prop = dataclasses.replace(unb, model=small, camera=cfg.camera, render=RenderConfig(num_samples=16),
+                           proposal=ProposalConfig(enabled=True, num_samples=8, net_width=16),
+                           train=TrainConfig(num_rays=16))
+for tcfg in (unb, prop):
+    state = step.init_state(tcfg)
+    fn = step.make_train_step(tcfg, make_dataset(tcfg))
+    state, aux = fn(state, step.step_generator(0, 0, "cpu"))
+    assert state.step == 1 and bool(torch.isfinite(aux["loss"])) and "loss_prop" in aux
+    rgb, _, _ = render_frame(tcfg, state.params, o, d, fine_params=state.fine_params)
+    assert bool(torch.isfinite(rgb).all())
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_rs_tpu"))
 print("modules", len(names), "jax-family", bad)

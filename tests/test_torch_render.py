@@ -242,7 +242,7 @@ def test_cli_render_view_and_sweep(tmp_path, capsys):
 @pytest.mark.parametrize("argv", [
     ["render", "--dataset", "sphere", "--occ_res", "64"],
     ["render", "--dataset", "sphere", "--multiscale_levels", "2"],
-    ["render", "--dataset", "sphere", "--contract", "true"],
+    ["render", "--dataset", "sphere", "--compat", "true"],
 ])
 def test_cli_refuses_unported_flags(argv, capsys):
     with pytest.raises(SystemExit) as e:
@@ -281,7 +281,7 @@ def test_unported_dataset_and_render_options_raise():
     with pytest.raises(NotImplementedError, match="slice 6"):
         make_dataset(Config())  # multiview_png
     for rc in (RenderConfig(compat_density_color=True), RenderConfig(occ_res=16),
-               RenderConfig(sampling_space="disparity")):
+               RenderConfig(compat_sampling=True)):
         with pytest.raises(NotImplementedError, match="slice"):
             make_render(Config(render=rc))
     # the shared-network fast fine pass: one field, union, point samples, eager

@@ -227,7 +227,7 @@ def test_presets_resolve_like_the_jax_cli():
     (["eval", "--scales", "1,2"], 3),
     (["train", "--preset", "record"], 4),
     (["train", "--occ_res", "64"], 4),
-    (["render", "--contract", "true"], 5),
+    (["render", "--compat", "true"], 10),
 ])
 def test_cli_names_the_slice_of_what_it_refuses(argv, slice_no, capsys):
     try:
