@@ -7,7 +7,8 @@ Phases, each fatal (any failure exits non-zero):
      power limit. Without a card the script exits 1 and prints no result.
   2. build: compiles the whole-ray render kernel (K1) and train kernel
      (K2) from nerf_rs_tpu_torch/kernels/csrc/ with nvcc for sm_90a, both
-     at once; prints build seconds and ptxas' register and spill lines.
+     at once; prints build seconds and ptxas' registers, spills and shared
+     memory of every kernel instance.
   3. K1 vs its plain PyTorch version at the flagship width (8x256 trunk,
      skip 4, F 256, V 128, PE 10/4, S 64) on 4,103 rays of two poses,
      with midpoint and jittered samples, relu and softplus sigma.
@@ -34,7 +35,9 @@ Phases, each fatal (any failure exits non-zero):
      rays of phase 3: IPE (relu and softplus, jittered intervals, the
      camera's cone radius) and rays longer than one tile (S = 192, the
      hierarchical union pass, and 193); K2 bit-identical across launches
-     at S = 192.
+     at S = 192. Then K2 at S = 150, 191 and 192, which run as 192 (two rays
+     a CTA in three passes), vs the plain version, the float64 witness and
+     the same samples padded to 256; reruns bit-identical.
  10. the hierarchical path through the CLI, per preset (hierarchical:
      two fields, 64 + 128 union; mipnerf: IPE, one field, 64 + 128
      standalone): `train` for 51 steps at full width (exactly 2 K2
@@ -90,13 +93,15 @@ Phases, each fatal (any failure exits non-zero):
      main path's shapes beside their plain versions, torch.index_select and
      their bounds; the hash grid's fixed-order table gradient (scatter_rows)
      at a brick sub-chunk's and a flat step's fetches: bit-equal to its
-     plain version and across launches, timed beside index_add_.
+     plain version and across launches, timed beside index_add_ and beside
+     PyTorch's deterministic route (index_put_ with accumulate=True under
+     torch.use_deterministic_algorithms), which the port never calls.
  18. the unbounded-scene branches of K1 and K2 at the flagship width, vs
      their plain versions (K2 also vs the float64 witness and autograd, two
      launches bit-identical; diag slot 5 vs ops/render.distortion_loss) on
      the 4,103 rays of phase 3 with samples over [0.3, 60]: the
      contraction under PE and IPE, the distortion loss in linear and in
-     disparity space (with exact IPE lengths), S = 64, 192 and 193.
+     disparity space (with exact IPE lengths), S = 64, 150, 192 and 193.
  19. the unbounded path through the CLI, per preset (unbounded: mip-NeRF
      360's contraction, disparity spacing, a 2-level annealed proposal and
      the distortion loss; proposal: a proposal net picks 128 samples):
@@ -118,9 +123,12 @@ call's time at the flagship shape); the last is {"ok": true, "device":
 
     python3 chip_smoke.py --time-step ROOT
 
-times the flagship path of the checkout at ROOT instead (the train step
-through K2, autograd and the plain version, one K2 call and one K1
-chunk), with the helpers above.
+times K1 and K2 in the checkout at ROOT instead, with the helpers above:
+ptxas' report of every K1 and K2 instance, the flagship train step through
+K2, autograd and the plain version, one flagship K2 call and K1 chunk,
+every K1 and K2 call of phases 11 and 20 (K2 at S = 192 with 4096 rays
+among them) beside its library path, each K2 call's device time split by
+kernel, and the hierarchical train step through K2 and autograd.
 
     python3 chip_smoke.py --learn PRESET SEEDS [FLAG ...]
 
@@ -278,6 +286,7 @@ UNB_BRANCHES = (("PE + contract, S=64", False, True, None, 64),
                 ("contract + distortion disparity, S=64", False, True, "disparity", 64),
                 ("IPE + contract + distortion disparity, S=64", True, True, "disparity", 64),
                 ("contract + distortion disparity, S=192", False, True, "disparity", 192),
+                ("IPE + contract + distortion disparity, S=150", True, True, "disparity", 150),
                 ("IPE + distortion disparity, S=193", True, False, "disparity", 193))
 # the presets' main-path calls: a K1 frame chunk and K2 per train step, with
 # the presets' ranges and backgrounds
@@ -356,6 +365,30 @@ def event_ms(fn, reps: int = 3) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def ptxas_report(name: str, lib) -> None:
+    """One line per kernel of a built library from its ptxas log
+    (kernels/build.py keeps it): registers, spill stores and loads, and
+    static shared memory."""
+    entry, spills = None, ""
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"([a-z][a-z_]*kernel)(I.*?EE)?", m.group(1))
+            args = re.findall(r"L[a-z](\d+)E", k.group(2) or "") if k else []
+            entry = (k.group(1) if k else m.group(1)) + (f"<{','.join(args)}>" if args else "")
+            spills = ""
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and entry:
+            spills = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers(.*)", line)
+        if m and entry:
+            smem = re.search(r"(\d+) bytes smem", line)
+            print(f"ptxas [{name}] {entry}: {m.group(1)} registers, {spills or 'no spills'}, "
+                  f"static smem {smem.group(1) if smem else 0} B")
+            entry = None
 
 
 def run_cli(argv) -> tuple:
@@ -554,6 +587,13 @@ def plain_train_route():
         fused_train.fused_train_grads = real
 
 
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name with its template arguments
+    ("train_tile_kernel<3, false>"), or the key's first 60 characters."""
+    m = re.search(r"(\w+kernel)(<[^()]*>)?", key)
+    return m.group(1) + (m.group(2) or "") if m else key[:60]
+
+
 def device_ms(prof) -> dict:
     """Device time in ms by kernel name from a torch.profiler run."""
     out = {}
@@ -638,7 +678,7 @@ def time_training(card: str) -> dict:
     k2b = sum(v for k, v in per.items() if re.search(r"dw_partial|colsum|reduce_kernel|feat_bias", k))
     print(f"one K2 call, 4096 x 64 [{card}]: {k2_ms:.3f} ms (CUDA events), plain version "
           f"{plain_ms:.3f} ms; device time K2a {k2a:.3f} ms, K2b {k2b:.3f} ms "
-          + "(" + ", ".join(f"{k.split('(')[0].split('::')[-1]} {v:.3f}" for k, v in
+          + "(" + ", ".join(f"{kernel_name(k)} {v:.3f}" for k, v in
                           sorted(per.items(), key=lambda kv: -kv[1])) + ")")
 
     # where a K2 step's time goes: device time by kernel over 10 steps
@@ -762,6 +802,52 @@ def check_train_branches(model, mcfg, rays, gold, cam) -> float:
             if not all(torch.equal(a, b) for a, b in zip(k2_outs(got), k2_outs(again))):
                 fail("two K2 launches at S=192 gave different bits")
             print("K2 at S=192: two launches on the same inputs give bit-identical outputs")
+    return max_err
+
+
+def check_union_rows(model, mcfg, rays, gold, cam) -> float:
+    """K2 at S = 150, 191 and 192, which the wrapper runs as 192 (two rays
+    a CTA, three 128-row passes), on the N_RAYS rays (ragged: the last CTA
+    holds one ray) at the flagship width: against its plain version and the
+    float64 witness, and against a call on the same samples padded to 256
+    (one ray a CTA, two passes), at KERNEL_TOL; two launches bit-identical,
+    K2b's folded bias sums among the outputs. Returns the largest absolute
+    difference from the plain version."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import (
+        KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
+
+    pk = pack_weights(model, mcfg)
+    pkt = pack_weights_t(pk)
+    gen = torch_generator(rays[0].device, 13)
+    max_err = 0.0
+    for s in (150, 191, 192):
+        ts, dl, _, _ = sample_inputs(N_RAYS, s, False, cam, gen)
+        args = (pk, pkt, *rays, ts, dl, gold, mcfg, s)
+        got = fused_train_grads(*args, white_bg=True)
+        torch.cuda.synchronize()
+        for ref, dtype in (("plain", torch.float32), ("f64 witness", torch.float64)):
+            want = fused_train_grads_reference(*args, white_bg=True, dtype=dtype)
+            if dtype == torch.float32:
+                max_err = max(max_err, k2_abs(got, want))
+            label = f"K2 vs {ref} [S={s}]"
+            hold(label, k2_errs(label, got, want), KERNEL_TOL)
+            del want
+        pad = 256 - s
+        wide = fused_train_grads(pk, pkt, *rays, torch.cat([ts, ts[:, -1:].expand(-1, pad)], 1),
+                                 torch.cat([dl, dl.new_zeros(N_RAYS, pad)], 1), gold, mcfg, 256,
+                                 white_bg=True)
+        if wide.weights[:, s:].any():
+            fail(f"K2 [S={s} padded to 256]: the pads' weights are not 0")
+        label = f"K2 at S={s} (run as 192) vs the same rays padded to 256"
+        hold(label, k2_errs(label, got, wide._replace(weights=wide.weights[:, :s])), KERNEL_TOL)
+        again = fused_train_grads(*args, white_bg=True)
+        if not all(torch.equal(a, b) for a, b in zip(k2_outs(got), k2_outs(again))):
+            fail(f"two K2 launches at S={s} gave different bits")
+        print(f"K2 at S={s}: two launches bit-identical (dW and the folded bias sums)")
+        del got, wide, again
     return max_err
 
 
@@ -912,7 +998,8 @@ def eager_field(model, cfg, o, d, vd, ts, edges=None, radius=None):
     return apply_nerf(model, mean, vd[:, None, :], cfg, torch.bfloat16, pos_var=var)
 
 
-def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHAPES) -> list:
+def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHAPES,
+                  plain_too: bool = True) -> list:
     """The branches' kernel calls at the presets' shapes (``shapes``, by
     default the hierarchical ones: a whole K1 chunk of the mipnerf fine
     pass's 131,072 rays x 128 IPE intervals and of the hierarchical union
@@ -923,8 +1010,10 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
     eager bf16 field, with the contraction when on, + composite; K2:
     autograd of the eager loss, with the distortion loss when on) and
     against its bound (the contraction and the distortion loss are
-    elementwise and per-ray work: the products bound both). Returns one row
-    each."""
+    elementwise and per-ray work: the products bound both). Each K2 row also
+    splits the call's device time by kernel (a profile of 3 calls). With
+    ``plain_too`` False (--time-step) the plain version is neither run nor
+    timed. Returns one row each."""
     import dataclasses
 
     import torch
@@ -962,9 +1051,11 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
                 radii=None if radii is None else radii[j]) for j in chunks]
             got = fn()
             torch.cuda.synchronize()
-            errs = k1_errs(label, got, [torch.cat(parts) for parts in zip(*plain())])
-            hold(label, errs, k1_tol(far))
-            err = max(errs.values())
+            err = None
+            if plain_too:
+                errs = k1_errs(label, got, [torch.cat(parts) for parts in zip(*plain())])
+                hold(label, errs, k1_tol(far))
+                err = max(errs.values())
             lib_rays = (1 << 22) // s  # the eager activations of 4M rows at a time
 
             @torch.no_grad()
@@ -984,9 +1075,11 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
                 *args, white_bg=white, radii=radii, **dist)
             got = fn()
             torch.cuda.synchronize()
-            want = plain()
-            hold(label, k2_errs(label, got, want), KERNEL_TOL)
-            err = k2_abs(got, want)
+            err = None
+            if plain_too:
+                want = plain()
+                hold(label, k2_errs(label, got, want), KERNEL_TOL)
+                err = k2_abs(got, want)
 
             def library():
                 model.zero_grad(set_to_none=True)
@@ -1002,7 +1095,7 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
                                                                          + pk.b.numel())
         got = want = None
         ms = event_ms(fn)
-        plain_ms = event_ms(plain, reps=1)
+        plain_ms = event_ms(plain, reps=1) if plain_too else None
         library()
         library_ms = event_ms(library)
         model.zero_grad(set_to_none=True)
@@ -1010,16 +1103,78 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
         row = {"kernel": kernel, "case": name, "rays": n, "samples": s, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b,
                "bound_by": by}
-        if kernel == "K2":  # the stashes and dW partials of one call
+        if kernel == "K2":  # the stashes and dW partials of one call; the split by kernel
             row["scratch_bytes"] = fused_train._library().nerf_fused_train_scratch_bytes(
                 n, padded_samples(s), pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D,
                 pk.w.numel() + pk.b.numel())
-        print(f"{kernel} {name}, {n} rays [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            split = row["split_ms"] = {}
+            for k, v in device_ms(prof).items():
+                split[kernel_name(k)] = split.get(kernel_name(k), 0.0) + v / 3
+        plain_txt = f"{plain_ms:.3f} ms" if plain_too else "not run"
+        print(f"{kernel} {name}, {n} rays [{card}]: kernel {ms:.3f} ms, plain {plain_txt}, "
               f"library {library_ms:.3f} ms, bound {b:.3f} ms ({by}), "
               f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s"
-              + (f", scratch {row['scratch_bytes'] / 1e9:.3f} GB" if kernel == "K2" else ""))
+              + (f", scratch {row['scratch_bytes'] / 1e9:.3f} GB; device time by kernel: "
+                 + ", ".join(f"{k} {v:.3f}" for k, v in sorted(row["split_ms"].items(),
+                                                               key=lambda kv: -kv[1]))
+                 if kernel == "K2" else ""))
         rows.append(row)
     return rows
+
+
+def preset_steps(card: str, preset: str, profiled: bool) -> dict:
+    """The preset's train step (4096 rays) through K2 and through autograd,
+    in seconds (best of 3 windows of 10 and 5 steps), and with ``profiled``
+    the device idle share of the K2 step from a profile of 5 steps."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+
+    dev = torch.device("cuda")
+    cfg = preset_cfg(preset)
+    ds = make_dataset(cfg, dev)
+    times = {}
+    for name, c, window in (("K2", cfg, 10),
+                            ("autograd", dataclasses.replace(cfg, use_whole_ray_train=False), 5)):
+        state = init_state(c, dev)
+        fn = make_train_step(c, ds)
+        it = [0]
+
+        def run(k):
+            nonlocal state
+            for _ in range(k):
+                state, _ = fn(state, step_generator(0, it[0], dev))
+                it[0] += 1
+        run(2)
+        times[name] = best_of(lambda: run(window)) / window
+        if name == "K2" and profiled:
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                run(5)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / 5
+            per = sorted(((v / 5, k) for k, v in device_ms(prof).items()), reverse=True)
+            busy = sum(v for v, _ in per)
+            times["idle_pct"] = 100 * (1 - busy / wall)
+            print(f"{preset} K2 step profile [{card}]: wall {wall:.3f} ms/step "
+                  f"(profiled), device busy {busy:.3f} ms/step, "
+                  f"idle {times['idle_pct']:.1f}%")
+            for v, k in per[:8]:
+                print(f"  {v:8.3f} ms/step  {k[:100]}")
+        del state
+    for name in ("K2", "autograd"):
+        print(f"{preset} train step through {name} [{card}]: {times[name] * 1e3:.3f} ms/step")
+    return times
 
 
 def time_presets(card: str, presets=PRESETS, profiled=("hierarchical",)) -> dict:
@@ -1029,54 +1184,17 @@ def time_presets(card: str, presets=PRESETS, profiled=("hierarchical",)) -> dict
     the plain version, pass by pass: under a proposal the one main pass,
     on samples both routes draw alike), and a profile of the K2 step of
     the presets in ``profiled``."""
-    import dataclasses
-
     import torch
 
     from nerf_rs_tpu_torch.data.factory import make_dataset
     from nerf_rs_tpu_torch.ops import render as render_ops
     from nerf_rs_tpu_torch.render import make_render
-    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+    from nerf_rs_tpu_torch.train.step import init_state
 
     dev = torch.device("cuda")
     out = {}
     for preset in presets:
-        cfg = preset_cfg(preset)
-        ds = make_dataset(cfg, dev)
-        times = {}
-        for name, c, window in (("K2", cfg, 10),
-                                ("autograd", dataclasses.replace(cfg, use_whole_ray_train=False),
-                                 5)):
-            state = init_state(c, dev)
-            fn = make_train_step(c, ds)
-            it = [0]
-
-            def run(k):
-                nonlocal state
-                for _ in range(k):
-                    state, _ = fn(state, step_generator(0, it[0], dev))
-                    it[0] += 1
-            run(2)
-            times[name] = best_of(lambda: run(window)) / window
-            if name == "K2" and preset in profiled:
-                torch.cuda.synchronize()
-                with torch.profiler.profile(
-                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                    t0 = time.perf_counter()
-                    run(5)
-                    torch.cuda.synchronize()
-                    wall = (time.perf_counter() - t0) * 1e3 / 5
-                per = sorted(((v / 5, k) for k, v in device_ms(prof).items()), reverse=True)
-                busy = sum(v for v, _ in per)
-                times["idle_pct"] = 100 * (1 - busy / wall)
-                print(f"{preset} K2 step profile [{card}]: wall {wall:.3f} ms/step "
-                      f"(profiled), device busy {busy:.3f} ms/step, "
-                      f"idle {times['idle_pct']:.1f}%")
-                for v, k in per[:8]:
-                    print(f"  {v:8.3f} ms/step  {k[:100]}")
-            del state
-        for name in ("K2", "autograd"):
-            print(f"{preset} train step through {name} [{card}]: {times[name] * 1e3:.3f} ms/step")
+        times = preset_steps(card, preset, preset in profiled)
 
         fcfg = preset_cfg(preset, "--width", str(FRAME), "--height", str(FRAME))
         fds = make_dataset(fcfg, dev)
@@ -2125,6 +2243,22 @@ def time_scatter(card: str, inputs) -> dict:
             return g.new_zeros(shape[0] * shape[1]).index_add_(0, pos, g.reshape(-1))
         atomics = index_add().view(shape)
         index_add_err = float((atomics - got).abs().max())
+
+        def index_put():  # PyTorch's deterministic route: a sort, then ordered sums
+            return g.new_zeros(shape[0] * shape[1]).index_put_((pos,), g.reshape(-1),
+                                                                accumulate=True)
+        was = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            ordered = index_put().view(shape)
+            if not torch.equal(ordered, index_put().view(shape)):
+                fail(f"index_put_ [{layout}] under use_deterministic_algorithms differs "
+                     f"across calls")
+            det_ms = event_ms(index_put)
+        finally:
+            torch.use_deterministic_algorithms(was)
+        det_err = float((ordered - got).abs().max())
+        del ordered
         ms = event_ms(lambda: k4.scatter_rows(g, key, lane0, lanes, shape))
         lib_ms = event_ms(index_add)
         plain_ms = event_ms(lambda: k4.scatter_rows_reference(g, key, lane0, lanes, shape), reps=1)
@@ -2141,13 +2275,15 @@ def time_scatter(card: str, inputs) -> dict:
         b, by = bound_ms(0.0, nbytes)
         print(f"scatter_rows [{layout}], {n} fetches x {c} into {shape} [{card}]: {ms:.3f} ms "
               f"(kernel alone {kernel_ms:.3f} ms, sorts {sort_ms:.3f} ms), index_add_ "
-              f"{lib_ms:.3f} ms (vs the fixed order: max |diff| {index_add_err:.3g}), plain "
+              f"{lib_ms:.3f} ms (vs the fixed order: max |diff| {index_add_err:.3g}), "
+              f"deterministic index_put_ {det_ms:.3f} ms (max |diff| {det_err:.3g}), plain "
               f"{plain_ms:.3f} ms, bound {b:.4f} ms ({by}, {nbytes / 1e9:.3f} GB); "
               f"bit-equal to plain and across launches")
         rows[layout] = {"fetches": n, "values": c, "max_abs_err": err, "ms": ms,
                         "kernel_ms": kernel_ms,
                         "sort_ms": sort_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bound_ms": b, "bound_by": by, "index_add_vs_fixed": index_add_err}
+                        "library_det_ms": det_ms, "bound_ms": b, "bound_by": by,
+                        "index_add_vs_fixed": index_add_err, "index_put_det_vs_fixed": det_err}
         del got, again, want, atomics, pos
     return rows
 
@@ -2187,9 +2323,13 @@ def learn_seeds(preset: str, seeds: str, extra) -> int:
 
 
 def time_step(root: str) -> int:
-    """The flagship path's times for the checkout at ``root``: the train
-    step through K2, autograd and the plain version, one K2 call, and one
-    K1 chunk. Its kernels build into that checkout."""
+    """The times of K1 and K2 for the checkout at ``root``: ptxas' report
+    of every K1 and K2 instance; the flagship train step through K2,
+    autograd and the plain version, one K2 call and one K1 chunk; every
+    K1 and K2 call of the main paths (BRANCH_SHAPES and UNB_SHAPES: K2 at
+    S = 192 with 4096 rays among them) beside autograd's or the eager
+    field's, each K2 call split by kernel; the hierarchical step through
+    K2 and through autograd. Its kernels build into that checkout."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -2205,14 +2345,24 @@ def time_step(root: str) -> int:
     from nerf_rs_tpu_torch.kernels.fused_render import pack_weights
     from nerf_rs_tpu_torch.models.mlp import init_nerf_params
 
+    from nerf_rs_tpu_torch.kernels import build
+
     card = card_line()
     print(f"{root} [{card}]")
+    names = ("fused_ray", "fused_train")
+    with ThreadPoolExecutor(len(names)) as pool:
+        for name, lib in zip(names, pool.map(build.build, names)):
+            ptxas_report(name, lib)
     dev = torch.device("cuda")
     time_training(card)
     mcfg = ModelConfig()
+    model = init_nerf_params(mcfg, 0, dev)
     cfg, fo, fd = frame_rays(dev)
-    time_chunk(card, pack_weights(init_nerf_params(mcfg, 0, dev), mcfg), mcfg, cfg.camera,
-               fo.reshape(-1, 3), fd.reshape(-1, 3))
+    flat_o, flat_d = fo.reshape(-1, 3), fd.reshape(-1, 3)
+    time_chunk(card, pack_weights(model, mcfg), mcfg, cfg.camera, flat_o, flat_d)
+    time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d, BRANCH_SHAPES + UNB_SHAPES,
+                  plain_too=False)
+    preset_steps(card, "hierarchical", profiled=True)
     return 0
 
 
@@ -2249,9 +2399,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(KERNELS)}")
     for name, lib in libs.items():
         print(f"  {name} -> {lib.name}")
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if re.search(r"registers|spill", line):
-                print(f"ptxas [{name}]:", line.strip())
+        ptxas_report(name, lib)
 
     # ---- 3. kernel vs plain version ----
     mcfg = ModelConfig()  # flagship: 8x256, skip 4, F 256, V 128, PE 10/4
@@ -2290,6 +2438,7 @@ def main() -> int:
     # ---- 9. the hierarchical branches: IPE, rays longer than one tile ----
     max_err = max(max_err, check_render_branches(model, mcfg, (o, d, vd), cam))
     train_err = max(train_err, check_train_branches(model, mcfg, (o, d, vd), gold, cam))
+    train_err = max(train_err, check_union_rows(model, mcfg, (o, d, vd), gold, cam))
 
     # ---- 12. K3 vs its plain versions ----
     fcfg = factored_config()
@@ -2545,8 +2694,8 @@ def main() -> int:
         "launches": sum(scatter_paths.values()),
         "launches_by_path": scatter_paths,
         **{k: scatter_times["brick"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                  "bound_by",
-                                                  "library_ms", "kernel_ms", "fetches")},
+                                                  "bound_by", "library_ms", "library_det_ms",
+                                                  "kernel_ms", "fetches")},
         "cases": [{"layout": "flat", **scatter_times["flat"]}],
     }],
         "presets": {**preset_times, **unb_times}, "learning": {**learned, **unb_learned},

@@ -8,20 +8,29 @@
 // registers.
 //
 // Rays per CTA. A CTA takes whole rays: 128 / S of them when S divides
-// 128, or one ray of S = 256 samples in two passes of 128 rows (field.S is
-// what the wrappers pad S to, with zero-length intervals at the far end:
-// a power of two up to 128, else 256). The per-sample values the
-// compositing scan needs (raw sigma, rgb, ts, deltas; K2's gradients) are
-// kept for the CTA's whole rays, `rows` = max(128, S) of them, so a pass
-// writes its rows at offset s0 and the scan runs once over whole rays.
+// 128, two rays of S = 192 samples in three passes of 128 rows, or one ray
+// of S = 256 in two passes (field.S is what the wrappers pad S to, with
+// zero-length intervals at the far end: a power of two up to 128, 192 for
+// 129 to 192, else 256; kernels/fused_ray.padded_samples). A pass may hold
+// the end of one ray and the start of the next: every row finds its ray as
+// (CTA row) / S. The per-sample values the compositing scan needs (raw
+// sigma, rgb, ts, deltas; K2's gradients) are kept for the CTA's whole
+// rays, `rows` = R * S of them, so a pass writes its rows at offset s0 and
+// the scan runs once over whole rays.
 //
 // Layout of a product. 16 warps tile the 128 rows 4 ways (32 rows each)
 // and the output columns in chunks of 64. A operands come from shared
-// memory through ldmatrix; B operands (weights) from global memory,
-// pre-packed by kernels/fused_render._swizzle so each lane reads its
-// fragment as one coalesced 8-byte load (the weights stay in L2).
+// memory through ldmatrix; B operands (weights, pre-packed by
+// kernels/fused_render._swizzle so each lane's fragment is 8 contiguous
+// bytes) through a ring of k16 slices in shared memory that cp.async
+// fills two slices ahead of the products: each slice leaves L2 once per
+// CTA instead of once per row-group warp, and no warp waits on L2 for its
+// fragments.
 // Activations alternate between two buffers, so no warp overwrites rows
-// another warp still reads.
+// another warp still reads. K2's copies leave the SM from those buffers
+// after each layer's barrier (stash_rows: 16-byte stores with an
+// evict-first hint, row after row), its relu masks as bits (relu_bits:
+// one __ballot_sync per 32 columns).
 //
 // Numerics: no fast math. sinf/cosf with exact ldexpf scales for the PE
 // (sin(2^9 x) loses its phase with a low-precision argument or sine);
@@ -55,6 +64,9 @@ constexpr int kChunk = 8;                        // n8 tiles per warp pass (64 c
 constexpr int kMaxMats = 24;
 constexpr int kLdr = 24;                         // row stride of K2's 16-wide rgb-gradient tile
 constexpr int kMaxSamples = 256;                 // samples per ray, after padding
+constexpr int kWStages = 3;                      // weight slices in the ring
+constexpr int kRoundTiles = kColGroups * kChunk; // n8 tiles of a product per round: 32
+constexpr int kWSlice = kRoundTiles * 32;        // uint2 per slice: 32 lanes a tile (8 KB)
 constexpr int kRayStride = 10;                   // per ray in shared memory: o, d, viewdir, radius
 
 // The field's inputs, packed weights and widths.
@@ -72,9 +84,18 @@ struct Field {
   long long n_rays;
   int S, n_layers, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe;
   int R;     // whole rays per CTA
-  int rows;  // sample rows per CTA, R * S: one 128-row pass, or S / 128 of them
+  int rows;  // sample rows per CTA, R * S: 128, 384 (S = 192) or 256 (S = 256)
   int ldb, ldx, ldd;  // shared-memory row strides in bf16 elements
 };
+
+// The padded sample counts the kernels take: a divisor of 128, 192 or 256.
+inline bool takes_samples(int S) {
+  return S > 0 && (S <= kRows ? kRows % S == 0 : (S == 192 || S == kMaxSamples));
+}
+
+// Whole rays per CTA for a padded S: 128 / S, 2 at S = 192, 1 at S = 256.
+// Every CTA's rows, R * S, are whole 128-row passes.
+inline int rays_per_cta(int S) { return S <= kRows ? kRows / S : (S == 192 ? 2 : 1); }
 
 // Fills f from the C entry point's arguments. Returns 0 or a negative
 // code for a shape the kernels do not take (kernels/fused_ray.py maps the
@@ -84,7 +105,7 @@ inline int init_field(Field* f, const void* o, const void* d, const void* vd, co
                       const long long* w_off, int n_w, const long long* b_off, int n_b,
                       long long n_rays, int S, int depth_l, int skip, int W, int F, int V, int P,
                       int D, int pos_levels, int dir_levels, int sigma_act, int ipe) {
-  if (S <= 0 || S > kMaxSamples || (S <= kRows ? kRows % S : S % kRows) != 0) return -1;
+  if (!takes_samples(S)) return -1;
   if (n_w != depth_l + 5 || n_b != depth_l + 3 || n_w > kMaxMats || depth_l < 1) return -2;
   if (W % 16 || F % 16 || V % 16 || P % 16 || D % 16) return -3;
   if (3 + 6 * pos_levels > P || 3 + 6 * dir_levels > D) return -4;
@@ -115,7 +136,7 @@ inline int init_field(Field* f, const void* o, const void* d, const void* vd, co
   f->dir_levels = dir_levels;
   f->sigma_act = sigma_act;
   f->ipe = ipe;
-  f->R = S <= kRows ? kRows / S : 1;
+  f->R = rays_per_cta(S);
   f->rows = f->R * S;
   int widest = W > F ? W : F;
   widest = widest > V ? widest : V;
@@ -126,7 +147,7 @@ inline int init_field(Field* f, const void* o, const void* d, const void* vd, co
 }
 
 struct SmemLayout {
-  size_t buf0, buf1, xs, ds, mv, sig_raw, rgb, ts, dl, w, sg, ray, dpe, drgb, dsig, total;
+  size_t buf0, buf1, xs, ds, mv, sig_raw, rgb, ts, dl, w, sg, ray, dpe, drgb, dsig, wring, total;
 };
 
 __host__ __device__ inline size_t take(size_t* at, size_t bytes) {
@@ -137,7 +158,9 @@ __host__ __device__ inline size_t take(size_t* at, size_t bytes) {
 
 // The pass tiles (activations, encodings, moments) hold 128 rows; the
 // per-sample values of the CTA's whole rays hold f.rows. train adds K2's
-// rgb-gradient tile and dsigma column (empty for K1).
+// rgb-gradient tile and dsigma column (empty for K1). Then the weight
+// ring. At paper width K2's three-pass CTA takes 225,616 B of the
+// 232,448 an H100 block may have.
 __host__ __device__ inline SmemLayout smem_layout(const Field& f, bool train) {
   const int rows = f.rows;
   SmemLayout L;
@@ -157,6 +180,7 @@ __host__ __device__ inline SmemLayout smem_layout(const Field& f, bool train) {
   L.dpe = take(&at, sizeof(float) * f.R * f.D);
   L.drgb = take(&at, train ? sizeof(bf16) * rows * kLdr : 0);
   L.dsig = take(&at, train ? sizeof(float) * rows : 0);
+  L.wring = take(&at, sizeof(uint2) * kWStages * kWSlice);
   L.total = at;
   return L;
 }
@@ -178,6 +202,7 @@ struct Tile {
   float* dpe;    // per ray: PE(viewdir), f32
   bf16* drgb;    // K2: d rgb_raw, 16 columns, row stride kLdr
   float* dsig;   // K2: d sigma_raw rounded to bf16
+  uint2* wring;  // kWStages k16 slices of a product's packed weights
 };
 
 __device__ inline Tile carve(unsigned char* smem, const SmemLayout& L) {
@@ -197,6 +222,7 @@ __device__ inline Tile carve(unsigned char* smem, const SmemLayout& L) {
   t.dpe = reinterpret_cast<float*>(smem + L.dpe);
   t.drgb = reinterpret_cast<bf16*>(smem + L.drgb);
   t.dsig = reinterpret_cast<float*>(smem + L.dsig);
+  t.wring = reinterpret_cast<uint2*>(smem + L.wring);
   return t;
 }
 
@@ -320,43 +346,67 @@ __device__ inline void contract_gaussian(float* mv) {
   }
 }
 
-typedef float Acc[kMT][kChunk][4];
-
-// acc += A[row0 : row0 + 32, 0 : K] @ Wm[:, 8 nt0 : 8 (nt0 + nts)]
-__device__ __forceinline__ void mma_accumulate(Acc& acc, const bf16* A, int lda, int K,
-                                               const uint2* Wm, int nt0, int nts, int row0,
-                                               int lane) {
-  const int KT = K / 16;
-  // ldmatrix x4 row addresses: lanes 0-15 rows 0-15 at k, lanes 16-31 rows 0-15 at k + 8
-  const bf16* a_row = A + (row0 + (lane & 15)) * lda + (lane >> 4) * 8;
-  for (int kt = 0; kt < KT; ++kt) {
-    uint32_t a[kMT][4];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) ldmatrix_x4(a[mt], a_row + mt * 16 * lda + kt * 16);
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      if (j < nts) {
-        const uint2 bw = __ldg(Wm + (static_cast<size_t>(nt0 + j) * KT + kt) * 32 + lane);
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) mma_16816(acc[mt][j], a[mt], bw.x, bw.y);
-      }
-    }
-  }
+// 16 bytes from global to shared memory, in flight until a wait_group;
+// zeros (and no read) when !ok
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
 }
 
-// out = epi(A1 @ W1 [+ A2 @ W2]) for the CTA's 128 rows and N columns
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+typedef float Acc[kMT][kChunk][4];
+
+// out = epi(A1 @ W1 [+ A2 @ W2]) for the CTA's 128 rows and N columns.
+// The columns go in rounds of up to kRoundTiles n8 tiles (one chunk of 64
+// per column-group warp; N = F + 8 takes a second round for the sigma
+// tile). A round walks the k-steps of A1, then of A2: slice k (the round's
+// tiles at that k-step, 256 B each) is copied into ring slot k % kWStages
+// kWStages - 1 steps ahead; one barrier per k-step says the slice has
+// landed for every thread and that the slot the next copy refills has
+// been read by all. Callers put a barrier between products, so a
+// product's first copies never overwrite a slot another warp still reads.
 template <class Epi>
 __device__ __forceinline__ void dense_layer(const bf16* A1, int lda1, int K1, const uint2* W1,
                                             const bf16* A2, int lda2, int K2, const uint2* W2,
-                                            int N, const Epi& epi) {
+                                            int N, uint2* ring, const Epi& epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = (warp % kRowGroups) * kWarpRows;
   const int g = lane >> 2, t = lane & 3;
   const int NT = N / 8;
-  const int chunks = (NT + kChunk - 1) / kChunk;
-  for (int ch = warp / kRowGroups; ch < chunks; ch += kColGroups) {
-    const int nt0 = ch * kChunk;
-    const int nts = min(kChunk, NT - nt0);
+  const int KT1 = K1 / 16, KT2 = A2 != nullptr ? K2 / 16 : 0, KT = KT1 + KT2;
+  const int nt_w = (warp / kRowGroups) * kChunk;  // the warp's first tile in a round
+  // ldmatrix x4 row addresses: lanes 0-15 rows 0-15 at k, lanes 16-31 rows 0-15 at k + 8
+  const bf16* a1 = A1 + (row0 + (lane & 15)) * lda1 + (lane >> 4) * 8;
+  const bf16* a2 = A2 != nullptr ? A2 + (row0 + (lane & 15)) * lda2 + (lane >> 4) * 8 : nullptr;
+  for (int base = 0; base < NT; base += kRoundTiles) {
+    const int tiles = min(kRoundTiles, NT - base);
+    const int nts = min(kChunk, tiles - nt_w);  // <= 0: no columns for this warp this round
+    auto fill = [&](int k) {
+      uint2* slot = ring + (k % kWStages) * kWSlice;
+      const bool first = k < KT1;
+      const uint2* Wm = first ? W1 : W2;
+      const int ktn = first ? KT1 : KT2, kt = first ? k : k - KT1;
+      for (int i = threadIdx.x; i < tiles * 16; i += kThreads) {  // 16 B pieces, 16 a tile
+        const int nt = i >> 4, q = (i & 15) * 2;
+        cp_async16(slot + nt * 32 + q,
+                   Wm + (static_cast<size_t>(base + nt) * ktn + kt) * 32 + q, true);
+      }
+    };
+    if (base > 0) __syncthreads();  // the last round's slots are free
+#pragma unroll
+    for (int s = 0; s < kWStages - 1; ++s) {
+      if (s < KT) fill(s);
+      cp_async_commit();
+    }
     Acc acc;
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
@@ -364,20 +414,43 @@ __device__ __forceinline__ void dense_layer(const bf16* A1, int lda1, int K1, co
       for (int j = 0; j < kChunk; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-    mma_accumulate(acc, A1, lda1, K1, W1, nt0, nts, row0, lane);
-    if (A2 != nullptr) mma_accumulate(acc, A2, lda2, K2, W2, nt0, nts, row0, lane);
-    // accumulator fragment: c0, c1 at (row g, cols 2t, 2t + 1); c2, c3 at row g + 8
+    for (int k = 0; k < KT; ++k) {
+      cp_async_wait<kWStages - 2>();
+      __syncthreads();
+      if (k + kWStages - 1 < KT) fill(k + kWStages - 1);
+      cp_async_commit();
+      if (nts > 0) {
+        const bool first = k < KT1;
+        const bf16* ap = first ? a1 + k * 16 : a2 + (k - KT1) * 16;
+        const int lda = first ? lda1 : lda2;
+        const uint2* slot = ring + (k % kWStages) * kWSlice + nt_w * 32 + lane;
+        uint32_t a[kMT][4];
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+        for (int mt = 0; mt < kMT; ++mt) ldmatrix_x4(a[mt], ap + mt * 16 * lda);
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        if (j < nts) {
-          const int col = (nt0 + j) * 8 + 2 * t;
-          const int row = row0 + mt * 16 + g;
-          epi(row, col, acc[mt][j][0], acc[mt][j][1]);
-          epi(row + 8, col, acc[mt][j][2], acc[mt][j][3]);
+        for (int j = 0; j < kChunk; ++j) {
+          if (j < nts) {
+            const uint2 bw = slot[j * 32];
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) mma_16816(acc[mt][j], a[mt], bw.x, bw.y);
+          }
         }
       }
+    }
+    // accumulator fragment: c0, c1 at (row g, cols 2t, 2t + 1); c2, c3 at row g + 8
+    if (nts > 0) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          if (j < nts) {
+            const int col = (base + nt_w + j) * 8 + 2 * t;
+            const int row = row0 + mt * 16 + g;
+            epi(row, col, acc[mt][j][0], acc[mt][j][1]);
+            epi(row + 8, col, acc[mt][j][2], acc[mt][j][3]);
+          }
+        }
+    }
   }
 }
 
@@ -385,37 +458,29 @@ __device__ __forceinline__ void store_pair(bf16* p, __nv_bfloat162 v) {
   *reinterpret_cast<__nv_bfloat162*>(p) = v;
 }
 
-// hidden layer: bf16(relu(acc + b)) into an activation buffer, and into a
-// global stash (K2's backward reads it; null for K1)
+// hidden layer: bf16(relu(acc + b)) into an activation buffer
 struct ReluStore {
   bf16* out;
   int ldo;
   const float* b;
-  bf16* stash;
-  int lds;
   __device__ void operator()(int r, int c, float v0, float v1) const {
     v0 = fmaxf(v0 + b[c], 0.f);
     v1 = fmaxf(v1 + b[c + 1], 0.f);
-    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-    store_pair(out + r * ldo + c, h);
-    if (stash != nullptr) store_pair(stash + r * lds + c, h);
+    store_pair(out + r * ldo + c, __floats2bfloat162_rn(v0, v1));
   }
 };
 
 // [feature | sigma] head: bf16 feature (no activation), f32 raw sigma at
-// column F; the feature also into a global stash when one is given
+// column F
 struct FeatSigmaStore {
   bf16* feat;
   int ldo;
   const float* b;
   float* sig_raw;
   int F;
-  bf16* stash;
   __device__ void operator()(int r, int c, float v0, float v1) const {
     if (c < F) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(v0 + b[c], v1 + b[c + 1]);
-      store_pair(feat + r * ldo + c, h);
-      if (stash != nullptr) store_pair(stash + r * F + c, h);
+      store_pair(feat + r * ldo + c, __floats2bfloat162_rn(v0 + b[c], v1 + b[c + 1]));
     } else if (c == F) {
       sig_raw[r] = v0 + b[c];
     }
@@ -432,9 +497,11 @@ struct RgbStore {
   }
 };
 
-// Global stashes of K2's forward, each offset to the CTA's first row and
+// Global stashes of K2's forward, each offset to the pass's first row and
 // row-major at its own width: x (P), h_l (W, layer l at h + l * h_stride),
-// feat (F), hv (V), dv (D). All null for K1.
+// feat (F), hv (V), dv (D); and the relu masks as bits, mw 32-bit words
+// per row, trunk layer l at mask + l * mask_stride and hv at layer
+// n_layers. All null for K1.
 struct Stash {
   bf16* x;
   bf16* h;
@@ -442,7 +509,44 @@ struct Stash {
   bf16* feat;
   bf16* hv;
   bf16* dv;
+  uint32_t* mask;
+  long long mask_stride;
+  int mw;
 };
+
+// The pass's 128 rows of an smem tile (row stride lds, `cols` columns, a
+// multiple of 8) to a global stash (row stride ldd): 16-byte loads and
+// stores, consecutive threads on consecutive addresses, st.global.cs (the
+// stash is read back only after the whole grid, by K2b: it should not
+// push the masks out of L2).
+__device__ __forceinline__ void stash_rows(bf16* dst, int ldd, const bf16* src, int lds,
+                                           int cols) {
+  const int vecs = cols / 8;
+  for (int i = threadIdx.x; i < kRows * vecs; i += kThreads) {
+    const int r = i / vecs, v = (i % vecs) * 8;
+    __stcs(reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * ldd + v),
+           *reinterpret_cast<const uint4*>(src + r * lds + v));
+  }
+}
+
+// The relu masks (value > 0) of the pass's 128 rows of an smem tile, `cols`
+// columns, as bits: word w of row r holds columns 32 w .. 32 w + 31, bit
+// j column 32 w + j. One __ballot_sync per word; lane w keeps word w of
+// its row and the mw words of a row leave in one coalesced store.
+__device__ __forceinline__ void relu_bits(uint32_t* mask, int mw, const bf16* src, int lds,
+                                          int cols) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kRows; r += kWarps) {
+    uint32_t mine = 0;
+    for (int w = 0; w < mw; ++w) {
+      const int c = w * 32 + lane;
+      const bool on = c < cols && __bfloat162float(src[r * lds + c]) > 0.f;
+      const uint32_t word = __ballot_sync(0xffffffffu, on);
+      if (lane == w) mine = word;
+    }
+    if (lane < mw) mask[static_cast<long long>(r) * mw + lane] = mine;
+  }
+}
 
 // The field on one 128-row pass of the CTA's rays: inputs, encodings,
 // trunk and heads. CTA row s0 + r (ray (s0 + r) / S, sample (s0 + r) % S)
@@ -514,9 +618,7 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
       const int dim = c < 3 ? c : (c - 3) % 3;
       v = p.ipe ? ipe_value(mv[dim], mv[3 + dim], c) : pe_value(mv[dim], c);
     }
-    const bf16 h = __float2bfloat16_rn(v);
-    t.xs[r * p.ldx + c] = h;
-    if (st.x != nullptr) st.x[i] = h;
+    t.xs[r * p.ldx + c] = __float2bfloat16_rn(v);
   }
   const int dir_dim = 3 + 6 * p.dir_levels;
   for (int i = tid; i < p.R * p.D; i += kThreads) {
@@ -528,11 +630,14 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
   __syncthreads();
   for (int i = tid; i < kRows * p.D; i += kThreads) {
     const int r = i / p.D, c = i % p.D;
-    const bf16 h = __float2bfloat16_rn(t.dpe[((s0 + r) / S) * p.D + c]);
-    t.ds[r * p.ldd + c] = h;
-    if (st.dv != nullptr) st.dv[i] = h;
+    t.ds[r * p.ldd + c] = __float2bfloat16_rn(t.dpe[((s0 + r) / S) * p.D + c]);
   }
   __syncthreads();
+  const bool stash = st.h != nullptr;
+  if (stash) {
+    stash_rows(st.x, p.P, t.xs, p.ldx, p.P);
+    stash_rows(st.dv, p.D, t.ds, p.ldd, p.D);
+  }
 
   // ---- trunk ----
   const uint2* skip_w = reinterpret_cast<const uint2*>(p.w + p.w_off[p.n_layers]);
@@ -541,11 +646,14 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
   for (int i = 0; i < p.n_layers; ++i) {
     bf16* out = (i & 1) ? t.buf1 : t.buf0;
     const bool skip = i == p.skip && i > 0;
-    bf16* stash = st.h != nullptr ? st.h + i * st.h_stride : nullptr;
     dense_layer(h, ldh, kh, reinterpret_cast<const uint2*>(p.w + p.w_off[i]),
-                skip ? t.xs : nullptr, p.ldx, p.P, skip_w, p.W,
-                ReluStore{out, p.ldb, p.b + p.b_off[i], stash, p.W});
+                skip ? t.xs : nullptr, p.ldx, p.P, skip_w, p.W, t.wring,
+                ReluStore{out, p.ldb, p.b + p.b_off[i]});
     __syncthreads();
+    if (stash) {
+      stash_rows(st.h + i * st.h_stride, p.W, out, p.ldb, p.W);
+      relu_bits(st.mask + i * st.mask_stride, st.mw, out, p.ldb, p.W);
+    }
     h = out;
     ldh = p.ldb;
     kh = p.W;
@@ -556,15 +664,20 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
 
   // ---- heads ----
   dense_layer(hbuf, p.ldb, p.W, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 1]),
-              nullptr, 0, 0, nullptr, p.F + 8,
-              FeatSigmaStore{other, p.ldb, p.b + p.b_off[m], t.sig_raw + s0, p.F, st.feat});
+              nullptr, 0, 0, nullptr, p.F + 8, t.wring,
+              FeatSigmaStore{other, p.ldb, p.b + p.b_off[m], t.sig_raw + s0, p.F});
   __syncthreads();
+  if (stash) stash_rows(st.feat, p.F, other, p.ldb, p.F);
   dense_layer(other, p.ldb, p.F, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 2]),
               t.ds, p.ldd, p.D, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 3]), p.V,
-              ReluStore{hbuf, p.ldb, p.b + p.b_off[m + 1], st.hv, p.V});
+              t.wring, ReluStore{hbuf, p.ldb, p.b + p.b_off[m + 1]});
   __syncthreads();
+  if (stash) {
+    stash_rows(st.hv, p.V, hbuf, p.ldb, p.V);
+    relu_bits(st.mask + m * st.mask_stride, st.mw, hbuf, p.ldb, p.V);
+  }
   dense_layer(hbuf, p.ldb, p.V, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 4]),
-              nullptr, 0, 0, nullptr, 8, RgbStore{t.rgb + s0 * 4, p.b + p.b_off[m + 2]});
+              nullptr, 0, 0, nullptr, 8, t.wring, RgbStore{t.rgb + s0 * 4, p.b + p.b_off[m + 2]});
   __syncthreads();
   *hv_buf = hbuf;
   *feat_buf = other;

@@ -8,11 +8,12 @@
 // sigma; per-sample activations never leave the SM.
 //
 // Design. One CTA of 16 warps takes the sample rows of whole rays -- 128 /
-// S rays when S divides 128 (2 at S = 64), or one ray of S = 256 in two
-// 128-row passes -- and runs the field on each 128-row pass with the
-// shared tensor-core machinery of field.cuh (mma.sync.m16n8k16, bf16
-// operands, f32 sums, epilogues in registers, weights L2-resident in a
-// fragment-native packing). Compositing is one sequential exclusive scan
+// S rays when S divides 128 (2 at S = 64), two rays of S = 192 in three
+// 128-row passes, or one ray of S = 256 in two -- and runs the field on
+// each 128-row pass with the shared tensor-core machinery of field.cuh
+// (mma.sync.m16n8k16, bf16 operands, f32 sums, epilogues in registers,
+// weights in a fragment-native packing streamed through a cp.async ring
+// in shared memory). Compositing is one sequential exclusive scan
 // per ray in f32, after every pass: the TPU kernel's triangular-matmul
 // prefix sum exists only because Mosaic has no cumsum.
 //
@@ -32,18 +33,19 @@
 // the kernels they were.
 //
 // Long rays. The wrapper (kernels/fused_ray.py) pads S with zero-length
-// intervals at the far end to a power of two, or to 256 above 128: such
-// an interval has a = sigma * 0 = 0, so its weight is exactly 0 and the
-// real samples' outputs are unchanged. S = 192 (the hierarchical union
-// pass) runs as 256, 1.33x the rows; packing rays across tiles would
-// recover that.
+// intervals at the far end to a power of two up to 128, to 192 for 129 to
+// 192 samples, else to 256: such an interval has a = sigma * 0 = 0, so its
+// weight is exactly 0 and the real samples' outputs are unchanged. S = 192
+// (the hierarchical union pass) runs unpadded, two rays per CTA, their
+// 384 rows in three passes (the second pass holds the end of one ray and
+// the start of the other); 193 (the record preset) still pads to 256.
 //
 // What bounds it. Per sample row the field costs ~1.29 MFLOP of bf16
 // products (flops_row in the JAX wrapper) against ~36 B of input per ray
 // (0.6 B per row at S = 64): the kernel is compute-bound, and its limit
-// is the tensor-core rate. This simple form leaves for later: wgmma
-// (mma.sync reaches only part of Hopper's bf16 rate), TMA or cp.async
-// staging of the weights in shared memory, persistent CTAs, and a
+// is the tensor-core rate. Left for later: wgmma (mma.sync reaches only
+// part of Hopper's bf16 rate, and its 32 x 64 warp tiles read 3 KB of
+// operands per k-step from shared memory), persistent CTAs, and a
 // parallel scan.
 //
 // Numerics and traps: see field.cuh (no fast math, sinf/cosf with exact
@@ -66,11 +68,11 @@ struct Params {
   float* sigma;
 };
 
-// kPasses: 128-row passes per CTA, 1 (S divides 128) or 2 (S = 256). A
-// compile-time count, so the one-pass kernel inlines the field once: with
-// a second inlined call, or a loop around it, nvcc keeps less of it in
-// registers and the kernel runs up to 1.8x slower. kContract: the
-// contraction branch.
+// kPasses: 128-row passes per CTA, 1 (S divides 128), 2 (S = 256) or 3
+// (S = 192). A compile-time count, so the one-pass kernel inlines the
+// field once: with a second inlined call, or a loop around it, nvcc keeps
+// less of it in registers and the kernel runs up to 1.8x slower.
+// kContract: the contraction branch.
 template <int kPasses, bool kContract>
 __global__ void __launch_bounds__(kThreads, 1) fused_ray_kernel(const Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -87,7 +89,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ray_kernel(const Params p) 
   bf16* hv;
   bf16* feat;
   field_forward<kContract>(f, t, ray0, n_valid, 0, Stash{}, &hv, &feat);
-  if (kPasses == 2) field_forward<kContract>(f, t, ray0, n_valid, kRows, Stash{}, &hv, &feat);
+  if (kPasses >= 2) field_forward<kContract>(f, t, ray0, n_valid, kRows, Stash{}, &hv, &feat);
+  if (kPasses >= 3)
+    field_forward<kContract>(f, t, ray0, n_valid, 2 * kRows, Stash{}, &hv, &feat);
 
   // ---- compositing: one sequential exclusive scan per ray, f32 ----
   if (tid < n_valid) {
@@ -149,9 +153,10 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
   p.sigma = static_cast<float*>(sigma);
 
   const size_t smem = smem_layout(p.f, false).total;
-  const bool two = p.f.rows > kRows;
-  auto kernel = two ? (contract ? fused_ray_kernel<2, true> : fused_ray_kernel<2, false>)
-                    : (contract ? fused_ray_kernel<1, true> : fused_ray_kernel<1, false>);
+  const int passes = p.f.rows / kRows;
+  auto kernel = passes == 3 ? (contract ? fused_ray_kernel<3, true> : fused_ray_kernel<3, false>)
+                : passes == 2 ? (contract ? fused_ray_kernel<2, true> : fused_ray_kernel<2, false>)
+                              : (contract ? fused_ray_kernel<1, true> : fused_ray_kernel<1, false>);
   rc = set_smem(kernel, smem);
   if (rc != 0) return rc;
   if (n_rays == 0) return 0;

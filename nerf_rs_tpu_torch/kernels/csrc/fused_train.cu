@@ -30,44 +30,52 @@
 // operations per sample row to them.
 //
 // IPE and long rays. The forward is K1's (field.cuh): IPE moments and the
-// damped encoding per row, and rays of S = 256 (the wrapper's pad of 129
-// to 256 samples) in two 128-row passes. The backward needs nothing new
-// for IPE: positions carry no gradient, and the first layer's dW uses the
-// stashed encoding A. A long ray's compositing VJP needs the whole ray,
-// so K2a runs every pass's forward, then the per-ray scans, then each
-// pass's backward from its stashes. Zero-length pad intervals have w = 0
-// and d sigma = da * 0 = 0, so every gradient row they give is exactly 0.
+// damped encoding per row, two rays of S = 192 (the wrapper's pad of 129
+// to 192 samples) in three 128-row passes, and one ray of S = 256 (193 to
+// 256) in two. The backward needs nothing new for IPE: positions carry no
+// gradient, and the first layer's dW uses the stashed encoding A. A long
+// ray's compositing VJP needs the whole ray, so K2a runs every pass's
+// forward, then the per-ray scans, then each pass's backward from its
+// stashes. Zero-length pad intervals have w = 0 and d sigma = da * 0 = 0,
+// so every gradient row they give is exactly 0.
 //
 // Why two kernels. The TPU kernel keeps a ray block's activations and the
 // dW accumulators in VMEM (120 MB). An H100 SM has 227 KB of shared
 // memory: at flagship width a 128-row tile's 8 x 128 x 256 bf16 post-relu
 // activations are 512 KB, and the dW accumulators ~600 k f32 (2.4 MB).
 // Neither fits on chip, so:
-//  * K2a (train_tile_kernel): one 16-warp CTA per 128-row tile of whole
-//    rays (two passes at S = 256), K1's layout and forward. It stashes each product's bf16 input
-//    (x, h_0..h_7, feat, hv, PE(d)) in global scratch, composites, takes
-//    the loss and its compositing VJP in f32 (one sequential scan per
-//    ray each way), then runs the backward through the heads and the
-//    trunk as mma.sync products with the transposed packed weights
-//    (kernels/fused_render.pack_weights_t), masking with the stashed
-//    activations (still in the 50 MB L2), and stashes every layer's bf16
-//    output gradient G_l.
-//  * K2b: dW_l = A_l^T G_l by a hand-written mma.sync reduction over rows
-//    (dw_partial_kernel; A^T and G fragments through ldmatrix.trans) and
-//    the bias sums db_l = sum_rows G_l (colsum_partial_kernel), both
-//    split over rows into per-split f32 partials that reduce_kernel sums
-//    in a fixed order. No float atomics: two calls on the same inputs
-//    give bit-identical gradients.
+//  * K2a (train_tile_kernel): one 16-warp CTA per tile of whole rays (one
+//    128-row pass, three at S = 192, two at S = 256), K1's layout and
+//    forward. After each layer's barrier it copies the layer's bf16 tile
+//    from shared memory to its global stash (x, h_0..h_7, feat, hv, PE(d):
+//    each product's A) with 16-byte evict-first stores, and keeps each
+//    relu's mask as bits (one __ballot_sync per 32 columns: 272 B per row
+//    at paper width, ~14 MB for a wave of 384-row CTAs, so they stay in the
+//    50 MB L2). It composites, takes the loss and its compositing VJP in
+//    f32 (one sequential scan per ray each way), then runs the backward
+//    through the heads and the trunk as mma.sync products with the
+//    transposed packed weights (kernels/fused_render.pack_weights_t),
+//    masking with the bits, and copies every layer's bf16 output gradient
+//    G_l to its stash the same way. No epilogue touches device memory.
+//  * K2b (dw_partial_kernel): dW_l = A_l^T G_l as a hand-written mma.sync
+//    reduction over rows, 128 x 128 tiles of 8 warps fed by a 3-stage
+//    cp.async ring of 32-row slices (A^T and G fragments through
+//    ldmatrix.trans), split over rows into per-split f32 partials that
+//    reduce_kernel sums in a fixed order. The blocks of a job's first
+//    m-tile also sum the staged G columns over their rows: the bias sums
+//    db_l = sum_rows G_l land in the same partials, so G is read once for
+//    them. No float atomics: two calls on the same inputs give
+//    bit-identical gradients.
 // At flagship size (4096 rays x 64 samples) the stashes are ~5 KB per
 // sample row each way, ~2.7 GB per call with the partials, on an 80 GB
-// card; the hierarchical fine pass (4096 x 256 padded rows) takes ~10.7 GB.
+// card; the hierarchical union pass (4096 x 192 rows) takes ~8.3 GB.
 //
 // What bounds each. K2a is tensor-core-bound at about 3x K1's FLOPs per
 // row (the forward, then the backward products through the heads and the
 // trunk, which reuse the same tile machinery). K2b is bound by reading
-// the stashes (each A is read once per 64-column tile of G, and each G
-// once per 64-row tile of A). Left for later: dW folded into K2a,
-// wgmma, TMA, and stashes that stay in L2.
+// the stashes (each A is read once per 128-column tile of G, and each G
+// once per 128-row tile of A). Left for later: weights staged in shared
+// memory, wgmma, TMA, dW folded into K2a.
 //
 // Numerics, mirrored by kernels/fused_train.fused_train_grads_reference:
 // bf16 operands with f32 products and sums; compositing, the loss and
@@ -102,6 +110,8 @@ struct TrainParams {
   bf16* gsf;                   // d rgb_raw (8)
   bf16* ghv;
   bf16* grgb;
+  uint32_t* mask;              // relu bits: (n_layers + 1) x rows_pad x mw words (field.cuh Stash)
+  int mw;
   float loss_scale;            // d loss / d (sum of squared residuals) = 1 / (3 N)
   int white_bg;
   float dist_scale;            // distortion-loss weight / N rays; 0: off
@@ -125,13 +135,13 @@ __device__ __forceinline__ void dist_coords(const TrainParams& p, float t, float
 }
 
 // g = bf16((acc [+ dsig[r] sigma_row[c]]) * [act > 0]) into the next
-// product's A buffer and the layer's G stash
+// product's A buffer; [act > 0] is the forward's relu bit (c is even, so
+// c and c + 1 share a word)
 struct GradStore {
   bf16* out;
   int ldo;
-  bf16* g;
-  int ldg;
-  const bf16* act;  // this layer's post-relu activations, row stride ldg
+  const uint32_t* mask;  // this layer's bits from the pass's first row, mw words a row
+  int mw;
   const float* dsig;
   const float* srow;
   __device__ void operator()(int r, int c, float v0, float v1) const {
@@ -139,26 +149,19 @@ struct GradStore {
       v0 = __fadd_rn(v0, __fmul_rn(dsig[r], srow[c]));
       v1 = __fadd_rn(v1, __fmul_rn(dsig[r], srow[c + 1]));
     }
-    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(act + r * ldg + c);
-    v0 = __low2float(a) > 0.f ? v0 : 0.f;
-    v1 = __high2float(a) > 0.f ? v1 : 0.f;
-    const __nv_bfloat162 gv = __floats2bfloat162_rn(v0, v1);
-    store_pair(out + r * ldo + c, gv);
-    store_pair(g + r * ldg + c, gv);
+    const uint32_t bits = mask[r * mw + (c >> 5)] >> (c & 31);
+    v0 = (bits & 1u) ? v0 : 0.f;
+    v1 = (bits & 2u) ? v1 : 0.f;
+    store_pair(out + r * ldo + c, __floats2bfloat162_rn(v0, v1));
   }
 };
 
-// dfeat rounded to bf16 into the next product's A buffer and the
-// [dfeat | dsigma] stash
-struct FeatGradStore {
+// dfeat rounded to bf16 into the next product's A buffer
+struct BfStore {
   bf16* out;
   int ldo;
-  bf16* g;
-  int ldg;
   __device__ void operator()(int r, int c, float v0, float v1) const {
-    const __nv_bfloat162 gv = __floats2bfloat162_rn(v0, v1);
-    store_pair(out + r * ldo + c, gv);
-    store_pair(g + r * ldg + c, gv);
+    store_pair(out + r * ldo + c, __floats2bfloat162_rn(v0, v1));
   }
 };
 
@@ -166,9 +169,10 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// kPasses: 128-row passes per CTA, 1 or 2, at compile time (see
-// fused_ray.cu: the one-pass kernel inlines the forward and the backward
-// once). kContract: the contraction branch, also at compile time.
+// kPasses: 128-row passes per CTA, 1, 2 (S = 256) or 3 (S = 192), at
+// compile time (see fused_ray.cu: the one-pass kernel inlines the forward
+// and the backward once). kContract: the contraction branch, also at
+// compile time.
 template <int kPasses, bool kContract>
 __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -190,12 +194,14 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
   auto stash = [&](int s0) {
     const long long r = row0 + s0;
     return Stash{p.sx + r * f.P, p.sh + r * W, hs, p.sfeat + r * F, p.shv + r * V,
-                 p.sdv + r * f.D};
+                 p.sdv + r * f.D, p.mask + r * p.mw, p.rows_pad * p.mw, p.mw};
   };
   bf16* hv;
   bf16* feat;
   field_forward<kContract>(f, t, ray0, n_valid, 0, stash(0), &hv, &feat);
-  if (kPasses == 2) field_forward<kContract>(f, t, ray0, n_valid, kRows, stash(kRows), &hv, &feat);
+  if (kPasses >= 2) field_forward<kContract>(f, t, ray0, n_valid, kRows, stash(kRows), &hv, &feat);
+  if (kPasses >= 3)
+    field_forward<kContract>(f, t, ray0, n_valid, 2 * kRows, stash(2 * kRows), &hv, &feat);
 
   // ---- per ray: compositing, loss and the compositing VJP, f32 ----
   // t.w holds the weights, t.sg the transmittance T; with the distortion
@@ -310,73 +316,75 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
 
   // ---- backward products, heads then trunk, pass by pass ----
   auto wt = [&](int i) { return reinterpret_cast<const uint2*>(p.wt + p.wt_off[i]); };
+  // each G leaves for its stash from the tile, after the product's barrier
   auto backward = [&](int s0) {
     const Stash st = stash(s0);
+    auto bits = [&](int l) { return st.mask + l * st.mask_stride; };
     bf16* gh = p.gh + (row0 + s0) * W;
-    bf16* ghv = p.ghv + (row0 + s0) * V;
     // g_hv = bf16((d rgb_raw @ rgb_w^T) [hv > 0]), over hv's buffer
-    dense_layer(t.drgb + s0 * kLdr, kLdr, 16, wt(L + 1), nullptr, 0, 0, nullptr, V,
-                GradStore{hv, f.ldb, ghv, V, st.hv, nullptr, nullptr});
+    dense_layer(t.drgb + s0 * kLdr, kLdr, 16, wt(L + 1), nullptr, 0, 0, nullptr, V, t.wring,
+                GradStore{hv, f.ldb, bits(L), st.mw, nullptr, nullptr});
     __syncthreads();
+    stash_rows(p.ghv + (row0 + s0) * V, V, hv, f.ldb, V);
     // dfeat = bf16(g_hv @ view_w^T), over feat's buffer
-    dense_layer(hv, f.ldb, V, wt(L), nullptr, 0, 0, nullptr, F,
-                FeatGradStore{feat, f.ldb, gsf + s0 * (F + 8), F + 8});
+    dense_layer(hv, f.ldb, V, wt(L), nullptr, 0, 0, nullptr, F, t.wring, BfStore{feat, f.ldb});
     __syncthreads();
+    stash_rows(gsf + s0 * (F + 8), F + 8, feat, f.ldb, F);
     // g_{L-1} = bf16((dfeat @ feat_w^T + dsigma sigma_row) [h_{L-1} > 0])
-    dense_layer(feat, f.ldb, F, wt(L - 1), nullptr, 0, 0, nullptr, W,
-                GradStore{hv, f.ldb, gh + (L - 1) * hs, W, st.h + (L - 1) * hs, t.dsig + s0,
-                          p.sigma_row});
+    dense_layer(feat, f.ldb, F, wt(L - 1), nullptr, 0, 0, nullptr, W, t.wring,
+                GradStore{hv, f.ldb, bits(L - 1), st.mw, t.dsig + s0, p.sigma_row});
     __syncthreads();
+    stash_rows(gh + (L - 1) * hs, W, hv, f.ldb, W);
     bf16* cur = hv;
     bf16* nxt = feat;
     for (int l = L - 1; l >= 1; --l) {  // g_{l-1} = bf16((g_l @ W_l^T) [h_{l-1} > 0])
-      dense_layer(cur, f.ldb, W, wt(l - 1), nullptr, 0, 0, nullptr, W,
-                  GradStore{nxt, f.ldb, gh + (l - 1) * hs, W, st.h + (l - 1) * hs, nullptr,
-                            nullptr});
+      dense_layer(cur, f.ldb, W, wt(l - 1), nullptr, 0, 0, nullptr, W, t.wring,
+                  GradStore{nxt, f.ldb, bits(l - 1), st.mw, nullptr, nullptr});
       __syncthreads();
+      stash_rows(gh + (l - 1) * hs, W, nxt, f.ldb, W);
       bf16* tmp = cur;
       cur = nxt;
       nxt = tmp;
     }
   };
   backward(0);
-  if (kPasses == 2) backward(kRows);
+  if (kPasses >= 2) backward(kRows);
+  if (kPasses >= 3) backward(2 * kRows);
 }
 
-// ---- K2b: dW = A^T G and db = sum_rows G, split over rows ----
+// ---- K2b: dW = A^T G over rows, the bias sums db = sum_rows G folded in ----
 
-constexpr int kBT = 64;  // dW tile: kBT x kBT, 4 warps of 32 x 32
-constexpr int kBK = 32;  // rows per step
+constexpr int kBT = 128;     // dW tile: kBT x kBT, 8 warps of 64 x 32
+constexpr int kBK = 32;      // rows per stage
+constexpr int kStages = 3;   // the cp.async ring
 constexpr int kLdt = kBT + 8;
-constexpr int kRedThreads = 128;
+constexpr int kStageElems = 2 * kBK * kLdt;  // A's rows, then G's
+constexpr size_t kRedSmem = sizeof(bf16) * kStages * kStageElems;  // 52,224 B
+constexpr int kRedThreads = 256;
 constexpr int kSplitRows = 8192;  // rows per split (at most kMaxSplits splits)
 constexpr int kMaxSplits = 128;   // 8,192 rows each up to 4096 rays x 256 samples
 
-struct Job {  // dW (K, N) = A^T G over the rows
+struct Job {  // dW (K, N) = A^T G over the rows; with bias_out >= 0 also db = sum_rows G
   const bf16* a;
   const bf16* g;
-  long long out;  // offset of the result in the flat gradient
+  long long out;       // offset of dW in the flat gradient
+  long long bias_out;  // offset of db in the flat gradient, or -1
+  int bias_col0;       // the first column of G whose sum is kept
   int K, N, tiles_n, tile0;
-};
-
-struct BiasJob {  // db (N,) = sum_rows G, G's rows ld apart
-  const bf16* g;
-  long long out;
-  int N, ld;
 };
 
 struct ReduceParams {
   Job jobs[kMaxMats];
-  BiasJob bias[kMaxMats];
-  int n_jobs, n_bias, n_bias_cols;
+  int n_jobs;
   long long rows, rows_per_split;
   long long total;  // elements of the flat gradient
   float* partial;   // (splits, total)
 };
 
-__global__ void __launch_bounds__(kRedThreads) dw_partial_kernel(const ReduceParams p) {
-  __shared__ __align__(16) bf16 as[kBK * kLdt];  // rows x 64 columns of A
-  __shared__ __align__(16) bf16 gs[kBK * kLdt];  // rows x 64 columns of G
+__global__ void __launch_bounds__(kRedThreads, 2) dw_partial_kernel(const ReduceParams p) {
+  extern __shared__ __align__(16) unsigned char red_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(red_smem);
+  __shared__ float upper[kBT];  // the bias sums of the stages' upper 16 rows
   int j = 0;
   while (j + 1 < p.n_jobs && p.jobs[j + 1].tile0 <= static_cast<int>(blockIdx.x)) ++j;
   const Job& job = p.jobs[j];
@@ -384,86 +392,103 @@ __global__ void __launch_bounds__(kRedThreads) dw_partial_kernel(const ReducePar
   const int m0 = (tile / job.tiles_n) * kBT, n0 = (tile % job.tiles_n) * kBT;
   const long long r_begin = blockIdx.y * p.rows_per_split;
   const long long r_end = min(p.rows, r_begin + p.rows_per_split);
+  const int steps = r_end > r_begin ? static_cast<int>((r_end - r_begin + kBK - 1) / kBK) : 0;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 32;
+  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
+  const bool busy = m0 + wm < job.K && n0 + wn < job.N;  // the warp's tile has real columns
+  const bool bias = m0 == 0 && job.bias_out >= 0;        // block-uniform
+  const int bc = tid % kBT, bh = tid / kBT;              // bias: column, half of the rows
 
-  float acc[2][4][4];
+  // one stage: kBK rows x kBT columns of A and of G, zeros past the edges
+  auto load = [&](int step) {
+    bf16* as = ring + (step % kStages) * kStageElems;
+    bf16* gs = as + kBK * kLdt;
+    const long long r = r_begin + static_cast<long long>(step) * kBK;
+    for (int i = tid; i < kBK * (kBT / 8); i += kRedThreads) {
+      const int row = i / (kBT / 8), c8 = (i % (kBT / 8)) * 8;
+      const long long gr = r + row;
+      const bool a_ok = gr < r_end && m0 + c8 < job.K;
+      const bool g_ok = gr < r_end && n0 + c8 < job.N;
+      cp_async16(as + row * kLdt + c8, a_ok ? job.a + gr * job.K + m0 + c8 : job.a, a_ok);
+      cp_async16(gs + row * kLdt + c8, g_ok ? job.g + gr * job.N + n0 + c8 : job.g, g_ok);
+    }
+  };
+
+  float acc[4][4][4];
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  float bsum = 0.f;
 
-  for (long long r = r_begin; r < r_end; r += kBK) {
-    for (int i = tid; i < kBK * 8; i += kRedThreads) {  // 16-byte vectors, zero past the edges
-      const int row = i >> 3, c8 = (i & 7) * 8;
-      const long long gr = r + row;
-      uint4 va = make_uint4(0, 0, 0, 0), vg = va;
-      if (gr < r_end) {
-        if (m0 + c8 < job.K) va = *reinterpret_cast<const uint4*>(job.a + gr * job.K + m0 + c8);
-        if (n0 + c8 < job.N) vg = *reinterpret_cast<const uint4*>(job.g + gr * job.N + n0 + c8);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) load(s);
+    cp_async_commit();
+  }
+  for (int step = 0; step < steps; ++step) {
+    cp_async_wait<kStages - 2>();  // this step's stage has landed (for this thread) ...
+    __syncthreads();               // ... and for all; the slot refilled below is free
+    if (step + kStages - 1 < steps) load(step + kStages - 1);
+    cp_async_commit();
+    const bf16* as = ring + (step % kStages) * kStageElems;
+    const bf16* gs = as + kBK * kLdt;
+    if (busy) {
+#pragma unroll
+      for (int ks = 0; ks < kBK; ks += 16) {
+        // A operand = A^T (m = A column, k = row): ldmatrix.trans of 8x8 blocks
+        // (rows k, columns m); lanes 8-15 take m + 8, lanes 16-31 k + 8
+        uint32_t a[4][4], b[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+          ldmatrix_x4_trans(a[mt], as + (ks + (lane & 7) + ((lane >> 4) << 3)) * kLdt + wm +
+                                       mt * 16 + ((lane >> 3) & 1) * 8);
+        // B operand = G (k = row, n = G column): lanes 8-15 take k + 8, lanes
+        // 16-31 the next n8 tile
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          ldmatrix_x4_trans(b[np], gs + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdt + wn +
+                                       np * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+            mma_16816(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
       }
-      *reinterpret_cast<uint4*>(as + row * kLdt + c8) = va;
-      *reinterpret_cast<uint4*>(gs + row * kLdt + c8) = vg;
     }
-    __syncthreads();
+    if (bias) {  // rows bh * 16 .. bh * 16 + 15 of the stage, in order
 #pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      // A operand = A^T (m = A column, k = row): ldmatrix.trans of 8x8 blocks
-      // (rows k, columns m); lanes 8-15 take m + 8, lanes 16-31 k + 8
-      uint32_t a[2][4], b[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4_trans(a[mt], as + (ks + (lane & 7) + ((lane >> 4) << 3)) * kLdt + wm +
-                                     mt * 16 + ((lane >> 3) & 1) * 8);
-      // B operand = G (k = row, n = G column): lanes 8-15 take k + 8, lanes
-      // 16-31 the next n8 tile
-#pragma unroll
-      for (int np = 0; np < 2; ++np)
-        ldmatrix_x4_trans(b[np], gs + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdt + wn +
-                                     np * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_16816(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
+      for (int k = 0; k < kBK / 2; ++k)
+        bsum += __bfloat162float(gs[(bh * (kBK / 2) + k) * kLdt + bc]);
     }
-    __syncthreads();
   }
 
-  float* out = p.partial + blockIdx.y * p.total + job.out;
-  const int g = lane >> 2, t4 = lane & 3;
+  float* out = p.partial + blockIdx.y * p.total;
+  if (busy) {
+    const int g = lane >> 2, t4 = lane & 3;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    for (int mt = 0; mt < 4; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+      for (int nt = 0; nt < 4; ++nt)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = m0 + wm + mt * 16 + g + 8 * h;
-        const int n = n0 + wn + nt * 8 + 2 * t4;
-        if (m < job.K) {
-          if (n < job.N) out[static_cast<long long>(m) * job.N + n] = acc[mt][nt][2 * h];
-          if (n + 1 < job.N) out[static_cast<long long>(m) * job.N + n + 1] = acc[mt][nt][2 * h + 1];
+        for (int h = 0; h < 2; ++h) {
+          const int m = m0 + wm + mt * 16 + g + 8 * h;
+          const int n = n0 + wn + nt * 8 + 2 * t4;
+          float* o = out + job.out + static_cast<long long>(m) * job.N + n;
+          if (m < job.K) {
+            if (n < job.N) o[0] = acc[mt][nt][2 * h];
+            if (n + 1 < job.N) o[1] = acc[mt][nt][2 * h + 1];
+          }
         }
-      }
-}
-
-__global__ void __launch_bounds__(kRedThreads) colsum_partial_kernel(const ReduceParams p) {
-  const int c = blockIdx.x * kRedThreads + threadIdx.x;
-  if (c >= p.n_bias_cols) return;
-  int j = 0, col = c;
-  while (col >= p.bias[j].N) col -= p.bias[j++].N;
-  const BiasJob& bj = p.bias[j];
-  const long long r_begin = blockIdx.y * p.rows_per_split;
-  const long long r_end = min(p.rows, r_begin + p.rows_per_split);
-  float s[4] = {0.f, 0.f, 0.f, 0.f};  // four independent chains, combined in a fixed order
-  long long r = r_begin;
-  for (; r + 4 <= r_end; r += 4)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) s[q] += __bfloat162float(bj.g[(r + q) * bj.ld + col]);
-  for (; r < r_end; ++r) s[0] += __bfloat162float(bj.g[r * bj.ld + col]);
-  p.partial[blockIdx.y * p.total + bj.out + col] = (s[0] + s[1]) + (s[2] + s[3]);
+  }
+  if (bias) {  // lower half + upper half, in that order
+    if (bh == 1) upper[bc] = bsum;
+    __syncthreads();
+    const int n = n0 + bc;
+    if (bh == 0 && n < job.N && n >= job.bias_col0) out[job.bias_out + n] = bsum + upper[bc];
+  }
 }
 
 __global__ void reduce_kernel(const float* partial, int splits, long long total, float* out) {
@@ -494,6 +519,7 @@ __global__ void feat_bias_kernel(const bf16* view_w, int F, int V, const float* 
 
 struct Scratch {
   bf16 *sx, *sh, *sfeat, *shv, *sdv, *gh, *gsf, *ghv, *grgb;
+  uint32_t* mask;
   float* partial;
   size_t bytes;
 };
@@ -502,6 +528,9 @@ long long splits_for(long long rows) {
   long long s = (rows + kSplitRows - 1) / kSplitRows;
   return s < 1 ? 1 : (s > kMaxSplits ? kMaxSplits : s);
 }
+
+// 32-bit words of relu bits per row: the widest masked layer's columns
+int mask_words(int W, int V) { return ((W > V ? W : V) + 31) / 32; }
 
 Scratch scratch_layout(unsigned char* base, long long rows_pad, long long rows, int L, int W,
                        int F, int V, int P, int D, long long total) {
@@ -521,6 +550,9 @@ Scratch scratch_layout(unsigned char* base, long long rows_pad, long long rows, 
   s.gsf = bf(rows_pad * (F + 8));
   s.ghv = bf(rows_pad * V);
   s.grgb = bf(rows_pad * 8);
+  s.mask = reinterpret_cast<uint32_t*>(base + at);
+  at += (static_cast<size_t>((L + 1) * rows_pad * mask_words(W, V)) * sizeof(uint32_t) + 255) &
+        ~static_cast<size_t>(255);
   s.partial = reinterpret_cast<float*>(base + at);
   at += static_cast<size_t>(splits_for(rows) * total) * sizeof(float);
   s.bytes = at;
@@ -529,7 +561,7 @@ Scratch scratch_layout(unsigned char* base, long long rows_pad, long long rows, 
 
 // rows of every stash: the CTAs' whole tiles (R rays of S samples each)
 long long rows_padded(long long n_rays, int S) {
-  const int rays = S <= kRows ? kRows / S : 1;
+  const int rays = rays_per_cta(S);
   return (n_rays + rays - 1) / rays * (rays * S);
 }
 
@@ -541,7 +573,7 @@ extern "C" {
 // gradient elements (packed matrices, then packed biases).
 long long nerf_fused_train_scratch_bytes(long long n_rays, int S, int depth_l, int W, int F,
                                          int V, int P, int D, long long total) {
-  if (S <= 0 || S > kMaxSamples || (S <= kRows ? kRows % S : S % kRows) != 0) return -1;
+  if (!takes_samples(S)) return -1;
   return static_cast<long long>(scratch_layout(nullptr, rows_padded(n_rays, S), n_rays * S,
                                                depth_l, W, F, V, P, D, total)
                                     .bytes);
@@ -592,6 +624,8 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   p.gsf = s.gsf;
   p.ghv = s.ghv;
   p.grgb = s.grgb;
+  p.mask = s.mask;
+  p.mw = mask_words(W, V);
   p.loss_scale = loss_scale;
   p.white_bg = white_bg;
   p.dist_scale = dist_scale;
@@ -600,10 +634,13 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   p.dist_disparity = dist_disparity;
 
   const size_t smem = smem_layout(p.f, true).total;
-  const bool two = p.f.rows > kRows;
-  auto tile = two ? (contract ? train_tile_kernel<2, true> : train_tile_kernel<2, false>)
-                  : (contract ? train_tile_kernel<1, true> : train_tile_kernel<1, false>);
+  const int passes = p.f.rows / kRows;
+  auto tile = passes == 3 ? (contract ? train_tile_kernel<3, true> : train_tile_kernel<3, false>)
+              : passes == 2 ? (contract ? train_tile_kernel<2, true> : train_tile_kernel<2, false>)
+                            : (contract ? train_tile_kernel<1, true> : train_tile_kernel<1, false>);
   rc = set_smem(tile, smem);
+  if (rc != 0) return rc;
+  rc = set_smem(dw_partial_kernel, kRedSmem);
   if (rc != 0) return rc;
   if (n_rays == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -618,11 +655,15 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   const bool skip_on = skip > 0 && skip < L;
   int tiles = 0;
   q.n_jobs = 0;
-  auto job = [&](const bf16* a, int K, const bf16* g, int N, long long out) {
+  // bias: the offset of db among the biases, or -1 where another job sums this G
+  auto job = [&](const bf16* a, int K, const bf16* g, int N, long long out, long long bias,
+                 int bias_col0) {
     Job& jb = q.jobs[q.n_jobs++];
     jb.a = a;
     jb.g = g;
     jb.out = out;
+    jb.bias_out = bias < 0 ? -1 : total_w + bias;
+    jb.bias_col0 = bias_col0;
     jb.K = K;
     jb.N = N;
     jb.tiles_n = (N + kBT - 1) / kBT;
@@ -630,36 +671,22 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
     tiles += ((K + kBT - 1) / kBT) * jb.tiles_n;
   };
   for (int l = 0; l < L; ++l)
-    job(l == 0 ? s.sx : s.sh + (l - 1) * hs, l == 0 ? P : W, s.gh + l * hs, W, w_off[l]);
-  if (skip_on) job(s.sx, P, s.gh + skip * hs, W, w_off[L]);
-  job(s.sh + (L - 1) * hs, W, s.gsf, F + 8, w_off[L + 1]);
-  job(s.sfeat, F, s.ghv, V, w_off[L + 2]);
-  job(s.sdv, D, s.ghv, V, w_off[L + 3]);
-  job(s.shv, V, s.grgb, 8, w_off[L + 4]);
-  q.n_bias = 0;
-  q.n_bias_cols = 0;
-  auto bias = [&](const bf16* g, int N, int ld, long long out) {
-    q.bias[q.n_bias++] = BiasJob{g, total_w + out, N, ld};
-    q.n_bias_cols += N;
-  };
-  for (int l = 0; l < L; ++l) bias(s.gh + l * hs, W, W, b_off[l]);
+    job(l == 0 ? s.sx : s.sh + (l - 1) * hs, l == 0 ? P : W, s.gh + l * hs, W, w_off[l],
+        b_off[l], 0);
+  if (skip_on) job(s.sx, P, s.gh + skip * hs, W, w_off[L], -1, 0);
   // the sigma block of [dfeat | dsigma | 0] only: no partial holds d feat_b,
   // which feat_bias_kernel writes over reduce_kernel's sum of those slots
-  bias(s.gsf + F, 8, F + 8, b_off[L] + F);
-  bias(s.ghv, V, V, b_off[L + 1]);
-  bias(s.grgb, 8, 8, b_off[L + 2]);
+  job(s.sh + (L - 1) * hs, W, s.gsf, F + 8, w_off[L + 1], b_off[L], F);
+  job(s.sfeat, F, s.ghv, V, w_off[L + 2], b_off[L + 1], 0);
+  job(s.sdv, D, s.ghv, V, w_off[L + 3], -1, 0);
+  job(s.shv, V, s.grgb, 8, w_off[L + 4], b_off[L + 2], 0);
   const long long splits = splits_for(rows);
   q.rows = rows;
   q.rows_per_split = (rows + splits - 1) / splits;
   q.total = total;
   q.partial = s.partial;
 
-  dw_partial_kernel<<<dim3(tiles, static_cast<unsigned>(splits)), kRedThreads, 0, st>>>(q);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  colsum_partial_kernel<<<dim3((q.n_bias_cols + kRedThreads - 1) / kRedThreads,
-                               static_cast<unsigned>(splits)),
-                          kRedThreads, 0, st>>>(q);
+  dw_partial_kernel<<<dim3(tiles, static_cast<unsigned>(splits)), kRedThreads, kRedSmem, st>>>(q);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   float* out = static_cast<float*>(grads);

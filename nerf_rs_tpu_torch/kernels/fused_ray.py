@@ -8,9 +8,10 @@ for CUDA tensors, and runs ``fused_ray_render_reference``, its plain
 PyTorch version, for CPU tensors. There is no other switch: on a CUDA
 tensor it launches the kernel or raises.
 
-Rays of 1 to 256 samples. The kernel takes whole rays in 128-row tiles,
-so the wrapper pads S to ``padded_samples(S)`` with zero-length
-intervals at the far end (``pad_samples``, the JAX wrappers' pad): such
+Rays of 1 to 256 samples. The kernel takes whole rays in 128-row passes
+(``cta_rows``: 128 / S rays per CTA up to 128 samples, two rays of 192 in
+three passes, one of 256 in two), so the wrapper pads S to
+``padded_samples(S)`` with zero-length intervals at the far end (``pad_samples``, the JAX wrappers' pad): such
 an interval has alpha = 1 - exp(-sigma * 0) = 0, so its weight is
 exactly 0, and the pads are trimmed from the weights and sigma. The
 plain version needs no pad. The pads repeat the last t, so 1/t (the
@@ -36,7 +37,7 @@ TILE_ROWS = 128  # sample rows per CTA pass (kRows in csrc/field.cuh)
 MAX_SAMPLES = 256  # samples per ray after padding (kMaxSamples)
 
 _SHAPE_ERRORS = {
-    -1: "padded num_samples must divide 128, or be 256",
+    -1: "padded num_samples must divide 128, or be 192 or 256",
     -2: "the packed weights do not match the kernel's layer list",
     -3: "layer widths and padded encodings must be multiples of 16",
     -4: "the encoding does not fit its padded width",
@@ -52,10 +53,28 @@ Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor
 
 def padded_samples(S: int) -> int:
     """The samples per ray the kernels run for S: the next power of two
-    up to 128 (a divisor of the tile), else the next multiple of 128."""
+    up to 128 (a divisor of the pass), 192 for 129 to 192 (two rays fill
+    three passes), else 256."""
     if S <= TILE_ROWS:
         return 1 << (S - 1).bit_length()
-    return -(-S // TILE_ROWS) * TILE_ROWS
+    return 192 if S <= 192 else MAX_SAMPLES
+
+
+def rays_per_cta(S: int) -> int:
+    """Whole rays a CTA takes at the padded S (csrc/field.cuh
+    ``rays_per_cta``): 128 / S, 2 at 192, 1 at 256."""
+    if S <= TILE_ROWS:
+        return TILE_ROWS // S
+    return 2 if S == 192 else 1
+
+
+def cta_rows(S: int) -> torch.Tensor:
+    """The CTA's row-to-ray mapping at the padded S, as the kernels walk
+    it: (passes, 128, 2) int64 of (ray within the CTA, sample) for each
+    128-row pass, CTA row s0 + r being ray (s0 + r) // S, sample (s0 + r)
+    % S. A pass may end one ray and start the next (S = 192's second)."""
+    rows = torch.arange(rays_per_cta(S) * S).reshape(-1, TILE_ROWS)
+    return torch.stack([rows // S, rows % S], dim=-1)
 
 
 def pad_samples(ts: torch.Tensor, deltas: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -94,9 +94,10 @@ def test_kernel_matches_plain_version(field, sigma_act, n, s):
         assert float((g - w).abs().max()) <= tol, name
 
 
-# (field, sigma, IPE, rays, samples): the IPE branch, and rays padded to
-# 256 samples (192: the hierarchical union pass; 193: the record preset's)
-# or to a power of two (48)
+# (field, sigma, IPE, rays, samples): the IPE branch, rays run as 192
+# samples, two a CTA in three passes (192: the hierarchical union pass;
+# 150 padded to 192), rays padded to 256 (193: the record preset's) or to a
+# power of two (48)
 BRANCH_CASES = [
     ({}, "softplus", True, 301, 64),
     (SMALL, "relu", True, 9, 128),
@@ -104,6 +105,7 @@ BRANCH_CASES = [
     ({}, "relu", False, 37, 192),
     (SMALL, "softplus", False, 6, 193),
     (SMALL, "relu", False, 11, 48),
+    ({}, "softplus", False, 4103, 150),
 ]
 
 
@@ -194,6 +196,36 @@ def test_train_kernel_is_deterministic(s, ipe):
     a = fused_train_grads(*args, radii=radii)
     b = fused_train_grads(*args, radii=radii)
     for x, y in zip((a.diag, a.weights, *a.dw, *a.db), (b.diag, b.weights, *b.dw, *b.db)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("s", [150, 191, 192])
+def test_union_rows_match_a_call_padded_to_256(s):
+    """K2 at S = 150, 191 and 192 (run as 192: two rays a CTA, three
+    passes) on 4,103 ragged rays at the flagship width: against the plain
+    version and the float64 witness, against the same samples padded to
+    256 (one ray a CTA, two passes) at KERNEL_TOL, and bit-identical across
+    two launches, K2b's folded bias sums among the outputs."""
+    dev = _device()
+    n = 4103
+    args, _ = _train_args({}, "relu", n, s, dev)
+    got = fused_train_grads(*args, white_bg=True)
+    torch.cuda.synchronize()
+    _check_train(got, args, True, None)
+    pk, pkt, o, d, vd, ts, dl, gold, cfg, _ = args
+    pad = 256 - s
+    wide = fused_train_grads(pk, pkt, o, d, vd, torch.cat([ts, ts[:, -1:].expand(-1, pad)], 1),
+                             torch.cat([dl, dl.new_zeros(n, pad)], 1), gold, cfg, 256,
+                             white_bg=True)
+    assert not wide.weights[:, s:].any()
+    assert float((got.diag[:, :6] - wide.diag[:, :6]).abs().max()) <= KERNEL_TOL["diag"]
+    assert float((got.weights - wide.weights[:, :s]).abs().max()) <= KERNEL_TOL["weights"]
+    for i, (g, w) in enumerate(zip(got.dw + got.db, wide.dw + wide.db)):
+        scale = max(float(w.abs().max()), 1e-12)
+        assert float((g - w).abs().max()) / scale <= KERNEL_TOL["grads"], i
+    again = fused_train_grads(*args, white_bg=True)
+    for x, y in zip((got.diag, got.weights, *got.dw, *got.db),
+                    (again.diag, again.weights, *again.dw, *again.db)):
         assert torch.equal(x, y)
 
 
@@ -384,6 +416,7 @@ UNBOUNDED_CASES = [
     ({}, "softplus", False, True, "disparity", 101, 64),
     (SMALL, "softplus", True, True, "disparity", 9, 192),
     (SMALL, "relu", False, True, "disparity", 6, 193),
+    (SMALL, "softplus", False, True, "disparity", 7, 150),
 ]
 
 

@@ -148,19 +148,21 @@ def test_train_kernel_reference_matches_jax(ipe, s, sigma_act):
                    jax.tree.map(np.asarray, jtrain.unpack_grads(tg, params, cfg)), 5e-4)
 
 
-@pytest.mark.parametrize("ipe,s", [(False, 193), (True, 192), (False, 48), (True, 5)])
+@pytest.mark.parametrize("ipe,s", [(False, 193), (True, 192), (False, 48), (True, 5),
+                                   (False, 150)])
 def test_zero_length_pad_changes_nothing(ipe, s):
     """The kernels' pad (zero-length intervals at the far end, up to a
-    power of two or to 256) leaves rgb, acc, depth, the loss and every
-    gradient leaf as they were, and the pads' weights are exactly 0: the
-    port's counterpart of tests/test_fused_train.py's unaligned-S tests."""
+    power of two, to 192 or to 256) leaves rgb, acc, depth, the loss and
+    every gradient leaf as they were, and the pads' weights are exactly 0:
+    the port's counterpart of tests/test_fused_train.py's unaligned-S
+    tests."""
     cfg = dataclasses.replace(MODEL, ipe=ipe, sigma_activation="softplus")
     _, model = _model(cfg, 7)
     rays, radii = _rays(N, s, 8, ipe)
     o, d, vd, ts, deltas, gold = map(_t, rays)
     tp, dp = pad_samples(ts, deltas)
     sp = padded_samples(s)
-    assert tp.shape == (N, sp) and sp in (8, 64, 256) and sp >= s
+    assert tp.shape == (N, sp) and sp in (8, 64, 192, 256) and sp >= s
     assert torch.equal(tp[:, :s], ts) and not dp[:, s:].any()
     pk = fused_render.pack_weights(model, cfg)
     a = fused_ray_render_reference(pk, o, d, vd, ts, deltas, cfg, s, _t(radii))
