@@ -5,13 +5,17 @@
 Phases, each fatal (any failure exits non-zero):
   1. device: a CUDA card must be present; prints nvidia-smi's name and
      power limit. Without a card the script exits 1 and prints no result.
-  2. build: compiles the whole-ray render kernel (K1) and train kernel
-     (K2) from nerf_rs_tpu_torch/kernels/csrc/ with nvcc for sm_90a, both
-     at once; prints build seconds and ptxas' registers, spills and shared
-     memory of every kernel instance.
+  2. build: compiles the whole-ray render kernel (K1), the train kernel
+     (K2), K3 and K4 from nerf_rs_tpu_torch/kernels/csrc/ with nvcc for
+     sm_90a, all at once; prints build seconds and ptxas' registers, spills
+     and shared memory of every kernel instance, and which instances ptxas
+     left with serialized wgmma (K1's instance for widths other than the
+     paper's).
   3. K1 vs its plain PyTorch version at the flagship width (8x256 trunk,
      skip 4, F 256, V 128, PE 10/4, S 64) on 4,103 rays of two poses,
-     with midpoint and jittered samples, relu and softplus sigma.
+     with midpoint and jittered samples, relu and softplus sigma. The
+     seed-0 weights' biases are drawn at random (random_biases_), for
+     this and every later check of this model.
   4. K2 vs its plain version on the same rays with sphere gold and
      jittered samples (relu, relu on white, softplus on white), and vs
      the plain version's float64 witness (the same bf16 rounding points,
@@ -78,7 +82,8 @@ Phases, each fatal (any failure exits non-zero):
      jittered samples, every 8th point past the AABB) captured from the
      encodes: gather_rows on the (131,072, 128) brick table at a sub-chunk's
      2,097,152 rows, at a ragged N and with repeated rows; gather_pairs on
-     the flat table at the step's 67,108,864 pairs.
+     the flat table at the step's 67,108,864 pairs, and once more under
+     torch.cuda.set_sync_debug_mode("error") (no host synchronisation).
  16. the hash-grid path through the CLI, for `--preset ngp` (brick) and
      with `--hash_brick false` (flat): `train` for NGP_STEPS steps at full
      width (4 gather_rows or 1 gather_pairs per step, and the eval at step
@@ -128,7 +133,9 @@ ptxas' report of every K1 and K2 instance, the flagship train step through
 K2, autograd and the plain version, one flagship K2 call and K1 chunk,
 every K1 and K2 call of phases 11 and 20 (K2 at S = 192 with 4096 rays
 among them) beside its library path, each K2 call's device time split by
-kernel, and the hierarchical train step through K2 and autograd.
+kernel, and the hierarchical train step through K2 and autograd. Each K1
+call also prints the bytes of weights that it must read from L2 by the
+kernel's design and the rate that implies: modelled, not measured.
 
     python3 chip_smoke.py --learn PRESET SEEDS [FLAG ...]
 
@@ -367,11 +374,12 @@ def event_ms(fn, reps: int = 3) -> float:
     return best
 
 
-def ptxas_report(name: str, lib) -> None:
+def ptxas_report(name: str, lib) -> list:
     """One line per kernel of a built library from its ptxas log
     (kernels/build.py keeps it): registers, spill stores and loads, and
-    static shared memory."""
-    entry, spills = None, ""
+    static shared memory, and whether ptxas serialized its wgmma. Returns
+    the instances' names."""
+    entry, spills, names, serial = None, "", [], set()
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
@@ -380,6 +388,11 @@ def ptxas_report(name: str, lib) -> None:
             entry = (k.group(1) if k else m.group(1)) + (f"<{','.join(args)}>" if args else "")
             spills = ""
             continue
+        m = re.search(r"wgmma.mma_async instructions are serialized due to (.*) in the function "
+                      r"'\S*?([a-z][a-z_]*kernel)I(.*?)EEvN", line)
+        if m:
+            args = re.findall(r"L[a-z](\d+)E", m.group(3) + "E")
+            serial.add(f"{m.group(2)}<{','.join(args)}>")
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and entry:
             spills = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
@@ -387,8 +400,11 @@ def ptxas_report(name: str, lib) -> None:
         if m and entry:
             smem = re.search(r"(\d+) bytes smem", line)
             print(f"ptxas [{name}] {entry}: {m.group(1)} registers, {spills or 'no spills'}, "
-                  f"static smem {smem.group(1) if smem else 0} B")
+                  f"static smem {smem.group(1) if smem else 0} B"
+                  + (", wgmma serialized" if entry in serial else ""))
+            names.append(entry)
             entry = None
+    return names
 
 
 def run_cli(argv) -> tuple:
@@ -740,6 +756,23 @@ def torch_generator(dev, seed):
     import torch
 
     return torch.Generator(device=dev).manual_seed(seed)
+
+
+def random_biases_(model, seed: int, scale: float = 0.1):
+    """Every bias of ``model`` (its parameters named ``b``) drawn from
+    N(0, scale^2) with numpy from ``seed``, in place: init_nerf_params'
+    biases are all zero, and a kernel that left one out would still agree
+    with its plain version on them."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] == "b":
+                p.copy_(torch.from_numpy(rng.normal(0.0, scale, tuple(p.shape))
+                                         .astype(np.float32)))
+    return model
 
 
 def branch_cfg(mcfg, name, ipe):
@@ -1103,6 +1136,8 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
         row = {"kernel": kernel, "case": name, "rays": n, "samples": s, "max_abs_err": err,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b,
                "bound_by": by}
+        if kernel == "K1":
+            wbytes, rate = k1_weight_traffic(pk, n, s, ms)
         if kernel == "K2":  # the stashes and dW partials of one call; the split by kernel
             row["scratch_bytes"] = fused_train._library().nerf_fused_train_scratch_bytes(
                 n, padded_samples(s), pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D,
@@ -1119,6 +1154,8 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
         print(f"{kernel} {name}, {n} rays [{card}]: kernel {ms:.3f} ms, plain {plain_txt}, "
               f"library {library_ms:.3f} ms, bound {b:.3f} ms ({by}), "
               f"{flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s"
+              + (f", weights from L2 (modelled) {wbytes / 1e9:.1f} GB, {rate / 1e12:.2f} TB/s"
+                 if kernel == "K1" else "")
               + (f", scratch {row['scratch_bytes'] / 1e9:.3f} GB; device time by kernel: "
                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(row["split_ms"].items(),
                                                                key=lambda kv: -kv[1]))
@@ -1180,10 +1217,10 @@ def preset_steps(card: str, preset: str, profiled: bool) -> dict:
 def time_presets(card: str, presets=PRESETS, profiled=("hierarchical",)) -> dict:
     """Each preset's step (4096 rays; the hierarchical presets' 64 + 128
     samples, or the proposal presets' main samples) through K2 and through
-    autograd, its 800x800 frame through K1 (its first rays checked against
-    the plain version, pass by pass: under a proposal the one main pass,
-    on samples both routes draw alike), and a profile of the K2 step of
-    the presets in ``profiled``."""
+    autograd, its 800x800 frame through K1 from seed-0 weights with random
+    biases (its first rays checked against the plain version, pass by
+    pass: under a proposal the one main pass, on samples both routes draw
+    alike), and a profile of the K2 step of the presets in ``profiled``."""
     import torch
 
     from nerf_rs_tpu_torch.data.factory import make_dataset
@@ -1200,6 +1237,9 @@ def time_presets(card: str, presets=PRESETS, profiled=("hierarchical",)) -> dict
         fds = make_dataset(fcfg, dev)
         fo, fd = (a.reshape(-1, 3) for a in fds.view_rays(0))
         st = init_state(fcfg, dev)
+        random_biases_(st.params, 3)
+        if st.fine_params is not None:
+            random_biases_(st.fine_params, 4)
         render_fn = make_render(fcfg)
         frame = lambda: render_fn(st.params, fo, fd, fine_params=st.fine_params)  # noqa: E731
         if not bool(torch.isfinite(frame()[0]).all()):
@@ -1273,10 +1313,29 @@ def time_chunk(card: str, packed, mcfg, cam, flat_o, flat_d) -> dict:
     plain_ms = event_ms(plain_chunk)
     # every packed matrix multiplies each sample row once
     flops_row = 2 * sum(k * c for k, c in packed.w_shape)
+    wbytes, rate = k1_weight_traffic(packed, n, s, ms)
     print(f"one {n}-ray chunk [{card}]: kernel {ms:.3f} ms "
           f"(~{flops_row * n * s / (ms * 1e-3) / 1e12:.1f} TFLOP/s bf16), "
-          f"plain {plain_ms:.3f} ms")
+          f"plain {plain_ms:.3f} ms; weights from L2 (modelled) {wbytes / 1e9:.1f} GB a call, "
+          f"{rate / 1e12:.2f} TB/s")
     return {"ms": ms, "plain_ms": plain_ms, "inputs": (co, cd, cvd, ts, dl)}
+
+
+def k1_weight_traffic(packed, n: int, s: int, ms: float) -> tuple:
+    """The bytes of K1's weights that leave L2 for one call of n rays of
+    s samples, and the rate that implies at ms, as the kernel's design has
+    them (a model: no counter reads them): every CTA pass of 128 rows reads
+    them once, and the CTAs of a cluster (kernels/fused_ray.K1_CLUSTER; a
+    checkout without it shares nothing) share each read."""
+    from nerf_rs_tpu_torch.kernels import fused_ray
+
+    sp = fused_ray.padded_samples(s)
+    R = fused_ray.rays_per_cta(sp)
+    passes = -(-n // R) * R * sp / fused_ray.TILE_ROWS
+    k1 = getattr(packed, "k1", None)
+    wbytes = 2 * (k1.w.numel() if k1 is not None else packed.w.numel())
+    nbytes = passes * wbytes / getattr(fused_ray, "K1_CLUSTER", 1)
+    return nbytes, nbytes / (ms * 1e-3)
 
 
 def library_times(card: str, model, mcfg, co, cd, cvd, ts, dl) -> dict:
@@ -1786,6 +1845,14 @@ def check_gather_kernel(inputs) -> float:
             fail(f"K4 {kernel} [{name}] differs from its plain version")
         worst = max(worst, err)
         del got, want
+    try:  # the wrapper reads nothing on the host: no synchronisation in the call
+        torch.cuda.set_sync_debug_mode("error")
+        k4.gather_pairs(flat, fidx)
+    except RuntimeError as e:
+        fail(f"K4 gather_pairs synchronises with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("K4 gather_pairs under torch.cuda.set_sync_debug_mode('error'): no host sync")
     return worst
 
 
@@ -1989,8 +2056,8 @@ def time_gather(card: str, inputs) -> dict:
     gather_pairs) and its bound: the bytes these indices need (each
     distinct row or pair read once, the indices read, the output written)
     over the memory rate. Each time is per call, over a CUDA-event window
-    of GATHER_CALLS calls: the wrapper's (gather_pairs' includes its
-    evenness check), and the kernel's own device time from a profile."""
+    of GATHER_CALLS calls: the wrapper's (neither wrapper reads the
+    indices on the host), and the kernel's own device time from a profile."""
     import torch
 
     from nerf_rs_tpu_torch.kernels import gather_rows as k4
@@ -2359,7 +2426,8 @@ def time_step(root: str) -> int:
     model = init_nerf_params(mcfg, 0, dev)
     cfg, fo, fd = frame_rays(dev)
     flat_o, flat_d = fo.reshape(-1, 3), fd.reshape(-1, 3)
-    time_chunk(card, pack_weights(model, mcfg), mcfg, cfg.camera, flat_o, flat_d)
+    packed = pack_weights(model, mcfg)
+    time_chunk(card, packed, mcfg, cfg.camera, flat_o, flat_d)
     time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d, BRANCH_SHAPES + UNB_SHAPES,
                   plain_too=False)
     preset_steps(card, "hierarchical", profiled=True)
@@ -2397,13 +2465,14 @@ def main() -> int:
     with ThreadPoolExecutor(len(KERNELS)) as pool:
         libs = dict(zip(KERNELS, pool.map(build.build, KERNELS)))
     print(f"build: {time.perf_counter() - t0:.1f} s for {', '.join(KERNELS)}")
+    instances = {}
     for name, lib in libs.items():
         print(f"  {name} -> {lib.name}")
-        ptxas_report(name, lib)
+        instances[name] = ptxas_report(name, lib)
 
     # ---- 3. kernel vs plain version ----
     mcfg = ModelConfig()  # flagship: 8x256, skip 4, F 256, V 128, PE 10/4
-    model = init_nerf_params(mcfg, 0, dev)
+    model = random_biases_(init_nerf_params(mcfg, 0, dev), 0)
     packed = pack_weights(model, mcfg)
     cam = CameraConfig(width=64, height=64)
     poses = rays_ops.pose_from_yaw_pitch(
@@ -2630,6 +2699,7 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": library["fused_ray_render"],
+        "instances": instances["fused_ray"],
         "branches": [r for r in branch_rows + unb_rows if r["kernel"] == "K1"],
     }, {
         "name": "fused_train_grads",

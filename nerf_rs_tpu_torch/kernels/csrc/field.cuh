@@ -1,7 +1,10 @@
-// Device code shared by the whole-ray kernels: the render kernel K1
-// (fused_ray.cu) and the training kernel K2 (fused_train.cu).
+// Device code of the whole-ray kernels. The training kernel K2
+// (fused_train.cu) runs all of it; the render kernel K1 (fused_ray.cu, on
+// wgmma: field_wgmma.cuh) takes only the field's description
+// (Field, init_field, takes_samples, rays_per_cta), the encodings, the IPE
+// moments, the contraction and set_smem.
 //
-// Both evaluate the paper field on a CTA tile of 128 sample rows: PE (or
+// K2 evaluates the paper field on a CTA tile of 128 sample rows: PE (or
 // mip-NeRF's integrated encoding, IPE) of the points and view directions
 // into bf16 tiles in shared memory, then every layer as bf16 x bf16 -> f32
 // tensor-core products (mma.sync.m16n8k16) whose epilogues run in

@@ -6,6 +6,7 @@
 // reaches the same pallas_call):
 //   gather_rows   out[i, :] = table[idx[i], :]        (R, W) f32, W % 4 == 0
 //   gather_pairs  out[i, :] = table[fidx[i] + {0, 1}]  (M,) f32, fidx even
+//                 (an odd fidx gives a NaN pair, as one outside the table)
 // They are the hash-grid field's table fetch: the brick layout's one 512 B
 // row per (point, level), and the flat layout's F = 2 feature pair per
 // (point, level, corner) (nerf_rs_tpu_torch/models/hashgrid.py).
@@ -25,8 +26,12 @@
 //     row is one coalesced 512 B load and one 512 B store (wider rows loop).
 //     Every lane reads the row's index (one broadcast load). A grid-stride
 //     loop over the rows, with the grid capped at what the SMs hold at once.
-//   * gather_pairs: one thread per pair, one aligned 8 B float2 load (the
-//     index is even and the table 8 B aligned), so a pair costs one sector.
+//   * gather_pairs: bytes per pair are 4 B of index in, 8 B of table, 8 B
+//     out; a thread takes four pairs per step with one 16 B index load, four
+//     independent aligned 8 B float2 loads in flight (a pair costs one
+//     sector) and two 16 B stores, the streamed indices and output with the
+//     evict-first hint so the table's hot entries keep L2. No check on the
+//     host: the wrapper never reads the indices (an odd one gives NaN).
 // The table is read through the read-only path (__ldg). An index outside the
 // table is never read: its row or pair is written as NaN, as the wrapper's
 // plain version writes it.
@@ -100,17 +105,36 @@ gather_rows_kernel(const float4* __restrict__ table, const int* __restrict__ idx
   }
 }
 
+// One pair, or NaNs for an index outside the table or an odd one (a pair
+// starts on an even element).
+__device__ __forceinline__ float2 pair_at(const float* __restrict__ table, long long m, int f) {
+  return (f < 0 || f + 1LL >= m || (f & 1)) ? make_float2(NAN, NAN)
+                                           : __ldg(reinterpret_cast<const float2*>(table + f));
+}
+
+// Four pairs a thread per step: one 16 B index load, four independent 8 B
+// table loads in flight, two 16 B stores. The indices and the output
+// stream through once, so they are read and written with the evict-first
+// hint (__ldcs / __stcs) and leave the table's hot entries in L2. The last
+// n % 4 pairs take the scalar loop. fidx is 16 B aligned (the wrapper
+// checks); out is a fresh allocation.
 __global__ void __launch_bounds__(kThreads)
 gather_pairs_kernel(const float* __restrict__ table, long long m, const int* __restrict__ fidx,
                     float2* __restrict__ out, long long n) {
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
-       i += stride) {
-    const long long f = __ldg(fidx + i);
-    out[i] = (f < 0 || f + 1 >= m || (f & 1))
-                 ? make_float2(NAN, NAN)
-                 : __ldg(reinterpret_cast<const float2*>(table + f));
+  const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long n4 = n >> 2;
+  const int4* idx4 = reinterpret_cast<const int4*>(fidx);
+  float4* out4 = reinterpret_cast<float4*>(out);
+  for (long long i = first; i < n4; i += stride) {
+    const int4 f = __ldcs(idx4 + i);
+    const float2 a = pair_at(table, m, f.x), b = pair_at(table, m, f.y);
+    const float2 c = pair_at(table, m, f.z), d = pair_at(table, m, f.w);
+    __stcs(out4 + 2 * i, make_float4(a.x, a.y, b.x, b.y));
+    __stcs(out4 + 2 * i + 1, make_float4(c.x, c.y, d.x, d.y));
   }
+  for (long long i = 4 * n4 + first; i < n; i += stride)
+    __stcs(out + i, pair_at(table, m, __ldcs(fidx + i)));
 }
 
 // flat rows: a thread per (chunk, column), the chunk's fetches in order
@@ -213,12 +237,13 @@ int nerf_gather_rows(const void* table, const void* idx, void* out, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// table (m,) f32 with an 8 B aligned base; fidx (n,) int32, even; out (n, 2)
-// f32. Returns 0 or a cudaError_t.
+// table (m,) f32 with an 8 B aligned base; fidx (n,) int32 with a 16 B
+// aligned base; out (n, 2) f32, NaN pairs for odd or outside indices.
+// Returns 0 or a cudaError_t.
 int nerf_gather_pairs(const void* table, long long m, const void* fidx, void* out, long long n,
                       void* stream) {
   if (n <= 0) return 0;
-  gather_pairs_kernel<<<grid_for(n, kThreads), kThreads, 0,
+  gather_pairs_kernel<<<grid_for((n + 3) / 4, kThreads), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(table), m, static_cast<const int*>(fidx),
       static_cast<float2*>(out), n);

@@ -10,7 +10,11 @@ tensor it launches the kernel or raises.
 
 Rays of 1 to 256 samples. The kernel takes whole rays in 128-row passes
 (``cta_rows``: 128 / S rays per CTA up to 128 samples, two rays of 192 in
-three passes, one of 256 in two), so the wrapper pads S to
+three passes, one of 256 in two) as tiles of persistent CTAs, in clusters of
+``K1_CLUSTER`` that share every weight slice (``k1_cta_rays`` mirrors the
+grid), and
+multiplies by the weights in its own layout (``PackedWeights.k1``). So the
+wrapper pads S to
 ``padded_samples(S)`` with zero-length intervals at the far end (``pad_samples``, the JAX wrappers' pad): such
 an interval has alpha = 1 - exp(-sigma * 0) = 0, so its weight is
 exactly 0, and the pads are trimmed from the weights and sigma. The
@@ -35,13 +39,14 @@ from .fused_render import (PackedWeights, contract_gaussian, contract_points, ip
 _SIGMA_ACT = {"relu": 0, "softplus": 1}
 TILE_ROWS = 128  # sample rows per CTA pass (kRows in csrc/field.cuh)
 MAX_SAMPLES = 256  # samples per ray after padding (kMaxSamples)
+K1_CLUSTER = 2  # K1's CTAs per cluster, each weight slice shared (kCluster in csrc/fused_ray.cu)
 
 _SHAPE_ERRORS = {
     -1: "padded num_samples must divide 128, or be 192 or 256",
     -2: "the packed weights do not match the kernel's layer list",
     -3: "layer widths and padded encodings must be multiples of 16",
     -4: "the encoding does not fit its padded width",
-    -5: "the layer widths need more shared memory than a CTA has",
+    -5: "the layer widths need more shared memory than a CTA has (K1: widths up to 256)",
     -6: "sigma_activation must be relu or softplus",
     -7: "radii must come with cfg.ipe and only with it",
     -8: "contract must be 0 or 1",
@@ -75,6 +80,30 @@ def cta_rows(S: int) -> torch.Tensor:
     % S. A pass may end one ray and start the next (S = 192's second)."""
     rows = torch.arange(rays_per_cta(S) * S).reshape(-1, TILE_ROWS)
     return torch.stack([rows // S, rows % S], dim=-1)
+
+
+def k1_grid(n_rays: int, S: int, clusters: int) -> Tuple[int, int]:
+    """K1's persistent grid for n_rays rays at the padded S when the card
+    holds ``clusters`` clusters at once (cudaOccupancyMaxActiveClusters in
+    csrc/fused_ray.cu): (CTAs, tiles each CTA takes). A tile is the
+    rays_per_cta(S) rays a CTA takes at a time; the grid is whole clusters,
+    no more than the tiles need."""
+    tiles = -(-n_rays // rays_per_cta(S))
+    grid = min(-(-tiles // K1_CLUSTER), clusters) * K1_CLUSTER
+    return grid, -(-tiles // grid)
+
+
+def k1_cta_rays(n_rays: int, S: int, clusters: int) -> torch.Tensor:
+    """K1's grid as it maps rays: (CTAs, iterations, rays_per_cta) int64;
+    CTA b's k-th tile is tile b + k CTAs, whose whole rays are R t .. R t +
+    R - 1, -1 past the last ray (such a tile runs on zero rows and stores
+    nothing). Every CTA, and so both CTAs of a cluster, runs the same
+    number of tiles."""
+    R = rays_per_cta(S)
+    grid, iters = k1_grid(n_rays, S, clusters)
+    tile = torch.arange(grid)[:, None] + torch.arange(iters)[None, :] * grid
+    rays = tile[:, :, None] * R + torch.arange(R)
+    return torch.where(rays < n_rays, rays, -1)
 
 
 def pad_samples(ts: torch.Tensor, deltas: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -175,14 +204,15 @@ def fused_ray_render(
     w = torch.empty(n, S, device=dev)
     sigma = torch.empty(n, S, device=dev)
     lib = _library()
-    w_off = (ctypes.c_longlong * len(packed.w_off))(*packed.w_off)
+    k1 = packed.k1
+    w_off = (ctypes.c_longlong * len(k1.w_off))(*k1.w_off)
     b_off = (ctypes.c_longlong * len(packed.b_off))(*packed.b_off)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.nerf_fused_ray_render(
         origins.data_ptr(), dirs.data_ptr(), viewdirs.data_ptr(), ts_p.data_ptr(),
         dl_p.data_ptr(), None if radii is None else radii.data_ptr(),
-        packed.w.data_ptr(), packed.b.data_ptr(),
-        w_off, len(packed.w_off), b_off, len(packed.b_off),
+        k1.w.data_ptr(), packed.b.data_ptr(), k1.b.data_ptr(),
+        w_off, len(k1.w_off), b_off, len(packed.b_off),
         rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), w.data_ptr(),
         sigma.data_ptr(), n, S, packed.depth, packed.skip_layer, packed.W,
         packed.F, packed.V, packed.P, packed.D, packed.pos_levels,
@@ -209,7 +239,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = (
-            [vp] * 8
+            [vp] * 9
             + [ctypes.POINTER(i64), i32, ctypes.POINTER(i64), i32]
             + [vp] * 5
             + [i64] + [i32] * 13

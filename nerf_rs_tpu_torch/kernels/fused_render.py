@@ -3,11 +3,10 @@ mip-NeRF's conical-frustum moments with the integrated encoding, each
 after mip-NeRF 360's contraction when the config asks for it), the
 counterpart of ``nerf_rs_tpu/kernels/fused_render.py``.
 
-The CUDA kernels (``csrc/fused_ray.cu``, ``csrc/fused_train.cu``, sharing
-``csrc/field.cuh``) multiply with
-``mma.sync.m16n8k16`` bf16 tensor-core instructions. ``pack_weights``
-lays every matrix out so that each warp reads its B fragments as one
-coalesced 8-byte load per lane:
+The train kernel K2 (``csrc/fused_train.cu`` with ``csrc/field.cuh``)
+multiplies with ``mma.sync.m16n8k16`` bf16 tensor-core instructions.
+``pack_weights`` lays every matrix out so that each warp reads its B
+fragments as one coalesced 8-byte load per lane:
 
     for each 8-column n-tile, for each 16-row k-step, for each lane
     (g = lane // 4, t = lane % 4): the bf16 pairs
@@ -23,10 +22,26 @@ As in the JAX packing, the skip layer's weight splits in two: rows
 [:W] multiply the hidden state and rows [W:] (the encoded input) become
 ``skip_w``. ``pack_weights_t`` packs the transposed matrices the train
 kernel's backward multiplies by, in the same layout.
+
+The render kernel K1 multiplies with ``wgmma`` and reads its weights from
+a ring that bulk copies fill (``csrc/field_wgmma.cuh``), so it has a layout
+of its own, ``pack_weights_k1`` (``PackedWeights.k1``, built once per packed
+field on first use): each (K, N) matrix transposed to K-major 8 x 8 core
+matrices, k group outermost,
+
+    for each 8-row k group kg, for each 8-column group ng, for each column
+    8 ng + nr, for each row 8 kg + kr: W[8 kg + kr, 8 ng + nr]
+
+so every k-slice is one contiguous run of bytes, laid out in shared memory
+as the wgmma descriptors read it. A product's width is a compile-time wgmma
+shape, so each matrix's columns are padded with zeros to the next power of
+two from 16 (``k1_width``; the rgb head keeps its 8, and [feature | sigma]
+pads the feature block, sigma's 8 columns after it): no preset pads.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List, Tuple
 
@@ -130,6 +145,12 @@ class PackedWeights:
         ends = list(self.b_off[1:]) + [self.b.numel()]
         return [self.b[o:e] for o, e in zip(self.b_off, ends)]
 
+    @functools.cached_property
+    def k1(self) -> "PackedK1":
+        """The same matrices in the render kernel's layout, packed on first
+        use (``pack_weights_k1``)."""
+        return pack_weights_k1(self)
+
 
 def _swizzle(w: torch.Tensor) -> torch.Tensor:
     """(K, N) -> flat bf16 in the kernel's fragment order. K % 16 == 0,
@@ -144,6 +165,90 @@ def _unswizzle(flat: torch.Tensor, k: int, n: int) -> torch.Tensor:
     """Inverse of ``_swizzle``."""
     v = flat.reshape(n // 8, k // 16, 8, 4, 2, 2)
     return v.permute(1, 4, 3, 5, 0, 2).reshape(k, n)
+
+
+def _core_k_major(w: torch.Tensor) -> torch.Tensor:
+    """(K, N) -> flat bf16 in K1's order (module note): index (kg, ng, nr,
+    kr) of the view below is W[8 kg + kr, 8 ng + nr]. K % 16 == 0, N % 8
+    == 0."""
+    k, n = w.shape
+    return w.to(torch.bfloat16).reshape(k // 8, 8, n // 8, 8).permute(0, 2, 3, 1).reshape(-1)
+
+
+def _uncore_k_major(flat: torch.Tensor, k: int, n: int) -> torch.Tensor:
+    """Inverse of ``_core_k_major``."""
+    return flat.reshape(k // 8, n // 8, 8, 8).permute(0, 3, 1, 2).reshape(k, n)
+
+
+def k1_width(n: int) -> int:
+    """K1's product width for n columns: the next power of two from 16
+    (csrc/fused_ray.cu ``padded_width``)."""
+    return max(16, 1 << (n - 1).bit_length())
+
+
+@dataclass(frozen=True)
+class PackedK1:
+    """The render kernel's weights: ``PackedWeights``' matrices in kernel
+    order, each with its columns padded (``k1_width``) and in K1's K-major
+    core-matrix layout (module note), in one flat bf16 buffer; and the
+    trunk's, feature's and view head's biases in the order its epilogues
+    read them (``_fragment_order``)."""
+
+    w: torch.Tensor
+    b: torch.Tensor  # f32: trunk[0..depth) (W each), feature (F), view (V)
+    w_off: Tuple[int, ...]
+    w_shape: Tuple[Tuple[int, int], ...]  # (K, padded N) of each matrix
+    shape: Tuple[Tuple[int, int], ...]  # (K, N) as PackedWeights has it
+    sf: int  # the [feature | sigma] matrix's index
+    F: int  # feature width
+
+    def padded_matrices(self) -> List[torch.Tensor]:
+        """The (K, padded N) bf16 matrices as the kernel multiplies them."""
+        return [_uncore_k_major(self.w[o:o + k * n], k, n)
+                for o, (k, n) in zip(self.w_off, self.w_shape)]
+
+    def matrices(self) -> List[torch.Tensor]:
+        """The (K, N) bf16 matrices in kernel order, pad columns dropped."""
+        out = []
+        for i, (m, (_, n)) in enumerate(zip(self.padded_matrices(), self.shape)):
+            out.append(torch.cat([m[:, :self.F], m[:, -8:]], 1) if i == self.sf else m[:, :n])
+        return out
+
+
+def _fragment_order(b: torch.Tensor) -> torch.Tensor:
+    """A layer's n biases (n % 16 == 0) in the order the quad lane q of a
+    wgmma accumulator fragment (columns 8 j + 2 q + {0, 1}) reads them, two
+    n8 tiles a 16-byte load, the quad's four loads contiguous: column c =
+    8 j + 2 q + e at 16 (j // 2) + 4 q + 2 (j % 2) + e (csrc/fused_ray.cu
+    ``Params::bias``)."""
+    c = torch.arange(b.shape[0], device=b.device)
+    j, q, e = c // 8, (c % 8) // 2, c % 2
+    out = torch.empty_like(b)
+    out[16 * (j // 2) + 4 * q + 2 * (j % 2) + e] = b
+    return out
+
+
+def pack_weights_k1(packed: PackedWeights) -> PackedK1:
+    """``packed``'s matrices in K1's layout: the same bf16 values, so K1
+    multiplies by the numbers the plain version and K2 use."""
+    mats = packed.matrices()
+    sf, Fw = packed.depth + 1, packed.F
+    padded = []
+    for i, m in enumerate(mats):
+        n = m.shape[1]
+        if i == sf:  # the feature block to its width, sigma's 8 columns after it
+            m = torch.cat([F.pad(m[:, :Fw], (0, k1_width(Fw) - Fw)), m[:, Fw:]], 1)
+        elif n > 8:  # rgb keeps its 8
+            m = F.pad(m, (0, k1_width(n) - n))
+        padded.append(m)
+    biases = packed.biases()
+    b = [biases[i] for i in range(packed.depth)] + [biases[packed.depth][:Fw],
+                                                    biases[packed.depth + 1]]
+    return PackedK1(w=torch.cat([_core_k_major(m) for m in padded]).contiguous(),
+                    b=torch.cat([_fragment_order(x.float()) for x in b]).contiguous(),
+                    w_off=_offsets(m.numel() for m in padded),
+                    w_shape=tuple(tuple(m.shape) for m in padded),
+                    shape=packed.w_shape, sf=sf, F=Fw)
 
 
 def pack_weights(params, cfg: ModelConfig) -> PackedWeights:

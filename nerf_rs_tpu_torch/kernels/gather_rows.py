@@ -16,9 +16,12 @@ the kernel and the plain version give the same bits.
 The wrappers refuse what the kernel does not take: another device than the
 CPU or CUDA, a table that is not contiguous f32 (on the card also one whose
 base is not aligned for the kernel's vector loads), a width that is not a
-multiple of 4, indices that are not contiguous int32 on the table's device,
-and odd pair indices. An index outside the table gives a NaN row (or pair)
-on either device: the kernel never reads outside the table.
+multiple of 4, and indices that are not contiguous int32 on the table's
+device (on the card, pair indices also start on a 16-byte boundary). An
+index outside the table gives a NaN row (or pair) on either device, and so
+does an odd pair index (a pair starts on an even element): the kernel never
+reads outside the table, and the wrappers never read the indices, so a call
+does not wait for the card. The JAX function leaves an odd index undefined.
 
 The fetches' backward is ``scatter_rows``: the cotangents of the fetched
 values summed into the table per element in fetch order (the JAX package's
@@ -85,16 +88,16 @@ def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def gather_pairs(table_flat: torch.Tensor, fidx: torch.Tensor) -> torch.Tensor:
     """``stack([table_flat[fidx], table_flat[fidx + 1]], -1)``: table_flat
-    (M,) f32, fidx (N,) int32 even -> (N, 2) f32. Launches the kernel for
-    CUDA tensors (counted in ``gather_pairs.launches``), on the current
-    stream; runs the plain version for CPU tensors. The evenness check
-    reads the indices, so on the card it waits for them."""
+    (M,) f32, fidx (N,) int32 even -> (N, 2) f32, a NaN pair for an odd
+    index or one outside the table. Launches the kernel for CUDA tensors
+    (counted in ``gather_pairs.launches``), on the current stream without
+    synchronising; runs the plain version for CPU tensors."""
     _check_table(table_flat, 1, 8)
     _check_idx(fidx, table_flat, "fidx")
-    if bool(torch.any(fidx & 1)):
-        raise ValueError("fidx must be even: a pair starts on an even element")
     if table_flat.device.type == "cpu":
         return gather_pairs_reference(table_flat, fidx)
+    if fidx.data_ptr() % 16:
+        raise ValueError("fidx must start on a 16-byte boundary on the card")
     n = fidx.shape[0]
     out = torch.empty(n, 2, device=table_flat.device)
     if n == 0:
@@ -205,9 +208,9 @@ def gather_rows_reference(table: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
 def gather_pairs_reference(table_flat: torch.Tensor, fidx: torch.Tensor) -> torch.Tensor:
     """The plain version of ``gather_pairs``: ``stack([table_flat[fidx],
     table_flat[fidx + 1]], -1)``, NaN pairs where fidx + 1 is outside the
-    table."""
+    table or fidx is odd."""
     f = fidx.long()
-    ok = _inside(f, table_flat.shape[0] - 1)
+    ok = _inside(f, table_flat.shape[0] - 1) & ((f & 1) == 0)
     f = torch.where(ok, f, 0)
     return torch.where(ok[:, None], torch.stack([table_flat[f], table_flat[f + 1]], -1),
                        torch.nan)

@@ -42,6 +42,20 @@ def _device() -> torch.device:
     return torch.device("cuda")
 
 
+def _biased_model(cfg, dev, seed=0):
+    """init_nerf_params' seed-0 field with every bias drawn from N(0, 0.1^2)
+    (numpy, ``seed``): its own biases are all zero, so a kernel that left
+    one out would still match its plain version on them."""
+    model = init_nerf_params(cfg, 0, dev)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1] == "b":
+                p.copy_(torch.from_numpy(rng.normal(0.0, 0.1, tuple(p.shape))
+                                         .astype(np.float32)))
+    return model
+
+
 def _rays(n, s, dev, seed=0):
     rng = np.random.default_rng(seed)
     o = torch.from_numpy((rng.normal(size=(n, 3)) * 0.2).astype(np.float32)).to(dev)
@@ -78,7 +92,7 @@ CASES = [
 def test_kernel_matches_plain_version(field, sigma_act, n, s):
     dev = _device()
     cfg = ModelConfig(sigma_activation=sigma_act, **field)
-    model = init_nerf_params(cfg, 0, dev)
+    model = _biased_model(cfg, dev)
     args = (pack_weights(model, cfg), *_rays(n, s, dev), cfg, s)
     before = fused_ray_render.launches
     got = fused_ray_render(*args)
@@ -120,7 +134,7 @@ def _branch_rays(ipe, n, s, dev):
 def test_kernel_branches_match_plain_version(field, sigma_act, ipe, n, s):
     dev = _device()
     cfg = ModelConfig(sigma_activation=sigma_act, ipe=ipe, **field)
-    model = init_nerf_params(cfg, 0, dev)
+    model = _biased_model(cfg, dev)
     rays, radii = _branch_rays(ipe, n, s, dev)
     args = (pack_weights(model, cfg), *rays, cfg, s)
     got = fused_ray_render(*args, radii=radii)
@@ -131,6 +145,72 @@ def test_kernel_branches_match_plain_version(field, sigma_act, ipe, n, s):
         assert g.shape == w.shape, name
         assert bool(torch.isfinite(g).all()), name
         assert float((g - w).abs().max()) <= tol, name
+
+
+# K1's wgmma kernel on every branch (field, sigma, IPE, contraction, rays,
+# samples): S of 1 to 256 as padded_samples takes them (1, 64, 128; 150
+# and 192 run as 192, two rays a CTA in three passes; 193 and 256 as 256),
+# one ray, 4,103 rays and odd CTA counts (a cluster's second CTA past the
+# last ray), and the instance for other widths than the paper's (SMALL)
+K1_CASES = [
+    ({}, "relu", False, False, 4103, 1),  # 33 CTAs
+    ({}, "relu", False, False, 1, 64),
+    ({}, "softplus", False, False, 4103, 64),
+    ({}, "softplus", True, False, 5, 128),  # 5 CTAs
+    ({}, "relu", False, True, 4103, 150),
+    ({}, "softplus", True, True, 5, 192),  # 3 CTAs
+    ({}, "relu", True, False, 1, 193),
+    ({}, "softplus", False, True, 4103, 256),
+    (SMALL, "relu", False, False, 7, 64),
+    (SMALL, "softplus", True, True, 9, 192),
+]
+
+
+@pytest.mark.parametrize("field,sigma_act,ipe,contract,n,s", K1_CASES)
+def test_wgmma_kernel_matches_plain_version_on_every_branch(field, sigma_act, ipe, contract, n,
+                                                             s):
+    """K1 against its plain version at chip_smoke.TOL's bars (two bf16
+    roundings may flip between the two summation orders; the depth bar is
+    for t up to 2), and a rerun bit-identical."""
+    dev = _device()
+    cfg = ModelConfig(sigma_activation=sigma_act, ipe=ipe, contract=contract, **field)
+    model = init_nerf_params(cfg, 0, dev)
+    rays, radii = _branch_rays(ipe, n, s, dev)
+    args = (pack_weights(model, cfg), *rays, cfg, s)
+    got = fused_ray_render(*args, radii=radii)
+    again = fused_ray_render(*args, radii=radii)
+    torch.cuda.synchronize()
+    want = fused_ray_render_reference(*args, radii=radii)
+    for name, g, a, w, tol in zip(("rgb", "acc", "depth", "weights", "sigma"), got, again, want,
+                                  (1e-3, 1e-3, 2e-3, 1e-3, 2e-2)):
+        assert g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert float((g - w).abs().max()) <= tol, name
+        assert torch.equal(g, a), name
+
+
+@pytest.mark.parametrize("field,sigma_act,ipe,contract,n,s", K1_CASES)
+def test_wgmma_kernel_starts_every_sum_from_its_bias(field, sigma_act, ipe, contract, n, s):
+    """K1 with random biases in every layer (init_nerf_params' are all
+    zero, and a kernel that left a column's bias out would match its plain
+    version on them), on every branch: the mean of each output's |K1 -
+    plain| within a tenth of chip_smoke.TOL's bar. A bias left out moves
+    every ray (~1e-1 of rgb); what the two summation orders part by is
+    isolated: a bf16 rounding of a hidden activation that lands on the
+    other side, which with biases can reach past the bars at S = 1, where
+    one sample carries the whole ray."""
+    dev = _device()
+    cfg = ModelConfig(sigma_activation=sigma_act, ipe=ipe, contract=contract, **field)
+    pk = pack_weights(_biased_model(cfg, dev), cfg)
+    rays, radii = _branch_rays(ipe, n, s, dev)
+    got = fused_ray_render(pk, *rays, cfg, s, radii=radii)
+    torch.cuda.synchronize()
+    want = fused_ray_render_reference(pk, *rays, cfg, s, radii=radii)
+    for name, g, w, tol in zip(("rgb", "acc", "depth", "weights", "sigma"), got, want,
+                               (1e-3, 1e-3, 2e-3, 1e-3, 2e-2)):
+        assert g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert float((g - w).abs().mean()) <= tol / 10, name
 
 
 def _train_args(field, sigma_act, n, s, dev, ipe=False):
@@ -340,12 +420,56 @@ def test_gather_kernels_match_plain_versions(n):
     assert int(rows.isnan().any(-1).sum()) == int(((idx < 0) | (idx >= 5003)).sum())
 
 
+@pytest.mark.parametrize("n", [1, 37, 100_003])
+def test_gather_pairs_gives_nan_for_odd_and_outside_indices(n):
+    """Odd indices and indices outside the table mixed into a flat fetch:
+    the kernel's bits are the plain version's, NaN pairs exactly there."""
+    dev = _device()
+    rng = np.random.default_rng(n + 1)
+    flat = torch.from_numpy(rng.normal(size=2 * 5003).astype(np.float32)).to(dev)
+    fidx = 2 * rng.integers(0, 5003, n).astype(np.int32)
+    fidx[::3] += 1  # odd
+    fidx[1::7] = -4
+    fidx[2::11] = 2 * 5003
+    want = k4.gather_pairs_reference(flat, torch.from_numpy(fidx).to(dev))
+    got = k4.gather_pairs(flat, torch.from_numpy(fidx).to(dev))
+    torch.cuda.synchronize()
+    bad = (fidx % 2 == 1) | (fidx < 0) | (fidx + 1 >= 2 * 5003)
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(), want.nan_to_num())
+    assert torch.equal(got.isnan().all(-1).cpu(), torch.from_numpy(bad))
+
+
+@pytest.mark.parametrize("fetch", ["gather_pairs", "hash_encode"])
+def test_flat_fetch_does_not_synchronise(fetch):
+    """gather_pairs, and the flat encode's forward around it, launch without
+    waiting for the card: no call under set_sync_debug_mode("error")
+    raises."""
+    dev = _device()
+    cfg = ModelConfig(arch="hashgrid", hash_brick=False)
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.normal(size=hashgrid.table_shape(cfg)).astype(np.float32)).to(dev)
+    pts = torch.from_numpy(rng.uniform(-2.0, 2.0, (4096, 3)).astype(np.float32)).to(dev)
+    fidx = torch.from_numpy(2 * rng.integers(0, table.numel() // 2, 4096).astype(np.int32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        if fetch == "gather_pairs":
+            k4.gather_pairs(table.view(-1), fidx)
+        else:
+            hashgrid.hash_encode(table, pts, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
 def test_gather_wrappers_refuse_what_the_kernel_does_not_take():
     dev = _device()
     table = torch.zeros(64, 128, device=dev)
     idx = torch.zeros(8, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="even"):
-        k4.gather_pairs(table.view(-1), idx + 1)
+    assert bool(k4.gather_pairs(table.view(-1), idx + 1).isnan().all())  # odd: NaN pairs
+    with pytest.raises(ValueError, match="16-byte"):
+        k4.gather_pairs(table.view(-1), torch.zeros(9, dtype=torch.int32, device=dev)[1:])
     with pytest.raises(ValueError, match="int32"):
         k4.gather_rows(table, idx.long())
     with pytest.raises(ValueError, match="contiguous"):
@@ -424,7 +548,7 @@ UNBOUNDED_CASES = [
 def test_unbounded_branches_match_plain_version(field, sigma_act, ipe, contract, space, n, s):
     dev = _device()
     cfg = ModelConfig(sigma_activation=sigma_act, ipe=ipe, contract=contract, **field)
-    model = init_nerf_params(cfg, 0, dev)
+    model = _biased_model(cfg, dev)
     rays, radii = _unbounded_rays(n, s, ipe, dev)
     pk = pack_weights(model, cfg)
     got = fused_ray_render(pk, *rays, cfg, s, radii=radii)

@@ -122,6 +122,19 @@ def test_indices_outside_the_table_give_nan():
     assert pairs[1].tolist() == [38.0, 39.0]
 
 
+@pytest.mark.parametrize("odd", [1, 3, 39, 1021, -1])
+def test_gather_pairs_gives_nan_for_an_odd_index(odd):
+    """A pair starts on an even element: an odd index gives a NaN pair, as
+    one outside the table does, in the plain version and through the
+    wrapper; its neighbours keep their values."""
+    table = torch.arange(1024, dtype=torch.float32)
+    fidx = torch.tensor([0, odd, 38, odd, 1022], dtype=torch.int32)
+    for fn in (k4.gather_pairs, k4.gather_pairs_reference):
+        pairs = fn(table, fidx)
+        assert pairs[1].isnan().all() and pairs[3].isnan().all()
+        assert pairs[[0, 2, 4]].tolist() == [[0.0, 1.0], [38.0, 39.0], [1022.0, 1023.0]]
+
+
 _TABLE = torch.zeros(8, 128)
 _IDX = torch.zeros(4, dtype=torch.int32)
 
@@ -135,7 +148,6 @@ _IDX = torch.zeros(4, dtype=torch.int32)
     (lambda: k4.gather_rows(_TABLE, _IDX[None]), "1-D"),
     (lambda: k4.gather_rows(_TABLE.to("meta"), _IDX.to("meta")), "no kernel"),
     (lambda: k4.gather_pairs(_TABLE, _IDX), "1-D"),
-    (lambda: k4.gather_pairs(_TABLE.view(-1), torch.tensor([0, 3], dtype=torch.int32)), "even"),
     (lambda: k4.gather_pairs(_TABLE.view(-1), _IDX.long()), "int32"),
     (lambda: k4.gather_pairs(_TABLE.view(-1).double(), _IDX), "f32"),
 ])
