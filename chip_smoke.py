@@ -60,7 +60,7 @@ Phases, each fatal (any failure exits non-zero):
      versions, bf16 and f32, on the points of sphere rays with 128
      jittered samples (every 8th pushed out past the AABB, so clipped):
      4096 rays (524,288 points, a train step's call) and 4,103 rays
-     (ragged); two backward launches bit-identical.
+     (ragged); two forward and two backward launches bit-identical.
  13. the factored path (FACTORED_CONFIG: the bench's factored window,
      128x128 sphere, 4096 rays x 128 samples, mixed, lr 1e-2, with
      fac_fused on): train/loop.train for FAC_STEPS steps (exactly one K3
@@ -73,7 +73,8 @@ Phases, each fatal (any failure exits non-zero):
      LEARN_VIEWS views above FAC_PSNR.
  14. times: the factored step through K3 and through the CLI's route, a
      profile of the K3 step (device idle), K3's forward and backward at
-     524,288 points and its forward at a 4,194,304-point render chunk,
+     524,288 points (the forward with bf16 and with f32 lines) and its
+     forward at a 4,194,304-point render chunk,
      each beside its plain version, a PyTorch library path
      (F.embedding_bag over the 2L taps per axis, and its autograd) and
      its bound.
@@ -83,7 +84,11 @@ Phases, each fatal (any failure exits non-zero):
      encodes: gather_rows on the (131,072, 128) brick table at a sub-chunk's
      2,097,152 rows, at a ragged N and with repeated rows; gather_pairs on
      the flat table at the step's 67,108,864 pairs, and once more under
-     torch.cuda.set_sync_debug_mode("error") (no host synchronisation).
+     torch.cuda.set_sync_debug_mode("error") (no host synchronisation);
+     the hash grid's fixed-order table gradient (scatter_rows) at the
+     step's fetches, in both layouts and in the flat one with keys outside
+     the table, bit-equal to its plain version and across launches, and
+     once more under set_sync_debug_mode("error").
  16. the hash-grid path through the CLI, for `--preset ngp` (brick) and
      with `--hash_brick false` (flat): `train` for NGP_STEPS steps at full
      width (4 gather_rows or 1 gather_pairs per step, and the eval at step
@@ -96,11 +101,11 @@ Phases, each fatal (any failure exits non-zero):
  17. times: each layout's step (best of 3 windows) with a profile's device
      idle share, each layout's 800x800 frame, and K4's two calls at the
      main path's shapes beside their plain versions, torch.index_select and
-     their bounds; the hash grid's fixed-order table gradient (scatter_rows)
-     at a brick sub-chunk's and a flat step's fetches: bit-equal to its
-     plain version and across launches, timed beside index_add_ and beside
-     PyTorch's deterministic route (index_put_ with accumulate=True under
-     torch.use_deterministic_algorithms), which the port never calls.
+     their bounds; scatter_rows at a brick sub-chunk's and a flat step's
+     fetches, timed beside index_add_ and beside PyTorch's deterministic
+     route (index_put_ with accumulate=True under
+     torch.use_deterministic_algorithms), which the port never calls, with
+     its device time split into the sort and the reduce.
  18. the unbounded-scene branches of K1 and K2 at the flagship width, vs
      their plain versions (K2 also vs the float64 witness and autograd, two
      launches bit-identical; diag slot 5 vs ops/render.distortion_loss) on
@@ -124,18 +129,25 @@ Every kernel launch counter is set to 0 just before the path it counts
 and read just after. The line before the last is one JSON object
 describing the kernels (with each one's bound and a PyTorch library
 call's time at the flagship shape); the last is {"ok": true, "device":
-{...}}.
+{...}}. A kernel's "ms" is one call alone, in a CUDA-event window of its
+own (K4's gathers: per call in a window of GATHER_CALLS calls); K3's
+forward and scatter_rows also give "ms_window", per call in a window of
+back-to-back calls, where the host enqueues the next call while the card
+runs this one.
 
     python3 chip_smoke.py --time-step ROOT
 
-times K1 and K2 in the checkout at ROOT instead, with the helpers above:
-ptxas' report of every K1 and K2 instance, the flagship train step through
+times the kernels in the checkout at ROOT instead, with the helpers above:
+ptxas' report of every kernel instance, the flagship train step through
 K2, autograd and the plain version, one flagship K2 call and K1 chunk,
 every K1 and K2 call of phases 11 and 20 (K2 at S = 192 with 4096 rays
 among them) beside its library path, each K2 call's device time split by
-kernel, and the hierarchical train step through K2 and autograd. Each K1
-call also prints the bytes of weights that it must read from L2 by the
-kernel's design and the rate that implies: modelled, not measured.
+kernel, and the hierarchical train step through K2 and autograd; then the
+calls of phases 14 and 17: scatter_rows in both layouts (split into the
+sort and the reduce), K4's gathers, the ngp steps and frames, the
+factored step and K3's calls. Each K1 call also prints the bytes of
+weights that it must read from L2 by the kernel's design and the rate that
+implies: modelled, not measured.
 
     python3 chip_smoke.py --learn PRESET SEEDS [FLAG ...]
 
@@ -265,7 +277,7 @@ NGP_K4 = {"brick": (4, 16, 625), "flat": (1, 4, 157)}
 NGP_PSNR = 16.33
 NGP_RAYS = 4096  # rays of a train step: 524,288 points at 128 samples
 NGP_RAGGED = 100_003
-GATHER_CALLS = 20  # K4 calls per timing window
+GATHER_CALLS = 20  # K3 and K4 calls per timing window
 # The unbounded-scene path (phases 18-20). The presets' 64x64 learning
 # drives (--num_samples 32, 1024 rays, lr 1e-3, 301 steps, and UNB_LEARN_FLAGS)
 # must pass min(20 dB, the JAX package's own drives on the same flags and
@@ -372,6 +384,16 @@ def event_ms(fn, reps: int = 3) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def per_call_ms(fn, calls: int, reps: int = 3) -> float:
+    """Device time of one call of ``fn`` in a window of ``calls`` calls
+    back to back (best of ``reps`` CUDA-event windows): the host enqueues
+    the next call while the card runs this one, as on a main path."""
+    def loop():
+        for _ in range(calls):
+            fn()
+    return event_ms(loop, reps) / calls
 
 
 def ptxas_report(name: str, lib) -> list:
@@ -1422,9 +1444,12 @@ def check_factored_kernel(ds, mcfg, cam, lines) -> dict:
                         device=pts.device)
         for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
             enc = k3.fused_factored_encode_forward(lines, pts, mcfg, dtype)
+            enc_again = k3.fused_factored_encode_forward(lines, pts, mcfg, dtype)
             d = k3.fused_factored_encode_backward(lines, pts, g, mcfg, dtype)
             again = k3.fused_factored_encode_backward(lines, pts, g, mcfg, dtype)
             torch.cuda.synchronize()
+            if not torch.equal(enc, enc_again):
+                fail(f"two K3 forward launches [{name}, {pts.shape[0]} points] gave different bits")
             if not (bool(torch.isfinite(enc).all()) and bool(torch.isfinite(d).all())):
                 fail(f"K3 [{name}, {pts.shape[0]} points]: non-finite outputs")
             if not torch.equal(d, again):
@@ -1438,7 +1463,7 @@ def check_factored_kernel(ds, mcfg, cam, lines) -> dict:
             errs["enc"] = max(errs["enc"], got["enc"])
             errs["d_lines"] = max(errs["d_lines"], got["d_lines"])
             errs["d_lines_abs"] = max(errs["d_lines_abs"], float((d - want).abs().max()))
-    print("K3 backward: two launches on the same inputs give bit-identical d_lines")
+    print("K3 forward and backward: two launches on the same inputs give bit-identical outputs")
     return errs
 
 
@@ -1685,20 +1710,21 @@ def time_factored(card: str, ds, lines) -> dict:
 
     C, R = mcfg.fac_comps, basis_dim(mcfg)
     rows = []
-    for kind, n_rays in (("forward", FAC_RAYS), ("backward", FAC_RAYS), ("forward", FAC_CHUNK)):
+    for kind, n_rays, dtype in (("forward", FAC_RAYS, bf16), ("backward", FAC_RAYS, bf16),
+                                ("forward", FAC_CHUNK, bf16), ("forward", FAC_RAYS, None)):
         pts = factored_points(ds, cfg.camera, n_rays, 13)
         n = pts.shape[0]
         g = torch.randn(n, C, generator=torch_generator(dev, 14), device=dev)
         lib_lines = lines.detach().clone().requires_grad_(kind == "backward")
         if kind == "forward":
-            fn = lambda: k3.fused_factored_encode_forward(lines, pts, mcfg, bf16)  # noqa: E731
-            plain = lambda: k3.fused_factored_encode_reference(lines, pts, mcfg, bf16)  # noqa: E731
+            fn = lambda: k3.fused_factored_encode_forward(lines, pts, mcfg, dtype)  # noqa: E731
+            plain = lambda: k3.fused_factored_encode_reference(lines, pts, mcfg, dtype)  # noqa: E731
             with torch.no_grad():
-                library = lambda: library_factored(lib_lines, pts, mcfg, bf16)  # noqa: E731
+                library = lambda: library_factored(lib_lines, pts, mcfg, dtype)  # noqa: E731
                 lib_err = float((library() - plain()).abs().max())
-            # points in, encodings out, the bf16 line tables; per point 3 axes
-            # x 2L taps x C products and sums, and the CP product
-            nbytes = n * (12 + 4 * C) + 2 * 3 * R * C
+            # points in, encodings out, the line tables (bf16 or f32); per
+            # point 3 axes x 2L taps x C products and sums, and the CP product
+            nbytes = n * (12 + 4 * C) + (2 if dtype == bf16 else 4) * 3 * R * C
             flops = n * (3 * 2 * 2 * mcfg.fac_levels * C + 2 * C)
         else:
             fn = lambda: k3.fused_factored_encode_backward(lines, pts, g, mcfg, bf16)  # noqa: E731
@@ -1714,16 +1740,20 @@ def time_factored(card: str, ds, lines) -> dict:
             flops = n * (2 * 3 * 2 * 2 * mcfg.fac_levels * C + 3 * 2 * C)
         fn()
         ms = event_ms(fn)
+        ms_window = per_call_ms(fn, GATHER_CALLS)
         plain_ms = event_ms(plain, reps=1)
         library()
         library_ms = event_ms(library)
         b, by = bound_ms(flops, nbytes, PEAK_F32)
         dense_ms = 3 * n * R * C * 2 * (2 if kind == "backward" else 1) / PEAK_FLOPS * 1e3
-        row = {"kernel": kind, "points": n, "ms": ms, "plain_ms": plain_ms,
+        row = {"kernel": kind, "points": n, "lines": "bf16" if dtype == bf16 else "f32",
+               "ms": ms, "ms_window": ms_window, "plain_ms": plain_ms,
                "library_ms": library_ms, "library_vs_plain": lib_err, "bound_ms": b,
                "bound_by": by, "sparse_flops": flops, "bytes": nbytes,
                "dense_bound_ms": dense_ms}
-        print(f"K3 {kind}, {n} points [{card}]: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        print(f"K3 {kind}, {n} points, {row['lines']} lines [{card}]: kernel {ms:.3f} ms alone "
+              f"({ms_window:.3f} ms a call in a window of {GATHER_CALLS}), plain {plain_ms:.3f} "
+              f"ms, "
               f"library {library_ms:.3f} ms (vs plain {lib_err:.3g}), bound {b:.4f} ms ({by}; "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at {PEAK_F32 / 1e12:.0f} "
               f"TFLOP/s f32), {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s; the dense hat product "
@@ -2080,12 +2110,7 @@ def time_gather(card: str, inputs) -> dict:
         if not torch.equal(lib(), fn()):
             fail(f"{name}: torch.index_select and K4 disagree")
 
-        def per_call(f):
-            def loop():
-                for _ in range(GATHER_CALLS):
-                    f()
-            return event_ms(loop) / GATHER_CALLS
-        ms, plain_ms, library_ms = per_call(fn), per_call(plain), per_call(lib)
+        ms, plain_ms, library_ms = (per_call_ms(f, GATHER_CALLS) for f in (fn, plain, lib))
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(GATHER_CALLS):
                 fn()
@@ -2279,15 +2304,74 @@ def scatter_inputs(dev) -> dict:
     return out
 
 
+# scatter_rows' device time split by kernel: the sort (this port's radix_*
+# kernels, or the library sort an earlier tree called) and the reduce (its
+# scatter_* kernels); the rest (fills, memsets, index arithmetic) is "other"
+SCATTER_SORT = re.compile(r"radix|[Ss]ort")
+SCATTER_CALLS = 5  # scatter_rows calls per timing window
+SCATTER_REDUCE = re.compile(r"scatter_")
+
+
+def scatter_case(inputs, dev) -> tuple:
+    """The flat layout's fetches with keys outside the table mixed in: every
+    7th below 0 and every 11th at or past the last row."""
+    import torch
+
+    g, key, lane0, lanes, shape = inputs["flat"]
+    key = key.clone()
+    idx = torch.arange(key.shape[0], device=dev)
+    key[idx % 7 == 3] = -1 - (idx[idx % 7 == 3] % 5).int()
+    key[idx % 11 == 5] = shape[0] + (idx[idx % 11 == 5] % 3).int()
+    return g, key, lane0, lanes, shape
+
+
+def check_scatter(inputs, dev) -> float:
+    """scatter_rows against its plain version bit for bit and across two
+    launches, on both layouts' fetches of an ngp step and on the flat ones
+    with keys outside the table; each call once more under
+    torch.cuda.set_sync_debug_mode("error"), where a host synchronisation
+    raises. Returns the largest absolute difference (0 when the bits
+    agree)."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import gather_rows as k4
+
+    cases = dict(inputs)
+    cases["flat, keys outside the table"] = scatter_case(inputs, dev)
+    worst = 0.0
+    for name, (g, key, lane0, lanes, shape) in cases.items():
+        got = k4.scatter_rows(g, key, lane0, lanes, shape)
+        again = k4.scatter_rows(g, key, lane0, lanes, shape)
+        torch.cuda.synchronize()
+        want = k4.scatter_rows_reference(g, key, lane0, lanes, shape)
+        err = float((got - want).abs().max())
+        if not (torch.equal(got, want) and torch.equal(got, again)):
+            fail(f"scatter_rows [{name}]: differs from its plain version or across launches "
+                 f"(max |diff| {err})")
+        try:
+            torch.cuda.set_sync_debug_mode("error")
+            k4.scatter_rows(g, key, lane0, lanes, shape)
+        except RuntimeError as e:
+            fail(f"scatter_rows [{name}] synchronises with the host: {e}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print(f"scatter_rows [{name}], {g.shape[0]} fetches into {shape}: bit-equal to its plain "
+              f"version and across launches; no host sync under set_sync_debug_mode('error')")
+        worst = max(worst, err)
+        del got, again, want
+    return worst
+
+
 def time_scatter(card: str, inputs) -> dict:
     """The hash grid's table gradient at an ngp step's fetches, per layout:
-    scatter_rows (the stable sort of the keys, the runs, the kernel) held to
-    its plain version bit for bit and across two launches, and timed
-    beside index_add_ on the same elements (what the fetch's backward used
-    before: float atomics, whose order changes between runs), with its
-    plain version, the kernel's own device time from a profile, and its
-    bound: the bytes it must move (the cotangents and int32 keys and lanes
-    read once, the gradient table written once) over the memory rate."""
+    scatter_rows timed beside index_add_ on the same elements (float
+    atomics, whose order changes between runs), PyTorch's deterministic
+    route (index_put_ with accumulate=True under
+    torch.use_deterministic_algorithms) and its plain version; its device
+    time from a profile, split into the sort, the reduce and the rest; and
+    its bound: the bytes it must move (the cotangents and int32 keys and
+    lanes read once, the gradient table written once) over the memory
+    rate."""
     import torch
 
     from nerf_rs_tpu_torch.kernels import gather_rows as k4
@@ -2295,13 +2379,8 @@ def time_scatter(card: str, inputs) -> dict:
     rows = {}
     for layout, (g, key, lane0, lanes, shape) in inputs.items():
         got = k4.scatter_rows(g, key, lane0, lanes, shape)
-        again = k4.scatter_rows(g, key, lane0, lanes, shape)
         torch.cuda.synchronize()
-        want = k4.scatter_rows_reference(g, key, lane0, lanes, shape)
-        err = float((got - want).abs().max())
-        if not (torch.equal(got, want) and torch.equal(got, again)):
-            fail(f"scatter_rows [{layout}]: differs from its plain version or across launches "
-                 f"(max |diff| {err})")
+        err = float((got - k4.scatter_rows_reference(g, key, lane0, lanes, shape)).abs().max())
         col = torch.tensor(lanes, device=g.device)[None, :]
         pos = (key.long()[:, None] * shape[1]
                + (col if lane0 is None else lane0.long()[:, None] + col)).reshape(-1)
@@ -2326,7 +2405,9 @@ def time_scatter(card: str, inputs) -> dict:
             torch.use_deterministic_algorithms(was)
         det_err = float((ordered - got).abs().max())
         del ordered
-        ms = event_ms(lambda: k4.scatter_rows(g, key, lane0, lanes, shape))
+        call = lambda: k4.scatter_rows(g, key, lane0, lanes, shape)  # noqa: E731
+        ms = event_ms(call)
+        ms_window = per_call_ms(call, SCATTER_CALLS)
         lib_ms = event_ms(index_add)
         plain_ms = event_ms(lambda: k4.scatter_rows_reference(g, key, lane0, lanes, shape), reps=1)
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -2334,24 +2415,29 @@ def time_scatter(card: str, inputs) -> dict:
                 k4.scatter_rows(g, key, lane0, lanes, shape)
             torch.cuda.synchronize()
         per = device_ms(prof)
+        sort_ms = sum(v for k, v in per.items() if SCATTER_SORT.search(k)) / 5
         kernel_ms = sum(v for k, v in per.items()
-                        if re.search(r"scatter_(partial|combine)", k)) / 5
-        sort_ms = sum(v for k, v in per.items() if "ort" in k) / 5
+                        if SCATTER_REDUCE.search(k) and not SCATTER_SORT.search(k)) / 5
+        device = sum(per.values()) / 5
         n, c = g.shape
         nbytes = n * c * 4 + n * (4 if lane0 is None else 8) + shape[0] * shape[1] * 4
         b, by = bound_ms(0.0, nbytes)
         print(f"scatter_rows [{layout}], {n} fetches x {c} into {shape} [{card}]: {ms:.3f} ms "
-              f"(kernel alone {kernel_ms:.3f} ms, sorts {sort_ms:.3f} ms), index_add_ "
-              f"{lib_ms:.3f} ms (vs the fixed order: max |diff| {index_add_err:.3g}), "
-              f"deterministic index_put_ {det_ms:.3f} ms (max |diff| {det_err:.3g}), plain "
-              f"{plain_ms:.3f} ms, bound {b:.4f} ms ({by}, {nbytes / 1e9:.3f} GB); "
-              f"bit-equal to plain and across launches")
+              f"alone ({ms_window:.3f} ms a call in a window of {SCATTER_CALLS}; device "
+              f"{device:.3f} ms: sort {sort_ms:.3f}, reduce {kernel_ms:.3f}, other "
+              f"{device - sort_ms - kernel_ms:.3f}), index_add_ {lib_ms:.3f} ms (vs the fixed "
+              f"order: max |diff| {index_add_err:.3g}), deterministic index_put_ {det_ms:.3f} ms "
+              f"(max |diff| {det_err:.3g}), plain {plain_ms:.3f} ms, bound {b:.4f} ms ({by}, "
+              f"{nbytes / 1e9:.3f} GB)")
+        for k, v in sorted(per.items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  {v / 5:8.4f} ms  {re.sub(r'[(]anonymous namespace[)]::', '', k)[:90]}")
         rows[layout] = {"fetches": n, "values": c, "max_abs_err": err, "ms": ms,
-                        "kernel_ms": kernel_ms,
-                        "sort_ms": sort_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "library_det_ms": det_ms, "bound_ms": b, "bound_by": by,
-                        "index_add_vs_fixed": index_add_err, "index_put_det_vs_fixed": det_err}
-        del got, again, want, atomics, pos
+                        "ms_window": ms_window,
+                        "kernel_ms": kernel_ms, "sort_ms": sort_ms, "device_ms": device,
+                        "plain_ms": plain_ms, "library_ms": lib_ms, "library_det_ms": det_ms,
+                        "bound_ms": b, "bound_by": by, "index_add_vs_fixed": index_add_err,
+                        "index_put_det_vs_fixed": det_err}
+        del got, atomics, pos
     return rows
 
 
@@ -2390,13 +2476,17 @@ def learn_seeds(preset: str, seeds: str, extra) -> int:
 
 
 def time_step(root: str) -> int:
-    """The times of K1 and K2 for the checkout at ``root``: ptxas' report
-    of every K1 and K2 instance; the flagship train step through K2,
-    autograd and the plain version, one K2 call and one K1 chunk; every
-    K1 and K2 call of the main paths (BRANCH_SHAPES and UNB_SHAPES: K2 at
-    S = 192 with 4096 rays among them) beside autograd's or the eager
-    field's, each K2 call split by kernel; the hierarchical step through
-    K2 and through autograd. Its kernels build into that checkout."""
+    """The times of the kernels for the checkout at ``root``: ptxas' report
+    of every kernel instance; the flagship train step through K2, autograd
+    and the plain version, one K2 call and one K1 chunk; every K1 and K2
+    call of the main paths (BRANCH_SHAPES and UNB_SHAPES: K2 at S = 192
+    with 4096 rays among them) beside autograd's or the eager field's, each
+    K2 call split by kernel; the hierarchical step through K2 and through
+    autograd; then the hash grid's table gradient (scatter_rows at an ngp
+    step's fetches, both layouts, split into sort and reduce), K4's two
+    gathers, both ngp steps and frames, and the factored step with K3's
+    calls (forward at 524,288 points under bf16 and f32 and at 4,194,304,
+    backward at 524,288). Its kernels build into that checkout."""
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     import torch
@@ -2409,6 +2499,7 @@ def time_step(root: str) -> int:
         fail(f"imported {pkg.__file__}, not the checkout at {root}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version: full f32
     from nerf_rs_tpu_torch import ModelConfig
+    from nerf_rs_tpu_torch.data.factory import make_dataset
     from nerf_rs_tpu_torch.kernels.fused_render import pack_weights
     from nerf_rs_tpu_torch.models.mlp import init_nerf_params
 
@@ -2416,9 +2507,8 @@ def time_step(root: str) -> int:
 
     card = card_line()
     print(f"{root} [{card}]")
-    names = ("fused_ray", "fused_train")
-    with ThreadPoolExecutor(len(names)) as pool:
-        for name, lib in zip(names, pool.map(build.build, names)):
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for name, lib in zip(KERNELS, pool.map(build.build, KERNELS)):
             ptxas_report(name, lib)
     dev = torch.device("cuda")
     time_training(card)
@@ -2431,6 +2521,12 @@ def time_step(root: str) -> int:
     time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d, BRANCH_SHAPES + UNB_SHAPES,
                   plain_too=False)
     preset_steps(card, "hierarchical", profiled=True)
+    del model, packed
+    time_scatter(card, scatter_inputs(dev))
+    time_gather(card, ngp_fetch_inputs(dev))
+    time_ngp(card, fo, fd)
+    fcfg = factored_config()
+    time_factored(card, make_dataset(fcfg, dev), init_nerf_params(fcfg.model, 0, dev).lines.detach())
     return 0
 
 
@@ -2518,6 +2614,8 @@ def main() -> int:
     # ---- 15. K4 vs its plain versions, at an ngp step's indices ----
     k4_inputs = ngp_fetch_inputs(dev)
     k4_err = check_gather_kernel(k4_inputs)
+    sc_inputs = scatter_inputs(dev)
+    scatter_err = check_scatter(sc_inputs, dev)
 
     # ---- 18. the unbounded-scene branches: contraction, distortion loss ----
     unb_k1_err, unb_k2_err = check_unbounded_branches(model, mcfg, (o, d, vd), gold, cam)
@@ -2649,13 +2747,14 @@ def main() -> int:
 
     # ---- 14. times of the factored path and K3 ----
     fac_times = time_factored(card, fac_ds, fac_lines)
-    fac_fwd, fac_bwd, fac_chunk = fac_times.pop("calls")
+    fac_fwd, fac_bwd, fac_chunk, fac_f32 = fac_times.pop("calls")
 
     # ---- 17. times of the hash-grid path and K4 ----
     ngp_times = time_ngp(card, fo, fd)
     k4_times = time_gather(card, k4_inputs)
     del k4_inputs
-    scatter_times = time_scatter(card, scatter_inputs(dev))
+    scatter_times = time_scatter(card, sc_inputs)
+    del sc_inputs
 
     # ---- 20. times of the unbounded path and the new branches ----
     unb_rows = time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d, UNB_SHAPES)
@@ -2724,12 +2823,13 @@ def main() -> int:
         "launches_by_path": k3_paths,
         "max_abs_err": fac_errs["enc"],
         "ms": fac_fwd["ms"],
+        "ms_window": fac_fwd["ms_window"],
         "plain_ms": fac_fwd["plain_ms"],
         "bound_ms": fac_fwd["bound_ms"],
         "bound_by": fac_fwd["bound_by"],
         "library_ms": fac_fwd["library_ms"],
         "points": fac_fwd["points"],
-        "cases": [fac_chunk],
+        "cases": [fac_chunk, fac_f32],
     }, {
         "name": "fused_factored_encode_backward",
         "route": "cuda",
@@ -2763,9 +2863,11 @@ def main() -> int:
                     "the flat layout's at :212; no Pallas kernel)",
         "launches": sum(scatter_paths.values()),
         "launches_by_path": scatter_paths,
-        **{k: scatter_times["brick"][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+        "max_abs_err": scatter_err,
+        **{k: scatter_times["brick"][k] for k in ("ms", "ms_window", "plain_ms", "bound_ms",
                                                   "bound_by", "library_ms", "library_det_ms",
-                                                  "kernel_ms", "fetches")},
+                                                  "kernel_ms", "sort_ms", "device_ms",
+                                                  "fetches")},
         "cases": [{"layout": "flat", **scatter_times["flat"]}],
     }],
         "presets": {**preset_times, **unb_times}, "learning": {**learned, **unb_learned},

@@ -22,19 +22,33 @@
 // encoding's write. The backward reads the points and g and writes the
 // (3, sumR, C) gradient against ~150C FLOP per point (the three features
 // again, d_feat, the scatter of w d_feat): bound by operations at the f32
-// rate. What limits this simple form is neither: the line tables (292 KB in
-// bf16) stay in L2, and each point gathers 6L rows of C values from there
-// (3.5 KB at the defaults, 17x its device-memory bytes), as does the
-// backward's d_feat; the backward then walks its shared-memory table with
-// one thread per (level, channel). Staging the coarse levels in shared
-// memory, and more owners per table, are the next steps.
+// rate. What limited the first, simple forward was neither: each point
+// gathered 6L rows of C values from the line tables in L2 (3.5 KB at the
+// defaults, 17x its device-memory bytes). The backward still does (its
+// d_feat), and walks its shared-memory table with one thread per (level,
+// channel).
 //
-// Forward design. One CTA of 256 threads takes 64 points. It first
-// computes each (point, axis, level)'s tap -- the knot row and its two
-// weights -- into shared memory, then each thread takes (point, channel)
-// pairs: 6L loads and products, the CP product, one f32 store. Neighbouring
-// threads take neighbouring channels of one point, so the line loads and
-// the encoding's stores are coalesced.
+// Forward design. Persistent CTAs of 1024 threads, as many as the card
+// holds at once. Each CTA first copies into shared memory the line-table
+// levels that fit, in the call's dtype, from level 0 (the coarsest for every
+// preset: the ladder rises) for all three axes: the rows [0, off[s]) of each
+// axis, the split s computed on the host from the geometry and the 227 KB a
+// CTA can have beside two buffers of taps (staged_levels; at the defaults
+// levels 0-4 under bf16, 144 KB, and 0-3 under f32, 140 KB). The rest
+// (level 5's 513 knots at the defaults) is read from L2; a geometry where no
+// level fits reads every level from L2 in the same kernel. Then the CTA
+// walks tiles of P points: their taps (knot row, two weights per point,
+// axis and level) go into one of two shared buffers, one barrier a tile,
+// and each thread takes one point and a group of V channels (V = 8 where C
+// allows: one 16 B load per tap row under bf16, two under f32, and 32 B of
+// encoding stored). It issues the L2 loads of the first unstaged level of
+// all three axes before it sums the staged levels from shared memory, two
+// levels' loads at a time, so those loads are in flight meanwhile; later
+// unstaged levels go out kBatch at a time. bf16 values stay packed until
+// they are used. Per channel the additions are the first kernel's, in the
+// same level order, so the encoding keeps its bits (under bf16 a product of
+// two bf16 values is exact in f32, so a fused multiply-add rounds as the
+// separate product and sum did).
 //
 // Backward design: a private gradient table per CTA. Reruns must give
 // identical bits, so no float atomics: at level 0 the whole batch lands on
@@ -65,8 +79,8 @@
 namespace {
 
 constexpr int kMaxLevels = 16;
-constexpr int kFwdThreads = 256;
-constexpr int kFwdPoints = 64;    // points per forward CTA
+constexpr int kFwdThreads = 1024;
+constexpr int kFwdTapBytes = 81920;  // two buffers of a forward tile's taps, at most
 constexpr int kBwdPoints = 64;    // points per backward chunk
 constexpr int kBwdCtas = 44;      // backward CTAs per axis: 3 x 44 = 132, one per SM
 constexpr int kBwdThreads = 1024;  // phase A's gathers need many warps in flight
@@ -78,9 +92,10 @@ struct Geometry {
   int C;
   int sumR;
   int res[kMaxLevels];
-  int off[kMaxLevels];  // first knot row of each level
+  int off[kMaxLevels + 1];  // first knot row of each level; off[L] = sumR
   float aabb;
   float two_aabb;
+  int staged;  // the forward's levels in shared memory (staged_levels)
 };
 
 struct Tap {
@@ -159,24 +174,199 @@ __device__ __forceinline__ void fill_taps(Tap* taps, const float* __restrict__ p
   }
 }
 
-template <bool kBf16>
-__global__ void __launch_bounds__(kFwdThreads) factored_fwd_kernel(
+// V consecutive line values as loaded: bf16 pairs or f32 words, turned into
+// f32 where they are used (so values in flight hold half the registers
+// under bf16).
+template <bool kBf16, int V>
+struct Line {
+  static constexpr int kWords = kBf16 ? (V + 1) / 2 : V;
+  unsigned w[kWords];
+  __device__ __forceinline__ float operator[](int j) const {
+    if constexpr (!kBf16 || V == 1) return __uint_as_float(w[kBf16 ? 0 : j]);
+    else return __uint_as_float((j & 1) ? (w[j >> 1] & 0xffff0000u) : (w[j >> 1] << 16));
+  }
+};
+
+// The V values from element `at` of a line table in global memory (through
+// the read-only path) or in shared memory: one vector load of V bf16 or f32
+// (two 16 B loads for 8 f32).
+template <bool kBf16, int V, bool kShared>
+__device__ __forceinline__ Line<kBf16, V> load_line(const void* base, long long at) {
+  Line<kBf16, V> r;
+  const unsigned char* bytes = static_cast<const unsigned char*>(base) + at * (kBf16 ? 2 : 4);
+  constexpr int W = Line<kBf16, V>::kWords;
+  if constexpr (kBf16 && V == 1) {  // a bf16 is the high half of its f32
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(bytes);
+    r.w[0] = static_cast<unsigned>(kShared ? *h : __ldg(h)) << 16;
+  } else if constexpr (W >= 4) {
+    const uint4* q = reinterpret_cast<const uint4*>(bytes);
+#pragma unroll
+    for (int i = 0; i < W / 4; ++i) {
+      const uint4 x = kShared ? q[i] : __ldg(q + i);
+      r.w[4 * i] = x.x, r.w[4 * i + 1] = x.y, r.w[4 * i + 2] = x.z, r.w[4 * i + 3] = x.w;
+    }
+  } else if constexpr (W == 2) {
+    const uint2* q = reinterpret_cast<const uint2*>(bytes);
+    const uint2 x = kShared ? *q : __ldg(q);
+    r.w[0] = x.x, r.w[1] = x.y;
+  } else {
+    const unsigned* q = reinterpret_cast<const unsigned*>(bytes);
+    r.w[0] = kShared ? *q : __ldg(q);
+  }
+  return r;
+}
+
+// f += w0 v0, then f += w1 v1, per channel: one level's two taps. Under bf16
+// a product of two bf16 values is exact in f32, so one fused multiply-add
+// gives the bits of the rounded product's sum; under f32 the product is
+// rounded first, as the JAX kernel rounds it.
+template <bool kBf16, int V>
+__device__ __forceinline__ void add_level(float (&f)[V], const Tap& t, const Line<kBf16, V>& v0,
+                                          const Line<kBf16, V>& v1) {
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    if constexpr (kBf16) {
+      f[j] = __fmaf_rn(t.w0, v0[j], f[j]);
+      f[j] = __fmaf_rn(t.w1, v1[j], f[j]);
+    } else {
+      f[j] = __fadd_rn(f[j], __fmul_rn(t.w0, v0[j]));
+      f[j] = __fadd_rn(f[j], __fmul_rn(t.w1, v1[j]));
+    }
+  }
+}
+
+// The forward's channel group: the widest of 8, 4, 2, 1 that divides C.
+int fwd_vec(int C) { return C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : C % 2 == 0 ? 2 : 1; }
+
+// Points a forward CTA takes at once: enough (point, group) items for its
+// threads, as far as two buffers of their taps fit kFwdTapBytes.
+int fwd_points(const Geometry& g) {
+  const int groups = g.C / fwd_vec(g.C);
+  const int want = kFwdThreads / groups > 1 ? kFwdThreads / groups : 1;
+  const int cap = kFwdTapBytes / (2 * 3 * g.L * static_cast<int>(sizeof(Tap)));
+  return want < cap ? want : cap;
+}
+
+size_t fwd_tap_bytes(const Geometry& g) { return 2 * sizeof(Tap) * fwd_points(g) * 3 * g.L; }
+
+// Levels [0, staged) of every axis in shared memory, (3, off[staged], C) in
+// the call's dtype, then two buffers of the tile's taps.
+__host__ __device__ inline size_t fwd_lines_bytes(const Geometry& g, bool bf16) {
+  return (size_t{3} * g.off[g.staged] * g.C * (bf16 ? 2 : 4) + 15) / 16 * 16;
+}
+
+template <bool kBf16, int V>
+__global__ void __launch_bounds__(kFwdThreads, 1) factored_fwd_kernel(
     const float* __restrict__ pts, const void* __restrict__ lines, float* __restrict__ enc,
-    long long n, const Geometry g) {
-  __shared__ Tap taps[kFwdPoints * 3 * kMaxLevels];
-  const long long p0 = static_cast<long long>(blockIdx.x) * kFwdPoints;
-  const int np = static_cast<int>(min(static_cast<long long>(kFwdPoints), n - p0));
-  fill_taps<kBf16>(taps, pts, p0, np, g);
-  __syncthreads();
-  const int C = g.C;
-  for (int t = threadIdx.x; t < np * C; t += blockDim.x) {
-    const int p = t / C;
-    const int c = t % C;
-    const Tap* tp = taps + p * 3 * g.L;
-    const float x = axis_feature<kBf16>(lines, 0, tp, g, c);
-    const float y = axis_feature<kBf16>(lines, 1, tp + g.L, g, c);
-    const float z = axis_feature<kBf16>(lines, 2, tp + 2 * g.L, g, c);
-    enc[(p0 + p) * C + c] = __fmul_rn(__fmul_rn(x, y), z);
+    long long n, const Geometry g, int P) {
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  const int C = g.C, L = g.L, Ls = g.staged;
+  const int S = g.off[Ls];  // staged rows of each axis
+  const long long axis = static_cast<long long>(g.sumR) * C;
+  {  // stage: V-element vectors (V divides C, so every one is aligned)
+    constexpr int kBytes = V * (kBf16 ? 2 : 4);
+    const int per_axis = S * C / V;
+    for (int i = threadIdx.x; i < 3 * per_axis; i += kFwdThreads) {
+      const int a = i / per_axis;
+      const long long src = a * axis + static_cast<long long>(i - a * per_axis) * V;
+      const unsigned char* from = static_cast<const unsigned char*>(lines) + src * (kBytes / V);
+      unsigned char* to = fwd_smem + static_cast<long long>(i) * kBytes;
+      if constexpr (kBytes >= 16) {
+#pragma unroll
+        for (int k = 0; k < kBytes / 16; ++k)
+          reinterpret_cast<uint4*>(to)[k] = __ldg(reinterpret_cast<const uint4*>(from) + k);
+      } else if constexpr (kBytes == 8) {
+        *reinterpret_cast<uint2*>(to) = __ldg(reinterpret_cast<const uint2*>(from));
+      } else if constexpr (kBytes == 4) {
+        *reinterpret_cast<unsigned*>(to) = __ldg(reinterpret_cast<const unsigned*>(from));
+      } else {
+        *reinterpret_cast<unsigned short*>(to) =
+            __ldg(reinterpret_cast<const unsigned short*>(from));
+      }
+    }
+  }
+  Tap* taps = reinterpret_cast<Tap*>(fwd_smem + fwd_lines_bytes(g, kBf16));
+  const int groups = C / V;
+  const int per_point = 3 * L;
+  int buf = 0;
+  for (long long p0 = static_cast<long long>(blockIdx.x) * P; p0 < n;
+       p0 += static_cast<long long>(gridDim.x) * P, buf ^= 1) {
+    const int np = static_cast<int>(min(static_cast<long long>(P), n - p0));
+    // the tile's taps, (point, axis, level), into the buffer the last tile
+    // did not use: one barrier a tile
+    Tap* tb = taps + buf * P * per_point;
+    for (int t = threadIdx.x; t < np * 3; t += kFwdThreads) {
+      const float u = unit_coord(pts[p0 * 3 + t], g);
+      for (int l = 0; l < L; ++l) tb[t * L + l] = make_tap<kBf16>(u, g.res[l], g.off[l]);
+    }
+    __syncthreads();
+    for (int it = threadIdx.x; it < np * groups; it += kFwdThreads) {
+      const int pl = it / groups;
+      const int c0 = (it - pl * groups) * V;
+      const Tap* tp = tb + pl * per_point;
+      // the first unstaged level of every axis, from L2, in flight while the
+      // staged levels are summed
+      Line<kBf16, V> p0v[3], p1v[3];
+      if (Ls < L) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const long long r = a * axis + static_cast<long long>(tp[a * L + Ls].row) * C + c0;
+          p0v[a] = load_line<kBf16, V, false>(lines, r);
+          p1v[a] = load_line<kBf16, V, false>(lines, r + C);
+        }
+      }
+      float f[3][V];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) f[a][j] = 0.f;
+        int l = 0;
+        for (; l + 2 <= Ls; l += 2) {  // two levels' loads in flight, then their sums
+          const Tap t0 = tp[a * L + l], t1 = tp[a * L + l + 1];
+          const long long r0 = (static_cast<long long>(a) * S + t0.row) * C + c0;
+          const long long r1 = (static_cast<long long>(a) * S + t1.row) * C + c0;
+          const Line<kBf16, V> v00 = load_line<kBf16, V, true>(fwd_smem, r0);
+          const Line<kBf16, V> v01 = load_line<kBf16, V, true>(fwd_smem, r0 + C);
+          const Line<kBf16, V> v10 = load_line<kBf16, V, true>(fwd_smem, r1);
+          const Line<kBf16, V> v11 = load_line<kBf16, V, true>(fwd_smem, r1 + C);
+          add_level(f[a], t0, v00, v01);
+          add_level(f[a], t1, v10, v11);
+        }
+        if (l < Ls) {
+          const Tap t = tp[a * L + l];
+          const long long r = (static_cast<long long>(a) * S + t.row) * C + c0;
+          add_level(f[a], t, load_line<kBf16, V, true>(fwd_smem, r),
+                    load_line<kBf16, V, true>(fwd_smem, r + C));
+        }
+        if (Ls < L) add_level(f[a], tp[a * L + Ls], p0v[a], p1v[a]);
+        for (int l0 = Ls + 1; l0 < L; l0 += kBatch) {  // a level past L is loaded, not summed
+          Line<kBf16, V> v0[kBatch], v1[kBatch];
+#pragma unroll
+          for (int j = 0; j < kBatch; ++j) {
+            const long long r =
+                a * axis + static_cast<long long>(tp[a * L + min(l0 + j, L - 1)].row) * C + c0;
+            v0[j] = load_line<kBf16, V, false>(lines, r);
+            v1[j] = load_line<kBf16, V, false>(lines, r + C);
+          }
+#pragma unroll
+          for (int j = 0; j < kBatch; ++j)
+            if (l0 + j < L) add_level(f[a], tp[a * L + l0 + j], v0[j], v1[j]);
+        }
+      }
+      float e[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) e[j] = __fmul_rn(__fmul_rn(f[0][j], f[1][j]), f[2][j]);
+      float* dst = enc + (p0 + pl) * C + c0;
+      if constexpr (V % 4 == 0) {
+#pragma unroll
+        for (int j = 0; j < V; j += 4)
+          reinterpret_cast<float4*>(dst)[j / 4] = make_float4(e[j], e[j + 1], e[j + 2], e[j + 3]);
+      } else if constexpr (V == 2) {
+        *reinterpret_cast<float2*>(dst) = make_float2(e[0], e[1]);
+      } else {
+        dst[0] = e[0];
+      }
+    }
   }
 }
 
@@ -264,8 +454,60 @@ int init_geometry(Geometry* g, const int* res, int L, int C, float aabb, float t
     g->off[l] = off;
     off += res[l] + 1;
   }
+  g->off[L] = off;
   g->sumR = off;
+  g->staged = 0;
   return 0;
+}
+
+// The most levels, from level 0, whose rows of all three axes fit one CTA's
+// shared memory in the call's dtype (nerf_factored_fwd_staged_levels reports it).
+int staged_levels(const Geometry& g, bool bf16) {
+  const long long budget = static_cast<long long>(kMaxSmem - fwd_tap_bytes(g)) - 15;
+  int s = 0;
+  while (s < g.L && 3LL * g.off[s + 1] * g.C * (bf16 ? 2 : 4) <= budget) ++s;
+  return s;
+}
+
+template <bool kBf16, int V>
+int launch_fwd(const float* pts, const void* lines, float* enc, long long n, const Geometry& g,
+               cudaStream_t st) {
+  const size_t smem = fwd_lines_bytes(g, kBf16) + fwd_tap_bytes(g);
+  const int P = fwd_points(g);
+  // the CTAs the card holds at once, asked once per device and shared
+  // memory size (a call's host time is on the card's critical path)
+  static int known_dev = -1, known_cap = 0;
+  static size_t known_smem = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev != known_dev || smem != known_smem) {
+    int sms = 132, resident = 1;
+    err = cudaFuncSetAttribute(factored_fwd_kernel<kBf16, V>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, factored_fwd_kernel<kBf16, V>,
+                                                          kFwdThreads, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    known_dev = dev;
+    known_smem = smem;
+    known_cap = sms * (resident > 0 ? resident : 1);
+  }
+  const long long want = (n + P - 1) / P;
+  const long long cap = known_cap;
+  const unsigned grid = static_cast<unsigned>(want < cap ? want : cap);
+  factored_fwd_kernel<kBf16, V><<<grid, kFwdThreads, smem, st>>>(pts, lines, enc, n, g, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBf16>
+int launch_fwd_any(const float* pts, const void* lines, float* enc, long long n, const Geometry& g,
+               cudaStream_t st) {
+  if (fwd_vec(g.C) == 8) return launch_fwd<kBf16, 8>(pts, lines, enc, n, g, st);
+  if (fwd_vec(g.C) == 4) return launch_fwd<kBf16, 4>(pts, lines, enc, n, g, st);
+  if (fwd_vec(g.C) == 2) return launch_fwd<kBf16, 2>(pts, lines, enc, n, g, st);
+  return launch_fwd<kBf16, 1>(pts, lines, enc, n, g, st);
 }
 
 // (CTAs per axis, chunks per CTA) of the backward over n points
@@ -290,15 +532,19 @@ int nerf_factored_encode_fwd(const void* pts, const void* lines, void* enc, long
   const int rc = init_geometry(&g, res, L, C, aabb, two_aabb);
   if (rc != 0) return rc;
   if (n == 0) return 0;
-  const unsigned grid = static_cast<unsigned>((n + kFwdPoints - 1) / kFwdPoints);
+  g.staged = staged_levels(g, bf16 != 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(pts);
   float* e = static_cast<float*>(enc);
-  if (bf16)
-    factored_fwd_kernel<true><<<grid, kFwdThreads, 0, st>>>(p, lines, e, n, g);
-  else
-    factored_fwd_kernel<false><<<grid, kFwdThreads, 0, st>>>(p, lines, e, n, g);
-  return static_cast<int>(cudaGetLastError());
+  return bf16 ? launch_fwd_any<true>(p, lines, e, n, g, st)
+              : launch_fwd_any<false>(p, lines, e, n, g, st);
+}
+
+// The forward's levels in shared memory (staged_levels) for this geometry.
+int nerf_factored_fwd_staged_levels(const int* res, int L, int C, int bf16) {
+  Geometry g;
+  const int rc = init_geometry(&g, res, L, C, 1.f, 2.f);
+  return rc != 0 ? rc : staged_levels(g, bf16 != 0);
 }
 
 // Bytes of the backward's partial tables for n points.

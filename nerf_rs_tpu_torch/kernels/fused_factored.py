@@ -28,6 +28,7 @@ in the points.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -83,13 +84,23 @@ def _check_cuda(tensors, dev) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+@functools.lru_cache(maxsize=64)
+def _geometry(levels: int, base_res: int, max_res: int, comps: int, aabb: float):
+    """The C arguments of a geometry, built once per geometry: a call's
+    host time is on the card's critical path when the kernel is short."""
+    res = fac_resolutions(ModelConfig(arch="factored", fac_levels=levels, fac_base_res=base_res,
+                                      fac_max_res=max_res, fac_comps=comps))
+    return (ctypes.c_int * len(res))(*res), len(res), comps, float(aabb), 2.0 * float(aabb)
+
+
 def _launch_args(lines: torch.Tensor, cfg: ModelConfig, dtype):
     """The kernels' line operand (bf16 under a bf16 ``dtype``, as the JAX
     wrapper casts it) and the C arguments of the geometry."""
-    res = fac_resolutions(cfg)
     operand = lines.to(torch.bfloat16).contiguous() if _bf16(dtype) else lines
-    return (operand, (ctypes.c_int * len(res))(*res), len(res), cfg.fac_comps,
-            float(cfg.fac_aabb), 2.0 * float(cfg.fac_aabb), int(_bf16(dtype)))
+    if operand.device.type == "cuda" and operand.data_ptr() % 16:
+        operand = operand.clone()  # the forward's vector loads start on 16 B
+    return (operand, *_geometry(cfg.fac_levels, cfg.fac_base_res, cfg.fac_max_res,
+                                cfg.fac_comps, cfg.fac_aabb), int(_bf16(dtype)))
 
 
 def _raise_on(rc: int, lib, what: str) -> None:
@@ -203,6 +214,9 @@ def _library() -> ctypes.CDLL:
         bwd = lib.nerf_factored_encode_bwd
         bwd.argtypes = [vp] * 5 + [i64, pres, i32, i32, f32, f32, i32, vp]
         bwd.restype = i32
+        staged = lib.nerf_factored_fwd_staged_levels
+        staged.argtypes = [pres, i32, i32, i32]
+        staged.restype = i32
         size = lib.nerf_factored_bwd_scratch_bytes
         size.argtypes = [i64, i32, i32]
         size.restype = i64

@@ -27,12 +27,16 @@ The fetches' backward is ``scatter_rows``: the cotangents of the fetched
 values summed into the table per element in fetch order (the JAX package's
 ``jnp.take`` VJP, an XLA scatter-add; it has no Pallas kernel). The order is
 fixed, so two calls give the same bits on the card, where ``index_add_``'s
-float atomics do not. The wrapper sorts the fetch keys with a stable sort,
-finds each distinct row's run and cuts it into chunks of SCATTER_CHUNK fetches
-(integer work, deterministic on either device); the kernels
-(``csrc/gather_rows.cu``) or the plain version ``scatter_rows_reference``
-then sum each chunk in fetch order and each row's chunks in chunk order, the
-same additions in the same order, so the two give the same bits.
+float atomics do not: per element, each chunk of SCATTER_CHUNK fetches of its
+row in fetch order, then the row's chunks in order. On the card every step
+is a kernel of ``csrc/gather_rows.cu`` and reads its counts there, so a call
+never waits for the host: a stable LSD radix sort of the keys (a key outside
+the table mapped to the spare value ``rows``, so ``sort_plan(rows)`` needs
+only ``rows.bit_length()`` bits), each row's run found from the key changes,
+and one reduce that writes a run of one chunk straight into the table and
+sums a longer run's chunks into slots first. The plain version
+``scatter_rows_reference`` makes the same additions in the same order, so
+the two give the same bits.
 """
 
 from __future__ import annotations
@@ -113,6 +117,52 @@ def gather_pairs(table_flat: torch.Tensor, fidx: torch.Tensor) -> torch.Tensor:
 
 SCATTER_CHUNK = 64  # fetches per partial sum: the longest sequential walk
 
+def sort_plan(rows: int):
+    """(key bits, passes, digit bits) of the sort of keys in [0, rows], as
+    csrc/gather_rows.cu plans it (``nerf_sort_passes``,
+    ``nerf_sort_digit_bits``): a key outside the table becomes ``rows``,
+    so the keys need ``rows.bit_length()`` bits, sorted in passes of 8- or
+    9-bit digits, whichever takes fewer passes, 8 on a tie. Pass p sorts
+    by bits [p d, (p + 1) d) of the key."""
+    bits = max(1, int(rows).bit_length())
+    digit = 9 if -(-bits // 9) < -(-bits // 8) else 8
+    return bits, -(-bits // digit), digit
+
+
+def sort_key(key: torch.Tensor, rows: int) -> torch.Tensor:
+    """The sorted value of each key: the key, or ``rows`` for one outside
+    [0, rows), so that no key aliases a row when the sort reads only the
+    plan's bits."""
+    return torch.where((key >= 0) & (key < rows), key, torch.full_like(key, rows))
+
+
+def sort_keys(key: torch.Tensor, rows: int):
+    """scatter_rows' sort alone: (the keys mapped by ``sort_key`` in stable
+    order, (M,) int32; their positions in ``key``, (M,) int32), the same as
+    ``torch.sort(sort_key(key, rows), stable=True)``. Launches the sort's
+    kernels for CUDA tensors (counted in ``sort_keys.launches``); runs the
+    plain version for CPU tensors."""
+    if key.dim() != 1 or key.dtype != torch.int32 or not key.is_contiguous() or rows < 1:
+        raise ValueError(f"key must be a contiguous 1-D int32 tensor and rows >= 1, got "
+                         f"{key.dtype} {tuple(key.shape)}, rows {rows}")
+    if key.device.type == "cpu":
+        sk, perm = torch.sort(sort_key(key, rows), stable=True)
+        return sk, perm.int()
+    if key.device.type != "cuda":
+        raise ValueError(f"no kernel for device {key.device}")
+    M = key.shape[0]
+    keys, ids = torch.empty_like(key), torch.empty_like(key)
+    if M == 0:
+        return keys, ids
+    lib = _library()
+    work = torch.empty(lib.nerf_scatter_workspace_bytes(M, rows, 1, 0), dtype=torch.uint8,
+                       device=key.device)
+    rc = lib.nerf_radix_sort(key.data_ptr(), M, rows, work.data_ptr(), keys.data_ptr(),
+                             ids.data_ptr(), torch.cuda.current_stream(key.device).cuda_stream)
+    _raise_on(rc, lib, "radix sort")
+    sort_keys.launches += 1
+    return keys, ids
+
 
 def _runs(key: torch.Tensor):
     """(perm, rows, start, count): the stable order of the keys and, per
@@ -124,20 +174,6 @@ def _runs(key: torch.Tensor):
     return perm, rows, start, count
 
 
-def _chunks(start: torch.Tensor, count: torch.Tensor):
-    """Each run cut into chunks of at most SCATTER_CHUNK entries: (chunk
-    start, chunk count, each run's first chunk, each run's chunk count)."""
-    nchunk = (count + SCATTER_CHUNK - 1) // SCATTER_CHUNK
-    first = torch.cumsum(nchunk, 0) - nchunk
-    n_chunks = int(first[-1] + nchunk[-1])
-    owner = torch.repeat_interleave(torch.arange(count.shape[0], device=count.device), nchunk,
-                                    output_size=n_chunks)
-    cstart = start[owner] + (torch.arange(n_chunks, device=count.device) - first[owner]) * \
-        SCATTER_CHUNK
-    ccount = torch.clamp(start[owner] + count[owner] - cstart, max=SCATTER_CHUNK)
-    return cstart, ccount.int(), first, nchunk.int()
-
-
 def scatter_rows(g: torch.Tensor, key: torch.Tensor, lane0: Optional[torch.Tensor],
                  lanes: Sequence[int], shape) -> torch.Tensor:
     """The gradient of a (rows, width) f32 table of ``shape`` whose fetch j
@@ -145,11 +181,12 @@ def scatter_rows(g: torch.Tensor, key: torch.Tensor, lane0: Optional[torch.Tenso
     None: 0) and received the cotangents ``g`` (M, C) f32: out[key[j],
     lane0[j] + lanes[c]] += g[j, c], summed in a fixed order: per element,
     the fetches of each chunk of SCATTER_CHUNK fetches of its row in fetch
-    order, then the chunks in order. ``key`` and ``lane0`` are (M,) int32;
-    width <= 128, C <= 32, and the columns of one fetch distinct and inside
-    the row. Launches the kernels for CUDA tensors (counted once per call in
-    ``scatter_rows.launches``), on the current stream; runs the plain version
-    for CPU tensors."""
+    order, then the chunks in order; keys outside the table are skipped.
+    ``key`` and ``lane0`` are (M,) int32, M < 2^31; width <= 128, C <= 32,
+    and the columns of one fetch distinct and inside the row. Launches the
+    kernels for CUDA tensors (counted once per call in
+    ``scatter_rows.launches``), on the current stream without
+    synchronising; runs the plain version for CPU tensors."""
     rows_n, width = shape
     M, C = g.shape
     if len(lanes) != C or not 0 < C <= 32 or not 0 < width <= 128 or max(lanes) >= width:
@@ -165,20 +202,22 @@ def scatter_rows(g: torch.Tensor, key: torch.Tensor, lane0: Optional[torch.Tenso
         return scatter_rows_reference(g, key, lane0, lanes, shape)
     if g.device.type != "cuda":
         raise ValueError(f"no kernel for device {g.device}")
-    out = torch.zeros(rows_n, width, device=g.device)
+    if M >= 2 ** 31 or not 0 < rows_n < 2 ** 31:
+        raise ValueError(f"{M} fetches into {rows_n} rows: the kernels take fewer than 2^31 "
+                         f"of each and at least one row")
     if M == 0:
-        return out
-    perm, rows, start, count = _runs(key)
-    cstart, ccount, first, nchunk = _chunks(start, count)
-    partial = torch.empty(cstart.shape[0], width, device=g.device)
+        return torch.zeros(rows_n, width, device=g.device)
+    out = torch.empty(rows_n, width, device=g.device)  # the kernels write every row
+    if g.data_ptr() % 16 or key.data_ptr() % 16:
+        g, key = g.clone(), key.clone()  # the kernels' vector loads
     lib = _library()
-    c_lanes = (ctypes.c_int * C)(*lanes)
-    rc = lib.nerf_scatter_rows(g.data_ptr(), perm.data_ptr(),
-                               None if lane0 is None else lane0.data_ptr(), cstart.data_ptr(),
-                               ccount.data_ptr(), cstart.shape[0], first.data_ptr(),
-                               nchunk.data_ptr(), rows.data_ptr(), rows.shape[0], c_lanes, C,
-                               partial.data_ptr(), out.data_ptr(), rows_n, width,
-                               torch.cuda.current_stream(g.device).cuda_stream)
+    pair = lane0 is None and tuple(lanes) == (0, 1) and width == 2  # the sort carries g
+    work = torch.empty(lib.nerf_scatter_workspace_bytes(M, rows_n, width, pair),
+                       dtype=torch.uint8, device=g.device)
+    rc = lib.nerf_scatter_rows(g.data_ptr(), key.data_ptr(),
+                               None if lane0 is None else lane0.data_ptr(),
+                               (ctypes.c_int * C)(*lanes), C, M, rows_n, width, work.data_ptr(),
+                               out.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
     if rc < 0:
         raise ValueError("scatter_rows kernel refused the call: width or C out of range")
     _raise_on(rc, lib, "scatter_rows")
@@ -191,6 +230,7 @@ def scatter_rows(g: torch.Tensor, key: torch.Tensor, lane0: Optional[torch.Tenso
 gather_rows.launches = 0
 gather_pairs.launches = 0
 scatter_rows.launches = 0
+sort_keys.launches = 0
 
 
 def _inside(i: torch.Tensor, size: int) -> torch.Tensor:
@@ -279,8 +319,15 @@ def _library() -> ctypes.CDLL:
         lib.nerf_gather_rows.restype = i32
         lib.nerf_gather_pairs.argtypes = [vp, i64, vp, vp, i64, vp]
         lib.nerf_gather_pairs.restype = i32
-        lib.nerf_scatter_rows.argtypes = ([vp] * 5 + [i64] + [vp] * 3
-                                           + [i64, ctypes.POINTER(i32), i32, vp, vp, i64, i32, vp])
+        for plan in (lib.nerf_sort_passes, lib.nerf_sort_digit_bits):
+            plan.argtypes = [i64]
+            plan.restype = i32
+        lib.nerf_scatter_workspace_bytes.argtypes = [i64, i64, i32, i32]
+        lib.nerf_scatter_workspace_bytes.restype = i64
+        lib.nerf_radix_sort.argtypes = [vp, i64, i64, vp, vp, vp, vp]
+        lib.nerf_radix_sort.restype = i32
+        lib.nerf_scatter_rows.argtypes = [vp, vp, vp, ctypes.POINTER(i32), i32, i64, i64, i32,
+                                          vp, vp, vp]
         lib.nerf_scatter_rows.restype = i32
         lib.nerf_cuda_error_string.argtypes = [i32]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p

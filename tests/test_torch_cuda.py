@@ -15,6 +15,8 @@ a machine with torch and CUDA alone (the repo's conftest.py needs JAX):
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -370,6 +372,44 @@ def test_factored_kernels_match_plain_versions(cfg, n, dtype):
     assert torch.equal(out.detach().reshape(n, -1), enc) and torch.equal(leaf.grad, d)
 
 
+# geometries of K3's forward, with the levels that its CTAs hold in shared
+# memory beside two buffers of a tile's taps (the coarsest first) under bf16
+# and f32 lines: the main width (0-4 of 6 under bf16, 0-3 under f32), every
+# level, and none under f32 (a first level of 2,601 knots x 8 channels x 3
+# axes is more than a CTA holds)
+FAC_ALL = ModelConfig(arch="factored", fac_levels=4, fac_base_res=8, fac_max_res=64, fac_comps=16)
+FAC_NONE = ModelConfig(arch="factored", fac_levels=2, fac_base_res=2600, fac_max_res=5000,
+                       fac_comps=8)
+FAC_STAGED = {"main": (FAC_MAIN, 5, 4), "all staged": (FAC_ALL, 4, 4), "none": (FAC_NONE, 1, 0)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+@pytest.mark.parametrize("geometry", list(FAC_STAGED))
+def test_factored_forward_matches_plain_version_at_every_staging(geometry, dtype):
+    cfg, bf16_levels, f32_levels = FAC_STAGED[geometry]
+    dev = _device()
+    lines, pts, g = _factored_inputs(cfg, 100_003, dev, seed=2)
+    res = k3.fac_resolutions(cfg)
+    c_res = (ctypes.c_int * len(res))(*res)
+    assert k3._library().nerf_factored_fwd_staged_levels(
+        c_res, len(res), cfg.fac_comps, int(dtype is not None)) == (
+            bf16_levels if dtype is not None else f32_levels)
+    enc = k3.fused_factored_encode_forward(lines, pts, cfg, dtype)
+    torch.cuda.synchronize()
+    want = k3.fused_factored_encode_reference(lines, pts, cfg, dtype)
+    assert bool(torch.isfinite(enc).all())
+    assert float((enc - want).abs().max()) <= k3.KERNEL_TOL["enc"]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+def test_factored_forward_is_deterministic(dtype):
+    dev = _device()
+    lines, pts, _ = _factored_inputs(FAC_MAIN, 300_001, dev, seed=3)
+    a = k3.fused_factored_encode_forward(lines, pts, FAC_MAIN, dtype)
+    b = k3.fused_factored_encode_forward(lines, pts, FAC_MAIN, dtype)
+    assert torch.equal(a, b)
+
+
 def test_factored_backward_is_deterministic():
     dev = _device()
     lines, pts, g = _factored_inputs(FAC_MAIN, 300_001, dev, seed=1)
@@ -582,23 +622,95 @@ def test_unbounded_train_kernel_is_deterministic():
         assert torch.equal(x, y)
 
 
+def _scatter_keys(kind, n, rows, rng):
+    if kind == "zipf":  # keys crowded onto few rows (long runs)
+        return rng.zipf(1.5, n) % rows
+    if kind == "one row":  # a single run of n fetches: thousands of chunks at n = 300,001
+        return np.full(n, rows // 2)
+    key = rng.integers(-rows, 2 * rows, n)  # outside the table, below 0 and past the last row
+    key[::7] = -1
+    key[1::11] = rows
+    return key
+
+
+@pytest.mark.parametrize("kind", ["zipf", "one row", "outside", "small tables"])
 @pytest.mark.parametrize("n", [1, 37, 300_001])
-def test_scatter_matches_plain_version_bit_for_bit(n):
+def test_scatter_matches_plain_version_bit_for_bit(n, kind):
     """scatter_rows against its plain version on the card, both table
-    layouts' shapes, keys crowded onto few rows (long runs)."""
+    layouts' shapes: keys crowded onto few rows, one row of every fetch,
+    keys outside the table (skipped), and tables whose keys take one pass of
+    the sort (1 row: 8-bit digits; 257 rows: 9-bit), its last pass writing
+    the rows' runs; two launches give the same bits."""
     dev = _device()
     rng = np.random.default_rng(n)
-    for (rows, width), lanes, with_lane0 in (((4096, 128), hashgrid._CORNER_LANES, True),
-                                             ((65536, 2), (0, 1), False)):
-        key = torch.from_numpy((rng.zipf(1.5, n) % rows).astype(np.int32)).to(dev)
+    shapes = (((4096, 128), hashgrid._CORNER_LANES, True), ((65536, 2), (0, 1), False))
+    if kind == "small tables":
+        shapes = tuple(((rows, width), lanes, with_lane0) for rows in (1, 257)
+                       for (_, width), lanes, with_lane0 in shapes)
+    for (rows, width), lanes, with_lane0 in shapes:
+        keys = "outside" if kind == "small tables" else kind
+        key = torch.from_numpy(_scatter_keys(keys, n, rows, rng).astype(np.int32)).to(dev)
         lane0 = (torch.from_numpy(rng.integers(0, 22, n).astype(np.int32) * 2).to(dev)
                  if with_lane0 else None)
         g = torch.from_numpy(rng.normal(size=(n, len(lanes))).astype(np.float32)).to(dev)
         before = k4.scatter_rows.launches
         got = k4.scatter_rows(g, key, lane0, lanes, (rows, width))
+        again = k4.scatter_rows(g, key, lane0, lanes, (rows, width))
         torch.cuda.synchronize()
-        assert k4.scatter_rows.launches == before + 1
+        assert k4.scatter_rows.launches == before + 2
         assert torch.equal(got, k4.scatter_rows_reference(g, key, lane0, lanes, (rows, width)))
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("rows", [1, 200, 257, 2 ** 17, 2 ** 23],
+                         ids=["1 bit", "8 bits", "9 bits", "18 bits", "24 bits"])
+@pytest.mark.parametrize("n", [1, 37, 300_001])
+def test_sort_matches_torch_sort(n, rows):
+    """scatter_rows' radix sort alone: the keys mapped by sort_key (outside
+    the table: the spare value rows) in stable order and their positions,
+    the same as torch.sort(stable=True)'s."""
+    dev = _device()
+    rng = np.random.default_rng(n + rows)
+    key = rng.zipf(1.3, n) % (rows + 9) - 4  # a few below 0 and past the last row
+    key = torch.from_numpy(key.astype(np.int32)).to(dev)
+    before = k4.sort_keys.launches
+    got_keys, got_perm = k4.sort_keys(key, rows)
+    torch.cuda.synchronize()
+    assert k4.sort_keys.launches == before + 1
+    want_keys, want_perm = torch.sort(k4.sort_key(key, rows), stable=True)
+    assert torch.equal(got_keys, want_keys)
+    assert torch.equal(got_perm.long(), want_perm)
+
+
+def test_sort_plan_matches_the_kernels():
+    """The wrapper's mirror of the sort's plan gives the kernels' passes and
+    digit bits."""
+    _device()
+    lib = k4._library()
+    for rows in (1, 2, 255, 256, 257, 511, 512, 65535, 65536, 2 ** 17, 2 ** 23, 2 ** 31 - 1):
+        assert (lib.nerf_sort_passes(rows), lib.nerf_sort_digit_bits(rows)) == \
+            k4.sort_plan(rows)[1:], rows
+
+
+@pytest.mark.parametrize("brick", [True, False], ids=["brick", "flat"])
+def test_scatter_does_not_synchronise(brick):
+    """scatter_rows finds its runs and chunks on the card: a call under
+    set_sync_debug_mode("error") does not raise."""
+    dev = _device()
+    rng = np.random.default_rng(5)
+    n = 100_003
+    rows, width, lanes = (4096, 128, hashgrid._CORNER_LANES) if brick else (65536, 2, (0, 1))
+    key = torch.from_numpy(_scatter_keys("zipf", n, rows, rng).astype(np.int32)).to(dev)
+    lane0 = (torch.from_numpy(rng.integers(0, 22, n).astype(np.int32) * 2).to(dev)
+             if brick else None)
+    g = torch.from_numpy(rng.normal(size=(n, len(lanes))).astype(np.float32)).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = k4.scatter_rows(g, key, lane0, lanes, (rows, width))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got, k4.scatter_rows_reference(g, key, lane0, lanes, (rows, width)))
 
 
 @pytest.mark.parametrize("brick", [True, False], ids=["brick", "flat"])
