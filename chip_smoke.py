@@ -60,7 +60,12 @@ Phases, each fatal (any failure exits non-zero):
      versions, bf16 and f32, on the points of sphere rays with 128
      jittered samples (every 8th pushed out past the AABB, so clipped):
      4096 rays (524,288 points, a train step's call) and 4,103 rays
-     (ragged); two forward and two backward launches bit-identical.
+     (ragged); two forward and two backward launches bit-identical. The
+     backward also vs its float64 witness (the plain version's rounded
+     operands, float64 sums; the plain version's own gap is printed), on
+     the step's points shuffled, on FAC_NONE under bf16 (a per-axis table
+     larger than a CTA's shared memory), and once under
+     torch.cuda.set_sync_debug_mode("error").
  13. the factored path (FACTORED_CONFIG: the bench's factored window,
      128x128 sphere, 4096 rays x 128 samples, mixed, lr 1e-2, with
      fac_fused on): train/loop.train for FAC_STEPS steps (exactly one K3
@@ -73,11 +78,13 @@ Phases, each fatal (any failure exits non-zero):
      LEARN_VIEWS views above FAC_PSNR.
  14. times: the factored step through K3 and through the CLI's route, a
      profile of the K3 step (device idle), K3's forward and backward at
-     524,288 points (the forward with bf16 and with f32 lines) and its
-     forward at a 4,194,304-point render chunk,
-     each beside its plain version, a PyTorch library path
-     (F.embedding_bag over the 2L taps per axis, and its autograd) and
-     its bound.
+     524,288 points (the forward with bf16 and with f32 lines, the
+     backward with bf16 lines on ray-ordered and on shuffled points and
+     with f32 lines; the backward's device time split into kernel A, the
+     d_feat kernel, kernel B, the scatter, and the reduce) and its forward
+     at a 4,194,304-point render chunk, each beside its plain version, a
+     PyTorch library path (F.embedding_bag over the 2L taps per axis, and
+     its autograd) and its bound.
  15. K4, the row gather (gather_rows, gather_pairs), vs its plain versions,
      bit for bit, on the indices of an ngp train step (4096 rays x 128
      jittered samples, every 8th point past the AABB) captured from the
@@ -1426,17 +1433,83 @@ def factored_points(ds, cam, n_rays: int, seed: int):
     return pts.contiguous()
 
 
-def check_factored_kernel(ds, mcfg, cam, lines) -> dict:
-    """K3's forward and backward against their plain versions, bf16 and
-    f32, on a train step's 524,288 points and on 4,103 rays' (ragged);
-    two backward launches bit-identical. Returns the largest absolute
-    differences (enc, d_lines) and the largest d_lines one relative to its
-    axis's largest entry."""
+# K3's backward on the geometry no forward level of whose table fits in
+# shared memory under f32 (tests/test_torch_cuda.py's FAC_NONE: 2,601 + 5,001
+# knots x 8 channels); its f32 backward is refused, its bf16 one is taken
+FAC_NONE = dict(arch="factored", fac_levels=2, fac_base_res=2600, fac_max_res=5000, fac_comps=8)
+
+
+def d_lines_witness(lines, pts, g, mcfg, dtype):
+    """The float64 witness of K3's backward: the plain version's d_feat
+    (rounded as the kernel rounds it) and hat weights, their products and
+    sums in float64, so a gap names the side that strays."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+    from nerf_rs_tpu_torch.models.factored import hat_weights, unit_coords
+
+    d_feat = k3.fused_factored_dfeat_reference(lines, pts, g, mcfg, dtype).double()
+    u = unit_coords(pts, mcfg.fac_aabb)
+    out = torch.zeros(lines.shape, dtype=torch.float64, device=lines.device)
+    for a in range(3):
+        for i in range(0, u.shape[0], k3.PLAIN_CHUNK):
+            w = k3._round(hat_weights(u[i:i + k3.PLAIN_CHUNK, a], mcfg), dtype).double()
+            out[a] += w.t() @ d_feat[a, i:i + k3.PLAIN_CHUNK]
+    return out
+
+
+def check_backward_case(label, lines, pts, g, mcfg, dtype) -> dict:
+    """One K3 backward case: two launches bit-identical, finite, and held
+    to its plain version and to the float64 witness at KERNEL_TOL (per axis,
+    relative to the axis's largest entry). Returns the differences."""
     import torch
 
     from nerf_rs_tpu_torch.kernels import fused_factored as k3
 
-    errs = {"enc": 0.0, "d_lines_abs": 0.0, "d_lines": 0.0}
+    d = k3.fused_factored_encode_backward(lines, pts, g, mcfg, dtype)
+    again = k3.fused_factored_encode_backward(lines, pts, g, mcfg, dtype)
+    torch.cuda.synchronize()
+    if not torch.equal(d, again):
+        fail(f"two K3 backward launches [{label}] gave different bits")
+    if not bool(torch.isfinite(d).all()):
+        fail(f"K3 backward [{label}]: non-finite outputs")
+    want = k3.fused_factored_encode_backward_reference(lines, pts, g, mcfg, dtype)
+    wit = d_lines_witness(lines, pts, g, mcfg, dtype)
+    errs = {"d_lines": max(leaf_err(d[a].double(), wit[a]) for a in range(3)),
+            "plain_vs_witness": max(leaf_err(want[a].double(), wit[a]) for a in range(3)),
+            "vs_plain": max(leaf_err(d[a], want[a]) for a in range(3))}
+    hold(f"K3 backward vs its float64 witness [{label}]", {"d_lines": errs["d_lines"]},
+         k3.KERNEL_TOL)
+    hold(f"K3 backward vs plain [{label}]", {"d_lines": errs["vs_plain"]}, k3.KERNEL_TOL)
+    print(f"  plain version vs the witness [{label}]: {errs['plain_vs_witness']:.3g}")
+    errs["abs"] = float((d - want).abs().max())
+    return errs
+
+
+def check_factored_kernel(ds, mcfg, cam, lines) -> dict:
+    """K3's forward and backward against their plain versions, bf16 and
+    f32, on a train step's 524,288 points and on 4,103 rays' (ragged); the
+    backward also against its float64 witness, on the step's points
+    shuffled, and on FAC_NONE under bf16; two launches bit-identical; one
+    backward call under torch.cuda.set_sync_debug_mode("error"). Returns the
+    largest absolute differences (enc, d_lines) and the largest d_lines one
+    relative to its axis's largest entry, against the plain version and
+    against the witness."""
+    import torch
+
+    from nerf_rs_tpu_torch import ModelConfig
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+    from nerf_rs_tpu_torch.models.factored import basis_dim
+
+    errs = {"enc": 0.0, "d_lines_abs": 0.0, "d_lines": 0.0, "d_lines_witness": 0.0,
+            "plain_witness": 0.0}
+
+    def keep(got):
+        errs["d_lines"] = max(errs["d_lines"], got["vs_plain"])
+        errs["d_lines_witness"] = max(errs["d_lines_witness"], got["d_lines"])
+        errs["plain_witness"] = max(errs["plain_witness"], got["plain_vs_witness"])
+        errs["d_lines_abs"] = max(errs["d_lines_abs"], got["abs"])
+
     for n_rays in (FAC_RAYS, N_RAYS):
         pts = factored_points(ds, cam, n_rays, 11)
         clipped = int((pts.abs() > mcfg.fac_aabb).any(-1).sum())
@@ -1445,24 +1518,40 @@ def check_factored_kernel(ds, mcfg, cam, lines) -> dict:
         for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
             enc = k3.fused_factored_encode_forward(lines, pts, mcfg, dtype)
             enc_again = k3.fused_factored_encode_forward(lines, pts, mcfg, dtype)
-            d = k3.fused_factored_encode_backward(lines, pts, g, mcfg, dtype)
-            again = k3.fused_factored_encode_backward(lines, pts, g, mcfg, dtype)
             torch.cuda.synchronize()
             if not torch.equal(enc, enc_again):
                 fail(f"two K3 forward launches [{name}, {pts.shape[0]} points] gave different bits")
-            if not (bool(torch.isfinite(enc).all()) and bool(torch.isfinite(d).all())):
-                fail(f"K3 [{name}, {pts.shape[0]} points]: non-finite outputs")
-            if not torch.equal(d, again):
-                fail(f"two K3 backward launches [{name}, {pts.shape[0]} points] gave different bits")
-            want = k3.fused_factored_encode_backward_reference(lines, pts, g, mcfg, dtype)
-            got = {"enc": float((enc - k3.fused_factored_encode_reference(lines, pts, mcfg, dtype))
-                                .abs().max()),
-                   "d_lines": max(leaf_err(d[a], want[a]) for a in range(3))}
-            hold(f"K3 vs plain [{name}, {pts.shape[0]} points, {clipped} clipped]", got,
-                 k3.KERNEL_TOL)
-            errs["enc"] = max(errs["enc"], got["enc"])
-            errs["d_lines"] = max(errs["d_lines"], got["d_lines"])
-            errs["d_lines_abs"] = max(errs["d_lines_abs"], float((d - want).abs().max()))
+            if not bool(torch.isfinite(enc).all()):
+                fail(f"K3 forward [{name}, {pts.shape[0]} points]: non-finite outputs")
+            got = float((enc - k3.fused_factored_encode_reference(lines, pts, mcfg, dtype))
+                        .abs().max())
+            hold(f"K3 forward vs plain [{name}, {pts.shape[0]} points, {clipped} clipped]",
+                 {"enc": got}, k3.KERNEL_TOL)
+            errs["enc"] = max(errs["enc"], got)
+            keep(check_backward_case(f"{name}, {pts.shape[0]} points, {clipped} clipped", lines,
+                                     pts, g, mcfg, dtype))
+        if n_rays == FAC_RAYS:
+            perm = torch.randperm(pts.shape[0], generator=torch_generator(pts.device, 13),
+                                  device=pts.device)
+            keep(check_backward_case(f"bf16, {pts.shape[0]} points shuffled", lines,
+                                     pts[perm].contiguous(), g, mcfg, torch.bfloat16))
+            torch.cuda.synchronize()
+            try:
+                torch.cuda.set_sync_debug_mode("error")
+                k3.fused_factored_encode_backward(lines, pts, g, mcfg, torch.bfloat16)
+            except RuntimeError as e:
+                fail(f"K3 backward synchronises with the host: {e}")
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            print("K3 backward: no host sync under set_sync_debug_mode('error')")
+    none = ModelConfig(**FAC_NONE)
+    gen = torch_generator(lines.device, 14)
+    none_lines = 0.25 * torch.randn(3, basis_dim(none), none.fac_comps, generator=gen,
+                                    device=lines.device)
+    pts = factored_points(ds, cam, N_RAYS, 15)
+    g = torch.randn(pts.shape[0], none.fac_comps, generator=gen, device=pts.device)
+    keep(check_backward_case(f"bf16, FAC_NONE (sumR {basis_dim(none)}), {pts.shape[0]} points",
+                             none_lines, pts, g, none, torch.bfloat16))
     print("K3 forward and backward: two launches on the same inputs give bit-identical outputs")
     return errs
 
@@ -1710,10 +1799,17 @@ def time_factored(card: str, ds, lines) -> dict:
 
     C, R = mcfg.fac_comps, basis_dim(mcfg)
     rows = []
-    for kind, n_rays, dtype in (("forward", FAC_RAYS, bf16), ("backward", FAC_RAYS, bf16),
-                                ("forward", FAC_CHUNK, bf16), ("forward", FAC_RAYS, None)):
+    for kind, n_rays, dtype, order in (("forward", FAC_RAYS, bf16, "ray"),
+                                       ("backward", FAC_RAYS, bf16, "ray"),
+                                       ("forward", FAC_CHUNK, bf16, "ray"),
+                                       ("forward", FAC_RAYS, None, "ray"),
+                                       ("backward", FAC_RAYS, bf16, "shuffled"),
+                                       ("backward", FAC_RAYS, None, "ray")):
         pts = factored_points(ds, cfg.camera, n_rays, 13)
         n = pts.shape[0]
+        if order == "shuffled":
+            pts = pts[torch.randperm(n, generator=torch_generator(dev, 15), device=dev)]
+            pts = pts.contiguous()
         g = torch.randn(n, C, generator=torch_generator(dev, 14), device=dev)
         lib_lines = lines.detach().clone().requires_grad_(kind == "backward")
         if kind == "forward":
@@ -1727,10 +1823,10 @@ def time_factored(card: str, ds, lines) -> dict:
             nbytes = n * (12 + 4 * C) + (2 if dtype == bf16 else 4) * 3 * R * C
             flops = n * (3 * 2 * 2 * mcfg.fac_levels * C + 2 * C)
         else:
-            fn = lambda: k3.fused_factored_encode_backward(lines, pts, g, mcfg, bf16)  # noqa: E731
+            fn = lambda: k3.fused_factored_encode_backward(lines, pts, g, mcfg, dtype)  # noqa: E731
             plain = lambda: k3.fused_factored_encode_backward_reference(  # noqa: E731
-                lines, pts, g, mcfg, bf16)
-            enc = library_factored(lib_lines, pts, mcfg, bf16)
+                lines, pts, g, mcfg, dtype)
+            enc = library_factored(lib_lines, pts, mcfg, dtype)
             library = lambda: torch.autograd.grad(enc, lib_lines, g, retain_graph=True)  # noqa: E731
             lib_err = leaf_err(library()[0], plain())
             # points and g in, the bf16 line tables, d_lines out; per point the
@@ -1746,14 +1842,34 @@ def time_factored(card: str, ds, lines) -> dict:
         library_ms = event_ms(library)
         b, by = bound_ms(flops, nbytes, PEAK_F32)
         dense_ms = 3 * n * R * C * 2 * (2 if kind == "backward" else 1) / PEAK_FLOPS * 1e3
-        row = {"kernel": kind, "points": n, "lines": "bf16" if dtype == bf16 else "f32",
+        row = {"kernel": kind, "points": n, "order": order,
+               "lines": "bf16" if dtype == bf16 else "f32",
                "ms": ms, "ms_window": ms_window, "plain_ms": plain_ms,
                "library_ms": library_ms, "library_vs_plain": lib_err, "bound_ms": b,
                "bound_by": by, "sparse_flops": flops, "bytes": nbytes,
                "dense_bound_ms": dense_ms}
-        print(f"K3 {kind}, {n} points, {row['lines']} lines [{card}]: kernel {ms:.3f} ms alone "
-              f"({ms_window:.3f} ms a call in a window of {GATHER_CALLS}), plain {plain_ms:.3f} "
-              f"ms, "
+        split = ""
+        if kind == "backward":
+            # the backward's device time by kernel: d_feat (kernel A), the
+            # scatter (kernel B: tensor cores under bf16, CUDA cores under
+            # f32) and the fixed-order reduce
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            per = {kernel_name(k).split("<")[0]: v / 5 for k, v in device_ms(prof).items()}
+            row["kernel_a_ms"] = per.get("factored_dfeat_kernel", 0.0)
+            row["kernel_b_ms"] = (per.get("factored_scatter_mma_kernel", 0.0)
+                                  + per.get("factored_scatter_walk_kernel", 0.0))
+            row["reduce_ms"] = per.get("factored_reduce_kernel", 0.0)
+            row["device_ms"] = sum(per.values())
+            split = (f"; device {row['device_ms']:.3f} ms: kernel A (d_feat) "
+                     f"{row['kernel_a_ms']:.3f}, kernel B (scatter) {row['kernel_b_ms']:.3f}, "
+                     f"reduce {row['reduce_ms']:.4f}; by kernel: "
+                     + ", ".join(f"{k} {v:.4f}" for k, v in sorted(per.items())))
+        print(f"K3 {kind}, {n} {order} points, {row['lines']} lines [{card}]: kernel {ms:.3f} ms "
+              f"alone ({ms_window:.3f} ms a call in a window of {GATHER_CALLS}{split}), plain "
+              f"{plain_ms:.3f} ms, "
               f"library {library_ms:.3f} ms (vs plain {lib_err:.3g}), bound {b:.4f} ms ({by}; "
               f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP at {PEAK_F32 / 1e12:.0f} "
               f"TFLOP/s f32), {nbytes / (ms * 1e-3) / 1e9:.0f} GB/s; the dense hat product "
@@ -2747,7 +2863,7 @@ def main() -> int:
 
     # ---- 14. times of the factored path and K3 ----
     fac_times = time_factored(card, fac_ds, fac_lines)
-    fac_fwd, fac_bwd, fac_chunk, fac_f32 = fac_times.pop("calls")
+    fac_fwd, fac_bwd, fac_chunk, fac_f32, fac_bwd_shuffled, fac_bwd_f32 = fac_times.pop("calls")
 
     # ---- 17. times of the hash-grid path and K4 ----
     ngp_times = time_ngp(card, fo, fd)
@@ -2839,12 +2955,12 @@ def main() -> int:
         "launches_by_path": k3b_paths,
         "max_abs_err": fac_errs["d_lines_abs"],
         "max_rel_err": fac_errs["d_lines"],
-        "ms": fac_bwd["ms"],
-        "plain_ms": fac_bwd["plain_ms"],
-        "bound_ms": fac_bwd["bound_ms"],
-        "bound_by": fac_bwd["bound_by"],
-        "library_ms": fac_bwd["library_ms"],
-        "points": fac_bwd["points"],
+        "max_rel_err_witness": fac_errs["d_lines_witness"],
+        "plain_rel_err_witness": fac_errs["plain_witness"],
+        **{k: fac_bwd[k] for k in ("ms", "ms_window", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "points", "kernel_a_ms", "kernel_b_ms",
+                                   "reduce_ms", "device_ms")},
+        "cases": [fac_bwd_shuffled, fac_bwd_f32],
     }, *({
         "name": name,
         "route": "cuda",

@@ -22,11 +22,11 @@
 // encoding's write. The backward reads the points and g and writes the
 // (3, sumR, C) gradient against ~150C FLOP per point (the three features
 // again, d_feat, the scatter of w d_feat): bound by operations at the f32
-// rate. What limited the first, simple forward was neither: each point
+// rate. What limited the first, simple kernels was neither: each point
 // gathered 6L rows of C values from the line tables in L2 (3.5 KB at the
-// defaults, 17x its device-memory bytes). The backward still does (its
-// d_feat), and walks its shared-memory table with one thread per (level,
-// channel).
+// defaults, 17x its device-memory bytes), and the first backward did so
+// twice per axis, then walked a shared-memory table with one thread per
+// (level, channel) while the CTA's other threads waited.
 //
 // Forward design. Persistent CTAs of 1024 threads, as many as the card
 // holds at once. Each CTA first copies into shared memory the line-table
@@ -50,19 +50,45 @@
 // two bf16 values is exact in f32, so a fused multiply-add rounds as the
 // separate product and sum did).
 //
-// Backward design: a private gradient table per CTA. Reruns must give
-// identical bits, so no float atomics: at level 0 the whole batch lands on
-// the 17 knots of each axis, where atomics would also serialise. A CTA
-// owns one axis and a contiguous run of points, and keeps that axis's whole
-// (sumR, C) f32 gradient table in shared memory (195 KB at the default
-// widths, of the 227 KB a CTA can have). Per chunk of 64 points
-// the CTA computes the taps, then d_feat for every (point, channel) from the
-// other two axes' features; then thread (level, channel) -- the sole owner
-// of that level's rows in that column -- walks the chunk's points in order
-// and adds w0 d_feat and w1 d_feat to its two rows. 44 CTAs per axis (132,
-// one per SM) write their tables as partials, and a second launch sums the
-// partials of each entry in CTA order. The dense W^T G in split partials (the
-// train kernel's K2b way) would do 85x the products for the same result.
+// Backward design: three launches, no float atomics (reruns give the same
+// bits; at level 0 the whole batch lands on the 17 knots of each axis).
+// 1. factored_dfeat_kernel, the forward's walk with another epilogue:
+//    each point's three features once, then d_feat_a = (g * f_b) * f_c for
+//    a = 0, 1, 2 (the JAX kernel's order), rounded to bf16 under bf16, into
+//    a scratch of (3, N, stride): bf16 with C padded by zero columns to the
+//    scatter's channel tiles, or f32 with stride C.
+// 2. bf16 lines: factored_scatter_mma_kernel, d_lines[a] = W_a^T D_a on the
+//    tensor cores (mma.sync m16n8k16, bf16 in, f32 sums). M is the axis's
+//    knot rows in 16-row blocks, N the channels in 8-wide tiles, K the
+//    points, 16 a step. W is never in memory: each lane builds its A
+//    fragment from the step's taps (element (row r, point p) is w0 when r
+//    is p's tap row at r's level, w1 at that row + 1, else 0; one prmt per
+//    pair of points). The work is sparse: a block is skipped in a step
+//    whose band (the span of its 16 points' tap rows at a level of the
+//    block) misses the block's rows, which drops only all-zero products.
+//    On the main path the points come a ray at a time, so a step's band is
+//    narrow at every level. (An exact test, a ballot over each step's taps
+//    per block, skips more blocks of shuffled points but costs more than it
+//    saves on both orders: on an H100, 0.72 against 0.45 ms at 524,288
+//    ray-ordered points.)
+//    A CTA is (point range, row slab, channel group, axis): 16 warps, each
+//    owning two blocks of the slab (interleaved across slabs, so the coarse
+//    blocks, reached in every step, spread over the CTAs) for the group's
+//    channels, its sums in registers. The tensor cores do not round each
+//    addition to nearest, so once a tile of 256 points (16 steps) the warp
+//    adds its sums into an f32 table in shared memory with IEEE adds and
+//    starts again from zero: two levels of sums, the inner one short. One
+//    barrier a tile: the next tile's d_feat comes in by cp.async (rows
+//    padded to an odd count of 16 B, so ldmatrix's 8 rows hit 8 different
+//    bank groups) and its coordinates into registers while this tile is
+//    summed; then its taps and bands are made.
+//    f32 lines (no preset): factored_scatter_walk_kernel keeps the first
+//    kernel's walk on the CUDA cores, reading kernel 1's d_feat: a CTA
+//    holds one axis's (sumR, C) table in shared memory (a geometry whose
+//    table does not fit is refused) and thread (level, channel) adds the
+//    chunk's points to its rows in order.
+// 3. factored_reduce_kernel sums each entry's partial tables (one per point
+//    range) in range order.
 //
 // Numerics, as the JAX kernel's. u, u R, and the weights are computed op by
 // op with round-to-nearest intrinsics (an IEEE division, no contraction of
@@ -76,16 +102,26 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "field.cuh"  // nerf::mma_16816, ldmatrix_x4_trans, cp_async16, smem_addr
+
 namespace {
 
 constexpr int kMaxLevels = 16;
 constexpr int kFwdThreads = 1024;
 constexpr int kFwdTapBytes = 81920;  // two buffers of a forward tile's taps, at most
-constexpr int kBwdPoints = 64;    // points per backward chunk
-constexpr int kBwdCtas = 44;      // backward CTAs per axis: 3 x 44 = 132, one per SM
-constexpr int kBwdThreads = 1024;  // phase A's gathers need many warps in flight
-constexpr int kBatch = 4;          // levels whose line loads are in flight together
+constexpr int kBatch = 4;            // levels whose line loads are in flight together
 constexpr size_t kMaxSmem = 232448;  // what one CTA can have on sm_90
+// the tensor-core scatter (bf16 lines)
+constexpr int kMmaWarps = 16;     // warps of a CTA
+constexpr int kMmaBlocks = 2;     // 16-row blocks a warp owns
+constexpr int kMmaMaxTiles = 6;   // 8-channel tiles of a CTA: 48 channels, 48 sums a thread
+constexpr int kTilePoints = 256;  // points a tile: 16 steps of 16, one flush of the sums
+constexpr int kSteps = kTilePoints / 16;
+static_assert(kMmaWarps * 32 % kTilePoints == 0 && kSteps <= 32, "a tile's taps and steps");
+// the CUDA-core scatter (f32 lines)
+constexpr int kWalkPoints = 64;     // points per chunk
+constexpr int kWalkCtas = 44;       // CTAs per axis: 3 x 44 = 132, one per SM
+constexpr int kWalkThreads = 1024;  // thread (level, channel) owns a column of a level
 
 struct Geometry {
   int L;
@@ -123,55 +159,6 @@ __device__ __forceinline__ Tap make_tap(float u, int R, int off) {
     w1 = round_bf16(w1);
   }
   return Tap{off + k0, w0, w1};
-}
-
-template <bool kBf16>
-__device__ __forceinline__ float line_at(const void* lines, long long i) {
-  if (kBf16) return __bfloat162float(__ldg(static_cast<const __nv_bfloat16*>(lines) + i));
-  return __ldg(static_cast<const float*>(lines) + i);
-}
-
-// sum over the L levels of w0 lines[a][row] + w1 lines[a][row + 1], column c,
-// level by level in order; each product is exact under bf16. The loads of
-// kBatch levels go out together (a level past L re-reads the last one and
-// is not summed), so a thread has 2 kBatch gathers in flight.
-template <bool kBf16>
-__device__ __forceinline__ float axis_feature(const void* lines, int a, const Tap* taps,
-                                              const Geometry& g, int c) {
-  const long long base = static_cast<long long>(a) * g.sumR * g.C + c;
-  float f = 0.f;
-  for (int l0 = 0; l0 < g.L; l0 += kBatch) {
-    Tap t[kBatch];
-    float v0[kBatch], v1[kBatch];
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      t[j] = taps[min(l0 + j, g.L - 1)];
-      const long long r = base + static_cast<long long>(t[j].row) * g.C;
-      v0[j] = line_at<kBf16>(lines, r);
-      v1[j] = line_at<kBf16>(lines, r + g.C);
-    }
-#pragma unroll
-    for (int j = 0; j < kBatch; ++j) {
-      if (l0 + j < g.L) {
-        f = __fadd_rn(f, __fmul_rn(t[j].w0, v0[j]));
-        f = __fadd_rn(f, __fmul_rn(t[j].w1, v1[j]));
-      }
-    }
-  }
-  return f;
-}
-
-// taps[(p * 3 + a) * L + l] of the np points from p0, every thread helping
-template <bool kBf16>
-__device__ __forceinline__ void fill_taps(Tap* taps, const float* __restrict__ pts, long long p0,
-                                          int np, const Geometry& g) {
-  const int L = g.L;
-  for (int t = threadIdx.x; t < np * 3 * L; t += blockDim.x) {
-    const int l = t % L;
-    const int pa = t / L;  // p * 3 + a
-    const float u = unit_coord(pts[p0 * 3 + pa], g);
-    taps[t] = make_tap<kBf16>(u, g.res[l], g.off[l]);
-  }
 }
 
 // V consecutive line values as loaded: bf16 pairs or f32 words, turned into
@@ -235,6 +222,58 @@ __device__ __forceinline__ void add_level(float (&f)[V], const Tap& t, const Lin
   }
 }
 
+// V f32 values from global memory, or to it: vector loads and stores (V
+// divides C, so every group starts aligned to its width)
+template <int V>
+__device__ __forceinline__ void load_f32(const float* src, float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4) {
+      const float4 x = __ldg(reinterpret_cast<const float4*>(src) + j / 4);
+      v[j] = x.x, v[j + 1] = x.y, v[j + 2] = x.z, v[j + 3] = x.w;
+    }
+  } else if constexpr (V == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(src));
+    v[0] = x.x, v[1] = x.y;
+  } else {
+    v[0] = __ldg(src);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_f32(float* dst, const float (&v)[V]) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < V; j += 4)
+      reinterpret_cast<float4*>(dst)[j / 4] = make_float4(v[j], v[j + 1], v[j + 2], v[j + 3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
+  } else {
+    dst[0] = v[0];
+  }
+}
+
+// two bf16 (round to nearest) in one word, a in the low half
+__device__ __forceinline__ unsigned pack_bf16(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// V values rounded to bf16 and stored: one 16 B store for V = 8
+template <int V>
+__device__ __forceinline__ void store_bf16(__nv_bfloat16* dst, const float (&v)[V]) {
+  if constexpr (V == 1) {
+    dst[0] = __float2bfloat16_rn(v[0]);
+  } else {
+    unsigned w[V / 2];
+#pragma unroll
+    for (int j = 0; j < V / 2; ++j) w[j] = pack_bf16(v[2 * j], v[2 * j + 1]);
+    if constexpr (V == 8) *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+    else if constexpr (V == 4) *reinterpret_cast<uint2*>(dst) = make_uint2(w[0], w[1]);
+    else *reinterpret_cast<unsigned*>(dst) = w[0];
+  }
+}
+
 // The forward's channel group: the widest of 8, 4, 2, 1 that divides C.
 int fwd_vec(int C) { return C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : C % 2 == 0 ? 2 : 1; }
 
@@ -255,10 +294,13 @@ __host__ __device__ inline size_t fwd_lines_bytes(const Geometry& g, bool bf16) 
   return (size_t{3} * g.off[g.staged] * g.C * (bf16 ? 2 : 4) + 15) / 16 * 16;
 }
 
-template <bool kBf16, int V>
-__global__ void __launch_bounds__(kFwdThreads, 1) factored_fwd_kernel(
-    const float* __restrict__ pts, const void* __restrict__ lines, float* __restrict__ enc,
-    long long n, const Geometry g, int P) {
+// The forward's walk: stage the coarse levels, then per tile of P points
+// the three axis features f[a][j] of each (point, V-channel group) item,
+// handed to out(point, c0, f).
+template <bool kBf16, int V, class Out>
+__device__ __forceinline__ void walk_features(const float* __restrict__ pts,
+                                              const void* __restrict__ lines, long long n,
+                                              const Geometry& g, int P, const Out& out) {
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   const int C = g.C, L = g.L, Ls = g.staged;
   const int S = g.off[Ls];  // staged rows of each axis
@@ -353,70 +395,346 @@ __global__ void __launch_bounds__(kFwdThreads, 1) factored_fwd_kernel(
             if (l0 + j < L) add_level(f[a], tp[a * L + l0 + j], v0[j], v1[j]);
         }
       }
-      float e[V];
-#pragma unroll
-      for (int j = 0; j < V; ++j) e[j] = __fmul_rn(__fmul_rn(f[0][j], f[1][j]), f[2][j]);
-      float* dst = enc + (p0 + pl) * C + c0;
-      if constexpr (V % 4 == 0) {
-#pragma unroll
-        for (int j = 0; j < V; j += 4)
-          reinterpret_cast<float4*>(dst)[j / 4] = make_float4(e[j], e[j + 1], e[j + 2], e[j + 3]);
-      } else if constexpr (V == 2) {
-        *reinterpret_cast<float2*>(dst) = make_float2(e[0], e[1]);
-      } else {
-        dst[0] = e[0];
-      }
+      out(p0 + pl, c0, f);
     }
   }
 }
 
-size_t bwd_smem_bytes(const Geometry& g) {
-  return sizeof(float) * static_cast<size_t>(g.sumR) * g.C
-         + sizeof(Tap) * kBwdPoints * 3 * g.L + sizeof(float) * kBwdPoints * g.C;
+// the forward's epilogue: enc = (X * Y) * Z
+struct EncodeOut {
+  float* enc;
+  int C;
+  template <int V>
+  __device__ __forceinline__ void operator()(long long p, int c0, const float (&f)[3][V]) const {
+    float e[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) e[j] = __fmul_rn(__fmul_rn(f[0][j], f[1][j]), f[2][j]);
+    store_f32<V>(enc + p * C + c0, e);
+  }
+};
+
+// the backward's first epilogue: d_feat[a][p] = (g * f_b) * f_c, rounded to
+// bf16 under bf16, and zeros in the padding columns [C, stride)
+template <bool kBf16>
+struct DFeatOut {
+  const float* gout;
+  void* dfeat;
+  long long n;
+  int C;
+  int stride;
+  template <int V>
+  __device__ __forceinline__ void operator()(long long p, int c0, const float (&f)[3][V]) const {
+    float gv[V];
+    load_f32<V>(gout + p * C + c0, gv);
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int b = a == 0 ? 1 : 0;  // the other two axes, in the JAX kernel's order
+      const int c = a == 2 ? 1 : 2;
+      float d[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) d[j] = __fmul_rn(__fmul_rn(gv[j], f[b][j]), f[c][j]);
+      const long long row = (a * n + p) * stride;
+      if constexpr (kBf16) {
+        __nv_bfloat16* dst = static_cast<__nv_bfloat16*>(dfeat) + row;
+        store_bf16<V>(dst + c0, d);
+        if (c0 + V == C)
+          for (int k = C; k < stride; ++k) dst[k] = __float2bfloat16_rn(0.f);
+      } else {
+        store_f32<V>(static_cast<float*>(dfeat) + row + c0, d);
+      }
+    }
+  }
+};
+
+template <bool kBf16, int V>
+__global__ void __launch_bounds__(kFwdThreads, 1) factored_fwd_kernel(
+    const float* __restrict__ pts, const void* __restrict__ lines, float* __restrict__ enc,
+    long long n, const Geometry g, int P) {
+  walk_features<kBf16, V>(pts, lines, n, g, P, EncodeOut{enc, g.C});
+}
+
+template <bool kBf16, int V>
+__global__ void __launch_bounds__(kFwdThreads, 1) factored_dfeat_kernel(
+    const float* __restrict__ pts, const void* __restrict__ lines, const float* __restrict__ gout,
+    void* __restrict__ dfeat, long long n, const Geometry g, int P, int stride) {
+  walk_features<kBf16, V>(pts, lines, n, g, P, DFeatOut<kBf16>{gout, dfeat, n, g.C, stride});
+}
+
+// ---- the tensor-core scatter (bf16 lines) ----
+
+struct MmaTap {
+  int row;     // knot row of k0 at this level; a point past n has a row no block reaches
+  unsigned w;  // bf16 w0 in the low half, w1 in the high half
+};
+
+// 8-channel tiles of a scatter CTA: the padded row of its d_feat tile in
+// shared memory is an odd number of 16 B units
+template <int NT>
+struct MmaLayout {
+  static constexpr int kRow = (NT % 2 ? NT : NT + 1) * 8;       // bf16 per staged point
+  static constexpr int kSums = kMmaWarps * kMmaBlocks * NT * 4 * 32;  // f32 sums, a CTA
+  static constexpr size_t kTileBytes = size_t{2} * kTilePoints * kRow * 2;
+};
+
+template <int NT>
+size_t mma_smem_bytes(int L) {
+  return sizeof(float) * MmaLayout<NT>::kSums + MmaLayout<NT>::kTileBytes +
+         size_t{2} * L * kTilePoints * sizeof(MmaTap) + size_t{2} * L * kSteps * sizeof(int2);
+}
+
+__device__ __forceinline__ int level_of(int r, const Geometry& g) {
+  int l = 0;
+  while (l + 1 < g.L && g.off[l + 1] <= r) ++l;
+  return l;
+}
+
+// W^T's elements (row r; points p, p + 1) from the two points' taps at r's
+// level, (row, w, row, w) as one 16 B load: a0a1 of an A fragment. Per
+// point the bf16 is w0 (bytes 0-1 of its tap word) at r = its tap row, w1
+// (bytes 2-3) at the row after, else 0: a byte selector of prmt whose sign
+// bit replicates the sign of the high byte of w0, which is 0 (w0 >= 0).
+__device__ __forceinline__ unsigned hat_pair(int r, const uint4& t) {
+  const unsigned d0 = static_cast<unsigned>(r - static_cast<int>(t.x));
+  const unsigned d1 = static_cast<unsigned>(r - static_cast<int>(t.z));
+  const unsigned sel = (d0 < 2 ? 0x10u + 0x22u * d0 : 0x99u) |
+                       (d1 < 2 ? 0x5400u + 0x2200u * d1 : 0xdd00u);
+  unsigned out;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(out) : "r"(t.y), "r"(t.w), "r"(sel));
+  return out;
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(nerf::smem_addr(p))
+               : "memory");
+}
+
+// CTA (range, slab * groups + group, axis): partials[axis][range] (sumR,
+// stride) f32, rows of the slab's blocks and the group's channels, summed
+// over tiles [range * per, (range + 1) * per) of kTilePoints points.
+template <int NT>
+__global__ void __launch_bounds__(kMmaWarps * 32, 1) factored_scatter_mma_kernel(
+    const float* __restrict__ pts, const __nv_bfloat16* __restrict__ dfeat,
+    float* __restrict__ partials, long long n, int per, const Geometry g, int stride, int slabs,
+    int groups) {
+  using Lay = MmaLayout<NT>;
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  float* sums = reinterpret_cast<float*>(mma_smem);
+  __nv_bfloat16* dtile = reinterpret_cast<__nv_bfloat16*>(sums + Lay::kSums);
+  MmaTap* taps = reinterpret_cast<MmaTap*>(mma_smem + sizeof(float) * Lay::kSums + Lay::kTileBytes);
+  int2* band = reinterpret_cast<int2*>(taps + 2 * g.L * kTilePoints);  // [2][L][kSteps]
+  const int L = g.L;
+  const int a = blockIdx.z;
+  const int slab = blockIdx.y / groups, c_first = (blockIdx.y - slab * groups) * NT * 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gid = lane >> 2, q = lane & 3;
+  const int nblocks = (g.sumR + 15) / 16;
+  const long long tiles = (n + kTilePoints - 1) / kTilePoints;
+  const long long t_first = static_cast<long long>(blockIdx.x) * per;
+  const long long t_end = min(t_first + per, tiles);
+
+  // this warp's blocks: the first row (-1: none), the levels of its first
+  // and last rows, and of this lane's two rows r0 + gid and r0 + gid + 8
+  int r0[kMmaBlocks], lo[kMmaBlocks], hi[kMmaBlocks], la[kMmaBlocks], lb[kMmaBlocks];
+#pragma unroll
+  for (int j = 0; j < kMmaBlocks; ++j) {
+    const int b = slab + slabs * (warp + kMmaWarps * j);
+    r0[j] = b < nblocks ? 16 * b : -1;
+    const int last = g.sumR - 1, r = max(r0[j], 0);
+    lo[j] = level_of(r, g);
+    hi[j] = level_of(min(r + 15, last), g);
+    la[j] = level_of(min(r + gid, last), g);
+    lb[j] = level_of(min(r + gid + 8, last), g);
+  }
+  float* my_sums = sums + warp * (kMmaBlocks * NT * 4 * 32) + lane;
+  for (int i = 0; i < kMmaBlocks * NT * 4; ++i) my_sums[i * 32] = 0.f;
+  float acc[kMmaBlocks][NT][4];
+#pragma unroll
+  for (int j = 0; j < kMmaBlocks; ++j)
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[j][t][i] = 0.f;
+
+  // thread i computes the taps of point i % kTilePoints at levels i /
+  // kTilePoints + k kTapLevels
+  constexpr int kTapLevels = kMmaWarps * 32 / kTilePoints;
+  const int tap_p = threadIdx.x % kTilePoints, tap_l = threadIdx.x / kTilePoints;
+  auto coord = [&](long long t) {
+    const long long p = t * kTilePoints + tap_p;
+    return p < n ? pts[p * 3 + a] : 0.f;
+  };
+  auto make_taps = [&](long long t, float x, int buf) {
+    MmaTap* tb = taps + buf * L * kTilePoints + tap_p;
+    const bool in = t * kTilePoints + tap_p < n;
+    const float u = unit_coord(x, g);
+    for (int l = tap_l; l < L; l += kTapLevels) {
+      const Tap tp = make_tap<true>(u, g.res[l], g.off[l]);
+      tb[l * kTilePoints] = in ? MmaTap{tp.row, pack_bf16(tp.w0, tp.w1)} : MmaTap{-2, 0u};
+      // the step's band at this level: its 16 points' tap rows span
+      // [mn, mx] (a warp's lanes are 32 points of one level: two steps)
+      int mn = in ? tp.row : 0x3fffffff, mx = in ? tp.row + 1 : -0x3fffffff;
+#pragma unroll
+      for (int o = 1; o < 16; o <<= 1) {
+        mn = min(mn, __shfl_xor_sync(0xffffffffu, mn, o));
+        mx = max(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      }
+      if ((tap_p & 15) == 0) band[(buf * L + l) * kSteps + tap_p / 16] = make_int2(mn, mx);
+    }
+  };
+  // the group's d_feat columns of tile t by cp.async (zeros past n)
+  auto load_dfeat = [&](long long t, int buf) {
+    const long long p0 = t * kTilePoints;
+    __nv_bfloat16* db = dtile + buf * kTilePoints * Lay::kRow;
+    for (int i = threadIdx.x; i < kTilePoints * NT; i += kMmaWarps * 32) {
+      const int p = i / NT, k = i - p * NT;
+      const bool in = p0 + p < n;
+      const __nv_bfloat16* src =
+          dfeat + (a * n + (in ? p0 + p : 0)) * stride + c_first + k * 8;
+      nerf::cp_async16(db + p * Lay::kRow + k * 8, src, in);
+    }
+    nerf::cp_async_commit();
+  };
+  // one step (16 points) of block j: A from the taps, B from the d_feat tile
+  auto step = [&](int j, int s, const __nv_bfloat16* db, const MmaTap* tb) {
+    uint32_t bf[NT][2];
+    const int m = lane >> 3;
+    const __nv_bfloat16* row = db + (s * 16 + (m & 1) * 8 + (lane & 7)) * Lay::kRow;
+#pragma unroll
+    for (int t2 = 0; t2 + 1 < NT; t2 += 2) {
+      uint32_t r[4];
+      nerf::ldmatrix_x4_trans(r, row + (t2 + (m >> 1)) * 8);
+      bf[t2][0] = r[0], bf[t2][1] = r[1], bf[t2 + 1][0] = r[2], bf[t2 + 1][1] = r[3];
+    }
+    if constexpr (NT % 2) ldmatrix_x2_trans(bf[NT - 1], row + (NT - 1) * 8);
+    // A: rows r0 + gid (a0a1, a4a5) and + 8 (a2a3, a6a7); points 2q, 2q + 1
+    // (a0-a3) and 2q + 8, 2q + 9 (a4-a7)
+    const uint4* ta = reinterpret_cast<const uint4*>(tb + la[j] * kTilePoints + s * 16);
+    const uint4* tc = reinterpret_cast<const uint4*>(tb + lb[j] * kTilePoints + s * 16);
+    const int r = r0[j] + gid;
+    const uint32_t af[4] = {hat_pair(r, ta[q]), hat_pair(r + 8, tc[q]), hat_pair(r, ta[q + 4]),
+                            hat_pair(r + 8, tc[q + 4])};
+#pragma unroll
+    for (int t2 = 0; t2 < NT; ++t2) nerf::mma_16816(acc[j][t2], af, bf[t2][0], bf[t2][1]);
+  };
+
+  // one barrier a tile: tile t + 1's d_feat is in flight and its
+  // coordinates in registers while tile t is summed, then its taps are
+  // made into the other buffers
+  if (t_first < t_end) {
+    load_dfeat(t_first, 0);
+    make_taps(t_first, coord(t_first), 0);
+  }
+  nerf::cp_async_wait<0>();
+  __syncthreads();
+  for (long long t = t_first; t < t_end; ++t) {
+    const int buf = static_cast<int>(t - t_first) & 1;
+    const bool next = t + 1 < t_end;
+    float x_next = 0.f;
+    if (next) {
+      load_dfeat(t + 1, buf ^ 1);
+      x_next = coord(t + 1);
+    }
+    const __nv_bfloat16* db = dtile + buf * kTilePoints * Lay::kRow;
+    const MmaTap* tb = taps + buf * L * kTilePoints;
+    unsigned steps[kMmaBlocks] = {};
+    // block j's steps: bit s when step s's band at a level of the block
+    // meets the block's rows (lane i looks at step i % kSteps, at levels
+    // lo + i / kSteps, + 32 / kSteps, ...); each such step's products go
+    // into the block's sums
+#pragma unroll
+    for (int j = 0; j < kMmaBlocks; ++j) {
+      if (r0[j] < 0) continue;
+      bool hit = false;
+      const int2* bd = band + buf * L * kSteps + lane % kSteps;
+      for (int l = lo[j] + lane / kSteps; l <= hi[j]; l += 32 / kSteps) {
+        const int2 b = bd[l * kSteps];
+        hit |= b.x <= r0[j] + 15 && b.y >= r0[j];
+      }
+      const unsigned v = __ballot_sync(0xffffffffu, hit);
+#pragma unroll
+      for (int k = 0; k < 32; k += kSteps) steps[j] |= v >> k;
+      steps[j] &= 0xffffffffu >> (32 - kSteps);
+      for (unsigned bits = steps[j]; bits; bits &= bits - 1) step(j, __ffs(bits) - 1, db, tb);
+    }
+    // the tile's sums into the f32 table, added to nearest
+#pragma unroll
+    for (int j = 0; j < kMmaBlocks; ++j) {
+      if (!steps[j]) continue;
+#pragma unroll
+      for (int t2 = 0; t2 < NT; ++t2)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          float* s = my_sums + ((j * NT + t2) * 4 + i) * 32;
+          *s = __fadd_rn(*s, acc[j][t2][i]);
+          acc[j][t2][i] = 0.f;
+        }
+    }
+    if (next) make_taps(t + 1, x_next, buf ^ 1);
+    nerf::cp_async_wait<0>();
+    __syncthreads();  // tile t + 1 is in; buffer buf is free for tile t + 2
+  }
+  // C fragment (i): row gid + 8 (i >> 1), column 2q + (i & 1) of the tile
+  float* out = partials + (static_cast<long long>(a) * gridDim.x + blockIdx.x) * g.sumR * stride;
+#pragma unroll
+  for (int j = 0; j < kMmaBlocks; ++j) {
+    if (r0[j] < 0) continue;
+#pragma unroll
+    for (int t2 = 0; t2 < NT; ++t2)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = r0[j] + gid + 8 * h;
+        if (row < g.sumR) {
+          const float* s = my_sums + ((j * NT + t2) * 4 + 2 * h) * 32;
+          *reinterpret_cast<float2*>(out + static_cast<long long>(row) * stride + c_first +
+                                     t2 * 8 + 2 * q) = make_float2(s[0], s[32]);
+        }
+      }
+  }
+}
+
+// ---- the CUDA-core scatter (f32 lines) ----
+
+size_t walk_smem_bytes(const Geometry& g) {
+  return sizeof(float) * static_cast<size_t>(g.sumR) * g.C + sizeof(Tap) * kWalkPoints * g.L +
+         sizeof(float) * kWalkPoints * g.C;
 }
 
 // CTA (b, a): axis a's gradient over chunks [b * per, (b + 1) * per) of 64
 // points, into partials[a][b] (sumR, C).
-template <bool kBf16>
-__global__ void __launch_bounds__(kBwdThreads, 1) factored_bwd_kernel(
-    const float* __restrict__ pts, const void* __restrict__ lines, const float* __restrict__ gout,
-    float* __restrict__ partials, long long n, int per, const Geometry g) {
+__global__ void __launch_bounds__(kWalkThreads, 1) factored_scatter_walk_kernel(
+    const float* __restrict__ pts, const float* __restrict__ dfeat, float* __restrict__ partials,
+    long long n, int per, const Geometry g) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int L = g.L, C = g.C;
   const int RC = g.sumR * C;
   float* table = reinterpret_cast<float*>(smem);
   Tap* taps = reinterpret_cast<Tap*>(table + RC);
-  float* dfeat = reinterpret_cast<float*>(taps + kBwdPoints * 3 * L);
+  float* chunk = reinterpret_cast<float*>(taps + kWalkPoints * L);
   const int a = blockIdx.y;
-  const int ob = a == 0 ? 1 : 0;  // the other two axes, in the JAX kernel's order
-  const int oc = a == 2 ? 1 : 2;
   const int tid = threadIdx.x;
   const bool owner = tid < L * C;  // thread (l, c) owns level l's rows of column c
   const int own_l = tid / C, own_c = tid % C;
 
   for (int i = tid; i < RC; i += blockDim.x) table[i] = 0.f;
   for (int k = 0; k < per; ++k) {
-    const long long p0 = (static_cast<long long>(blockIdx.x) * per + k) * kBwdPoints;
+    const long long p0 = (static_cast<long long>(blockIdx.x) * per + k) * kWalkPoints;
     if (p0 >= n) break;  // the same for the whole CTA
-    const int np = static_cast<int>(min(static_cast<long long>(kBwdPoints), n - p0));
+    const int np = static_cast<int>(min(static_cast<long long>(kWalkPoints), n - p0));
     __syncthreads();  // the last chunk's taps and d_feat are consumed
-    fill_taps<kBf16>(taps, pts, p0, np, g);
-    __syncthreads();
-    for (int t = tid; t < np * C; t += blockDim.x) {
-      const int p = t / C;
-      const int c = t % C;
-      const Tap* tp = taps + p * 3 * L;
-      const float fb = axis_feature<kBf16>(lines, ob, tp + ob * L, g, c);
-      const float fc = axis_feature<kBf16>(lines, oc, tp + oc * L, g, c);
-      float d = __fmul_rn(__fmul_rn(gout[(p0 + p) * C + c], fb), fc);
-      if (kBf16) d = round_bf16(d);
-      dfeat[t] = d;
+    for (int t = tid; t < np * L; t += blockDim.x) {
+      const int l = t % L;
+      const float u = unit_coord(pts[(p0 + t / L) * 3 + a], g);
+      taps[t] = make_tap<false>(u, g.res[l], g.off[l]);
     }
+    const float* src = dfeat + (a * n + p0) * C;
+    for (int t = tid; t < np * C; t += blockDim.x) chunk[t] = src[t];
     __syncthreads();
     if (owner) {
       for (int p = 0; p < np; ++p) {
-        const Tap t = taps[(p * 3 + a) * L + own_l];
-        const float d = dfeat[p * C + own_c];
+        const Tap t = taps[p * L + own_l];
+        const float d = chunk[p * C + own_c];
         float* row = table + t.row * C + own_c;
         row[0] = __fadd_rn(row[0], __fmul_rn(t.w0, d));
         row[C] = __fadd_rn(row[C], __fmul_rn(t.w1, d));
@@ -428,21 +746,26 @@ __global__ void __launch_bounds__(kBwdThreads, 1) factored_bwd_kernel(
   for (int i = tid; i < RC; i += blockDim.x) out[i] = table[i];
 }
 
-// d_lines[a][i] = sum over b, in order, of partials[a][b][i]
+// d_lines[a][r][c] = sum over b, in order, of partials[a][b][r][c] (rows of
+// stride columns, the first C of them summed)
 __global__ void factored_reduce_kernel(const float* __restrict__ partials,
-                                       float* __restrict__ d_lines, int ctas, int RC) {
+                                       float* __restrict__ d_lines, int ctas, int rows, int C,
+                                       int stride) {
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= 3LL * RC) return;
+  const long long RC = static_cast<long long>(rows) * C;
+  if (i >= 3 * RC) return;
   const long long a = i / RC;
-  const float* src = partials + a * ctas * RC + (i - a * RC);
+  const int r = static_cast<int>((i - a * RC) / C), c = static_cast<int>(i - a * RC - r * C);
+  const long long table = static_cast<long long>(rows) * stride;
+  const float* src = partials + a * ctas * table + static_cast<long long>(r) * stride + c;
   float s = 0.f;
-  for (int b = 0; b < ctas; ++b) s = __fadd_rn(s, src[static_cast<long long>(b) * RC]);
+  for (int b = 0; b < ctas; ++b) s = __fadd_rn(s, src[b * table]);
   d_lines[i] = s;
 }
 
 int init_geometry(Geometry* g, const int* res, int L, int C, float aabb, float two_aabb) {
   if (L < 1 || L > kMaxLevels) return -2;
-  if (L * C > kBwdThreads) return -3;
+  if (L * C > kWalkThreads) return -3;
   g->L = L;
   g->C = C;
   g->aabb = aabb;
@@ -469,13 +792,28 @@ int staged_levels(const Geometry& g, bool bf16) {
   return s;
 }
 
-template <bool kBf16, int V>
-int launch_fwd(const float* pts, const void* lines, float* enc, long long n, const Geometry& g,
-               cudaStream_t st) {
+// The SMs of the current device, asked once per device (a call's host time
+// is on the card's critical path).
+int sm_count(int* sms) {
+  static int known_dev = -1, known_sms = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev != known_dev) {
+    err = cudaDeviceGetAttribute(&known_sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) known_dev = dev;
+  }
+  *sms = known_sms;
+  return static_cast<int>(err);
+}
+
+// The forward's walk with either epilogue on a persistent grid: as many
+// CTAs as the card holds at once, asked once per device and shared memory
+// size.
+template <bool kBf16, int V, bool kDFeat>
+int launch_walk(const float* pts, const void* lines, void* out, const float* gout, int stride,
+                long long n, const Geometry& g, cudaStream_t st) {
   const size_t smem = fwd_lines_bytes(g, kBf16) + fwd_tap_bytes(g);
   const int P = fwd_points(g);
-  // the CTAs the card holds at once, asked once per device and shared
-  // memory size (a call's host time is on the card's critical path)
   static int known_dev = -1, known_cap = 0;
   static size_t known_smem = 0;
   int dev = 0;
@@ -483,12 +821,13 @@ int launch_fwd(const float* pts, const void* lines, float* enc, long long n, con
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev != known_dev || smem != known_smem) {
     int sms = 132, resident = 1;
-    err = cudaFuncSetAttribute(factored_fwd_kernel<kBf16, V>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const void* fn = kDFeat ? reinterpret_cast<const void*>(factored_dfeat_kernel<kBf16, V>)
+                            : reinterpret_cast<const void*>(factored_fwd_kernel<kBf16, V>);
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, factored_fwd_kernel<kBf16, V>,
-                                                          kFwdThreads, smem);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, fn, kFwdThreads, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     known_dev = dev;
     known_smem = smem;
@@ -497,25 +836,83 @@ int launch_fwd(const float* pts, const void* lines, float* enc, long long n, con
   const long long want = (n + P - 1) / P;
   const long long cap = known_cap;
   const unsigned grid = static_cast<unsigned>(want < cap ? want : cap);
-  factored_fwd_kernel<kBf16, V><<<grid, kFwdThreads, smem, st>>>(pts, lines, enc, n, g, P);
+  if constexpr (kDFeat)
+    factored_dfeat_kernel<kBf16, V><<<grid, kFwdThreads, smem, st>>>(pts, lines, gout, out, n, g,
+                                                                      P, stride);
+  else
+    factored_fwd_kernel<kBf16, V><<<grid, kFwdThreads, smem, st>>>(
+        pts, lines, static_cast<float*>(out), n, g, P);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kBf16>
-int launch_fwd_any(const float* pts, const void* lines, float* enc, long long n, const Geometry& g,
-               cudaStream_t st) {
-  if (fwd_vec(g.C) == 8) return launch_fwd<kBf16, 8>(pts, lines, enc, n, g, st);
-  if (fwd_vec(g.C) == 4) return launch_fwd<kBf16, 4>(pts, lines, enc, n, g, st);
-  if (fwd_vec(g.C) == 2) return launch_fwd<kBf16, 2>(pts, lines, enc, n, g, st);
-  return launch_fwd<kBf16, 1>(pts, lines, enc, n, g, st);
+template <bool kBf16, bool kDFeat>
+int launch_walk_any(const float* pts, const void* lines, void* out, const float* gout, int stride,
+                    long long n, const Geometry& g, cudaStream_t st) {
+  switch (fwd_vec(g.C)) {
+    case 8: return launch_walk<kBf16, 8, kDFeat>(pts, lines, out, gout, stride, n, g, st);
+    case 4: return launch_walk<kBf16, 4, kDFeat>(pts, lines, out, gout, stride, n, g, st);
+    case 2: return launch_walk<kBf16, 2, kDFeat>(pts, lines, out, gout, stride, n, g, st);
+    default: return launch_walk<kBf16, 1, kDFeat>(pts, lines, out, gout, stride, n, g, st);
+  }
 }
 
-// (CTAs per axis, chunks per CTA) of the backward over n points
-void bwd_grid(long long n, int* ctas, int* per) {
-  const long long chunks = (n + kBwdPoints - 1) / kBwdPoints;
-  const long long c = chunks < kBwdCtas ? chunks : kBwdCtas;
-  *per = c > 0 ? static_cast<int>((chunks + c - 1) / c) : 0;
-  *ctas = *per > 0 ? static_cast<int>((chunks + *per - 1) / *per) : 0;
+// The backward's layout for n points (kernels/fused_factored.py::bwd_plan
+// mirrors it): bf16 lines take 8-channel tiles in `groups` groups of nt
+// (C padded to stride = groups * nt * 8), 16-row blocks in `slabs` slabs
+// of kMmaWarps * kMmaBlocks, and points in `ranges` ranges of `per` tiles
+// of kTilePoints, as many ranges as give every SM one CTA; f32 lines take
+// kWalkCtas ranges of chunks of kWalkPoints per axis.
+struct BwdPlan {
+  int stride, nt, groups, slabs, ranges, per;
+};
+
+BwdPlan bwd_plan(long long n, int sumR, int C, bool bf16, int sms) {
+  BwdPlan p{C, 0, 1, 1, 0, 0};
+  long long units, want;
+  if (bf16) {
+    const int tiles8 = (C + 7) / 8;
+    p.groups = (tiles8 + kMmaMaxTiles - 1) / kMmaMaxTiles;
+    p.nt = (tiles8 + p.groups - 1) / p.groups;
+    p.stride = p.groups * p.nt * 8;
+    const int blocks = (sumR + 15) / 16;
+    p.slabs = (blocks + kMmaWarps * kMmaBlocks - 1) / (kMmaWarps * kMmaBlocks);
+    units = (n + kTilePoints - 1) / kTilePoints;
+    want = sms / (3 * p.slabs * p.groups);
+    if (want < 1) want = 1;
+  } else {
+    units = (n + kWalkPoints - 1) / kWalkPoints;
+    want = kWalkCtas;
+  }
+  if (want > units) want = units;
+  p.per = want > 0 ? static_cast<int>((units + want - 1) / want) : 0;
+  p.ranges = p.per > 0 ? static_cast<int>((units + p.per - 1) / p.per) : 0;
+  return p;
+}
+
+size_t align256(size_t b) { return (b + 255) / 256 * 256; }
+
+size_t dfeat_bytes(long long n, const BwdPlan& p, bool bf16) {
+  return align256(3 * static_cast<size_t>(n) * p.stride * (bf16 ? 2 : 4));
+}
+
+template <int NT>
+int launch_mma(const float* pts, const __nv_bfloat16* dfeat, float* partials, long long n,
+               const Geometry& g, const BwdPlan& p, cudaStream_t st) {
+  static int known_dev = -1;
+  static size_t known_smem = 0;
+  const size_t smem = mma_smem_bytes<NT>(g.L);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && (dev != known_dev || smem != known_smem)) {
+    err = cudaFuncSetAttribute(factored_scatter_mma_kernel<NT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err == cudaSuccess) known_dev = dev, known_smem = smem;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(p.ranges), static_cast<unsigned>(p.slabs * p.groups), 3);
+  factored_scatter_mma_kernel<NT><<<grid, kMmaWarps * 32, smem, st>>>(
+      pts, dfeat, partials, n, p.per, g, p.stride, p.slabs, p.groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -535,9 +932,8 @@ int nerf_factored_encode_fwd(const void* pts, const void* lines, void* enc, long
   g.staged = staged_levels(g, bf16 != 0);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(pts);
-  float* e = static_cast<float*>(enc);
-  return bf16 ? launch_fwd_any<true>(p, lines, e, n, g, st)
-              : launch_fwd_any<false>(p, lines, e, n, g, st);
+  return bf16 ? launch_walk_any<true, false>(p, lines, enc, nullptr, C, n, g, st)
+              : launch_walk_any<false, false>(p, lines, enc, nullptr, C, n, g, st);
 }
 
 // The forward's levels in shared memory (staged_levels) for this geometry.
@@ -547,47 +943,93 @@ int nerf_factored_fwd_staged_levels(const int* res, int L, int C, int bf16) {
   return rc != 0 ? rc : staged_levels(g, bf16 != 0);
 }
 
-// Bytes of the backward's partial tables for n points.
-long long nerf_factored_bwd_scratch_bytes(long long n, int sumR, int C) {
-  int ctas, per;
-  bwd_grid(n, &ctas, &per);
-  return 3LL * ctas * sumR * C * static_cast<long long>(sizeof(float));
+// The backward's layout on `sms` SMs, as the six ints of BwdPlan (stride,
+// nt, groups, slabs, ranges, per).
+void nerf_factored_bwd_plan(long long n, int sumR, int C, int bf16, int sms, int* out) {
+  const BwdPlan p = bwd_plan(n, sumR, C, bf16 != 0, sms);
+  const int v[6] = {p.stride, p.nt, p.groups, p.slabs, p.ranges, p.per};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+}
+
+// Bytes of the backward's scratch for n points on the current device: the
+// d_feat scratch, then the partial tables; -1 with no device.
+long long nerf_factored_bwd_scratch_bytes(long long n, int sumR, int C, int bf16) {
+  int sms = 0;
+  if (sm_count(&sms) != 0) return -1;
+  const BwdPlan p = bwd_plan(n, sumR, C, bf16 != 0, sms);
+  return static_cast<long long>(dfeat_bytes(n, p, bf16 != 0)) +
+         3LL * p.ranges * sumR * p.stride * static_cast<long long>(sizeof(float));
+}
+
+// The backward's first kernel alone: g (n, C) f32 -> dfeat (3, n, stride),
+// bf16 with bf16 = 1 (stride from nerf_factored_bwd_plan, the columns past C
+// zero), else f32 with stride C.
+int nerf_factored_dfeat(const void* pts, const void* lines, const void* gout, void* dfeat,
+                        long long n, const int* res, int L, int C, float aabb, float two_aabb,
+                        int bf16, int stride, void* stream) {
+  Geometry g;
+  const int rc = init_geometry(&g, res, L, C, aabb, two_aabb);
+  if (rc != 0) return rc;
+  if (n == 0) return 0;
+  g.staged = staged_levels(g, bf16 != 0);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(pts);
+  const float* go = static_cast<const float*>(gout);
+  return bf16 ? launch_walk_any<true, true>(p, lines, dfeat, go, stride, n, g, st)
+              : launch_walk_any<false, true>(p, lines, dfeat, go, stride, n, g, st);
 }
 
 // g (n, C) f32 -> d_lines (3, sumR, C) f32; scratch of
-// nerf_factored_bwd_scratch_bytes(n, sumR, C) bytes.
+// nerf_factored_bwd_scratch_bytes(n, sumR, C, bf16) bytes.
 int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gout, void* d_lines,
                              void* scratch, long long n, const int* res, int L, int C, float aabb,
                              float two_aabb, int bf16, void* stream) {
   Geometry g;
   int rc = init_geometry(&g, res, L, C, aabb, two_aabb);
   if (rc != 0) return rc;
-  const size_t smem = bwd_smem_bytes(g);
-  if (smem > kMaxSmem) return -1;
-  rc = static_cast<int>(bf16 ? cudaFuncSetAttribute(factored_bwd_kernel<true>,
-                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                    static_cast<int>(smem))
-                             : cudaFuncSetAttribute(factored_bwd_kernel<false>,
-                                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                    static_cast<int>(smem)));
-  if (rc != 0) return rc;
+  const bool b16 = bf16 != 0;
+  const size_t walk_smem = walk_smem_bytes(g);
+  if (!b16 && walk_smem > kMaxSmem) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int RC = g.sumR * C;
-  if (n == 0) return static_cast<int>(cudaMemsetAsync(d_lines, 0, 3LL * RC * sizeof(float), st));
-  int ctas, per;
-  bwd_grid(n, &ctas, &per);
-  const dim3 grid(static_cast<unsigned>(ctas), 3);
-  const float* p = static_cast<const float*>(pts);
-  const float* go = static_cast<const float*>(gout);
-  float* part = static_cast<float*>(scratch);
-  if (bf16)
-    factored_bwd_kernel<true><<<grid, kBwdThreads, smem, st>>>(p, lines, go, part, n, per, g);
-  else
-    factored_bwd_kernel<false><<<grid, kBwdThreads, smem, st>>>(p, lines, go, part, n, per, g);
-  rc = static_cast<int>(cudaGetLastError());
+  if (n == 0)
+    return static_cast<int>(cudaMemsetAsync(d_lines, 0, 3LL * g.sumR * C * sizeof(float), st));
+  int sms = 0;
+  rc = sm_count(&sms);
   if (rc != 0) return rc;
-  const unsigned rgrid = static_cast<unsigned>((3LL * RC + 255) / 256);
-  factored_reduce_kernel<<<rgrid, 256, 0, st>>>(part, static_cast<float*>(d_lines), ctas, RC);
+  g.staged = staged_levels(g, b16);
+  const BwdPlan p = bwd_plan(n, g.sumR, C, b16, sms);
+  const float* pt = static_cast<const float*>(pts);
+  const float* go = static_cast<const float*>(gout);
+  void* dfeat = scratch;
+  float* part = reinterpret_cast<float*>(static_cast<unsigned char*>(scratch) +
+                                         dfeat_bytes(n, p, b16));
+  rc = b16 ? launch_walk_any<true, true>(pt, lines, dfeat, go, p.stride, n, g, st)
+           : launch_walk_any<false, true>(pt, lines, dfeat, go, p.stride, n, g, st);
+  if (rc != 0) return rc;
+  if (b16) {
+    const __nv_bfloat16* d = static_cast<const __nv_bfloat16*>(dfeat);
+    switch (p.nt) {
+      case 1: rc = launch_mma<1>(pt, d, part, n, g, p, st); break;
+      case 2: rc = launch_mma<2>(pt, d, part, n, g, p, st); break;
+      case 3: rc = launch_mma<3>(pt, d, part, n, g, p, st); break;
+      case 4: rc = launch_mma<4>(pt, d, part, n, g, p, st); break;
+      case 5: rc = launch_mma<5>(pt, d, part, n, g, p, st); break;
+      default: rc = launch_mma<6>(pt, d, part, n, g, p, st); break;
+    }
+  } else {
+    rc = static_cast<int>(cudaFuncSetAttribute(factored_scatter_walk_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(walk_smem)));
+    if (rc != 0) return rc;
+    const dim3 grid(static_cast<unsigned>(p.ranges), 3);
+    factored_scatter_walk_kernel<<<grid, kWalkThreads, walk_smem, st>>>(
+        pt, static_cast<const float*>(dfeat), part, n, p.per, g);
+    rc = static_cast<int>(cudaGetLastError());
+  }
+  if (rc != 0) return rc;
+  const unsigned rgrid = static_cast<unsigned>((3LL * g.sumR * C + 255) / 256);
+  factored_reduce_kernel<<<rgrid, 256, 0, st>>>(part, static_cast<float*>(d_lines), p.ranges,
+                                                g.sumR, C, p.stride);
   return static_cast<int>(cudaGetLastError());
 }
 

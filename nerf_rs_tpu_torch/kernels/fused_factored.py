@@ -16,8 +16,10 @@ Numerics, as the JAX kernel's: with a bf16 ``dtype`` the hat weights
 (computed in f32) and the lines are rounded to bf16 and multiplied in
 f32, which is exact, and the products are summed in f32; the features
 and their CP product are f32. The backward rounds d_feat = (g * f_b) *
-f_c to bf16 and sums w * d_feat over the points in f32. With the f32
-``dtype`` nothing is rounded.
+f_c to bf16 and sums w * d_feat over the points in f32: on the card's
+tensor cores, in tiles of TILE_POINTS points whose sums are added to
+nearest into fixed-order f32 partials. With the f32 ``dtype`` nothing is
+rounded, and the backward's sums run on the CUDA cores.
 
 There is no gradient for the points (the JAX kernel returns zeros for
 them): in every training path the points come from the rays and samples,
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -46,13 +48,77 @@ PLAIN_CHUNK = 65536
 # enc absolute, d_lines per axis relative to the axis's largest entry. Both
 # multiply the same operands and sum in f32; only the order of the sums
 # differs (12 taps per axis in the forward; up to N points per knot in the
-# backward, in fixed-order partials in the kernel and in cuBLAS's order in
-# the plain version). The first readings on an H100, 524,288 random points:
-# enc 1.2e-6 (values up to 5.5), d_lines 1.1e-6; the bars are ~10x those.
+# backward, in the kernel's fixed-order partials -- under bf16 each a sum of
+# tensor-core sums of 256 points -- and in cuBLAS's order in the plain
+# version). The first readings on an H100, 524,288 random points: enc
+# 1.2e-6 (values up to 5.5), d_lines 1.1e-6; the bars are ~10x those.
 KERNEL_TOL = {"enc": 1e-5, "d_lines": 1e-5}
 
+# The backward's layout (csrc/fused_factored.cu, whose bwd_plan this file's
+# bwd_plan mirrors). bf16 lines: a tensor-core CTA has MMA_WARPS warps, each
+# owning MMA_BLOCKS blocks of 16 knot rows for up to MMA_MAX_TILES tiles of 8
+# channels, and walks tiles of TILE_POINTS points in steps of 16 (the mma's
+# K), flushing its sums once a tile. f32 lines: WALK_CTAS CTAs per axis walk
+# chunks of WALK_POINTS points.
+MMA_WARPS = 16
+MMA_BLOCKS = 2
+MMA_MAX_TILES = 6
+TILE_POINTS = 256
+WALK_POINTS = 64
+WALK_CTAS = 44
+
+
+class BwdPlan(NamedTuple):
+    """The backward's layout for N points: d_feat and partial tables of
+    ``stride`` columns (C padded to ``groups`` groups of ``nt`` 8-channel
+    tiles under bf16, C under f32), ``slabs`` row slabs per axis (bf16),
+    and ``ranges`` point ranges of ``per`` tiles (bf16: TILE_POINTS points;
+    f32: chunks of WALK_POINTS), each writing one partial table per axis."""
+    stride: int
+    nt: int
+    groups: int
+    slabs: int
+    ranges: int
+    per: int
+
+
+def bwd_plan(n: int, sum_r: int, comps: int, bf16: bool, sms: int) -> BwdPlan:
+    """The layout the backward kernels take for ``n`` points on a card of
+    ``sms`` SMs: under bf16 as many point ranges as give every SM one CTA
+    of (range, slab, channel group, axis); under f32 WALK_CTAS per axis."""
+    if bf16:
+        tiles8 = -(-comps // 8)
+        groups = -(-tiles8 // MMA_MAX_TILES)
+        nt = -(-tiles8 // groups)
+        stride = groups * nt * 8
+        blocks = -(-sum_r // 16)
+        slabs = -(-blocks // (MMA_WARPS * MMA_BLOCKS))
+        units = -(-n // TILE_POINTS)
+        want = max(1, sms // (3 * slabs * groups))
+    else:
+        stride, nt, groups, slabs = comps, 0, 1, 1
+        units = -(-n // WALK_POINTS)
+        want = WALK_CTAS
+    want = min(want, units)
+    per = -(-units // want) if want > 0 else 0
+    ranges = -(-units // per) if per > 0 else 0
+    return BwdPlan(stride, nt, groups, slabs, ranges, per)
+
+
+def warp_blocks(slab: int, warp: int, slabs: int, sum_r: int) -> list:
+    """The 16-row blocks that warp ``warp`` of a slab-``slab`` CTA owns
+    (-1 where it owns none): block s + slabs (warp + MMA_WARPS j), so the
+    coarse blocks (low rows) spread over every slab and warp."""
+    blocks = -(-sum_r // 16)
+    out = []
+    for j in range(MMA_BLOCKS):
+        b = slab + slabs * (warp + MMA_WARPS * j)
+        out.append(b if b < blocks else -1)
+    return out
+
+
 _ERRORS = {
-    -1: "the line table of one axis does not fit a CTA's shared memory",
+    -1: "the line table of one axis does not fit a CTA's shared memory (f32 lines)",
     -2: "fac_levels above the kernel's 16",
     -3: "fac_levels * fac_comps above 1024 threads",
     -4: "every resolution must be at least 1",
@@ -139,11 +205,12 @@ def fused_factored_encode_forward(lines: torch.Tensor, points: torch.Tensor,
 def fused_factored_encode_backward(lines: torch.Tensor, points: torch.Tensor, g: torch.Tensor,
                                    cfg: ModelConfig, dtype=None) -> torch.Tensor:
     """The backward: the cotangent g (N, C) of the encoding -> d_lines
-    (3, sumR, C) f32. Launches the backward kernel and its fixed-order
-    reduction for CUDA tensors (counted in
+    (3, sumR, C) f32. Launches the backward's three kernels (d_feat, the
+    scatter -- on the tensor cores under a bf16 ``dtype`` -- and the
+    fixed-order reduction) for CUDA tensors, counted once in
     ``fused_factored_encode_backward.launches``; two calls on the same
-    inputs give identical bits); runs the plain version for CPU
-    tensors."""
+    inputs give identical bits, and nothing waits on the host. Runs the
+    plain version for CPU tensors."""
     _check(lines, points, cfg, g)
     if points.device.type == "cpu":
         return fused_factored_encode_backward_reference(lines, points, g, cfg, dtype)
@@ -151,15 +218,19 @@ def fused_factored_encode_backward(lines: torch.Tensor, points: torch.Tensor, g:
         raise ValueError(f"no kernel for device {points.device}")
     dev = points.device
     _check_cuda((("points", points), ("lines", lines), ("g", g)), dev)
+    if g.data_ptr() % 16:
+        g = g.clone()  # the d_feat kernel's vector loads start on 16 B
     n = points.shape[0]
     d_lines = torch.empty(lines.shape, device=dev)
     operand, res, L, C, aabb, two_aabb, bf16 = _launch_args(lines, cfg, dtype)
     lib = _library()
-    # the per-CTA partial tables; freed on return while the kernels may
-    # still run, which is safe: the caching allocator hands the block out
-    # again only in this stream's order
-    scratch = torch.empty(lib.nerf_factored_bwd_scratch_bytes(n, basis_dim(cfg), C),
-                          dtype=torch.uint8, device=dev)
+    # d_feat and the per-CTA partial tables; freed on return while the
+    # kernels may still run, which is safe: the caching allocator hands the
+    # block out again only in this stream's order
+    nbytes = lib.nerf_factored_bwd_scratch_bytes(n, basis_dim(cfg), C, bf16)
+    if nbytes < 0:
+        raise RuntimeError("fused_factored backward: no CUDA device to size its scratch for")
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     rc = lib.nerf_factored_encode_bwd(
         points.data_ptr(), operand.data_ptr(), g.data_ptr(), d_lines.data_ptr(),
         scratch.data_ptr(), n, res, L, C, aabb, two_aabb, bf16,
@@ -167,6 +238,33 @@ def fused_factored_encode_backward(lines: torch.Tensor, points: torch.Tensor, g:
     _raise_on(rc, lib, "backward")
     fused_factored_encode_backward.launches += 1
     return d_lines
+
+
+def fused_factored_dfeat(lines: torch.Tensor, points: torch.Tensor, g: torch.Tensor,
+                         cfg: ModelConfig, dtype=None) -> torch.Tensor:
+    """The backward's first kernel alone: d_feat (3, N, stride),
+    d_feat[a] = (g * f_b) * f_c, bf16 under a bf16 ``dtype`` with
+    C padded by zero columns to ``bwd_plan``'s stride, else f32 (stride
+    C). For tests and timing; the backward launches it itself. Not
+    counted in the launch counters; CUDA tensors only (the plain d_feat is
+    ``fused_factored_dfeat_reference``)."""
+    _check(lines, points, cfg, g)
+    if points.device.type != "cuda":
+        raise ValueError(f"no d_feat kernel for device {points.device}")
+    dev = points.device
+    _check_cuda((("points", points), ("lines", lines), ("g", g)), dev)
+    if g.data_ptr() % 16:
+        g = g.clone()
+    n = points.shape[0]
+    operand, res, L, C, aabb, two_aabb, bf16 = _launch_args(lines, cfg, dtype)
+    lib = _library()
+    stride = bwd_plan(n, basis_dim(cfg), C, bool(bf16), 1).stride
+    d = torch.empty(3, n, stride, dtype=torch.bfloat16 if bf16 else torch.float32, device=dev)
+    rc = lib.nerf_factored_dfeat(points.data_ptr(), operand.data_ptr(), g.data_ptr(), d.data_ptr(),
+                                 n, res, L, C, aabb, two_aabb, bf16, stride,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, lib, "d_feat")
+    return d
 
 
 class _Encode(torch.autograd.Function):
@@ -218,8 +316,14 @@ def _library() -> ctypes.CDLL:
         staged.argtypes = [pres, i32, i32, i32]
         staged.restype = i32
         size = lib.nerf_factored_bwd_scratch_bytes
-        size.argtypes = [i64, i32, i32]
+        size.argtypes = [i64, i32, i32, i32]
         size.restype = i64
+        plan = lib.nerf_factored_bwd_plan
+        plan.argtypes = [i64, i32, i32, i32, i32, pres]
+        plan.restype = None
+        dfeat = lib.nerf_factored_dfeat
+        dfeat.argtypes = [vp] * 4 + [i64, pres, i32, i32, f32, f32, i32, i32, vp]
+        dfeat.restype = i32
         lib.nerf_cuda_error_string.argtypes = [i32]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -240,7 +344,7 @@ def _plain_features(lines, u, cfg, dtype):
     for a in range(3):
         la = _round(lines[a].float(), dtype)
         feats.append(torch.cat([_round(hat_weights(u[i:i + PLAIN_CHUNK, a], cfg), dtype) @ la
-                                for i in range(0, u.shape[0], PLAIN_CHUNK)]))
+                                for i in range(0, max(u.shape[0], 1), PLAIN_CHUNK)]))
     return feats
 
 
@@ -255,19 +359,27 @@ def fused_factored_encode_reference(lines: torch.Tensor, points: torch.Tensor,
     return f[0] * f[1] * f[2]
 
 
+def fused_factored_dfeat_reference(lines: torch.Tensor, points: torch.Tensor, g: torch.Tensor,
+                                   cfg: ModelConfig, dtype=None) -> torch.Tensor:
+    """The plain d_feat (3, N, C) f32: d_feat[a] = round((g * f_b) * f_c),
+    the JAX kernel's order, with f_b, f_c the plain versions' features."""
+    _check(lines, points, cfg, g)
+    f = _plain_features(lines.detach(), unit_coords(points, cfg.fac_aabb), cfg, dtype)
+    return torch.stack([_round((g.float() * f[b]) * f[c], dtype)
+                        for b, c in ((1, 2), (0, 2), (0, 1))])
+
+
 def fused_factored_encode_backward_reference(lines: torch.Tensor, points: torch.Tensor,
                                              g: torch.Tensor, cfg: ModelConfig,
                                              dtype=None) -> torch.Tensor:
     """The backward kernel's plain PyTorch version: d_lines[a] = W_a^T
     round((g * f_b) * f_c), f32 products of the rounded operands summed
     in f32, PLAIN_CHUNK points at a time in order."""
-    _check(lines, points, cfg, g)
+    d_feat = fused_factored_dfeat_reference(lines, points, g, cfg, dtype)
     u = unit_coords(points, cfg.fac_aabb)
-    f = _plain_features(lines.detach(), u, cfg, dtype)
     d_lines = torch.zeros(lines.shape, device=lines.device)
-    for a, (b, c) in enumerate(((1, 2), (0, 2), (0, 1))):
-        d_feat = _round((g.float() * f[b]) * f[c], dtype)
+    for a in range(3):
         for i in range(0, u.shape[0], PLAIN_CHUNK):
             w = _round(hat_weights(u[i:i + PLAIN_CHUNK, a], cfg), dtype)
-            d_lines[a] += w.t() @ d_feat[i:i + PLAIN_CHUNK]
+            d_lines[a] += w.t() @ d_feat[a, i:i + PLAIN_CHUNK]
     return d_lines

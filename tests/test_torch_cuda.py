@@ -4,10 +4,12 @@ and the row gather (csrc/gather_rows.cu) against their plain PyTorch
 versions, on a CUDA card: PE and IPE, rays that fit a 128-row tile and rays
 padded to 256 samples, the contraction and distortion-loss branches of both
 whole-ray kernels; the factored encode forward and backward at the main
-path's widths and at small ones; the row gather at ragged N, with repeated
-and out-of-table indices, the hash-grid encodes through it, its fixed-order
-scatter, and the hash grid's table bits across two train steps. Every case
-skips without one.
+path's widths and at small ones, the backward also on ray-ordered and
+shuffled points, with every level staged and with a per-axis table larger
+than a CTA's shared memory, and its d_feat kernel alone; the row gather at
+ragged N, with repeated and out-of-table indices, the hash-grid encodes
+through it, its fixed-order scatter, and the hash grid's table bits across
+two train steps. Every case skips without one.
 
 This file imports neither JAX nor the JAX package's tests, so it runs on
 a machine with torch and CUDA alone (the repo's conftest.py needs JAX):
@@ -416,6 +418,122 @@ def test_factored_backward_is_deterministic():
     a = k3.fused_factored_encode_backward(lines, pts, g, FAC_MAIN, torch.bfloat16)
     b = k3.fused_factored_encode_backward(lines, pts, g, FAC_MAIN, torch.bfloat16)
     assert torch.equal(a, b)
+
+
+def _ray_inputs(cfg, n, dev, seed=0):
+    """Lines, n points of rays of 128 samples each laid out a ray at a time
+    (as the main path lays them out), the first two pushed out of the AABB
+    (clipped), and an encoding cotangent."""
+    rng = np.random.default_rng(seed)
+    lines = (0.25 * rng.normal(size=(3, basis_dim(cfg), cfg.fac_comps))).astype(np.float32)
+    a = cfg.fac_aabb
+    rays = -(-n // 128) or 1
+    o = rng.uniform(-0.2 * a, 0.2 * a, (rays, 1, 3))
+    d = rng.normal(size=(rays, 1, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t = np.sort(rng.uniform(0.0, 2.5 * a, (rays, 128, 1)), axis=1)
+    pts = (o + t * d).reshape(-1, 3)[:n].astype(np.float32)
+    pts[:2] = np.float32([[2 * a, -a, a], [a, 0.0, -2 * a]])[:n]
+    g = rng.normal(size=(n, cfg.fac_comps)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev) for x in (lines, pts, g))
+
+
+# the backward's geometries: the main width, a small one, every level
+# staged, a per-axis table larger than a CTA's shared memory (the f32
+# backward refuses it; the bf16 one, on the tensor cores, takes it), and two
+# whose C the bf16 scatter pads: 12 channels (two 8-channel tiles, the last
+# half zeros) and 100 (three groups of five tiles, 120 columns)
+FAC_BWD = {"main": FAC_MAIN, "small": FAC_SMALL, "all staged": FAC_ALL, "none": FAC_NONE,
+           "padded": ModelConfig(arch="factored", fac_levels=4, fac_base_res=8,
+                                 fac_max_res=64, fac_comps=12),
+           "groups": ModelConfig(arch="factored", fac_levels=3, fac_base_res=16,
+                                 fac_max_res=128, fac_comps=100)}
+
+
+@pytest.mark.parametrize("order", ["ray", "shuffled"])
+@pytest.mark.parametrize("n", [0, 1, 37, 100_003])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+@pytest.mark.parametrize("geometry", list(FAC_BWD))
+def test_factored_backward_matches_plain_version(geometry, dtype, n, order):
+    """K3's backward against its plain version at k3.KERNEL_TOL (per axis,
+    relative to the axis's largest entry), on ray-ordered points (a
+    narrow band of knots a step) and on the same points shuffled."""
+    cfg = FAC_BWD[geometry]
+    dev = _device()
+    lines, pts, g = _ray_inputs(cfg, n, dev, seed=4)
+    if order == "shuffled":
+        pts = pts[torch.from_numpy(np.random.default_rng(5).permutation(n)).to(dev)].contiguous()
+    if geometry == "none" and dtype is None:
+        with pytest.raises(ValueError, match="f32 lines"):
+            k3.fused_factored_encode_backward(lines, pts, g, cfg, dtype)
+        return
+    d = k3.fused_factored_encode_backward(lines, pts, g, cfg, dtype)
+    torch.cuda.synchronize()
+    want = k3.fused_factored_encode_backward_reference(lines, pts, g, cfg, dtype)
+    assert d.shape == want.shape and bool(torch.isfinite(d).all())
+    if n == 0:
+        assert not bool(d.any())
+        return
+    for a in range(3):
+        scale = float(want[a].abs().max())
+        assert scale > 0
+        assert float((d[a] - want[a]).abs().max()) / scale <= k3.KERNEL_TOL["d_lines"], a
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+@pytest.mark.parametrize("geometry", list(FAC_BWD))
+def test_factored_dfeat_matches_plain_dfeat(geometry, dtype):
+    """The backward's first kernel: d_feat[a] = (g * f_b) * f_c from the
+    forward's features, against the plain version's. Under bf16 both round
+    to bf16 and the features differ only in the order of their f32 sums,
+    so an element may fall on the other side of a rounding boundary: one
+    bf16 step at most, on few elements. The padding columns are zero."""
+    cfg = FAC_BWD[geometry]
+    dev = _device()
+    lines, pts, g = _ray_inputs(cfg, 100_003, dev, seed=6)
+    d = k3.fused_factored_dfeat(lines, pts, g, cfg, dtype)
+    torch.cuda.synchronize()
+    want = k3.fused_factored_dfeat_reference(lines, pts, g, cfg, dtype)
+    C = cfg.fac_comps
+    stride = k3.bwd_plan(100_003, basis_dim(cfg), C, dtype is not None, 132).stride
+    assert d.shape == (3, 100_003, stride)
+    assert not bool(d[:, :, C:].any())
+    got = d[:, :, :C].float()
+    diff = (got - want).abs()
+    if dtype is None:
+        assert float(diff.max()) <= 1e-5 * float(want.abs().max())
+    else:
+        assert bool((diff <= 2.0 ** -7 * want.abs()).all())
+        assert float((diff > 0).float().mean()) < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+def test_factored_backward_does_not_synchronise(dtype):
+    """The backward sizes its scratch from N, sumR and C on the host: a
+    call under set_sync_debug_mode("error") does not raise."""
+    dev = _device()
+    lines, pts, g = _ray_inputs(FAC_MAIN, 100_003, dev, seed=7)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d = k3.fused_factored_encode_backward(lines, pts, g, FAC_MAIN, dtype)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(d).all())
+
+
+def test_bwd_plan_matches_the_kernels():
+    """The kernels' layout (nerf_factored_bwd_plan) is bwd_plan's."""
+    _device()
+    lib = k3._library()
+    out = (ctypes.c_int * 6)()
+    for n in (1, 37, 100_003, 524_288):
+        for sum_r, comps in ((1014, 48), (31, 8), (7602, 8), (1014, 12), (1014, 100)):
+            for bf16 in (0, 1):
+                for sms in (1, 132):
+                    lib.nerf_factored_bwd_plan(n, sum_r, comps, bf16, sms, out)
+                    assert tuple(out) == k3.bwd_plan(n, sum_r, comps, bool(bf16), sms)
 
 
 def test_factored_wrappers_refuse_what_the_kernels_do_not_take():
