@@ -37,8 +37,9 @@ Phases, each fatal (any failure exits non-zero):
   9. the hierarchical branches of both kernels at the flagship width, vs
      their plain versions (K2 also vs the float64 witness) on the 4,103
      rays of phase 3: IPE (relu and softplus, jittered intervals, the
-     camera's cone radius) and rays longer than one tile (S = 192, the
-     hierarchical union pass, and 193); K2 bit-identical across launches
+     camera's cone radius; and at S = 193, the record preset's union of
+     intervals) and rays longer than one tile (S = 192, the hierarchical
+     union pass, and 193); K2 bit-identical across launches
      at S = 192. Then K2 at S = 150, 191 and 192, which run as 192 (two rays
      a CTA in three passes), vs the plain version, the float64 witness and
      the same samples padded to 256; reruns bit-identical.
@@ -63,9 +64,16 @@ Phases, each fatal (any failure exits non-zero):
      (ragged); two forward and two backward launches bit-identical. The
      backward also vs its float64 witness (the plain version's rounded
      operands, float64 sums; the plain version's own gap is printed), on
-     the step's points shuffled, on FAC_NONE under bf16 (a per-axis table
-     larger than a CTA's shared memory), and once under
-     torch.cuda.set_sync_debug_mode("error").
+     the step's points shuffled, on FAC_NONE under bf16 and f32 (a per-axis
+     table larger than a CTA's shared memory, which the f32 scatter takes
+     in tiles of levels), and once under
+     torch.cuda.set_sync_debug_mode("error"); then the geometries past
+     K3's former caps (FAC_WIDE: 20 levels, and 6 levels x 192 channels),
+     forward and backward under bf16 and f32 lines on a train step's
+     points, against the plain versions and the witness, reruns
+     bit-identical, and beside the JAX kernel's dense hat product
+     (check_dense_form: d_lines within the bound of the d_feat elements
+     that its other order of sums rounds differently).
  13. the factored path (FACTORED_CONFIG: the bench's factored window,
      128x128 sphere, 4096 rays x 128 samples, mixed, lr 1e-2, with
      fac_fused on): train/loop.train for FAC_STEPS steps (exactly one K3
@@ -82,9 +90,10 @@ Phases, each fatal (any failure exits non-zero):
      backward with bf16 lines on ray-ordered and on shuffled points and
      with f32 lines; the backward's device time split into kernel A, the
      d_feat kernel, kernel B, the scatter, and the reduce) and its forward
-     at a 4,194,304-point render chunk, each beside its plain version, a
-     PyTorch library path (F.embedding_bag over the 2L taps per axis, and
-     its autograd) and its bound.
+     at a 4,194,304-point render chunk, and its bf16 forward and backward at
+     FAC_WIDE's geometries, each beside its plain version, a PyTorch
+     library path (F.embedding_bag over the 2L taps per axis, and its
+     autograd) and its bound.
  15. K4, the row gather (gather_rows, gather_pairs), vs its plain versions,
      bit for bit, on the indices of an ngp train step (4096 rays x 128
      jittered samples, every 8th point past the AABB) captured from the
@@ -132,8 +141,30 @@ Phases, each fatal (any failure exits non-zero):
      the unbounded K2 step; the new cases' kernel calls at the presets'
      shapes (a whole K1 chunk, K2's 4096-ray call), each held to its plain
      version and timed against it, a PyTorch library path and the bound.
-Every kernel launch counter is set to 0 just before the path it counts
-and read just after. The line before the last is one JSON object
+ 21. the record path through the CLI (`--preset record`: IPE, one shared
+     field, the 64 + 128 union of 193 intervals, coarse edges from a 32^3
+     occupancy grid): `train` for PRESET_STEPS steps at full width (exactly
+     2 K2 launches a step, 2 K1 for the eval), the grid updated after steps
+     0, 16, 32 and 48 and non-zero in the checkpoint, `render --view 0` at
+     800x800 (20 K1 launches) and `eval --max_views 2` (4), then a resume
+     for REC_RESUME steps that keeps the restored grid; the record 64x64
+     learning drive for REC_SEEDS above REC_PSNR.
+ 22. multiscale through the CLI: `train --preset mipnerf --multiscale_levels
+     4` for PRESET_STEPS steps (2 K2 launches a step), `eval --scales
+     1,2,4,8 --max_views 2` on its checkpoint (16 K1 launches, a finite mean
+     PSNR at each scale and the multiscale mean); its 64x64 learning drive
+     above MS_PSNR.
+ 23. times: K1 and K2 at the record shapes (a whole K1 chunk of 65,536 rays
+     x 193 IPE intervals, K2's 4096-ray union call and its 64-interval
+     coarse call), each held to its plain version (K2 also to the float64
+     witness) and timed beside it, the library path and the bound (counting
+     193 rows a ray, not the 256 the kernels pad to); the record step
+     through K2 and through autograd with a profile's device idle share,
+     its 800x800 frame through K1 on a grid. (K3's forward and backward at
+     FAC_WIDE's geometries are timed in phase 14, with the preset's.)
+The learning drives of phases 21 and 22 fail the run at its end, after
+phase 23 has printed its measurements. Every kernel launch counter is set
+to 0 just before the path it counts and read just after. The line before the last is one JSON object
 describing the kernels (with each one's bound and a PyTorch library
 call's time at the flagship shape); the last is {"ok": true, "device":
 {...}}. A kernel's "ms" is one call alone, in a CUDA-event window of its
@@ -160,7 +191,14 @@ implies: modelled, not measured.
 
 runs the preset's 64x64 learning drive, as the learning checks run it, for
 each of the comma-separated SEEDS with the extra CLI flags, and prints each
-seed's mean PSNR (a diagnostic, with no bar). To compare two commits, unpack the other
+seed's mean PSNR (a diagnostic, with no bar).
+
+    python3 chip_smoke.py --witness-steps PRESET SEED STEPS [FLAG ...]
+
+runs that drive's first STEPS steps through K2 and through autograd from
+the same start, each K2 launch held to its float64 witness (a diagnostic of
+a drive that stalls through one route and not the other). To compare two
+commits, unpack the other
 into a git-ignored directory (`git archive`) and run both in one call on
 one card, in turns:
 
@@ -325,6 +363,47 @@ UNB_SHAPES = (Shape("K1", "PE + contract, S=64 (unbounded chunk)", False, True, 
               Shape("K2", "PE, S=128 (proposal step)", False, False, None, 4096, 128, 0.05, 2.0,
                     True))
 UNB_DIST = 0.01  # the unbounded preset's distortion weight
+# The record preset (phases 21 and 23): IPE, one shared field, the union
+# pass of 65 + 129 edges = 193 intervals (padded to 256 rows a ray in the
+# kernels), coarse edges from a 32^3 occupancy grid updated every
+# REC_GRID_EVERY steps; a render chunk is 65,536 rays. Multiscale
+# (phase 22): the mipnerf preset on a 4-level pyramid, evaluated at 1, 2, 4
+# and 8. The 64x64 learning drives (--num_samples 32 --num_fine_samples 64,
+# 1024 rays, lr 1e-3, 301 steps; the multiscale one with
+# --multiscale_levels 4) must pass min(20 dB, the JAX package's own drives
+# with the same flags and seeds on the CPU, kernels off, less 1 dB); PERF.md
+# has the commands and each seed's reading. The multiscale drives read
+# 19.50 / 19.80 / 19.45 dB, mean 19.58 (seeds LEARN_SEEDS; the record drive's
+# seeds are REC_SEEDS, below).
+REC_GRID_EVERY = 16
+REC_RESUME = 4  # steps of the resume
+MS_FLAGS = ("--multiscale_levels", "4")
+MS_SCALES = (1, 2, 4, 8)
+REC_PSNR = 20.0
+MS_PSNR = 18.58
+# The record drive runs ten seeds, and its bar comes from the JAX package's
+# drives on the same ten: at lr 1e-3 some starts of this preset go
+# transparent at the first Adam update and recover slowly in both packages
+# (tests/torch_record_pair.py drives both from one start on one stream of
+# draws: the same trajectory, slow or not), so the mean of three seeds
+# measures which starts are slow, not the port. The JAX drives of seeds 0-9
+# read 21.76 / 21.66 / 22.89 / 21.50 / 21.91 / 21.13 / 20.70 / 22.13 /
+# 21.87 / 22.12 dB, mean 21.77: REC_PSNR = min(20, 21.77 - 1).
+REC_SEEDS = tuple(range(10))
+# the record preset's kernel calls: a whole K1 chunk of the union pass and
+# K2's 4096-ray union call, IPE at 193 intervals (white background), and the
+# coarse pass's 64-interval call
+RECORD_SHAPES = (Shape("K1", "IPE, S=193 (record union chunk)", True, False, None, 65536, 193,
+                       0.05, 2.0, True),
+                 Shape("K2", "IPE, S=193 (record union step)", True, False, None, 4096, 193,
+                       0.05, 2.0, True),
+                 Shape("K2", "IPE, S=64 (record coarse step)", True, False, None, 4096, 64,
+                       0.05, 2.0, True))
+
+
+# checks whose failure fails the run at its end, after every later phase has
+# run and printed its measurements (the learning drives of phases 21 and 22)
+DEFERRED = []
 
 
 def fail(msg: str) -> None:
@@ -770,12 +849,13 @@ def sample_inputs(n, s, ipe, cam, gen, near=None, far=None, space="linear"):
 def branch_inputs(cam, dev):
     """Inputs of the branch checks on the N_RAYS rays: (name, ipe, S, ts
     or interval midpoints, deltas, radii) for IPE at the mipnerf passes'
-    64 and 128 intervals, and rays of 192 and 193 samples (the
-    hierarchical union pass; the record preset's)."""
+    64 and 128 intervals and at the record preset's union of 193, and rays
+    of 192 and 193 point samples (the hierarchical union pass)."""
     gen = torch_generator(dev, 5)
     out = []
     for name, ipe, s in (("IPE relu, S=64", True, 64), ("IPE softplus, S=128", True, 128),
-                         ("S=192 relu", False, 192), ("S=193 softplus", False, 193)):
+                         ("S=192 relu", False, 192), ("S=193 softplus", False, 193),
+                         ("IPE softplus, S=193 (record union)", True, 193)):
         ts, dl, _, radii = sample_inputs(N_RAYS, s, ipe, cam, gen)
         out.append((name, ipe, s, ts, dl, radii))
     return out
@@ -973,20 +1053,115 @@ def drive_preset(tmp: str, preset: str) -> dict:
     return counts
 
 
+def drive_record(tmp: str) -> dict:
+    """`--preset record` through the CLI at full width (drive_preset: train
+    for PRESET_STEPS steps with 2 K2 launches a step, `render --view 0` at
+    800x800 and `eval --max_views 2` with exact K1 counts), with the
+    occupancy grid updated after steps 0, 16, 32 and 48 and non-zero in the
+    checkpoint; then a resume for REC_RESUME steps (2 K2 launches each, no
+    update) whose checkpoint holds the restored grid unchanged. Returns the
+    launch counts."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+    from nerf_rs_tpu_torch.train import checkpoint as ckpt, loop
+
+    updates = []
+    real = loop.update_occupancy
+
+    def counted(state, cfg, it):
+        updates.append(it)
+        return real(state, cfg, it)
+
+    loop.update_occupancy = counted
+    try:
+        counts = drive_preset(tmp, "record")
+        want = list(range(0, PRESET_STEPS, REC_GRID_EVERY))
+        ckdir = os.path.join(tmp, "record")
+        grid = torch.load(ckpt.latest_checkpoint(ckdir), weights_only=True)["grid"]
+        print(f"record grid: updates after steps {updates} (want {want}), {tuple(grid.shape)}, "
+              f"{int((grid > 0.01).sum())} of {grid.numel()} cells occupied, max "
+              f"{float(grid.max()):.4g}")
+        if updates != want or tuple(grid.shape) != (32, 32, 32) or not float(grid.max()) > 0:
+            fail(f"record grid: updates {updates} (want {want}), shape {tuple(grid.shape)}, "
+                 f"max {float(grid.max())}")
+        updates.clear()
+        fused_train_grads.launches = 0
+        steps = PRESET_STEPS + REC_RESUME
+        rc, out = run_cli(["train", "--preset", "record", "--dataset", "sphere", "--num_iter",
+                           str(steps), "--eval_steps", "50", "--save_steps", "1000",
+                           "--save_dir", ckdir, "--log_dir", ckdir])
+        k2 = fused_train_grads.launches
+        after = torch.load(ckpt.latest_checkpoint(ckdir), weights_only=True)
+        print(f"record resume to {steps}: rc {rc}, K2 launches {k2}, updates {updates}, grid "
+              f"restored {torch.equal(after['grid'], grid)}")
+        if (rc != 0 or k2 != 2 * REC_RESUME or updates or after["step"] != steps
+                or not torch.equal(after["grid"], grid)):
+            fail(f"record resume: rc {rc}, K2 launches {k2} (want {2 * REC_RESUME}), updates "
+                 f"{updates}, step {after['step']}, grid kept {torch.equal(after['grid'], grid)}")
+        counts["resume"] = k2
+    finally:
+        loop.update_occupancy = real
+    return counts
+
+
+def drive_multiscale(tmp: str) -> dict:
+    """`train --preset mipnerf --multiscale_levels 4` through the CLI at
+    full width for PRESET_STEPS steps (2 K2 launches a step, 2 K1 for the
+    eval), then `eval --scales 1,2,4,8 --max_views 2` on its checkpoint:
+    each scale's views through K1 (one chunk, two passes, a view), a
+    finite mean PSNR at each scale and the multiscale mean. Returns the
+    launch counts."""
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+
+    ckdir = os.path.join(tmp, "mipnerf-ms")
+    common = ["--preset", "mipnerf", *MS_FLAGS, "--dataset", "sphere", "--save_dir", ckdir]
+    fused_train_grads.launches = 0
+    fused_ray_render.launches = 0
+    rc, out = run_cli(["train", *common, "--num_iter", str(PRESET_STEPS), "--eval_steps", "50",
+                       "--save_steps", "1000", "--log_dir", ckdir])
+    k2, k1 = fused_train_grads.launches, fused_ray_render.launches
+    print(f"cli train --preset mipnerf {' '.join(MS_FLAGS)}, {PRESET_STEPS} steps: rc {rc}, "
+          f"K2 launches {k2}, K1 launches {k1}")
+    if rc != 0 or k2 != 2 * PRESET_STEPS or k1 != 2:
+        fail(f"multiscale train: rc {rc}, K2 launches {k2} (want {2 * PRESET_STEPS}), K1 "
+             f"launches {k1} (want 2)")
+    fused_ray_render.launches = 0
+    rc, out = run_cli(["eval", *common, "--max_views", "2", "--scales",
+                       ",".join(map(str, MS_SCALES))])
+    k1_eval = fused_ray_render.launches
+    means = dict(re.findall(r"mean psnr over 2 \S+ views at 1/(\d+): (\S+)", out))
+    m = re.search(r"multiscale mean psnr: ([^,\s]+)", out)
+    print(f"cli eval --scales {','.join(map(str, MS_SCALES))}: rc {rc}, K1 launches {k1_eval} "
+          f"(want {2 * 2 * len(MS_SCALES)}), mean psnr by scale {means}, multiscale mean "
+          f"{m and m.group(1)}")
+    if (rc != 0 or k1_eval != 2 * 2 * len(MS_SCALES) or sorted(map(int, means)) != list(MS_SCALES)
+            or m is None or not all(math.isfinite(float(v)) for v in [*means.values(),
+                                                                      m.group(1)])):
+        fail(f"multiscale eval: rc {rc}, K1 launches {k1_eval}, means {means}")
+    return {"train": k2, "train_eval": k1, "eval_scales": k1_eval,
+            "psnr_by_scale": {int(k): float(v) for k, v in means.items()}}
+
+
 def learning_drive(tmp: str, preset: str, extra=("--num_fine_samples", "64"),
-                   k2_per_step: int = 2, bar: Optional[float] = None) -> dict:
+                   k2_per_step: int = 2, bar: Optional[float] = None,
+                   name: Optional[str] = None, defer: bool = False,
+                   seeds=LEARN_SEEDS) -> dict:
     """The preset's 64x64 learning drive through K2 (``k2_per_step``
-    launches a step), once per seed in LEARN_SEEDS, then `cli eval` on each
+    launches a step), once per seed in ``seeds``, then `cli eval` on each
     checkpoint: the mean over seeds of the mean PSNR over the first
     LEARN_VIEWS views must pass ``bar`` (PRESET_PSNR[preset] by default).
+    ``name`` (by default the preset's) names the drives' directories. With
+    ``defer`` a mean under the bar fails the run at its end (DEFERRED).
     Returns each seed's readings and the mean."""
     from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
 
     common = ["--preset", preset, "--dataset", "sphere", "--width", "64", "--height", "64",
               "--num_samples", "32", *extra]
     per_seed = {}
-    for seed in LEARN_SEEDS:
-        vdir = os.path.join(tmp, f"learn-{preset}-{seed}")
+    for seed in seeds:
+        vdir = os.path.join(tmp, f"learn-{name or preset}-{seed}")
         fused_train_grads.launches = 0
         rc, out = run_cli(["train", *common, "--seed", str(seed), "--num_rays", "1024",
                            "--num_iter", "301", "--eval_steps", "100", "--learning_rate", "1e-3",
@@ -1006,9 +1181,13 @@ def learning_drive(tmp: str, preset: str, extra=("--num_fine_samples", "64"),
           f"views at 301 per seed {[r['mean_psnr'] for r in per_seed.values()]}, mean {mean:.3f} "
           f"(bar {bar})")
     if not mean > bar:
-        fail(f"{preset} learning drives: mean psnr {mean:.3f} over seeds {LEARN_SEEDS} "
-             f"(need > {bar})")
-    return {"seeds": per_seed, "mean_psnr": mean}
+        msg = (f"{name or preset} learning drives: mean psnr {mean:.3f} over seeds "
+               f"{seeds} (need > {bar})")
+        if not defer:
+            fail(msg)
+        print(f"chip_smoke: {msg}; the run fails at its end")
+        DEFERRED.append(msg)
+    return {"seeds": per_seed, "mean_psnr": mean, "bar": bar}
 
 
 @contextlib.contextmanager
@@ -1061,7 +1240,7 @@ def eager_field(model, cfg, o, d, vd, ts, edges=None, radius=None):
 
 
 def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHAPES,
-                  plain_too: bool = True) -> list:
+                  plain_too: bool = True, witness: bool = False) -> list:
     """The branches' kernel calls at the presets' shapes (``shapes``, by
     default the hierarchical ones: a whole K1 chunk of the mipnerf fine
     pass's 131,072 rays x 128 IPE intervals and of the hierarchical union
@@ -1075,7 +1254,8 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
     elementwise and per-ray work: the products bound both). Each K2 row also
     splits the call's device time by kernel (a profile of 3 calls). With
     ``plain_too`` False (--time-step) the plain version is neither run nor
-    timed. Returns one row each."""
+    timed; with ``witness`` each K2 call is also held to the float64
+    witness. Returns one row each."""
     import dataclasses
 
     import torch
@@ -1142,6 +1322,11 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
                 want = plain()
                 hold(label, k2_errs(label, got, want), KERNEL_TOL)
                 err = k2_abs(got, want)
+                if witness:
+                    want = fused_train_grads_reference(*args, white_bg=white, radii=radii,
+                                                       dtype=torch.float64, **dist)
+                    wlabel = f"K2 vs f64 witness [{name}, {n} rays]"
+                    hold(wlabel, k2_errs(wlabel, got, want), KERNEL_TOL)
 
             def library():
                 model.zero_grad(set_to_none=True)
@@ -1255,6 +1440,7 @@ def time_presets(card: str, presets=PRESETS, profiled=("hierarchical",)) -> dict
     from nerf_rs_tpu_torch.data.factory import make_dataset
     from nerf_rs_tpu_torch.ops import render as render_ops
     from nerf_rs_tpu_torch.render import make_render
+    from nerf_rs_tpu_torch.train.loop import update_occupancy
     from nerf_rs_tpu_torch.train.step import init_state
 
     dev = torch.device("cuda")
@@ -1269,8 +1455,11 @@ def time_presets(card: str, presets=PRESETS, profiled=("hierarchical",)) -> dict
         random_biases_(st.params, 3)
         if st.fine_params is not None:
             random_biases_(st.fine_params, 4)
+        if st.grid is not None:  # the occupancy grid of these weights, as the loop makes it
+            st.grid = update_occupancy(st, fcfg, 0)
         render_fn = make_render(fcfg)
-        frame = lambda: render_fn(st.params, fo, fd, fine_params=st.fine_params)  # noqa: E731
+        frame = lambda: render_fn(st.params, fo, fd, fine_params=st.fine_params,  # noqa: E731
+                                  grid=st.grid)
         if not bool(torch.isfinite(frame()[0]).all()):
             fail(f"{preset} 800x800 frame: non-finite values")
         # the frame's first rays through both routes, coarse and fine
@@ -1283,7 +1472,8 @@ def time_presets(card: str, presets=PRESETS, profiled=("hierarchical",)) -> dict
                     st.params, fo[:k], fd[:k], fcfg.model, fcfg.render, fcfg.camera,
                     randomized=False, dtype=torch.bfloat16, use_fused=True,
                     fine_params=None if prop else st.fine_params,
-                    prop_params=st.fine_params if prop else None, prop_cfg=fcfg.proposal))
+                    prop_params=st.fine_params if prop else None, prop_cfg=fcfg.proposal,
+                    grid=st.grid))
         coarse_err = float((passes[0][0].rgb - passes[1][0].rgb).abs().max())
         fine_diff = (passes[0][1].rgb - passes[1][1].rgb).abs() if not prop else torch.zeros(1)
         errs = {"coarse": coarse_err, "fine mean": float(fine_diff.mean()),
@@ -1435,8 +1625,13 @@ def factored_points(ds, cam, n_rays: int, seed: int):
 
 # K3's backward on the geometry no forward level of whose table fits in
 # shared memory under f32 (tests/test_torch_cuda.py's FAC_NONE: 2,601 + 5,001
-# knots x 8 channels); its f32 backward is refused, its bf16 one is taken
+# knots x 8 channels); the f32 scatter takes its table in tiles of levels
 FAC_NONE = dict(arch="factored", fac_levels=2, fac_base_res=2600, fac_max_res=5000, fac_comps=8)
+# Geometries past K3's former caps (16 levels; levels x channels 1,024),
+# which the JAX kernel computes: 20 levels of the preset's ladder, and the
+# preset's 6 levels at 192 channels (L x C = 1,152)
+FAC_WIDE = {"levels 20": dict(arch="factored", fac_levels=20),
+            "6 x 192": dict(arch="factored", fac_comps=192)}
 
 
 def d_lines_witness(lines, pts, g, mcfg, dtype):
@@ -1550,10 +1745,56 @@ def check_factored_kernel(ds, mcfg, cam, lines) -> dict:
                                     device=lines.device)
     pts = factored_points(ds, cam, N_RAYS, 15)
     g = torch.randn(pts.shape[0], none.fac_comps, generator=gen, device=pts.device)
-    keep(check_backward_case(f"bf16, FAC_NONE (sumR {basis_dim(none)}), {pts.shape[0]} points",
-                             none_lines, pts, g, none, torch.bfloat16))
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        keep(check_backward_case(f"{name}, FAC_NONE (sumR {basis_dim(none)}), "
+                                 f"{pts.shape[0]} points", none_lines, pts, g, none, dtype))
+    # past the former caps: a train step's points, forward and backward
+    pts = factored_points(ds, cam, FAC_RAYS, 16)
+    for geometry, kw in FAC_WIDE.items():
+        wide = ModelConfig(**kw)
+        wide_lines = 0.25 * torch.randn(3, basis_dim(wide), wide.fac_comps, generator=gen,
+                                        device=lines.device)
+        g = torch.randn(pts.shape[0], wide.fac_comps, generator=gen, device=pts.device)
+        for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+            label = f"{name}, {geometry} (sumR {basis_dim(wide)}), {pts.shape[0]} points"
+            enc = k3.fused_factored_encode_forward(wide_lines, pts, wide, dtype)
+            if not torch.equal(enc, k3.fused_factored_encode_forward(wide_lines, pts, wide,
+                                                                      dtype)):
+                fail(f"two K3 forward launches [{label}] gave different bits")
+            got = float((enc - k3.fused_factored_encode_reference(wide_lines, pts, wide, dtype))
+                        .abs().max())
+            hold(f"K3 forward vs plain [{label}]", {"enc": got}, k3.KERNEL_TOL)
+            errs["enc"] = max(errs["enc"], got)
+            keep(check_backward_case(label, wide_lines, pts, g, wide, dtype))
+            check_dense_form(label, enc, wide_lines, pts, g, wide, dtype)
+        del wide_lines, g
     print("K3 forward and backward: two launches on the same inputs give bit-identical outputs")
     return errs
+
+
+def check_dense_form(label, enc, lines, pts, g, mcfg, dtype) -> None:
+    """K3 beside the JAX kernel's own form, the dense hat product, which
+    sums each feature's taps in another order than the kernels and the
+    plain versions: the encoding within KERNEL_TOL of its largest magnitude
+    (at least 1), d_lines within KERNEL_TOL of each axis's scale plus what
+    the d_feat elements that the two orders round differently move it by
+    (``dense_order_gap``), elementwise."""
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+
+    dense = k3.fused_factored_encode_reference(lines, pts, mcfg, dtype, dense=True)
+    enc_err = float((enc - dense).abs().max())
+    enc_bar = k3.KERNEL_TOL["enc"] * max(1.0, float(dense.abs().max()))
+    d = k3.fused_factored_encode_backward(lines, pts, g, mcfg, dtype)
+    want, bound, flips = k3.dense_order_gap(lines, pts, g, mcfg, dtype)
+    scale = want.abs().amax(dim=(1, 2), keepdim=True)
+    gap = (d - want).abs() / scale
+    over = float(((d - want).abs() - bound - k3.KERNEL_TOL["d_lines"] * scale).max())
+    print(f"K3 vs the dense hat product [{label}]: enc {enc_err:.3g} (bar {enc_bar:.3g}); "
+          f"d_lines {float(gap.max()):.3g} of its scale, {flips} d_feat elements rounded "
+          f"differently, their bound {float((bound / scale).max()):.3g}; "
+          f"{'ok' if over <= 0 else 'over by %.3g' % over}")
+    if enc_err > enc_bar or over > 0:
+        fail(f"K3 strays from the dense hat product [{label}]")
 
 
 @contextlib.contextmanager
@@ -1747,13 +1988,14 @@ def time_factored(card: str, ds, lines) -> dict:
     """The factored step through K3 and through the CLI's route, a profile
     of the K3 step, and K3's calls at the main path's shapes (forward and
     backward at 524,288 points, forward at a 4,194,304-point render chunk)
-    beside their plain versions, the library path and the bound."""
+    and at FAC_WIDE's geometries (bf16, 524,288 points) beside their plain
+    versions, the library path and the bound."""
     import dataclasses
 
     import torch
 
-    from nerf_rs_tpu_torch.kernels import fused_factored as k3
-    from nerf_rs_tpu_torch.models.factored import basis_dim
+    from nerf_rs_tpu_torch import ModelConfig
+    from nerf_rs_tpu_torch.models.mlp import init_nerf_params
     from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
 
     dev = ds.images.device
@@ -1797,15 +2039,45 @@ def time_factored(card: str, ds, lines) -> dict:
     for v, k in per[:10]:
         print(f"  {v:8.3f} ms/step  {k[:100]}")
 
+    out["calls"] = time_k3_calls(card, ds, mcfg, lines, (("forward", FAC_RAYS, bf16, "ray"),
+                                                         ("backward", FAC_RAYS, bf16, "ray"),
+                                                         ("forward", FAC_CHUNK, bf16, "ray"),
+                                                         ("forward", FAC_RAYS, None, "ray"),
+                                                         ("backward", FAC_RAYS, bf16, "shuffled"),
+                                                         ("backward", FAC_RAYS, None, "ray")))
+    # K3 past its former caps: a geometry that a checkout's kernels refuse
+    # (an older commit's, in an A/B) is named, and main fails on it
+    out["wide"], out["refused"] = [], []
+    for geometry, kw in FAC_WIDE.items():
+        wide = ModelConfig(**kw)
+        try:
+            out["wide"] += [dict(r, geometry=geometry) for r in time_k3_calls(
+                card, ds, wide, init_nerf_params(wide, 0, dev).lines.detach(),
+                (("forward", FAC_RAYS, bf16, "ray"), ("backward", FAC_RAYS, bf16, "ray")))]
+        except ValueError as e:
+            print(f"K3 at {geometry} [{card}]: refused ({e})")
+            out["refused"].append(geometry)
+    return out
+
+
+def time_k3_calls(card: str, ds, mcfg, lines, cases) -> list:
+    """K3's calls ``cases`` ((kind, rays, dtype, order) on the points of
+    factored_points' sphere rays) at the geometry ``mcfg``, each beside its
+    plain version, the library path (F.embedding_bag and its autograd) and
+    the bound; the backward's device time split into kernel A, kernel B and
+    the reduce. One row each."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+    from nerf_rs_tpu_torch.models.factored import basis_dim
+
+    dev = ds.images.device
+    bf16 = torch.bfloat16
+    cam = factored_config().camera
     C, R = mcfg.fac_comps, basis_dim(mcfg)
     rows = []
-    for kind, n_rays, dtype, order in (("forward", FAC_RAYS, bf16, "ray"),
-                                       ("backward", FAC_RAYS, bf16, "ray"),
-                                       ("forward", FAC_CHUNK, bf16, "ray"),
-                                       ("forward", FAC_RAYS, None, "ray"),
-                                       ("backward", FAC_RAYS, bf16, "shuffled"),
-                                       ("backward", FAC_RAYS, None, "ray")):
-        pts = factored_points(ds, cfg.camera, n_rays, 13)
+    for kind, n_rays, dtype, order in cases:
+        pts = factored_points(ds, cam, n_rays, 13)
         n = pts.shape[0]
         if order == "shuffled":
             pts = pts[torch.randperm(n, generator=torch_generator(dev, 15), device=dev)]
@@ -1842,8 +2114,8 @@ def time_factored(card: str, ds, lines) -> dict:
         library_ms = event_ms(library)
         b, by = bound_ms(flops, nbytes, PEAK_F32)
         dense_ms = 3 * n * R * C * 2 * (2 if kind == "backward" else 1) / PEAK_FLOPS * 1e3
-        row = {"kernel": kind, "points": n, "order": order,
-               "lines": "bf16" if dtype == bf16 else "f32",
+        row = {"kernel": kind, "points": n, "order": order, "levels": mcfg.fac_levels,
+               "comps": C, "lines": "bf16" if dtype == bf16 else "f32",
                "ms": ms, "ms_window": ms_window, "plain_ms": plain_ms,
                "library_ms": library_ms, "library_vs_plain": lib_err, "bound_ms": b,
                "bound_by": by, "sparse_flops": flops, "bytes": nbytes,
@@ -1867,7 +2139,8 @@ def time_factored(card: str, ds, lines) -> dict:
                      f"{row['kernel_a_ms']:.3f}, kernel B (scatter) {row['kernel_b_ms']:.3f}, "
                      f"reduce {row['reduce_ms']:.4f}; by kernel: "
                      + ", ".join(f"{k} {v:.4f}" for k, v in sorted(per.items())))
-        print(f"K3 {kind}, {n} {order} points, {row['lines']} lines [{card}]: kernel {ms:.3f} ms "
+        print(f"K3 {kind}, {mcfg.fac_levels} x {C}, {n} {order} points, {row['lines']} lines "
+              f"[{card}]: kernel {ms:.3f} ms "
               f"alone ({ms_window:.3f} ms a call in a window of {GATHER_CALLS}{split}), plain "
               f"{plain_ms:.3f} ms, "
               f"library {library_ms:.3f} ms (vs plain {lib_err:.3g}), bound {b:.4f} ms ({by}; "
@@ -1876,8 +2149,7 @@ def time_factored(card: str, ds, lines) -> dict:
               f"the TPU ran would be {dense_ms:.3f} ms at {PEAK_FLOPS / 1e12:.0f} TFLOP/s bf16")
         rows.append(row)
         del pts, g, lib_lines
-    out["calls"] = rows
-    return out
+    return rows
 
 
 def ngp_cfg(layout: str, *extra):
@@ -2591,12 +2863,76 @@ def learn_seeds(preset: str, seeds: str, extra) -> int:
     return 0
 
 
+def witness_steps(preset: str, seed: str, steps: str, extra) -> int:
+    """The first ``steps`` steps of the preset's 64x64 learning drive (as
+    learn_seeds runs it, with the CLI flags ``extra``), through K2 and
+    through autograd from the same weights and draws (the occupancy grid,
+    where there is one, updated as the loop updates it): per step both
+    losses, how far apart the two routes' weights stand (the largest leaf
+    difference relative to the leaf's largest entry), and every K2 launch
+    held to its float64 witness and its plain version (KERNEL_TOL's keys).
+    A diagnostic: it holds no bar."""
+    import dataclasses
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the kernels run on the card only")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain version: full f32
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels import fused_train
+    from nerf_rs_tpu_torch.train.loop import update_occupancy
+    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+
+    card = card_line()
+    dev = torch.device("cuda")
+    lr = [] if "--learning_rate" in extra else ["--learning_rate", "1e-3"]
+    cfg = preset_cfg(preset, "--width", "64", "--height", "64", "--num_samples", "32",
+                     "--num_rays", "1024", "--seed", seed, *lr, *extra)
+    ds = make_dataset(cfg, dev)
+    routes = {"K2": cfg, "autograd": dataclasses.replace(cfg, use_whole_ray_train=False)}
+    states = {k: init_state(c, dev) for k, c in routes.items()}
+    fns = {k: make_train_step(c, ds) for k, c in routes.items()}
+    real, held = fused_train.fused_train_grads, []
+
+    def witnessed(*args, **kw):
+        got = real(*args, **kw)
+        wit = fused_train.fused_train_grads_reference(*args, dtype=torch.float64, **kw)
+        plain = fused_train.fused_train_grads_reference(*args, **kw)
+        held.append((k2_errs("witness", got, wit), k2_errs("plain", got, plain)))
+        return got
+
+    witnessed.launches = 0  # the wrapped kernel counts its launches on this name
+    fused_train.fused_train_grads = witnessed
+    try:
+        for it in range(int(steps)):
+            held.clear()
+            losses = {}
+            for k, c in routes.items():
+                states[k], aux = fns[k](states[k], step_generator(c.train.seed, it, dev))
+                losses[k] = float(aux["loss"])
+                if states[k].grid is not None and it % c.render.occ_update_steps == 0:
+                    states[k].grid = update_occupancy(states[k], c, it)
+            gap = max(leaf_err(a.detach(), b.detach()) for a, b in zip(
+                states["K2"].params.parameters(), states["autograd"].params.parameters()))
+            print(f"witness {preset} {' '.join(extra)} seed {seed} step {it} [{card}]: loss K2 "
+                  f"{losses['K2']:.6f}, autograd {losses['autograd']:.6f}; weights apart "
+                  f"{gap:.3g}; K2 launches vs witness "
+                  + "; ".join(", ".join(f"{k} {v:.3g}" for k, v in w.items()) for w, _ in held)
+                  + " | vs plain "
+                  + "; ".join(", ".join(f"{k} {v:.3g}" for k, v in p.items()) for _, p in held))
+    finally:
+        fused_train.fused_train_grads = real
+    return 0
+
+
 def time_step(root: str) -> int:
     """The times of the kernels for the checkout at ``root``: ptxas' report
     of every kernel instance; the flagship train step through K2, autograd
     and the plain version, one K2 call and one K1 chunk; every K1 and K2
-    call of the main paths (BRANCH_SHAPES and UNB_SHAPES: K2 at S = 192
-    with 4096 rays among them) beside autograd's or the eager field's, each
+    call of the main paths (BRANCH_SHAPES, UNB_SHAPES and RECORD_SHAPES: K2
+    at S = 192 and 193 with 4096 rays among them) beside autograd's or the
+    eager field's, each
     K2 call split by kernel; the hierarchical step through K2 and through
     autograd; then the hash grid's table gradient (scatter_rows at an ngp
     step's fetches, both layouts, split into sort and reduce), K4's two
@@ -2634,8 +2970,8 @@ def time_step(root: str) -> int:
     flat_o, flat_d = fo.reshape(-1, 3), fd.reshape(-1, 3)
     packed = pack_weights(model, mcfg)
     time_chunk(card, packed, mcfg, cfg.camera, flat_o, flat_d)
-    time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d, BRANCH_SHAPES + UNB_SHAPES,
-                  plain_too=False)
+    time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d,
+                  BRANCH_SHAPES + UNB_SHAPES + RECORD_SHAPES, plain_too=False)
     preset_steps(card, "hierarchical", profiled=True)
     del model, packed
     time_scatter(card, scatter_inputs(dev))
@@ -2816,6 +3152,15 @@ def main() -> int:
         unb_learned = {p: learning_drive(tmp, p, extra=UNB_LEARN_FLAGS[p], k2_per_step=1,
                                          bar=unb_bars[p])
                        for p in UNB_PRESETS}
+
+        # ---- 21. the record path through the CLI: occupancy, IPE union ----
+        rec_counts = drive_record(tmp)
+        rec_learned = learning_drive(tmp, "record", bar=REC_PSNR, defer=True, seeds=REC_SEEDS)
+
+        # ---- 22. multiscale through the CLI: a pyramid, eval at four scales ----
+        ms_counts = drive_multiscale(tmp)
+        ms_learned = learning_drive(tmp, "mipnerf", extra=("--num_fine_samples", "64", *MS_FLAGS),
+                                    bar=MS_PSNR, name="mipnerf-ms", defer=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2878,6 +3223,16 @@ def main() -> int:
     train_err = max(train_err, *(r["max_abs_err"] for r in unb_rows if r["kernel"] == "K2"))
     unb_times = time_presets(card, UNB_PRESETS, profiled=UNB_PRESETS)
 
+    # ---- 23. times of the record path, IPE at 193 and K3 past its former caps ----
+    rec_rows = time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d, RECORD_SHAPES,
+                             witness=True)
+    max_err = max(max_err, *(r["max_abs_err"] for r in rec_rows if r["kernel"] == "K1"))
+    train_err = max(train_err, *(r["max_abs_err"] for r in rec_rows if r["kernel"] == "K2"))
+    rec_times = time_presets(card, ("record",), profiled=("record",))
+    wide_rows = fac_times["wide"]
+    if fac_times["refused"]:
+        fail(f"K3 refused {fac_times['refused']}, which it takes since fault 5's repair")
+
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "nerf_rs_tpu"))
     if bad:
         fail(f"imported {bad}: the port stands without JAX and the JAX package")
@@ -2888,11 +3243,15 @@ def main() -> int:
     k2_bound, k2_by = bound_ms(flops_per_row(mcfg, True) * 4096 * S,
                                4096 * (36 + 8 * S + 12 + 32 + 4 * S)
                                + 4 * (packed.w.numel() + packed.b.numel()))
+    path_counts = {**preset_counts, **unb_counts, "record": rec_counts}
     k1_paths = {"render_flagship": launches,
-                **{f"{p}_{k}": c[k] for p, c in {**preset_counts, **unb_counts}.items()
-                   for k in ("train_eval", "render", "eval")}}
+                **{f"{p}_{k}": c[k] for p, c in path_counts.items()
+                   for k in ("train_eval", "render", "eval")},
+                "mipnerf_ms_train_eval": ms_counts["train_eval"],
+                "mipnerf_ms_eval_scales": ms_counts["eval_scales"]}
     k2_paths = {"train_flagship": train_launches,
-                **{f"{p}_train": c["train"] for p, c in {**preset_counts, **unb_counts}.items()}}
+                **{f"{p}_train": c["train"] for p, c in path_counts.items()},
+                "record_resume": rec_counts["resume"], "mipnerf_ms_train": ms_counts["train"]}
     scatter_paths = {f"ngp_{layout}_train": c["train_scatter"] for layout, c in ngp_counts.items()}
     scatter_paths["ngp_brick_learning"] = ngp_learned.pop("scatter_launches")
     k3_paths = {f"factored_{k}": fac_counts[k] for k in ("train", "frame", "eval")}
@@ -2915,7 +3274,7 @@ def main() -> int:
         "bound_by": k1_by,
         "library_ms": library["fused_ray_render"],
         "instances": instances["fused_ray"],
-        "branches": [r for r in branch_rows + unb_rows if r["kernel"] == "K1"],
+        "branches": [r for r in branch_rows + unb_rows + rec_rows if r["kernel"] == "K1"],
     }, {
         "name": "fused_train_grads",
         "route": "cuda",
@@ -2929,7 +3288,7 @@ def main() -> int:
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": library["fused_train_grads"],
-        "branches": [r for r in branch_rows + unb_rows if r["kernel"] == "K2"],
+        "branches": [r for r in branch_rows + unb_rows + rec_rows if r["kernel"] == "K2"],
     }, {
         "name": "fused_factored_encode",
         "route": "cuda",
@@ -2945,7 +3304,7 @@ def main() -> int:
         "bound_by": fac_fwd["bound_by"],
         "library_ms": fac_fwd["library_ms"],
         "points": fac_fwd["points"],
-        "cases": [fac_chunk, fac_f32],
+        "cases": [fac_chunk, fac_f32, *(r for r in wide_rows if r["kernel"] == "forward")],
     }, {
         "name": "fused_factored_encode_backward",
         "route": "cuda",
@@ -2960,7 +3319,8 @@ def main() -> int:
         **{k: fac_bwd[k] for k in ("ms", "ms_window", "plain_ms", "bound_ms", "bound_by",
                                    "library_ms", "points", "kernel_a_ms", "kernel_b_ms",
                                    "reduce_ms", "device_ms")},
-        "cases": [fac_bwd_shuffled, fac_bwd_f32],
+        "cases": [fac_bwd_shuffled, fac_bwd_f32,
+                  *(r for r in wide_rows if r["kernel"] == "backward")],
     }, *({
         "name": name,
         "route": "cuda",
@@ -2986,11 +3346,15 @@ def main() -> int:
                                                   "fetches")},
         "cases": [{"layout": "flat", **scatter_times["flat"]}],
     }],
-        "presets": {**preset_times, **unb_times}, "learning": {**learned, **unb_learned},
+        "presets": {**preset_times, **unb_times, **rec_times},
+        "learning": {**learned, **unb_learned, "record": rec_learned, "mipnerf_ms": ms_learned},
+        "multiscale": {"psnr_by_scale": ms_counts["psnr_by_scale"]},
         "factored": {**fac_times, "frame_s": fac_counts["frame_s"],
                      "learning": fac_learned},
         "ngp": {**ngp_times, "learning": ngp_learned}}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, build included")
+    if DEFERRED:
+        fail("; ".join(DEFERRED))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
@@ -3004,6 +3368,9 @@ if __name__ == "__main__":
         sys.exit(time_step(sys.argv[2]))
     if sys.argv[1:2] == ["--learn"] and len(sys.argv) >= 4:
         sys.exit(learn_seeds(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:2] == ["--witness-steps"] and len(sys.argv) >= 5:
+        sys.exit(witness_steps(sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5:]))
     if len(sys.argv) != 1:
-        fail("usage: python3 chip_smoke.py [--time-step ROOT | --learn PRESET SEEDS [FLAG ...]]")
+        fail("usage: python3 chip_smoke.py [--time-step ROOT | --learn PRESET "
+             "SEEDS [FLAG ...] | --witness-steps PRESET SEED STEPS [FLAG ...]]")
     sys.exit(main())

@@ -9,12 +9,15 @@ of ``cmd_train``, ``cmd_eval`` and ``cmd_render`` in
   python -m nerf_rs_tpu_torch.cli train --preset ngp --dataset sphere [--hash_brick false]
   python -m nerf_rs_tpu_torch.cli train --preset proposal --dataset sphere
   python -m nerf_rs_tpu_torch.cli train --preset unbounded --dataset sphere
+  python -m nerf_rs_tpu_torch.cli train --preset record --dataset sphere
+  python -m nerf_rs_tpu_torch.cli train --preset mipnerf --multiscale_levels 4 --dataset sphere
+  python -m nerf_rs_tpu_torch.cli eval --preset mipnerf --scales 1,2,4,8 --dataset sphere
   python -m nerf_rs_tpu_torch.cli render --dataset sphere --view 0
 
 It takes the JAX parser's flags that the ported slices serve, with the
 JAX defaults (``--use_whole_ray_train`` is off unless a preset turns it
 on; the presets ``tiny``, ``full``, ``hierarchical``, ``mipnerf``,
-``proposal`` and ``unbounded`` do,
+``proposal``, ``unbounded`` and ``record`` do,
 with the JAX package's values, and explicit flags beat the preset).
 ``--preset factored`` (or ``--arch factored``) selects the factored field,
 whose encode runs as the JAX CLI runs it, through the dense hat matrix:
@@ -25,9 +28,16 @@ one with ``--hash_brick false``; every table fetch goes through the row-gather
 kernel. ``--preset proposal`` samples through a proposal net (2 x 64 ->
 128 main samples, annealed); ``--preset unbounded`` is mip-NeRF 360's
 recipe (contraction, disparity spacing, a 2-level annealed proposal, the
-distortion loss), both through the whole-ray kernels. Eval and render of a
+distortion loss), both through the whole-ray kernels. ``--preset record`` is
+the JAX package's quality-record composition: IPE on one shared field, a
+union fine pass, softplus density, a white background and coarse interval
+edges drawn from an occupancy grid (``--occ_res 32``; the ``--occ_*`` flags),
+through the whole-ray kernels. ``--multiscale_levels`` trains on a box
+pyramid of the views (each ray with its level's cone radius), and ``eval
+--scales`` reports PSNR and SSIM at each downscale. Eval and render of a
 proposal checkpoint need the preset it was trained with (the file's second
-net is the proposal).
+net is the proposal); those of an occupancy-trained one need its
+``--occ_res``.
 Flags, presets and values of slices not ported yet, and the ``export``
 subcommand, are refused with an error that names the slice, never
 ignored.
@@ -65,9 +75,6 @@ LATER = {"export": "slice 7"}
 
 # the JAX parser's flags that later slices bring, by slice
 _LATER_FLAGS = {
-    3: "multiscale_levels",
-    4: "occ_res occ_update_steps occ_threshold occ_aabb occ_bins occ_decay "
-       "occ_uniform_frac",
     6: "img_dir view_start view_end view_step num_views_per_hemisphere llff_factor "
        "llff_holdout ndc ndc_near batch_mode views_per_batch prefetch data_workers "
        "use_native_loader error_resample_frac error_resample_ema",
@@ -76,7 +83,7 @@ _LATER_FLAGS = {
     10: "compat",
 }
 _FLAG_SLICE = {f: n for n, flags in _LATER_FLAGS.items() for f in flags.split()}
-_PRESET_SLICE = {"record": 4, "pod": 6}
+_PRESET_SLICE = {"pod": 6}
 
 
 def _bool_flag(p, name, default, help=""):
@@ -128,6 +135,24 @@ def build_parser() -> argparse.ArgumentParser:
              "composite only the fine samples",
     )
     _bool_flag(common, "white_background", False)
+    common.add_argument("--occ_res", type=int, default=0,
+                        help="occupancy-grid resolution for grid-guided sampling (0 = off)")
+    common.add_argument("--occ_update_steps", type=int, default=16,
+                        help="grid EMA update cadence (train steps)")
+    common.add_argument("--occ_threshold", type=float, default=1e-2,
+                        help="raw-sigma occupancy cutoff")
+    common.add_argument("--occ_aabb", type=float, default=1.0,
+                        help="the grid's AABB half-extent")
+    common.add_argument("--occ_bins", type=int, default=64,
+                        help="ray bins tested against the grid per draw")
+    common.add_argument("--occ_decay", type=float, default=0.95,
+                        help="per-update EMA decay")
+    common.add_argument("--occ_uniform_frac", type=float, default=0.25,
+                        help="uniform floor blended into the occupancy PDF")
+    common.add_argument("--multiscale_levels", type=int, default=1,
+                        help="mip-NeRF multiscale training: > 1 draws each batch across a "
+                             "1/1 .. 1/2^(L-1) box pyramid, every ray with its level's cone "
+                             "radius")
     common.add_argument("--sigma_activation", default="relu", choices=["relu", "softplus"])
     _bool_flag(common, "ipe", False,
                "mip-NeRF: conical-frustum intervals with the integrated encoding")
@@ -191,7 +216,8 @@ def build_parser() -> argparse.ArgumentParser:
                "turn it on)")
     common.add_argument("--preset", default="",
                         choices=["", "tiny", "full", "hierarchical", "mipnerf", "factored",
-                                 "ngp", "proposal", "unbounded", *sorted(_PRESET_SLICE)],
+                                 "ngp", "proposal", "unbounded", "record",
+                                 *sorted(_PRESET_SLICE)],
                         help="tiny = 100x100 coarse-only 4096-ray fit; full = paper "
                              "NeRF, stratified 64; hierarchical = two fields, 64 + 128 "
                              "union; mipnerf = IPE, one field, 64 + 128 standalone; all "
@@ -201,7 +227,9 @@ def build_parser() -> argparse.ArgumentParser:
                              "heads and settings; proposal = a proposal net picks 128 main "
                              "samples (annealed over 1000 steps); unbounded = mip-NeRF 360: "
                              "contraction, disparity sampling over [0.3, 60], a 2-level "
-                             "annealed proposal, distortion loss 0.01, softplus")
+                             "annealed proposal, distortion loss 0.01, softplus; record = "
+                             "IPE, one field, 64 + 128 union, softplus, white background, "
+                             "coarse edges from a 32^3 occupancy grid")
 
     sub.add_parser("train", parents=[common])
 
@@ -210,7 +238,8 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--max_views", type=int, default=0, help="0 = all views")
     pe.add_argument("--out_dir", default="", help="optionally dump per-view renders")
     pe.add_argument("--scales", default="",
-                    help="downscales to evaluate; only 1 until multiscale (slice 3)")
+                    help="comma-separated downscales to evaluate (e.g. 1,2,4,8; "
+                         "default 1)")
 
     pr = sub.add_parser("render", parents=[common])
     pr.add_argument("--out_dir", default="renders")
@@ -268,6 +297,16 @@ def _apply_preset(args):
              num_samples=64, num_fine_samples=128,
              sigma_activation="softplus", white_background=True,
              use_whole_ray_train=True)
+    elif p == "record":
+        # the JAX package's quality-record composition: IPE intervals on
+        # one shared field, the union fine pass (64 + 128: 193 intervals),
+        # softplus, white background, and the coarse edges drawn from a
+        # 32^3 occupancy grid over [-1.6, 1.6]^3 with a 10% uniform floor
+        _set(ipe=True, share_network=True, fine_mode="union",
+             num_samples=64, num_fine_samples=128,
+             sigma_activation="softplus", white_background=True,
+             use_whole_ray_train=True, occ_res=32, occ_aabb=1.6,
+             occ_uniform_frac=0.10)
     elif p == "factored":
         # the CP-factored multiresolution field (models/factored.py); its
         # grids learn at a high rate, like the ngp preset's
@@ -325,6 +364,13 @@ def config_from_args(args) -> Config:
                             share_network=args.share_network,
                             fine_mode=args.fine_mode,
                             white_background=args.white_background,
+                            occ_res=args.occ_res,
+                            occ_update_steps=args.occ_update_steps,
+                            occ_threshold=args.occ_threshold,
+                            occ_aabb=args.occ_aabb,
+                            occ_bins=args.occ_bins,
+                            occ_decay=args.occ_decay,
+                            occ_uniform_frac=args.occ_uniform_frac,
                             sampling_space=args.sampling_space),
         train=TrainConfig(
             num_rays=args.num_rays,
@@ -340,6 +386,7 @@ def config_from_args(args) -> Config:
             distortion_weight=args.distortion_weight,
         ),
         data=DataConfig(dataset=args.dataset,
+                        multiscale_levels=args.multiscale_levels,
                         near_explicit="near" in getattr(args, "_explicit", set()),
                         far_explicit="far" in getattr(args, "_explicit", set())),
         proposal=ProposalConfig(
@@ -357,19 +404,20 @@ def config_from_args(args) -> Config:
 
 def _load_params(cfg: Config, device):
     """The field (and the second net: the fine field of a two-field
-    hierarchical run, or the proposal net) with the weights of
-    --load_path, else of the newest checkpoint in --save_dir (weights
-    only: inference does not depend on the optimizer). Returns (params,
-    second net or None, path or None)."""
+    hierarchical run, or the proposal net; and the occupancy grid with
+    --occ_res) with the weights of --load_path, else of the newest
+    checkpoint in --save_dir (weights only: inference does not depend on
+    the optimizer). Returns (params, second net or None, grid or None,
+    path or None)."""
     from .train import checkpoint as ckpt
     from .train.step import init_state
 
     state = init_state(cfg, device)
     load_path = cfg.load_path or ckpt.latest_checkpoint(cfg.save_dir)
     if load_path:
-        step = ckpt.restore_weights(load_path, state.params, state.fine_params)
+        step = ckpt.restore_weights(load_path, state.params, state.fine_params, state.grid)
         print(f"loaded {load_path} (step {step})")
-    return state.params, state.fine_params, load_path
+    return state.params, state.fine_params, state.grid, load_path
 
 
 def cmd_train(args) -> int:
@@ -384,43 +432,60 @@ def cmd_train(args) -> int:
 
 def cmd_eval(args) -> int:
     """Per-view and mean PSNR and SSIM over a split, rendered with the
-    deterministic sampler."""
+    deterministic sampler; with ``--scales`` at each downscale (the rays
+    through the centres of scale-wide pixel blocks, a camera whose cone
+    radius widens by the scale, the gold box-averaged), then the mean over
+    every (scale, view)."""
+    import dataclasses
+
+    from .data.dataset import scaled_camera
     from .data.factory import make_dataset
     from .data.images import save_png
     from .ops import render as render_ops
     from .ops.metrics import ssim as ssim_fn
     from .render import make_render, render_frame
 
-    if args.scales not in ("", "1"):
-        raise NotImplementedError("multiscale eval (--scales) comes with slice 3 of the port "
-                                  "(multiscale)")
     cfg = config_from_args(args)
     device = resolve_device(args.device)
+    scales = [int(x) for x in args.scales.split(",") if x] or [1]
     dataset = make_dataset(cfg, device)
-    params, fine_params, load_path = _load_params(cfg, device)
+    params, fine_params, grid, load_path = _load_params(cfg, device)
     if not load_path:
         print("error: no checkpoint found (use --load_path or --save_dir)")
         return 1
-    render_fn = make_render(cfg)
     n = dataset.num_views if args.max_views <= 0 else min(args.max_views, dataset.num_views)
     if args.out_dir:
         os.makedirs(args.out_dir, exist_ok=True)
-    psnrs, ssims = [], []
+    per_scale = {}  # scale -> (psnrs, ssims)
     t0 = time.time()
-    for v in range(n):
-        rgb, _, _ = render_frame(cfg, params, *dataset.view_rays(v), render_fn,
-                                 fine_params=fine_params)
-        gold = dataset.view_gold(v)
-        p = float(render_ops.psnr(rgb, gold))
-        s = float(ssim_fn(rgb, gold))
-        psnrs.append(p)
-        ssims.append(s)
-        print(f"view {v:3d}: psnr {p:.2f}  ssim {s:.4f}")
-        if args.out_dir:
-            save_png(os.path.join(args.out_dir, f"eval-{v:03d}.png"), rgb)
-    print(f"mean psnr over {n} {args.split} views: {np.mean(psnrs):.2f} "
-          f"(min {np.min(psnrs):.2f}, max {np.max(psnrs):.2f}), "
-          f"mean ssim {np.mean(ssims):.4f} in {time.time()-t0:.1f}s")
+    for scale in scales:
+        scfg = cfg if scale == 1 else dataclasses.replace(
+            cfg, camera=scaled_camera(cfg.camera, scale))
+        render_fn = make_render(scfg)
+        psnrs, ssims = per_scale.setdefault(scale, ([], []))
+        tag = f" 1/{scale}" if len(scales) > 1 else ""
+        for v in range(n):
+            rgb, _, _ = render_frame(scfg, params, *dataset.view_rays(v, scale), render_fn,
+                                     fine_params=fine_params, grid=grid)
+            gold = dataset.view_gold(v, scale)
+            p = float(render_ops.psnr(rgb, gold))
+            s = float(ssim_fn(rgb, gold))
+            psnrs.append(p)
+            ssims.append(s)
+            print(f"view {v:3d}{tag}: psnr {p:.2f}  ssim {s:.4f}")
+            if args.out_dir:
+                suffix = f"-s{scale}" if len(scales) > 1 else ""
+                save_png(os.path.join(args.out_dir, f"eval-{v:03d}{suffix}.png"), rgb)
+    for scale in scales:
+        psnrs, ssims = per_scale[scale]
+        tag = f" at 1/{scale}" if len(scales) > 1 else ""
+        print(f"mean psnr over {n} {args.split} views{tag}: {np.mean(psnrs):.2f} "
+              f"(min {np.min(psnrs):.2f}, max {np.max(psnrs):.2f}), "
+              f"mean ssim {np.mean(ssims):.4f} in {time.time()-t0:.1f}s")
+    if len(scales) > 1:
+        allp = [p for ps, _ in per_scale.values() for p in ps]
+        alls = [s for _, ss in per_scale.values() for s in ss]
+        print(f"multiscale mean psnr: {np.mean(allp):.2f}, mean ssim {np.mean(alls):.4f}")
     return 0
 
 
@@ -433,7 +498,7 @@ def cmd_render(args) -> int:
     cfg = config_from_args(args)
     device = resolve_device(args.device)
     dataset = make_dataset(cfg, device)
-    params, fine_params, load_path = _load_params(cfg, device)
+    params, fine_params, grid, load_path = _load_params(cfg, device)
     if not load_path:
         print("warning: no checkpoint found; rendering an untrained field")
     render_fn = make_render(cfg)
@@ -442,7 +507,8 @@ def cmd_render(args) -> int:
     t0 = time.time()
     if args.view >= 0:
         o, d = dataset.view_rays(args.view)
-        rgb, _, _ = render_frame(cfg, params, o, d, render_fn, fine_params=fine_params)
+        rgb, _, _ = render_frame(cfg, params, o, d, render_fn, fine_params=fine_params,
+                                 grid=grid)
         psnr = float(render_ops.psnr(rgb, dataset.view_gold(args.view)))
         path = os.path.join(args.out_dir, f"view-{args.view}.png")
         save_png(path, rgb)
@@ -456,7 +522,8 @@ def cmd_render(args) -> int:
     grids = [rays_ops.ray_grid(poses[i], cfg.camera) for i in range(args.frames)]
     big_o = torch.cat([o.reshape(-1, 3) for o, _ in grids]).reshape(args.frames * h, w, 3)
     big_d = torch.cat([d.reshape(-1, 3) for _, d in grids]).reshape(args.frames * h, w, 3)
-    rgb, _, _ = render_frame(cfg, params, big_o, big_d, render_fn, fine_params=fine_params)
+    rgb, _, _ = render_frame(cfg, params, big_o, big_d, render_fn, fine_params=fine_params,
+                             grid=grid)
     rgb = rgb.reshape(args.frames, h, w, 3).cpu()
     for i in range(args.frames):
         save_png(os.path.join(args.out_dir, f"frame-{i:03d}.png"), rgb[i])

@@ -23,4 +23,5 @@ def make_dataset(cfg: Config, device=None) -> DeviceDataset:
     return DeviceDataset(
         imgs, cfg.camera, angles=rays_ops.view_angle_grid(n, device),
         white_background=cfg.render.white_background, device=device,
+        multiscale_levels=d.multiscale_levels,
     )

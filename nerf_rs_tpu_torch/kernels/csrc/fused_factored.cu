@@ -84,9 +84,12 @@
 //    summed; then its taps and bands are made.
 //    f32 lines (no preset): factored_scatter_walk_kernel keeps the first
 //    kernel's walk on the CUDA cores, reading kernel 1's d_feat: a CTA
-//    holds one axis's (sumR, C) table in shared memory (a geometry whose
-//    table does not fit is refused) and thread (level, channel) adds the
-//    chunk's points to its rows in order.
+//    holds a tile of one axis's (sumR, C) table in shared memory, the rows
+//    of a run of whole levels and a run of columns (WalkTiles: one tile
+//    where the table fits, as at the presets' widths), and each thread
+//    owns (level, channel) columns of the tile, adding the chunk's points
+//    to their rows in order. Only a geometry whose finest level's knots of
+//    one channel do not fit a CTA is refused.
 // 3. factored_reduce_kernel sums each entry's partial tables (one per point
 //    range) in range order.
 //
@@ -99,6 +102,8 @@
 // lines (cast by the wrapper) are bf16, each product is exact in f32, and
 // the sums are f32; d_feat is rounded to bf16 as the JAX kernel rounds it.
 
+#include <algorithm>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -106,7 +111,6 @@
 
 namespace {
 
-constexpr int kMaxLevels = 16;
 constexpr int kFwdThreads = 1024;
 constexpr int kFwdTapBytes = 81920;  // two buffers of a forward tile's taps, at most
 constexpr int kBatch = 4;            // levels whose line loads are in flight together
@@ -120,8 +124,25 @@ constexpr int kSteps = kTilePoints / 16;
 static_assert(kMmaWarps * 32 % kTilePoints == 0 && kSteps <= 32, "a tile's taps and steps");
 // the CUDA-core scatter (f32 lines)
 constexpr int kWalkPoints = 64;     // points per chunk
-constexpr int kWalkCtas = 44;       // CTAs per axis: 3 x 44 = 132, one per SM
-constexpr int kWalkThreads = 1024;  // thread (level, channel) owns a column of a level
+constexpr int kWalkCtas = 44;       // point ranges per axis: 3 x 44 = 132, one per SM
+constexpr int kWalkThreads = 1024;  // each owns (level, channel) columns of the CTA's tile
+
+// Shared memory of a tensor-core scatter CTA of nt 8-channel tiles over L
+// levels: the warps' f32 sums, two buffers of a tile's d_feat (rows padded
+// to an odd count of 16 B), and two of its taps and bands at every level.
+constexpr size_t mma_smem_bytes(int nt, int L) {
+  return sizeof(float) * kMmaWarps * kMmaBlocks * nt * 4 * 32 +
+         size_t{2} * kTilePoints * (nt % 2 ? nt : nt + 1) * 8 * 2 +
+         size_t{2} * L * kTilePoints * 8 + size_t{2} * L * kSteps * 8;
+}
+
+// The most levels a geometry may have: those whose taps a tensor-core scatter
+// CTA holds beside one channel tile (the forward and the f32 scatter take
+// more). Geometry's per-level arrays are sized by it, well inside a launch's
+// 4 KB of parameters.
+constexpr int kMaxLevels = 47;
+static_assert(mma_smem_bytes(1, kMaxLevels) <= kMaxSmem &&
+              mma_smem_bytes(1, kMaxLevels + 1) > kMaxSmem, "kMaxLevels");
 
 struct Geometry {
   int L;
@@ -476,11 +497,7 @@ struct MmaLayout {
   static constexpr size_t kTileBytes = size_t{2} * kTilePoints * kRow * 2;
 };
 
-template <int NT>
-size_t mma_smem_bytes(int L) {
-  return sizeof(float) * MmaLayout<NT>::kSums + MmaLayout<NT>::kTileBytes +
-         size_t{2} * L * kTilePoints * sizeof(MmaTap) + size_t{2} * L * kSteps * sizeof(int2);
-}
+static_assert(sizeof(MmaTap) == 8 && sizeof(int2) == 8, "mma_smem_bytes");
 
 __device__ __forceinline__ int level_of(int r, const Geometry& g) {
   int l = 0;
@@ -696,54 +713,92 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1) factored_scatter_mma_kernel
 
 // ---- the CUDA-core scatter (f32 lines) ----
 
-size_t walk_smem_bytes(const Geometry& g) {
-  return sizeof(float) * static_cast<size_t>(g.sumR) * g.C + sizeof(Tap) * kWalkPoints * g.L +
-         sizeof(float) * kWalkPoints * g.C;
+// The table tiles of the f32 scatter: level groups [first[k], first[k + 1])
+// for k < groups, times column chunks of cw (the last one ragged). A CTA
+// takes one tile of one axis.
+struct WalkTiles {
+  int groups;
+  int cw;
+  int first[kMaxLevels + 1];
+};
+
+size_t walk_smem_bytes(int rows, int levels, int cw) {
+  return sizeof(float) * (static_cast<size_t>(rows) * cw + size_t{kWalkPoints} * cw) +
+         sizeof(Tap) * kWalkPoints * levels;
 }
 
-// CTA (b, a): axis a's gradient over chunks [b * per, (b + 1) * per) of 64
-// points, into partials[a][b] (sumR, C).
+// The fewest tiles: all columns where the finest level's rows allow it, else
+// as many as fit beside them, and the levels in runs whose rows fit beside
+// those columns. False when one channel of one level does not fit.
+bool walk_tiles(const Geometry& g, WalkTiles* t) {
+  int widest = 0;
+  for (int l = 0; l < g.L; ++l) widest = std::max(widest, g.res[l] + 1);
+  t->cw = g.C;
+  while (t->cw > 0 && walk_smem_bytes(widest, 1, t->cw) > kMaxSmem) --t->cw;
+  if (t->cw == 0) return false;
+  t->groups = 0;
+  for (int l = 0; l < g.L;) {
+    int e = l + 1;
+    while (e < g.L && walk_smem_bytes(g.off[e + 1] - g.off[l], e + 1 - l, t->cw) <= kMaxSmem) ++e;
+    t->first[t->groups++] = l;
+    l = e;
+  }
+  t->first[t->groups] = g.L;
+  return true;
+}
+
+// CTA (b, tile, a): axis a's gradient at the tile's rows and columns over
+// chunks [b * per, (b + 1) * per) of 64 points, into partials[a][b] (sumR, C).
 __global__ void __launch_bounds__(kWalkThreads, 1) factored_scatter_walk_kernel(
     const float* __restrict__ pts, const float* __restrict__ dfeat, float* __restrict__ partials,
-    long long n, int per, const Geometry g) {
+    long long n, int per, const Geometry g, const WalkTiles wt) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int L = g.L, C = g.C;
-  const int RC = g.sumR * C;
+  const int C = g.C, a = blockIdx.z, tid = threadIdx.x;
+  const int grp = blockIdx.y % wt.groups, c0 = (blockIdx.y / wt.groups) * wt.cw;
+  const int cn = min(wt.cw, C - c0);
+  const int l0 = wt.first[grp], nl = wt.first[grp + 1] - l0;
+  const int r0 = g.off[l0], rows = g.off[l0 + nl] - r0;
   float* table = reinterpret_cast<float*>(smem);
-  Tap* taps = reinterpret_cast<Tap*>(table + RC);
-  float* chunk = reinterpret_cast<float*>(taps + kWalkPoints * L);
-  const int a = blockIdx.y;
-  const int tid = threadIdx.x;
-  const bool owner = tid < L * C;  // thread (l, c) owns level l's rows of column c
-  const int own_l = tid / C, own_c = tid % C;
+  Tap* taps = reinterpret_cast<Tap*>(table + rows * cn);
+  float* chunk = reinterpret_cast<float*>(taps + kWalkPoints * nl);
+  const int items = nl * cn;  // (level, channel) columns of the tile
 
-  for (int i = tid; i < RC; i += blockDim.x) table[i] = 0.f;
+  for (int i = tid; i < rows * cn; i += blockDim.x) table[i] = 0.f;
   for (int k = 0; k < per; ++k) {
     const long long p0 = (static_cast<long long>(blockIdx.x) * per + k) * kWalkPoints;
     if (p0 >= n) break;  // the same for the whole CTA
     const int np = static_cast<int>(min(static_cast<long long>(kWalkPoints), n - p0));
     __syncthreads();  // the last chunk's taps and d_feat are consumed
-    for (int t = tid; t < np * L; t += blockDim.x) {
-      const int l = t % L;
-      const float u = unit_coord(pts[(p0 + t / L) * 3 + a], g);
-      taps[t] = make_tap<false>(u, g.res[l], g.off[l]);
+    for (int t = tid; t < np * nl; t += blockDim.x) {
+      const int l = l0 + t % nl;
+      const float u = unit_coord(pts[(p0 + t / nl) * 3 + a], g);
+      taps[t] = make_tap<false>(u, g.res[l], g.off[l] - r0);
     }
-    const float* src = dfeat + (a * n + p0) * C;
-    for (int t = tid; t < np * C; t += blockDim.x) chunk[t] = src[t];
+    const float* src = dfeat + (a * n + p0) * C + c0;
+    if (cn == C) {  // every column: the chunk's rows are contiguous
+      for (int t = tid; t < np * C; t += blockDim.x) chunk[t] = src[t];
+    } else {
+      for (int t = tid; t < np * cn; t += blockDim.x) chunk[t] = src[(t / cn) * C + t % cn];
+    }
     __syncthreads();
-    if (owner) {
+    for (int it = tid; it < items; it += blockDim.x) {
+      const int l = it / cn, c = it - l * cn;
       for (int p = 0; p < np; ++p) {
-        const Tap t = taps[p * L + own_l];
-        const float d = chunk[p * C + own_c];
-        float* row = table + t.row * C + own_c;
+        const Tap t = taps[p * nl + l];
+        const float d = chunk[p * cn + c];
+        float* row = table + t.row * cn + c;
         row[0] = __fadd_rn(row[0], __fmul_rn(t.w0, d));
-        row[C] = __fadd_rn(row[C], __fmul_rn(t.w1, d));
+        row[cn] = __fadd_rn(row[cn], __fmul_rn(t.w1, d));
       }
     }
   }
   __syncthreads();
-  float* out = partials + (static_cast<long long>(a) * gridDim.x + blockIdx.x) * RC;
-  for (int i = tid; i < RC; i += blockDim.x) out[i] = table[i];
+  float* out = partials + ((static_cast<long long>(a) * gridDim.x + blockIdx.x) * g.sumR + r0) * C + c0;
+  if (cn == C) {
+    for (int i = tid; i < rows * C; i += blockDim.x) out[i] = table[i];
+  } else {
+    for (int i = tid; i < rows * cn; i += blockDim.x) out[(i / cn) * C + i % cn] = table[i];
+  }
 }
 
 // d_lines[a][r][c] = sum over b, in order, of partials[a][b][r][c] (rows of
@@ -765,7 +820,6 @@ __global__ void factored_reduce_kernel(const float* __restrict__ partials,
 
 int init_geometry(Geometry* g, const int* res, int L, int C, float aabb, float two_aabb) {
   if (L < 1 || L > kMaxLevels) return -2;
-  if (L * C > kWalkThreads) return -3;
   g->L = L;
   g->C = C;
   g->aabb = aabb;
@@ -861,18 +915,24 @@ int launch_walk_any(const float* pts, const void* lines, void* out, const float*
 // (C padded to stride = groups * nt * 8), 16-row blocks in `slabs` slabs
 // of kMmaWarps * kMmaBlocks, and points in `ranges` ranges of `per` tiles
 // of kTilePoints, as many ranges as give every SM one CTA; f32 lines take
-// kWalkCtas ranges of chunks of kWalkPoints per axis.
+// kWalkCtas ranges of chunks of kWalkPoints per axis. Under bf16 the groups
+// are the fewest whose CTAs' shared memory (mma_smem_bytes) holds the taps of
+// all L levels.
 struct BwdPlan {
   int stride, nt, groups, slabs, ranges, per;
 };
 
-BwdPlan bwd_plan(long long n, int sumR, int C, bool bf16, int sms) {
+BwdPlan bwd_plan(long long n, int sumR, int C, int L, bool bf16, int sms) {
   BwdPlan p{C, 0, 1, 1, 0, 0};
   long long units, want;
   if (bf16) {
     const int tiles8 = (C + 7) / 8;
     p.groups = (tiles8 + kMmaMaxTiles - 1) / kMmaMaxTiles;
     p.nt = (tiles8 + p.groups - 1) / p.groups;
+    while (p.nt > 1 && mma_smem_bytes(p.nt, L) > kMaxSmem) {
+      ++p.groups;
+      p.nt = (tiles8 + p.groups - 1) / p.groups;
+    }
     p.stride = p.groups * p.nt * 8;
     const int blocks = (sumR + 15) / 16;
     p.slabs = (blocks + kMmaWarps * kMmaBlocks - 1) / (kMmaWarps * kMmaBlocks);
@@ -900,7 +960,9 @@ int launch_mma(const float* pts, const __nv_bfloat16* dfeat, float* partials, lo
                const Geometry& g, const BwdPlan& p, cudaStream_t st) {
   static int known_dev = -1;
   static size_t known_smem = 0;
-  const size_t smem = mma_smem_bytes<NT>(g.L);
+  static_assert(sizeof(float) * MmaLayout<NT>::kSums + MmaLayout<NT>::kTileBytes ==
+                mma_smem_bytes(NT, 0), "mma_smem_bytes is MmaLayout's");
+  const size_t smem = mma_smem_bytes(NT, g.L);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && (dev != known_dev || smem != known_smem)) {
@@ -945,18 +1007,18 @@ int nerf_factored_fwd_staged_levels(const int* res, int L, int C, int bf16) {
 
 // The backward's layout on `sms` SMs, as the six ints of BwdPlan (stride,
 // nt, groups, slabs, ranges, per).
-void nerf_factored_bwd_plan(long long n, int sumR, int C, int bf16, int sms, int* out) {
-  const BwdPlan p = bwd_plan(n, sumR, C, bf16 != 0, sms);
+void nerf_factored_bwd_plan(long long n, int sumR, int C, int L, int bf16, int sms, int* out) {
+  const BwdPlan p = bwd_plan(n, sumR, C, L, bf16 != 0, sms);
   const int v[6] = {p.stride, p.nt, p.groups, p.slabs, p.ranges, p.per};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
 }
 
 // Bytes of the backward's scratch for n points on the current device: the
 // d_feat scratch, then the partial tables; -1 with no device.
-long long nerf_factored_bwd_scratch_bytes(long long n, int sumR, int C, int bf16) {
+long long nerf_factored_bwd_scratch_bytes(long long n, int sumR, int C, int L, int bf16) {
   int sms = 0;
   if (sm_count(&sms) != 0) return -1;
-  const BwdPlan p = bwd_plan(n, sumR, C, bf16 != 0, sms);
+  const BwdPlan p = bwd_plan(n, sumR, C, L, bf16 != 0, sms);
   return static_cast<long long>(dfeat_bytes(n, p, bf16 != 0)) +
          3LL * p.ranges * sumR * p.stride * static_cast<long long>(sizeof(float));
 }
@@ -980,7 +1042,7 @@ int nerf_factored_dfeat(const void* pts, const void* lines, const void* gout, vo
 }
 
 // g (n, C) f32 -> d_lines (3, sumR, C) f32; scratch of
-// nerf_factored_bwd_scratch_bytes(n, sumR, C, bf16) bytes.
+// nerf_factored_bwd_scratch_bytes(n, sumR, C, L, bf16) bytes.
 int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gout, void* d_lines,
                              void* scratch, long long n, const int* res, int L, int C, float aabb,
                              float two_aabb, int bf16, void* stream) {
@@ -988,8 +1050,8 @@ int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gou
   int rc = init_geometry(&g, res, L, C, aabb, two_aabb);
   if (rc != 0) return rc;
   const bool b16 = bf16 != 0;
-  const size_t walk_smem = walk_smem_bytes(g);
-  if (!b16 && walk_smem > kMaxSmem) return -1;
+  WalkTiles wt;
+  if (!b16 && !walk_tiles(g, &wt)) return -1;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n == 0)
     return static_cast<int>(cudaMemsetAsync(d_lines, 0, 3LL * g.sumR * C * sizeof(float), st));
@@ -997,7 +1059,7 @@ int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gou
   rc = sm_count(&sms);
   if (rc != 0) return rc;
   g.staged = staged_levels(g, b16);
-  const BwdPlan p = bwd_plan(n, g.sumR, C, b16, sms);
+  const BwdPlan p = bwd_plan(n, g.sumR, C, L, b16, sms);
   const float* pt = static_cast<const float*>(pts);
   const float* go = static_cast<const float*>(gout);
   void* dfeat = scratch;
@@ -1017,13 +1079,18 @@ int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gou
       default: rc = launch_mma<6>(pt, d, part, n, g, p, st); break;
     }
   } else {
+    size_t walk_smem = 0;  // the largest tile's
+    for (int k = 0; k < wt.groups; ++k)
+      walk_smem = std::max(walk_smem, walk_smem_bytes(g.off[wt.first[k + 1]] - g.off[wt.first[k]],
+                                                 wt.first[k + 1] - wt.first[k], wt.cw));
     rc = static_cast<int>(cudaFuncSetAttribute(factored_scatter_walk_kernel,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(walk_smem)));
     if (rc != 0) return rc;
-    const dim3 grid(static_cast<unsigned>(p.ranges), 3);
+    const dim3 grid(static_cast<unsigned>(p.ranges),
+                    static_cast<unsigned>(wt.groups * ((C + wt.cw - 1) / wt.cw)), 3);
     factored_scatter_walk_kernel<<<grid, kWalkThreads, walk_smem, st>>>(
-        pt, static_cast<const float*>(dfeat), part, n, p.per, g);
+        pt, static_cast<const float*>(dfeat), part, n, p.per, g, wt);
     rc = static_cast<int>(cudaGetLastError());
   }
   if (rc != 0) return rc;

@@ -40,32 +40,49 @@ from ..models.factored import basis_dim, fac_resolutions, hat_weights, unit_coor
 
 from . import build
 
-# points per call of the plain versions' dense (points, sumR) hat matrix
+# points per call of the plain versions' gathers and of the backward's dense
+# (points, sumR) hat matrix
 PLAIN_CHUNK = 65536
 
 # How far the kernels may stand from their plain versions on the same card
 # and inputs (chip_smoke.py and tests/test_torch_cuda.py hold them to it):
 # enc absolute, d_lines per axis relative to the axis's largest entry. Both
-# multiply the same operands and sum in f32; only the order of the sums
-# differs (12 taps per axis in the forward; up to N points per knot in the
-# backward, in the kernel's fixed-order partials -- under bf16 each a sum of
-# tensor-core sums of 256 points -- and in cuBLAS's order in the plain
+# multiply the same operands and sum in f32. The features sum each axis's
+# 2L taps in level order on both sides, so the encoding and d_feat keep the
+# kernel's bits; the backward's sums over up to N points per knot run in
+# another order (the kernel's fixed-order partials -- under bf16 each a sum
+# of tensor-core sums of 256 points -- against cuBLAS's order in the plain
 # version). The first readings on an H100, 524,288 random points: enc
-# 1.2e-6 (values up to 5.5), d_lines 1.1e-6; the bars are ~10x those.
+# 1.2e-6 (values up to 5.5; features then summed by a dense product),
+# d_lines 1.1e-6; the bars are ~10x those.
 KERNEL_TOL = {"enc": 1e-5, "d_lines": 1e-5}
 
-# The backward's layout (csrc/fused_factored.cu, whose bwd_plan this file's
-# bwd_plan mirrors). bf16 lines: a tensor-core CTA has MMA_WARPS warps, each
+# The backward's layout (csrc/fused_factored.cu's bwd_plan, which this file's
+# bwd_plan mirrors for the layout tests on the CPU; the wrappers take the
+# library's). bf16 lines: a tensor-core CTA has MMA_WARPS warps, each
 # owning MMA_BLOCKS blocks of 16 knot rows for up to MMA_MAX_TILES tiles of 8
 # channels, and walks tiles of TILE_POINTS points in steps of 16 (the mma's
-# K), flushing its sums once a tile. f32 lines: WALK_CTAS CTAs per axis walk
-# chunks of WALK_POINTS points.
+# K), flushing its sums once a tile. f32 lines: WALK_CTAS point ranges per
+# axis walk chunks of WALK_POINTS points, each CTA over one tile of an
+# axis's table (a run of whole levels times a run of columns) in shared
+# memory.
 MMA_WARPS = 16
 MMA_BLOCKS = 2
 MMA_MAX_TILES = 6
 TILE_POINTS = 256
 WALK_POINTS = 64
 WALK_CTAS = 44
+_SMEM = 232448  # what one CTA can have on sm_90
+
+
+def _mma_smem_bytes(nt: int, levels: int) -> int:
+    """Shared memory of a tensor-core scatter CTA of ``nt`` 8-channel
+    tiles over ``levels`` levels (the C plan's budget): the warps' f32
+    sums, two buffers of a tile's d_feat (rows padded to an odd count of
+    16 B) and two of its taps and bands at every level."""
+    row = (nt if nt % 2 else nt + 1) * 8
+    return (4 * MMA_WARPS * MMA_BLOCKS * nt * 4 * 32 + 2 * TILE_POINTS * row * 2
+            + 2 * levels * TILE_POINTS * 8 + 2 * levels * (TILE_POINTS // 16) * 8)
 
 
 class BwdPlan(NamedTuple):
@@ -82,14 +99,19 @@ class BwdPlan(NamedTuple):
     per: int
 
 
-def bwd_plan(n: int, sum_r: int, comps: int, bf16: bool, sms: int) -> BwdPlan:
+def bwd_plan(n: int, sum_r: int, comps: int, levels: int, bf16: bool, sms: int) -> BwdPlan:
     """The layout the backward kernels take for ``n`` points on a card of
     ``sms`` SMs: under bf16 as many point ranges as give every SM one CTA
-    of (range, slab, channel group, axis); under f32 WALK_CTAS per axis."""
+    of (range, slab, channel group, axis), in the fewest channel groups
+    whose CTAs hold the taps of all ``levels`` levels; under f32
+    WALK_CTAS per axis."""
     if bf16:
         tiles8 = -(-comps // 8)
         groups = -(-tiles8 // MMA_MAX_TILES)
         nt = -(-tiles8 // groups)
+        while nt > 1 and _mma_smem_bytes(nt, levels) > _SMEM:
+            groups += 1
+            nt = -(-tiles8 // groups)
         stride = groups * nt * 8
         blocks = -(-sum_r // 16)
         slabs = -(-blocks // (MMA_WARPS * MMA_BLOCKS))
@@ -118,9 +140,9 @@ def warp_blocks(slab: int, warp: int, slabs: int, sum_r: int) -> list:
 
 
 _ERRORS = {
-    -1: "the line table of one axis does not fit a CTA's shared memory (f32 lines)",
-    -2: "fac_levels above the kernel's 16",
-    -3: "fac_levels * fac_comps above 1024 threads",
+    -1: "one channel of the finest level's knots does not fit a CTA's shared memory "
+        "(the f32 lines' backward)",
+    -2: "fac_levels above the kernels' limit (csrc/fused_factored.cu kMaxLevels)",
     -4: "every resolution must be at least 1",
 }
 
@@ -227,7 +249,7 @@ def fused_factored_encode_backward(lines: torch.Tensor, points: torch.Tensor, g:
     # d_feat and the per-CTA partial tables; freed on return while the
     # kernels may still run, which is safe: the caching allocator hands the
     # block out again only in this stream's order
-    nbytes = lib.nerf_factored_bwd_scratch_bytes(n, basis_dim(cfg), C, bf16)
+    nbytes = lib.nerf_factored_bwd_scratch_bytes(n, basis_dim(cfg), C, L, bf16)
     if nbytes < 0:
         raise RuntimeError("fused_factored backward: no CUDA device to size its scratch for")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
@@ -244,7 +266,7 @@ def fused_factored_dfeat(lines: torch.Tensor, points: torch.Tensor, g: torch.Ten
                          cfg: ModelConfig, dtype=None) -> torch.Tensor:
     """The backward's first kernel alone: d_feat (3, N, stride),
     d_feat[a] = (g * f_b) * f_c, bf16 under a bf16 ``dtype`` with
-    C padded by zero columns to ``bwd_plan``'s stride, else f32 (stride
+    C padded by zero columns to the plan's stride, else f32 (stride
     C). For tests and timing; the backward launches it itself. Not
     counted in the launch counters; CUDA tensors only (the plain d_feat is
     ``fused_factored_dfeat_reference``)."""
@@ -258,7 +280,9 @@ def fused_factored_dfeat(lines: torch.Tensor, points: torch.Tensor, g: torch.Ten
     n = points.shape[0]
     operand, res, L, C, aabb, two_aabb, bf16 = _launch_args(lines, cfg, dtype)
     lib = _library()
-    stride = bwd_plan(n, basis_dim(cfg), C, bool(bf16), 1).stride
+    plan = (ctypes.c_int * 6)()
+    lib.nerf_factored_bwd_plan(n, basis_dim(cfg), C, L, bf16, 1, plan)
+    stride = plan[0]
     d = torch.empty(3, n, stride, dtype=torch.bfloat16 if bf16 else torch.float32, device=dev)
     rc = lib.nerf_factored_dfeat(points.data_ptr(), operand.data_ptr(), g.data_ptr(), d.data_ptr(),
                                  n, res, L, C, aabb, two_aabb, bf16, stride,
@@ -316,10 +340,10 @@ def _library() -> ctypes.CDLL:
         staged.argtypes = [pres, i32, i32, i32]
         staged.restype = i32
         size = lib.nerf_factored_bwd_scratch_bytes
-        size.argtypes = [i64, i32, i32, i32]
+        size.argtypes = [i64, i32, i32, i32, i32]
         size.restype = i64
         plan = lib.nerf_factored_bwd_plan
-        plan.argtypes = [i64, i32, i32, i32, i32, pres]
+        plan.argtypes = [i64, i32, i32, i32, i32, i32, pres]
         plan.restype = None
         dfeat = lib.nerf_factored_dfeat
         dfeat.argtypes = [vp] * 4 + [i64, pres, i32, i32, f32, f32, i32, i32, vp]
@@ -335,51 +359,99 @@ def _round(x: torch.Tensor, dtype) -> torch.Tensor:
     return x.to(torch.bfloat16).float() if _bf16(dtype) else x
 
 
-def _plain_features(lines, u, cfg, dtype):
-    """The three axis features (N, C) of the plain versions: the dense
-    hat matrix (rounded as the kernel rounds) times the rounded lines in
-    f32, PLAIN_CHUNK points at a time. On CUDA it needs full-f32 matmuls
-    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+def _plain_features(lines, u, cfg, dtype, dense=False):
+    """The three axis features (N, C) of the plain versions: per level
+    the two knots around u R (k0 = floor(u R), at most R - 1, so a point
+    on the upper face reads (R - 1, weight 0) and (R, weight 1)), their
+    hat weights (rounded as the kernel rounds) times the rounded line rows,
+    added in f32 in level order, k0's tap first, as the kernels add them.
+    ``dense``: the JAX kernel's form instead, the dense hat matrix times
+    the lines (the same function, its other entries zero, summed in
+    another order; on CUDA it needs full-f32 matmuls,
+    ``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    res = fac_resolutions(cfg)
     feats = []
     for a in range(3):
         la = _round(lines[a].float(), dtype)
-        feats.append(torch.cat([_round(hat_weights(u[i:i + PLAIN_CHUNK, a], cfg), dtype) @ la
-                                for i in range(0, max(u.shape[0], 1), PLAIN_CHUNK)]))
+        parts = []
+        for i in range(0, max(u.shape[0], 1), PLAIN_CHUNK):
+            ua = u[i:i + PLAIN_CHUNK, a]
+            if dense:
+                parts.append(_round(hat_weights(ua, cfg), dtype) @ la)
+                continue
+            f = torch.zeros(ua.shape[0], la.shape[1], device=la.device)
+            off = 0
+            for r in res:
+                pos = ua * float(r)
+                k0 = torch.clamp(torch.floor(pos), max=r - 1)
+                w0 = _round(torch.clamp(1.0 - torch.abs(pos - k0), min=0.0), dtype)
+                w1 = _round(torch.clamp(1.0 - torch.abs(pos - (k0 + 1.0)), min=0.0), dtype)
+                row = off + k0.long()
+                f = f + w0[:, None] * la[row]
+                f = f + w1[:, None] * la[row + 1]
+                off += r + 1
+            parts.append(f)
+        feats.append(torch.cat(parts))
     return feats
 
 
 def fused_factored_encode_reference(lines: torch.Tensor, points: torch.Tensor,
-                                    cfg: ModelConfig, dtype=None) -> torch.Tensor:
+                                    cfg: ModelConfig, dtype=None,
+                                    dense: bool = False) -> torch.Tensor:
     """The forward kernel's plain PyTorch version: enc (N, C) f32 =
-    X * Y * Z of the f32 products of the rounded operands."""
+    X * Y * Z of the f32 products of the rounded operands (``dense``: the
+    features by the dense hat product, ``_plain_features``)."""
     _check(lines, points, cfg)
     if points.shape[0] == 0:
         return lines.new_zeros(0, cfg.fac_comps)
-    f = _plain_features(lines.detach(), unit_coords(points, cfg.fac_aabb), cfg, dtype)
+    f = _plain_features(lines.detach(), unit_coords(points, cfg.fac_aabb), cfg, dtype, dense)
     return f[0] * f[1] * f[2]
 
 
 def fused_factored_dfeat_reference(lines: torch.Tensor, points: torch.Tensor, g: torch.Tensor,
-                                   cfg: ModelConfig, dtype=None) -> torch.Tensor:
+                                   cfg: ModelConfig, dtype=None,
+                                   dense: bool = False) -> torch.Tensor:
     """The plain d_feat (3, N, C) f32: d_feat[a] = round((g * f_b) * f_c),
     the JAX kernel's order, with f_b, f_c the plain versions' features."""
     _check(lines, points, cfg, g)
-    f = _plain_features(lines.detach(), unit_coords(points, cfg.fac_aabb), cfg, dtype)
+    f = _plain_features(lines.detach(), unit_coords(points, cfg.fac_aabb), cfg, dtype, dense)
     return torch.stack([_round((g.float() * f[b]) * f[c], dtype)
                         for b, c in ((1, 2), (0, 2), (0, 1))])
 
 
-def fused_factored_encode_backward_reference(lines: torch.Tensor, points: torch.Tensor,
-                                             g: torch.Tensor, cfg: ModelConfig,
-                                             dtype=None) -> torch.Tensor:
-    """The backward kernel's plain PyTorch version: d_lines[a] = W_a^T
-    round((g * f_b) * f_c), f32 products of the rounded operands summed
-    in f32, PLAIN_CHUNK points at a time in order."""
-    d_feat = fused_factored_dfeat_reference(lines, points, g, cfg, dtype)
+def _plain_scatter(d_feat: torch.Tensor, points: torch.Tensor, cfg: ModelConfig,
+                   dtype) -> torch.Tensor:
+    """d_lines[a] = W_a^T d_feat[a], the rounded hat weights times d_feat
+    summed in f32, PLAIN_CHUNK points at a time in order."""
     u = unit_coords(points, cfg.fac_aabb)
-    d_lines = torch.zeros(lines.shape, device=lines.device)
+    d_lines = torch.zeros(3, basis_dim(cfg), cfg.fac_comps, device=d_feat.device)
     for a in range(3):
         for i in range(0, u.shape[0], PLAIN_CHUNK):
             w = _round(hat_weights(u[i:i + PLAIN_CHUNK, a], cfg), dtype)
             d_lines[a] += w.t() @ d_feat[a, i:i + PLAIN_CHUNK]
     return d_lines
+
+
+def fused_factored_encode_backward_reference(lines: torch.Tensor, points: torch.Tensor,
+                                             g: torch.Tensor, cfg: ModelConfig,
+                                             dtype=None, dense: bool = False) -> torch.Tensor:
+    """The backward kernel's plain PyTorch version: d_lines[a] = W_a^T
+    round((g * f_b) * f_c), f32 products of the rounded operands summed
+    in f32, PLAIN_CHUNK points at a time in order (``dense``: the
+    features by the dense hat product)."""
+    return _plain_scatter(fused_factored_dfeat_reference(lines, points, g, cfg, dtype, dense),
+                          points, cfg, dtype)
+
+
+def dense_order_gap(lines: torch.Tensor, points: torch.Tensor, g: torch.Tensor,
+                    cfg: ModelConfig, dtype=None):
+    """How far the backward may stand from the dense product's plain
+    version by the order of the features' sums alone: the d_feat elements
+    that the two orders round to different values, |the difference|
+    scattered with the (non-negative) hat weights. Returns (the dense
+    plain d_lines, that bound per element, the number of d_feat elements
+    that differ)."""
+    flips = (fused_factored_dfeat_reference(lines, points, g, cfg, dtype, dense=True)
+             - fused_factored_dfeat_reference(lines, points, g, cfg, dtype)).abs()
+    return (fused_factored_encode_backward_reference(lines, points, g, cfg, dtype, dense=True),
+            _plain_scatter(flips, points, cfg, dtype), int((flips > 0).sum()))

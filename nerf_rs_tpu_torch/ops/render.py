@@ -1,15 +1,17 @@
 """Volume rendering: alpha compositing, mip-NeRF 360's distortion loss
 and the ray renderer, the counterpart of ``nerf_rs_tpu/ops/render.py``:
-point-sampled (PE) and interval-sampled (mip-NeRF's IPE) passes, the
-hierarchical fine pass (NeRF section 5.2) in both fine modes, and
-proposal-guided sampling (mip-NeRF 360), each through the whole-ray render
-kernel or the eager field, in linear or disparity sample spacing.
+point-sampled (PE) and interval-sampled (mip-NeRF's IPE, with per-ray cone
+radii for multiscale batches) passes, the hierarchical fine pass (NeRF
+section 5.2) in both fine modes, the shared-network fast fine pass,
+proposal-guided (mip-NeRF 360) and occupancy-guided sampling, each through
+the whole-ray render kernel or the eager field, in linear or disparity
+sample spacing.
 
 T_i = exp(-sum_{j<i} sigma_j delta_j) from one exclusive cumsum,
 w_i = T_i (1 - exp(-sigma_i delta_i)), C = sum_i w_i c_i.
 
-The shared-network fast fine pass (the rest of slice 2), occupancy
-(slice 4) and compat passes (slice 10) raise ``NotImplementedError``.
+Compat passes (slice 10) and sigma noise (slice 7) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -121,18 +123,16 @@ def fused_supported(model_cfg: ModelConfig) -> bool:
 
 def check_render_supported(model_cfg: ModelConfig, render_cfg: RenderConfig) -> None:
     """Raise for the render options later slices of the port bring."""
-    if render_cfg.occ_res > 0:
-        raise NotImplementedError("occupancy sampling comes with slice 4 of the port")
     if render_cfg.compat_sampling or render_cfg.compat_density_color:
         raise NotImplementedError("compat rendering comes with slice 10 of the port")
 
 
 def _shared_fast(render_cfg: RenderConfig, model_cfg: ModelConfig, fine_params,
                  use_fused: bool) -> bool:
-    """Whether the JAX package takes its shared-network fast fine pass
-    (one net, union, point samples, eager field): the fine pass
-    evaluates only the new samples and composites the union from the
-    coarse pass's cached (sigma, rgb)."""
+    """Whether the shared-network fast fine pass runs (one net, union,
+    point samples, eager field; the render kernel returns no per-sample
+    colors to cache): the fine pass evaluates only the new samples and
+    composites the union from the coarse pass's cached (sigma, rgb)."""
     return (render_cfg.share_network and render_cfg.fine_mode != "standalone"
             and render_cfg.num_fine_samples > 0 and fine_params is None
             and not model_cfg.ipe and not use_fused)
@@ -154,6 +154,8 @@ def render_rays(
     fine_packed=None,
     prop_params=None,
     prop_cfg=None,
+    grid: Optional[torch.Tensor] = None,
+    radii: Optional[torch.Tensor] = None,
 ) -> Tuple[RenderOut, Optional[RenderOut]]:
     """Sample -> field -> composite for rays of any leading shape, with
     the hierarchical fine pass when ``render_cfg.num_fine_samples > 0``.
@@ -177,16 +179,23 @@ def render_rays(
     proposal_resample``, without annealing) instead of stratified; the
     interlevel loss lives in ``train/step.py``. IPE passes ignore it, as
     in the JAX package (the config refuses IPE with a proposal).
+
+    ``grid`` (an occupancy grid, ``ops/occupancy.py``): the coarse point
+    samples, or with IPE the coarse interval edges, are drawn from its
+    PDF instead of stratified. ``radii`` (rays' leading shape): the IPE
+    passes' per-ray cone radii (multiscale batches); by default every ray
+    carries the camera's ``pixel_radius``. Point-sampled passes ignore it.
+
+    With ``share_network``, a union fine pass, point samples and the eager
+    field, the fine pass evaluates only the new fine samples and
+    composites the union from the coarse pass's (sigma, rgb), sorted with
+    the samples by depth (``_shared_fast``).
     """
     check_render_supported(model_cfg, render_cfg)
     use_fused = use_fused and fused_supported(model_cfg)
     rand = render_cfg.randomized if randomized is None else randomized
     if rand and render_cfg.raw_noise_std > 0.0:
         raise NotImplementedError("sigma noise (raw_noise_std) comes with slice 7 of the port")
-    if _shared_fast(render_cfg, model_cfg, fine_params, use_fused):
-        raise NotImplementedError("the shared-network fast fine pass (share_network, union, "
-                                  "point samples, eager field) comes with the rest of "
-                                  "slice 2 of the port")
     shape = origins.shape[:-1]
     flat_o = origins.reshape(-1, 3)
     flat_d = dirs.reshape(-1, 3)
@@ -194,7 +203,15 @@ def render_rays(
     S, S_f = render_cfg.num_samples, render_cfg.num_fine_samples
     near, far = camera.near, camera.far
     viewdirs = flat_d / torch.linalg.norm(flat_d, dim=-1, keepdim=True)
-    radius = sampling.pixel_radius(camera) if model_cfg.ipe else None
+    # the IPE passes' cone radius: the camera's (a float, as the JAX
+    # package takes it), or per ray; the kernel takes one per ray
+    radius = None
+    if model_cfg.ipe:
+        radius = sampling.pixel_radius(camera) if radii is None else radii.reshape(-1, 1)
+        radii = (torch.full((n,), radius, device=flat_o.device) if radii is None
+                 else radii.reshape(-1))
+    else:
+        radii = None
     if use_fused:
         from ..kernels.fused_render import pack_weights
 
@@ -213,8 +230,6 @@ def render_rays(
         if use_fused:
             from ..kernels.fused_ray import fused_ray_render
 
-            radii = (torch.full((n,), radius, device=flat_o.device)
-                     if radius is not None else None)
             rgb, acc, depth, w, sig = fused_ray_render(
                 pk, flat_o.contiguous(), flat_d.contiguous(), viewdirs.contiguous(),
                 ts.contiguous(), deltas.contiguous(), model_cfg, ts.shape[-1], radii=radii)
@@ -235,10 +250,17 @@ def render_rays(
                          white_background=render_cfg.white_background, ts=ts)
 
     if model_cfg.ipe:
-        # S + 1 stratified edges: S intervals, composited over their
-        # exact lengths; the edges are the fine pass's histogram bins
-        edges = sampling.stratified_ts(n, S + 1, near, far, rand, generator=generator,
-                                       device=flat_o.device, space=render_cfg.sampling_space)
+        # S + 1 edges: S intervals, composited over their exact lengths;
+        # the edges are the fine pass's histogram bins
+        if grid is not None:
+            from .occupancy import occupancy_edges
+
+            edges = occupancy_edges(flat_o, flat_d, grid, S, camera, render_cfg, rand,
+                                    generator=generator)
+        else:
+            edges = sampling.stratified_ts(n, S + 1, near, far, rand, generator=generator,
+                                           device=flat_o.device,
+                                           space=render_cfg.sampling_space)
         coarse = run_pass(params, packed, None, edges)
     else:
         if prop_params is not None:
@@ -248,9 +270,18 @@ def render_rays(
                                       generator=generator, dtype=dtype,
                                       space=render_cfg.sampling_space,
                                       contract=model_cfg.contract)
+        elif grid is not None:
+            from .occupancy import occupancy_ts
+
+            ts = occupancy_ts(flat_o, flat_d, grid, S, camera, render_cfg, rand,
+                              generator=generator)
         else:
             ts = sampling.stratified_ts(n, S, near, far, rand, generator=generator,
                                         device=flat_o.device, space=render_cfg.sampling_space)
+        if _shared_fast(render_cfg, model_cfg, fine_params, use_fused):
+            coarse, fine = _shared_fast_passes(params, flat_o, flat_d, viewdirs, ts, model_cfg,
+                                               render_cfg, camera, rand, generator, dtype)
+            return _unflatten(coarse, shape), _unflatten(fine, shape)
         coarse = run_pass(params, packed, ts)
 
     fine = None
@@ -271,18 +302,53 @@ def render_rays(
             all_ts = fine_ts if standalone else sampling.merge_ts(ts, fine_ts)
             fine = run_pass(fparams, fpacked, all_ts)
 
-    def unflatten(out: RenderOut) -> RenderOut:
-        return RenderOut(
-            rgb=out.rgb.reshape(*shape, 3),
-            weights=out.weights.reshape(*shape, -1),
-            sigma=out.sigma.reshape(*shape, -1),
-            depth=out.depth.reshape(shape),
-            acc=out.acc.reshape(shape),
-            ts=out.ts.reshape(*shape, -1),
-            deltas=None if out.deltas is None else out.deltas.reshape(*shape, -1),
-        )
+    return _unflatten(coarse, shape), (_unflatten(fine, shape) if fine is not None else None)
 
-    return unflatten(coarse), (unflatten(fine) if fine is not None else None)
+
+def _unflatten(out: RenderOut, shape) -> RenderOut:
+    return RenderOut(
+        rgb=out.rgb.reshape(*shape, 3),
+        weights=out.weights.reshape(*shape, -1),
+        sigma=out.sigma.reshape(*shape, -1),
+        depth=out.depth.reshape(shape),
+        acc=out.acc.reshape(shape),
+        ts=out.ts.reshape(*shape, -1),
+        deltas=None if out.deltas is None else out.deltas.reshape(*shape, -1),
+    )
+
+
+def _shared_fast_passes(params, flat_o, flat_d, viewdirs, ts, model_cfg: ModelConfig,
+                        render_cfg: RenderConfig, camera: CameraConfig, rand: bool,
+                        generator, dtype) -> Tuple[RenderOut, RenderOut]:
+    """The shared-network fast fine pass (``nerf_rs_tpu/ops/render.py``'s
+    ``shared_fast``): the coarse samples through the field once, the
+    fine draws from the coarse weights (inverse CDF), only the fine
+    samples through the field, then one stable sort of (ts, sigma, r, g,
+    b) by ts and channel-wise compositing of the union."""
+    far = camera.far
+    sigma_c, rgb_c = apply_nerf(params, sampling.points_from_ts(flat_o, flat_d, ts),
+                                viewdirs[..., None, :], model_cfg, dtype)
+    coarse = composite(sigma_c, rgb_c[..., :3], sampling.deltas_from_ts(ts, far),
+                       white_background=render_cfg.white_background, ts=ts)
+    mids = 0.5 * (ts[..., 1:] + ts[..., :-1])
+    bins = torch.cat([ts[..., :1], mids, ts[..., -1:]], dim=-1)
+    fine_ts = sampling.sample_pdf(bins, coarse.weights, render_cfg.num_fine_samples, rand,
+                                  generator=generator)
+    sigma_f, rgb_f = apply_nerf(params, sampling.points_from_ts(flat_o, flat_d, fine_ts),
+                                viewdirs[..., None, :], model_cfg, dtype)
+    ts_u, order = torch.sort(torch.cat([ts, fine_ts], dim=-1), dim=-1, stable=True)
+    sigma_u = torch.cat([sigma_c, sigma_f], dim=-1).gather(-1, order)
+    chans = [torch.cat([rgb_c[..., c], rgb_f[..., c]], dim=-1).gather(-1, order)
+             for c in range(3)]
+    sd = sigma_u * sampling.deltas_from_ts(ts_u, far)
+    w = torch.exp(-(torch.cumsum(sd, dim=-1) - sd)) * (1.0 - torch.exp(-sd))
+    rgb = torch.stack([torch.sum(w * c, dim=-1) for c in chans], dim=-1)
+    acc = torch.sum(w, dim=-1)
+    if render_cfg.white_background:
+        rgb = rgb + (1.0 - acc[..., None])
+    fine = RenderOut(rgb=rgb, weights=w, sigma=sigma_u, depth=torch.sum(w * ts_u, dim=-1),
+                     acc=acc, ts=ts_u)
+    return coarse, fine
 
 
 def mse(pred: torch.Tensor, gold: torch.Tensor) -> torch.Tensor:

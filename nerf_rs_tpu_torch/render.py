@@ -48,12 +48,14 @@ def default_render_chunk(render_cfg: RenderConfig, fused: bool = False,
 def make_render(cfg: Config, camera: Optional[CameraConfig] = None,
                 chunk: int = 0) -> RenderFn:
     """Renderer over flat rays: fn(params, origins (N, 3), dirs (N, 3),
-    fine_params=None) -> rgb (N, 3), depth (N,), acc (N,), of the fine
-    pass with hierarchical sampling (through ``fine_params`` when the
-    run has a fine field; ``share_network`` renders both passes with
+    fine_params=None, grid=None) -> rgb (N, 3), depth (N,), acc (N,), of
+    the fine pass with hierarchical sampling (through ``fine_params`` when
+    the run has a fine field; ``share_network`` renders both passes with
     ``params``). With proposal sampling the second slot, ``fine_params``,
     carries the proposal net: each chunk resamples through it (eager)
-    before its one pass. Deterministic sampling (bin midpoints). Through
+    before its one pass. With ``cfg.render.occ_res`` > 0 the occupancy
+    ``grid`` guides each chunk's coarse samples (IPE: edges), as in
+    training. Deterministic sampling (bin midpoints). Through
     the kernel, both fields' weights are packed once per call, outside the
     chunk loop, and each chunk launches the kernel once per pass; the
     last chunk may be ragged (the kernel masks it), so nothing is
@@ -67,7 +69,8 @@ def make_render(cfg: Config, camera: Optional[CameraConfig] = None,
                                      model_cfg=cfg.model)
 
     @torch.no_grad()
-    def render(params, origins, dirs, fine_params=None):
+    def render(params, origins, dirs, fine_params=None, grid=None):
+        grid = grid if cfg.render.occ_res > 0 else None
         prop_params = None
         if cfg.proposal.enabled:  # the second slot carries the proposal net
             prop_params, fine_params = fine_params, None
@@ -85,6 +88,7 @@ def make_render(cfg: Config, camera: Optional[CameraConfig] = None,
                 cfg.render, camera, randomized=False, dtype=dtype,
                 use_fused=use_fused, packed=packed, fine_params=fine_params,
                 fine_packed=fine_packed, prop_params=prop_params, prop_cfg=cfg.proposal,
+                grid=grid,
             )
             out = fine if fine is not None else coarse
             outs.append((out.rgb, out.depth, out.acc))
@@ -102,12 +106,14 @@ def render_frame(
     render_fn: Optional[RenderFn] = None,
     chunk: int = 0,
     fine_params: Optional[torch.nn.Module] = None,
+    grid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(H, W) rays -> (H, W, 3) rgb, (H, W) depth, (H, W) acc (the fine
-    pass's with hierarchical sampling)."""
+    pass's with hierarchical sampling; with an occupancy grid, on the
+    samples it guides)."""
     h, w = origins.shape[:2]
     if render_fn is None:
         render_fn = make_render(cfg, chunk=chunk)
     rgb, depth, acc = render_fn(params, origins.reshape(-1, 3), dirs.reshape(-1, 3),
-                                fine_params=fine_params)
+                                fine_params=fine_params, grid=grid)
     return rgb.reshape(h, w, 3), depth.reshape(h, w), acc.reshape(h, w)

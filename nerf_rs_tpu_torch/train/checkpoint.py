@@ -8,8 +8,12 @@ one (the fine field of hierarchical sampling with two nets, or the
 proposal net; under the key ``fine_params``), and, when saved from a
 ``TrainState``, the optimizer's state over both (``restore`` resumes
 training from it; ``restore_weights`` reads the weights of either
-kind). Loading uses ``weights_only=True``. Weights trained by the JAX
-package enter through ``convert.params_from_numpy``.
+kind) and the occupancy grid when the run has one (``grid``). A grid
+that the file and the run do not both have is not dropped in silence:
+resuming or rendering without it means uniform samples where the field
+learned grid-guided ones, so a warning names the flag. Loading uses
+``weights_only=True``. Weights trained by the JAX package enter through
+``convert.params_from_numpy``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ from __future__ import annotations
 import os
 import re
 import time
+import warnings
 from typing import Optional, Union
 
 import torch
@@ -44,10 +49,11 @@ def save(state: Union["TrainState", nn.Module], save_dir: str,  # noqa: F821
          step: Optional[int] = None, ts: Optional[int] = None) -> str:
     """Write a ``TrainState`` (step, weights, optimizer state) or a bare
     field's weights (``step`` defaults to 0); returns the path."""
+    grid = None
     if isinstance(state, nn.Module):
         params, fine, opt, step = state, None, None, step or 0
     else:
-        params, fine, opt = state.params, state.fine_params, state.optimizer
+        params, fine, opt, grid = state.params, state.fine_params, state.optimizer, state.grid
         step = state.step if step is None else step
     os.makedirs(save_dir, exist_ok=True)
     path = checkpoint_path(save_dir, step, ts)
@@ -56,6 +62,8 @@ def save(state: Union["TrainState", nn.Module], save_dir: str,  # noqa: F821
         blob["fine_params"] = _cpu(fine.state_dict())
     if opt is not None:
         blob["optimizer"] = _cpu(opt.state_dict())
+    if grid is not None:
+        blob["grid"] = _cpu(grid)
     tmp = path + ".tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)  # atomic: no torn checkpoints
@@ -79,26 +87,51 @@ def _load_fine(ckpt: dict, path: str, fine: Optional[nn.Module]) -> None:
         fine.load_state_dict(ckpt["fine_params"])
 
 
+def _load_grid(ckpt: dict, path: str, grid: Optional[torch.Tensor]) -> None:
+    """The occupancy grid into ``grid`` in place. A file with a grid for a
+    run without one, or the other way round, warns: the JAX package's
+    ``restore_weights`` warns for the first, and a run that keeps its
+    fresh grid samples uniformly until the grid's next update."""
+    if grid is None:
+        if "grid" in ckpt:
+            warnings.warn(f"checkpoint {path} carries an occupancy grid but the run has "
+                          f"none: it is ignored. Pass the --occ_res it was trained with, or "
+                          f"the field is sampled where it did not learn")
+        return
+    if "grid" not in ckpt:
+        warnings.warn(f"checkpoint {path} has no occupancy grid: the run starts from an "
+                      f"empty one (uniform samples until its next update); it was trained "
+                      f"without --occ_res")
+        return
+    if tuple(ckpt["grid"].shape) != tuple(grid.shape):
+        raise ValueError(f"{path} holds a {tuple(ckpt['grid'].shape)} occupancy grid, the "
+                         f"run a {tuple(grid.shape)} one: use the --occ_res it was trained with")
+    grid.copy_(ckpt["grid"])
+
+
 def restore(path: str, state: "TrainState") -> "TrainState":  # noqa: F821
-    """Resume: the weights (both fields' with a fine field), the step
-    and (when the file has it) the optimizer state into ``state``, in
-    place; returns it."""
+    """Resume: the weights (both fields' with a fine field), the step,
+    the occupancy grid and (when the file has it) the optimizer state
+    into ``state``, in place; returns it."""
     ckpt = _load(path)
     state.params.load_state_dict(ckpt["params"])
     _load_fine(ckpt, path, state.fine_params)
+    _load_grid(ckpt, path, state.grid)
     if "optimizer" in ckpt:
         state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
     return state
 
 
-def restore_weights(path: str, params: nn.Module, fine_params: Optional[nn.Module] = None) -> int:
+def restore_weights(path: str, params: nn.Module, fine_params: Optional[nn.Module] = None,
+                    grid: Optional[torch.Tensor] = None) -> int:
     """Load the weights at ``path`` into ``params`` (and the fine
-    field's into ``fine_params``) in place; returns the checkpoint's
-    step."""
+    field's into ``fine_params``, the occupancy grid into ``grid``) in
+    place; returns the checkpoint's step."""
     ckpt = _load(path)
     params.load_state_dict(ckpt["params"])
     _load_fine(ckpt, path, fine_params)
+    _load_grid(ckpt, path, grid)
     return int(ckpt["step"])
 
 

@@ -5,7 +5,10 @@ and checkpoints are step-counter hooks that fire when
 
 Per step the batch is drawn inside the step (``step.make_train_step``)
 from a generator derived from (seed, step), so a run resumed at step k
-draws what an unbroken run draws. Losses stay on the device and are
+draws what an unbroken run draws. With an occupancy grid, after every step
+``it`` with ``it % occ_update_steps == 0`` the grid takes its EMA update
+from the new weights, jittered by a stream of its own
+(``step.grid_generator``), as in the JAX loop. Losses stay on the device and are
 read once per ``CHART_STEPS`` steps, never once per step. TensorBoard,
 the diagnostics and the profiler window come with slice 7 of the port;
 until then scalars and images go to a logger that drops them.
@@ -29,7 +32,7 @@ from ..render import make_render, render_frame
 from ..utils.profiling import Throughput
 from ..utils.term import image_preview, sparkline
 from . import checkpoint as ckpt
-from .step import TrainState, init_state, make_train_step, step_generator
+from .step import (TrainState, grid_generator, init_state, make_train_step, step_generator)
 
 CHART_STEPS = 50
 
@@ -52,6 +55,18 @@ def resolve_device(name: str = "cuda") -> torch.device:
         raise RuntimeError(f"--device {name}: no CUDA device is visible; the port runs on "
                            f"the card unless asked for the CPU (--device cpu)")
     return dev
+
+
+def update_occupancy(state: TrainState, cfg: Config, it: int) -> torch.Tensor:
+    """The grid's EMA update after step ``it`` (``ops/occupancy.update_grid``
+    at the step's matmul dtype), jittered from ``grid_generator``."""
+    from ..ops.occupancy import update_grid
+    from ..render import matmul_dtype
+
+    rc = cfg.render
+    return update_grid(state.grid, state.params, cfg.model, rc.occ_aabb, rc.occ_decay,
+                       matmul_dtype(cfg),
+                       generator=grid_generator(cfg.train.seed, it, state.grid.device))
 
 
 def train(
@@ -99,6 +114,8 @@ def train(
 
     for it in range(start, cfg.train.num_iter):
         state, aux = step_fn(state, step_generator(cfg.train.seed, it, device))
+        if state.grid is not None and it % cfg.render.occ_update_steps == 0:
+            state.grid = update_occupancy(state, cfg, it)
         pending.append((it, aux["loss"]))
 
         if it % CHART_STEPS == 0 and it > start:
@@ -121,7 +138,7 @@ def train(
             eval_ds = eval_dataset if eval_dataset is not None else dataset
             o, d = eval_ds.view_rays(0)
             rgb, depth, _ = render_frame(cfg, state.params, o, d, render_fn,
-                                         fine_params=state.fine_params)
+                                         fine_params=state.fine_params, grid=state.grid)
             gold = eval_ds.view_gold(0)
             m = render_ops.mse(rgb, gold)
             psnr = float(render_ops.psnr_from_mse(m))

@@ -26,12 +26,19 @@ the main field's gradient comes from the train kernel (or autograd) and
 the proposal's from autograd through its histograms alone
 (``_whole_ray_proposal_grads``).
 
+With an occupancy grid (``cfg.render.occ_res > 0``, ``ops/occupancy.py``)
+the coarse point samples, or with IPE the coarse interval edges, are drawn
+from the grid's PDF, in the kernel route and in autograd's, and in
+evaluation; the grid lives in ``TrainState.grid`` and the train loop
+updates it. Multiscale batches carry per-ray cone radii
+(``Batch.radii``), which the IPE passes take in place of the camera's.
+
 Random draws (the batch, the sample jitter, the fine pass's or the
 proposal levels' resampling) come from an explicit ``torch.Generator``;
 ``step_generator`` derives one per step from (seed, step), so a resumed
-run draws what an unbroken run draws. Occupancy (slice 4), error
-resampling and multiscale batches (slice 6), EMA, gradient accumulation
-and sigma noise (slice 7) raise ``NotImplementedError``.
+run draws what an unbroken run draws. Error resampling (slice 6), EMA,
+gradient accumulation and sigma noise (slice 7) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -61,7 +68,9 @@ class TrainState:
     # the second net: the fine pass's own field (_has_fine_net) or the
     # proposal net (cfg.proposal.enabled); the config allows one of them
     fine_params: Optional[nn.Module] = None
-    grid: None = None  # occupancy grid: slice 4
+    # the occupancy grid (res, res, res) f32 when cfg.render.occ_res > 0,
+    # updated by the train loop every occ_update_steps and checkpointed
+    grid: Optional[torch.Tensor] = None
     ema: None = None  # EMA weights: slice 7
 
 
@@ -72,6 +81,9 @@ class Batch(NamedTuple):
     dirs: torch.Tensor  # (N, 3)
     gold: torch.Tensor  # (N, 3) target pixels
     idx: Optional[torch.Tensor] = None  # flat pixel index (view * H + y) * W + x
+    # per-ray cone radius at unit distance (multiscale batches), which the
+    # IPE passes take; None: the camera's pixel_radius
+    radii: Optional[torch.Tensor] = None
 
 
 def check_train_supported(cfg: Config) -> None:
@@ -81,7 +93,6 @@ def check_train_supported(cfg: Config) -> None:
     t, d = cfg.train, cfg.data
     later = [
         (d.batch_mode != "per_ray", f"batch_mode={d.batch_mode}", 6),
-        (d.multiscale_levels > 1, "multiscale batches", 6),
         (t.error_resample_frac > 0.0, "error resampling", 6),
         (t.ema_decay > 0.0, "the EMA of the weights", 7),
         (t.accumulation_steps > 1, "gradient accumulation", 7),
@@ -121,6 +132,15 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return g
 
 
+def grid_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of the occupancy grid's update after step ``step``:
+    a stream of its own (the top bit set, which ``step_generator``'s
+    seeds never have), so a resumed run draws what an unbroken run draws."""
+    g = torch.Generator(device=device)
+    g.manual_seed((1 << 63) | ((seed & 0x7FFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    return g
+
+
 def learning_rate(cfg: Config, count: int) -> float:
     """The rate of the update that follows ``count`` updates: constant,
     or lr * (lr_final / lr) ** (count / lr_decay_steps) with
@@ -156,8 +176,13 @@ def init_state(cfg: Config, device=None) -> TrainState:
         fine = (init_nerf_params(cfg.model, cfg.train.seed, device, stream=1)
                 if _has_fine_net(cfg) else None)
     nets = (params,) if fine is None else (params, fine)
+    grid = None
+    if cfg.render.occ_res > 0:
+        from ..ops.occupancy import init_grid
+
+        grid = init_grid(cfg.render.occ_res, next(params.parameters()).device)
     return TrainState(step=0, params=params, optimizer=make_optimizer(cfg, *nets),
-                      fine_params=fine)
+                      fine_params=fine, grid=grid)
 
 
 def _reg_loss(params: nn.Module, cfg: Config) -> Optional[torch.Tensor]:
@@ -185,18 +210,21 @@ def _prop_anneal(cfg: Config, step: Optional[int]) -> Optional[float]:
 
 def loss_fn(params: nn.Module, batch: Batch, generator: Optional[torch.Generator],
             cfg: Config, fine_params: Optional[nn.Module] = None,
-            step: Optional[int] = None) -> Tuple[torch.Tensor, Aux]:
+            step: Optional[int] = None,
+            grid: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Aux]:
     """MSE of the coarse pass's colors against the gold pixels, plus the
     fine pass's with hierarchical sampling (paper eq. 6), the field's
     regulariser (``_reg_loss``) and the distortion loss on the finest pass,
-    through the eager (differentiable) path. With proposal sampling
-    ``fine_params`` is the proposal net and the loss is
+    through the eager (differentiable) path, on samples the occupancy
+    ``grid`` guides when one is given, with the batch's cone radii. With
+    proposal sampling ``fine_params`` is the proposal net and the loss is
     ``_proposal_loss``'s."""
     if _has_prop(cfg):
         return _proposal_loss(params, fine_params, batch, generator, cfg, step=step)
     coarse, fine = render.render_rays(
         params, batch.origins, batch.dirs, cfg.model, cfg.render, cfg.camera,
         generator=generator, dtype=matmul_dtype(cfg), fine_params=fine_params,
+        grid=grid, radii=batch.radii,
     )
     gold = batch.gold[..., :3]
     loss_c = render.mse(coarse.rgb, gold)
@@ -356,33 +384,47 @@ def _whole_ray_pass(params: nn.Module, batch: Batch, vd: torch.Tensor, ts: torch
 
 def whole_ray_grads(params: nn.Module, batch: Batch, generator: Optional[torch.Generator],
                     cfg: Config, fine_params: Optional[nn.Module] = None,
-                    step: Optional[int] = None) -> Tuple[Grads, Aux]:
+                    step: Optional[int] = None,
+                    grid: Optional[torch.Tensor] = None) -> Tuple[Grads, Aux]:
     """Gradients and aux from the whole-ray train kernel: one launch, or
     with hierarchical sampling the chain coarse kernel (which gives the
     per-ray weights) -> inverse-CDF resample -> fine kernel. The losses
     sum (paper eq. 6), and with one shared net so do the two passes'
     gradients; a separate fine net's come under ``fine.``. IPE configs
     sample S + 1 edges and hand the kernel interval midpoints, exact
-    lengths and the camera's cone radius. The distortion loss rides the
-    finest pass's launch. With proposal sampling ``fine_params`` is the
-    proposal net (``_whole_ray_proposal_grads``)."""
-    check_train_supported(cfg)  # the occupancy branch
+    lengths and the rays' cone radii (the batch's, or the camera's). With
+    an occupancy ``grid`` the coarse samples (IPE: edges) are drawn from
+    its PDF. The distortion loss rides the finest pass's launch. With
+    proposal sampling ``fine_params`` is the proposal net
+    (``_whole_ray_proposal_grads``)."""
     if _has_prop(cfg):
         return _whole_ray_proposal_grads(params, fine_params, batch, generator, cfg, step)
     rc, cam = cfg.render, cfg.camera
     o, d = batch.origins, batch.dirs
     n, S = o.shape[0], rc.num_samples
     ipe = cfg.model.ipe
-    radii = (torch.full((n,), sampling.pixel_radius(cam), device=o.device)
-             if ipe else None)
+    radii = None
+    if ipe:
+        radii = (batch.radii if batch.radii is not None
+                 else torch.full((n,), sampling.pixel_radius(cam), device=o.device))
     space = rc.sampling_space
     if ipe:
-        edges = sampling.stratified_ts(n, S + 1, cam.near, cam.far, rc.randomized,
-                                       generator=generator, device=o.device, space=space)
+        if grid is not None:
+            from ..ops.occupancy import occupancy_edges
+
+            edges = occupancy_edges(o, d, grid, S, cam, rc, rc.randomized, generator=generator)
+        else:
+            edges = sampling.stratified_ts(n, S + 1, cam.near, cam.far, rc.randomized,
+                                           generator=generator, device=o.device, space=space)
         ts, deltas = 0.5 * (edges[:, :-1] + edges[:, 1:]), edges[:, 1:] - edges[:, :-1]
     else:
-        ts = sampling.stratified_ts(n, S, cam.near, cam.far, rc.randomized,
-                                    generator=generator, device=o.device, space=space)
+        if grid is not None:
+            from ..ops.occupancy import occupancy_ts
+
+            ts = occupancy_ts(o, d, grid, S, cam, rc, rc.randomized, generator=generator)
+        else:
+            ts = sampling.stratified_ts(n, S, cam.near, cam.far, rc.randomized,
+                                        generator=generator, device=o.device, space=space)
         deltas = sampling.deltas_from_ts(ts, cam.far)
     vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
     dist_w = cfg.train.distortion_weight
@@ -453,10 +495,11 @@ def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Genera
     check_train_supported(cfg)
     if whole_ray_supported(cfg):
         grads, aux = whole_ray_grads(state.params, batch, generator, cfg, state.fine_params,
-                                     state.step)
+                                     state.step, state.grid)
     else:
         state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(state.params, batch, generator, cfg, state.fine_params, state.step)
+        loss, aux = loss_fn(state.params, batch, generator, cfg, state.fine_params, state.step,
+                            state.grid)
         loss.backward()
         grads = {name: p.grad for name, p in named_trainable(state)}
         aux = {k: v.detach() for k, v in aux.items()}
@@ -467,14 +510,18 @@ def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Genera
 def eval_step(state: TrainState, batch: Batch, cfg: Config) -> Dict[str, torch.Tensor]:
     """Deterministic (midpoint-sampled) evaluation pass; with
     hierarchical sampling it reports the fine pass, with proposal sampling
-    the main pass on the proposal's samples."""
+    the main pass on the proposal's samples. An occupancy-trained field
+    samples where its grid says, as in training: evaluated with uniform
+    samples it collapses."""
     prop = _has_prop(cfg)
     coarse, fine = render.render_rays(state.params, batch.origins, batch.dirs, cfg.model,
                                       cfg.render, cfg.camera, randomized=False,
                                       dtype=matmul_dtype(cfg),
                                       fine_params=None if prop else state.fine_params,
                                       prop_params=state.fine_params if prop else None,
-                                      prop_cfg=cfg.proposal)
+                                      prop_cfg=cfg.proposal,
+                                      grid=state.grid if cfg.render.occ_res > 0 else None,
+                                      radii=batch.radii)
     out = fine if fine is not None else coarse
     m = render.mse(out.rgb, batch.gold[..., :3])
     return {"mse": m, "psnr": render.psnr_from_mse(m), "rgb": out.rgb,

@@ -18,6 +18,7 @@ a machine with torch and CUDA alone (the repo's conftest.py needs JAX):
 """
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -326,6 +327,11 @@ def test_wrapper_refuses_non_contiguous_rays():
 FAC_MAIN = ModelConfig(arch="factored", sigma_activation="softplus")  # sumR 1,014, C 48
 FAC_SMALL = ModelConfig(arch="factored", fac_levels=3, fac_base_res=4, fac_max_res=16,
                         fac_comps=8, fac_aabb=1.0)
+# past the kernels' former caps (16 levels; levels x channels 1,024): 20
+# levels of the preset's ladder (the bf16 scatter splits C into two groups of
+# three tiles so the taps of 20 levels fit), and 6 levels at 192 channels
+FAC_WIDE = {"levels 20": ModelConfig(arch="factored", fac_levels=20),
+            "6 x 192": ModelConfig(arch="factored", fac_comps=192)}
 
 
 def _factored_inputs(cfg, n, dev, seed=0):
@@ -412,6 +418,23 @@ def test_factored_forward_is_deterministic(dtype):
     assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("geometry", list(FAC_WIDE))
+def test_factored_kernels_past_the_former_caps_are_deterministic(geometry):
+    """At 20 levels and at 6 x 192: the forward under bf16 and f32 lines and
+    the bf16 backward give the same bits on a rerun, and match their plain
+    versions (_check_factored)."""
+    cfg = FAC_WIDE[geometry]
+    dev = _device()
+    lines, pts, g = _ray_inputs(cfg, 100_003, dev, seed=8)
+    for dtype in (torch.bfloat16, None):
+        a = k3.fused_factored_encode_forward(lines, pts, cfg, dtype)
+        assert torch.equal(a, k3.fused_factored_encode_forward(lines, pts, cfg, dtype))
+    d = k3.fused_factored_encode_backward(lines, pts, g, cfg, torch.bfloat16)
+    assert torch.equal(d, k3.fused_factored_encode_backward(lines, pts, g, cfg, torch.bfloat16))
+    _check_factored(k3.fused_factored_encode_forward(lines, pts, cfg, torch.bfloat16), d, lines,
+                    pts, g, cfg, torch.bfloat16)
+
+
 def test_factored_backward_is_deterministic():
     dev = _device()
     lines, pts, g = _factored_inputs(FAC_MAIN, 300_001, dev, seed=1)
@@ -440,14 +463,14 @@ def _ray_inputs(cfg, n, dev, seed=0):
 
 # the backward's geometries: the main width, a small one, every level
 # staged, a per-axis table larger than a CTA's shared memory (the f32
-# backward refuses it; the bf16 one, on the tensor cores, takes it), and two
-# whose C the bf16 scatter pads: 12 channels (two 8-channel tiles, the last
-# half zeros) and 100 (three groups of five tiles, 120 columns)
+# scatter tiles it by levels), two whose C the bf16 scatter pads: 12
+# channels (two 8-channel tiles, the last half zeros) and 100 (three groups
+# of five tiles, 120 columns), and those past the former caps
 FAC_BWD = {"main": FAC_MAIN, "small": FAC_SMALL, "all staged": FAC_ALL, "none": FAC_NONE,
            "padded": ModelConfig(arch="factored", fac_levels=4, fac_base_res=8,
                                  fac_max_res=64, fac_comps=12),
            "groups": ModelConfig(arch="factored", fac_levels=3, fac_base_res=16,
-                                 fac_max_res=128, fac_comps=100)}
+                                 fac_max_res=128, fac_comps=100), **FAC_WIDE}
 
 
 @pytest.mark.parametrize("order", ["ray", "shuffled"])
@@ -463,10 +486,6 @@ def test_factored_backward_matches_plain_version(geometry, dtype, n, order):
     lines, pts, g = _ray_inputs(cfg, n, dev, seed=4)
     if order == "shuffled":
         pts = pts[torch.from_numpy(np.random.default_rng(5).permutation(n)).to(dev)].contiguous()
-    if geometry == "none" and dtype is None:
-        with pytest.raises(ValueError, match="f32 lines"):
-            k3.fused_factored_encode_backward(lines, pts, g, cfg, dtype)
-        return
     d = k3.fused_factored_encode_backward(lines, pts, g, cfg, dtype)
     torch.cuda.synchronize()
     want = k3.fused_factored_encode_backward_reference(lines, pts, g, cfg, dtype)
@@ -478,6 +497,30 @@ def test_factored_backward_matches_plain_version(geometry, dtype, n, order):
         scale = float(want[a].abs().max())
         assert scale > 0
         assert float((d[a] - want[a]).abs().max()) / scale <= k3.KERNEL_TOL["d_lines"], a
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
+@pytest.mark.parametrize("geometry", list(FAC_WIDE))
+def test_factored_kernels_stand_from_the_dense_product_by_its_flips(geometry, dtype):
+    """Beside the plain versions, which sum the taps in the kernels' level
+    order, the JAX kernel's own form: the dense hat product. The encoding
+    stands from it at k3.KERNEL_TOL of its largest magnitude (at least 1:
+    its f32 sums of 2L taps an axis run in another order, on values that
+    reach tens at 20 levels); d_lines at k3.KERNEL_TOL of its scale
+    plus what the d_feat elements that the two orders round differently
+    move it by (``dense_order_gap``), elementwise."""
+    cfg = FAC_WIDE[geometry]
+    dev = _device()
+    lines, pts, g = _ray_inputs(cfg, 100_003, dev, seed=8)
+    enc = k3.fused_factored_encode_forward(lines, pts, cfg, dtype)
+    d = k3.fused_factored_encode_backward(lines, pts, g, cfg, dtype)
+    torch.cuda.synchronize()
+    want = k3.fused_factored_encode_reference(lines, pts, cfg, dtype, dense=True)
+    assert float((enc - want).abs().max()) <= k3.KERNEL_TOL["enc"] * max(
+        1.0, float(want.abs().max()))
+    want_d, bound, _ = k3.dense_order_gap(lines, pts, g, cfg, dtype)
+    tol = k3.KERNEL_TOL["d_lines"] * want_d.abs().amax(dim=(1, 2), keepdim=True)
+    assert bool(((d - want_d).abs() <= tol + bound).all())
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, None], ids=["bf16", "f32"])
@@ -495,7 +538,8 @@ def test_factored_dfeat_matches_plain_dfeat(geometry, dtype):
     torch.cuda.synchronize()
     want = k3.fused_factored_dfeat_reference(lines, pts, g, cfg, dtype)
     C = cfg.fac_comps
-    stride = k3.bwd_plan(100_003, basis_dim(cfg), C, dtype is not None, 132).stride
+    stride = k3.bwd_plan(100_003, basis_dim(cfg), C, cfg.fac_levels, dtype is not None,
+                         132).stride
     assert d.shape == (3, 100_003, stride)
     assert not bool(d[:, :, C:].any())
     got = d[:, :, :C].float()
@@ -529,11 +573,12 @@ def test_bwd_plan_matches_the_kernels():
     lib = k3._library()
     out = (ctypes.c_int * 6)()
     for n in (1, 37, 100_003, 524_288):
-        for sum_r, comps in ((1014, 48), (31, 8), (7602, 8), (1014, 12), (1014, 100)):
+        for cfg in (*FAC_BWD.values(), ModelConfig(arch="factored", fac_levels=47)):
+            sum_r, comps, levels = basis_dim(cfg), cfg.fac_comps, cfg.fac_levels
             for bf16 in (0, 1):
                 for sms in (1, 132):
-                    lib.nerf_factored_bwd_plan(n, sum_r, comps, bf16, sms, out)
-                    assert tuple(out) == k3.bwd_plan(n, sum_r, comps, bool(bf16), sms)
+                    lib.nerf_factored_bwd_plan(n, sum_r, comps, levels, bf16, sms, out)
+                    assert tuple(out) == k3.bwd_plan(n, sum_r, comps, levels, bool(bf16), sms)
 
 
 def test_factored_wrappers_refuse_what_the_kernels_do_not_take():
@@ -546,6 +591,29 @@ def test_factored_wrappers_refuse_what_the_kernels_do_not_take():
         k3.fused_factored_encode_forward(lines, pts.double(), FAC_SMALL)
     with pytest.raises(ValueError, match="f32"):
         k3.fused_factored_encode_backward(lines, pts, g.half(), FAC_SMALL)
+    # what the kernels still refuse, by its code: more than 47 levels, and
+    # under f32 lines a finest level whose knots of one channel do not fit a
+    # CTA
+    for cfg, dtype, backward, code in (
+            (ModelConfig(arch="factored", fac_levels=48), None, False, -2),
+            (ModelConfig(arch="factored", fac_levels=48), torch.bfloat16, True, -2),
+            (ModelConfig(arch="factored", fac_levels=1, fac_base_res=60000, fac_comps=4), None,
+             True, -1)):
+        lines, pts, g = _factored_inputs(cfg, 37, dev)
+        with pytest.raises(ValueError, match=re.escape(k3._ERRORS[code])):
+            if backward:
+                k3.fused_factored_encode_backward(lines, pts, g, cfg, dtype)
+            else:
+                k3.fused_factored_encode_forward(lines, pts, cfg, dtype)
+    # that level's f32 forward and bf16 backward are taken
+    enc = k3.fused_factored_encode_forward(lines, pts, cfg)
+    d = k3.fused_factored_encode_backward(lines, pts, g, cfg, torch.bfloat16)
+    torch.cuda.synchronize()
+    want = k3.fused_factored_encode_reference(lines, pts, cfg)
+    assert float((enc - want).abs().max()) <= k3.KERNEL_TOL["enc"]
+    want_d = k3.fused_factored_encode_backward_reference(lines, pts, g, cfg, torch.bfloat16)
+    assert float((d - want_d).abs().max()) <= k3.KERNEL_TOL["d_lines"] * float(
+        want_d.abs().max())
 
 
 @pytest.mark.parametrize("n", [0, 1, 37, 100_003])

@@ -240,6 +240,129 @@ def test_kernel_wrappers_check_shapes():
         k3.fused_factored_encode_forward(lines.to("meta"), pts.to("meta"), SMALL)
 
 
+# geometries past the kernels' former caps (16 levels; levels x channels
+# 1,024): 20 levels of the preset's ladder, and the preset's 6 levels at
+# 192 channels (L x C = 1,152); AABB 2 for the reason given above
+PAST_CAPS = {"levels 20": ModelConfig(arch="factored", fac_levels=20, fac_aabb=2.0),
+             "6 x 192": ModelConfig(arch="factored", fac_comps=192, fac_aabb=2.0)}
+
+
+def _jax_k3_xla(lines, pts, g, cfg, jdt):
+    """The JAX kernel's arithmetic (nerf_rs_tpu/kernels/fused_factored.py
+    ::_fwd_kernel, ::_bwd_kernel) on the XLA route, from the JAX package's
+    own hat weights: per axis feat = W @ lines with both operands rounded
+    to the matmul dtype and f32 sums, enc = X * Y * Z; d_lines[a] = W_a^T
+    round((g * f_b) * f_c)."""
+    jcfg, f32 = _jcfg(cfg), jnp.float32
+    mm = jdt or f32
+    u = jnp.clip((jnp.asarray(pts) + cfg.fac_aabb) / (2.0 * cfg.fac_aabb), 0.0, 1.0)
+    ws = [jfac.hat_weights(u[:, a], jcfg).astype(mm) for a in range(3)]
+    feats = [jnp.dot(ws[a], jnp.asarray(lines[a]).astype(mm), preferred_element_type=f32)
+             for a in range(3)]
+    d = [jnp.dot(ws[a].T, (jnp.asarray(g) * feats[b] * feats[c]).astype(mm),
+                 preferred_element_type=f32)
+         for a, (b, c) in enumerate(((1, 2), (0, 2), (0, 1)))]
+    return np.asarray(feats[0] * feats[1] * feats[2]), np.stack([np.asarray(x) for x in d])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("geometry", list(PAST_CAPS))
+def test_kernel_plain_version_matches_jax_kernel_past_the_former_caps(geometry, dtype):
+    """K3's plain versions at 20 levels and at 6 x 192 channels on 64
+    points, against the JAX kernel's arithmetic through its XLA reference
+    (as tests/test_factored.py holds the kernel): values rtol 1e-5 and
+    atol 1e-6 of the encoding's largest magnitude, line gradients rtol 1e-4
+    / atol 1e-5. (A feature sums 2L taps in another order on each side; at
+    20 levels an element whose sum cancels misses a 1e-6 absolute bar by
+    its rounding alone, so the absolute bar scales with the values, which
+    reach 84 at 20 levels and 15 at 6 x 192 here.) Where every resolution is
+    a power of two (6 x 192) they are also held to the JAX kernel in
+    interpret mode; at 20 levels that mode contracts u R into the hat's
+    subtraction (one fused multiply-add on the CPU), which moves a weight
+    by an ulp where R is not a power of two (7e-4 of the encoding), and
+    tests/test_factored.py holds it to the XLA route only at powers of
+    two."""
+    cfg = PAST_CAPS[geometry]
+    dt, jdt = DTYPES[dtype]
+    lines, pts = _lines(cfg, seed=5), _points(cfg, 64, seed=6)
+    g = np.random.default_rng(7).normal(size=(64, cfg.fac_comps)).astype(np.float32)
+    lt = torch.from_numpy(lines).requires_grad_()
+    got = k3.fused_factored_encode(lt, torch.from_numpy(pts), cfg, dt)
+    (got * torch.from_numpy(g)).sum().backward()
+    want, want_grad = _jax_k3_xla(lines, pts, g, cfg, jdt)
+    wants = [(want, want_grad)]
+    if all(r & (r - 1) == 0 for r in fac.fac_resolutions(cfg)):
+        jl, jp = jnp.asarray(lines), jnp.asarray(pts)
+        enc_fn = lambda l: jk3.fused_factored_encode(  # noqa: E731
+            l, jp, _jcfg(cfg), jdt, block=64, interpret=True)
+        wants.append((np.asarray(enc_fn(jl)),
+                      np.asarray(jax.grad(lambda l: jnp.sum(enc_fn(l) * g))(jl))))
+    for w, wg in wants:
+        np.testing.assert_allclose(got.detach().numpy(), w, rtol=1e-5,
+                                   atol=1e-6 * np.abs(w).max())
+        np.testing.assert_allclose(lt.grad.numpy(), wg, rtol=1e-4, atol=1e-5)
+    assert np.abs(want_grad).max() > 0.01 and len(wants) == 1 + (geometry == "6 x 192")
+
+
+@pytest.mark.parametrize("kw,code", [
+    (dict(fac_levels=47), {"fwd": 0, "bf16": 0, "f32": 0}),
+    (dict(fac_levels=48), {"fwd": -2, "bf16": -2, "f32": -2}),
+    (dict(fac_levels=2, fac_base_res=2600, fac_max_res=5000, fac_comps=8),
+     {"fwd": 0, "bf16": 0, "f32": 0}),
+    (dict(fac_levels=1, fac_base_res=60000, fac_comps=4), {"fwd": 0, "bf16": 0, "f32": -1}),
+])
+def test_kernels_refuse_only_what_they_cannot_hold(kw, code):
+    """What stays refused on the card, by its ``_ERRORS`` code (the CUDA
+    test test_factored_wrappers_refuse_what_the_kernels_do_not_take drives
+    the kernels into them): more than 47 levels (-2: a tensor-core scatter
+    CTA holds the taps of 47 levels beside one channel tile), and under f32
+    lines a finest level whose knots of one channel do not fit a CTA (-1).
+    A per-axis table larger than a CTA (2 levels of 2,601 and 5,001 knots)
+    no longer is. The wrappers on CPU tensors run the plain versions,
+    which take every geometry: forward and backward, under both dtypes,
+    agree with the dense hat product's form."""
+    cfg = ModelConfig(arch="factored", **kw)
+    assert set(code.values()) <= {0, *k3._ERRORS}
+    lines = torch.from_numpy(_lines(cfg, seed=8))
+    pts = torch.from_numpy(_points(cfg, 16, seed=9))
+    g = torch.from_numpy(np.random.default_rng(10).normal(size=(16, cfg.fac_comps))
+                         .astype(np.float32))
+    for dt in (torch.bfloat16, None):
+        enc = k3.fused_factored_encode_forward(lines, pts, cfg, dt)
+        d = k3.fused_factored_encode_backward(lines, pts, g, cfg, dt)
+        want = k3.fused_factored_encode_reference(lines, pts, cfg, dt, dense=True)
+        want_d, bound, _ = k3.dense_order_gap(lines, pts, g, cfg, dt)
+        np.testing.assert_allclose(enc.numpy(), want.numpy(), rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
+        assert bool(((d - want_d).abs() <= bound + 1e-6 * float(want_d.abs().max())).all())
+        assert bool(torch.isfinite(d).all()) and float(d.abs().max()) > 0
+
+
+@pytest.mark.parametrize("geometry", list(PAST_CAPS))
+def test_level_order_stands_from_the_dense_product_by_its_flips(geometry):
+    """The plain versions sum each axis's taps in level order, as the
+    kernels do; the JAX kernel's dense hat product sums them in another
+    order. Under bf16 an element of d_feat then rounds to a neighbouring
+    bf16 now and then, and d_lines moves by those flips scattered with the
+    hat weights: ``dense_order_gap``'s bound holds the level order's
+    d_lines to the dense form's, elementwise, with 1e-6 of the scale for
+    the f32 sums (chip_smoke.py and tests/test_torch_cuda.py hold the
+    kernels to the dense form the same way, with KERNEL_TOL for that)."""
+    cfg = PAST_CAPS[geometry]
+    n = 2048
+    lines = torch.from_numpy(_lines(cfg, seed=11))
+    pts = torch.from_numpy(_points(cfg, n, seed=12))
+    g = torch.from_numpy(np.random.default_rng(13).normal(size=(n, cfg.fac_comps))
+                         .astype(np.float32))
+    got = k3.fused_factored_encode_backward_reference(lines, pts, g, cfg, torch.bfloat16)
+    want, bound, flips = k3.dense_order_gap(lines, pts, g, cfg, torch.bfloat16)
+    scale = float(want.abs().max())
+    gap = (got - want).abs()
+    assert bool((gap <= bound + 1e-6 * scale).all())
+    assert flips <= 1e-3 * 3 * n * cfg.fac_comps
+    assert (float(bound.max()) > 0) == (flips > 0)
+
+
 def _jax_tree(cfg, seed=0):
     """JAX-initialised factored weights with the sigma head's bias raised,
     so the field is opaque enough that every leaf gets a gradient."""

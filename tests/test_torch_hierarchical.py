@@ -255,6 +255,52 @@ def test_render_rays_fine_pass_matches_jax(preset, fine_mode, fused):
     assert float(got[0].acc.mean()) > 0.1  # the coarse pass sees the field
 
 
+@pytest.mark.parametrize("grid", [False, True])
+@pytest.mark.parametrize("white", [False, True])
+def test_shared_network_fast_fine_pass_matches_jax(white, grid):
+    """The shared-network fast fine pass (one field, union, point samples,
+    eager field; nerf_rs_tpu/ops/render.py:506-569): the coarse samples
+    evaluated once, the fine draws, only the fine samples evaluated, one
+    stable sort of (ts, sigma, r, g, b) and channel-wise compositing,
+    against the JAX function at midpoint samples on converted weights, at
+    tests/test_fused_ray.py's bars; with an occupancy grid guiding the
+    coarse samples too. The fine pass holds the union's 64 + 128 samples
+    in depth order."""
+    render = RenderConfig(num_samples=64, num_fine_samples=128, share_network=True,
+                          fine_mode="union", white_background=white, randomized=False,
+                          occ_res=8 if grid else 0, occ_aabb=1.6)
+    cfg = Config(camera=CameraConfig(width=8, height=8), model=MODEL, render=render,
+                 train=TrainConfig(num_rays=N, precision="f32"), data=DataConfig(dataset="sphere"))
+    jcfg, jstate, state = _states(cfg)
+    o, d, _ = _batch()
+    g = None
+    if grid:
+        c = np.linspace(-1.6, 1.6, 8, endpoint=False) + 0.2
+        gx, gy, gz = np.meshgrid(c, c, c, indexing="ij")
+        g = (np.sqrt(gx ** 2 + gy ** 2 + gz ** 2) < 0.7).astype(np.float32)
+    want = jrender_ops.render_rays(jstate.params, jnp.asarray(o), jnp.asarray(d),
+                                   jax.random.PRNGKey(0), jcfg.model, jcfg.render, jcfg.camera,
+                                   randomized=False, grid=None if g is None else jnp.asarray(g))
+    with torch.no_grad():
+        got = render_ops.render_rays(state.params, torch.from_numpy(o), torch.from_numpy(d),
+                                     cfg.model, cfg.render, cfg.camera, randomized=False,
+                                     grid=None if g is None else torch.from_numpy(g))
+        assert render_ops._shared_fast(cfg.render, cfg.model, None, False)
+    assert got[1].weights.shape == (N, 192) and got[1].ts.shape == (N, 192)
+    assert bool((torch.diff(got[1].ts, dim=-1) >= 0).all())
+    # with the grid, the occupancy bins come from each package's own f32
+    # linspace (an ulp apart at some knots), and the last fine draws sit
+    # where the coarse weights are ~0 and the inverse CDF is steep: ts
+    # there move by up to 3e-4 (bar 5e-4), the weights they carry by ~0
+    ts_tol = 5e-4 if grid else 1e-4
+    for gg, w in zip(got, want):
+        for name, tol in (("rgb", 3e-3), ("acc", 3e-3), ("depth", 5e-3), ("weights", 3e-3),
+                          ("sigma", 2e-2), ("ts", ts_tol)):
+            np.testing.assert_allclose(getattr(gg, name).numpy(), np.asarray(getattr(w, name)),
+                                       atol=tol, err_msg=name)
+    assert float(got[0].acc.mean()) > 0.1
+
+
 @pytest.mark.parametrize("preset", ["hierarchical", "mipnerf"])
 def test_whole_ray_grads_chain_matches_jax(preset):
     """One whole_ray_grads of each preset (coarse kernel -> resample ->

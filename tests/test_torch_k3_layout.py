@@ -136,6 +136,11 @@ def _dense_hat(u_axis, cfg) -> np.ndarray:
 # ---- the plan ----
 
 
+# the levels of the geometries below, by their sumR: 6 x 16..512, 2 x
+# 2600..5000, 3 x 4..16
+_PLAN_LEVELS = {1014: 6, 7602: 2, 31: 3}
+
+
 @pytest.mark.parametrize("n,sum_r,comps,bf16,want", [
     (524_288, 1014, 48, True, k3.BwdPlan(48, 6, 1, 2, 22, 94)),
     (524_288, 1014, 48, False, k3.BwdPlan(48, 0, 1, 1, 44, 187)),
@@ -145,7 +150,7 @@ def _dense_hat(u_axis, cfg) -> np.ndarray:
     (1000, 1014, 100, True, k3.BwdPlan(120, 5, 3, 2, 4, 1)),
 ])
 def test_plan_pads_channels_and_fills_the_card(n, sum_r, comps, bf16, want):
-    plan = k3.bwd_plan(n, sum_r, comps, bf16, SMS)
+    plan = k3.bwd_plan(n, sum_r, comps, _PLAN_LEVELS[sum_r], bf16, SMS)
     assert plan == want
     units = -(-n // (k3.TILE_POINTS if bf16 else k3.WALK_POINTS))
     assert plan.ranges * plan.per >= units > (plan.ranges - 1) * plan.per
@@ -153,6 +158,18 @@ def test_plan_pads_channels_and_fills_the_card(n, sum_r, comps, bf16, want):
         assert plan.stride == plan.groups * plan.nt * 8 >= comps > plan.stride - 8 * plan.groups
         assert plan.nt <= k3.MMA_MAX_TILES
         assert 3 * plan.slabs * plan.groups * plan.ranges <= max(SMS, 3 * plan.slabs * plan.groups)
+
+
+@pytest.mark.parametrize("levels,comps,want", [(20, 48, (2, 3)), (6, 192, (4, 6)),
+                                               (47, 48, (6, 1)), (20, 8, (1, 1))])
+def test_plan_splits_channels_until_the_taps_of_every_level_fit(levels, comps, want):
+    """Past the preset's 6 levels a tensor-core CTA's taps and bands grow
+    (4,352 B a level), so the plan takes the fewest channel groups whose
+    CTAs fit the card's 227 KB; at the most levels, one 8-channel tile."""
+    cfg = ModelConfig(arch="factored", fac_levels=levels, fac_comps=comps)
+    plan = k3.bwd_plan(524_288, fac.basis_dim(cfg), comps, levels, True, SMS)
+    assert (plan.groups, plan.nt) == want
+    assert plan.stride == plan.groups * plan.nt * 8 >= comps
 
 
 @pytest.mark.parametrize("sum_r", [1, 17, 31, 1014, 1024, 1025, 7602])
@@ -388,7 +405,7 @@ def _emulate_backward(lines, pts, g, cfg, sms=SMS):
     range's f32 table; the tables reduced in range order."""
     n = pts.shape[0]
     sum_r, comps = fac.basis_dim(cfg), cfg.fac_comps
-    plan = k3.bwd_plan(n, sum_r, comps, True, sms)
+    plan = k3.bwd_plan(n, sum_r, comps, cfg.fac_levels, True, sms)
     u = _unit(pts, cfg)
     d = _dfeat(g, _features(lines, u, cfg))
     tp = k3.TILE_POINTS

@@ -2,8 +2,10 @@
 module of nerf_rs_tpu_torch imports, a frame renders, two train steps run
 (kernel path and autograd path), one step each of the hierarchical and
 mipnerf settings, of the factored field (both encode routes), of the
-hash grid (both table layouts) and of the unbounded and proposal
-settings (with a frame through the proposal), in a
+hash grid (both table layouts), of the unbounded and proposal
+settings (with a frame through the proposal) and of the record preset's
+settings with a multiscale batch and an occupancy grid (its update and a
+frame through it), and the shared-network fast fine pass, in a
 process that never loads jax, jaxlib, flax,
 optax or any module of nerf_rs_tpu. Plus checks of chip_smoke.py, which
 runs only on the card: an undefined-name lint (the idea of
@@ -107,6 +109,29 @@ for tcfg in (unb, prop):
     assert state.step == 1 and bool(torch.isfinite(aux["loss"])) and "loss_prop" in aux
     rgb, _, _ = render_frame(tcfg, state.params, o, d, fine_params=state.fine_params)
     assert bool(torch.isfinite(rgb).all())
+# the record preset's settings (IPE, one shared field, a union fine pass, an
+# occupancy grid guiding the coarse edges) through the kernel chain, the
+# grid's update, a multiscale batch, and the shared-network fast fine pass
+from nerf_rs_tpu_torch.ops import occupancy, render as render_ops
+from nerf_rs_tpu_torch.train.loop import update_occupancy
+rec = dataclasses.replace(cfg, model=dataclasses.replace(small, ipe=True, sigma_activation="softplus"),
+                          render=RenderConfig(num_samples=8, num_fine_samples=8, share_network=True,
+                                              white_background=True, occ_res=8, occ_aabb=1.6),
+                          train=TrainConfig(num_rays=16),
+                          data=DataConfig(dataset="sphere", multiscale_levels=2),
+                          use_whole_ray_train=True)
+state = step.init_state(rec)
+fn = step.make_train_step(rec, make_dataset(rec))
+state, aux = fn(state, step.step_generator(0, 0, "cpu"))
+state.grid = update_occupancy(state, rec, 0)
+state, aux = fn(state, step.step_generator(0, 1, "cpu"))
+assert state.step == 2 and bool(torch.isfinite(aux["loss_fine"])) and state.grid.shape == (8, 8, 8)
+rgb, _, _ = render_frame(rec, state.params, o, d, grid=state.grid)
+assert bool(torch.isfinite(rgb).all())
+_, fine = render_ops.render_rays(init_nerf_params(small, 0), o, d, small,
+                                 RenderConfig(num_samples=8, num_fine_samples=8,
+                                              share_network=True), cfg.camera, randomized=False)
+assert fine.weights.shape == (8, 8, 16)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_rs_tpu"))
 print("modules", len(names), "jax-family", bad)
@@ -126,7 +151,7 @@ def test_port_imports_and_renders_without_jax():
     assert proc.returncode == 0, proc.stderr
     last = proc.stdout.strip().splitlines()[-1]
     assert last.endswith("jax-family []"), last
-    assert int(last.split()[1]) >= 22  # every module was walked
+    assert int(last.split()[1]) >= 23  # every module was walked
 
 
 def _bound_names(tab):

@@ -239,9 +239,11 @@ def test_cli_render_view_and_sweep(tmp_path, capsys):
     assert "rendered 2 frames of 16x16" in capsys.readouterr().out
 
 
+# --occ_res and --multiscale_levels are ported (tests/test_torch_occupancy.py,
+# tests/test_torch_multiscale.py); the EMA and image directories are not
 @pytest.mark.parametrize("argv", [
-    ["render", "--dataset", "sphere", "--occ_res", "64"],
-    ["render", "--dataset", "sphere", "--multiscale_levels", "2"],
+    ["render", "--dataset", "sphere", "--ema_decay", "0.9"],
+    ["render", "--dataset", "sphere", "--img_dir", "data/x"],
     ["render", "--dataset", "sphere", "--compat", "true"],
 ])
 def test_cli_refuses_unported_flags(argv, capsys):
@@ -252,7 +254,8 @@ def test_cli_refuses_unported_flags(argv, capsys):
 
 
 # train and eval are ported; what they refuse is what later slices bring
-_UNPORTED = {"train": ["--preset", "record"], "eval": ["--scales", "1,2"], "export": []}
+# (--preset record and eval --scales are ported since slices 3 and 4)
+_UNPORTED = {"train": ["--preset", "pod"], "eval": ["--preset", "pod"], "export": []}
 
 
 @pytest.mark.parametrize("cmd", ["train", "eval", "export"])
@@ -280,15 +283,24 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, capsys):
 def test_unported_dataset_and_render_options_raise():
     with pytest.raises(NotImplementedError, match="slice 6"):
         make_dataset(Config())  # multiview_png
-    for rc in (RenderConfig(compat_density_color=True), RenderConfig(occ_res=16),
-               RenderConfig(compat_sampling=True)):
+    for rc in (RenderConfig(compat_density_color=True), RenderConfig(compat_sampling=True)):
         with pytest.raises(NotImplementedError, match="slice"):
             make_render(Config(render=rc))
-    # the shared-network fast fine pass: one field, union, point samples, eager
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        render_ops.render_rays(None, torch.zeros(1, 3), torch.ones(1, 3), ModelConfig(),
-                               RenderConfig(num_fine_samples=8, share_network=True),
-                               CameraConfig(), randomized=False)
+    # ported since slices 2 and 4: an occupancy grid guides the render's
+    # samples, and the shared-network fast fine pass (one field, union,
+    # point samples, eager) composites the union of 4 + 8 samples
+    small = ModelConfig(net_depth=2, net_width=16, skip_layer=1, feature_width=16,
+                        view_head_width=16)
+    model = init_nerf_params(small, 0)
+    o, d = torch.zeros(3, 3), torch.ones(3, 3)
+    rgb, _, _ = make_render(Config(model=small, render=RenderConfig(num_samples=4, occ_res=8)))(
+        model, o, d, grid=torch.ones(8, 8, 8))
+    assert rgb.shape == (3, 3) and bool(torch.isfinite(rgb).all())
+    _, fine = render_ops.render_rays(model, o, d, small,
+                                     RenderConfig(num_samples=4, num_fine_samples=8,
+                                                  share_network=True),
+                                     CameraConfig(), randomized=False)
+    assert fine.weights.shape == (3, 12) and bool(torch.isfinite(fine.rgb).all())
     with pytest.raises(NotImplementedError, match="slice 7"):
         render_ops.render_rays(None, torch.zeros(1, 3), torch.ones(1, 3), ModelConfig(),
                                RenderConfig(raw_noise_std=1.0), CameraConfig(),
