@@ -47,10 +47,8 @@ Phases, each fatal (any failure exits non-zero):
      two fields, 64 + 128 union; mipnerf: IPE, one field, 64 + 128
      standalone): `train` for 51 steps at full width (exactly 2 K2
      launches per step, K1 for the eval), `render --view 0` at 800x800
-     and `eval --max_views 2` on the checkpoint (2 K1 launches per chunk);
-     then a 64x64 learning drive per preset and seed: the mean over
-     LEARN_SEEDS of `cli eval`'s mean PSNR over LEARN_VIEWS views at
-     iteration 301 must pass PRESET_PSNR.
+     and `eval --max_views 2` on the checkpoint (2 K1 launches per chunk).
+     (Each path's 64x64 learning drives run in phase 28.)
  11. times: each preset's step through K2 and through autograd, its
      800x800 frame through K1 (checked against the plain version on a
      chunk of it), a profile of the hierarchical K2 step; the new
@@ -81,9 +79,7 @@ Phases, each fatal (any failure exits non-zero):
      800x800 render_frame (20 chunks, 20 forwards; its first chunk held to
      the plain route) and an eval of 2 views; `cli train/eval/render
      --preset factored`, whose route is the dense-hat encode (0 K3
-     launches, as in the JAX CLI); the 64x64 learning drive through K3
-     for LEARN_SEEDS, the mean over seeds of `cli eval`'s mean PSNR over
-     LEARN_VIEWS views above FAC_PSNR.
+     launches, as in the JAX CLI).
  14. times: the factored step through K3 and through the CLI's route, a
      profile of the K3 step (device idle), K3's forward and backward at
      524,288 points (the forward with bf16 and with f32 lines, the
@@ -111,9 +107,7 @@ Phases, each fatal (any failure exits non-zero):
      50), `render --view 0` at 800x800 (625 gather_rows, or 157
      gather_pairs) and `eval --max_views 2`, each with its exact K4 launch
      count; the frame's first chunk from the trained weights through K4 and
-     through the plain route, bit for bit; then the 64x64 learning drive of
-     `--preset ngp` for LEARN_SEEDS, the mean over seeds of `cli eval`'s mean
-     PSNR over LEARN_VIEWS views above NGP_PSNR.
+     through the plain route, bit for bit.
  17. times: each layout's step (best of 3 windows) with a profile's device
      idle share, each layout's 800x800 frame, and K4's two calls at the
      main path's shapes beside their plain versions, torch.index_select and
@@ -133,9 +127,7 @@ Phases, each fatal (any failure exits non-zero):
      the distortion loss; proposal: a proposal net picks 128 samples):
      `train` for UNB_STEPS steps at full width (exactly 1 K2 launch per step,
      1 K1 launch for the eval at step 50), `render --view 0` at 800x800 (3
-     or 5 K1 chunks) and `eval --max_views 2`; then each preset's 64x64
-     learning drive for LEARN_SEEDS, the mean over seeds of `cli eval`'s
-     mean PSNR over LEARN_VIEWS views above UNB_PSNR / PROP_PSNR.
+     or 5 K1 chunks) and `eval --max_views 2`.
  20. times: each preset's step through K2 and through autograd, its 800x800
      frame through K1 (its first rays held to the plain route), a profile of
      the unbounded K2 step; the new cases' kernel calls at the presets'
@@ -147,13 +139,11 @@ Phases, each fatal (any failure exits non-zero):
      2 K2 launches a step, 2 K1 for the eval), the grid updated after steps
      0, 16, 32 and 48 and non-zero in the checkpoint, `render --view 0` at
      800x800 (20 K1 launches) and `eval --max_views 2` (4), then a resume
-     for REC_RESUME steps that keeps the restored grid; the record 64x64
-     learning drive for REC_SEEDS above REC_PSNR.
+     for REC_RESUME steps that keeps the restored grid.
  22. multiscale through the CLI: `train --preset mipnerf --multiscale_levels
      4` for PRESET_STEPS steps (2 K2 launches a step), `eval --scales
      1,2,4,8 --max_views 2` on its checkpoint (16 K1 launches, a finite mean
-     PSNR at each scale and the multiscale mean); its 64x64 learning drive
-     above MS_PSNR.
+     PSNR at each scale and the multiscale mean).
  23. times: K1 and K2 at the record shapes (a whole K1 chunk of 65,536 rays
      x 193 IPE intervals, K2's 4096-ray union call and its 64-interval
      coarse call), each held to its plain version (K2 also to the float64
@@ -162,8 +152,41 @@ Phases, each fatal (any failure exits non-zero):
      through K2 and through autograd with a profile's device idle share,
      its 800x800 frame through K1 on a grid. (K3's forward and backward at
      FAC_WIDE's geometries are timed in phase 14, with the preset's.)
-The learning drives of phases 21 and 22 fail the run at its end, after
-phase 23 has printed its measurements. Every kernel launch counter is set
+ 24. procedural scenes written by the port on the card: `python -m
+     nerf_rs_tpu_torch.tools.make_scene` of the lego at SCENE_FLAGS (100x100,
+     20 + 2 + 4 views, 256 samples) and LEGO64_FLAGS (64x64), each timed, their
+     test splits loaded back; a 32x32 gold view integrated on the card against
+     the CPU's (GOLD_TOL at GOLD_SHARE of the values, GOLD_EDGE at all).
+ 25. `--dataset blender` through the CLI (c2w rays, the lego's [2, 6]):
+     `--preset full` and `--preset record` train for BLENDER_STEPS steps (1 or
+     2 K2 launches a step, an eval at step 10 through K1), `eval --split
+     test` (4 views) and `render --view 0`, exact K1 counts, finite PSNRs.
+ 26. the host pipeline (`--batch_mode host --use_native_loader true`, two
+     workers; the port's C++ gather built from its own source) through K2,
+     and `--preset pod` (error-weighted resampling, the train kernel) for
+     HOST_STEPS steps, its checkpoint's `.err.npy` store moved off its start,
+     and a resume that reads it back.
+ 27. `--dataset llff --ndc true` on tests/data/llff_mini and `--dataset
+     multiview_png` on 12 sphere views written as image-{i}.png in multiview
+     batches: train, eval and render through K1 and K2 with exact counts.
+ 28. the learning drives, LEARN_WORKERS processes at once (spawned after
+     the build; one drive's host work overlaps another's kernels): per
+     path and seed a 64x64 drive of 301 steps at 1024 rays, then `cli
+     eval` of its checkpoint over LEARN_VIEWS views, with the path's exact
+     launch count in the drive;
+     the mean over seeds of the mean PSNR must pass the path's bar:
+     hierarchical and mipnerf (LEARN_SEEDS, PRESET_PSNR), factored through
+     K3 (train/loop.train with fac_fused, FAC_PSNR), ngp through K4
+     (NGP_PSNR), unbounded and proposal (UNB_PSNR, PROP_PSNR; proposal with
+     softplus density), record (REC_SEEDS, REC_PSNR), multiscale mipnerf
+     (MS_PSNR) and record on the 64x64 lego (LEGO_SEEDS, its 4 test views,
+     LEGO_PSNR).
+ 29. times: the full and record steps through K2 on the sphere at 100x100,
+     and on the lego per ray and through the host pipeline, and each mode's
+     batch alone.
+The record, multiscale and lego learning drives fail the run at its end,
+after phase 29 has printed its measurements. `clock:` lines give each
+phase's wall seconds. Every kernel launch counter is set
 to 0 just before the path it counts and read just after. The line before the last is one JSON object
 describing the kernels (with each one's bound and a PyTorch library
 call's time at the flagship shape); the last is {"ok": true, "device":
@@ -220,7 +243,7 @@ import sys
 import tempfile
 import time
 import zlib
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from typing import NamedTuple, Optional
 
 # kernel vs plain version on the same card, same inputs. Both multiply
@@ -250,6 +273,9 @@ VERIFY_PSNR = 20.0  # eval PSNR the 64x64 learning check must pass at iteration 
 # the CPU, kernels off, less 1 dB). Those read 16.77 (hierarchical) and
 # 23.21 dB (mipnerf); PERF.md has the commands and each seed's reading.
 LEARN_SEEDS = (0, 1, 2)
+# the learning drives run in LEARN_WORKERS processes at once (phase 28), each
+# drive's host work overlapping the others' kernels
+LEARN_WORKERS = 4
 LEARN_VIEWS = 4
 PRESET_PSNR = {"hierarchical": 15.77, "mipnerf": 20.0}
 PRESETS = ("hierarchical", "mipnerf")
@@ -329,10 +355,11 @@ GATHER_CALLS = 20  # K3 and K4 calls per timing window
 # seeds on the CPU, kernels off, less 1 dB); PERF.md has the commands and
 # readings. The proposal preset's relu density drives with softplus: with relu,
 # seed 2's draw stays near the transparent optimum through K2 at lr 1e-3 and
-# 5e-4 (11.4 and 11.2 dB) while autograd climbs out (19.2), a marginal start
-# rather than a fault (the two routes agree to 0.5% of each leaf at its first
-# step); softplus keeps the density's gradient alive where relu's is 0, so the
-# check measures learning, not the draw.
+# 5e-4 (11.4 and 11.2 dB) and through K2's plain version (11.4) while autograd
+# climbs out (19.2): the routes round at other points, and the plain version
+# leaves KERNEL_TOL of the float64 witness as often as K2 does (ROADMAP Queue 3,
+# fault 6); softplus keeps the density's gradient alive where relu's is 0, so
+# the check measures learning, not the draw.
 UNB_PRESETS = ("unbounded", "proposal")
 UNB_LEARN_FLAGS = {"unbounded": (), "proposal": ("--sigma_activation", "softplus")}
 UNB_PSNR = 20.0
@@ -400,6 +427,44 @@ RECORD_SHAPES = (Shape("K1", "IPE, S=193 (record union chunk)", True, False, Non
                  Shape("K2", "IPE, S=64 (record coarse step)", True, False, None, 4096, 64,
                        0.05, 2.0, True))
 
+# The datasets and the host pipeline (phases 24-29): the port's make-scene
+# writes procedural lego scenes on the card (SCENE_FLAGS, and LEGO64_FLAGS for
+# the learning drive); `--dataset blender` trains (BLENDER_STEPS steps),
+# evaluates its test split and renders a view through K1 and K2 with exact
+# counts in `--preset full` and `--preset record`; the host pipeline through
+# the port's C++ gather and `--preset pod` (error-weighted resampling; the
+# train kernel asked for) with a resume that reads its error store back; LLFF
+# on tests/data/llff_mini with --ndc and the multiview PNG layout on sphere
+# views written here, in multiview batches. The 64x64 learning drive of
+# --preset record on the 64x64 lego (--num_samples 32 --num_fine_samples 64,
+# 1024 rays, lr 1e-3, 301 steps, `cli eval` over its 4 test views) must pass
+# LEGO_PSNR = min(20 dB, the JAX package's own drives on the same flags, seeds
+# and scene on the CPU, less 1 dB); PERF.md has the commands and readings.
+SCENE_FLAGS = ("--size", "100", "--n_train", "20", "--n_val", "2", "--n_test", "4",
+               "--num_samples", "256")
+LEGO64_FLAGS = ("--size", "64", "--n_train", "20", "--n_val", "2", "--n_test", "4",
+                "--num_samples", "256")
+BLENDER_STEPS = 11
+# the procedural lego's cameras sit 4.03 from its centre: rays sample [2, 6]
+LEGO_DATA = ("--dataset", "blender", "--near", "2", "--far", "6")
+BLENDER_PRESETS = ("full", "record")
+# phase 29's timing windows of 10 steps per preset: the record step (~40 ms)
+# reads within 1% in one window
+DATA_WINDOWS = {"full": 3, "record": 1}
+LEGO_SEEDS = (0, 1, 2)
+# the JAX drives of seeds 0-2 on the 64x64 lego (--near 2 --far 6) read 23.99 /
+# 23.54 / 23.82 dB, mean 23.78: LEGO_PSNR = min(20, 23.78 - 1)
+LEGO_PSNR = 20.0
+# a gold frame integrated on the card against the CPU's: f32 sums of 64
+# samples whose transcendentals round apart by an ulp or two, at GOLD_SHARE of
+# the frame's values; at the rest a texture's checker or a primitive's edge
+# falls on the other side of a sample on one device (up to GOLD_EDGE)
+GOLD_TOL = 1e-4
+GOLD_SHARE = 0.98
+GOLD_EDGE = 0.25
+HOST_STEPS = 6
+LLFF_MINI = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "llff_mini")
+
 
 # checks whose failure fails the run at its end, after every later phase has
 # run and printed its measurements (the learning drives of phases 21 and 22)
@@ -454,6 +519,29 @@ def best_of(fn, windows: int = 3) -> float:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     return min(times)
+
+
+def timed_call(fn) -> tuple:
+    """``fn()``'s result and its wall seconds, fenced by synchronize: a
+    check's call timed once (for plain versions of a second or more)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+_LAP = [0.0]
+
+
+def lap(label: str) -> None:
+    """Prints the wall seconds since the last lap (main's phases, each
+    against the run's time limit)."""
+    now = time.perf_counter()
+    print(f"clock: {label} {now - _LAP[0]:.1f} s")
+    _LAP[0] = now
 
 
 def event_ms(fn, reps: int = 3) -> float:
@@ -524,6 +612,87 @@ def run_cli(argv) -> tuple:
         rc = cli.main(argv)
     print(log.getvalue().rstrip())
     return rc, log.getvalue()
+
+
+def kernel_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3, gather_rows as k4
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+
+    return {"K1": fused_ray_render.launches, "K2": fused_train_grads.launches,
+            "K3": k3.fused_factored_encode.launches,
+            "K3 backward": k3.fused_factored_encode_backward.launches,
+            "gather_rows": k4.gather_rows.launches, "gather_pairs": k4.gather_pairs.launches,
+            "scatter_rows": k4.scatter_rows.launches}
+
+
+def reset_counts() -> None:
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3, gather_rows as k4
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+
+    for fn in (fused_ray_render, fused_train_grads, k3.fused_factored_encode,
+               k3.fused_factored_encode_backward, k4.gather_rows, k4.gather_pairs,
+               k4.scatter_rows):
+        fn.launches = 0
+
+
+def learn_worker_init() -> None:
+    """A learning pool process: main's matmul settings, the port and its
+    kernels loaded (built by main before the pool starts), the card up."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from nerf_rs_tpu_torch import cli  # noqa: F401
+    from nerf_rs_tpu_torch.kernels import build
+
+    for name in KERNELS:
+        build.load(name)
+    torch.zeros(1, device="cuda")
+
+
+def drive_seed(calls) -> list:
+    """One learning drive's calls, in a learning pool process: each
+    ("cli", argv) one `cli.main`, each ("factored", flags) train/loop.train
+    of `--preset factored` with those flags and fac_fused on (through K3).
+    Per call (rc, its stdout, kernel_counts()), every count set to 0 before
+    it."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch import cli
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.train.loop import train
+
+    out = []
+    for kind, arg in calls:
+        reset_counts()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            if kind == "cli":
+                rc = cli.main(arg)
+            else:
+                cfg = preset_cfg("factored", *arg)
+                cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model,
+                                                                         fac_fused=True))
+                train(cfg, make_dataset(cfg, torch.device("cuda")))
+                rc = 0
+        out.append((rc, log.getvalue(), kernel_counts()))
+    return out
+
+
+def start_learning_pool() -> tuple:
+    """LEARN_WORKERS spawned processes for the learning drives, each
+    started at once by a warm-up task so that their start-up overlaps
+    main's checks. Returns the pool and the warm-up tasks."""
+    import multiprocessing
+
+    pool = ProcessPoolExecutor(LEARN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=learn_worker_init)
+    return pool, [pool.submit(time.sleep, 1.0) for _ in range(LEARN_WORKERS)]
 
 
 def leaf_err(got, want) -> float:
@@ -1144,50 +1313,284 @@ def drive_multiscale(tmp: str) -> dict:
             "psnr_by_scale": {int(k): float(v) for k, v in means.items()}}
 
 
-def learning_drive(tmp: str, preset: str, extra=("--num_fine_samples", "64"),
-                   k2_per_step: int = 2, bar: Optional[float] = None,
-                   name: Optional[str] = None, defer: bool = False,
-                   seeds=LEARN_SEEDS) -> dict:
-    """The preset's 64x64 learning drive through K2 (``k2_per_step``
-    launches a step), once per seed in ``seeds``, then `cli eval` on each
-    checkpoint: the mean over seeds of the mean PSNR over the first
-    LEARN_VIEWS views must pass ``bar`` (PRESET_PSNR[preset] by default).
-    ``name`` (by default the preset's) names the drives' directories. With
-    ``defer`` a mean under the bar fails the run at its end (DEFERRED).
-    Returns each seed's readings and the mean."""
+def write_scenes(tmp: str, card: str) -> dict:
+    """Phase 24: the port's make-scene writes the procedural lego at
+    SCENE_FLAGS and at LEGO64_FLAGS on the card, each timed; the test split
+    loads (clear and opaque pixels both present), and one 32 x 32 view
+    integrated on the card stands within GOLD_TOL of the CPU's at GOLD_SHARE
+    of its values and within GOLD_EDGE at all. Returns {name: (directory,
+    seconds)}."""
+    import numpy as np
+    import torch
+
+    from nerf_rs_tpu_torch.data import blender, procedural
+    from nerf_rs_tpu_torch.tools import make_scene
+
+    out = {}
+    for name, flags in (("lego", SCENE_FLAGS), ("lego64", LEGO64_FLAGS)):
+        path = os.path.join(tmp, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            rc = make_scene.main(["--out", path, *flags, "--device", "cuda"])
+        dt = time.perf_counter() - t0
+        size = int(flags[1])
+        scene = blender.load_blender(path, "test")
+        alpha = scene.images[..., 3]
+        print(f"make_scene {' '.join(flags)} on the card [{card}]: rc {rc}, {dt:.2f} s; test "
+              f"split {scene.images.shape}, {float((alpha > 200).mean()):.3f} of its pixels "
+              f"opaque")
+        if (rc != 0 or scene.images.shape != (4, size, size, 4) or not (alpha == 0).any()
+                or not (alpha > 200).any()):
+            fail(f"make_scene {name}: rc {rc}, test split {scene.images.shape}")
+        out[name] = (path, dt)
+    c2w = procedural.hemisphere_poses(1, 1)[0]
+    focal = 0.5 * 32 / math.tan(0.5 * procedural.CAMERA_ANGLE_X)
+    frames = [procedural.render_gold(c2w, 32, 32, focal, num_samples=64, device=dev)
+              for dev in ("cuda", "cpu")]
+    diff = np.abs(frames[0] - frames[1])
+    share, gap = float((diff <= GOLD_TOL).mean()), float(diff.max())
+    print(f"render_gold 32x32, 64 samples, card vs CPU: {share:.4f} of the values within "
+          f"{GOLD_TOL:g} (want {GOLD_SHARE}), the largest gap {gap:.3g} (tol {GOLD_EDGE})")
+    if not (share >= GOLD_SHARE and gap <= GOLD_EDGE):
+        fail(f"render_gold on the card stands from the CPU's: {share} within {GOLD_TOL}, "
+             f"the largest gap {gap}")
+    return out
+
+
+def _render_launches(preset: str, pixels: int, views: int) -> int:
+    """K1 launches of ``views`` frames of ``pixels`` rays under the preset:
+    its passes times the render chunks a view."""
+    from nerf_rs_tpu_torch.render import default_render_chunk
+
+    cfg = preset_cfg(preset)
+    passes = 2 if cfg.render.num_fine_samples > 0 else 1
+    chunk = default_render_chunk(cfg.render, fused=True, model_cfg=cfg.model)
+    return views * passes * math.ceil(pixels / chunk)
+
+
+def drive_dataset(tmp: str, key: str, flags, steps: int, k2_per_step: int, pixels: int,
+                  eval_views: int, eval_flags=(), train_flags=()) -> dict:
+    """`cli train` on a dataset for ``steps`` steps (``k2_per_step`` K2
+    launches a step, and an eval at step 10 when it comes), then `eval`
+    (``eval_flags``; ``eval_views`` views) and `render --view 0`, each
+    through K1 with exact counts and a finite PSNR. Returns the counts."""
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
     from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
 
+    preset = flags[flags.index("--preset") + 1] if "--preset" in flags else "full"
+    ckdir = os.path.join(tmp, key)
+    common = [*flags, "--save_dir", ckdir]
+    fused_train_grads.launches = 0
+    fused_ray_render.launches = 0
+    rc, out = run_cli(["train", *common, *train_flags, "--num_iter", str(steps),
+                       "--eval_steps", "10", "--save_steps", "1000", "--log_dir", ckdir])
+    k2, k1 = fused_train_grads.launches, fused_ray_render.launches
+    want_k1 = _render_launches(preset, pixels, 1) if steps > 10 else 0
+    print(f"cli train {' '.join(flags)} {' '.join(train_flags)}, {steps} steps: rc {rc}, K2 "
+          f"launches {k2} (want {k2_per_step * steps}), K1 launches {k1} (want {want_k1})")
+    losses = [float(v) for v in re.findall(r"iter=\d+, loss=(\S+)", out)]
+    if (rc != 0 or k2 != k2_per_step * steps or k1 != want_k1
+            or not all(map(math.isfinite, losses))):
+        fail(f"{key} train: rc {rc}, K2 {k2}, K1 {k1}, losses {losses}")
+    counts = {"train": k2, "train_eval": k1}
+    for name, argv, want in (
+            ("eval", ["eval", *eval_flags], _render_launches(preset, pixels, eval_views)),
+            ("render", ["render", "--view", "0", "--out_dir", os.path.join(ckdir, "r")],
+             _render_launches(preset, pixels, 1))):
+        fused_ray_render.launches = 0
+        rc, out = run_cli([*argv, *common])
+        k1 = fused_ray_render.launches
+        m = re.search(r"(?:mean psnr over \d+ \S+ views: |psnr=)([^\s,]+)", out)
+        print(f"cli {name} {key}: rc {rc}, K1 launches {k1} (want {want}), psnr "
+              f"{m and m.group(1)}")
+        if rc != 0 or k1 != want or m is None or not math.isfinite(float(m.group(1))):
+            fail(f"{key} {name}: rc {rc}, K1 launches {k1} (want {want}), psnr "
+                 f"{m and m.group(1)}")
+        counts[name] = k1
+    return counts
+
+
+def drive_host_and_pod(tmp: str, scene: str) -> dict:
+    """Phase 26: `train --batch_mode host --use_native_loader true` (two
+    workers) on the Blender scene through K2, the C++ gather built from the
+    port's own source; then `--preset pod` through K2 for HOST_STEPS steps,
+    whose checkpoint carries its error store (moved off its start), and a
+    resume of 3 steps that reads it back. Returns the K2 counts."""
+    import numpy as np
+
+    from nerf_rs_tpu_torch.data import native_loader
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+    from nerf_rs_tpu_torch.train import checkpoint as ckpt
+
+    data = [*LEGO_DATA, "--img_dir", scene, "--eval_steps", "100", "--save_steps", "1000"]
+    counts = {}
+    fused_train_grads.launches = 0
+    ckdir = os.path.join(tmp, "host")
+    rc, out = run_cli(["train", "--preset", "full", *data, "--batch_mode", "host",
+                       "--use_native_loader", "true", "--data_workers", "2", "--num_iter",
+                       str(HOST_STEPS), "--save_dir", ckdir, "--log_dir", ckdir])
+    counts["host_train"] = fused_train_grads.launches
+    lib = native_loader.library_path()
+    print(f"cli train --batch_mode host --use_native_loader true: rc {rc}, K2 launches "
+          f"{counts['host_train']}, native library {lib.name} built {lib.exists()}")
+    if rc != 0 or counts["host_train"] != HOST_STEPS or not lib.exists():
+        fail(f"host pipeline: rc {rc}, K2 {counts['host_train']}, library {lib.exists()}")
+    ckdir = os.path.join(tmp, "pod")
+    pod = ["train", "--preset", "pod", "--use_whole_ray_train", "true", *data,
+           "--save_dir", ckdir, "--log_dir", ckdir]
+    fused_train_grads.launches = 0
+    rc, out = run_cli([*pod, "--num_iter", str(HOST_STEPS)])
+    counts["pod_train"] = fused_train_grads.launches
+    first = ckpt.load_err_store(ckpt.latest_checkpoint(ckdir))
+    fused_train_grads.launches = 0
+    rc2, out2 = run_cli([*pod, "--num_iter", str(HOST_STEPS + 3)])
+    counts["pod_resume"] = fused_train_grads.launches
+    after = ckpt.load_err_store(ckpt.latest_checkpoint(ckdir))
+    moved = first is not None and bool((first != 1.0).any())
+    print(f"cli train --preset pod: rc {rc}, K2 launches {counts['pod_train']}; error store "
+          f"{None if first is None else first.shape}, moved off its start {moved}; resume rc "
+          f"{rc2}, K2 launches {counts['pod_resume']}, read back "
+          f"{'resumed the error store from' in out2}")
+    if (rc != 0 or rc2 != 0 or counts["pod_train"] != HOST_STEPS or counts["pod_resume"] != 3
+            or not moved or "resumed the error store from" not in out2
+            or after is None or np.array_equal(after, first)):
+        fail(f"pod: rc {rc}/{rc2}, K2 {counts['pod_train']}/{counts['pod_resume']}, store "
+             f"moved {moved}")
+    return counts
+
+
+def drive_llff_and_multiview(tmp: str) -> dict:
+    """Phase 27: `--dataset llff --ndc true` on tests/data/llff_mini (train,
+    eval of its held-out view, render), and `--dataset multiview_png` on 12
+    64x64 sphere views written here as image-{i}.png, in multiview batches.
+    Returns the launch counts."""
+    from nerf_rs_tpu_torch import CameraConfig
+    from nerf_rs_tpu_torch.data import synthetic
+    from nerf_rs_tpu_torch.data.images import save_png
+
+    counts = {"llff": drive_dataset(
+        tmp, "llff", ["--preset", "full", "--dataset", "llff", "--img_dir", LLFF_MINI, "--ndc",
+                      "true"], 4, 1, 24 * 32, 1)}
+    views = os.path.join(tmp, "views")
+    imgs = synthetic.sphere_scene_images(CameraConfig(width=64, height=64), 12)
+    for i in range(12):
+        save_png(os.path.join(views, f"image-{i}.png"), imgs[i])
+    counts["multiview"] = drive_dataset(
+        tmp, "multiview", ["--preset", "full", "--dataset", "multiview_png", "--img_dir", views,
+                           "--view_end", "12", "--width", "64", "--height", "64"], 4, 1,
+        64 * 64, 2, eval_flags=("--max_views", "2"),
+        train_flags=("--batch_mode", "multiview"))
+    return counts
+
+
+def time_datasets(card: str, scene: str) -> dict:
+    """Phase 29: the full and record steps (4096 rays) through K2 on the
+    sphere at 100x100 and on the Blender scene (c2w rays) at the same
+    shapes, per ray and through the host pipeline (the C++ gather), the
+    steps and batches built as ``train.loop.train`` builds them; best of
+    DATA_WINDOWS[preset] windows of 10 steps; and the batch alone (rays and
+    gold) in each mode, the host cost of the c2w rays beside the sphere's
+    yaw/pitch ones."""
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import effective_config, make_dataset
+    from nerf_rs_tpu_torch.train.loop import batch_source, make_pipeline
+    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+
+    dev = torch.device("cuda")
+    out = {}
+    for preset in BLENDER_PRESETS:
+        windows = DATA_WINDOWS[preset]
+        for name, argv in (("sphere per_ray", ("--width", "100", "--height", "100")),
+                           ("blender per_ray", (*LEGO_DATA, "--img_dir", scene)),
+                           ("blender host", (*LEGO_DATA, "--img_dir", scene,
+                                             "--batch_mode", "host",
+                                             "--use_native_loader", "true"))):
+            cfg = preset_cfg(preset, *argv)
+            ds = make_dataset(cfg, dev)
+            cfg = effective_config(cfg, ds)
+            pipe = make_pipeline(cfg, ds)
+            try:
+                sample = batch_source(cfg, ds, None, pipe)
+                fn = make_train_step(cfg, ds, sample)
+                state = init_state(cfg, dev)
+                it = [0]
+
+                def run(k):
+                    nonlocal state
+                    for _ in range(k):
+                        state, _ = fn(state, step_generator(0, it[0], dev))
+                        it[0] += 1
+                run(2)
+                step_ms = best_of(lambda: run(10), windows) / 10 * 1e3
+                g = torch.Generator(device=dev).manual_seed(0)
+                batch_ms = best_of(lambda: [sample(g) for _ in range(10)], windows) / 10 * 1e3
+            finally:
+                if pipe is not None:
+                    pipe.close()
+            print(f"{preset} step, {name} [{card}]: {step_ms:.3f} ms/step through K2; the "
+                  f"batch alone {batch_ms:.3f} ms")
+            out[f"{preset} {name}"] = {"step_ms": step_ms, "batch_ms": batch_ms}
+            del state
+    return out
+
+
+def learning_drive(pool, tmp: str, preset: str, extra=("--num_fine_samples", "64"),
+                   k2_per_step: int = 2, bar: Optional[float] = None,
+                   name: Optional[str] = None, defer: bool = False,
+                   seeds=LEARN_SEEDS):
+    """The preset's 64x64 learning drive through K2 (``k2_per_step``
+    launches a step), once per seed in ``seeds``, then `cli eval` on each
+    checkpoint, each seed's drive a task of the learning ``pool``: the mean
+    over seeds of the mean PSNR over the first LEARN_VIEWS views must pass
+    ``bar`` (PRESET_PSNR[preset] by default). ``name`` (by default the
+    preset's) names the drives' directories. Returns a function that waits
+    for the drives, prints and checks them: with ``defer`` a mean under the
+    bar fails the run at its end (DEFERRED); it returns each seed's
+    readings, the mean and ``launches``, the K2 launches counted over the
+    seeds' drives (each counter set to 0 before its drive)."""
     common = ["--preset", preset, "--dataset", "sphere", "--width", "64", "--height", "64",
               "--num_samples", "32", *extra]
-    per_seed = {}
+    tasks = {}
     for seed in seeds:
         vdir = os.path.join(tmp, f"learn-{name or preset}-{seed}")
-        fused_train_grads.launches = 0
-        rc, out = run_cli(["train", *common, "--seed", str(seed), "--num_rays", "1024",
-                           "--num_iter", "301", "--eval_steps", "100", "--learning_rate", "1e-3",
-                           "--save_dir", vdir, "--log_dir", vdir])
-        curve = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", out))
-        if rc != 0 or fused_train_grads.launches != k2_per_step * 301:
-            fail(f"{preset} learning drive, seed {seed}: rc {rc}, K2 launches "
-                 f"{fused_train_grads.launches} (want {k2_per_step * 301})")
-        rc, out = run_cli(["eval", *common, "--save_dir", vdir, "--max_views", str(LEARN_VIEWS)])
-        m = re.search(r"mean psnr over \d+ \S+ views: (\S+)", out)
-        if rc != 0 or m is None or not math.isfinite(float(m.group(1))):
-            fail(f"{preset} learning drive, seed {seed}: eval rc {rc}, no finite mean psnr")
-        per_seed[seed] = {"view0_curve": curve, "mean_psnr": float(m.group(1))}
-    mean = sum(r["mean_psnr"] for r in per_seed.values()) / len(per_seed)
-    bar = PRESET_PSNR[preset] if bar is None else bar
-    print(f"{preset} learning drives (64x64, {' '.join(common[8:])}): mean psnr over {LEARN_VIEWS} "
-          f"views at 301 per seed {[r['mean_psnr'] for r in per_seed.values()]}, mean {mean:.3f} "
-          f"(bar {bar})")
-    if not mean > bar:
-        msg = (f"{name or preset} learning drives: mean psnr {mean:.3f} over seeds "
-               f"{seeds} (need > {bar})")
-        if not defer:
-            fail(msg)
-        print(f"chip_smoke: {msg}; the run fails at its end")
-        DEFERRED.append(msg)
-    return {"seeds": per_seed, "mean_psnr": mean, "bar": bar}
+        tasks[seed] = pool.submit(drive_seed, [
+            ("cli", ["train", *common, "--seed", str(seed), "--num_rays", "1024",
+                     "--num_iter", "301", "--eval_steps", "100", "--learning_rate", "1e-3",
+                     "--save_dir", vdir, "--log_dir", vdir]),
+            ("cli", ["eval", *common, "--save_dir", vdir, "--max_views", str(LEARN_VIEWS)])])
+
+    def finish() -> dict:
+        per_seed, launches = {}, 0
+        for seed, task in tasks.items():
+            (rc, out, counts), (erc, eout, _) = task.result()
+            print(out.rstrip())
+            print(eout.rstrip())
+            curve = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", out))
+            launches += counts["K2"]
+            if rc != 0 or counts["K2"] != k2_per_step * 301:
+                fail(f"{preset} learning drive, seed {seed}: rc {rc}, K2 launches "
+                     f"{counts['K2']} (want {k2_per_step * 301})")
+            m = re.search(r"mean psnr over \d+ \S+ views: (\S+)", eout)
+            if erc != 0 or m is None or not math.isfinite(float(m.group(1))):
+                fail(f"{preset} learning drive, seed {seed}: eval rc {erc}, no finite mean psnr")
+            per_seed[seed] = {"view0_curve": curve, "mean_psnr": float(m.group(1))}
+        mean = sum(r["mean_psnr"] for r in per_seed.values()) / len(per_seed)
+        want = PRESET_PSNR[preset] if bar is None else bar
+        print(f"{preset} learning drives (64x64, {' '.join(common[8:])}): mean psnr over "
+              f"{LEARN_VIEWS} views at 301 per seed {[r['mean_psnr'] for r in per_seed.values()]}, "
+              f"mean {mean:.3f} (bar {want})")
+        if not mean > want:
+            msg = (f"{name or preset} learning drives: mean psnr {mean:.3f} over seeds "
+                   f"{seeds} (need > {want})")
+            if not defer:
+                fail(msg)
+            print(f"chip_smoke: {msg}; the run fails at its end")
+            DEFERRED.append(msg)
+        return {"seeds": per_seed, "mean_psnr": mean, "bar": want, "launches": launches}
+    return finish
 
 
 @contextlib.contextmanager
@@ -1293,11 +1696,12 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
                 radii=None if radii is None else radii[j]) for j in chunks]
             got = fn()
             torch.cuda.synchronize()
-            err = None
-            if plain_too:
-                errs = k1_errs(label, got, [torch.cat(parts) for parts in zip(*plain())])
+            err = plain_ms = None
+            if plain_too:  # the plain version (~1 s) timed on its checked call
+                want, plain_s = timed_call(plain)
+                errs = k1_errs(label, got, [torch.cat(parts) for parts in zip(*want)])
                 hold(label, errs, k1_tol(far))
-                err = max(errs.values())
+                err, plain_ms = max(errs.values()), plain_s * 1e3
             lib_rays = (1 << 22) // s  # the eager activations of 4M rows at a time
 
             @torch.no_grad()
@@ -1317,9 +1721,10 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
                 *args, white_bg=white, radii=radii, **dist)
             got = fn()
             torch.cuda.synchronize()
-            err = None
+            err = plain_ms = None
             if plain_too:
                 want = plain()
+                plain_ms = event_ms(plain, reps=1)
                 hold(label, k2_errs(label, got, want), KERNEL_TOL)
                 err = k2_abs(got, want)
                 if witness:
@@ -1342,7 +1747,6 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
                                                                          + pk.b.numel())
         got = want = None
         ms = event_ms(fn)
-        plain_ms = event_ms(plain, reps=1) if plain_too else None
         library()
         library_ms = event_ms(library)
         model.zero_grad(set_to_none=True)
@@ -1529,7 +1933,8 @@ def time_chunk(card: str, packed, mcfg, cam, flat_o, flat_d) -> dict:
 
     kernel_chunk()
     ms = event_ms(kernel_chunk)
-    plain_ms = event_ms(plain_chunk)
+    plain_chunk()
+    plain_ms = event_ms(plain_chunk, reps=1)  # ~1 s
     # every packed matrix multiplies each sample row once
     flops_row = 2 * sum(k * c for k, c in packed.w_shape)
     wbytes, rate = k1_weight_traffic(packed, n, s, ms)
@@ -1909,47 +2314,45 @@ def drive_factored_cli(tmp: str) -> None:
         fail("cli render --preset factored wrote no 128x128 view")
 
 
-def factored_learning(tmp: str, dev) -> dict:
+def factored_learning(pool, tmp: str):
     """The 64x64 factored drive (the preset at --num_samples 32, 1024 rays,
     301 steps) through K3 for each seed in LEARN_SEEDS, then `cli eval` on
-    its checkpoint: the mean over seeds of the mean PSNR over LEARN_VIEWS
-    views must pass FAC_PSNR."""
-    import dataclasses
-
-    from nerf_rs_tpu_torch.data.factory import make_dataset
-    from nerf_rs_tpu_torch.kernels import fused_factored as k3
-    from nerf_rs_tpu_torch.train.loop import train
-
+    its checkpoint, each seed's drive a task of the learning ``pool``.
+    Returns a function that waits for them and checks them: the mean over
+    seeds of the mean PSNR over LEARN_VIEWS views must pass FAC_PSNR."""
     common = ["--preset", "factored", "--dataset", "sphere", "--width", "64", "--height", "64",
               "--num_samples", "32"]
-    per_seed = {}
+    tasks = {}
     for seed in LEARN_SEEDS:
         vdir = os.path.join(tmp, f"learn-factored-{seed}")
-        cfg = preset_cfg("factored", "--width", "64", "--height", "64", "--num_samples", "32",
-                         "--num_rays", "1024", "--num_iter", "301", "--eval_steps", "100",
-                         "--seed", str(seed), "--save_dir", vdir, "--log_dir", vdir)
-        cfg = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, fac_fused=True))
-        k3.fused_factored_encode_backward.launches = 0
-        log = io.StringIO()
-        with contextlib.redirect_stdout(log):
-            train(cfg, make_dataset(cfg, dev))
-        curve = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", log.getvalue()))
-        if k3.fused_factored_encode_backward.launches != 301:
-            fail(f"factored learning drive, seed {seed}: K3 backward launches "
-                 f"{k3.fused_factored_encode_backward.launches} (want 301)")
-        rc, out = run_cli(["eval", *common, "--save_dir", vdir, "--max_views", str(LEARN_VIEWS)])
-        m = re.search(r"mean psnr over \d+ \S+ views: (\S+)", out)
-        if rc != 0 or m is None or not math.isfinite(float(m.group(1))):
-            fail(f"factored learning drive, seed {seed}: eval rc {rc}, no finite mean psnr")
-        per_seed[seed] = {"view0_curve": curve, "mean_psnr": float(m.group(1))}
-    mean = sum(r["mean_psnr"] for r in per_seed.values()) / len(per_seed)
-    print(f"factored learning drives through K3 (64x64, 32 samples): mean psnr over "
-          f"{LEARN_VIEWS} views at 301 per seed {[r['mean_psnr'] for r in per_seed.values()]}, "
-          f"mean {mean:.3f} (bar {FAC_PSNR})")
-    if not mean > FAC_PSNR:
-        fail(f"factored learning drives: mean psnr {mean:.3f} over seeds {LEARN_SEEDS} "
-             f"(need > {FAC_PSNR})")
-    return {"seeds": per_seed, "mean_psnr": mean}
+        tasks[seed] = pool.submit(drive_seed, [
+            ("factored", ["--width", "64", "--height", "64", "--num_samples", "32",
+                          "--num_rays", "1024", "--num_iter", "301", "--eval_steps", "100",
+                          "--seed", str(seed), "--save_dir", vdir, "--log_dir", vdir]),
+            ("cli", ["eval", *common, "--save_dir", vdir, "--max_views", str(LEARN_VIEWS)])])
+
+    def finish() -> dict:
+        per_seed = {}
+        for seed, task in tasks.items():
+            (_, log, counts), (rc, out, _) = task.result()
+            print(out.rstrip())
+            curve = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", log))
+            if counts["K3 backward"] != 301:
+                fail(f"factored learning drive, seed {seed}: K3 backward launches "
+                     f"{counts['K3 backward']} (want 301)")
+            m = re.search(r"mean psnr over \d+ \S+ views: (\S+)", out)
+            if rc != 0 or m is None or not math.isfinite(float(m.group(1))):
+                fail(f"factored learning drive, seed {seed}: eval rc {rc}, no finite mean psnr")
+            per_seed[seed] = {"view0_curve": curve, "mean_psnr": float(m.group(1))}
+        mean = sum(r["mean_psnr"] for r in per_seed.values()) / len(per_seed)
+        print(f"factored learning drives through K3 (64x64, 32 samples): mean psnr over "
+              f"{LEARN_VIEWS} views at 301 per seed "
+              f"{[r['mean_psnr'] for r in per_seed.values()]}, mean {mean:.3f} (bar {FAC_PSNR})")
+        if not mean > FAC_PSNR:
+            fail(f"factored learning drives: mean psnr {mean:.3f} over seeds {LEARN_SEEDS} "
+                 f"(need > {FAC_PSNR})")
+        return {"seeds": per_seed, "mean_psnr": mean}
+    return finish
 
 
 def library_factored(lines, pts, mcfg, dtype):
@@ -2373,44 +2776,55 @@ def drive_ngp(tmp: str, layout: str, fo, fd) -> dict:
     return counts
 
 
-def ngp_learning(tmp: str) -> dict:
+def ngp_learning(pool, tmp: str):
     """The 64x64 `--preset ngp` drive (--num_samples 32, 1024 rays, lr 1e-2,
     301 steps) through K4 for each seed in LEARN_SEEDS, then `cli eval` on
-    its checkpoint: the mean over seeds of the mean PSNR over LEARN_VIEWS
-    views must pass NGP_PSNR."""
+    its checkpoint, each seed's drive a task of the learning ``pool``.
+    Returns a function that waits for them and checks them: the mean over
+    seeds of the mean PSNR over LEARN_VIEWS views must pass NGP_PSNR; it
+    returns the readings with the K4 and scatter_rows launches counted."""
     common = ["--preset", "ngp", "--dataset", "sphere", "--width", "64", "--height", "64",
               "--num_samples", "32"]
     cfg = ngp_cfg("brick", "--width", "64", "--height", "64", "--num_samples", "32",
                   "--num_rays", "1024")
     want = 301 * ngp_fetches(cfg, 1024 * 32) + 3 * ngp_render_fetches(cfg, 64 * 64)
-    per_seed, launches, scatter_launches = {}, 0, 0
+    want_scatter = 301 * ngp_fetches(cfg, 1024 * 32)
+    tasks = {}
     for seed in LEARN_SEEDS:
         vdir = os.path.join(tmp, f"learn-ngp-{seed}")
-        reset_k4()
-        rc, out = run_cli(["train", *common, "--seed", str(seed), "--num_rays", "1024",
-                           "--num_iter", "301", "--eval_steps", "100", "--save_dir", vdir,
-                           "--log_dir", vdir])
-        curve = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", out))
-        if rc != 0 or k4_counts(True) != (want, 0) or scatter_count() != 301 * ngp_fetches(
-                cfg, 1024 * 32):
-            fail(f"ngp learning drive, seed {seed}: rc {rc}, K4 launches {k4_counts(True)} "
-                 f"(want {want} / 0), scatter_rows launches {scatter_count()}")
-        launches += want
-        scatter_launches += scatter_count()
-        rc, out = run_cli(["eval", *common, "--save_dir", vdir, "--max_views", str(LEARN_VIEWS)])
-        m = re.search(r"mean psnr over \d+ \S+ views: (\S+)", out)
-        if rc != 0 or m is None or not math.isfinite(float(m.group(1))):
-            fail(f"ngp learning drive, seed {seed}: eval rc {rc}, no finite mean psnr")
-        per_seed[seed] = {"view0_curve": curve, "mean_psnr": float(m.group(1))}
-    mean = sum(r["mean_psnr"] for r in per_seed.values()) / len(per_seed)
-    print(f"ngp learning drives through K4 (64x64, 32 samples): mean psnr over {LEARN_VIEWS} "
-          f"views at 301 per seed {[r['mean_psnr'] for r in per_seed.values()]}, mean "
-          f"{mean:.3f} (bar {NGP_PSNR})")
-    if not mean > NGP_PSNR:
-        fail(f"ngp learning drives: mean psnr {mean:.3f} over seeds {LEARN_SEEDS} "
-             f"(need > {NGP_PSNR})")
-    return {"seeds": per_seed, "mean_psnr": mean, "launches": launches,
-            "scatter_launches": scatter_launches}
+        tasks[seed] = pool.submit(drive_seed, [
+            ("cli", ["train", *common, "--seed", str(seed), "--num_rays", "1024",
+                     "--num_iter", "301", "--eval_steps", "100", "--save_dir", vdir,
+                     "--log_dir", vdir]),
+            ("cli", ["eval", *common, "--save_dir", vdir, "--max_views", str(LEARN_VIEWS)])])
+
+    def finish() -> dict:
+        per_seed, launches, scatter_launches = {}, 0, 0
+        for seed, task in tasks.items():
+            (rc, out, counts), (erc, eout, _) = task.result()
+            print(out.rstrip())
+            print(eout.rstrip())
+            curve = dict(re.findall(r"iter=(\d+), eval psnr=(\S+)", out))
+            got = (counts["gather_rows"], counts["gather_pairs"])
+            if rc != 0 or got != (want, 0) or counts["scatter_rows"] != want_scatter:
+                fail(f"ngp learning drive, seed {seed}: rc {rc}, K4 launches {got} (want "
+                     f"{want} / 0), scatter_rows launches {counts['scatter_rows']}")
+            launches += counts["gather_rows"]
+            scatter_launches += counts["scatter_rows"]
+            m = re.search(r"mean psnr over \d+ \S+ views: (\S+)", eout)
+            if erc != 0 or m is None or not math.isfinite(float(m.group(1))):
+                fail(f"ngp learning drive, seed {seed}: eval rc {erc}, no finite mean psnr")
+            per_seed[seed] = {"view0_curve": curve, "mean_psnr": float(m.group(1))}
+        mean = sum(r["mean_psnr"] for r in per_seed.values()) / len(per_seed)
+        print(f"ngp learning drives through K4 (64x64, 32 samples): mean psnr over "
+              f"{LEARN_VIEWS} views at 301 per seed "
+              f"{[r['mean_psnr'] for r in per_seed.values()]}, mean {mean:.3f} (bar {NGP_PSNR})")
+        if not mean > NGP_PSNR:
+            fail(f"ngp learning drives: mean psnr {mean:.3f} over seeds {LEARN_SEEDS} "
+                 f"(need > {NGP_PSNR})")
+        return {"seeds": per_seed, "mean_psnr": mean, "launches": launches,
+                "scatter_launches": scatter_launches}
+    return finish
 
 
 def time_ngp(card: str, fo, fd) -> dict:
@@ -2863,15 +3277,169 @@ def learn_seeds(preset: str, seeds: str, extra) -> int:
     return 0
 
 
+# the steps of a witness drive at which its relu units are counted
+DEAD_STEPS = (12, 50, 100, 300)
+# the route pairs a witness drive holds to KERNEL_TOL, and the ray groups
+# its attribution leaves out one at a time
+WITNESS_PAIRS = {"K2-witness": ("K2", "witness"), "plain-witness": ("plain", "witness"),
+                 "K2-plain": ("K2", "plain")}
+WITNESS_GROUPS = 16
+
+
+def k2_leaves(depth: int) -> list:
+    """K2's gradient leaves in kernel order (dw, then db), as k2_errs' 'grads' takes them."""
+    return ([f"dW trunk {i}" for i in range(depth)]
+            + ["dW skip", "dW [feature|sigma]", "dW view (feature)", "dW view (direction)",
+               "dW rgb"]
+            + [f"db trunk {i}" for i in range(depth)]
+            + ["db [feature|sigma]", "db view", "db rgb"])
+
+
+def past_tol(errs: dict) -> bool:
+    from nerf_rs_tpu_torch.kernels.fused_train import KERNEL_TOL
+
+    return any(not v <= KERNEL_TOL[k] for k, v in errs.items())
+
+
+def attribute_gaps(step: int, call, outs: dict) -> None:
+    """Where a witness drive's launch stands past KERNEL_TOL between two of
+    its routes (K2, the plain version, the float64 witness: ``outs``, on the
+    launch's arguments ``call``): per pair past it, the gradient leaf and
+    entry of its largest gap with the three routes' values there; the
+    gates (trunk and view pre-activations, relu sigma_raw) whose sign the
+    plain version and the witness take apart, and the rays they lie on; the
+    three pairs again without those rays; and, leaving out each of
+    WITNESS_GROUPS groups of rays in turn, the groups without which a pair
+    comes within KERNEL_TOL, with each such group's flipped gates. Prints
+    one line per finding."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import fused_train
+
+    kern, ref = fused_train.fused_train_grads, fused_train.fused_train_grads_reference
+    args, kw = call
+    n, S = args[5].shape
+    depth = args[0].depth
+
+    def subset(keep):
+        def cut(t):
+            return t[keep].contiguous() if isinstance(t, torch.Tensor) and t.shape[:1] == (n,) \
+                else t
+        return [cut(t) for t in args], {k: cut(v) for k, v in kw.items()}
+
+    def run3(a, k):
+        return {"K2": kern(*a, **k), "plain": ref(*a, **k),
+                "witness": ref(*a, dtype=torch.float64, **k)}
+
+    def gaps(o):
+        return {p: k2_errs(p, o[x], o[y]) for p, (x, y) in WITNESS_PAIRS.items()}
+
+    names = k2_leaves(depth)
+    head = f"attribution step {step}"
+    full = gaps(outs)
+    flagged = [p for p, e in full.items() if past_tol(e)]
+    for p in flagged:
+        x, y = WITNESS_PAIRS[p]
+        leaves = lambda o: o.dw + o.db  # noqa: E731
+        errs = [leaf_err(a.double(), b.double()) for a, b in zip(leaves(outs[x]),
+                                                                  leaves(outs[y]))]
+        li = max(range(len(errs)), key=errs.__getitem__)
+        a, b = leaves(outs[x])[li].double(), leaves(outs[y])[li].double()
+        flat = int((a - b).abs().argmax())
+        entry = tuple(int(i) for i in torch.unravel_index(torch.tensor(flat), a.shape))
+        vals = ", ".join(f"{r} {float(leaves(outs[r])[li].reshape(-1)[flat]):.6g}"
+                         for r in ("K2", "plain", "witness"))
+        print(f"{head}: {p} {', '.join(f'{k} {v:.3g}' for k, v in full[p].items())}; worst "
+              f"leaf {names[li]} entry {entry}: {vals}; leaf max {float(b.abs().max()):.6g}")
+    tp, tw = {}, {}
+    ref(*args, trace=tp, **kw)
+    ref(*args, dtype=torch.float64, trace=tw, **kw)
+    gates = [(f"trunk {i}", tp["pre"][i], tw["pre"][i]) for i in range(depth)]
+    gates.append(("view", tp["hv"], tw["hv"]))
+    if "sigma_raw" in tp:
+        gates.append(("sigma_raw", tp["sigma_raw"][:, None], tw["sigma_raw"][:, None]))
+    flip_rows = torch.zeros(n * S, dtype=torch.int64, device=args[2].device)
+    per_gate = []
+    for name, gp, gw in gates:
+        flips = (gp > 0) != (gw > 0)
+        flip_rows += flips.sum(dim=1)
+        per_gate.append(f"{name} {int(flips.sum())}")
+    flips_g = flip_rows.reshape(n, S).sum(dim=1)
+    flip_rays = flips_g > 0
+    print(f"{head}: gates whose sign the plain version and the witness take apart: "
+          f"{', '.join(per_gate)}, on {int(flip_rays.sum())} of {n} rays")
+    keep = (~flip_rays).nonzero()[:, 0]
+    if 0 < keep.numel() < n:
+        rest = gaps(run3(*subset(keep)))
+        print(f"{head}: without those rays: " + "; ".join(
+            f"{p} " + ", ".join(f"{k} {v:.3g}" for k, v in e.items()) for p, e in rest.items()))
+    group_rays = -(-n // WITNESS_GROUPS)
+    carriers = {p: [] for p in flagged}
+    for g in range(WITNESS_GROUPS):
+        mask = torch.ones(n, dtype=torch.bool, device=args[2].device)
+        mask[g * group_rays:(g + 1) * group_rays] = False
+        left = gaps(run3(*subset(mask.nonzero()[:, 0])))
+        for p in flagged:
+            if not past_tol(left[p]):
+                carriers[p].append(g)
+    for p, groups in carriers.items():
+        info = "; ".join(
+            f"group {g} (rays {g * group_rays}-{min(n, (g + 1) * group_rays) - 1}): "
+            f"{int(flips_g[g * group_rays:(g + 1) * group_rays].sum())} flipped gates"
+            for g in groups)
+        print(f"{head}: {p} comes within KERNEL_TOL without "
+              + (info if groups else "no single group"))
+
+
+def dead_units(params, cfg, probe) -> dict:
+    """The relu units of a NeRF field that are dead on ``probe`` (rays'
+    points and view directions, f32): per trunk layer and in the view
+    head, the count of units whose pre-activation is at most 0 at every
+    probe point; and the share of probe points where the raw density is at
+    most 0 (relu density: no density, no gradient to it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from nerf_rs_tpu_torch.models.encoding import posenc
+    from nerf_rs_tpu_torch.models.mlp import dense
+
+    pts, vd = probe
+    mc = cfg.model
+    with torch.no_grad():
+        x = posenc(pts, mc.pos_enc_levels, mc.include_input_in_enc)
+        h, dead = x, []
+        for i, layer in enumerate(params.trunk):
+            if i == mc.skip_layer and i > 0:
+                h = torch.cat([h, x], dim=-1)
+            pre = dense(h, layer)
+            dead.append(int((pre.reshape(-1, pre.shape[-1]).amax(0) <= 0).sum()))
+            h = F.relu(pre)
+        sigma_raw = dense(h, params.sigma)[..., 0]
+        feat = dense(h, params.feature)
+        d = posenc(vd, mc.dir_enc_levels, mc.include_input_in_enc).expand(*feat.shape[:-1], -1)
+        pre = dense(torch.cat([feat, d], dim=-1), params.view1)
+        view = int((pre.reshape(-1, pre.shape[-1]).amax(0) <= 0).sum())
+    return {"trunk": dead, "trunk_total": sum(dead), "width": mc.net_width, "view": view,
+            "sigma_off": float((sigma_raw <= 0).float().mean())}
+
+
 def witness_steps(preset: str, seed: str, steps: str, extra) -> int:
     """The first ``steps`` steps of the preset's 64x64 learning drive (as
-    learn_seeds runs it, with the CLI flags ``extra``), through K2 and
-    through autograd from the same weights and draws (the occupancy grid,
-    where there is one, updated as the loop updates it): per step both
-    losses, how far apart the two routes' weights stand (the largest leaf
-    difference relative to the leaf's largest entry), and every K2 launch
-    held to its float64 witness and its plain version (KERNEL_TOL's keys).
-    A diagnostic: it holds no bar."""
+    learn_seeds runs it, with the CLI flags ``extra``), through K2, through
+    K2's plain version in its place (the same arithmetic in another
+    summation order) and through autograd, from the same weights and draws
+    (the occupancy grid, where there is one, updated as the loop updates
+    it): per step the losses, how far apart the K2 and autograd routes'
+    weights stand (the largest leaf difference relative to the leaf's
+    largest entry), and every K2 launch held to its float64 witness and its
+    plain version (KERNEL_TOL's keys), and the plain version to the witness.
+    At the steps of DEAD_STEPS (those below ``steps``) each route's dead
+    relu units (``dead_units``, on 1,024 rays of view 0 at the preset's
+    midpoint samples). At the end: the first step at which a K2 launch
+    left KERNEL_TOL of its witness (or none), how many launches left it
+    (K2 and its plain version, each against the witness), the largest
+    witness gap of each key over the drive, and each route's mean eval
+    PSNR over LEARN_VIEWS views. A diagnostic: it holds no bar."""
     import dataclasses
 
     import torch
@@ -2881,6 +3449,8 @@ def witness_steps(preset: str, seed: str, steps: str, extra) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version: full f32
     from nerf_rs_tpu_torch.data.factory import make_dataset
     from nerf_rs_tpu_torch.kernels import fused_train
+    from nerf_rs_tpu_torch.ops import render as render_ops, sampling
+    from nerf_rs_tpu_torch.render import make_render, render_frame
     from nerf_rs_tpu_torch.train.loop import update_occupancy
     from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
 
@@ -2890,39 +3460,86 @@ def witness_steps(preset: str, seed: str, steps: str, extra) -> int:
     cfg = preset_cfg(preset, "--width", "64", "--height", "64", "--num_samples", "32",
                      "--num_rays", "1024", "--seed", seed, *lr, *extra)
     ds = make_dataset(cfg, dev)
-    routes = {"K2": cfg, "autograd": dataclasses.replace(cfg, use_whole_ray_train=False)}
+    routes = {"K2": cfg, "plain": cfg,
+              "autograd": dataclasses.replace(cfg, use_whole_ray_train=False)}
     states = {k: init_state(c, dev) for k, c in routes.items()}
     fns = {k: make_train_step(c, ds) for k, c in routes.items()}
     real, held = fused_train.fused_train_grads, []
+    o, d = (t.reshape(-1, 3)[::4] for t in ds.view_rays(0))
+    ts = sampling.stratified_ts(o.shape[0], cfg.render.num_samples, cfg.camera.near,
+                                cfg.camera.far, randomized=False, device=dev)
+    vd = d / d.norm(dim=-1, keepdim=True)
+    probe = (sampling.points_from_ts(o, d, ts), vd[:, None, :])
+    first_out, worst, route, step = None, {}, ["K2"], [0]
+    past = {"K2": 0, "plain": 0}  # launches past KERNEL_TOL of the witness
 
     def witnessed(*args, **kw):
+        plain = fused_train.fused_train_grads_reference(*args, **kw)
+        if route[0] == "plain":
+            return plain
         got = real(*args, **kw)
         wit = fused_train.fused_train_grads_reference(*args, dtype=torch.float64, **kw)
-        plain = fused_train.fused_train_grads_reference(*args, **kw)
-        held.append((k2_errs("witness", got, wit), k2_errs("plain", got, plain)))
+        held.append((k2_errs("witness", got, wit), k2_errs("plain", got, plain),
+                     k2_errs("plain vs witness", plain, wit)))
+        if any(past_tol(e) for e in held[-1]):
+            fused_train.fused_train_grads = real
+            try:
+                attribute_gaps(step[0], (args, kw), {"K2": got, "plain": plain, "witness": wit})
+            finally:
+                fused_train.fused_train_grads = witnessed
         return got
 
     witnessed.launches = 0  # the wrapped kernel counts its launches on this name
     fused_train.fused_train_grads = witnessed
     try:
         for it in range(int(steps)):
+            step[0] = it
             held.clear()
             losses = {}
             for k, c in routes.items():
+                route[0] = k
                 states[k], aux = fns[k](states[k], step_generator(c.train.seed, it, dev))
                 losses[k] = float(aux["loss"])
                 if states[k].grid is not None and it % c.render.occ_update_steps == 0:
                     states[k].grid = update_occupancy(states[k], c, it)
             gap = max(leaf_err(a.detach(), b.detach()) for a, b in zip(
                 states["K2"].params.parameters(), states["autograd"].params.parameters()))
+            out_of = lambda e: any(not v <= fused_train.KERNEL_TOL[k] for k, v in e.items())
+            for w, _, pw in held:
+                for k, v in w.items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+                    if first_out is None and not v <= fused_train.KERNEL_TOL[k]:
+                        first_out = (it, k, v)
+                past["K2"] += out_of(w)
+                past["plain"] += out_of(pw)
             print(f"witness {preset} {' '.join(extra)} seed {seed} step {it} [{card}]: loss K2 "
-                  f"{losses['K2']:.6f}, autograd {losses['autograd']:.6f}; weights apart "
-                  f"{gap:.3g}; K2 launches vs witness "
-                  + "; ".join(", ".join(f"{k} {v:.3g}" for k, v in w.items()) for w, _ in held)
+                  f"{losses['K2']:.6f}, plain {losses['plain']:.6f}, autograd "
+                  f"{losses['autograd']:.6f}; weights apart {gap:.3g}; K2 launches vs witness "
+                  + "; ".join(", ".join(f"{k} {v:.3g}" for k, v in w.items()) for w, _, _ in held)
                   + " | vs plain "
-                  + "; ".join(", ".join(f"{k} {v:.3g}" for k, v in p.items()) for _, p in held))
+                  + "; ".join(", ".join(f"{k} {v:.3g}" for k, v in p.items()) for _, p, _ in held)
+                  + " | plain vs witness "
+                  + "; ".join(", ".join(f"{k} {v:.3g}" for k, v in p.items()) for _, _, p in held))
+            if it in DEAD_STEPS and cfg.model.arch == "nerf":
+                for k in routes:
+                    print(f"dead relu units {preset} seed {seed} step {it} route {k}: "
+                          f"{dead_units(states[k].params, cfg, probe)}")
     finally:
         fused_train.fused_train_grads = real
+    print(f"witness summary {preset} {' '.join(extra)} seed {seed} [{card}]: first K2 launch "
+          f"past KERNEL_TOL of its witness: "
+          + (f"step {first_out[0]} ({first_out[1]} {first_out[2]:.3g})" if first_out else "none")
+          + f" in {steps} steps; launches past it: K2 {past['K2']}, its plain version "
+          + f"{past['plain']}; largest K2 witness gaps "
+          + ", ".join(f"{k} {v:.3g} (tol {fused_train.KERNEL_TOL[k]:g})" for k, v in worst.items()))
+    for k, c in routes.items():
+        render_fn, st, psnrs = make_render(c), states[k], []
+        for v in range(LEARN_VIEWS):
+            rgb, _, _ = render_frame(c, st.params, *ds.view_rays(v), render_fn,
+                                     fine_params=st.fine_params, grid=st.grid)
+            psnrs.append(float(render_ops.psnr(rgb, ds.view_gold(v))))
+        print(f"witness eval {preset} seed {seed} route {k} after {steps} steps: mean psnr "
+              f"{sum(psnrs) / len(psnrs):.2f} over {LEARN_VIEWS} views")
     return 0
 
 
@@ -2985,7 +3602,7 @@ def time_step(root: str) -> int:
 def main() -> int:
     import torch
 
-    t_start = time.perf_counter()
+    t_start = _LAP[0] = time.perf_counter()
     # ---- 1. device ----
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke test runs on the card only")
@@ -3017,7 +3634,9 @@ def main() -> int:
     for name, lib in libs.items():
         print(f"  {name} -> {lib.name}")
         instances[name] = ptxas_report(name, lib)
+    pool, warm = start_learning_pool()
 
+    lap("phase 2")
     # ---- 3. kernel vs plain version ----
     mcfg = ModelConfig()  # flagship: 8x256, skip 4, F 256, V 128, PE 10/4
     model = random_biases_(init_nerf_params(mcfg, 0, dev), 0)
@@ -3047,32 +3666,38 @@ def main() -> int:
         hold(f"K1 vs plain [{case}]", errs, TOL)
         max_err = max(max_err, *errs.values())
 
+    lap("phase 3")
     # ---- 4. K2 vs its plain version and vs autograd ----
     gold = synthetic.sphere_image(cam, device=dev)[..., :3].reshape(-1, 3)
     gold = torch.cat([gold, gold])[:N_RAYS].contiguous()
     train_err = check_train_kernel(model, mcfg, (o, d, vd), ts_jit, gold, cam.far)
 
+    lap("phase 4")
     # ---- 9. the hierarchical branches: IPE, rays longer than one tile ----
     max_err = max(max_err, check_render_branches(model, mcfg, (o, d, vd), cam))
     train_err = max(train_err, check_train_branches(model, mcfg, (o, d, vd), gold, cam))
     train_err = max(train_err, check_union_rows(model, mcfg, (o, d, vd), gold, cam))
 
+    lap("phase 9")
     # ---- 12. K3 vs its plain versions ----
     fcfg = factored_config()
     fac_ds = make_dataset(fcfg, dev)
     fac_lines = init_nerf_params(fcfg.model, 0, dev).lines.detach()
     fac_errs = check_factored_kernel(fac_ds, fcfg.model, fcfg.camera, fac_lines)
 
+    lap("phase 12")
     # ---- 15. K4 vs its plain versions, at an ngp step's indices ----
     k4_inputs = ngp_fetch_inputs(dev)
     k4_err = check_gather_kernel(k4_inputs)
     sc_inputs = scatter_inputs(dev)
     scatter_err = check_scatter(sc_inputs, dev)
 
+    lap("phase 15")
     # ---- 18. the unbounded-scene branches: contraction, distortion loss ----
     unb_k1_err, unb_k2_err = check_unbounded_branches(model, mcfg, (o, d, vd), gold, cam)
     max_err, train_err = max(max_err, unb_k1_err), max(train_err, unb_k2_err)
 
+    lap("phase 18")
     # ---- 5. the render path through the CLI ----
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -3127,43 +3752,89 @@ def main() -> int:
             fail(f"sweep: rc {rc}, frames {frames}, "
                  f"launches {fused_ray_render.launches}")
 
+        lap("phase 5")
         # ---- 6. the training path through the CLI ----
         train_launches = drive_training(tmp)
 
+        lap("phase 6")
         # ---- 7. learning: the verify drive, then eval and render ----
         verify_drive(tmp)
 
+        lap("phase 7")
         # ---- 10. the hierarchical path through the CLI, per preset ----
         preset_counts = {p: drive_preset(tmp, p) for p in PRESETS}
-        learned = {p: learning_drive(tmp, p) for p in PRESETS}
 
+        lap("phase 10")
         # ---- 13. the factored path: K3 through the library, the CLI's route ----
         fac_counts = drive_factored(tmp, fo, fd, card)
         drive_factored_cli(tmp)
-        fac_learned = factored_learning(tmp, dev)
 
+        lap("phase 13")
         # ---- 16. the hash-grid path through the CLI, brick and flat ----
         ngp_counts = {layout: drive_ngp(tmp, layout, fo, fd) for layout in NGP_LAYOUTS}
-        ngp_learned = ngp_learning(tmp)
 
+        lap("phase 16")
         # ---- 19. the unbounded path through the CLI, per preset ----
         unb_counts = {p: drive_unbounded(tmp, p) for p in UNB_PRESETS}
-        unb_bars = {"unbounded": UNB_PSNR, "proposal": PROP_PSNR}
-        unb_learned = {p: learning_drive(tmp, p, extra=UNB_LEARN_FLAGS[p], k2_per_step=1,
-                                         bar=unb_bars[p])
-                       for p in UNB_PRESETS}
 
+        lap("phase 19")
         # ---- 21. the record path through the CLI: occupancy, IPE union ----
         rec_counts = drive_record(tmp)
-        rec_learned = learning_drive(tmp, "record", bar=REC_PSNR, defer=True, seeds=REC_SEEDS)
 
+        lap("phase 21")
         # ---- 22. multiscale through the CLI: a pyramid, eval at four scales ----
         ms_counts = drive_multiscale(tmp)
-        ms_learned = learning_drive(tmp, "mipnerf", extra=("--num_fine_samples", "64", *MS_FLAGS),
-                                    bar=MS_PSNR, name="mipnerf-ms", defer=True)
+
+        lap("phase 22")
+        # ---- 24. procedural scenes written by the port on the card ----
+        scenes = write_scenes(tmp, card)
+        lego = scenes["lego"][0]
+
+        lap("phase 24")
+        # ---- 25. Blender scenes through the CLI: full and record ----
+        blender_counts = {p: drive_dataset(
+            tmp, f"blender-{p}", ["--preset", p, *LEGO_DATA, "--img_dir", lego],
+            BLENDER_STEPS, 2 if p == "record" else 1, 100 * 100, 4,
+            eval_flags=("--split", "test")) for p in BLENDER_PRESETS}
+
+        lap("phase 25")
+        # ---- 26. the host pipeline and --preset pod with its error store ----
+        host_counts = drive_host_and_pod(tmp, lego)
+
+        lap("phase 26")
+        # ---- 27. LLFF with NDC, the multiview PNG layout in multiview batches ----
+        other_counts = drive_llff_and_multiview(tmp)
+
+        lap("phase 27")
+        # ---- 28. the learning drives of every path, LEARN_WORKERS at a time ----
+        for task in warm:
+            task.result()
+        unb_bars = {"unbounded": UNB_PSNR, "proposal": PROP_PSNR}
+        rec_finish = learning_drive(pool, tmp, "record", bar=REC_PSNR, defer=True,
+                                    seeds=REC_SEEDS)
+        finish = {p: learning_drive(pool, tmp, p) for p in PRESETS}
+        finish["factored"] = factored_learning(pool, tmp)
+        finish["ngp"] = ngp_learning(pool, tmp)
+        finish.update({p: learning_drive(pool, tmp, p, extra=UNB_LEARN_FLAGS[p],
+                                         k2_per_step=1, bar=unb_bars[p]) for p in UNB_PRESETS})
+        finish["record"] = rec_finish
+        finish["mipnerf_ms"] = learning_drive(
+            pool, tmp, "mipnerf", extra=("--num_fine_samples", "64", *MS_FLAGS), bar=MS_PSNR,
+            name="mipnerf-ms", defer=True)
+        finish["record_lego"] = learning_drive(
+            pool, tmp, "record", extra=("--num_fine_samples", "64", *LEGO_DATA,
+                                        "--img_dir", scenes["lego64"][0]),
+            bar=LEGO_PSNR, name="record-lego", defer=True, seeds=LEGO_SEEDS)
+        learned = {k: fn() for k, fn in finish.items()}
+        pool.shutdown()
+        lap("phase 28")
+        # ---- 29. the steps on the scene and the sphere, per ray and host ----
+        data_times = time_datasets(card, lego)
     finally:
+        pool.shutdown(cancel_futures=True)
         shutil.rmtree(tmp, ignore_errors=True)
 
+    lap("phase 29")
     # ---- 8. times ----
     flat_o, flat_d = fo.reshape(-1, 3), fd.reshape(-1, 3)
     render_fn = make_render(cfg)
@@ -3185,20 +3856,20 @@ def main() -> int:
         return torch.cat(outs)
 
     k_rgb = kernel_frame()[0]
-    p_rgb = plain_frame()
+    p_rgb, t_plain = timed_call(plain_frame)
     frame_err = float((k_rgb - p_rgb).abs().max())
     if not frame_err <= TOL["rgb"]:
         fail(f"800x800 frame: kernel path vs plain version differ by {frame_err}")
     t_kernel = best_of(kernel_frame)
-    t_plain = best_of(plain_frame)
-    print(f"800x800 frame, S=64, 8x256 mixed [{card}]: kernel {t_kernel:.4f} s, "
-          f"plain {t_plain:.4f} s (best of 3; kernel vs plain rgb {frame_err:.3g})")
+    print(f"800x800 frame, S=64, 8x256 mixed [{card}]: kernel {t_kernel:.4f} s (best of 3), "
+          f"plain {t_plain:.4f} s (the checked call; kernel vs plain rgb {frame_err:.3g})")
 
     # one main-path chunk (262,144 rays) alone: kernel vs plain version
     chunk = time_chunk(card, packed, mcfg, cfg.camera, flat_o, flat_d)
 
     train_times = time_training(card)
 
+    lap("phase 8")
     # ---- 11. times of the hierarchical path and the new branches ----
     branch_rows = time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d)
     max_err = max(max_err, *(r["max_abs_err"] for r in branch_rows if r["kernel"] == "K1"))
@@ -3206,10 +3877,12 @@ def main() -> int:
     preset_times = time_presets(card)
     library = library_times(card, model, mcfg, *chunk["inputs"])
 
+    lap("phase 11")
     # ---- 14. times of the factored path and K3 ----
     fac_times = time_factored(card, fac_ds, fac_lines)
     fac_fwd, fac_bwd, fac_chunk, fac_f32, fac_bwd_shuffled, fac_bwd_f32 = fac_times.pop("calls")
 
+    lap("phase 14")
     # ---- 17. times of the hash-grid path and K4 ----
     ngp_times = time_ngp(card, fo, fd)
     k4_times = time_gather(card, k4_inputs)
@@ -3217,12 +3890,14 @@ def main() -> int:
     scatter_times = time_scatter(card, sc_inputs)
     del sc_inputs
 
+    lap("phase 17")
     # ---- 20. times of the unbounded path and the new branches ----
     unb_rows = time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d, UNB_SHAPES)
     max_err = max(max_err, *(r["max_abs_err"] for r in unb_rows if r["kernel"] == "K1"))
     train_err = max(train_err, *(r["max_abs_err"] for r in unb_rows if r["kernel"] == "K2"))
     unb_times = time_presets(card, UNB_PRESETS, profiled=UNB_PRESETS)
 
+    lap("phase 20")
     # ---- 23. times of the record path, IPE at 193 and K3 past its former caps ----
     rec_rows = time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d, RECORD_SHAPES,
                              witness=True)
@@ -3233,6 +3908,7 @@ def main() -> int:
     if fac_times["refused"]:
         fail(f"K3 refused {fac_times['refused']}, which it takes since fault 5's repair")
 
+    lap("phase 23")
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "nerf_rs_tpu"))
     if bad:
         fail(f"imported {bad}: the port stands without JAX and the JAX package")
@@ -3244,15 +3920,19 @@ def main() -> int:
                                4096 * (36 + 8 * S + 12 + 32 + 4 * S)
                                + 4 * (packed.w.numel() + packed.b.numel()))
     path_counts = {**preset_counts, **unb_counts, "record": rec_counts}
+    data_counts = {**{f"{p}_blender": c for p, c in blender_counts.items()},
+                   **other_counts}
     k1_paths = {"render_flagship": launches,
-                **{f"{p}_{k}": c[k] for p, c in path_counts.items()
+                **{f"{p}_{k}": c[k] for p, c in {**path_counts, **data_counts}.items()
                    for k in ("train_eval", "render", "eval")},
                 "mipnerf_ms_train_eval": ms_counts["train_eval"],
                 "mipnerf_ms_eval_scales": ms_counts["eval_scales"]}
     k2_paths = {"train_flagship": train_launches,
-                **{f"{p}_train": c["train"] for p, c in path_counts.items()},
-                "record_resume": rec_counts["resume"], "mipnerf_ms_train": ms_counts["train"]}
+                **{f"{p}_train": c["train"] for p, c in {**path_counts, **data_counts}.items()},
+                "record_resume": rec_counts["resume"], "mipnerf_ms_train": ms_counts["train"],
+                **host_counts, "record_lego_learning": learned["record_lego"].pop("launches")}
     scatter_paths = {f"ngp_{layout}_train": c["train_scatter"] for layout, c in ngp_counts.items()}
+    ngp_learned, fac_learned = learned.pop("ngp"), learned.pop("factored")
     scatter_paths["ngp_brick_learning"] = ngp_learned.pop("scatter_launches")
     k3_paths = {f"factored_{k}": fac_counts[k] for k in ("train", "frame", "eval")}
     k3b_paths = {"factored_train": fac_counts["train_backward"]}
@@ -3347,7 +4027,8 @@ def main() -> int:
         "cases": [{"layout": "flat", **scatter_times["flat"]}],
     }],
         "presets": {**preset_times, **unb_times, **rec_times},
-        "learning": {**learned, **unb_learned, "record": rec_learned, "mipnerf_ms": ms_learned},
+        "learning": learned,
+        "datasets": {"make_scene_s": {k: v[1] for k, v in scenes.items()}, **data_times},
         "multiscale": {"psnr_by_scale": ms_counts["psnr_by_scale"]},
         "factored": {**fac_times, "frame_s": fac_counts["frame_s"],
                      "learning": fac_learned},

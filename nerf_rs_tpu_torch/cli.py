@@ -13,6 +13,10 @@ of ``cmd_train``, ``cmd_eval`` and ``cmd_render`` in
   python -m nerf_rs_tpu_torch.cli train --preset mipnerf --multiscale_levels 4 --dataset sphere
   python -m nerf_rs_tpu_torch.cli eval --preset mipnerf --scales 1,2,4,8 --dataset sphere
   python -m nerf_rs_tpu_torch.cli render --dataset sphere --view 0
+  python -m nerf_rs_tpu_torch.cli train --preset record --dataset blender --img_dir data/proclego
+  python -m nerf_rs_tpu_torch.cli eval --preset record --dataset blender --img_dir data/proclego
+  python -m nerf_rs_tpu_torch.cli train --dataset llff --img_dir data/fern --ndc true
+  python -m nerf_rs_tpu_torch.cli train --preset pod --dataset blender --img_dir data/proclego
 
 It takes the JAX parser's flags that the ported slices serve, with the
 JAX defaults (``--use_whole_ray_train`` is off unless a preset turns it
@@ -38,6 +42,16 @@ pyramid of the views (each ray with its level's cone radius), and ``eval
 proposal checkpoint need the preset it was trained with (the file's second
 net is the proposal); those of an occupancy-trained one need its
 ``--occ_res``.
+The datasets: the sphere, the reference's multiview PNG layout
+(``--img_dir``, ``--view_*``, ``--num_views_per_hemisphere``), Blender
+scenes (``--dataset blender``; ``eval --split`` picks the split) and LLFF
+captures (``--llff_factor``, ``--llff_holdout``; ``--ndc`` warps the rays
+to NDC and sets near 0, far 1 unless they are given). The batch modes
+(``--batch_mode per_ray | multiview | host``, ``--views_per_batch``; the
+host pipeline's ``--prefetch``, ``--data_workers`` and
+``--use_native_loader``, the C++ gather) and error-weighted resampling
+(``--error_resample_frac``, ``--error_resample_ema``; ``--preset pod`` is
+that alone on one card, its data parallelism is slice 8's).
 Flags, presets and values of slices not ported yet, and the ``export``
 subcommand, are refused with an error that names the slice, never
 ignored.
@@ -75,15 +89,11 @@ LATER = {"export": "slice 7"}
 
 # the JAX parser's flags that later slices bring, by slice
 _LATER_FLAGS = {
-    6: "img_dir view_start view_end view_step num_views_per_hemisphere llff_factor "
-       "llff_holdout ndc ndc_near batch_mode views_per_batch prefetch data_workers "
-       "use_native_loader error_resample_frac error_resample_ema",
     7: "ema_decay accumulation_steps profile_steps log_densities_only depth gif",
     8: "num_devices shard_pixel_store scenes scene_index",
     10: "compat",
 }
 _FLAG_SLICE = {f: n for n, flags in _LATER_FLAGS.items() for f in flags.split()}
-_PRESET_SLICE = {"pod": 6}
 
 
 def _bool_flag(p, name, default, help=""):
@@ -117,13 +127,28 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("--lr_decay_steps", type=int, default=0,
                         help="exponential decay horizon (0 = constant lr)")
     common.add_argument("--lr_final", type=float, default=5e-6)
+    common.add_argument("--img_dir", default="data/monkey-128-no-shading-2d-6")
+    common.add_argument("--view_start", type=int, default=0)
+    common.add_argument("--view_end", type=int, default=84)
+    common.add_argument("--view_step", type=int, default=1)
+    common.add_argument("--num_views_per_hemisphere", type=int, default=6)
     common.add_argument("--dataset", default="multiview_png",
                         choices=["multiview_png", "blender", "llff", "sphere",
                                  "flat_sphere"])
+    common.add_argument("--llff_factor", type=int, default=1,
+                        help="LLFF image downsample factor (loads images_{factor}/ when "
+                             "present)")
+    common.add_argument("--llff_holdout", type=int, default=8,
+                        help="every Nth LLFF view is test (0 = none)")
     common.add_argument("--width", type=int, default=128)
     common.add_argument("--height", type=int, default=128)
     common.add_argument("--near", type=float, default=0.05)
     common.add_argument("--far", type=float, default=2.0)
+    _bool_flag(common, "ndc", False,
+               "NDC ray warp (NeRF appendix C, forward-facing / LLFF captures); sets "
+               "--near 0 --far 1 unless they are given")
+    common.add_argument("--ndc_near", type=float, default=1.0,
+                        help="world near-plane distance of the NDC warp")
     common.add_argument("--num_rays", type=int, default=4096)
     common.add_argument("--num_samples", type=int, default=64)
     common.add_argument("--num_fine_samples", type=int, default=0)
@@ -203,6 +228,23 @@ def build_parser() -> argparse.ArgumentParser:
                         help="factored field AABB half-extent")
     common.add_argument("--fac_l1", type=float, default=0.0,
                         help="L1 penalty on the factored line tables")
+    common.add_argument("--batch_mode", default="per_ray",
+                        choices=["per_ray", "multiview", "host"],
+                        help="per_ray: iid on-device sampling; multiview: views_per_batch "
+                             "views, the rays split evenly (the reference's batches); host: "
+                             "the async host pipeline")
+    common.add_argument("--views_per_batch", type=int, default=4,
+                        help="distinct views per batch (multiview mode)")
+    common.add_argument("--prefetch", type=int, default=2,
+                        help="host-pipeline buffered batches")
+    common.add_argument("--data_workers", type=int, default=1,
+                        help="parallel host assembly threads (host mode)")
+    _bool_flag(common, "use_native_loader", True,
+               "the C++ batch assembler for the host mode's gold gather (built with g++ "
+               "at first use; a failed build raises)")
+    common.add_argument("--error_resample_frac", type=float, default=0.0,
+                        help="fraction of rays drawn from the per-pixel error distribution")
+    common.add_argument("--error_resample_ema", type=float, default=0.5)
     common.add_argument("--precision", default="mixed", choices=["f32", "bf16", "mixed"],
                         help="matmul precision of the eager field path; the "
                              "kernels always multiply in bf16")
@@ -216,8 +258,7 @@ def build_parser() -> argparse.ArgumentParser:
                "turn it on)")
     common.add_argument("--preset", default="",
                         choices=["", "tiny", "full", "hierarchical", "mipnerf", "factored",
-                                 "ngp", "proposal", "unbounded", "record",
-                                 *sorted(_PRESET_SLICE)],
+                                 "ngp", "proposal", "unbounded", "record", "pod"],
                         help="tiny = 100x100 coarse-only 4096-ray fit; full = paper "
                              "NeRF, stratified 64; hierarchical = two fields, 64 + 128 "
                              "union; mipnerf = IPE, one field, 64 + 128 standalone; all "
@@ -229,12 +270,16 @@ def build_parser() -> argparse.ArgumentParser:
                              "contraction, disparity sampling over [0.3, 60], a 2-level "
                              "annealed proposal, distortion loss 0.01, softplus; record = "
                              "IPE, one field, 64 + 128 union, softplus, white background, "
-                             "coarse edges from a 32^3 occupancy grid")
+                             "coarse edges from a 32^3 occupancy grid; pod = error-weighted "
+                             "resampling of at least half the rays (its data parallelism "
+                             "comes with slice 8)")
 
     sub.add_parser("train", parents=[common])
 
     pe = sub.add_parser("eval", parents=[common])
-    pe.add_argument("--split", default="test", help="dataset split to evaluate")
+    pe.add_argument("--split", default="test",
+                    help="dataset split to evaluate (Blender: transforms_{split}.json; LLFF: "
+                         "the holdout's test, train or all)")
     pe.add_argument("--max_views", type=int, default=0, help="0 = all views")
     pe.add_argument("--out_dir", default="", help="optionally dump per-view renders")
     pe.add_argument("--scales", default="",
@@ -278,9 +323,9 @@ def _apply_preset(args):
             if name not in explicit:
                 setattr(args, name, value)
 
-    if p in _PRESET_SLICE:
-        raise NotImplementedError(f"--preset {p} comes with slice {_PRESET_SLICE[p]} "
-                                  f"of the port")
+    if getattr(args, "ndc", False):
+        # NDC warps rays to the unit depth range: near 0, far 1 unless given
+        _set(near=0.0, far=1.0)
     if p == "tiny":
         _set(width=100, height=100, num_rays=4096, num_samples=64,
              num_fine_samples=0, use_whole_ray_train=True)
@@ -325,6 +370,10 @@ def _apply_preset(args):
         _set(num_samples=128, num_fine_samples=0, use_proposal=True,
              proposal_samples=64, use_whole_ray_train=True,
              white_background=True, proposal_anneal_steps=1000)
+    elif p == "pod":
+        # error-weighted resampling of at least half the rays; the preset's
+        # data parallelism over devices comes with slice 8
+        _set(error_resample_frac=max(args.error_resample_frac, 0.5))
     elif p == "unbounded":
         # mip-NeRF 360's unbounded recipe: radius-2 contraction, disparity
         # spacing, a 2-level annealed proposal and the distortion loss in
@@ -348,8 +397,8 @@ def config_from_args(args) -> Config:
         save_dir=args.save_dir,
         load_path=args.load_path,
         run_name=args.run_name,
-        camera=CameraConfig(width=args.width, height=args.height,
-                            near=args.near, far=args.far),
+        camera=CameraConfig(width=args.width, height=args.height, near=args.near,
+                            far=args.far, ndc=args.ndc, ndc_near=args.ndc_near),
         model=ModelConfig(arch=args.arch, hash_levels=args.hash_levels,
                           hash_table_log2=args.hash_table_log2,
                           hash_base_res=args.hash_base_res, hash_max_res=args.hash_max_res,
@@ -384,8 +433,17 @@ def config_from_args(args) -> Config:
             seed=args.seed,
             precision=args.precision,
             distortion_weight=args.distortion_weight,
+            error_resample_frac=args.error_resample_frac,
+            error_resample_ema=args.error_resample_ema,
         ),
-        data=DataConfig(dataset=args.dataset,
+        data=DataConfig(dataset=args.dataset, img_dir=args.img_dir,
+                        view_start=args.view_start, view_end=args.view_end,
+                        view_step=args.view_step,
+                        num_views_per_hemisphere=args.num_views_per_hemisphere,
+                        batch_mode=args.batch_mode, views_per_batch=args.views_per_batch,
+                        prefetch=args.prefetch, use_native_loader=args.use_native_loader,
+                        data_workers=args.data_workers, llff_factor=args.llff_factor,
+                        llff_holdout=args.llff_holdout,
                         multiscale_levels=args.multiscale_levels,
                         near_explicit="near" in getattr(args, "_explicit", set()),
                         far_explicit="far" in getattr(args, "_explicit", set())),
@@ -439,7 +497,7 @@ def cmd_eval(args) -> int:
     import dataclasses
 
     from .data.dataset import scaled_camera
-    from .data.factory import make_dataset
+    from .data.factory import effective_config, make_dataset
     from .data.images import save_png
     from .ops import render as render_ops
     from .ops.metrics import ssim as ssim_fn
@@ -448,7 +506,9 @@ def cmd_eval(args) -> int:
     cfg = config_from_args(args)
     device = resolve_device(args.device)
     scales = [int(x) for x in args.scales.split(",") if x] or [1]
-    dataset = make_dataset(cfg, device)
+    split = args.split if cfg.data.dataset in ("blender", "llff") else "train"
+    dataset = make_dataset(cfg, device, split=split)
+    cfg = effective_config(cfg, dataset)
     params, fine_params, grid, load_path = _load_params(cfg, device)
     if not load_path:
         print("error: no checkpoint found (use --load_path or --save_dir)")
@@ -490,7 +550,7 @@ def cmd_eval(args) -> int:
 
 
 def cmd_render(args) -> int:
-    from .data.factory import make_dataset
+    from .data.factory import effective_config, make_dataset
     from .data.images import save_png
     from .ops import rays as rays_ops, render as render_ops
     from .render import make_render, render_frame
@@ -498,6 +558,7 @@ def cmd_render(args) -> int:
     cfg = config_from_args(args)
     device = resolve_device(args.device)
     dataset = make_dataset(cfg, device)
+    cfg = effective_config(cfg, dataset)
     params, fine_params, grid, load_path = _load_params(cfg, device)
     if not load_path:
         print("warning: no checkpoint found; rendering an untrained field")
@@ -519,7 +580,8 @@ def cmd_render(args) -> int:
     angles = rays_ops.spherical_render_path(args.frames, args.pitch, device)
     poses = rays_ops.pose_from_yaw_pitch(angles[:, 0], angles[:, 1])
     h, w = cfg.camera.height, cfg.camera.width
-    grids = [rays_ops.ray_grid(poses[i], cfg.camera) for i in range(args.frames)]
+    grids = [rays_ops.maybe_ndc(*rays_ops.ray_grid(poses[i], cfg.camera), cfg.camera)
+             for i in range(args.frames)]
     big_o = torch.cat([o.reshape(-1, 3) for o, _ in grids]).reshape(args.frames * h, w, 3)
     big_d = torch.cat([d.reshape(-1, 3) for _, d in grids]).reshape(args.frames * h, w, 3)
     rgb, _, _ = render_frame(cfg, params, big_o, big_d, render_fn, fine_params=fine_params,

@@ -1,14 +1,25 @@
 """The on-device dataset, the counterpart of ``DeviceDataset`` in
-``nerf_rs_tpu/data/device_dataset.py``: a uint8 RGBA pixel store and the
-(yaw, pitch) of every view live on the device. ``sample_batch`` draws the
-per-ray training batch there (every ray its own view, x and y);
-``batch_from_idx`` rebuilds a batch from its flat pixel indices;
-``view_rays`` and ``view_gold`` give one view's full-frame rays and gold
-image, at full resolution or at 1/scale. With ``multiscale_levels`` > 1
-(mip-NeRF's multiscale training) the store carries a box pyramid
-(``build_pyramid``) and every batch draws equal ray counts per level
-(``batch_from_draws``). The multiview, host-pipeline and error-weighted
-batch modes come with slice 6 of the port.
+``nerf_rs_tpu/data/device_dataset.py``: a uint8 RGBA pixel store and every
+view's pose live on the device, the pose as (yaw, pitch) on the
+hemisphere grid (``angles``: the sphere and the multiview PNG layout) or
+as a camera-to-world matrix (``c2w``: Blender and LLFF scenes, whose rays
+are ``rays_from_c2w``'s, warped to NDC when the camera asks for it).
+
+The batch modes: ``sample_batch`` draws every ray its own (view, x, y)
+(``per_ray``); ``sample_multiview_batch`` draws ``views_per_batch`` views
+and splits the rays evenly over them (``multiview``, the reference's
+batches); ``sample_batch_error_weighted`` draws a share of the rays from
+the per-pixel error store (``init_error_store``, ``update_error_store``)
+and the rest uniformly. Each draws from a ``torch.Generator``, and each has
+a form that takes the draws from the caller (``batch_from_draws``,
+``multiview_from_draws``, ``error_weighted_from_draws``), which the tests
+feed the JAX sampler's own draws. ``batch_from_idx`` rebuilds a batch from
+its flat pixel indices; ``view_rays`` and ``view_gold`` give one view's
+full-frame rays and gold image, at full resolution or at 1/scale. With
+``multiscale_levels`` > 1 the store carries a box pyramid
+(``build_pyramid``) and every per-ray batch draws equal ray counts per
+level. The host pipeline (``batch_mode host``) reads the store's host copy
+(``host_images``, ``host_poses``): ``data/pipeline.py``.
 """
 
 from __future__ import annotations
@@ -35,12 +46,21 @@ def _gather_gold(images: torch.Tensor, view_idx, xi, yi,
     return rgb
 
 
-def _make_rays(angles: torch.Tensor, coords_xy: torch.Tensor, view_idx,
-               camera: CameraConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Rays of pixel coords under their views' yaw/pitch poses."""
-    a = angles[view_idx]
-    pose = rays_ops.pose_from_yaw_pitch(a[..., 0], a[..., 1])
-    return rays_ops.rays_for_coords(coords_xy, pose, camera)
+def make_rays(pose_data: torch.Tensor, mode: str, coords_xy: torch.Tensor, view_idx,
+              camera: CameraConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rays of pixel coords under their views' poses: yaw/pitch
+    (``mode`` "angles") or camera-to-world matrices ("c2w", with the
+    camera's explicit focal length), warped to NDC when ``camera.ndc``."""
+    if mode == "angles":
+        a = pose_data[view_idx]
+        pose = rays_ops.pose_from_yaw_pitch(a[..., 0], a[..., 1])
+        o, d = rays_ops.rays_for_coords(coords_xy, pose, camera)
+    else:
+        if camera.focal is None:
+            raise ValueError("camera-to-world poses need the camera's focal length")
+        o, d = rays_ops.rays_from_c2w(coords_xy, pose_data[view_idx], camera.height,
+                                      camera.width, camera.focal)
+    return rays_ops.maybe_ndc(o, d, camera)
 
 
 def build_pyramid(images: np.ndarray, levels: int,
@@ -81,20 +101,23 @@ def scaled_camera(camera: CameraConfig, scale: int) -> CameraConfig:
 
 
 class DeviceDataset:
-    """Multiview images + view angles resident on ``device``.
+    """Multiview images and poses resident on ``device``.
 
     Args:
-      images: (N, H, W, 3|4) uint8 or float in [0, 1].
-      camera: intrinsics.
-      angles: (N, 2) yaw/pitch per view.
+      images: (N, H, W, 3|4) uint8, or float in [0, 1].
+      camera: intrinsics (with ``c2w``, ``focal`` must be set).
+      angles: (N, 2) yaw/pitch per view, or
+      c2w: (N, 4, 4) camera-to-world matrices (Blender convention);
+        exactly one of the two.
       white_background: composite gold RGBA onto white.
       multiscale_levels: > 1 keeps the 1/2 .. 1/2^(L-1) box pyramid on the
         device beside the store, and ``sample_batch`` draws from every level.
     """
 
-    def __init__(self, images: torch.Tensor, camera: CameraConfig,
-                 angles: torch.Tensor, white_background: bool = False,
-                 device=None, multiscale_levels: int = 1):
+    def __init__(self, images, camera: CameraConfig, angles=None, c2w=None,
+                 white_background: bool = False, device=None, multiscale_levels: int = 1):
+        if (angles is None) == (c2w is None):
+            raise ValueError("give exactly one of angles and c2w")
         images = torch.as_tensor(images, device=device)
         if images.dtype != torch.uint8:
             # truncation toward zero, as the JAX store's astype(uint8)
@@ -107,14 +130,24 @@ class DeviceDataset:
         self.num_views, self.height, self.width = images.shape[:3]
         self.camera = camera
         self.white_background = white_background
-        self.angles = torch.as_tensor(angles, dtype=torch.float32,
-                                      device=images.device)
+        self.mode = "angles" if angles is not None else "c2w"
+        self.pose_data = torch.as_tensor(angles if angles is not None else c2w,
+                                         dtype=torch.float32, device=images.device)
         self.multiscale_levels = multiscale_levels
         self.ms_images = None
         if multiscale_levels > 1:
             pyr = build_pyramid(self.images.cpu().numpy(), multiscale_levels, white_background)
             self.ms_images = (self.images,) + tuple(
                 torch.from_numpy(p).to(self.images.device) for p in pyr[1:])
+
+    @property
+    def host_images(self) -> np.ndarray:
+        """The pixel store on the host (the host pipeline's input)."""
+        return self.images.cpu().numpy()
+
+    @property
+    def host_poses(self) -> np.ndarray:
+        return self.pose_data.cpu().numpy()
 
     def level_counts(self, num_rays: int) -> List[int]:
         """Rays per pyramid level of a multiscale batch: equal blocks, the
@@ -124,25 +157,24 @@ class DeviceDataset:
         counts[0] += num_rays - sum(counts)
         return counts
 
+    def _draw(self, generator: torch.Generator, n: int, high: int) -> torch.Tensor:
+        return torch.randint(0, high, (n,), generator=generator, device=self.images.device)
+
     def sample_batch(self, generator: torch.Generator, num_rays: int) -> Batch:
         """``per_ray`` sampling: every ray draws (view, x, y) iid on the
         device, from ``generator`` (which must live on the store's
         device). With a pyramid, level l's block of ``level_counts`` draws
         them on the 1/2^l store, in level order (``batch_from_draws``)."""
-        dev = self.images.device
-
-        def draw(n, high):
-            return torch.randint(0, high, (n,), generator=generator, device=dev)
-
         if self.ms_images is not None:
             draws = []
             for lvl, n_l in enumerate(self.level_counts(num_rays)):
-                draws.append((draw(n_l, self.num_views), draw(n_l, self.width >> lvl),
-                              draw(n_l, self.height >> lvl)))
+                draws.append((self._draw(generator, n_l, self.num_views),
+                              self._draw(generator, n_l, self.width >> lvl),
+                              self._draw(generator, n_l, self.height >> lvl)))
             return self.batch_from_draws(draws)
-        view_idx = draw(num_rays, self.num_views)
-        xi = draw(num_rays, self.width)
-        yi = draw(num_rays, self.height)
+        view_idx = self._draw(generator, num_rays, self.num_views)
+        xi = self._draw(generator, num_rays, self.width)
+        yi = self._draw(generator, num_rays, self.height)
         return self._batch(view_idx, xi, yi, (view_idx * self.height + yi) * self.width + xi)
 
     def batch_from_draws(self, draws: Sequence[Tuple[torch.Tensor, ...]]) -> Batch:
@@ -155,12 +187,31 @@ class DeviceDataset:
         for lvl, (view_idx, xi, yi) in enumerate(draws):
             cam_l = scaled_camera(self.camera, 1 << lvl)
             coords = torch.stack([xi, yi], dim=-1).float()
-            o, d = _make_rays(self.angles, coords, view_idx, cam_l)
+            o, d = make_rays(self.pose_data, self.mode, coords, view_idx, cam_l)
             gold = _gather_gold(self.ms_images[lvl], view_idx, xi, yi, self.white_background)
             radii = torch.full((xi.shape[0],), pixel_radius(cam_l), device=o.device)
             idx = (view_idx * self.height + (yi << lvl)) * self.width + (xi << lvl)
             parts.append(Batch(o, d, gold, idx=idx, radii=radii))
         return Batch(*(torch.cat(xs) for xs in zip(*parts)))
+
+    def sample_multiview_batch(self, generator: torch.Generator, num_rays: int,
+                               views_per_batch: int) -> Batch:
+        """The reference's batches (``multiview``): ``views_per_batch``
+        views drawn with replacement, the rays split evenly over them (so
+        ``num_rays`` must divide evenly), each ray's (x, y) drawn iid."""
+        if num_rays % views_per_batch:
+            raise ValueError(f"num_rays {num_rays} must be divisible by views_per_batch "
+                             f"{views_per_batch}")
+        views = self._draw(generator, views_per_batch, self.num_views)
+        return self.multiview_from_draws(views, self._draw(generator, num_rays, self.width),
+                                         self._draw(generator, num_rays, self.height))
+
+    def multiview_from_draws(self, views: torch.Tensor, xi: torch.Tensor,
+                             yi: torch.Tensor) -> Batch:
+        """The multiview batch of given draws: ray i is view
+        ``views[i // (num_rays / len(views))]``'s pixel (xi[i], yi[i])."""
+        view_idx = torch.repeat_interleave(views, xi.shape[0] // views.shape[0])
+        return self._batch(view_idx, xi, yi, (view_idx * self.height + yi) * self.width + xi)
 
     def batch_from_idx(self, idx: torch.Tensor) -> Batch:
         """The batch a flat pixel-index vector denotes."""
@@ -170,17 +221,56 @@ class DeviceDataset:
 
     def _batch(self, view_idx, xi, yi, idx) -> Batch:
         coords = torch.stack([xi, yi], dim=-1).float()
-        o, d = _make_rays(self.angles, coords, view_idx, self.camera)
+        o, d = make_rays(self.pose_data, self.mode, coords, view_idx, self.camera)
         gold = _gather_gold(self.images, view_idx, xi, yi, self.white_background)
         return Batch(origins=o, dirs=d, gold=gold, idx=idx)
+
+    # -- highest-error resampling --------------------------------------------
+
+    def init_error_store(self, initial: float = 1.0) -> torch.Tensor:
+        """The flat (views * H * W,) per-pixel error store; an optimistic
+        start keeps pixels not yet seen likely to be drawn."""
+        return torch.full((self.num_views * self.height * self.width,), initial,
+                          dtype=torch.float32, device=self.images.device)
+
+    def sample_batch_error_weighted(self, generator: torch.Generator, num_rays: int,
+                                    err_store: torch.Tensor,
+                                    error_frac: float = 0.5) -> Batch:
+        """``int(num_rays * error_frac)`` rays drawn from the error store's
+        distribution, the rest uniform over every pixel; ``Batch.idx``
+        carries the pixel ids for ``update_error_store``."""
+        num_err = int(num_rays * error_frac)
+        dev = self.images.device
+        u = torch.rand((num_err,), generator=generator, device=dev)
+        idx_uni = self._draw(generator, num_rays - num_err,
+                             self.num_views * self.height * self.width)
+        return self.error_weighted_from_draws(err_store, u, idx_uni)
+
+    def error_weighted_from_draws(self, err_store: torch.Tensor, u: torch.Tensor,
+                                  idx_uni: torch.Tensor) -> Batch:
+        """The error-weighted batch of given draws, the counterpart of
+        ``_sample_error_weighted``: each uniform ``u`` in [0, 1) scaled to
+        the store's total picks the first pixel whose running sum of
+        (error + 1e-8) reaches it (the inverse CDF, the JAX function's
+        searchsorted), then the uniform pixel ids ``idx_uni`` follow."""
+        cdf = torch.cumsum(err_store + 1e-8, dim=0)
+        idx_err = torch.searchsorted(cdf, (u * cdf[-1]).contiguous())
+        idx_err = idx_err.clamp(0, err_store.shape[0] - 1)
+        return self.batch_from_idx(torch.cat([idx_err, idx_uni.to(idx_err.dtype)]))
+
+    # -- eval / render helpers -------------------------------------------------
 
     def view_rays(self, view: int, scale: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-frame (H/scale, W/scale, 3) origins and directions of one
         view, through the centers of ``scale``-wide pixel blocks."""
-        a = self.angles[view]
-        pose = rays_ops.pose_from_yaw_pitch(a[0], a[1])
         camera = self.camera if scale == 1 else scaled_camera(self.camera, scale)
-        return rays_ops.ray_grid(pose, camera)
+        if self.mode == "angles":
+            a = self.pose_data[view]
+            o, d = rays_ops.ray_grid(rays_ops.pose_from_yaw_pitch(a[0], a[1]), camera)
+        else:
+            o, d = rays_ops.ray_grid_c2w(self.pose_data[view], camera.height, camera.width,
+                                         camera.focal)
+        return rays_ops.maybe_ndc(o, d, camera)
 
     def view_gold(self, view: int, scale: int = 1) -> torch.Tensor:
         """Gold (H/scale, W/scale, 3) f32 frame of one view; ``scale`` > 1
@@ -193,3 +283,19 @@ class DeviceDataset:
             h, w = self.height // scale, self.width // scale
             rgb = rgb.reshape(h, scale, w, scale, 3).mean(dim=(1, 3))
         return rgb
+
+
+def update_error_store(err_store: torch.Tensor, idx: torch.Tensor, ray_err: torch.Tensor,
+                       ema: float = 0.5) -> torch.Tensor:
+    """EMA of each ray's error into its pixel of the error store, in place
+    (returns the store): store[i] = (1 - ema) store[i] + ema err. A pixel
+    drawn more than once in a batch takes the update of its last draw (in
+    batch order, found through a stable sort of the ids); the JAX
+    function's scatter leaves that winner undefined."""
+    ids, order = torch.sort(idx, stable=True)
+    last = torch.ones_like(ids, dtype=torch.bool)
+    last[:-1] = ids[1:] != ids[:-1]
+    pick = order[last]
+    keep = idx[pick]
+    err_store[keep] = (1.0 - ema) * err_store[keep] + ema * ray_err[pick].to(err_store.dtype)
+    return err_store

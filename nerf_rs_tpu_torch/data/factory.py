@@ -1,27 +1,85 @@
 """Dataset factory: Config -> DeviceDataset, the counterpart of
-``nerf_rs_tpu/data/factory.py`` for the file-free sphere scene. Image
-datasets (multiview PNG, Blender, LLFF) come with slice 6 of the port.
+``nerf_rs_tpu/data/factory.py``: the file-free sphere scene, the
+reference's multiview PNG layout on the hemisphere angle grid, LLFF
+captures and Blender scenes (``split`` picks the Blender
+``transforms_{split}.json`` or the LLFF holdout split). A Blender or LLFF
+dataset carries its own camera (the frames' size and focal length); the
+callers adopt it (``effective_config``). Multi-process view slices
+(``process_shard``, ``local_multiple``) come with slice 8 of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
+import numpy as np
+
 from ..config import Config
 
 from ..ops import rays as rays_ops
-from . import synthetic
+from . import blender, images, synthetic
 from .dataset import DeviceDataset
 
 
-def make_dataset(cfg: Config, device=None) -> DeviceDataset:
+def effective_config(cfg: Config, dataset: DeviceDataset) -> Config:
+    """``cfg`` with the dataset's camera (Blender and LLFF scenes carry
+    their own intrinsics), the JAX loop's ``_effective_config``."""
+    if dataset.camera != cfg.camera:
+        return dataclasses.replace(cfg, camera=dataset.camera)
+    return cfg
+
+
+def _scene_camera(cam, scene, near, far):
+    return dataclasses.replace(
+        cam, width=scene.width, height=scene.height,
+        fov=2.0 * math.atan(0.5 * scene.width / scene.focal), near=near, far=far,
+        focal=float(scene.focal))
+
+
+def make_dataset(cfg: Config, device=None, split: str = "train") -> DeviceDataset:
+    """The on-device dataset of ``cfg`` on ``device``."""
     d = cfg.data
-    if d.dataset not in ("sphere", "flat_sphere"):
-        raise NotImplementedError(
-            f"--dataset {d.dataset} comes with slice 6 of the port "
-            f"(only sphere is ported)")
+    kw = dict(white_background=cfg.render.white_background, device=device,
+              multiscale_levels=d.multiscale_levels)
     n = d.num_views_per_hemisphere
-    imgs = synthetic.sphere_scene_images(cfg.camera, 2 * n * (n + 1), device)
-    return DeviceDataset(
-        imgs, cfg.camera, angles=rays_ops.view_angle_grid(n, device),
-        white_background=cfg.render.white_background, device=device,
-        multiscale_levels=d.multiscale_levels,
-    )
+    if d.dataset in ("sphere", "flat_sphere"):
+        imgs = synthetic.sphere_scene_images(cfg.camera, 2 * n * (n + 1), device)
+        return DeviceDataset(imgs, cfg.camera, angles=rays_ops.view_angle_grid(n, device),
+                             **kw)
+    if d.dataset == "multiview_png":
+        imgs, h, w = images.load_multiview_dir(d.img_dir, d.view_start, d.view_end,
+                                               d.view_step)
+        if (h, w) != (cfg.camera.height, cfg.camera.width):
+            raise ValueError(f"images are {h}x{w} but the camera is "
+                             f"{cfg.camera.height}x{cfg.camera.width}")
+        angles = rays_ops.view_angle_grid(n)[d.view_start:d.view_end:d.view_step]
+        if angles.shape[0] != imgs.shape[0]:
+            raise ValueError(f"{imgs.shape[0]} views but {angles.shape[0]} grid angles "
+                             f"(--num_views_per_hemisphere {n})")
+        return DeviceDataset(imgs, cfg.camera, angles=angles, **kw)
+    if d.dataset == "llff":
+        from . import llff
+
+        scene = llff.load_llff(d.img_dir, split=split, factor=d.llff_factor,
+                               holdout=d.llff_holdout)
+        cam = cfg.camera
+        # NDC keeps the configured [0, 1]; metric mode takes the capture's
+        # bounds unless near / far were set: on the command line
+        # (near_explicit / far_explicit) or, by a library caller, by moving
+        # the value off the dataclass default
+        defaults = {f.name: f.default for f in dataclasses.fields(cam)}
+        if cam.ndc:
+            near, far = cam.near, cam.far
+        else:
+            near = (cam.near if d.near_explicit or cam.near != defaults["near"]
+                    else scene.near)
+            far = cam.far if d.far_explicit or cam.far != defaults["far"] else scene.far
+        return DeviceDataset(scene.images, _scene_camera(cam, scene, near, far),
+                             c2w=scene.c2w, **kw)
+    if d.dataset == "blender":
+        scene = blender.load_blender(d.img_dir, split=split)
+        return DeviceDataset(scene.images,
+                             _scene_camera(cfg.camera, scene, cfg.camera.near, cfg.camera.far),
+                             c2w=np.asarray(scene.c2w), **kw)
+    raise ValueError(f"unknown dataset: {d.dataset}")

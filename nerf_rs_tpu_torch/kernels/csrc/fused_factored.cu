@@ -82,14 +82,20 @@
 //    padded to an odd count of 16 B, so ldmatrix's 8 rows hit 8 different
 //    bank groups) and its coordinates into registers while this tile is
 //    summed; then its taps and bands are made.
+//    A CTA keeps the taps and bands of every level it walks (4,352 B a
+//    level beside its channel tiles, mma_smem_bytes): where those of all L
+//    levels do not fit beside the group's tiles (20 levels at 6 tiles, or
+//    past 47 at one), the levels go in runs of the most that fit
+//    (level_run), one launch a run on the run's rows of the table.
 //    f32 lines (no preset): factored_scatter_walk_kernel keeps the first
 //    kernel's walk on the CUDA cores, reading kernel 1's d_feat: a CTA
 //    holds a tile of one axis's (sumR, C) table in shared memory, the rows
 //    of a run of whole levels and a run of columns (WalkTiles: one tile
 //    where the table fits, as at the presets' widths), and each thread
 //    owns (level, channel) columns of the tile, adding the chunk's points
-//    to their rows in order. Only a geometry whose finest level's knots of
-//    one channel do not fit a CTA is refused.
+//    to their rows in order. A level whose knots of one channel do not fit
+//    a CTA (past ~57,800 knots) is cut into runs of rows, and a tap outside
+//    the run's rows is dropped there (the run that holds it adds it).
 // 3. factored_reduce_kernel sums each entry's partial tables (one per point
 //    range) in range order.
 //
@@ -136,13 +142,17 @@ constexpr size_t mma_smem_bytes(int nt, int L) {
          size_t{2} * L * kTilePoints * 8 + size_t{2} * L * kSteps * 8;
 }
 
-// The most levels a geometry may have: those whose taps a tensor-core scatter
-// CTA holds beside one channel tile (the forward and the f32 scatter take
-// more). Geometry's per-level arrays are sized by it, well inside a launch's
-// 4 KB of parameters.
-constexpr int kMaxLevels = 47;
-static_assert(mma_smem_bytes(1, kMaxLevels) <= kMaxSmem &&
-              mma_smem_bytes(1, kMaxLevels + 1) > kMaxSmem, "kMaxLevels");
+// The most levels a geometry may have. Geometry's per-level arrays (and
+// WalkTiles') ride in the kernels' launch parameters, which hold 4 KB: 256
+// levels leave room for the rest (the static_assert below the structs). The
+// forward's two tap buffers would hold one point of up to 1,137 levels
+// (kFwdTapBytes / (2 * 3 * sizeof(Tap))), and the scatters walk the levels in
+// runs and tiles, so only the parameter space bounds a call.
+constexpr int kMaxLevels = 256;
+// the most levels of one tensor-core scatter launch (at one channel tile)
+constexpr int kMmaRunLevels = 47;
+static_assert(mma_smem_bytes(1, kMmaRunLevels) <= kMaxSmem &&
+              mma_smem_bytes(1, kMmaRunLevels + 1) > kMaxSmem, "kMmaRunLevels");
 
 struct Geometry {
   int L;
@@ -530,11 +540,14 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const __nv_b
 // CTA (range, slab * groups + group, axis): partials[axis][range] (sumR,
 // stride) f32, rows of the slab's blocks and the group's channels, summed
 // over tiles [range * per, (range + 1) * per) of kTilePoints points.
+// g is the geometry of one run of levels (level_run): its rows are the rows
+// [0, g.sumR) of the run, written at ``partials`` (the run's first row of
+// tables of ``table_rows`` rows).
 template <int NT>
 __global__ void __launch_bounds__(kMmaWarps * 32, 1) factored_scatter_mma_kernel(
     const float* __restrict__ pts, const __nv_bfloat16* __restrict__ dfeat,
     float* __restrict__ partials, long long n, int per, const Geometry g, int stride, int slabs,
-    int groups) {
+    int groups, int table_rows) {
   using Lay = MmaLayout<NT>;
   extern __shared__ __align__(16) unsigned char mma_smem[];
   float* sums = reinterpret_cast<float*>(mma_smem);
@@ -693,7 +706,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1) factored_scatter_mma_kernel
     __syncthreads();  // tile t + 1 is in; buffer buf is free for tile t + 2
   }
   // C fragment (i): row gid + 8 (i >> 1), column 2q + (i & 1) of the tile
-  float* out = partials + (static_cast<long long>(a) * gridDim.x + blockIdx.x) * g.sumR * stride;
+  float* out = partials + (static_cast<long long>(a) * gridDim.x + blockIdx.x) * table_rows * stride;
 #pragma unroll
   for (int j = 0; j < kMmaBlocks; ++j) {
     if (r0[j] < 0) continue;
@@ -714,13 +727,21 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1) factored_scatter_mma_kernel
 // ---- the CUDA-core scatter (f32 lines) ----
 
 // The table tiles of the f32 scatter: level groups [first[k], first[k + 1])
-// for k < groups, times column chunks of cw (the last one ragged). A CTA
-// takes one tile of one axis.
+// for k < groups, a group's rows cut into runs of at most row_cap rows
+// (tiles in all; more than one only for a single level wider than a CTA),
+// times column chunks of cw (the last one ragged). A CTA takes one tile of
+// one axis.
 struct WalkTiles {
   int groups;
   int cw;
+  int row_cap;
+  int tiles;
   int first[kMaxLevels + 1];
 };
+
+// the launch parameters of the largest kernel, the f32 scatter's, in 4 KB
+static_assert(4 * sizeof(void*) + 8 + sizeof(Geometry) + sizeof(WalkTiles) + 16 <= 4096,
+              "the per-level arrays fit the launch parameters");
 
 size_t walk_smem_bytes(int rows, int levels, int cw) {
   return sizeof(float) * (static_cast<size_t>(rows) * cw + size_t{kWalkPoints} * cw) +
@@ -728,23 +749,27 @@ size_t walk_smem_bytes(int rows, int levels, int cw) {
 }
 
 // The fewest tiles: all columns where the finest level's rows allow it, else
-// as many as fit beside them, and the levels in runs whose rows fit beside
-// those columns. False when one channel of one level does not fit.
-bool walk_tiles(const Geometry& g, WalkTiles* t) {
+// as many as fit beside them (at least one), and the levels in runs whose
+// rows fit beside those columns; a level whose rows of one column do not fit
+// is cut into runs of row_cap rows (kernels/fused_factored.py::walk_tiles
+// mirrors it).
+void walk_tiles(const Geometry& g, WalkTiles* t) {
   int widest = 0;
   for (int l = 0; l < g.L; ++l) widest = std::max(widest, g.res[l] + 1);
   t->cw = g.C;
-  while (t->cw > 0 && walk_smem_bytes(widest, 1, t->cw) > kMaxSmem) --t->cw;
-  if (t->cw == 0) return false;
+  while (t->cw > 1 && walk_smem_bytes(widest, 1, t->cw) > kMaxSmem) --t->cw;
+  t->row_cap = 1;
+  while (walk_smem_bytes(t->row_cap + 1, 1, t->cw) <= kMaxSmem) ++t->row_cap;
   t->groups = 0;
+  t->tiles = 0;
   for (int l = 0; l < g.L;) {
     int e = l + 1;
     while (e < g.L && walk_smem_bytes(g.off[e + 1] - g.off[l], e + 1 - l, t->cw) <= kMaxSmem) ++e;
     t->first[t->groups++] = l;
+    t->tiles += (g.off[e] - g.off[l] + t->row_cap - 1) / t->row_cap;
     l = e;
   }
   t->first[t->groups] = g.L;
-  return true;
 }
 
 // CTA (b, tile, a): axis a's gradient at the tile's rows and columns over
@@ -754,10 +779,19 @@ __global__ void __launch_bounds__(kWalkThreads, 1) factored_scatter_walk_kernel(
     long long n, int per, const Geometry g, const WalkTiles wt) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = g.C, a = blockIdx.z, tid = threadIdx.x;
-  const int grp = blockIdx.y % wt.groups, c0 = (blockIdx.y / wt.groups) * wt.cw;
+  const int c0 = (blockIdx.y / wt.tiles) * wt.cw;
   const int cn = min(wt.cw, C - c0);
+  // the tile's level group and its run of rows
+  int grp = 0, run = blockIdx.y % wt.tiles;
+  for (;; ++grp) {
+    const int runs = (g.off[wt.first[grp + 1]] - g.off[wt.first[grp]] + wt.row_cap - 1) /
+                     wt.row_cap;
+    if (run < runs) break;
+    run -= runs;
+  }
   const int l0 = wt.first[grp], nl = wt.first[grp + 1] - l0;
-  const int r0 = g.off[l0], rows = g.off[l0 + nl] - r0;
+  const int r0 = g.off[l0] + run * wt.row_cap;
+  const int rows = min(wt.row_cap, g.off[l0 + nl] - r0);
   float* table = reinterpret_cast<float*>(smem);
   Tap* taps = reinterpret_cast<Tap*>(table + rows * cn);
   float* chunk = reinterpret_cast<float*>(taps + kWalkPoints * nl);
@@ -783,12 +817,19 @@ __global__ void __launch_bounds__(kWalkThreads, 1) factored_scatter_walk_kernel(
     __syncthreads();
     for (int it = tid; it < items; it += blockDim.x) {
       const int l = it / cn, c = it - l * cn;
+      // a tap's rows outside this run (only where a level is cut into runs
+      // of rows) belong to the runs beside it
       for (int p = 0; p < np; ++p) {
         const Tap t = taps[p * nl + l];
         const float d = chunk[p * cn + c];
-        float* row = table + t.row * cn + c;
-        row[0] = __fadd_rn(row[0], __fmul_rn(t.w0, d));
-        row[cn] = __fadd_rn(row[cn], __fmul_rn(t.w1, d));
+        if (static_cast<unsigned>(t.row) < static_cast<unsigned>(rows)) {
+          float* row = table + t.row * cn + c;
+          *row = __fadd_rn(*row, __fmul_rn(t.w0, d));
+        }
+        if (static_cast<unsigned>(t.row + 1) < static_cast<unsigned>(rows)) {
+          float* row = table + (t.row + 1) * cn + c;
+          *row = __fadd_rn(*row, __fmul_rn(t.w1, d));
+        }
       }
     }
   }
@@ -916,23 +957,19 @@ int launch_walk_any(const float* pts, const void* lines, void* out, const float*
 // of kMmaWarps * kMmaBlocks, and points in `ranges` ranges of `per` tiles
 // of kTilePoints, as many ranges as give every SM one CTA; f32 lines take
 // kWalkCtas ranges of chunks of kWalkPoints per axis. Under bf16 the groups
-// are the fewest whose CTAs' shared memory (mma_smem_bytes) holds the taps of
-// all L levels.
+// are the fewest of at most kMmaMaxTiles tiles; the levels whose taps do not
+// fit beside them go in runs (level_run).
 struct BwdPlan {
   int stride, nt, groups, slabs, ranges, per;
 };
 
-BwdPlan bwd_plan(long long n, int sumR, int C, int L, bool bf16, int sms) {
+BwdPlan bwd_plan(long long n, int sumR, int C, bool bf16, int sms) {
   BwdPlan p{C, 0, 1, 1, 0, 0};
   long long units, want;
   if (bf16) {
     const int tiles8 = (C + 7) / 8;
     p.groups = (tiles8 + kMmaMaxTiles - 1) / kMmaMaxTiles;
     p.nt = (tiles8 + p.groups - 1) / p.groups;
-    while (p.nt > 1 && mma_smem_bytes(p.nt, L) > kMaxSmem) {
-      ++p.groups;
-      p.nt = (tiles8 + p.groups - 1) / p.groups;
-    }
     p.stride = p.groups * p.nt * 8;
     const int blocks = (sumR + 15) / 16;
     p.slabs = (blocks + kMmaWarps * kMmaBlocks - 1) / (kMmaWarps * kMmaBlocks);
@@ -956,8 +993,8 @@ size_t dfeat_bytes(long long n, const BwdPlan& p, bool bf16) {
 }
 
 template <int NT>
-int launch_mma(const float* pts, const __nv_bfloat16* dfeat, float* partials, long long n,
-               const Geometry& g, const BwdPlan& p, cudaStream_t st) {
+int launch_mma_run(const float* pts, const __nv_bfloat16* dfeat, float* partials, long long n,
+                   const Geometry& g, const BwdPlan& p, int table_rows, cudaStream_t st) {
   static int known_dev = -1;
   static size_t known_smem = 0;
   static_assert(sizeof(float) * MmaLayout<NT>::kSums + MmaLayout<NT>::kTileBytes ==
@@ -973,8 +1010,48 @@ int launch_mma(const float* pts, const __nv_bfloat16* dfeat, float* partials, lo
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>(p.ranges), static_cast<unsigned>(p.slabs * p.groups), 3);
   factored_scatter_mma_kernel<NT><<<grid, kMmaWarps * 32, smem, st>>>(
-      pts, dfeat, partials, n, p.per, g, p.stride, p.slabs, p.groups);
+      pts, dfeat, partials, n, p.per, g, p.stride, p.slabs, p.groups, table_rows);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The levels of one tensor-core scatter launch: the most whose taps fit
+// beside nt channel tiles, all L where they do (kMmaRunLevels at one tile;
+// kernels/fused_factored.py::level_run mirrors it).
+int level_run(int nt, int L) {
+  int k = L;
+  while (k > 1 && mma_smem_bytes(nt, k) > kMaxSmem) --k;
+  return k;
+}
+
+// Levels [l0, l1) of g as a geometry of their own, rows from 0.
+Geometry run_geometry(const Geometry& g, int l0, int l1) {
+  Geometry r = g;
+  r.L = l1 - l0;
+  for (int l = l0; l < l1; ++l) {
+    r.res[l - l0] = g.res[l];
+    r.off[l - l0] = g.off[l] - g.off[l0];
+  }
+  r.off[l1 - l0] = g.off[l1] - g.off[l0];
+  r.sumR = r.off[l1 - l0];
+  return r;
+}
+
+// One launch per run of levels (level_run), each on its rows of the
+// partial tables; the point ranges are the plan's for every run.
+template <int NT>
+int launch_mma(const float* pts, const __nv_bfloat16* dfeat, float* partials, long long n,
+               const Geometry& g, const BwdPlan& p, cudaStream_t st) {
+  const int run = level_run(NT, g.L);
+  for (int l0 = 0; l0 < g.L; l0 += run) {
+    const Geometry r = run_geometry(g, l0, std::min(g.L, l0 + run));
+    const int blocks = (r.sumR + 15) / 16;
+    BwdPlan q = p;
+    q.slabs = (blocks + kMmaWarps * kMmaBlocks - 1) / (kMmaWarps * kMmaBlocks);
+    const int rc = launch_mma_run<NT>(pts, dfeat, partials + static_cast<long long>(g.off[l0]) *
+                                      p.stride, n, r, q, g.sumR, st);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -1007,18 +1084,18 @@ int nerf_factored_fwd_staged_levels(const int* res, int L, int C, int bf16) {
 
 // The backward's layout on `sms` SMs, as the six ints of BwdPlan (stride,
 // nt, groups, slabs, ranges, per).
-void nerf_factored_bwd_plan(long long n, int sumR, int C, int L, int bf16, int sms, int* out) {
-  const BwdPlan p = bwd_plan(n, sumR, C, L, bf16 != 0, sms);
+void nerf_factored_bwd_plan(long long n, int sumR, int C, int bf16, int sms, int* out) {
+  const BwdPlan p = bwd_plan(n, sumR, C, bf16 != 0, sms);
   const int v[6] = {p.stride, p.nt, p.groups, p.slabs, p.ranges, p.per};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
 }
 
 // Bytes of the backward's scratch for n points on the current device: the
 // d_feat scratch, then the partial tables; -1 with no device.
-long long nerf_factored_bwd_scratch_bytes(long long n, int sumR, int C, int L, int bf16) {
+long long nerf_factored_bwd_scratch_bytes(long long n, int sumR, int C, int bf16) {
   int sms = 0;
   if (sm_count(&sms) != 0) return -1;
-  const BwdPlan p = bwd_plan(n, sumR, C, L, bf16 != 0, sms);
+  const BwdPlan p = bwd_plan(n, sumR, C, bf16 != 0, sms);
   return static_cast<long long>(dfeat_bytes(n, p, bf16 != 0)) +
          3LL * p.ranges * sumR * p.stride * static_cast<long long>(sizeof(float));
 }
@@ -1042,7 +1119,7 @@ int nerf_factored_dfeat(const void* pts, const void* lines, const void* gout, vo
 }
 
 // g (n, C) f32 -> d_lines (3, sumR, C) f32; scratch of
-// nerf_factored_bwd_scratch_bytes(n, sumR, C, L, bf16) bytes.
+// nerf_factored_bwd_scratch_bytes(n, sumR, C, bf16) bytes.
 int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gout, void* d_lines,
                              void* scratch, long long n, const int* res, int L, int C, float aabb,
                              float two_aabb, int bf16, void* stream) {
@@ -1051,7 +1128,7 @@ int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gou
   if (rc != 0) return rc;
   const bool b16 = bf16 != 0;
   WalkTiles wt;
-  if (!b16 && !walk_tiles(g, &wt)) return -1;
+  if (!b16) walk_tiles(g, &wt);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n == 0)
     return static_cast<int>(cudaMemsetAsync(d_lines, 0, 3LL * g.sumR * C * sizeof(float), st));
@@ -1059,7 +1136,7 @@ int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gou
   rc = sm_count(&sms);
   if (rc != 0) return rc;
   g.staged = staged_levels(g, b16);
-  const BwdPlan p = bwd_plan(n, g.sumR, C, L, b16, sms);
+  const BwdPlan p = bwd_plan(n, g.sumR, C, b16, sms);
   const float* pt = static_cast<const float*>(pts);
   const float* go = static_cast<const float*>(gout);
   void* dfeat = scratch;
@@ -1081,14 +1158,15 @@ int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gou
   } else {
     size_t walk_smem = 0;  // the largest tile's
     for (int k = 0; k < wt.groups; ++k)
-      walk_smem = std::max(walk_smem, walk_smem_bytes(g.off[wt.first[k + 1]] - g.off[wt.first[k]],
-                                                 wt.first[k + 1] - wt.first[k], wt.cw));
+      walk_smem = std::max(walk_smem, walk_smem_bytes(
+          std::min(wt.row_cap, g.off[wt.first[k + 1]] - g.off[wt.first[k]]),
+          wt.first[k + 1] - wt.first[k], wt.cw));
     rc = static_cast<int>(cudaFuncSetAttribute(factored_scatter_walk_kernel,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(walk_smem)));
     if (rc != 0) return rc;
     const dim3 grid(static_cast<unsigned>(p.ranges),
-                    static_cast<unsigned>(wt.groups * ((C + wt.cw - 1) / wt.cw)), 3);
+                    static_cast<unsigned>(wt.tiles * ((C + wt.cw - 1) / wt.cw)), 3);
     factored_scatter_walk_kernel<<<grid, kWalkThreads, walk_smem, st>>>(
         pt, static_cast<const float*>(dfeat), part, n, p.per, g, wt);
     rc = static_cast<int>(cudaGetLastError());

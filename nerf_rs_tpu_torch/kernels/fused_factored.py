@@ -64,8 +64,14 @@ KERNEL_TOL = {"enc": 1e-5, "d_lines": 1e-5}
 # channels, and walks tiles of TILE_POINTS points in steps of 16 (the mma's
 # K), flushing its sums once a tile. f32 lines: WALK_CTAS point ranges per
 # axis walk chunks of WALK_POINTS points, each CTA over one tile of an
-# axis's table (a run of whole levels times a run of columns) in shared
-# memory.
+# axis's table (a run of whole levels, or a run of one wide level's rows,
+# times a run of columns) in shared memory (``walk_tiles``). A tensor-core
+# CTA holds the taps of the levels it walks: where those of every level do
+# not fit beside its channel tiles (20 levels at 6 tiles; past MMA_RUN_LEVELS
+# at one) the backward launches one run of levels at a time (``level_run``).
+# A geometry may have MAX_LEVELS
+# levels: the per-level arrays ride in the kernels' 4 KB of launch
+# parameters.
 MMA_WARPS = 16
 MMA_BLOCKS = 2
 MMA_MAX_TILES = 6
@@ -73,6 +79,8 @@ TILE_POINTS = 256
 WALK_POINTS = 64
 WALK_CTAS = 44
 _SMEM = 232448  # what one CTA can have on sm_90
+MAX_LEVELS = 256
+MMA_RUN_LEVELS = 47
 
 
 def _mma_smem_bytes(nt: int, levels: int) -> int:
@@ -99,19 +107,16 @@ class BwdPlan(NamedTuple):
     per: int
 
 
-def bwd_plan(n: int, sum_r: int, comps: int, levels: int, bf16: bool, sms: int) -> BwdPlan:
+def bwd_plan(n: int, sum_r: int, comps: int, bf16: bool, sms: int) -> BwdPlan:
     """The layout the backward kernels take for ``n`` points on a card of
     ``sms`` SMs: under bf16 as many point ranges as give every SM one CTA
-    of (range, slab, channel group, axis), in the fewest channel groups
-    whose CTAs hold the taps of all ``levels`` levels; under f32
-    WALK_CTAS per axis."""
+    of (range, slab, channel group, axis), in the fewest channel groups of
+    at most MMA_MAX_TILES tiles (the levels whose taps do not fit beside
+    them go in runs, ``level_run``); under f32 WALK_CTAS per axis."""
     if bf16:
         tiles8 = -(-comps // 8)
         groups = -(-tiles8 // MMA_MAX_TILES)
         nt = -(-tiles8 // groups)
-        while nt > 1 and _mma_smem_bytes(nt, levels) > _SMEM:
-            groups += 1
-            nt = -(-tiles8 // groups)
         stride = groups * nt * 8
         blocks = -(-sum_r // 16)
         slabs = -(-blocks // (MMA_WARPS * MMA_BLOCKS))
@@ -127,6 +132,67 @@ def bwd_plan(n: int, sum_r: int, comps: int, levels: int, bf16: bool, sms: int) 
     return BwdPlan(stride, nt, groups, slabs, ranges, per)
 
 
+def level_run(nt: int, levels: int) -> int:
+    """Levels of one tensor-core scatter launch (C ``level_run``): the most
+    whose taps fit beside ``nt`` channel tiles, all of them where they do
+    (MMA_RUN_LEVELS at one tile)."""
+    run = levels
+    while run > 1 and _mma_smem_bytes(nt, run) > _SMEM:
+        run -= 1
+    return run
+
+
+def _walk_smem_bytes(rows: int, levels: int, cw: int) -> int:
+    return 4 * (rows * cw + WALK_POINTS * cw) + 12 * WALK_POINTS * levels
+
+
+class WalkTiles(NamedTuple):
+    """The f32 scatter's table tiles (C ``walk_tiles``): level groups
+    starting at ``first`` (and ending at the next entry), a group's rows cut
+    into runs of at most ``row_cap`` rows, times column chunks of ``cw``."""
+    first: tuple
+    cw: int
+    row_cap: int
+
+
+def walk_tiles(res, comps: int) -> WalkTiles:
+    """The f32 scatter's tiles for the level resolutions ``res``: all
+    columns where the widest level's rows allow it, else as many as fit
+    beside them (at least one); the levels in runs whose rows fit; a level
+    too wide for one column cut into runs of ``row_cap`` rows."""
+    off = [0]
+    for r in res:
+        off.append(off[-1] + r + 1)
+    widest = max(r + 1 for r in res)
+    cw = comps
+    while cw > 1 and _walk_smem_bytes(widest, 1, cw) > _SMEM:
+        cw -= 1
+    row_cap = 1
+    while _walk_smem_bytes(row_cap + 1, 1, cw) <= _SMEM:
+        row_cap += 1
+    first, l = [], 0
+    while l < len(res):
+        e = l + 1
+        while e < len(res) and _walk_smem_bytes(off[e + 1] - off[l], e + 1 - l, cw) <= _SMEM:
+            e += 1
+        first.append(l)
+        l = e
+    return WalkTiles(tuple(first) + (len(res),), cw, row_cap)
+
+
+def walk_tile_rows(tiles: WalkTiles, res) -> list:
+    """(first row, rows, levels) of every tile of ``walk_tiles`` in launch
+    order (the column chunks aside)."""
+    off = [0]
+    for r in res:
+        off.append(off[-1] + r + 1)
+    out = []
+    for l0, l1 in zip(tiles.first, tiles.first[1:]):
+        for r0 in range(off[l0], off[l1], tiles.row_cap):
+            out.append((r0, min(tiles.row_cap, off[l1] - r0), l1 - l0))
+    return out
+
+
 def warp_blocks(slab: int, warp: int, slabs: int, sum_r: int) -> list:
     """The 16-row blocks that warp ``warp`` of a slab-``slab`` CTA owns
     (-1 where it owns none): block s + slabs (warp + MMA_WARPS j), so the
@@ -140,9 +206,8 @@ def warp_blocks(slab: int, warp: int, slabs: int, sum_r: int) -> list:
 
 
 _ERRORS = {
-    -1: "one channel of the finest level's knots does not fit a CTA's shared memory "
-        "(the f32 lines' backward)",
-    -2: "fac_levels above the kernels' limit (csrc/fused_factored.cu kMaxLevels)",
+    -2: f"fac_levels above {MAX_LEVELS}: the per-level arrays ride in the kernels' 4 KB of "
+        f"launch parameters (csrc/fused_factored.cu kMaxLevels)",
     -4: "every resolution must be at least 1",
 }
 
@@ -249,7 +314,7 @@ def fused_factored_encode_backward(lines: torch.Tensor, points: torch.Tensor, g:
     # d_feat and the per-CTA partial tables; freed on return while the
     # kernels may still run, which is safe: the caching allocator hands the
     # block out again only in this stream's order
-    nbytes = lib.nerf_factored_bwd_scratch_bytes(n, basis_dim(cfg), C, L, bf16)
+    nbytes = lib.nerf_factored_bwd_scratch_bytes(n, basis_dim(cfg), C, bf16)
     if nbytes < 0:
         raise RuntimeError("fused_factored backward: no CUDA device to size its scratch for")
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
@@ -281,7 +346,7 @@ def fused_factored_dfeat(lines: torch.Tensor, points: torch.Tensor, g: torch.Ten
     operand, res, L, C, aabb, two_aabb, bf16 = _launch_args(lines, cfg, dtype)
     lib = _library()
     plan = (ctypes.c_int * 6)()
-    lib.nerf_factored_bwd_plan(n, basis_dim(cfg), C, L, bf16, 1, plan)
+    lib.nerf_factored_bwd_plan(n, basis_dim(cfg), C, bf16, 1, plan)
     stride = plan[0]
     d = torch.empty(3, n, stride, dtype=torch.bfloat16 if bf16 else torch.float32, device=dev)
     rc = lib.nerf_factored_dfeat(points.data_ptr(), operand.data_ptr(), g.data_ptr(), d.data_ptr(),
@@ -340,10 +405,10 @@ def _library() -> ctypes.CDLL:
         staged.argtypes = [pres, i32, i32, i32]
         staged.restype = i32
         size = lib.nerf_factored_bwd_scratch_bytes
-        size.argtypes = [i64, i32, i32, i32, i32]
+        size.argtypes = [i64, i32, i32, i32]
         size.restype = i64
         plan = lib.nerf_factored_bwd_plan
-        plan.argtypes = [i64, i32, i32, i32, i32, i32, pres]
+        plan.argtypes = [i64, i32, i32, i32, i32, pres]
         plan.restype = None
         dfeat = lib.nerf_factored_dfeat
         dfeat.argtypes = [vp] * 4 + [i64, pres, i32, i32, f32, f32, i32, i32, vp]

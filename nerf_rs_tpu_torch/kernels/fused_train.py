@@ -45,7 +45,15 @@ from .fused_render import PackedWeights, PackedWeightsT, pe_encode
 # weights x 3 sigma/background cases): diag 4.0e-4, weights 4.6e-4, grads
 # 1.2e-2 (two such kink samples of 64,064; 2.5e-3 without them, as far as
 # the f32 version itself stands from the float64 witness). The bars are
-# about 4x, 4x and 2x those.
+# about 4x, 4x and 2x those. They hold at such inputs, weights at their
+# initial scale, and do not bound a trained relu field: in the proposal
+# preset's seed-2 relu drive (chip_smoke.py --witness-steps proposal 2 301
+# --sigma_activation relu, an H100) the plain version leaves them against
+# the witness at 16 of 301 launches and K2 at 17, each time on a few rays
+# (for all pairs but one, leaving out one group of 64 of the 1,024 brings
+# the pair back) where two routes take a relu gate or a bf16 rounding
+# apart; a gradient leaf's gap is relative to its largest entry, 2.7e-5 for
+# the last trunk layer's bias there.
 KERNEL_TOL = {"diag": 1.5e-3, "weights": 2e-3, "grads": 2.5e-2}
 
 
@@ -244,6 +252,7 @@ def fused_train_grads_reference(
     dist_space: str = "linear",
     *,
     dtype: torch.dtype = torch.float32,
+    trace: Optional[dict] = None,
 ) -> TrainGrads:
     """The kernels' plain PyTorch version, with their numerics: f32
     encodings (PE, or IPE with ``radii``), bf16 operands, f32 products
@@ -257,7 +266,11 @@ def fused_train_grads_reference(
     ``dtype=torch.float64`` keeps every bf16 rounding point (and the f32
     encoding) but multiplies, sums and composites in float64: a witness
     of how far f32 summation order alone moves the result, for the kernel
-    and the f32 version alike."""
+    and the f32 version alike.
+
+    A ``trace`` dict receives the pre-activations whose sign gates a
+    gradient, rows in ray-major order: ``pre`` (the trunk layers'), ``hv``
+    (the view layer's) and ``sigma_raw`` (under relu density)."""
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
                  num_samples, radii)
     dist_a, dist_b, disparity = dist_constants(near, far, dist_space, dist_weight)
@@ -283,13 +296,18 @@ def fused_train_grads_reference(
         acc = mm(h, mats[i])
         if i == skip and i > 0:
             acc = acc + mm(x, mats[L])
+        if trace is not None:
+            trace.setdefault("pre", []).append(acc + bias[i])
         h = F.relu(acc + bias[i]).to(bf)
         hs.append(h)
     sf = mm(h, mats[L + 1]) + bias[L]
     sigma_raw = sf[:, Fw].reshape(n, S)
     deltas, gold = deltas.to(dtype), gold.to(dtype)
     feat = sf[:, :Fw].to(bf)
-    hv = F.relu(mm(feat, mats[L + 2]) + mm(dv, mats[L + 3]) + bias[L + 1]).to(bf)
+    hv_pre = mm(feat, mats[L + 2]) + mm(dv, mats[L + 3]) + bias[L + 1]
+    hv = F.relu(hv_pre).to(bf)
+    if trace is not None:
+        trace.update(hv=hv_pre, sigma_raw=sigma_raw.reshape(rows))
     rgb = torch.sigmoid(mm(hv, mats[L + 4]) + bias[L + 2])[:, :3]
     rgb_rs = rgb.reshape(n, S, 3)
 

@@ -10,7 +10,11 @@ involved: ``torch.backends.cuda.matmul.allow_tf32`` cannot degrade it.
 The entry points still set that flag to False (``cli.main``), because
 the kernel's plain reference needs full-f32 matmuls.
 
-NDC and c2w (Blender / LLFF) rays come with slice 6 of the port.
+Scenes with camera-to-world poses (Blender, LLFF) take ``rays_from_c2w``
+and ``ray_grid_c2w`` (Blender's convention: the camera looks down -z with
++y up, and a c2w's columns are its right, up and back axes and its
+centre); forward-facing captures warp their rays into normalised device
+coordinates (``ndc_rays``) when the camera asks for it (``maybe_ndc``).
 """
 
 from __future__ import annotations
@@ -152,3 +156,65 @@ def ray_grid(
     yy, xx = torch.meshgrid(y, x, indexing="ij")
     coords = torch.stack([xx, yy], dim=-1)  # (H, W, 2)
     return rays_for_coords(coords, pose, camera)
+
+
+def rays_from_c2w(coords_xy, c2w, height: int, width: int,
+                  focal: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rays under the Blender / NeRF ``transforms.json`` convention: pixel
+    (x, y) looks along the camera-space direction [(x - W/2) / f,
+    -(y - H/2) / f, -1], rotated by c2w[:3, :3], from the origin
+    c2w[:3, 3]. ``c2w`` is (..., 3|4, 4), broadcastable to the coords'
+    leading shape. The directions are not normalised (the JAX package's)."""
+    coords_xy = _as_f32(coords_xy)
+    c2w = _as_f32(c2w, coords_xy.device)
+    x, y = coords_xy[..., 0], coords_xy[..., 1]
+    dirs = torch.stack([(x - width * 0.5) / focal, -(y - height * 0.5) / focal,
+                        -torch.ones_like(x)], dim=-1)
+    world = _matvec3(c2w[..., :3, :3], dirs)
+    return c2w[..., :3, 3].expand(world.shape), world
+
+
+def ray_grid_c2w(c2w, height: int, width: int,
+                 focal: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-frame Blender-convention rays, (H, W, 3) each, for one 3x4 or
+    4x4 pose."""
+    c2w = _as_f32(c2w)
+    x = torch.arange(width, dtype=torch.float32, device=c2w.device)
+    y = torch.arange(height, dtype=torch.float32, device=c2w.device)
+    yy, xx = torch.meshgrid(y, x, indexing="ij")
+    return rays_from_c2w(torch.stack([xx, yy], dim=-1), c2w, height, width, focal)
+
+
+def ndc_rays(origins: torch.Tensor, dirs: torch.Tensor,
+             camera: CameraConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """World rays into normalised device coordinates (NeRF appendix C, eqs.
+    25-26; the forward-facing / LLFF mode): the cameras sit near the
+    origin looking down -z, the content beyond the ``camera.ndc_near``
+    plane. Each origin first slides along its ray to z = -ndc_near; then
+    o' + s d' for s in [0, 1] sweeps the ray from that plane to z = -inf,
+    linear in disparity. The radiance head takes the NDC direction, as in
+    the JAX package."""
+    focal = camera.focal
+    if focal is None:
+        focal = 0.5 * camera.width / math.tan(0.5 * camera.fov)
+    near = camera.ndc_near
+    t = -(near + origins[..., 2]) / dirs[..., 2]
+    o = origins + t[..., None] * dirs
+    sx = -focal / (0.5 * camera.width)
+    sy = -focal / (0.5 * camera.height)
+    o_ndc = torch.stack([sx * o[..., 0] / o[..., 2], sy * o[..., 1] / o[..., 2],
+                         1.0 + 2.0 * near / o[..., 2]], dim=-1)
+    d_ndc = torch.stack([sx * (dirs[..., 0] / dirs[..., 2] - o[..., 0] / o[..., 2]),
+                         sy * (dirs[..., 1] / dirs[..., 2] - o[..., 1] / o[..., 2]),
+                         -2.0 * near / o[..., 2]], dim=-1)
+    return o_ndc, d_ndc
+
+
+def maybe_ndc(origins: torch.Tensor, dirs: torch.Tensor,
+              camera: CameraConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``ndc_rays`` when the camera asks for it (``camera.ndc``): the one
+    hook every ray producer (the samplers, ``view_rays``, the render
+    sweep) goes through."""
+    if camera.ndc:
+        return ndc_rays(origins, dirs, camera)
+    return origins, dirs

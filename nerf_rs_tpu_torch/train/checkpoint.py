@@ -13,7 +13,9 @@ that the file and the run do not both have is not dropped in silence:
 resuming or rendering without it means uniform samples where the field
 learned grid-guided ones, so a warning names the flag. Loading uses
 ``weights_only=True``. Weights trained by the JAX package enter through
-``convert.params_from_numpy``.
+``convert.params_from_numpy``. A run with error-weighted resampling saves
+its per-pixel error store beside the file as an ``.err.npy`` sidecar (the
+JAX package's), which a resume reads back (``load_err_store``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import time
 import warnings
 from typing import Optional, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -46,9 +49,12 @@ def _cpu(tree):
 
 
 def save(state: Union["TrainState", nn.Module], save_dir: str,  # noqa: F821
-         step: Optional[int] = None, ts: Optional[int] = None) -> str:
+         step: Optional[int] = None, ts: Optional[int] = None,
+         err_store: Optional[torch.Tensor] = None) -> str:
     """Write a ``TrainState`` (step, weights, optimizer state) or a bare
-    field's weights (``step`` defaults to 0); returns the path."""
+    field's weights (``step`` defaults to 0); returns the path. An
+    ``err_store`` (error-weighted resampling's per-pixel distribution, part
+    of the training trajectory) goes beside it as ``.err.npy``."""
     grid = None
     if isinstance(state, nn.Module):
         params, fine, opt, step = state, None, None, step or 0
@@ -67,7 +73,23 @@ def save(state: Union["TrainState", nn.Module], save_dir: str,  # noqa: F821
     tmp = path + ".tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)  # atomic: no torn checkpoints
+    if err_store is not None:
+        err_path = err_store_path(path)
+        np.save(err_path + ".tmp.npy", err_store.detach().cpu().numpy())
+        os.replace(err_path + ".tmp.npy", err_path)
     return path
+
+
+def err_store_path(ckpt_path: str) -> str:
+    """The error-store sidecar of a checkpoint: ``checkpoint-{ts}-{step}.err.npy``."""
+    return re.sub(r"\.pt$", ".err.npy", ckpt_path)
+
+
+def load_err_store(ckpt_path: str) -> Optional[np.ndarray]:
+    """The error store saved beside ``ckpt_path``, or None when the run
+    that wrote it had no error resampling."""
+    err_path = err_store_path(ckpt_path)
+    return np.load(err_path) if os.path.exists(err_path) else None
 
 
 def _load(path: str) -> dict:

@@ -12,6 +12,15 @@ from the new weights, jittered by a stream of its own
 read once per ``CHART_STEPS`` steps, never once per step. TensorBoard,
 the diagnostics and the profiler window come with slice 7 of the port;
 until then scalars and images go to a logger that drops them.
+
+The batch modes (``DataConfig.batch_mode``, as the JAX loop routes them):
+``per_ray`` and ``multiview`` draw on the device inside the step; with
+``error_resample_frac`` > 0 a share of every batch comes from the
+per-pixel error store, which each step's per-ray errors update
+(``update_error_store``) and the checkpoints carry (``.err.npy``; a resume
+reads it back); ``host`` (without error resampling) takes its batches from
+the async host pipeline (``data/pipeline.PrefetchPipeline``). A Blender
+scene's held-out ``test`` split, where it has one, is the eval hook's.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch
 
 from ..config import Config
 
-from ..data.factory import make_dataset
+from ..data.factory import effective_config, make_dataset
 from ..ops import metrics, render as render_ops
 from ..render import make_render, render_frame
 from ..utils.profiling import Throughput
@@ -69,6 +78,40 @@ def update_occupancy(state: TrainState, cfg: Config, it: int) -> torch.Tensor:
                        generator=grid_generator(cfg.train.seed, it, state.grid.device))
 
 
+def make_pipeline(cfg: Config, dataset):
+    """The async host pipeline of a ``--batch_mode host`` run over
+    ``dataset``'s images and poses, at the run's batch size, prefetch
+    depth, workers, loader and seed; None in every other mode and under
+    error resampling, whose batches are drawn on the device. The caller
+    closes it."""
+    if cfg.data.batch_mode != "host" or cfg.train.error_resample_frac > 0:
+        return None
+    from ..data.pipeline import PrefetchPipeline
+
+    return PrefetchPipeline(
+        dataset.host_images, cfg.camera,
+        angles=dataset.host_poses if dataset.mode == "angles" else None,
+        c2w=dataset.host_poses if dataset.mode == "c2w" else None,
+        num_rays=cfg.train.num_rays, white_background=dataset.white_background,
+        depth=cfg.data.prefetch, seed=cfg.train.seed,
+        use_native=cfg.data.use_native_loader, num_workers=cfg.data.data_workers,
+        device=dataset.images.device)
+
+
+def batch_source(cfg: Config, dataset, err_store, pipeline):
+    """The step's batch as a function of its generator, for the run's
+    batch mode: error-weighted, from the host pipeline, multiview or per
+    ray."""
+    n, frac = cfg.train.num_rays, cfg.train.error_resample_frac
+    if err_store is not None:
+        return lambda g: dataset.sample_batch_error_weighted(g, n, err_store, frac)
+    if pipeline is not None:
+        return lambda g: next(pipeline)
+    if cfg.data.batch_mode == "multiview":
+        return lambda g: dataset.sample_multiview_batch(g, n, cfg.data.views_per_batch)
+    return lambda g: dataset.sample_batch(g, n)
+
+
 def train(
     cfg: Config,
     dataset=None,
@@ -81,6 +124,12 @@ def train(
     if dataset is None:
         dataset = make_dataset(cfg, device if device is not None else resolve_device())
     device = dataset.images.device
+    if eval_dataset is None and cfg.data.dataset == "blender":
+        try:  # the held-out split, where the scene has one
+            eval_dataset = make_dataset(cfg, device, split="test")
+        except FileNotFoundError:
+            eval_dataset = None
+    cfg = effective_config(cfg, dataset)
     run_dir = os.path.join(cfg.log_dir, cfg.run_name or str(int(time.time())))
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "config.json"), "w") as f:
@@ -96,7 +145,30 @@ def train(
     if not cfg.do_train:
         return state
 
-    step_fn = make_train_step(cfg, dataset)
+    err_store = None
+    if cfg.train.error_resample_frac > 0:
+        # the error distribution is part of the trajectory: resume it too
+        saved = ckpt.load_err_store(load_path) if load_path else None
+        if saved is not None:
+            err_store = torch.as_tensor(saved, dtype=torch.float32, device=device)
+            print(f"resumed the error store from {ckpt.err_store_path(load_path)}")
+        else:
+            err_store = dataset.init_error_store()
+    pipeline = make_pipeline(cfg, dataset)
+    try:
+        return _run(cfg, state, dataset, eval_dataset, on_step, device, tb, err_store,
+                    make_train_step(cfg, dataset,
+                                    batch_source(cfg, dataset, err_store, pipeline)))
+    finally:
+        if pipeline is not None:
+            pipeline.close()
+
+
+def _run(cfg: Config, state: TrainState, dataset, eval_dataset, on_step, device, tb,
+         err_store, step_fn) -> TrainState:
+    """The iterations of ``train`` from ``state.step``."""
+    from ..data.dataset import update_error_store
+
     render_fn = make_render(cfg)
     thr = Throughput(cfg.train.num_rays, cfg.render.num_samples)
     losses = []
@@ -114,6 +186,9 @@ def train(
 
     for it in range(start, cfg.train.num_iter):
         state, aux = step_fn(state, step_generator(cfg.train.seed, it, device))
+        if err_store is not None:
+            update_error_store(err_store, aux["batch_idx"], aux["ray_err"],
+                               cfg.train.error_resample_ema)
         if state.grid is not None and it % cfg.render.occ_update_steps == 0:
             state.grid = update_occupancy(state, cfg, it)
         pending.append((it, aux["loss"]))
@@ -133,7 +208,8 @@ def train(
                 on_step(it, {**stats, "loss": losses[-1] if losses else float("nan")})
 
         # --- eval hook: render a view through the render kernel (the
-        # fine pass's colors with hierarchical sampling) ---
+        # fine pass's colors with hierarchical sampling; the held-out split
+        # where the scene has one) ---
         if cfg.eval_on_train and it % cfg.train.eval_steps == 0 and it > 0:
             eval_ds = eval_dataset if eval_dataset is not None else dataset
             o, d = eval_ds.view_rays(0)
@@ -153,10 +229,10 @@ def train(
 
         # --- checkpoint hook ---
         if it % cfg.train.save_steps == 0 and it > 0:
-            print(f"saved {ckpt.save(state, cfg.save_dir)}")
+            print(f"saved {ckpt.save(state, cfg.save_dir, err_store=err_store)}")
 
         thr.tick()
 
     flush_losses()
-    ckpt.save(state, cfg.save_dir)
+    ckpt.save(state, cfg.save_dir, err_store=err_store)
     return state

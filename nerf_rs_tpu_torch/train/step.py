@@ -36,9 +36,8 @@ updates it. Multiscale batches carry per-ray cone radii
 Random draws (the batch, the sample jitter, the fine pass's or the
 proposal levels' resampling) come from an explicit ``torch.Generator``;
 ``step_generator`` derives one per step from (seed, step), so a resumed
-run draws what an unbroken run draws. Error resampling (slice 6), EMA,
-gradient accumulation and sigma noise (slice 7) raise
-``NotImplementedError``.
+run draws what an unbroken run draws. EMA, gradient accumulation and sigma
+noise (slice 7) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -90,10 +89,8 @@ def check_train_supported(cfg: Config) -> None:
     """Raise for the training options later slices of the port bring."""
     check_supported(cfg.model)
     render.check_render_supported(cfg.model, cfg.render)
-    t, d = cfg.train, cfg.data
+    t = cfg.train
     later = [
-        (d.batch_mode != "per_ray", f"batch_mode={d.batch_mode}", 6),
-        (t.error_resample_frac > 0.0, "error resampling", 6),
         (t.ema_decay > 0.0, "the EMA of the weights", 7),
         (t.accumulation_steps > 1, "gradient accumulation", 7),
         (cfg.render.raw_noise_std > 0.0, "sigma noise (raw_noise_std)", 7),
@@ -528,16 +525,20 @@ def eval_step(state: TrainState, batch: Batch, cfg: Config) -> Dict[str, torch.T
             "depth": out.depth, "acc": out.acc}
 
 
-def make_train_step(cfg: Config, dataset) -> Callable[[TrainState, torch.Generator],
-                                                       Tuple[TrainState, Aux]]:
-    """The step with the per-ray batch drawn inside it: fn(state,
-    generator) -> (state, aux), aux carrying ``batch_idx``. The
-    single-device form of ``parallel/dp.make_dp_train_step(cfg, mesh,
-    dataset)``; multi-GPU comes with slice 8."""
+def make_train_step(cfg: Config, dataset, sample: Optional[Callable[[torch.Generator], Batch]]
+                    = None) -> Callable[[TrainState, torch.Generator], Tuple[TrainState, Aux]]:
+    """The step with its batch drawn inside it: fn(state, generator) ->
+    (state, aux), aux carrying ``batch_idx``. The batch is
+    ``sample(generator)``, by default the dataset's per-ray batch (the
+    train loop passes the other batch modes). The single-device form of
+    ``parallel/dp.make_dp_train_step(cfg, mesh, dataset)``; multi-GPU comes
+    with slice 8."""
     check_train_supported(cfg)
+    if sample is None:
+        sample = lambda g: dataset.sample_batch(g, cfg.train.num_rays)  # noqa: E731
 
     def step(state: TrainState, generator: torch.Generator):
-        batch = dataset.sample_batch(generator, cfg.train.num_rays)
+        batch = sample(generator)
         state, aux = train_step(state, batch, generator, cfg)
         aux["batch_idx"] = batch.idx
         return state, aux

@@ -328,8 +328,9 @@ FAC_MAIN = ModelConfig(arch="factored", sigma_activation="softplus")  # sumR 1,0
 FAC_SMALL = ModelConfig(arch="factored", fac_levels=3, fac_base_res=4, fac_max_res=16,
                         fac_comps=8, fac_aabb=1.0)
 # past the kernels' former caps (16 levels; levels x channels 1,024): 20
-# levels of the preset's ladder (the bf16 scatter splits C into two groups of
-# three tiles so the taps of 20 levels fit), and 6 levels at 192 channels
+# levels of the preset's ladder (the bf16 scatter in two runs of levels, 17
+# and 3, since the taps of 20 levels do not fit beside six channel tiles),
+# and 6 levels at 192 channels
 FAC_WIDE = {"levels 20": ModelConfig(arch="factored", fac_levels=20),
             "6 x 192": ModelConfig(arch="factored", fac_comps=192)}
 
@@ -538,8 +539,7 @@ def test_factored_dfeat_matches_plain_dfeat(geometry, dtype):
     torch.cuda.synchronize()
     want = k3.fused_factored_dfeat_reference(lines, pts, g, cfg, dtype)
     C = cfg.fac_comps
-    stride = k3.bwd_plan(100_003, basis_dim(cfg), C, cfg.fac_levels, dtype is not None,
-                         132).stride
+    stride = k3.bwd_plan(100_003, basis_dim(cfg), C, dtype is not None, 132).stride
     assert d.shape == (3, 100_003, stride)
     assert not bool(d[:, :, C:].any())
     got = d[:, :, :C].float()
@@ -574,11 +574,11 @@ def test_bwd_plan_matches_the_kernels():
     out = (ctypes.c_int * 6)()
     for n in (1, 37, 100_003, 524_288):
         for cfg in (*FAC_BWD.values(), ModelConfig(arch="factored", fac_levels=47)):
-            sum_r, comps, levels = basis_dim(cfg), cfg.fac_comps, cfg.fac_levels
+            sum_r, comps = basis_dim(cfg), cfg.fac_comps
             for bf16 in (0, 1):
                 for sms in (1, 132):
-                    lib.nerf_factored_bwd_plan(n, sum_r, comps, levels, bf16, sms, out)
-                    assert tuple(out) == k3.bwd_plan(n, sum_r, comps, levels, bool(bf16), sms)
+                    lib.nerf_factored_bwd_plan(n, sum_r, comps, bf16, sms, out)
+                    assert tuple(out) == k3.bwd_plan(n, sum_r, comps, bool(bf16), sms)
 
 
 def test_factored_wrappers_refuse_what_the_kernels_do_not_take():
@@ -591,29 +591,49 @@ def test_factored_wrappers_refuse_what_the_kernels_do_not_take():
         k3.fused_factored_encode_forward(lines, pts.double(), FAC_SMALL)
     with pytest.raises(ValueError, match="f32"):
         k3.fused_factored_encode_backward(lines, pts, g.half(), FAC_SMALL)
-    # what the kernels still refuse, by its code: more than 47 levels, and
-    # under f32 lines a finest level whose knots of one channel do not fit a
-    # CTA
-    for cfg, dtype, backward, code in (
-            (ModelConfig(arch="factored", fac_levels=48), None, False, -2),
-            (ModelConfig(arch="factored", fac_levels=48), torch.bfloat16, True, -2),
-            (ModelConfig(arch="factored", fac_levels=1, fac_base_res=60000, fac_comps=4), None,
-             True, -1)):
-        lines, pts, g = _factored_inputs(cfg, 37, dev)
-        with pytest.raises(ValueError, match=re.escape(k3._ERRORS[code])):
+    # what the kernels still refuse, by its code: more than MAX_LEVELS levels
+    cfg = ModelConfig(arch="factored", fac_levels=k3.MAX_LEVELS + 1, fac_comps=8)
+    lines, pts, g = _factored_inputs(cfg, 37, dev)
+    for dtype, backward in ((None, False), (torch.bfloat16, True), (None, True)):
+        with pytest.raises(ValueError, match=re.escape(k3._ERRORS[-2])):
             if backward:
                 k3.fused_factored_encode_backward(lines, pts, g, cfg, dtype)
             else:
                 k3.fused_factored_encode_forward(lines, pts, cfg, dtype)
-    # that level's f32 forward and bf16 backward are taken
-    enc = k3.fused_factored_encode_forward(lines, pts, cfg)
-    d = k3.fused_factored_encode_backward(lines, pts, g, cfg, torch.bfloat16)
-    torch.cuda.synchronize()
-    want = k3.fused_factored_encode_reference(lines, pts, cfg)
-    assert float((enc - want).abs().max()) <= k3.KERNEL_TOL["enc"]
-    want_d = k3.fused_factored_encode_backward_reference(lines, pts, g, cfg, torch.bfloat16)
-    assert float((d - want_d).abs().max()) <= k3.KERNEL_TOL["d_lines"] * float(
-        want_d.abs().max())
+    # the former corners (fault 7) are taken: test_factored_kernels_take_the_former_corners
+
+
+# the corners fault 7 lifted: 100 levels (the tensor-core scatter in runs of
+# 40 levels at two channel tiles, the f32 scatter in level groups) and one
+# level of 60,001 knots
+# (the f32 scatter in runs of rows)
+FAC_CORNERS = {"levels 100": ModelConfig(arch="factored", fac_levels=100, fac_comps=16),
+               "60,001 knots": ModelConfig(arch="factored", fac_levels=1, fac_base_res=60000,
+                                           fac_comps=4)}
+
+
+@pytest.mark.parametrize("geometry", list(FAC_CORNERS))
+def test_factored_kernels_take_the_former_corners(geometry):
+    """Forward and backward under bf16 and f32 lines at the geometries the
+    kernels refused before fault 7's repair: bit-identical reruns, and the
+    plain versions' values within KERNEL_TOL (_check_factored). The layouts
+    are the mirrors' (level_run, walk_tiles): more than one run of levels,
+    more than one run of rows."""
+    cfg = FAC_CORNERS[geometry]
+    res = k3.fac_resolutions(cfg)
+    if geometry == "levels 100":
+        nt = k3.bwd_plan(20_003, basis_dim(cfg), cfg.fac_comps, True, 132).nt
+        assert k3.level_run(nt, cfg.fac_levels) < cfg.fac_levels
+    else:
+        assert len(k3.walk_tile_rows(k3.walk_tiles(res, cfg.fac_comps), res)) > 1
+    dev = _device()
+    lines, pts, g = _ray_inputs(cfg, 20_003, dev, seed=8)
+    for dtype in (torch.bfloat16, None):
+        enc = k3.fused_factored_encode_forward(lines, pts, cfg, dtype)
+        d = k3.fused_factored_encode_backward(lines, pts, g, cfg, dtype)
+        assert torch.equal(enc, k3.fused_factored_encode_forward(lines, pts, cfg, dtype))
+        assert torch.equal(d, k3.fused_factored_encode_backward(lines, pts, g, cfg, dtype))
+        _check_factored(enc, d, lines, pts, g, cfg, dtype)
 
 
 @pytest.mark.parametrize("n", [0, 1, 37, 100_003])

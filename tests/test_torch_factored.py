@@ -306,21 +306,24 @@ def test_kernel_plain_version_matches_jax_kernel_past_the_former_caps(geometry, 
 
 @pytest.mark.parametrize("kw,code", [
     (dict(fac_levels=47), {"fwd": 0, "bf16": 0, "f32": 0}),
-    (dict(fac_levels=48), {"fwd": -2, "bf16": -2, "f32": -2}),
+    (dict(fac_levels=48), {"fwd": 0, "bf16": 0, "f32": 0}),
     (dict(fac_levels=2, fac_base_res=2600, fac_max_res=5000, fac_comps=8),
      {"fwd": 0, "bf16": 0, "f32": 0}),
-    (dict(fac_levels=1, fac_base_res=60000, fac_comps=4), {"fwd": 0, "bf16": 0, "f32": -1}),
+    (dict(fac_levels=1, fac_base_res=60000, fac_comps=4), {"fwd": 0, "bf16": 0, "f32": 0}),
+    (dict(fac_levels=257, fac_comps=8), {"fwd": -2, "bf16": -2, "f32": -2}),
 ])
 def test_kernels_refuse_only_what_they_cannot_hold(kw, code):
     """What stays refused on the card, by its ``_ERRORS`` code (the CUDA
     test test_factored_wrappers_refuse_what_the_kernels_do_not_take drives
-    the kernels into them): more than 47 levels (-2: a tensor-core scatter
-    CTA holds the taps of 47 levels beside one channel tile), and under f32
-    lines a finest level whose knots of one channel do not fit a CTA (-1).
-    A per-axis table larger than a CTA (2 levels of 2,601 and 5,001 knots)
-    no longer is. The wrappers on CPU tensors run the plain versions,
-    which take every geometry: forward and backward, under both dtypes,
-    agree with the dense hat product's form."""
+    the kernels into it): more than MAX_LEVELS = 256 levels (-2: the
+    per-level arrays ride in the kernels' 4 KB of launch parameters). Since
+    fault 7's repair 48 levels are taken (the tensor-core scatter walks
+    runs of levels) and so is an f32 level of 60,001 knots (the f32
+    scatter cuts it into runs of rows), as a per-axis table larger than a
+    CTA (2 levels of 2,601 and 5,001 knots) already was. The wrappers on
+    CPU tensors run the plain versions, which take every geometry: forward
+    and backward, under both dtypes, agree with the dense hat product's
+    form."""
     cfg = ModelConfig(arch="factored", **kw)
     assert set(code.values()) <= {0, *k3._ERRORS}
     lines = torch.from_numpy(_lines(cfg, seed=8))

@@ -24,6 +24,7 @@ from nerf_rs_tpu.kernels import fused_render as jrender
 from nerf_rs_tpu.kernels import fused_train as jtrain
 from nerf_rs_tpu.models import mlp as jmlp
 from nerf_rs_tpu.ops import render as jrender_ops
+from nerf_rs_tpu.ops import sampling as jsamp
 from nerf_rs_tpu.train import step as jstep
 from nerf_rs_tpu_torch.config import (CameraConfig, Config, DataConfig, ModelConfig,
                                       RenderConfig, TrainConfig)
@@ -34,6 +35,7 @@ from nerf_rs_tpu_torch.kernels.fused_ray import (fused_ray_render_reference, pad
 from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads_reference, unpack_grads
 from nerf_rs_tpu_torch.models.mlp import NerfMLP
 from nerf_rs_tpu_torch.ops import render as render_ops
+from nerf_rs_tpu_torch.ops import sampling
 from nerf_rs_tpu_torch.train import checkpoint as ckpt
 from nerf_rs_tpu_torch.train import step
 
@@ -225,6 +227,98 @@ def _batch(seed=12):
     return o, d, gold
 
 
+# the coarse weight above which a fine draw's bin is held to the ts bar of
+# 1e-4; below it the inverse CDF is steep (its denominator is the bin's
+# weight plus sample_pdf's eps), the draw's position moves by up to 1.8e-4
+# under an ulp of the coarse weights, and it carries a weight of ~0: such
+# draws take the grid case's 5e-4
+TS_WEIGHT_FLOOR = 1e-4
+
+
+def _assert_ts_close(got_ts, want_ts, coarse_ts, coarse_w, tol, steep_tol=5e-4):
+    """Fine ts at ``tol`` where the draw's coarse bin (the one around the
+    nearest coarse sample: sample_pdf's bins run from midpoint to
+    midpoint, and IPE's coarse intervals are even, so their midpoints
+    are the coarse ts) carries weight above TS_WEIGHT_FLOOR, at
+    ``steep_tol`` elsewhere."""
+    got_ts, want_ts = np.asarray(got_ts), np.asarray(want_ts)
+    coarse_ts, coarse_w = np.asarray(coarse_ts), np.asarray(coarse_w)
+    near = np.abs(want_ts[..., :, None] - coarse_ts[..., None, :]).argmin(-1)
+    heavy = np.take_along_axis(coarse_w, near, -1) > TS_WEIGHT_FLOOR
+    gap = np.abs(got_ts - want_ts)
+    assert (gap[heavy] <= tol).all(), ("ts where the bin has weight", float(gap[heavy].max()))
+    assert (gap <= steep_tol).all(), ("ts where the bin has ~0 weight", float(gap.max()))
+    assert heavy.mean() > 0.5  # most draws are held at the tight bar
+
+
+# the CDF's rounding in f32 epsilons: twice sqrt(B), the random-walk size
+# of B = 64 roundings (the sides read 4.6 at most here; the worst case of B
+# roundings in one direction, 64, no pair of summation orders comes near)
+CDF_EPS_MULT = 16.0
+
+
+def _sample_pdf_f64(bins, weights, num_samples, eps=1e-5):
+    """sample_pdf(randomized=False) in float64 (the formula of both
+    packages' ops/sampling.py), and the slope of the inverse CDF at each
+    draw: (bin width) / (the bin's CDF step)."""
+    w = weights.astype(np.float64) + eps
+    cdf = np.cumsum(w / w.sum(-1, keepdims=True), axis=-1)
+    cdf = np.concatenate([np.zeros_like(cdf[..., :1]), cdf], axis=-1)
+    u = np.broadcast_to(np.linspace(0.0, 1.0 - 1e-6, num_samples, dtype=np.float32),
+                        weights.shape[:-1] + (num_samples,)).astype(np.float64)
+    above = np.stack([np.searchsorted(c, uu, side="right") for c, uu in zip(cdf, u)])
+    below = np.clip(above - 1, 0, None)
+    above = np.clip(above, None, cdf.shape[-1] - 1)
+    take = lambda x, i: np.take_along_axis(x, i, -1)
+    c_lo, c_hi = take(cdf, below), take(cdf, above)
+    b_lo, b_hi = take(bins.astype(np.float64), below), take(bins.astype(np.float64), above)
+    denom = np.where(c_hi - c_lo < eps, 1.0, c_hi - c_lo)
+    return b_lo + (u - c_lo) / denom * (b_hi - b_lo), (b_hi - b_lo) / denom
+
+
+@pytest.mark.parametrize("num_samples", [64, 128])
+@pytest.mark.parametrize("preset", ["hierarchical", "mipnerf"])
+def test_sample_pdf_matches_jax_on_the_same_coarse_pass(preset, num_samples):
+    """The fine sampler on identical inputs: the JAX package's coarse
+    pass (midpoint samples, on the fine-pass test's weights and rays)
+    goes in as numpy to both packages' ``sample_pdf`` (randomized=False),
+    with the bins render_rays builds (midpoint bins of the coarse ts) and
+    the coarse weights. Each side's fine ts stand within 1e-6 plus the
+    inverse CDF's slope times CDF_EPS_MULT f32 epsilons of a float64
+    evaluation, and the two sides within the same bar of each other: the
+    CDF is a cumulative sum of B = 64 terms, and XLA sums it in another
+    order than torch.cumsum (their CDFs part by up to 1.8e-7 on these
+    inputs), which a steep slope multiplies (in a bin of ~0 weight the
+    step is sample_pdf's eps). Where the slope is small the bar is a few
+    1e-6, and most draws sit there. ``merge_ts`` of the coarse and fine
+    ts agrees exactly."""
+    cfg = _cfg(preset)
+    jcfg, jstate, _ = _states(cfg)
+    o, d, _ = _batch()
+    coarse, _ = jrender_ops.render_rays(jstate.params, jnp.asarray(o), jnp.asarray(d),
+                                        jax.random.PRNGKey(0), jcfg.model,
+                                        dataclasses.replace(jcfg.render, num_fine_samples=0),
+                                        jcfg.camera, randomized=False, use_fused=False)
+    ts, w = np.asarray(coarse.ts), np.asarray(coarse.weights)
+    mids = 0.5 * (ts[..., 1:] + ts[..., :-1])
+    bins = np.concatenate([ts[..., :1], mids, ts[..., -1:]], axis=-1)
+    want = np.asarray(jsamp.sample_pdf(jax.random.PRNGKey(0), jnp.asarray(bins),
+                                       jnp.asarray(w), num_samples, randomized=False))
+    got = sampling.sample_pdf(torch.from_numpy(bins), torch.from_numpy(w), num_samples,
+                              randomized=False).numpy()
+    assert got.shape == (N, num_samples)
+    ref, slope = _sample_pdf_f64(bins, w, num_samples)
+    bar = 1e-6 + slope * CDF_EPS_MULT * np.finfo(np.float32).eps
+    for name, side in (("torch", got), ("JAX", want)):
+        gap = np.abs(side - ref)
+        assert (gap <= bar).all(), (name, float((gap / bar).max()))
+    assert (np.abs(got - want) <= bar).all()
+    assert (bar < 5e-6).mean() > 0.5  # most draws are held at a few 1e-6
+    merged = sampling.merge_ts(torch.from_numpy(ts), torch.from_numpy(got)).numpy()
+    np.testing.assert_array_equal(
+        merged, np.asarray(jsamp.merge_ts(jnp.asarray(ts), jnp.asarray(got))))
+
+
 @pytest.mark.parametrize("fused", [False, True])
 @pytest.mark.parametrize("fine_mode", ["union", "standalone"])
 @pytest.mark.parametrize("preset", ["hierarchical", "mipnerf"])
@@ -248,10 +342,14 @@ def test_render_rays_fine_pass_matches_jax(preset, fine_mode, fused):
     want_s = {"standalone": 128, "union": 193 if cfg.model.ipe else 192}[fine_mode]
     assert got[1].weights.shape == (N, want_s)
     for g, w in zip(got, want):
-        for name, tol in (("rgb", 3e-3), ("acc", 3e-3), ("depth", 5e-3), ("weights", 3e-3),
-                          ("ts", 1e-4)):
+        for name, tol in (("rgb", 3e-3), ("acc", 3e-3), ("depth", 5e-3), ("weights", 3e-3)):
             np.testing.assert_allclose(getattr(g, name).numpy(), np.asarray(getattr(w, name)),
                                        atol=tol, err_msg=name)
+    # ts: 1e-4 where the draw's coarse bin carries weight, 5e-4 where the
+    # inverse CDF is steep (tests the sampler itself on identical inputs:
+    # test_sample_pdf_matches_jax_on_the_same_coarse_pass)
+    np.testing.assert_allclose(got[0].ts.numpy(), np.asarray(want[0].ts), atol=1e-4)
+    _assert_ts_close(got[1].ts, want[1].ts, want[0].ts, want[0].weights, 1e-4)
     assert float(got[0].acc.mean()) > 0.1  # the coarse pass sees the field
 
 
@@ -291,13 +389,20 @@ def test_shared_network_fast_fine_pass_matches_jax(white, grid):
     # with the grid, the occupancy bins come from each package's own f32
     # linspace (an ulp apart at some knots), and the last fine draws sit
     # where the coarse weights are ~0 and the inverse CDF is steep: ts
-    # there move by up to 3e-4 (bar 5e-4), the weights they carry by ~0
-    ts_tol = 5e-4 if grid else 1e-4
+    # there move by up to 3e-4 (bar 5e-4), the weights they carry by ~0.
+    # Without the grid the same holds of the draws in bins of ~0 coarse
+    # weight; those with weight keep 1e-4
     for gg, w in zip(got, want):
         for name, tol in (("rgb", 3e-3), ("acc", 3e-3), ("depth", 5e-3), ("weights", 3e-3),
-                          ("sigma", 2e-2), ("ts", ts_tol)):
+                          ("sigma", 2e-2)):
             np.testing.assert_allclose(getattr(gg, name).numpy(), np.asarray(getattr(w, name)),
                                        atol=tol, err_msg=name)
+    if grid:
+        for gg, w in zip(got, want):
+            np.testing.assert_allclose(gg.ts.numpy(), np.asarray(w.ts), atol=5e-4)
+    else:
+        np.testing.assert_allclose(got[0].ts.numpy(), np.asarray(want[0].ts), atol=1e-4)
+        _assert_ts_close(got[1].ts, want[1].ts, want[0].ts, want[0].weights, 1e-4)
     assert float(got[0].acc.mean()) > 0.1
 
 

@@ -136,10 +136,6 @@ def _dense_hat(u_axis, cfg) -> np.ndarray:
 # ---- the plan ----
 
 
-# the levels of the geometries below, by their sumR: 6 x 16..512, 2 x
-# 2600..5000, 3 x 4..16
-_PLAN_LEVELS = {1014: 6, 7602: 2, 31: 3}
-
 
 @pytest.mark.parametrize("n,sum_r,comps,bf16,want", [
     (524_288, 1014, 48, True, k3.BwdPlan(48, 6, 1, 2, 22, 94)),
@@ -150,7 +146,7 @@ _PLAN_LEVELS = {1014: 6, 7602: 2, 31: 3}
     (1000, 1014, 100, True, k3.BwdPlan(120, 5, 3, 2, 4, 1)),
 ])
 def test_plan_pads_channels_and_fills_the_card(n, sum_r, comps, bf16, want):
-    plan = k3.bwd_plan(n, sum_r, comps, _PLAN_LEVELS[sum_r], bf16, SMS)
+    plan = k3.bwd_plan(n, sum_r, comps, bf16, SMS)
     assert plan == want
     units = -(-n // (k3.TILE_POINTS if bf16 else k3.WALK_POINTS))
     assert plan.ranges * plan.per >= units > (plan.ranges - 1) * plan.per
@@ -160,16 +156,97 @@ def test_plan_pads_channels_and_fills_the_card(n, sum_r, comps, bf16, want):
         assert 3 * plan.slabs * plan.groups * plan.ranges <= max(SMS, 3 * plan.slabs * plan.groups)
 
 
-@pytest.mark.parametrize("levels,comps,want", [(20, 48, (2, 3)), (6, 192, (4, 6)),
-                                               (47, 48, (6, 1)), (20, 8, (1, 1))])
-def test_plan_splits_channels_until_the_taps_of_every_level_fit(levels, comps, want):
-    """Past the preset's 6 levels a tensor-core CTA's taps and bands grow
-    (4,352 B a level), so the plan takes the fewest channel groups whose
-    CTAs fit the card's 227 KB; at the most levels, one 8-channel tile."""
+# (levels, channels): the channel tiles of a group, the levels of a run
+_RUNS = {(1, 48): (6, 1), (6, 48): (6, 6), (20, 48): (6, 17), (47, 48): (6, 17),
+         (48, 48): (6, 17), (100, 48): (6, 17), (256, 48): (6, 17), (20, 8): (1, 20),
+         (47, 8): (1, 47), (100, 16): (2, 40), (6, 192): (6, 6)}
+
+
+@pytest.mark.parametrize("levels,comps", list(_RUNS))
+def test_level_runs_cover_every_level_once_and_fit_a_cta(levels, comps):
+    """The tensor-core scatter's runs of levels (``level_run``): the plan's
+    channel groups of at most six 8-channel tiles whatever the levels; one
+    run of all of them where their taps and bands (4,352 B a level) fit
+    beside the group's tiles (the preset's 6 x 48), else runs of the most
+    that fit (17 at six tiles, 47 at one), each CTA within the card's 227
+    KB, the runs covering every level once."""
     cfg = ModelConfig(arch="factored", fac_levels=levels, fac_comps=comps)
-    plan = k3.bwd_plan(524_288, fac.basis_dim(cfg), comps, levels, True, SMS)
-    assert (plan.groups, plan.nt) == want
+    plan = k3.bwd_plan(524_288, fac.basis_dim(cfg), comps, True, SMS)
+    run = k3.level_run(plan.nt, levels)
+    assert (plan.nt, run) == _RUNS[levels, comps]
+    assert plan.groups == -(-comps // (8 * k3.MMA_MAX_TILES))
     assert plan.stride == plan.groups * plan.nt * 8 >= comps
+    assert run == levels or k3._mma_smem_bytes(plan.nt, run + 1) > k3._SMEM
+    starts = list(range(0, levels, run))
+    covered = [l for l0 in starts for l in range(l0, min(levels, l0 + run))]
+    assert covered == list(range(levels))
+    assert all(k3._mma_smem_bytes(plan.nt, min(levels, l0 + run) - l0) <= k3._SMEM
+               for l0 in starts)
+    assert k3._mma_smem_bytes(1, k3.MMA_RUN_LEVELS + 1) > k3._SMEM
+
+
+@pytest.mark.parametrize("geometry", ["main", "table past a CTA", "levels 100",
+                                      "60,001 knots", "two wide levels"])
+def test_walk_tiles_cover_every_row_once_and_fit_a_cta(geometry):
+    """The f32 scatter's tiles (``walk_tiles``): every row of the table in
+    exactly one tile, each tile's table, taps and chunk within 227 KB; a
+    table that fits is one tile of every level and column (the main width),
+    whole levels stay whole where one column of them fits, and only a level
+    wider than a CTA is cut into runs of rows (60,001 knots: two runs of one
+    column, the first of ROW_CAP rows)."""
+    kw = {"main": {}, "table past a CTA": dict(fac_levels=2, fac_base_res=2600,
+                                               fac_max_res=5000, fac_comps=8),
+          "levels 100": dict(fac_levels=100, fac_comps=16),
+          "60,001 knots": dict(fac_levels=1, fac_base_res=60000, fac_comps=4),
+          "two wide levels": dict(fac_levels=2, fac_base_res=30000, fac_max_res=130000,
+                                  fac_comps=2)}[geometry]
+    cfg = ModelConfig(arch="factored", **kw)
+    res = fac.fac_resolutions(cfg)
+    tiles = k3.walk_tiles(res, cfg.fac_comps)
+    rows = k3.walk_tile_rows(tiles, res)
+    seen = [r for r0, n, _ in rows for r in range(r0, r0 + n)]
+    assert seen == list(range(fac.basis_dim(cfg)))
+    assert all(k3._walk_smem_bytes(n, nl, tiles.cw) <= k3._SMEM for _, n, nl in rows)
+    cut = len(rows) > len(tiles.first) - 1  # a level group in more than one tile
+    if geometry == "main":
+        assert len(rows) == 1 and tiles.cw == cfg.fac_comps
+    if geometry == "60,001 knots":
+        assert tiles.cw == 1 and tiles.row_cap == 57_856 and [n for _, n, _ in rows] == [
+            57_856, 60_001 - 57_856]
+    assert cut == (geometry in ("60,001 knots", "two wide levels"))
+
+
+def test_row_runs_of_a_level_scatter_what_the_level_scatters():
+    """The f32 scatter's rule in a run of rows: a tap whose row lies outside
+    the run is dropped there, so the runs of a level (here of 7 rows, the
+    taps of 300 points on a level of 21 knots, clipped points included)
+    assemble to the whole level's scatter bit for bit (each row's adds in
+    point order on both sides)."""
+    rng = np.random.default_rng(4)
+    res, comps = 20, 3
+    u = np.clip(rng.uniform(-0.1, 1.1, 300), 0, 1).astype(np.float32)
+    pos = u * np.float32(res)
+    k0 = np.minimum(np.floor(pos).astype(np.int64), res - 1)
+    w0 = np.maximum(1 - np.abs(pos - k0), 0).astype(np.float32)
+    w1 = np.maximum(1 - np.abs(pos - (k0 + 1)), 0).astype(np.float32)
+    d = rng.normal(size=(300, comps)).astype(np.float32)
+    whole = np.zeros((res + 1, comps), np.float32)
+    for p in range(300):
+        whole[k0[p]] += w0[p] * d[p]
+        whole[k0[p] + 1] += w1[p] * d[p]
+    tiles = k3.WalkTiles((0, 1), comps, 7)
+    runs = np.zeros_like(whole)
+    for r0, n, _ in k3.walk_tile_rows(tiles, [res]):
+        table = np.zeros((n, comps), np.float32)
+        for p in range(300):
+            row = k0[p] - r0
+            if 0 <= row < n:
+                table[row] += w0[p] * d[p]
+            if 0 <= row + 1 < n:
+                table[row + 1] += w1[p] * d[p]
+        runs[r0:r0 + n] = table
+    assert len(k3.walk_tile_rows(tiles, [res])) == 3
+    np.testing.assert_array_equal(runs, whole)
 
 
 @pytest.mark.parametrize("sum_r", [1, 17, 31, 1014, 1024, 1025, 7602])
@@ -405,7 +482,7 @@ def _emulate_backward(lines, pts, g, cfg, sms=SMS):
     range's f32 table; the tables reduced in range order."""
     n = pts.shape[0]
     sum_r, comps = fac.basis_dim(cfg), cfg.fac_comps
-    plan = k3.bwd_plan(n, sum_r, comps, cfg.fac_levels, True, sms)
+    plan = k3.bwd_plan(n, sum_r, comps, True, sms)
     u = _unit(pts, cfg)
     d = _dfeat(g, _features(lines, u, cfg))
     tp = k3.TILE_POINTS

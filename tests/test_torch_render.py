@@ -26,7 +26,7 @@ from nerf_rs_tpu.parallel import dp as jdp
 from nerf_rs_tpu.parallel import mesh as jmesh
 from nerf_rs_tpu.train import loop as jloop
 from nerf_rs_tpu_torch import cli
-from nerf_rs_tpu_torch.config import CameraConfig, Config, ModelConfig, RenderConfig
+from nerf_rs_tpu_torch.config import CameraConfig, Config, DataConfig, ModelConfig, RenderConfig
 from nerf_rs_tpu_torch.convert import params_from_numpy
 from nerf_rs_tpu_torch.data.factory import make_dataset
 from nerf_rs_tpu_torch.data.images import save_png
@@ -239,11 +239,12 @@ def test_cli_render_view_and_sweep(tmp_path, capsys):
     assert "rendered 2 frames of 16x16" in capsys.readouterr().out
 
 
-# --occ_res and --multiscale_levels are ported (tests/test_torch_occupancy.py,
-# tests/test_torch_multiscale.py); the EMA and image directories are not
+# --occ_res, --multiscale_levels and the image datasets are ported
+# (tests/test_torch_occupancy.py, tests/test_torch_multiscale.py,
+# tests/test_torch_data.py); the EMA and the sharded pixel store are not
 @pytest.mark.parametrize("argv", [
     ["render", "--dataset", "sphere", "--ema_decay", "0.9"],
-    ["render", "--dataset", "sphere", "--img_dir", "data/x"],
+    ["render", "--dataset", "sphere", "--shard_pixel_store", "true"],
     ["render", "--dataset", "sphere", "--compat", "true"],
 ])
 def test_cli_refuses_unported_flags(argv, capsys):
@@ -254,14 +255,20 @@ def test_cli_refuses_unported_flags(argv, capsys):
 
 
 # train and eval are ported; what they refuse is what later slices bring
-# (--preset record and eval --scales are ported since slices 3 and 4)
-_UNPORTED = {"train": ["--preset", "pod"], "eval": ["--preset", "pod"], "export": []}
+# (--preset record and eval --scales are ported since slices 3 and 4, and
+# --preset pod since slice 6)
+_UNPORTED = {"train": ["--accumulation_steps", "2"], "eval": ["--scenes", "a,b"],
+             "export": []}
 
 
 @pytest.mark.parametrize("cmd", ["train", "eval", "export"])
 def test_cli_refuses_unported_commands(cmd, capsys):
-    assert cli.main([cmd, "--dataset", "sphere", *_UNPORTED[cmd]]) == 2
-    assert "not ported yet" in capsys.readouterr().err
+    try:
+        rc = cli.main([cmd, "--dataset", "sphere", *_UNPORTED[cmd]])
+    except SystemExit as e:  # a later slice's flag: the parser refuses it
+        rc = e.code
+    assert rc == 2
+    assert "not ported" in capsys.readouterr().err
 
 
 def test_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, capsys):
@@ -280,9 +287,15 @@ def test_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, capsys):
     assert "view-0.png" in capsys.readouterr().out
 
 
-def test_unported_dataset_and_render_options_raise():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        make_dataset(Config())  # multiview_png
+def test_unported_dataset_and_render_options_raise(tmp_path):
+    # the multiview PNG layout loads since slice 6: image-{i}.png views of
+    # the camera's size on the hemisphere grid
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        save_png(str(tmp_path / f"image-{i}.png"), rng.uniform(size=(8, 6, 4)))
+    ds = make_dataset(Config(camera=CameraConfig(width=6, height=8),
+                             data=DataConfig(img_dir=str(tmp_path), view_end=3)))
+    assert ds.images.shape == (3, 8, 6, 4) and ds.mode == "angles"
     for rc in (RenderConfig(compat_density_color=True), RenderConfig(compat_sampling=True)):
         with pytest.raises(NotImplementedError, match="slice"):
             make_render(Config(render=rc))

@@ -221,15 +221,16 @@ def test_presets_resolve_like_the_jax_cli():
     assert _resolve(cli, ["train"]).use_whole_ray_train is False
 
 
-# multiscale (slice 3) and the occupancy grid and record preset (slice 4)
-# are ported: tests/test_torch_multiscale.py and tests/test_torch_occupancy.py
-# run them
+# multiscale (slice 3), the occupancy grid and record preset (slice 4) and
+# the datasets, batch modes and --preset pod (slice 6) are ported:
+# tests/test_torch_multiscale.py, tests/test_torch_occupancy.py and
+# tests/test_torch_data.py run them
 @pytest.mark.parametrize("argv,slice_no", [
-    (["train", "--img_dir", "data/x"], 6),
+    (["train", "--accumulation_steps", "2"], 7),
     (["train", "--ema_decay", "0.9"], 7),
-    (["eval", "--preset", "pod"], 6),
+    (["eval", "--scenes", "a,b"], 8),
     (["train", "--num_devices", "2"], 8),
-    (["train", "--batch_mode", "multiview"], 6),
+    (["train", "--shard_pixel_store", "true"], 8),
     (["render", "--compat", "true"], 10),
 ])
 def test_cli_names_the_slice_of_what_it_refuses(argv, slice_no, capsys):
