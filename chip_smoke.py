@@ -87,9 +87,11 @@ Phases, each fatal (any failure exits non-zero):
      with f32 lines; the backward's device time split into kernel A, the
      d_feat kernel, kernel B, the scatter, and the reduce) and its forward
      at a 4,194,304-point render chunk, and its bf16 forward and backward at
-     FAC_WIDE's geometries, each beside its plain version, a PyTorch
-     library path (F.embedding_bag over the 2L taps per axis, and its
-     autograd) and its bound.
+     FAC_WIDE's geometries, and forward and backward under bf16
+     and f32 lines at FAC_CORNERS' (100 levels x 16; one level of 60,001
+     knots x 4) on CORNER_RAYS rays' points, each beside its plain version,
+     a PyTorch library path (F.embedding_bag over the 2L taps per axis, and
+     its autograd) and its bound.
  15. K4, the row gather (gather_rows, gather_pairs), vs its plain versions,
      bit for bit, on the indices of an ngp train step (4096 rays x 128
      jittered samples, every 8th point past the AABB) captured from the
@@ -180,11 +182,30 @@ Phases, each fatal (any failure exits non-zero):
      (NGP_PSNR), unbounded and proposal (UNB_PSNR, PROP_PSNR; proposal with
      softplus density), record (REC_SEEDS, REC_PSNR), multiscale mipnerf
      (MS_PSNR) and record on the 64x64 lego (LEGO_SEEDS, its 4 test views,
-     LEGO_PSNR).
+     LEGO_PSNR). Beside them fault 6's drive (FAULT6: proposal, relu, seed 2,
+     301 steps from one start and the same draws through K2, through K2's
+     plain version in its place and through autograd); K2 and its plain
+     version must end within FAULT6_MARGIN dB of each other.
  29. times: the full and record steps through K2 on the sphere at 100x100,
      and on the lego per ray and through the host pipeline, and each mode's
      batch alone.
-The record, multiscale and lego learning drives fail the run at its end,
+ 30. slice 7 (run after phase 27): `train --preset full --ema_decay 0.999`
+     for EMA_STEPS steps at 4096 x 64 (K2 exactly once a step), its EMA
+     against the host's f32 recurrence from the weights of every step
+     (EMA_TOL), a --profile_steps window whose Chrome trace names K2's
+     train_tile_kernel, a logging step's events; a resume of EMA_RESUME steps
+     whose EMA keeps averaging from the restored one; `eval --max_views 2`
+     and `render --depth --gif --frames 4` at 800x800 on the EMA weights (K1
+     launches by the chunk plan; frame 0's depth PNG, decoded by the port,
+     within 1 LSB of render_frame's depth / far; the GIF's 4 frames of
+     800x800 by the port's header walk); `export --mesh` at 128^3 at a
+     threshold the field crosses (the .npz's shapes; the point cloud holds
+     every cell above it, the mesh has faces); one `--accumulation_steps 4
+     --raw_noise_std 1.0` step (autograd: no K2; finite weights), and four
+     micro-batches' mean gradient against the one batch's (f32, ACC_TOL);
+     then one line of times: the EMA step against the plain step
+     (interleaved windows), the EMA update alone, the sweep, the export.
+The record, multiscale and lego learning drives and fault 6's check fail the run at its end,
 after phase 29 has printed its measurements. `clock:` lines give each
 phase's wall seconds. Every kernel launch counter is set
 to 0 just before the path it counts and read just after. The line before the last is one JSON object
@@ -464,6 +485,37 @@ GOLD_SHARE = 0.98
 GOLD_EDGE = 0.25
 HOST_STEPS = 6
 LLFF_MINI = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "llff_mini")
+# phase 30 (slice 7) on the flagship preset: the EMA drive (4096 rays x 64
+# samples, K2 once a step) with a profiler window over steps 10-12 and a
+# logging step, its resume, the eval and the 800x800 sweep with --depth --gif
+# on its EMA weights, export --mesh at 128^3, and an accumulated noisy step
+EMA_ARGS = ("--preset", "full", "--dataset", "sphere", "--ema_decay", "0.999")
+EMA_STEPS = 50
+EMA_RESUME = 5
+# the EMA on the card against the host's f32 recurrence from the same
+# weights (the same operations in the same order), relative to each leaf's
+# largest entry
+EMA_TOL = 1e-6
+PROFILE_STEPS = 3
+SWEEP_FRAMES = 4
+EXPORT_RES = 128
+EMA_WINDOW = 20  # steps per timing window of the EMA step and the plain step
+# four micro-batches' mean gradient against the one batch's, f32 field at the
+# preset's widths: the summation order of 4,096 rays' sums only
+ACC_TOL = 1e-4
+# K3 at the corners fault 7 lifted (tests/test_torch_cuda.py's FAC_CORNERS),
+# timed on the points of CORNER_RAYS sphere rays (128 samples each)
+FAC_CORNERS = {"levels 100": dict(arch="factored", fac_levels=100, fac_comps=16),
+               "60,001 knots": dict(arch="factored", fac_levels=1, fac_base_res=60000,
+                                    fac_comps=4)}
+CORNER_RAYS = 1024
+# fault 6 (ROADMAP Queue 3 item 6): the proposal preset's relu drive on seed 2,
+# 301 steps from one start and the same draws through K2, through K2's plain
+# version in its place and through autograd; K2 and its plain version must
+# end within FAULT6_MARGIN dB of each other: 16x the 0.030 dB they part by,
+# 1/15 of the 7.7 dB by which a route that leaves the plateau (autograd) parts
+FAULT6 = ("proposal", "2", "301", ("--sigma_activation", "relu"))
+FAULT6_MARGIN = 0.5
 
 
 # checks whose failure fails the run at its end, after every later phase has
@@ -1162,13 +1214,17 @@ def check_union_rows(model, mcfg, rays, gold, cam) -> float:
     return max_err
 
 
-def preset_cfg(preset, *extra):
+def cli_config(argv):
+    """The config a port CLI call ``argv`` resolves to."""
     from nerf_rs_tpu_torch import cli
 
-    argv = ["train", "--preset", preset, "--dataset", "sphere", *extra]
     args = cli.build_parser().parse_args(argv)
     args._explicit = cli.explicit_dests(argv)
     return cli.config_from_args(args)
+
+
+def preset_cfg(preset, *extra):
+    return cli_config(["train", "--preset", preset, "--dataset", "sphere", *extra])
 
 
 def drive_preset(tmp: str, preset: str) -> dict:
@@ -2460,6 +2516,14 @@ def time_factored(card: str, ds, lines) -> dict:
         except ValueError as e:
             print(f"K3 at {geometry} [{card}]: refused ({e})")
             out["refused"].append(geometry)
+    # the corners fault 7 lifted, bf16 and f32 lines, on CORNER_RAYS rays' points
+    out["corners"] = []
+    for geometry, kw in FAC_CORNERS.items():
+        corner = ModelConfig(**kw)
+        out["corners"] += [dict(r, geometry=geometry) for r in time_k3_calls(
+            card, ds, corner, init_nerf_params(corner, 0, dev).lines.detach(),
+            tuple((kind, CORNER_RAYS, dt, "ray") for dt in (bf16, None)
+                  for kind in ("forward", "backward")))]
     return out
 
 
@@ -2566,6 +2630,13 @@ def ngp_fetches(cfg, points: int) -> int:
     from nerf_rs_tpu_torch.models.hashgrid import _BRICK_CHUNK
 
     return math.ceil(points / _BRICK_CHUNK) if cfg.model.hash_brick else 1
+
+
+def logging_steps_in(num_iter: int, every: int = 101) -> int:
+    """The loop's logging steps of a run of ``num_iter`` steps from 0 (it %
+    every == 0 and it > 0), each of which evaluates the field once for the
+    diagnostics (train/loop.log_diagnostics)."""
+    return (num_iter - 1) // every
 
 
 def ngp_render_fetches(cfg, rays: int) -> int:
@@ -2787,7 +2858,10 @@ def ngp_learning(pool, tmp: str):
               "--num_samples", "32"]
     cfg = ngp_cfg("brick", "--width", "64", "--height", "64", "--num_samples", "32",
                   "--num_rays", "1024")
-    want = 301 * ngp_fetches(cfg, 1024 * 32) + 3 * ngp_render_fetches(cfg, 64 * 64)
+    # the steps, the evals at 100, 200 and 300, and the diagnostics' density at
+    # the logging steps 101 and 202 (the field at the first 1,024 rays' samples)
+    want = ((301 + logging_steps_in(301)) * ngp_fetches(cfg, 1024 * 32)
+            + 3 * ngp_render_fetches(cfg, 64 * 64))
     want_scatter = 301 * ngp_fetches(cfg, 1024 * 32)
     tasks = {}
     for seed in LEARN_SEEDS:
@@ -3243,6 +3317,336 @@ def time_scatter(card: str, inputs) -> dict:
     return rows
 
 
+def ema_recurrence(seen, decay: float, ema=None) -> list:
+    """The debiased EMA of the weights ``seen`` ([(step, [host leaves])],
+    the weights after each Adam step) on the host in f32, by the port's
+    coefficients (train/step.ema_coefficients) and its order of
+    operations: e <- alpha e + beta p, from ``ema`` (zeros by default: the
+    first update keeps none of it)."""
+    import numpy as np
+
+    from nerf_rs_tpu_torch.train.step import ema_coefficients
+
+    e = ema or [np.zeros_like(p) for p in seen[0][1]]
+    for t, leaves in seen:
+        alpha, beta = (np.float32(x) for x in ema_coefficients(decay, t))
+        e = [alpha * x + beta * p for x, p in zip(e, leaves)]
+    return e
+
+
+def drive_ema(argv) -> tuple:
+    """One `cli train` ``argv`` with the weights after each Adam step
+    copied to the host (by a wrapper of train/step.update_ema, which reads
+    them): (rc, stdout, kernel_counts(), [(step, leaves)], names)."""
+    from nerf_rs_tpu_torch.train import step as step_mod
+
+    seen, names = [], []
+    real = step_mod.update_ema
+
+    def recording(state, decay):
+        named = list(step_mod.named_trainable(state))
+        names[:] = [n for n, _ in named]
+        seen.append((state.step, [p.detach().cpu().numpy() for _, p in named]))
+        real(state, decay)
+
+    step_mod.update_ema = recording
+    try:
+        reset_counts()
+        rc, out = run_cli(argv)
+        counts = kernel_counts()
+    finally:
+        step_mod.update_ema = real
+    return rc, out, counts, seen, names
+
+
+def ema_gap(path: str, names, host) -> float:
+    """The largest gap, relative to the leaf's largest entry, between the
+    EMA a checkpoint holds and the host's leaves ``host``."""
+    import torch
+
+    saved = torch.load(path, map_location="cpu", weights_only=True)["ema"]
+    return max(leaf_err(saved[n], torch.from_numpy(h)) for n, h in zip(names, host))
+
+
+def drive_slice7(tmp: str, card: str) -> dict:
+    """Phase 30, slice 7 on the card: `train --preset full --ema_decay
+    0.999` for EMA_STEPS steps (K2 exactly once a step; a profiler window of
+    PROFILE_STEPS steps whose trace names K2's kernel; the events of a
+    logging step), its EMA against the host's recurrence from the same
+    weights, a resume of EMA_RESUME steps that keeps averaging from the
+    restored EMA; `eval` and `render --depth --gif` of an 800x800 sweep on
+    the EMA weights (K1 by the chunk plan; the depth PNG against
+    render_frame's depth / far; the GIF's frames by the port's header walk);
+    `export --mesh` at 128^3; one `--accumulation_steps 4 --raw_noise_std 1`
+    step (autograd: no K2), and four micro-batches' mean gradient against
+    the one batch's. Then the times: the EMA step against the plain step in
+    interleaved windows, the EMA update alone, the sweep and the export."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.data.images import decode_png, gif_frames
+    from nerf_rs_tpu_torch.ops import rays as rays_ops
+    from nerf_rs_tpu_torch.render import default_render_chunk, render_frame
+    from nerf_rs_tpu_torch.train import checkpoint as ckpt, step as step_mod
+    from nerf_rs_tpu_torch.utils import export as export_mod
+
+    dev = torch.device("cuda")
+    ckdir = os.path.join(tmp, "ema")
+    common = ["--save_dir", ckdir, "--log_dir", ckdir]
+    argv = ["train", *EMA_ARGS, *common, "--num_iter", str(EMA_STEPS), "--eval_steps", "1000",
+            "--logging_steps", "25", "--save_steps", "1000", "--profile_steps",
+            str(PROFILE_STEPS), "--run_name", "run"]
+    rc, out, counts, seen, names = drive_ema(argv)
+    k2_train = counts["K2"]
+    path = ckpt.latest_checkpoint(ckdir)
+    if rc != 0 or counts["K2"] != EMA_STEPS or len(seen) != EMA_STEPS:
+        fail(f"EMA drive: rc {rc}, K2 launches {counts['K2']} (want {EMA_STEPS}), "
+             f"{len(seen)} EMA updates")
+    host = ema_recurrence(seen, 0.999)
+    gap = ema_gap(path, names, host)
+    run_dir = os.path.join(ckdir, "run")
+    traces = [f for f in os.listdir(run_dir) if f.startswith("trace-")]
+    trace_k2 = bool(traces) and "train_tile_kernel" in open(os.path.join(run_dir,
+                                                                       traces[0])).read()
+    events = [f for f in os.listdir(run_dir) if f.startswith("events.out.tfevents.")]
+    logged = bool(events) and b"density" in open(os.path.join(run_dir, events[0]), "rb").read()
+    print(f"EMA drive, {EMA_STEPS} steps: K2 launches {counts['K2']}, the EMA against the "
+          f"host's recurrence {gap:.3g} (tol {EMA_TOL:g}); profiler trace {traces} names K2's "
+          f"train_tile_kernel: {trace_k2}; events {events} hold the logging step's "
+          f"diagnostics: {logged}")
+    if not gap <= EMA_TOL or not trace_k2 or not logged:
+        fail(f"EMA drive: EMA gap {gap} (tol {EMA_TOL}), trace names K2 {trace_k2}, "
+             f"diagnostics logged {logged}")
+    rc, out, counts, seen2, _ = drive_ema([a if a != str(EMA_STEPS) else
+                                           str(EMA_STEPS + EMA_RESUME) for a in argv])
+    k2_resume = counts["K2"]
+    resumed = ckpt.latest_checkpoint(ckdir)
+    saved = torch.load(path, map_location="cpu", weights_only=True)["ema"]
+    host2 = ema_recurrence(seen2, 0.999, [saved[n].numpy() for n in names])
+    gap2 = ema_gap(resumed, names, host2)
+    print(f"EMA resume to {EMA_STEPS + EMA_RESUME}: K2 launches {counts['K2']}, the EMA "
+          f"against the recurrence from the restored one {gap2:.3g}")
+    if rc != 0 or counts["K2"] != EMA_RESUME or f"at step {EMA_STEPS}" not in out or \
+            not gap2 <= EMA_TOL:
+        fail(f"EMA resume: rc {rc}, K2 launches {counts['K2']} (want {EMA_RESUME}), gap {gap2}")
+
+    # eval and the 800x800 sweep on the EMA weights
+    reset_counts()
+    rc, out = run_cli(["eval", *EMA_ARGS, *common, "--max_views", "2"])
+    k1_eval = kernel_counts()["K1"]
+    m = re.search(r"mean psnr over \d+ \S+ views: (\S+)", out)
+    if rc != 0 or k1_eval != 2 or "using EMA weights" not in out or m is None or \
+            not math.isfinite(float(m.group(1))):
+        fail(f"eval on the EMA weights: rc {rc}, K1 launches {k1_eval} (want 2)")
+    sweep = os.path.join(tmp, "ema-sweep")
+    rargv = ["render", *EMA_ARGS, *common, "--width", str(FRAME), "--height", str(FRAME),
+             "--frames", str(SWEEP_FRAMES), "--depth", "true", "--gif", "true",
+             "--out_dir", sweep]
+    rcfg = cli_config(rargv)
+    want_k1 = math.ceil(SWEEP_FRAMES * FRAME * FRAME / default_render_chunk(
+        rcfg.render, fused=True, model_cfg=rcfg.model))
+    reset_counts()
+    (rc, out), sweep_s = timed_call(lambda: run_cli(rargv))
+    k1_sweep = kernel_counts()["K1"]
+    if rc != 0 or k1_sweep != want_k1 or "using EMA weights" not in out:
+        fail(f"render --depth --gif: rc {rc}, K1 launches {k1_sweep} (want {want_k1})")
+    ema = ckpt.load_ema(resumed, step_mod.init_state(rcfg, dev).params)
+    angles = rays_ops.spherical_render_path(SWEEP_FRAMES, math.pi / 6, dev)
+    pose = rays_ops.pose_from_yaw_pitch(angles[:1, 0], angles[:1, 1])[0]
+    o, d = rays_ops.maybe_ndc(*rays_ops.ray_grid(pose, rcfg.camera), rcfg.camera)
+    _, depth, _ = render_frame(rcfg, ema, o, d)
+    want = (torch.clamp(depth / rcfg.camera.far, 0, 1) * 255.0).to(torch.uint8).cpu().numpy()
+    with open(os.path.join(sweep, "frame-000-depth.png"), "rb") as f:
+        got = decode_png(f.read())[..., 0]
+    depth_lsb = int(np.abs(got.astype(int) - want.astype(int)).max())
+    with open(os.path.join(sweep, "sweep.gif"), "rb") as f:
+        gif = gif_frames(f.read())
+    print(f"render --depth --gif, {SWEEP_FRAMES} frames of {FRAME}x{FRAME}: K1 launches "
+          f"{k1_sweep} (want {want_k1}), depth PNG vs render_frame's depth / far {depth_lsb} "
+          f"LSB, GIF screen and frames {gif[0]} x {len(gif[1])}")
+    if depth_lsb > 1 or gif != ((FRAME, FRAME), [(FRAME, FRAME)] * SWEEP_FRAMES):
+        fail(f"render --depth --gif: depth PNG {depth_lsb} LSB off, GIF {gif}")
+
+    # export --mesh at 128^3, at the default threshold where the EMA field's
+    # density passes it, else halfway up its range
+    sigma, _ = export_mod.sample_density_grid(ema, rcfg.model, res=EXPORT_RES)
+    grid_s = timed_call(lambda: export_mod.sample_density_grid(ema, rcfg.model,
+                                                               res=EXPORT_RES))[1]
+    thr = 5.0 if (sigma > 5.0).any() else float(0.5 * (sigma.min() + sigma.max()))
+    prefix = os.path.join(tmp, "ema-export", "field")
+    (rc, out), mesh_s = timed_call(lambda: run_cli([
+        "export", *EMA_ARGS, *common, "--grid_res", str(EXPORT_RES), "--out", prefix,
+        "--threshold", str(thr), "--mesh", "true"]))
+    grid = np.load(prefix + ".npz")
+    points = int(re.search(r"element vertex (\d+)", open(prefix + ".ply").read()).group(1))
+    with open(prefix + "_mesh.ply") as f:
+        faces = int(re.search(r"element face (\d+)", f.read(400)).group(1))
+    above = int((grid["sigma"] > thr).sum())
+    print(f"export --mesh at {EXPORT_RES}^3: sigma in [{sigma.min():.3g}, {sigma.max():.3g}], "
+          f"threshold {thr:.3g}: {points} points ({above} cells above), {faces} faces")
+    if rc != 0 or grid["sigma"].shape != (EXPORT_RES,) * 3 or \
+            grid["rgb"].shape != (EXPORT_RES,) * 3 + (3,) or points != above or above == 0 \
+            or faces == 0:
+        fail(f"export --mesh: rc {rc}, sigma {grid['sigma'].shape}, rgb {grid['rgb'].shape}, "
+             f"{points} points of {above} cells above {thr}, {faces} faces")
+
+    # one accumulated step with sigma noise (autograd, as in the JAX package)
+    reset_counts()
+    adir = os.path.join(tmp, "acc")
+    rc, out = run_cli(["train", "--preset", "full", "--dataset", "sphere", "--num_iter", "1",
+                       "--accumulation_steps", "4", "--raw_noise_std", "1.0",
+                       "--save_dir", adir, "--log_dir", adir])
+    blob = torch.load(ckpt.latest_checkpoint(adir), map_location="cpu", weights_only=True)
+    finite = all(bool(torch.isfinite(v).all()) for v in blob["params"].values())
+    if rc != 0 or kernel_counts()["K2"] != 0 or not finite:
+        fail(f"accumulated noisy step: rc {rc}, K2 {kernel_counts()['K2']} (want 0), "
+             f"finite weights {finite}")
+    # with noise 0, four micro-batches' mean gradient against the one batch's
+    acfg = cli_config(["train", "--preset", "full", "--dataset", "sphere", "--precision", "f32",
+                       "--accumulation_steps", "4"])
+    acfg = dataclasses.replace(acfg, render=dataclasses.replace(acfg.render, randomized=False))
+    ds = make_dataset(acfg, dev)
+    batch = ds.sample_batch(step_mod.step_generator(0, 0, dev), acfg.train.num_rays)
+    state = step_mod.init_state(acfg, dev)
+    acc_grads, _ = step_mod.accumulated_grads(state, batch, None, acfg)
+    acc_grads = {k: v.clone() for k, v in acc_grads.items()}
+    state.optimizer.zero_grad(set_to_none=True)
+    step_mod.loss_fn(state.params, batch, None, acfg)[0].backward()
+    acc_err = max(leaf_err(acc_grads[n], p.grad) for n, p in step_mod.named_trainable(state))
+    print(f"accumulated noisy step: finite weights, K2 launches 0 (autograd); four "
+          f"micro-batches against one batch of {acfg.train.num_rays} rays, f32: {acc_err:.3g} "
+          f"(tol {ACC_TOL:g})")
+    if not acc_err <= ACC_TOL:
+        fail(f"accumulated gradients {acc_err} from the one-batch gradients (tol {ACC_TOL})")
+
+    # times: the EMA step against the plain step in interleaved windows
+    ecfg = cli_config(["train", *EMA_ARGS])
+    pcfg = cli_config(["train", "--preset", "full", "--dataset", "sphere"])
+    ds = make_dataset(ecfg, dev)
+    runs = {}
+    for name, c in (("EMA", ecfg), ("plain", pcfg)):
+        st = step_mod.init_state(c, dev)
+        fn = step_mod.make_train_step(c, ds)
+        it = [0]
+
+        def run(k, fn=fn, holder=[st], it=it):
+            for _ in range(k):
+                holder[0], _ = fn(holder[0], step_mod.step_generator(0, it[0], dev))
+                it[0] += 1
+        run(3)
+        runs[name] = (run, st)
+    best = {"EMA": math.inf, "plain": math.inf}
+    for _ in range(3):
+        for name in ("EMA", "plain", "plain", "EMA"):
+            best[name] = min(best[name], best_of(lambda: runs[name][0](EMA_WINDOW), 1))
+    ema_ms, plain_ms = (best[k] / EMA_WINDOW * 1e3 for k in ("EMA", "plain"))
+    est = runs["EMA"][1]
+    update_ms = event_ms(lambda: step_mod.update_ema(est, 0.999))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            step_mod.update_ema(est, 0.999)
+        torch.cuda.synchronize()
+    update_dev_us = sum(device_ms(prof).values()) / 10 * 1e3
+    nparams = sum(p.numel() for _, p in step_mod.named_trainable(est))
+    print(f"slice 7 times [{card}]: flagship step with the EMA {ema_ms:.3f} ms against "
+          f"{plain_ms:.3f} ms without (best of 6 interleaved windows of {EMA_WINDOW}), the EMA "
+          f"update alone {update_ms * 1e3:.1f} us over {nparams} parameters (CUDA events; "
+          f"{update_dev_us:.1f} us of device time, profiled); "
+          f"`render --depth --gif` of {SWEEP_FRAMES} {FRAME}x{FRAME} frames {sweep_s:.3f} s "
+          f"({sweep_s / SWEEP_FRAMES:.3f} s a frame, CLI wall with the PNGs and the GIF); "
+          f"`export --mesh` at {EXPORT_RES}^3 {mesh_s:.3f} s (CLI wall; the grid alone "
+          f"{grid_s:.3f} s)")
+    return {"k2_train": k2_train, "k2_resume": k2_resume, "k1_eval": k1_eval,
+            "k1_sweep": k1_sweep, "ema_gap": max(gap, gap2), "depth_lsb": depth_lsb,
+            "acc_err": acc_err, "ema_step_ms": ema_ms, "plain_step_ms": plain_ms,
+            "ema_update_us": update_ms * 1e3, "ema_update_device_us": update_dev_us,
+            "params": nparams, "sweep_s": sweep_s,
+            "export_mesh_s": mesh_s, "grid_s": grid_s,
+            "mesh_faces": faces, "export_points": points}
+
+
+def witness_cfg(preset: str, seed: str, extra):
+    """The config of the preset's 64x64 learning drive as learn_seeds runs
+    it (--num_samples 32, 1024 rays, lr 1e-3 unless ``extra`` sets one), on
+    ``seed``, with the CLI flags ``extra``: the routes of witness_steps and
+    fault6_routes."""
+    lr = [] if "--learning_rate" in extra else ["--learning_rate", "1e-3"]
+    return preset_cfg(preset, "--width", "64", "--height", "64", "--num_samples", "32",
+                      "--num_rays", "1024", "--seed", seed, *lr, *extra)
+
+
+def eval_psnr(cfg, state, ds) -> float:
+    """The mean PSNR of ``state``'s fields over the first LEARN_VIEWS views
+    of ``ds`` (what `cli eval --max_views LEARN_VIEWS` prints)."""
+    from nerf_rs_tpu_torch.ops import render as render_ops
+    from nerf_rs_tpu_torch.render import make_render, render_frame
+
+    render_fn, psnrs = make_render(cfg), []
+    for v in range(LEARN_VIEWS):
+        rgb, _, _ = render_frame(cfg, state.params, *ds.view_rays(v), render_fn,
+                                 fine_params=state.fine_params, grid=state.grid)
+        psnrs.append(float(render_ops.psnr(rgb, ds.view_gold(v))))
+    return sum(psnrs) / len(psnrs)
+
+
+def fault6_routes(preset: str, seed: str, steps: str, extra) -> dict:
+    """Fault 6's drive in a learning pool process: the preset's 64x64
+    drive (as learn_seeds runs it, with the CLI flags ``extra``) for
+    ``steps`` steps from the same start and draws through K2, through K2's
+    plain version in its place (plain_train_route) and through autograd,
+    one route after another; each route's loss at the last step, its K2
+    launches and its mean eval PSNR over LEARN_VIEWS views."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.train.loop import update_occupancy
+    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+
+    dev = torch.device("cuda")
+    cfg = witness_cfg(preset, seed, extra)
+    ds = make_dataset(cfg, dev)
+    out = {}
+    for route in ("K2", "plain", "autograd"):
+        c = cfg if route != "autograd" else dataclasses.replace(cfg, use_whole_ray_train=False)
+        reset_counts()
+        with plain_train_route() if route == "plain" else contextlib.nullcontext():
+            state, fn = init_state(c, dev), make_train_step(c, ds)
+            for it in range(int(steps)):
+                state, aux = fn(state, step_generator(c.train.seed, it, dev))
+                if state.grid is not None and it % c.render.occ_update_steps == 0:
+                    state.grid = update_occupancy(state, c, it)
+        out[route] = {"psnr": eval_psnr(c, state, ds), "loss": float(aux["loss"]),
+                      "k2": kernel_counts()["K2"]}
+    return out
+
+
+def fault6_check(task) -> dict:
+    """Waits for fault 6's drive and holds K2 and its plain version within
+    FAULT6_MARGIN dB (a miss fails the run at its end)."""
+    preset, seed, steps, extra = FAULT6
+    routes = task.result()
+    gap = abs(routes["K2"]["psnr"] - routes["plain"]["psnr"])
+    print(f"fault 6: {preset} {' '.join(extra)} seed {seed}, {steps} steps from one start and "
+          f"draws: mean eval psnr over {LEARN_VIEWS} views through K2 {routes['K2']['psnr']:.3f} "
+          f"(K2 launches {routes['K2']['k2']}), through K2's plain version "
+          f"{routes['plain']['psnr']:.3f} ({routes['plain']['k2']}), through autograd "
+          f"{routes['autograd']['psnr']:.3f}; K2 - plain {gap:.3f} dB (margin {FAULT6_MARGIN}); "
+          f"last losses " + ", ".join(f"{k} {r['loss']:.5f}" for k, r in routes.items()))
+    if routes["K2"]["k2"] != int(steps) or routes["plain"]["k2"] or routes["autograd"]["k2"]:
+        fail(f"fault 6 drive: K2 launches {[r['k2'] for r in routes.values()]} "
+             f"(want {steps}, 0, 0)")
+    if not gap <= FAULT6_MARGIN:
+        msg = f"fault 6: K2 and its plain version {gap:.3f} dB apart (margin {FAULT6_MARGIN})"
+        print(f"chip_smoke: {msg}; the run fails at its end")
+        DEFERRED.append(msg)
+    return {**routes, "gap_db": gap, "margin_db": FAULT6_MARGIN}
+
+
 def learn_seeds(preset: str, seeds: str, extra) -> int:
     """The preset's 64x64 learning drive as the learning checks run it
     (--num_samples 32, 1024 rays, lr 1e-3 unless ``extra`` sets one, 301
@@ -3449,16 +3853,13 @@ def witness_steps(preset: str, seed: str, steps: str, extra) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version: full f32
     from nerf_rs_tpu_torch.data.factory import make_dataset
     from nerf_rs_tpu_torch.kernels import fused_train
-    from nerf_rs_tpu_torch.ops import render as render_ops, sampling
-    from nerf_rs_tpu_torch.render import make_render, render_frame
+    from nerf_rs_tpu_torch.ops import sampling
     from nerf_rs_tpu_torch.train.loop import update_occupancy
     from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
 
     card = card_line()
     dev = torch.device("cuda")
-    lr = [] if "--learning_rate" in extra else ["--learning_rate", "1e-3"]
-    cfg = preset_cfg(preset, "--width", "64", "--height", "64", "--num_samples", "32",
-                     "--num_rays", "1024", "--seed", seed, *lr, *extra)
+    cfg = witness_cfg(preset, seed, extra)
     ds = make_dataset(cfg, dev)
     routes = {"K2": cfg, "plain": cfg,
               "autograd": dataclasses.replace(cfg, use_whole_ray_train=False)}
@@ -3533,13 +3934,8 @@ def witness_steps(preset: str, seed: str, steps: str, extra) -> int:
           + f"{past['plain']}; largest K2 witness gaps "
           + ", ".join(f"{k} {v:.3g} (tol {fused_train.KERNEL_TOL[k]:g})" for k, v in worst.items()))
     for k, c in routes.items():
-        render_fn, st, psnrs = make_render(c), states[k], []
-        for v in range(LEARN_VIEWS):
-            rgb, _, _ = render_frame(c, st.params, *ds.view_rays(v), render_fn,
-                                     fine_params=st.fine_params, grid=st.grid)
-            psnrs.append(float(render_ops.psnr(rgb, ds.view_gold(v))))
         print(f"witness eval {preset} seed {seed} route {k} after {steps} steps: mean psnr "
-              f"{sum(psnrs) / len(psnrs):.2f} over {LEARN_VIEWS} views")
+              f"{eval_psnr(c, states[k], ds):.2f} over {LEARN_VIEWS} views")
     return 0
 
 
@@ -3806,9 +4202,14 @@ def main() -> int:
         other_counts = drive_llff_and_multiview(tmp)
 
         lap("phase 27")
+        # ---- 30. slice 7: the EMA, its eval, sweep and export, accumulation ----
+        slice7 = drive_slice7(tmp, card)
+
+        lap("phase 30")
         # ---- 28. the learning drives of every path, LEARN_WORKERS at a time ----
         for task in warm:
             task.result()
+        fault6_task = pool.submit(fault6_routes, *FAULT6[:3], FAULT6[3])
         unb_bars = {"unbounded": UNB_PSNR, "proposal": PROP_PSNR}
         rec_finish = learning_drive(pool, tmp, "record", bar=REC_PSNR, defer=True,
                                     seeds=REC_SEEDS)
@@ -3826,6 +4227,7 @@ def main() -> int:
                                         "--img_dir", scenes["lego64"][0]),
             bar=LEGO_PSNR, name="record-lego", defer=True, seeds=LEGO_SEEDS)
         learned = {k: fn() for k, fn in finish.items()}
+        fault6 = fault6_check(fault6_task)
         pool.shutdown()
         lap("phase 28")
         # ---- 29. the steps on the scene and the sphere, per ray and host ----
@@ -3904,7 +4306,7 @@ def main() -> int:
     max_err = max(max_err, *(r["max_abs_err"] for r in rec_rows if r["kernel"] == "K1"))
     train_err = max(train_err, *(r["max_abs_err"] for r in rec_rows if r["kernel"] == "K2"))
     rec_times = time_presets(card, ("record",), profiled=("record",))
-    wide_rows = fac_times["wide"]
+    wide_rows, corner_rows = fac_times["wide"], fac_times["corners"]
     if fac_times["refused"]:
         fail(f"K3 refused {fac_times['refused']}, which it takes since fault 5's repair")
 
@@ -3926,11 +4328,14 @@ def main() -> int:
                 **{f"{p}_{k}": c[k] for p, c in {**path_counts, **data_counts}.items()
                    for k in ("train_eval", "render", "eval")},
                 "mipnerf_ms_train_eval": ms_counts["train_eval"],
-                "mipnerf_ms_eval_scales": ms_counts["eval_scales"]}
+                "mipnerf_ms_eval_scales": ms_counts["eval_scales"],
+                "ema_eval": slice7["k1_eval"], "ema_sweep_depth_gif": slice7["k1_sweep"]}
     k2_paths = {"train_flagship": train_launches,
                 **{f"{p}_train": c["train"] for p, c in {**path_counts, **data_counts}.items()},
                 "record_resume": rec_counts["resume"], "mipnerf_ms_train": ms_counts["train"],
-                **host_counts, "record_lego_learning": learned["record_lego"].pop("launches")}
+                **host_counts, "record_lego_learning": learned["record_lego"].pop("launches"),
+                "ema_train": slice7["k2_train"], "ema_resume": slice7["k2_resume"],
+                "fault6_proposal_relu_seed2": fault6["K2"]["k2"]}
     scatter_paths = {f"ngp_{layout}_train": c["train_scatter"] for layout, c in ngp_counts.items()}
     ngp_learned, fac_learned = learned.pop("ngp"), learned.pop("factored")
     scatter_paths["ngp_brick_learning"] = ngp_learned.pop("scatter_launches")
@@ -3984,7 +4389,8 @@ def main() -> int:
         "bound_by": fac_fwd["bound_by"],
         "library_ms": fac_fwd["library_ms"],
         "points": fac_fwd["points"],
-        "cases": [fac_chunk, fac_f32, *(r for r in wide_rows if r["kernel"] == "forward")],
+        "cases": [fac_chunk, fac_f32, *(r for r in wide_rows + corner_rows
+                                          if r["kernel"] == "forward")],
     }, {
         "name": "fused_factored_encode_backward",
         "route": "cuda",
@@ -4000,7 +4406,7 @@ def main() -> int:
                                    "library_ms", "points", "kernel_a_ms", "kernel_b_ms",
                                    "reduce_ms", "device_ms")},
         "cases": [fac_bwd_shuffled, fac_bwd_f32,
-                  *(r for r in wide_rows if r["kernel"] == "backward")],
+                  *(r for r in wide_rows + corner_rows if r["kernel"] == "backward")],
     }, *({
         "name": name,
         "route": "cuda",
@@ -4032,7 +4438,8 @@ def main() -> int:
         "multiscale": {"psnr_by_scale": ms_counts["psnr_by_scale"]},
         "factored": {**fac_times, "frame_s": fac_counts["frame_s"],
                      "learning": fac_learned},
-        "ngp": {**ngp_times, "learning": ngp_learned}}))
+        "ngp": {**ngp_times, "learning": ngp_learned},
+        "slice7": slice7, "fault6": fault6}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, build included")
     if DEFERRED:
         fail("; ".join(DEFERRED))

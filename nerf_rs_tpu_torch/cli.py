@@ -1,6 +1,6 @@
-"""CLI of the port: ``train``, ``eval`` and ``render``, the counterparts
-of ``cmd_train``, ``cmd_eval`` and ``cmd_render`` in
-``nerf_rs_tpu/cli.py``.
+"""CLI of the port: ``train``, ``eval``, ``render`` and ``export``, the
+counterparts of ``cmd_train``, ``cmd_eval``, ``cmd_render`` and
+``cmd_export`` in ``nerf_rs_tpu/cli.py``.
 
   python -m nerf_rs_tpu_torch.cli train --preset full --dataset sphere
   python -m nerf_rs_tpu_torch.cli train --preset hierarchical --dataset sphere
@@ -17,6 +17,9 @@ of ``cmd_train``, ``cmd_eval`` and ``cmd_render`` in
   python -m nerf_rs_tpu_torch.cli eval --preset record --dataset blender --img_dir data/proclego
   python -m nerf_rs_tpu_torch.cli train --dataset llff --img_dir data/fern --ndc true
   python -m nerf_rs_tpu_torch.cli train --preset pod --dataset blender --img_dir data/proclego
+  python -m nerf_rs_tpu_torch.cli train --preset full --dataset sphere --ema_decay 0.999
+  python -m nerf_rs_tpu_torch.cli render --preset full --dataset sphere --depth true --gif true
+  python -m nerf_rs_tpu_torch.cli export --preset full --dataset sphere --grid_res 128 --mesh true
 
 It takes the JAX parser's flags that the ported slices serve, with the
 JAX defaults (``--use_whole_ray_train`` is off unless a preset turns it
@@ -52,9 +55,17 @@ host pipeline's ``--prefetch``, ``--data_workers`` and
 ``--use_native_loader``, the C++ gather) and error-weighted resampling
 (``--error_resample_frac``, ``--error_resample_ema``; ``--preset pod`` is
 that alone on one card, its data parallelism is slice 8's).
-Flags, presets and values of slices not ported yet, and the ``export``
-subcommand, are refused with an error that names the slice, never
-ignored.
+Slice 7: the weights' EMA (``--ema_decay``; eval, render and export use
+the EMA weights of a checkpoint that holds them), gradient accumulation
+(``--accumulation_steps``), the paper's sigma noise (``--raw_noise_std``,
+a flag the JAX parser lacks: its ``RenderConfig`` field), the TensorBoard
+events and diagnostics in the run directory (``--logging_steps``,
+``--log_densities_only``), the profiler window (``--profile_steps``),
+``render --depth`` (a depth / far and an acc PNG beside each frame) and
+``--gif`` (``sweep.gif``, written by the port) and ``export`` (the density
+grid as ``.npz``, a ``.ply`` point cloud, with ``--mesh`` a marching-
+tetrahedra mesh). Flags of slices not ported yet are refused with an error
+that names the slice, never ignored.
 
 Runs go to the card (the paper field trains through the whole-ray train
 kernel and renders through the render kernel) unless ``--device cpu`` asks for
@@ -85,11 +96,8 @@ from .config import (
 
 from .train.loop import resolve_device
 
-LATER = {"export": "slice 7"}
-
 # the JAX parser's flags that later slices bring, by slice
 _LATER_FLAGS = {
-    7: "ema_decay accumulation_steps profile_steps log_densities_only depth gif",
     8: "num_devices shard_pixel_store scenes scene_index",
     10: "compat",
 }
@@ -115,6 +123,8 @@ def build_parser() -> argparse.ArgumentParser:
     _bool_flag(common, "eval_on_train", True)
     _bool_flag(common, "live_preview", False,
                "print eval frames in the terminal (ANSI half-blocks)")
+    _bool_flag(common, "log_densities_only", False,
+               "the eval hook logs no prediction or depth images")
     common.add_argument("--log_dir", default="logs")
     common.add_argument("--save_dir", default="checkpoints")
     common.add_argument("--load_path", default="")
@@ -127,6 +137,19 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("--lr_decay_steps", type=int, default=0,
                         help="exponential decay horizon (0 = constant lr)")
     common.add_argument("--lr_final", type=float, default=5e-6)
+    common.add_argument("--ema_decay", type=float, default=0.0,
+                        help="EMA of the trainable weights for eval, render and export (0 = "
+                             "off); the averaging window 1/(1-d) a small fraction of num_iter "
+                             "(0.999 for 30k iterations)")
+    common.add_argument("--accumulation_steps", type=int, default=1,
+                        help="micro-batches whose gradients one Adam update averages")
+    common.add_argument("--raw_noise_std", type=float, default=0.0,
+                        help="std of the noise on the raw density of randomized passes (the "
+                             "paper's regulariser; trains through autograd)")
+    common.add_argument("--profile_steps", type=int, default=0,
+                        help="trace N steps with torch.profiler, from the 10th after the "
+                             "run's first step, into a Chrome trace in the run directory "
+                             "(0 = off)")
     common.add_argument("--img_dir", default="data/monkey-128-no-shading-2d-6")
     common.add_argument("--view_start", type=int, default=0)
     common.add_argument("--view_end", type=int, default=84)
@@ -292,6 +315,22 @@ def build_parser() -> argparse.ArgumentParser:
                     help="render one dataset view instead of a sweep")
     pr.add_argument("--frames", type=int, default=40, help="spherical sweep length")
     pr.add_argument("--pitch", type=float, default=math.pi / 6)
+    _bool_flag(pr, "gif", False, "also write the sweep as an animated sweep.gif")
+    _bool_flag(pr, "depth", False,
+               "also write depth (expected termination distance / far) and acc (opacity) PNGs "
+               "beside each frame")
+
+    px = sub.add_parser("export", parents=[common])
+    px.add_argument("--grid_res", type=int, default=128, help="density grid resolution per axis")
+    px.add_argument("--export_aabb", type=float, default=1.6,
+                    help="half-extent of the sampled cube")
+    px.add_argument("--threshold", type=float, default=5.0,
+                    help="sigma cutoff of the .ply point cloud and the mesh")
+    px.add_argument("--out", default="export/field",
+                    help="output prefix; writes <out>.npz and <out>.ply")
+    _bool_flag(px, "mesh", False,
+               "also extract the --threshold isosurface as a triangle mesh (marching "
+               "tetrahedra) into <out>_mesh.ply")
     return p
 
 
@@ -408,6 +447,7 @@ def config_from_args(args) -> Config:
                           fac_comps=args.fac_comps, fac_aabb=args.fac_aabb,
                           fac_l1=args.fac_l1, sigma_activation=args.sigma_activation,
                           ipe=args.ipe, contract=args.contract),
+        log_densities_only=args.log_densities_only,
         render=RenderConfig(num_samples=args.num_samples,
                             num_fine_samples=args.num_fine_samples,
                             share_network=args.share_network,
@@ -420,7 +460,8 @@ def config_from_args(args) -> Config:
                             occ_bins=args.occ_bins,
                             occ_decay=args.occ_decay,
                             occ_uniform_frac=args.occ_uniform_frac,
-                            sampling_space=args.sampling_space),
+                            sampling_space=args.sampling_space,
+                            raw_noise_std=args.raw_noise_std),
         train=TrainConfig(
             num_rays=args.num_rays,
             learning_rate=args.learning_rate,
@@ -435,6 +476,9 @@ def config_from_args(args) -> Config:
             distortion_weight=args.distortion_weight,
             error_resample_frac=args.error_resample_frac,
             error_resample_ema=args.error_resample_ema,
+            accumulation_steps=args.accumulation_steps,
+            ema_decay=args.ema_decay,
+            profile_steps=args.profile_steps,
         ),
         data=DataConfig(dataset=args.dataset, img_dir=args.img_dir,
                         view_start=args.view_start, view_end=args.view_end,
@@ -465,17 +509,23 @@ def _load_params(cfg: Config, device):
     hierarchical run, or the proposal net; and the occupancy grid with
     --occ_res) with the weights of --load_path, else of the newest
     checkpoint in --save_dir (weights only: inference does not depend on
-    the optimizer). Returns (params, second net or None, grid or None,
-    path or None)."""
+    the optimizer), its EMA weights where the file holds them (without
+    --ema_decay too, as the JAX CLI's ``_restore_for_inference``). Returns
+    (params, second net or None, grid or None, path or None)."""
     from .train import checkpoint as ckpt
     from .train.step import init_state
 
     state = init_state(cfg, device)
+    params, fine = state.params, state.fine_params
     load_path = cfg.load_path or ckpt.latest_checkpoint(cfg.save_dir)
     if load_path:
-        step = ckpt.restore_weights(load_path, state.params, state.fine_params, state.grid)
+        step = ckpt.restore_weights(load_path, params, fine, state.grid)
         print(f"loaded {load_path} (step {step})")
-    return state.params, state.fine_params, state.grid, load_path
+        ema = ckpt.load_ema(load_path, params, fine)
+        if ema is not None:
+            print("using EMA weights for inference")
+            params, fine = ema if isinstance(ema, tuple) else (ema, fine)
+    return params, fine, state.grid, load_path
 
 
 def cmd_train(args) -> int:
@@ -550,8 +600,13 @@ def cmd_eval(args) -> int:
 
 
 def cmd_render(args) -> int:
+    """One dataset view (``--view``) or a spherical sweep of ``--frames``
+    frames in one render call; with ``--depth`` a ``-depth.png`` (the
+    expected termination distance over far, clipped to [0, 1]) and an
+    ``-acc.png`` beside each frame, with ``--gif`` the sweep as
+    ``sweep.gif``."""
     from .data.factory import effective_config, make_dataset
-    from .data.images import save_png
+    from .data.images import save_gif, save_png
     from .ops import rays as rays_ops, render as render_ops
     from .render import make_render, render_frame
 
@@ -566,13 +621,23 @@ def cmd_render(args) -> int:
 
     os.makedirs(args.out_dir, exist_ok=True)
     t0 = time.time()
+
+    def save_depth_acc(stem, depth, acc):
+        # depth / far: a scale-free PNG; acc is in [0, 1]; grey as RGB
+        dn = torch.clamp(depth / cfg.camera.far, 0.0, 1.0)
+        save_png(stem + "-depth.png", dn[..., None].expand(*dn.shape, 3))
+        an = torch.clamp(acc, 0.0, 1.0)
+        save_png(stem + "-acc.png", an[..., None].expand(*an.shape, 3))
+
     if args.view >= 0:
         o, d = dataset.view_rays(args.view)
-        rgb, _, _ = render_frame(cfg, params, o, d, render_fn, fine_params=fine_params,
-                                 grid=grid)
+        rgb, depth, acc = render_frame(cfg, params, o, d, render_fn, fine_params=fine_params,
+                                       grid=grid)
         psnr = float(render_ops.psnr(rgb, dataset.view_gold(args.view)))
         path = os.path.join(args.out_dir, f"view-{args.view}.png")
         save_png(path, rgb)
+        if args.depth:
+            save_depth_acc(os.path.join(args.out_dir, f"view-{args.view}"), depth, acc)
         print(f"{path}  psnr={psnr:.2f}  ({time.time()-t0:.2f}s)")
         return 0
 
@@ -584,14 +649,57 @@ def cmd_render(args) -> int:
              for i in range(args.frames)]
     big_o = torch.cat([o.reshape(-1, 3) for o, _ in grids]).reshape(args.frames * h, w, 3)
     big_d = torch.cat([d.reshape(-1, 3) for _, d in grids]).reshape(args.frames * h, w, 3)
-    rgb, _, _ = render_frame(cfg, params, big_o, big_d, render_fn, fine_params=fine_params,
-                             grid=grid)
+    rgb, depth, acc = render_frame(cfg, params, big_o, big_d, render_fn,
+                                   fine_params=fine_params, grid=grid)
     rgb = rgb.reshape(args.frames, h, w, 3).cpu()
+    depth = depth.reshape(args.frames, h, w).cpu()
+    acc = acc.reshape(args.frames, h, w).cpu()
     for i in range(args.frames):
         save_png(os.path.join(args.out_dir, f"frame-{i:03d}.png"), rgb[i])
+        if args.depth:
+            save_depth_acc(os.path.join(args.out_dir, f"frame-{i:03d}"), depth[i], acc[i])
+    if args.gif:
+        gif_path = os.path.join(args.out_dir, "sweep.gif")
+        save_gif(gif_path, rgb, fps=10, loop=0)
+        print(f"wrote {gif_path}")
     dt = time.time() - t0
     print(f"rendered {args.frames} frames of {w}x{h} "
           f"in {dt:.2f}s ({dt/args.frames:.3f}s/frame)")
+    return 0
+
+
+def cmd_export(args) -> int:
+    """The trained field (its EMA weights where the checkpoint holds them)
+    sampled on a ``--grid_res``^3 grid through the eager field (``.npz``),
+    the cells above ``--threshold`` as a coloured point cloud (``.ply``)
+    and, with ``--mesh``, the threshold's isosurface as a triangle mesh
+    (``_mesh.ply``)."""
+    from .utils import export as export_mod
+    from .utils import mesh as mesh_mod
+
+    cfg = config_from_args(args)
+    device = resolve_device(args.device)
+    params, _, _, load_path = _load_params(cfg, device)
+    if not load_path:
+        print("error: no checkpoint found (use --load_path or --save_dir)")
+        return 1
+    t0 = time.time()
+    sigma, rgb = export_mod.sample_density_grid(params, cfg.model, res=args.grid_res,
+                                                aabb=args.export_aabb)
+    out_dir = os.path.dirname(args.out)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    export_mod.save_npz(args.out + ".npz", sigma, rgb, args.export_aabb)
+    xyz, rgb8 = export_mod.occupied_points(sigma, rgb, args.export_aabb, args.threshold)
+    export_mod.save_ply(args.out + ".ply", xyz, rgb8)
+    print(f"exported {args.grid_res}^3 grid -> {args.out}.npz, {xyz.shape[0]} points "
+          f"(sigma > {args.threshold}) -> {args.out}.ply in {time.time()-t0:.1f}s")
+    if args.mesh:
+        verts, faces, colors = mesh_mod.marching_tetrahedra(sigma, args.threshold,
+                                                            args.export_aabb, rgb=rgb)
+        mesh_path = args.out + "_mesh.ply"
+        mesh_mod.save_mesh_ply(mesh_path, verts, faces, colors)
+        print(f"mesh: {verts.shape[0]} verts / {faces.shape[0]} faces -> {mesh_path}")
     return 0
 
 
@@ -602,10 +710,6 @@ def _later(flag: str) -> str:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv and argv[0] in LATER:
-        print(f"error: `{argv[0]}` is not ported yet (it comes with "
-              f"{LATER[argv[0]]} of the port)", file=sys.stderr)
-        return 2
     parser = build_parser()
     args, unknown = parser.parse_known_args(argv)
     if unknown:
@@ -614,7 +718,8 @@ def main(argv=None) -> int:
     args._explicit = explicit_dests(argv)
     # the kernels' plain versions and any f32 matmul must stay full f32
     torch.backends.cuda.matmul.allow_tf32 = False
-    cmd = {"train": cmd_train, "eval": cmd_eval, "render": cmd_render}[args.cmd]
+    cmd = {"train": cmd_train, "eval": cmd_eval, "render": cmd_render,
+           "export": cmd_export}[args.cmd]
     try:
         return cmd(args)
     except NotImplementedError as e:

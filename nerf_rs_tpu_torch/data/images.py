@@ -14,7 +14,14 @@ clips it on the way to RGBA); a grey of 1, 2 or 4 bits is scaled to 8. A
 chunk's samples as written (a 1-bit grey's scaled to 255), as PIL compares
 them. What it does not decode raises a ``ValueError``
 that names the case: an interlaced (Adam7) PNG, and JPEG, which the card has
-no decoder for. ``save_png`` writes 8-bit RGB or RGBA PNGs.
+no decoder for. ``save_png`` writes 8-bit RGB or RGBA PNGs (``encode_png``
+gives their bytes, for the event writer's images).
+
+``save_gif`` writes an animated GIF89a (the JAX CLI's ``render --gif``
+writes it through ``imageio``, which the card's machine lacks): a fixed
+216-colour palette (six levels a channel, 51 apart), LZW-coded frames, a
+frame delay of 1/fps s and the NETSCAPE2.0 loop block; ``gif_frames`` walks
+a GIF's blocks and gives its screen and frame sizes.
 
 ``box_downsample``, ``get_image_paths``, ``load_images`` and
 ``load_multiview_dir`` are the JAX module's: the multiview layout is
@@ -42,25 +49,167 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
-def save_png(path: str, rgb) -> None:
-    """Write a float [0, 1] (H, W, 3|4) array or tensor as an 8-bit RGB
-    or RGBA PNG (values scaled by 255, clipped and truncated, as the JAX
-    package writes them)."""
-    if isinstance(rgb, torch.Tensor):
-        rgb = rgb.detach().float().cpu().numpy()
-    arr = np.clip(np.asarray(rgb, np.float32) * 255.0, 0, 255).astype(np.uint8)
+def encode_png(arr: np.ndarray) -> bytes:
+    """The PNG bytes of an (H, W, 3|4) uint8 image: RGB or RGBA, 8 bits,
+    unfiltered scanlines."""
     h, w, c = arr.shape
     if c not in (3, 4):
         raise ValueError(f"save_png takes 3 or 4 channels, got {c}")
     # each scanline: filter type 0 (none), then the raw bytes
     raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, w * c)], axis=1)
     header = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
-    png = (_SIGNATURE + _chunk(b"IHDR", header)
-           + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
-           + _chunk(b"IEND", b""))
+    return (_SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+            + _chunk(b"IEND", b""))
+
+
+def save_png(path: str, rgb) -> None:
+    """Write a float [0, 1] (H, W, 3|4) array or tensor as an 8-bit RGB
+    or RGBA PNG (values scaled by 255, clipped and truncated, as the JAX
+    package writes them)."""
+    if isinstance(rgb, torch.Tensor):
+        rgb = rgb.detach().float().cpu().numpy()
+    png = encode_png(np.clip(np.asarray(rgb, np.float32) * 255.0, 0, 255).astype(np.uint8))
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(png)
+
+
+GIF_LEVELS = 6  # palette levels a channel: 0, 51, ..., 255
+
+
+def gif_palette() -> np.ndarray:
+    """(256, 3) uint8: entry r * 36 + g * 6 + b is (51 r, 51 g, 51 b) for
+    r, g, b in 0..5; the last 40 entries are black and unused."""
+    pal = np.zeros((256, 3), np.uint8)
+    i = np.arange(GIF_LEVELS ** 3)
+    pal[i] = np.stack([i // 36, (i // 6) % 6, i % 6], -1) * (255 // (GIF_LEVELS - 1))
+    return pal
+
+
+def gif_indices(frame) -> np.ndarray:
+    """A float [0, 1] (H, W, 3) frame as (H, W) uint8 palette indices: each
+    channel to its nearest level."""
+    if isinstance(frame, torch.Tensor):
+        frame = frame.detach().float().cpu().numpy()
+    q = np.rint(np.clip(np.asarray(frame, np.float32), 0.0, 1.0) * (GIF_LEVELS - 1))
+    q = q.astype(np.int64)
+    return (q[..., 0] * 36 + q[..., 1] * 6 + q[..., 2]).astype(np.uint8)
+
+
+def lzw_encode(indices: bytes, min_size: int = 8) -> bytes:
+    """GIF's variable-width LZW of a byte string (codes LSB first, from
+    ``min_size`` + 1 bits up to 12; a clear code first and whenever the
+    table fills; the end code last), in giflib's order: a code is written
+    at the current width, the width grows once the next free code reaches
+    it, then the new string takes that code."""
+    clear, eoi = 1 << min_size, (1 << min_size) + 1
+    out = bytearray()
+    size, limit, nxt = min_size + 1, 1 << (min_size + 1), eoi + 1
+    table = {}
+    buf, nbits = clear, size  # the bit buffer, LSB first, holding the clear code
+    prefix = indices[0]
+    for c in indices[1:]:
+        key = (prefix << 8) | c
+        code = table.get(key)
+        if code is not None:
+            prefix = code
+            continue
+        buf |= prefix << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(buf & 0xFF)
+            buf >>= 8
+            nbits -= 8
+        if nxt >= limit and size < 12:
+            size += 1
+            limit <<= 1
+        if nxt >= 4095:  # the table is full: start over
+            buf |= clear << nbits
+            nbits += size
+            table.clear()
+            size, limit, nxt = min_size + 1, 1 << (min_size + 1), eoi + 1
+        else:
+            table[key] = nxt
+            nxt += 1
+        prefix = c
+    for code in (prefix, eoi):
+        buf |= code << nbits
+        nbits += size
+        if code == prefix and nxt >= limit and size < 12:
+            size += 1
+            limit <<= 1
+    while nbits > 0:
+        out.append(buf & 0xFF)
+        buf >>= 8
+        nbits -= 8
+    return bytes(out)
+
+
+def save_gif(path: str, frames, fps: int = 10, loop: int = 0) -> None:
+    """Write float [0, 1] (N, H, W, 3) frames (an array, a tensor or a list)
+    as an animated GIF89a: the fixed palette (``gif_palette``), one
+    LZW-coded image a frame, a delay of round(100 / fps) hundredths of a
+    second, and ``loop`` repeats (0: forever)."""
+    frames = [gif_indices(f) for f in frames]
+    h, w = frames[0].shape
+    out = bytearray(b"GIF89a")
+    # logical screen: a global table of 256 colours (size field 7), 8 bits
+    out += struct.pack("<HHBBB", w, h, 0xF7, 0, 0) + gif_palette().tobytes()
+    out += b"\x21\xff\x0bNETSCAPE2.0\x03\x01" + struct.pack("<H", loop) + b"\x00"
+    delay = int(round(100 / fps))
+    for idx in frames:
+        if idx.shape != (h, w):
+            raise ValueError(f"GIF frames differ in size: {idx.shape} against {(h, w)}")
+        out += b"\x21\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00"
+        out += b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0)
+        data = lzw_encode(idx.tobytes())
+        out.append(8)
+        for i in range(0, len(data), 255):
+            block = data[i:i + 255]
+            out.append(len(block))
+            out += block
+        out.append(0)
+    out.append(0x3B)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def gif_frames(data: bytes) -> Tuple[Tuple[int, int], List[Tuple[int, int]]]:
+    """((width, height) of the logical screen, [(width, height) of each
+    image]) of a GIF, read by walking its blocks; raises ``ValueError`` on
+    a malformed stream."""
+    if data[:6] not in (b"GIF87a", b"GIF89a"):
+        raise ValueError("not a GIF")
+    w, h, packed = struct.unpack("<HHB", data[6:11])
+    pos = 13 + (3 << ((packed & 7) + 1) if packed & 0x80 else 0)
+
+    def skip_blocks(p):
+        while True:
+            if p >= len(data):
+                raise ValueError("GIF data blocks run past the end")
+            n = data[p]
+            p += 1
+            if n == 0:
+                return p
+            p += n
+
+    images = []
+    while pos < len(data):
+        kind = data[pos]
+        if kind == 0x3B:
+            return (w, h), images
+        if kind == 0x21:
+            pos = skip_blocks(pos + 2)
+        elif kind == 0x2C:
+            iw, ih, ip = struct.unpack("<HHB", data[pos + 5:pos + 10])
+            images.append((iw, ih))
+            pos += 10 + (3 << ((ip & 7) + 1) if ip & 0x80 else 0)
+            pos = skip_blocks(pos + 1)  # past the LZW code size
+        else:
+            raise ValueError(f"unknown GIF block 0x{kind:02x} at byte {pos}")
+    raise ValueError("GIF without a trailer")
 
 
 def _chunks(data: bytes, path: str):

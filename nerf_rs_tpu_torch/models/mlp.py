@@ -15,9 +15,9 @@ shape (in, out) and ``b`` of shape (out,); the state-dict keys are
 Ported so far: the paper arch (with PE, or mip-NeRF's integrated
 encoding of Gaussians), the factored arch (``models/factored.py``) and
 the hash grid (``models/hashgrid.py``, both table layouts), each with
-mip-NeRF 360's scene contraction in front of it (``cfg.contract``);
-compat mode raises ``NotImplementedError`` naming the slice that brings
-it.
+mip-NeRF 360's scene contraction in front of it (``cfg.contract``) and
+the paper's sigma noise on its raw density; compat mode raises
+``NotImplementedError`` naming the slice that brings it.
 """
 
 from __future__ import annotations
@@ -163,6 +163,8 @@ def apply_nerf(
     cfg: ModelConfig,
     dtype=None,
     pos_var: Optional[torch.Tensor] = None,
+    noise_std: float = 0.0,
+    noise: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Evaluate the field at (..., 3) points with (..., 3) unit view
     directions (broadcastable to the points). Returns sigma (...,) after
@@ -185,6 +187,12 @@ def apply_nerf(
     through the closed-form linearisation) are contracted into the
     radius-2 ball first (``ops/contract.py``), before the dispatch over
     the families, as in the JAX package.
+
+    ``noise`` (the points' leading shape, standard normal draws) with
+    ``noise_std`` > 0: the paper's density regulariser, ``noise_std *
+    noise`` added to the raw density before its activation, in every
+    family (``_sigma_noise`` in the JAX package). The caller draws it,
+    from its generator or, in a test, from the JAX package's key.
     """
     check_supported(cfg)
     if cfg.contract:
@@ -201,6 +209,7 @@ def apply_nerf(
         apply = apply_factored if cfg.arch == "factored" else apply_hashgrid
         sigma_raw, rgb_raw = apply(params, points, viewdirs, cfg, dtype)
         rgb = torch.sigmoid(rgb_raw) if cfg.rgb_activation == "sigmoid" else rgb_raw
+        sigma_raw = _sigma_noise(sigma_raw, noise_std, noise)
         return sigma_activation(sigma_raw, cfg.sigma_activation), rgb
     low = dtype is not None and dtype != torch.float32
     if cfg.ipe and pos_var is not None:
@@ -226,4 +235,12 @@ def apply_nerf(
     else:
         rgb_raw = dense(feat, params.rgb, dtype).float()
     rgb = torch.sigmoid(rgb_raw) if cfg.rgb_activation == "sigmoid" else rgb_raw
+    sigma_raw = _sigma_noise(sigma_raw, noise_std, noise)
     return sigma_activation(sigma_raw, cfg.sigma_activation), rgb
+
+
+def _sigma_noise(sigma_raw: torch.Tensor, noise_std: float,
+                 noise: Optional[torch.Tensor]) -> torch.Tensor:
+    if noise_std > 0.0 and noise is not None:
+        return sigma_raw + noise_std * noise
+    return sigma_raw

@@ -10,8 +10,10 @@ sample spacing.
 T_i = exp(-sum_{j<i} sigma_j delta_j) from one exclusive cumsum,
 w_i = T_i (1 - exp(-sigma_i delta_i)), C = sum_i w_i c_i.
 
-Compat passes (slice 10) and sigma noise (slice 7) raise
-``NotImplementedError``.
+The paper's sigma noise (``raw_noise_std`` > 0, randomized passes only)
+perturbs each pass's raw density with a draw of its own and runs every
+pass through the eager field, as the JAX package does. Compat passes
+(slice 10) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -190,12 +192,27 @@ def render_rays(
     field, the fine pass evaluates only the new fine samples and
     composites the union from the coarse pass's (sigma, rgb), sorted with
     the samples by depth (``_shared_fast``).
+
+    ``render_cfg.raw_noise_std`` > 0 on a randomized pass: each field
+    evaluation adds ``raw_noise_std`` times a standard normal draw to the
+    raw density (the paper's regulariser), a draw of its own per pass, from
+    ``generator`` after that pass's samples; every pass then runs through
+    the eager field (the render kernel takes no noise, as in the JAX
+    package).
     """
     check_render_supported(model_cfg, render_cfg)
     use_fused = use_fused and fused_supported(model_cfg)
     rand = render_cfg.randomized if randomized is None else randomized
-    if rand and render_cfg.raw_noise_std > 0.0:
-        raise NotImplementedError("sigma noise (raw_noise_std) comes with slice 7 of the port")
+    noise_std = render_cfg.raw_noise_std if rand else 0.0
+    if noise_std > 0.0:
+        use_fused = False
+
+    def pass_noise(shape) -> Optional[torch.Tensor]:
+        """The standard normal draw of the next pass's raw densities."""
+        if noise_std == 0.0:
+            return None
+        return standard_normal(shape, generator, origins.device)
+
     shape = origins.shape[:-1]
     flat_o = origins.reshape(-1, 3)
     flat_d = dirs.reshape(-1, 3)
@@ -237,15 +254,17 @@ def render_rays(
                 rgb = rgb + (1.0 - acc[..., None])
             return RenderOut(rgb=rgb, weights=w, sigma=sig, depth=depth, acc=acc, ts=ts,
                              deltas=deltas if edges is not None else None)
+        eps = pass_noise(ts.shape)
         if edges is not None:
             mean, var, _, _ = sampling.conical_gaussians(flat_o, flat_d, edges, radius)
             sigma, rgb = apply_nerf(pass_params, mean, viewdirs[..., None, :], model_cfg, dtype,
-                                    pos_var=var)
+                                    pos_var=var, noise_std=noise_std, noise=eps)
             return composite(sigma, rgb[..., :3], deltas,
                              white_background=render_cfg.white_background,
                              ts=ts)._replace(deltas=deltas)
         pts = sampling.points_from_ts(flat_o, flat_d, ts)
-        sigma, rgb = apply_nerf(pass_params, pts, viewdirs[..., None, :], model_cfg, dtype)
+        sigma, rgb = apply_nerf(pass_params, pts, viewdirs[..., None, :], model_cfg, dtype,
+                                noise_std=noise_std, noise=eps)
         return composite(sigma, rgb[..., :3], deltas,
                          white_background=render_cfg.white_background, ts=ts)
 
@@ -280,7 +299,8 @@ def render_rays(
                                         device=flat_o.device, space=render_cfg.sampling_space)
         if _shared_fast(render_cfg, model_cfg, fine_params, use_fused):
             coarse, fine = _shared_fast_passes(params, flat_o, flat_d, viewdirs, ts, model_cfg,
-                                               render_cfg, camera, rand, generator, dtype)
+                                               render_cfg, camera, rand, generator, dtype,
+                                               noise_std, pass_noise)
             return _unflatten(coarse, shape), _unflatten(fine, shape)
         coarse = run_pass(params, packed, ts)
 
@@ -319,15 +339,18 @@ def _unflatten(out: RenderOut, shape) -> RenderOut:
 
 def _shared_fast_passes(params, flat_o, flat_d, viewdirs, ts, model_cfg: ModelConfig,
                         render_cfg: RenderConfig, camera: CameraConfig, rand: bool,
-                        generator, dtype) -> Tuple[RenderOut, RenderOut]:
+                        generator, dtype, noise_std: float,
+                        pass_noise) -> Tuple[RenderOut, RenderOut]:
     """The shared-network fast fine pass (``nerf_rs_tpu/ops/render.py``'s
     ``shared_fast``): the coarse samples through the field once, the
     fine draws from the coarse weights (inverse CDF), only the fine
     samples through the field, then one stable sort of (ts, sigma, r, g,
-    b) by ts and channel-wise compositing of the union."""
+    b) by ts and channel-wise compositing of the union. ``pass_noise(shape)``
+    gives each evaluation's sigma noise draw (None: no noise)."""
     far = camera.far
     sigma_c, rgb_c = apply_nerf(params, sampling.points_from_ts(flat_o, flat_d, ts),
-                                viewdirs[..., None, :], model_cfg, dtype)
+                                viewdirs[..., None, :], model_cfg, dtype,
+                                noise_std=noise_std, noise=pass_noise(ts.shape))
     coarse = composite(sigma_c, rgb_c[..., :3], sampling.deltas_from_ts(ts, far),
                        white_background=render_cfg.white_background, ts=ts)
     mids = 0.5 * (ts[..., 1:] + ts[..., :-1])
@@ -335,7 +358,8 @@ def _shared_fast_passes(params, flat_o, flat_d, viewdirs, ts, model_cfg: ModelCo
     fine_ts = sampling.sample_pdf(bins, coarse.weights, render_cfg.num_fine_samples, rand,
                                   generator=generator)
     sigma_f, rgb_f = apply_nerf(params, sampling.points_from_ts(flat_o, flat_d, fine_ts),
-                                viewdirs[..., None, :], model_cfg, dtype)
+                                viewdirs[..., None, :], model_cfg, dtype,
+                                noise_std=noise_std, noise=pass_noise(fine_ts.shape))
     ts_u, order = torch.sort(torch.cat([ts, fine_ts], dim=-1), dim=-1, stable=True)
     sigma_u = torch.cat([sigma_c, sigma_f], dim=-1).gather(-1, order)
     chans = [torch.cat([rgb_c[..., c], rgb_f[..., c]], dim=-1).gather(-1, order)
@@ -349,6 +373,13 @@ def _shared_fast_passes(params, flat_o, flat_d, viewdirs, ts, model_cfg: ModelCo
     fine = RenderOut(rgb=rgb, weights=w, sigma=sigma_u, depth=torch.sum(w * ts_u, dim=-1),
                      acc=acc, ts=ts_u)
     return coarse, fine
+
+
+def standard_normal(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """Standard normal draws of ``shape`` from ``generator`` (on its
+    device), on ``device``: the sigma noise of one pass."""
+    src = generator.device if generator is not None else device
+    return torch.randn(shape, generator=generator, device=src).to(device)
 
 
 def mse(pred: torch.Tensor, gold: torch.Tensor) -> torch.Tensor:

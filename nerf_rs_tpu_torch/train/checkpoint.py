@@ -16,6 +16,14 @@ learned grid-guided ones, so a warning names the flag. Loading uses
 ``convert.params_from_numpy``. A run with error-weighted resampling saves
 its per-pixel error store beside the file as an ``.err.npy`` sidecar (the
 JAX package's), which a resume reads back (``load_err_store``).
+
+A run with ``--ema_decay`` saves its EMA weights under ``ema``: the
+field's state dict, or with a second net ``{"0": field, "1": second
+net}``, the form the JAX package's tuple takes. ``restore`` resumes it;
+``load_ema`` hands inference the EMA even when the run reading the file
+was configured without one. An EMA that the file and a resuming run do
+not both have warns, as a missing grid does: the resumed EMA starts from
+the run's fresh one (its initial weights), or is dropped.
 """
 
 from __future__ import annotations
@@ -55,11 +63,12 @@ def save(state: Union["TrainState", nn.Module], save_dir: str,  # noqa: F821
     field's weights (``step`` defaults to 0); returns the path. An
     ``err_store`` (error-weighted resampling's per-pixel distribution, part
     of the training trajectory) goes beside it as ``.err.npy``."""
-    grid = None
+    grid = ema = None
     if isinstance(state, nn.Module):
         params, fine, opt, step = state, None, None, step or 0
     else:
         params, fine, opt, grid = state.params, state.fine_params, state.optimizer, state.grid
+        ema = state.ema
         step = state.step if step is None else step
     os.makedirs(save_dir, exist_ok=True)
     path = checkpoint_path(save_dir, step, ts)
@@ -70,6 +79,9 @@ def save(state: Union["TrainState", nn.Module], save_dir: str,  # noqa: F821
         blob["optimizer"] = _cpu(opt.state_dict())
     if grid is not None:
         blob["grid"] = _cpu(grid)
+    if ema is not None:
+        blob["ema"] = ({str(i): _cpu(net.state_dict()) for i, net in enumerate(ema)}
+                       if isinstance(ema, tuple) else _cpu(ema.state_dict()))
     tmp = path + ".tmp"
     torch.save(blob, tmp)
     os.replace(tmp, path)  # atomic: no torn checkpoints
@@ -131,14 +143,37 @@ def _load_grid(ckpt: dict, path: str, grid: Optional[torch.Tensor]) -> None:
     grid.copy_(ckpt["grid"])
 
 
+def _load_ema_into(sd, ema) -> None:
+    """An EMA state dict (a field's, or ``{"0": ..., "1": ...}``) into the
+    EMA module or pair ``ema``, in place."""
+    if isinstance(ema, tuple):
+        if set(sd) != {"0", "1"}:
+            raise ValueError("the checkpoint's EMA covers one net, the run's two")
+        for i, net in enumerate(ema):
+            net.load_state_dict(sd[str(i)])
+    elif set(sd) == {"0", "1"}:
+        raise ValueError("the checkpoint's EMA covers two nets, the run's one")
+    else:
+        ema.load_state_dict(sd)
+
+
 def restore(path: str, state: "TrainState") -> "TrainState":  # noqa: F821
     """Resume: the weights (both fields' with a fine field), the step,
-    the occupancy grid and (when the file has it) the optimizer state
-    into ``state``, in place; returns it."""
+    the occupancy grid, the EMA and (when the file has it) the optimizer
+    state into ``state``, in place; returns it."""
     ckpt = _load(path)
     state.params.load_state_dict(ckpt["params"])
     _load_fine(ckpt, path, state.fine_params)
     _load_grid(ckpt, path, state.grid)
+    if state.ema is not None and "ema" in ckpt:
+        _load_ema_into(ckpt["ema"], state.ema)
+    elif state.ema is not None:
+        warnings.warn(f"checkpoint {path} has no EMA: the run's EMA starts from its initial "
+                      f"weights (the JAX package's backfill); it was trained without "
+                      f"--ema_decay")
+    elif "ema" in ckpt:
+        warnings.warn(f"checkpoint {path} carries EMA weights but the run keeps none: they "
+                      f"are dropped. Pass the --ema_decay it was trained with to keep them")
     if "optimizer" in ckpt:
         state.optimizer.load_state_dict(ckpt["optimizer"])
     state.step = int(ckpt["step"])
@@ -155,6 +190,25 @@ def restore_weights(path: str, params: nn.Module, fine_params: Optional[nn.Modul
     _load_fine(ckpt, path, fine_params)
     _load_grid(ckpt, path, grid)
     return int(ckpt["step"])
+
+
+def load_ema(path: str, params: nn.Module, fine_params: Optional[nn.Module] = None):
+    """The EMA weights of the file at ``path`` for inference, or None when
+    it has none: copies of ``params`` (and ``fine_params``, for a file
+    whose EMA covers two nets) holding them. Needs no ``--ema_decay`` in
+    the reading run, as the JAX package's ``restore_weights``."""
+    from .step import ema_copy
+
+    ckpt = _load(path)
+    if "ema" not in ckpt:
+        return None
+    two = set(ckpt["ema"]) == {"0", "1"}
+    if two and fine_params is None:
+        raise ValueError(f"{path} holds the EMA of two nets, the run has one: use the preset "
+                         f"the checkpoint was trained with")
+    ema = (ema_copy(params), ema_copy(fine_params)) if two else ema_copy(params)
+    _load_ema_into(ckpt["ema"], ema)
+    return ema
 
 
 def latest_checkpoint(save_dir: str) -> Optional[str]:

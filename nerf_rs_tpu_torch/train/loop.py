@@ -9,9 +9,18 @@ draws what an unbroken run draws. With an occupancy grid, after every step
 ``it`` with ``it % occ_update_steps == 0`` the grid takes its EMA update
 from the new weights, jittered by a stream of its own
 (``step.grid_generator``), as in the JAX loop. Losses stay on the device and are
-read once per ``CHART_STEPS`` steps, never once per step. TensorBoard,
-the diagnostics and the profiler window come with slice 7 of the port;
-until then scalars and images go to a logger that drops them.
+read once per ``CHART_STEPS`` steps, never once per step.
+
+Slice 7's hooks, as the JAX loop has them: the run directory
+``{log_dir}/{run id}`` holds ``config.json`` and the TensorBoard events
+(``utils/tb.TBLogger``: the hparams at step 0, the loss every step, and at
+each logging step the throughput, ``psnr_train`` and the diagnostics of
+``log_diagnostics``); the eval hook renders with the EMA weights when the
+run keeps them (``step.with_ema_params``) and logs its prediction and depth
+images unless ``--log_densities_only``; ``--profile_steps`` N > 0 records
+steps [start + profile_start, start + profile_start + N) with
+``torch.profiler`` into a Chrome trace in the run directory
+(``utils/profiling.trace``).
 
 The batch modes (``DataConfig.batch_mode``, as the JAX loop routes them):
 ``per_ray`` and ``multiview`` draw on the device inside the step; with
@@ -25,7 +34,7 @@ scene's held-out ``test`` split, where it has one, is the eval hook's.
 
 from __future__ import annotations
 
-import json
+import contextlib
 import os
 import time
 from typing import Callable, Dict, Optional
@@ -38,22 +47,72 @@ from ..config import Config
 from ..data.factory import effective_config, make_dataset
 from ..ops import metrics, render as render_ops
 from ..render import make_render, render_frame
-from ..utils.profiling import Throughput
+from ..utils.profiling import Throughput, trace
+from ..utils.tb import TBLogger
 from ..utils.term import image_preview, sparkline
 from . import checkpoint as ckpt
-from .step import (TrainState, grid_generator, init_state, make_train_step, step_generator)
+from .step import (TrainState, grid_generator, init_state, make_train_step, step_generator,
+                   with_ema_params)
 
 CHART_STEPS = 50
+DIAG_RAYS = 1024  # rays the diagnostics look at
+DIAG_PAIRS = 128  # of which the intersection map pairs up
 
 
-class NullLogger:
-    """Drops scalars and images (TensorBoard comes with slice 7)."""
+def diag_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of the diagnostics at step ``step``: a stream of its
+    own (bit 62 set, which neither ``step_generator``'s nor
+    ``grid_generator``'s seeds have)."""
+    g = torch.Generator(device=device)
+    g.manual_seed((1 << 62) | ((seed & 0x7FFFFFFF) << 32) | (step & 0xFFFFFFFF))
+    return g
 
-    def scalars(self, values: Dict[str, float], step: int) -> None:
-        pass
 
-    def image(self, tag: str, img, step: int) -> None:
-        pass
+@torch.no_grad()
+def log_diagnostics(tb, dataset, cfg: Config, it: int, batch=None,
+                    state: Optional[TrainState] = None):
+    """The reference's logging-step diagnostics, as the JAX loop's
+    ``_log_diagnostics`` logs them: the batch's screen coordinates
+    (``screen_x`` / ``screen_y``, from its flat pixel indices), the ``t``
+    histogram of stratified samples on its first DIAG_RAYS rays, the sample
+    points' occupancy maps on the yx, zx and yz planes (``world_*``), the map
+    of the pairwise intersections of the first DIAG_PAIRS rays
+    (``intersections``, ``ops/intersect``) and, with a ``state``, the raw
+    weights' density at the points (the ``density`` histogram and
+    ``density_*`` maps; the field at f32, queried with the rays' directions
+    as they are, as the JAX loop queries it). Without a batch that carries
+    its indices, DIAG_RAYS rays are drawn from ``diag_generator``, which also
+    jitters the samples."""
+    from ..models.mlp import apply_nerf
+    from ..ops import intersect, sampling
+
+    g = diag_generator(cfg.train.seed, it, dataset.images.device)
+    if batch is None or batch.idx is None:
+        batch = dataset.sample_batch(g, DIAG_RAYS)
+    n = min(DIAG_RAYS, batch.origins.shape[0])
+    origins, dirs = batch.origins[:n], batch.dirs[:n]
+    if batch.idx is not None:
+        idx = batch.idx[:n].cpu().numpy()
+        tb.screen_coords(np.stack([idx % dataset.width, (idx // dataset.width) % dataset.height],
+                                  -1), it)
+    cam = cfg.camera
+    ts = sampling.stratified_ts(n, cfg.render.num_samples, cam.near, cam.far, True,
+                                generator=g, device=origins.device,
+                                space=cfg.render.sampling_space)
+    tb.ray_ts(ts.cpu().numpy(), it)
+    pts = sampling.points_from_ts(origins, dirs, ts)
+    pts_np = pts.cpu().numpy()
+    tb.point_maps(pts_np, it, prefix="world")
+    m = min(DIAG_PAIRS, n)
+    inter = intersect.pairwise_view_intersections(origins[:m], dirs[:m], origins[:m],
+                                                  dirs[:m], t_max=cam.far, tol=1e-3)
+    tb.image("intersections", intersect.trace_intersections_to_screen(
+        inter, dataset.width, dataset.height).cpu().numpy(), it)
+    if state is not None:
+        sigma, _ = apply_nerf(state.params, pts, dirs[:, None, :], cfg.model)
+        sigma = sigma.cpu().numpy()
+        tb.histogram("density", sigma, it)
+        tb.point_maps(pts_np, it, weights=sigma, prefix="density")
 
 
 def resolve_device(name: str = "cuda") -> torch.device:
@@ -130,11 +189,10 @@ def train(
         except FileNotFoundError:
             eval_dataset = None
     cfg = effective_config(cfg, dataset)
-    run_dir = os.path.join(cfg.log_dir, cfg.run_name or str(int(time.time())))
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.json"), "w") as f:
-        f.write(json.dumps(cfg.to_dict(), indent=2, sort_keys=True))
-    tb = NullLogger()
+    tb = TBLogger(cfg.log_dir, cfg.run_name or str(int(time.time())))
+    tb.hparams(cfg.hparams())
+    with open(os.path.join(tb.dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
 
     state = init_state(cfg, device)
     # resume: an explicit --load_path wins; else the newest in save_dir
@@ -143,6 +201,7 @@ def train(
         ckpt.restore(load_path, state)
         print(f"resumed from {load_path} at step {state.step}")
     if not cfg.do_train:
+        tb.close()
         return state
 
     err_store = None
@@ -160,6 +219,7 @@ def train(
                     make_train_step(cfg, dataset,
                                     batch_source(cfg, dataset, err_store, pipeline)))
     finally:
+        tb.close()
         if pipeline is not None:
             pipeline.close()
 
@@ -184,55 +244,74 @@ def _run(cfg: Config, state: TrainState, dataset, eval_dataset, on_step, device,
             tb.scalars({"loss": v}, i)
         pending.clear()
 
-    for it in range(start, cfg.train.num_iter):
-        state, aux = step_fn(state, step_generator(cfg.train.seed, it, device))
-        if err_store is not None:
-            update_error_store(err_store, aux["batch_idx"], aux["ray_err"],
-                               cfg.train.error_resample_ema)
-        if state.grid is not None and it % cfg.render.occ_update_steps == 0:
-            state.grid = update_occupancy(state, cfg, it)
-        pending.append((it, aux["loss"]))
+    trace_path = None  # while the profiler window is open
+    t = cfg.train
+    with contextlib.ExitStack() as window:
+        for it in range(start, t.num_iter):
+            if t.profile_steps > 0 and it == start + t.profile_start:
+                trace_path = window.enter_context(trace(tb.dir))
+            if trace_path is not None and it == start + t.profile_start + t.profile_steps:
+                window.close()
+                print(f"profiler trace written to {trace_path}")
+                trace_path = None
+            state, aux = step_fn(state, step_generator(cfg.train.seed, it, device))
+            if err_store is not None:
+                update_error_store(err_store, aux["batch_idx"], aux["ray_err"],
+                                   cfg.train.error_resample_ema)
+            if state.grid is not None and it % cfg.render.occ_update_steps == 0:
+                state.grid = update_occupancy(state, cfg, it)
+            pending.append((it, aux["loss"]))
 
-        if it % CHART_STEPS == 0 and it > start:
-            flush_losses()
-            print(f"iter={it}, loss={losses[-1]:.6f}  {sparkline(losses[-200:])}")
+            if it % CHART_STEPS == 0 and it > start:
+                flush_losses()
+                print(f"iter={it}, loss={losses[-1]:.6f}  {sparkline(losses[-200:])}")
 
-        # --- logging hook ---
-        if it % cfg.train.logging_steps == 0 and it > 0:
-            flush_losses()
-            stats = thr.stats()
-            tb.scalars(stats, it)
-            tb.scalars({"psnr_train": float(aux["psnr"])}, it)
-            thr.reset()
-            if on_step:
-                on_step(it, {**stats, "loss": losses[-1] if losses else float("nan")})
+            # --- logging hook ---
+            if it % cfg.train.logging_steps == 0 and it > 0:
+                flush_losses()
+                stats = thr.stats()
+                tb.scalars(stats, it)
+                tb.scalars({"psnr_train": float(aux["psnr"])}, it)
+                thr.reset()
+                idx = aux.get("batch_idx")
+                diag = None if idx is None else dataset.batch_from_idx(idx[:DIAG_RAYS])
+                log_diagnostics(tb, dataset, cfg, it, batch=diag, state=state)
+                if on_step:
+                    on_step(it, {**stats, "loss": losses[-1] if losses else float("nan")})
 
-        # --- eval hook: render a view through the render kernel (the
-        # fine pass's colors with hierarchical sampling; the held-out split
-        # where the scene has one) ---
-        if cfg.eval_on_train and it % cfg.train.eval_steps == 0 and it > 0:
-            eval_ds = eval_dataset if eval_dataset is not None else dataset
-            o, d = eval_ds.view_rays(0)
-            rgb, depth, _ = render_frame(cfg, state.params, o, d, render_fn,
-                                         fine_params=state.fine_params, grid=state.grid)
-            gold = eval_ds.view_gold(0)
-            m = render_ops.mse(rgb, gold)
-            psnr = float(render_ops.psnr_from_mse(m))
-            ssim = float(metrics.ssim(rgb, gold))
-            tb.scalars({"psnr_eval": psnr, "mse_eval": float(m), "ssim_eval": ssim}, it)
-            # --debug shows the gold view, to eyeball the data pipeline
-            tb.image("prediction", (gold if cfg.debug else rgb).cpu().numpy(), it)
-            tb.image("depth", (depth / depth.max().clamp(min=1e-6)).cpu().numpy(), it)
-            print(f"iter={it}, eval psnr={psnr:.2f}")
-            if cfg.live_preview:
-                print(image_preview(np.asarray(rgb.cpu())))
+            # --- eval hook: render a view through the render kernel (the
+            # fine pass's colors with hierarchical sampling; the held-out split
+            # where the scene has one), with the EMA weights when the run keeps
+            # them; the raw weights go on training ---
+            if cfg.eval_on_train and it % cfg.train.eval_steps == 0 and it > 0:
+                eval_ds = eval_dataset if eval_dataset is not None else dataset
+                o, d = eval_ds.view_rays(0)
+                ev = with_ema_params(state)
+                rgb, depth, _ = render_frame(cfg, ev.params, o, d, render_fn,
+                                             fine_params=ev.fine_params, grid=state.grid)
+                gold = eval_ds.view_gold(0)
+                m = render_ops.mse(rgb, gold)
+                psnr = float(render_ops.psnr_from_mse(m))
+                ssim = float(metrics.ssim(rgb, gold))
+                tb.scalars({"psnr_eval": psnr, "mse_eval": float(m), "ssim_eval": ssim}, it)
+                if cfg.debug:  # the gold view, to eyeball the data pipeline
+                    tb.image("prediction", gold.cpu().numpy(), it)
+                elif not cfg.log_densities_only:
+                    tb.image("prediction", rgb.cpu().numpy(), it)
+                    tb.image("depth", (depth / depth.max().clamp(min=1e-6)).cpu().numpy(), it)
+                print(f"iter={it}, eval psnr={psnr:.2f}")
+                if cfg.live_preview:
+                    print(image_preview(np.asarray(rgb.cpu())))
 
-        # --- checkpoint hook ---
-        if it % cfg.train.save_steps == 0 and it > 0:
-            print(f"saved {ckpt.save(state, cfg.save_dir, err_store=err_store)}")
+            # --- checkpoint hook ---
+            if it % cfg.train.save_steps == 0 and it > 0:
+                print(f"saved {ckpt.save(state, cfg.save_dir, err_store=err_store)}")
 
-        thr.tick()
+            thr.tick()
 
+        if trace_path is not None:  # the run ended inside the window
+            window.close()
+            print(f"profiler trace written to {trace_path}")
     flush_losses()
     ckpt.save(state, cfg.save_dir, err_store=err_store)
     return state

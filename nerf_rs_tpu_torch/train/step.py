@@ -34,16 +34,25 @@ updates it. Multiscale batches carry per-ray cone radii
 (``Batch.radii``), which the IPE passes take in place of the camera's.
 
 Random draws (the batch, the sample jitter, the fine pass's or the
-proposal levels' resampling) come from an explicit ``torch.Generator``;
-``step_generator`` derives one per step from (seed, step), so a resumed
-run draws what an unbroken run draws. EMA, gradient accumulation and sigma
-noise (slice 7) raise ``NotImplementedError``.
+proposal levels' resampling, the sigma noise) come from an explicit
+``torch.Generator``; ``step_generator`` derives one per step from (seed,
+step), so a resumed run draws what an unbroken run draws.
+
+Slice 7: with ``ema_decay`` > 0 the state carries an exponential moving
+average of every trainable net (``TrainState.ema``), updated after each
+Adam step by ``apply_grads`` and swapped in for evaluation by
+``with_ema_params``; ``accumulation_steps`` > 1 splits the batch into
+micro-batches whose gradients are averaged before the one Adam update
+(autograd, as in the JAX package); ``render.raw_noise_std`` > 0 perturbs
+the raw densities of the randomized passes (autograd: the train kernel
+takes no noise).
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,7 +79,11 @@ class TrainState:
     # the occupancy grid (res, res, res) f32 when cfg.render.occ_res > 0,
     # updated by the train loop every occ_update_steps and checkpointed
     grid: Optional[torch.Tensor] = None
-    ema: None = None  # EMA weights: slice 7
+    # the exponential moving average of the trainable nets when
+    # cfg.train.ema_decay > 0: a copy of ``params``, or with a second net
+    # the pair (params, fine_params), as the JAX package's pytree is; None
+    # when the EMA is off. Stored debiased (see apply_grads).
+    ema: Union[None, nn.Module, Tuple[nn.Module, nn.Module]] = None
 
 
 class Batch(NamedTuple):
@@ -89,16 +102,6 @@ def check_train_supported(cfg: Config) -> None:
     """Raise for the training options later slices of the port bring."""
     check_supported(cfg.model)
     render.check_render_supported(cfg.model, cfg.render)
-    t = cfg.train
-    later = [
-        (t.ema_decay > 0.0, "the EMA of the weights", 7),
-        (t.accumulation_steps > 1, "gradient accumulation", 7),
-        (cfg.render.raw_noise_std > 0.0, "sigma noise (raw_noise_std)", 7),
-        (t.profile_steps > 0, "the profiler window", 7),
-    ]
-    for on, what, n in later:
-        if on:
-            raise NotImplementedError(f"{what} comes with slice {n} of the port")
 
 
 def _has_fine_net(cfg: Config) -> bool:
@@ -178,8 +181,39 @@ def init_state(cfg: Config, device=None) -> TrainState:
         from ..ops.occupancy import init_grid
 
         grid = init_grid(cfg.render.occ_res, next(params.parameters()).device)
+    ema = None
+    if cfg.train.ema_decay > 0.0:
+        # the weights themselves (the stored EMA is debiased: its first
+        # update replaces them by the first step's weights)
+        ema = ema_copy(params) if fine is None else (ema_copy(params), ema_copy(fine))
     return TrainState(step=0, params=params, optimizer=make_optimizer(cfg, *nets),
-                      fine_params=fine, grid=grid)
+                      fine_params=fine, grid=grid, ema=ema)
+
+
+def ema_copy(net: nn.Module) -> nn.Module:
+    """A copy of ``net`` that holds its EMA: the same module, its
+    parameters outside autograd."""
+    out = copy.deepcopy(net)
+    out.requires_grad_(False)
+    return out
+
+
+def ema_nets(ema) -> Tuple[nn.Module, ...]:
+    """The EMA's nets in ``named_trainable``'s order: (params,) or
+    (params, fine_params)."""
+    return ema if isinstance(ema, tuple) else (ema,)
+
+
+def with_ema_params(state: TrainState) -> TrainState:
+    """The state with the EMA swapped in for ``params`` (and, with a
+    second net, ``fine_params``): what eval and render see after a run
+    with ``--ema_decay`` > 0. ``state`` itself when it carries no EMA.
+    Shares every tensor with ``state``."""
+    if state.ema is None:
+        return state
+    if isinstance(state.ema, tuple):
+        return dataclasses.replace(state, params=state.ema[0], fine_params=state.ema[1])
+    return dataclasses.replace(state, params=state.ema)
 
 
 def _reg_loss(params: nn.Module, cfg: Config) -> Optional[torch.Tensor]:
@@ -270,8 +304,12 @@ def _proposal_loss(params: nn.Module, prop_params: nn.Module, batch: Batch,
     gold = batch.gold[..., :3]
     if main_weights_fn is None:
         vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+        # the paper's sigma noise on the main pass, drawn after the proposal's
+        noise_std = cfg.render.raw_noise_std if cfg.render.randomized else 0.0
+        eps = (render.standard_normal(ts_m.shape, generator, o.device) if noise_std > 0.0
+               else None)
         sigma, rgb = apply_nerf(params, sampling.points_from_ts(o, d, ts_m), vd[..., None, :],
-                                cfg.model, dtype)
+                                cfg.model, dtype, noise_std=noise_std, noise=eps)
         out = render.composite(sigma, rgb[..., :3], sampling.deltas_from_ts(ts_m, cfg.camera.far),
                                white_background=cfg.render.white_background, ts=ts_m)
         rgb_m, w_m = out.rgb, out.weights
@@ -472,27 +510,60 @@ def whole_ray_grads(params: nn.Module, batch: Batch, generator: Optional[torch.G
 
 def apply_grads(state: TrainState, grads: Grads, cfg: Config) -> TrainState:
     """The optimizer tail: one Adam update of every trainable net at the
-    scheduled rate, then step + 1. ``grads`` is keyed as
-    ``named_trainable``. Updates ``state`` in place and returns it."""
-    if cfg.train.ema_decay > 0.0:
-        raise NotImplementedError("the EMA of the weights comes with slice 7 of the port")
+    scheduled rate, the EMA's update when there is one, then step + 1.
+    ``grads`` is keyed as ``named_trainable``. Updates ``state`` in place
+    and returns it. Every step body goes through it: a tail that skips
+    the EMA leaves eval rendering the initial weights (the JAX package's
+    first ``--ema_decay`` drive hit that)."""
     for name, p in named_trainable(state):
         p.grad = grads[name]
     for group in state.optimizer.param_groups:
         group["lr"] = learning_rate(cfg, state.step)
     state.optimizer.step()
+    if state.ema is not None and cfg.train.ema_decay > 0.0:
+        update_ema(state, cfg.train.ema_decay)
     state.step += 1
     return state
+
+
+def ema_coefficients(decay: float, step: int) -> Tuple[float, float]:
+    """(alpha, beta) of the debiased EMA's update after ``step`` earlier
+    updates, e <- alpha e + beta p: the JAX package's (d (1 - d^t) e + (1 -
+    d) p) / (1 - d^(t+1)) with its three f32 coefficients divided out once.
+    The stored value deb_t = raw_t / (1 - d^t) with raw_0 = 0 is an average
+    of seen weights only: after one update (alpha = 0) it is those weights,
+    and eval may swap it in at any step."""
+    f32 = np.float32
+    d, t = f32(decay), f32(step)
+    prev_scale = f32(1.0) - f32(np.float64(d) ** np.float64(t))
+    new_scale = f32(1.0) - f32(np.float64(d) ** np.float64(t + f32(1.0)))
+    return float(d * prev_scale / new_scale), float((f32(1.0) - d) / new_scale)
+
+
+@torch.no_grad()
+def update_ema(state: TrainState, decay: float) -> None:
+    """One debiased EMA update of every trainable net from the weights
+    Adam just wrote (``ema_coefficients`` at ``state.step``), in place:
+    elementwise tensor ops on the weights' device, f32 products and one
+    sum, no division (a host in f32 gets the same bits)."""
+    alpha, beta = ema_coefficients(decay, state.step)
+    ema = [e for net in ema_nets(state.ema) for e in net.parameters()]
+    live = [p for _, p in named_trainable(state)]
+    torch._foreach_mul_(ema, alpha)
+    torch._foreach_add_(ema, torch._foreach_mul(live, beta))
 
 
 def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator],
                cfg: Config) -> Tuple[TrainState, Aux]:
     """One optimizer step: the kernel's gradients when
-    ``whole_ray_supported(cfg)``, else autograd of ``loss_fn``."""
+    ``whole_ray_supported(cfg)``, else autograd of ``loss_fn``; with
+    ``accumulation_steps`` > 1, of ``accumulated_grads``."""
     check_train_supported(cfg)
     if whole_ray_supported(cfg):
         grads, aux = whole_ray_grads(state.params, batch, generator, cfg, state.fine_params,
                                      state.step, state.grid)
+    elif cfg.train.accumulation_steps > 1:
+        grads, aux = accumulated_grads(state, batch, generator, cfg)
     else:
         state.optimizer.zero_grad(set_to_none=True)
         loss, aux = loss_fn(state.params, batch, generator, cfg, state.fine_params, state.step,
@@ -501,6 +572,32 @@ def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Genera
         grads = {name: p.grad for name, p in named_trainable(state)}
         aux = {k: v.detach() for k, v in aux.items()}
     return apply_grads(state, grads, cfg), aux
+
+
+def accumulated_grads(state: TrainState, batch: Batch, generator: Optional[torch.Generator],
+                      cfg: Config) -> Tuple[Grads, Aux]:
+    """Gradient accumulation: the batch's first ``acc * (n // acc)`` rays
+    cut into ``acc = accumulation_steps`` micro-batches in order, autograd
+    of ``loss_fn`` on each (its draws from ``generator`` one micro-batch
+    after another), the gradients summed in that order and divided by
+    ``acc``. The aux values are the micro-batches' means, ``ray_err``
+    their per-ray values concatenated. As in the JAX package's scan body,
+    ``loss_fn`` gets no step, so the proposal's anneal is off under
+    accumulation."""
+    acc = cfg.train.accumulation_steps
+    micro = batch.origins.shape[0] // acc
+    state.optimizer.zero_grad(set_to_none=True)
+    auxs = []
+    for i in range(acc):
+        part = Batch(*(None if x is None else x[i * micro:(i + 1) * micro] for x in batch))
+        loss, aux = loss_fn(state.params, part, generator, cfg, state.fine_params, None,
+                            state.grid)
+        loss.backward()  # sums into .grad, micro-batch after micro-batch
+        auxs.append({k: v.detach() for k, v in aux.items()})
+    grads = {name: p.grad / acc for name, p in named_trainable(state)}
+    aux = {k: torch.stack([a[k] for a in auxs]).mean(0) for k in auxs[0] if k != "ray_err"}
+    aux["ray_err"] = torch.cat([a["ray_err"] for a in auxs])
+    return grads, aux
 
 
 @torch.no_grad()

@@ -1,14 +1,38 @@
-"""Throughput accounting, the counterpart of ``Throughput`` in
-``nerf_rs_tpu/utils/profiling.py`` (rays/s, ray-samples/s, step time
-over a window of train steps, on the host clock), on one device: the
-per-chip rates come with multi-GPU training (slice 8 of the port), the
-profiler trace window with slice 7.
+"""Profiling, the counterpart of ``nerf_rs_tpu/utils/profiling.py``:
+``trace(log_dir)`` records the enclosed steps with ``torch.profiler`` (the
+host's operators and, on the card, its kernels) and writes a Chrome trace
+JSON into ``log_dir``, which chrome://tracing and Perfetto open; the
+training loop's ``--profile_steps`` window runs through it. ``Throughput``
+counts rays/s, ray-samples/s and step time over a window of train steps,
+on the host clock, on one device (the per-chip rates come with multi-GPU
+training, slice 8 of the port).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 from typing import Dict
+
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, name: str = "trace"):
+    """Profile the enclosed code into ``{log_dir}/{name}-{unix ts}.json``:
+    CPU activity, and CUDA activity when a card is visible. Yields the
+    trace's path, which is written when the block ends."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, f"{name}-{int(time.time())}.json")
+    with torch.profiler.profile(activities=acts) as prof:
+        yield path
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
 
 
 class Throughput:

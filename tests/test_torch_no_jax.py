@@ -8,9 +8,12 @@ settings with a multiscale batch and an occupancy grid (its update and a
 frame through it), and the shared-network fast fine pass; slice 6's
 datasets (the PNG decoder, Blender, LLFF, a procedural scene written by
 the port, one step in each batch mode on it, the host pipeline through the
-port's own copy of the C++ gather, the NDC warp), in a
-process that never loads jax, jaxlib, flax,
-optax or any module of nerf_rs_tpu. Plus checks of chip_smoke.py, which
+port's own copy of the C++ gather, the NDC warp); slice 7's EMA,
+accumulated and noisy steps, the event writer, the profiler window, the
+diagnostics, the GIF writer, the density export and its mesh, in a
+process that never loads jax, jaxlib, flax, optax or any module of
+nerf_rs_tpu, nor tensorboard, tensorboardX, PIL or imageio, which the
+card's machine lacks. Plus checks of chip_smoke.py, which
 runs only on the card: an undefined-name lint (the idea of
 test_bench_lint.py), no import of the JAX package in any form, and that
 without a card it exits non-zero instead of falling back to the CPU.
@@ -139,7 +142,8 @@ assert fine.weights.shape == (8, 8, 16)
 # loaders, a procedural scene written by the port's make-scene entry, one
 # step on it through the c2w rays (per ray, multiview, error-weighted, the
 # host pipeline through the port's own C++ gather) and the NDC warp
-import tempfile
+import os, tempfile
+import numpy as np
 from nerf_rs_tpu_torch.data import blender, images, llff, native_loader, procedural
 from nerf_rs_tpu_torch.data.dataset import update_error_store
 from nerf_rs_tpu_torch.data.pipeline import PrefetchPipeline
@@ -172,8 +176,38 @@ with tempfile.TemporaryDirectory() as tmp:
                                               4, 4, 5.0),
                            CameraConfig(width=4, height=4, focal=5.0, near=0.0, far=1.0, ndc=True))
     assert bool(torch.isfinite(o2).all() and torch.isfinite(d2).all())
+# slice 7: an EMA step, an accumulated step with sigma noise, the event
+# writer, the profiler window, the diagnostics, the GIF, the export and its
+# mesh, the intersections
+from nerf_rs_tpu_torch.ops import intersect
+from nerf_rs_tpu_torch.train.loop import log_diagnostics
+from nerf_rs_tpu_torch.utils import export, mesh, profiling, tb
+ecfg = dataclasses.replace(cfg, model=small, data=DataConfig(dataset="sphere"),
+                           render=RenderConfig(num_samples=8, raw_noise_std=1.0),
+                           train=TrainConfig(num_rays=16, ema_decay=0.9, accumulation_steps=4))
+state = step.init_state(ecfg)
+eds = make_dataset(ecfg)
+state, aux = step.make_train_step(ecfg, eds)(state, step.step_generator(0, 0, "cpu"))
+assert bool(torch.isfinite(aux["loss"])) and aux["ray_err"].shape == (16,)
+assert step.with_ema_params(state).params is state.ema
+with tempfile.TemporaryDirectory() as tmp:
+    logger = tb.TBLogger(tmp, "run")
+    with profiling.trace(logger.dir) as trace_path:
+        log_diagnostics(logger, eds, ecfg, 1, state=state)
+    logger.close()
+    assert os.path.getsize(logger.path) > 0 and os.path.exists(trace_path)
+    images.save_gif(os.path.join(tmp, "a.gif"), rgb[None].expand(2, 8, 8, 3))
+    with open(os.path.join(tmp, "a.gif"), "rb") as f:
+        assert images.gif_frames(f.read()) == ((8, 8), [(8, 8), (8, 8)])
+sigma, crgb = export.sample_density_grid(state.params, small, res=8)
+verts, faces, _ = mesh.marching_tetrahedra(sigma, float(np.median(sigma)), 1.6, rgb=crgb)
+assert sigma.shape == (8, 8, 8) and faces.shape[1] == 3
+inter = intersect.pairwise_view_intersections(o.reshape(-1, 3), d.reshape(-1, 3),
+                                              o.reshape(-1, 3), d.reshape(-1, 3), 2.0)
+assert intersect.trace_intersections_to_screen(inter, 8, 8).shape == (100, 100)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_rs_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_rs_tpu",
+                                    "tensorboard", "tensorboardX", "PIL", "imageio"))
 print("modules", len(names), "jax-family", bad)
 """
 

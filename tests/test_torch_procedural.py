@@ -83,22 +83,50 @@ def test_render_gold_matches_jax(scene, space):
         assert 0.05 < got[..., 3].mean() < 0.95  # the object fills part of the frame
 
 
+# a pixel whose alpha byte is 0 shows no colour: both writers truncate
+# acc x 255, so its coverage is under one 8-bit step (0.0037 was the
+# largest), and its colour bytes are unpremultiplied rgb / max(acc, 1e-6),
+# which turns a one-ulp gap in acc (2^-24 against 0) into tens of colour steps
+INVISIBLE_ACC = 1.0 / 255
+# the premultiplied frames' gap: GOLD_TOL on the lego (6.9e-6 was the
+# largest); on the forward-facing scene one sample's sigma gap, up to 2e-4
+# (test_fields_match_jax's bar), times its delta of 6 / 64 moves acc by up
+# to 1.9e-5, and two such samples by 3.8e-5 (2.26e-5 was the largest)
+PREMULT_TOL = {"lego": GOLD_TOL, "facing": 4e-5}
+
+
+def _gold_pair(scene: str, c2w, size: int, num_samples: int):
+    """(port, JAX) ``render_gold`` of one view of ``scene`` at the writer's
+    camera, as (size, size, 4) [unpremultiplied rgb, acc] arrays."""
+    focal = 0.5 * size / math.tan(0.5 * procedural.CAMERA_ANGLE_X)
+    near, far = (1.5, 7.5) if scene == "facing" else (2.0, 6.0)
+    c2w = np.asarray(c2w, np.float32)
+    mine = procedural.render_gold(c2w, size, size, focal, near=near, far=far,
+                                  num_samples=num_samples, field_fn=procedural.FIELDS[scene])
+    theirs = jproc.render_gold(c2w, size, size, focal, near=near, far=far,
+                               num_samples=num_samples, field_fn=jproc.FIELDS[scene])
+    return mine, np.asarray(theirs)
+
+
 @pytest.mark.parametrize("scene", ["lego", "facing"])
 def test_scene_writer_matches_the_jax_writer(scene, tmp_path):
     """A 16 x 16 scene (2 train views, 1 val, 1 test, 64 samples) from
-    each package: the same transforms_*.json; every PNG byte within 1 LSB
-    of the JAX writer's, at least 80% of the pixels equal in all four
-    channels (84-99% here), and each byte that differs one whose JAX frame
-    value x 255 lies within 255 GOLD_TOL of an integer, where the frames'
-    gap can carry the truncation across (most are alpha at a coverage of 1
-    - 1e-6: 254 against 255)."""
+    each package: the same transforms_*.json. Where the alpha byte is 0 in
+    both frames no colour shows, and the colour bytes are not compared;
+    both frames' acc there stands below INVISIBLE_ACC, which only restates
+    the alpha byte (both writers store trunc(acc x 255)) and so checks no
+    more than that ``_gold_pair`` recomputes the frames written: the bar on
+    those pixels is test_render_gold_premultiplied_matches_jax. Every other byte
+    within 1 LSB of the JAX writer's, alpha compared everywhere, at least
+    80% of the pixels equal in all four channels (84-99% here), and each
+    byte that differs one whose JAX frame value x 255 lies within 255
+    GOLD_TOL of an integer, where the frames' gap can carry the truncation
+    across (most are alpha at a coverage of 1 - 1e-6: 254 against 255)."""
     mine, theirs = tmp_path / "port", tmp_path / "jax"
     kw = dict(size=16, n_train=2, n_val=1, n_test=1, num_samples=64, verbose=False,
               scene=scene)
     procedural.make_blender_scene(str(mine), **kw)
     jproc.make_blender_scene(str(theirs), **kw)
-    focal = 0.5 * 16 / math.tan(0.5 * procedural.CAMERA_ANGLE_X)
-    near, far = (1.5, 7.5) if scene == "facing" else (2.0, 6.0)
     for split in ("train", "val", "test"):
         meta = json.load(open(mine / f"transforms_{split}.json"))
         assert meta == json.load(open(theirs / f"transforms_{split}.json"))
@@ -106,13 +134,35 @@ def test_scene_writer_matches_the_jax_writer(scene, tmp_path):
             name = frame["file_path"] + ".png"
             a = np.asarray(Image.open(mine / name)).astype(int)
             b = np.asarray(Image.open(theirs / name)).astype(int)
+            g_mine, g_jax = _gold_pair(scene, frame["transform_matrix"], 16, 64)
+            invisible = (a[..., 3] == 0) & (b[..., 3] == 0)
+            assert (g_mine[..., 3][invisible] < INVISIBLE_ACC).all(), name
+            assert (g_jax[..., 3][invisible] < INVISIBLE_ACC).all(), name
             diff = np.abs(a - b)
+            diff[..., :3][invisible] = 0  # colour that neither file shows
             assert diff.max() <= 1 and (diff.max(-1) == 0).mean() >= 0.8, name
-            f = jproc.render_gold(np.asarray(frame["transform_matrix"], np.float32), 16, 16,
-                                  focal, near=near, far=far, num_samples=64,
-                                  field_fn=jproc.FIELDS[scene]) * 255.0
+            f = g_jax * 255.0
             edge = np.abs(f - np.round(f))[diff > 0]
             assert (edge <= 255 * GOLD_TOL).all(), (name, float(edge.max()))
+
+
+@pytest.mark.parametrize("scene", ["lego", "facing"])
+def test_render_gold_premultiplied_matches_jax(scene):
+    """The writer test's frames through each package's ``render_gold``, in
+    the well-conditioned form: premultiplied colour rgb * acc and the
+    coverage acc within PREMULT_TOL at every pixel (no division by acc)."""
+    pose_fn = (procedural.forward_facing_poses if scene == "facing"
+               else procedural.hemisphere_poses)
+    # the writer's splits at seed 0: train 2 views (seed 1), val 1 (2), test 1 (3)
+    c2w = np.concatenate([pose_fn(2, 1), pose_fn(1, 2), pose_fn(1, 3)])
+    for i in range(c2w.shape[0]):
+        g_mine, g_jax = _gold_pair(scene, c2w[i], 16, 64)
+        for g in (g_mine, g_jax):
+            assert g.shape == (16, 16, 4)
+        tol = PREMULT_TOL[scene]
+        np.testing.assert_allclose(g_mine[..., 3], g_jax[..., 3], atol=tol, rtol=0)
+        np.testing.assert_allclose(g_mine[..., :3] * g_mine[..., 3:],
+                                   g_jax[..., :3] * g_jax[..., 3:], atol=tol, rtol=0)
 
 
 def test_make_scene_entry_writes_a_scene_the_loader_reads(tmp_path):

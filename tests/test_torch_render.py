@@ -239,11 +239,12 @@ def test_cli_render_view_and_sweep(tmp_path, capsys):
     assert "rendered 2 frames of 16x16" in capsys.readouterr().out
 
 
-# --occ_res, --multiscale_levels and the image datasets are ported
+# --occ_res, --multiscale_levels, the image datasets and the EMA are ported
 # (tests/test_torch_occupancy.py, tests/test_torch_multiscale.py,
-# tests/test_torch_data.py); the EMA and the sharded pixel store are not
+# tests/test_torch_data.py, tests/test_torch_ema.py); the scenes of a
+# multi-scene checkpoint and the sharded pixel store are not
 @pytest.mark.parametrize("argv", [
-    ["render", "--dataset", "sphere", "--ema_decay", "0.9"],
+    ["render", "--dataset", "sphere", "--scene_index", "1", "--depth", "true"],
     ["render", "--dataset", "sphere", "--shard_pixel_store", "true"],
     ["render", "--dataset", "sphere", "--compat", "true"],
 ])
@@ -254,11 +255,11 @@ def test_cli_refuses_unported_flags(argv, capsys):
     assert "not ported" in capsys.readouterr().err
 
 
-# train and eval are ported; what they refuse is what later slices bring
-# (--preset record and eval --scales are ported since slices 3 and 4, and
-# --preset pod since slice 6)
-_UNPORTED = {"train": ["--accumulation_steps", "2"], "eval": ["--scenes", "a,b"],
-             "export": []}
+# train, eval and export are ported; what they refuse is what later slices
+# bring (--preset record and eval --scales are ported since slices 3 and 4,
+# --preset pod since slice 6, --accumulation_steps and export since slice 7)
+_UNPORTED = {"train": ["--accumulation_steps", "2", "--num_devices", "2"],
+             "eval": ["--scenes", "a,b"], "export": ["--mesh", "true", "--scene_index", "0"]}
 
 
 @pytest.mark.parametrize("cmd", ["train", "eval", "export"])
@@ -314,7 +315,198 @@ def test_unported_dataset_and_render_options_raise(tmp_path):
                                                   share_network=True),
                                      CameraConfig(), randomized=False)
     assert fine.weights.shape == (3, 12) and bool(torch.isfinite(fine.rgb).all())
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    # sigma noise is ported since slice 7 (tests/test_torch_render.py's noise
+    # cases); compat rendering is slice 10's
+    with pytest.raises(NotImplementedError, match="slice 10"):
         render_ops.render_rays(None, torch.zeros(1, 3), torch.ones(1, 3), ModelConfig(),
-                               RenderConfig(raw_noise_std=1.0), CameraConfig(),
-                               randomized=True)
+                               RenderConfig(raw_noise_std=1.0, compat_density_color=True),
+                               CameraConfig(), randomized=True)
+
+
+# --- slice 7: sigma noise and render --depth / --gif ---
+
+NOISE_MODEL = ModelConfig(net_depth=2, net_width=16, skip_layer=1, feature_width=16,
+                          view_head_width=16, pos_enc_levels=2, dir_enc_levels=1)
+
+
+@pytest.mark.parametrize("sigma_act", ["relu", "softplus"])
+def test_apply_nerf_sigma_noise_matches_jax(sigma_act):
+    """The paper's sigma noise on the raw density: the port's field fed
+    JAX's own draw (``jax.random.normal`` of the noise key) against the JAX
+    field with that key, f32 (test_apply_nerf_f32_matches_jax's 1e-4:
+    summation order only; the noise adds one f32 product on each side)."""
+    mcfg = dataclasses.replace(NOISE_MODEL, sigma_activation=sigma_act)
+    params, model = _converted(mcfg, seed=4)
+    rng = np.random.default_rng(4)
+    pts = rng.uniform(-1, 1, (6, 5, 3)).astype(np.float32)
+    vd = rng.normal(size=(6, 1, 3)).astype(np.float32)
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    key = jax.random.PRNGKey(9)
+    s_j, c_j = jmlp.apply_nerf(params, jnp.asarray(pts), jnp.asarray(vd), _j(mcfg),
+                               noise_std=0.7, noise_key=key)
+    eps = torch.from_numpy(np.array(jax.random.normal(key, (6, 5), jnp.float32)))
+    with torch.no_grad():
+        s_p, c_p = model.forward(torch.from_numpy(pts), torch.from_numpy(vd))
+        s_n, c_n = render_ops.apply_nerf(model, torch.from_numpy(pts), torch.from_numpy(vd),
+                                         mcfg, noise_std=0.7, noise=eps)
+    np.testing.assert_allclose(s_n.numpy(), np.asarray(s_j), atol=1e-4)
+    np.testing.assert_allclose(c_n.numpy(), np.asarray(c_j), atol=1e-4)
+    assert not torch.allclose(s_n, s_p) and torch.equal(c_n, c_p)  # noise moves sigma only
+
+
+@pytest.mark.parametrize("fine_mode,shared", [("union", False), ("standalone", False),
+                                              ("union", True)])
+def test_render_rays_sigma_noise_matches_jax(fine_mode, shared, monkeypatch):
+    """A randomized hierarchical render with raw_noise_std 1: both packages
+    on JAX's draws (the coarse jitter from its coarse key, the fine draws
+    from its fine key on its coarse weights, handed to the port through
+    its samplers) and JAX's noise, one draw a pass (fold_in(key, 1) of each
+    pass's key), the separate fine field, the standalone pass and the
+    shared-network fast pass: every output within 1e-4 (f32 eager fields,
+    summation order only)."""
+    from nerf_rs_tpu.ops import sampling as jsamp
+    from nerf_rs_tpu_torch.ops import sampling
+
+    rcfg = RenderConfig(num_samples=8, num_fine_samples=8, fine_mode=fine_mode,
+                        share_network=shared, raw_noise_std=1.0)
+    cam = CameraConfig(width=4, height=3)
+    params, model = _converted(NOISE_MODEL, seed=5)
+    fparams, fmodel = (None, None) if shared else _converted(NOISE_MODEL, seed=6)
+    o_j, d_j = jrays.ray_grid(jnp.asarray(np.eye(3, dtype=np.float32)), _j(cam))
+    key = jax.random.PRNGKey(3)
+    want_c, want_f = jrender.render_rays(params, o_j, d_j, key, _j(NOISE_MODEL), _j(rcfg),
+                                         _j(cam), fine_params=fparams, randomized=True)
+    n = 12
+    k_coarse, k_fine = jax.random.split(key)
+    ts = np.array(jsamp.stratified_ts(k_coarse, n, 8, cam.near, cam.far, True))
+    w = np.asarray(want_c.weights).reshape(n, 8)
+    bins = np.concatenate([ts[:, :1], 0.5 * (ts[:, 1:] + ts[:, :-1]), ts[:, -1:]], -1)
+    fine_ts = np.array(jsamp.sample_pdf(k_fine, jnp.asarray(bins), jnp.asarray(w), 8, True))
+    fine_n = 8 if (fine_mode == "standalone" or shared) else 16
+    noise = [np.array(jax.random.normal(jax.random.fold_in(k, 1), (n, s)))
+             for k, s in ((k_coarse, 8), (k_fine, fine_n))]
+    monkeypatch.setattr(sampling, "stratified_ts", lambda *a, **kw: torch.from_numpy(ts))
+    monkeypatch.setattr(sampling, "sample_pdf", lambda *a, **kw: torch.from_numpy(fine_ts))
+    draws = [torch.from_numpy(x) for x in noise]
+    monkeypatch.setattr(render_ops, "standard_normal",
+                        lambda shape, *a: draws.pop(0).reshape(shape))
+    o, d = rays.ray_grid(torch.eye(3), cam)
+    with torch.no_grad():
+        got_c, got_f = render_ops.render_rays(model, o, d, NOISE_MODEL, rcfg, cam,
+                                              randomized=True, fine_params=fmodel)
+    assert not draws  # one draw a pass, each taken
+    for got, want in ((got_c, want_c), (got_f, want_f)):
+        for name in ("rgb", "sigma", "weights", "depth", "acc", "ts"):
+            np.testing.assert_allclose(getattr(got, name).numpy(),
+                                       np.asarray(getattr(want, name)), atol=1e-4,
+                                       err_msg=name)
+    assert float(got_c.sigma.max()) > 0.0
+
+
+def test_sigma_noise_is_a_draw_per_pass_and_leaves_the_kernels(monkeypatch):
+    """Drawn from the generator, the coarse and fine passes' noise are
+    independent draws (the JAX package's test_sigma_noise_coarse_fine_keys
+    _differ: a zero sigma head makes sigma relu(noise) exactly); a render
+    that asks for the kernel takes the eager field under noise, and the
+    train step autograd (whole_ray_supported is off), as in the JAX
+    package; without randomized passes no noise is drawn."""
+    from nerf_rs_tpu_torch.kernels import fused_ray
+    from nerf_rs_tpu_torch.train import step
+
+    model = init_nerf_params(NOISE_MODEL, 0)
+    with torch.no_grad():
+        model.sigma.w.zero_()
+        model.sigma.b.zero_()
+    rcfg = RenderConfig(num_samples=8, num_fine_samples=8, raw_noise_std=5.0)
+    o = torch.zeros(4, 3)
+    o[:, 2] = -1.0
+    d = torch.zeros(4, 3)
+    d[:, 2] = 1.0
+    calls = []
+    real = fused_ray.fused_ray_render
+    monkeypatch.setattr(fused_ray, "fused_ray_render",
+                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    with torch.no_grad():
+        coarse, fine = render_ops.render_rays(model, o, d, NOISE_MODEL, rcfg, CameraConfig(),
+                                              randomized=True, use_fused=True,
+                                              generator=torch.Generator().manual_seed(0),
+                                              fine_params=model)
+        assert calls == []  # the eager field under noise
+        assert float(coarse.sigma.max()) > 0.0 and float(fine.sigma.max()) > 0.0
+        assert not np.allclose(np.sort(coarse.sigma.numpy(), -1),
+                               np.sort(fine.sigma.numpy(), -1)[:, -8:])
+        quiet, _ = render_ops.render_rays(model, o, d, NOISE_MODEL, rcfg, CameraConfig(),
+                                          randomized=False, use_fused=True, fine_params=model)
+        assert calls and float(quiet.sigma.max()) == 0.0  # no noise: the kernel route
+    cfg = Config(model=NOISE_MODEL, render=rcfg, use_whole_ray_train=True)
+    assert not step.whole_ray_supported(cfg)
+    assert step.whole_ray_supported(dataclasses.replace(cfg, render=RenderConfig()))
+
+
+def test_cli_render_depth_and_gif(tmp_path, capsys):
+    """``render --depth --gif``: beside each sweep frame (and the --view
+    frame) a ``-depth.png`` (depth / far, clipped, truncated to 8 bits, as
+    the JAX CLI writes it) and an ``-acc.png`` of the rendered frame's
+    values, and ``sweep.gif``: PIL reads its frames, each within one
+    palette step (51) of the frame (its nearest level, <= 25.5, plus the
+    PNG's truncation), looping, 100 ms a frame."""
+    from PIL import Image
+
+    cfg = _sphere_cfg(False, size=16, samples=16)
+    model = init_nerf_params(cfg.model, 3)
+    path = ckpt.save(model, str(tmp_path / "ckpt"), step=5)
+    common = ["--dataset", "sphere", "--width", "16", "--height", "16", "--num_samples", "16",
+              "--load_path", path, "--device", "cpu", "--depth", "true"]
+    out = tmp_path / "s"
+    assert cli.main(["render", *common, "--frames", "3", "--gif", "true",
+                     "--out_dir", str(out)]) == 0
+    assert f"wrote {out / 'sweep.gif'}" in capsys.readouterr().out
+    assert sorted(os.listdir(out)) == sorted(
+        [f"frame-{i:03d}{s}.png" for i in range(3) for s in ("", "-depth", "-acc")]
+        + ["sweep.gif"])
+    angles = rays.spherical_render_path(3, np.pi / 6)
+    poses = rays.pose_from_yaw_pitch(angles[:, 0], angles[:, 1])
+    gif = Image.open(out / "sweep.gif")
+    assert gif.n_frames == 3 and gif.info["loop"] == 0 and gif.info["duration"] == 100
+    for i in range(3):
+        rgb, depth, acc = render_frame(cfg, model, *rays.ray_grid(poses[i], cfg.camera))
+        png = _read_png(str(out / f"frame-{i:03d}.png")).astype(int)
+        for name, v in (("depth", torch.clamp(depth / cfg.camera.far, 0, 1)),
+                        ("acc", torch.clamp(acc, 0, 1))):
+            want = np.clip(v.numpy() * 255.0, 0, 255).astype(np.uint8)
+            got = _read_png(str(out / f"frame-{i:03d}-{name}.png"))
+            assert (np.abs(got.astype(int) - want[..., None]) <= 1).all(), name
+        gif.seek(i)
+        frame = np.asarray(gif.convert("RGB")).astype(int)
+        assert np.abs(frame - rgb.numpy() * 255.0).max() <= 25.5 + 1e-3
+        assert np.abs(frame - png).max() <= 51
+    assert cli.main(["render", *common, "--view", "0", "--out_dir", str(tmp_path / "v")]) == 0
+    assert sorted(os.listdir(tmp_path / "v")) == ["view-0-acc.png", "view-0-depth.png",
+                                                  "view-0.png"]
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (3, 64, 48), (2, 5, 300)])
+def test_save_gif_round_trips_through_pil(shape, tmp_path):
+    """The port's GIF89a: PIL decodes every frame to the palette colour of
+    each pixel's nearest level, exactly (random frames fill the LZW table
+    past 4,095 codes, so the coder's clear-and-restart runs too); the
+    port's header walk reads the screen and frame sizes; a frame of
+    another size is refused."""
+    from PIL import Image
+
+    from nerf_rs_tpu_torch.data import images
+
+    n, h, w = shape
+    frames = np.random.default_rng(h * w).uniform(-0.2, 1.2, (n, h, w, 3)).astype(np.float32)
+    path = tmp_path / "a.gif"
+    images.save_gif(str(path), torch.from_numpy(frames), fps=20)
+    assert images.gif_frames(path.read_bytes()) == ((w, h), [(w, h)] * n)
+    gif = Image.open(path)
+    assert gif.n_frames == n and gif.info["duration"] == 50
+    pal = images.gif_palette()
+    for i in range(n):
+        gif.seek(i)
+        np.testing.assert_array_equal(np.asarray(gif.convert("RGB")),
+                                      pal[images.gif_indices(frames[i])])
+    with pytest.raises(ValueError, match="differ in size"):
+        images.save_gif(str(path), [frames[0], frames[0][:, :-1]])

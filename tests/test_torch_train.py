@@ -221,13 +221,15 @@ def test_presets_resolve_like_the_jax_cli():
     assert _resolve(cli, ["train"]).use_whole_ray_train is False
 
 
-# multiscale (slice 3), the occupancy grid and record preset (slice 4) and
-# the datasets, batch modes and --preset pod (slice 6) are ported:
-# tests/test_torch_multiscale.py, tests/test_torch_occupancy.py and
-# tests/test_torch_data.py run them
+# multiscale (slice 3), the occupancy grid and record preset (slice 4), the
+# datasets, batch modes and --preset pod (slice 6) and the EMA, gradient
+# accumulation, sigma noise, the profiler and export (slice 7) are ported:
+# tests/test_torch_multiscale.py, tests/test_torch_occupancy.py,
+# tests/test_torch_data.py, tests/test_torch_ema.py and
+# tests/test_torch_export.py run them
 @pytest.mark.parametrize("argv,slice_no", [
-    (["train", "--accumulation_steps", "2"], 7),
-    (["train", "--ema_decay", "0.9"], 7),
+    (["export", "--scene_index", "1"], 8),
+    (["train", "--compat", "true", "--ema_decay", "0.9"], 10),
     (["eval", "--scenes", "a,b"], 8),
     (["train", "--num_devices", "2"], 8),
     (["train", "--shard_pixel_store", "true"], 8),
@@ -240,3 +242,127 @@ def test_cli_names_the_slice_of_what_it_refuses(argv, slice_no, capsys):
         rc = e.code
     assert rc == 2
     assert f"slice {slice_no}" in capsys.readouterr().err
+
+
+# --- slice 7: gradient accumulation ---
+
+def _acc_cfg(acc, **kw):
+    cfg = _cfg(False, precision="f32", accumulation_steps=acc)
+    return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+@pytest.mark.parametrize("acc", [2, 4])
+def test_accumulated_step_matches_jax(acc):
+    """An accumulated step (the batch cut into ``acc`` micro-batches, their
+    autograd gradients averaged, one Adam update) against the JAX
+    package's ``train_step`` (its ``train_step_core`` scan), midpoint
+    samples, f32: the same bars as test_train_step_matches_jax's autograd
+    path; aux the micro-batches' means, ray_err per ray in batch order.
+    The kernel route is off under accumulation in both packages."""
+    cfg = _acc_cfg(acc, use_whole_ray_train=True)
+    assert not step.whole_ray_supported(cfg)
+    jstate, state = _converted_state(cfg)
+    o, d, gold = _rays(1)
+    new_j, aux_j = jstep.train_step(jstate, jstep.Batch(*map(jnp.asarray, (o, d, gold))),
+                                    jax.random.PRNGKey(0), _j(cfg))
+    state, aux = step.train_step(state, step.Batch(*map(torch.from_numpy, (o, d, gold))),
+                                 None, cfg)
+    for key in ("loss", "loss_coarse", "psnr"):
+        np.testing.assert_allclose(float(aux[key]), float(aux_j[key]), rtol=1e-4, err_msg=key)
+    assert aux["ray_err"].shape == (N,)
+    np.testing.assert_allclose(aux["ray_err"].numpy(), np.asarray(aux_j["ray_err"]), atol=1e-5)
+    for g, w in zip(jax.tree_util.tree_leaves(params_to_numpy(state.params)),
+                    jax.tree_util.tree_leaves(jax.tree.map(np.asarray, new_j.params))):
+        np.testing.assert_allclose(g, w, atol=0.1 * LR)
+
+
+def test_accumulation_of_one_batch_is_its_mean_gradient():
+    """With the same rays in every micro-batch, the accumulated gradient is
+    the one-batch gradient (the mean of equal terms), and the aux the
+    one-batch aux: within f32 rounding of the sum and the division."""
+    from nerf_rs_tpu_torch.train.step import accumulated_grads, loss_fn, named_trainable
+
+    o, d, gold = _rays(2)
+    one = step.Batch(*map(torch.from_numpy, (o[:4], d[:4], gold[:4])))
+    four = step.Batch(*(torch.cat([t] * 4) for t in one[:3]))
+    cfg = _acc_cfg(4)
+    state = step.init_state(cfg)
+    loss, aux1 = loss_fn(state.params, one, None, cfg)
+    loss.backward()
+    want = {k: p.grad.clone() for k, p in named_trainable(state)}
+    grads, aux4 = accumulated_grads(state, four, None, cfg)
+    for k, g in grads.items():
+        torch.testing.assert_close(g, want[k], rtol=1e-6, atol=1e-9)
+    torch.testing.assert_close(aux4["loss"], aux1["loss"].detach(), rtol=1e-6, atol=0)
+    assert torch.equal(aux4["ray_err"], torch.cat([aux1["ray_err"]] * 4))
+
+
+def test_accumulation_drops_the_proposal_anneal_as_jax_does():
+    """The JAX scan body calls ``loss_fn`` without the step, so under
+    accumulation the proposal's draws are not annealed: at step 5 of a
+    10-step anneal the accumulated step equals the accumulated step of the
+    same config without an anneal, bit for bit, where the plain step's
+    anneal moves the proposal's draws; and it matches the JAX package's
+    accumulated step on the same state (midpoint samples, f32)."""
+    from nerf_rs_tpu_torch.config import ProposalConfig
+
+    prop = ProposalConfig(enabled=True, num_samples=8, net_width=16, anneal_steps=10)
+    cfg = _acc_cfg(2, proposal=prop, render=RenderConfig(num_samples=16, randomized=False))
+    flat = dataclasses.replace(cfg, proposal=dataclasses.replace(prop, anneal_steps=0))
+    o, d, gold = _rays(3)
+    batch = step.Batch(*map(torch.from_numpy, (o, d, gold)))
+    outs = []
+    for c in (cfg, flat):
+        state = step.init_state(c)
+        state.step = 5
+        state, aux = step.train_step(state, batch, None, c)
+        outs.append((params_to_numpy(state.params), aux))
+    for a, b in zip(jax.tree_util.tree_leaves(outs[0][0]), jax.tree_util.tree_leaves(outs[1][0])):
+        np.testing.assert_array_equal(a, b)
+    plain = [step.loss_fn(step.init_state(c).params, batch, None, c,
+                          step.init_state(c).fine_params, step=5)[1]["loss"].detach()
+             for c in (dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                           accumulation_steps=1)),
+                       flat)]
+    assert float(plain[0]) != float(plain[1])  # without accumulation the anneal counts
+
+    jcfg = _j(cfg)
+    jstate = jstep.init_state(jax.random.PRNGKey(4), jcfg)
+    jstate = jstate._replace(step=jnp.asarray(5, jnp.int32))
+    state = step.init_state(cfg)
+    state.params.load_state_dict(params_from_numpy(jax.tree.map(np.asarray, jstate.params)))
+    state.fine_params.load_state_dict(
+        params_from_numpy(jax.tree.map(np.asarray, jstate.fine_params)))
+    state.step = 5
+    new_j, aux_j = jstep.train_step(jstate, jstep.Batch(*map(jnp.asarray, (o, d, gold))),
+                                    jax.random.PRNGKey(0), jcfg)
+    state, aux = step.train_step(state, batch, None, cfg)
+    for key in ("loss", "loss_coarse", "loss_prop"):
+        np.testing.assert_allclose(float(aux[key]), float(aux_j[key]), rtol=1e-4, err_msg=key)
+    for g, w in zip(jax.tree_util.tree_leaves(params_to_numpy(state.params)),
+                    jax.tree_util.tree_leaves(jax.tree.map(np.asarray, new_j.params))):
+        np.testing.assert_allclose(g, w, atol=0.1 * LR)
+
+
+@pytest.mark.parametrize("argv", [
+    ["train", "--ema_decay", "0.9"],
+    ["train", "--accumulation_steps", "2", "--raw_noise_std", "1.0"],
+    ["train", "--profile_steps", "1", "--log_densities_only", "true"],
+    ["render", "--depth", "true", "--gif", "true", "--frames", "2"],
+    ["export", "--grid_res", "8", "--mesh", "true"],
+])
+def test_slice7_flags_run_on_the_cpu_and_need_the_card_otherwise(argv, tmp_path):
+    """Each slice-7 entry point and flag runs with ``--device cpu`` (export
+    and render on a checkpoint of a 2-step run) and, without a card, raises
+    rather than fall back to the CPU."""
+    common = ["--dataset", "sphere", "--width", "8", "--height", "8", "--num_samples", "8",
+              "--num_rays", "32", "--save_dir", str(tmp_path / "ck"), "--log_dir",
+              str(tmp_path / "logs")]
+    if argv[0] != "train":
+        assert cli.main(["train", *common, "--num_iter", "2", "--device", "cpu"]) == 0
+    extra = {"train": ["--num_iter", "2"], "render": ["--out_dir", str(tmp_path / "r")],
+             "export": ["--out", str(tmp_path / "x" / "field")]}[argv[0]]
+    assert cli.main([*argv, *common, *extra, "--device", "cpu"]) == 0
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([*argv, *common, *extra])
