@@ -205,6 +205,22 @@ Phases, each fatal (any failure exits non-zero):
      micro-batches' mean gradient against the one batch's (f32, ACC_TOL);
      then one line of times: the EMA step against the plain step
      (interleaved windows), the EMA update alone, the sweep, the export.
+ 31. slice 8 (run after phase 30): DP_RANKS ranks share the card over gloo
+     (NCCL refuses two ranks on one card), spawned by the port's launcher,
+     each counting its own launches: one flagship DP step over a given
+     4096-ray batch (midpoint samples; 2048 rays a rank, K2 once a rank),
+     whose reduced gradient must match one K2 call over all 4096 rays
+     (KERNEL_TOL); DP_STEPS in-step steps of --preset full and POD_STEPS
+     error-weighted steps of --preset pod through K2 (K2 once a step a
+     rank), after which both ranks' weights, Adam state and error store
+     must hash the same; the 800x800 frame in two blocks through K1 (2
+     chunks a rank), equal to the one-process frame. Then `train --scenes
+     sphere,flat_sphere` at 64x64 for MS_STEPS steps on the one card (a 1 x
+     1 scene mesh; autograd: no K2; K1 for the per-scene evals), `eval` and
+     `render --scene_index 1` (scene 1's view 0 PSNR equal to the
+     training's last eval); and `train --num_devices 2` on the one card
+     must exit non-zero naming its one card. Every phase runs on the first
+     visible card (pin_first_card).
 The record, multiscale and lego learning drives and fault 6's check fail the run at its end,
 after phase 29 has printed its measurements. `clock:` lines give each
 phase's wall seconds. Every kernel launch counter is set
@@ -230,6 +246,15 @@ sort and the reduce), K4's gathers, the ngp steps and frames, the
 factored step and K3's calls. Each K1 call also prints the bytes of
 weights that it must read from L2 by the kernel's design and the rate that
 implies: modelled, not measured.
+
+    python3 chip_smoke.py --dp-cards N
+
+measures slice 8 across N cards over NCCL (a call with N cards): the
+flagship DP step (4096 rays over the ranks, DP_WINDOW steps a window, best
+of 3) and the 800x800 frame through the sharded renderer (best of 3), on one
+card and on N, then `cli train --preset full --num_devices N` and `cli
+render --num_devices N` of an 800x800 view once each, and prints one JSON
+line of the times.
 
     python3 chip_smoke.py --learn PRESET SEEDS [FLAG ...]
 
@@ -516,6 +541,22 @@ CORNER_RAYS = 1024
 # 1/15 of the 7.7 dB by which a route that leaves the plateau (autograd) parts
 FAULT6 = ("proposal", "2", "301", ("--sigma_activation", "relu"))
 FAULT6_MARGIN = 0.5
+# phase 31 (slice 8): two ranks share the card over gloo (NCCL refuses two
+# ranks on one card): the flagship's DP step (4096 rays, 2048 a rank, K2
+# once a step a rank) for DP_STEPS steps, --preset pod's error-weighted step
+# through K2 for POD_STEPS, the 800x800 frame in two blocks through K1; then
+# multi-scene training through the CLI on the one card (a 1 x 1 scene mesh)
+DP_RANKS = 2
+DP_STEPS = 50
+POD_STEPS = 20
+POD_ARGS = ("--preset", "pod", "--dataset", "sphere", "--use_whole_ray_train", "true")
+MS_SCENES = "sphere,flat_sphere"
+MS_ARGS = ("--scenes", MS_SCENES, "--width", "64", "--height", "64", "--num_rays", "1024")
+MS_STEPS = 200
+MS_EVAL_EVERY = 100
+# --dp-cards N: windows of DP_WINDOW flagship steps (best of 3) and of one
+# 800x800 frame, on one card and on N over NCCL, in one call
+DP_WINDOW = 20
 
 
 # checks whose failure fails the run at its end, after every later phase has
@@ -3995,6 +4036,347 @@ def time_step(root: str) -> int:
     return 0
 
 
+def state_digest(state, *extra) -> str:
+    """sha256 of a train state's weights and Adam state (and ``extra``
+    tensors, such as an error store): equal digests, equal bits."""
+    import hashlib
+
+    import torch
+
+    from nerf_rs_tpu_torch.train import step as step_mod
+
+    h = hashlib.sha256()
+    tensors = [p for _, p in step_mod.named_trainable(state)]
+    for per_param in state.optimizer.state_dict()["state"].values():
+        tensors += [v for _, v in sorted(per_param.items()) if isinstance(v, torch.Tensor)]
+    for t in tensors + list(extra):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def flagship_frame_model(dev):
+    """The frame check's field: the flagship's seed-0 weights with phase
+    3's random biases."""
+    from nerf_rs_tpu_torch import ModelConfig
+    from nerf_rs_tpu_torch.models.mlp import init_nerf_params
+
+    return random_biases_(init_nerf_params(ModelConfig(), 0, dev), 0)
+
+
+def midpoint_cfg(preset: str):
+    """``preset_cfg(preset)`` with midpoint samples (the reduced-gradient
+    check: both sides see the same samples)."""
+    import dataclasses
+
+    cfg = preset_cfg(preset)
+    return dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, randomized=False))
+
+
+def dp_rank(tmp: str) -> int:
+    """Phase 31 in one of DP_RANKS ranks sharing the card over gloo, its
+    counts read in its own process (each counter at 0 before its path):
+    one DP step of the flagship over a given 4096-ray batch with midpoint
+    samples (its reduced gradient saved), DP_STEPS in-step steps of `--preset
+    full`, POD_STEPS error-weighted steps of `--preset pod` through K2 (the
+    error store updated from the gathered draws), and the 800x800 frame
+    through the sharded renderer (rank 0 saves it). Writes
+    dp_rank{r}.json."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from nerf_rs_tpu_torch.data.dataset import update_error_store
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels import build
+    from nerf_rs_tpu_torch.parallel import dist_init, dp, mesh as pmesh
+    from nerf_rs_tpu_torch.render import render_frame
+    from nerf_rs_tpu_torch.train import step as step_mod
+
+    for name in KERNELS:
+        build.load(name)
+    rank, dev = dist_init.rank(), dist_init.device()
+    mesh = pmesh.make_mesh()
+    out = {"rank": rank, "device": str(dev), "counts": {}, "s": {}}
+
+    def timed(key, fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        out["s"][key] = time.perf_counter() - t0
+        out["counts"][key] = kernel_counts()
+        return result
+
+    cfg = midpoint_cfg("full")
+    ds = make_dataset(cfg, dev)
+    batch = ds.sample_batch(torch.Generator(device=dev).manual_seed(7), 4096)
+    state = step_mod.init_state(cfg, dev)
+    fn = dp.make_dp_train_step(cfg, mesh)
+    state, _ = timed("given_batch", lambda: fn(state, batch, step_mod.step_generator(0, 0, dev)))
+    torch.save({n: p.grad.cpu() for n, p in step_mod.named_trainable(state)},
+               os.path.join(tmp, f"dp_grads{rank}.pt"))
+
+    def drive(cfg, steps, store=None):
+        state = step_mod.init_state(cfg, dev)
+        fn = dp.make_dp_train_step(cfg, mesh, ds, err_store=store)
+        for it in range(steps):
+            state, aux = fn(state, step_mod.step_generator(cfg.train.seed, it, dev))
+            if store is not None:
+                update_error_store(store, aux["batch_idx"], aux["ray_err"],
+                                   cfg.train.error_resample_ema)
+        return state, aux
+
+    cfg = preset_cfg("full")
+    state, aux = timed("step", lambda: drive(cfg, DP_STEPS))
+    out["step_digest"], out["step_loss"] = state_digest(state), float(aux["loss"])
+    cfg = cli_config(["train", *POD_ARGS])
+    store = ds.init_error_store()
+    state, aux = timed("pod", lambda: drive(cfg, POD_STEPS, store))
+    out["pod_digest"], out["pod_loss"] = state_digest(state), float(aux["loss"])
+    out["store_digest"] = state_digest(state, store)
+    out["store_mean"] = float(store.mean())
+
+    fcfg, fo, fd = frame_rays(dev)
+    model = flagship_frame_model(dev)
+    render_fn = dp.make_dp_render(fcfg, mesh)
+    rgb, depth, acc = timed("render", lambda: render_frame(fcfg, model, fo, fd, render_fn))
+    if rank == 0:
+        torch.save({"rgb": rgb.cpu(), "depth": depth.cpu(), "acc": acc.cpu()},
+                   os.path.join(tmp, "dp_frame.pt"))
+    with open(os.path.join(tmp, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def drive_dp(tmp: str, card: str) -> dict:
+    """Phase 31, slice 8 on the one card: `cli train --num_devices 2` refused
+    (a rank drives a card of its own), started at once in a process of its
+    own; DP_RANKS ranks of dp_rank sharing the card over gloo, whose
+    reduced gradient must match one K2 call over all 4096 rays (K2's
+    KERNEL_TOL), whose states (and the pod run's error stores) must be
+    bit-identical across ranks, whose frame must equal this process's
+    800x800 frame, and whose K1 / K2 launches must be the paths' own; then
+    `train --scenes sphere,flat_sphere` (MS_STEPS steps, autograd: no K2),
+    `eval` and `render --scene_index 1`, with K1 launches by the chunk
+    plan and the eval's PSNR of scene 1 equal to the training's."""
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels.fused_train import KERNEL_TOL
+    from nerf_rs_tpu_torch.parallel import launch
+    from nerf_rs_tpu_torch.render import render_frame
+    from nerf_rs_tpu_torch.train import step as step_mod
+
+    dev = torch.device("cuda")
+    refusal = subprocess.Popen(
+        [sys.executable, "-m", "nerf_rs_tpu_torch.cli", "train", "--dataset", "sphere",
+         "--num_devices", "2", "--num_iter", "1", "--save_dir", os.path.join(tmp, "refused")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    dp_dir = os.path.join(tmp, "dp")
+    os.makedirs(dp_dir)
+    t0 = time.perf_counter()
+    rc = launch.run(dp_rank, (dp_dir,), DP_RANKS, "cuda", backend="gloo", same_device=True)
+    ranks_s = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"phase 31: a rank exited with {rc}")
+    ranks = []
+    for r in range(DP_RANKS):
+        with open(os.path.join(dp_dir, f"dp_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    print(f"phase 31: {DP_RANKS} ranks on {ranks[0]['device']} over gloo in {ranks_s:.1f} s "
+          f"(spawn and set-up included); per rank: given-batch step, {DP_STEPS} flagship "
+          f"steps in {ranks[0]['s']['step']:.3f} s, {POD_STEPS} pod steps in "
+          f"{ranks[0]['s']['pod']:.3f} s, the frame in {ranks[0]['s']['render']:.3f} s "
+          f"[{card}] (correctness, not speed: the ranks share the card, the reduce goes "
+          f"through the host)")
+    for key in ("step_digest", "pod_digest", "store_digest"):
+        if len({r[key] for r in ranks}) != 1:
+            fail(f"phase 31: the ranks' {key} differ: {[r[key] for r in ranks]}")
+    print(f"phase 31: after {DP_STEPS} steps, and after {POD_STEPS} pod steps with the error "
+          f"store, both ranks hold bit-identical states (loss {ranks[0]['step_loss']:.6f}, pod "
+          f"{ranks[0]['pod_loss']:.6f}, store mean {ranks[0]['store_mean']:.6f})")
+    expect = {"given_batch": ("K2", 1), "step": ("K2", DP_STEPS), "pod": ("K2", POD_STEPS),
+              "render": ("K1", math.ceil(FRAME * FRAME / DP_RANKS / CHUNK))}
+    for r in ranks:
+        for key, (kernel, n) in expect.items():
+            counts = r["counts"][key]
+            if counts[kernel] != n or any(v for k, v in counts.items() if k != kernel):
+                fail(f"phase 31: rank {r['rank']}'s {key} launched {counts}, expected {kernel} "
+                     f"{n} and nothing else")
+
+    # the reduced gradient against one K2 call over all the rays
+    cfg = midpoint_cfg("full")
+    ds = make_dataset(cfg, dev)
+    batch = ds.sample_batch(torch.Generator(device=dev).manual_seed(7), 4096)
+    state, _ = step_mod.train_step(step_mod.init_state(cfg, dev), batch, None, cfg)
+    grads = [torch.load(os.path.join(dp_dir, f"dp_grads{r}.pt")) for r in range(DP_RANKS)]
+    if any(not torch.equal(grads[0][n], g[n]) for g in grads[1:] for n in grads[0]):
+        fail("phase 31: the ranks' reduced gradients differ")
+    grad_err = max(leaf_err(grads[0][n].to(dev), p.grad)
+                   for n, p in step_mod.named_trainable(state))
+    hold("phase 31: the 2-rank reduced gradient vs one K2 call over 4096 rays",
+         {"grads": grad_err}, KERNEL_TOL)
+
+    # the sharded frame against this process's
+    fcfg, fo, fd = frame_rays(dev)
+    want = render_frame(fcfg, flagship_frame_model(dev), fo, fd)
+    got = torch.load(os.path.join(dp_dir, "dp_frame.pt"))
+    frame_err = max(float((got[k].to(dev) - w).abs().max())
+                    for k, w in zip(("rgb", "depth", "acc"), want))
+    if not frame_err <= TOL["rgb"]:
+        fail(f"phase 31: the 2-rank frame differs from the one-process frame by {frame_err}")
+    print(f"phase 31: the 800x800 frame in two blocks vs one process: max |diff| {frame_err:.3g}"
+          f" ({'bit-identical' if frame_err == 0 else 'tol ' + str(TOL['rgb'])})")
+
+    # multi-scene training on the one card, then eval and render of scene 1
+    msdir = os.path.join(tmp, "scenes")
+    common = [*MS_ARGS, "--save_dir", msdir, "--log_dir", msdir]
+    reset_counts()
+    rc, out = run_cli(["train", *common, "--num_iter", str(MS_STEPS), "--eval_steps",
+                       str(MS_EVAL_EVERY), "--save_steps", "100000"])
+    ms_train = kernel_counts()
+    psnrs = re.findall(r"iter=\d+, per-scene eval psnr=\[([^\]]*)\]", out)
+    n_evals = len(range(MS_EVAL_EVERY, MS_STEPS, MS_EVAL_EVERY)) + 1
+    if rc != 0 or len(psnrs) != n_evals or f"done at step {MS_STEPS} (2 scenes)" not in out:
+        fail(f"phase 31: train --scenes: rc {rc}, {len(psnrs)} evals")
+    final = [float(x) for x in psnrs[-1].split(",")]
+    if ms_train["K2"] != 0 or ms_train["K1"] != 2 * n_evals:
+        fail(f"phase 31: train --scenes launched {ms_train}; expected K1 {2 * n_evals}, no K2")
+    reset_counts()
+    rc, out = run_cli(["eval", *common, "--scene_index", "1", "--max_views", "2"])
+    ms_eval = kernel_counts()["K1"]
+    m = re.search(r"view   0: psnr (\S+)", out)
+    if rc != 0 or ms_eval != 2 or m is None or abs(float(m.group(1)) - final[1]) > 0.01:
+        fail(f"phase 31: eval --scene_index 1: rc {rc}, K1 {ms_eval}, view 0 "
+             f"{m.group(1) if m else None} against the training's {final[1]}")
+    reset_counts()
+    rc, out = run_cli(["render", *common, "--scene_index", "1", "--view", "0", "--out_dir",
+                       os.path.join(msdir, "r")])
+    ms_render = kernel_counts()["K1"]
+    if rc != 0 or ms_render != 1 or read_png(os.path.join(msdir, "r", "view-0.png")).shape != (
+            64, 64, 3):
+        fail(f"phase 31: render --scene_index 1: rc {rc}, K1 {ms_render}")
+    print(f"phase 31: train --scenes {MS_SCENES}: {MS_STEPS} steps, eval psnr per scene "
+          f"{final}; eval and render of scene 1 (K1 {ms_eval} and {ms_render})")
+
+    _, err = refusal.communicate(timeout=300)
+    if refusal.returncode == 0 or "have 1 visible card" not in err:
+        fail(f"phase 31: train --num_devices 2 on one card: rc {refusal.returncode}, "
+             f"{err[-500:]}")
+    print(f"phase 31: train --num_devices 2 on one card exits {refusal.returncode}: "
+          f"{err.strip().splitlines()[-1]}")
+    return {"k1": {"dp_render": sum(r["counts"]["render"]["K1"] for r in ranks),
+                   "multiscene_train_eval": ms_train["K1"], "multiscene_eval": ms_eval,
+                   "multiscene_render": ms_render},
+            "k2": {"dp_step_given_batch": sum(r["counts"]["given_batch"]["K2"] for r in ranks),
+                   "dp_step": sum(r["counts"]["step"]["K2"] for r in ranks),
+                   "dp_pod": sum(r["counts"]["pod"]["K2"] for r in ranks),
+                   "multiscene_train": ms_train["K2"]},
+            "grad_err": grad_err, "frame_err": frame_err, "ranks_s": ranks_s,
+            "rank_s": ranks[0]["s"], "multiscene_psnr": final}
+
+
+def dp_cards_rank(tmp: str) -> int:
+    """One rank of --dp-cards: the flagship DP step (in-step draws, 4096
+    rays over the ranks) timed in windows of DP_WINDOW steps after 10 to
+    warm up, best of 3, and the 800x800 frame through the sharded renderer,
+    best of 3; rank 0 writes dp_cards{world}.json."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.parallel import dist_init, dp, mesh as pmesh
+    from nerf_rs_tpu_torch.render import render_frame
+    from nerf_rs_tpu_torch.train import step as step_mod
+
+    dev = dist_init.device() or torch.device("cuda")
+    mesh = pmesh.make_mesh()
+    cfg = preset_cfg("full")
+    ds = make_dataset(cfg, dev)
+    state = step_mod.init_state(cfg, dev)
+    fn = dp.make_dp_train_step(cfg, mesh, ds)
+    it = 0
+
+    def steps(n):
+        nonlocal state, it
+        for _ in range(n):
+            state, _ = fn(state, step_mod.step_generator(0, it, dev))
+            it += 1
+
+    steps(10)
+    step_s = best_of(lambda: steps(DP_WINDOW)) / DP_WINDOW
+    fcfg, fo, fd = frame_rays(dev)
+    model = flagship_frame_model(dev)
+    render_fn = dp.make_dp_render(fcfg, mesh)
+    render_frame(fcfg, model, fo, fd, render_fn)
+    frame_s = best_of(lambda: render_frame(fcfg, model, fo, fd, render_fn))
+    world = dist_init.world_size()
+    if dist_init.is_primary():
+        with open(os.path.join(tmp, f"dp_cards{world}.json"), "w") as f:
+            json.dump({"cards": world, "step_ms": 1000 * step_s,
+                       "rays_per_sec_per_card": 4096 / step_s / world, "frame_s": frame_s}, f)
+    return 0
+
+
+def dp_cards(n: int) -> int:
+    """--dp-cards N (see the module doc)."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import build
+    from nerf_rs_tpu_torch.parallel import launch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this smoke test runs on the card only")
+    card = card_line()
+    print(card)
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(build.build, KERNELS))
+    tmp = tempfile.mkdtemp(prefix="dp_cards_")
+    try:
+        rows = []
+        for world in (1, n):
+            rc = launch.run(dp_cards_rank, (tmp,), world, "cuda")
+            if rc:
+                fail(f"--dp-cards: {world} rank(s) exited with {rc}")
+            with open(os.path.join(tmp, f"dp_cards{world}.json")) as f:
+                rows.append(json.load(f))
+            print(f"{world} card(s) [{card}]: flagship DP step {rows[-1]['step_ms']:.3f} ms, "
+                  f"{rows[-1]['rays_per_sec_per_card']:.0f} rays/s a card, 800x800 frame "
+                  f"{rows[-1]['frame_s']:.4f} s")
+        cli_s = {}
+        for name, argv in (("train", ["train", "--preset", "full", "--dataset", "sphere",
+                                      "--num_iter", "200", "--eval_steps", "100",
+                                      "--save_dir", os.path.join(tmp, "ck"),
+                                      "--log_dir", os.path.join(tmp, "logs")]),
+                           ("render", ["render", "--dataset", "sphere", "--width", str(FRAME),
+                                       "--height", str(FRAME), "--view", "0",
+                                       "--save_dir", os.path.join(tmp, "ck"),
+                                       "--out_dir", os.path.join(tmp, "r")])):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "nerf_rs_tpu_torch.cli", *argv,
+                                   "--num_devices", str(n)], capture_output=True, text=True)
+            cli_s[name] = time.perf_counter() - t0
+            print(proc.stdout.rstrip())
+            if proc.returncode != 0:
+                fail(f"cli {name} --num_devices {n}: {proc.stderr[-2000:]}")
+            print(f"cli {name} --num_devices {n}: {cli_s[name]:.1f} s wall (start-up included)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(json.dumps({"dp_cards": rows, "cli_s": cli_s, "card": card}))
+    return 0
+
+
+def pin_first_card() -> None:
+    """Every phase (and every entry but --dp-cards) runs on the first
+    visible card, and so do the processes it starts: the CLI's
+    --num_devices 0 means every visible card, and the phases' launch counts
+    are one card's."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is None or visible:  # an empty list stays empty: no card
+        os.environ["CUDA_VISIBLE_DEVICES"] = (visible or "0").split(",")[0]
+
+
 def main() -> int:
     import torch
 
@@ -4206,6 +4588,10 @@ def main() -> int:
         slice7 = drive_slice7(tmp, card)
 
         lap("phase 30")
+        # ---- 31. slice 8: two ranks on the card, the sharded frame, scenes ----
+        dp_run = drive_dp(tmp, card)
+
+        lap("phase 31")
         # ---- 28. the learning drives of every path, LEARN_WORKERS at a time ----
         for task in warm:
             task.result()
@@ -4329,13 +4715,14 @@ def main() -> int:
                    for k in ("train_eval", "render", "eval")},
                 "mipnerf_ms_train_eval": ms_counts["train_eval"],
                 "mipnerf_ms_eval_scales": ms_counts["eval_scales"],
-                "ema_eval": slice7["k1_eval"], "ema_sweep_depth_gif": slice7["k1_sweep"]}
+                "ema_eval": slice7["k1_eval"], "ema_sweep_depth_gif": slice7["k1_sweep"],
+                **dp_run["k1"]}
     k2_paths = {"train_flagship": train_launches,
                 **{f"{p}_train": c["train"] for p, c in {**path_counts, **data_counts}.items()},
                 "record_resume": rec_counts["resume"], "mipnerf_ms_train": ms_counts["train"],
                 **host_counts, "record_lego_learning": learned["record_lego"].pop("launches"),
                 "ema_train": slice7["k2_train"], "ema_resume": slice7["k2_resume"],
-                "fault6_proposal_relu_seed2": fault6["K2"]["k2"]}
+                "fault6_proposal_relu_seed2": fault6["K2"]["k2"], **dp_run["k2"]}
     scatter_paths = {f"ngp_{layout}_train": c["train_scatter"] for layout, c in ngp_counts.items()}
     ngp_learned, fac_learned = learned.pop("ngp"), learned.pop("factored")
     scatter_paths["ngp_brick_learning"] = ngp_learned.pop("scatter_launches")
@@ -4439,7 +4826,8 @@ def main() -> int:
         "factored": {**fac_times, "frame_s": fac_counts["frame_s"],
                      "learning": fac_learned},
         "ngp": {**ngp_times, "learning": ngp_learned},
-        "slice7": slice7, "fault6": fault6}))
+        "slice7": slice7, "fault6": fault6,
+        "dp": {k: v for k, v in dp_run.items() if k not in ("k1", "k2")}}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, build included")
     if DEFERRED:
         fail("; ".join(DEFERRED))
@@ -4452,13 +4840,17 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] != ["--dp-cards"]:
+        pin_first_card()
     if sys.argv[1:2] == ["--time-step"] and len(sys.argv) == 3:
         sys.exit(time_step(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-cards"] and len(sys.argv) == 3:
+        sys.exit(dp_cards(int(sys.argv[2])))
     if sys.argv[1:2] == ["--learn"] and len(sys.argv) >= 4:
         sys.exit(learn_seeds(sys.argv[2], sys.argv[3], sys.argv[4:]))
     if sys.argv[1:2] == ["--witness-steps"] and len(sys.argv) >= 5:
         sys.exit(witness_steps(sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5:]))
     if len(sys.argv) != 1:
-        fail("usage: python3 chip_smoke.py [--time-step ROOT | --learn PRESET "
+        fail("usage: python3 chip_smoke.py [--time-step ROOT | --dp-cards N | --learn PRESET "
              "SEEDS [FLAG ...] | --witness-steps PRESET SEED STEPS [FLAG ...]]")
     sys.exit(main())

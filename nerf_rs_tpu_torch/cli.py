@@ -20,6 +20,9 @@ counterparts of ``cmd_train``, ``cmd_eval``, ``cmd_render`` and
   python -m nerf_rs_tpu_torch.cli train --preset full --dataset sphere --ema_decay 0.999
   python -m nerf_rs_tpu_torch.cli render --preset full --dataset sphere --depth true --gif true
   python -m nerf_rs_tpu_torch.cli export --preset full --dataset sphere --grid_res 128 --mesh true
+  python -m nerf_rs_tpu_torch.cli train --preset pod --dataset sphere --num_devices 4
+  python -m nerf_rs_tpu_torch.cli train --scenes sphere,flat_sphere --num_devices 4
+  python -m nerf_rs_tpu_torch.cli eval --scenes sphere,flat_sphere --scene_index 1
 
 It takes the JAX parser's flags that the ported slices serve, with the
 JAX defaults (``--use_whole_ray_train`` is off unless a preset turns it
@@ -53,8 +56,7 @@ to NDC and sets near 0, far 1 unless they are given). The batch modes
 (``--batch_mode per_ray | multiview | host``, ``--views_per_batch``; the
 host pipeline's ``--prefetch``, ``--data_workers`` and
 ``--use_native_loader``, the C++ gather) and error-weighted resampling
-(``--error_resample_frac``, ``--error_resample_ema``; ``--preset pod`` is
-that alone on one card, its data parallelism is slice 8's).
+(``--error_resample_frac``, ``--error_resample_ema``; ``--preset pod``).
 Slice 7: the weights' EMA (``--ema_decay``; eval, render and export use
 the EMA weights of a checkpoint that holds them), gradient accumulation
 (``--accumulation_steps``), the paper's sigma noise (``--raw_noise_std``,
@@ -64,8 +66,17 @@ events and diagnostics in the run directory (``--logging_steps``,
 ``render --depth`` (a depth / far and an acc PNG beside each frame) and
 ``--gif`` (``sweep.gif``, written by the port) and ``export`` (the density
 grid as ``.npz``, a ``.ply`` point cloud, with ``--mesh`` a marching-
-tetrahedra mesh). Flags of slices not ported yet are refused with an error
-that names the slice, never ignored.
+tetrahedra mesh). Slice 8: ``--num_devices`` data-parallel ranks, one a
+card over NCCL (0: every visible card; more than are visible raises), or
+gloo ranks with ``--device cpu``, started by ``parallel/launch.py``, on
+each host of a multi-host run (``NERF_NUM_PROCESSES``, ``NERF_PROCESS_ID``,
+``NERF_COORDINATOR``); ``--shard_pixel_store`` (each rank keeps a block of
+the views); ``--scenes`` (one field a scene, the scenes over a (scene,
+data) mesh, one stacked checkpoint) and ``--scene_index`` (which scene of
+it ``eval``, ``render`` and ``export`` read). ``eval`` and ``render`` run
+on the ranks, ``export`` on the primary's device. Flags of slices not
+ported yet (slice 10's ``--compat``) are refused with an error that names
+the slice, never ignored.
 
 Runs go to the card (the paper field trains through the whole-ray train
 kernel and renders through the render kernel) unless ``--device cpu`` asks for
@@ -98,7 +109,6 @@ from .train.loop import resolve_device
 
 # the JAX parser's flags that later slices bring, by slice
 _LATER_FLAGS = {
-    8: "num_devices shard_pixel_store scenes scene_index",
     10: "compat",
 }
 _FLAG_SLICE = {f: n for n, flags in _LATER_FLAGS.items() for f in flags.split()}
@@ -265,6 +275,13 @@ def build_parser() -> argparse.ArgumentParser:
     _bool_flag(common, "use_native_loader", True,
                "the C++ batch assembler for the host mode's gold gather (built with g++ "
                "at first use; a failed build raises)")
+    _bool_flag(common, "shard_pixel_store", False,
+               "split the pixel store's views over the ranks (per_ray batches, no error "
+               "resampling, more than one rank)")
+    common.add_argument("--scenes", default="",
+                        help="comma-separated scenes of multi-scene training: each a dataset "
+                             "name (sphere, flat_sphere) or an img_dir for --dataset; one field "
+                             "a scene, the scenes over a (scene, data) mesh of the ranks")
     common.add_argument("--error_resample_frac", type=float, default=0.0,
                         help="fraction of rays drawn from the per-pixel error distribution")
     common.add_argument("--error_resample_ema", type=float, default=0.5)
@@ -274,6 +291,10 @@ def build_parser() -> argparse.ArgumentParser:
     common.add_argument("--seed", type=int, default=0)
     common.add_argument("--device", default="cuda",
                         help="where the run goes: cuda (the card; raises without one) or cpu")
+    common.add_argument("--num_devices", type=int, default=0,
+                        help="data-parallel ranks, one a device: cards (0: every visible card; "
+                             "more than are visible raises), or gloo ranks with --device cpu "
+                             "(0: one); over NERF_NUM_PROCESSES hosts, the run's total")
     _bool_flag(common, "use_fused_kernel", True,
                "render through the whole-ray CUDA render kernel")
     _bool_flag(common, "use_whole_ray_train", False,
@@ -294,12 +315,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "annealed proposal, distortion loss 0.01, softplus; record = "
                              "IPE, one field, 64 + 128 union, softplus, white background, "
                              "coarse edges from a 32^3 occupancy grid; pod = error-weighted "
-                             "resampling of at least half the rays (its data parallelism "
-                             "comes with slice 8)")
+                             "resampling of at least half the rays, data parallel over "
+                             "--num_devices cards")
 
     sub.add_parser("train", parents=[common])
 
     pe = sub.add_parser("eval", parents=[common])
+    pe.add_argument("--scene_index", type=int, default=0,
+                    help="which scene of a --scenes checkpoint")
     pe.add_argument("--split", default="test",
                     help="dataset split to evaluate (Blender: transforms_{split}.json; LLFF: "
                          "the holdout's test, train or all)")
@@ -310,6 +333,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "default 1)")
 
     pr = sub.add_parser("render", parents=[common])
+    pr.add_argument("--scene_index", type=int, default=0,
+                    help="which scene of a --scenes checkpoint")
     pr.add_argument("--out_dir", default="renders")
     pr.add_argument("--view", type=int, default=-1,
                     help="render one dataset view instead of a sweep")
@@ -321,6 +346,8 @@ def build_parser() -> argparse.ArgumentParser:
                "beside each frame")
 
     px = sub.add_parser("export", parents=[common])
+    px.add_argument("--scene_index", type=int, default=0,
+                    help="which scene of a --scenes checkpoint")
     px.add_argument("--grid_res", type=int, default=128, help="density grid resolution per axis")
     px.add_argument("--export_aabb", type=float, default=1.6,
                     help="half-extent of the sampled cube")
@@ -410,8 +437,8 @@ def _apply_preset(args):
              proposal_samples=64, use_whole_ray_train=True,
              white_background=True, proposal_anneal_steps=1000)
     elif p == "pod":
-        # error-weighted resampling of at least half the rays; the preset's
-        # data parallelism over devices comes with slice 8
+        # error-weighted resampling of at least half the rays; its data
+        # parallelism is --num_devices' (0: every card)
         _set(error_resample_frac=max(args.error_resample_frac, 0.5))
     elif p == "unbounded":
         # mip-NeRF 360's unbounded recipe: radius-2 contraction, disparity
@@ -489,6 +516,7 @@ def config_from_args(args) -> Config:
                         data_workers=args.data_workers, llff_factor=args.llff_factor,
                         llff_holdout=args.llff_holdout,
                         multiscale_levels=args.multiscale_levels,
+                        shard_pixel_store=args.shard_pixel_store,
                         near_explicit="near" in getattr(args, "_explicit", set()),
                         far_explicit="far" in getattr(args, "_explicit", set())),
         proposal=ProposalConfig(
@@ -501,17 +529,24 @@ def config_from_args(args) -> Config:
         ),
         use_fused_kernel=args.use_fused_kernel,
         use_whole_ray_train=args.use_whole_ray_train,
+        num_devices=args.num_devices,
     )
 
 
-def _load_params(cfg: Config, device):
+def _scenes(args) -> list:
+    return [x for x in getattr(args, "scenes", "").split(",") if x]
+
+
+def _load_params(cfg: Config, device, scene=None):
     """The field (and the second net: the fine field of a two-field
     hierarchical run, or the proposal net; and the occupancy grid with
     --occ_res) with the weights of --load_path, else of the newest
     checkpoint in --save_dir (weights only: inference does not depend on
     the optimizer), its EMA weights where the file holds them (without
-    --ema_decay too, as the JAX CLI's ``_restore_for_inference``). Returns
-    (params, second net or None, grid or None, path or None)."""
+    --ema_decay too), of scene ``scene`` of a --scenes checkpoint: the JAX
+    CLI's ``_restore_for_inference``. Returns (params, second net or None,
+    grid or None, path or None)."""
+    from .parallel import dist_init
     from .train import checkpoint as ckpt
     from .train.step import init_state
 
@@ -519,22 +554,68 @@ def _load_params(cfg: Config, device):
     params, fine = state.params, state.fine_params
     load_path = cfg.load_path or ckpt.latest_checkpoint(cfg.save_dir)
     if load_path:
-        step = ckpt.restore_weights(load_path, params, fine, state.grid)
-        print(f"loaded {load_path} (step {step})")
-        ema = ckpt.load_ema(load_path, params, fine)
+        step = ckpt.restore_weights(load_path, params, fine, state.grid, scene=scene)
+        ema = ckpt.load_ema(load_path, params, fine, scene=scene)
+        if dist_init.is_primary():
+            print(f"loaded {load_path} (step {step})")
+            if ema is not None:
+                print("using EMA weights for inference")
         if ema is not None:
-            print("using EMA weights for inference")
             params, fine = ema if isinstance(ema, tuple) else (ema, fine)
     return params, fine, state.grid, load_path
 
 
-def cmd_train(args) -> int:
-    from .data.factory import make_dataset
-    from .train.loop import train
+def _inference_setup(args, split: str = "train"):
+    """What eval and render share on a rank: its device and data mesh, the
+    config, the dataset (of --scene_index's scene with --scenes) and the
+    weights."""
+    from .data.factory import effective_config, make_dataset
+    from .parallel import dist_init, mesh as mesh_mod
+    from .train.loop import scene_cfg
 
     cfg = config_from_args(args)
-    state = train(cfg, dataset=make_dataset(cfg, resolve_device(args.device)))
-    print(f"done at step {state.step}")
+    device = dist_init.device() or resolve_device(args.device)
+    mesh = mesh_mod.make_mesh(cfg.num_devices)
+    scenes, scene = _scenes(args), None
+    data_cfg = cfg
+    if scenes:
+        scene = args.scene_index
+        if not 0 <= scene < len(scenes):
+            raise ValueError(f"--scene_index {scene} is not one of the {len(scenes)} --scenes")
+        data_cfg = scene_cfg(cfg, scenes[scene])
+    dataset = make_dataset(data_cfg, device, split=split)
+    cfg = effective_config(cfg, dataset)
+    return (cfg, device, mesh, dataset) + _load_params(cfg, device, scene)
+
+
+def _on_ranks(args, fn) -> int:
+    """``fn(args)`` on every rank of --num_devices (one: in this process)."""
+    from .parallel import launch
+
+    return launch.run(fn, (args,), args.num_devices, torch.device(args.device).type)
+
+
+def cmd_train(args) -> int:
+    """Training on --num_devices ranks (``train/loop.train``), or with
+    --scenes one field a scene (``train/loop.train_multiscene``)."""
+    return _on_ranks(args, _train_rank)
+
+
+def _train_rank(args) -> int:
+    from .parallel import dist_init
+    from .train.loop import train, train_multiscene
+
+    cfg = config_from_args(args)
+    device = resolve_device(args.device)  # a rank of a process group takes its own
+    scenes = _scenes(args)
+    if scenes:
+        states = train_multiscene(cfg, scene_specs=scenes, device=device)
+        if dist_init.is_primary():
+            print(f"done at step {states[0].step} ({len(scenes)} scenes)")
+        return 0
+    state = train(cfg, device=device)
+    if dist_init.is_primary():
+        print(f"done at step {state.step}")
     return 0
 
 
@@ -543,35 +624,39 @@ def cmd_eval(args) -> int:
     deterministic sampler; with ``--scales`` at each downscale (the rays
     through the centres of scale-wide pixel blocks, a camera whose cone
     radius widens by the scale, the gold box-averaged), then the mean over
-    every (scale, view)."""
+    every (scale, view). Every rank renders its share of each frame; the
+    primary prints and writes."""
+    return _on_ranks(args, _eval_rank)
+
+
+def _eval_rank(args) -> int:
     import dataclasses
 
     from .data.dataset import scaled_camera
-    from .data.factory import effective_config, make_dataset
     from .data.images import save_png
     from .ops import render as render_ops
     from .ops.metrics import ssim as ssim_fn
-    from .render import make_render, render_frame
+    from .parallel import dist_init, dp
+    from .render import render_frame
 
-    cfg = config_from_args(args)
-    device = resolve_device(args.device)
-    scales = [int(x) for x in args.scales.split(",") if x] or [1]
-    split = args.split if cfg.data.dataset in ("blender", "llff") else "train"
-    dataset = make_dataset(cfg, device, split=split)
-    cfg = effective_config(cfg, dataset)
-    params, fine_params, grid, load_path = _load_params(cfg, device)
+    split = args.split if args.dataset in ("blender", "llff") else "train"
+    cfg, device, mesh, dataset, params, fine_params, grid, load_path = _inference_setup(args,
+                                                                                         split)
+    primary = dist_init.is_primary()
     if not load_path:
-        print("error: no checkpoint found (use --load_path or --save_dir)")
+        if primary:
+            print("error: no checkpoint found (use --load_path or --save_dir)")
         return 1
+    scales = [int(x) for x in args.scales.split(",") if x] or [1]
     n = dataset.num_views if args.max_views <= 0 else min(args.max_views, dataset.num_views)
-    if args.out_dir:
+    if args.out_dir and primary:
         os.makedirs(args.out_dir, exist_ok=True)
     per_scale = {}  # scale -> (psnrs, ssims)
     t0 = time.time()
     for scale in scales:
         scfg = cfg if scale == 1 else dataclasses.replace(
             cfg, camera=scaled_camera(cfg.camera, scale))
-        render_fn = make_render(scfg)
+        render_fn = dp.make_dp_render(scfg, mesh)
         psnrs, ssims = per_scale.setdefault(scale, ([], []))
         tag = f" 1/{scale}" if len(scales) > 1 else ""
         for v in range(n):
@@ -582,10 +667,13 @@ def cmd_eval(args) -> int:
             s = float(ssim_fn(rgb, gold))
             psnrs.append(p)
             ssims.append(s)
-            print(f"view {v:3d}{tag}: psnr {p:.2f}  ssim {s:.4f}")
-            if args.out_dir:
-                suffix = f"-s{scale}" if len(scales) > 1 else ""
-                save_png(os.path.join(args.out_dir, f"eval-{v:03d}{suffix}.png"), rgb)
+            if primary:
+                print(f"view {v:3d}{tag}: psnr {p:.2f}  ssim {s:.4f}")
+                if args.out_dir:
+                    suffix = f"-s{scale}" if len(scales) > 1 else ""
+                    save_png(os.path.join(args.out_dir, f"eval-{v:03d}{suffix}.png"), rgb)
+    if not primary:
+        return 0
     for scale in scales:
         psnrs, ssims = per_scale[scale]
         tag = f" at 1/{scale}" if len(scales) > 1 else ""
@@ -604,22 +692,25 @@ def cmd_render(args) -> int:
     frames in one render call; with ``--depth`` a ``-depth.png`` (the
     expected termination distance over far, clipped to [0, 1]) and an
     ``-acc.png`` beside each frame, with ``--gif`` the sweep as
-    ``sweep.gif``."""
-    from .data.factory import effective_config, make_dataset
+    ``sweep.gif``. Every rank renders its share of the rays; the primary
+    writes and prints."""
+    return _on_ranks(args, _render_rank)
+
+
+def _render_rank(args) -> int:
     from .data.images import save_gif, save_png
     from .ops import rays as rays_ops, render as render_ops
-    from .render import make_render, render_frame
+    from .parallel import dist_init, dp
+    from .render import render_frame
 
-    cfg = config_from_args(args)
-    device = resolve_device(args.device)
-    dataset = make_dataset(cfg, device)
-    cfg = effective_config(cfg, dataset)
-    params, fine_params, grid, load_path = _load_params(cfg, device)
-    if not load_path:
+    cfg, device, mesh, dataset, params, fine_params, grid, load_path = _inference_setup(args)
+    primary = dist_init.is_primary()
+    if not load_path and primary:
         print("warning: no checkpoint found; rendering an untrained field")
-    render_fn = make_render(cfg)
+    render_fn = dp.make_dp_render(cfg, mesh)
 
-    os.makedirs(args.out_dir, exist_ok=True)
+    if primary:
+        os.makedirs(args.out_dir, exist_ok=True)
     t0 = time.time()
 
     def save_depth_acc(stem, depth, acc):
@@ -633,12 +724,13 @@ def cmd_render(args) -> int:
         o, d = dataset.view_rays(args.view)
         rgb, depth, acc = render_frame(cfg, params, o, d, render_fn, fine_params=fine_params,
                                        grid=grid)
-        psnr = float(render_ops.psnr(rgb, dataset.view_gold(args.view)))
-        path = os.path.join(args.out_dir, f"view-{args.view}.png")
-        save_png(path, rgb)
-        if args.depth:
-            save_depth_acc(os.path.join(args.out_dir, f"view-{args.view}"), depth, acc)
-        print(f"{path}  psnr={psnr:.2f}  ({time.time()-t0:.2f}s)")
+        if primary:
+            psnr = float(render_ops.psnr(rgb, dataset.view_gold(args.view)))
+            path = os.path.join(args.out_dir, f"view-{args.view}.png")
+            save_png(path, rgb)
+            if args.depth:
+                save_depth_acc(os.path.join(args.out_dir, f"view-{args.view}"), depth, acc)
+            print(f"{path}  psnr={psnr:.2f}  ({time.time()-t0:.2f}s)")
         return 0
 
     # the whole sweep's rays go through one render call
@@ -651,6 +743,8 @@ def cmd_render(args) -> int:
     big_d = torch.cat([d.reshape(-1, 3) for _, d in grids]).reshape(args.frames * h, w, 3)
     rgb, depth, acc = render_frame(cfg, params, big_o, big_d, render_fn,
                                    fine_params=fine_params, grid=grid)
+    if not primary:
+        return 0
     rgb = rgb.reshape(args.frames, h, w, 3).cpu()
     depth = depth.reshape(args.frames, h, w).cpu()
     acc = acc.reshape(args.frames, h, w).cpu()
@@ -669,17 +763,24 @@ def cmd_render(args) -> int:
 
 
 def cmd_export(args) -> int:
-    """The trained field (its EMA weights where the checkpoint holds them)
-    sampled on a ``--grid_res``^3 grid through the eager field (``.npz``),
-    the cells above ``--threshold`` as a coloured point cloud (``.ply``)
-    and, with ``--mesh``, the threshold's isosurface as a triangle mesh
-    (``_mesh.ply``)."""
+    """The trained field (its EMA weights where the checkpoint holds them;
+    with --scenes, --scene_index's) sampled on a ``--grid_res``^3 grid
+    through the eager field (``.npz``), the cells above ``--threshold`` as
+    a coloured point cloud (``.ply``) and, with ``--mesh``, the
+    threshold's isosurface as a triangle mesh (``_mesh.ply``). It runs in
+    this process, on the primary rank's device."""
+    from .parallel import launch
     from .utils import export as export_mod
     from .utils import mesh as mesh_mod
 
     cfg = config_from_args(args)
     device = resolve_device(args.device)
-    params, _, _, load_path = _load_params(cfg, device)
+    launch.local_ranks(cfg.num_devices, device.type)  # the count is checked, as for a run
+    scenes = _scenes(args)
+    if scenes and not 0 <= args.scene_index < len(scenes):
+        raise ValueError(f"--scene_index {args.scene_index} is not one of the {len(scenes)} "
+                         f"--scenes")
+    params, _, _, load_path = _load_params(cfg, device, args.scene_index if scenes else None)
     if not load_path:
         print("error: no checkpoint found (use --load_path or --save_dir)")
         return 1

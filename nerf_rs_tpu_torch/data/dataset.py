@@ -140,6 +140,19 @@ class DeviceDataset:
             self.ms_images = (self.images,) + tuple(
                 torch.from_numpy(p).to(self.images.device) for p in pyr[1:])
 
+    def view_block(self, index: int, count: int) -> "DeviceDataset":
+        """The dataset of the ``index``-th of ``count`` equal contiguous
+        blocks of views (a rank's share of the sharded pixel store, JAX's
+        store sharded on its view axis); ``num_views`` must divide."""
+        if self.num_views % count:
+            raise ValueError(f"{self.num_views} views do not split over {count} ranks")
+        k = self.num_views // count
+        views = slice(index * k, (index + 1) * k)
+        poses = {"angles" if self.mode == "angles" else "c2w": self.pose_data[views]}
+        return DeviceDataset(self.images[views].clone(), self.camera,
+                             white_background=self.white_background,
+                             multiscale_levels=self.multiscale_levels, **poses)
+
     @property
     def host_images(self) -> np.ndarray:
         """The pixel store on the host (the host pipeline's input)."""

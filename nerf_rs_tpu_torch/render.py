@@ -2,8 +2,9 @@
 parts of ``nerf_rs_tpu/parallel/dp.py`` (``default_render_chunk``,
 ``make_dp_render`` with its handling of the second net: a fine field, or
 the proposal net) and
-``nerf_rs_tpu/train/loop.py`` (``render_frame``). Multi-GPU rendering
-comes with slice 8 of the port.
+``nerf_rs_tpu/train/loop.py`` (``render_frame``). ``parallel/dp.make_dp_render``
+splits a frame's rays over the ranks, each rendering its block through
+``make_render``.
 """
 
 from __future__ import annotations

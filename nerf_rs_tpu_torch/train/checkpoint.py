@@ -56,6 +56,29 @@ def _cpu(tree):
     return tree
 
 
+def state_blob(state: "TrainState") -> dict:  # noqa: F821
+    """What a checkpoint holds of ``state``, on the host."""
+    blob = {"step": state.step, "params": _cpu(state.params.state_dict()),
+            "optimizer": _cpu(state.optimizer.state_dict())}
+    if state.fine_params is not None:
+        blob["fine_params"] = _cpu(state.fine_params.state_dict())
+    if state.grid is not None:
+        blob["grid"] = _cpu(state.grid)
+    if state.ema is not None:
+        blob["ema"] = ({str(i): _cpu(net.state_dict()) for i, net in enumerate(state.ema)}
+                       if isinstance(state.ema, tuple) else _cpu(state.ema.state_dict()))
+    return blob
+
+
+def _write(blob: dict, save_dir: str, step: int, ts: Optional[int]) -> str:
+    os.makedirs(save_dir, exist_ok=True)
+    path = checkpoint_path(save_dir, step, ts)
+    tmp = path + ".tmp"
+    torch.save(blob, tmp)
+    os.replace(tmp, path)  # atomic: no torn checkpoints
+    return path
+
+
 def save(state: Union["TrainState", nn.Module], save_dir: str,  # noqa: F821
          step: Optional[int] = None, ts: Optional[int] = None,
          err_store: Optional[torch.Tensor] = None) -> str:
@@ -63,33 +86,49 @@ def save(state: Union["TrainState", nn.Module], save_dir: str,  # noqa: F821
     field's weights (``step`` defaults to 0); returns the path. An
     ``err_store`` (error-weighted resampling's per-pixel distribution, part
     of the training trajectory) goes beside it as ``.err.npy``."""
-    grid = ema = None
     if isinstance(state, nn.Module):
-        params, fine, opt, step = state, None, None, step or 0
+        blob = {"step": step or 0, "params": _cpu(state.state_dict())}
     else:
-        params, fine, opt, grid = state.params, state.fine_params, state.optimizer, state.grid
-        ema = state.ema
-        step = state.step if step is None else step
-    os.makedirs(save_dir, exist_ok=True)
-    path = checkpoint_path(save_dir, step, ts)
-    blob = {"step": step, "params": _cpu(params.state_dict())}
-    if fine is not None:
-        blob["fine_params"] = _cpu(fine.state_dict())
-    if opt is not None:
-        blob["optimizer"] = _cpu(opt.state_dict())
-    if grid is not None:
-        blob["grid"] = _cpu(grid)
-    if ema is not None:
-        blob["ema"] = ({str(i): _cpu(net.state_dict()) for i, net in enumerate(ema)}
-                       if isinstance(ema, tuple) else _cpu(ema.state_dict()))
-    tmp = path + ".tmp"
-    torch.save(blob, tmp)
-    os.replace(tmp, path)  # atomic: no torn checkpoints
+        blob = state_blob(state)
+        if step is not None:
+            blob["step"] = step
+    path = _write(blob, save_dir, blob["step"], ts)
     if err_store is not None:
         err_path = err_store_path(path)
         np.save(err_path + ".tmp.npy", err_store.detach().cpu().numpy())
         os.replace(err_path + ".tmp.npy", err_path)
     return path
+
+
+def _stack(trees):
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.stack(trees)
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack(list(xs)) for xs in zip(*trees))
+    if any(t != first for t in trees):
+        raise ValueError(f"the scenes' checkpoints differ in a setting: {trees}")
+    return first
+
+
+def _unstack(tree, i: int):
+    if isinstance(tree, torch.Tensor):
+        return tree[i].clone()
+    if isinstance(tree, dict):
+        return {k: _unstack(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unstack(v, i) for v in tree)
+    return tree
+
+
+def save_scenes(blobs, save_dir: str, ts: Optional[int] = None) -> str:
+    """Write the scenes' ``state_blob``s as one file: every tensor stacked
+    on a leading scene axis, ``scenes`` their count; returns the path."""
+    stacked = _stack(list(blobs))
+    stacked["scenes"] = len(blobs)
+    return _write(stacked, save_dir, stacked["step"], ts)
 
 
 def err_store_path(ckpt_path: str) -> str:
@@ -104,8 +143,21 @@ def load_err_store(ckpt_path: str) -> Optional[np.ndarray]:
     return np.load(err_path) if os.path.exists(err_path) else None
 
 
-def _load(path: str) -> dict:
-    return torch.load(path, map_location="cpu", weights_only=True)
+def _load(path: str, scene: Optional[int] = None) -> dict:
+    """The file at ``path``; of a multi-scene file, scene ``scene``'s part
+    (the file and the caller must agree on whether it is one)."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    n = blob.pop("scenes", None)
+    if n is None and scene is not None:
+        raise ValueError(f"{path} holds one scene, not a --scenes run's")
+    if n is None:
+        return blob
+    if scene is None:
+        raise ValueError(f"{path} holds the {n} scenes of a --scenes run: pass --scenes and "
+                         f"--scene_index")
+    if not 0 <= scene < n:
+        raise ValueError(f"{path} holds {n} scenes, scene index {scene} is not one")
+    return _unstack(blob, scene)
 
 
 def _load_fine(ckpt: dict, path: str, fine: Optional[nn.Module]) -> None:
@@ -157,11 +209,13 @@ def _load_ema_into(sd, ema) -> None:
         ema.load_state_dict(sd)
 
 
-def restore(path: str, state: "TrainState") -> "TrainState":  # noqa: F821
+def restore(path: str, state: "TrainState",  # noqa: F821
+            scene: Optional[int] = None) -> "TrainState":  # noqa: F821
     """Resume: the weights (both fields' with a fine field), the step,
     the occupancy grid, the EMA and (when the file has it) the optimizer
-    state into ``state``, in place; returns it."""
-    ckpt = _load(path)
+    state into ``state``, in place (of a multi-scene file, scene
+    ``scene``'s); returns it."""
+    ckpt = _load(path, scene)
     state.params.load_state_dict(ckpt["params"])
     _load_fine(ckpt, path, state.fine_params)
     _load_grid(ckpt, path, state.grid)
@@ -181,25 +235,27 @@ def restore(path: str, state: "TrainState") -> "TrainState":  # noqa: F821
 
 
 def restore_weights(path: str, params: nn.Module, fine_params: Optional[nn.Module] = None,
-                    grid: Optional[torch.Tensor] = None) -> int:
-    """Load the weights at ``path`` into ``params`` (and the fine
-    field's into ``fine_params``, the occupancy grid into ``grid``) in
-    place; returns the checkpoint's step."""
-    ckpt = _load(path)
+                    grid: Optional[torch.Tensor] = None, scene: Optional[int] = None) -> int:
+    """Load the weights at ``path`` (of a multi-scene file, scene
+    ``scene``'s) into ``params`` (and the fine field's into
+    ``fine_params``, the occupancy grid into ``grid``) in place; returns
+    the checkpoint's step."""
+    ckpt = _load(path, scene)
     params.load_state_dict(ckpt["params"])
     _load_fine(ckpt, path, fine_params)
     _load_grid(ckpt, path, grid)
     return int(ckpt["step"])
 
 
-def load_ema(path: str, params: nn.Module, fine_params: Optional[nn.Module] = None):
+def load_ema(path: str, params: nn.Module, fine_params: Optional[nn.Module] = None,
+             scene: Optional[int] = None):
     """The EMA weights of the file at ``path`` for inference, or None when
     it has none: copies of ``params`` (and ``fine_params``, for a file
     whose EMA covers two nets) holding them. Needs no ``--ema_decay`` in
     the reading run, as the JAX package's ``restore_weights``."""
     from .step import ema_copy
 
-    ckpt = _load(path)
+    ckpt = _load(path, scene)
     if "ema" not in ckpt:
         return None
     two = set(ckpt["ema"]) == {"0", "1"}

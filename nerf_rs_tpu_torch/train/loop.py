@@ -1,7 +1,8 @@
-"""The training driver on one device, the counterpart of ``train`` in
-``nerf_rs_tpu/train/loop.py``: the trainer owns iteration; eval, logging
-and checkpoints are step-counter hooks that fire when
-``it % N == 0 and it > 0``.
+"""The training loop, the counterpart of ``train`` and
+``train_multiscene`` in ``nerf_rs_tpu/train/loop.py``: the trainer owns
+iteration; eval, logging and checkpoints are step-counter hooks that fire
+when ``it % N == 0 and it > 0``. On one device, or data parallel over the
+ranks of a process group (``parallel/``; see ``train``).
 
 Per step the batch is drawn inside the step (``step.make_train_step``)
 from a generator derived from (seed, step), so a run resumed at step k
@@ -35,9 +36,10 @@ scene's held-out ``test`` split, where it has one, is the eval hook's.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -46,13 +48,13 @@ from ..config import Config
 
 from ..data.factory import effective_config, make_dataset
 from ..ops import metrics, render as render_ops
+from ..parallel import dist_init, dp, mesh as mesh_mod
 from ..render import make_render, render_frame
 from ..utils.profiling import Throughput, trace
-from ..utils.tb import TBLogger
+from ..utils.tb import NullLogger, TBLogger
 from ..utils.term import image_preview, sparkline
 from . import checkpoint as ckpt
-from .step import (TrainState, grid_generator, init_state, make_train_step, step_generator,
-                   with_ema_params)
+from .step import TrainState, grid_generator, init_state, step_generator, with_ema_params
 
 CHART_STEPS = 50
 DIAG_RAYS = 1024  # rays the diagnostics look at
@@ -171,6 +173,22 @@ def batch_source(cfg: Config, dataset, err_store, pipeline):
     return lambda g: dataset.sample_batch(g, n)
 
 
+def make_throughput(cfg: Config, num_chips: int = 1) -> Throughput:
+    """The loop's throughput window: a step's rays (every rank's), coarse
+    plus fine samples a ray, over ``num_chips`` cards (the JAX loop's)."""
+    return Throughput(cfg.train.num_rays,
+                      cfg.render.num_samples + cfg.render.num_fine_samples, num_chips)
+
+
+def _rank_device(device):
+    """The device of this rank: the process group's, else ``device``, else
+    the card."""
+    bound = dist_init.device()
+    if bound is not None:
+        return bound
+    return device if device is not None else resolve_device()
+
+
 def train(
     cfg: Config,
     dataset=None,
@@ -179,9 +197,44 @@ def train(
     device=None,
 ) -> TrainState:
     """Run the training loop on ``dataset``'s device (without a dataset,
-    on ``device``, by default the card); returns the final TrainState."""
+    on ``device``, by default the card; each rank of a process group on
+    its own); returns the final TrainState.
+
+    Data parallel over the ranks of the process group (``dist_init``;
+    ``parallel/launch.py`` starts them), as the JAX loop runs over its
+    mesh: ``num_rays`` padded to a multiple of the ranks, the step of
+    ``parallel/dp.make_dp_train_step``, the eval render sharded
+    (``dp.make_dp_render``) and entered by every rank, as are the
+    occupancy grid's update and the EMA; only the primary rank writes (the
+    run directory, events, checkpoints and their error store, followed by
+    a barrier) and prints. Without a caller's dataset a host process of a
+    multi-host run loads views ``[process::processes]``; with
+    ``--shard_pixel_store`` (per-ray batches, no error resampling, more
+    than one rank) each rank keeps its block of its process's views.
+    One rank: no process group, the single-device step."""
+    dist_init.initialize()
+    primary = dist_init.is_primary()
+    mesh = mesh_mod.make_mesh(cfg.num_devices)
+    nchips = mesh_mod.num_shards(mesh)
+    per_ray = cfg.data.batch_mode == "per_ray"
+    err_frac = cfg.train.error_resample_frac
+    shard_store = cfg.data.shard_pixel_store and nchips > 1
+    if cfg.data.shard_pixel_store and (not per_ray or err_frac > 0):
+        if primary:
+            print("shard_pixel_store ignored: needs batch_mode=per_ray with no error "
+                  "resampling (store stays replicated)")
+        shard_store = False
     if dataset is None:
-        dataset = make_dataset(cfg, device if device is not None else resolve_device())
+        device = _rank_device(device)
+        nproc, local = dist_init.process_count(), dist_init.local_ranks()
+        dataset = make_dataset(cfg, device,
+                               process_shard=(dist_init.process_index(), nproc)
+                               if nproc > 1 else None,
+                               local_multiple=local if shard_store else 1)
+        if shard_store and local > 1:
+            dataset = dataset.view_block(dist_init.local_rank(), local)
+    else:
+        shard_store = False  # a caller's store is every rank's
     device = dataset.images.device
     if eval_dataset is None and cfg.data.dataset == "blender":
         try:  # the held-out split, where the scene has one
@@ -189,35 +242,44 @@ def train(
         except FileNotFoundError:
             eval_dataset = None
     cfg = effective_config(cfg, dataset)
-    tb = TBLogger(cfg.log_dir, cfg.run_name or str(int(time.time())))
+    num_rays = mesh_mod.pad_to_shards(cfg.train.num_rays, mesh)
+    if num_rays != cfg.train.num_rays:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, num_rays=num_rays))
+    tb = (TBLogger(cfg.log_dir, cfg.run_name or str(int(time.time()))) if primary
+          else NullLogger())
     tb.hparams(cfg.hparams())
-    with open(os.path.join(tb.dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if primary:
+        with open(os.path.join(tb.dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
     state = init_state(cfg, device)
     # resume: an explicit --load_path wins; else the newest in save_dir
     load_path = cfg.load_path or ckpt.latest_checkpoint(cfg.save_dir)
     if load_path:
         ckpt.restore(load_path, state)
-        print(f"resumed from {load_path} at step {state.step}")
+        if primary:
+            print(f"resumed from {load_path} at step {state.step}")
     if not cfg.do_train:
         tb.close()
         return state
 
     err_store = None
-    if cfg.train.error_resample_frac > 0:
+    if err_frac > 0:
         # the error distribution is part of the trajectory: resume it too
         saved = ckpt.load_err_store(load_path) if load_path else None
         if saved is not None:
             err_store = torch.as_tensor(saved, dtype=torch.float32, device=device)
-            print(f"resumed the error store from {ckpt.err_store_path(load_path)}")
+            if primary:
+                print(f"resumed the error store from {ckpt.err_store_path(load_path)}")
         else:
             err_store = dataset.init_error_store()
     pipeline = make_pipeline(cfg, dataset)
     try:
-        return _run(cfg, state, dataset, eval_dataset, on_step, device, tb, err_store,
-                    make_train_step(cfg, dataset,
-                                    batch_source(cfg, dataset, err_store, pipeline)))
+        step_fn = dp.make_dp_train_step(cfg, mesh, dataset, shard_store=shard_store,
+                                        sample=batch_source(cfg, dataset, err_store, pipeline),
+                                        err_store=err_store)
+        return _run(cfg, state, dataset, eval_dataset, on_step, device, tb, err_store, step_fn,
+                    mesh, primary)
     finally:
         tb.close()
         if pipeline is not None:
@@ -225,12 +287,12 @@ def train(
 
 
 def _run(cfg: Config, state: TrainState, dataset, eval_dataset, on_step, device, tb,
-         err_store, step_fn) -> TrainState:
+         err_store, step_fn, mesh, primary: bool) -> TrainState:
     """The iterations of ``train`` from ``state.step``."""
     from ..data.dataset import update_error_store
 
-    render_fn = make_render(cfg)
-    thr = Throughput(cfg.train.num_rays, cfg.render.num_samples)
+    render_fn = dp.make_dp_render(cfg, mesh)
+    thr = make_throughput(cfg, mesh_mod.num_shards(mesh))
     losses = []
     pending = []  # [(iter, device scalar)], read once per chart redraw
     start = state.step
@@ -248,7 +310,7 @@ def _run(cfg: Config, state: TrainState, dataset, eval_dataset, on_step, device,
     t = cfg.train
     with contextlib.ExitStack() as window:
         for it in range(start, t.num_iter):
-            if t.profile_steps > 0 and it == start + t.profile_start:
+            if primary and t.profile_steps > 0 and it == start + t.profile_start:
                 trace_path = window.enter_context(trace(tb.dir))
             if trace_path is not None and it == start + t.profile_start + t.profile_steps:
                 window.close()
@@ -264,7 +326,8 @@ def _run(cfg: Config, state: TrainState, dataset, eval_dataset, on_step, device,
 
             if it % CHART_STEPS == 0 and it > start:
                 flush_losses()
-                print(f"iter={it}, loss={losses[-1]:.6f}  {sparkline(losses[-200:])}")
+                if primary:
+                    print(f"iter={it}, loss={losses[-1]:.6f}  {sparkline(losses[-200:])}")
 
             # --- logging hook ---
             if it % cfg.train.logging_steps == 0 and it > 0:
@@ -273,9 +336,10 @@ def _run(cfg: Config, state: TrainState, dataset, eval_dataset, on_step, device,
                 tb.scalars(stats, it)
                 tb.scalars({"psnr_train": float(aux["psnr"])}, it)
                 thr.reset()
-                idx = aux.get("batch_idx")
-                diag = None if idx is None else dataset.batch_from_idx(idx[:DIAG_RAYS])
-                log_diagnostics(tb, dataset, cfg, it, batch=diag, state=state)
+                if primary:
+                    idx = aux.get("batch_idx")
+                    diag = None if idx is None else dataset.batch_from_idx(idx[:DIAG_RAYS])
+                    log_diagnostics(tb, dataset, cfg, it, batch=diag, state=state)
                 if on_step:
                     on_step(it, {**stats, "loss": losses[-1] if losses else float("nan")})
 
@@ -299,13 +363,14 @@ def _run(cfg: Config, state: TrainState, dataset, eval_dataset, on_step, device,
                 elif not cfg.log_densities_only:
                     tb.image("prediction", rgb.cpu().numpy(), it)
                     tb.image("depth", (depth / depth.max().clamp(min=1e-6)).cpu().numpy(), it)
-                print(f"iter={it}, eval psnr={psnr:.2f}")
-                if cfg.live_preview:
-                    print(image_preview(np.asarray(rgb.cpu())))
+                if primary:
+                    print(f"iter={it}, eval psnr={psnr:.2f}")
+                    if cfg.live_preview:
+                        print(image_preview(np.asarray(rgb.cpu())))
 
-            # --- checkpoint hook ---
+            # --- checkpoint hook: the primary writes, every rank waits ---
             if it % cfg.train.save_steps == 0 and it > 0:
-                print(f"saved {ckpt.save(state, cfg.save_dir, err_store=err_store)}")
+                _save(state, cfg, err_store, primary, announce=True)
 
             thr.tick()
 
@@ -313,5 +378,140 @@ def _run(cfg: Config, state: TrainState, dataset, eval_dataset, on_step, device,
             window.close()
             print(f"profiler trace written to {trace_path}")
     flush_losses()
-    ckpt.save(state, cfg.save_dir, err_store=err_store)
+    _save(state, cfg, err_store, primary)
     return state
+
+
+def _save(state: TrainState, cfg: Config, err_store, primary: bool,
+          announce: bool = False) -> None:
+    """The primary writes the checkpoint (the state is every rank's); then
+    every rank waits for it."""
+    if primary:
+        path = ckpt.save(state, cfg.save_dir, err_store=err_store)
+        if announce:
+            print(f"saved {path}")
+    dist_init.barrier()
+
+
+def scene_cfg(cfg: Config, spec: str) -> Config:
+    """One scene's config from a ``--scenes`` entry: a dataset name selects
+    that dataset; anything else is an ``img_dir`` of the configured
+    dataset (the JAX loop's ``_scene_cfg``)."""
+    if spec in ("sphere", "flat_sphere", "multiview_png", "blender"):
+        data = dataclasses.replace(cfg.data, dataset=spec)
+    else:
+        data = dataclasses.replace(cfg.data, img_dir=spec)
+    return dataclasses.replace(cfg, data=data)
+
+
+def train_multiscene(
+    cfg: Config,
+    scene_specs=None,
+    datasets=None,
+    on_step: Optional[Callable[[int, Dict[str, float]], None]] = None,
+    device=None,
+) -> List[TrainState]:
+    """Multi-scene training, the JAX loop's ``train_multiscene``: one field
+    per scene over the (scene, data) mesh (``parallel/multiscene.py``), the
+    same hooks as ``train``. Whole-ray training is off, as in the JAX
+    package: the scenes train through autograd, and the render kernel serves
+    their eval, each scene's frame rendered on one device by its group's
+    first rank. Per-scene losses (every 50 steps and at logging steps) and
+    eval PSNRs are gathered to every rank and printed by the primary, which
+    alone writes: the run directory, and one checkpoint of every scene
+    (``checkpoint.save_scenes``), gathered from the scene groups. Returns
+    this rank's scenes' states (every scene's on one rank)."""
+    from ..parallel import multiscene as ms_mod
+
+    dist_init.initialize()
+    primary = dist_init.is_primary()
+    cfg = dataclasses.replace(cfg, use_whole_ray_train=False)
+    n_scenes = len(datasets) if datasets is not None else len(scene_specs or ())
+    if n_scenes < 1:
+        raise ValueError("train_multiscene needs scene_specs or datasets")
+    mesh = mesh_mod.make_scene_mesh(n_scenes, cfg.num_devices)
+    scenes = ms_mod.local_scenes(mesh, n_scenes)
+    if datasets is None:
+        device = _rank_device(device)
+        local_ds = [make_dataset(scene_cfg(cfg, scene_specs[i]), device) for i in scenes]
+    else:
+        local_ds = [datasets[i] for i in scenes]
+    device = local_ds[0].images.device
+    cfg = effective_config(cfg, local_ds[0])
+    num_rays = mesh_mod.pad_to_shards(cfg.train.num_rays, mesh)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, num_rays=num_rays))
+    tb = (TBLogger(cfg.log_dir, cfg.run_name or str(int(time.time()))) if primary
+          else NullLogger())
+    tb.hparams(cfg.hparams())
+    if primary:
+        with open(os.path.join(tb.dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+
+    states = ms_mod.init_multiscene_state(cfg, mesh, n_scenes, device)
+    load_path = cfg.load_path or ckpt.latest_checkpoint(cfg.save_dir)
+    if load_path:
+        for state, i in zip(states, scenes):
+            ckpt.restore(load_path, state, scene=i)
+        if primary:
+            print(f"resumed from {load_path} at step {states[0].step}")
+    step_fn = ms_mod.make_multiscene_train_step(cfg, mesh, n_scenes)
+    sampler = ms_mod.MultiSceneSampler(local_ds, scenes)
+    render_fn = make_render(cfg)
+    leader = mesh.coords[mesh_mod.DATA_AXIS] == 0
+
+    def eval_all(it):
+        psnrs, rgb = [], None
+        for state, ds in zip(states, local_ds):
+            if not leader:
+                psnrs.append(float("nan"))
+                continue
+            ev = with_ema_params(state)
+            o, d = ds.view_rays(0)
+            rgb, _, _ = render_frame(cfg, ev.params, o, d, render_fn,
+                                     fine_params=ev.fine_params, grid=state.grid)
+            psnrs.append(float(render_ops.psnr(rgb, ds.view_gold(0))))
+        psnrs = ms_mod.gather_scenes(torch.tensor(psnrs, device=device), mesh).tolist()
+        for s, p in enumerate(psnrs):
+            tb.scalars({f"psnr_eval/scene_{s}": p}, it)
+        if primary:
+            print(f"iter={it}, per-scene eval psnr=[{', '.join(f'{p:.2f}' for p in psnrs)}]")
+            if cfg.live_preview:
+                print(image_preview(np.asarray(rgb.cpu())))
+
+    def save(announce=False):
+        blobs = ms_mod.gather_scene_objects(
+            [ckpt.state_blob(st) for st in states] if leader else [], mesh)
+        if primary:
+            path = ckpt.save_scenes(blobs, cfg.save_dir)
+            if announce:
+                print(f"saved {path}")
+        dist_init.barrier()
+
+    if not cfg.do_train:
+        tb.close()
+        return states
+    t = cfg.train
+    try:
+        for it in range(states[0].step, t.num_iter):
+            g = step_generator(t.seed, it, device)
+            states, auxes = step_fn(states, sampler.sample(g, num_rays), g)
+            log_now = it % t.logging_steps == 0 and it > 0
+            if it % CHART_STEPS == 0 or log_now:
+                losses = ms_mod.gather_scenes(torch.stack([a["loss"] for a in auxes]),
+                                              mesh).tolist()
+                if primary and it % CHART_STEPS == 0:
+                    print(f"iter={it}, per-scene loss=[{', '.join(f'{v:.5f}' for v in losses)}]")
+                if log_now:
+                    for s, v in enumerate(losses):
+                        tb.scalars({f"loss/scene_{s}": v}, it)
+                    if on_step:
+                        on_step(it, {"loss": float(np.mean(losses))})
+            if cfg.eval_on_train and it % t.eval_steps == 0 and it > 0:
+                eval_all(it)
+            if it % t.save_steps == 0 and it > 0:
+                save(announce=True)
+        eval_all(t.num_iter)
+        save()
+    finally:
+        tb.close()
+    return states

@@ -553,24 +553,31 @@ def update_ema(state: TrainState, decay: float) -> None:
     torch._foreach_add_(ema, torch._foreach_mul(live, beta))
 
 
+def compute_grads(state: TrainState, batch: Batch, generator: Optional[torch.Generator],
+                  cfg: Config) -> Tuple[Grads, Aux]:
+    """One step's gradients (keyed as ``named_trainable``) and aux: the
+    kernel's when ``whole_ray_supported(cfg)``, else autograd of
+    ``loss_fn``; with ``accumulation_steps`` > 1, ``accumulated_grads``'.
+    The data-parallel step (``parallel/dp.py``) averages them over the
+    ranks before ``apply_grads``."""
+    if whole_ray_supported(cfg):
+        return whole_ray_grads(state.params, batch, generator, cfg, state.fine_params,
+                               state.step, state.grid)
+    if cfg.train.accumulation_steps > 1:
+        return accumulated_grads(state, batch, generator, cfg)
+    state.optimizer.zero_grad(set_to_none=True)
+    loss, aux = loss_fn(state.params, batch, generator, cfg, state.fine_params, state.step,
+                        state.grid)
+    loss.backward()
+    return ({name: p.grad for name, p in named_trainable(state)},
+            {k: v.detach() for k, v in aux.items()})
+
+
 def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator],
                cfg: Config) -> Tuple[TrainState, Aux]:
-    """One optimizer step: the kernel's gradients when
-    ``whole_ray_supported(cfg)``, else autograd of ``loss_fn``; with
-    ``accumulation_steps`` > 1, of ``accumulated_grads``."""
+    """One optimizer step: ``compute_grads``, then ``apply_grads``."""
     check_train_supported(cfg)
-    if whole_ray_supported(cfg):
-        grads, aux = whole_ray_grads(state.params, batch, generator, cfg, state.fine_params,
-                                     state.step, state.grid)
-    elif cfg.train.accumulation_steps > 1:
-        grads, aux = accumulated_grads(state, batch, generator, cfg)
-    else:
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, aux = loss_fn(state.params, batch, generator, cfg, state.fine_params, state.step,
-                            state.grid)
-        loss.backward()
-        grads = {name: p.grad for name, p in named_trainable(state)}
-        aux = {k: v.detach() for k, v in aux.items()}
+    grads, aux = compute_grads(state, batch, generator, cfg)
     return apply_grads(state, grads, cfg), aux
 
 
@@ -627,9 +634,8 @@ def make_train_step(cfg: Config, dataset, sample: Optional[Callable[[torch.Gener
     """The step with its batch drawn inside it: fn(state, generator) ->
     (state, aux), aux carrying ``batch_idx``. The batch is
     ``sample(generator)``, by default the dataset's per-ray batch (the
-    train loop passes the other batch modes). The single-device form of
-    ``parallel/dp.make_dp_train_step(cfg, mesh, dataset)``; multi-GPU comes
-    with slice 8."""
+    train loop passes the other batch modes). The one-rank form of
+    ``parallel/dp.make_dp_train_step(cfg, mesh, dataset)``."""
     check_train_supported(cfg)
     if sample is None:
         sample = lambda g: dataset.sample_batch(g, cfg.train.num_rays)  # noqa: E731

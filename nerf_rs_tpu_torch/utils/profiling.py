@@ -3,9 +3,9 @@
 host's operators and, on the card, its kernels) and writes a Chrome trace
 JSON into ``log_dir``, which chrome://tracing and Perfetto open; the
 training loop's ``--profile_steps`` window runs through it. ``Throughput``
-counts rays/s, ray-samples/s and step time over a window of train steps,
-on the host clock, on one device (the per-chip rates come with multi-GPU
-training, slice 8 of the port).
+counts step time, rays/s and the per-card rays/s and ray-samples/s over a
+window of train steps, on the host clock, under the JAX package's keys; the
+training loop counts coarse plus fine samples and every card of the run.
 """
 
 from __future__ import annotations
@@ -36,11 +36,14 @@ def trace(log_dir: str, name: str = "trace"):
 
 
 class Throughput:
-    """Windowed throughput over train steps."""
+    """Windowed throughput over train steps of ``num_rays`` rays (all the
+    ranks' together) and ``num_samples`` samples a ray on ``num_chips``
+    cards."""
 
-    def __init__(self, num_rays: int, num_samples: int):
+    def __init__(self, num_rays: int, num_samples: int, num_chips: int = 1):
         self.num_rays = num_rays
         self.num_samples = num_samples
+        self.num_chips = max(1, num_chips)
         self.reset()
 
     def reset(self):
@@ -59,5 +62,6 @@ class Throughput:
         return {
             "step_time_ms": 1000.0 / steps_per_sec,
             "rays_per_sec": rays_per_sec,
-            "samples_per_sec": rays_per_sec * self.num_samples,
+            "rays_per_sec_per_chip": rays_per_sec / self.num_chips,
+            "samples_per_sec_per_chip": rays_per_sec * self.num_samples / self.num_chips,
         }

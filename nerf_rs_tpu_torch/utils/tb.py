@@ -11,7 +11,8 @@ methods are the JAX logger's: ``scalars`` (``simple_value``), ``hparams``
 (``hparams/{k}`` scalars at step 0), ``histogram`` (``np.histogram`` over
 ``bins`` bins, trimmed to the support as ``tensorboardX`` trims it),
 ``image`` ([0, 1] floats as an 8-bit RGB PNG from ``data/images.encode_png``),
-``screen_coords``, ``ray_ts`` and ``point_maps``.
+``screen_coords``, ``ray_ts`` and ``point_maps``. ``NullLogger`` is a
+non-primary rank's, which writes nothing.
 
 Messages (field numbers of tensorflow's ``event.proto`` and
 ``summary.proto``): Event {1 wall_time double, 2 step int64, 3
@@ -229,3 +230,21 @@ class TBLogger:
             self._f.close()
             self._f = None
 
+
+
+class NullLogger(TBLogger):
+    """The logger of a rank that is not the primary: no run directory, no
+    file, and no event encoded (``train/loop`` gates on
+    ``dist_init.is_primary``), the JAX package's ``NullLogger``."""
+
+    def __init__(self):  # no directory, no file
+        self.dir = self.path = self._f = None
+
+    def scalars(self, values: Dict[str, float], step: int):
+        pass
+
+    def histogram(self, tag: str, values: np.ndarray, step: int, bins: int = 100):
+        pass
+
+    def image(self, tag: str, rgb: np.ndarray, step: int):
+        pass

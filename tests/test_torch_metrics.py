@@ -59,5 +59,35 @@ def test_throughput_counts_steps():
     assert thr.stats() == {}
     thr.tick(10)
     stats = thr.stats()
-    assert stats["samples_per_sec"] == pytest.approx(stats["rays_per_sec"] * 64)
+    # the JAX package's keys: per-card rates, one card by default
+    assert set(stats) == {"step_time_ms", "rays_per_sec", "rays_per_sec_per_chip",
+                          "samples_per_sec_per_chip"}
+    assert stats["rays_per_sec_per_chip"] == stats["rays_per_sec"]
+    assert stats["samples_per_sec_per_chip"] == pytest.approx(stats["rays_per_sec"] * 64)
     assert stats["step_time_ms"] > 0
+
+
+@pytest.mark.parametrize("fine,chips", [(0, 1), (128, 1), (128, 4)])
+def test_throughput_matches_jax_on_a_stubbed_clock(fine, chips, monkeypatch):
+    """The loop's Throughput (``train/loop.make_throughput``: coarse plus
+    fine samples a ray, every card of the run) against the JAX loop's
+    ``Throughput(num_rays, num_samples + num_fine_samples, nchips)`` on the
+    same ticks of one clock: the same keys and the same floats."""
+    import time
+
+    from nerf_rs_tpu.utils.profiling import Throughput as JThroughput
+    from nerf_rs_tpu_torch.config import Config, RenderConfig
+    from nerf_rs_tpu_torch.train.loop import make_throughput
+
+    clock = iter([10.0, 10.0, 12.5, 12.5])  # reset, reset, stats, stats
+    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
+    cfg = Config(render=RenderConfig(num_samples=64, num_fine_samples=fine))
+    mine = make_throughput(cfg, chips)
+    jax_thr = JThroughput(cfg.train.num_rays, 64 + fine, chips)
+    for thr in (mine, jax_thr):
+        thr.tick(7)
+        thr.tick()
+    got, want = mine.stats(), jax_thr.stats()
+    assert got == want
+    assert got["samples_per_sec_per_chip"] == pytest.approx(
+        8 / 2.5 * cfg.train.num_rays * (64 + fine) / chips)

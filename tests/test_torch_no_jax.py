@@ -10,10 +10,14 @@ datasets (the PNG decoder, Blender, LLFF, a procedural scene written by
 the port, one step in each batch mode on it, the host pipeline through the
 port's own copy of the C++ gather, the NDC warp); slice 7's EMA,
 accumulated and noisy steps, the event writer, the profiler window, the
-diagnostics, the GIF writer, the density export and its mesh, in a
-process that never loads jax, jaxlib, flax, optax or any module of
-nerf_rs_tpu, nor tensorboard, tensorboardX, PIL or imageio, which the
-card's machine lacks. Plus checks of chip_smoke.py, which
+diagnostics, the GIF writer, the density export and its mesh;
+slice 8's ``parallel/`` (the meshes of one rank, and one step of ``cli
+train --device cpu --num_devices 2``: two gloo ranks spawned by the port's
+launcher), in a process that never loads jax, jaxlib, flax, optax or any
+module of nerf_rs_tpu, nor tensorboard, tensorboardX, PIL or imageio, which
+the card's machine lacks; jax, jaxlib, flax and optax cannot even be
+imported there, nor in the ranks it spawns (a blocker package first on
+their path). Plus checks of chip_smoke.py, which
 runs only on the card: an undefined-name lint (the idea of
 test_bench_lint.py), no import of the JAX package in any form, and that
 without a card it exits non-zero instead of falling back to the CPU.
@@ -205,6 +209,18 @@ assert sigma.shape == (8, 8, 8) and faces.shape[1] == 3
 inter = intersect.pairwise_view_intersections(o.reshape(-1, 3), d.reshape(-1, 3),
                                               o.reshape(-1, 3), d.reshape(-1, 3), 2.0)
 assert intersect.trace_intersections_to_screen(inter, 8, 8).shape == (100, 100)
+# slice 8: the meshes of one rank, then one data-parallel step on two gloo
+# ranks spawned by the CLI's launcher (they inherit the blocked path)
+from nerf_rs_tpu_torch import cli
+from nerf_rs_tpu_torch.parallel import mesh as pmesh
+assert pmesh.make_scene_mesh(3).shape == {"scene": 1, "data": 1}
+assert pmesh.pad_to_shards(13, pmesh.make_mesh()) == 13
+with tempfile.TemporaryDirectory() as tmp:
+    assert cli.main(["train", "--dataset", "sphere", "--width", "8", "--height", "8",
+                     "--num_samples", "8", "--num_rays", "16", "--num_iter", "1",
+                     "--eval_on_train", "false", "--device", "cpu", "--num_devices", "2",
+                     "--save_dir", tmp + "/ck", "--log_dir", tmp + "/logs"]) == 0
+    assert len(os.listdir(tmp + "/ck")) == 1 and len(os.listdir(tmp + "/logs")) == 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_rs_tpu",
                                     "tensorboard", "tensorboardX", "PIL", "imageio"))
@@ -219,8 +235,15 @@ def _env():
     return env
 
 
-def test_port_imports_and_renders_without_jax():
-    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=_env(),
+def test_port_imports_and_renders_without_jax(tmp_path):
+    env = _env()
+    for name in ("jax", "jaxlib", "flax", "optax"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('the port imports {name}')\n")
+    env["PYTHONPATH"] = str(tmp_path) + os.pathsep + env["PYTHONPATH"]
+    env["OMP_NUM_THREADS"] = "1"
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr
     last = proc.stdout.strip().splitlines()[-1]

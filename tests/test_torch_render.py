@@ -239,13 +239,16 @@ def test_cli_render_view_and_sweep(tmp_path, capsys):
     assert "rendered 2 frames of 16x16" in capsys.readouterr().out
 
 
-# --occ_res, --multiscale_levels, the image datasets and the EMA are ported
+# --occ_res, --multiscale_levels, the image datasets, the EMA, the scenes of
+# a multi-scene checkpoint and the sharded pixel store are ported
 # (tests/test_torch_occupancy.py, tests/test_torch_multiscale.py,
-# tests/test_torch_data.py, tests/test_torch_ema.py); the scenes of a
-# multi-scene checkpoint and the sharded pixel store are not
+# tests/test_torch_data.py, tests/test_torch_ema.py,
+# tests/test_torch_multiscene.py, tests/test_torch_dp.py); --compat is not,
+# beside any of them
 @pytest.mark.parametrize("argv", [
-    ["render", "--dataset", "sphere", "--scene_index", "1", "--depth", "true"],
-    ["render", "--dataset", "sphere", "--shard_pixel_store", "true"],
+    ["render", "--dataset", "sphere", "--scene_index", "1", "--depth", "true", "--compat",
+     "true"],
+    ["render", "--dataset", "sphere", "--shard_pixel_store", "true", "--compat", "true"],
     ["render", "--dataset", "sphere", "--compat", "true"],
 ])
 def test_cli_refuses_unported_flags(argv, capsys):
@@ -257,9 +260,11 @@ def test_cli_refuses_unported_flags(argv, capsys):
 
 # train, eval and export are ported; what they refuse is what later slices
 # bring (--preset record and eval --scales are ported since slices 3 and 4,
-# --preset pod since slice 6, --accumulation_steps and export since slice 7)
-_UNPORTED = {"train": ["--accumulation_steps", "2", "--num_devices", "2"],
-             "eval": ["--scenes", "a,b"], "export": ["--mesh", "true", "--scene_index", "0"]}
+# --preset pod since slice 6, --accumulation_steps and export since slice 7,
+# --num_devices, --scenes and --scene_index since slice 8): --compat
+_UNPORTED = {"train": ["--accumulation_steps", "2", "--num_devices", "2", "--compat", "true"],
+             "eval": ["--scenes", "a,b", "--compat", "true"],
+             "export": ["--mesh", "true", "--scene_index", "0", "--compat", "true"]}
 
 
 @pytest.mark.parametrize("cmd", ["train", "eval", "export"])

@@ -222,17 +222,20 @@ def test_presets_resolve_like_the_jax_cli():
 
 
 # multiscale (slice 3), the occupancy grid and record preset (slice 4), the
-# datasets, batch modes and --preset pod (slice 6) and the EMA, gradient
-# accumulation, sigma noise, the profiler and export (slice 7) are ported:
+# datasets, batch modes and --preset pod (slice 6), the EMA, gradient
+# accumulation, sigma noise, the profiler and export (slice 7) and data
+# parallelism and multi-scene training (slice 8) are ported:
 # tests/test_torch_multiscale.py, tests/test_torch_occupancy.py,
-# tests/test_torch_data.py, tests/test_torch_ema.py and
-# tests/test_torch_export.py run them
+# tests/test_torch_data.py, tests/test_torch_ema.py,
+# tests/test_torch_export.py, tests/test_torch_dp.py and
+# tests/test_torch_multiscene.py run them; what is left is slice 10's
+# --compat, beside any of them
 @pytest.mark.parametrize("argv,slice_no", [
-    (["export", "--scene_index", "1"], 8),
+    (["export", "--compat", "true", "--scene_index", "1"], 10),
     (["train", "--compat", "true", "--ema_decay", "0.9"], 10),
-    (["eval", "--scenes", "a,b"], 8),
-    (["train", "--num_devices", "2"], 8),
-    (["train", "--shard_pixel_store", "true"], 8),
+    (["eval", "--compat", "true", "--scenes", "a,b"], 10),
+    (["train", "--compat", "true", "--num_devices", "2"], 10),
+    (["train", "--compat", "true", "--shard_pixel_store", "true"], 10),
     (["render", "--compat", "true"], 10),
 ])
 def test_cli_names_the_slice_of_what_it_refuses(argv, slice_no, capsys):
