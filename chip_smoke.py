@@ -213,7 +213,10 @@ Phases, each fatal (any failure exits non-zero):
      (KERNEL_TOL); DP_STEPS in-step steps of --preset full and POD_STEPS
      error-weighted steps of --preset pod through K2 (K2 once a step a
      rank), after which both ranks' weights, Adam state and error store
-     must hash the same; the 800x800 frame in two blocks through K1 (2
+     must hash the same; each rank's pod drive again from the same start,
+     which must end at the same loss and error store, and DRAW_CALLS calls of
+     error_weighted_from_draws on the pod run's store with one set of draws,
+     which must give one set of pixels (fault 11); the 800x800 frame in two blocks through K1 (2
      chunks a rank), equal to the one-process frame. Then `train --scenes
      sphere,flat_sphere` at 64x64 for MS_STEPS steps on the one card (a 1 x
      1 scene mesh; autograd: no K2; K1 for the per-scene evals), `eval` and
@@ -221,6 +224,17 @@ Phases, each fatal (any failure exits non-zero):
      training's last eval); and `train --num_devices 2` on the one card
      must exit non-zero naming its one card. Every phase runs on the first
      visible card (pin_first_card).
+ 32. slice 10 (run after phase 31): compat mode at the reference's width
+     (8 x 100 trunk, 100 -> 50 -> 4 head), 84 rays x 64 samples, f32, on the
+     128 x 128 sphere: `train --compat true` for COMPAT_STEPS steps and a
+     resume of COMPAT_RESUME, `eval --max_views 2`, `render --view 0` and
+     `render --use_fused_kernel true`, with every kernel counter at 0 on every
+     path (the JAX package runs compat through XLA alone), finite losses, the
+     radiance head's weights as they started; `export` refused naming compat,
+     with no file written; one compat step on the card against the same step
+     on the CPU (COMPAT_TOL; the head's gradient exactly 0); compat_predict
+     against the reference's math in numpy (ORACLE_TOL); the compat step's
+     time, best of 3 windows.
 The record, multiscale and lego learning drives and fault 6's check fail the run at its end,
 after phase 29 has printed its measurements. `clock:` lines give each
 phase's wall seconds. Every kernel launch counter is set
@@ -255,6 +269,14 @@ of 3) and the 800x800 frame through the sharded renderer (best of 3), on one
 card and on N, then `cli train --preset full --num_devices N` and `cli
 render --num_devices N` of an 800x800 view once each, and prints one JSON
 line of the times.
+
+    python3 chip_smoke.py --trace-draws
+
+traces fault 11 on one card: POD_STEPS error-weighted steps run twice from
+one start through each running sum of the error store (torch.cumsum, the
+scan before the repair, and fixed_order_cumsum), the first step and call at
+which the runs part, and DRAW_CALLS calls of each scan, of
+error_weighted_from_draws and of update_error_store on one store.
 
     python3 chip_smoke.py --learn PRESET SEEDS [FLAG ...]
 
@@ -550,10 +572,31 @@ DP_RANKS = 2
 DP_STEPS = 50
 POD_STEPS = 20
 POD_ARGS = ("--preset", "pod", "--dataset", "sphere", "--use_whole_ray_train", "true")
+# fault 11 (ROADMAP Queue 3 item 11): the pod drive runs twice from one start
+# in each rank and must end at the same loss and error store, and
+# error_weighted_from_draws on the pod run's store (84 views x 128 x 128 =
+# 1,376,256 pixels) with one set of draws gives the same pixels DRAW_CALLS times
+DRAW_CALLS = 100
 MS_SCENES = "sphere,flat_sphere"
 MS_ARGS = ("--scenes", MS_SCENES, "--width", "64", "--height", "64", "--num_rays", "1024")
 MS_STEPS = 200
 MS_EVAL_EVERY = 100
+# phase 32 (slice 10): compat mode, the reference's committed math at its own
+# width (8 x 100 trunk, 100 -> 50 -> 4 head) on the 128 x 128 sphere, 84 rays x
+# 64 samples, f32, through autograd and the eager field, as the JAX package runs
+# it: no kernel launches on any of its paths
+COMPAT_ARGS = ("--compat", "true", "--dataset", "sphere", "--num_rays", "84",
+               "--precision", "f32")
+COMPAT_STEPS = 200
+COMPAT_RESUME = 5
+# the card's compat step against the CPU's from the same weights and batch
+# (midpoint samples, f32 without TF32: the same sums over 5,376 points in
+# another order): the loss relative to itself, each gradient leaf relative to
+# its largest entry
+COMPAT_TOL = {"loss": 1e-5, "grads": 1e-4}
+# compat_predict against the reference's math in numpy (tests/test_compat.py's bar)
+ORACLE_TOL = 1e-4
+COMPAT_WINDOW = 20  # compat steps a timing window
 # --dp-cards N: windows of DP_WINDOW flagship steps (best of 3) and of one
 # 800x800 frame, on one card and on N over NCCL, in one call
 DP_WINDOW = 20
@@ -4072,6 +4115,127 @@ def midpoint_cfg(preset: str):
     return dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, randomized=False))
 
 
+def repeated_draws(ds, store, num_rays: int, frac: float, calls: int = DRAW_CALLS) -> int:
+    """How many different pixel-id vectors ``calls`` calls of
+    ``error_weighted_from_draws`` give on ``store`` with one set of draws
+    (fault 11: one, if the draws repeat)."""
+    import torch
+
+    g = torch.Generator(device=store.device).manual_seed(11)
+    num_err = int(num_rays * frac)
+    u = torch.rand((num_err,), generator=g, device=store.device)
+    idx_uni = torch.randint(0, store.shape[0], (num_rays - num_err,), generator=g,
+                            device=store.device)
+    seen = {tensor_digest(ds.error_weighted_from_draws(store, u, idx_uni).idx)
+            for _ in range(calls)}
+    return len(seen)
+
+
+def tensor_digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+# the calls of an error-weighted step in the order they run, as --trace-draws
+# records them: the store read, its running sum, the drawn pixels, the step's
+# per-ray errors, the updated weights, the store written
+TRACE_CALLS = ("store_in", "cdf", "idx", "ray_err", "weights", "store_out")
+
+
+def trace_draws() -> int:
+    """--trace-draws, fault 11's trace on one card in one process: POD_STEPS
+    steps of `--preset pod --use_whole_ray_train true` (per-ray batches, no
+    ranks, no host pipeline) run twice from one start with one generator per
+    step, once with the running sum of ``torch.cumsum`` (the scan before the
+    repair) and once with ``fixed_order_cumsum``; after every step the
+    digests of TRACE_CALLS and the loss. Prints, per scan, the first step at
+    which the two runs part and the first call of that step that differs;
+    then DRAW_CALLS calls of each scan, of ``update_error_store`` and of
+    ``error_weighted_from_draws`` on the final store with one input each,
+    and how many different results each gave."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device: --trace-draws runs on the card only")
+    card = card_line()
+    print(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from nerf_rs_tpu_torch.data import dataset as dataset_mod
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels import build
+    from nerf_rs_tpu_torch.train import step as step_mod
+
+    build.load("fused_train")
+    dev = torch.device("cuda")
+    cfg = cli_config(["train", *POD_ARGS])
+    ds = make_dataset(cfg, dev)
+    n, frac, ema = cfg.train.num_rays, cfg.train.error_resample_frac, cfg.train.error_resample_ema
+    fixed = dataset_mod.fixed_order_cumsum
+    scans = {"torch.cumsum": lambda x: torch.cumsum(x, dim=0), "fixed_order_cumsum": fixed}
+
+    def run(scan):
+        cdfs = []
+
+        def recording(x):
+            out = scan(x)
+            cdfs.append(tensor_digest(out))
+            return out
+
+        dataset_mod.fixed_order_cumsum = recording
+        try:
+            state = step_mod.init_state(cfg, dev)
+            store = ds.init_error_store()
+            fn = step_mod.make_train_step(
+                cfg, ds, lambda g: ds.sample_batch_error_weighted(g, n, store, frac))
+            trace = []
+            for it in range(POD_STEPS):
+                rec = {"store_in": tensor_digest(store)}
+                state, aux = fn(state, step_mod.step_generator(cfg.train.seed, it, dev))
+                rec.update(cdf=cdfs[-1], idx=tensor_digest(aux["batch_idx"]),
+                           ray_err=tensor_digest(aux["ray_err"]), weights=state_digest(state))
+                dataset_mod.update_error_store(store, aux["batch_idx"], aux["ray_err"], ema)
+                rec.update(store_out=tensor_digest(store), loss=float(aux["loss"]))
+                trace.append(rec)
+            return trace, store, aux
+        finally:
+            dataset_mod.fixed_order_cumsum = fixed
+
+    out = {}
+    for name, scan in scans.items():
+        (a, store, aux), (b, _, _) = run(scan), run(scan)
+        parted = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        row = {"loss": [a[-1]["loss"], b[-1]["loss"]],
+               "store": [a[-1]["store_out"][:16], b[-1]["store_out"][:16]],
+               "first_step": parted,
+               "first_call": (None if parted is None else
+                              next(k for k in TRACE_CALLS if a[parted][k] != b[parted][k]))}
+        x = store + 1e-8
+        row["scan_distinct"] = len({tensor_digest(scan(x)) for _ in range(DRAW_CALLS)})
+        dataset_mod.fixed_order_cumsum = scan
+        try:
+            row["draws_distinct"] = repeated_draws(ds, store, n, frac)
+        finally:
+            dataset_mod.fixed_order_cumsum = fixed
+        row["update_distinct"] = len({tensor_digest(dataset_mod.update_error_store(
+            store.clone(), aux["batch_idx"], aux["ray_err"], ema)) for _ in range(DRAW_CALLS)})
+        out[name] = row
+        where = ("repeat bit for bit" if parted is None else
+                 f"part at step {parted}, first at {row['first_call']}")
+        print(f"fault 11, {name}: two runs of {POD_STEPS} pod steps from one start {where}; "
+              f"final loss {row['loss'][0]:.6f} / {row['loss'][1]:.6f}; {DRAW_CALLS} calls on "
+              f"the final {store.shape[0]}-pixel store: {row['scan_distinct']} running sums, "
+              f"{row['draws_distinct']} pixel sets, {row['update_distinct']} updated stores "
+              f"[{card}]")
+    print(json.dumps({"trace_draws": out, "pixels": int(ds.init_error_store().shape[0]),
+                      "steps": POD_STEPS}))
+    if out["fixed_order_cumsum"]["first_step"] is not None or any(
+            out["fixed_order_cumsum"][k] != 1
+            for k in ("scan_distinct", "draws_distinct", "update_distinct")):
+        fail("fault 11: the fixed-order draws do not repeat")
+    return 0
+
+
 def dp_rank(tmp: str) -> int:
     """Phase 31 in one of DP_RANKS ranks sharing the card over gloo, its
     counts read in its own process (each counter at 0 before its path):
@@ -4136,6 +4300,13 @@ def dp_rank(tmp: str) -> int:
     out["pod_digest"], out["pod_loss"] = state_digest(state), float(aux["loss"])
     out["store_digest"] = state_digest(state, store)
     out["store_mean"] = float(store.mean())
+    # fault 11: the same pod steps again from the same start
+    again = ds.init_error_store()
+    state2, aux2 = drive(cfg, POD_STEPS, again)
+    out["pod_again_loss"], out["store_again_digest"] = (float(aux2["loss"]),
+                                                        state_digest(state2, again))
+    out["draws_distinct"] = repeated_draws(ds, store, cfg.train.num_rays // DP_RANKS,
+                                           cfg.train.error_resample_frac)
 
     fcfg, fo, fd = frame_rays(dev)
     model = flagship_frame_model(dev)
@@ -4196,6 +4367,20 @@ def drive_dp(tmp: str, card: str) -> dict:
     print(f"phase 31: after {DP_STEPS} steps, and after {POD_STEPS} pod steps with the error "
           f"store, both ranks hold bit-identical states (loss {ranks[0]['step_loss']:.6f}, pod "
           f"{ranks[0]['pod_loss']:.6f}, store mean {ranks[0]['store_mean']:.6f})")
+    for r in ranks:
+        if (r["pod_again_loss"] != r["pod_loss"]
+                or r["store_again_digest"] != r["store_digest"]):
+            fail(f"phase 31 (fault 11): rank {r['rank']}'s second pod drive from the same "
+                 f"start ends at loss {r['pod_again_loss']} against {r['pod_loss']}, store "
+                 f"{r['store_again_digest'][:12]} against {r['store_digest'][:12]}")
+        if r["draws_distinct"] != 1:
+            fail(f"phase 31 (fault 11): rank {r['rank']}: {DRAW_CALLS} calls of "
+                 f"error_weighted_from_draws on one store and one u gave "
+                 f"{r['draws_distinct']} different sets of pixels")
+    print(f"phase 31 (fault 11): each rank's pod drive, run twice from one start, ends at the "
+          f"same loss ({ranks[0]['pod_again_loss']:.6f}) and the same error store; "
+          f"{DRAW_CALLS} calls of error_weighted_from_draws on the pod run's "
+          f"store with one u give one set of pixels")
     expect = {"given_batch": ("K2", 1), "step": ("K2", DP_STEPS), "pod": ("K2", POD_STEPS),
               "render": ("K1", math.ceil(FRAME * FRAME / DP_RANKS / CHUNK))}
     for r in ranks:
@@ -4274,7 +4459,169 @@ def drive_dp(tmp: str, card: str) -> dict:
                    "dp_pod": sum(r["counts"]["pod"]["K2"] for r in ranks),
                    "multiscene_train": ms_train["K2"]},
             "grad_err": grad_err, "frame_err": frame_err, "ranks_s": ranks_s,
+            "pod_loss": [ranks[0]["pod_loss"], ranks[0]["pod_again_loss"]],
+            "draws_distinct": [r["draws_distinct"] for r in ranks],
             "rank_s": ranks[0]["s"], "multiscene_psnr": final}
+
+
+def reference_predict(params, points, ts, t_far):
+    """The reference's compat math in numpy, tests/test_compat.py's oracle:
+    eight linears with a ReLU between them and none after the last, channel
+    0 the raw density; deltas to the far plane; the O(S^2) transmittance;
+    the density composited as the colour (sigma, sigma, sigma, 1).
+    ``params`` is the JAX layout's tree of numpy arrays."""
+    import numpy as np
+
+    n_rays, n_pts = ts.shape
+    h = points.reshape(-1, 3)
+    for layer in params["trunk"][:-1]:
+        h = np.maximum(h @ layer["w"] + layer["b"], 0.0)
+    out = (h @ params["trunk"][-1]["w"] + params["trunk"][-1]["b"]).reshape(n_rays, n_pts, -1)
+    sigma = out[..., 0]
+    deltas = np.concatenate([ts[:, 1:], np.full((n_rays, 1), t_far)], 1) - ts
+    trans = np.ones((n_rays, n_pts))
+    for i in range(1, n_pts):
+        trans[:, i] = np.exp(-(sigma[:, :i] * deltas[:, :i]).sum(-1))
+    w = trans * (1.0 - np.exp(-sigma * deltas))
+    colors = np.stack([sigma, sigma, sigma, np.ones_like(sigma)], axis=-1)
+    return (w[..., None] * colors).sum(1), sigma
+
+
+def drive_compat(tmp: str, card: str) -> dict:
+    """Phase 32, slice 10: `train --compat true` (COMPAT_ARGS) for
+    COMPAT_STEPS steps and a resume of COMPAT_RESUME, `eval`, `render` and
+    `render --use_fused_kernel true` of its checkpoint, every path with every
+    kernel counter at 0; its losses finite and its radiance head's weights
+    those it started from; `export` refused naming compat, with no file
+    written (the JAX CLI's export fails on a compat field); one compat step on
+    the card against the same step on the CPU (COMPAT_TOL, the head's
+    gradient exactly 0 on both); compat_predict against the reference's math
+    in numpy (ORACLE_TOL); then the compat step's time, best of 3 windows."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from nerf_rs_tpu_torch.convert import params_to_numpy
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.models.mlp import count_params, init_nerf_params
+    from nerf_rs_tpu_torch.ops import render as render_ops
+    from nerf_rs_tpu_torch.train import checkpoint as ckpt
+    from nerf_rs_tpu_torch.train import step as step_mod
+
+    dev = torch.device("cuda")
+    cdir = os.path.join(tmp, "compat")
+    common = [*COMPAT_ARGS, "--save_dir", cdir, "--log_dir", cdir]
+    counts, losses = {}, []
+
+    def path(key, argv):
+        reset_counts()
+        rc, out = run_cli(argv)
+        counts[key] = kernel_counts()
+        losses.extend(float(v) for v in re.findall(r"iter=\d+, loss=(\S+)", out))
+        if rc != 0:
+            fail(f"phase 32: {' '.join(argv[:3])}: rc {rc}")
+        return out
+
+    path("train", ["train", *common, "--num_iter", str(COMPAT_STEPS), "--eval_steps", "100",
+                   "--save_steps", "100000"])
+    out = path("resume", ["train", *common, "--num_iter", str(COMPAT_STEPS + COMPAT_RESUME),
+                          "--eval_steps", "100000", "--save_steps", "100000"])
+    if "resumed from" not in out or f"done at step {COMPAT_STEPS + COMPAT_RESUME}" not in out:
+        fail("phase 32: the compat resume did not pick up the checkpoint")
+    out = path("eval", ["eval", *common, "--max_views", "2"])
+    m = re.search(r"mean psnr over 2 \S+ views: (\S+)", out)
+    psnr = float(m.group(1)) if m else math.nan
+    for key, extra in (("render", []), ("render_fused_asked", ["--use_fused_kernel", "true"])):
+        rdir = os.path.join(cdir, key)
+        path(key, ["render", *common, "--view", "0", "--out_dir", rdir, *extra])
+        if read_png(os.path.join(rdir, "view-0.png")).shape != (128, 128, 3):
+            fail(f"phase 32: {key} wrote no 128x128 view")
+    if not losses or not all(math.isfinite(v) for v in losses) or not math.isfinite(psnr):
+        fail(f"phase 32: compat losses {losses}, eval psnr {psnr}")
+    reset_counts()
+    ex = os.path.join(cdir, "export")
+    try:
+        run_cli(["export", *common, "--grid_res", "32", "--out", os.path.join(ex, "field")])
+        fail("phase 32: export of a compat field did not refuse it")
+    except ValueError as e:
+        if "compat" not in str(e):
+            fail(f"phase 32: export refused compat without naming it: {e}")
+        refusal = str(e)
+    counts["export"] = kernel_counts()
+    if os.path.exists(ex):
+        fail("phase 32: the refused compat export wrote files")
+    launched = {k: {n: v for n, v in c.items() if v} for k, c in counts.items()}
+    if any(launched.values()):
+        fail(f"phase 32: compat paths launched kernels: {launched}")
+    cfg = cli_config(["train", *COMPAT_ARGS])
+    start = step_mod.init_state(cfg, dev)
+    field = init_nerf_params(cfg.model, cfg.train.seed, dev)
+    ckpt.restore_weights(ckpt.latest_checkpoint(cdir), field)
+    for name in ("head1", "head2"):
+        if any(not torch.equal(a, b) for a, b in zip(getattr(field, name).parameters(),
+                                                     getattr(start.params, name).parameters())):
+            fail(f"phase 32: {name} moved in training (its gradient is 0)")
+    print(f"phase 32: train --compat true ({count_params(field)} weights, 84 x 64, f32) for "
+          f"{COMPAT_STEPS} steps, last loss {losses[-1]:.6f}, and a resume to "
+          f"{COMPAT_STEPS + COMPAT_RESUME}; eval psnr {psnr:.2f} over 2 views; render and "
+          f"render --use_fused_kernel true; every kernel counter 0 on every path; head1 and "
+          f"head2 as they started; export refused: {refusal}")
+
+    # one step on the card against the same step on the CPU
+    mid = dataclasses.replace(cfg, render=dataclasses.replace(cfg.render, randomized=False))
+    ds = make_dataset(mid, dev)
+    batch = ds.sample_batch(torch.Generator(device=dev).manual_seed(32), cfg.train.num_rays)
+
+    def one_step(device):
+        state = step_mod.init_state(mid, device)
+        b = step_mod.Batch(*(None if x is None else x.to(device) for x in batch))
+        grads, aux = step_mod.compute_grads(state, b, None, mid)
+        return {k: v.detach().cpu() for k, v in grads.items()}, float(aux["loss"])
+
+    reset_counts()
+    g_card, loss_card = one_step(dev)
+    counts["step"] = kernel_counts()
+    g_cpu, loss_cpu = one_step(torch.device("cpu"))
+    if any(counts["step"].values()):
+        fail(f"phase 32: the compat step launched {counts['step']}")
+    heads = [k for k in g_cpu if k.startswith("head")]
+    if any(g_card[k].any() or g_cpu[k].any() for k in heads):
+        fail("phase 32: the radiance head's gradient is not 0")
+    errs = {"loss": abs(loss_card - loss_cpu) / abs(loss_cpu),
+            "grads": max(leaf_err(g_card[k], g_cpu[k]) for k in g_cpu if k not in heads)}
+    hold("phase 32: the compat step on the card vs on the CPU", errs, COMPAT_TOL)
+
+    # compat_predict against the reference's math
+    rng = np.random.default_rng(32)
+    pts = (rng.normal(size=(16, 32, 3)) * 0.6).astype(np.float32)
+    ts = np.sort(rng.uniform(size=(16, 32)) * 2.0, axis=-1).astype(np.float32)
+    with torch.no_grad():
+        got_rgb, got_sigma = render_ops.compat_predict(
+            field, torch.from_numpy(pts).to(dev), torch.from_numpy(ts).to(dev), cfg.model, 2.0)
+    want_rgb, want_sigma = reference_predict(params_to_numpy(field), pts, ts, 2.0)
+    oracle_err = max(float(np.abs(got_sigma.cpu().numpy() - want_sigma).max()),
+                     float(np.abs(got_rgb.cpu().numpy()[:, :3] - want_rgb[:, :3]).max()))
+    if not oracle_err <= ORACLE_TOL:
+        fail(f"phase 32: compat_predict vs the reference's math: {oracle_err} (tol {ORACLE_TOL})")
+
+    # the compat step's time
+    state = step_mod.init_state(cfg, dev)
+    fn = step_mod.make_train_step(cfg, ds)
+    it = iter(range(10 ** 6))
+
+    def window():
+        nonlocal state
+        for _ in range(COMPAT_WINDOW):
+            state, _ = fn(state, step_mod.step_generator(cfg.train.seed, next(it), dev))
+
+    window()  # warm-up
+    step_ms = best_of(window) / COMPAT_WINDOW * 1e3
+    print(f"phase 32: compat_predict vs the reference's math in numpy: max |diff| "
+          f"{oracle_err:.3g} (tol {ORACLE_TOL:g}); the compat step (84 rays x 64, autograd, "
+          f"f32) {step_ms:.3f} ms, best of 3 windows of {COMPAT_WINDOW} [{card}]")
+    return {"launches": counts, "step_ms": step_ms, "step_err": errs, "oracle_err": oracle_err,
+            "eval_psnr": psnr, "last_loss": losses[-1]}
 
 
 def dp_cards_rank(tmp: str) -> int:
@@ -4592,6 +4939,10 @@ def main() -> int:
         dp_run = drive_dp(tmp, card)
 
         lap("phase 31")
+        # ---- 32. slice 10: compat mode, no kernel on its paths ----
+        compat = drive_compat(tmp, card)
+
+        lap("phase 32")
         # ---- 28. the learning drives of every path, LEARN_WORKERS at a time ----
         for task in warm:
             task.result()
@@ -4708,6 +5059,11 @@ def main() -> int:
                                4096 * (36 + 8 * S + 12 + 32 + 4 * S)
                                + 4 * (packed.w.numel() + packed.b.numel()))
     path_counts = {**preset_counts, **unb_counts, "record": rec_counts}
+
+    def compat_paths(kernel: str) -> dict:
+        """Phase 32's counts of ``kernel``, one a compat path (each 0)."""
+        return {f"compat_{k}": c[kernel] for k, c in compat["launches"].items()}
+
     data_counts = {**{f"{p}_blender": c for p, c in blender_counts.items()},
                    **other_counts}
     k1_paths = {"render_flagship": launches,
@@ -4716,21 +5072,26 @@ def main() -> int:
                 "mipnerf_ms_train_eval": ms_counts["train_eval"],
                 "mipnerf_ms_eval_scales": ms_counts["eval_scales"],
                 "ema_eval": slice7["k1_eval"], "ema_sweep_depth_gif": slice7["k1_sweep"],
-                **dp_run["k1"]}
+                **dp_run["k1"], **compat_paths("K1")}
     k2_paths = {"train_flagship": train_launches,
                 **{f"{p}_train": c["train"] for p, c in {**path_counts, **data_counts}.items()},
                 "record_resume": rec_counts["resume"], "mipnerf_ms_train": ms_counts["train"],
                 **host_counts, "record_lego_learning": learned["record_lego"].pop("launches"),
                 "ema_train": slice7["k2_train"], "ema_resume": slice7["k2_resume"],
-                "fault6_proposal_relu_seed2": fault6["K2"]["k2"], **dp_run["k2"]}
+                "fault6_proposal_relu_seed2": fault6["K2"]["k2"], **dp_run["k2"],
+                **compat_paths("K2")}
     scatter_paths = {f"ngp_{layout}_train": c["train_scatter"] for layout, c in ngp_counts.items()}
     ngp_learned, fac_learned = learned.pop("ngp"), learned.pop("factored")
     scatter_paths["ngp_brick_learning"] = ngp_learned.pop("scatter_launches")
+    scatter_paths.update(compat_paths("scatter_rows"))
     k3_paths = {f"factored_{k}": fac_counts[k] for k in ("train", "frame", "eval")}
-    k3b_paths = {"factored_train": fac_counts["train_backward"]}
+    k3_paths.update(compat_paths("K3"))
+    k3b_paths = {"factored_train": fac_counts["train_backward"], **compat_paths("K3 backward")}
     k4_paths = {layout: {f"ngp_{layout}_{k}": v for k, v in c.items() if k != "train_scatter"}
                 for layout, c in ngp_counts.items()}
     k4_paths["brick"]["ngp_brick_learning"] = ngp_learned.pop("launches")
+    k4_paths["brick"].update(compat_paths("gather_rows"))
+    k4_paths["flat"].update(compat_paths("gather_pairs"))
     k4_rows = {"brick": ("gather_rows", ":54"), "flat": ("gather_pairs", ":133")}
     print(json.dumps({"kernels": [{
         "name": "fused_ray_render",
@@ -4827,7 +5188,8 @@ def main() -> int:
                      "learning": fac_learned},
         "ngp": {**ngp_times, "learning": ngp_learned},
         "slice7": slice7, "fault6": fault6,
-        "dp": {k: v for k, v in dp_run.items() if k not in ("k1", "k2")}}))
+        "dp": {k: v for k, v in dp_run.items() if k not in ("k1", "k2")},
+        "compat": {k: v for k, v in compat.items() if k != "launches"}}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s wall, build included")
     if DEFERRED:
         fail("; ".join(DEFERRED))
@@ -4848,9 +5210,12 @@ if __name__ == "__main__":
         sys.exit(dp_cards(int(sys.argv[2])))
     if sys.argv[1:2] == ["--learn"] and len(sys.argv) >= 4:
         sys.exit(learn_seeds(sys.argv[2], sys.argv[3], sys.argv[4:]))
+    if sys.argv[1:] == ["--trace-draws"]:
+        sys.exit(trace_draws())
     if sys.argv[1:2] == ["--witness-steps"] and len(sys.argv) >= 5:
         sys.exit(witness_steps(sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5:]))
     if len(sys.argv) != 1:
         fail("usage: python3 chip_smoke.py [--time-step ROOT | --dp-cards N | --learn PRESET "
-             "SEEDS [FLAG ...] | --witness-steps PRESET SEED STEPS [FLAG ...]]")
+             "SEEDS [FLAG ...] | --witness-steps PRESET SEED STEPS [FLAG ...] | "
+             "--trace-draws]")
     sys.exit(main())

@@ -13,11 +13,11 @@ and the row gather of the hash grid's table fetch
 (``nerf_rs_tpu/kernels/gather_rows.py`` -> ``kernels/csrc/gather_rows.cu``).
 The whole-ray kernels carry mip-NeRF 360's contraction and (the train
 kernel) its distortion loss; the hash grid's table gradient is a
-fixed-order scatter beside the row gather. The ported paths are ``cli
-train``, ``cli eval`` and ``cli render`` on the sphere scene, for the
-presets ``tiny``, ``full``, ``hierarchical``, ``mipnerf``, ``factored``,
-``ngp`` (brick table; ``--hash_brick false`` for the flat one),
-``proposal`` and ``unbounded``.
+fixed-order scatter beside the row gather. Every path of the JAX package
+is ported: ``cli train``, ``eval``, ``render`` and ``export`` on every
+dataset and preset, data parallelism over cards and scenes, and the
+reference's ``--compat`` math, which runs through the eager field and
+autograd (no kernel takes it, as in the JAX package).
 
 The configuration dataclasses are the port's own copy (``config.py``).
 This package imports neither ``jax`` nor anything of ``nerf_rs_tpu``.

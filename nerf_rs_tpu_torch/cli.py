@@ -74,9 +74,14 @@ each host of a multi-host run (``NERF_NUM_PROCESSES``, ``NERF_PROCESS_ID``,
 the views); ``--scenes`` (one field a scene, the scenes over a (scene,
 data) mesh, one stacked checkpoint) and ``--scene_index`` (which scene of
 it ``eval``, ``render`` and ``export`` read). ``eval`` and ``render`` run
-on the ranks, ``export`` on the primary's device. Flags of slices not
-ported yet (slice 10's ``--compat``) are refused with an error that names
-the slice, never ignored.
+on the ranks, ``export`` on the primary's device. ``--compat`` is the
+reference's committed math (``config.reference_compat_config``: the 8 x 100
+raw-xyz field, its density composited as grey, t = u * far samples), of
+which the flags keep only ``--num_samples``; it trains through autograd and
+renders through the eager field (``--use_fused_kernel`` defaults off, and
+the render kernel does not take it when asked), and ``export`` refuses it, as
+the JAX CLI's fails on it. The parser knows every flag of the JAX parser,
+and an unknown flag is argparse's error.
 
 Runs go to the card (the paper field trains through the whole-ray train
 kernel and renders through the render kernel) unless ``--device cpu`` asks for
@@ -87,6 +92,7 @@ card, ``--device cuda`` (the default) raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import math
 import os
 import sys
@@ -103,15 +109,10 @@ from .config import (
     ProposalConfig,
     RenderConfig,
     TrainConfig,
+    reference_compat_config,
 )
 
 from .train.loop import resolve_device
-
-# the JAX parser's flags that later slices bring, by slice
-_LATER_FLAGS = {
-    10: "compat",
-}
-_FLAG_SLICE = {f: n for n, flags in _LATER_FLAGS.items() for f in flags.split()}
 
 
 def _bool_flag(p, name, default, help=""):
@@ -295,8 +296,12 @@ def build_parser() -> argparse.ArgumentParser:
                         help="data-parallel ranks, one a device: cards (0: every visible card; "
                              "more than are visible raises), or gloo ranks with --device cpu "
                              "(0: one); over NERF_NUM_PROCESSES hosts, the run's total")
+    _bool_flag(common, "compat", False,
+               "reference-compat math (8x100 raw-xyz MLP, density composited as grey, "
+               "t = u * far); keeps only --num_samples of the model and render flags")
     _bool_flag(common, "use_fused_kernel", True,
-               "render through the whole-ray CUDA render kernel")
+               "render through the whole-ray CUDA render kernel (compat mode defaults it "
+               "off)")
     _bool_flag(common, "use_whole_ray_train", False,
                "train through the whole-ray CUDA train kernel (the presets "
                "turn it on)")
@@ -392,6 +397,10 @@ def _apply_preset(args):
     if getattr(args, "ndc", False):
         # NDC warps rays to the unit depth range: near 0, far 1 unless given
         _set(near=0.0, far=1.0)
+    if getattr(args, "compat", False):
+        # compat's grey composite renders through the eager field unless the
+        # user asks for the kernel (which does not take the compat field)
+        _set(use_fused_kernel=False)
     if p == "tiny":
         _set(width=100, height=100, num_rays=4096, num_samples=64,
              num_fine_samples=0, use_whole_ray_train=True)
@@ -454,6 +463,36 @@ def _apply_preset(args):
 
 def config_from_args(args) -> Config:
     args = _apply_preset(args)
+    if args.compat:
+        # the reference's model and render settings; of their flags only
+        # --num_samples is read, as the JAX CLI reads them
+        base = reference_compat_config()
+        model = base.model
+        render = dataclasses.replace(base.render, num_samples=args.num_samples)
+    else:
+        model = ModelConfig(arch=args.arch, hash_levels=args.hash_levels,
+                            hash_table_log2=args.hash_table_log2,
+                            hash_base_res=args.hash_base_res, hash_max_res=args.hash_max_res,
+                            hash_aabb=args.hash_aabb, hash_brick=args.hash_brick,
+                            fac_levels=args.fac_levels,
+                            fac_base_res=args.fac_base_res, fac_max_res=args.fac_max_res,
+                            fac_comps=args.fac_comps, fac_aabb=args.fac_aabb,
+                            fac_l1=args.fac_l1, sigma_activation=args.sigma_activation,
+                            ipe=args.ipe, contract=args.contract)
+        render = RenderConfig(num_samples=args.num_samples,
+                              num_fine_samples=args.num_fine_samples,
+                              share_network=args.share_network,
+                              fine_mode=args.fine_mode,
+                              white_background=args.white_background,
+                              occ_res=args.occ_res,
+                              occ_update_steps=args.occ_update_steps,
+                              occ_threshold=args.occ_threshold,
+                              occ_aabb=args.occ_aabb,
+                              occ_bins=args.occ_bins,
+                              occ_decay=args.occ_decay,
+                              occ_uniform_frac=args.occ_uniform_frac,
+                              sampling_space=args.sampling_space,
+                              raw_noise_std=args.raw_noise_std)
     return Config(
         debug=args.debug,
         do_train=args.do_train,
@@ -465,30 +504,9 @@ def config_from_args(args) -> Config:
         run_name=args.run_name,
         camera=CameraConfig(width=args.width, height=args.height, near=args.near,
                             far=args.far, ndc=args.ndc, ndc_near=args.ndc_near),
-        model=ModelConfig(arch=args.arch, hash_levels=args.hash_levels,
-                          hash_table_log2=args.hash_table_log2,
-                          hash_base_res=args.hash_base_res, hash_max_res=args.hash_max_res,
-                          hash_aabb=args.hash_aabb, hash_brick=args.hash_brick,
-                          fac_levels=args.fac_levels,
-                          fac_base_res=args.fac_base_res, fac_max_res=args.fac_max_res,
-                          fac_comps=args.fac_comps, fac_aabb=args.fac_aabb,
-                          fac_l1=args.fac_l1, sigma_activation=args.sigma_activation,
-                          ipe=args.ipe, contract=args.contract),
+        model=model,
         log_densities_only=args.log_densities_only,
-        render=RenderConfig(num_samples=args.num_samples,
-                            num_fine_samples=args.num_fine_samples,
-                            share_network=args.share_network,
-                            fine_mode=args.fine_mode,
-                            white_background=args.white_background,
-                            occ_res=args.occ_res,
-                            occ_update_steps=args.occ_update_steps,
-                            occ_threshold=args.occ_threshold,
-                            occ_aabb=args.occ_aabb,
-                            occ_bins=args.occ_bins,
-                            occ_decay=args.occ_decay,
-                            occ_uniform_frac=args.occ_uniform_frac,
-                            sampling_space=args.sampling_space,
-                            raw_noise_std=args.raw_noise_std),
+        render=render,
         train=TrainConfig(
             num_rays=args.num_rays,
             learning_rate=args.learning_rate,
@@ -630,8 +648,6 @@ def cmd_eval(args) -> int:
 
 
 def _eval_rank(args) -> int:
-    import dataclasses
-
     from .data.dataset import scaled_camera
     from .data.images import save_png
     from .ops import render as render_ops
@@ -804,28 +820,15 @@ def cmd_export(args) -> int:
     return 0
 
 
-def _later(flag: str) -> str:
-    n = _FLAG_SLICE.get(flag.lstrip("-").split("=")[0])
-    return f"{flag} (slice {n})" if n else flag
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    parser = build_parser()
-    args, unknown = parser.parse_known_args(argv)
-    if unknown:
-        parser.error("not ported to the PyTorch package yet (later slices): "
-                     + " ".join(_later(f) for f in unknown if f.startswith("-")))
+    args = build_parser().parse_args(argv)
     args._explicit = explicit_dests(argv)
     # the kernels' plain versions and any f32 matmul must stay full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     cmd = {"train": cmd_train, "eval": cmd_eval, "render": cmd_render,
            "export": cmd_export}[args.cmd]
-    try:
-        return cmd(args)
-    except NotImplementedError as e:
-        print(f"error: not ported yet: {e}", file=sys.stderr)
-        return 2
+    return cmd(args)
 
 
 if __name__ == "__main__":

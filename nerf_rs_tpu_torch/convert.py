@@ -19,6 +19,8 @@ bare ``lines`` array (3, sumR, C) beside the heads' ``{w, b}`` dicts
 has the keys ``lines`` and ``sigma1.w`` ...; ``FactoredField`` takes it.
 The hash grid's tree (``nerf_rs_tpu/models/hashgrid.py``) is the same with
 a bare ``table`` leaf, (L T, F) or (L Tb, 128), for ``HashGridField``.
+The compat field's tree is ``{"trunk": [8 layers], "head1", "head2"}``, for
+``CompatMLP``.
 """
 
 from __future__ import annotations
@@ -31,9 +33,10 @@ import torch
 from torch import nn
 
 
-# the fields' state-dict order (NerfMLP's, then FactoredField's and HashGridField's)
-_ORDER = ("trunk", "sigma", "feature", "view1", "lines", "table", "sigma1", "sigma2", "color1",
-          "color2", "rgb")
+# the fields' state-dict order (NerfMLP's, CompatMLP's, then FactoredField's and
+# HashGridField's)
+_ORDER = ("trunk", "head1", "head2", "sigma", "feature", "view1", "lines", "table", "sigma1",
+          "sigma2", "color1", "color2", "rgb")
 
 
 def params_from_numpy(tree: dict, device=None) -> "OrderedDict[str, torch.Tensor]":

@@ -265,8 +265,10 @@ class DeviceDataset:
         ``_sample_error_weighted``: each uniform ``u`` in [0, 1) scaled to
         the store's total picks the first pixel whose running sum of
         (error + 1e-8) reaches it (the inverse CDF, the JAX function's
-        searchsorted), then the uniform pixel ids ``idx_uni`` follow."""
-        cdf = torch.cumsum(err_store + 1e-8, dim=0)
+        searchsorted), then the uniform pixel ids ``idx_uni`` follow. The
+        running sum is ``fixed_order_cumsum``'s, so one store and one ``u``
+        give the same pixels on every call."""
+        cdf = fixed_order_cumsum(err_store + 1e-8)
         idx_err = torch.searchsorted(cdf, (u * cdf[-1]).contiguous())
         idx_err = idx_err.clamp(0, err_store.shape[0] - 1)
         return self.batch_from_idx(torch.cat([idx_err, idx_uni.to(idx_err.dtype)]))
@@ -296,6 +298,32 @@ class DeviceDataset:
             h, w = self.height // scale, self.width // scale
             rgb = rgb.reshape(h, scale, w, scale, 3).mean(dim=(1, 3))
         return rgb
+
+
+SCAN_WIDTH = 1024  # elements a row of fixed_order_cumsum's blocks
+
+
+def fixed_order_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """The inclusive running sum of a 1-D tensor, its additions grouped by
+    the tensor's length alone: the same bits on every call. ``x`` is cut
+    into rows of SCAN_WIDTH (zero-padded), each row is scanned on its own,
+    the rows' totals are scanned, and each row adds the totals before it.
+
+    A 1-D ``torch.cumsum`` on the card is a single-pass scan with decoupled
+    look-back, in which each tile adds whichever of its predecessors' sums
+    are ready when it looks: the grouping of float sums, and so the last
+    bits of a long running sum, change from launch to launch. A scan along
+    the last dim of a tensor with two or more rows takes each row in a
+    fixed order on either device, so both scans here run on at least two
+    rows (the totals beside a row of zeros)."""
+    n = x.shape[0]
+    rows = max(2, -(-n // SCAN_WIDTH))
+    blocks = torch.cat([x, x.new_zeros(rows * SCAN_WIDTH - n)]).reshape(rows, SCAN_WIDTH)
+    blocks = torch.cumsum(blocks, dim=1)
+    totals = torch.stack([blocks[:, -1], torch.zeros_like(blocks[:, -1])])
+    before = torch.cumsum(totals, dim=1)[0, :-1]
+    blocks[1:] += before[:, None]
+    return blocks.reshape(-1)[:n]
 
 
 def update_error_store(err_store: torch.Tensor, idx: torch.Tensor, ray_err: torch.Tensor,

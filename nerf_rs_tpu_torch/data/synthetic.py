@@ -1,13 +1,34 @@
-"""Synthetic flat-sphere scene, the counterpart of the image half of
-``nerf_rs_tpu/data/synthetic.py``: a white disk of radius H/4 centred on
-a black screen, the same for every view, so a dataset needs no files.
+"""Synthetic debug scenes, the counterpart of ``nerf_rs_tpu/data/synthetic.py``:
+the flat-sphere images (a white disk of radius H/4 centred on a black
+screen, the same for every view, so a dataset needs no files) and the
+reference's analytic sphere density (1 inside radius 0.5), an oracle of the
+field at any world point (``sphere_density``, ``render_sphere_gold``).
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from ..config import CameraConfig
+
+
+def sphere_density(points: torch.Tensor, radius: float = 0.5) -> torch.Tensor:
+    """The gold density at (..., 3) points: 1 where |p| < radius, else 0
+    (the reference's dist < 0.5 => sigma = 1 rule), f32."""
+    return (torch.linalg.norm(points, dim=-1) < radius).float()
+
+
+def render_sphere_gold(origins: torch.Tensor, dirs: torch.Tensor, ts: torch.Tensor,
+                       radius: float = 0.5) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The gold (per-sample density (..., S), per-ray hit mask (...,)) of
+    rays (..., 3) sampled at distances ``ts`` (..., S) against the analytic
+    sphere: the oracle a learned field is held to at the same world
+    points."""
+    pts = origins[..., None, :] + ts[..., :, None] * dirs[..., None, :]
+    sigma = sphere_density(pts, radius)
+    return sigma, (torch.amax(sigma, dim=-1) > 0).float()
 
 
 def sphere_image(camera: CameraConfig, radius_frac: float = 0.25,

@@ -1,6 +1,7 @@
-"""The paper NeRF field as an ``nn.Module``, the counterpart of the
-``nerf`` arch in ``nerf_rs_tpu/models/mlp.py``, and the dispatch over
-the field families (``init_nerf_params``, ``apply_nerf``).
+"""The paper NeRF field and the reference's compat field as
+``nn.Module``s, the counterparts of the ``nerf`` arch and compat mode in
+``nerf_rs_tpu/models/mlp.py``, and the dispatch over the field families
+(``init_nerf_params``, ``apply_nerf``).
 
 gamma(x) -> depth x width ReLU trunk, with the encoded position
 re-injected (concatenated after the hidden state) before layer
@@ -10,14 +11,15 @@ re-injected (concatenated after the hidden state) before layer
 Weights keep the JAX layout and names so that a parameter tree converts
 one to one (``convert.py``): every layer is a ``Dense`` holding ``w`` of
 shape (in, out) and ``b`` of shape (out,); the state-dict keys are
-``trunk.{i}.w/b``, ``sigma``, ``feature``, ``view1`` and ``rgb``.
+``trunk.{i}.w/b``, ``sigma``, ``feature``, ``view1`` and ``rgb``
+(compat: ``trunk.{i}``, ``head1``, ``head2``).
 
-Ported so far: the paper arch (with PE, or mip-NeRF's integrated
-encoding of Gaussians), the factored arch (``models/factored.py``) and
-the hash grid (``models/hashgrid.py``, both table layouts), each with
-mip-NeRF 360's scene contraction in front of it (``cfg.contract``) and
-the paper's sigma noise on its raw density; compat mode raises
-``NotImplementedError`` naming the slice that brings it.
+The families: the paper arch (with PE, or mip-NeRF's integrated encoding
+of Gaussians), the factored arch (``models/factored.py``) and the hash
+grid (``models/hashgrid.py``, both table layouts), each with mip-NeRF
+360's scene contraction in front of it (``cfg.contract``) and the paper's
+sigma noise on its raw density; and ``cfg.compat``, the reference's
+committed field (``CompatMLP``), which wins over every other setting.
 """
 
 from __future__ import annotations
@@ -35,12 +37,6 @@ from ..config import ModelConfig
 from .encoding import integrated_posenc, posenc, posenc_dim
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the model options later slices of the port bring."""
-    if cfg.compat:
-        raise NotImplementedError("--compat comes with slice 10 of the port")
-
-
 class Dense(nn.Module):
     """y = x @ w + b with the JAX (in, out) weight layout."""
 
@@ -55,7 +51,6 @@ class NerfMLP(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        check_supported(cfg)
         if cfg.arch != "nerf":
             raise ValueError(f"NerfMLP is the paper field; arch={cfg.arch!r} is built by "
                              f"init_nerf_params")
@@ -81,6 +76,46 @@ class NerfMLP(nn.Module):
 
     def forward(self, points, viewdirs, dtype=None):
         return apply_nerf(self, points, viewdirs, self.cfg, dtype)
+
+
+class CompatMLP(nn.Module):
+    """The reference's committed field (its DensityNet, then its
+    RadianceNet): raw xyz -> ``trunk.0`` 3 -> W, ``trunk.1..6`` W -> W,
+    ``trunk.7`` W -> W + 1 (channel 0 the raw density, the rest features),
+    then ``head1`` W -> H and ``head2`` H -> 4 (RGBA), W = ``compat_width``
+    and H = ``compat_head_width``. ``forward`` is ``apply_nerf``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        w = cfg.compat_width
+        self.cfg = cfg
+        self.trunk = nn.ModuleList([Dense(3, w, device)]
+                                   + [Dense(w, w, device) for _ in range(6)]
+                                   + [Dense(w, w + 1, device)])
+        self.head1 = Dense(w, cfg.compat_head_width, device)
+        self.head2 = Dense(cfg.compat_head_width, 4, device)
+
+    def forward(self, points, viewdirs=None, dtype=None):
+        return apply_nerf(self, points, viewdirs, self.cfg, dtype)
+
+
+def linear_default_init_(model: nn.Module, rng: np.random.Generator) -> None:
+    """libtorch's ``nn::Linear`` default into every ``Dense`` of ``model``,
+    in module order, weights then bias: both U(-1/sqrt(fan_in),
+    1/sqrt(fan_in)) (kaiming_uniform with a = sqrt(5) gives the weights'
+    bound), the draw of the reference's VarStore that compat mode keeps
+    (``_init_linear_torch`` in the JAX package)."""
+    with torch.no_grad():
+        for layer in model.modules():
+            if isinstance(layer, Dense):
+                bound = 1.0 / math.sqrt(layer.w.shape[0])
+                for t in (layer.w, layer.b):
+                    t.copy_(torch.from_numpy(rng.uniform(-bound, bound, tuple(t.shape))))
+
+
+def count_params(model: nn.Module) -> int:
+    """The number of weights of a field (or any module)."""
+    return sum(p.numel() for p in model.parameters())
 
 
 def _truncated_normal(rng: np.random.Generator, shape) -> np.ndarray:
@@ -123,8 +158,14 @@ def init_nerf_params(cfg: ModelConfig, seed: int = 0, device=None, stream: int =
     shrinking activations the sigma head's bias dominates, and if it
     lands negative relu(sigma) is 0 everywhere and the field is dead at
     init (see ``nerf_rs_tpu/models/mlp._init_linear``).
+
+    ``cfg.compat`` wins over ``arch``, ``ipe`` and ``contract``: a
+    ``CompatMLP`` with libtorch's default draw (``linear_default_init_``).
     """
-    check_supported(cfg)
+    if cfg.compat:
+        model = CompatMLP(cfg)
+        linear_default_init_(model, seed_rng(seed, stream))
+        return model.to(device)
     if cfg.arch == "factored":
         from .factored import init_factored_params
 
@@ -153,7 +194,7 @@ def sigma_activation(raw: torch.Tensor, act: str) -> torch.Tensor:
     if act == "softplus":
         # jax.nn.softplus is logaddexp(x, 0): no linear cut-over
         return torch.logaddexp(raw, torch.zeros_like(raw))
-    return raw
+    return raw  # "none" (compat): the raw density, which may be negative
 
 
 def apply_nerf(
@@ -193,8 +234,13 @@ def apply_nerf(
     noise`` added to the raw density before its activation, in every
     family (``_sigma_noise`` in the JAX package). The caller draws it,
     from its generator or, in a test, from the JAX package's key.
+
+    ``cfg.compat`` (a ``CompatMLP``): ``_apply_compat``, which takes the
+    raw points and no view direction and returns rgba (..., 4); nothing
+    above (contraction, encodings) applies to it.
     """
-    check_supported(cfg)
+    if cfg.compat:
+        return _apply_compat(params, points, cfg, dtype, noise_std, noise)
     if cfg.contract:
         from ..ops.contract import contract, contract_gaussian
 
@@ -244,3 +290,23 @@ def _sigma_noise(sigma_raw: torch.Tensor, noise_std: float,
     if noise_std > 0.0 and noise is not None:
         return sigma_raw + noise_std * noise
     return sigma_raw
+
+
+def _apply_compat(params: nn.Module, points: torch.Tensor, cfg: ModelConfig, dtype=None,
+                  noise_std: float = 0.0,
+                  noise: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's forward: the raw points through the eight trunk
+    layers with a ReLU between them and none after the last; channel 0 of
+    its output is the raw density (the sigma noise added to it), the rest
+    the features, which go through ``head1``, a ReLU, ``head2`` and a
+    sigmoid to RGBA (..., 4). The view direction is no input (the
+    reference's own gap). With ``cfg.sigma_activation`` "none" the density
+    stays raw and may be negative."""
+    h = points
+    for layer in params.trunk[:-1]:
+        h = F.relu(dense(h, layer, dtype))
+    out = dense(h, params.trunk[-1], dtype)
+    sigma_raw = _sigma_noise(out[..., 0].float(), noise_std, noise)
+    h2 = F.relu(dense(out[..., 1:], params.head1, dtype))
+    rgba = torch.sigmoid(dense(h2, params.head2, dtype).float())
+    return sigma_activation(sigma_raw, cfg.sigma_activation), rgba

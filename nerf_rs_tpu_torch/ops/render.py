@@ -5,15 +5,18 @@ radii for multiscale batches) passes, the hierarchical fine pass (NeRF
 section 5.2) in both fine modes, the shared-network fast fine pass,
 proposal-guided (mip-NeRF 360) and occupancy-guided sampling, each through
 the whole-ray render kernel or the eager field, in linear or disparity
-sample spacing.
+sample spacing; and the reference's compat passes (``compat_sampling``:
+t = u * far, ``compat_density_color``: the density composited as grey;
+``compat_predict``).
 
 T_i = exp(-sum_{j<i} sigma_j delta_j) from one exclusive cumsum,
-w_i = T_i (1 - exp(-sigma_i delta_i)), C = sum_i w_i c_i.
+w_i = T_i (1 - exp(-sigma_i delta_i)), C = sum_i w_i c_i. Nothing is
+clamped: under compat's raw density sigma may be negative, 1 -
+exp(-sigma delta) then too, and T may pass 1, as in the reference.
 
 The paper's sigma noise (``raw_noise_std`` > 0, randomized passes only)
 perturbs each pass's raw density with a draw of its own and runs every
-pass through the eager field, as the JAX package does. Compat passes
-(slice 10) raise ``NotImplementedError``.
+pass through the eager field, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -104,6 +107,19 @@ def distortion_loss(
     return torch.mean(torch.sum(weights * a + weights * weights * d / 3.0, dim=-1))
 
 
+def compat_predict(params, points: torch.Tensor, ts: torch.Tensor, model_cfg: ModelConfig,
+                   far: float, dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's ``NeRF::predict`` on world points (..., S, 3) at
+    distances ``ts`` (..., S): the compat field, whose radiance head is
+    evaluated and then discarded, as the reference commits it; the raw
+    densities composited as the colour (sigma, sigma, sigma, 1) onto no
+    background. Returns ((..., 4) colours, (..., S) densities)."""
+    sigma, _rgba = apply_nerf(params, points, None, model_cfg, dtype)
+    colors = torch.stack([sigma, sigma, sigma, torch.ones_like(sigma)], dim=-1)
+    out = composite(sigma, colors, sampling.deltas_from_ts(ts, far), ts=ts)
+    return out.rgb, sigma
+
+
 def train_fused_supported(model_cfg: ModelConfig) -> bool:
     """Architectures the whole-ray train kernel covers: the paper field
     with relu or softplus density."""
@@ -123,12 +139,6 @@ def fused_supported(model_cfg: ModelConfig) -> bool:
     return train_fused_supported(model_cfg)
 
 
-def check_render_supported(model_cfg: ModelConfig, render_cfg: RenderConfig) -> None:
-    """Raise for the render options later slices of the port bring."""
-    if render_cfg.compat_sampling or render_cfg.compat_density_color:
-        raise NotImplementedError("compat rendering comes with slice 10 of the port")
-
-
 def _shared_fast(render_cfg: RenderConfig, model_cfg: ModelConfig, fine_params,
                  use_fused: bool) -> bool:
     """Whether the shared-network fast fine pass runs (one net, union,
@@ -137,7 +147,7 @@ def _shared_fast(render_cfg: RenderConfig, model_cfg: ModelConfig, fine_params,
     composites the union from the coarse pass's cached (sigma, rgb)."""
     return (render_cfg.share_network and render_cfg.fine_mode != "standalone"
             and render_cfg.num_fine_samples > 0 and fine_params is None
-            and not model_cfg.ipe and not use_fused)
+            and not render_cfg.compat_density_color and not model_cfg.ipe and not use_fused)
 
 
 def render_rays(
@@ -199,8 +209,14 @@ def render_rays(
     ``generator`` after that pass's samples; every pass then runs through
     the eager field (the render kernel takes no noise, as in the JAX
     package).
+
+    ``render_cfg.compat_sampling``: the point samples are the reference's
+    (``sampling.compat_ts``) unless a proposal net or a grid picks them;
+    IPE edges stay stratified. ``render_cfg.compat_density_color``: each
+    point pass composites its densities as the grey (sigma, sigma, sigma)
+    through the eager field, never the render kernel. These follow the JAX
+    function's order of choices.
     """
-    check_render_supported(model_cfg, render_cfg)
     use_fused = use_fused and fused_supported(model_cfg)
     rand = render_cfg.randomized if randomized is None else randomized
     noise_std = render_cfg.raw_noise_std if rand else 0.0
@@ -244,7 +260,7 @@ def render_rays(
             deltas = edges[..., 1:] - edges[..., :-1]
         else:
             deltas = sampling.deltas_from_ts(ts, far)
-        if use_fused:
+        if use_fused and (edges is not None or not render_cfg.compat_density_color):
             from ..kernels.fused_ray import fused_ray_render
 
             rgb, acc, depth, w, sig = fused_ray_render(
@@ -265,13 +281,16 @@ def render_rays(
         pts = sampling.points_from_ts(flat_o, flat_d, ts)
         sigma, rgb = apply_nerf(pass_params, pts, viewdirs[..., None, :], model_cfg, dtype,
                                 noise_std=noise_std, noise=eps)
-        return composite(sigma, rgb[..., :3], deltas,
+        colors = (torch.stack([sigma, sigma, sigma], dim=-1) if render_cfg.compat_density_color
+                  else rgb[..., :3])
+        return composite(sigma, colors, deltas,
                          white_background=render_cfg.white_background, ts=ts)
 
+    compat = render_cfg.compat_sampling
     if model_cfg.ipe:
         # S + 1 edges: S intervals, composited over their exact lengths;
         # the edges are the fine pass's histogram bins
-        if grid is not None:
+        if grid is not None and not compat:
             from .occupancy import occupancy_edges
 
             edges = occupancy_edges(flat_o, flat_d, grid, S, camera, render_cfg, rand,
@@ -282,18 +301,20 @@ def render_rays(
                                            space=render_cfg.sampling_space)
         coarse = run_pass(params, packed, None, edges)
     else:
-        if prop_params is not None:
+        if prop_params is not None and not compat:
             from .proposal import proposal_resample
 
             ts, _ = proposal_resample(flat_o, flat_d, prop_params, prop_cfg, S, camera, rand,
                                       generator=generator, dtype=dtype,
                                       space=render_cfg.sampling_space,
                                       contract=model_cfg.contract)
-        elif grid is not None:
+        elif grid is not None and not compat:
             from .occupancy import occupancy_ts
 
             ts = occupancy_ts(flat_o, flat_d, grid, S, camera, render_cfg, rand,
                               generator=generator)
+        elif compat:
+            ts = sampling.compat_ts(n, S, far, rand, generator=generator, device=flat_o.device)
         else:
             ts = sampling.stratified_ts(n, S, near, far, rand, generator=generator,
                                         device=flat_o.device, space=render_cfg.sampling_space)

@@ -1,7 +1,7 @@
-"""Sampling along rays, the counterpart of ``nerf_rs_tpu/ops/sampling.py``
-without its compat draw: stratified point samples (even in t, or in 1/t
-for unbounded scenes), mip-NeRF's conical-frustum Gaussians, and
-hierarchical resampling (``sample_pdf``, ``merge_ts``).
+"""Sampling along rays, the counterpart of ``nerf_rs_tpu/ops/sampling.py``:
+stratified point samples (even in t, or in 1/t for unbounded scenes), the
+reference's compat draw (``compat_ts``), mip-NeRF's conical-frustum
+Gaussians, and hierarchical resampling (``sample_pdf``, ``merge_ts``).
 
 Random draws come from an explicit ``torch.Generator``; torch and JAX
 streams differ, so parity tests use ``randomized=False`` (bin
@@ -48,6 +48,27 @@ def stratified_ts(
     else:
         u = torch.full((num_rays, num_samples), 0.5, device=device)
     return lower + (upper - lower) * u
+
+
+def compat_ts(
+    num_rays: int,
+    num_samples: int,
+    far: float,
+    randomized: bool = True,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> torch.Tensor:
+    """The reference's effective sample distances, (num_rays, num_samples):
+    randomized, t = u * far over [0, far) sorted per ray; else t = i / n *
+    far, which starts at t = 0. There is no near plane: the reference's
+    ``t *= (T_FAR - HITHER) + HITHER`` parses as ``t * T_FAR`` (SURVEY.md
+    section 2.8), and compat keeps that."""
+    if randomized:
+        u = torch.rand((num_rays, num_samples), generator=generator,
+                       device=generator.device if generator is not None else device)
+        return torch.sort(u.to(device) * far, dim=-1).values
+    t = torch.arange(num_samples, dtype=torch.float32, device=device) / num_samples * far
+    return t.expand(num_rays, num_samples)
 
 
 def deltas_from_ts(ts: torch.Tensor, far: float) -> torch.Tensor:

@@ -127,7 +127,6 @@ def make_dp_train_step(cfg: Config, mesh: Mesh, dataset=None, shard_store: bool 
     ``batch_idx`` and ``ray_err`` are every rank's, all-gathered in rank
     order, so each rank's ``update_error_store`` applies the same update.
     One rank: ``train/step``'s own step."""
-    step_mod.check_train_supported(cfg)
     n = num_shards(mesh)
     if dataset is None:
         if n == 1:
@@ -170,7 +169,6 @@ def make_slice_dp_train_step(cfg: Config, mesh: Mesh) -> Callable:
     the gradients' mean over the slice first, then over the slices (one
     pre-reduced copy a slice crosses between them). The same numbers as
     the 1-D step: a mean of means over equal shares."""
-    step_mod.check_train_supported(cfg)
     axes = (DCN_AXIS, DATA_AXIS)
     coords = (mesh.coords[DCN_AXIS], mesh.coords[DATA_AXIS])
     return lambda state, batch, generator: dp_step(

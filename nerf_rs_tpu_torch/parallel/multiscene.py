@@ -69,7 +69,6 @@ def make_multiscene_train_step(cfg: Config, mesh: Mesh, n_scenes: int):
     gradients are averaged over the data group between the backward pass
     and Adam (JAX's ``pmean`` over ``data``); on a 1-D mesh each scene steps
     alone."""
-    step_mod.check_train_supported(cfg)
     two_d = SCENE_AXIS in mesh.shape
     scenes = local_scenes(mesh, n_scenes)
     dshard = mesh.coords[DATA_AXIS] if two_d else 0

@@ -62,7 +62,6 @@ def make_render(cfg: Config, camera: Optional[CameraConfig] = None,
     last chunk may be ragged (the kernel masks it), so nothing is
     padded."""
     camera = camera or cfg.camera
-    render_ops.check_render_supported(cfg.model, cfg.render)
     dtype = matmul_dtype(cfg)
     use_fused = cfg.use_fused_kernel and render_ops.fused_supported(cfg.model)
     if chunk <= 0:

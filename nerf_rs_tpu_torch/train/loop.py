@@ -76,7 +76,8 @@ def log_diagnostics(tb, dataset, cfg: Config, it: int, batch=None,
     """The reference's logging-step diagnostics, as the JAX loop's
     ``_log_diagnostics`` logs them: the batch's screen coordinates
     (``screen_x`` / ``screen_y``, from its flat pixel indices), the ``t``
-    histogram of stratified samples on its first DIAG_RAYS rays, the sample
+    histogram of stratified samples (under ``compat_sampling`` the
+    reference's, ``compat_ts``) on its first DIAG_RAYS rays, the sample
     points' occupancy maps on the yx, zx and yz planes (``world_*``), the map
     of the pairwise intersections of the first DIAG_PAIRS rays
     (``intersections``, ``ops/intersect``) and, with a ``state``, the raw
@@ -98,9 +99,13 @@ def log_diagnostics(tb, dataset, cfg: Config, it: int, batch=None,
         tb.screen_coords(np.stack([idx % dataset.width, (idx // dataset.width) % dataset.height],
                                   -1), it)
     cam = cfg.camera
-    ts = sampling.stratified_ts(n, cfg.render.num_samples, cam.near, cam.far, True,
-                                generator=g, device=origins.device,
-                                space=cfg.render.sampling_space)
+    if cfg.render.compat_sampling:
+        ts = sampling.compat_ts(n, cfg.render.num_samples, cam.far, generator=g,
+                                device=origins.device)
+    else:
+        ts = sampling.stratified_ts(n, cfg.render.num_samples, cam.near, cam.far, True,
+                                    generator=g, device=origins.device,
+                                    space=cfg.render.sampling_space)
     tb.ray_ts(ts.cpu().numpy(), it)
     pts = sampling.points_from_ts(origins, dirs, ts)
     pts_np = pts.cpu().numpy()

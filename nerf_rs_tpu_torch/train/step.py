@@ -15,7 +15,11 @@ the field at bf16, compositing in f32) otherwise: the same choice
 hash grid always take autograd; with ``fac_fused`` the factored encode's
 gradient comes from K3's backward kernel (``kernels/fused_factored.py``),
 and the hash grid's table gradient is the scatter-add of its fetch
-(``models/hashgrid.py``). The hash grid has no regulariser.
+(``models/hashgrid.py``). The hash grid has no regulariser. The reference's
+compat field (``cfg.model.compat``) trains through autograd as well (the
+train kernel does not take it, ``render.train_fused_supported``), on its
+compat samples and grey composite; its radiance head, evaluated and
+discarded, gets a zero gradient (``_grad``).
 
 Two nets: with ``num_fine_samples > 0`` and no ``share_network`` the fine
 pass has its own field, and with ``cfg.proposal.enabled`` the proposal
@@ -60,7 +64,7 @@ from torch import nn
 
 from ..config import Config
 
-from ..models.mlp import check_supported, init_nerf_params
+from ..models.mlp import init_nerf_params
 from ..ops import render, sampling
 from ..render import matmul_dtype
 
@@ -96,12 +100,6 @@ class Batch(NamedTuple):
     # per-ray cone radius at unit distance (multiscale batches), which the
     # IPE passes take; None: the camera's pixel_radius
     radii: Optional[torch.Tensor] = None
-
-
-def check_train_supported(cfg: Config) -> None:
-    """Raise for the training options later slices of the port bring."""
-    check_supported(cfg.model)
-    render.check_render_supported(cfg.model, cfg.render)
 
 
 def _has_fine_net(cfg: Config) -> bool:
@@ -164,11 +162,12 @@ def init_state(cfg: Config, device=None) -> TrainState:
     the CPU (one seed gives the same weights on every device and torch
     version); the fine field or the proposal net, when there is one, from
     its own stream of the same seed. Step 0."""
-    check_train_supported(cfg)
     params = init_nerf_params(cfg.model, cfg.train.seed, device)
     if _has_prop(cfg):
         if cfg.render.num_fine_samples != 0:
             raise ValueError("proposal sampling is the hierarchy: set num_fine_samples=0")
+        if cfg.model.compat:
+            raise ValueError("proposal sampling needs the paper model, not compat")
         from ..models.proposal import init_proposal_params
 
         fine = init_proposal_params(cfg.proposal, cfg.train.seed, device)
@@ -444,7 +443,7 @@ def whole_ray_grads(params: nn.Module, batch: Batch, generator: Optional[torch.G
                  else torch.full((n,), sampling.pixel_radius(cam), device=o.device))
     space = rc.sampling_space
     if ipe:
-        if grid is not None:
+        if grid is not None and not rc.compat_sampling:
             from ..ops.occupancy import occupancy_edges
 
             edges = occupancy_edges(o, d, grid, S, cam, rc, rc.randomized, generator=generator)
@@ -453,10 +452,13 @@ def whole_ray_grads(params: nn.Module, batch: Batch, generator: Optional[torch.G
                                            generator=generator, device=o.device, space=space)
         ts, deltas = 0.5 * (edges[:, :-1] + edges[:, 1:]), edges[:, 1:] - edges[:, :-1]
     else:
-        if grid is not None:
+        if grid is not None and not rc.compat_sampling:
             from ..ops.occupancy import occupancy_ts
 
             ts = occupancy_ts(o, d, grid, S, cam, rc, rc.randomized, generator=generator)
+        elif rc.compat_sampling:
+            ts = sampling.compat_ts(n, S, cam.far, rc.randomized, generator=generator,
+                                    device=o.device)
         else:
             ts = sampling.stratified_ts(n, S, cam.near, cam.far, rc.randomized,
                                         generator=generator, device=o.device, space=space)
@@ -569,14 +571,21 @@ def compute_grads(state: TrainState, batch: Batch, generator: Optional[torch.Gen
     loss, aux = loss_fn(state.params, batch, generator, cfg, state.fine_params, state.step,
                         state.grid)
     loss.backward()
-    return ({name: p.grad for name, p in named_trainable(state)},
+    return ({name: _grad(p) for name, p in named_trainable(state)},
             {k: v.detach() for k, v in aux.items()})
+
+
+def _grad(p: torch.Tensor) -> torch.Tensor:
+    """``p``'s gradient after a backward pass: zeros where the loss does
+    not reach it (compat's radiance head, evaluated and discarded), as the
+    JAX package's gradient of it is exactly 0; Adam's update of a zero
+    gradient from zero moments is 0, so those weights keep their bits."""
+    return p.grad if p.grad is not None else torch.zeros_like(p)
 
 
 def train_step(state: TrainState, batch: Batch, generator: Optional[torch.Generator],
                cfg: Config) -> Tuple[TrainState, Aux]:
     """One optimizer step: ``compute_grads``, then ``apply_grads``."""
-    check_train_supported(cfg)
     grads, aux = compute_grads(state, batch, generator, cfg)
     return apply_grads(state, grads, cfg), aux
 
@@ -601,7 +610,7 @@ def accumulated_grads(state: TrainState, batch: Batch, generator: Optional[torch
                             state.grid)
         loss.backward()  # sums into .grad, micro-batch after micro-batch
         auxs.append({k: v.detach() for k, v in aux.items()})
-    grads = {name: p.grad / acc for name, p in named_trainable(state)}
+    grads = {name: _grad(p) / acc for name, p in named_trainable(state)}
     aux = {k: torch.stack([a[k] for a in auxs]).mean(0) for k in auxs[0] if k != "ray_err"}
     aux["ray_err"] = torch.cat([a["ray_err"] for a in auxs])
     return grads, aux
@@ -636,7 +645,6 @@ def make_train_step(cfg: Config, dataset, sample: Optional[Callable[[torch.Gener
     ``sample(generator)``, by default the dataset's per-ray batch (the
     train loop passes the other batch modes). The one-rank form of
     ``parallel/dp.make_dp_train_step(cfg, mesh, dataset)``."""
-    check_train_supported(cfg)
     if sample is None:
         sample = lambda g: dataset.sample_batch(g, cfg.train.num_rays)  # noqa: E731
 

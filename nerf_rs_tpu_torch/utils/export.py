@@ -29,7 +29,15 @@ def sample_density_grid(params, model_cfg: ModelConfig, res: int = 128, aabb: fl
     """sigma (res, res, res) and rgb (res, res, res, 3), f32 numpy arrays
     on the host, at the cell centres (axes x, y, z), through the eager
     field at ``dtype`` in slabs of ``slab`` x-planes, each slab's points as
-    (slab * res, res, 3) with the view direction +z."""
+    (slab * res, res, 3) with the view direction +z.
+
+    A compat field is refused before anything is sampled: its radiance
+    head gives RGBA, where the grid keeps RGB; the JAX function's reshape
+    of those four channels into three fails on it the same way, so the JAX
+    CLI's export of a compat run writes nothing either."""
+    if model_cfg.compat:
+        raise ValueError("export of a --compat field: its radiance head gives 4 channels "
+                         "(RGBA), the grid keeps 3, as the JAX export's reshape requires")
     dev = next(params.parameters()).device
     c1d = cell_centres(res, aabb)
     grid1d = torch.from_numpy(c1d).to(dev)

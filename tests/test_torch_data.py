@@ -40,7 +40,8 @@ from nerf_rs_tpu_torch import cli
 from nerf_rs_tpu_torch.config import CameraConfig, Config, DataConfig, ModelConfig
 from nerf_rs_tpu_torch.convert import params_from_numpy, params_to_numpy
 from nerf_rs_tpu_torch.data import blender, images, llff, native_loader
-from nerf_rs_tpu_torch.data.dataset import DeviceDataset, update_error_store
+from nerf_rs_tpu_torch.data.dataset import (SCAN_WIDTH, DeviceDataset, fixed_order_cumsum,
+                                           update_error_store)
 from nerf_rs_tpu_torch.data.factory import effective_config, make_dataset
 from nerf_rs_tpu_torch.data.pipeline import HostSampler, PrefetchPipeline
 from nerf_rs_tpu_torch.ops import rays
@@ -422,6 +423,37 @@ def test_error_weighted_batch_matches_jax_on_its_draws():
     drawn = ds.sample_batch_error_weighted(torch.Generator().manual_seed(1), n,
                                            torch.from_numpy(err), frac)
     assert drawn.idx.shape == (n,) and int(drawn.idx.max()) < err.size
+
+
+def test_fixed_order_cumsum_repeats_and_draws_the_jax_pixels():
+    """Fault 11's repair on the CPU: the error store's running sum in rows of
+    SCAN_WIDTH gives the same bits on every call, stays within f32 rounding
+    of the float64 running sum (at lengths around a row's), and its inverse
+    CDF draws the pixels the JAX function draws from the same uniforms (the
+    store and draws of test_error_weighted_batch_matches_jax_on_its_draws:
+    4,096 pixels, four rows)."""
+    rng = np.random.default_rng(9)
+    for n in (1, 5, SCAN_WIDTH - 1, SCAN_WIDTH + 1, 3 * SCAN_WIDTH):
+        x = torch.from_numpy(rng.uniform(size=n).astype(np.float32))
+        exact = np.cumsum(x.numpy().astype(np.float64))
+        np.testing.assert_allclose(fixed_order_cumsum(x).numpy(), exact, rtol=0,
+                                   atol=1e-6 * exact[-1])
+    ds, jds = _blender_pair()
+    rng = np.random.default_rng(6)
+    err = rng.uniform(0.0, 0.01, ds.num_views * ds.height * ds.width).astype(np.float32)
+    err[rng.integers(0, err.size, 20)] = 5.0
+    assert err.size == 4 * SCAN_WIDTH
+    key, n, frac = jax.random.PRNGKey(7), 64, 0.5
+    want = np.asarray(jds.sample_batch_error_weighted(key, n, jnp.asarray(err), frac).idx)
+    u = torch.from_numpy(np.asarray(jax.random.uniform(jax.random.split(key, 3)[0],
+                                                       (int(n * frac),))))
+    x = torch.from_numpy(err) + 1e-8
+    cdf = fixed_order_cumsum(x)
+    assert all(torch.equal(cdf, fixed_order_cumsum(x)) for _ in range(3))
+    exact = np.cumsum(x.numpy().astype(np.float64))
+    np.testing.assert_allclose(cdf.numpy(), exact, rtol=0, atol=1e-6 * exact[-1])
+    idx = torch.searchsorted(cdf, (u * cdf[-1]).contiguous()).clamp(0, err.size - 1)
+    np.testing.assert_array_equal(idx.numpy(), want[:u.shape[0]])
 
 
 def test_update_error_store_matches_jax_and_takes_the_last_draw():

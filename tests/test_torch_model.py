@@ -1,6 +1,7 @@
 """Parity of the PyTorch port's field with the JAX package on the CPU:
 positional encoding, the paper MLP at f32 and "mixed" (bf16) precision,
-the seeded init, and the exact param conversion between the two.
+the compat field wherever compat overrides the other settings, the seeded
+init, and the exact param conversion between the two.
 
 Inputs are made with numpy from a seed and handed to both packages; JAX
 params reach the port through ``convert.params_from_numpy``, and the
@@ -160,13 +161,36 @@ def test_init_is_seeded_he_truncated_normal():
     np.testing.assert_allclose(m1.trunk[0].w.detach().reshape(-1)[:8].numpy(), first, rtol=1e-6)
 
 
-# the factored and hashgrid archs are ported (tests/test_torch_factored.py,
-# tests/test_torch_hashgrid.py); compat wins over any arch, as in the JAX
-# package
+# compat wins over any arch, IPE and contraction, as in the JAX package: the
+# reference's field (tests/test_torch_compat.py has the rest of slice 10)
 @pytest.mark.parametrize("kw", [{"compat": True}, {"compat": True, "arch": "hashgrid"},
                                 {"compat": True, "arch": "factored"},
                                 {"compat": True, "ipe": True, "contract": True},
                                 {"compat": True, "contract": True}])
-def test_unported_models_raise(kw):
-    with pytest.raises(NotImplementedError, match="slice"):
-        mlp.NerfMLP(ModelConfig(**kw))
+def test_compat_models_match_jax(kw):
+    """The JAX package's compat tree converts into the port's ``CompatMLP``
+    (which ``init_nerf_params`` builds for these settings), and the port's
+    ``apply_nerf`` gives its ``_apply_compat``'s raw density and RGBA on
+    the same points, at f32 (1e-6) and under "mixed" bf16 (one bf16 ulp of
+    the outputs, 1e-2); the view direction is no input."""
+    cfg = ModelConfig(**kw)
+    tree = _jax_tree(cfg)
+    assert sorted(tree) == ["head1", "head2", "trunk"] and len(tree["trunk"]) == 8
+    model = mlp.init_nerf_params(cfg, 0)
+    assert isinstance(model, mlp.CompatMLP)
+    assert [tuple(v.shape) for v in model.state_dict().values()] == [
+        tuple(v.shape) for v in params_from_numpy(tree).values()]
+    model.load_state_dict(params_from_numpy(tree))
+    back = params_to_numpy(model)  # and back into the JAX layout, bit for bit
+    assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(tree)
+    for a, b in zip(jax.tree_util.tree_leaves(back), jax.tree_util.tree_leaves(tree)):
+        np.testing.assert_array_equal(a, b)
+    pts, _ = _inputs()
+    for dtype, jdtype, tol in ((None, None, 1e-6), (torch.bfloat16, jnp.bfloat16, 1e-2)):
+        sigma, rgba = mlp.apply_nerf(model, torch.from_numpy(pts), None, cfg, dtype)
+        js, jr = jmlp.apply_nerf(tree, jnp.asarray(pts), None, _jcfg(cfg), jdtype)
+        assert rgba.shape == pts.shape[:-1] + (4,)
+        np.testing.assert_allclose(sigma.detach().numpy(), np.asarray(js, np.float32),
+                                   atol=tol, rtol=tol)
+        np.testing.assert_allclose(rgba.detach().numpy(), np.asarray(jr, np.float32),
+                                   atol=tol, rtol=tol)

@@ -13,7 +13,8 @@ accumulated and noisy steps, the event writer, the profiler window, the
 diagnostics, the GIF writer, the density export and its mesh;
 slice 8's ``parallel/`` (the meshes of one rank, and one step of ``cli
 train --device cpu --num_devices 2``: two gloo ranks spawned by the port's
-launcher), in a process that never loads jax, jaxlib, flax, optax or any
+launcher); slice 10's compat step and frame, screen encodings and sphere
+oracles, in a process that never loads jax, jaxlib, flax, optax or any
 module of nerf_rs_tpu, nor tensorboard, tensorboardX, PIL or imageio, which
 the card's machine lacks; jax, jaxlib, flax and optax cannot even be
 imported there, nor in the ranks it spawns (a blocker package first on
@@ -221,6 +222,24 @@ with tempfile.TemporaryDirectory() as tmp:
                      "--eval_on_train", "false", "--device", "cpu", "--num_devices", "2",
                      "--save_dir", tmp + "/ck", "--log_dir", tmp + "/logs"]) == 0
     assert len(os.listdir(tmp + "/ck")) == 1 and len(os.listdir(tmp + "/logs")) == 1
+# slice 10: a compat step and frame, the screen encodings, the sphere oracles
+from nerf_rs_tpu_torch.config import reference_compat_config
+from nerf_rs_tpu_torch.data import synthetic
+from nerf_rs_tpu_torch.models import encoding, mlp
+ccfg = dataclasses.replace(reference_compat_config(), camera=cfg.camera,
+                           render=dataclasses.replace(reference_compat_config().render,
+                                                      num_samples=8),
+                           train=TrainConfig(num_rays=16, precision="f32"))
+cstate = step.init_state(ccfg)
+cstate, aux = step.train_step(cstate, eds.sample_batch(torch.Generator().manual_seed(0), 16),
+                              torch.Generator().manual_seed(1), ccfg)
+assert bool(torch.isfinite(aux["loss"])) and mlp.count_params(cstate.params) == 76455
+rgb, _, _ = render_frame(ccfg, cstate.params, o, d)
+assert rgb.shape == (8, 8, 3) and bool(torch.isfinite(rgb).all())
+assert encoding.screen_fourier(torch.tensor([[3, 4]]), 8, 8, 6).shape == (1, 6)
+sig, hit = synthetic.render_sphere_gold(o.reshape(-1, 3), d.reshape(-1, 3),
+                                        torch.linspace(0.0, 4.0, 8).expand(64, 8))
+assert sig.shape == (64, 8) and hit.shape == (64,)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "nerf_rs_tpu",
                                     "tensorboard", "tensorboardX", "PIL", "imageio"))

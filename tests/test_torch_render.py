@@ -239,44 +239,6 @@ def test_cli_render_view_and_sweep(tmp_path, capsys):
     assert "rendered 2 frames of 16x16" in capsys.readouterr().out
 
 
-# --occ_res, --multiscale_levels, the image datasets, the EMA, the scenes of
-# a multi-scene checkpoint and the sharded pixel store are ported
-# (tests/test_torch_occupancy.py, tests/test_torch_multiscale.py,
-# tests/test_torch_data.py, tests/test_torch_ema.py,
-# tests/test_torch_multiscene.py, tests/test_torch_dp.py); --compat is not,
-# beside any of them
-@pytest.mark.parametrize("argv", [
-    ["render", "--dataset", "sphere", "--scene_index", "1", "--depth", "true", "--compat",
-     "true"],
-    ["render", "--dataset", "sphere", "--shard_pixel_store", "true", "--compat", "true"],
-    ["render", "--dataset", "sphere", "--compat", "true"],
-])
-def test_cli_refuses_unported_flags(argv, capsys):
-    with pytest.raises(SystemExit) as e:
-        cli.main(argv)
-    assert e.value.code == 2
-    assert "not ported" in capsys.readouterr().err
-
-
-# train, eval and export are ported; what they refuse is what later slices
-# bring (--preset record and eval --scales are ported since slices 3 and 4,
-# --preset pod since slice 6, --accumulation_steps and export since slice 7,
-# --num_devices, --scenes and --scene_index since slice 8): --compat
-_UNPORTED = {"train": ["--accumulation_steps", "2", "--num_devices", "2", "--compat", "true"],
-             "eval": ["--scenes", "a,b", "--compat", "true"],
-             "export": ["--mesh", "true", "--scene_index", "0", "--compat", "true"]}
-
-
-@pytest.mark.parametrize("cmd", ["train", "eval", "export"])
-def test_cli_refuses_unported_commands(cmd, capsys):
-    try:
-        rc = cli.main([cmd, "--dataset", "sphere", *_UNPORTED[cmd]])
-    except SystemExit as e:  # a later slice's flag: the parser refuses it
-        rc = e.code
-    assert rc == 2
-    assert "not ported" in capsys.readouterr().err
-
-
 def test_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, capsys):
     """--device cuda (the default) without a card raises, and never falls
     back to the CPU; --device cpu runs."""
@@ -302,9 +264,6 @@ def test_unported_dataset_and_render_options_raise(tmp_path):
     ds = make_dataset(Config(camera=CameraConfig(width=6, height=8),
                              data=DataConfig(img_dir=str(tmp_path), view_end=3)))
     assert ds.images.shape == (3, 8, 6, 4) and ds.mode == "angles"
-    for rc in (RenderConfig(compat_density_color=True), RenderConfig(compat_sampling=True)):
-        with pytest.raises(NotImplementedError, match="slice"):
-            make_render(Config(render=rc))
     # ported since slices 2 and 4: an occupancy grid guides the render's
     # samples, and the shared-network fast fine pass (one field, union,
     # point samples, eager) composites the union of 4 + 8 samples
@@ -320,12 +279,15 @@ def test_unported_dataset_and_render_options_raise(tmp_path):
                                                   share_network=True),
                                      CameraConfig(), randomized=False)
     assert fine.weights.shape == (3, 12) and bool(torch.isfinite(fine.rgb).all())
-    # sigma noise is ported since slice 7 (tests/test_torch_render.py's noise
-    # cases); compat rendering is slice 10's
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        render_ops.render_rays(None, torch.zeros(1, 3), torch.ones(1, 3), ModelConfig(),
-                               RenderConfig(raw_noise_std=1.0, compat_density_color=True),
-                               CameraConfig(), randomized=True)
+    # compat rendering is ported since slice 10 (tests/test_torch_compat.py):
+    # each compat option on the paper field renders, and the grey composite
+    # of the density is the same colour in every channel
+    for rc in (RenderConfig(num_samples=4, compat_density_color=True),
+               RenderConfig(num_samples=4, compat_sampling=True)):
+        rgb, _, _ = make_render(Config(model=small, render=rc))(model, o, d)
+        assert rgb.shape == (3, 3) and bool(torch.isfinite(rgb).all())
+        if rc.compat_density_color:
+            assert torch.equal(rgb[:, 0], rgb[:, 1]) and torch.equal(rgb[:, 0], rgb[:, 2])
 
 
 # --- slice 7: sigma noise and render --depth / --gif ---

@@ -221,30 +221,28 @@ def test_presets_resolve_like_the_jax_cli():
     assert _resolve(cli, ["train"]).use_whole_ray_train is False
 
 
-# multiscale (slice 3), the occupancy grid and record preset (slice 4), the
-# datasets, batch modes and --preset pod (slice 6), the EMA, gradient
-# accumulation, sigma noise, the profiler and export (slice 7) and data
-# parallelism and multi-scene training (slice 8) are ported:
-# tests/test_torch_multiscale.py, tests/test_torch_occupancy.py,
-# tests/test_torch_data.py, tests/test_torch_ema.py,
-# tests/test_torch_export.py, tests/test_torch_dp.py and
-# tests/test_torch_multiscene.py run them; what is left is slice 10's
-# --compat, beside any of them
-@pytest.mark.parametrize("argv,slice_no", [
-    (["export", "--compat", "true", "--scene_index", "1"], 10),
-    (["train", "--compat", "true", "--ema_decay", "0.9"], 10),
-    (["eval", "--compat", "true", "--scenes", "a,b"], 10),
-    (["train", "--compat", "true", "--num_devices", "2"], 10),
-    (["train", "--compat", "true", "--shard_pixel_store", "true"], 10),
-    (["render", "--compat", "true"], 10),
+# --compat (slice 10) beside the flags of every other slice resolves to the
+# JAX CLI's Config, key for key
+@pytest.mark.parametrize("argv", [
+    ["export", "--compat", "true", "--scene_index", "1"],
+    ["train", "--compat", "true", "--ema_decay", "0.9"],
+    ["eval", "--compat", "true", "--scenes", "a,b"],
+    ["train", "--compat", "true", "--num_devices", "2"],
+    ["train", "--compat", "true", "--shard_pixel_store", "true"],
+    ["render", "--compat", "true"],
+    ["render", "--scene_index", "1", "--depth", "true", "--compat", "true"],
+    ["render", "--shard_pixel_store", "true", "--compat", "true"],
+    ["render", "--compat", "true"],
+    ["train", "--accumulation_steps", "2", "--num_devices", "2", "--compat", "true"],
+    ["eval", "--scenes", "a,b", "--compat", "true"],
+    ["export", "--mesh", "true", "--scene_index", "0", "--compat", "true"],
 ])
-def test_cli_names_the_slice_of_what_it_refuses(argv, slice_no, capsys):
-    try:
-        rc = cli.main([*argv, "--dataset", "sphere"])
-    except SystemExit as e:
-        rc = e.code
-    assert rc == 2
-    assert f"slice {slice_no}" in capsys.readouterr().err
+def test_compat_argv_resolves_like_the_jax_cli(argv):
+    argv = [*argv, "--dataset", "sphere"]
+    mine, jaxs = _resolve(cli, argv), _resolve(jcli, argv)
+    assert mine.to_dict() == jaxs.to_dict()
+    assert mine.model.compat and mine.render.compat_sampling and mine.render.compat_density_color
+    assert mine.use_fused_kernel == ("--use_fused_kernel" in argv)
 
 
 # --- slice 7: gradient accumulation ---
