@@ -235,6 +235,34 @@ Phases, each fatal (any failure exits non-zero):
      on the CPU (COMPAT_TOL; the head's gradient exactly 0); compat_predict
      against the reference's math in numpy (ORACLE_TOL); the compat step's
      time, best of 3 windows.
+ 33. rays past 256 samples and fields past the resident layouts (run
+     after phase 18): K1 and K2 vs their plain versions (K2 also vs the
+     float64 witness; at S = 300 also vs autograd) at the flagship width on
+     the 4,103 rays at S = 257, 300, 384, 512 and 640 (257 and 300 pad to
+     384: one ray a CTA in S / 128 passes, the streamed instances), on 64
+     rays at 2048, at S = 300 with IPE and with the contraction and the
+     disparity distortion loss, at depth 21 (skip 4, softplus; at S = 192 K1
+     no longer fits its resident layout: the streamed instance with two rays
+     a CTA spanning passes; under relu K2's gradients are held at
+     DEEP_RELU_GRADS: see deep_relu) and with IPE at 16 levels at S = 150
+     (both kernels streamed); each kernel twice, bit-identical, and once at
+     the padded S, whose pads' weights are 0 and whose other outputs equal
+     the first call's bits; then one K2 call over 4096 x 512 (2,097,152
+     rows: two launches of at most BLOCK_ROWS) against the same call in one
+     launch (diag and weights bit for bit, the gradients at BLOCKED_TOL) and
+     against its two blocks' rays called alone (diag and weights bit for bit,
+     half the gradients' sum expected bit for bit, held at BLOCKED_TOL).
+ 34. the long-ray paths through the CLI (run after phase 32): `train
+     --preset full --num_samples 300` and `train --preset hierarchical
+     --num_fine_samples 256` (a union of 320) for LONG_STEPS steps each with
+     exact K2 counts (ray_blocks' launches per call: two per 4096 x 384
+     call), and `render --num_samples 300` of the flagship checkpoint at
+     800x800 (one K1 launch per 32,768-ray chunk, 20).
+ 35. times of the long rays: K1 on a 32,768-ray chunk at S = 300 and 512,
+     K2 on 4096 rays at S = 300 and 512 (two launches each), each against
+     its plain version, its library path and its bound (time_branches,
+     LONG_SHAPES); the train steps of phase 34's two configurations through
+     K2 and autograd, with a profile of each K2 step.
 The record, multiscale and lego learning drives and fault 6's check fail the run at its end,
 after phase 29 has printed its measurements. `clock:` lines give each
 phase's wall seconds. Every kernel launch counter is set
@@ -291,10 +319,10 @@ the same start, each K2 launch held to its float64 witness (a diagnostic of
 a drive that stalls through one route and not the other). To compare two
 commits, unpack the other
 into a git-ignored directory (`git archive`) and run both in one call on
-one card, in turns:
+one card, in turns, each checkout through its own script:
 
     for r in _scratch/parent . . _scratch/parent; do
-        python3 chip_smoke.py --time-step $r; done
+        (cd $r && python3 chip_smoke.py --time-step .); done
 """
 
 from __future__ import annotations
@@ -1733,6 +1761,336 @@ def learning_drive(pool, tmp: str, preset: str, extra=("--num_fine_samples", "64
     return finish
 
 
+# Rays past 256 samples and fields past the resident layouts (phase 33; the
+# counterparts of the JAX kernels, which take any S and any depth): K1 and K2
+# against their plain versions (K2 also the float64 witness) on the N_RAYS
+# rays at LONG_S (257 and 300 pad to 384, one ray a CTA in S / 128 passes),
+# on LONG_FEW rays at LONG_S_MAX, at S = 300 in the IPE and the contraction +
+# distortion branches, at depth DEEP_DEPTH (skip DEEP_SKIP; at S = 192 K1's
+# resident layout, whose biases grow with depth, no longer fits: the
+# streamed instance, two rays a CTA spanning passes) and with IPE at
+# WIDE_PE_LEVELS levels at S = 150 (K2's resident layout does not fit
+# either: both streamed). Reruns bit-identical; the pads' weights exactly 0
+# and the call at the padded S equal to the call on the rays as they are;
+# one K2 call over more than BLOCK_ROWS rows against its blocks called one
+# by one. Phase 34 drives the CLI's long-ray paths, LONG_STEPS steps each.
+LONG_S = (257, 300, 384, 512, 640)
+LONG_S_MAX, LONG_FEW = 2048, 64
+LONG_BRANCHES = (("IPE softplus, S=300", True, False, None, 300),
+                 ("contract + distortion disparity, S=300", False, True, "disparity", 300))
+DEEP_DEPTH, DEEP_SKIP = 21, 4
+# K2 vs its plain version on the deep relu field (deep_relu), each gradient
+# leaf relative to its max: on an H100 80GB HBM3 at 700 W it read K2-plain
+# 0.105, with the plain version 0.16 from the float64 witness; K2 may stand
+# from the plain version ~1.5x as far as the plain version stands from the
+# witness
+DEEP_RELU_GRADS = 0.25
+WIDE_PE_LEVELS = 16  # P = 99 -> 112 encoding columns
+LONG_STEPS = 51  # a loss line is printed at step 50
+LONG_BLOCKED = (4096, 512)  # 2,097,152 rows: two launches
+# the long rays' main-path calls (phase 35): a default render chunk at S =
+# 300 and 512 (render.default_render_chunk: 32,768 rays) and a 4096-ray
+# train step's call (two launches each)
+LONG_SHAPES = tuple(Shape(k, c, False, False, None, n, s, 0.05, 2.0, False)
+                    for k, c, n, s in (("K1", "S=300 (a 32,768-ray chunk)", 32768, 300),
+                                       ("K1", "S=512 (a 32,768-ray chunk)", 32768, 512),
+                                       ("K2", "S=300, 4096 rays (two blocks)", 4096, 300),
+                                       ("K2", "S=512, 4096 rays (two blocks)", 4096, 512)))
+
+
+def check_long_case(label, model, cfg, rays, gold, ts, dl, radii=None, dist=None,
+                    autograd=False, far=2.0) -> tuple:
+    """K1 and K2 on one set of samples: K1 vs its plain version (TOL, depth
+    scaled to the range); K2 vs its plain version and the float64 witness
+    (KERNEL_TOL), with ``autograd`` also vs autograd of the eager loss; each
+    kernel run twice, bit-identical, and once more on the samples padded as
+    the wrappers pad them, whose pads' weights are exactly 0 and whose other
+    outputs equal the first call's bits. Returns the largest absolute
+    differences of K1 and K2 from their plain versions."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels.fused_ray import (
+        fused_ray_render, fused_ray_render_reference, pad_samples)
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import (
+        KERNEL_TOL, fused_train_grads, fused_train_grads_reference, unpack_grads)
+    from nerf_rs_tpu_torch.models.mlp import apply_nerf
+    from nerf_rs_tpu_torch.ops import render as render_ops, sampling
+
+    o, d, vd = rays
+    s = ts.shape[1]
+    tp, dp = pad_samples(ts, dl)
+    sp = tp.shape[1]
+    dist = dist or {}
+    pk = pack_weights(model, cfg)
+    got = fused_ray_render(pk, o, d, vd, ts, dl, cfg, s, radii=radii)
+    torch.cuda.synchronize()
+    want = fused_ray_render_reference(pk, o, d, vd, ts, dl, cfg, s, radii=radii)
+    errs = k1_errs(f"K1 [{label}]", got, want)
+    hold(f"K1 vs plain [{label}]", errs, k1_tol(far))
+    k1_err = max(errs.values())
+    del want
+    again = fused_ray_render(pk, o, d, vd, ts, dl, cfg, s, radii=radii)
+    padded = fused_ray_render(pk, o, d, vd, tp, dp, cfg, sp, radii=radii)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        fail(f"two K1 launches [{label}] gave different bits")
+    if padded[3][:, s:].any():
+        fail(f"K1 [{label}]: the pads' weights are not 0")
+    if not all(torch.equal(a, b[:, :s] if a.dim() == 2 and a.shape[1] == s else b)
+               for a, b in zip(got, padded)):
+        fail(f"K1 [{label}]: the call at the padded S = {sp} differs from the call at {s}")
+    del got, again, padded
+
+    args = (pk, pack_weights_t(pk), o, d, vd, ts, dl, gold, cfg, s)
+    got = fused_train_grads(*args, white_bg=True, radii=radii, **dist)
+    torch.cuda.synchronize()
+    k2_err = 0.0
+    for ref, dtype in (("plain", torch.float32), ("f64 witness", torch.float64)):
+        want = fused_train_grads_reference(*args, white_bg=True, radii=radii, dtype=dtype,
+                                           **dist)
+        if dtype == torch.float32:
+            k2_err = k2_abs(got, want)
+        lab = f"K2 vs {ref} [{label}]"
+        hold(lab, k2_errs(lab, got, want), KERNEL_TOL)
+        del want
+        torch.cuda.empty_cache()
+    again = fused_train_grads(*args, white_bg=True, radii=radii, **dist)
+    if not all(torch.equal(a, b) for a, b in zip(k2_outs(got), k2_outs(again))):
+        fail(f"two K2 launches [{label}] gave different bits")
+    del again
+    padded = fused_train_grads(pk, pack_weights_t(pk), o, d, vd, tp, dp, gold, cfg, sp,
+                               white_bg=True, radii=radii, **dist)
+    if padded.weights[:, s:].any():
+        fail(f"K2 [{label}]: the pads' weights are not 0")
+    if not all(torch.equal(a, b) for a, b in zip(
+            k2_outs(got), k2_outs(padded._replace(weights=padded.weights[:, :s])))):
+        fail(f"K2 [{label}]: the call at the padded S = {sp} differs from the call at {s}")
+    del padded
+    if autograd:
+        model.zero_grad(set_to_none=True)
+        sigma, rgb = apply_nerf(model, sampling.points_from_ts(o, d, ts), vd[:, None, :], cfg,
+                                torch.bfloat16)
+        out = render_ops.composite(sigma, rgb, dl, white_background=True)
+        loss = render_ops.mse(out.rgb, gold)
+        loss.backward()
+        params = dict(model.named_parameters())
+        hold(f"K2 vs autograd [{label}]", {
+            "rgb": float((got.diag[:, :3] - out.rgb.detach()).abs().max()),
+            "loss": abs(float(got.diag[:, 4].mean()) - float(loss.detach())),
+            "grads": max(leaf_err(g, params[k].grad)
+                         for k, g in unpack_grads(got, model, cfg).items()),
+        }, AUTOGRAD_TOL)
+        model.zero_grad(set_to_none=True)
+        del sigma, rgb, out, loss
+    del got
+    torch.cuda.empty_cache()
+    print(f"K1 and K2 [{label}]: reruns bit-identical, the pads' weights 0, the call at the "
+          f"padded S = {sp} equal to the call at {s}")
+    return k1_err, k2_err
+
+
+def deep_relu(model, cfg, rays, gold, ts, dl) -> None:
+    """The deep field under relu density. At its initial scale the first
+    layers' gradients are ~1e-6 of ~1e-2 at the heads, and the bf16 rounding
+    of each trunk G, flipped by the f32 summation order, walks through 21
+    layers: the f32 plain version itself stands 0.16 of a first-layer leaf
+    from the float64 witness (KERNEL_TOL's 2.5e-2 holds at the initial scale
+    of the 8-layer field). K1 (the forward) is held at TOL; K2 to the plain
+    version at KERNEL_TOL on diag and weights and at DEEP_RELU_GRADS on each
+    leaf; its gaps to the witness are printed beside the plain version's."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render, fused_ray_render_reference
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import (
+        KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
+
+    cfg = dataclasses.replace(cfg, sigma_activation="relu")
+    pk = pack_weights(model, cfg)
+    s = ts.shape[1]
+    got = fused_ray_render(pk, *rays, ts, dl, cfg, s)
+    torch.cuda.synchronize()
+    label = f"depth {cfg.net_depth} relu, S={s}"
+    hold(f"K1 vs plain [{label}]", k1_errs(f"K1 [{label}]", got, fused_ray_render_reference(
+        pk, *rays, ts, dl, cfg, s)), TOL)
+    args = (pk, pack_weights_t(pk), *rays, ts, dl, gold, cfg, s)
+    got = fused_train_grads(*args, white_bg=True)
+    want = fused_train_grads_reference(*args, white_bg=True)
+    wit = fused_train_grads_reference(*args, white_bg=True, dtype=torch.float64)
+    gap = lambda a, b: max(leaf_err(x.double(), y.double())  # noqa: E731
+                           for x, y in zip(a.dw + a.db, b.dw + b.db))
+    errs = k2_errs(f"K2 vs plain [{label}]", got, want)
+    print(f"K2 [{label}]: grads K2-witness {gap(got, wit):.3g}, plain-witness "
+          f"{gap(want, wit):.3g}")
+    hold(f"K2 vs plain [{label}]", errs, {**KERNEL_TOL, "grads": DEEP_RELU_GRADS})
+    del got, want, wit
+    torch.cuda.empty_cache()
+
+
+def check_long_rays(model, mcfg, rays, gold, cam) -> tuple:
+    """Phase 33 (see LONG_S): returns the largest absolute differences of K1
+    and K2 from their plain versions and the blocked call's launches."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import fused_train
+    from nerf_rs_tpu_torch.kernels.fused_ray import padded_samples
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import BLOCKED_TOL, fused_train_grads
+    from nerf_rs_tpu_torch.models.mlp import init_nerf_params
+
+    dev = rays[0].device
+    gen = torch_generator(dev, 33)
+    k1_err = k2_err = 0.0
+    for s in LONG_S + (LONG_S_MAX,):
+        n = LONG_FEW if s == LONG_S_MAX else N_RAYS
+        ts, dl, _, _ = sample_inputs(n, s, False, cam, gen)
+        a, b = check_long_case(f"S={s} relu, {n} rays", model, mcfg,
+                               tuple(r[:n].contiguous() for r in rays), gold[:n].contiguous(),
+                               ts, dl, autograd=s == 300)
+        k1_err, k2_err = max(k1_err, a), max(k2_err, b)
+    for name, ipe, contract, space, s in LONG_BRANCHES:
+        cfg = dataclasses.replace(mcfg, ipe=ipe, contract=contract, sigma_activation="softplus")
+        near, far = (UNB_NEAR, UNB_FAR) if contract else (cam.near, cam.far)
+        ts, dl, _, radii = sample_inputs(N_RAYS, s, ipe, cam, gen, near, far,
+                                         space or "linear")
+        dist = None if space is None else dict(dist_weight=UNB_DIST, near=near, far=far,
+                                               dist_space=space)
+        a, b = check_long_case(name, model, cfg, rays, gold, ts, dl, radii, dist, far=far)
+        k1_err, k2_err = max(k1_err, a), max(k2_err, b)
+    deep_cfg = dataclasses.replace(mcfg, net_depth=DEEP_DEPTH, skip_layer=DEEP_SKIP,
+                                   sigma_activation="softplus")
+    deep = random_biases_(init_nerf_params(deep_cfg, 0, dev), 1)
+    for s in (64, 192):
+        ts, dl, _, _ = sample_inputs(N_RAYS, s, False, cam, gen)
+        a, b = check_long_case(f"depth {DEEP_DEPTH} softplus, S={s}", deep, deep_cfg, rays, gold,
+                               ts, dl)
+        k1_err, k2_err = max(k1_err, a), max(k2_err, b)
+        if s == 64:
+            deep_relu(deep, deep_cfg, rays, gold, ts, dl)
+    del deep
+    wide_cfg = dataclasses.replace(mcfg, ipe=True, pos_enc_levels=WIDE_PE_LEVELS,
+                                   sigma_activation="softplus")
+    wide = random_biases_(init_nerf_params(wide_cfg, 0, dev), 2)
+    ts, dl, _, radii = sample_inputs(N_RAYS, 150, True, cam, gen)
+    a, b = check_long_case(f"IPE at {WIDE_PE_LEVELS} levels, S=150", wide, wide_cfg, rays, gold,
+                           ts, dl, radii)
+    k1_err, k2_err = max(k1_err, a), max(k2_err, b)
+    del wide
+
+    # one call over more than BLOCK_ROWS rows against the same call in one launch
+    n, s = LONG_BLOCKED
+    o, d = (torch.cat([r, r])[:n].contiguous() for r in rays[:2])
+    vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+    g = torch.cat([gold, gold])[:n].contiguous()
+    ts, dl, _, _ = sample_inputs(n, s, False, cam, gen)
+    pk = pack_weights(model, mcfg)
+    args = (pk, pack_weights_t(pk), o, d, vd, ts, dl, g, mcfg, s)
+    blocks = fused_train.ray_blocks(n, padded_samples(s))
+    before = fused_train_grads.launches
+    got = fused_train_grads(*args)
+    launches = fused_train_grads.launches - before
+    if launches != len(blocks) or len(blocks) < 2:
+        fail(f"K2 over {n} x {s}: {launches} launches for blocks {blocks}")
+    cap = fused_train.BLOCK_ROWS
+    fused_train.BLOCK_ROWS = n * padded_samples(s)
+    try:
+        one = fused_train_grads(*args)
+    finally:
+        fused_train.BLOCK_ROWS = cap
+    same = (torch.equal(got.diag, one.diag) and torch.equal(got.weights, one.weights))
+    gap = max(leaf_err(a, b) for a, b in zip(got.dw + got.db, one.dw + one.db))
+    print(f"K2 over {n} x {s} ({n * padded_samples(s):,} rows): {launches} launches, blocks "
+          f"{blocks}; against the call in one launch: diag and weights "
+          f"{'bit-identical' if same else 'DIFFERENT'}, grads {gap:.3g} of a leaf's max "
+          f"(tol {BLOCKED_TOL})")
+    if not same or gap > BLOCKED_TOL:
+        fail(f"K2 over {n} x {s}: the blocked call differs from the call in one launch")
+    del one
+    # ... and against its blocks' rays in calls of their own, each with its own
+    # means: two equal blocks, so a half of their gradients' sum scales every
+    # bf16 rounding by a power of two and should give the blocked call's bits
+    if len({hi - lo for lo, hi in blocks}) != 1 or len(blocks) & (len(blocks) - 1):
+        fail(f"K2 over {n} x {s}: blocks {blocks} are not a power of two of equal size")
+    parts = [fused_train_grads(pk, args[1], o[lo:hi], d[lo:hi], vd[lo:hi],
+                               ts[lo:hi].contiguous(), dl[lo:hi].contiguous(), g[lo:hi], mcfg, s)
+             for lo, hi in blocks]
+    same = (torch.equal(got.diag, torch.cat([p.diag for p in parts]))
+            and torch.equal(got.weights, torch.cat([p.weights for p in parts])))
+    sums = [sum(leaves[1:], leaves[0].clone()) / len(parts)
+            for leaves in zip(*(p.dw + p.db for p in parts))]
+    exact = all(torch.equal(a, b) for a, b in zip(got.dw + got.db, sums))
+    gap = max(leaf_err(a, b) for a, b in zip(got.dw + got.db, sums))
+    print(f"K2 over {n} x {s}: against its blocks' rays in calls of their own (the gradients' "
+          f"sum over {len(parts)}): diag and weights {'bit-identical' if same else 'DIFFERENT'}, "
+          f"grads {'bit-identical' if exact else f'{gap:.3g} of a leaf max'} (tol {BLOCKED_TOL})")
+    if not same or gap > BLOCKED_TOL:
+        fail(f"K2 over {n} x {s}: the blocked call differs from its blocks called alone")
+    del got, parts, sums
+    torch.cuda.empty_cache()
+    return k1_err, k2_err, launches
+
+
+def drive_long_cli(tmp: str, ckpt_path: str) -> dict:
+    """Phase 34: `cli train --preset full --num_samples 300` and `--preset
+    hierarchical --num_fine_samples 256` (a 320-sample union) for LONG_STEPS
+    steps each, with exact K2 counts (ray_blocks' launches a call), and
+    `cli render --num_samples 300` of the flagship checkpoint at 800x800
+    with one K1 launch a render chunk. Returns each path's counts."""
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render, padded_samples
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads, ray_blocks
+    from nerf_rs_tpu_torch.render import default_render_chunk
+
+    counts = {}
+    for key, preset, flags in (("full_300", "full", ("--num_samples", "300")),
+                               ("hierarchical_fine256", "hierarchical",
+                                ("--num_fine_samples", "256"))):
+        cfg = preset_cfg(preset, *flags)
+        r = cfg.render
+        calls = ([r.num_samples, r.num_samples + r.num_fine_samples] if r.num_fine_samples
+                 else [r.num_samples])
+        want = LONG_STEPS * sum(len(ray_blocks(cfg.train.num_rays, padded_samples(c)))
+                                for c in calls)
+        ckdir = os.path.join(tmp, f"long-{key}")
+        fused_train_grads.launches = 0
+        fused_ray_render.launches = 0
+        t0 = time.perf_counter()
+        rc, out = run_cli(["train", "--preset", preset, "--dataset", "sphere", *flags,
+                           "--num_iter", str(LONG_STEPS), "--eval_steps", "1000",
+                           "--save_steps", "1000", "--save_dir", ckdir, "--log_dir", ckdir])
+        k2 = fused_train_grads.launches
+        losses = [float(v) for v in re.findall(r"iter=\d+, loss=(\S+)", out)]
+        print(f"cli train --preset {preset} {' '.join(flags)}, {LONG_STEPS} steps (calls at S = "
+              f"{calls}): rc {rc}, K2 launches {k2} (want {want}), "
+              f"{time.perf_counter() - t0:.1f} s")
+        if rc != 0 or k2 != want or not losses or not all(map(math.isfinite, losses)):
+            fail(f"train --preset {preset} {flags}: rc {rc}, K2 launches {k2} (want {want}), "
+                 f"losses {losses}")
+        counts[f"long_{key}_train"] = k2
+    rcfg = cli_config(["render", "--dataset", "sphere", "--num_samples", "300"])
+    want = math.ceil(FRAME * FRAME / default_render_chunk(rcfg.render, fused=True,
+                                                          model_cfg=rcfg.model))
+    out_dir = os.path.join(tmp, "long-render")
+    fused_ray_render.launches = 0
+    rc, out = run_cli(["render", "--dataset", "sphere", "--width", str(FRAME), "--height",
+                       str(FRAME), "--view", "0", "--num_samples", "300", "--load_path",
+                       ckpt_path, "--out_dir", out_dir])
+    k1 = fused_ray_render.launches
+    m = re.search(r"psnr=(\S+)", out)
+    print(f"cli render --num_samples 300 at {FRAME}x{FRAME}: rc {rc}, K1 launches {k1} "
+          f"(want {want}: one a chunk)")
+    if rc != 0 or k1 != want or m is None or not math.isfinite(float(m.group(1))):
+        fail(f"render --num_samples 300: rc {rc}, K1 launches {k1} (want {want})")
+    png = read_png(os.path.join(out_dir, "view-0.png"))
+    if png.shape != (FRAME, FRAME, 3):
+        fail(f"long-ray view-0.png has shape {png.shape}")
+    counts["long_render_300"] = k1
+    return counts
+
+
 @contextlib.contextmanager
 def plain_render_route():
     """Route the render path's kernel call to the plain version, for the
@@ -1829,7 +2187,8 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
         label = f"{kernel} vs plain [{name}, {n} rays]"
         if kernel == "K1":
             args = (pk, o, d, vd, ts, dl, cfg, s)
-            chunks = [slice(i, i + PLAIN_CHUNK) for i in range(0, n, PLAIN_CHUNK)]
+            step = max(1, PLAIN_CHUNK * 256 // max(s, 256))  # at most 8.4 M plain rows a call
+            chunks = [slice(i, i + step) for i in range(0, n, step)]
             fn = lambda: fused_ray_render(*args, radii=radii)  # noqa: E731
             plain = lambda: [fused_ray_render_reference(  # noqa: E731
                 pk, o[j], d[j], vd[j], ts[j], dl[j], cfg, s,
@@ -1897,9 +2256,10 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
         if kernel == "K1":
             wbytes, rate = k1_weight_traffic(pk, n, s, ms)
         if kernel == "K2":  # the stashes and dW partials of one call; the split by kernel
+            sp = padded_samples(s)  # the largest block's
             row["scratch_bytes"] = fused_train._library().nerf_fused_train_scratch_bytes(
-                n, padded_samples(s), pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D,
-                pk.w.numel() + pk.b.numel())
+                fused_train.ray_blocks(n, sp)[0][1], sp, pk.depth, pk.W, pk.F, pk.V, pk.P,
+                pk.D, pk.w.numel() + pk.b.numel())
             with torch.profiler.profile(
                     activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
                 for _ in range(3):
@@ -1922,10 +2282,11 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
     return rows
 
 
-def preset_steps(card: str, preset: str, profiled: bool) -> dict:
-    """The preset's train step (4096 rays) through K2 and through autograd,
-    in seconds (best of 3 windows of 10 and 5 steps), and with ``profiled``
-    the device idle share of the K2 step from a profile of 5 steps."""
+def preset_steps(card: str, preset: str, profiled: bool, extra=()) -> dict:
+    """The preset's train step (4096 rays; with the CLI flags ``extra``)
+    through K2 and through autograd, in seconds (best of 3 windows of 10 and
+    5 steps), and with ``profiled`` the device idle share of the K2 step from
+    a profile of 5 steps."""
     import dataclasses
 
     import torch
@@ -1934,8 +2295,9 @@ def preset_steps(card: str, preset: str, profiled: bool) -> dict:
     from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
 
     dev = torch.device("cuda")
-    cfg = preset_cfg(preset)
+    cfg = preset_cfg(preset, *extra)
     ds = make_dataset(cfg, dev)
+    label = " ".join((preset,) + tuple(extra))
     times = {}
     for name, c, window in (("K2", cfg, 10),
                             ("autograd", dataclasses.replace(cfg, use_whole_ray_train=False), 5)):
@@ -1961,14 +2323,14 @@ def preset_steps(card: str, preset: str, profiled: bool) -> dict:
             per = sorted(((v / 5, k) for k, v in device_ms(prof).items()), reverse=True)
             busy = sum(v for v, _ in per)
             times["idle_pct"] = 100 * (1 - busy / wall)
-            print(f"{preset} K2 step profile [{card}]: wall {wall:.3f} ms/step "
+            print(f"{label} K2 step profile [{card}]: wall {wall:.3f} ms/step "
                   f"(profiled), device busy {busy:.3f} ms/step, "
                   f"idle {times['idle_pct']:.1f}%")
             for v, k in per[:8]:
                 print(f"  {v:8.3f} ms/step  {k[:100]}")
         del state
     for name in ("K2", "autograd"):
-        print(f"{preset} train step through {name} [{card}]: {times[name] * 1e3:.3f} ms/step")
+        print(f"{label} train step through {name} [{card}]: {times[name] * 1e3:.3f} ms/step")
     return times
 
 
@@ -4823,6 +5185,12 @@ def main() -> int:
     max_err, train_err = max(max_err, unb_k1_err), max(train_err, unb_k2_err)
 
     lap("phase 18")
+    # ---- 33. rays past 256 samples, deep fields, a blocked K2 call ----
+    long_k1_err, long_k2_err, blocked_launches = check_long_rays(model, mcfg, (o, d, vd), gold,
+                                                                 cam)
+    max_err, train_err = max(max_err, long_k1_err), max(train_err, long_k2_err)
+
+    lap("phase 33")
     # ---- 5. the render path through the CLI ----
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4943,6 +5311,10 @@ def main() -> int:
         compat = drive_compat(tmp, card)
 
         lap("phase 32")
+        # ---- 34. the long-ray paths through the CLI ----
+        long_counts = drive_long_cli(tmp, path)
+
+        lap("phase 34")
         # ---- 28. the learning drives of every path, LEARN_WORKERS at a time ----
         for task in warm:
             task.result()
@@ -5048,6 +5420,16 @@ def main() -> int:
         fail(f"K3 refused {fac_times['refused']}, which it takes since fault 5's repair")
 
     lap("phase 23")
+    # ---- 35. times of the long rays: a render chunk and a blocked train call ----
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks: the plain versions' room
+    long_rows = time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d, LONG_SHAPES)
+    max_err = max(max_err, *(r["max_abs_err"] for r in long_rows if r["kernel"] == "K1"))
+    train_err = max(train_err, *(r["max_abs_err"] for r in long_rows if r["kernel"] == "K2"))
+    long_steps = {f"{p}_{flags[1]}": preset_steps(card, p, True, flags)
+                  for p, flags in (("full", ("--num_samples", "300")),
+                                   ("hierarchical", ("--num_fine_samples", "256")))}
+
+    lap("phase 35")
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "nerf_rs_tpu"))
     if bad:
         fail(f"imported {bad}: the port stands without JAX and the JAX package")
@@ -5072,14 +5454,16 @@ def main() -> int:
                 "mipnerf_ms_train_eval": ms_counts["train_eval"],
                 "mipnerf_ms_eval_scales": ms_counts["eval_scales"],
                 "ema_eval": slice7["k1_eval"], "ema_sweep_depth_gif": slice7["k1_sweep"],
-                **dp_run["k1"], **compat_paths("K1")}
+                **dp_run["k1"], **compat_paths("K1"),
+                "long_render_300": long_counts["long_render_300"]}
     k2_paths = {"train_flagship": train_launches,
                 **{f"{p}_train": c["train"] for p, c in {**path_counts, **data_counts}.items()},
                 "record_resume": rec_counts["resume"], "mipnerf_ms_train": ms_counts["train"],
                 **host_counts, "record_lego_learning": learned["record_lego"].pop("launches"),
                 "ema_train": slice7["k2_train"], "ema_resume": slice7["k2_resume"],
                 "fault6_proposal_relu_seed2": fault6["K2"]["k2"], **dp_run["k2"],
-                **compat_paths("K2")}
+                **compat_paths("K2"),
+                **{k: v for k, v in long_counts.items() if k.endswith("_train")}}
     scatter_paths = {f"ngp_{layout}_train": c["train_scatter"] for layout, c in ngp_counts.items()}
     ngp_learned, fac_learned = learned.pop("ngp"), learned.pop("factored")
     scatter_paths["ngp_brick_learning"] = ngp_learned.pop("scatter_launches")
@@ -5107,7 +5491,8 @@ def main() -> int:
         "bound_by": k1_by,
         "library_ms": library["fused_ray_render"],
         "instances": instances["fused_ray"],
-        "branches": [r for r in branch_rows + unb_rows + rec_rows if r["kernel"] == "K1"],
+        "branches": [r for r in branch_rows + unb_rows + rec_rows + long_rows
+                     if r["kernel"] == "K1"],
     }, {
         "name": "fused_train_grads",
         "route": "cuda",
@@ -5121,7 +5506,10 @@ def main() -> int:
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": library["fused_train_grads"],
-        "branches": [r for r in branch_rows + unb_rows + rec_rows if r["kernel"] == "K2"],
+        "instances": instances["fused_train"],
+        "blocked_call_launches": blocked_launches,
+        "branches": [r for r in branch_rows + unb_rows + rec_rows + long_rows
+                     if r["kernel"] == "K2"],
     }, {
         "name": "fused_factored_encode",
         "route": "cuda",
@@ -5181,6 +5569,8 @@ def main() -> int:
         "cases": [{"layout": "flat", **scatter_times["flat"]}],
     }],
         "presets": {**preset_times, **unb_times, **rec_times},
+        "long_ray_steps": {k: {"k2_ms": v["K2"] * 1e3, "autograd_ms": v["autograd"] * 1e3,
+                               "idle_pct": v["idle_pct"]} for k, v in long_steps.items()},
         "learning": learned,
         "datasets": {"make_scene_s": {k: v[1] for k, v in scenes.items()}, **data_times},
         "multiscale": {"psnr_by_scale": ms_counts["psnr_by_scale"]},

@@ -2,7 +2,7 @@
 // (fused_train.cu) runs all of it; the render kernel K1 (fused_ray.cu, on
 // wgmma: field_wgmma.cuh) takes only the field's description
 // (Field, init_field, takes_samples, rays_per_cta), the encodings, the IPE
-// moments, the contraction and set_smem.
+// moments, the contraction, smem_optin and set_smem.
 //
 // K2 evaluates the paper field on a CTA tile of 128 sample rows: PE (or
 // mip-NeRF's integrated encoding, IPE) of the points and view directions
@@ -12,14 +12,19 @@
 //
 // Rays per CTA. A CTA takes whole rays: 128 / S of them when S divides
 // 128, two rays of S = 192 samples in three passes of 128 rows, or one ray
-// of S = 256 in two passes (field.S is what the wrappers pad S to, with
-// zero-length intervals at the far end: a power of two up to 128, 192 for
-// 129 to 192, else 256; kernels/fused_ray.padded_samples). A pass may hold
-// the end of one ray and the start of the next: every row finds its ray as
-// (CTA row) / S. The per-sample values the compositing scan needs (raw
-// sigma, rgb, ts, deltas; K2's gradients) are kept for the CTA's whole
-// rays, `rows` = R * S of them, so a pass writes its rows at offset s0 and
-// the scan runs once over whole rays.
+// of S = 256 or of any longer S, a multiple of 128, in S / 128 passes
+// (field.S is what the wrappers pad S to, with zero-length intervals at the
+// far end: a power of two up to 128, 192 for 129 to 192, 256 for 193 to
+// 256, else the next multiple of 128; kernels/fused_ray.padded_samples). A
+// pass may hold the end of one ray and the start of the next: every row
+// finds its ray as (CTA row) / S. The resident layout keeps the per-sample
+// values the compositing scan needs (raw sigma, rgb, ts, deltas; K2's
+// gradients) for the CTA's whole rays, `rows` = R * S of them, so a pass
+// writes its rows at offset s0 and the scan runs once over whole rays. Past
+// 256 samples, or where those values do not fit beside the tiles (IPE's
+// wide encoding at S = 192, a deep K1), the streamed instances keep only a
+// pass's worth on chip: K1 composites pass by pass, carrying each ray's
+// running sums, and K2 keeps the values in its global scratch.
 //
 // Layout of a product. 16 warps tile the 128 rows 4 ways (32 rows each)
 // and the output columns in chunks of 64. A operands come from shared
@@ -52,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace nerf {
 
 typedef __nv_bfloat16 bf16;
@@ -64,9 +71,11 @@ constexpr int kColGroups = kWarps / kRowGroups;  // ... and column chunks 4 ways
 constexpr int kWarpRows = kRows / kRowGroups;    // 32 rows per warp
 constexpr int kMT = kWarpRows / 16;              // m16 tiles per warp
 constexpr int kChunk = 8;                        // n8 tiles per warp pass (64 columns)
-constexpr int kMaxMats = 24;
+// weight matrices (depth + 5): the offset tables ride in the launch
+// parameters (2 KB of their 4 KB), so depth up to 123
+constexpr int kMaxMats = 128;
 constexpr int kLdr = 24;                         // row stride of K2's 16-wide rgb-gradient tile
-constexpr int kMaxSamples = 256;                 // samples per ray, after padding
+constexpr int kMaxResident = 256;                // longest padded ray of the resident layouts
 constexpr int kWStages = 3;                      // weight slices in the ring
 constexpr int kRoundTiles = kColGroups * kChunk; // n8 tiles of a product per round: 32
 constexpr int kWSlice = kRoundTiles * 32;        // uint2 per slice: 32 lanes a tile (8 KB)
@@ -87,18 +96,37 @@ struct Field {
   long long n_rays;
   int S, n_layers, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe;
   int R;     // whole rays per CTA
-  int rows;  // sample rows per CTA, R * S: 128, 384 (S = 192) or 256 (S = 256)
+  int rows;  // sample rows per CTA, R * S: 128, 384 (S = 192), or S (S = 256 and longer)
   int ldb, ldx, ldd;  // shared-memory row strides in bf16 elements
 };
 
-// The padded sample counts the kernels take: a divisor of 128, 192 or 256.
+// The padded sample counts the kernels take: a divisor of 128, 192, or a
+// multiple of 128.
 inline bool takes_samples(int S) {
-  return S > 0 && (S <= kRows ? kRows % S == 0 : (S == 192 || S == kMaxSamples));
+  return S > 0 && (S <= kRows ? kRows % S == 0 : (S == 192 || S % kRows == 0));
 }
 
-// Whole rays per CTA for a padded S: 128 / S, 2 at S = 192, 1 at S = 256.
-// Every CTA's rows, R * S, are whole 128-row passes.
+// Whole rays per CTA for a padded S: 128 / S, 2 at S = 192, else 1. Every
+// CTA's rows, R * S, are whole 128-row passes.
 inline int rays_per_cta(int S) { return S <= kRows ? kRows / S : (S == 192 ? 2 : 1); }
+
+// The members of f that size its shared memory, from the padded S and the
+// widths (init_field sets them so too).
+inline void set_layout(Field* f, int S, int W, int F, int V, int P, int D) {
+  f->S = S;
+  f->W = W;
+  f->F = F;
+  f->V = V;
+  f->P = P;
+  f->D = D;
+  f->R = rays_per_cta(S);
+  f->rows = f->R * S;
+  int widest = W > F ? W : F;
+  widest = widest > V ? widest : V;
+  f->ldb = widest + 8;  // +8 bf16 per row: conflict-free ldmatrix
+  f->ldx = P + 8;
+  f->ldd = D + 8;
+}
 
 // Fills f from the C entry point's arguments. Returns 0 or a negative
 // code for a shape the kernels do not take (kernels/fused_ray.py maps the
@@ -127,25 +155,13 @@ inline int init_field(Field* f, const void* o, const void* d, const void* vd, co
     f->b_off[i] = i < n_b ? b_off[i] : 0;
   }
   f->n_rays = n_rays;
-  f->S = S;
   f->n_layers = depth_l;
   f->skip = skip;
-  f->W = W;
-  f->F = F;
-  f->V = V;
-  f->P = P;
-  f->D = D;
   f->pos_levels = pos_levels;
   f->dir_levels = dir_levels;
   f->sigma_act = sigma_act;
   f->ipe = ipe;
-  f->R = rays_per_cta(S);
-  f->rows = f->R * S;
-  int widest = W > F ? W : F;
-  widest = widest > V ? widest : V;
-  f->ldb = widest + 8;  // +8 bf16 per row: conflict-free ldmatrix
-  f->ldx = P + 8;
-  f->ldd = D + 8;
+  set_layout(f, S, W, F, V, P, D);
   return 0;
 }
 
@@ -159,13 +175,15 @@ __host__ __device__ inline size_t take(size_t* at, size_t bytes) {
   return here;
 }
 
-// The pass tiles (activations, encodings, moments) hold 128 rows; the
-// per-sample values of the CTA's whole rays hold f.rows. train adds K2's
-// rgb-gradient tile and dsigma column (empty for K1). Then the weight
-// ring. At paper width K2's three-pass CTA takes 225,616 B of the
-// 232,448 an H100 block may have.
-__host__ __device__ inline SmemLayout smem_layout(const Field& f, bool train) {
-  const int rows = f.rows;
+// The pass tiles (activations, encodings, moments) hold 128 rows. The
+// resident layout holds the per-sample values of the CTA's whole rays,
+// f.rows of them, and K2's rgb-gradient tile and dsigma column for as many;
+// the streamed one none of those values (K2's scratch holds them) and the
+// rgb-gradient tile for one pass. Then the weight ring. At paper width
+// K2's resident three-pass CTA takes 225,616 B of the 232,448 an H100 block
+// may have.
+__host__ __device__ inline SmemLayout smem_layout(const Field& f, bool streamed) {
+  const int rows = streamed ? 0 : f.rows;
   SmemLayout L;
   size_t at = 0;
   L.buf0 = take(&at, sizeof(bf16) * kRows * f.ldb);
@@ -181,8 +199,8 @@ __host__ __device__ inline SmemLayout smem_layout(const Field& f, bool train) {
   L.sg = take(&at, sizeof(float) * rows);
   L.ray = take(&at, sizeof(float) * f.R * kRayStride);
   L.dpe = take(&at, sizeof(float) * f.R * f.D);
-  L.drgb = take(&at, train ? sizeof(bf16) * rows * kLdr : 0);
-  L.dsig = take(&at, train ? sizeof(float) * rows : 0);
+  L.drgb = take(&at, sizeof(bf16) * (streamed ? kRows : rows) * kLdr);
+  L.dsig = take(&at, sizeof(float) * rows);
   L.wring = take(&at, sizeof(uint2) * kWStages * kWSlice);
   L.total = at;
   return L;
@@ -504,7 +522,7 @@ struct RgbStore {
 // row-major at its own width: x (P), h_l (W, layer l at h + l * h_stride),
 // feat (F), hv (V), dv (D); and the relu masks as bits, mw 32-bit words
 // per row, trunk layer l at mask + l * mask_stride and hv at layer
-// n_layers. All null for K1.
+// n_layers.
 struct Stash {
   bf16* x;
   bf16* h;
@@ -636,6 +654,10 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
     t.ds[r * p.ldd + c] = __float2bfloat16_rn(t.dpe[((s0 + r) / S) * p.D + c]);
   }
   __syncthreads();
+  // K2 always passes its stashes, so `stash` is always true; the branches
+  // stay because without them ptxas allocates every resident K2 instance
+  // differently (spills of 44/48 B become 92/140 B at one pass, 588/3160 B
+  // 652/3264 B at three; compiled side by side on the card)
   const bool stash = st.h != nullptr;
   if (stash) {
     stash_rows(st.x, p.P, t.xs, p.ldx, p.P);
@@ -686,19 +708,35 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
   *feat_buf = other;
 }
 
+// The card's per-block opt-in maximum of shared memory, into *bytes,
+// queried once a device and process (a launch reads it up to four times);
+// returns 0 or a cudaError_t.
+inline int smem_optin(size_t* bytes) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices];  // 0: not asked yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int optin = dev < kDevices ? known[dev].load(std::memory_order_relaxed) : 0;
+  if (optin == 0) {
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kDevices) known[dev].store(optin, std::memory_order_relaxed);
+  }
+  *bytes = static_cast<size_t>(optin);
+  return 0;
+}
+
 // Sets the kernel's dynamic shared memory to `bytes`, or returns -5 when
 // the card's per-block opt-in maximum is smaller.
 template <class Kernel>
 inline int set_smem(Kernel kernel, size_t bytes) {
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (bytes > static_cast<size_t>(optin)) return -5;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bytes));
-  return static_cast<int>(err);
+  size_t optin = 0;
+  int rc = smem_optin(&optin);
+  if (rc != 0) return rc;
+  if (bytes > optin) return -5;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes)));
 }
 
 }  // namespace nerf

@@ -58,10 +58,24 @@
 // widths (each product padded to a power of two from 16, pack_weights_k1)
 // take one that picks the shape at run time and runs serialized.
 // Rays per tile: 128 / S rays when S divides 128, two rays of S =
-// 192 in three passes of 128 rows, or one ray of S = 256 in two (the
-// wrapper pads S to a power of two up to 128, to 192 for 129 to 192, else
-// to 256, with zero-length intervals whose weight is exactly 0; a pass may
-// end one ray and start the next: a row's ray is (tile row) / S).
+// 192 in three passes of 128 rows, or one ray of S = 256 or longer in S /
+// 128 passes (the wrapper pads S to a power of two up to 128, to 192 for
+// 129 to 192, to 256 for 193 to 256, else to the next multiple of 128, with
+// zero-length intervals whose weight is exactly 0; a pass may end one ray
+// and start the next: a row's ray is (tile row) / S).
+// Streamed instances (kStream): past 256 samples, or where the resident
+// layout (the tile's per-sample values, ~44 B a row, and the biases, which
+// grow with depth) does not fit beside the ~204 KB of ring, activation and
+// encoding tiles. Raw sigma and rgb then hold one pass, double-buffered by
+// pass; after each pass the consumers composite the rays it holds, a warp
+// per ray as below, and a ray that goes on into the next pass leaves its
+// running sums (the exclusive sum of sigma * delta and each lane's shares
+// of the colour, acc and depth) in a carry buffer; the weights and sigma go
+// to device memory as each pass is composited, ts and deltas are read from
+// device memory where they are used, and the biases from device memory. A
+// ray's segments start at multiples of 32 samples, so each lane sums the
+// same samples in the same order as in the resident scan. The resident
+// instances are as they were.
 //
 // IPE (cfg.ipe): per row the conical frustum's Gaussian (ipe_moments),
 // encoded as sin / cos damped by exp(-4^l var / 2), in the PE's column
@@ -95,7 +109,7 @@ constexpr int kEncoderBar = kConsumerBar + 1 + kConsumers;
 // consumers' registers, which the wgmma pipeline needs.
 struct K1Smem {
   uint32_t ring, bars, act, xs[2], ds[2], mv, sig_raw, rgb, ts[2], dl[2], w, sg, ray, dpe, bias,
-      total;
+      carry, total;
 };
 
 // The products' widths, each padded to a power of two from 16 to 256 (a
@@ -168,7 +182,10 @@ __host__ __device__ inline uint32_t slot_bytes(const Widths& n) {
   return static_cast<uint32_t>(32 * (a > n.v ? a : n.v));
 }
 
-inline K1Smem k1_layout(const Field& f, const Widths& n) {
+// stream: the streamed instance's layout (a pass's raw sigma and rgb twice,
+// the carry buffer; no ts, deltas, weights, sigma or biases)
+inline K1Smem k1_layout(const Field& f, const Widths& n, bool stream) {
+  const int rows = stream ? 0 : f.rows, pass_rows = stream ? 2 * kRows : f.rows;
   K1Smem L;
   size_t at = 0;
   L.ring = take(&at, static_cast<size_t>(kStages) * slot_bytes(n));
@@ -177,17 +194,18 @@ inline K1Smem k1_layout(const Field& f, const Widths& n) {
   for (int b = 0; b < 2; ++b) {
     L.xs[b] = take(&at, sizeof(bf16) * kRows * f.P);
     L.ds[b] = take(&at, sizeof(bf16) * kRows * f.D);
-    L.ts[b] = take(&at, sizeof(float) * f.rows);
-    L.dl[b] = take(&at, sizeof(float) * f.rows);
+    L.ts[b] = take(&at, sizeof(float) * rows);
+    L.dl[b] = take(&at, sizeof(float) * rows);
   }
   L.mv = take(&at, sizeof(float) * kRows * 6);
-  L.sig_raw = take(&at, sizeof(float) * f.rows);
-  L.rgb = take(&at, sizeof(float) * f.rows * 4);
-  L.w = take(&at, sizeof(float) * f.rows);
-  L.sg = take(&at, sizeof(float) * f.rows);
+  L.sig_raw = take(&at, sizeof(float) * pass_rows);
+  L.rgb = take(&at, sizeof(float) * pass_rows * 4);
+  L.w = take(&at, sizeof(float) * rows);
+  L.sg = take(&at, sizeof(float) * rows);
   L.ray = take(&at, sizeof(float) * f.R * kRayStride);
   L.dpe = take(&at, sizeof(float) * f.R * f.D);
-  L.bias = take(&at, sizeof(float) * (f.n_layers * f.W + f.F + f.V));
+  L.bias = take(&at, stream ? 0 : sizeof(float) * (f.n_layers * f.W + f.F + f.V));
+  L.carry = take(&at, stream ? sizeof(float) * 2 * 6 * 32 : 0);
   L.total = static_cast<uint32_t>(at);
   return L;
 }
@@ -391,7 +409,7 @@ __device__ __forceinline__ int tile_rays(const Field& f, long long ray0) {
 // ---- the encoder: three warps read the next tile's rays and samples and
 // encode each of its passes into a free encoding buffer, while the
 // consumers multiply the current one ----
-template <bool kContract>
+template <bool kContract, bool kStream>
 __device__ void encode(const Params& p, unsigned char* smem, const TileBars& tb) {
   const Field& f = p.f;
   const K1Smem& L = p.L;
@@ -424,10 +442,12 @@ __device__ void encode(const Params& p, unsigned char* smem, const TileBars& tb)
       }
       ray[i] = v;
     }
-    for (int r = tid; r < f.rows; r += kEncoders) {
-      const bool ok = r < rows_valid;
-      ts[r] = ok ? f.ts[ray0 * S + r] : 0.f;
-      dl[r] = ok ? f.deltas[ray0 * S + r] : 0.f;
+    if (!kStream) {
+      for (int r = tid; r < f.rows; r += kEncoders) {
+        const bool ok = r < rows_valid;
+        ts[r] = ok ? f.ts[ray0 * S + r] : 0.f;
+        dl[r] = ok ? f.deltas[ray0 * S + r] : 0.f;
+      }
     }
     wg::named_sync(kEncoderBar, kEncoders);
     for (int i = tid; i < R * D; i += kEncoders) {
@@ -447,12 +467,21 @@ __device__ void encode(const Params& p, unsigned char* smem, const TileBars& tb)
         const int cr = s0 + r;
         const float* ry = ray + (cr / S) * kRayStride;
         float* mv = mv_all + r * 6;
+        float tv, dv;  // the row's t and delta (0 past the last ray)
+        if (kStream) {
+          const bool ok = cr < rows_valid;
+          tv = ok ? f.ts[ray0 * S + cr] : 0.f;
+          dv = ok ? f.deltas[ray0 * S + cr] : 0.f;
+        } else {
+          tv = ts[cr];
+          dv = dl[cr];
+        }
         if (f.ipe && cr < rows_valid) {
-          ipe_moments(ry, ry + 3, ts[cr], dl[cr], ry[9], mv);
+          ipe_moments(ry, ry + 3, tv, dv, ry[9], mv);
         } else {
 #pragma unroll
           for (int c = 0; c < 3; ++c) {
-            mv[c] = __fadd_rn(ry[c], __fmul_rn(ts[cr], ry[3 + c]));
+            mv[c] = __fadd_rn(ry[c], __fmul_rn(tv, ry[3 + c]));
             mv[3 + c] = 0.f;
           }
         }
@@ -496,9 +525,99 @@ __device__ void encode(const Params& p, unsigned char* smem, const TileBars& tb)
   }
 }
 
+// The streamed instance's compositing of the pass at tile row s0 (the
+// CTA's unit-th pass; its raw sigma and rgb at pass row r of buffer unit &
+// 1): a warp per ray that the pass holds, the resident scan's steps over
+// the ray's samples in this pass, from the running sums the pass before
+// left in the carry buffer where the ray started there, into the other
+// carry buffer where it goes on into the next pass, else reduced and
+// stored. Weights and sigma go to device memory here.
+__device__ __forceinline__ void composite_pass(const Params& p, unsigned char* smem,
+                                               long long ray0, int n_valid, int s0, int unit,
+                                               int tid) {
+  constexpr int kT = 128 * kConsumers;
+  const unsigned full = 0xffffffffu;
+  const Field& f = p.f;
+  const K1Smem& L = p.L;
+  const int S = f.S, lane = tid & 31, b = unit & 1;
+  const float* sig_raw = reinterpret_cast<const float*>(smem + L.sig_raw) + b * kRows;
+  const float* rgb = reinterpret_cast<const float*>(smem + L.rgb) + b * kRows * 4;
+  const float* cin = reinterpret_cast<const float*>(smem + L.carry) + b * 6 * 32;
+  float* cout = reinterpret_cast<float*>(smem + L.carry) + (b ^ 1) * 6 * 32;
+  const int first = s0 / S, last_row = (s0 + kRows - 1) / S;
+  const int last = last_row < n_valid - 1 ? last_row : n_valid - 1;
+  for (int j = first + (tid >> 5); j <= last; j += kT / 32) {
+    const int lo = s0 > j * S ? s0 - j * S : 0;
+    const int hi = s0 + kRows - j * S < S ? s0 + kRows - j * S : S;
+    float carry = 0.f, cr = 0.f, cg = 0.f, cb = 0.f, a_sum = 0.f, dep = 0.f;
+    if (lo > 0) {
+      carry = cin[lane];
+      cr = cin[32 + lane];
+      cg = cin[64 + lane];
+      cb = cin[96 + lane];
+      a_sum = cin[128 + lane];
+      dep = cin[160 + lane];
+    }
+    const long long g0 = (ray0 + j) * S;  // the ray's first sample in device memory
+    for (int c = lo; c < hi; c += 32) {
+      const int s = c + lane, r = j * S + s - s0;
+      float sigma = 0.f, a = 0.f;
+      if (s < hi) {
+        const float raw = sig_raw[r];
+        sigma = f.sigma_act == 0 ? fmaxf(raw, 0.f) : fmaxf(raw, 0.f) + log1pf(expf(-fabsf(raw)));
+        a = sigma * f.deltas[g0 + s];
+      }
+      float incl = a;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(full, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const float before = __shfl_up_sync(full, incl, 1);
+      const float excl = carry + (lane == 0 ? 0.f : before);
+      carry += __shfl_sync(full, incl, 31);
+      if (s < hi) {
+        const float w = expf(-excl) * (1.f - expf(-a));
+        cr += w * rgb[r * 4 + 0];
+        cg += w * rgb[r * 4 + 1];
+        cb += w * rgb[r * 4 + 2];
+        a_sum += w;
+        dep += w * f.ts[g0 + s];
+        p.wts[g0 + s] = w;
+        p.sigma[g0 + s] = sigma;
+      }
+    }
+    if (hi < S) {
+      cout[lane] = carry;
+      cout[32 + lane] = cr;
+      cout[64 + lane] = cg;
+      cout[96 + lane] = cb;
+      cout[128 + lane] = a_sum;
+      cout[160 + lane] = dep;
+      continue;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      cr += __shfl_xor_sync(full, cr, o);
+      cg += __shfl_xor_sync(full, cg, o);
+      cb += __shfl_xor_sync(full, cb, o);
+      a_sum += __shfl_xor_sync(full, a_sum, o);
+      dep += __shfl_xor_sync(full, dep, o);
+    }
+    if (lane == 0) {
+      const long long rr = ray0 + j;
+      p.rgb[rr * 3 + 0] = cr;
+      p.rgb[rr * 3 + 1] = cg;
+      p.rgb[rr * 3 + 2] = cb;
+      p.acc[rr] = a_sum;
+      p.depth[rr] = dep;
+    }
+  }
+}
+
 // kPaper: the products at the paper's widths (trunk 256, feature 256, view
-// 128) as compile-time shapes.
-template <bool kPaper>
+// 128) as compile-time shapes. kStream: the streamed instance (above).
+template <bool kPaper, bool kStream>
 __device__ void consume(const Params& p, unsigned char* smem, Ring rg, const TileBars& tb) {
   constexpr int kNW = kPaper ? 256 : 0, kNF = kPaper ? 256 : 0, kNV = kPaper ? 128 : 0;
   const Field& f = p.f;
@@ -514,12 +633,16 @@ __device__ void consume(const Params& p, unsigned char* smem, Ring rg, const Til
   float* rgb = reinterpret_cast<float*>(smem + L.rgb);
   float* wts = reinterpret_cast<float*>(smem + L.w);
   float* sg = reinterpret_cast<float*>(smem + L.sg);
-  float* bias = reinterpret_cast<float*>(smem + L.bias);
+  float* bias_s = reinterpret_cast<float*>(smem + L.bias);
+  const float* bias = kStream ? p.bias : bias_s;
 
   // the trunk's, feature's and view head's biases, already in the
-  // epilogues' order (fused_render.pack_weights_k1): 16-byte copies
-  for (int i = tid; i < (f.n_layers * f.W + f.F + f.V) / 4; i += kT)
-    reinterpret_cast<float4*>(bias)[i] = reinterpret_cast<const float4*>(p.bias)[i];
+  // epilogues' order (fused_render.pack_weights_k1): 16-byte copies (the
+  // streamed instance reads them from device memory)
+  if (!kStream) {
+    for (int i = tid; i < (f.n_layers * f.W + f.F + f.V) / 4; i += kT)
+      reinterpret_cast<float4*>(bias_s)[i] = reinterpret_cast<const float4*>(p.bias)[i];
+  }
   consumers_sync();
 
   // the warpgroup's operand tiles (its 64 rows start 8 row groups in) and
@@ -541,6 +664,7 @@ __device__ void consume(const Params& p, unsigned char* smem, Ring rg, const Til
     const float* dl = reinterpret_cast<const float*>(smem + L.dl[k & 1]);
     for (int pass = 0; pass < passes; ++pass, ++unit) {
       const int s0 = pass * kRows, e = unit & 1;
+      const int prow = kStream ? e * kRows : s0;  // the pass's first row in sig_raw and rgb
       const uint32_t xs_a = wg::smem_u32(smem + L.xs[e]) + off;
       const uint32_t ds_a = wg::smem_u32(smem + L.ds[e]) + off;
       wg::mbar_wait(tb.enc_full + 8 * e, (unit >> 1) & 1);
@@ -575,8 +699,8 @@ __device__ void consume(const Params& p, unsigned char* smem, Ring rg, const Til
         const int lead = (t & 31) & ~3;
         const float s_a = __shfl_sync(0xffffffffu, sig[0], lead);
         const float s_b = __shfl_sync(0xffffffffu, sig[2], lead);
-        sig_raw[s0 + r0] = s_a + b[f.F];
-        sig_raw[s0 + r0 + 8] = s_b + b[f.F];
+        sig_raw[prow + r0] = s_a + b[f.F];
+        sig_raw[prow + r0 + 8] = s_b + b[f.F];
         wg_sync(wgi);
       }
 
@@ -602,9 +726,17 @@ __device__ void consume(const Params& p, unsigned char* smem, Ring rg, const Til
         for (int h = 0; h < 2; ++h) {
           const float x0 = __shfl_sync(0xffffffffu, acc[2 * h], src);
           const float x1 = __shfl_sync(0xffffffffu, acc[2 * h + 1], src);
-          rgb[(s0 + r0 + 8 * h) * 4 + q] = 1.f / (1.f + expf(-((q & 1 ? x1 : x0) + b[q])));
+          rgb[(prow + r0 + 8 * h) * 4 + q] = 1.f / (1.f + expf(-((q & 1 ? x1 : x0) + b[q])));
         }
       }
+      if (kStream) {
+        consumers_sync();  // the pass's raw sigma and rgb are in
+        composite_pass(p, smem, ray0, n_valid, s0, unit, tid);
+      }
+    }
+    if (kStream) {  // each pass was composited as it ended
+      wg::mbar_arrive_cluster(tb.tile_free + 8 * (k & 1), rank, tid == 0);
+      continue;
     }
     consumers_sync();
 
@@ -674,11 +806,11 @@ __device__ void consume(const Params& p, unsigned char* smem, Ring rg, const Til
   }
 }
 
-// kContract: the contraction branch; kPaper: the paper's widths. The CTA's
-// 128-row passes (1, 2 at S = 256, 3 at S = 192) are a loop with a runtime
-// count: instances specialised on the count compiled the one-pass kernel
-// 1.5x slower.
-template <bool kContract, bool kPaper>
+// kContract: the contraction branch; kPaper: the paper's widths; kStream:
+// the streamed instance. The CTA's 128-row passes (1, 2 at S = 256, 3 at
+// S = 192, S / 128 past 256) are a loop with a runtime count: instances
+// specialised on the count compiled the one-pass kernel 1.5x slower.
+template <bool kContract, bool kPaper, bool kStream>
 __global__ void __launch_bounds__(kK1Threads, 1) fused_ray_wgmma_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const K1Smem& L = p.L;
@@ -703,13 +835,13 @@ __global__ void __launch_bounds__(kK1Threads, 1) fused_ray_wgmma_kernel(const Pa
   if (role == kConsumers) {
     const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
     if (warp > 4 * kConsumers)
-      encode<kContract>(p, smem, tb);
+      encode<kContract, kStream>(p, smem, tb);
     else if (threadIdx.x == 128 * kConsumers)
       produce(p, wg::smem_u32(smem + L.ring), full, empty);
     return;
   }
-  consume<kPaper>(p, smem, Ring{wg::smem_u32(smem + L.ring), full, empty, slot_bytes(p.n), 0, 0},
-                  tb);
+  consume<kPaper, kStream>(
+      p, smem, Ring{wg::smem_u32(smem + L.ring), full, empty, slot_bytes(p.n), 0, 0}, tb);
 }
 
 }  // namespace
@@ -741,14 +873,24 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
   p.sigma = static_cast<float*>(sigma);
   p.bias = static_cast<const float*>(b_k1);
   p.n = {padded_width(W), padded_width(F), padded_width(V)};
-  p.L = k1_layout(p.f, p.n);
+  // the resident instance where it fits, else the streamed one
+  size_t optin = 0;
+  rc = smem_optin(&optin);
+  if (rc != 0) return rc;
+  const bool streamed = S > kMaxResident || k1_layout(p.f, p.n, false).total > optin;
+  p.L = k1_layout(p.f, p.n, streamed);
 
   const size_t smem = p.L.total;
   const bool paper = p.n.w == 256 && p.n.f == 256 && p.n.v == 128;
-  auto kernel = contract ? (paper ? fused_ray_wgmma_kernel<true, true>
-                                  : fused_ray_wgmma_kernel<true, false>)
-                         : (paper ? fused_ray_wgmma_kernel<false, true>
-                                  : fused_ray_wgmma_kernel<false, false>);
+  auto kernel =
+      streamed ? (contract ? (paper ? fused_ray_wgmma_kernel<true, true, true>
+                                    : fused_ray_wgmma_kernel<true, false, true>)
+                           : (paper ? fused_ray_wgmma_kernel<false, true, true>
+                                    : fused_ray_wgmma_kernel<false, false, true>))
+               : (contract ? (paper ? fused_ray_wgmma_kernel<true, true, false>
+                                    : fused_ray_wgmma_kernel<true, false, false>)
+                           : (paper ? fused_ray_wgmma_kernel<false, true, false>
+                                    : fused_ray_wgmma_kernel<false, false, false>));
   rc = set_smem(kernel, smem);
   if (rc != 0) return rc;
   if (n_rays == 0) return 0;

@@ -34,10 +34,25 @@
 // to 192 samples) in three 128-row passes, and one ray of S = 256 (193 to
 // 256) in two. The backward needs nothing new for IPE: positions carry no
 // gradient, and the first layer's dW uses the stashed encoding A. A long
-// ray's compositing VJP needs the whole ray, so K2a runs every pass's
-// forward, then the per-ray scans, then each pass's backward from its
-// stashes. Zero-length pad intervals have w = 0 and d sigma = da * 0 = 0,
-// so every gradient row they give is exactly 0.
+// ray's compositing VJP needs the whole ray (the suffix sums of u_i w_i
+// need the final colour), so K2a runs every pass's forward, then the
+// per-ray scans, then each pass's backward from its stashes. Zero-length
+// pad intervals have w = 0 and d sigma = da * 0 = 0, so every gradient row
+// they give is exactly 0.
+//
+// Rays past 256 samples (padded to a multiple of 128, one ray a CTA in S /
+// 128 passes), and any shape whose per-sample values do not fit in shared
+// memory beside the tiles (IPE's wide encoding at S = 192), take the
+// streamed instance (kPasses = 0): the passes are a runtime loop, the
+// per-sample values (raw sigma, rgb, ts, deltas, w, T, dsigma: 40 B a row)
+// live in the CTA's rows of the global scratch, where the scans find them
+// in L2, the scans run a warp per ray, 32 samples a step (shuffle prefix
+// and suffix sums carried between steps), and each pass's backward starts
+// by writing its 128 rows of d rgb_raw into the one-pass tile that
+// ldmatrix reads. Instances 1-3 are as they were. The wrapper
+// (kernels/fused_train.fused_train_grads) launches K2 over blocks of at
+// most 1,048,576 padded rows (4096 rays x 256 samples, ~10.7 GB of
+// stashes at paper width) and sums the blocks' gradients in order.
 //
 // Why two kernels. The TPU kernel keeps a ray block's activations and the
 // dW accumulators in VMEM (120 MB). An H100 SM has 227 KB of shared
@@ -112,6 +127,7 @@ struct TrainParams {
   bf16* grgb;
   uint32_t* mask;              // relu bits: (n_layers + 1) x rows_pad x mw words (field.cuh Stash)
   int mw;
+  float* vals;                 // streamed: per-sample values, kVals arrays of rows_pad (kValOff)
   float loss_scale;            // d loss / d (sum of squared residuals) = 1 / (3 N)
   int white_bg;
   float dist_scale;            // distortion-loss weight / N rays; 0: off
@@ -169,12 +185,209 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// The streamed instance's per-sample values: kVals f32 arrays of rows_pad
+// rows in the scratch (p.vals), rgb four floats a row.
+constexpr int kVals = 10;
+enum ValOff { kValSig = 0, kValRgb = 1, kValTs = 5, kValDl = 6, kValW = 7, kValT = 8, kValDsig = 9 };
+
+// The CTA's tile with its per-sample values in the scratch, from stash row
+// row0 on: generic pointers, which every loop over them takes as they are.
+__device__ __forceinline__ Tile streamed_tile(Tile t, const TrainParams& p, long long row0) {
+  float* v = p.vals;
+  const long long n = p.rows_pad;
+  t.sig_raw = v + kValSig * n + row0;
+  t.rgb = v + kValRgb * n + row0 * 4;
+  t.ts = v + kValTs * n + row0;
+  t.dl = v + kValDl * n + row0;
+  t.w = v + kValW * n + row0;
+  t.sg = v + kValT * n + row0;
+  t.dsig = v + kValDsig * n + row0;
+  return t;
+}
+
+__device__ __forceinline__ float warp_incl_scan(float x, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float v = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += v;
+  }
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+__device__ __forceinline__ float sigma_of(int act, float raw) {
+  return act == 0 ? fmaxf(raw, 0.f) : fmaxf(raw, 0.f) + log1pf(expf(-fabsf(raw)));
+}
+
+// The streamed instance's per-ray scans, a warp per ray, 32 samples a
+// step, f32: the forward (weights, T, colour, acc, and with the distortion
+// loss its prefix sums and A_i) with the exclusive sum of sigma * delta
+// carried between steps, diag, then the backward from the far end with the
+// suffix sum of u w carried, each sample's d sigma into t.dsig. The same
+// arithmetic as the resident instances' thread-per-ray scans, summed in
+// another order. Rays past the end get d sigma = 0.
+__device__ void scan_rays_warp(const TrainParams& p, const Tile& t, long long ray0, int n_valid) {
+  const Field& f = p.f;
+  const int S = f.S, lane = threadIdx.x & 31;
+  const bool dist = p.dist_scale != 0.f;
+  for (int j = threadIdx.x >> 5; j < f.R; j += kWarps) {
+    const int r0 = j * S;
+    if (j >= n_valid) {
+      for (int s = lane; s < S; s += 32) t.dsig[r0 + s] = 0.f;
+      continue;
+    }
+    const long long ray = ray0 + j;
+    float carry = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, acc = 0.f;
+    for (int c = 0; c < S; c += 32) {
+      const int s = c + lane, r = r0 + s;
+      float a = 0.f;
+      if (s < S) a = sigma_of(f.sigma_act, t.sig_raw[r]) * t.dl[r];
+      const float incl = warp_incl_scan(a, lane);
+      const float before = __shfl_up_sync(0xffffffffu, incl, 1);
+      const float excl = carry + (lane == 0 ? 0.f : before);
+      carry += __shfl_sync(0xffffffffu, incl, 31);
+      if (s < S) {
+        const float T = expf(-excl);
+        const float w = T * (1.f - expf(-a));
+        c0 += w * t.rgb[r * 4 + 0];
+        c1 += w * t.rgb[r * 4 + 1];
+        c2 += w * t.rgb[r * 4 + 2];
+        acc += w;
+        t.w[r] = w;
+        t.sg[r] = T;
+      }
+    }
+    c0 = warp_sum(c0);
+    c1 = warp_sum(c1);
+    c2 = warp_sum(c2);
+    acc = warp_sum(acc);
+    if (p.white_bg) {
+      c0 += 1.f - acc;
+      c1 += 1.f - acc;
+      c2 += 1.f - acc;
+    }
+    const float e0 = c0 - p.gold[ray * 3 + 0];
+    const float e1 = c1 - p.gold[ray * 3 + 1];
+    const float e2 = c2 - p.gold[ray * 3 + 2];
+    float ldist = 0.f;
+    if (dist) {  // the distortion loss: prefix sums of w and w m over the whole ray
+      float wm = 0.f;
+      for (int s = lane; s < S; s += 32) {
+        float m, dn;
+        dist_coords(p, t.ts[r0 + s], t.dl[r0 + s], &m, &dn);
+        wm += t.w[r0 + s] * m;
+      }
+      const float wm_tot = warp_sum(wm);
+      float cw0 = 0.f, cwm0 = 0.f;
+      for (int c = 0; c < S; c += 32) {
+        const int s = c + lane, r = r0 + s;
+        float m = 0.f, dn = 0.f, w = 0.f;
+        if (s < S) {
+          dist_coords(p, t.ts[r], t.dl[r], &m, &dn);
+          w = t.w[r];
+        }
+        const float iw = warp_incl_scan(w, lane), iwm = warp_incl_scan(w * m, lane);
+        const float cw = cw0 + iw, cwm = cwm0 + iwm;
+        cw0 += __shfl_sync(0xffffffffu, iw, 31);
+        cwm0 += __shfl_sync(0xffffffffu, iwm, 31);
+        if (s < S) {
+          const float A = m * (2.f * cw - acc) + wm_tot - 2.f * cwm;
+          ldist += w * A + w * w * dn * (1.f / 3.f);
+          t.dsig[r] = A;
+        }
+      }
+      ldist = warp_sum(ldist);
+    }
+    if (lane == 0) {
+      float* dg = p.diag + ray * 8;
+      dg[0] = c0;
+      dg[1] = c1;
+      dg[2] = c2;
+      dg[3] = acc;
+      dg[4] = (e0 * e0 + e1 * e1 + e2 * e2) / 3.f;
+      dg[5] = ldist;
+      dg[6] = 0.f;
+      dg[7] = 0.f;
+    }
+
+    // dC = 2 res / (3 N); u_k = dL/dw_k; da_k = u_k (T_k - w_k) - sum_{i>k} u_i w_i
+    const float k = 2.f * p.loss_scale;
+    const float dc[3] = {k * e0, k * e1, k * e2};
+    const float dsum = dc[0] + dc[1] + dc[2];
+    float after = 0.f;  // sum of u w over the steps already taken, all past this one
+    for (int c = (S - 1) / 32 * 32; c >= 0; c -= 32) {
+      const int s = c + lane, r = r0 + s;
+      float u = 0.f, w = 0.f;
+      if (s < S) {
+        const float* rgb = t.rgb + r * 4;
+        u = rgb[0] * dc[0] + rgb[1] * dc[1] + rgb[2] * dc[2];
+        if (p.white_bg) u -= dsum;
+        w = t.w[r];
+        if (dist) {  // d L_dist / d w = 2 A + (2/3) w dn, into the same cotangent
+          float m, dn;
+          dist_coords(p, t.ts[r], t.dl[r], &m, &dn);
+          u += p.dist_scale * (2.f * t.dsig[r] + (2.f / 3.f) * w * dn);
+        }
+      }
+      float incl = u * w;  // suffix sums within the step: lanes >= lane
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_down_sync(0xffffffffu, incl, o);
+        if (lane + o < 32) incl += v;
+      }
+      const float later = __shfl_down_sync(0xffffffffu, incl, 1);
+      const float suffix = after + (lane == 31 ? 0.f : later);
+      after += __shfl_sync(0xffffffffu, incl, 0);
+      if (s < S) {
+        const float da = u * (t.sg[r] - w) - suffix;
+        const float raw = t.sig_raw[r];
+        const float slope =
+            f.sigma_act == 0 ? (raw > 0.f ? 1.f : 0.f) : 1.f / (1.f + expf(-raw));
+        t.dsig[r] = round_bf16(da * t.dl[r] * slope);
+      }
+    }
+  }
+}
+
+// The streamed instance's d rgb_raw = bf16(w dC rgb (1 - rgb)) for the pass
+// at CTA row s0, into the one-pass tile (columns 0-7; 8-15 stay 0) and
+// its rows of the grgb stash, and the pass's dsigma column of the gsf
+// stash; dC from diag, as the scan formed it. Zeros past the last ray.
+__device__ void pass_drgb(const TrainParams& p, const Tile& t, long long ray0, int n_valid,
+                          int s0, bf16* grgb, bf16* gsf) {
+  const Field& f = p.f;
+  const float k = 2.f * p.loss_scale;
+  for (int i = threadIdx.x; i < kRows * 8; i += kThreads) {
+    const int r = i / 8, c = i % 8, cr = s0 + r, j = cr / f.S;
+    float v = 0.f;
+    if (c < 3 && j < n_valid) {
+      const long long ray = ray0 + j;
+      const float dc = k * (p.diag[ray * 8 + c] - p.gold[ray * 3 + c]);
+      const float rgb = t.rgb[cr * 4 + c];
+      v = t.w[cr] * dc * rgb * (1.f - rgb);
+    }
+    const bf16 b = __float2bfloat16_rn(v);
+    t.drgb[r * kLdr + c] = b;
+    grgb[static_cast<long long>(cr) * 8 + c] = b;
+    gsf[static_cast<long long>(cr) * (f.F + 8) + f.F + c] =
+        __float2bfloat16_rn(c == 0 ? t.dsig[cr] : 0.f);
+  }
+  __syncthreads();
+}
+
 // kPasses: 128-row passes per CTA, 1, 2 (S = 256) or 3 (S = 192), at
 // compile time (see fused_ray.cu: the one-pass kernel inlines the forward
-// and the backward once). kContract: the contraction branch, also at
-// compile time.
+// and the backward once), or 0: the streamed instance, its passes a
+// runtime loop and its per-sample values in the scratch. kContract: the
+// contraction branch, also at compile time.
 template <int kPasses, bool kContract>
 __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainParams p) {
+  constexpr bool kStreamed = kPasses == 0;
   extern __shared__ __align__(16) unsigned char smem[];
   const Field& f = p.f;
   const int S = f.S;
@@ -189,7 +402,8 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
   const int W = f.W, F = f.F, V = f.V, L = f.n_layers;
   const long long hs = p.rows_pad * W;  // layer stride of the h and G stashes
 
-  const Tile t = carve(smem, smem_layout(f, true));
+  const Tile t = kStreamed ? streamed_tile(carve(smem, smem_layout(f, true)), p, row0)
+                           : carve(smem, smem_layout(f, false));
   // the stashes of the pass that starts at CTA row s0
   auto stash = [&](int s0) {
     const long long r = row0 + s0;
@@ -198,120 +412,135 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
   };
   bf16* hv;
   bf16* feat;
-  field_forward<kContract>(f, t, ray0, n_valid, 0, stash(0), &hv, &feat);
-  if (kPasses >= 2) field_forward<kContract>(f, t, ray0, n_valid, kRows, stash(kRows), &hv, &feat);
-  if (kPasses >= 3)
-    field_forward<kContract>(f, t, ray0, n_valid, 2 * kRows, stash(2 * kRows), &hv, &feat);
+  if (kStreamed) {
+    for (int s0 = 0; s0 < rows; s0 += kRows)
+      field_forward<kContract>(f, t, ray0, n_valid, s0, stash(s0), &hv, &feat);
+  } else {
+    field_forward<kContract>(f, t, ray0, n_valid, 0, stash(0), &hv, &feat);
+    if (kPasses >= 2)
+      field_forward<kContract>(f, t, ray0, n_valid, kRows, stash(kRows), &hv, &feat);
+    if (kPasses >= 3)
+      field_forward<kContract>(f, t, ray0, n_valid, 2 * kRows, stash(2 * kRows), &hv, &feat);
+  }
 
   // ---- per ray: compositing, loss and the compositing VJP, f32 ----
   // t.w holds the weights, t.sg the transmittance T; with the distortion
   // loss, t.dsig holds A_i between the two scans
-  const bool dist = p.dist_scale != 0.f;
-  if (tid < R) {
-    const int r0 = tid * S;
-    if (tid < n_valid) {
-      const long long ray = ray0 + tid;
-      float excl = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, acc = 0.f;
-      for (int s = 0; s < S; ++s) {
-        const int r = r0 + s;
-        const float raw = t.sig_raw[r];
-        const float sigma = f.sigma_act == 0
-                                ? fmaxf(raw, 0.f)
-                                : fmaxf(raw, 0.f) + log1pf(expf(-fabsf(raw)));
-        const float a = sigma * t.dl[r];
-        const float T = expf(-excl);
-        const float w = T * (1.f - expf(-a));
-        excl += a;
-        c0 += w * t.rgb[r * 4 + 0];
-        c1 += w * t.rgb[r * 4 + 1];
-        c2 += w * t.rgb[r * 4 + 2];
-        acc += w;
-        t.w[r] = w;
-        t.sg[r] = T;
-      }
-      if (p.white_bg) {
-        c0 += 1.f - acc;
-        c1 += 1.f - acc;
-        c2 += 1.f - acc;
-      }
-      const float e0 = c0 - p.gold[ray * 3 + 0];
-      const float e1 = c1 - p.gold[ray * 3 + 1];
-      const float e2 = c2 - p.gold[ray * 3 + 2];
-      float ldist = 0.f;
-      if (dist) {  // the distortion loss: prefix sums of w and w m over the whole ray
-        float wm_tot = 0.f;
-        for (int s = 0; s < S; ++s) {
-          float m, dn;
-          dist_coords(p, t.ts[r0 + s], t.dl[r0 + s], &m, &dn);
-          wm_tot += t.w[r0 + s] * m;
-        }
-        float cw = 0.f, cwm = 0.f;
+  if (kStreamed) {
+    scan_rays_warp(p, t, ray0, n_valid);
+    for (int i = tid; i < kRows * 8; i += kThreads)  // the k16 pad of the one-pass tile
+      t.drgb[(i / 8) * kLdr + 8 + i % 8] = __float2bfloat16_rn(0.f);
+    __syncthreads();
+  } else {
+    const bool dist = p.dist_scale != 0.f;
+    if (tid < R) {
+      const int r0 = tid * S;
+      if (tid < n_valid) {
+        const long long ray = ray0 + tid;
+        float excl = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, acc = 0.f;
         for (int s = 0; s < S; ++s) {
           const int r = r0 + s;
-          float m, dn;
-          dist_coords(p, t.ts[r], t.dl[r], &m, &dn);
-          const float w = t.w[r];
-          cw += w;
-          cwm += w * m;
-          const float A = m * (2.f * cw - acc) + wm_tot - 2.f * cwm;
-          ldist += w * A + w * w * dn * (1.f / 3.f);
-          t.dsig[r] = A;
+          const float raw = t.sig_raw[r];
+          const float sigma = f.sigma_act == 0
+                                  ? fmaxf(raw, 0.f)
+                                  : fmaxf(raw, 0.f) + log1pf(expf(-fabsf(raw)));
+          const float a = sigma * t.dl[r];
+          const float T = expf(-excl);
+          const float w = T * (1.f - expf(-a));
+          excl += a;
+          c0 += w * t.rgb[r * 4 + 0];
+          c1 += w * t.rgb[r * 4 + 1];
+          c2 += w * t.rgb[r * 4 + 2];
+          acc += w;
+          t.w[r] = w;
+          t.sg[r] = T;
         }
-      }
-      float* dg = p.diag + ray * 8;
-      dg[0] = c0;
-      dg[1] = c1;
-      dg[2] = c2;
-      dg[3] = acc;
-      dg[4] = (e0 * e0 + e1 * e1 + e2 * e2) / 3.f;
-      dg[5] = ldist;
-      dg[6] = 0.f;
-      dg[7] = 0.f;
+        if (p.white_bg) {
+          c0 += 1.f - acc;
+          c1 += 1.f - acc;
+          c2 += 1.f - acc;
+        }
+        const float e0 = c0 - p.gold[ray * 3 + 0];
+        const float e1 = c1 - p.gold[ray * 3 + 1];
+        const float e2 = c2 - p.gold[ray * 3 + 2];
+        float ldist = 0.f;
+        if (dist) {  // the distortion loss: prefix sums of w and w m over the whole ray
+          float wm_tot = 0.f;
+          for (int s = 0; s < S; ++s) {
+            float m, dn;
+            dist_coords(p, t.ts[r0 + s], t.dl[r0 + s], &m, &dn);
+            wm_tot += t.w[r0 + s] * m;
+          }
+          float cw = 0.f, cwm = 0.f;
+          for (int s = 0; s < S; ++s) {
+            const int r = r0 + s;
+            float m, dn;
+            dist_coords(p, t.ts[r], t.dl[r], &m, &dn);
+            const float w = t.w[r];
+            cw += w;
+            cwm += w * m;
+            const float A = m * (2.f * cw - acc) + wm_tot - 2.f * cwm;
+            ldist += w * A + w * w * dn * (1.f / 3.f);
+            t.dsig[r] = A;
+          }
+        }
+        float* dg = p.diag + ray * 8;
+        dg[0] = c0;
+        dg[1] = c1;
+        dg[2] = c2;
+        dg[3] = acc;
+        dg[4] = (e0 * e0 + e1 * e1 + e2 * e2) / 3.f;
+        dg[5] = ldist;
+        dg[6] = 0.f;
+        dg[7] = 0.f;
 
-      // dC = 2 res / (3 N); u_k = dL/dw_k; da_k = u_k (T_k - w_k) - sum_{i>k} u_i w_i
-      const float k = 2.f * p.loss_scale;
-      const float dc[3] = {k * e0, k * e1, k * e2};
-      const float dsum = dc[0] + dc[1] + dc[2];
-      float suffix = 0.f;
-      for (int s = S - 1; s >= 0; --s) {
-        const int r = r0 + s;
-        const float* rgb = t.rgb + r * 4;
-        float u = rgb[0] * dc[0] + rgb[1] * dc[1] + rgb[2] * dc[2];
-        if (p.white_bg) u -= dsum;
-        const float w = t.w[r];
-        if (dist) {  // d L_dist / d w = 2 A + (2/3) w dn, into the same cotangent
-          float m, dn;
-          dist_coords(p, t.ts[r], t.dl[r], &m, &dn);
-          u += p.dist_scale * (2.f * t.dsig[r] + (2.f / 3.f) * w * dn);
-        }
-        const float da = u * (t.sg[r] - w) - suffix;
-        suffix += u * w;
-        const float raw = t.sig_raw[r];
-        const float slope = f.sigma_act == 0 ? (raw > 0.f ? 1.f : 0.f) : 1.f / (1.f + expf(-raw));
-        t.dsig[r] = round_bf16(da * t.dl[r] * slope);
+        // dC = 2 res / (3 N); u_k = dL/dw_k; da_k = u_k (T_k - w_k) - sum_{i>k} u_i w_i
+        const float k = 2.f * p.loss_scale;
+        const float dc[3] = {k * e0, k * e1, k * e2};
+        const float dsum = dc[0] + dc[1] + dc[2];
+        float suffix = 0.f;
+        for (int s = S - 1; s >= 0; --s) {
+          const int r = r0 + s;
+          const float* rgb = t.rgb + r * 4;
+          float u = rgb[0] * dc[0] + rgb[1] * dc[1] + rgb[2] * dc[2];
+          if (p.white_bg) u -= dsum;
+          const float w = t.w[r];
+          if (dist) {  // d L_dist / d w = 2 A + (2/3) w dn, into the same cotangent
+            float m, dn;
+            dist_coords(p, t.ts[r], t.dl[r], &m, &dn);
+            u += p.dist_scale * (2.f * t.dsig[r] + (2.f / 3.f) * w * dn);
+          }
+          const float da = u * (t.sg[r] - w) - suffix;
+          suffix += u * w;
+          const float raw = t.sig_raw[r];
+          const float slope = f.sigma_act == 0 ? (raw > 0.f ? 1.f : 0.f) : 1.f / (1.f + expf(-raw));
+          t.dsig[r] = round_bf16(da * t.dl[r] * slope);
 #pragma unroll
-        for (int c = 0; c < 3; ++c)
-          t.drgb[r * kLdr + c] = __float2bfloat16_rn(w * dc[c] * rgb[c] * (1.f - rgb[c]));
-      }
-    } else {  // rays past the end: zero gradients, so their rows add nothing to dW
-      for (int s = 0; s < S; ++s) {
-        const int r = r0 + s;
-        t.dsig[r] = 0.f;
-        for (int c = 0; c < 3; ++c) t.drgb[r * kLdr + c] = __float2bfloat16_rn(0.f);
+          for (int c = 0; c < 3; ++c)
+            t.drgb[r * kLdr + c] = __float2bfloat16_rn(w * dc[c] * rgb[c] * (1.f - rgb[c]));
+        }
+      } else {  // rays past the end: zero gradients, so their rows add nothing to dW
+        for (int s = 0; s < S; ++s) {
+          const int r = r0 + s;
+          t.dsig[r] = 0.f;
+          for (int c = 0; c < 3; ++c) t.drgb[r * kLdr + c] = __float2bfloat16_rn(0.f);
+        }
       }
     }
+    for (int i = tid; i < rows * 13; i += kThreads)  // the k16 pad of d rgb_raw
+      t.drgb[(i / 13) * kLdr + 3 + i % 13] = __float2bfloat16_rn(0.f);
+    __syncthreads();
   }
-  for (int i = tid; i < rows * 13; i += kThreads)  // the k16 pad of d rgb_raw
-    t.drgb[(i / 13) * kLdr + 3 + i % 13] = __float2bfloat16_rn(0.f);
-  __syncthreads();
 
   for (int r = tid; r < rows_valid; r += kThreads) p.wts[ray0 * S + r] = t.w[r];
   bf16* grgb = p.grgb + row0 * 8;
   bf16* gsf = p.gsf + row0 * (F + 8);
-  for (int i = tid; i < rows * 8; i += kThreads) {
-    const int r = i / 8, c = i % 8;
-    grgb[i] = c < 3 ? t.drgb[r * kLdr + c] : __float2bfloat16_rn(0.f);
-    gsf[r * (F + 8) + F + c] = __float2bfloat16_rn(c == 0 ? t.dsig[r] : 0.f);
+  if (!kStreamed) {
+    for (int i = tid; i < rows * 8; i += kThreads) {
+      const int r = i / 8, c = i % 8;
+      grgb[i] = c < 3 ? t.drgb[r * kLdr + c] : __float2bfloat16_rn(0.f);
+      gsf[r * (F + 8) + F + c] = __float2bfloat16_rn(c == 0 ? t.dsig[r] : 0.f);
+    }
   }
 
   // ---- backward products, heads then trunk, pass by pass ----
@@ -321,8 +550,10 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
     const Stash st = stash(s0);
     auto bits = [&](int l) { return st.mask + l * st.mask_stride; };
     bf16* gh = p.gh + (row0 + s0) * W;
+    if (kStreamed) pass_drgb(p, t, ray0, n_valid, s0, grgb, gsf);
     // g_hv = bf16((d rgb_raw @ rgb_w^T) [hv > 0]), over hv's buffer
-    dense_layer(t.drgb + s0 * kLdr, kLdr, 16, wt(L + 1), nullptr, 0, 0, nullptr, V, t.wring,
+    dense_layer(t.drgb + (kStreamed ? 0 : s0 * kLdr), kLdr, 16, wt(L + 1), nullptr, 0, 0,
+                nullptr, V, t.wring,
                 GradStore{hv, f.ldb, bits(L), st.mw, nullptr, nullptr});
     __syncthreads();
     stash_rows(p.ghv + (row0 + s0) * V, V, hv, f.ldb, V);
@@ -347,9 +578,13 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
       nxt = tmp;
     }
   };
-  backward(0);
-  if (kPasses >= 2) backward(kRows);
-  if (kPasses >= 3) backward(2 * kRows);
+  if (kStreamed) {
+    for (int s0 = 0; s0 < rows; s0 += kRows) backward(s0);
+  } else {
+    backward(0);
+    if (kPasses >= 2) backward(kRows);
+    if (kPasses >= 3) backward(2 * kRows);
+  }
 }
 
 // ---- K2b: dW = A^T G over rows, the bias sums db = sum_rows G folded in ----
@@ -362,7 +597,10 @@ constexpr int kStageElems = 2 * kBK * kLdt;  // A's rows, then G's
 constexpr size_t kRedSmem = sizeof(bf16) * kStages * kStageElems;  // 52,224 B
 constexpr int kRedThreads = 256;
 constexpr int kSplitRows = 8192;  // rows per split (at most kMaxSplits splits)
-constexpr int kMaxSplits = 128;   // 8,192 rows each up to 4096 rays x 256 samples
+// a launch's rows: at most the wrapper's block of 1,048,576 (4096 rays x 256
+// samples), 128 splits of 8,192; a longer call would take longer splits
+constexpr int kMaxSplits = 128;
+constexpr int kJobs = 24;  // K2b jobs a launch: their table rides in the launch parameters
 
 struct Job {  // dW (K, N) = A^T G over the rows; with bias_out >= 0 also db = sum_rows G
   const bf16* a;
@@ -374,7 +612,7 @@ struct Job {  // dW (K, N) = A^T G over the rows; with bias_out >= 0 also db = s
 };
 
 struct ReduceParams {
-  Job jobs[kMaxMats];
+  Job jobs[kJobs];
   int n_jobs;
   long long rows, rows_per_split;
   long long total;  // elements of the flat gradient
@@ -520,6 +758,7 @@ __global__ void feat_bias_kernel(const bf16* view_w, int F, int V, const float* 
 struct Scratch {
   bf16 *sx, *sh, *sfeat, *shv, *sdv, *gh, *gsf, *ghv, *grgb;
   uint32_t* mask;
+  float* vals;  // the streamed instance's per-sample values, else null
   float* partial;
   size_t bytes;
 };
@@ -533,7 +772,7 @@ long long splits_for(long long rows) {
 int mask_words(int W, int V) { return ((W > V ? W : V) + 31) / 32; }
 
 Scratch scratch_layout(unsigned char* base, long long rows_pad, long long rows, int L, int W,
-                       int F, int V, int P, int D, long long total) {
+                       int F, int V, int P, int D, long long total, bool streamed) {
   Scratch s;
   size_t at = 0;
   auto bf = [&](long long elems) {
@@ -553,6 +792,11 @@ Scratch scratch_layout(unsigned char* base, long long rows_pad, long long rows, 
   s.mask = reinterpret_cast<uint32_t*>(base + at);
   at += (static_cast<size_t>((L + 1) * rows_pad * mask_words(W, V)) * sizeof(uint32_t) + 255) &
         ~static_cast<size_t>(255);
+  s.vals = nullptr;
+  if (streamed) {
+    s.vals = reinterpret_cast<float*>(base + at);
+    at += (static_cast<size_t>(kVals * rows_pad) * sizeof(float) + 255) & ~static_cast<size_t>(255);
+  }
   s.partial = reinterpret_cast<float*>(base + at);
   at += static_cast<size_t>(splits_for(rows) * total) * sizeof(float);
   s.bytes = at;
@@ -565,17 +809,34 @@ long long rows_padded(long long n_rays, int S) {
   return (n_rays + rays - 1) / rays * (rays * S);
 }
 
+// Whether K2a takes the streamed instance: past 256 samples, or where the
+// resident layout does not fit in the card's shared memory. *streamed is
+// set; returns 0 or a cudaError_t.
+int train_streamed(const Field& f, bool* streamed) {
+  size_t optin = 0;
+  const int rc = smem_optin(&optin);
+  if (rc != 0) return rc;
+  *streamed = f.S > kMaxResident || smem_layout(f, false).total > optin;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of scratch nerf_fused_train_grads needs; `total` is the number of
-// gradient elements (packed matrices, then packed biases).
+// gradient elements (packed matrices, then packed biases). Negative: -1 for
+// a sample count the kernels do not take, else a cudaError_t negated.
 long long nerf_fused_train_scratch_bytes(long long n_rays, int S, int depth_l, int W, int F,
                                          int V, int P, int D, long long total) {
   if (!takes_samples(S)) return -1;
+  Field f;
+  set_layout(&f, S, W, F, V, P, D);
+  bool streamed = false;
+  const int rc = train_streamed(f, &streamed);
+  if (rc != 0) return -static_cast<long long>(rc);
   return static_cast<long long>(scratch_layout(nullptr, rows_padded(n_rays, S), n_rays * S,
-                                               depth_l, W, F, V, P, D, total)
+                                               depth_l, W, F, V, P, D, total, streamed)
                                     .bytes);
 }
 
@@ -606,8 +867,11 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   const long long total = total_w + b_off[L + 2] + 8;
   const long long rows_pad = rows_padded(n_rays, S);
   const long long rows = n_rays * S;
+  bool streamed = false;
+  rc = train_streamed(p.f, &streamed);
+  if (rc != 0) return rc;
   const Scratch s = scratch_layout(static_cast<unsigned char*>(scratch), rows_pad, rows, L, W,
-                                   F, V, P, D, total);
+                                   F, V, P, D, total, streamed);
   p.gold = static_cast<const float*>(gold);
   p.wt = static_cast<const bf16*>(wt);
   for (int i = 0; i < kMaxMats; ++i) p.wt_off[i] = i < n_wt ? wt_off[i] : 0;
@@ -626,6 +890,7 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   p.grgb = s.grgb;
   p.mask = s.mask;
   p.mw = mask_words(W, V);
+  p.vals = s.vals;
   p.loss_scale = loss_scale;
   p.white_bg = white_bg;
   p.dist_scale = dist_scale;
@@ -633,11 +898,12 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   p.dist_b = dist_b;
   p.dist_disparity = dist_disparity;
 
-  const size_t smem = smem_layout(p.f, true).total;
-  const int passes = p.f.rows / kRows;
+  const size_t smem = smem_layout(p.f, streamed).total;
+  const int passes = streamed ? 0 : p.f.rows / kRows;
   auto tile = passes == 3 ? (contract ? train_tile_kernel<3, true> : train_tile_kernel<3, false>)
               : passes == 2 ? (contract ? train_tile_kernel<2, true> : train_tile_kernel<2, false>)
-                            : (contract ? train_tile_kernel<1, true> : train_tile_kernel<1, false>);
+              : passes == 1 ? (contract ? train_tile_kernel<1, true> : train_tile_kernel<1, false>)
+                            : (contract ? train_tile_kernel<0, true> : train_tile_kernel<0, false>);
   rc = set_smem(tile, smem);
   if (rc != 0) return rc;
   rc = set_smem(dw_partial_kernel, kRedSmem);
@@ -649,16 +915,16 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // K2b's jobs, in the packed order
-  ReduceParams q;
+  // K2b's jobs, in the packed order, launched kJobs at a time (one launch
+  // up to depth 19); each job writes its own slots of the partials
+  Job jobs[kMaxMats];
+  int n_jobs = 0;
   const long long hs = rows_pad * W;
   const bool skip_on = skip > 0 && skip < L;
-  int tiles = 0;
-  q.n_jobs = 0;
   // bias: the offset of db among the biases, or -1 where another job sums this G
   auto job = [&](const bf16* a, int K, const bf16* g, int N, long long out, long long bias,
                  int bias_col0) {
-    Job& jb = q.jobs[q.n_jobs++];
+    Job& jb = jobs[n_jobs++];
     jb.a = a;
     jb.g = g;
     jb.out = out;
@@ -667,8 +933,6 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
     jb.K = K;
     jb.N = N;
     jb.tiles_n = (N + kBT - 1) / kBT;
-    jb.tile0 = tiles;
-    tiles += ((K + kBT - 1) / kBT) * jb.tiles_n;
   };
   for (int l = 0; l < L; ++l)
     job(l == 0 ? s.sx : s.sh + (l - 1) * hs, l == 0 ? P : W, s.gh + l * hs, W, w_off[l],
@@ -681,14 +945,24 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   job(s.sdv, D, s.ghv, V, w_off[L + 3], -1, 0);
   job(s.shv, V, s.grgb, 8, w_off[L + 4], b_off[L + 2], 0);
   const long long splits = splits_for(rows);
+  ReduceParams q;
   q.rows = rows;
   q.rows_per_split = (rows + splits - 1) / splits;
   q.total = total;
   q.partial = s.partial;
-
-  dw_partial_kernel<<<dim3(tiles, static_cast<unsigned>(splits)), kRedThreads, kRedSmem, st>>>(q);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  for (int j0 = 0; j0 < n_jobs; j0 += kJobs) {
+    int tiles = 0;
+    q.n_jobs = n_jobs - j0 < kJobs ? n_jobs - j0 : kJobs;
+    for (int i = 0; i < q.n_jobs; ++i) {
+      q.jobs[i] = jobs[j0 + i];
+      q.jobs[i].tile0 = tiles;
+      tiles += ((q.jobs[i].K + kBT - 1) / kBT) * q.jobs[i].tiles_n;
+    }
+    dw_partial_kernel<<<dim3(tiles, static_cast<unsigned>(splits)), kRedThreads, kRedSmem, st>>>(
+        q);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   float* out = static_cast<float*>(grads);
   reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(
       s.partial, static_cast<int>(splits), total, out);

@@ -8,11 +8,11 @@ for CUDA tensors, and runs ``fused_ray_render_reference``, its plain
 PyTorch version, for CPU tensors. There is no other switch: on a CUDA
 tensor it launches the kernel or raises.
 
-Rays of 1 to 256 samples. The kernel takes whole rays in 128-row passes
+Rays of any length. The kernel takes whole rays in 128-row passes
 (``cta_rows``: 128 / S rays per CTA up to 128 samples, two rays of 192 in
-three passes, one of 256 in two) as tiles of persistent CTAs, in clusters of
-``K1_CLUSTER`` that share every weight slice (``k1_cta_rays`` mirrors the
-grid), and
+three passes, one of 256 or more in S / 128) as tiles of persistent CTAs, in
+clusters of ``K1_CLUSTER`` that share every weight slice (``k1_cta_rays``
+mirrors the grid), and
 multiplies by the weights in its own layout (``PackedWeights.k1``). So the
 wrapper pads S to
 ``padded_samples(S)`` with zero-length intervals at the far end (``pad_samples``, the JAX wrappers' pad): such
@@ -38,15 +38,15 @@ from .fused_render import (PackedWeights, contract_gaussian, contract_points, ip
 
 _SIGMA_ACT = {"relu": 0, "softplus": 1}
 TILE_ROWS = 128  # sample rows per CTA pass (kRows in csrc/field.cuh)
-MAX_SAMPLES = 256  # samples per ray after padding (kMaxSamples)
 K1_CLUSTER = 2  # K1's CTAs per cluster, each weight slice shared (kCluster in csrc/fused_ray.cu)
 
 _SHAPE_ERRORS = {
-    -1: "padded num_samples must divide 128, or be 192 or 256",
-    -2: "the packed weights do not match the kernel's layer list",
+    -1: "padded num_samples must divide 128, or be 192 or a multiple of 128",
+    -2: "the packed weights do not match the kernel's layer list (net_depth up to 123)",
     -3: "layer widths and padded encodings must be multiples of 16",
     -4: "the encoding does not fit its padded width",
-    -5: "the layer widths need more shared memory than a CTA has (K1: widths up to 256)",
+    -5: "the layer widths need more shared memory than a CTA has: net_width, feature_width "
+        "and view_head_width up to 256 fit both kernels",
     -6: "sigma_activation must be relu or softplus",
     -7: "radii must come with cfg.ipe and only with it",
     -8: "contract must be 0 or 1",
@@ -59,15 +59,18 @@ Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor
 def padded_samples(S: int) -> int:
     """The samples per ray the kernels run for S: the next power of two
     up to 128 (a divisor of the pass), 192 for 129 to 192 (two rays fill
-    three passes), else 256."""
+    three passes), 256 for 193 to 256, else the next multiple of 128 (one
+    ray in S / 128 passes)."""
     if S <= TILE_ROWS:
         return 1 << (S - 1).bit_length()
-    return 192 if S <= 192 else MAX_SAMPLES
+    if S <= 192:
+        return 192
+    return -(-S // TILE_ROWS) * TILE_ROWS
 
 
 def rays_per_cta(S: int) -> int:
     """Whole rays a CTA takes at the padded S (csrc/field.cuh
-    ``rays_per_cta``): 128 / S, 2 at 192, 1 at 256."""
+    ``rays_per_cta``): 128 / S, 2 at 192, else 1."""
     if S <= TILE_ROWS:
         return TILE_ROWS // S
     return 2 if S == 192 else 1
@@ -122,9 +125,9 @@ def _check(packed: PackedWeights, origins, dirs, viewdirs, ts, deltas,
            cfg: ModelConfig, num_samples: int, radii=None) -> None:
     """Shape and config checks, the same on every device."""
     n = origins.shape[0]
-    if not 1 <= num_samples <= MAX_SAMPLES:
-        raise ValueError(f"num_samples={num_samples}: the kernels take 1 to {MAX_SAMPLES} "
-                         f"samples per ray")
+    if num_samples < 1:
+        raise ValueError(f"num_samples={num_samples}: the kernels take one sample per ray "
+                         f"or more")
     if ts.shape != (n, num_samples) or deltas.shape != (n, num_samples):
         raise ValueError(f"ts/deltas must be ({n}, {num_samples}), got "
                          f"{tuple(ts.shape)} / {tuple(deltas.shape)}")
@@ -179,8 +182,10 @@ def fused_ray_render(
     ``cfg.contract``: the points (or Gaussians) are contracted into the
     radius-2 ball before the encoding (mip-NeRF 360).
 
-    Any N: the kernel masks the ragged last tile. 1 <= S <= 256.
-    Launches on the current stream without synchronising.
+    Any N: the kernel masks the ragged last tile. Any S >= 1 (past 256
+    samples, or where a CTA's per-sample values do not fit beside its tiles,
+    the kernel's streamed instance composites pass by pass). Launches on the
+    current stream without synchronising.
     """
     _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples, radii)
     if origins.device.type == "cpu":

@@ -3,8 +3,8 @@ points or Gaussians with ``cfg.contract`` -> field -> compositing -> MSE,
 plus mip-NeRF 360's distortion loss with ``dist_weight``) and a
 hand-written backward (loss -> compositing VJP -> head and trunk VJPs ->
 dW) over whole rays. The counterpart of
-``nerf_rs_tpu/kernels/fused_train.py``. Rays of 1 to 256 samples, padded
-as ``kernels/fused_ray.py`` pads them: a zero-length interval has weight 0
+``nerf_rs_tpu/kernels/fused_train.py``. Rays of any length, padded as
+``kernels/fused_ray.py`` pads them: a zero-length interval has weight 0
 and d sigma = da * 0 = 0, so every gradient row it gives is exactly 0, and
 its distortion length is 0 too.
 
@@ -13,14 +13,16 @@ K2a, the per-tile forward and backward, and K2b, the dW and bias
 reduction over rows) for CUDA tensors, and runs
 ``fused_train_grads_reference``, its plain PyTorch version, for CPU
 tensors. There is no other switch: on a CUDA tensor it launches the
-kernels or raises.
+kernels or raises. A call over more than ``BLOCK_ROWS`` padded rows
+launches them once per block of rays (``ray_blocks``), which bounds the
+stashes on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections import OrderedDict
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +32,7 @@ from ..config import ModelConfig
 
 from . import build
 from .fused_ray import (_SHAPE_ERRORS, _SIGMA_ACT, _check, _check_device, encode_samples,
-                        pad_samples)
+                        pad_samples, rays_per_cta)
 from .fused_render import PackedWeights, PackedWeightsT, pe_encode
 
 
@@ -55,6 +57,26 @@ from .fused_render import PackedWeights, PackedWeightsT, pe_encode
 # apart; a gradient leaf's gap is relative to its largest entry, 2.7e-5 for
 # the last trunk layer's bias there.
 KERNEL_TOL = {"diag": 1.5e-3, "weights": 2e-3, "grads": 2.5e-2}
+
+# How far a call launched in ray blocks may stand from the same call in one
+# launch, each gradient leaf normalised by its max: diag and weights are the
+# same bits, and K2b sums the same f32 rows in other groups.
+BLOCKED_TOL = 1e-4
+
+# Padded sample rows of one launch: 4096 rays x 256 samples, the record
+# preset's union call, whose stashes and partials take 11.0 GB at paper width
+# (~10.5 KB a row). Longer calls run in blocks of at most this many.
+BLOCK_ROWS = 1 << 20
+
+
+def ray_blocks(n_rays: int, S: int, rows: int = BLOCK_ROWS) -> List[Tuple[int, int]]:
+    """The launches of a call on ``n_rays`` rays at the padded S: ranges
+    [lo, hi) of consecutive rays in whole CTA tiles (``rays_per_cta(S)``
+    rays each), each at most ``rows`` padded rows (one tile at least); a
+    call within ``rows`` is one block."""
+    R = rays_per_cta(S)
+    per = max(R, rows // (R * S) * R)
+    return [(lo, min(lo + per, n_rays)) for lo in range(0, n_rays, per)]
 
 
 class TrainGrads(NamedTuple):
@@ -146,8 +168,13 @@ def fused_train_grads(
     Gaussians) before the encoding.
 
     Any N: the kernel masks the ragged last tile (no padded ray enters
-    the loss). 1 <= S <= 256. Launches on the current stream without
-    synchronising; two calls on the same inputs give identical bits.
+    the loss). Any S >= 1. Launches on the current stream without
+    synchronising; two calls on the same inputs give identical bits. Past
+    ``BLOCK_ROWS`` padded rows the call launches the kernels once per block
+    of ``ray_blocks``, each block's means taken over all N rays (diag and
+    weights written in place, the blocks' gradients summed in block order),
+    and ``fused_train_grads.launches`` counts each block's launch: a call
+    within ``BLOCK_ROWS`` adds 1.
     """
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
                  num_samples, radii)
@@ -175,36 +202,51 @@ def fused_train_grads(
     w = torch.empty(n, S, device=dev)
     grads = torch.empty(total, device=dev)
     lib = _library()
-    nbytes = lib.nerf_fused_train_scratch_bytes(n, S, packed.depth, packed.W, packed.F,
-                                                packed.V, packed.P, packed.D, total)
-    # the stashes and dW partials; freed on return while the kernels may
-    # still run, which is safe: the caching allocator hands the block out
-    # again only in this stream's order
+    blocks = ray_blocks(n, S, BLOCK_ROWS)
+    nbytes = lib.nerf_fused_train_scratch_bytes(blocks[0][1], S, packed.depth, packed.W,
+                                                packed.F, packed.V, packed.P, packed.D, total)
+    if nbytes < 0:
+        raise ValueError(f"fused_train kernel refused the call: {_SHAPE_ERRORS[-1]}"
+                         if nbytes == -1 else f"CUDA error {-nbytes} sizing the scratch")
+    # the stashes and dW partials of the largest block, reused by the next
+    # block in stream order; freed on return while the kernels may still
+    # run, which is safe: the caching allocator hands the block out again
+    # only in this stream's order
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    part = torch.empty(total, device=dev) if len(blocks) > 1 else grads
     i64 = ctypes.c_longlong
     w_off = (i64 * len(packed.w_off))(*packed.w_off)
     b_off = (i64 * len(packed.b_off))(*packed.b_off)
     wt_off = (i64 * len(packed_t.w_off))(*packed_t.w_off)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.nerf_fused_train_grads(
-        origins.data_ptr(), dirs.data_ptr(), viewdirs.data_ptr(), ts_p.data_ptr(),
-        dl_p.data_ptr(), None if radii is None else radii.data_ptr(), gold.data_ptr(),
-        packed.w.data_ptr(), packed.b.data_ptr(),
-        w_off, len(packed.w_off), b_off, len(packed.b_off),
-        packed_t.w.data_ptr(), wt_off, len(packed_t.w_off), packed_t.sigma_row.data_ptr(),
-        diag.data_ptr(), w.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
-        n, S, packed.depth, packed.skip_layer, packed.W, packed.F, packed.V, packed.P,
-        packed.D, packed.pos_levels, packed.dir_levels, _SIGMA_ACT[cfg.sigma_activation],
-        int(cfg.ipe), int(white_bg), 1.0 / (3.0 * n), int(cfg.contract), dist_weight / n,
-        dist_a, dist_b, int(disparity), stream,
-    )
-    if rc < 0:
-        raise ValueError(f"fused_train kernel refused the call: {_SHAPE_ERRORS[rc]}")
-    if rc > 0:
-        msg = lib.nerf_cuda_error_string(rc).decode()
-        raise RuntimeError(f"fused_train kernel launch failed: CUDA error {rc} ({msg})")
-    fused_train_grads.launches += 1
+    for i, (lo, hi) in enumerate(blocks):
+        out = grads if i == 0 else part
+        rc = lib.nerf_fused_train_grads(
+            _row(origins, lo), _row(dirs, lo), _row(viewdirs, lo), _row(ts_p, lo),
+            _row(dl_p, lo), None if radii is None else _row(radii, lo), _row(gold, lo),
+            packed.w.data_ptr(), packed.b.data_ptr(),
+            w_off, len(packed.w_off), b_off, len(packed.b_off),
+            packed_t.w.data_ptr(), wt_off, len(packed_t.w_off), packed_t.sigma_row.data_ptr(),
+            _row(diag, lo), _row(w, lo), out.data_ptr(), scratch.data_ptr(),
+            hi - lo, S, packed.depth, packed.skip_layer, packed.W, packed.F, packed.V,
+            packed.P, packed.D, packed.pos_levels, packed.dir_levels,
+            _SIGMA_ACT[cfg.sigma_activation], int(cfg.ipe), int(white_bg), 1.0 / (3.0 * n),
+            int(cfg.contract), dist_weight / n, dist_a, dist_b, int(disparity), stream,
+        )
+        if rc < 0:
+            raise ValueError(f"fused_train kernel refused the call: {_SHAPE_ERRORS[rc]}")
+        if rc > 0:
+            msg = lib.nerf_cuda_error_string(rc).decode()
+            raise RuntimeError(f"fused_train kernel launch failed: CUDA error {rc} ({msg})")
+        fused_train_grads.launches += 1
+        if i > 0:  # the blocks' sums in block order: the same bits on every call
+            grads += part
     return TrainGrads(diag, w[:, :num_samples], *_split(grads, packed))
+
+
+def _row(t: torch.Tensor, i: int) -> int:
+    """The address of row ``i`` of a contiguous tensor, without a view."""
+    return t.data_ptr() + i * t.stride(0) * t.element_size()
 
 
 # calls that launched the kernels so far in this process; a run reads it

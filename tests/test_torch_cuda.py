@@ -31,7 +31,7 @@ from nerf_rs_tpu_torch.kernels.fused_ray import (
     fused_ray_render, fused_ray_render_reference)
 from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
 from nerf_rs_tpu_torch.kernels.fused_train import (
-    KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
+    BLOCKED_TOL, KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
 from nerf_rs_tpu_torch.models import hashgrid
 from nerf_rs_tpu_torch.models.factored import basis_dim
 from nerf_rs_tpu_torch.models.mlp import init_nerf_params
@@ -153,10 +153,11 @@ def test_kernel_branches_match_plain_version(field, sigma_act, ipe, n, s):
 
 
 # K1's wgmma kernel on every branch (field, sigma, IPE, contraction, rays,
-# samples): S of 1 to 256 as padded_samples takes them (1, 64, 128; 150
-# and 192 run as 192, two rays a CTA in three passes; 193 and 256 as 256),
-# one ray, 4,103 rays and odd CTA counts (a cluster's second CTA past the
-# last ray), and the instance for other widths than the paper's (SMALL)
+# samples): S as padded_samples takes them (1, 64, 128; 150 and 192 run as
+# 192, two rays a CTA in three passes; 193 and 256 as 256; 300 as 384 and
+# 640, one ray a CTA in S / 128 passes on the streamed instance), one ray,
+# 4,103 rays and odd CTA counts (a cluster's second CTA past the last ray),
+# and the instances for other widths than the paper's (SMALL)
 K1_CASES = [
     ({}, "relu", False, False, 4103, 1),  # 33 CTAs
     ({}, "relu", False, False, 1, 64),
@@ -168,6 +169,9 @@ K1_CASES = [
     ({}, "softplus", False, True, 4103, 256),
     (SMALL, "relu", False, False, 7, 64),
     (SMALL, "softplus", True, True, 9, 192),
+    ({}, "relu", False, False, 5, 300),
+    ({}, "softplus", True, True, 37, 640),
+    (SMALL, "relu", False, False, 7, 384),
 ]
 
 
@@ -250,6 +254,8 @@ TRAIN_CASES = [
     ({}, "softplus", True, 37, 64),
     (SMALL, "relu", True, 37, 16),
     (SMALL, "softplus", False, 5, 128),
+    ({}, "relu", True, 37, 300),
+    (SMALL, "softplus", False, 5, 512),
 ]
 
 
@@ -274,7 +280,8 @@ def test_train_kernel_branches_match_plain_version(field, sigma_act, ipe, n, s):
     _check_train(got, args, True, radii)
 
 
-@pytest.mark.parametrize("s,ipe", [(64, False), (192, False), (128, True)])
+@pytest.mark.parametrize("s,ipe", [(64, False), (192, False), (128, True), (300, False),
+                                  (300, True)])
 def test_train_kernel_is_deterministic(s, ipe):
     dev = _device()
     args, radii = _train_args({}, "relu", 333, s, dev, ipe)
@@ -312,6 +319,80 @@ def test_union_rows_match_a_call_padded_to_256(s):
     for x, y in zip((got.diag, got.weights, *got.dw, *got.db),
                     (again.diag, again.weights, *again.dw, *again.db)):
         assert torch.equal(x, y)
+
+
+def test_blocked_train_call_equals_its_blocks(monkeypatch):
+    """K2 over more rays than a block holds (the block cap lowered to 3,072
+    rows: 8 rays of 384 a block) launches once per block; against the same
+    call in one launch (the cap as shipped), diag and weights are the same
+    bits, and the gradients, whose rows K2b sums in other groups, stand
+    within BLOCKED_TOL of each leaf's max; against the plain version at
+    KERNEL_TOL."""
+    from nerf_rs_tpu_torch.kernels import fused_train
+
+    dev = _device()
+    n, s = 37, 300
+    args, _ = _train_args({}, "relu", n, s, dev)
+    before = fused_train_grads.launches
+    whole = fused_train_grads(*args, white_bg=True)
+    assert fused_train_grads.launches - before == 1
+    monkeypatch.setattr(fused_train, "BLOCK_ROWS", 3072)
+    before = fused_train_grads.launches
+    got = fused_train_grads(*args, white_bg=True)
+    assert fused_train_grads.launches - before == len(fused_train.ray_blocks(n, 384, 3072)) == 5
+    _check_train(got, args, True, None)
+    assert torch.equal(got.diag, whole.diag)
+    assert torch.equal(got.weights, whole.weights)
+    for i, (g, w) in enumerate(zip(got.dw + got.db, whole.dw + whole.db)):
+        scale = max(float(w.abs().max()), 1e-12)
+        assert float((g - w).abs().max()) / scale <= BLOCKED_TOL, i
+
+
+# fields past the resident layouts: depth 21 (K1's biases no longer fit
+# beside its tiles at S = 192) and IPE at 16 levels (112 encoding columns: at
+# S = 150 neither kernel's resident layout fits), softplus density. The deep
+# field runs on 4,103 rays, as chip_smoke.py's phase 33: its first layers'
+# gradients are ~1e-5 of the heads' at this scale, and on 37 rays the bf16
+# rounding flips of 21 trunk G's put even the f32 plain version 3.2e-2 of
+# the first leaf's max from its float64 witness (K2 3.8e-2), past
+# KERNEL_TOL; on 4,103 rays 2.9e-3 (K2 4.3e-3; an H100).
+@pytest.mark.parametrize("field,ipe,n,s", [(dict(net_depth=21, skip_layer=4), False, 4103, 64),
+                                           (dict(net_depth=21, skip_layer=4), False, 4103, 192),
+                                           (dict(pos_enc_levels=16), True, 37, 150)])
+def test_streamed_instances_match_plain_version(field, ipe, n, s):
+    dev = _device()
+    cfg = ModelConfig(sigma_activation="softplus", ipe=ipe, **field)
+    model = _biased_model(cfg, dev)
+    rays, radii = _branch_rays(ipe, n, s, dev)
+    args = (pack_weights(model, cfg), *rays, cfg, s)
+    got = fused_ray_render(*args, radii=radii)
+    torch.cuda.synchronize()
+    want = fused_ray_render_reference(*args, radii=radii)
+    for name, g, w, tol in zip(("rgb", "acc", "depth", "weights", "sigma"), got, want,
+                               (1e-3, 1e-3, 2e-3, 1e-3, 2e-2)):
+        assert float((g - w).abs().max()) <= tol, name
+    pk = args[0]
+    gold = torch.from_numpy(np.random.default_rng(1).uniform(size=(n, 3))
+                            .astype(np.float32)).to(dev)
+    targs = (pk, pack_weights_t(pk), *rays, gold, cfg, s)
+    _check_train(fused_train_grads(*targs, white_bg=True, radii=radii), targs, True, radii)
+
+
+def test_wrappers_refuse_widths_above_256():
+    """The one shape both kernels still refuse: a field wider than 256 (the
+    JAX kernels take it; the plain versions run it on the CPU), with a
+    message that names the cap."""
+    dev = _device()
+    cfg = ModelConfig(net_depth=3, skip_layer=2, net_width=512, feature_width=512,
+                      view_head_width=256)
+    model = init_nerf_params(cfg, 0, dev)
+    pk = pack_weights(model, cfg)
+    o, d, vd, ts, dl = _rays(8, 16, dev)
+    with pytest.raises(ValueError, match="up to 256"):
+        fused_ray_render(pk, o, d, vd, ts, dl, cfg, 16)
+    gold = torch.zeros(8, 3, device=dev)
+    with pytest.raises(ValueError, match="up to 256"):
+        fused_train_grads(pk, pack_weights_t(pk), o, d, vd, ts, dl, gold, cfg, 16)
 
 
 def test_wrapper_refuses_non_contiguous_rays():

@@ -168,9 +168,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     o, d, vd, ts, dl = map(torch.from_numpy, rays)
     with pytest.raises(ValueError, match="ts/deltas"):
         fused_ray_render(pk, o, d, vd, ts, dl, CFG, S // 2)
-    with pytest.raises(ValueError, match="1 to 256"):  # on every device
-        ts257 = torch.linspace(0.1, 1.9, 257).expand(N, 257)
-        fused_ray_render(pk, o, d, vd, ts257, ts257, CFG, 257)
+    # rays of any length: 257 samples run (padded to 384 on the card)
+    ts257 = torch.linspace(0.1, 1.9, 257).expand(N, 257).contiguous()
+    dl257 = torch.full((N, 257), 1.8 / 256)
+    long = fused_ray_render(pk, o, d, vd, ts257, dl257, CFG, 257)
+    assert long[3].shape == (N, 257) and all(bool(torch.isfinite(a).all()) for a in long)
+    with pytest.raises(ValueError, match="one sample per ray or more"):  # on every device
+        fused_ray_render(pk, o, d, vd, ts[:, :0], dl[:, :0], CFG, 0)
     with pytest.raises(ValueError, match="radii"):
         fused_ray_render(pk, o, d, vd, ts, dl, ModelConfig(**{**CFG.__dict__, "ipe": True}), S)
     with pytest.raises(ValueError, match="radii"):

@@ -175,9 +175,13 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     pk = fused_render.pack_weights(model, CFG)
     pkt = fused_render.pack_weights_t(pk)
     o, d, vd, ts, dl, gold = map(torch.from_numpy, rays)
-    with pytest.raises(ValueError, match="1 to 256"):
-        ts257 = torch.linspace(0.1, 1.9, 257).expand(N, 257).contiguous()
-        fused_train_grads(pk, pkt, o, d, vd, ts257, ts257, gold, CFG, 257)
+    # rays of any length: 257 samples run (padded to 384 on the card)
+    ts257 = torch.linspace(0.1, 1.9, 257).expand(N, 257).contiguous()
+    long = fused_train_grads(pk, pkt, o, d, vd, ts257, torch.full((N, 257), 1.8 / 256), gold,
+                             CFG, 257)
+    assert long.weights.shape == (N, 257) and bool(torch.isfinite(long.dw[0]).all())
+    with pytest.raises(ValueError, match="one sample per ray or more"):
+        fused_train_grads(pk, pkt, o, d, vd, ts[:, :0], dl[:, :0], gold, CFG, 0)
     with pytest.raises(ValueError, match="gold"):
         fused_train_grads(pk, pkt, o, d, vd, ts, dl, gold[:, :2], CFG, S)
     with pytest.raises(ValueError, match="radii"):  # IPE needs the cone radii

@@ -3,7 +3,8 @@ csrc/field_wgmma.cuh, kernels/fused_render.pack_weights_k1,
 kernels/fused_ray.k1_cta_rays):
 
 * its weight layout unpacks to the bf16 matrices of the JAX package's
-  packing, for every matrix, at the paper width and at a narrow one;
+  packing, for every matrix, at the paper width, at narrow ones and at
+  depth 21;
 * its biases, read as each quad lane of an accumulator fragment reads
   them (csrc/fused_ray.cu ``product``), start every column of every
   trunk, feature and view-head layer from that column's bias;
@@ -13,8 +14,9 @@ kernels/fused_ray.k1_cta_rays):
   layer's product, and the accumulator fragment covers each (row, column)
   of a warpgroup's tile once;
 * the persistent CTA grid, in clusters of K1_CLUSTER, takes every ray
-  exactly once for every padded S, ragged N and number of clusters the
-  card holds.
+  exactly once for every padded S up to 256 and for rays of 300 to 2048
+  samples (one ray a CTA in S / 128 passes), ragged N and number of
+  clusters the card holds.
 
 The kernel itself against its plain version needs the card:
 tests/test_torch_cuda.py.
@@ -42,6 +44,10 @@ NARROW = ModelConfig(net_depth=3, net_width=32, skip_layer=2, feature_width=32,
                      view_head_width=16, pos_enc_levels=4, dir_enc_levels=2)
 ODD = ModelConfig(net_depth=3, net_width=48, skip_layer=2, feature_width=80,
                   view_head_width=16, pos_enc_levels=4, dir_enc_levels=2)  # padded products
+DEEP = ModelConfig(net_depth=21, net_width=32, skip_layer=4, feature_width=32,
+                   view_head_width=16, pos_enc_levels=4, dir_enc_levels=2)  # 26 matrices
+# the padded sample counts: every one up to 256, then rays of 300 to 2048 samples
+LONG_S = sorted({padded_samples(s) for s in (*range(1, 257), 300, 384, 512, 577, 2048)})
 
 
 def _packed(cfg, seed=0):
@@ -63,7 +69,8 @@ def _jax_matrices(jpk, cfg):
     return [torch.from_numpy(np.asarray(m, np.float32)) for m in mats]
 
 
-@pytest.mark.parametrize("cfg", [PAPER, NARROW, ODD], ids=["paper", "narrow", "odd"])
+@pytest.mark.parametrize("cfg", [PAPER, NARROW, ODD, DEEP],
+                         ids=["paper", "narrow", "odd", "deep"])
 def test_k1_layout_unpacks_to_the_jax_matrices(cfg):
     pk, jpk = _packed(cfg)
     k1 = pk.k1
@@ -110,7 +117,8 @@ def _fragment_bias_reads(b: np.ndarray, n: int) -> np.ndarray:
     return out
 
 
-@pytest.mark.parametrize("cfg", [PAPER, NARROW, ODD], ids=["paper", "narrow", "odd"])
+@pytest.mark.parametrize("cfg", [PAPER, NARROW, ODD, DEEP],
+                         ids=["paper", "narrow", "odd", "deep"])
 def test_fragment_bias_order_starts_every_column_from_its_bias(cfg):
     """Random biases through pack_weights_k1: every column of every trunk
     layer, the feature layer and the view head starts from its own bias,
@@ -150,7 +158,8 @@ def _tile_off(r: int, k: int) -> int:
     return (k >> 3) * 2048 + (r >> 3) * 128 + (r & 7) * 16 + (k & 7) * 2
 
 
-@pytest.mark.parametrize("cfg", [PAPER, NARROW, ODD], ids=["paper", "narrow", "odd"])
+@pytest.mark.parametrize("cfg", [PAPER, NARROW, ODD, DEEP],
+                         ids=["paper", "narrow", "odd", "deep"])
 def test_descriptor_addressing_reads_every_matrix(cfg):
     """Every matrix read element by element through the B descriptor's
     addressing, one k16 step at a time, is the packed matrix."""
@@ -209,7 +218,7 @@ def test_warpgroup_product_through_both_descriptors():
 
 @pytest.mark.parametrize("clusters", [1, 3, 66])
 @pytest.mark.parametrize("n", [1, 127, 4103])
-@pytest.mark.parametrize("s", sorted({padded_samples(s) for s in range(1, 257)}))
+@pytest.mark.parametrize("s", LONG_S)
 def test_k1_grid_takes_every_ray_once(s, n, clusters):
     """Every padded S, ragged N and number of clusters the card holds: the
     persistent grid is a whole number of clusters, no more than the tiles

@@ -1,8 +1,11 @@
 """How the whole-ray kernels lay rays out on their CTAs, on the CPU: the
-padded sample counts (a power of two up to 128, 192 for 129 to 192, 256
-above), the row-to-ray mapping of a CTA's 128-row passes (one, two or three
-of them), and the plain versions of K1 and K2 on rays padded to 192 against
-the JAX package's Pallas kernels in interpret mode on the unpadded rays.
+padded sample counts (a power of two up to 128, 192 for 129 to 192, 256 for
+193 to 256, the next multiple of 128 above), the row-to-ray mapping of a
+CTA's 128-row passes (one to five of them here), the train kernel's blocks
+of rays past 1,048,576 padded rows (every ray once; the blocks' gradients
+sum to one call's), and the plain versions of K1 and K2 on rays padded to
+192 against the JAX package's Pallas kernels in interpret mode on the
+unpadded rays.
 
 Small widths (depth 3, width 32), a few rays, inputs from numpy seeds.
 """
@@ -24,7 +27,9 @@ from nerf_rs_tpu_torch.convert import params_from_numpy, params_to_numpy
 from nerf_rs_tpu_torch.kernels import fused_render
 from nerf_rs_tpu_torch.kernels.fused_ray import (TILE_ROWS, cta_rows, fused_ray_render_reference,
                                                  pad_samples, padded_samples, rays_per_cta)
-from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads_reference, unpack_grads
+from nerf_rs_tpu_torch.kernels.fused_train import (BLOCK_ROWS, fused_train_grads,
+                                                   fused_train_grads_reference, ray_blocks,
+                                                   unpack_grads)
 from nerf_rs_tpu_torch.models.mlp import NerfMLP
 
 torch.set_num_threads(2)
@@ -35,10 +40,12 @@ N = 8
 
 
 def test_padded_samples_for_every_count():
-    """1 to 256 samples: the next power of two up to 128, 192 for 129 to
-    192, 256 above; every CTA's rows are whole 128-row passes."""
-    for s in range(1, 257):
-        want = 1 << (s - 1).bit_length() if s <= 128 else (192 if s <= 192 else 256)
+    """1 to 2048 samples: the next power of two up to 128, 192 for 129 to
+    192, 256 for 193 to 256, the next multiple of 128 above (one ray a CTA);
+    every CTA's rows are whole 128-row passes."""
+    for s in range(1, 2049):
+        want = (1 << (s - 1).bit_length() if s <= 128 else 192 if s <= 192 else 256 if s <= 256
+                else -(-s // 128) * 128)
         sp = padded_samples(s)
         assert sp == want, s
         assert padded_samples(sp) == sp
@@ -46,10 +53,12 @@ def test_padded_samples_for_every_count():
 
 
 @pytest.mark.parametrize("s,rays,passes", [(1, 128, 1), (64, 2, 1), (128, 1, 1), (192, 2, 3),
-                                           (256, 1, 2)])
+                                           (256, 1, 2), (384, 1, 3), (512, 1, 4),
+                                           (640, 1, 5)])
 def test_cta_rows_take_whole_rays(s, rays, passes):
     """The CTA's passes cover each (ray, sample) of its whole rays once, in
-    row order; at 192 the second pass ends ray 0 and starts ray 1."""
+    row order; at 192 the second pass ends ray 0 and starts ray 1; past 256
+    one ray takes S / 128 passes."""
     m = cta_rows(s)
     assert rays_per_cta(s) == rays
     assert m.shape == (passes, TILE_ROWS, 2)
@@ -59,6 +68,70 @@ def test_cta_rows_take_whole_rays(s, rays, passes):
     if s == 192:
         assert m[1, :, 0].unique().tolist() == [0, 1]
         assert m[1, 63].tolist() == [0, 191] and m[1, 64].tolist() == [1, 0]
+
+
+@pytest.mark.parametrize("n,s", [(1, 64), (4096, 64), (4096, 192), (4103, 192), (4096, 256),
+                                 (4097, 256), (4096, 384), (4096, 512), (1000, 2048),
+                                 (9000, 128)])
+def test_ray_blocks_take_every_ray_once(n, s):
+    """The train kernel's launches: consecutive blocks of whole CTA tiles,
+    every ray in one, each at most BLOCK_ROWS padded rows; a call within
+    BLOCK_ROWS (every preset's, up to 4096 x 256) is one launch."""
+    R = rays_per_cta(s)
+    blocks = ray_blocks(n, s)
+    assert blocks[0][0] == 0 and blocks[-1][1] == n
+    assert all(a[1] == b[0] for a, b in zip(blocks, blocks[1:]))
+    for lo, hi in blocks:
+        assert lo % R == 0 and hi > lo
+        assert -(-(hi - lo) // R) * R * s <= BLOCK_ROWS
+    assert (len(blocks) == 1) == (-(-n // R) * R * s <= BLOCK_ROWS)
+    if len(blocks) > 1:  # as few launches as the cap allows
+        assert len(blocks) == -(-n // (BLOCK_ROWS // (R * s) * R))
+
+
+@pytest.mark.parametrize("s,white,space", [(300, False, None), (192, True, "disparity")])
+def test_blocked_gradients_sum_to_one_call(s, white, space):
+    """The plain version on the blocks of ray_blocks at a small row cap (four
+    blocks of two rays), each with its own means, against one call on every
+    ray: diag and weights per ray at f32 rounding (atol 1e-6); a quarter of
+    the blocks' gradients, summed in block order, within 1e-5 of each leaf's
+    max (a block's loss scale is four times the call's, a power of two, so
+    every bf16 rounding scales with it; only the f32 sums of the rows group
+    otherwise). The CPU wrapper is the plain version: the same bits."""
+    cfg = dataclasses.replace(MODEL, sigma_activation="softplus")
+    _, model = _model(cfg, 25)
+    n = 8
+    rays, _ = _rays(n, s, 26, False)
+    o, d, vd, ts, deltas, gold = map(_t, rays)
+    pk = fused_render.pack_weights(model, cfg)
+    pkt = fused_render.pack_weights_t(pk)
+    dist = ({} if space is None
+            else dict(dist_weight=0.05, near=0.05, far=2.0, dist_space=space))
+    tp, dp = pad_samples(ts, deltas)
+    sp = tp.shape[1]
+    blocks = ray_blocks(n, sp, rows=2 * sp)
+    assert [hi - lo for lo, hi in blocks] == [2] * 4
+    whole = fused_train_grads_reference(pk, pkt, o, d, vd, tp, dp, gold, cfg, sp, white,
+                                        **dist)
+    parts = [fused_train_grads_reference(pk, pkt, o[lo:hi], d[lo:hi], vd[lo:hi], tp[lo:hi],
+                                         dp[lo:hi], gold[lo:hi], cfg, sp, white, **dist)
+             for lo, hi in blocks]
+    torch.testing.assert_close(torch.cat([p.diag for p in parts]), whole.diag, atol=1e-6,
+                               rtol=0)
+    torch.testing.assert_close(torch.cat([p.weights for p in parts]), whole.weights, atol=1e-6,
+                               rtol=0)
+    for i, want in enumerate(whole.dw + whole.db):
+        got = (parts[0].dw + parts[0].db)[i].clone()
+        for p in parts[1:]:
+            got += (p.dw + p.db)[i]
+        got *= 0.25
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-5 * max(scale, 1e-12), i
+    again = fused_train_grads(pk, pkt, o, d, vd, tp, dp, gold, cfg, sp, white, **dist)
+    assert all(torch.equal(a, b) for a, b in zip((again.diag, again.weights, *again.dw,
+                                                  *again.db),
+                                                 (whole.diag, whole.weights, *whole.dw,
+                                                  *whole.db)))
 
 
 def _model(cfg, seed):
