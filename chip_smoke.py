@@ -263,6 +263,22 @@ Phases, each fatal (any failure exits non-zero):
      its plain version, its library path and its bound (time_branches,
      LONG_SHAPES); the train steps of phase 34's two configurations through
      K2 and autograd, with a profile of each K2 step.
+ 36. fields of any width (faults 13 and 14; run after phase 35): at every
+     width of WIDTHS (40/40/24 and 100/100/50, padded to multiples of 16;
+     384/384/128, 512/512/256 and 1024/256/128, the wide instances), K1 and
+     K2 vs their plain versions (K2 also vs the float64 witness) at S = 64
+     (relu), 192 (IPE) and 300 (the contraction with the disparity
+     distortion loss), random biases, reruns bit-identical, the padded S's
+     call equal, exact launches (check_widths); at 512/512/256 and
+     1024/256/128 (WIDE_RUNS) train/loop.train for WIDE_STEPS steps of
+     `--preset full` through K2 (exactly one launch a step) and through
+     autograd, each timed, the 800x800 frame from seeded weights through
+     K1 twice (exact chunks, equal bits; its first rays held to the plain
+     version) beside the eager field's (best of 2 each), the steps alone;
+     at those widths and at 40/40/24 and 100/100/50 one K1 chunk and one K2
+     call at the main path's shapes, each held whole to its plain version
+     (K1 at TOL, K2 at KERNEL_TOL) and timed beside it, its library path and
+     its bound, the K2 call's scratch bytes (drive_wide).
 The record, multiscale and lego learning drives and fault 6's check fail the run at its end,
 after phase 29 has printed its measurements. `clock:` lines give each
 phase's wall seconds. Every kernel launch counter is set
@@ -1798,6 +1814,23 @@ LONG_SHAPES = tuple(Shape(k, c, False, False, None, n, s, 0.05, 2.0, False)
                                        ("K2", "S=512, 4096 rays (two blocks)", 4096, 512)))
 
 
+# Phase 36: fields of any width (faults 13 and 14), as (net, feature, view
+# head) widths: no multiples of 16 (pack_weights pads them), and past 256 (the
+# wide instances), 1024 being mip-NeRF 360's trunk with this package's heads
+WIDTHS = {"40/40/24": (40, 40, 24), "100/100/50": (100, 100, 50),
+          "384/384/128": (384, 384, 128), "512/512/256": (512, 512, 256),
+          "1024/256/128": (1024, 256, 128)}
+# each width's checks: (S, IPE, contraction + disparity distortion), on
+# WIDTH_ROWS // S of the N_RAYS rays (the float64 witness of the 1024-wide
+# field stays a few GB)
+WIDTH_BRANCHES = ((64, False, False), (192, True, False), (300, False, True))
+WIDTH_ROWS = 32768
+WIDE_RUNS = ("512/512/256", "1024/256/128")  # the trains and frames of phase 36
+PADDED_RUNS = ("40/40/24", "100/100/50")  # timed calls only (no path of their own)
+WIDE_STEPS = 20
+WIDE_WINDOW = 3  # steps a timing window of the K2 and autograd steps
+
+
 def check_long_case(label, model, cfg, rays, gold, ts, dl, radii=None, dist=None,
                     autograd=False, far=2.0) -> tuple:
     """K1 and K2 on one set of samples: K1 vs its plain version (TOL, depth
@@ -2032,6 +2065,328 @@ def check_long_rays(model, mcfg, rays, gold, cam) -> tuple:
     del got, parts, sums
     torch.cuda.empty_cache()
     return k1_err, k2_err, launches
+
+
+def width_cfg(name: str, base=None, **changes):
+    """The flagship ModelConfig (or ``base``) at WIDTHS[name]."""
+    import dataclasses
+
+    from nerf_rs_tpu_torch import ModelConfig
+
+    w, f, v = WIDTHS[name]
+    return dataclasses.replace(base or ModelConfig(), net_width=w, feature_width=f,
+                               view_head_width=v, **changes)
+
+
+def check_widths(rays, gold, cam) -> tuple:
+    """Phase 36's checks: at every width of WIDTHS, K1 and K2 against their
+    plain versions (check_long_case: K1 at TOL, K2 at KERNEL_TOL and against
+    the float64 witness, reruns bit-identical, the padded S's call equal) at
+    S = 64 (relu), 192 (IPE, softplus) and 300 (the contraction with the
+    disparity distortion loss, softplus), random biases, each case's launches
+    exact (3 of each kernel: the call, its rerun, the padded call). Returns
+    the largest differences of K1 and K2 from their plain versions and the
+    launch counts by case."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+    from nerf_rs_tpu_torch.models.mlp import init_nerf_params
+
+    dev = rays[0].device
+    gen = torch_generator(dev, 36)
+    k1_err = k2_err = 0.0
+    counts = {}
+    for name in WIDTHS:
+        for s, ipe, contract in WIDTH_BRANCHES:
+            cfg = width_cfg(name, ipe=ipe, contract=contract,
+                            sigma_activation="softplus" if ipe or contract else "relu")
+            model = random_biases_(init_nerf_params(cfg, 0, dev), 36)
+            n = min(N_RAYS, WIDTH_ROWS // s)
+            near, far = (UNB_NEAR, UNB_FAR) if contract else (cam.near, cam.far)
+            space = "disparity" if contract else "linear"
+            ts, dl, _, radii = sample_inputs(n, s, ipe, cam, gen, near, far, space)
+            dist = (dict(dist_weight=UNB_DIST, near=near, far=far, dist_space=space)
+                    if contract else None)
+            label = (f"widths {name}, S={s}{' IPE' if ipe else ''}"
+                     f"{' contract + disparity distortion' if contract else ''}, {n} rays")
+            fused_ray_render.launches = fused_train_grads.launches = 0
+            a, b = check_long_case(label, model, cfg, tuple(r[:n].contiguous() for r in rays),
+                                   gold[:n].contiguous(), ts, dl, radii, dist, far=far)
+            got = (fused_ray_render.launches, fused_train_grads.launches)
+            counts[f"{name} S={s}"] = got
+            if got != (3, 3):
+                fail(f"widths {name}, S={s}: K1 / K2 launches {got}, want (3, 3)")
+            k1_err, k2_err = max(k1_err, a), max(k2_err, b)
+            del model
+    torch.cuda.empty_cache()
+    print(f"phase 36 checks: K1 and K2 at every width of {list(WIDTHS)}, exact launches "
+          f"{counts}")
+    return k1_err, k2_err, counts
+
+
+def seeded_model(mcfg, dev):
+    """Seeded weights with random biases, sigma's raised by 0.5 so the sphere's
+    rays gather weight, carried through convert.params_to_numpy and
+    params_from_numpy as a JAX checkpoint's are."""
+    from nerf_rs_tpu_torch.convert import params_from_numpy, params_to_numpy
+    from nerf_rs_tpu_torch.models.mlp import NerfMLP, init_nerf_params
+
+    tree = params_to_numpy(random_biases_(init_nerf_params(mcfg, 0, dev), 36))
+    tree["sigma"]["b"] = tree["sigma"]["b"] + 0.5
+    model = NerfMLP(mcfg).to(dev)
+    model.load_state_dict(params_from_numpy(tree))
+    return model
+
+
+def width_calls(name, model, mcfg, fcfg, flat_o, flat_d, card) -> dict:
+    """One K1 chunk (default_render_chunk's rays of the frame) and one K2 call
+    (the recipe's 4096 rays) at ``mcfg``'s widths, each warmed, timed (best
+    of 2 windows for K1, 3 for K2) beside its plain version, its library path
+    and its bound, and held to the plain version's result from its timed
+    window (K1 at TOL, K2 at KERNEL_TOL); the K2 call's scratch bytes and
+    blocks."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import fused_train
+    from nerf_rs_tpu_torch.kernels.fused_ray import (
+        fused_ray_render, fused_ray_render_reference)
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import (
+        KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
+    from nerf_rs_tpu_torch.ops import render as render_ops, sampling
+    from nerf_rs_tpu_torch.render import default_render_chunk
+
+    dev = flat_o.device
+    row = {}
+    pk = pack_weights(model, mcfg)
+    S = fcfg.render.num_samples
+    n1 = min(default_render_chunk(fcfg.render, fused=True, model_cfg=mcfg), flat_o.shape[0])
+    ts = sampling.stratified_ts(n1, S, fcfg.camera.near, fcfg.camera.far, False, device=dev)
+    dl = sampling.deltas_from_ts(ts, fcfg.camera.far)
+    o, d = flat_o[:n1].contiguous(), flat_d[:n1].contiguous()
+    vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+    k1 = lambda: fused_ray_render(pk, o, d, vd, ts, dl, mcfg, S)  # noqa: E731
+    got = k1()  # warms the path (and packs PackedWeights.k1) outside the windows
+    ms = event_ms(k1, reps=2)  # ~1.7 s a call at 1024 wide
+    step = PLAIN_CHUNK
+    want = []
+    plain_ms = event_ms(lambda: want.extend(fused_ray_render_reference(
+        pk, o[i:i + step], d[i:i + step], vd[i:i + step], ts[i:i + step],
+        dl[i:i + step], mcfg, S) for i in range(0, n1, step)), reps=1)
+    want = [torch.cat(outs) for outs in zip(*want)]
+    hold(f"widths {name}: the K1 chunk's {n1} rays, K1 vs plain",
+         k1_errs(f"widths {name}: K1 chunk", got, want), k1_tol(fcfg.camera.far))
+    del got, want
+
+    @torch.no_grad()
+    def library():
+        for i in range(0, n1, 65536):
+            j = slice(i, i + 65536)
+            sigma, rgb_s = eager_field(model, mcfg, o[j], d[j], vd[j], ts[j])
+            render_ops.composite(sigma, rgb_s, dl[j], ts=ts[j])
+    library_ms = event_ms(library, reps=1)
+    b, by = bound_ms(flops_per_row(mcfg, False) * n1 * S,
+                     n1 * (36 + 8 * S + 20 + 8 * S) + 2 * pk.w.numel() + 4 * pk.b.numel())
+    row["k1_chunk"] = {"rays": n1, "samples": S, "ms": ms, "plain_ms": plain_ms,
+                       "library_ms": library_ms, "bound_ms": b, "bound_by": by}
+    print(f"widths {name}: K1 chunk {n1} x {S} [{card}]: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {b:.3f} ms ({by}), "
+          f"{flops_per_row(mcfg, False) * n1 * S / (ms * 1e-3) / 1e12:.1f} TFLOP/s")
+    n2 = min(4096, flat_o.shape[0])  # the flagship recipe's rays a step
+    gold = torch.rand(n2, 3, generator=torch_generator(dev, 9), device=dev)
+    ts = sampling.stratified_ts(n2, S, fcfg.camera.near, fcfg.camera.far, True,
+                                generator=torch_generator(dev, 10), device=dev)
+    dl = sampling.deltas_from_ts(ts, fcfg.camera.far)
+    o, d = flat_o[:n2].contiguous(), flat_d[:n2].contiguous()
+    vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+    args = (pk, pack_weights_t(pk), o, d, vd, ts, dl, gold, mcfg, S)
+    k2 = lambda: fused_train_grads(*args)  # noqa: E731
+    got = k2()
+    ms = event_ms(k2)
+    want = []
+    plain_ms = event_ms(lambda: want.append(fused_train_grads_reference(*args)), reps=1)
+    label = f"widths {name}: the K2 call's {n2} x {S} rows, K2 vs plain"
+    hold(label, k2_errs(label, got, want[0]), KERNEL_TOL)
+    del got, want
+
+    def library2():
+        model.zero_grad(set_to_none=True)
+        sigma, rgb_s = eager_field(model, mcfg, o, d, vd, ts)
+        render_ops.mse(render_ops.composite(sigma, rgb_s, dl).rgb, gold).backward()
+    library2()
+    library_ms = event_ms(library2, reps=2)
+    model.zero_grad(set_to_none=True)
+    b, by = bound_ms(flops_per_row(mcfg, True) * n2 * S,
+                     n2 * (36 + 8 * S + 12 + 32 + 4 * S) + 2 * pk.w.numel()
+                     + 4 * (pk.w.numel() + pk.b.numel()))
+    scratch = fused_train._library().nerf_fused_train_scratch_bytes(
+        n2, S, pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D, pk.w.numel() + pk.b.numel())
+    row["k2_call"] = {"rays": n2, "samples": S, "ms": ms, "plain_ms": plain_ms,
+                      "library_ms": library_ms, "bound_ms": b, "bound_by": by,
+                      "scratch_bytes": scratch,
+                      "blocks": len(fused_train.ray_blocks(
+                          n2, S, fused_train.block_rows(pk, S)))}
+    print(f"widths {name}: K2 call {n2} x {S} [{card}]: kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, library {library_ms:.3f} ms, bound {b:.3f} ms ({by}), "
+          f"{flops_per_row(mcfg, True) * n2 * S / (ms * 1e-3) / 1e12:.1f} TFLOP/s, "
+          f"scratch {scratch:,} B in {row['k2_call']['blocks']} block(s)")
+    del pk, args
+    torch.cuda.empty_cache()
+    return row
+
+
+def drive_wide(tmp: str, card: str, dev) -> dict:
+    """Phase 36's runs, at each width of WIDE_RUNS: train/loop.train takes
+    WIDE_STEPS steps of the flagship recipe (`--preset full` on the sphere:
+    4096 rays x 64 samples, Adam 5e-4, mixed) through K2, exactly one launch a
+    step and no K1, timed beside the same run through autograd (no K2);
+    then seeded weights (seeded_model) render the 800x800 view with
+    render_frame through K1 twice (its exact chunk count each time, the two
+    frames' bits equal, the first chunk's rays held to the plain version at
+    TOL), timed beside the eager field's frame (best of 2 each); the steps
+    alone (best of 2 windows of WIDE_WINDOW) and width_calls. At each
+    width of PADDED_RUNS width_calls alone. Returns the rows by width."""
+    import dataclasses
+
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels.fused_ray import (
+        fused_ray_render, fused_ray_render_reference)
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+    from nerf_rs_tpu_torch.ops import sampling
+    from nerf_rs_tpu_torch.render import default_render_chunk, render_frame
+    from nerf_rs_tpu_torch.train.loop import train
+    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+
+    out = {}
+    fcfg0, fo, fd = frame_rays(dev)
+    flat_o, flat_d = fo.reshape(-1, 3), fd.reshape(-1, 3)
+    for name in WIDE_RUNS:
+        row = out[name] = {}
+        run_dir = os.path.join(tmp, f"wide-{name.replace('/', '-')}")
+        base = preset_cfg("full")
+        cfg = dataclasses.replace(
+            base, model=width_cfg(name, base.model), log_dir=run_dir, save_dir=run_dir,
+            train=dataclasses.replace(base.train, num_iter=WIDE_STEPS, eval_steps=10 ** 6,
+                                      save_steps=10 ** 6, logging_steps=10 ** 6))
+        ds = make_dataset(cfg, dev)
+        for route, c in (("K2", cfg), ("autograd", dataclasses.replace(
+                cfg, use_whole_ray_train=False, save_dir=run_dir + "-autograd"))):
+            fused_ray_render.launches = fused_train_grads.launches = 0
+            log = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                state = train(c, ds)
+            torch.cuda.synchronize()
+            row[f"train_{route}_s"] = time.perf_counter() - t0
+            want = (WIDE_STEPS if route == "K2" else 0, 0)
+            got = (fused_train_grads.launches, fused_ray_render.launches)
+            row[f"train_{route}_launches"] = got[0]
+            if got != want or state.step != WIDE_STEPS:
+                fail(f"widths {name}: {WIDE_STEPS}-step train through {route}: K2 / K1 "
+                     f"launches {got} (want {want}), step {state.step}")
+            if not all(bool(torch.isfinite(p).all()) for p in state.params.parameters()):
+                fail(f"widths {name}: {WIDE_STEPS}-step train through {route}: non-finite "
+                     "weights")
+            del state
+        print(f"widths {name}: {WIDE_STEPS}-step train/loop.train of --preset full [{card}]: "
+              f"through K2 {row['train_K2_s']:.3f} s ({WIDE_STEPS} launches), through "
+              f"autograd {row['train_autograd_s']:.3f} s (set-up and the checkpoint included)")
+        for route, c in (("K2", cfg), ("autograd", dataclasses.replace(
+                cfg, use_whole_ray_train=False))):
+            state = init_state(c, dev)
+            fn = make_train_step(c, ds)
+            it = [0]
+
+            def run(k):
+                nonlocal state
+                for _ in range(k):
+                    state, _ = fn(state, step_generator(0, it[0], dev))
+                    it[0] += 1
+            run(1)
+            row[f"step_{route}_ms"] = best_of(lambda: run(WIDE_WINDOW), 2) / WIDE_WINDOW * 1e3
+            del state
+        print(f"widths {name}: train step [{card}]: K2 {row['step_K2_ms']:.3f} ms, autograd "
+              f"{row['step_autograd_ms']:.3f} ms (best of 2 windows of {WIDE_WINDOW})")
+
+        # the frame from seeded weights: 20 steps at lr 5e-4 take the 1024-wide field to
+        # an opaque, saturated one, a frame that would show nothing
+        model = seeded_model(cfg.model, dev)
+        fcfg = dataclasses.replace(fcfg0, model=cfg.model)
+        chunk = default_render_chunk(fcfg.render, fused=True, model_cfg=fcfg.model)
+        chunks = math.ceil(FRAME * FRAME / chunk)
+        frames, e_frames = [], []
+        fused_ray_render.launches = 0
+        row["frame_K1_s"] = best_of(lambda: frames.append(render_frame(fcfg, model, fo, fd)),
+                                    2)
+        row["frame_launches"] = fused_ray_render.launches // 2
+        if fused_ray_render.launches != 2 * chunks:
+            fail(f"widths {name}: two 800x800 frames: K1 launches "
+                 f"{fused_ray_render.launches}, want {2 * chunks}")
+        if not all(torch.equal(a, b) for a, b in zip(*frames)):
+            fail(f"widths {name}: two 800x800 frames through K1 gave different bits")
+        rgb, depth, acc = frames.pop()
+        del frames
+        if not (bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(depth).all())):
+            fail(f"widths {name}: 800x800 frame has non-finite values")
+        eager = dataclasses.replace(fcfg, use_fused_kernel=False)
+        row["frame_eager_s"] = best_of(
+            lambda: e_frames.append(render_frame(eager, model, fo, fd)[0]), 2)
+        e_rgb = e_frames.pop()
+        del e_frames
+        pk = pack_weights(model, cfg.model)
+        S = fcfg.render.num_samples
+        n = PLAIN_CHUNK
+        ts = sampling.stratified_ts(n, S, fcfg.camera.near, fcfg.camera.far, False, device=dev)
+        dl = sampling.deltas_from_ts(ts, fcfg.camera.far)
+        o, d = flat_o[:n].contiguous(), flat_d[:n].contiguous()
+        vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+        plain = fused_ray_render_reference(pk, o, d, vd, ts, dl, cfg.model, S)
+        hold(f"widths {name}: the frame's first {n} rays, K1 vs plain",
+             {"rgb": float((rgb.reshape(-1, 3)[:n] - plain[0]).abs().max())},
+             {"rgb": TOL["rgb"]})
+        gap = float((rgb - e_rgb).abs().max())
+        print(f"widths {name}: 800x800 frame [{card}]: K1 {row['frame_K1_s']:.3f} s "
+              f"({chunks} launches a frame), eager field {row['frame_eager_s']:.3f} s (best "
+              f"of 2 frames each; rgb apart by "
+              f"{gap:.3g} at most); rgb in [{float(rgb.min()):.4f}, {float(rgb.max()):.4f}], "
+              f"mean acc {float(acc.mean()):.4f}")
+        del plain, e_rgb, rgb, depth, acc
+
+        row.update(width_calls(name, model, cfg.model, fcfg, flat_o, flat_d, card))
+        del model
+        torch.cuda.empty_cache()
+    for name in PADDED_RUNS:  # the padded widths' calls, on the narrow instances
+        mcfg = width_cfg(name, fcfg0.model)
+        out[name] = width_calls(name, seeded_model(mcfg, dev), mcfg,
+                                dataclasses.replace(fcfg0, model=mcfg), flat_o, flat_d, card)
+    return out
+
+
+def check_rays(dev):
+    """The N_RAYS rays of two poses that phases 3-4, 9, 18, 33 and 36 check
+    the whole-ray kernels on, their view directions and sphere gold, and the
+    64x64 camera: ((o, d, vd), gold, cam)."""
+    import torch
+
+    from nerf_rs_tpu_torch import CameraConfig
+    from nerf_rs_tpu_torch.data import synthetic
+    from nerf_rs_tpu_torch.ops import rays as rays_ops
+
+    cam = CameraConfig(width=64, height=64)
+    poses = rays_ops.pose_from_yaw_pitch(
+        torch.tensor([0.37, 2.1]), torch.tensor([0.21, 0.9]), device=dev)
+    grids = [rays_ops.ray_grid(poses[i], cam) for i in range(2)]
+    o = torch.cat([g[0].reshape(-1, 3) for g in grids])[:N_RAYS].contiguous()
+    d = torch.cat([g[1].reshape(-1, 3) for g in grids])[:N_RAYS].contiguous()
+    vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    gold = synthetic.sphere_image(cam, device=dev)[..., :3].reshape(-1, 3)
+    gold = torch.cat([gold, gold])[:N_RAYS].contiguous()
+    return (o, d, vd), gold, cam
 
 
 def drive_long_cli(tmp: str, ckpt_path: str) -> dict:
@@ -5099,16 +5454,15 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain version: full f32
     torch.backends.cudnn.allow_tf32 = False
 
-    from nerf_rs_tpu_torch import CameraConfig, ModelConfig
+    from nerf_rs_tpu_torch import ModelConfig
     from nerf_rs_tpu_torch import cli
-    from nerf_rs_tpu_torch.data import synthetic
     from nerf_rs_tpu_torch.data.factory import make_dataset
     from nerf_rs_tpu_torch.kernels import build
     from nerf_rs_tpu_torch.kernels.fused_ray import (
         fused_ray_render, fused_ray_render_reference)
     from nerf_rs_tpu_torch.kernels.fused_render import pack_weights
     from nerf_rs_tpu_torch.models.mlp import init_nerf_params
-    from nerf_rs_tpu_torch.ops import rays as rays_ops, sampling
+    from nerf_rs_tpu_torch.ops import sampling
     from nerf_rs_tpu_torch.render import make_render, render_frame
     from nerf_rs_tpu_torch.train import checkpoint as ckpt
 
@@ -5128,13 +5482,7 @@ def main() -> int:
     mcfg = ModelConfig()  # flagship: 8x256, skip 4, F 256, V 128, PE 10/4
     model = random_biases_(init_nerf_params(mcfg, 0, dev), 0)
     packed = pack_weights(model, mcfg)
-    cam = CameraConfig(width=64, height=64)
-    poses = rays_ops.pose_from_yaw_pitch(
-        torch.tensor([0.37, 2.1]), torch.tensor([0.21, 0.9]), device=dev)
-    grids = [rays_ops.ray_grid(poses[i], cam) for i in range(2)]
-    o = torch.cat([g[0].reshape(-1, 3) for g in grids])[:N_RAYS].contiguous()
-    d = torch.cat([g[1].reshape(-1, 3) for g in grids])[:N_RAYS].contiguous()
-    vd = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    (o, d, vd), gold, cam = check_rays(dev)
     S = 64
     ts_mid = sampling.stratified_ts(N_RAYS, S, cam.near, cam.far, False, device=dev)
     ts_jit = sampling.stratified_ts(
@@ -5155,8 +5503,6 @@ def main() -> int:
 
     lap("phase 3")
     # ---- 4. K2 vs its plain version and vs autograd ----
-    gold = synthetic.sphere_image(cam, device=dev)[..., :3].reshape(-1, 3)
-    gold = torch.cat([gold, gold])[:N_RAYS].contiguous()
     train_err = check_train_kernel(model, mcfg, (o, d, vd), ts_jit, gold, cam.far)
 
     lap("phase 4")
@@ -5430,6 +5776,16 @@ def main() -> int:
                                    ("hierarchical", ("--num_fine_samples", "256")))}
 
     lap("phase 35")
+    # ---- 36. fields of any width: checks, trains, frames, times ----
+    width_k1_err, width_k2_err, width_checks = check_widths((o, d, vd), gold, cam)
+    max_err, train_err = max(max_err, width_k1_err), max(train_err, width_k2_err)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_widths_")
+    try:
+        wide_runs = drive_wide(tmp, card, dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    lap("phase 36")
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "nerf_rs_tpu"))
     if bad:
         fail(f"imported {bad}: the port stands without JAX and the JAX package")
@@ -5455,7 +5811,8 @@ def main() -> int:
                 "mipnerf_ms_eval_scales": ms_counts["eval_scales"],
                 "ema_eval": slice7["k1_eval"], "ema_sweep_depth_gif": slice7["k1_sweep"],
                 **dp_run["k1"], **compat_paths("K1"),
-                "long_render_300": long_counts["long_render_300"]}
+                "long_render_300": long_counts["long_render_300"],
+                **{f"wide_{k}_frame": wide_runs[k]["frame_launches"] for k in WIDE_RUNS}}
     k2_paths = {"train_flagship": train_launches,
                 **{f"{p}_train": c["train"] for p, c in {**path_counts, **data_counts}.items()},
                 "record_resume": rec_counts["resume"], "mipnerf_ms_train": ms_counts["train"],
@@ -5463,7 +5820,8 @@ def main() -> int:
                 "ema_train": slice7["k2_train"], "ema_resume": slice7["k2_resume"],
                 "fault6_proposal_relu_seed2": fault6["K2"]["k2"], **dp_run["k2"],
                 **compat_paths("K2"),
-                **{k: v for k, v in long_counts.items() if k.endswith("_train")}}
+                **{k: v for k, v in long_counts.items() if k.endswith("_train")},
+                **{f"wide_{k}_train": wide_runs[k]["train_K2_launches"] for k in WIDE_RUNS}}
     scatter_paths = {f"ngp_{layout}_train": c["train_scatter"] for layout, c in ngp_counts.items()}
     ngp_learned, fac_learned = learned.pop("ngp"), learned.pop("factored")
     scatter_paths["ngp_brick_learning"] = ngp_learned.pop("scatter_launches")
@@ -5571,6 +5929,7 @@ def main() -> int:
         "presets": {**preset_times, **unb_times, **rec_times},
         "long_ray_steps": {k: {"k2_ms": v["K2"] * 1e3, "autograd_ms": v["autograd"] * 1e3,
                                "idle_pct": v["idle_pct"]} for k, v in long_steps.items()},
+        "widths": {"check_launches": width_checks, "runs": wide_runs},
         "learning": learned,
         "datasets": {"make_scene_s": {k: v[1] for k, v in scenes.items()}, **data_times},
         "multiscale": {"psnr_by_scale": ms_counts["psnr_by_scale"]},

@@ -40,6 +40,16 @@
 // evict-first hint, row after row), its relu masks as bits (relu_bits:
 // one __ballot_sync per 32 columns).
 //
+// Wide fields. Past kNarrowWidth (256) a warpgroup's sums, and at 384 or
+// more K2's two activation tiles, no longer fit a CTA; the JAX kernels take
+// any width. The wide instances (K1's fused_ray_wide_kernel, K2's
+// train_wide_kernel) run field_forward_wide: every activation and encoding
+// tile lies in device memory (K2: its stashes, which it writes anyway; K1:
+// two buffers a CTA of a persistent grid, in L2), each product stages its
+// A operand's k-slices into shared memory beside the weight slices, and the
+// epilogues store to device memory. Shared memory stays ~60 KB at any
+// width; the products and their order are the narrow instances'.
+//
 // Numerics: no fast math. sinf/cosf with exact ldexpf scales for the PE
 // (sin(2^9 x) loses its phase with a low-precision argument or sine);
 // points are o + t*d with the multiply and add rounded separately, as the
@@ -80,6 +90,12 @@ constexpr int kWStages = 3;                      // weight slices in the ring
 constexpr int kRoundTiles = kColGroups * kChunk; // n8 tiles of a product per round: 32
 constexpr int kWSlice = kRoundTiles * 32;        // uint2 per slice: 32 lanes a tile (8 KB)
 constexpr int kRayStride = 10;                   // per ray in shared memory: o, d, viewdir, radius
+// the widest layer the narrow instances take: K1's warpgroup sums (64 x 256
+// f32) and K2's two activation tiles beside its encodings; wider fields
+// take the wide instances (below)
+constexpr int kNarrowWidth = 256;
+constexpr int kALd = 24;                         // row stride of a staged A slice: 16 + 8 bf16
+constexpr int kASlice = kRows * kALd;            // bf16 per staged A slice (6 KB)
 
 // The field's inputs, packed weights and widths.
 struct Field {
@@ -109,6 +125,11 @@ inline bool takes_samples(int S) {
 // Whole rays per CTA for a padded S: 128 / S, 2 at S = 192, else 1. Every
 // CTA's rows, R * S, are whole 128-row passes.
 inline int rays_per_cta(int S) { return S <= kRows ? kRows / S : (S == 192 ? 2 : 1); }
+
+__host__ __device__ inline int widest(const Field& f) {
+  const int a = f.W > f.F ? f.W : f.F;
+  return a > f.V ? a : f.V;
+}
 
 // The members of f that size its shared memory, from the padded S and the
 // widths (init_field sets them so too).
@@ -395,10 +416,15 @@ typedef float Acc[kMT][kChunk][4];
 // landed for every thread and that the slot the next copy refills has
 // been read by all. Callers put a barrier between products, so a
 // product's first copies never overwrite a slot another warp still reads.
-template <class Epi>
+// kStageA (the wide instances): A1 and A2 lie in device memory, row-major,
+// and each k-step's 128 x 16 slice of them rides beside its weights in
+// `aring` (kWStages slices of kASlice, row stride kALd), so the A operand
+// of any width costs 6 KB of shared memory; a round re-reads A from L2.
+template <class Epi, bool kStageA = false>
 __device__ __forceinline__ void dense_layer(const bf16* A1, int lda1, int K1, const uint2* W1,
                                             const bf16* A2, int lda2, int K2, const uint2* W2,
-                                            int N, uint2* ring, const Epi& epi) {
+                                            int N, uint2* ring, const Epi& epi,
+                                            bf16* aring = nullptr) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = (warp % kRowGroups) * kWarpRows;
   const int g = lane >> 2, t = lane & 3;
@@ -420,6 +446,15 @@ __device__ __forceinline__ void dense_layer(const bf16* A1, int lda1, int K1, co
         const int nt = i >> 4, q = (i & 15) * 2;
         cp_async16(slot + nt * 32 + q,
                    Wm + (static_cast<size_t>(base + nt) * ktn + kt) * 32 + q, true);
+      }
+      if constexpr (kStageA) {  // the k-step's 128 rows x 16 columns of A, two pieces a row
+        const bf16* src = (first ? A1 : A2) + kt * 16;
+        const int lda = first ? lda1 : lda2;
+        bf16* dst = aring + (k % kWStages) * kASlice;
+        for (int i = threadIdx.x; i < kRows * 2; i += kThreads) {
+          const int r = i >> 1, h = (i & 1) * 8;
+          cp_async16(dst + r * kALd + h, src + static_cast<long long>(r) * lda + h, true);
+        }
       }
     };
     if (base > 0) __syncthreads();  // the last round's slots are free
@@ -443,7 +478,11 @@ __device__ __forceinline__ void dense_layer(const bf16* A1, int lda1, int K1, co
       if (nts > 0) {
         const bool first = k < KT1;
         const bf16* ap = first ? a1 + k * 16 : a2 + (k - KT1) * 16;
-        const int lda = first ? lda1 : lda2;
+        int lda = first ? lda1 : lda2;
+        if constexpr (kStageA) {
+          ap = aring + (k % kWStages) * kASlice + (row0 + (lane & 15)) * kALd + (lane >> 4) * 8;
+          lda = kALd;
+        }
         const uint2* slot = ring + (k % kWStages) * kWSlice + nt_w * 32 + lane;
         uint32_t a[kMT][4];
 #pragma unroll
@@ -706,6 +745,201 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
   __syncthreads();
   *hv_buf = hbuf;
   *feat_buf = other;
+}
+
+// The wide instances' relu masks: relu_bits for a row of any number of
+// words, lane w % 32 keeping word w and each 32 words of a row leaving in
+// one coalesced store.
+__device__ __forceinline__ void relu_bits_wide(uint32_t* mask, int mw, const bf16* src, int lds,
+                                               int cols) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < kRows; r += kWarps) {
+    for (int w0 = 0; w0 < mw; w0 += 32) {
+      const int nw = mw - w0 < 32 ? mw - w0 : 32;
+      uint32_t mine = 0;
+      for (int w = 0; w < nw; ++w) {
+        const int c = (w0 + w) * 32 + lane;
+        const bool on = c < cols && __bfloat162float(src[r * lds + c]) > 0.f;
+        const uint32_t word = __ballot_sync(0xffffffffu, on);
+        if (lane == w) mine = word;
+      }
+      if (lane < nw) mask[static_cast<long long>(r) * mw + w0 + lane] = mine;
+    }
+  }
+}
+
+// Where the wide forward leaves each product's bf16 output for the pass's
+// 128 rows, row-major at the output's own width from the pass's first row:
+// the encodings x (P) and dv (D), trunk layer l at h + (l % h_cycle) *
+// h_stride (W), feat (F) and hv (V); with mask, the relu bits as Stash
+// keeps them. K2's are its stashes (h_cycle = depth); K1's a CTA's two
+// activation buffers in device memory (h_cycle = 2, feat and hv in the one
+// the last trunk layer did not write, then in the one it did).
+struct WideOut {
+  bf16* x;
+  bf16* dv;
+  bf16* h;
+  long long h_stride;
+  int h_cycle;
+  bf16* feat;
+  bf16* hv;
+  uint32_t* mask;  // or null
+  long long mask_stride;
+  int mw;
+};
+
+// The wide instances' shared memory: the per-row moments, the per-ray
+// inputs and PE(viewdir), K2's one-pass rgb-gradient tile, the weight ring
+// and the staged A slices (dense_layer's kStageA) -- ~60 KB at any width.
+// Every activation and encoding tile lies in device memory (WideOut), and
+// so do the per-sample values (ts, deltas, raw sigma, rgb; K2's scratch).
+struct WideSmem {
+  size_t mv, ray, dpe, drgb, wring, aring, total;
+};
+
+__host__ __device__ inline WideSmem wide_layout(const Field& f) {
+  WideSmem L;
+  size_t at = 0;
+  L.mv = take(&at, sizeof(float) * kRows * 6);
+  L.ray = take(&at, sizeof(float) * f.R * kRayStride);
+  L.dpe = take(&at, sizeof(float) * f.R * f.D);
+  L.drgb = take(&at, sizeof(bf16) * kRows * kLdr);
+  L.wring = take(&at, sizeof(uint2) * kWStages * kWSlice);
+  L.aring = take(&at, sizeof(bf16) * kWStages * kASlice);
+  L.total = at;
+  return L;
+}
+
+// The wide instances' Tile: its shared-memory regions; the per-sample
+// pointers are the caller's to set, the activation tiles stay null.
+__device__ inline Tile carve_wide(unsigned char* smem, const WideSmem& L) {
+  Tile t = {};
+  t.mv = reinterpret_cast<float*>(smem + L.mv);
+  t.ray = reinterpret_cast<float*>(smem + L.ray);
+  t.dpe = reinterpret_cast<float*>(smem + L.dpe);
+  t.drgb = reinterpret_cast<bf16*>(smem + L.drgb);
+  t.wring = reinterpret_cast<uint2*>(smem + L.wring);
+  return t;
+}
+
+// field_forward for the wide instances (fields wider than kNarrowWidth):
+// the same inputs, moments, encodings and products in the same order, with
+// every product's A staged from device memory (dense_layer's kStageA, ring
+// `aring`) and its epilogue writing to device memory (WideOut), so no tile
+// grows with the width. A layer's output goes to another buffer than its
+// input and the barrier after each product orders the two; the stores
+// reach the next product's cp.async reads through L2.
+template <bool kContract>
+__device__ inline void field_forward_wide(const Field& p, const Tile& t, bf16* aring,
+                                          long long ray0, int n_valid, int s0, const WideOut& o) {
+  const int S = p.S;
+  const int tid = threadIdx.x;
+
+  // ---- inputs; zeros past the last ray ----
+  for (int i = tid; i < p.R * kRayStride; i += kThreads) {
+    const int j = i / kRayStride, k = i % kRayStride;
+    float v = 0.f;
+    if (j < n_valid) {
+      if (k < 9) {
+        const float* src = k < 3 ? p.o : (k < 6 ? p.d : p.vd);
+        v = src[(ray0 + j) * 3 + k % 3];
+      } else if (p.ipe) {
+        v = p.radii[ray0 + j];
+      }
+    }
+    t.ray[i] = v;
+  }
+  for (int r = tid; r < kRows; r += kThreads) {
+    const int cr = s0 + r;
+    const bool ok = cr / S < n_valid;
+    t.ts[cr] = ok ? p.ts[ray0 * S + cr] : 0.f;
+    t.dl[cr] = ok ? p.deltas[ray0 * S + cr] : 0.f;
+  }
+  __syncthreads();
+
+  // ---- per row: the point o + t d, or (IPE) the frustum's mean and variance ----
+  for (int r = tid; r < kRows; r += kThreads) {
+    const int cr = s0 + r;
+    const float* ray = t.ray + (cr / S) * kRayStride;
+    float* mv = t.mv + r * 6;
+    if (p.ipe && cr / S < n_valid) {
+      ipe_moments(ray, ray + 3, t.ts[cr], t.dl[cr], ray[9], mv);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        mv[k] = __fadd_rn(ray[k], __fmul_rn(t.ts[cr], ray[3 + k]));
+        mv[3 + k] = 0.f;
+      }
+    }
+    if (kContract) {
+      if (p.ipe)
+        contract_gaussian(mv);
+      else
+        contract_points(mv);
+    }
+  }
+  __syncthreads();
+
+  // ---- encodings: PE or IPE per row, PE(viewdir) once per ray ----
+  const int pos_dim = 3 + 6 * p.pos_levels;
+  for (int i = tid; i < kRows * p.P; i += kThreads) {
+    const int r = i / p.P, c = i % p.P;
+    float v = 0.f;
+    if (c < pos_dim) {
+      const float* mv = t.mv + r * 6;
+      const int dim = c < 3 ? c : (c - 3) % 3;
+      v = p.ipe ? ipe_value(mv[dim], mv[3 + dim], c) : pe_value(mv[dim], c);
+    }
+    o.x[i] = __float2bfloat16_rn(v);
+  }
+  const int dir_dim = 3 + 6 * p.dir_levels;
+  for (int i = tid; i < p.R * p.D; i += kThreads) {
+    const int j = i / p.D, c = i % p.D;
+    float v = 0.f;
+    if (c < dir_dim) v = pe_value(t.ray[j * kRayStride + 6 + (c < 3 ? c : (c - 3) % 3)], c);
+    t.dpe[i] = v;
+  }
+  __syncthreads();
+  for (int i = tid; i < kRows * p.D; i += kThreads) {
+    const int r = i / p.D, c = i % p.D;
+    o.dv[i] = __float2bfloat16_rn(t.dpe[((s0 + r) / S) * p.D + c]);
+  }
+  __syncthreads();
+
+  // ---- trunk ----
+  const uint2* skip_w = reinterpret_cast<const uint2*>(p.w + p.w_off[p.n_layers]);
+  const bf16* h = o.x;
+  int ldh = p.P;
+  for (int i = 0; i < p.n_layers; ++i) {
+    bf16* out = o.h + (i % o.h_cycle) * o.h_stride;
+    const bool skip = i == p.skip && i > 0;
+    dense_layer<ReluStore, true>(h, ldh, ldh, reinterpret_cast<const uint2*>(p.w + p.w_off[i]),
+                                 skip ? o.x : nullptr, p.P, p.P, skip_w, p.W, t.wring,
+                                 ReluStore{out, p.W, p.b + p.b_off[i]}, aring);
+    __syncthreads();
+    if (o.mask != nullptr) relu_bits_wide(o.mask + i * o.mask_stride, o.mw, out, p.W, p.W);
+    h = out;
+    ldh = p.W;
+  }
+  const int m = p.n_layers;
+
+  // ---- heads ----
+  dense_layer<FeatSigmaStore, true>(h, p.W, p.W,
+                                    reinterpret_cast<const uint2*>(p.w + p.w_off[m + 1]),
+                                    nullptr, 0, 0, nullptr, p.F + 8, t.wring,
+                                    FeatSigmaStore{o.feat, p.F, p.b + p.b_off[m],
+                                                   t.sig_raw + s0, p.F}, aring);
+  __syncthreads();
+  dense_layer<ReluStore, true>(o.feat, p.F, p.F,
+                               reinterpret_cast<const uint2*>(p.w + p.w_off[m + 2]), o.dv, p.D,
+                               p.D, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 3]), p.V,
+                               t.wring, ReluStore{o.hv, p.V, p.b + p.b_off[m + 1]}, aring);
+  __syncthreads();
+  if (o.mask != nullptr) relu_bits_wide(o.mask + m * o.mask_stride, o.mw, o.hv, p.V, p.V);
+  dense_layer<RgbStore, true>(o.hv, p.V, p.V, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 4]),
+                              nullptr, 0, 0, nullptr, 8, t.wring,
+                              RgbStore{t.rgb + s0 * 4, p.b + p.b_off[m + 2]}, aring);
+  __syncthreads();
 }
 
 // The card's per-block opt-in maximum of shared memory, into *bytes,

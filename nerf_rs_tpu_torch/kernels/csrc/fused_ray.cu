@@ -86,7 +86,20 @@
 //
 // Numerics and traps: see field.cuh (no fast math, sinf/cosf with exact
 // ldexpf scales, o + t*d without FMA, IPE moments rounded op by op); expf
-// in compositing. Widths up to 256 (a warpgroup's sums).
+// in compositing.
+//
+// Wide fields (fault 13). The wgmma instances take widths up to kMaxWidth =
+// 256: a warpgroup's 64 x 256 f32 sums fill 128 registers a thread, and the
+// one activation tile, which each epilogue overwrites in place, would have
+// to hold a wider product's input until its last column round. A wider
+// field (the JAX kernel takes any width) runs fused_ray_wide_kernel: K2's
+// mma.sync machinery in column rounds of 256 with its A operands staged
+// from two activation buffers a CTA in device memory (field.cuh's
+// field_forward_wide), on a persistent grid of one CTA an SM, then this
+// kernel's warp-per-ray compositing. It has no width cap of its own: its
+// shared memory (~60 KB) does not grow with the width. It is slower per
+// FLOP than the wgmma instances (mma.sync, a CTA barrier a k-step, A
+// re-read from L2 for every round); PERF.md has its times.
 
 #include "field.cuh"
 #include "field_wgmma.cuh"
@@ -100,7 +113,7 @@ constexpr int kEncoders = 96;                   // encoder threads: three warps
 constexpr int kK1Threads = 128 * kConsumers + 32 + kEncoders;  // + the producer warp
 constexpr int kStages = 9;                      // weight slices (one k16 step each) in the ring
 constexpr int kCluster = 2;                     // CTAs sharing each weight slice
-constexpr int kMaxWidth = 256;                  // widest product a warpgroup sums
+constexpr int kMaxWidth = kNarrowWidth;         // widest product a warpgroup sums
 constexpr int kConsumerBar = 1;                 // named barriers: consumers, then per warpgroup
 constexpr int kEncoderBar = kConsumerBar + 1 + kConsumers;
 
@@ -162,11 +175,6 @@ __host__ __device__ inline Mat mat_at(const Field& f, const Widths& n, int q) {
   if (m == L + 2) return {m, f.F, n.v};
   if (m == L + 3) return {m, f.D, n.v};
   return {m, f.V, 8};
-}
-
-inline int widest(const Field& f) {
-  const int a = f.W > f.F ? f.W : f.F;
-  return a > f.V ? a : f.V;
 }
 
 // a product's width: the next power of two from 16
@@ -844,14 +852,166 @@ __global__ void __launch_bounds__(kK1Threads, 1) fused_ray_wgmma_kernel(const Pa
       p, smem, Ring{wg::smem_u32(smem + L.ring), full, empty, slot_bytes(p.n), 0, 0}, tb);
 }
 
+// ---- the wide instance: fields wider than kMaxWidth ----
+
+// Its launch: the field, the outputs, and every CTA's slice of the scratch
+// (cta_bytes each): two activation buffers of 128 rows x the widest layer,
+// the encodings x (P) and dv (D), and the tile's per-sample values (ts,
+// deltas, raw sigma, rgb x 4: kWideVals f32 arrays of f.rows).
+constexpr int kWideVals = 7;
+
+struct WideParams {
+  Field f;
+  float* rgb;
+  float* acc;
+  float* depth;
+  float* wts;
+  float* sigma;
+  unsigned char* scratch;
+  long long cta_bytes, off_x, off_dv, off_vals;
+};
+
+__host__ __device__ inline size_t wide_align(size_t bytes) { return (bytes + 255) & ~size_t(255); }
+
+// A CTA's scratch bytes, and the offsets of its regions (buffers at 0).
+inline long long wide_cta_bytes(const Field& f, long long* off_x, long long* off_dv,
+                                long long* off_vals) {
+  size_t at = wide_align(sizeof(bf16) * 2 * kRows * static_cast<size_t>(widest(f)));
+  *off_x = static_cast<long long>(at);
+  at += wide_align(sizeof(bf16) * kRows * f.P);
+  *off_dv = static_cast<long long>(at);
+  at += wide_align(sizeof(bf16) * kRows * f.D);
+  *off_vals = static_cast<long long>(at);
+  at += wide_align(sizeof(float) * kWideVals * static_cast<size_t>(f.rows));
+  return static_cast<long long>(at);
+}
+
+// The card's streaming multiprocessors, queried once a device and process.
+inline int sm_count(int* n) {
+  constexpr int kDevices = 64;
+  static std::atomic<int> known[kDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int sms = dev < kDevices ? known[dev].load(std::memory_order_relaxed) : 0;
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kDevices) known[dev].store(sms, std::memory_order_relaxed);
+  }
+  *n = sms;
+  return 0;
+}
+
+// The wide instance's persistent grid: one CTA an SM (its 512 threads hold
+// the SM's registers), or one a tile where there are fewer tiles.
+inline int wide_grid(const Field& f, long long* grid) {
+  int sms = 0;
+  const int rc = sm_count(&sms);
+  if (rc != 0) return rc;
+  const long long tiles = (f.n_rays + f.R - 1) / f.R;
+  *grid = tiles < sms ? tiles : sms;
+  return 0;
+}
+
+// K2's machinery on K1's job: 16 warps of mma.sync products through
+// field_forward_wide on each 128-row pass of the CTA's tiles b, b + grid, ...,
+// its activations in the CTA's two buffers in device memory (2 x 128 x W
+// bf16: ~34 MB over 132 CTAs at W = 512, so they mostly stay in the 50 MB
+// L2), then the resident instances' compositing, a warp per ray, on the
+// tile's raw sigma and rgb. The weights are PackedWeights.w (K2's layout),
+// not K1's: the wgmma instances' layout pads each product to a power of two
+// and their sums to 256 columns, which a wide field outgrows.
+template <bool kContract>
+__global__ void __launch_bounds__(kThreads, 1) fused_ray_wide_kernel(const WideParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Field& f = p.f;
+  const int S = f.S, R = f.R, rows = f.rows, tid = threadIdx.x, lane = tid & 31;
+  unsigned char* mine = p.scratch + static_cast<long long>(blockIdx.x) * p.cta_bytes;
+  bf16* buf = reinterpret_cast<bf16*>(mine);
+  float* vals = reinterpret_cast<float*>(mine + p.off_vals);
+  const WideSmem ws = wide_layout(f);
+  Tile t = carve_wide(smem, ws);
+  t.ts = vals;
+  t.dl = vals + rows;
+  t.sig_raw = vals + 2 * rows;
+  t.rgb = vals + 3 * rows;
+  bf16* aring = reinterpret_cast<bf16*>(smem + ws.aring);
+  const long long bs = static_cast<long long>(kRows) * widest(f);
+  const int L = f.n_layers;
+  const WideOut o{reinterpret_cast<bf16*>(mine + p.off_x), reinterpret_cast<bf16*>(mine + p.off_dv),
+                  buf, bs, 2, buf + (L & 1) * bs, buf + ((L - 1) & 1) * bs, nullptr, 0, 0};
+  const unsigned full = 0xffffffffu;
+  for (long long tile = blockIdx.x; tile * R < f.n_rays; tile += gridDim.x) {
+    const long long ray0 = tile * R;
+    const long long left = f.n_rays - ray0;
+    const int n_valid = left < R ? static_cast<int>(left) : R;
+    for (int s0 = 0; s0 < rows; s0 += kRows)
+      field_forward_wide<kContract>(f, t, aring, ray0, n_valid, s0, o);
+
+    // ---- compositing: the resident instances' warp per ray, f32 ----
+    for (int j = tid >> 5; j < n_valid; j += kWarps) {
+      float carry = 0.f, cr = 0.f, cg = 0.f, cb = 0.f, a_sum = 0.f, dep = 0.f;
+      for (int c = 0; c < S; c += 32) {
+        const int s = c + lane, r = j * S + s;
+        float sigma = 0.f, a = 0.f;
+        if (s < S) {
+          const float raw = t.sig_raw[r];
+          sigma = f.sigma_act == 0 ? fmaxf(raw, 0.f) : fmaxf(raw, 0.f) + log1pf(expf(-fabsf(raw)));
+          a = sigma * t.dl[r];
+        }
+        float incl = a;
+#pragma unroll
+        for (int o2 = 1; o2 < 32; o2 <<= 1) {
+          const float v = __shfl_up_sync(full, incl, o2);
+          if (lane >= o2) incl += v;
+        }
+        const float before = __shfl_up_sync(full, incl, 1);
+        const float excl = carry + (lane == 0 ? 0.f : before);
+        carry += __shfl_sync(full, incl, 31);
+        if (s < S) {
+          const float w = expf(-excl) * (1.f - expf(-a));
+          cr += w * t.rgb[r * 4 + 0];
+          cg += w * t.rgb[r * 4 + 1];
+          cb += w * t.rgb[r * 4 + 2];
+          a_sum += w;
+          dep += w * t.ts[r];
+          p.wts[ray0 * S + r] = w;
+          p.sigma[ray0 * S + r] = sigma;
+        }
+      }
+#pragma unroll
+      for (int o2 = 16; o2 > 0; o2 >>= 1) {
+        cr += __shfl_xor_sync(full, cr, o2);
+        cg += __shfl_xor_sync(full, cg, o2);
+        cb += __shfl_xor_sync(full, cb, o2);
+        a_sum += __shfl_xor_sync(full, a_sum, o2);
+        dep += __shfl_xor_sync(full, dep, o2);
+      }
+      if (lane == 0) {
+        const long long rr = ray0 + j;
+        p.rgb[rr * 3 + 0] = cr;
+        p.rgb[rr * 3 + 1] = cg;
+        p.rgb[rr * 3 + 2] = cb;
+        p.acc[rr] = a_sum;
+        p.depth[rr] = dep;
+      }
+    }
+    __syncthreads();  // the next tile's passes overwrite ts, deltas, raw sigma and rgb
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns 0, a cudaError_t from the launch, or a negative code for a
 // shape the kernel does not take (see nerf_rs_tpu_torch/kernels/fused_ray.py).
-// w/w_off: the weights in K1's layout, b_k1 its biases (fused_render.pack_weights_k1).
-// radii: (n_rays,) f32 with ipe = 1, else null. contract: 0 or 1.
+// w/w_off: the weights in K1's layout, b_k1 its biases (fused_render.pack_weights_k1);
+// for a field wider than kMaxWidth the packed weights' own (PackedWeights.w,
+// K2's layout; b_k1 unused) and `scratch` nerf_fused_ray_scratch_bytes of
+// device memory (else null). radii: (n_rays,) f32 with ipe = 1, else null.
+// contract: 0 or 1.
 int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const void* ts,
                           const void* deltas, const void* radii, const void* w, const void* b,
                           const void* b_k1,
@@ -859,13 +1019,33 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
                           void* rgb, void* acc, void* depth, void* wts, void* sigma,
                           long long n_rays, int S, int depth_l, int skip, int W, int F, int V,
                           int P, int D, int pos_levels, int dir_levels, int sigma_act, int ipe,
-                          int contract, void* stream) {
+                          int contract, void* scratch, void* stream) {
   Params p;
   int rc = init_field(&p.f, o, d, vd, ts, deltas, radii, w, b, w_off, n_w, b_off, n_b, n_rays,
                       S, depth_l, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe);
   if (rc != 0) return rc;
   if (contract != 0 && contract != 1) return -8;
-  if (widest(p.f) > kMaxWidth) return -5;
+  if (widest(p.f) > kMaxWidth) {  // the wide instance, on PackedWeights.w and the scratch
+    WideParams q;
+    q.f = p.f;
+    q.rgb = static_cast<float*>(rgb);
+    q.acc = static_cast<float*>(acc);
+    q.depth = static_cast<float*>(depth);
+    q.wts = static_cast<float*>(wts);
+    q.sigma = static_cast<float*>(sigma);
+    q.scratch = static_cast<unsigned char*>(scratch);
+    q.cta_bytes = wide_cta_bytes(q.f, &q.off_x, &q.off_dv, &q.off_vals);
+    auto kernel = contract ? fused_ray_wide_kernel<true> : fused_ray_wide_kernel<false>;
+    const size_t smem = wide_layout(q.f).total;
+    rc = set_smem(kernel, smem);
+    if (rc != 0) return rc;
+    if (n_rays == 0) return 0;
+    long long grid = 0;
+    rc = wide_grid(q.f, &grid);
+    if (rc != 0) return rc;
+    kernel<<<static_cast<unsigned>(grid), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(q);
+    return static_cast<int>(cudaGetLastError());
+  }
   p.rgb = static_cast<float*>(rgb);
   p.acc = static_cast<float*>(acc);
   p.depth = static_cast<float*>(depth);
@@ -920,6 +1100,24 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
   err = cudaLaunchKernelEx(&cfg, kernel, p);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of scratch nerf_fused_ray_render needs: 0 for fields up to
+// kMaxWidth, else the wide instance's grid (one CTA at least) x its CTA's
+// bytes, so that a positive size is what marks the wide instance and its
+// layout (PackedWeights.w) to the wrapper. Negative: -1 for a sample count
+// the kernels do not take, else a cudaError_t negated.
+long long nerf_fused_ray_scratch_bytes(long long n_rays, int S, int W, int F, int V, int P,
+                                       int D) {
+  if (!takes_samples(S)) return -1;
+  Field f;
+  set_layout(&f, S, W, F, V, P, D);
+  if (widest(f) <= kMaxWidth) return 0;
+  f.n_rays = n_rays;
+  long long grid = 0, off_x = 0, off_dv = 0, off_vals = 0;
+  const int rc = wide_grid(f, &grid);
+  if (rc != 0) return -static_cast<long long>(rc);
+  return (grid > 0 ? grid : 1) * wide_cta_bytes(f, &off_x, &off_dv, &off_vals);
 }
 
 const char* nerf_cuda_error_string(int code) {

@@ -54,6 +54,18 @@
 // most 1,048,576 padded rows (4096 rays x 256 samples, ~10.7 GB of
 // stashes at paper width) and sums the blocks' gradients in order.
 //
+// Wide fields (fault 13): past kNarrowWidth = 256 the two activation tiles
+// of 128 rows no longer fit beside the encodings (at 512 they take 266 KB).
+// Such a field takes the wide instance (train_wide_kernel): the streamed
+// instance's per-sample values and warp scans, with every activation in its
+// stash, where K2b reads it anyway: each epilogue stores its output there
+// and the next product stages its A operand's k-slices from there into
+// shared memory (field.cuh's field_forward_wide; dense_layer's kStageA).
+// Its shared memory does not grow with the width. Its blocks are sized by
+// the stashes' bytes too (nerf_fused_train_block_rows under
+// fused_train.BLOCK_BYTES): at width 1024 and depth 8 a sample row stashes
+// ~36 KB.
+//
 // Why two kernels. The TPU kernel keeps a ray block's activations and the
 // dW accumulators in VMEM (120 MB). An H100 SM has 227 KB of shared
 // memory: at flagship width a 128-row tile's 8 x 128 x 256 bf16 post-relu
@@ -587,6 +599,83 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
   }
 }
 
+// The wide instance, for fields wider than kNarrowWidth (field.cuh): the
+// streamed instance's per-sample values in the scratch and its warp scans,
+// with field_forward_wide's products, whose activations are the stashes
+// themselves: each forward epilogue writes its layer's stash, each backward
+// one its G stash, and the next product stages its A from there. Only d
+// rgb_raw's one-pass tile (16 columns) is read from shared memory.
+template <bool kContract>
+__global__ void __launch_bounds__(kThreads, 1) train_wide_kernel(const TrainParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Field& f = p.f;
+  const int S = f.S;
+  const int R = f.R;
+  const int rows = f.rows;
+  const int tid = threadIdx.x;
+  const long long ray0 = static_cast<long long>(blockIdx.x) * R;
+  const long long left = f.n_rays - ray0;
+  const int n_valid = left < R ? static_cast<int>(left) : R;
+  const int rows_valid = n_valid * S;
+  const long long row0 = static_cast<long long>(blockIdx.x) * rows;
+  const int W = f.W, F = f.F, V = f.V, L = f.n_layers;
+  const long long hs = p.rows_pad * W;    // layer stride of the h and G stashes
+  const long long ms = p.rows_pad * p.mw; // layer stride of the relu bits
+
+  const WideSmem ws = wide_layout(f);
+  const Tile t = streamed_tile(carve_wide(smem, ws), p, row0);
+  bf16* aring = reinterpret_cast<bf16*>(smem + ws.aring);
+  for (int s0 = 0; s0 < rows; s0 += kRows) {
+    const long long r = row0 + s0;
+    field_forward_wide<kContract>(f, t, aring, ray0, n_valid, s0,
+                                  WideOut{p.sx + r * f.P, p.sdv + r * f.D, p.sh + r * W, hs, L,
+                                          p.sfeat + r * F, p.shv + r * V, p.mask + r * p.mw, ms,
+                                          p.mw});
+  }
+
+  // ---- per ray: compositing, loss and the compositing VJP, f32 ----
+  scan_rays_warp(p, t, ray0, n_valid);
+  for (int i = tid; i < kRows * 8; i += kThreads)  // the k16 pad of the one-pass tile
+    t.drgb[(i / 8) * kLdr + 8 + i % 8] = __float2bfloat16_rn(0.f);
+  __syncthreads();
+  for (int r = tid; r < rows_valid; r += kThreads) p.wts[ray0 * S + r] = t.w[r];
+
+  // ---- backward products, heads then trunk, pass by pass, stash to stash ----
+  auto wt = [&](int i) { return reinterpret_cast<const uint2*>(p.wt + p.wt_off[i]); };
+  bf16* grgb = p.grgb + row0 * 8;
+  bf16* gsf = p.gsf + row0 * (F + 8);
+  for (int s0 = 0; s0 < rows; s0 += kRows) {
+    const long long r = row0 + s0;
+    const uint32_t* bits = p.mask + r * p.mw;
+    bf16* gh = p.gh + r * W;
+    bf16* ghv = p.ghv + r * V;
+    bf16* g_sf = gsf + s0 * (F + 8);
+    pass_drgb(p, t, ray0, n_valid, s0, grgb, gsf);
+    // g_hv = bf16((d rgb_raw @ rgb_w^T) [hv > 0])
+    dense_layer(t.drgb, kLdr, 16, wt(L + 1), nullptr, 0, 0, nullptr, V, t.wring,
+                GradStore{ghv, V, bits + L * ms, p.mw, nullptr, nullptr});
+    __syncthreads();
+    // dfeat = bf16(g_hv @ view_w^T), beside d sigma in [dfeat | dsigma | 0]
+    dense_layer<BfStore, true>(ghv, V, V, wt(L), nullptr, 0, 0, nullptr, F, t.wring,
+                               BfStore{g_sf, F + 8}, aring);
+    __syncthreads();
+    // g_{L-1} = bf16((dfeat @ feat_w^T + dsigma sigma_row) [h_{L-1} > 0])
+    dense_layer<GradStore, true>(g_sf, F + 8, F, wt(L - 1), nullptr, 0, 0, nullptr, W, t.wring,
+                                 GradStore{gh + (L - 1) * hs, W, bits + (L - 1) * ms, p.mw,
+                                           t.dsig + s0, p.sigma_row},
+                                 aring);
+    __syncthreads();
+    for (int l = L - 1; l >= 1; --l) {  // g_{l-1} = bf16((g_l @ W_l^T) [h_{l-1} > 0])
+      dense_layer<GradStore, true>(gh + l * hs, W, W, wt(l - 1), nullptr, 0, 0, nullptr, W,
+                                   t.wring,
+                                   GradStore{gh + (l - 1) * hs, W, bits + (l - 1) * ms, p.mw,
+                                             nullptr, nullptr},
+                                   aring);
+      __syncthreads();
+    }
+  }
+}
+
 // ---- K2b: dW = A^T G over rows, the bias sums db = sum_rows G folded in ----
 
 constexpr int kBT = 128;     // dW tile: kBT x kBT, 8 warps of 64 x 32
@@ -809,14 +898,23 @@ long long rows_padded(long long n_rays, int S) {
   return (n_rays + rays - 1) / rays * (rays * S);
 }
 
-// Whether K2a takes the streamed instance: past 256 samples, or where the
-// resident layout does not fit in the card's shared memory. *streamed is
-// set; returns 0 or a cudaError_t.
-int train_streamed(const Field& f, bool* streamed) {
+// K2a's instances: resident (kPasses = rows / 128), streamed (kPasses = 0)
+// or wide (train_wide_kernel).
+enum TrainMode { kResident, kStreamed, kWide };
+
+// Which instance K2a takes: the wide one past kNarrowWidth, else the
+// streamed one past 256 samples or where the resident layout does not fit
+// in the card's shared memory, else the resident one. Sets *mode; returns 0
+// or a cudaError_t.
+int train_mode(const Field& f, TrainMode* mode) {
+  if (widest(f) > kNarrowWidth) {
+    *mode = kWide;
+    return 0;
+  }
   size_t optin = 0;
   const int rc = smem_optin(&optin);
   if (rc != 0) return rc;
-  *streamed = f.S > kMaxResident || smem_layout(f, false).total > optin;
+  *mode = f.S > kMaxResident || smem_layout(f, false).total > optin ? kStreamed : kResident;
   return 0;
 }
 
@@ -832,12 +930,40 @@ long long nerf_fused_train_scratch_bytes(long long n_rays, int S, int depth_l, i
   if (!takes_samples(S)) return -1;
   Field f;
   set_layout(&f, S, W, F, V, P, D);
-  bool streamed = false;
-  const int rc = train_streamed(f, &streamed);
+  TrainMode mode = kResident;
+  const int rc = train_mode(f, &mode);
   if (rc != 0) return -static_cast<long long>(rc);
   return static_cast<long long>(scratch_layout(nullptr, rows_padded(n_rays, S), n_rays * S,
-                                               depth_l, W, F, V, P, D, total, streamed)
+                                               depth_l, W, F, V, P, D, total, mode != kResident)
                                     .bytes);
+}
+
+// Padded rows of one launch at the padded S: the most whole tiles within
+// max_rows rows whose stashes (scratch_layout less the partials) take at
+// most max_bytes, one tile at least (fused_train.BLOCK_ROWS, BLOCK_BYTES).
+// Negative: -1 for a sample count the kernels do not take, else a
+// cudaError_t negated.
+long long nerf_fused_train_block_rows(int S, int depth_l, int W, int F, int V, int P, int D,
+                                      long long max_rows, long long max_bytes) {
+  if (!takes_samples(S)) return -1;
+  Field f;
+  set_layout(&f, S, W, F, V, P, D);
+  TrainMode mode = kResident;
+  const int rc = train_mode(f, &mode);
+  if (rc != 0) return -static_cast<long long>(rc);
+  const long long tile = rows_padded(1, S);
+  auto stash = [&](long long tiles) {
+    return static_cast<long long>(scratch_layout(nullptr, tiles * tile, tiles * tile, depth_l,
+                                                 W, F, V, P, D, 0, mode != kResident)
+                                      .bytes);
+  };
+  long long lo = 1, hi = max_rows / tile;  // the most tiles lies in [lo, hi]
+  while (lo < hi) {
+    const long long mid = hi - (hi - lo) / 2;
+    if (stash(mid) <= max_bytes) lo = mid;
+    else hi = mid - 1;
+  }
+  return lo * tile;
 }
 
 // Returns 0, a cudaError_t from a launch, or a negative code for a shape
@@ -867,9 +993,10 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   const long long total = total_w + b_off[L + 2] + 8;
   const long long rows_pad = rows_padded(n_rays, S);
   const long long rows = n_rays * S;
-  bool streamed = false;
-  rc = train_streamed(p.f, &streamed);
+  TrainMode mode = kResident;
+  rc = train_mode(p.f, &mode);
   if (rc != 0) return rc;
+  const bool streamed = mode != kResident;
   const Scratch s = scratch_layout(static_cast<unsigned char*>(scratch), rows_pad, rows, L, W,
                                    F, V, P, D, total, streamed);
   p.gold = static_cast<const float*>(gold);
@@ -898,9 +1025,10 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   p.dist_b = dist_b;
   p.dist_disparity = dist_disparity;
 
-  const size_t smem = smem_layout(p.f, streamed).total;
+  const size_t smem = mode == kWide ? wide_layout(p.f).total : smem_layout(p.f, streamed).total;
   const int passes = streamed ? 0 : p.f.rows / kRows;
-  auto tile = passes == 3 ? (contract ? train_tile_kernel<3, true> : train_tile_kernel<3, false>)
+  auto tile = mode == kWide ? (contract ? train_wide_kernel<true> : train_wide_kernel<false>)
+              : passes == 3 ? (contract ? train_tile_kernel<3, true> : train_tile_kernel<3, false>)
               : passes == 2 ? (contract ? train_tile_kernel<2, true> : train_tile_kernel<2, false>)
               : passes == 1 ? (contract ? train_tile_kernel<1, true> : train_tile_kernel<1, false>)
                             : (contract ? train_tile_kernel<0, true> : train_tile_kernel<0, false>);

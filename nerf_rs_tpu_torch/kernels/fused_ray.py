@@ -43,10 +43,12 @@ K1_CLUSTER = 2  # K1's CTAs per cluster, each weight slice shared (kCluster in c
 _SHAPE_ERRORS = {
     -1: "padded num_samples must divide 128, or be 192 or a multiple of 128",
     -2: "the packed weights do not match the kernel's layer list (net_depth up to 123)",
-    -3: "layer widths and padded encodings must be multiples of 16",
+    -3: "packed layer widths and padded encodings must be multiples of 16 (pack_weights pads "
+        "every width to one)",
     -4: "the encoding does not fit its padded width",
-    -5: "the layer widths need more shared memory than a CTA has: net_width, feature_width "
-        "and view_head_width up to 256 fit both kernels",
+    -5: "the CTA's layout needs more shared memory than the card gives a block: its padded "
+        "encodings and the rays it takes (a width takes none past 256, where the wide "
+        "instances keep the activations in device memory)",
     -6: "sigma_activation must be relu or softplus",
     -7: "radii must come with cfg.ipe and only with it",
     -8: "contract must be 0 or 1",
@@ -145,7 +147,7 @@ def _check(packed: PackedWeights, origins, dirs, viewdirs, ts, deltas,
             f"sigma_activation={cfg.sigma_activation!r}: the kernel takes "
             f"{sorted(_SIGMA_ACT)}")
     got = (packed.depth, packed.skip_layer, packed.pos_levels,
-           packed.dir_levels, packed.W, packed.F, packed.V)
+           packed.dir_levels, *packed.widths)
     want = (cfg.net_depth, cfg.skip_layer, cfg.pos_enc_levels,
             cfg.dir_enc_levels, cfg.net_width, cfg.feature_width,
             cfg.view_head_width)
@@ -184,8 +186,10 @@ def fused_ray_render(
 
     Any N: the kernel masks the ragged last tile. Any S >= 1 (past 256
     samples, or where a CTA's per-sample values do not fit beside its tiles,
-    the kernel's streamed instance composites pass by pass). Launches on the
-    current stream without synchronising.
+    the kernel's streamed instance composites pass by pass). Any widths
+    (``pack_weights`` pads them to multiples of 16; past 256 the kernel's
+    wide instance runs on a scratch of activations). Launches
+    on the current stream without synchronising.
     """
     _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples, radii)
     if origins.device.type == "cpu":
@@ -209,20 +213,33 @@ def fused_ray_render(
     w = torch.empty(n, S, device=dev)
     sigma = torch.empty(n, S, device=dev)
     lib = _library()
-    k1 = packed.k1
-    w_off = (ctypes.c_longlong * len(k1.w_off))(*k1.w_off)
+    # the wgmma instances read K1's own layout; the wide instance, which the
+    # kernel takes where it asks for a scratch of activations, the packed
+    # weights' (K2's)
+    nbytes = lib.nerf_fused_ray_scratch_bytes(n, S, packed.W, packed.F, packed.V,
+                                              packed.P, packed.D)
+    if nbytes < 0:
+        raise ValueError(f"fused_ray kernel refused the call: {_SHAPE_ERRORS[-1]}"
+                         if nbytes == -1 else f"CUDA error {-nbytes} sizing the scratch")
+    if nbytes > 0:
+        kw, kw_off, kb = packed.w, packed.w_off, None
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    else:
+        k1 = packed.k1
+        kw, kw_off, kb, scratch = k1.w, k1.w_off, k1.b.data_ptr(), None
+    w_off = (ctypes.c_longlong * len(kw_off))(*kw_off)
     b_off = (ctypes.c_longlong * len(packed.b_off))(*packed.b_off)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.nerf_fused_ray_render(
         origins.data_ptr(), dirs.data_ptr(), viewdirs.data_ptr(), ts_p.data_ptr(),
         dl_p.data_ptr(), None if radii is None else radii.data_ptr(),
-        k1.w.data_ptr(), packed.b.data_ptr(), k1.b.data_ptr(),
-        w_off, len(k1.w_off), b_off, len(packed.b_off),
+        kw.data_ptr(), packed.b.data_ptr(), kb,
+        w_off, len(kw_off), b_off, len(packed.b_off),
         rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), w.data_ptr(),
         sigma.data_ptr(), n, S, packed.depth, packed.skip_layer, packed.W,
         packed.F, packed.V, packed.P, packed.D, packed.pos_levels,
         packed.dir_levels, _SIGMA_ACT[cfg.sigma_activation], int(cfg.ipe),
-        int(cfg.contract), stream,
+        int(cfg.contract), None if scratch is None else scratch.data_ptr(), stream,
     )
     if rc < 0:
         raise ValueError(f"fused_ray kernel refused the call: {_SHAPE_ERRORS[rc]}")
@@ -248,9 +265,12 @@ def _library() -> ctypes.CDLL:
             + [ctypes.POINTER(i64), i32, ctypes.POINTER(i64), i32]
             + [vp] * 5
             + [i64] + [i32] * 13
-            + [vp]
+            + [vp, vp]
         )
         fn.restype = i32
+        size = lib.nerf_fused_ray_scratch_bytes
+        size.argtypes = [i64] + [i32] * 6
+        size.restype = i64
         lib.nerf_cuda_error_string.argtypes = [i32]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -16,7 +16,12 @@ All matrices share one flat bf16 buffer and all biases one flat f32
 buffer; ``w_off``/``b_off`` give each one's start. Padding follows the
 tensor-core tile, not the TPU's lanes: the encodings pad to a multiple
 of 16 rows (PE(x) 63 -> 64, PE(d) 27 -> 32), the [feature | sigma] head
-to F + 8 columns (sigma in column F) and rgb to 8 columns.
+to F + 8 columns (sigma in column F) and rgb to 8 columns. The widths
+themselves pad to a multiple of 16 too (``padded_widths``: net_width 100
+runs as 112, with zero rows, columns and biases): a pad column of a hidden
+layer is relu(0) = 0 and meets only zero weights, the feature head is
+linear, and sigma and rgb keep their columns, so the field computes the
+same numbers; ``unpack_grads`` crops the pads from the gradients.
 
 As in the JAX packing, the skip layer's weight splits in two: rows
 [:W] multiply the hidden state and rows [W:] (the encoded input) become
@@ -36,7 +41,9 @@ so every k-slice is one contiguous run of bytes, laid out in shared memory
 as the wgmma descriptors read it. A product's width is a compile-time wgmma
 shape, so each matrix's columns are padded with zeros to the next power of
 two from 16 (``k1_width``; the rgb head keeps its 8, and [feature | sigma]
-pads the feature block, sigma's 8 columns after it): no preset pads.
+pads the feature block, sigma's 8 columns after it): no preset pads. A field
+wider than 256 runs K1's wide instance, which multiplies by
+``PackedWeights.w`` as K2 does (the kernel decides: ``fused_ray_render``).
 """
 
 from __future__ import annotations
@@ -60,6 +67,13 @@ from ..ops.contract import contract as contract_points, contract_gaussian  # noq
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+def padded_widths(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(net_width, feature_width, view_head_width) as the kernels run them:
+    each padded to a multiple of 16 (the tensor-core k-step)."""
+    return (_round_up(cfg.net_width, 16), _round_up(cfg.feature_width, 16),
+            _round_up(cfg.view_head_width, 16))
 
 
 def enc_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
@@ -125,13 +139,14 @@ class PackedWeights:
     b_off: Tuple[int, ...]  # element offset of each bias in b
     depth: int
     skip_layer: int
-    W: int  # trunk width
-    F: int  # feature width
-    V: int  # view-head width
+    W: int  # trunk width, padded (padded_widths)
+    F: int  # feature width, padded
+    V: int  # view-head width, padded
     P: int  # padded PE(x) width
     D: int  # padded PE(d) width
     pos_levels: int
     dir_levels: int
+    widths: Tuple[int, int, int]  # the config's (net, feature, view head) widths
 
     def matrices(self) -> List[torch.Tensor]:
         """The (K, N) bf16 matrices in kernel order, un-swizzled."""
@@ -253,15 +268,13 @@ def pack_weights_k1(packed: PackedWeights) -> PackedK1:
 
 def pack_weights(params, cfg: ModelConfig) -> PackedWeights:
     """Repack a ``NerfMLP`` into the kernel layout (bf16 weights, f32
-    biases). Inference only: the result carries no gradient."""
+    biases), its widths padded to multiples of 16 (``padded_widths``; the
+    pads are zero). Inference only: the result carries no gradient."""
     if cfg.compat or not cfg.use_viewdirs or not cfg.include_input_in_enc:
         raise ValueError("the fused kernel covers the paper architecture")
     pos, P, dird, D = enc_dims(cfg)
-    W, Fw, V = cfg.net_width, cfg.feature_width, cfg.view_head_width
-    for name, v in (("net_width", W), ("feature_width", Fw),
-                    ("view_head_width", V)):
-        if v % 16:
-            raise ValueError(f"{name}={v}: the kernel needs a multiple of 16")
+    W, Fw = cfg.net_width, cfg.feature_width
+    Wp, Fp, Vp = padded_widths(cfg)
     dev = params.sigma.w.device
 
     def padw(w, rows, cols):
@@ -272,23 +285,23 @@ def pack_weights(params, cfg: ModelConfig) -> PackedWeights:
         return F.pad(b.detach().float(), (0, cols - b.shape[0]))
 
     mats, biases = [], []
-    skip_w = torch.zeros(P, W, device=dev)
+    skip_w = torch.zeros(P, Wp, device=dev)
     for i, layer in enumerate(params.trunk):
         if i == 0:
-            mats.append(padw(layer.w, P, W))
+            mats.append(padw(layer.w, P, Wp))
         elif i == cfg.skip_layer:
-            mats.append(padw(layer.w[:W], W, W))
-            skip_w = padw(layer.w[W:], P, W)
+            mats.append(padw(layer.w[:W], Wp, Wp))
+            skip_w = padw(layer.w[W:], P, Wp)
         else:
-            mats.append(padw(layer.w, W, W))
-        biases.append(padb(layer.b, W))
-    sf_w = torch.cat([padw(params.feature.w, W, Fw),
-                      padw(params.sigma.w, W, 8)], dim=1)
-    sf_b = torch.cat([padb(params.feature.b, Fw), padb(params.sigma.b, 8)])
+            mats.append(padw(layer.w, Wp, Wp))
+        biases.append(padb(layer.b, Wp))
+    sf_w = torch.cat([padw(params.feature.w, Wp, Fp),
+                      padw(params.sigma.w, Wp, 8)], dim=1)
+    sf_b = torch.cat([padb(params.feature.b, Fp), padb(params.sigma.b, 8)])
     vw = params.view1.w
-    mats += [skip_w, sf_w, padw(vw[:Fw], Fw, V), padw(vw[Fw:], D, V),
-             padw(params.rgb.w, V, 8)]
-    biases += [sf_b, padb(params.view1.b, V), padb(params.rgb.b, 8)]
+    mats += [skip_w, sf_w, padw(vw[:Fw], Fp, Vp), padw(vw[Fw:], D, Vp),
+             padw(params.rgb.w, Vp, 8)]
+    biases += [sf_b, padb(params.view1.b, Vp), padb(params.rgb.b, 8)]
     return PackedWeights(
         w=torch.cat([_swizzle(m) for m in mats]).contiguous(),
         b=torch.cat(biases).contiguous(),
@@ -297,9 +310,10 @@ def pack_weights(params, cfg: ModelConfig) -> PackedWeights:
         b_off=_offsets(b.numel() for b in biases),
         depth=cfg.net_depth,
         skip_layer=cfg.skip_layer,
-        W=W, F=Fw, V=V, P=P, D=D,
+        W=Wp, F=Fp, V=Vp, P=P, D=D,
         pos_levels=cfg.pos_enc_levels,
         dir_levels=cfg.dir_enc_levels,
+        widths=(W, Fw, cfg.view_head_width),
     )
 
 
@@ -323,7 +337,7 @@ class PackedWeightsT:
     w: torch.Tensor
     w_off: Tuple[int, ...]
     w_shape: Tuple[Tuple[int, int], ...]
-    sigma_row: torch.Tensor  # (W,) f32: the sigma head's bf16 column
+    sigma_row: torch.Tensor  # (padded W,) f32: the sigma head's bf16 column, 0 on the pads
 
     def matrices(self) -> List[torch.Tensor]:
         """The (K, N) bf16 matrices in kernel order, un-swizzled."""

@@ -13,9 +13,9 @@ K2a, the per-tile forward and backward, and K2b, the dW and bias
 reduction over rows) for CUDA tensors, and runs
 ``fused_train_grads_reference``, its plain PyTorch version, for CPU
 tensors. There is no other switch: on a CUDA tensor it launches the
-kernels or raises. A call over more than ``BLOCK_ROWS`` padded rows
-launches them once per block of rays (``ray_blocks``), which bounds the
-stashes on the card.
+kernels or raises. A call over more than ``BLOCK_ROWS`` padded rows, or
+more than ``BLOCK_BYTES`` of stashes, launches them once per block of rays
+(``ray_blocks`` at ``block_rows``), which bounds the stashes on the card.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from ..config import ModelConfig
 from . import build
 from .fused_ray import (_SHAPE_ERRORS, _SIGMA_ACT, _check, _check_device, encode_samples,
                         pad_samples, rays_per_cta)
-from .fused_render import PackedWeights, PackedWeightsT, pe_encode
+from .fused_render import PackedWeights, PackedWeightsT, padded_widths, pe_encode
 
 
 # How far the kernels may stand from their plain version on the same card
@@ -68,6 +68,15 @@ BLOCKED_TOL = 1e-4
 # (~10.5 KB a row). Longer calls run in blocks of at most this many.
 BLOCK_ROWS = 1 << 20
 
+# Stash bytes of one launch (csrc/fused_train.cu ``scratch_layout`` less the
+# partials): 16 GiB, which every preset's call stays within (the record
+# union's 1,048,576 rows stash 10.9 GB), and with the dW partials (at most 128
+# x the gradient's f32) a block of a wide field still fits an 80 GB card
+# beside its step: at width 1024 and depth 8 a row stashes ~35.7 KB, so a
+# block takes ~481,000 rows (the flagship recipe's 4096 x 64 call at that
+# width: one block of 9.4 GB).
+BLOCK_BYTES = 16 << 30
+
 
 def ray_blocks(n_rays: int, S: int, rows: int = BLOCK_ROWS) -> List[Tuple[int, int]]:
     """The launches of a call on ``n_rays`` rays at the padded S: ranges
@@ -77,6 +86,19 @@ def ray_blocks(n_rays: int, S: int, rows: int = BLOCK_ROWS) -> List[Tuple[int, i
     R = rays_per_cta(S)
     per = max(R, rows // (R * S) * R)
     return [(lo, min(lo + per, n_rays)) for lo in range(0, n_rays, per)]
+
+
+def block_rows(packed: PackedWeights, S: int) -> int:
+    """Padded rows of one launch at the padded S (card only): the kernels'
+    own sizing (``nerf_fused_train_block_rows``), at most ``BLOCK_ROWS``
+    rows whose stashes take at most ``BLOCK_BYTES``, one tile at least."""
+    rows = _library().nerf_fused_train_block_rows(S, packed.depth, packed.W, packed.F,
+                                                  packed.V, packed.P, packed.D, BLOCK_ROWS,
+                                                  BLOCK_BYTES)
+    if rows < 0:
+        raise ValueError(f"fused_train kernel refused the call: {_SHAPE_ERRORS[-1]}"
+                         if rows == -1 else f"CUDA error {-rows} sizing the blocks")
+    return rows
 
 
 class TrainGrads(NamedTuple):
@@ -170,11 +192,14 @@ def fused_train_grads(
     Any N: the kernel masks the ragged last tile (no padded ray enters
     the loss). Any S >= 1. Launches on the current stream without
     synchronising; two calls on the same inputs give identical bits. Past
-    ``BLOCK_ROWS`` padded rows the call launches the kernels once per block
-    of ``ray_blocks``, each block's means taken over all N rays (diag and
-    weights written in place, the blocks' gradients summed in block order),
-    and ``fused_train_grads.launches`` counts each block's launch: a call
-    within ``BLOCK_ROWS`` adds 1.
+    ``BLOCK_ROWS`` padded rows or ``BLOCK_BYTES`` of stashes the call
+    launches the kernels once per block of ``ray_blocks`` at ``block_rows``,
+    each block's means taken over all N rays (diag and weights written in
+    place, the blocks' gradients summed in block order), and
+    ``fused_train_grads.launches`` counts each block's launch: a call
+    within ``BLOCK_ROWS`` and ``BLOCK_BYTES`` adds 1. Any widths
+    (``pack_weights`` pads them to multiples of 16; past 256 the kernels'
+    wide instance keeps its activations in the stashes).
     """
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
                  num_samples, radii)
@@ -202,7 +227,7 @@ def fused_train_grads(
     w = torch.empty(n, S, device=dev)
     grads = torch.empty(total, device=dev)
     lib = _library()
-    blocks = ray_blocks(n, S, BLOCK_ROWS)
+    blocks = ray_blocks(n, S, block_rows(packed, S))
     nbytes = lib.nerf_fused_train_scratch_bytes(blocks[0][1], S, packed.depth, packed.W,
                                                 packed.F, packed.V, packed.P, packed.D, total)
     if nbytes < 0:
@@ -270,6 +295,9 @@ def _library() -> ctypes.CDLL:
         size = lib.nerf_fused_train_scratch_bytes
         size.argtypes = [i64] + [i32] * 7 + [i64]
         size.restype = i64
+        rows = lib.nerf_fused_train_block_rows
+        rows.argtypes = [i32] * 7 + [i64, i64]
+        rows.restype = i64
         lib.nerf_cuda_error_string.argtypes = [i32]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -424,25 +452,27 @@ def fused_train_grads_reference(
 
 def unpack_grads(tg: TrainGrads, params, cfg: ModelConfig) -> "OrderedDict[str, torch.Tensor]":
     """Packed-layout gradients -> gradients keyed like the ``NerfMLP``
-    state dict (the inverse of ``pack_weights``' padding and splitting;
-    the counterpart of ``unpack_grads`` in the JAX package)."""
-    W, Fw, L = cfg.net_width, cfg.feature_width, cfg.net_depth
+    state dict (the inverse of ``pack_weights``' padding and splitting,
+    the widths' pads cropped; the counterpart of ``unpack_grads`` in the
+    JAX package)."""
+    W, Fw, V, L = cfg.net_width, cfg.feature_width, cfg.view_head_width, cfg.net_depth
+    Fp = padded_widths(cfg)[1]  # sigma's column in [feature | sigma]
     out: "OrderedDict[str, torch.Tensor]" = OrderedDict()
     for i, layer in enumerate(params.trunk):
         in_dim = layer.w.shape[0]
         if i == cfg.skip_layer and i > 0:
-            gw = torch.cat([tg.dw[i][:W], tg.dw[L][:in_dim - W]])
+            gw = torch.cat([tg.dw[i][:W, :W], tg.dw[L][:in_dim - W, :W]])
         else:
-            gw = tg.dw[i][:in_dim]
+            gw = tg.dw[i][:in_dim, :W]
         out[f"trunk.{i}.w"] = gw
-        out[f"trunk.{i}.b"] = tg.db[i]
-    out["sigma.w"] = tg.dw[L + 1][:, Fw:Fw + 1]
-    out["sigma.b"] = tg.db[L][Fw:Fw + 1]
-    out["feature.w"] = tg.dw[L + 1][:, :Fw]
+        out[f"trunk.{i}.b"] = tg.db[i][:W]
+    out["sigma.w"] = tg.dw[L + 1][:W, Fp:Fp + 1]
+    out["sigma.b"] = tg.db[L][Fp:Fp + 1]
+    out["feature.w"] = tg.dw[L + 1][:W, :Fw]
     out["feature.b"] = tg.db[L][:Fw]
     dir_rows = params.view1.w.shape[0] - Fw
-    out["view1.w"] = torch.cat([tg.dw[L + 2], tg.dw[L + 3][:dir_rows]])
-    out["view1.b"] = tg.db[L + 1]
-    out["rgb.w"] = tg.dw[L + 4][:, :3]
+    out["view1.w"] = torch.cat([tg.dw[L + 2][:Fw, :V], tg.dw[L + 3][:dir_rows, :V]])
+    out["view1.b"] = tg.db[L + 1][:V]
+    out["rgb.w"] = tg.dw[L + 4][:V, :3]
     out["rgb.b"] = tg.db[L + 2][:3]
     return OrderedDict((k, v.contiguous()) for k, v in out.items())

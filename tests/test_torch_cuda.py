@@ -379,20 +379,129 @@ def test_streamed_instances_match_plain_version(field, ipe, n, s):
 
 
 def test_wrappers_refuse_widths_above_256():
-    """The one shape both kernels still refuse: a field wider than 256 (the
-    JAX kernels take it; the plain versions run it on the CPU), with a
-    message that names the cap."""
+    """Widths above 256 were the one shape both kernels refused (fault 13),
+    and widths that are no multiple of 16 did not pack (fault 14); the JAX
+    kernels take both. Now no width from 1 to 1024 draws a refusal: a field
+    of one layer at W = F = V = w, one ray of 16 samples, through K1 and K2
+    for every w, each call launching its kernel once (K2 at least once: a
+    call within the block budget is one launch)."""
+    from nerf_rs_tpu_torch.kernels import fused_ray
+
     dev = _device()
-    cfg = ModelConfig(net_depth=3, skip_layer=2, net_width=512, feature_width=512,
-                      view_head_width=256)
-    model = init_nerf_params(cfg, 0, dev)
-    pk = pack_weights(model, cfg)
-    o, d, vd, ts, dl = _rays(8, 16, dev)
-    with pytest.raises(ValueError, match="up to 256"):
+    scratch_bytes = fused_ray._library().nerf_fused_ray_scratch_bytes
+    o, d, vd, ts, dl = _rays(1, 16, dev)
+    gold = torch.zeros(1, 3, device=dev)
+    for w in range(1, 1025):
+        cfg = ModelConfig(net_depth=1, skip_layer=4, net_width=w, feature_width=w,
+                          view_head_width=w, pos_enc_levels=2, dir_enc_levels=1)
+        pk = pack_weights(init_nerf_params(cfg, 0, dev), cfg)
+        assert pk.widths == (w, w, w) and pk.W == -(-w // 16) * 16
+        # K1's wide instance, and its layout, where the kernel asks for a scratch
+        assert (scratch_bytes(1, 16, pk.W, pk.F, pk.V, pk.P, pk.D) > 0) == (pk.W > 256)
+        k1, k2 = fused_ray_render.launches, fused_train_grads.launches
         fused_ray_render(pk, o, d, vd, ts, dl, cfg, 16)
-    gold = torch.zeros(8, 3, device=dev)
-    with pytest.raises(ValueError, match="up to 256"):
         fused_train_grads(pk, pack_weights_t(pk), o, d, vd, ts, dl, gold, cfg, 16)
+        assert (fused_ray_render.launches - k1, fused_train_grads.launches - k2) == (1, 1), w
+    torch.cuda.synchronize()
+
+
+# (net, feature, view head) widths the narrow instances did not take: not
+# multiples of 16 (padded: 40/40/24, 100/100/50) and past 256 (the wide
+# instances: 384/384/128, 512/512/256, 1024/256/128, mip-NeRF 360's trunk),
+# on PE and IPE, relu and softplus, the contraction with the distortion loss
+# in either space, S = 64, 192, 193 (-> 256) and 300 (the streamed passes),
+# ragged ray counts: (widths, sigma, IPE, distortion space or None, rays, S)
+WIDTH_CASES = [
+    ((40, 40, 24), "softplus", False, None, 37, 64),
+    ((100, 100, 50), "relu", True, None, 37, 192),
+    ((100, 100, 50), "softplus", False, "linear", 6, 193),
+    ((384, 384, 128), "softplus", False, None, 37, 64),
+    ((384, 384, 128), "relu", False, "linear", 37, 193),
+    ((512, 512, 256), "softplus", True, "disparity", 5, 300),
+    ((512, 512, 256), "relu", False, None, 129, 64),
+    ((1024, 256, 128), "softplus", False, "disparity", 37, 192),
+    ((1024, 256, 128), "softplus", True, None, 3, 300),
+]
+
+
+@pytest.mark.parametrize("widths,sigma_act,ipe,space,n,s", WIDTH_CASES)
+def test_kernels_take_every_width(widths, sigma_act, ipe, space, n, s):
+    """K1 and K2 at widths that are no multiple of 16 or are past 256 (faults
+    13 and 14), random biases: each against its plain version (K1 at
+    chip_smoke.TOL's bars; K2 also against its float64 witness, at KERNEL_TOL,
+    with the contraction and the distortion loss in ``space`` when it is
+    given), one launch a call, reruns bit-identical."""
+    dev = _device()
+    w, f, v = widths
+    contract = space is not None
+    cfg = ModelConfig(net_depth=4, skip_layer=2, net_width=w, feature_width=f,
+                      view_head_width=v, sigma_activation=sigma_act, ipe=ipe, contract=contract)
+    pk = pack_weights(_biased_model(cfg, dev), cfg)
+    rays, radii = _branch_rays(ipe, n, s, dev)
+    if contract:  # samples from inside the unit ball to far outside it
+        rays = (rays[0], rays[1], rays[2], rays[3] * 6.0, rays[4] * 6.0)
+    args = (pk, *rays, cfg, s)
+    before = fused_ray_render.launches
+    got = fused_ray_render(*args, radii=radii)
+    again = fused_ray_render(*args, radii=radii)
+    torch.cuda.synchronize()
+    assert fused_ray_render.launches == before + 2
+    want = fused_ray_render_reference(*args, radii=radii)
+    for name, g, a, ww, tol in zip(("rgb", "acc", "depth", "weights", "sigma"), got, again, want,
+                                   (1e-3, 1e-3, 2e-3 * (6.0 if contract else 1.0), 1e-3, 2e-2)):
+        assert g.shape == ww.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        assert float((g - ww).abs().max()) <= tol, name
+        assert torch.equal(g, a), name
+    gold = torch.from_numpy(np.random.default_rng(1).uniform(size=(n, 3))
+                            .astype(np.float32)).to(dev)
+    targs = (pk, pack_weights_t(pk), *rays, gold, cfg, s)
+    dist = dict(dist_weight=0.01, near=0.3, far=12.0, dist_space=space) if contract else {}
+    before = fused_train_grads.launches
+    tg = fused_train_grads(*targs, white_bg=True, radii=radii, **dist)
+    tg2 = fused_train_grads(*targs, white_bg=True, radii=radii, **dist)
+    torch.cuda.synchronize()
+    assert fused_train_grads.launches == before + 2
+    _check_train(tg, targs, True, radii, **dist)
+    for x, y in zip((tg.diag, tg.weights, *tg.dw, *tg.db), (tg2.diag, tg2.weights, *tg2.dw,
+                                                            *tg2.db)):
+        assert torch.equal(x, y)
+
+
+def test_train_blocks_are_bounded_by_their_stash_bytes():
+    """K2's launches are bounded by BLOCK_BYTES of stashes (the kernels' own
+    sizing, ``block_rows``) as well as by BLOCK_ROWS: at the flagship widths
+    the flagship's 4096 x 64 call and the record union's 4096 x 256 stay one
+    launch each (BLOCK_ROWS binds); at 1024/256/128 (depth 8) a row stashes
+    ~35.7 KB, the flagship recipe's 4096 x 64 call is one launch (~9.4 GB),
+    and 16,384 x 64 rays (1,048,576 rows, within BLOCK_ROWS; ~37.5 GB) run
+    as three blocks of whole tiles, every ray in one, each block's stashes
+    (the scratch less its partials) within BLOCK_BYTES and one more tile
+    past it."""
+    import dataclasses
+
+    from nerf_rs_tpu_torch.kernels import fused_train
+
+    dev = _device()
+    stash = fused_train._library().nerf_fused_train_scratch_bytes
+    flagship = ModelConfig()
+    pk = pack_weights(init_nerf_params(flagship, 0, dev), flagship)
+    for s in (64, 256):
+        assert fused_train.block_rows(pk, s) == fused_train.BLOCK_ROWS
+        assert fused_train.ray_blocks(4096, s, fused_train.block_rows(pk, s)) == [(0, 4096)]
+    wide = dataclasses.replace(flagship, net_width=1024)
+    pk = pack_weights(init_nerf_params(wide, 0, dev), wide)
+    rows = fused_train.block_rows(pk, 64)
+    assert rows % 128 == 0 and 4096 * 64 <= rows < fused_train.BLOCK_ROWS
+    assert 35_000 < stash(rows // 64, 64, 8, pk.W, pk.F, pk.V, pk.P, pk.D, 0) / rows < 36_500
+    assert fused_train.ray_blocks(4096, 64, rows) == [(0, 4096)]
+    blocks = fused_train.ray_blocks(16384, 64, rows)
+    assert len(blocks) == 3 and blocks[0][0] == 0 and blocks[-1][1] == 16384
+    assert all(a[1] == b[0] for a, b in zip(blocks, blocks[1:]))
+    for lo, hi in blocks:
+        assert lo % 2 == 0
+        assert stash(hi - lo, 64, 8, pk.W, pk.F, pk.V, pk.P, pk.D, 0) <= fused_train.BLOCK_BYTES
+    assert stash(rows // 64 + 2, 64, 8, pk.W, pk.F, pk.V, pk.P, pk.D, 0) > fused_train.BLOCK_BYTES
 
 
 def test_wrapper_refuses_non_contiguous_rays():

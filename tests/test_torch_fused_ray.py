@@ -27,7 +27,7 @@ from nerf_rs_tpu_torch.convert import params_from_numpy
 from nerf_rs_tpu_torch.kernels import fused_render
 from nerf_rs_tpu_torch.kernels.fused_ray import (
     fused_ray_render, fused_ray_render_reference)
-from nerf_rs_tpu_torch.models.mlp import NerfMLP
+from nerf_rs_tpu_torch.models.mlp import NerfMLP, init_nerf_params
 
 torch.set_num_threads(2)
 
@@ -190,6 +190,12 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         fused_ray_render(pk, o, d, vd, ts, dl, cfg, S)
     with pytest.raises(ValueError, match="no kernel"):
         fused_ray_render(pk, *(a.to("meta") for a in (o, d, vd, ts, dl)), CFG, S)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        fused_render.pack_weights(model, ModelConfig(**{**CFG.__dict__, "view_head_width": 24}))
+    # a width that is no multiple of 16 packs, padded with zeros (fault 14), and
+    # its pack is refused for the config of the padded width
+    cfg24 = ModelConfig(**{**CFG.__dict__, "view_head_width": 24})
+    pk24 = fused_render.pack_weights(init_nerf_params(cfg24, 0, torch.device("cpu")), cfg24)
+    assert (pk24.V, pk24.widths) == (32, (64, 64, 24))
+    with pytest.raises(ValueError, match="packed weights"):
+        fused_ray_render(pk24, o, d, vd, ts, dl, ModelConfig(**{**CFG.__dict__,
+                                                                "view_head_width": 32}), S)
 

@@ -6,10 +6,11 @@ whole-ray kernels' plain versions, on the CPU:
   interpret mode on the rays as they are, with relu and softplus density, a
   white background, IPE, and the contraction with the disparity-space
   distortion loss; the pads' weights are exactly 0;
-* both at net_depth 21 (skip 4: 26 packed matrices) and at net_width 512
-  (feature 512, view head 256), which the JAX kernels take; the card's
-  kernels refuse widths above 256, so at 512 the comparison is the plain
-  versions' only;
+* both at net_depth 21 (skip 4: 26 packed matrices) and at widths the JAX
+  kernels take: 512 (feature 512, view head 256), 384/384/128, 1024/256/128
+  (the card's wide instances) and 40/40/24, 100/100/50 (padded to multiples
+  of 16); the kernels themselves at these widths need the card
+  (tests/test_torch_cuda.py, chip_smoke.py phase 36);
 * the CLI's long-ray paths to step 2: `train --preset full --num_samples
   300`, `train --preset hierarchical --num_fine_samples 256` (a union of 320
   samples) and `render --num_samples 300`, each through the kernels' plain
@@ -49,6 +50,14 @@ DEEP = ModelConfig(net_depth=21, net_width=32, skip_layer=4, feature_width=32,
                    view_head_width=16, pos_enc_levels=4, dir_enc_levels=2)
 WIDE = ModelConfig(net_depth=3, net_width=512, skip_layer=2, feature_width=512,
                    view_head_width=256, pos_enc_levels=4, dir_enc_levels=2)
+# (net, feature, view head) widths the port pads (pack_weights: to multiples
+# of 16) or runs on the kernels' wide instances (past 256): the odd ones and
+# mip-NeRF 360's 1024-wide trunk with this package's 256 / 128 heads
+WIDTHS = {"width40": (40, 40, 24), "width100": (100, 100, 50), "width384": (384, 384, 128),
+          "width1024": (1024, 256, 128)}
+FIELDS = {"depth21": DEEP, "width512": WIDE,
+          **{k: dataclasses.replace(MODEL, net_width=w, feature_width=f, view_head_width=v)
+             for k, (w, f, v) in WIDTHS.items()}}
 N = 4
 NEAR, FAR = 0.05, 2.0
 # the contraction case samples over [0.3, 12] in disparity, as the unbounded
@@ -189,19 +198,21 @@ def test_train_plain_version_on_long_rays_matches_jax(case_id):
         assert float(mine.diag[:, 5].abs().min()) > 0.0
 
 
-@pytest.mark.parametrize("cfg", [DEEP, WIDE], ids=["depth21", "width512"])
-def test_plain_versions_of_deep_and_wide_fields_match_jax(cfg):
+@pytest.mark.parametrize("name", list(FIELDS))
+def test_plain_versions_of_deep_and_wide_fields_match_jax(name):
     """K1's and K2's plain versions against the JAX kernels in interpret mode
-    at net_depth 21 (skip 4) and at net_width 512 (feature 512, view head
-    256), 16 samples a ray, softplus density, white background for K2. At
-    depth 21 the bars are the narrow cases'. At width 512 the f32 sums of
-    512 products flip the bf16 rounding of some hidden activations with
-    their order: the plain version and the JAX kernel each stand ~1.3e-5
-    (diag) and ~1.5e-3 (leaves) from the float64 witness, and 1.2e-5 and
-    4.1e-4 from each other, so K2 is held at K1's bars for diag and weights
-    (3e-3) and at 2e-3 of each leaf's max, and the plain version to its
-    witness at 5e-3."""
-    cfg = dataclasses.replace(cfg, sigma_activation="softplus")
+    at net_depth 21 (skip 4), at net_width 512 (feature 512, view head 256),
+    at widths that are not multiples of 16 (40/40/24, 100/100/50: the port
+    pads them, the JAX package to its own lanes) and at 384/384/128 and
+    1024/256/128, 16 samples a ray, softplus density, white background for
+    K2. Up to width 256 the bars are the narrow cases'. Past it the f32 sums
+    of 384 to 1024 products flip the bf16 rounding of some hidden activations
+    with their order: at 512 the plain version and the JAX kernel each stand
+    ~1.3e-5 (diag) and ~1.5e-3 (leaves) from the float64 witness, and 1.2e-5
+    and 4.1e-4 from each other, so K2 is held at K1's bars for diag and
+    weights (3e-3) and at 2e-3 of each leaf's max, and the plain version to
+    its witness at 5e-3."""
+    cfg = dataclasses.replace(FIELDS[name], sigma_activation="softplus")
     params, model = _model(cfg, 47)
     s = 16
     rays, _ = _rays(N, s, 48, False)
