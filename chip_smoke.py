@@ -279,6 +279,20 @@ Phases, each fatal (any failure exits non-zero):
      call at the main path's shapes, each held whole to its plain version
      (K1 at TOL, K2 at KERNEL_TOL) and timed beside it, its library path and
      its bound, the K2 call's scratch bytes (drive_wide).
+ 37. the caps the JAX package never had, lifted (faults 15-17; run after
+     phase 36): K1 and K2 at depth 130 (width 64, its trunk scaled to unit
+     variance) and at the paper widths with pos_enc_levels 20 and 34 (K1's
+     wide instance: its scratch asked for exactly there), each against its
+     plain versions and the float64 witness on the 4,103 rays (check_lifted);
+     K3 at 300 levels forward and backward, bf16 and f32, against its plain
+     versions and the witness (check_lifted_factored); train/loop.train of
+     `--preset ngp --hash_brick false` at hash_features 8 (the CLI has no
+     flag for it) and its 800x800 frame through gather_rows and scatter_rows
+     with exact counts, one step at F = 40, and gather_rows
+     and scatter_rows at F = 8 and 40 bit-equal to their plain versions and
+     timed (drive_lifted_features); then the times: one K1 chunk and one K2
+     call at pos_enc_levels 20 (width_calls) and K3 at 300 levels
+     (time_k3_calls).
 The record, multiscale and lego learning drives and fault 6's check fail the run at its end,
 after phase 29 has printed its measurements. `clock:` lines give each
 phase's wall seconds. Every kernel launch counter is set
@@ -344,6 +358,7 @@ one card, in turns, each checkout through its own script:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -1079,6 +1094,29 @@ def device_ms(prof) -> dict:
     return out
 
 
+PROFILE_FLOOR = 0.85  # least share of a call's event time that its profile must hold
+NOT_PROFILED = "not measured (the profile lost kernels' events)"
+
+
+def profiled_split(fn, calls: int, window_ms: float, bound: float):
+    """Device time in ms by kernel name of one call of ``fn``, from a
+    torch.profiler run of ``calls`` calls back to back; or None (not
+    measured) where the profile lost kernels' events, as it does late in a
+    long run: where its total is below the call's bound, or below
+    PROFILE_FLOOR of ``window_ms``, the call's own device time in a
+    CUDA-event window (where the card sets the pace the two agree)."""
+    import torch
+
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    per = {k: v / calls for k, v in device_ms(prof).items()}
+    total = sum(per.values())
+    return per if total >= max(bound, PROFILE_FLOOR * window_ms) else None
+
+
 def time_training(card: str) -> dict:
     """The flagship step (4096 rays x 64 samples) through K2, autograd
     and the plain version; K2a and K2b alone; a profile of the K2 step."""
@@ -1142,17 +1180,18 @@ def time_training(card: str) -> dict:
     fused_train_grads(*k2_args)
     k2_ms = event_ms(lambda: fused_train_grads(*k2_args))
     plain_ms = event_ms(lambda: fused_train_grads_reference(*k2_args))
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            fused_train_grads(*k2_args)
-        torch.cuda.synchronize()
-    per = {k: v / 5 for k, v in device_ms(prof).items()}
-    k2a = sum(v for k, v in per.items() if "train_tile_kernel" in k)
-    k2b = sum(v for k, v in per.items() if re.search(r"dw_partial|colsum|reduce_kernel|feat_bias", k))
+    per = profiled_split(lambda: fused_train_grads(*k2_args), 5, k2_ms, 0.0)
+    if per is None:
+        split = f"device time {NOT_PROFILED}"
+    else:
+        k2a = sum(v for k, v in per.items() if "train_tile_kernel" in k)
+        k2b = sum(v for k, v in per.items()
+                  if re.search(r"dw_partial|colsum|reduce_kernel|feat_bias", k))
+        split = (f"device time K2a {k2a:.3f} ms, K2b {k2b:.3f} ms ("
+                 + ", ".join(f"{kernel_name(k)} {v:.3f}" for k, v in
+                             sorted(per.items(), key=lambda kv: -kv[1])) + ")")
     print(f"one K2 call, 4096 x 64 [{card}]: {k2_ms:.3f} ms (CUDA events), plain version "
-          f"{plain_ms:.3f} ms; device time K2a {k2a:.3f} ms, K2b {k2b:.3f} ms "
-          + "(" + ", ".join(f"{kernel_name(k)} {v:.3f}" for k, v in
-                          sorted(per.items(), key=lambda kv: -kv[1])) + ")")
+          f"{plain_ms:.3f} ms; {split}")
 
     # where a K2 step's time goes: device time by kernel over 10 steps
     run = stepper(cfg)
@@ -2367,6 +2406,369 @@ def drive_wide(tmp: str, card: str, dev) -> dict:
     return out
 
 
+# Phase 37: the caps the JAX package never had, lifted. Fault 15: the offset
+# tables leave the launch parameters (K1/K2 past depth 123 at width 64, K3
+# past 256 levels); fault 17: encodings no wgmma layout holds take the wide
+# instance (pos_enc_levels 20, P = 128, at the paper widths: K1 wide; 34, P =
+# 208: K2 wide too); fault 16: the flat hash table at any F (gather_rows and
+# scatter_rows past 4-aligned widths, 32 lanes and 128 columns)
+LIFT_DEPTH = 130
+LIFT_NARROW = dict(net_width=64, feature_width=64, view_head_width=32, skip_layer=4)
+LIFT_PE = ((20, "relu"), (34, "softplus"))
+LIFT_LEVELS = 300
+LIFT_CHECK_RAYS = 256  # K3's checks at 300 levels: 32,768 points (the plain dense hat: 5.7 GB)
+LIFT_FEATURES = 8  # the flat table's F of the train and frame drive
+LIFT_WIDE_F = 40  # one step at this F
+# rays whose fetches time gather_rows / scatter_rows at each F (the plain
+# scatter's elements stay those of the F = 2 step's: 1.3e8 and 1.7e8)
+LIFT_TIMED = {8: 1024, 40: 256}
+
+
+def unit_variance_(model, cfg, o, d, ts):
+    """Scales each trunk layer's weights so that its relu output has an RMS
+    of 1 on the rays' samples (layer-sequential unit variance): a trunk of
+    130 layers then keeps its signal and its gradients (at the initial scale
+    they fade to ~1e-12 of the heads' by the first layer), so K2's leaves
+    are compared where they carry a gradient. Returns ``model``."""
+    import torch
+
+    from nerf_rs_tpu_torch.models.encoding import posenc
+
+    with torch.no_grad():
+        x = posenc((o[:, None] + ts[..., None] * d[:, None]).reshape(-1, 3).double(),
+                   cfg.pos_enc_levels, True)
+        h = x
+        for i, layer in enumerate(model.trunk):
+            inp = torch.cat([h, x], -1) if i == cfg.skip_layer and i > 0 else h
+            out = torch.relu(inp @ layer.w.double())
+            rms = out.square().mean().sqrt()
+            layer.w.div_(rms.float())
+            h = out / rms
+    return model
+
+
+# How far from the float64 witness K1 and K2 may stand on the deep trunk, as a
+# multiple of the plain version's own distance (per output; per gradient leaf
+# relative to its max; at least TOL / KERNEL_TOL): the bf16 rounding of every
+# activation, flipped by the f32 summation order, compounds through 130 layers,
+# and on an H100 the plain version stood up to 2.1e-2 (weights), 0.34 (sigma)
+# and 1.4e-2 (a leaf) from its witness, the kernels at most 1.81x as far
+# (tests/test_torch_cuda.py DEEP_WITNESS_FACTOR)
+DEEP_WITNESS_FACTOR = 2.5
+
+
+def check_deep_case(label, model, cfg, rays, gold, ts, dl) -> tuple:
+    """K1 and K2 on the deep trunk: each run twice, bit-identical, and held
+    to the float64 witness at DEEP_WITNESS_FACTOR times the plain version's
+    distance from it. Returns K1's and K2's largest differences from their
+    plain versions (printed beside the plain version's from the witness)."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render, fused_ray_render_reference
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import (
+        KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
+
+    s = ts.shape[1]
+    pk = pack_weights(model, cfg)
+    args = (pk, *rays, ts, dl, cfg, s)
+    got = fused_ray_render(*args)
+    if not all(torch.equal(a, b) for a, b in zip(got, fused_ray_render(*args))):
+        fail(f"two K1 launches [{label}] gave different bits")
+    plain = fused_ray_render_reference(*args)
+    wit = fused_ray_render_reference(*args, dtype=torch.float64)
+    k1_err, gaps = 0.0, []
+    for name, g, p, w in zip(TOL, got, plain, wit):
+        mine, theirs = (float((x.double() - w).abs().max()) for x in (g, p))
+        bar = max(TOL[name], DEEP_WITNESS_FACTOR * theirs)
+        gaps.append(f"{name} {mine:.3g} / {theirs:.3g}")
+        k1_err = max(k1_err, float((g - p).abs().max()))
+        if not mine <= bar:
+            fail(f"K1 [{label}] {name}: {mine:.3g} from the witness, bar {bar:.3g}")
+    print(f"K1 [{label}] from the float64 witness, kernel / plain: {', '.join(gaps)}")
+    del got, plain, wit
+    targs = (pk, pack_weights_t(pk), *rays, ts, dl, gold, cfg, s)
+    tg = fused_train_grads(*targs, white_bg=True)
+    if not all(torch.equal(a, b) for a, b in zip(
+            k2_outs(tg), k2_outs(fused_train_grads(*targs, white_bg=True)))):
+        fail(f"two K2 launches [{label}] gave different bits")
+    plain = fused_train_grads_reference(*targs, white_bg=True)
+    wit = fused_train_grads_reference(*targs, white_bg=True, dtype=torch.float64)
+    worst = {"diag": (0.0, 0.0), "weights": (0.0, 0.0), "grads": (0.0, 0.0)}
+    for key, g, p, w in (("diag", tg.diag[:, :6], plain.diag[:, :6], wit.diag[:, :6]),
+                         ("weights", tg.weights, plain.weights, wit.weights),
+                         *(("grads", *x) for x in zip(tg.dw + tg.db, plain.dw + plain.db,
+                                                      wit.dw + wit.db))):
+        scale = max(float(w.abs().max()), 1e-12) if key == "grads" else 1.0
+        mine, theirs = (float((x.double() - w).abs().max()) / scale for x in (g, p))
+        if not mine <= max(KERNEL_TOL[key], DEEP_WITNESS_FACTOR * theirs):
+            fail(f"K2 [{label}] {key}: {mine:.3g} from the witness, the plain version {theirs:.3g}")
+        worst[key] = tuple(map(max, worst[key], (mine, theirs)))
+    print(f"K2 [{label}] from the float64 witness, kernel / plain: "
+          + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, (a, b) in worst.items()))
+    k2_err = k2_abs(tg, plain)
+    del tg, plain, wit
+    torch.cuda.empty_cache()
+    return k1_err, k2_err
+
+
+def check_lifted(rays, gold, cam) -> tuple:
+    """Phase 37's K1 and K2 checks on the N_RAYS rays at S = 64: depth
+    LIFT_DEPTH at width 64 (scaled to unit variance; check_deep_case, 2
+    launches of each), and the paper widths at each encoding of LIFT_PE
+    (check_long_case: against the plain versions, K2 also the float64
+    witness, reruns bit-identical, the padded call equal; 3 launches of
+    each), where K1 must ask for the wide instance's scratch. Returns K1's
+    and K2's largest differences from their plain versions and the launch
+    counts by case."""
+    import torch
+
+    from nerf_rs_tpu_torch import ModelConfig
+    from nerf_rs_tpu_torch.kernels import fused_ray
+    from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+    from nerf_rs_tpu_torch.models.mlp import init_nerf_params
+
+    dev = rays[0].device
+    gen = torch_generator(dev, 37)
+    k1_err = k2_err = 0.0
+    counts = {}
+    cases = [(f"depth {LIFT_DEPTH} (width 64) softplus",
+              ModelConfig(net_depth=LIFT_DEPTH, sigma_activation="softplus", **LIFT_NARROW))]
+    cases += [(f"pos_enc_levels {lv} {act}", ModelConfig(pos_enc_levels=lv, sigma_activation=act))
+              for lv, act in LIFT_PE]
+    for label, cfg in cases:
+        ts, dl, _, _ = sample_inputs(N_RAYS, 64, False, cam, gen)
+        model = random_biases_(init_nerf_params(cfg, 0, dev), 37)
+        if cfg.net_depth > 100:
+            unit_variance_(model, cfg, rays[0], rays[1], ts)
+        pk = pack_weights(model, cfg)
+        scratch = fused_ray._library().nerf_fused_ray_scratch_bytes(
+            N_RAYS, 64, pk.W, pk.F, pk.V, pk.P, pk.D)
+        if (scratch > 0) != (cfg.pos_enc_levels >= 19):
+            fail(f"phase 37 [{label}]: K1's scratch {scratch} B: the wide instance is for "
+                 f"encodings past P = 112 only")
+        fused_ray_render.launches = fused_train_grads.launches = 0
+        deep = cfg.net_depth > 100
+        a, b = (check_deep_case if deep else check_long_case)(
+            f"{label}, S=64, {N_RAYS} rays", model, cfg, rays, gold, ts, dl)
+        got = (fused_ray_render.launches, fused_train_grads.launches)
+        want = (2, 2) if deep else (3, 3)
+        counts[label] = got
+        if got != want:
+            fail(f"phase 37 [{label}]: K1 / K2 launches {got}, want {want}")
+        print(f"phase 37 [{label}]: K1 {'wide instance' if scratch > 0 else 'wgmma'} "
+              f"(scratch {scratch:,} B), P = {pk.P}, {len(pk.w_off)} packed matrices")
+        k1_err, k2_err = max(k1_err, a), max(k2_err, b)
+        del model, pk
+    torch.cuda.empty_cache()
+    return k1_err, k2_err, counts
+
+
+def check_lifted_factored(ds, cam) -> dict:
+    """K3 at LIFT_LEVELS levels (past the former 256, the preset's ladder and
+    channels): forward against its plain version at KERNEL_TOL and its
+    reruns, backward by check_backward_case (plain and float64 witness,
+    reruns), bf16 and f32 lines, on LIFT_CHECK_RAYS rays' points; one launch
+    of each a call. Returns the largest differences."""
+    import torch
+
+    from nerf_rs_tpu_torch import ModelConfig
+    from nerf_rs_tpu_torch.kernels import fused_factored as k3
+    from nerf_rs_tpu_torch.models.factored import basis_dim
+
+    cfg = ModelConfig(arch="factored", fac_levels=LIFT_LEVELS)
+    dev = ds.images.device
+    gen = torch_generator(dev, 37)
+    lines = 0.25 * torch.randn(3, basis_dim(cfg), cfg.fac_comps, generator=gen, device=dev)
+    pts = factored_points(ds, cam, LIFT_CHECK_RAYS, 37)
+    g = torch.randn(pts.shape[0], cfg.fac_comps, generator=gen, device=dev)
+    errs = {"enc": 0.0, "d_lines": 0.0, "d_lines_abs": 0.0}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", None)):
+        label = f"{name}, {LIFT_LEVELS} levels (sumR {basis_dim(cfg)}), {pts.shape[0]} points"
+        k3.fused_factored_encode.launches = k3.fused_factored_encode_backward.launches = 0
+        enc = k3.fused_factored_encode_forward(lines, pts, cfg, dtype)
+        if not torch.equal(enc, k3.fused_factored_encode_forward(lines, pts, cfg, dtype)):
+            fail(f"two K3 forward launches [{label}] gave different bits")
+        got = float((enc - k3.fused_factored_encode_reference(lines, pts, cfg, dtype))
+                    .abs().max())
+        hold(f"K3 forward vs plain [{label}]", {"enc": got}, k3.KERNEL_TOL)
+        e = check_backward_case(label, lines, pts, g, cfg, dtype)
+        launches = (k3.fused_factored_encode.launches, k3.fused_factored_encode_backward.launches)
+        if launches != (2, 2):
+            fail(f"K3 [{label}]: forward / backward launches {launches}, want (2, 2)")
+        errs["enc"], errs["d_lines"] = max(errs["enc"], got), max(errs["d_lines"], e["d_lines"])
+        errs["d_lines_abs"] = max(errs["d_lines_abs"], e["abs"])
+        del enc
+    del lines, g, pts
+    torch.cuda.empty_cache()
+    return errs
+
+
+def flat_fetch_inputs(dev, features: int, n_rays: int) -> tuple:
+    """The row fetch of the flat table at F = ``features`` (gather_rows,
+    fault 16) of one ngp step's encode on ``n_rays`` rays x 128 jittered
+    samples (factored_points, as ngp_fetch_inputs), captured on a seed-0
+    table, and its backward's scatter_rows call with seeded cotangents:
+    ({"rows": (table, row indices)}, (g, keys, None, lanes, shape))."""
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.models import hashgrid
+    from nerf_rs_tpu_torch.models.mlp import init_nerf_params
+
+    cfg = flat_cfg(features)
+    seen = {}
+    real = hashgrid._RowFetch.apply
+
+    def spy(table, ridx):
+        seen.setdefault("rows", (table, ridx.clone()))
+        return real(table, ridx)
+    hashgrid._RowFetch.apply = staticmethod(spy)
+    try:
+        pts = factored_points(make_dataset(cfg, dev), cfg.camera, n_rays, 21)
+        with torch.no_grad():
+            hashgrid.hash_encode(init_nerf_params(cfg.model, 0, dev).table.detach(), pts,
+                                 cfg.model)
+    finally:
+        del hashgrid._RowFetch.apply  # back to autograd.Function's own
+    table, ridx = seen["rows"]
+    g = torch.randn(ridx.shape[0], features, generator=torch_generator(dev, 23), device=dev)
+    return seen, (g, ridx, None, tuple(range(features)), tuple(table.shape))
+
+
+def drive_flat_features(tmp: str, fo, fd, features: int) -> dict:
+    """The flat hash table at F = ``features`` through the library (the CLI
+    has no flag for the table's features, as the JAX CLI has none):
+    train/loop.train of `--preset ngp --hash_brick false` for NGP_STEPS steps
+    (an eval at step 50), each step's encode one gather_rows launch and its
+    backward one scatter_rows, gather_pairs none; then the 800x800
+    render_frame of the trained field, one gather_rows launch per render
+    chunk, its first chunk through K4 and through the plain route with the
+    same bits. Returns the launch counts by path."""
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels import gather_rows as k4
+    from nerf_rs_tpu_torch.ops import render as render_ops
+    from nerf_rs_tpu_torch.render import default_render_chunk, render_frame
+    from nerf_rs_tpu_torch.train.loop import train as train_loop
+
+    name = f"flat F={features}"
+    cfg = flat_cfg(features)
+    run_dir = os.path.join(tmp, f"ngp-F{features}")
+    cfg = dataclasses.replace(cfg, log_dir=run_dir, save_dir=run_dir, train=dataclasses.replace(
+        cfg.train, num_iter=NGP_STEPS, eval_steps=50, save_steps=10 ** 6))
+    want = (NGP_STEPS + ngp_render_fetches(cfg, cfg.camera.width * cfg.camera.height), 0,
+            NGP_STEPS)
+    reset_k4()
+    t0 = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        state = train_loop(cfg, make_dataset(cfg, fo.device))
+    got = (k4.gather_rows.launches, k4.gather_pairs.launches, k4.scatter_rows.launches)
+    losses = [float(v) for v in re.findall(r"iter=\d+, loss=(\S+)", log.getvalue())]
+    evals = [float(v) for v in re.findall(r"eval psnr=(\S+)", log.getvalue())]
+    print(f"ngp [{name}] train/loop.train, {NGP_STEPS} steps: gather_rows / gather_pairs / "
+          f"scatter_rows launches {got} (want {want}), losses {losses}, eval psnr {evals}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    if (got != want or not losses or len(evals) != 1
+            or not all(map(math.isfinite, losses + evals))):
+        fail(f"ngp [{name}] train: launches {got} (want {want}), losses {losses}, evals {evals}")
+    counts = {"train": got[0], "train_scatter": got[2]}
+    fcfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, width=FRAME,
+                                                               height=FRAME))
+    frame_k4 = ngp_render_fetches(fcfg, FRAME * FRAME)
+    reset_k4()
+    rgb, depth, _ = render_frame(fcfg, state.params, fo, fd)
+    torch.cuda.synchronize()
+    got = (k4.gather_rows.launches, k4.gather_pairs.launches, k4.scatter_rows.launches)
+    counts["frame"] = got[0]
+    if got != (frame_k4, 0, 0) or frame_k4 != NGP_K4["flat"][2]:
+        fail(f"ngp [{name}] 800x800 frame: launches {got} (want ({frame_k4}, 0, 0))")
+    if not (bool(torch.isfinite(rgb).all()) and bool(torch.isfinite(depth).all())):
+        fail(f"ngp [{name}] 800x800 frame: non-finite values")
+    chunk = default_render_chunk(fcfg.render, model_cfg=fcfg.model)
+    with plain_gather_route(), torch.no_grad():
+        plain = render_ops.render_rays(
+            state.params, fo.reshape(-1, 3)[:chunk], fd.reshape(-1, 3)[:chunk], fcfg.model,
+            fcfg.render, fcfg.camera, randomized=False, dtype=torch.bfloat16)[0].rgb
+    if not torch.equal(rgb.reshape(-1, 3)[:chunk], plain):
+        fail(f"ngp [{name}] frame: K4 and the plain route differ by "
+             f"{float((rgb.reshape(-1, 3)[:chunk] - plain).abs().max())}")
+    print(f"ngp [{name}] 800x800 frame: {frame_k4} gather_rows launches, its first {chunk} rays "
+          f"bit-equal to the plain route; rgb in [{float(rgb.min()):.4f}, "
+          f"{float(rgb.max()):.4f}]")
+    return counts
+
+
+def flat_cfg(features: int, *extra):
+    """`--preset ngp --hash_brick false` (ngp_cfg) with the table's F."""
+    cfg = ngp_cfg("flat", *extra)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, hash_features=features))
+
+
+def flat_step(fo, features: int, num_rays: int) -> dict:
+    """One train step of the flat table at F = ``features`` on ``num_rays``
+    rays (make_train_step): one gather_rows and one scatter_rows launch, a
+    finite loss and table. Returns the launch counts."""
+    import torch
+
+    from nerf_rs_tpu_torch.data.factory import make_dataset
+    from nerf_rs_tpu_torch.kernels import gather_rows as k4
+    from nerf_rs_tpu_torch.train.step import init_state, make_train_step, step_generator
+
+    cfg = flat_cfg(features, "--num_rays", str(num_rays))
+    state = init_state(cfg, fo.device)
+    fn = make_train_step(cfg, make_dataset(cfg, fo.device))
+    reset_k4()
+    state, aux = fn(state, step_generator(0, 0, fo.device))
+    loss = float(aux["loss"])
+    got = (k4.gather_rows.launches, k4.gather_pairs.launches, k4.scatter_rows.launches)
+    finite = bool(torch.isfinite(state.params.table).all())
+    print(f"ngp [flat F={features}] one train step on {num_rays} rays: gather_rows / "
+          f"gather_pairs / scatter_rows launches {got} (want (1, 0, 1)), loss {loss:.6f}, "
+          f"table finite {finite}")
+    if got != (1, 0, 1) or not math.isfinite(loss) or not finite:
+        fail(f"ngp [flat F={features}] step: launches {got}, loss {loss}, table finite {finite}")
+    return {"train": got[0], "train_scatter": got[2]}
+
+
+def drive_lifted_features(tmp: str, card: str, fo, fd) -> dict:
+    """Phase 37's flat hash tables past F = 2: drive_flat_features at F =
+    LIFT_FEATURES (NGP_STEPS steps and the 800x800 frame) and flat_step at F
+    = LIFT_WIDE_F (1,024 rays), then gather_rows and scatter_rows at each F
+    of LIFT_TIMED: bit-equal to their plain versions (scatter also across
+    launches) and timed (time_gather, time_scatter). Returns the counts and
+    the times."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import gather_rows as k4
+
+    out = {"counts": drive_flat_features(tmp, fo, fd, LIFT_FEATURES),
+           "step_counts": flat_step(fo, LIFT_WIDE_F, 1024)}
+    out["times"] = {}
+    for features, n_rays in LIFT_TIMED.items():
+        fetch, scatter = flat_fetch_inputs(fo.device, features, n_rays)
+        g, key, lane0, lanes, shape = scatter
+        got = k4.scatter_rows(g, key, lane0, lanes, shape)
+        again = k4.scatter_rows(g, key, lane0, lanes, shape)
+        if not (torch.equal(got, again)
+                and torch.equal(got, k4.scatter_rows_reference(g, key, lane0, lanes, shape))):
+            fail(f"scatter_rows [flat F={features}]: differs from its plain version or across "
+                 f"launches")
+        print(f"scatter_rows [flat F={features}], {g.shape[0]} fetches into {shape}: bit-equal "
+              f"to its plain version and across launches")
+        del got, again
+        out["times"][f"F={features}"] = {
+            "gather_rows": time_gather(card, fetch)["gather_rows"],
+            "scatter_rows": time_scatter(card, {f"flat F={features}": scatter})[
+                f"flat F={features}"]}
+        del fetch, scatter, g, key
+        torch.cuda.empty_cache()
+    return out
+
 def check_rays(dev):
     """The N_RAYS rays of two poses that phases 3-4, 9, 18, 33 and 36 check
     the whole-ray kernels on, their view directions and sphere gold, and the
@@ -2615,14 +3017,10 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
             row["scratch_bytes"] = fused_train._library().nerf_fused_train_scratch_bytes(
                 fused_train.ray_blocks(n, sp)[0][1], sp, pk.depth, pk.W, pk.F, pk.V, pk.P,
                 pk.D, pk.w.numel() + pk.b.numel())
-            with torch.profiler.profile(
-                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    fn()
-                torch.cuda.synchronize()
-            split = row["split_ms"] = {}
-            for k, v in device_ms(prof).items():
-                split[kernel_name(k)] = split.get(kernel_name(k), 0.0) + v / 3
+            per = profiled_split(fn, 3, ms, b)
+            split = row["split_ms"] = None if per is None else {}
+            for k, v in (per or {}).items():
+                split[kernel_name(k)] = split.get(kernel_name(k), 0.0) + v
         plain_txt = f"{plain_ms:.3f} ms" if plain_too else "not run"
         print(f"{kernel} {name}, {n} rays [{card}]: kernel {ms:.3f} ms, plain {plain_txt}, "
               f"library {library_ms:.3f} ms, bound {b:.3f} ms ({by}), "
@@ -2630,8 +3028,9 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
               + (f", weights from L2 (modelled) {wbytes / 1e9:.1f} GB, {rate / 1e12:.2f} TB/s"
                  if kernel == "K1" else "")
               + (f", scratch {row['scratch_bytes'] / 1e9:.3f} GB; device time by kernel: "
-                 + ", ".join(f"{k} {v:.3f}" for k, v in sorted(row["split_ms"].items(),
-                                                               key=lambda kv: -kv[1]))
+                 + (", ".join(f"{k} {v:.3f}" for k, v in sorted(row["split_ms"].items(),
+                                                                key=lambda kv: -kv[1]))
+                    if row["split_ms"] is not None else NOT_PROFILED)
                  if kernel == "K2" else ""))
         rows.append(row)
     return rows
@@ -3393,20 +3792,19 @@ def time_k3_calls(card: str, ds, mcfg, lines, cases) -> list:
             # the backward's device time by kernel: d_feat (kernel A), the
             # scatter (kernel B: tensor cores under bf16, CUDA cores under
             # f32) and the fixed-order reduce
-            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
-                    fn()
-                torch.cuda.synchronize()
-            per = {kernel_name(k).split("<")[0]: v / 5 for k, v in device_ms(prof).items()}
-            row["kernel_a_ms"] = per.get("factored_dfeat_kernel", 0.0)
+            prof = profiled_split(fn, 5, ms_window, b)
+            per = {} if prof is None else {kernel_name(k).split("<")[0]: v
+                                           for k, v in prof.items()}
+            row["kernel_a_ms"] = per.get("factored_dfeat_kernel", 0.0) if per else None
             row["kernel_b_ms"] = (per.get("factored_scatter_mma_kernel", 0.0)
-                                  + per.get("factored_scatter_walk_kernel", 0.0))
-            row["reduce_ms"] = per.get("factored_reduce_kernel", 0.0)
-            row["device_ms"] = sum(per.values())
+                                  + per.get("factored_scatter_walk_kernel", 0.0)) if per else None
+            row["reduce_ms"] = per.get("factored_reduce_kernel", 0.0) if per else None
+            row["device_ms"] = sum(per.values()) if per else None
             split = (f"; device {row['device_ms']:.3f} ms: kernel A (d_feat) "
                      f"{row['kernel_a_ms']:.3f}, kernel B (scatter) {row['kernel_b_ms']:.3f}, "
                      f"reduce {row['reduce_ms']:.4f}; by kernel: "
-                     + ", ".join(f"{k} {v:.4f}" for k, v in sorted(per.items())))
+                     + ", ".join(f"{k} {v:.4f}" for k, v in sorted(per.items()))
+                     if per else f"; device split {NOT_PROFILED}")
         print(f"K3 {kind}, {mcfg.fac_levels} x {C}, {n} {order} points, {row['lines']} lines "
               f"[{card}]: kernel {ms:.3f} ms "
               f"alone ({ms_window:.3f} ms a call in a window of {GATHER_CALLS}{split}), plain "
@@ -3764,39 +4162,54 @@ def time_gather(card: str, inputs) -> dict:
     distinct row or pair read once, the indices read, the output written)
     over the memory rate. Each time is per call, over a CUDA-event window
     of GATHER_CALLS calls: the wrapper's (neither wrapper reads the
-    indices on the host), and the kernel's own device time from a profile."""
+    indices on the host), and the kernel's alone, launched through its C
+    entry point into one output (no wrapper, no allocation)."""
     import torch
 
     from nerf_rs_tpu_torch.kernels import gather_rows as k4
 
-    table, idx = inputs["rows"]
-    flat, fidx = inputs["pairs"]
-    pairs_view = flat.view(-1, 2)
-    half = fidx // 2
+    lib4 = k4._library()
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = []
+    if "rows" in inputs:  # the row tables': a 16 B kernel and an element-wise one
+        table, idx = inputs["rows"]
+        out = torch.empty(idx.shape[0], table.shape[1], device=table.device)
+        cases.append(("gather_rows", lambda: k4.gather_rows(table, idx),
+                      lambda: k4.gather_rows_reference(table, idx),
+                      lambda: torch.index_select(table, 0, idx), idx, table.shape[1],
+                      lambda o=out: lib4.nerf_gather_rows(
+                          table.data_ptr(), idx.data_ptr(), o.data_ptr(), idx.shape[0],
+                          table.shape[0], table.shape[1], stream), out))
+    if "pairs" in inputs:
+        flat, fidx = inputs["pairs"]
+        pairs_view = flat.view(-1, 2)
+        half = fidx // 2
+        out = torch.empty(fidx.shape[0], 2, device=flat.device)
+        cases.append(("gather_pairs", lambda: k4.gather_pairs(flat, fidx),
+                      lambda: k4.gather_pairs_reference(flat, fidx),
+                      lambda: torch.index_select(pairs_view, 0, half), half, 2,
+                      lambda o=out: lib4.nerf_gather_pairs(
+                          flat.data_ptr(), flat.shape[0], fidx.data_ptr(), o.data_ptr(),
+                          fidx.shape[0], stream), out))
     rows = {}
-    for name, fn, plain, lib, ids, width, tag in (
-            ("gather_rows", lambda: k4.gather_rows(table, idx),
-             lambda: k4.gather_rows_reference(table, idx),
-             lambda: torch.index_select(table, 0, idx), idx, table.shape[1], "gather_rows_kernel"),
-            ("gather_pairs", lambda: k4.gather_pairs(flat, fidx),
-             lambda: k4.gather_pairs_reference(flat, fidx),
-             lambda: torch.index_select(pairs_view, 0, half), half, 2, "gather_pairs_kernel")):
+    for name, fn, plain, lib, ids, width, launch, out in cases:
         n = ids.shape[0]
         distinct = int(torch.unique(ids).numel())
         nbytes = distinct * width * 4 + n * 4 + n * width * 4
-        if not torch.equal(lib(), fn()):
+        want = fn()
+        if not torch.equal(lib(), want):
             fail(f"{name}: torch.index_select and K4 disagree")
+        if launch() != 0 or not torch.equal(out, want):
+            fail(f"{name}: the kernel launched through its C entry point disagrees")
+        del want
 
-        ms, plain_ms, library_ms = (per_call_ms(f, GATHER_CALLS) for f in (fn, plain, lib))
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(GATHER_CALLS):
-                fn()
-            torch.cuda.synchronize()
-        kernel_ms = sum(v for k, v in device_ms(prof).items() if tag in k) / GATHER_CALLS
+        ms, plain_ms, library_ms, kernel_ms = (per_call_ms(f, GATHER_CALLS)
+                                               for f in (fn, plain, lib, launch))
         b, by = bound_ms(0.0, nbytes)
+        alone = (f"kernel alone {kernel_ms:.3f} ms, {nbytes / (kernel_ms * 1e-3) / 1e12:.2f} "
+                 f"TB/s of needed bytes")
         print(f"K4 {name}, {n} indices ({distinct} distinct) [{card}]: wrapper {ms:.3f} ms "
-              f"(kernel alone {kernel_ms:.3f} ms, {nbytes / (kernel_ms * 1e-3) / 1e12:.2f} "
-              f"TB/s of needed bytes), plain {plain_ms:.3f} ms, torch.index_select "
+              f"({alone}), plain {plain_ms:.3f} ms, torch.index_select "
               f"{library_ms:.3f} ms, bound {b:.4f} ms ({by}, {nbytes / 1e9:.3f} GB)")
         rows[name] = {"indices": n, "distinct": distinct, "ms": ms, "kernel_ms": kernel_ms,
                       "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": b,
@@ -4087,27 +4500,27 @@ def time_scatter(card: str, inputs) -> dict:
         ms_window = per_call_ms(call, SCATTER_CALLS)
         lib_ms = event_ms(index_add)
         plain_ms = event_ms(lambda: k4.scatter_rows_reference(g, key, lane0, lanes, shape), reps=1)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                k4.scatter_rows(g, key, lane0, lanes, shape)
-            torch.cuda.synchronize()
-        per = device_ms(prof)
-        sort_ms = sum(v for k, v in per.items() if SCATTER_SORT.search(k)) / 5
-        kernel_ms = sum(v for k, v in per.items()
-                        if SCATTER_REDUCE.search(k) and not SCATTER_SORT.search(k)) / 5
-        device = sum(per.values()) / 5
         n, c = g.shape
         nbytes = n * c * 4 + n * (4 if lane0 is None else 8) + shape[0] * shape[1] * 4
         b, by = bound_ms(0.0, nbytes)
+        per = profiled_split(call, SCATTER_CALLS, ms_window, b)
+        sort_ms = kernel_ms = device = None
+        split = f"device split {NOT_PROFILED}"
+        if per is not None:
+            sort_ms = sum(v for k, v in per.items() if SCATTER_SORT.search(k))
+            kernel_ms = sum(v for k, v in per.items()
+                            if SCATTER_REDUCE.search(k) and not SCATTER_SORT.search(k))
+            device = sum(per.values())
+            split = (f"device {device:.3f} ms: sort {sort_ms:.3f}, reduce {kernel_ms:.3f}, "
+                     f"other {device - sort_ms - kernel_ms:.3f}")
         print(f"scatter_rows [{layout}], {n} fetches x {c} into {shape} [{card}]: {ms:.3f} ms "
-              f"alone ({ms_window:.3f} ms a call in a window of {SCATTER_CALLS}; device "
-              f"{device:.3f} ms: sort {sort_ms:.3f}, reduce {kernel_ms:.3f}, other "
-              f"{device - sort_ms - kernel_ms:.3f}), index_add_ {lib_ms:.3f} ms (vs the fixed "
+              f"alone ({ms_window:.3f} ms a call in a window of {SCATTER_CALLS}; {split}), "
+              f"index_add_ {lib_ms:.3f} ms (vs the fixed "
               f"order: max |diff| {index_add_err:.3g}), deterministic index_put_ {det_ms:.3f} ms "
               f"(max |diff| {det_err:.3g}), plain {plain_ms:.3f} ms, bound {b:.4f} ms ({by}, "
               f"{nbytes / 1e9:.3f} GB)")
-        for k, v in sorted(per.items(), key=lambda kv: -kv[1])[:12]:
-            print(f"  {v / 5:8.4f} ms  {re.sub(r'[(]anonymous namespace[)]::', '', k)[:90]}")
+        for k, v in sorted((per or {}).items(), key=lambda kv: -kv[1])[:12]:
+            print(f"  {v:8.4f} ms  {re.sub(r'[(]anonymous namespace[)]::', '', k)[:90]}")
         rows[layout] = {"fetches": n, "values": c, "max_abs_err": err, "ms": ms,
                         "ms_window": ms_window,
                         "kernel_ms": kernel_ms, "sort_ms": sort_ms, "device_ms": device,
@@ -5786,6 +6199,31 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     lap("phase 36")
+    # ---- 37. the lifted caps: depth, levels, flat tables of any F, wide encodings ----
+    torch.cuda.empty_cache()
+    lift_k1_err, lift_k2_err, lift_checks = check_lifted((o, d, vd), gold, cam)
+    max_err, train_err = max(max_err, lift_k1_err), max(train_err, lift_k2_err)
+    lift_k3 = check_lifted_factored(fac_ds, fcfg.camera)
+    fac_errs["enc"] = max(fac_errs["enc"], lift_k3["enc"])
+    fac_errs["d_lines"] = max(fac_errs["d_lines"], lift_k3["d_lines"])
+    fac_errs["d_lines_abs"] = max(fac_errs["d_lines_abs"], lift_k3["d_lines_abs"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lifted_")
+    try:
+        lift_ngp = drive_lifted_features(tmp, card, fo, fd)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    pe_cfg = ModelConfig(pos_enc_levels=LIFT_PE[0][0])
+    lift_pe = width_calls(f"pos_enc_levels {pe_cfg.pos_enc_levels}",
+                          seeded_model(pe_cfg, dev), pe_cfg,
+                          dataclasses.replace(cfg, model=pe_cfg), flat_o, flat_d, card)
+    lv_cfg = ModelConfig(arch="factored", fac_levels=LIFT_LEVELS)
+    lift_k3_rows = time_k3_calls(card, fac_ds, lv_cfg,
+                                 init_nerf_params(lv_cfg, 0, dev).lines.detach(),
+                                 (("forward", CORNER_RAYS, torch.bfloat16, "ray"),
+                                  ("backward", CORNER_RAYS, torch.bfloat16, "ray")))
+    torch.cuda.empty_cache()
+
+    lap("phase 37")
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "nerf_rs_tpu"))
     if bad:
         fail(f"imported {bad}: the port stands without JAX and the JAX package")
@@ -5823,6 +6261,8 @@ def main() -> int:
                 **{k: v for k, v in long_counts.items() if k.endswith("_train")},
                 **{f"wide_{k}_train": wide_runs[k]["train_K2_launches"] for k in WIDE_RUNS}}
     scatter_paths = {f"ngp_{layout}_train": c["train_scatter"] for layout, c in ngp_counts.items()}
+    scatter_paths[f"ngp_flat_F{LIFT_FEATURES}_train"] = lift_ngp["counts"].pop("train_scatter")
+    scatter_paths[f"ngp_flat_F{LIFT_WIDE_F}_step"] = lift_ngp["step_counts"]["train_scatter"]
     ngp_learned, fac_learned = learned.pop("ngp"), learned.pop("factored")
     scatter_paths["ngp_brick_learning"] = ngp_learned.pop("scatter_launches")
     scatter_paths.update(compat_paths("scatter_rows"))
@@ -5832,6 +6272,9 @@ def main() -> int:
     k4_paths = {layout: {f"ngp_{layout}_{k}": v for k, v in c.items() if k != "train_scatter"}
                 for layout, c in ngp_counts.items()}
     k4_paths["brick"]["ngp_brick_learning"] = ngp_learned.pop("launches")
+    k4_paths["brick"].update({f"ngp_flat_F{LIFT_FEATURES}_{k}": v
+                              for k, v in lift_ngp["counts"].items()})
+    k4_paths["brick"][f"ngp_flat_F{LIFT_WIDE_F}_step"] = lift_ngp["step_counts"]["train"]
     k4_paths["brick"].update(compat_paths("gather_rows"))
     k4_paths["flat"].update(compat_paths("gather_pairs"))
     k4_rows = {"brick": ("gather_rows", ":54"), "flat": ("gather_pairs", ":133")}
@@ -5930,6 +6373,9 @@ def main() -> int:
         "long_ray_steps": {k: {"k2_ms": v["K2"] * 1e3, "autograd_ms": v["autograd"] * 1e3,
                                "idle_pct": v["idle_pct"]} for k, v in long_steps.items()},
         "widths": {"check_launches": width_checks, "runs": wide_runs},
+        "lifted": {"check_launches": lift_checks, "k3_check": lift_k3,
+                   f"pos_enc_levels_{pe_cfg.pos_enc_levels}": lift_pe,
+                   f"k3_levels_{LIFT_LEVELS}": lift_k3_rows, "flat_tables": lift_ngp},
         "learning": learned,
         "datasets": {"make_scene_s": {k: v[1] for k, v in scenes.items()}, **data_times},
         "multiscale": {"psnr_by_scale": ms_counts["psnr_by_scale"]},

@@ -8,6 +8,11 @@ under a name that carries a hash of the sources and flags, so a rerun
 with unchanged sources does not rebuild. A failed build raises with
 nvcc's stderr; ptxas' register and spill report of a successful build
 is kept beside the library as ``.log``.
+
+``device_table`` holds the small integer tables that the kernels read from
+device memory instead of their launch parameters (K1's and K2's matrix
+offsets, K3's levels, ``scatter_rows``' lanes), so that no depth, level
+count or lane count outgrows the parameters.
 """
 
 from __future__ import annotations
@@ -76,3 +81,13 @@ def build(name: str) -> Path:
 def load(name: str) -> ctypes.CDLL:
     """The built library of ``csrc/{name}.cu``, built on first use."""
     return ctypes.CDLL(str(build(name)))
+
+
+@functools.lru_cache(maxsize=256)
+def device_table(values: tuple, device, dtype):
+    """``values`` as a 1-D ``dtype`` tensor on ``device``, copied once per
+    values, device and dtype: a launch that reads it adds no host-to-device
+    copy."""
+    import torch
+
+    return torch.tensor(values, dtype=dtype).to(device)

@@ -48,7 +48,10 @@
 // two buffers a CTA of a persistent grid, in L2), each product stages its
 // A operand's k-slices into shared memory beside the weight slices, and the
 // epilogues store to device memory. Shared memory stays ~60 KB at any
-// width; the products and their order are the narrow instances'.
+// width; the products and their order are the narrow instances'. They also
+// take a field of any width whose encodings no narrow layout holds beside
+// its tiles (wide position encodings: fused_ray.cu k1_wide, fused_train.cu
+// train_mode).
 //
 // Numerics: no fast math. sinf/cosf with exact ldexpf scales for the PE
 // (sin(2^9 x) loses its phase with a low-precision argument or sine);
@@ -81,15 +84,13 @@ constexpr int kColGroups = kWarps / kRowGroups;  // ... and column chunks 4 ways
 constexpr int kWarpRows = kRows / kRowGroups;    // 32 rows per warp
 constexpr int kMT = kWarpRows / 16;              // m16 tiles per warp
 constexpr int kChunk = 8;                        // n8 tiles per warp pass (64 columns)
-// weight matrices (depth + 5): the offset tables ride in the launch
-// parameters (2 KB of their 4 KB), so depth up to 123
-constexpr int kMaxMats = 128;
 constexpr int kLdr = 24;                         // row stride of K2's 16-wide rgb-gradient tile
 constexpr int kMaxResident = 256;                // longest padded ray of the resident layouts
 constexpr int kWStages = 3;                      // weight slices in the ring
 constexpr int kRoundTiles = kColGroups * kChunk; // n8 tiles of a product per round: 32
 constexpr int kWSlice = kRoundTiles * 32;        // uint2 per slice: 32 lanes a tile (8 KB)
 constexpr int kRayStride = 10;                   // per ray in shared memory: o, d, viewdir, radius
+constexpr int kParamOffs = 16;                   // leading offsets also in the parameters
 // the widest layer the narrow instances take: K1's warpgroup sums (64 x 256
 // f32) and K2's two activation tiles beside its encodings; wider fields
 // take the wide instances (below)
@@ -107,8 +108,16 @@ struct Field {
   const float* radii;  // IPE: per-ray cone radius at unit distance; else null
   const bf16* w;
   const float* b;
-  long long w_off[kMaxMats];  // matrices: trunk[0..n_layers), skip, sf, view, view_dir, rgb
-  long long b_off[kMaxMats];  // biases: trunk[0..n_layers), sf, view, rgb
+  // in device memory, n_layers + 5 matrix offsets into w (trunk[0..n_layers),
+  // skip, sf, view, view_dir, rgb), then n_layers + 3 bias offsets into b
+  // (trunk[0..n_layers), sf, view, rgb): sized by the depth, so no depth is
+  // too deep for the launch parameters (w_off, b_off read them)
+  const long long* off;
+  // the first kParamOffs matrix and bias offsets again (every one to depth
+  // 11), read from the parameters' constant bank: a table load in the
+  // weight stream's path cost K1's chunk ~0.3% and K2's multi-pass
+  // instances spills on an H100
+  long long w_head[kParamOffs], b_head[kParamOffs];
   long long n_rays;
   int S, n_layers, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe;
   int R;     // whole rays per CTA
@@ -125,6 +134,15 @@ inline bool takes_samples(int S) {
 // Whole rays per CTA for a padded S: 128 / S, 2 at S = 192, else 1. Every
 // CTA's rows, R * S, are whole 128-row passes.
 inline int rays_per_cta(int S) { return S <= kRows ? kRows / S : (S == 192 ? 2 : 1); }
+
+// Matrix i's and bias i's offsets: from the parameters for the first
+// kParamOffs, else from the device table through the read-only path.
+__device__ __forceinline__ long long w_off(const Field& f, int i) {
+  return i < kParamOffs ? f.w_head[i] : __ldg(f.off + i);
+}
+__device__ __forceinline__ long long b_off(const Field& f, int i) {
+  return i < kParamOffs ? f.b_head[i] : __ldg(f.off + f.n_layers + 5 + i);
+}
 
 __host__ __device__ inline int widest(const Field& f) {
   const int a = f.W > f.F ? f.W : f.F;
@@ -149,16 +167,19 @@ inline void set_layout(Field* f, int S, int W, int F, int V, int P, int D) {
   f->ldd = D + 8;
 }
 
-// Fills f from the C entry point's arguments. Returns 0 or a negative
-// code for a shape the kernels do not take (kernels/fused_ray.py maps the
-// codes to messages).
+// Fills f from the C entry point's arguments; `offsets` is the device
+// table of the n_w matrix and n_b bias offsets (Field::off), w_off and
+// b_off the same offsets in host memory. Returns 0 or a negative code for
+// a shape the kernels do not take (kernels/fused_ray.py maps the codes to
+// messages).
 inline int init_field(Field* f, const void* o, const void* d, const void* vd, const void* ts,
                       const void* deltas, const void* radii, const void* w, const void* b,
-                      const long long* w_off, int n_w, const long long* b_off, int n_b,
-                      long long n_rays, int S, int depth_l, int skip, int W, int F, int V, int P,
-                      int D, int pos_levels, int dir_levels, int sigma_act, int ipe) {
+                      const void* offsets, const long long* w_off, int n_w,
+                      const long long* b_off, int n_b, long long n_rays, int S, int depth_l,
+                      int skip, int W, int F, int V, int P, int D, int pos_levels,
+                      int dir_levels, int sigma_act, int ipe) {
   if (!takes_samples(S)) return -1;
-  if (n_w != depth_l + 5 || n_b != depth_l + 3 || n_w > kMaxMats || depth_l < 1) return -2;
+  if (n_w != depth_l + 5 || n_b != depth_l + 3 || depth_l < 1 || offsets == nullptr) return -2;
   if (W % 16 || F % 16 || V % 16 || P % 16 || D % 16) return -3;
   if (3 + 6 * pos_levels > P || 3 + 6 * dir_levels > D) return -4;
   if (sigma_act != 0 && sigma_act != 1) return -6;
@@ -171,9 +192,10 @@ inline int init_field(Field* f, const void* o, const void* d, const void* vd, co
   f->radii = static_cast<const float*>(radii);
   f->w = static_cast<const bf16*>(w);
   f->b = static_cast<const float*>(b);
-  for (int i = 0; i < kMaxMats; ++i) {
-    f->w_off[i] = i < n_w ? w_off[i] : 0;
-    f->b_off[i] = i < n_b ? b_off[i] : 0;
+  f->off = static_cast<const long long*>(offsets);
+  for (int i = 0; i < kParamOffs; ++i) {
+    f->w_head[i] = i < n_w ? w_off[i] : 0;
+    f->b_head[i] = i < n_b ? b_off[i] : 0;
   }
   f->n_rays = n_rays;
   f->n_layers = depth_l;
@@ -704,15 +726,15 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
   }
 
   // ---- trunk ----
-  const uint2* skip_w = reinterpret_cast<const uint2*>(p.w + p.w_off[p.n_layers]);
+  const uint2* skip_w = reinterpret_cast<const uint2*>(p.w + w_off(p, p.n_layers));
   const bf16* h = t.xs;
   int ldh = p.ldx, kh = p.P;
   for (int i = 0; i < p.n_layers; ++i) {
     bf16* out = (i & 1) ? t.buf1 : t.buf0;
     const bool skip = i == p.skip && i > 0;
-    dense_layer(h, ldh, kh, reinterpret_cast<const uint2*>(p.w + p.w_off[i]),
+    dense_layer(h, ldh, kh, reinterpret_cast<const uint2*>(p.w + w_off(p, i)),
                 skip ? t.xs : nullptr, p.ldx, p.P, skip_w, p.W, t.wring,
-                ReluStore{out, p.ldb, p.b + p.b_off[i]});
+                ReluStore{out, p.ldb, p.b + b_off(p, i)});
     __syncthreads();
     if (stash) {
       stash_rows(st.h + i * st.h_stride, p.W, out, p.ldb, p.W);
@@ -727,21 +749,21 @@ __device__ inline void field_forward(const Field& p, const Tile& t, long long ra
   const int m = p.n_layers;  // w_off[m] is skip; heads follow; b_off[m] is the first head's
 
   // ---- heads ----
-  dense_layer(hbuf, p.ldb, p.W, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 1]),
+  dense_layer(hbuf, p.ldb, p.W, reinterpret_cast<const uint2*>(p.w + w_off(p, m + 1)),
               nullptr, 0, 0, nullptr, p.F + 8, t.wring,
-              FeatSigmaStore{other, p.ldb, p.b + p.b_off[m], t.sig_raw + s0, p.F});
+              FeatSigmaStore{other, p.ldb, p.b + b_off(p, m), t.sig_raw + s0, p.F});
   __syncthreads();
   if (stash) stash_rows(st.feat, p.F, other, p.ldb, p.F);
-  dense_layer(other, p.ldb, p.F, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 2]),
-              t.ds, p.ldd, p.D, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 3]), p.V,
-              t.wring, ReluStore{hbuf, p.ldb, p.b + p.b_off[m + 1]});
+  dense_layer(other, p.ldb, p.F, reinterpret_cast<const uint2*>(p.w + w_off(p, m + 2)),
+              t.ds, p.ldd, p.D, reinterpret_cast<const uint2*>(p.w + w_off(p, m + 3)), p.V,
+              t.wring, ReluStore{hbuf, p.ldb, p.b + b_off(p, m + 1)});
   __syncthreads();
   if (stash) {
     stash_rows(st.hv, p.V, hbuf, p.ldb, p.V);
     relu_bits(st.mask + m * st.mask_stride, st.mw, hbuf, p.ldb, p.V);
   }
-  dense_layer(hbuf, p.ldb, p.V, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 4]),
-              nullptr, 0, 0, nullptr, 8, t.wring, RgbStore{t.rgb + s0 * 4, p.b + p.b_off[m + 2]});
+  dense_layer(hbuf, p.ldb, p.V, reinterpret_cast<const uint2*>(p.w + w_off(p, m + 4)),
+              nullptr, 0, 0, nullptr, 8, t.wring, RgbStore{t.rgb + s0 * 4, p.b + b_off(p, m + 2)});
   __syncthreads();
   *hv_buf = hbuf;
   *feat_buf = other;
@@ -907,15 +929,15 @@ __device__ inline void field_forward_wide(const Field& p, const Tile& t, bf16* a
   __syncthreads();
 
   // ---- trunk ----
-  const uint2* skip_w = reinterpret_cast<const uint2*>(p.w + p.w_off[p.n_layers]);
+  const uint2* skip_w = reinterpret_cast<const uint2*>(p.w + w_off(p, p.n_layers));
   const bf16* h = o.x;
   int ldh = p.P;
   for (int i = 0; i < p.n_layers; ++i) {
     bf16* out = o.h + (i % o.h_cycle) * o.h_stride;
     const bool skip = i == p.skip && i > 0;
-    dense_layer<ReluStore, true>(h, ldh, ldh, reinterpret_cast<const uint2*>(p.w + p.w_off[i]),
+    dense_layer<ReluStore, true>(h, ldh, ldh, reinterpret_cast<const uint2*>(p.w + w_off(p, i)),
                                  skip ? o.x : nullptr, p.P, p.P, skip_w, p.W, t.wring,
-                                 ReluStore{out, p.W, p.b + p.b_off[i]}, aring);
+                                 ReluStore{out, p.W, p.b + b_off(p, i)}, aring);
     __syncthreads();
     if (o.mask != nullptr) relu_bits_wide(o.mask + i * o.mask_stride, o.mw, out, p.W, p.W);
     h = out;
@@ -925,20 +947,20 @@ __device__ inline void field_forward_wide(const Field& p, const Tile& t, bf16* a
 
   // ---- heads ----
   dense_layer<FeatSigmaStore, true>(h, p.W, p.W,
-                                    reinterpret_cast<const uint2*>(p.w + p.w_off[m + 1]),
+                                    reinterpret_cast<const uint2*>(p.w + w_off(p, m + 1)),
                                     nullptr, 0, 0, nullptr, p.F + 8, t.wring,
-                                    FeatSigmaStore{o.feat, p.F, p.b + p.b_off[m],
+                                    FeatSigmaStore{o.feat, p.F, p.b + b_off(p, m),
                                                    t.sig_raw + s0, p.F}, aring);
   __syncthreads();
   dense_layer<ReluStore, true>(o.feat, p.F, p.F,
-                               reinterpret_cast<const uint2*>(p.w + p.w_off[m + 2]), o.dv, p.D,
-                               p.D, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 3]), p.V,
-                               t.wring, ReluStore{o.hv, p.V, p.b + p.b_off[m + 1]}, aring);
+                               reinterpret_cast<const uint2*>(p.w + w_off(p, m + 2)), o.dv, p.D,
+                               p.D, reinterpret_cast<const uint2*>(p.w + w_off(p, m + 3)), p.V,
+                               t.wring, ReluStore{o.hv, p.V, p.b + b_off(p, m + 1)}, aring);
   __syncthreads();
   if (o.mask != nullptr) relu_bits_wide(o.mask + m * o.mask_stride, o.mw, o.hv, p.V, p.V);
-  dense_layer<RgbStore, true>(o.hv, p.V, p.V, reinterpret_cast<const uint2*>(p.w + p.w_off[m + 4]),
+  dense_layer<RgbStore, true>(o.hv, p.V, p.V, reinterpret_cast<const uint2*>(p.w + w_off(p, m + 4)),
                               nullptr, 0, 0, nullptr, 8, t.wring,
-                              RgbStore{t.rgb + s0 * 4, p.b + p.b_off[m + 2]}, aring);
+                              RgbStore{t.rgb + s0 * 4, p.b + b_off(p, m + 2)}, aring);
   __syncthreads();
 }
 

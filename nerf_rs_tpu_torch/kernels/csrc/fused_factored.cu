@@ -109,6 +109,7 @@
 // the sums are f32; d_feat is rounded to bf16 as the JAX kernel rounds it.
 
 #include <algorithm>
+#include <vector>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -142,28 +143,41 @@ constexpr size_t mma_smem_bytes(int nt, int L) {
          size_t{2} * L * kTilePoints * 8 + size_t{2} * L * kSteps * 8;
 }
 
-// The most levels a geometry may have. Geometry's per-level arrays (and
-// WalkTiles') ride in the kernels' launch parameters, which hold 4 KB: 256
-// levels leave room for the rest (the static_assert below the structs). The
-// forward's two tap buffers would hold one point of up to 1,137 levels
-// (kFwdTapBytes / (2 * 3 * sizeof(Tap))), and the scatters walk the levels in
-// runs and tiles, so only the parameter space bounds a call.
-constexpr int kMaxLevels = 256;
+// The per-level arrays (resolutions, first rows) lie in a device table the
+// wrapper builds once per geometry (Geometry::res, ::off), not in the launch
+// parameters, and the scatters walk the levels in runs and tiles: no level
+// count is too large for a launch. What bounds L is the forward's tap
+// buffers: two of one point's 3 L taps and the level table take 80 L bytes
+// of a CTA's shared memory (fwd_tap_bytes), so the kernels take up to 2,905
+// levels.
 // the most levels of one tensor-core scatter launch (at one channel tile)
 constexpr int kMmaRunLevels = 47;
 static_assert(mma_smem_bytes(1, kMmaRunLevels) <= kMaxSmem &&
               mma_smem_bytes(1, kMmaRunLevels + 1) > kMaxSmem, "kMmaRunLevels");
 
+// A geometry. The kernels read its levels from the device table (res_of,
+// off_of); the host functions from its host copy (hres, hoff). A run of
+// levels (run_geometry) points into the same table, its rows counted from
+// `base`.
 struct Geometry {
   int L;
   int C;
   int sumR;
-  int res[kMaxLevels];
-  int off[kMaxLevels + 1];  // first knot row of each level; off[L] = sumR
+  const int* res;   // device: each level's resolution
+  const int* off;   // device: each level's first knot row, then sumR (L + 1)
+  int base;         // the row off[0] holds: 0, or a run's first row
+  const int* hres;  // host: the resolutions (L), for the host's plans
+  const int* hoff;  // host: the first rows (L + 1)
   float aabb;
   float two_aabb;
-  int staged;  // the forward's levels in shared memory (staged_levels)
+  int staged;       // the forward's levels in shared memory (staged_levels)
+  int staged_rows;  // their rows of each axis, hoff[staged]
 };
+
+__device__ __forceinline__ int res_of(const Geometry& g, int l) { return __ldg(g.res + l); }
+__device__ __forceinline__ int off_of(const Geometry& g, int l) {
+  return __ldg(g.off + l) - g.base;
+}
 
 struct Tap {
   int row;  // knot row of k0 in the axis's table; k0 + 1 is the next row
@@ -310,19 +324,25 @@ int fwd_vec(int C) { return C % 8 == 0 ? 8 : C % 4 == 0 ? 4 : C % 2 == 0 ? 2 : 1
 
 // Points a forward CTA takes at once: enough (point, group) items for its
 // threads, as far as two buffers of their taps fit kFwdTapBytes.
+// One point at least: past 1,137 levels its taps alone outgrow
+// kFwdTapBytes, and the forward takes one point a tile.
 int fwd_points(const Geometry& g) {
   const int groups = g.C / fwd_vec(g.C);
   const int want = kFwdThreads / groups > 1 ? kFwdThreads / groups : 1;
   const int cap = kFwdTapBytes / (2 * 3 * g.L * static_cast<int>(sizeof(Tap)));
-  return want < cap ? want : cap;
+  return want < cap ? want : (cap > 1 ? cap : 1);
 }
 
-size_t fwd_tap_bytes(const Geometry& g) { return 2 * sizeof(Tap) * fwd_points(g) * 3 * g.L; }
+// Two buffers of a tile's taps, then the level table (res, then first rows:
+// 2 L ints), which the tap loop reads from shared memory.
+size_t fwd_tap_bytes(const Geometry& g) {
+  return 2 * sizeof(Tap) * fwd_points(g) * 3 * g.L + 2 * sizeof(int) * g.L;
+}
 
 // Levels [0, staged) of every axis in shared memory, (3, off[staged], C) in
 // the call's dtype, then two buffers of the tile's taps.
 __host__ __device__ inline size_t fwd_lines_bytes(const Geometry& g, bool bf16) {
-  return (size_t{3} * g.off[g.staged] * g.C * (bf16 ? 2 : 4) + 15) / 16 * 16;
+  return (size_t{3} * g.staged_rows * g.C * (bf16 ? 2 : 4) + 15) / 16 * 16;
 }
 
 // The forward's walk: stage the coarse levels, then per tile of P points
@@ -334,7 +354,7 @@ __device__ __forceinline__ void walk_features(const float* __restrict__ pts,
                                               const Geometry& g, int P, const Out& out) {
   extern __shared__ __align__(16) unsigned char fwd_smem[];
   const int C = g.C, L = g.L, Ls = g.staged;
-  const int S = g.off[Ls];  // staged rows of each axis
+  const int S = g.staged_rows;  // staged rows of each axis
   const long long axis = static_cast<long long>(g.sumR) * C;
   {  // stage: V-element vectors (V divides C, so every one is aligned)
     constexpr int kBytes = V * (kBf16 ? 2 : 4);
@@ -359,6 +379,10 @@ __device__ __forceinline__ void walk_features(const float* __restrict__ pts,
     }
   }
   Tap* taps = reinterpret_cast<Tap*>(fwd_smem + fwd_lines_bytes(g, kBf16));
+  int* levels = reinterpret_cast<int*>(taps + 2 * P * 3 * L);  // res, then first rows
+  for (int i = threadIdx.x; i < 2 * L; i += kFwdThreads)
+    levels[i] = i < L ? res_of(g, i) : off_of(g, i - L);
+  __syncthreads();
   const int groups = C / V;
   const int per_point = 3 * L;
   int buf = 0;
@@ -370,7 +394,7 @@ __device__ __forceinline__ void walk_features(const float* __restrict__ pts,
     Tap* tb = taps + buf * P * per_point;
     for (int t = threadIdx.x; t < np * 3; t += kFwdThreads) {
       const float u = unit_coord(pts[p0 * 3 + t], g);
-      for (int l = 0; l < L; ++l) tb[t * L + l] = make_tap<kBf16>(u, g.res[l], g.off[l]);
+      for (int l = 0; l < L; ++l) tb[t * L + l] = make_tap<kBf16>(u, levels[l], levels[L + l]);
     }
     __syncthreads();
     for (int it = threadIdx.x; it < np * groups; it += kFwdThreads) {
@@ -511,7 +535,7 @@ static_assert(sizeof(MmaTap) == 8 && sizeof(int2) == 8, "mma_smem_bytes");
 
 __device__ __forceinline__ int level_of(int r, const Geometry& g) {
   int l = 0;
-  while (l + 1 < g.L && g.off[l + 1] <= r) ++l;
+  while (l + 1 < g.L && off_of(g, l + 1) <= r) ++l;
   return l;
 }
 
@@ -600,7 +624,7 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1) factored_scatter_mma_kernel
     const bool in = t * kTilePoints + tap_p < n;
     const float u = unit_coord(x, g);
     for (int l = tap_l; l < L; l += kTapLevels) {
-      const Tap tp = make_tap<true>(u, g.res[l], g.off[l]);
+      const Tap tp = make_tap<true>(u, res_of(g, l), off_of(g, l));
       tb[l * kTilePoints] = in ? MmaTap{tp.row, pack_bf16(tp.w0, tp.w1)} : MmaTap{-2, 0u};
       // the step's band at this level: its 16 points' tap rows span
       // [mn, mx] (a warp's lanes are 32 points of one level: two steps)
@@ -726,26 +750,30 @@ __global__ void __launch_bounds__(kMmaWarps * 32, 1) factored_scatter_mma_kernel
 
 // ---- the CUDA-core scatter (f32 lines) ----
 
-// The table tiles of the f32 scatter: level groups [first[k], first[k + 1])
-// for k < groups, a group's rows cut into runs of at most row_cap rows
-// (tiles in all; more than one only for a single level wider than a CTA),
-// times column chunks of cw (the last one ragged). A CTA takes one tile of
-// one axis.
+// The table tiles of the f32 scatter: level groups (each from the level
+// where the last one ended to group_end's), a group's rows cut into runs of
+// at most row_cap rows (tiles in all; more than one only for a single level
+// wider than a CTA), times column chunks of cw (the last one ragged). A CTA
+// takes one tile of one axis and finds its group by walking the groups
+// again, on the device table: the groups ride in no launch parameter.
 struct WalkTiles {
-  int groups;
   int cw;
   int row_cap;
   int tiles;
-  int first[kMaxLevels + 1];
 };
 
-// the launch parameters of the largest kernel, the f32 scatter's, in 4 KB
-static_assert(4 * sizeof(void*) + 8 + sizeof(Geometry) + sizeof(WalkTiles) + 16 <= 4096,
-              "the per-level arrays fit the launch parameters");
-
-size_t walk_smem_bytes(int rows, int levels, int cw) {
+__host__ __device__ inline size_t walk_smem_bytes(int rows, int levels, int cw) {
   return sizeof(float) * (static_cast<size_t>(rows) * cw + size_t{kWalkPoints} * cw) +
          sizeof(Tap) * kWalkPoints * levels;
+}
+
+// The end of the level group that starts at level l: the most levels from l
+// whose rows (from the first rows `off`, in host or device memory as the
+// caller runs) fit a CTA beside cw columns, one at least.
+__host__ __device__ inline int group_end(const int* off, int L, int l, int cw) {
+  int e = l + 1;
+  while (e < L && walk_smem_bytes(off[e + 1] - off[l], e + 1 - l, cw) <= kMaxSmem) ++e;
+  return e;
 }
 
 // The fewest tiles: all columns where the finest level's rows allow it, else
@@ -755,21 +783,17 @@ size_t walk_smem_bytes(int rows, int levels, int cw) {
 // mirrors it).
 void walk_tiles(const Geometry& g, WalkTiles* t) {
   int widest = 0;
-  for (int l = 0; l < g.L; ++l) widest = std::max(widest, g.res[l] + 1);
+  for (int l = 0; l < g.L; ++l) widest = std::max(widest, g.hres[l] + 1);
   t->cw = g.C;
   while (t->cw > 1 && walk_smem_bytes(widest, 1, t->cw) > kMaxSmem) --t->cw;
   t->row_cap = 1;
   while (walk_smem_bytes(t->row_cap + 1, 1, t->cw) <= kMaxSmem) ++t->row_cap;
-  t->groups = 0;
   t->tiles = 0;
   for (int l = 0; l < g.L;) {
-    int e = l + 1;
-    while (e < g.L && walk_smem_bytes(g.off[e + 1] - g.off[l], e + 1 - l, t->cw) <= kMaxSmem) ++e;
-    t->first[t->groups++] = l;
-    t->tiles += (g.off[e] - g.off[l] + t->row_cap - 1) / t->row_cap;
+    const int e = group_end(g.hoff, g.L, l, t->cw);
+    t->tiles += (g.hoff[e] - g.hoff[l] + t->row_cap - 1) / t->row_cap;
     l = e;
   }
-  t->first[t->groups] = g.L;
 }
 
 // CTA (b, tile, a): axis a's gradient at the tile's rows and columns over
@@ -781,17 +805,17 @@ __global__ void __launch_bounds__(kWalkThreads, 1) factored_scatter_walk_kernel(
   const int C = g.C, a = blockIdx.z, tid = threadIdx.x;
   const int c0 = (blockIdx.y / wt.tiles) * wt.cw;
   const int cn = min(wt.cw, C - c0);
-  // the tile's level group and its run of rows
-  int grp = 0, run = blockIdx.y % wt.tiles;
-  for (;; ++grp) {
-    const int runs = (g.off[wt.first[grp + 1]] - g.off[wt.first[grp]] + wt.row_cap - 1) /
-                     wt.row_cap;
+  // the tile's level group [l0, l0 + nl) and its run of rows
+  int l0 = 0, e = 0, run = blockIdx.y % wt.tiles;
+  for (;; l0 = e) {
+    e = group_end(g.off, g.L, l0, wt.cw);
+    const int runs = (off_of(g, e) - off_of(g, l0) + wt.row_cap - 1) / wt.row_cap;
     if (run < runs) break;
     run -= runs;
   }
-  const int l0 = wt.first[grp], nl = wt.first[grp + 1] - l0;
-  const int r0 = g.off[l0] + run * wt.row_cap;
-  const int rows = min(wt.row_cap, g.off[l0 + nl] - r0);
+  const int nl = e - l0;
+  const int r0 = off_of(g, l0) + run * wt.row_cap;
+  const int rows = min(wt.row_cap, off_of(g, l0 + nl) - r0);
   float* table = reinterpret_cast<float*>(smem);
   Tap* taps = reinterpret_cast<Tap*>(table + rows * cn);
   float* chunk = reinterpret_cast<float*>(taps + kWalkPoints * nl);
@@ -806,7 +830,7 @@ __global__ void __launch_bounds__(kWalkThreads, 1) factored_scatter_walk_kernel(
     for (int t = tid; t < np * nl; t += blockDim.x) {
       const int l = l0 + t % nl;
       const float u = unit_coord(pts[(p0 + t / nl) * 3 + a], g);
-      taps[t] = make_tap<false>(u, g.res[l], g.off[l] - r0);
+      taps[t] = make_tap<false>(u, res_of(g, l), off_of(g, l) - r0);
     }
     const float* src = dfeat + (a * n + p0) * C + c0;
     if (cn == C) {  // every column: the chunk's rows are contiguous
@@ -859,31 +883,50 @@ __global__ void factored_reduce_kernel(const float* __restrict__ partials,
   d_lines[i] = s;
 }
 
-int init_geometry(Geometry* g, const int* res, int L, int C, float aabb, float two_aabb) {
-  if (L < 1 || L > kMaxLevels) return -2;
+// Fills g from the host resolutions `res` (L of them) and `levels`, their
+// device table: res, then each level's first row and the rows in all (L + 1;
+// fused_factored.py builds it); *hoff holds the host's first rows. Returns
+// 0, or -2 for no level (or no table), -4 for a resolution below 1, -5 for
+// more levels than the forward's tap buffers take (fwd_tap_bytes).
+int init_geometry(Geometry* g, std::vector<int>* hoff, const int* res, const void* levels, int L,
+                  int C, float aabb, float two_aabb) {
+  if (L < 1 || levels == nullptr) return -2;
   g->L = L;
   g->C = C;
   g->aabb = aabb;
   g->two_aabb = two_aabb;
+  hoff->assign(L + 1, 0);
   int off = 0;
   for (int l = 0; l < L; ++l) {
     if (res[l] < 1) return -4;
-    g->res[l] = res[l];
-    g->off[l] = off;
+    (*hoff)[l] = off;
     off += res[l] + 1;
   }
-  g->off[L] = off;
+  (*hoff)[L] = off;
   g->sumR = off;
+  g->res = static_cast<const int*>(levels);
+  g->off = g->res + L;
+  g->base = 0;
+  g->hres = res;
+  g->hoff = hoff->data();
   g->staged = 0;
-  return 0;
+  g->staged_rows = 0;
+  return fwd_tap_bytes(*g) > kMaxSmem ? -5 : 0;
+}
+
+// Sets the forward's staged levels (staged_levels) and their rows.
+void set_staged(Geometry* g, int staged) {
+  g->staged = staged;
+  g->staged_rows = g->hoff[staged];
 }
 
 // The most levels, from level 0, whose rows of all three axes fit one CTA's
 // shared memory in the call's dtype (nerf_factored_fwd_staged_levels reports it).
 int staged_levels(const Geometry& g, bool bf16) {
-  const long long budget = static_cast<long long>(kMaxSmem - fwd_tap_bytes(g)) - 15;
+  const long long budget =
+      static_cast<long long>(kMaxSmem) - static_cast<long long>(fwd_tap_bytes(g)) - 15;
   int s = 0;
-  while (s < g.L && 3LL * g.off[s + 1] * g.C * (bf16 ? 2 : 4) <= budget) ++s;
+  while (s < g.L && 3LL * g.hoff[s + 1] * g.C * (bf16 ? 2 : 4) <= budget) ++s;
   return s;
 }
 
@@ -1023,16 +1066,18 @@ int level_run(int nt, int L) {
   return k;
 }
 
-// Levels [l0, l1) of g as a geometry of their own, rows from 0.
+// Levels [l0, l1) of g as a geometry of their own, rows from 0: the same
+// device table from level l0 on, its rows counted from g's row of l0 (the
+// host copy's offsets stay g's, so no host plan reads it).
 Geometry run_geometry(const Geometry& g, int l0, int l1) {
   Geometry r = g;
   r.L = l1 - l0;
-  for (int l = l0; l < l1; ++l) {
-    r.res[l - l0] = g.res[l];
-    r.off[l - l0] = g.off[l] - g.off[l0];
-  }
-  r.off[l1 - l0] = g.off[l1] - g.off[l0];
-  r.sumR = r.off[l1 - l0];
+  r.res = g.res + l0;
+  r.off = g.off + l0;
+  r.base = g.base + g.hoff[l0];
+  r.hres = nullptr;
+  r.hoff = nullptr;
+  r.sumR = g.hoff[l1] - g.hoff[l0];
   return r;
 }
 
@@ -1047,8 +1092,8 @@ int launch_mma(const float* pts, const __nv_bfloat16* dfeat, float* partials, lo
     const int blocks = (r.sumR + 15) / 16;
     BwdPlan q = p;
     q.slabs = (blocks + kMmaWarps * kMmaBlocks - 1) / (kMmaWarps * kMmaBlocks);
-    const int rc = launch_mma_run<NT>(pts, dfeat, partials + static_cast<long long>(g.off[l0]) *
-                                      p.stride, n, r, q, g.sumR, st);
+    const int rc = launch_mma_run<NT>(
+        pts, dfeat, partials + static_cast<long long>(g.hoff[l0]) * p.stride, n, r, q, g.sumR, st);
     if (rc != 0) return rc;
   }
   return 0;
@@ -1060,15 +1105,18 @@ extern "C" {
 
 // Returns 0, a cudaError_t from the launch, or a negative code for a shape
 // the kernel does not take (see nerf_rs_tpu_torch/kernels/fused_factored.py).
-// pts (n, 3) f32; lines (3, sumR, C), bf16 with bf16 = 1, else f32; enc (n, C) f32.
+// pts (n, 3) f32; lines (3, sumR, C), bf16 with bf16 = 1, else f32; enc (n, C) f32;
+// res the L resolutions in host memory, levels their device table
+// (init_geometry).
 int nerf_factored_encode_fwd(const void* pts, const void* lines, void* enc, long long n,
-                             const int* res, int L, int C, float aabb, float two_aabb, int bf16,
-                             void* stream) {
+                             const int* res, const void* levels, int L, int C, float aabb,
+                             float two_aabb, int bf16, void* stream) {
   Geometry g;
-  const int rc = init_geometry(&g, res, L, C, aabb, two_aabb);
+  std::vector<int> hoff;
+  const int rc = init_geometry(&g, &hoff, res, levels, L, C, aabb, two_aabb);
   if (rc != 0) return rc;
   if (n == 0) return 0;
-  g.staged = staged_levels(g, bf16 != 0);
+  set_staged(&g, staged_levels(g, bf16 != 0));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(pts);
   return bf16 ? launch_walk_any<true, false>(p, lines, enc, nullptr, C, n, g, st)
@@ -1078,7 +1126,8 @@ int nerf_factored_encode_fwd(const void* pts, const void* lines, void* enc, long
 // The forward's levels in shared memory (staged_levels) for this geometry.
 int nerf_factored_fwd_staged_levels(const int* res, int L, int C, int bf16) {
   Geometry g;
-  const int rc = init_geometry(&g, res, L, C, 1.f, 2.f);
+  std::vector<int> hoff;
+  const int rc = init_geometry(&g, &hoff, res, res, L, C, 1.f, 2.f);  // no kernel reads g
   return rc != 0 ? rc : staged_levels(g, bf16 != 0);
 }
 
@@ -1104,13 +1153,14 @@ long long nerf_factored_bwd_scratch_bytes(long long n, int sumR, int C, int bf16
 // bf16 with bf16 = 1 (stride from nerf_factored_bwd_plan, the columns past C
 // zero), else f32 with stride C.
 int nerf_factored_dfeat(const void* pts, const void* lines, const void* gout, void* dfeat,
-                        long long n, const int* res, int L, int C, float aabb, float two_aabb,
-                        int bf16, int stride, void* stream) {
+                        long long n, const int* res, const void* levels, int L, int C, float aabb,
+                        float two_aabb, int bf16, int stride, void* stream) {
   Geometry g;
-  const int rc = init_geometry(&g, res, L, C, aabb, two_aabb);
+  std::vector<int> hoff;
+  const int rc = init_geometry(&g, &hoff, res, levels, L, C, aabb, two_aabb);
   if (rc != 0) return rc;
   if (n == 0) return 0;
-  g.staged = staged_levels(g, bf16 != 0);
+  set_staged(&g, staged_levels(g, bf16 != 0));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* p = static_cast<const float*>(pts);
   const float* go = static_cast<const float*>(gout);
@@ -1121,10 +1171,11 @@ int nerf_factored_dfeat(const void* pts, const void* lines, const void* gout, vo
 // g (n, C) f32 -> d_lines (3, sumR, C) f32; scratch of
 // nerf_factored_bwd_scratch_bytes(n, sumR, C, bf16) bytes.
 int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gout, void* d_lines,
-                             void* scratch, long long n, const int* res, int L, int C, float aabb,
-                             float two_aabb, int bf16, void* stream) {
+                             void* scratch, long long n, const int* res, const void* levels, int L,
+                             int C, float aabb, float two_aabb, int bf16, void* stream) {
   Geometry g;
-  int rc = init_geometry(&g, res, L, C, aabb, two_aabb);
+  std::vector<int> hoff;
+  int rc = init_geometry(&g, &hoff, res, levels, L, C, aabb, two_aabb);
   if (rc != 0) return rc;
   const bool b16 = bf16 != 0;
   WalkTiles wt;
@@ -1135,7 +1186,7 @@ int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gou
   int sms = 0;
   rc = sm_count(&sms);
   if (rc != 0) return rc;
-  g.staged = staged_levels(g, b16);
+  set_staged(&g, staged_levels(g, b16));
   const BwdPlan p = bwd_plan(n, g.sumR, C, b16, sms);
   const float* pt = static_cast<const float*>(pts);
   const float* go = static_cast<const float*>(gout);
@@ -1157,10 +1208,12 @@ int nerf_factored_encode_bwd(const void* pts, const void* lines, const void* gou
     }
   } else {
     size_t walk_smem = 0;  // the largest tile's
-    for (int k = 0; k < wt.groups; ++k)
+    for (int l = 0; l < g.L;) {
+      const int e = group_end(g.hoff, g.L, l, wt.cw);
       walk_smem = std::max(walk_smem, walk_smem_bytes(
-          std::min(wt.row_cap, g.off[wt.first[k + 1]] - g.off[wt.first[k]]),
-          wt.first[k + 1] - wt.first[k], wt.cw));
+          std::min(wt.row_cap, g.hoff[e] - g.hoff[l]), e - l, wt.cw));
+      l = e;
+    }
     rc = static_cast<int>(cudaFuncSetAttribute(factored_scatter_walk_kernel,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                static_cast<int>(walk_smem)));

@@ -100,6 +100,23 @@
 // shared memory (~60 KB) does not grow with the width. It is slower per
 // FLOP than the wgmma instances (mma.sync, a CTA barrier a k-step, A
 // re-read from L2 for every round); PERF.md has its times.
+//
+// Wide encodings (fault 17). The streamed instance keeps two buffers of
+// each pass's encodings beside the ring and the activation tile, 512 (P +
+// D) bytes: past P = 112 at the paper widths (pos_enc_levels 19 and more)
+// no wgmma layout fits the card's opt-in shared memory, while the JAX
+// kernel takes any encoding. Such a field runs the wide instance too (its
+// encodings lie in its scratch, beside the activations): k1_wide decides,
+// for the launch and for nerf_fused_ray_scratch_bytes alike, so the
+// wrapper follows the scratch's size and never decides on its own.
+//
+// The offsets of the packed matrices and biases lie in a device table
+// (Field::off, one per packing, built and kept by the wrapper), not in the
+// launch parameters: a field of any depth launches. The first kParamOffs
+// offsets also ride in the parameters (Field::w_head, b_head), and the
+// wgmma instances take the two heads' bias offsets there (Params), where
+// the producer and the consumers read them from the constant bank, as
+// before the table.
 
 #include "field.cuh"
 #include "field_wgmma.cuh"
@@ -142,6 +159,10 @@ struct Params {
   // contiguous (no bank conflict): column c = 8 j + 2 q + e at 16 (j / 2)
   // + 4 q + 2 (j % 2) + e (fused_render.pack_weights_k1).
   const float* bias;
+  // The [feature | sigma] and rgb heads' bias offsets in f.b, read from the
+  // parameters at any depth (the consumers' loads from the device table
+  // sat in their paths)
+  long long b_sf, b_rgb;
   int iters;  // tiles each CTA takes: CTA b's k-th is b + k gridDim
   float* rgb;
   float* acc;
@@ -229,7 +250,7 @@ __device__ void produce(const Params& p, uint32_t ring, uint32_t full, uint32_t 
   for (int pass = 0; pass < passes; ++pass) {
     for (int q = 0; q < np; ++q) {
       const Mat mt = mat_at(f, p.n, q);
-      const char* src = reinterpret_cast<const char*>(f.w + f.w_off[mt.m]);
+      const char* src = reinterpret_cast<const char*>(f.w + w_off(f, mt.m));
       const uint32_t bytes = static_cast<uint32_t>(32 * mt.N), half = bytes / kCluster;
       for (int k = 0; k < mt.K / 16; ++k) {
         wg::mbar_wait(empty + 8 * slot, phase ^ 1);
@@ -700,7 +721,7 @@ __device__ void consume(const Params& p, unsigned char* smem, Ring rg, const Til
             store_bf2(act, r0 + 8, c, acc[4 * j + 2], acc[4 * j + 3]);
           }
         }
-        const float* b = f.b + f.b_off[m];
+        const float* b = f.b + p.b_sf;
         // sigma is column 0 of the n8 tile: the quad's first lane holds it;
         // every lane of the quad stores it (the same value), so no branch
         // reads a wgmma accumulator
@@ -728,7 +749,7 @@ __device__ void consume(const Params& p, unsigned char* smem, Ring rg, const Til
         product<8, false>(rg, acc, sig, act_a, f.V, 0, 0, 8, nullptr, 0);
         // lane q of a quad writes column q of its two rows (column 3 is a
         // pad column the scan never reads), fetched from the quad's lane q / 2
-        const float* b = f.b + f.b_off[m + 2];
+        const float* b = f.b + p.b_rgb;
         const int q = t & 3, src = ((t & 31) & ~3) | (q >> 1);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
@@ -1001,31 +1022,47 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ray_wide_kernel(const WideP
   }
 }
 
+// The wide instance takes the field where a product is wider than
+// kMaxWidth, or where even the streamed layout (which does not grow with
+// the depth) does not fit the card's opt-in shared memory `optin`: wide
+// encodings. Elsewhere a wgmma instance runs.
+inline bool k1_wide(const Field& f, size_t optin) {
+  if (widest(f) > kMaxWidth) return true;
+  const Widths n{padded_width(f.W), padded_width(f.F), padded_width(f.V)};
+  return k1_layout(f, n, true).total > optin;
+}
+
 }  // namespace
 
 extern "C" {
 
 // Returns 0, a cudaError_t from the launch, or a negative code for a
 // shape the kernel does not take (see nerf_rs_tpu_torch/kernels/fused_ray.py).
-// w/w_off: the weights in K1's layout, b_k1 its biases (fused_render.pack_weights_k1);
-// for a field wider than kMaxWidth the packed weights' own (PackedWeights.w,
+// w: the weights in K1's layout, b_k1 its biases (fused_render.pack_weights_k1);
+// where k1_wide takes the field, the packed weights' own (PackedWeights.w,
 // K2's layout; b_k1 unused) and `scratch` nerf_fused_ray_scratch_bytes of
-// device memory (else null). radii: (n_rays,) f32 with ipe = 1, else null.
-// contract: 0 or 1.
+// device memory (else null). offsets: the device table of the n_w matrix
+// offsets into w, then the n_b bias offsets into b (Field::off); w_off and
+// b_off: the same offsets in host memory.
+// radii: (n_rays,) f32 with ipe = 1, else null. contract: 0 or 1.
 int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const void* ts,
                           const void* deltas, const void* radii, const void* w, const void* b,
-                          const void* b_k1,
-                          const long long* w_off, int n_w, const long long* b_off, int n_b,
+                          const void* b_k1, const void* offsets, int n_w, int n_b,
+                          const long long* w_off, const long long* b_off,
                           void* rgb, void* acc, void* depth, void* wts, void* sigma,
                           long long n_rays, int S, int depth_l, int skip, int W, int F, int V,
                           int P, int D, int pos_levels, int dir_levels, int sigma_act, int ipe,
                           int contract, void* scratch, void* stream) {
   Params p;
-  int rc = init_field(&p.f, o, d, vd, ts, deltas, radii, w, b, w_off, n_w, b_off, n_b, n_rays,
-                      S, depth_l, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe);
+  int rc = init_field(&p.f, o, d, vd, ts, deltas, radii, w, b, offsets, w_off, n_w, b_off, n_b,
+                      n_rays, S, depth_l, skip, W, F, V, P, D, pos_levels, dir_levels,
+                      sigma_act, ipe);
   if (rc != 0) return rc;
   if (contract != 0 && contract != 1) return -8;
-  if (widest(p.f) > kMaxWidth) {  // the wide instance, on PackedWeights.w and the scratch
+  size_t optin = 0;
+  rc = smem_optin(&optin);
+  if (rc != 0) return rc;
+  if (k1_wide(p.f, optin)) {  // the wide instance, on PackedWeights.w and the scratch
     WideParams q;
     q.f = p.f;
     q.rgb = static_cast<float*>(rgb);
@@ -1052,11 +1089,11 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
   p.wts = static_cast<float*>(wts);
   p.sigma = static_cast<float*>(sigma);
   p.bias = static_cast<const float*>(b_k1);
+  p.b_sf = b_off[depth_l];
+  p.b_rgb = b_off[depth_l + 2];
   p.n = {padded_width(W), padded_width(F), padded_width(V)};
-  // the resident instance where it fits, else the streamed one
-  size_t optin = 0;
-  rc = smem_optin(&optin);
-  if (rc != 0) return rc;
+  // the resident instance where it fits, else the streamed one (k1_wide:
+  // that one fits)
   const bool streamed = S > kMaxResident || k1_layout(p.f, p.n, false).total > optin;
   p.L = k1_layout(p.f, p.n, streamed);
 
@@ -1102,20 +1139,23 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bytes of scratch nerf_fused_ray_render needs: 0 for fields up to
-// kMaxWidth, else the wide instance's grid (one CTA at least) x its CTA's
-// bytes, so that a positive size is what marks the wide instance and its
-// layout (PackedWeights.w) to the wrapper. Negative: -1 for a sample count
-// the kernels do not take, else a cudaError_t negated.
+// Bytes of scratch nerf_fused_ray_render needs: 0 where a wgmma instance
+// takes the field, else (k1_wide) the wide instance's grid (one CTA at
+// least) x its CTA's bytes, so that a positive size is what marks the wide
+// instance and its layout (PackedWeights.w) to the wrapper. Negative: -1
+// for a sample count the kernels do not take, else a cudaError_t negated.
 long long nerf_fused_ray_scratch_bytes(long long n_rays, int S, int W, int F, int V, int P,
                                        int D) {
   if (!takes_samples(S)) return -1;
   Field f;
   set_layout(&f, S, W, F, V, P, D);
-  if (widest(f) <= kMaxWidth) return 0;
+  size_t optin = 0;
+  int rc = smem_optin(&optin);
+  if (rc != 0) return -static_cast<long long>(rc);
+  if (!k1_wide(f, optin)) return 0;
   f.n_rays = n_rays;
   long long grid = 0, off_x = 0, off_dv = 0, off_vals = 0;
-  const int rc = wide_grid(f, &grid);
+  rc = wide_grid(f, &grid);
   if (rc != 0) return -static_cast<long long>(rc);
   return (grid > 0 ? grid : 1) * wide_cta_bytes(f, &off_x, &off_dv, &off_vals);
 }

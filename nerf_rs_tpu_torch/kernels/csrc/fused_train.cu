@@ -64,7 +64,18 @@
 // Its shared memory does not grow with the width. Its blocks are sized by
 // the stashes' bytes too (nerf_fused_train_block_rows under
 // fused_train.BLOCK_BYTES): at width 1024 and depth 8 a sample row stashes
-// ~36 KB.
+// ~36 KB. Wide encodings (fault 17) take it too: where even the streamed
+// layout's tiles do not fit the card's opt-in shared memory beside the
+// encodings (P = 208 at the paper widths, pos_enc_levels 34 and more),
+// train_mode picks the wide instance, whose encodings are stashes as well.
+//
+// The matrices' and biases' offsets, and the transposed matrices', lie in
+// device tables built once per layout by the wrapper (Field::off,
+// TrainParams::wt_off), not in the launch parameters, and K2b's jobs in a
+// host vector: a field of any depth launches. The first kParamOffs of each
+// also ride in the parameters (Field::w_head, b_head, TrainParams::wt_head),
+// read from the constant bank as before the tables: at the presets' depths
+// no offset comes from the tables.
 //
 // Why two kernels. The TPU kernel keeps a ray block's activations and the
 // dW accumulators in VMEM (120 MB). An H100 SM has 227 KB of shared
@@ -113,6 +124,8 @@
 // g = dh [h_l > 0]. d feat_b sums dfeat in f32, computed here as
 // view_w @ (sum_rows g_hv), the same sum in another association.
 
+#include <vector>
+
 #include "field.cuh"
 
 namespace {
@@ -123,7 +136,8 @@ struct TrainParams {
   Field f;
   const float* gold;
   const bf16* wt;              // transposed matrices, packed like f.w
-  long long wt_off[kMaxMats];  // trunk[1..L)^T at [0, L - 1), then feat^T, view^T, rgb^T
+  const long long* wt_off;     // device: trunk[1..L)^T at [0, L - 1), then feat^T, view^T, rgb^T
+  long long wt_head[kParamOffs];  // its first kParamOffs, again in the parameters
   const float* sigma_row;      // (W,) the sigma head's column
   float* diag;                 // (N, 8)
   float* wts;                  // (N, S)
@@ -146,6 +160,12 @@ struct TrainParams {
   float dist_a, dist_b;        // linear: near, 1 / (far - near); disparity: 1 / near, 1 / (1/near - 1/far)
   int dist_disparity;          // 1: s in disparity
 };
+
+// Transposed matrix i's offset into wt: from the parameters for the first
+// kParamOffs, else from the device table through the read-only path.
+__device__ __forceinline__ long long wt_at(const TrainParams& p, int i) {
+  return i < kParamOffs ? p.wt_head[i] : __ldg(p.wt_off + i);
+}
 
 // The distortion loss's s-coordinate m and s-space length dn of the sample
 // (t, dt): t is a point sample whose interval runs to t + dt, or with IPE
@@ -556,7 +576,7 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
   }
 
   // ---- backward products, heads then trunk, pass by pass ----
-  auto wt = [&](int i) { return reinterpret_cast<const uint2*>(p.wt + p.wt_off[i]); };
+  auto wt = [&](int i) { return reinterpret_cast<const uint2*>(p.wt + wt_at(p, i)); };
   // each G leaves for its stash from the tile, after the product's barrier
   auto backward = [&](int s0) {
     const Stash st = stash(s0);
@@ -641,7 +661,7 @@ __global__ void __launch_bounds__(kThreads, 1) train_wide_kernel(const TrainPara
   for (int r = tid; r < rows_valid; r += kThreads) p.wts[ray0 * S + r] = t.w[r];
 
   // ---- backward products, heads then trunk, pass by pass, stash to stash ----
-  auto wt = [&](int i) { return reinterpret_cast<const uint2*>(p.wt + p.wt_off[i]); };
+  auto wt = [&](int i) { return reinterpret_cast<const uint2*>(p.wt + wt_at(p, i)); };
   bf16* grgb = p.grgb + row0 * 8;
   bf16* gsf = p.gsf + row0 * (F + 8);
   for (int s0 = 0; s0 < rows; s0 += kRows) {
@@ -902,10 +922,12 @@ long long rows_padded(long long n_rays, int S) {
 // or wide (train_wide_kernel).
 enum TrainMode { kResident, kStreamed, kWide };
 
-// Which instance K2a takes: the wide one past kNarrowWidth, else the
-// streamed one past 256 samples or where the resident layout does not fit
-// in the card's shared memory, else the resident one. Sets *mode; returns 0
-// or a cudaError_t.
+// Which instance K2a takes: the wide one past kNarrowWidth, and where even
+// the streamed layout does not fit in the card's opt-in shared memory (wide
+// encodings: its tiles hold 256 (P + D) bytes of them beside two
+// activation tiles); else the streamed one past 256 samples or where the
+// resident layout does not fit; else the resident one. Sets *mode; returns
+// 0 or a cudaError_t.
 int train_mode(const Field& f, TrainMode* mode) {
   if (widest(f) > kNarrowWidth) {
     *mode = kWide;
@@ -914,7 +936,10 @@ int train_mode(const Field& f, TrainMode* mode) {
   size_t optin = 0;
   const int rc = smem_optin(&optin);
   if (rc != 0) return rc;
-  *mode = f.S > kMaxResident || smem_layout(f, false).total > optin ? kStreamed : kResident;
+  if (f.S <= kMaxResident && smem_layout(f, false).total <= optin)
+    *mode = kResident;
+  else
+    *mode = smem_layout(f, true).total <= optin ? kStreamed : kWide;
   return 0;
 }
 
@@ -969,23 +994,27 @@ long long nerf_fused_train_block_rows(int S, int depth_l, int W, int F, int V, i
 // Returns 0, a cudaError_t from a launch, or a negative code for a shape
 // the kernels do not take (see nerf_rs_tpu_torch/kernels/fused_ray.py).
 // grads: f32, the packed matrices' gradients at w_off, then the biases'
-// at (matrix elements) + b_off.
+// at (matrix elements) + b_off. w_off and b_off lie in host memory;
+// `offsets` is their device table (Field::off); wt_off (host) and
+// `wt_offsets` (device) hold the n_wt transposed matrices' offsets into wt.
 // radii: (n_rays,) f32 with ipe = 1, else null.
 int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const void* ts,
                            const void* deltas, const void* radii, const void* gold,
                            const void* w, const void* b, const long long* w_off, int n_w,
-                           const long long* b_off, int n_b, const void* wt,
-                           const long long* wt_off, int n_wt, const void* sigma_row, void* diag,
+                           const long long* b_off, int n_b, const void* offsets, const void* wt,
+                           const long long* wt_off, const void* wt_offsets, int n_wt,
+                           const void* sigma_row, void* diag,
                            void* wts, void* grads, void* scratch, long long n_rays, int S,
                            int depth_l, int skip, int W, int F, int V, int P, int D,
                            int pos_levels, int dir_levels, int sigma_act, int ipe, int white_bg,
                            float loss_scale, int contract, float dist_scale, float dist_a,
                            float dist_b, int dist_disparity, void* stream) {
   TrainParams p;
-  int rc = init_field(&p.f, o, d, vd, ts, deltas, radii, w, b, w_off, n_w, b_off, n_b, n_rays,
-                      S, depth_l, skip, W, F, V, P, D, pos_levels, dir_levels, sigma_act, ipe);
+  int rc = init_field(&p.f, o, d, vd, ts, deltas, radii, w, b, offsets, w_off, n_w, b_off, n_b,
+                      n_rays, S, depth_l, skip, W, F, V, P, D, pos_levels, dir_levels,
+                      sigma_act, ipe);
   if (rc != 0) return rc;
-  if (n_wt != depth_l + 2) return -2;
+  if (n_wt != depth_l + 2 || wt_offsets == nullptr) return -2;
   if (contract != 0 && contract != 1) return -8;
   if (dist_disparity != 0 && dist_disparity != 1) return -9;
   const int L = depth_l;
@@ -1001,7 +1030,8 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
                                    F, V, P, D, total, streamed);
   p.gold = static_cast<const float*>(gold);
   p.wt = static_cast<const bf16*>(wt);
-  for (int i = 0; i < kMaxMats; ++i) p.wt_off[i] = i < n_wt ? wt_off[i] : 0;
+  p.wt_off = static_cast<const long long*>(wt_offsets);
+  for (int i = 0; i < kParamOffs; ++i) p.wt_head[i] = i < n_wt ? wt_off[i] : 0;
   p.sigma_row = static_cast<const float*>(sigma_row);
   p.diag = static_cast<float*>(diag);
   p.wts = static_cast<float*>(wts);
@@ -1043,16 +1073,17 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  // K2b's jobs, in the packed order, launched kJobs at a time (one launch
-  // up to depth 19); each job writes its own slots of the partials
-  Job jobs[kMaxMats];
-  int n_jobs = 0;
+  // K2b's jobs, in the packed order (depth + 4 or + 5 of them), launched
+  // kJobs at a time (one launch up to depth 19); each job writes its own
+  // slots of the partials
+  std::vector<Job> jobs;
+  jobs.reserve(L + 5);
   const long long hs = rows_pad * W;
   const bool skip_on = skip > 0 && skip < L;
   // bias: the offset of db among the biases, or -1 where another job sums this G
   auto job = [&](const bf16* a, int K, const bf16* g, int N, long long out, long long bias,
                  int bias_col0) {
-    Job& jb = jobs[n_jobs++];
+    Job& jb = jobs.emplace_back();
     jb.a = a;
     jb.g = g;
     jb.out = out;
@@ -1078,6 +1109,7 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   q.rows_per_split = (rows + splits - 1) / splits;
   q.total = total;
   q.partial = s.partial;
+  const int n_jobs = static_cast<int>(jobs.size());
   for (int j0 = 0; j0 < n_jobs; j0 += kJobs) {
     int tiles = 0;
     q.n_jobs = n_jobs - j0 < kJobs ? n_jobs - j0 : kJobs;

@@ -4,7 +4,7 @@
 // Replaces nerf_rs_tpu/kernels/gather_rows.py::gather_rows (:54, the Pallas
 // TPU kernel at :88, pallas_call :115) and ::gather_pairs (:133, which
 // reaches the same pallas_call):
-//   gather_rows   out[i, :] = table[idx[i], :]        (R, W) f32, W % 4 == 0
+//   gather_rows   out[i, :] = table[idx[i], :]        (R, W) f32, any W
 //   gather_pairs  out[i, :] = table[fidx[i] + {0, 1}]  (M,) f32, fidx even
 //                 (an odd fidx gives a NaN pair, as one outside the table)
 // They are the hash-grid field's table fetch: the brick layout's one 512 B
@@ -26,6 +26,10 @@
 //     row is one coalesced 512 B load and one 512 B store (wider rows loop).
 //     Every lane reads the row's index (one broadcast load). A grid-stride
 //     loop over the rows, with the grid capped at what the SMs hold at once.
+//     A row narrower than 128 (a warp's 32 float4), as the flat hash table's
+//     rows of F features, takes gather_elems_kernel instead: a thread per
+//     float4 of the output where the width is a multiple of 4 and the table
+//     16 B aligned, else a thread per float.
 //   * gather_pairs: bytes per pair are 4 B of index in, 8 B of table, 8 B
 //     out; a thread takes four pairs per step with one 16 B index load, four
 //     independent aligned 8 B float2 loads in flight (a pair costs one
@@ -68,6 +72,12 @@
 //     order instead of the sorted keys, from where the key changes in its
 //     tile (an integer atomic max where a row's run may cross into a
 //     neighbouring tile; an empty row keeps the zeroed empty range).
+//     Where the rows are wider than 128 (kColBlock), a warp takes a row's
+//     columns a block of 128 at a time, staging the batch again for each.
+//     The per-warp batch holds fewer fetches where C values a fetch would
+//     not fit (lane_batch; the shared memory is sized by C and the width at
+//     launch, and the lanes lie in a device table): any C and any width
+//     whose batch of one fetch fits the card's opt-in shared memory.
 //   * One reduce, a row of at most kScatterChunk fetches written straight
 //     into out (an empty row as zeros: out is not zeroed first). Pair layout
 //     (lane0 null, lanes (0, 1), width 2: the flat table):
@@ -98,8 +108,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 2048 / kThreads;  // resident blocks at full occupancy
-constexpr int kMaxScatterWidth = 128;          // columns of a scattered row (one brick row)
-constexpr int kMaxScatterLanes = 32;           // values per fetch (C)
+constexpr int kColBlock = 128;                 // columns a warp sums at once (one brick row)
 
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const float4* __restrict__ table, const int* __restrict__ idx,
@@ -117,6 +126,28 @@ gather_rows_kernel(const float4* __restrict__ table, const int* __restrict__ idx
     }
     const float4* src = table + r * w4;
     for (int j = lane; j < w4; j += 32) dst[j] = __ldg(src + j);
+  }
+}
+
+__device__ __forceinline__ float nan_of(float) { return NAN; }
+__device__ __forceinline__ float4 nan_of(float4) { return make_float4(NAN, NAN, NAN, NAN); }
+
+// Rows narrower than a warp's float4s, or of any width: a thread per output
+// element T (a float4, or a float where the width is not a multiple of 4 or
+// the table not 16 B aligned), consecutive threads on consecutive elements,
+// so the stores coalesce; width counts T. A row outside the table is written
+// as NaN.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gather_elems_kernel(const T* __restrict__ table, const int* __restrict__ idx,
+                    T* __restrict__ out, long long n, long long rows, int width) {
+  const long long total = n * width;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  for (long long e = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; e < total;
+       e += stride) {
+    const long long i = e / width;
+    const long long r = __ldg(idx + i);
+    out[e] = (r < 0 || r >= rows) ? nan_of(T{}) : __ldg(table + r * width + (e - i * width));
   }
 }
 
@@ -488,7 +519,8 @@ struct ScatterParams {
   long long M;
   int rows, width, C;
   int vec4;                // C % 4 == 0 and g 16 B aligned: value rows as float4
-  int lanes[kMaxScatterLanes];
+  int batch;               // lane layout: fetches a warp stages at once (lane_batch)
+  const int* lanes;        // (C,) in device memory
   int2* ranges;            // (rows,) each row's run in the sorted order (run_of)
   int* counters;           // [slots taken, long rows]
   int2* slot_row;          // per slot: (row, chunk)
@@ -589,44 +621,56 @@ __global__ void __launch_bounds__(kThreads) scatter_combine_pair_kernel(const Sc
 
 // Lane layout: per warp, a batch of staged value rows (C floats each) and
 // their ids and base columns; per block, the inverse of lanes (inv[col] = c
-// with lanes[c] == col, or -1). Dynamic shared memory, sized for C.
+// with lanes[c] == col, or -1). Dynamic shared memory, sized for C, the
+// batch and the inverse's columns (lane_smem_bytes).
 struct LaneSmem {
-  float* vals;  // kWarps x kScatterBatch x C, 16 B aligned
-  int* ids;     // kWarps x kScatterBatch
-  int* l0;      // kWarps x kScatterBatch
-  int* inv;     // kMaxScatterWidth
-  __device__ explicit LaneSmem(int C) {
+  float* vals;  // kWarps x batch x C, 16 B aligned
+  int* ids;     // kWarps x batch
+  int* l0;      // kWarps x batch
+  int* inv;     // kColBlock, or the row's width (kWide)
+  __device__ LaneSmem(int C, int batch) {
     extern __shared__ __align__(16) float lane_smem[];
     vals = lane_smem;
-    ids = reinterpret_cast<int*>(vals + kWarps * kScatterBatch * C);
-    l0 = ids + kWarps * kScatterBatch;
-    inv = l0 + kWarps * kScatterBatch;
+    ids = reinterpret_cast<int*>(vals + kWarps * batch * C);
+    l0 = ids + kWarps * batch;
+    inv = l0 + kWarps * batch;
   }
 };
 
-size_t lane_smem_bytes(int C) {
-  return sizeof(float) * kWarps * kScatterBatch * C + sizeof(int) * (2 * kWarps * kScatterBatch
-                                                                     + kMaxScatterWidth);
+size_t lane_smem_bytes(int C, int batch, int inv) {
+  return sizeof(float) * kWarps * batch * static_cast<size_t>(C) +
+         sizeof(int) * (2 * kWarps * batch + static_cast<size_t>(inv));
 }
 
+// The lane kernels come in two instances. The narrow one (kWide false) takes
+// rows of at most kColBlock columns and a batch of kScatterBatch fetches,
+// both at compile time (the brick table's 16 values of a 128-wide row, the
+// flat table's rows of F values). The wide one takes any C and width: a
+// warp sums a row kColBlock columns at a time, staging the batch again for
+// each, the batch is lane_batch's and the inverse has the row's width.
+template <bool kWide>
 __device__ __forceinline__ void init_inverse(const ScatterParams& p, LaneSmem& sm) {
-  for (int c = threadIdx.x; c < kMaxScatterWidth; c += kThreads) sm.inv[c] = -1;
+  const int cols = kWide ? p.width : kColBlock;
+  for (int c = threadIdx.x; c < cols; c += kThreads) sm.inv[c] = -1;
   __syncthreads();
-  if (threadIdx.x < p.C) sm.inv[p.lanes[threadIdx.x]] = threadIdx.x;
+  for (int c = threadIdx.x; c < p.C; c += kThreads) sm.inv[__ldg(p.lanes + c)] = c;
   __syncthreads();
 }
 
-// lane layout: acc[j] (column lane + 32 j) += the values that the fetches
-// at [beg, end) put on it, in fetch order. The whole warp calls it.
+// lane layout: acc[j] (column col0 + lane + 32 j) += the values that the
+// fetches at [beg, end) put on it, in fetch order. The whole warp calls it.
+template <bool kWide>
 __device__ __forceinline__ void lane_sum(const ScatterParams& p, LaneSmem& sm, int beg, int end,
-                                         float acc[4]) {
+                                         int col0, float acc[4]) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* vals = sm.vals + warp * kScatterBatch * p.C;
-  int* ids = sm.ids + warp * kScatterBatch;
-  int* l0 = sm.l0 + warp * kScatterBatch;
+  const int batch = kWide ? p.batch : kScatterBatch;
+  const int cols = kWide ? p.width : kColBlock;  // the inverse's
+  float* vals = sm.vals + warp * batch * p.C;
+  int* ids = sm.ids + warp * batch;
+  int* l0 = sm.l0 + warp * batch;
   const int C = p.C;
-  for (int b = beg; b < end; b += kScatterBatch) {
-    const int nb = min(kScatterBatch, end - b);
+  for (int b = beg; b < end; b += batch) {
+    const int nb = min(batch, end - b);
     __syncwarp();  // the last batch is consumed
     const int id = lane < nb ? __ldg(p.ids + b + lane) : 0;
     if (lane < nb) ids[lane] = id;
@@ -655,8 +699,8 @@ __device__ __forceinline__ void lane_sum(const ScatterParams& p, LaneSmem& sm, i
       const int base = l0[f];
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int delta = lane + 32 * j - base;
-        if (lane + 32 * j < p.width && delta >= 0 && delta < kMaxScatterWidth) {
+        const int col = col0 + lane + 32 * j, delta = col - base;
+        if (col < p.width && delta >= 0 && delta < cols) {
           const int c = sm.inv[delta];
           if (c >= 0) acc[j] = __fadd_rn(acc[j], vals[f * C + c]);
         }
@@ -665,26 +709,41 @@ __device__ __forceinline__ void lane_sum(const ScatterParams& p, LaneSmem& sm, i
   }
 }
 
-__device__ __forceinline__ void store_row(float* dst, int width, const float acc[4]) {
+// columns col0 + lane + 32 j of a row
+__device__ __forceinline__ void store_row(float* dst, int width, int col0, const float acc[4]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    if (lane + 32 * j < width) dst[lane + 32 * j] = acc[j];
+    if (col0 + lane + 32 * j < width) dst[col0 + lane + 32 * j] = acc[j];
+}
+
+// fn(col0) for each block of kColBlock columns of a row: once, at 0, in the
+// narrow instances
+template <bool kWide, class Fn>
+__device__ __forceinline__ void each_block(int width, const Fn& fn) {
+  if constexpr (kWide) {
+    for (int col0 = 0; col0 < width; col0 += kColBlock) fn(col0);
+  } else {
+    fn(0);
+  }
 }
 
 // lane layout, a warp per row: short runs straight into out
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads) scatter_rows_lane_kernel(const ScatterParams p) {
-  LaneSmem sm(p.C);
-  init_inverse(p, sm);
+  LaneSmem sm(p.C, kWide ? p.batch : kScatterBatch);
+  init_inverse<kWide>(p, sm);
   const int lane = threadIdx.x & 31;
   const int stride = gridDim.x * kWarps;
   for (int k = blockIdx.x * kWarps + (threadIdx.x >> 5); k < p.rows; k += stride) {
     const int2 r = run_of(p, k);
     const int n = r.y - r.x;
     if (n <= kScatterChunk) {
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      if (n > 0) lane_sum(p, sm, r.x, r.y, acc);
-      store_row(p.out + static_cast<long long>(k) * p.width, p.width, acc);
+      each_block<kWide>(p.width, [&](int col0) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+        if (n > 0) lane_sum<kWide>(p, sm, r.x, r.y, col0, acc);
+        store_row(p.out + static_cast<long long>(k) * p.width, p.width, col0, acc);
+      });
       continue;
     }
     const int chunks = (n + kScatterChunk - 1) / kScatterChunk;
@@ -695,44 +754,81 @@ __global__ void __launch_bounds__(kThreads) scatter_rows_lane_kernel(const Scatt
   }
 }
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads) scatter_chunks_lane_kernel(const ScatterParams p) {
-  LaneSmem sm(p.C);
-  init_inverse(p, sm);
+  LaneSmem sm(p.C, kWide ? p.batch : kScatterBatch);
+  init_inverse<kWide>(p, sm);
   const int slots = p.counters[0];
   for (int s = blockIdx.x * kWarps + (threadIdx.x >> 5); s < slots; s += gridDim.x * kWarps) {
     const int2 rc = p.slot_row[s];
     const int2 r = run_of(p, rc.x);
     const int beg = r.x + rc.y * kScatterChunk;
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    lane_sum(p, sm, beg, min(r.y, beg + kScatterChunk), acc);
-    store_row(p.partial + static_cast<long long>(s) * p.width, p.width, acc);
+    each_block<kWide>(p.width, [&](int col0) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      lane_sum<kWide>(p, sm, beg, min(r.y, beg + kScatterChunk), col0, acc);
+      store_row(p.partial + static_cast<long long>(s) * p.width, p.width, col0, acc);
+    });
   }
 }
 
 // The row's slots in chunk order, a warp a row; 4 slots' loads in flight.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads) scatter_combine_lane_kernel(const ScatterParams p) {
   const int n = p.counters[1];
   const int lane = threadIdx.x & 31;
   for (int m = blockIdx.x * kWarps + (threadIdx.x >> 5); m < n; m += gridDim.x * kWarps) {
     const int4 lr = p.long_rows[m];
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int c = 0; c < lr.z; c += 4) {
-      float v[4][4];
+    each_block<kWide>(p.width, [&](int col0) {
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int c = 0; c < lr.z; c += 4) {
+        float v[4][4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float* src = p.partial + static_cast<long long>(lr.y + c + u) * p.width;
+        for (int u = 0; u < 4; ++u) {
+          const float* src = p.partial + static_cast<long long>(lr.y + c + u) * p.width + col0;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          v[u][j] = c + u < lr.z && lane + 32 * j < p.width ? src[lane + 32 * j] : 0.f;
+          for (int j = 0; j < 4; ++j)
+            v[u][j] = c + u < lr.z && col0 + lane + 32 * j < p.width ? src[lane + 32 * j] : 0.f;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (c + u < lr.z) acc[j] = __fadd_rn(acc[j], v[u][j]);
       }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (c + u < lr.z) acc[j] = __fadd_rn(acc[j], v[u][j]);
-    }
-    store_row(p.out + static_cast<long long>(lr.x) * p.width, p.width, acc);
+      store_row(p.out + static_cast<long long>(lr.x) * p.width, p.width, col0, acc);
+    });
   }
+}
+
+// The wide lane instances' batch (fetches a warp stages at once) and their
+// shared memory: kScatterBatch where that fits the default 48 KB, else the
+// most (a power of two) that does, else the most that fits the card's
+// opt-in maximum, which both wide kernels are then given. Returns 0, -2
+// where not even one fetch fits, or a cudaError_t.
+int lane_batch(int C, int width, int* batch, size_t* smem) {
+  constexpr size_t kDefault = 48 * 1024;
+  int b = kScatterBatch;
+  while (b > 1 && lane_smem_bytes(C, b, width) > kDefault) b /= 2;
+  *batch = b;
+  *smem = lane_smem_bytes(C, b, width);
+  if (*smem <= kDefault) return 0;
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  b = kScatterBatch;
+  while (b > 1 && lane_smem_bytes(C, b, width) > static_cast<size_t>(optin)) b /= 2;
+  *batch = b;
+  *smem = lane_smem_bytes(C, b, width);
+  if (*smem > static_cast<size_t>(optin)) return -2;
+  err = cudaFuncSetAttribute(scatter_rows_lane_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(*smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(scatter_chunks_lane_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(*smem));
+  return static_cast<int>(err);
 }
 
 int bit_length(long long v) {
@@ -898,14 +994,28 @@ cudaError_t radix_sort(const int* key, const void* first_vals, long long M, long
 
 extern "C" {
 
-// table (rows, width) f32 with width % 4 == 0 and a 16 B aligned base; idx
-// (n,) int32; out (n, width) f32. Returns 0 or a cudaError_t.
+// table (rows, width) f32, any width; idx (n,) int32; out (n, width) f32.
+// Where the width is a multiple of 4 and the table and out are 16 B
+// aligned, 16 B loads: a warp a row from 128 wide (the brick table's rows),
+// a thread a float4 below; else a thread a float. Returns 0 or a
+// cudaError_t.
 int nerf_gather_rows(const void* table, const void* idx, void* out, long long n,
                      long long rows, int width, void* stream) {
-  if (n <= 0) return 0;
-  gather_rows_kernel<<<grid_for(n, kWarps), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float4*>(table), static_cast<const int*>(idx),
-      static_cast<float4*>(out), n, rows, width / 4);
+  if (n <= 0 || width <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int* ix = static_cast<const int*>(idx);
+  const bool vec = width % 4 == 0 && reinterpret_cast<uintptr_t>(table) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (vec && width >= 128) {
+    gather_rows_kernel<<<grid_for(n, kWarps), kThreads, 0, st>>>(
+        static_cast<const float4*>(table), ix, static_cast<float4*>(out), n, rows, width / 4);
+  } else if (vec) {
+    gather_elems_kernel<float4><<<grid_for(n * (width / 4), kThreads), kThreads, 0, st>>>(
+        static_cast<const float4*>(table), ix, static_cast<float4*>(out), n, rows, width / 4);
+  } else {
+    gather_elems_kernel<float><<<grid_for(n * width, kThreads), kThreads, 0, st>>>(
+        static_cast<const float*>(table), ix, static_cast<float*>(out), n, rows, width);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -961,20 +1071,31 @@ int nerf_radix_sort(const void* key, long long M, long long rows, void* workspac
 }
 
 // out (rows, width) f32 (every row is written); g (M, C) f32; key (M,) int32; lane0 (M,)
-// int32 or null; lanes (C,) int32, distinct and < width; workspace of
-// nerf_scatter_workspace_bytes(M, rows, width, pair) bytes, g 8 B aligned.
-// Returns 0, a cudaError_t, or -1 for a width, C or rows the kernels do not
-// take.
-int nerf_scatter_rows(const void* g, const void* key, const void* lane0, const int* lanes, int C,
-                      long long M, long long rows, int width, void* workspace, void* out,
-                      void* stream) {
-  if (width < 1 || width > kMaxScatterWidth || C < 1 || C > kMaxScatterLanes || rows < 1)
-    return -1;
+// int32 or null; lanes (C,) int32, distinct and in [0, width), in host memory and
+// (lanes_dev) in device memory; workspace of nerf_scatter_workspace_bytes(M, rows,
+// width, pair) bytes, g 8 B aligned. Returns 0, a cudaError_t, -1 for a width, C,
+// lanes or rows the kernels do not take, or -2 where a warp's batch of one fetch
+// (its C values) and the row's inverse of lanes outgrow the card's shared memory.
+int nerf_scatter_rows(const void* g, const void* key, const void* lane0, const int* lanes,
+                      const void* lanes_dev, int C, long long M, long long rows, int width,
+                      void* workspace, void* out, void* stream) {
+  if (width < 1 || C < 1 || rows < 1 || lanes_dev == nullptr) return -1;
+  for (int c = 0; c < C; ++c)
+    if (lanes[c] < 0 || lanes[c] >= width) return -1;
   if (M <= 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bool pair = lane0 == nullptr && C == 2 && width == 2;  // the flat table's layout
   for (int c = 0; c < C; ++c)
     if (lanes[c] != c) pair = false;
+  // the narrow lane instances where a row and a batch of kScatterBatch
+  // fetches fit them within the default 48 KB, else the wide ones
+  int batch = kScatterBatch;
+  size_t smem = lane_smem_bytes(C, kScatterBatch, kColBlock);
+  const bool wide = !pair && (width > kColBlock || smem > 48 * 1024);
+  if (wide) {
+    int rc = lane_batch(C, width, &batch, &smem);
+    if (rc != 0) return rc;
+  }
   Workspace w;
   layout(M, rows, width, pair, static_cast<unsigned char*>(workspace), &w);
   ScatterParams p;
@@ -996,7 +1117,8 @@ int nerf_scatter_rows(const void* g, const void* key, const void* lane0, const i
   p.width = width;
   p.C = C;
   p.vec4 = C % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0;
-  for (int c = 0; c < kMaxScatterLanes; ++c) p.lanes[c] = c < C ? lanes[c] : 0;
+  p.batch = batch;
+  p.lanes = static_cast<const int*>(lanes_dev);
   p.ranges = w.ranges;
   p.counters = w.counters;
   p.slot_row = w.slot_row;
@@ -1008,11 +1130,14 @@ int nerf_scatter_rows(const void* g, const void* key, const void* lane0, const i
     scatter_rows_pair_kernel<<<grid_for(rows, kThreads), kThreads, 0, st>>>(p);
     scatter_chunks_pair_kernel<<<grid_for(slots, kThreads), kThreads, 0, st>>>(p);
     scatter_combine_pair_kernel<<<grid_for(M / 64 + 2, kThreads), kThreads, 0, st>>>(p);
+  } else if (wide) {
+    scatter_rows_lane_kernel<true><<<grid_for(rows, kWarps), kThreads, smem, st>>>(p);
+    scatter_chunks_lane_kernel<true><<<grid_for(slots, kWarps), kThreads, smem, st>>>(p);
+    scatter_combine_lane_kernel<true><<<grid_for(M / 64 + 2, kWarps), kThreads, 0, st>>>(p);
   } else {
-    const size_t smem = lane_smem_bytes(C);
-    scatter_rows_lane_kernel<<<grid_for(rows, kWarps), kThreads, smem, st>>>(p);
-    scatter_chunks_lane_kernel<<<grid_for(slots, kWarps), kThreads, smem, st>>>(p);
-    scatter_combine_lane_kernel<<<grid_for(M / 64 + 2, kWarps), kThreads, 0, st>>>(p);
+    scatter_rows_lane_kernel<false><<<grid_for(rows, kWarps), kThreads, smem, st>>>(p);
+    scatter_chunks_lane_kernel<false><<<grid_for(slots, kWarps), kThreads, smem, st>>>(p);
+    scatter_combine_lane_kernel<false><<<grid_for(M / 64 + 2, kWarps), kThreads, 0, st>>>(p);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -69,9 +69,11 @@ KERNEL_TOL = {"enc": 1e-5, "d_lines": 1e-5}
 # CTA holds the taps of the levels it walks: where those of every level do
 # not fit beside its channel tiles (20 levels at 6 tiles; past MMA_RUN_LEVELS
 # at one) the backward launches one run of levels at a time (``level_run``).
-# A geometry may have MAX_LEVELS
-# levels: the per-level arrays ride in the kernels' 4 KB of launch
-# parameters.
+# The kernels read the levels' resolutions and first rows from a device
+# table (``build.device_table``, one per geometry and device), not from their
+# launch parameters, so a geometry may have any number of levels up to
+# FWD_MAX_LEVELS: the forward keeps two buffers of a tile's taps and the level
+# table in shared memory, and those of one point, 80 bytes a level, must fit a CTA.
 MMA_WARPS = 16
 MMA_BLOCKS = 2
 MMA_MAX_TILES = 6
@@ -79,7 +81,7 @@ TILE_POINTS = 256
 WALK_POINTS = 64
 WALK_CTAS = 44
 _SMEM = 232448  # what one CTA can have on sm_90
-MAX_LEVELS = 256
+FWD_MAX_LEVELS = _SMEM // 80
 MMA_RUN_LEVELS = 47
 
 
@@ -206,9 +208,10 @@ def warp_blocks(slab: int, warp: int, slabs: int, sum_r: int) -> list:
 
 
 _ERRORS = {
-    -2: f"fac_levels above {MAX_LEVELS}: the per-level arrays ride in the kernels' 4 KB of "
-        f"launch parameters (csrc/fused_factored.cu kMaxLevels)",
+    -2: "fac_levels must be at least 1",
     -4: "every resolution must be at least 1",
+    -5: f"fac_levels above {FWD_MAX_LEVELS}: two buffers of one point's taps at every level "
+        f"and the level table outgrow a CTA's shared memory",
 }
 
 
@@ -239,21 +242,33 @@ def _check_cuda(tensors, dev) -> None:
 
 @functools.lru_cache(maxsize=64)
 def _geometry(levels: int, base_res: int, max_res: int, comps: int, aabb: float):
-    """The C arguments of a geometry, built once per geometry: a call's
-    host time is on the card's critical path when the kernel is short."""
-    res = fac_resolutions(ModelConfig(arch="factored", fac_levels=levels, fac_base_res=base_res,
-                                      fac_max_res=max_res, fac_comps=comps))
-    return (ctypes.c_int * len(res))(*res), len(res), comps, float(aabb), 2.0 * float(aabb)
+    """A geometry's resolutions, as a tuple and as a C array, and the
+    values of the kernels' level table (csrc/fused_factored.cu
+    ``init_geometry``: the L resolutions, then each level's first knot row
+    and the rows in all), built once per geometry: a call's host time is on
+    the card's critical path when the kernel is short."""
+    res = tuple(fac_resolutions(ModelConfig(arch="factored", fac_levels=levels,
+                                            fac_base_res=base_res, fac_max_res=max_res,
+                                            fac_comps=comps)))
+    off = [0]
+    for r in res:
+        off.append(off[-1] + r + 1)
+    return res, (ctypes.c_int * len(res))(*res), res + tuple(off)
 
 
 def _launch_args(lines: torch.Tensor, cfg: ModelConfig, dtype):
     """The kernels' line operand (bf16 under a bf16 ``dtype``, as the JAX
-    wrapper casts it) and the C arguments of the geometry."""
+    wrapper casts it) and the C arguments of the geometry: its resolutions
+    on the host and its device table, L, C, aabb, 2 aabb, bf16."""
     operand = lines.to(torch.bfloat16).contiguous() if _bf16(dtype) else lines
     if operand.device.type == "cuda" and operand.data_ptr() % 16:
         operand = operand.clone()  # the forward's vector loads start on 16 B
-    return (operand, *_geometry(cfg.fac_levels, cfg.fac_base_res, cfg.fac_max_res,
-                                cfg.fac_comps, cfg.fac_aabb), int(_bf16(dtype)))
+    res, c_res, table = _geometry(cfg.fac_levels, cfg.fac_base_res, cfg.fac_max_res,
+                                  cfg.fac_comps, cfg.fac_aabb)
+    aabb = float(cfg.fac_aabb)
+    return (operand, c_res, build.device_table(table, operand.device, torch.int32).data_ptr(),
+            len(res),
+            cfg.fac_comps, aabb, 2.0 * aabb, int(_bf16(dtype)))
 
 
 def _raise_on(rc: int, lib, what: str) -> None:
@@ -309,7 +324,7 @@ def fused_factored_encode_backward(lines: torch.Tensor, points: torch.Tensor, g:
         g = g.clone()  # the d_feat kernel's vector loads start on 16 B
     n = points.shape[0]
     d_lines = torch.empty(lines.shape, device=dev)
-    operand, res, L, C, aabb, two_aabb, bf16 = _launch_args(lines, cfg, dtype)
+    operand, res, levels, L, C, aabb, two_aabb, bf16 = _launch_args(lines, cfg, dtype)
     lib = _library()
     # d_feat and the per-CTA partial tables; freed on return while the
     # kernels may still run, which is safe: the caching allocator hands the
@@ -320,7 +335,7 @@ def fused_factored_encode_backward(lines: torch.Tensor, points: torch.Tensor, g:
     scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     rc = lib.nerf_factored_encode_bwd(
         points.data_ptr(), operand.data_ptr(), g.data_ptr(), d_lines.data_ptr(),
-        scratch.data_ptr(), n, res, L, C, aabb, two_aabb, bf16,
+        scratch.data_ptr(), n, res, levels, L, C, aabb, two_aabb, bf16,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, lib, "backward")
     fused_factored_encode_backward.launches += 1
@@ -343,14 +358,14 @@ def fused_factored_dfeat(lines: torch.Tensor, points: torch.Tensor, g: torch.Ten
     if g.data_ptr() % 16:
         g = g.clone()
     n = points.shape[0]
-    operand, res, L, C, aabb, two_aabb, bf16 = _launch_args(lines, cfg, dtype)
+    operand, res, levels, L, C, aabb, two_aabb, bf16 = _launch_args(lines, cfg, dtype)
     lib = _library()
     plan = (ctypes.c_int * 6)()
     lib.nerf_factored_bwd_plan(n, basis_dim(cfg), C, bf16, 1, plan)
     stride = plan[0]
     d = torch.empty(3, n, stride, dtype=torch.bfloat16 if bf16 else torch.float32, device=dev)
     rc = lib.nerf_factored_dfeat(points.data_ptr(), operand.data_ptr(), g.data_ptr(), d.data_ptr(),
-                                 n, res, L, C, aabb, two_aabb, bf16, stride,
+                                 n, res, levels, L, C, aabb, two_aabb, bf16, stride,
                                  torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, lib, "d_feat")
     return d
@@ -396,10 +411,10 @@ def _library() -> ctypes.CDLL:
     if fwd.argtypes is None:
         vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
         pres = ctypes.POINTER(i32)
-        fwd.argtypes = [vp] * 3 + [i64, pres, i32, i32, f32, f32, i32, vp]
+        fwd.argtypes = [vp] * 3 + [i64, pres, vp, i32, i32, f32, f32, i32, vp]
         fwd.restype = i32
         bwd = lib.nerf_factored_encode_bwd
-        bwd.argtypes = [vp] * 5 + [i64, pres, i32, i32, f32, f32, i32, vp]
+        bwd.argtypes = [vp] * 5 + [i64, pres, vp, i32, i32, f32, f32, i32, vp]
         bwd.restype = i32
         staged = lib.nerf_factored_fwd_staged_levels
         staged.argtypes = [pres, i32, i32, i32]
@@ -411,7 +426,7 @@ def _library() -> ctypes.CDLL:
         plan.argtypes = [i64, i32, i32, i32, i32, pres]
         plan.restype = None
         dfeat = lib.nerf_factored_dfeat
-        dfeat.argtypes = [vp] * 4 + [i64, pres, i32, i32, f32, f32, i32, i32, vp]
+        dfeat.argtypes = [vp] * 4 + [i64, pres, vp, i32, i32, f32, f32, i32, i32, vp]
         dfeat.restype = i32
         lib.nerf_cuda_error_string.argtypes = [i32]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p

@@ -42,13 +42,12 @@ K1_CLUSTER = 2  # K1's CTAs per cluster, each weight slice shared (kCluster in c
 
 _SHAPE_ERRORS = {
     -1: "padded num_samples must divide 128, or be 192 or a multiple of 128",
-    -2: "the packed weights do not match the kernel's layer list (net_depth up to 123)",
+    -2: "the packed weights do not match the kernel's layer list",
     -3: "packed layer widths and padded encodings must be multiples of 16 (pack_weights pads "
         "every width to one)",
     -4: "the encoding does not fit its padded width",
-    -5: "the CTA's layout needs more shared memory than the card gives a block: its padded "
-        "encodings and the rays it takes (a width takes none past 256, where the wide "
-        "instances keep the activations in device memory)",
+    -5: "the CTA's layout needs more shared memory than the card gives a block, even the "
+        "wide instance's (which keeps the activations and encodings in device memory)",
     -6: "sigma_activation must be relu or softplus",
     -7: "radii must come with cfg.ipe and only with it",
     -8: "contract must be 0 or 1",
@@ -188,7 +187,9 @@ def fused_ray_render(
     samples, or where a CTA's per-sample values do not fit beside its tiles,
     the kernel's streamed instance composites pass by pass). Any widths
     (``pack_weights`` pads them to multiples of 16; past 256 the kernel's
-    wide instance runs on a scratch of activations). Launches
+    wide instance runs on a scratch of activations), any depth and any
+    encoding (where no wgmma layout fits the encodings, the wide instance
+    runs too). Launches
     on the current stream without synchronising.
     """
     _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples, radii)
@@ -214,27 +215,27 @@ def fused_ray_render(
     sigma = torch.empty(n, S, device=dev)
     lib = _library()
     # the wgmma instances read K1's own layout; the wide instance, which the
-    # kernel takes where it asks for a scratch of activations, the packed
-    # weights' (K2's)
+    # kernel takes where it asks for a scratch (past width 256, or where no
+    # wgmma layout fits the encodings), the packed weights' (K2's)
     nbytes = lib.nerf_fused_ray_scratch_bytes(n, S, packed.W, packed.F, packed.V,
                                               packed.P, packed.D)
     if nbytes < 0:
         raise ValueError(f"fused_ray kernel refused the call: {_SHAPE_ERRORS[-1]}"
                          if nbytes == -1 else f"CUDA error {-nbytes} sizing the scratch")
     if nbytes > 0:
-        kw, kw_off, kb = packed.w, packed.w_off, None
+        kw, kw_off, offsets, kb = packed.w, packed.w_off, packed.offsets, None
         scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     else:
         k1 = packed.k1
-        kw, kw_off, kb, scratch = k1.w, k1.w_off, k1.b.data_ptr(), None
-    w_off = (ctypes.c_longlong * len(kw_off))(*kw_off)
-    b_off = (ctypes.c_longlong * len(packed.b_off))(*packed.b_off)
+        kw, kw_off, offsets, kb, scratch = k1.w, k1.w_off, packed.k1_offsets, k1.b.data_ptr(), None
+    i64 = ctypes.c_longlong
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.nerf_fused_ray_render(
         origins.data_ptr(), dirs.data_ptr(), viewdirs.data_ptr(), ts_p.data_ptr(),
         dl_p.data_ptr(), None if radii is None else radii.data_ptr(),
         kw.data_ptr(), packed.b.data_ptr(), kb,
-        w_off, len(kw_off), b_off, len(packed.b_off),
+        offsets.data_ptr(), len(packed.w_off), len(packed.b_off),
+        (i64 * len(kw_off))(*kw_off), (i64 * len(packed.b_off))(*packed.b_off),
         rgb.data_ptr(), acc.data_ptr(), depth.data_ptr(), w.data_ptr(),
         sigma.data_ptr(), n, S, packed.depth, packed.skip_layer, packed.W,
         packed.F, packed.V, packed.P, packed.D, packed.pos_levels,
@@ -261,8 +262,7 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = (
-            [vp] * 9
-            + [ctypes.POINTER(i64), i32, ctypes.POINTER(i64), i32]
+            [vp] * 10 + [i32, i32, ctypes.POINTER(i64), ctypes.POINTER(i64)]
             + [vp] * 5
             + [i64] + [i32] * 13
             + [vp, vp]
@@ -286,18 +286,25 @@ def fused_ray_render_reference(
     cfg: ModelConfig,
     num_samples: int,
     radii: Optional[torch.Tensor] = None,
+    *,
+    dtype: torch.dtype = torch.float32,
 ) -> Out:
     """The kernel's plain PyTorch version, with its numerics: bf16
     operands, f32 products and sums (bf16 x bf16 products are exact in
     f32), f32 bias and relu, then rounding to bf16 between layers; f32
     encodings (PE, or IPE from ``ipe_expand``, after the contraction with
     ``cfg.contract``) and compositing. On CUDA it needs full-f32 matmuls
-    (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    (``torch.backends.cuda.matmul.allow_tf32 = False``).
+
+    ``dtype=torch.float64`` keeps every bf16 rounding point (and the f32
+    encoding) but multiplies, sums and composites in float64: a witness of
+    how far f32 summation order alone moves the result, as
+    ``fused_train_grads_reference``'s."""
     _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples, radii)
     n, S = ts.shape
     bf = torch.bfloat16
-    mats = [m.float() for m in packed.matrices()]
-    bias = packed.biases()
+    mats = [m.to(dtype) for m in packed.matrices()]
+    bias = [b.to(dtype) for b in packed.biases()]
     depth, skip, Fw = packed.depth, packed.skip_layer, packed.F
 
     x = encode_samples(packed, origins, dirs, ts, deltas, radii, cfg.contract).to(bf)
@@ -305,7 +312,7 @@ def fused_ray_render_reference(
     dv = dv.repeat_interleave(S, dim=0)
 
     def mm(a, w):
-        return a.float() @ w
+        return a.to(dtype) @ w
 
     h = x
     for i in range(depth):

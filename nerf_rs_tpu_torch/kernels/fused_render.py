@@ -44,6 +44,13 @@ two from 16 (``k1_width``; the rgb head keeps its 8, and [feature | sigma]
 pads the feature block, sigma's 8 columns after it): no preset pads. A field
 wider than 256 runs K1's wide instance, which multiplies by
 ``PackedWeights.w`` as K2 does (the kernel decides: ``fused_ray_render``).
+
+The kernels read the matrices' and biases' offsets from a small int64
+table in device memory (``build.device_table``; ``PackedWeights.offsets``,
+``.k1_offsets``, ``PackedWeightsT.offsets``), not from their launch
+parameters, so a field of any depth launches. A table depends on the
+layout only: it is copied to the card once per layout and device, and a
+step that packs new weights of the same layout adds no copy.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from ..models.encoding import integrated_posenc, posenc
 # _contract_gaussian) are ops/contract's functions: they take the device
 # functions' steps in the same order
 from ..ops.contract import contract as contract_points, contract_gaussian  # noqa: F401
+from . import build
 
 
 def _round_up(x: int, m: int) -> int:
@@ -165,6 +173,18 @@ class PackedWeights:
         """The same matrices in the render kernel's layout, packed on first
         use (``pack_weights_k1``)."""
         return pack_weights_k1(self)
+
+    @functools.cached_property
+    def offsets(self) -> torch.Tensor:
+        """``w_off`` then ``b_off`` on the weights' device (``build.device_table``):
+        K2's table, and K1's wide instance's."""
+        return build.device_table(self.w_off + self.b_off, self.w.device, torch.int64)
+
+    @functools.cached_property
+    def k1_offsets(self) -> torch.Tensor:
+        """``k1.w_off`` then ``b_off`` on the weights' device: the wgmma
+        instances' table."""
+        return build.device_table(self.k1.w_off + self.b_off, self.w.device, torch.int64)
 
 
 def _swizzle(w: torch.Tensor) -> torch.Tensor:
@@ -338,6 +358,11 @@ class PackedWeightsT:
     w_off: Tuple[int, ...]
     w_shape: Tuple[Tuple[int, int], ...]
     sigma_row: torch.Tensor  # (padded W,) f32: the sigma head's bf16 column, 0 on the pads
+
+    @functools.cached_property
+    def offsets(self) -> torch.Tensor:
+        """``w_off`` on the weights' device (``build.device_table``)."""
+        return build.device_table(self.w_off, self.w.device, torch.int64)
 
     def matrices(self) -> List[torch.Tensor]:
         """The (K, N) bf16 matrices in kernel order, un-swizzled."""

@@ -199,7 +199,9 @@ def fused_train_grads(
     ``fused_train_grads.launches`` counts each block's launch: a call
     within ``BLOCK_ROWS`` and ``BLOCK_BYTES`` adds 1. Any widths
     (``pack_weights`` pads them to multiples of 16; past 256 the kernels'
-    wide instance keeps its activations in the stashes).
+    wide instance keeps its activations in the stashes), any depth and any
+    encoding (where even the streamed layout does not fit the encodings,
+    the wide instance runs too).
     """
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
                  num_samples, radii)
@@ -250,8 +252,9 @@ def fused_train_grads(
             _row(origins, lo), _row(dirs, lo), _row(viewdirs, lo), _row(ts_p, lo),
             _row(dl_p, lo), None if radii is None else _row(radii, lo), _row(gold, lo),
             packed.w.data_ptr(), packed.b.data_ptr(),
-            w_off, len(packed.w_off), b_off, len(packed.b_off),
-            packed_t.w.data_ptr(), wt_off, len(packed_t.w_off), packed_t.sigma_row.data_ptr(),
+            w_off, len(packed.w_off), b_off, len(packed.b_off), packed.offsets.data_ptr(),
+            packed_t.w.data_ptr(), wt_off, packed_t.offsets.data_ptr(), len(packed_t.w_off),
+            packed_t.sigma_row.data_ptr(),
             _row(diag, lo), _row(w, lo), out.data_ptr(), scratch.data_ptr(),
             hi - lo, S, packed.depth, packed.skip_layer, packed.W, packed.F, packed.V,
             packed.P, packed.D, packed.pos_levels, packed.dir_levels,
@@ -287,7 +290,7 @@ def _library() -> ctypes.CDLL:
         p64 = ctypes.POINTER(i64)
         fn.argtypes = (
             [vp] * 9 + [p64, i32, p64, i32]
-            + [vp, p64, i32, vp]
+            + [vp, vp, p64, vp, i32, vp]
             + [vp] * 4
             + [i64] + [i32] * 13 + [ctypes.c_float, i32] + [ctypes.c_float] * 3 + [i32, vp]
         )

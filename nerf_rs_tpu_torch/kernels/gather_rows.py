@@ -4,7 +4,8 @@
 fidx)`` the adjacent element pairs ``table_flat[fidx]``,
 ``table_flat[fidx + 1]``. They are the hash-grid field's table fetch
 (``models/hashgrid.py``): the brick layout's one 128-wide row per (point,
-level), and the flat layout's F = 2 features per (point, level, corner).
+level), and the flat layout's F features per (point, level, corner): pairs
+at F = 2, rows of any other width through ``gather_rows``.
 
 Each wrapper launches the CUDA kernel (``csrc/gather_rows.cu``) for CUDA
 tensors and runs its plain PyTorch version (``gather_rows_reference``,
@@ -14,10 +15,12 @@ port's contract is its own, not the TPU's: any N, ragged or 0, and no
 the kernel and the plain version give the same bits.
 
 The wrappers refuse what the kernel does not take: another device than the
-CPU or CUDA, a table that is not contiguous f32 (on the card also one whose
-base is not aligned for the kernel's vector loads), a width that is not a
-multiple of 4, and indices that are not contiguous int32 on the table's
-device (on the card, pair indices also start on a 16-byte boundary). An
+CPU or CUDA, a table that is not contiguous f32 (on the card a pair table
+must also start on an 8-byte boundary), and indices that are not contiguous
+int32 on the table's device (on the card, pair indices also start on a
+16-byte boundary). ``gather_rows`` takes any row width: the kernel reads 16
+bytes at a time where the width is a multiple of 4 and the table is 16-byte
+aligned, and a float at a time elsewhere. An
 index outside the table gives a NaN row (or pair) on either device, and so
 does an odd pair index (a pair starts on an even element): the kernel never
 reads outside the table, and the wrappers never read the indices, so a call
@@ -68,13 +71,11 @@ def _check_idx(idx: torch.Tensor, table: torch.Tensor, name: str) -> None:
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``table[idx]``: table (R, W) f32 with W % 4 == 0, idx (N,) int32 ->
+    """``table[idx]``: table (R, W) f32 of any width, idx (N,) int32 ->
     (N, W) f32. Launches the kernel for CUDA tensors (counted in
     ``gather_rows.launches``), on the current stream without
     synchronising; runs the plain version for CPU tensors."""
-    _check_table(table, 2, 16)
-    if table.shape[1] % 4:
-        raise ValueError(f"row width {table.shape[1]} is not a multiple of 4")
+    _check_table(table, 2, 4)
     _check_idx(idx, table, "idx")
     if table.device.type == "cpu":
         return gather_rows_reference(table, idx)
@@ -182,16 +183,20 @@ def scatter_rows(g: torch.Tensor, key: torch.Tensor, lane0: Optional[torch.Tenso
     lane0[j] + lanes[c]] += g[j, c], summed in a fixed order: per element,
     the fetches of each chunk of SCATTER_CHUNK fetches of its row in fetch
     order, then the chunks in order; keys outside the table are skipped.
-    ``key`` and ``lane0`` are (M,) int32, M < 2^31; width <= 128, C <= 32,
-    and the columns of one fetch distinct and inside the row. Launches the
-    kernels for CUDA tensors (counted once per call in
-    ``scatter_rows.launches``), on the current stream without
-    synchronising; runs the plain version for CPU tensors."""
+    ``key`` and ``lane0`` are (M,) int32, M < 2^31; ``lanes`` C distinct
+    columns in [0, width), and a fetch's columns inside the row. Any C and
+    width (on the card, as far as one fetch's C values and the row's width
+    fit a block's shared memory: C up to ~7,000). Launches the kernels for
+    CUDA tensors (counted once per call in ``scatter_rows.launches``), on
+    the current stream without synchronising; runs the plain version for CPU
+    tensors."""
     rows_n, width = shape
     M, C = g.shape
-    if len(lanes) != C or not 0 < C <= 32 or not 0 < width <= 128 or max(lanes) >= width:
-        raise ValueError(f"{C} lanes {tuple(lanes)} of a {width}-wide row: the kernel takes "
-                         f"C <= 32 distinct lanes inside a row of width <= 128")
+    lanes = tuple(int(c) for c in lanes)
+    if (len(lanes) != C or C < 1 or width < 1 or len(set(lanes)) != C
+            or not all(0 <= c < width for c in lanes)):
+        raise ValueError(f"{C} lanes {lanes} of a {width}-wide row: the kernel takes C >= 1 "
+                         f"distinct lanes inside the row")
     for name, a in (("key", key), ("lane0", lane0)):
         if a is not None and (a.shape != (M,) or a.dtype != torch.int32 or a.device != g.device
                               or not a.is_contiguous()):
@@ -216,10 +221,14 @@ def scatter_rows(g: torch.Tensor, key: torch.Tensor, lane0: Optional[torch.Tenso
                        dtype=torch.uint8, device=g.device)
     rc = lib.nerf_scatter_rows(g.data_ptr(), key.data_ptr(),
                                None if lane0 is None else lane0.data_ptr(),
-                               (ctypes.c_int * C)(*lanes), C, M, rows_n, width, work.data_ptr(),
-                               out.data_ptr(), torch.cuda.current_stream(g.device).cuda_stream)
-    if rc < 0:
-        raise ValueError("scatter_rows kernel refused the call: width or C out of range")
+                               (ctypes.c_int * C)(*lanes), build.device_table(lanes, g.device, torch.int32).data_ptr(),
+                               C, M, rows_n, width, work.data_ptr(), out.data_ptr(),
+                               torch.cuda.current_stream(g.device).cuda_stream)
+    if rc == -1:
+        raise ValueError("scatter_rows kernel refused the call: width, C or lanes out of range")
+    if rc == -2:
+        raise ValueError(f"scatter_rows kernel refused the call: one fetch's {C} values and a "
+                         f"{width}-wide row's inverse of lanes outgrow a block's shared memory")
     _raise_on(rc, lib, "scatter_rows")
     scatter_rows.launches += 1
     return out
@@ -326,8 +335,8 @@ def _library() -> ctypes.CDLL:
         lib.nerf_scatter_workspace_bytes.restype = i64
         lib.nerf_radix_sort.argtypes = [vp, i64, i64, vp, vp, vp, vp]
         lib.nerf_radix_sort.restype = i32
-        lib.nerf_scatter_rows.argtypes = [vp, vp, vp, ctypes.POINTER(i32), i32, i64, i64, i32,
-                                          vp, vp, vp]
+        lib.nerf_scatter_rows.argtypes = [vp, vp, vp, ctypes.POINTER(i32), vp, i32, i64, i64,
+                                          i32, vp, vp, vp]
         lib.nerf_scatter_rows.restype = i32
         lib.nerf_cuda_error_string.argtypes = [i32]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p

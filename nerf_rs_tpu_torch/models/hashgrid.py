@@ -15,7 +15,8 @@ has the resolution ``level_resolutions(cfg)[l]``; a level whose grid fits
 its block of the table is indexed densely, the others through the spatial
 hash of ``_PRIMES``. Two table layouts, as in the JAX package:
   * flat (``hash_encode``): (L T, F) entries, the 8 trilinear corners of a
-    (point, level) fetched as F = 2 pairs through K4's ``gather_pairs``;
+    (point, level) fetched as F = 2 pairs through K4's ``gather_pairs``, or
+    as rows of any other F through K4's ``gather_rows``;
   * brick (``brick_encode``, ``--preset ngp``): (L Tb, 128) rows, each a
     4^3-vertex brick of F = 2 features, one row per (point, level) through
     K4's ``gather_rows``, the 8 corners then picked from its lanes.
@@ -187,6 +188,28 @@ class _PairFetch(torch.autograd.Function):
         return scatter_rows(g.float().contiguous(), fidx // 2, None, (0, 1), ctx.shape), None
 
 
+class _RowFetch(torch.autograd.Function):
+    """(L T, F) table, (M,) row indices -> (M, F) rows through
+    ``gather_rows`` (the flat layout at F != 2); the backward sums the
+    cotangents into those rows at lanes 0..F-1 (``scatter_rows``)."""
+
+    @staticmethod
+    def forward(ctx, table, ridx):
+        from ..kernels.gather_rows import gather_rows
+
+        ctx.save_for_backward(ridx)
+        ctx.shape = table.shape
+        return gather_rows(table, ridx)
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..kernels.gather_rows import scatter_rows
+
+        (ridx,) = ctx.saved_tensors
+        return (scatter_rows(g.float().contiguous(), ridx, None, tuple(range(ctx.shape[1])),
+                             ctx.shape), None)
+
+
 # lane of corner c's feature f in a brick row, less the point's base lane
 # ((o_x 4 + o_y) 4 + o_z) 2: ((dx 4 + dy) 4 + dz) 2 + f, in (corner, feature) order
 _CORNER_LANES = [((dx * 4 + dy) * 4 + dz) * 2 + f for dx, dy, dz in _CORNERS for f in (0, 1)]
@@ -253,17 +276,16 @@ def _trilinear(fr: torch.Tensor) -> torch.Tensor:
 def hash_encode(table: torch.Tensor, points: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Flat layout: (..., 3) world points -> (..., L F) f32 features, the
     trilinear sum over each level's 8 grid vertices, fetched as F = 2 pairs
-    through K4's ``gather_pairs``. Differentiable in the table.
+    through K4's ``gather_pairs``, or at any other F as whole (F,) rows
+    through K4's ``gather_rows``. Differentiable in the table.
 
     A point on the far face (u = 1) has floor(u res) = res, so its upper
     corners sit at res + 1 with weight 0; on a dense level their flat
     index runs past the level's grid into the next level's block, as in
-    the JAX package. Past the table's end it is clamped to the last pair
+    the JAX package. Past the table's end it is clamped to the last entry
     (where ``jnp.take`` would fill NaN and the JAX encoding turns NaN): the
     value is multiplied by 0 and never read outside the table."""
     L, Fe = cfg.hash_levels, cfg.hash_features
-    if Fe != 2:
-        raise ValueError(f"the flat fetch is gather_pairs: needs hash_features=2, got {Fe}")
     _check_int32(table)
     T = 1 << cfg.hash_table_log2
     lead = points.shape[:-1]
@@ -277,9 +299,12 @@ def hash_encode(table: torch.Tensor, points: torch.Tensor, cfg: ModelConfig) -> 
     dense = ((res_i + 1) ** 3 <= T)[None, :, None, None, None]
     entry = _index(c[:, :, 0, :, None, None], c[:, :, 1, None, :, None],
                    c[:, :, 2, None, None, :], side, dense, T)  # (N, L, 2, 2, 2)
-    fidx = (entry + (lv * T)[None, :, None, None, None]) * Fe
-    fidx = fidx.clamp_max(table.numel() - Fe).to(torch.int32).reshape(-1)
-    vals = _PairFetch.apply(table, fidx).view(*fr.shape[:2], 8, Fe)
+    ridx = (entry + (lv * T)[None, :, None, None, None]).clamp_max(table.shape[0] - 1)
+    if Fe == 2:
+        vals = _PairFetch.apply(table, (ridx * Fe).to(torch.int32).reshape(-1))
+    else:
+        vals = _RowFetch.apply(table, ridx.to(torch.int32).reshape(-1))
+    vals = vals.view(*fr.shape[:2], 8, Fe)
     enc = (vals * _trilinear(fr)[..., None]).sum(2)  # (N, L, F)
     return enc.reshape(*lead, L * Fe)
 

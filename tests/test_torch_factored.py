@@ -310,20 +310,22 @@ def test_kernel_plain_version_matches_jax_kernel_past_the_former_caps(geometry, 
     (dict(fac_levels=2, fac_base_res=2600, fac_max_res=5000, fac_comps=8),
      {"fwd": 0, "bf16": 0, "f32": 0}),
     (dict(fac_levels=1, fac_base_res=60000, fac_comps=4), {"fwd": 0, "bf16": 0, "f32": 0}),
-    (dict(fac_levels=257, fac_comps=8), {"fwd": -2, "bf16": -2, "f32": -2}),
+    (dict(fac_levels=257, fac_comps=8), {"fwd": 0, "bf16": 0, "f32": 0}),
+    (dict(fac_levels=300, fac_comps=8), {"fwd": 0, "bf16": 0, "f32": 0}),
 ])
 def test_kernels_refuse_only_what_they_cannot_hold(kw, code):
-    """What stays refused on the card, by its ``_ERRORS`` code (the CUDA
-    test test_factored_wrappers_refuse_what_the_kernels_do_not_take drives
-    the kernels into it): more than MAX_LEVELS = 256 levels (-2: the
-    per-level arrays ride in the kernels' 4 KB of launch parameters). Since
-    fault 7's repair 48 levels are taken (the tensor-core scatter walks
-    runs of levels) and so is an f32 level of 60,001 knots (the f32
-    scatter cuts it into runs of rows), as a per-axis table larger than a
-    CTA (2 levels of 2,601 and 5,001 knots) already was. The wrappers on
-    CPU tensors run the plain versions, which take every geometry: forward
-    and backward, under both dtypes, agree with the dense hat product's
-    form."""
+    """What the card takes, by its ``_ERRORS`` code (the CUDA test
+    test_factored_kernels_take_any_level_count drives the kernels there).
+    Since fault 15's repair the per-level arrays lie in a device table, not
+    in the launch parameters, so 257 and 300 levels are taken (they were
+    refused with -2 past 256); only more levels than the forward's tap
+    buffers hold (FWD_MAX_LEVELS, code -5) stay refused. Since fault 7's
+    repair 48 levels are taken (the tensor-core scatter walks runs of
+    levels) and so is an f32 level of 60,001 knots (the f32 scatter cuts it
+    into runs of rows), as a per-axis table larger than a CTA (2 levels of
+    2,601 and 5,001 knots) already was. The wrappers on CPU tensors run the
+    plain versions, which take every geometry: forward and backward, under
+    both dtypes, agree with the dense hat product's form."""
     cfg = ModelConfig(arch="factored", **kw)
     assert set(code.values()) <= {0, *k3._ERRORS}
     lines = torch.from_numpy(_lines(cfg, seed=8))

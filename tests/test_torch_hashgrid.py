@@ -111,6 +111,23 @@ def test_gathers_take_any_n(n):
     np.testing.assert_array_equal(pairs.numpy(), flat.reshape(-1, 2)[idx])
 
 
+@pytest.mark.parametrize("width", [1, 3, 160])
+def test_gather_rows_takes_any_width(width):
+    """Rows of any width (the flat hash table's F features; the card reads
+    a float at a time where W % 4 != 0): the plain version is ``table[idx]``
+    bit for bit, NaN rows for indices outside the table, as the JAX
+    package's ``jnp.take`` of rows gives the rows inside."""
+    rng = np.random.default_rng(width)
+    table = rng.normal(size=(97, width)).astype(np.float32)
+    idx = rng.integers(-3, 100, 301).astype(np.int32)
+    got = k4.gather_rows(torch.from_numpy(table), torch.from_numpy(idx)).numpy()
+    inside = (idx >= 0) & (idx < 97)
+    assert got.shape == (301, width) and np.isnan(got[~inside]).all()
+    np.testing.assert_array_equal(got[inside], table[idx[inside]])
+    np.testing.assert_array_equal(
+        got[inside], np.asarray(jnp.take(jnp.asarray(table), jnp.asarray(idx[inside]), axis=0)))
+
+
 def test_indices_outside_the_table_give_nan():
     """What the kernel writes for them, without reading outside the table."""
     table = torch.arange(40, dtype=torch.float32).reshape(10, 4)
@@ -142,7 +159,7 @@ _IDX = torch.zeros(4, dtype=torch.int32)
 @pytest.mark.parametrize("call,match", [
     (lambda: k4.gather_rows(_TABLE.double(), _IDX), "f32"),
     (lambda: k4.gather_rows(torch.zeros(8, 256)[:, ::2], _IDX), "contiguous"),
-    (lambda: k4.gather_rows(torch.zeros(8, 6), _IDX), "multiple of 4"),
+    (lambda: k4.gather_rows(torch.zeros(8), _IDX), "2-D"),
     (lambda: k4.gather_rows(_TABLE, _IDX.long()), "int32"),
     (lambda: k4.gather_rows(_TABLE, torch.zeros(8, dtype=torch.int32)[::2]), "contiguous"),
     (lambda: k4.gather_rows(_TABLE, _IDX[None]), "1-D"),
@@ -495,11 +512,46 @@ def test_render_chunk_matches_jax():
 
 
 def test_brick_needs_two_features():
-    cfg = dataclasses.replace(SMALL, hash_features=4)
-    for layout in ("flat", "brick"):
-        c = _cfg(cfg, layout)
-        with pytest.raises(ValueError, match="hash_features=2"):
-            _encode(c)(torch.zeros(hg.table_shape(c)), torch.zeros(4, 3), c)
+    """The brick layout packs 64 vertices x F = 2 into one 128-lane row and
+    refuses any other F, as the JAX package does; the flat layout takes any
+    F (test_flat_encode_takes_any_feature_count)."""
+    c = _cfg(dataclasses.replace(SMALL, hash_features=4), "brick")
+    with pytest.raises(ValueError, match="hash_features=2"):
+        _encode(c)(torch.zeros(hg.table_shape(c)), torch.zeros(4, 3), c)
+
+
+@pytest.mark.parametrize("features", [1, 3, 4, 8])
+def test_flat_encode_takes_any_feature_count(features, monkeypatch):
+    """The flat layout at F != 2 (refused until fault 16's repair, which the
+    JAX package never refused) fetches whole (F,) rows through K4's
+    gather_rows and sums the table gradient through scatter_rows at lanes
+    0..F-1 (their plain versions here; gather_pairs is not called): the
+    encode and d sum(enc * g) / d table against the JAX package's
+    hash_encode and its jax.vjp at the small widths, rtol 1e-5 with an
+    absolute floor of 1e-6 (encode) and 1e-5 (gradient) of the largest
+    entry (the corner sums and the scatter-add run in other orders); the
+    entries no point touched are 0 in both."""
+    cfg = dataclasses.replace(_cfg(SMALL, "flat"), hash_features=features)
+    table, pts = _table(cfg), _points(cfg, 512)
+    g = np.random.default_rng(3).normal(size=(512, cfg.hash_levels * features))
+    g = g.astype(np.float32)
+    jt = jnp.asarray(table)
+    want, vjp = jax.vjp(lambda t: jhash.hash_encode(t, jnp.asarray(pts), _jcfg(cfg)), jt)
+    want, want_grad = np.asarray(want), np.asarray(vjp(jnp.asarray(g))[0])
+    rows = []
+    real = k4.gather_rows_reference
+    monkeypatch.setattr(k4, "gather_rows_reference",
+                        lambda t, i: rows.append(tuple(t.shape)) or real(t, i))
+    monkeypatch.setattr(k4, "gather_pairs_reference", None)
+    tt = torch.from_numpy(table).requires_grad_()
+    got = hg.hash_encode(tt, torch.from_numpy(pts), cfg)
+    (got * torch.from_numpy(g)).sum().backward()
+    assert rows == [hg.table_shape(cfg)] and got.shape == (512, cfg.hash_levels * features)
+    for a, b, floor in ((got.detach().numpy(), want, 1e-6), (tt.grad.numpy(), want_grad, 1e-5)):
+        scale = np.abs(b).max()
+        assert scale > 0.5 and np.isfinite(b).all()
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=floor * scale)
+    np.testing.assert_array_equal(tt.grad.numpy() == 0, want_grad == 0)
 
 
 @pytest.mark.parametrize("layout", ["flat", "brick"])

@@ -40,6 +40,7 @@ from nerf_rs_tpu_torch.kernels.fused_ray import (fused_ray_render, fused_ray_ren
                                                  pad_samples, padded_samples)
 from nerf_rs_tpu_torch.kernels.fused_train import (fused_train_grads,
                                                    fused_train_grads_reference, unpack_grads)
+from nerf_rs_tpu_torch.models.encoding import posenc
 from nerf_rs_tpu_torch.models.mlp import NerfMLP
 
 torch.set_num_threads(2)
@@ -48,6 +49,9 @@ MODEL = ModelConfig(net_depth=3, net_width=32, skip_layer=2, feature_width=32,
                     view_head_width=16, pos_enc_levels=4, dir_enc_levels=2)
 DEEP = ModelConfig(net_depth=21, net_width=32, skip_layer=4, feature_width=32,
                    view_head_width=16, pos_enc_levels=4, dir_enc_levels=2)
+# past depth 123, where the offset tables outgrew the launch parameters
+# until fault 15's repair (135 packed matrices)
+DEEPER = dataclasses.replace(DEEP, net_depth=130)
 WIDE = ModelConfig(net_depth=3, net_width=512, skip_layer=2, feature_width=512,
                    view_head_width=256, pos_enc_levels=4, dir_enc_levels=2)
 # (net, feature, view head) widths the port pads (pack_weights: to multiples
@@ -55,7 +59,7 @@ WIDE = ModelConfig(net_depth=3, net_width=512, skip_layer=2, feature_width=512,
 # mip-NeRF 360's 1024-wide trunk with this package's 256 / 128 heads
 WIDTHS = {"width40": (40, 40, 24), "width100": (100, 100, 50), "width384": (384, 384, 128),
           "width1024": (1024, 256, 128)}
-FIELDS = {"depth21": DEEP, "width512": WIDE,
+FIELDS = {"depth21": DEEP, "depth130": DEEPER, "width512": WIDE,
           **{k: dataclasses.replace(MODEL, net_width=w, feature_width=f, view_head_width=v)
              for k, (w, f, v) in WIDTHS.items()}}
 N = 4
@@ -76,12 +80,28 @@ CASES = [
 ]
 
 
-def _model(cfg, seed):
-    params = jmlp.init_nerf_params(jax.random.PRNGKey(seed), cfg)
+def _model(cfg, seed, rays=None):
+    """JAX-initialised weights and the port's model on them; with ``rays``
+    each trunk layer's weights are first scaled so that its relu output has
+    an RMS of 1 on the rays' samples (layer-sequential unit variance), which
+    keeps a 130-layer trunk's signal and gradients alive: at its initial
+    scale the first layers' gradients are ~1e-12."""
+    params = jax.tree.map(np.asarray, jmlp.init_nerf_params(jax.random.PRNGKey(seed), cfg))
     params["sigma"]["b"] = params["sigma"]["b"] + 0.3  # an opaque-enough field
+    if rays is not None:
+        o, d, _, ts = (torch.from_numpy(a).double() for a in rays[:4])
+        x = posenc((o[:, None] + ts[..., None] * d[:, None]).reshape(-1, 3),
+                   cfg.pos_enc_levels, True)
+        h = x
+        for i, layer in enumerate(params["trunk"]):
+            inp = torch.cat([h, x], -1) if i == cfg.skip_layer and i > 0 else h
+            out = torch.relu(inp @ torch.tensor(layer["w"], dtype=torch.float64))
+            rms = float(out.square().mean().sqrt())
+            layer["w"] = (layer["w"] / np.float32(rms)).astype(np.float32)
+            h = out / rms
     model = NerfMLP(cfg)
-    model.load_state_dict(params_from_numpy(jax.tree.map(np.asarray, params)))
-    return params, model
+    model.load_state_dict(params_from_numpy(params))
+    return jax.tree.map(jnp.asarray, params), model
 
 
 def _rays(n, s, seed, ipe, near=NEAR, far=FAR, disparity=False):
@@ -201,7 +221,8 @@ def test_train_plain_version_on_long_rays_matches_jax(case_id):
 @pytest.mark.parametrize("name", list(FIELDS))
 def test_plain_versions_of_deep_and_wide_fields_match_jax(name):
     """K1's and K2's plain versions against the JAX kernels in interpret mode
-    at net_depth 21 (skip 4), at net_width 512 (feature 512, view head 256),
+    at net_depth 21 and 130 (skip 4; the deeper at 64 samples and its trunk
+    scaled to unit variance), at net_width 512 (feature 512, view head 256),
     at widths that are not multiples of 16 (40/40/24, 100/100/50: the port
     pads them, the JAX package to its own lanes) and at 384/384/128 and
     1024/256/128, 16 samples a ray, softplus density, white background for
@@ -211,11 +232,14 @@ def test_plain_versions_of_deep_and_wide_fields_match_jax(name):
     ~1.3e-5 (diag) and ~1.5e-3 (leaves) from the float64 witness, and 1.2e-5
     and 4.1e-4 from each other, so K2 is held at K1's bars for diag and
     weights (3e-3) and at 2e-3 of each leaf's max, and the plain version to
-    its witness at 5e-3."""
+    its witness at 5e-3. At depth 130 the same flips compound through the
+    trunk: the plain version reads 3.0e-5 (weights) and 2.7e-3 of a leaf's
+    max from the JAX kernel, and 2.7e-3 from its float64 witness, so K2 is
+    held at 1e-4 and 1e-2 of each leaf's max, and to its witness at 1e-2."""
     cfg = dataclasses.replace(FIELDS[name], sigma_activation="softplus")
-    params, model = _model(cfg, 47)
-    s = 16
+    s = 64 if name == "depth130" else 16
     rays, _ = _rays(N, s, 48, False)
+    params, model = _model(cfg, 47, rays if name == "depth130" else None)
     o, d, vd, ts, deltas, gold = map(_t, rays)
     pk = fused_render.pack_weights(model, cfg)
     assert len(pk.w_off) == cfg.net_depth + 5
@@ -228,13 +252,15 @@ def test_plain_versions_of_deep_and_wide_fields_match_jax(name):
                                        deltas, gold, cfg, s, True)
     tg = jtrain.fused_train_grads(jpk, jtrain.pack_weights_t(jpk, cfg), *map(_j, rays), cfg, s,
                                   white_bg=True, rays_per_block=N, interpret=True)
-    wide = cfg.net_width > 256
-    _hold_train(mine, tg, model, params, cfg, s, (3e-3, 2e-3) if wide else (1e-5, 1e-4))
-    if wide:
+    wide, deep = cfg.net_width > 256, cfg.net_depth > 100
+    bars = (3e-3, 2e-3) if wide else (1e-4, 1e-2) if deep else (1e-5, 1e-4)
+    _hold_train(mine, tg, model, params, cfg, s, bars)
+    if wide or deep:
         witness = fused_train_grads_reference(pk, fused_render.pack_weights_t(pk), o, d, vd, ts,
                                               deltas, gold, cfg, s, True, dtype=torch.float64)
         for a, b in zip(mine.dw + mine.db, witness.dw + witness.db):
-            assert float((a.double() - b).abs().max()) <= 5e-3 * float(b.abs().max())
+            assert float((a.double() - b).abs().max()) <= (5e-3 if wide else 1e-2) * float(
+                b.abs().max())
 
 
 def _count(monkeypatch, module, name):

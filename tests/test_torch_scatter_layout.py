@@ -231,16 +231,28 @@ def _emulate_reduce(g, key, lane0, lanes, shape):
     return out
 
 
-@pytest.mark.parametrize("layout", ["flat", "brick"])
+def _lane_case(layout: str, n: int, rng):
+    """(shape, lanes, lane0) of a layout: the flat table's pairs, the brick
+    table's corner lanes, the flat table at F = 3 (rows of 3, lanes 0-2), and
+    40 lanes of a 160-wide row (wider than a warp's 128 columns at once) at
+    random bases."""
+    if layout == "flat":
+        return (257, 2), (0, 1), None
+    if layout == "width3":
+        return (257, 3), (0, 1, 2), None
+    if layout == "width160":
+        lanes = tuple(int(c) for c in rng.permutation(80)[:40])
+        return (97, 160), lanes, torch.from_numpy(rng.integers(0, 81, n).astype(np.int32))
+    lane0 = torch.from_numpy(rng.integers(0, 43, n).astype(np.int32) * 2)
+    return (97, 128), hashgrid._CORNER_LANES, lane0
+
+
+@pytest.mark.parametrize("layout", ["flat", "brick", "width3", "width160"])
 @pytest.mark.parametrize("kind", ["zipf", "outside", "equal"])
 def test_emulated_reduce_gives_the_plain_versions_bits(layout, kind):
     rng = np.random.default_rng(11)
     n = 3001
-    if layout == "flat":
-        shape, lanes, lane0 = (257, 2), (0, 1), None
-    else:
-        shape, lanes = (97, 128), hashgrid._CORNER_LANES
-        lane0 = torch.from_numpy(rng.integers(0, 43, n).astype(np.int32) * 2)
+    shape, lanes, lane0 = _lane_case(layout, n, rng)
     key = torch.from_numpy(_keys(kind, n, shape[0], rng).astype(np.int32))
     g = torch.from_numpy(rng.normal(size=(n, len(lanes))).astype(np.float32))
     want = k4.scatter_rows(g, key, lane0, lanes, shape)  # the CPU: the plain version
@@ -260,4 +272,26 @@ def test_plain_version_matches_the_jax_take_vjp():
     _, vjp = jax.vjp(lambda t: jnp.stack([jnp.take(t, fidx), jnp.take(t, fidx + 1)], -1), table)
     want = np.asarray(vjp(jnp.asarray(g))[0]).reshape(rows, 2)
     got = k4.scatter_rows(torch.from_numpy(g), torch.from_numpy(key), None, (0, 1), (rows, 2))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["width3", "width160"])
+def test_plain_version_at_any_width_matches_the_jax_take_vjp(layout):
+    """Rows of 3 (the flat table at F = 3, lanes 0-2) and 40 lanes of a
+    160-wide row at random bases, the sizes the kernels took only past
+    fault 16's repair: the gradient against jax.vjp of the fetch of each
+    fetch's columns, up to the order of f32 additions."""
+    rng = np.random.default_rng(5)
+    n = 20_000
+    (rows, width), lanes, lane0 = _lane_case(layout, n, rng)
+    key = (rng.zipf(1.4, n) % rows).astype(np.int32)
+    g = rng.normal(size=(n, len(lanes))).astype(np.float32)
+    base = np.zeros(n, np.int64) if lane0 is None else lane0.numpy().astype(np.int64)
+    cols = key[:, None].astype(np.int64) * width + base[:, None] + np.asarray(lanes)[None, :]
+    table = jnp.zeros(rows * width, jnp.float32)
+    _, vjp = jax.vjp(lambda t: jnp.take(t, jnp.asarray(cols)), table)
+    want = np.asarray(vjp(jnp.asarray(g))[0]).reshape(rows, width)
+    got = k4.scatter_rows(torch.from_numpy(g), torch.from_numpy(key), lane0, lanes,
+                          (rows, width))
+    assert np.abs(want).max() > 1.0
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
