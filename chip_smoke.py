@@ -265,7 +265,9 @@ Phases, each fatal (any failure exits non-zero):
      K2 and autograd, with a profile of each K2 step.
  36. fields of any width (faults 13 and 14; run after phase 35): at every
      width of WIDTHS (40/40/24 and 100/100/50, padded to multiples of 16;
-     384/384/128, 512/512/256 and 1024/256/128, the wide instances), K1 and
+     384/384/128, 384/384/384 (a view head of two column blocks), 512/512/256
+     and 1024/256/128, the cluster route: every
+     check prints the route C took, routes), K1 and
      K2 vs their plain versions (K2 also vs the float64 witness) at S = 64
      (relu), 192 (IPE) and 300 (the contraction with the disparity
      distortion loss), random biases, reruns bit-identical, the padded S's
@@ -282,7 +284,7 @@ Phases, each fatal (any failure exits non-zero):
  37. the caps the JAX package never had, lifted (faults 15-17; run after
      phase 36): K1 and K2 at depth 130 (width 64, its trunk scaled to unit
      variance) and at the paper widths with pos_enc_levels 20 and 34 (K1's
-     wide instance: its scratch asked for exactly there), each against its
+     wide route: its scratch asked for exactly there; the routes printed), each against its
      plain versions and the float64 witness on the 4,103 rays (check_lifted);
      K3 at 300 levels forward and backward, bf16 and f32, against its plain
      versions and the witness (check_lifted_factored); train/loop.train of
@@ -317,7 +319,9 @@ calls of phases 14 and 17: scatter_rows in both layouts (split into the
 sort and the reduce), K4's gathers, the ngp steps and frames, the
 factored step and K3's calls. Each K1 call also prints the bytes of
 weights that it must read from L2 by the kernel's design and the rate that
-implies: modelled, not measured.
+implies: modelled, not measured. It also times the wide route's calls at
+512/512/256 and 1024/256/128 (width_calls: one K1 chunk and one K2 call
+beside the eager field and autograd, each K2 call split by kernel).
 
     python3 chip_smoke.py --dp-cards N
 
@@ -1857,7 +1861,8 @@ LONG_SHAPES = tuple(Shape(k, c, False, False, None, n, s, 0.05, 2.0, False)
 # head) widths: no multiples of 16 (pack_weights pads them), and past 256 (the
 # wide instances), 1024 being mip-NeRF 360's trunk with this package's heads
 WIDTHS = {"40/40/24": (40, 40, 24), "100/100/50": (100, 100, 50),
-          "384/384/128": (384, 384, 128), "512/512/256": (512, 512, 256),
+          "384/384/128": (384, 384, 128), "384/384/384": (384, 384, 384),
+          "512/512/256": (512, 512, 256),
           "1024/256/128": (1024, 256, 128)}
 # each width's checks: (S, IPE, contraction + disparity distortion), on
 # WIDTH_ROWS // S of the N_RAYS rays (the float64 witness of the 1024-wide
@@ -2129,6 +2134,7 @@ def check_widths(rays, gold, cam) -> tuple:
     import torch
 
     from nerf_rs_tpu_torch.kernels.fused_ray import fused_ray_render
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights
     from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
     from nerf_rs_tpu_torch.models.mlp import init_nerf_params
 
@@ -2149,6 +2155,7 @@ def check_widths(rays, gold, cam) -> tuple:
                     if contract else None)
             label = (f"widths {name}, S={s}{' IPE' if ipe else ''}"
                      f"{' contract + disparity distortion' if contract else ''}, {n} rays")
+            print(f"{label}: {routes(pack_weights(model, cfg), s)}")
             fused_ray_render.launches = fused_train_grads.launches = 0
             a, b = check_long_case(label, model, cfg, tuple(r[:n].contiguous() for r in rays),
                                    gold[:n].contiguous(), ts, dl, radii, dist, far=far)
@@ -2200,6 +2207,8 @@ def width_calls(name, model, mcfg, fcfg, flat_o, flat_d, card) -> dict:
     row = {}
     pk = pack_weights(model, mcfg)
     S = fcfg.render.num_samples
+    row["routes"] = routes(pk, S)
+    print(f"widths {name}: {row['routes']}")
     n1 = min(default_render_chunk(fcfg.render, fused=True, model_cfg=mcfg), flat_o.shape[0])
     ts = sampling.stratified_ts(n1, S, fcfg.camera.near, fcfg.camera.far, False, device=dev)
     dl = sampling.deltas_from_ts(ts, fcfg.camera.far)
@@ -2273,6 +2282,59 @@ def width_calls(name, model, mcfg, fcfg, flat_o, flat_d, card) -> dict:
     del pk, args
     torch.cuda.empty_cache()
     return row
+
+
+def routes(pk, S: int) -> str:
+    """Which K1 and K2a instance the kernels take for ``pk`` at S samples
+    (decided in C by shape: fused_ray.route, fused_train.route)."""
+    from nerf_rs_tpu_torch.kernels import fused_ray, fused_train
+
+    return f"K1 {fused_ray.route(pk, S)}, K2a {fused_train.route(pk, S)}"
+
+
+def wide_k2_split(smoke, name: str, dev, card: str):
+    """Device time by kernel of one K2 call at WIDTHS[name], the recipe's
+    4096 x 64 rows built as width_calls builds them with ``smoke``'s (a
+    checkout's chip_smoke module's) helpers, from a profile of 3 calls: K2a
+    (its instance), K2b (dW partials, reduce, feat bias) and the rest (the
+    cluster route's weight repack). Uses only the wrapper, so it times any
+    checkout; None where the profile lost events."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import fused_train
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+    from nerf_rs_tpu_torch.kernels.fused_train import fused_train_grads
+    from nerf_rs_tpu_torch.ops import sampling
+
+    fcfg, fo, fd = smoke.frame_rays(dev)
+    mcfg = smoke.width_cfg(name, fcfg.model)
+    pk = pack_weights(smoke.seeded_model(mcfg, dev), mcfg)
+    S, n = fcfg.render.num_samples, 4096
+    o, d = fo.reshape(-1, 3)[:n].contiguous(), fd.reshape(-1, 3)[:n].contiguous()
+    vd = (d / torch.linalg.norm(d, dim=-1, keepdim=True)).contiguous()
+    gold = torch.rand(n, 3, generator=smoke.torch_generator(dev, 9), device=dev)
+    ts = sampling.stratified_ts(n, S, fcfg.camera.near, fcfg.camera.far, True,
+                                generator=smoke.torch_generator(dev, 10), device=dev)
+    args = (pk, pack_weights_t(pk), o, d, vd, ts, sampling.deltas_from_ts(ts, fcfg.camera.far),
+            gold, mcfg, S)
+    fused_train_grads(*args)
+    ms = event_ms(lambda: fused_train_grads(*args))
+    per = profiled_split(lambda: fused_train_grads(*args), 3, ms, 0.0)
+    route = fused_train.route(pk, S) if hasattr(fused_train, "route") else "mma.sync wide"
+    if per is None:
+        print(f"widths {name}: K2 call {n} x {S} [{card}]: {ms:.3f} ms, K2a {route}; "
+              f"device time {NOT_PROFILED}")
+        return None
+    k2a = sum(v for k, v in per.items() if re.search(r"train_\w*kernel", k))
+    k2b = sum(v for k, v in per.items() if re.search(r"dw_partial|reduce_kernel|feat_bias", k))
+    rest = sum(per.values()) - k2a - k2b
+    print(f"widths {name}: K2 call {n} x {S} [{card}]: {ms:.3f} ms (CUDA events), K2a {route}; "
+          f"device time K2a {k2a:.3f} ms, K2b {k2b:.3f} ms, the rest {rest:.3f} ms ("
+          + ", ".join(f"{kernel_name(k)} {v:.3f}" for k, v in
+                      sorted(per.items(), key=lambda kv: -kv[1])) + ")")
+    del pk, args
+    torch.cuda.empty_cache()
+    return {"ms": ms, "k2a": k2a, "k2b": k2b, "rest": rest, "route": route}
 
 
 def drive_wide(tmp: str, card: str, dev) -> dict:
@@ -2545,9 +2607,9 @@ def check_lifted(rays, gold, cam) -> tuple:
             unit_variance_(model, cfg, rays[0], rays[1], ts)
         pk = pack_weights(model, cfg)
         scratch = fused_ray._library().nerf_fused_ray_scratch_bytes(
-            N_RAYS, 64, pk.W, pk.F, pk.V, pk.P, pk.D)
+            N_RAYS, 64, pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D)
         if (scratch > 0) != (cfg.pos_enc_levels >= 19):
-            fail(f"phase 37 [{label}]: K1's scratch {scratch} B: the wide instance is for "
+            fail(f"phase 37 [{label}]: K1's scratch {scratch} B: the wide routes are for "
                  f"encodings past P = 112 only")
         fused_ray_render.launches = fused_train_grads.launches = 0
         deep = cfg.net_depth > 100
@@ -2558,8 +2620,8 @@ def check_lifted(rays, gold, cam) -> tuple:
         counts[label] = got
         if got != want:
             fail(f"phase 37 [{label}]: K1 / K2 launches {got}, want {want}")
-        print(f"phase 37 [{label}]: K1 {'wide instance' if scratch > 0 else 'wgmma'} "
-              f"(scratch {scratch:,} B), P = {pk.P}, {len(pk.w_off)} packed matrices")
+        print(f"phase 37 [{label}]: {routes(pk, 64)} (K1's scratch {scratch:,} B), P = "
+              f"{pk.P}, {len(pk.w_off)} packed matrices")
         k1_err, k2_err = max(k1_err, a), max(k2_err, b)
         del model, pk
     torch.cuda.empty_cache()
@@ -5199,6 +5261,11 @@ def time_step(root: str) -> int:
     time_chunk(card, packed, mcfg, cfg.camera, flat_o, flat_d)
     time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d,
                   BRANCH_SHAPES + UNB_SHAPES + RECORD_SHAPES, plain_too=False)
+    for name in WIDE_RUNS:  # the wide route's calls beside the eager field and autograd
+        wcfg = width_cfg(name, cfg.model)
+        width_calls(name, seeded_model(wcfg, dev), wcfg, dataclasses.replace(cfg, model=wcfg),
+                    flat_o, flat_d, card)
+        wide_k2_split(sys.modules[__name__], name, dev, card)
     preset_steps(card, "hierarchical", profiled=True)
     del model, packed
     time_scatter(card, scatter_inputs(dev))
@@ -6410,7 +6477,8 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--witness-steps"] and len(sys.argv) >= 5:
         sys.exit(witness_steps(sys.argv[2], sys.argv[3], sys.argv[4], sys.argv[5:]))
     if len(sys.argv) != 1:
-        fail("usage: python3 chip_smoke.py [--time-step ROOT | --dp-cards N | --learn PRESET "
+        fail("usage: python3 chip_smoke.py [--time-step ROOT | --dp-cards N | "
+             "--learn PRESET "
              "SEEDS [FLAG ...] | --witness-steps PRESET SEED STEPS [FLAG ...] | "
              "--trace-draws]")
     sys.exit(main())

@@ -42,16 +42,18 @@
 //
 // Wide fields. Past kNarrowWidth (256) a warpgroup's sums, and at 384 or
 // more K2's two activation tiles, no longer fit a CTA; the JAX kernels take
-// any width. The wide instances (K1's fused_ray_wide_kernel, K2's
-// train_wide_kernel) run field_forward_wide: every activation and encoding
-// tile lies in device memory (K2: its stashes, which it writes anyway; K1:
-// two buffers a CTA of a persistent grid, in L2), each product stages its
-// A operand's k-slices into shared memory beside the weight slices, and the
-// epilogues store to device memory. Shared memory stays ~60 KB at any
-// width; the products and their order are the narrow instances'. They also
-// take a field of any width whose encodings no narrow layout holds beside
-// its tiles (wide position encodings: fused_ray.cu k1_wide, fused_train.cu
-// train_mode).
+// any width. Such fields, and fields whose encodings no narrow layout holds
+// beside its tiles, take the cluster route (field_cluster.cuh: wgmma, the
+// activations spread over a cluster's shared memory) up to 2,048 wide and
+// where its layout holds the encodings (fused_ray.cu k1_route, fused_train.cu
+// train_mode). Past that the mma.sync wide instances (K1's
+// fused_ray_wide_kernel, K2's train_wide_kernel) run field_forward_wide:
+// every activation and encoding tile lies in device memory (K2: its
+// stashes, which it writes anyway; K1: two buffers a CTA of a persistent
+// grid), each product stages its A operand's k-slices into shared memory
+// beside the weight slices, and the epilogues store to device memory.
+// Shared memory stays ~60 KB at any width, so no field is refused; the
+// products and their order are the narrow instances'.
 //
 // Numerics: no fast math. sinf/cosf with exact ldexpf scales for the PE
 // (sin(2^9 x) loses its phase with a low-precision argument or sine);

@@ -1,8 +1,8 @@
-// Hopper primitives of the render kernel K1 (fused_ray.cu): warpgroup
-// matrix products (wgmma), mbarriers, bulk copies into shared memory (with
-// cluster multicast) and named barriers. K1 only: the
-// training kernel K2 keeps field.cuh's mma.sync machinery, so nothing here
-// changes its code.
+// Hopper primitives of the render kernel K1 (fused_ray.cu) and of both
+// kernels' wide route (field_cluster.cuh): warpgroup matrix products
+// (wgmma), mbarriers, bulk copies into shared memory (with cluster
+// multicast), named barriers, and reads of another cluster CTA's shared
+// memory. K2's narrow instances keep field.cuh's mma.sync machinery.
 //
 // Operand layout. Every wgmma operand is K-major in shared memory without a
 // swizzle ("interleave"): 8 x 8 bf16 core matrices of 128 contiguous bytes,
@@ -104,6 +104,81 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t cta, 
       "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
       "r"(cta), "r"(pred)
       : "memory");
+}
+
+// ---- cluster-shared operands (the wide route, field_cluster.cuh) ----
+
+// The shared::cluster address of the byte at local offset `addr` in
+// cluster CTA `cta`'s shared memory.
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t cta) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(cta));
+  return r;
+}
+
+// 16 bytes from another CTA's shared memory (a mapa address).
+__device__ __forceinline__ uint4 ld_cluster16(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// One arrival on the local barrier at `bar` (release, CTA scope).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// mbar_arrive when `pred` is 1, predicated in the PTX (see mbar_arrive_cluster).
+__device__ __forceinline__ void mbar_arrive_pred(uint32_t bar, uint32_t pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.eq.u32 p, %1, 1;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(pred)
+      : "memory");
+}
+
+// One arrival on the barrier at offset `bar` in cluster CTA `cta`, with
+// release at cluster scope: what this thread wrote or read before it (and
+// what threads it synchronised with did) is ordered before the arrival, for
+// a thread of any CTA of the cluster that waits with mbar_wait_cluster.
+__device__ __forceinline__ void mbar_arrive_release(uint32_t bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 remote;\nmapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
+      "r"(cta)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope, the counterpart of
+// mbar_arrive_release, for the waits between the CTAs of a cluster: bounded,
+// a wait that has not completed after NERF_STALL_NS (20 s) of the card's
+// clock traps, so a protocol fault ends the launch with an error instead of
+// holding the card (every stall of the cluster route holds one of these).
+// The loop is in the PTX, as mbar_wait's.
+#define NERF_STALL_NS "20000000000"
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u64 t0, t1;\nmov.u64 t0, %%globaltimer;\nWAITC:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONEC;\nmov.u64 t1, %%globaltimer;\nsub.u64 t1, t1, t0;\n"
+      "setp.lt.u64 p, t1, " NERF_STALL_NS ";\n@p bra WAITC;\ntrap;\nDONEC:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// cluster_sync for threads of diverged roles (no .aligned): each thread of
+// the cluster that has not exited arrives, then waits for all others.
+__device__ __forceinline__ void cluster_sync_any() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
 // `bytes` from global memory to shared memory, landing at offset dst and

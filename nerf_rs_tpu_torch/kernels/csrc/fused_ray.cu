@@ -92,23 +92,30 @@
 // 256: a warpgroup's 64 x 256 f32 sums fill 128 registers a thread, and the
 // one activation tile, which each epilogue overwrites in place, would have
 // to hold a wider product's input until its last column round. A wider
-// field (the JAX kernel takes any width) runs fused_ray_wide_kernel: K2's
-// mma.sync machinery in column rounds of 256 with its A operands staged
-// from two activation buffers a CTA in device memory (field.cuh's
-// field_forward_wide), on a persistent grid of one CTA an SM, then this
-// kernel's warp-per-ray compositing. It has no width cap of its own: its
-// shared memory (~60 KB) does not grow with the width. It is slower per
-// FLOP than the wgmma instances (mma.sync, a CTA barrier a k-step, A
-// re-read from L2 for every round); PERF.md has its times.
+// field (the JAX kernel takes any width) runs the cluster instance
+// (fused_ray_cluster_kernel, field_cluster.cuh): the same scheme lifted to a
+// row group of ceil(width / 256) CTAs of a cluster, each holding its 256
+// columns of the activation tile and computing those columns of every
+// product, reading the other columns' k-steps from the other CTAs' shared
+// memory, with two tiles a cluster sharing each weight slot by multicast;
+// then a warp per ray composites each pass as the streamed instance does.
+// Past 2,048 wide (more than 8 CTAs a row group), or where even its layout
+// does not hold the encodings, fused_ray_wide_kernel runs: K2's mma.sync
+// machinery in column rounds of 256 with its A operands staged from two
+// activation buffers a CTA in device memory (field.cuh's
+// field_forward_wide), on a persistent grid of one CTA an SM, then the
+// resident compositing; its shared memory (~60 KB) does not grow with the
+// width or the encodings, so no field is refused. PERF.md has the times.
 //
 // Wide encodings (fault 17). The streamed instance keeps two buffers of
 // each pass's encodings beside the ring and the activation tile, 512 (P +
 // D) bytes: past P = 112 at the paper widths (pos_enc_levels 19 and more)
 // no wgmma layout fits the card's opt-in shared memory, while the JAX
-// kernel takes any encoding. Such a field runs the wide instance too (its
-// encodings lie in its scratch, beside the activations): k1_wide decides,
-// for the launch and for nerf_fused_ray_scratch_bytes alike, so the
-// wrapper follows the scratch's size and never decides on its own.
+// kernel takes any encoding. Such a field takes the wide routes too (the
+// cluster instance holds P + D up to ~300): k1_route decides, for the
+// launch and for nerf_fused_ray_scratch_bytes alike, so the wrapper follows
+// the scratch's size (the cluster route's repacked weights, or the mma.sync
+// instance's activations) and never decides on its own.
 //
 // The offsets of the packed matrices and biases lie in a device table
 // (Field::off, one per packing, built and kept by the wrapper), not in the
@@ -119,6 +126,7 @@
 // before the table.
 
 #include "field.cuh"
+#include "field_cluster.cuh"
 #include "field_wgmma.cuh"
 
 namespace {
@@ -873,7 +881,7 @@ __global__ void __launch_bounds__(kK1Threads, 1) fused_ray_wgmma_kernel(const Pa
       p, smem, Ring{wg::smem_u32(smem + L.ring), full, empty, slot_bytes(p.n), 0, 0}, tb);
 }
 
-// ---- the wide instance: fields wider than kMaxWidth ----
+// ---- the mma.sync wide instance: past the cluster route (k1_route) ----
 
 // Its launch: the field, the outputs, and every CTA's slice of the scratch
 // (cta_bytes each): two activation buffers of 128 rows x the widest layer,
@@ -938,8 +946,10 @@ inline int wide_grid(const Field& f, long long* grid) {
 // K2's machinery on K1's job: 16 warps of mma.sync products through
 // field_forward_wide on each 128-row pass of the CTA's tiles b, b + grid, ...,
 // its activations in the CTA's two buffers in device memory (2 x 128 x W
-// bf16: ~34 MB over 132 CTAs at W = 512, so they mostly stay in the 50 MB
-// L2), then the resident instances' compositing, a warp per ray, on the
+// bf16 a CTA: ~34 MB over 132 CTAs at W = 512, but 69 MB at 1024 and more
+// past it, above the 50 MB L2: they round-trip through device memory, one
+// reason the cluster route replaced it up to 2,048 wide), then the resident
+// instances' compositing, a warp per ray, on the
 // tile's raw sigma and rgb. The weights are PackedWeights.w (K2's layout),
 // not K1's: the wgmma instances' layout pads each product to a power of two
 // and their sums to 256 columns, which a wide field outgrows.
@@ -1022,14 +1032,234 @@ __global__ void __launch_bounds__(kThreads, 1) fused_ray_wide_kernel(const WideP
   }
 }
 
-// The wide instance takes the field where a product is wider than
-// kMaxWidth, or where even the streamed layout (which does not grow with
-// the depth) does not fit the card's opt-in shared memory `optin`: wide
-// encodings. Elsewhere a wgmma instance runs.
-inline bool k1_wide(const Field& f, size_t optin) {
-  if (widest(f) > kMaxWidth) return true;
-  const Widths n{padded_width(f.W), padded_width(f.F), padded_width(f.V)};
-  return k1_layout(f, n, true).total > optin;
+// ---- the cluster instance: the wide route (field_cluster.cuh) ----
+
+struct ClusterParams {
+  Field f;
+  cl::Geo geo;
+  cl::CSmem L;
+  long long b_sf, b_rgb;  // sigma's and rgb's bias offsets in f.b
+  float* rgb;
+  float* acc;
+  float* depth;
+  float* wts;
+  float* sigma;
+};
+
+// The pass's compositing on CTA 0 of the row group: composite_pass's steps
+// (a warp per ray of the pass, carrying a spanning ray's running sums from
+// pass to pass) on the pass's raw sigma and rgb in shared memory.
+__device__ __forceinline__ void composite_cluster(const ClusterParams& p, long long ray0,
+                                                  int n_valid, int s0, int pass, int tid) {
+  constexpr int kT = cl::kConsumerThreads;
+  const unsigned full = 0xffffffffu;
+  const Field& f = p.f;
+  const int S = f.S, lane = tid & 31, b = pass & 1;
+  const float* sig_raw = reinterpret_cast<const float*>(cl::smem + p.L.sig);
+  const float* rgb = reinterpret_cast<const float*>(cl::smem + p.L.rgb);
+  const float* cin = reinterpret_cast<const float*>(cl::smem + p.L.carry) + b * 6 * 32;
+  float* cout = reinterpret_cast<float*>(cl::smem + p.L.carry) + (b ^ 1) * 6 * 32;
+  const int first = s0 / S, last_row = (s0 + kRows - 1) / S;
+  const int last = last_row < n_valid - 1 ? last_row : n_valid - 1;
+  for (int j = first + (tid >> 5); j <= last; j += kT / 32) {
+    const int lo = s0 > j * S ? s0 - j * S : 0;
+    const int hi = s0 + kRows - j * S < S ? s0 + kRows - j * S : S;
+    float carry = 0.f, cr = 0.f, cg = 0.f, cb = 0.f, a_sum = 0.f, dep = 0.f;
+    if (lo > 0) {
+      carry = cin[lane];
+      cr = cin[32 + lane];
+      cg = cin[64 + lane];
+      cb = cin[96 + lane];
+      a_sum = cin[128 + lane];
+      dep = cin[160 + lane];
+    }
+    const long long g0 = (ray0 + j) * S;
+    for (int c = lo; c < hi; c += 32) {
+      const int s = c + lane, r = j * S + s - s0;
+      float sigma = 0.f, a = 0.f;
+      if (s < hi) {
+        const float raw = sig_raw[r];
+        sigma = f.sigma_act == 0 ? fmaxf(raw, 0.f) : fmaxf(raw, 0.f) + log1pf(expf(-fabsf(raw)));
+        a = sigma * f.deltas[g0 + s];
+      }
+      float incl = a;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float v = __shfl_up_sync(full, incl, o);
+        if (lane >= o) incl += v;
+      }
+      const float before = __shfl_up_sync(full, incl, 1);
+      const float excl = carry + (lane == 0 ? 0.f : before);
+      carry += __shfl_sync(full, incl, 31);
+      if (s < hi) {
+        const float w = expf(-excl) * (1.f - expf(-a));
+        cr += w * rgb[r * 4 + 0];
+        cg += w * rgb[r * 4 + 1];
+        cb += w * rgb[r * 4 + 2];
+        a_sum += w;
+        dep += w * f.ts[g0 + s];
+        p.wts[g0 + s] = w;
+        p.sigma[g0 + s] = sigma;
+      }
+    }
+    if (hi < S) {
+      cout[lane] = carry;
+      cout[32 + lane] = cr;
+      cout[64 + lane] = cg;
+      cout[96 + lane] = cb;
+      cout[128 + lane] = a_sum;
+      cout[160 + lane] = dep;
+      continue;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      cr += __shfl_xor_sync(full, cr, o);
+      cg += __shfl_xor_sync(full, cg, o);
+      cb += __shfl_xor_sync(full, cb, o);
+      a_sum += __shfl_xor_sync(full, a_sum, o);
+      dep += __shfl_xor_sync(full, dep, o);
+    }
+    if (lane == 0) {
+      const long long rr = ray0 + j;
+      p.rgb[rr * 3 + 0] = cr;
+      p.rgb[rr * 3 + 1] = cg;
+      p.rgb[rr * 3 + 2] = cb;
+      p.acc[rr] = a_sum;
+      p.depth[rr] = dep;
+    }
+  }
+}
+
+// The CTA's tile's first ray and its rays in the batch (0 past the last).
+__device__ __forceinline__ long long cluster_ray0(const ClusterParams& p) {
+  return cl::tile_of(p.geo) * p.f.R;
+}
+__device__ __forceinline__ int cluster_rays(const ClusterParams& p) {
+  const long long left = p.f.n_rays - cluster_ray0(p);
+  return left <= 0 ? 0 : (left < p.f.R ? static_cast<int>(left) : p.f.R);
+}
+
+// The consumers: per pass, the encodings, then the products in the order
+// the producer and the loaders walk them (cl::prod_at), each call site of
+// one compile-time shape (trunk, [feature | sigma], view), each
+// product waiting for `free` before its epilogue overwrites the act block
+// and publishing it after; then CTA 0 composites the pass. What a product
+// needs is recomputed from the parameters and the thread's index rather
+// than kept across it: the sums take 128 registers a thread, and the wgmma
+// pipeline needs the rest.
+template <bool kContract>
+__device__ void consume_cluster(const ClusterParams& p) {
+  const Field& f = p.f;
+  const int j = __shfl_sync(0xffffffffu, cl::block_j(p.geo), 0);
+  cl::Ring rg{0, 0};
+  float acc[cl::kBlock / 2];
+  float sig[4];
+  const int L = f.n_layers, passes = f.rows / kRows;
+  unsigned char* act = cl::smem + cl::kActOff;
+  int q = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    cl::encode_pass<kContract>(f, p.L, cluster_ray0(p), cluster_rays(p), pass * kRows,
+                               threadIdx.x);
+    // ---- trunk ----
+    for (int i = 0; i < L; ++i, ++q) {
+      const cl::Prod pr = cl::prod_at(f, p.geo, q);
+      const bool part = j < pr.nblk;
+      cl::prefetch_bias(p.geo, cl::prod_at(f, p.geo, q + 1), j);
+      if (part)
+        cl::product<cl::kBlock, false>(rg, acc, sig, (pr.k1 + pr.k2) / 16, p.geo,
+                                       cl::bias_quads(p.geo, pr, j));
+      wg::mbar_wait_cluster(cl::sa(cl::kFreeOff), q & 1);
+      if (part) cl::store_block<true>(acc, act, cl::frag_row(), cl::frag_col());
+      cl::publish(p.geo);
+    }
+    // ---- [feature | sigma]: bf16 feature, f32 raw sigma (CTA 0's n8 tile) ----
+    {
+      const cl::Prod pr = cl::prod_at(f, p.geo, q);
+      const bool part = j < pr.nblk;
+      cl::prefetch_bias(p.geo, cl::prod_at(f, p.geo, q + 1), j);
+      if (part)
+        cl::product<cl::kBlock, true>(rg, acc, sig, (pr.k1 + pr.k2) / 16, p.geo,
+                                      cl::bias_quads(p.geo, pr, j));
+      wg::mbar_wait_cluster(cl::sa(cl::kFreeOff), q & 1);
+      if (part) {
+        const int r0 = cl::frag_row();
+        cl::store_block<false>(acc, act, r0, cl::frag_col());
+        if (j == 0) {
+          const int lead = (threadIdx.x & 31) & ~3;
+          const float s_a = __shfl_sync(0xffffffffu, sig[0], lead);
+          const float s_b = __shfl_sync(0xffffffffu, sig[2], lead);
+          const float bs = f.b[p.b_sf + f.F];
+          float* sig_raw = reinterpret_cast<float*>(cl::smem + p.L.sig);
+          sig_raw[r0] = s_a + bs;
+          sig_raw[r0 + 8] = s_b + bs;
+        }
+      }
+      cl::publish(p.geo);
+      ++q;
+    }
+    // ---- view head: relu(feat W_f + PE(viewdir) W_d + b) ----
+    {
+      const cl::Prod pr = cl::prod_at(f, p.geo, q);
+      const bool part = j < pr.nblk;
+      cl::prefetch_bias(p.geo, cl::prod_at(f, p.geo, q + 1), j);
+      if (part)
+        cl::product<cl::kBlock, false>(rg, acc, sig, (pr.k1 + pr.k2) / 16, p.geo,
+                                       cl::bias_quads(p.geo, pr, j));
+      wg::mbar_wait_cluster(cl::sa(cl::kFreeOff), q & 1);
+      if (part) cl::store_block<true>(acc, act, cl::frag_row(), cl::frag_col());
+      cl::publish(p.geo);
+      ++q;
+    }
+    // ---- CTA 0: rgb on the CUDA cores (the other CTAs' hv blocks, where
+    // there are any, after the view product's `ready`: the phase before it
+    // has completed, as this CTA's loaders waited for it before the view's
+    // `free`, and the next cannot, as this CTA has not published its
+    // product, so the parity names the view's phase), then the pass's
+    // compositing ----
+    if (j == 0) {
+      if (p.geo.cv > 1) wg::mbar_wait_cluster(cl::sa(cl::kReadyOff), (q - 1) & 1);
+      cl::rgb_rows(f, p.geo, f.b + p.b_rgb, reinterpret_cast<float*>(cl::smem + p.L.rgb));
+      cl::hv_read(p.geo);
+      composite_cluster(p, cluster_ray0(p), cluster_rays(p), pass * kRows, pass, threadIdx.x);
+      cl::consumers_sync();  // raw sigma, rgb and the carry are free for the next pass
+    }
+  }
+}
+
+// K1's wide route: a row group of C CTAs per tile (cluster of C G CTAs),
+// one tile a CTA (not persistent: a CTA's start, its encodings and its
+// first weight slots, costs a few microseconds of a tile's ~100).
+template <bool kContract>
+__global__ void __launch_bounds__(cl::kThreads, 1) fused_ray_cluster_kernel(const ClusterParams p) {
+  const Field& f = p.f;
+  cl::init(p.geo);
+  const int nprod = f.rows / kRows * cl::fwd_products(f);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= cl::kProducerWarp) {
+    if (warp == cl::kProducerWarp) {
+      if ((threadIdx.x & 31) == 0) cl::produce(f, p.geo, 0, nprod);
+    } else {
+      cl::load_a(f, p.geo, p.L, 0, nprod, warp - cl::kLoaderWarp);
+    }
+  } else {
+    consume_cluster<kContract>(p);
+  }
+  wg::cluster_sync_any();  // no CTA leaves while another reads its shared memory
+}
+
+// K1's routes, decided by shape: 0 the wgmma instances (fields up to
+// kMaxWidth whose streamed layout fits), 1 the cluster instance (wider
+// fields, and encodings the wgmma layouts do not hold, where cl::takes),
+// 2 the mma.sync wide instance (the rest: past 2,048 wide, or encodings
+// too wide for the cluster layout too).
+enum K1Route { kK1Wgmma = 0, kK1Cluster = 1, kK1Wide = 2 };
+
+inline K1Route k1_route(const Field& f, size_t optin) {
+  if (widest(f) <= kMaxWidth) {
+    const Widths n{padded_width(f.W), padded_width(f.F), padded_width(f.V)};
+    if (k1_layout(f, n, true).total <= optin) return kK1Wgmma;
+  }
+  return cl::takes(f, false, optin) ? kK1Cluster : kK1Wide;
 }
 
 }  // namespace
@@ -1039,7 +1269,7 @@ extern "C" {
 // Returns 0, a cudaError_t from the launch, or a negative code for a
 // shape the kernel does not take (see nerf_rs_tpu_torch/kernels/fused_ray.py).
 // w: the weights in K1's layout, b_k1 its biases (fused_render.pack_weights_k1);
-// where k1_wide takes the field, the packed weights' own (PackedWeights.w,
+// where k1_route takes a wide route, the packed weights' own (PackedWeights.w,
 // K2's layout; b_k1 unused) and `scratch` nerf_fused_ray_scratch_bytes of
 // device memory (else null). offsets: the device table of the n_w matrix
 // offsets into w, then the n_b bias offsets into b (Field::off); w_off and
@@ -1062,7 +1292,35 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
   size_t optin = 0;
   rc = smem_optin(&optin);
   if (rc != 0) return rc;
-  if (k1_wide(p.f, optin)) {  // the wide instance, on PackedWeights.w and the scratch
+  const K1Route route = k1_route(p.f, optin);
+  if (route == kK1Cluster) {  // the cluster instance, on PackedWeights.w repacked into the scratch
+    ClusterParams q;
+    q.f = p.f;
+    long long w_elems = 0, b_elems = 0;
+    q.geo = cl::make_geo(q.f, false, &w_elems, &b_elems);
+    size_t b_at = 0;
+    cl::pack_bytes(w_elems, b_elems, &b_at);
+    q.geo.wp = static_cast<const bf16*>(scratch);
+    q.geo.bp = reinterpret_cast<const float*>(static_cast<unsigned char*>(scratch) + b_at);
+    q.geo.stages = cl::fit_stages(q.f, false, optin);
+    q.L = cl::cluster_layout(q.f, false, q.geo.stages);
+    q.b_sf = b_off[depth_l];
+    q.b_rgb = b_off[depth_l + 2];
+    q.rgb = static_cast<float*>(rgb);
+    q.acc = static_cast<float*>(acc);
+    q.depth = static_cast<float*>(depth);
+    q.wts = static_cast<float*>(wts);
+    q.sigma = static_cast<float*>(sigma);
+    auto kernel = contract ? fused_ray_cluster_kernel<true> : fused_ray_cluster_kernel<false>;
+    rc = set_smem(kernel, q.L.total);
+    if (rc != 0) return rc;
+    if (n_rays == 0) return 0;
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    rc = cl::pack(q.f, q.geo, q.f.w, w_off, q.f.b, b_off, nullptr, nullptr, st);
+    if (rc != 0) return rc;
+    return cl::launch(kernel, q, q.geo, (n_rays + q.f.R - 1) / q.f.R, q.L.total, st);
+  }
+  if (route == kK1Wide) {  // the mma.sync wide instance, on PackedWeights.w and the scratch
     WideParams q;
     q.f = p.f;
     q.rgb = static_cast<float*>(rgb);
@@ -1092,7 +1350,7 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
   p.b_sf = b_off[depth_l];
   p.b_rgb = b_off[depth_l + 2];
   p.n = {padded_width(W), padded_width(F), padded_width(V)};
-  // the resident instance where it fits, else the streamed one (k1_wide:
+  // the resident instance where it fits, else the streamed one (k1_route:
   // that one fits)
   const bool streamed = S > kMaxResident || k1_layout(p.f, p.n, false).total > optin;
   p.L = k1_layout(p.f, p.n, streamed);
@@ -1140,24 +1398,47 @@ int nerf_fused_ray_render(const void* o, const void* d, const void* vd, const vo
 }
 
 // Bytes of scratch nerf_fused_ray_render needs: 0 where a wgmma instance
-// takes the field, else (k1_wide) the wide instance's grid (one CTA at
-// least) x its CTA's bytes, so that a positive size is what marks the wide
-// instance and its layout (PackedWeights.w) to the wrapper. Negative: -1
-// for a sample count the kernels do not take, else a cudaError_t negated.
-long long nerf_fused_ray_scratch_bytes(long long n_rays, int S, int W, int F, int V, int P,
-                                       int D) {
+// takes the field; on the cluster route the repacked weights and biases
+// (cl::pack_bytes); on the mma.sync wide route its grid (one CTA at least)
+// x its CTA's bytes. A positive size is what marks the wide routes and
+// their input layout (PackedWeights.w) to the wrapper. depth_l: the trunk's
+// layers. Negative: -1 for a sample count the kernels do not take, else a
+// cudaError_t negated.
+long long nerf_fused_ray_scratch_bytes(long long n_rays, int S, int depth_l, int W, int F, int V,
+                                       int P, int D) {
   if (!takes_samples(S)) return -1;
   Field f;
   set_layout(&f, S, W, F, V, P, D);
+  f.n_layers = depth_l;
   size_t optin = 0;
   int rc = smem_optin(&optin);
   if (rc != 0) return -static_cast<long long>(rc);
-  if (!k1_wide(f, optin)) return 0;
+  const K1Route route = k1_route(f, optin);
+  if (route == kK1Wgmma) return 0;
+  if (route == kK1Cluster) {
+    long long w_elems = 0, b_elems = 0;
+    size_t b_at = 0;
+    cl::make_geo(f, false, &w_elems, &b_elems);
+    return static_cast<long long>(cl::pack_bytes(w_elems, b_elems, &b_at));
+  }
   f.n_rays = n_rays;
   long long grid = 0, off_x = 0, off_dv = 0, off_vals = 0;
   rc = wide_grid(f, &grid);
   if (rc != 0) return -static_cast<long long>(rc);
   return (grid > 0 ? grid : 1) * wide_cta_bytes(f, &off_x, &off_dv, &off_vals);
+}
+
+// The route nerf_fused_ray_render takes for these shapes: 0 the wgmma
+// instances, 1 the cluster instance, 2 the mma.sync wide instance (K1Route);
+// negative as nerf_fused_ray_scratch_bytes.
+int nerf_fused_ray_route(int S, int W, int F, int V, int P, int D) {
+  if (!takes_samples(S)) return -1;
+  Field f;
+  set_layout(&f, S, W, F, V, P, D);
+  size_t optin = 0;
+  const int rc = smem_optin(&optin);
+  if (rc != 0) return -rc;
+  return static_cast<int>(k1_route(f, optin));
 }
 
 const char* nerf_cuda_error_string(int code) {

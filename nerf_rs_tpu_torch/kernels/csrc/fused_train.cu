@@ -56,18 +56,27 @@
 //
 // Wide fields (fault 13): past kNarrowWidth = 256 the two activation tiles
 // of 128 rows no longer fit beside the encodings (at 512 they take 266 KB).
-// Such a field takes the wide instance (train_wide_kernel): the streamed
-// instance's per-sample values and warp scans, with every activation in its
-// stash, where K2b reads it anyway: each epilogue stores its output there
-// and the next product stages its A operand's k-slices from there into
-// shared memory (field.cuh's field_forward_wide; dense_layer's kStageA).
-// Its shared memory does not grow with the width. Its blocks are sized by
-// the stashes' bytes too (nerf_fused_train_block_rows under
-// fused_train.BLOCK_BYTES): at width 1024 and depth 8 a sample row stashes
-// ~36 KB. Wide encodings (fault 17) take it too: where even the streamed
-// layout's tiles do not fit the card's opt-in shared memory beside the
-// encodings (P = 208 at the paper widths, pos_enc_levels 34 and more),
-// train_mode picks the wide instance, whose encodings are stashes as well.
+// Such a field takes the cluster instance (train_cluster_kernel,
+// field_cluster.cuh): a row group of ceil(width / 256) CTAs of a cluster a
+// tile, each holding its 256 columns of every layer's output (forward) and
+// gradient (backward) in shared memory and computing those columns of each
+// wgmma product, the other columns' k-steps read from the other CTAs'
+// shared memory, each weight slot multicast to the cluster's two tiles; each
+// block also leaves for its stash (and its relu bits for the mask), where
+// K2b reads it; CTA 0 keeps the per-sample values in the scratch and runs
+// the streamed instance's warp scans. Past 2,048 wide, or where even its
+// layout does not hold the encodings, the mma.sync wide instance
+// (train_wide_kernel) runs: the streamed instance's per-sample values and
+// warp scans, with every activation in its stash: each epilogue stores its
+// output there and the next product stages its A operand's k-slices from
+// there into shared memory (field.cuh's field_forward_wide; dense_layer's
+// kStageA); its shared memory does not grow with the width. Both routes'
+// blocks are sized by the stashes' bytes too (nerf_fused_train_block_rows
+// under fused_train.BLOCK_BYTES): at width 1024 and depth 8 a sample row
+// stashes ~36 KB. Wide encodings (fault 17) take them too: where even the
+// streamed layout's tiles do not fit the card's opt-in shared memory beside
+// the encodings (P = 208 at the paper widths, pos_enc_levels 34 and more),
+// train_mode picks a wide route, whose encodings are stashes as well.
 //
 // The matrices' and biases' offsets, and the transposed matrices', lie in
 // device tables built once per layout by the wrapper (Field::off,
@@ -127,6 +136,7 @@
 #include <vector>
 
 #include "field.cuh"
+#include "field_cluster.cuh"
 
 namespace {
 
@@ -263,11 +273,13 @@ __device__ __forceinline__ float sigma_of(int act, float raw) {
 // suffix sum of u w carried, each sample's d sigma into t.dsig. The same
 // arithmetic as the resident instances' thread-per-ray scans, summed in
 // another order. Rays past the end get d sigma = 0.
+// kNW: the warps that share the rays (the cluster instance's consumers: 8).
+template <int kNW = kWarps>
 __device__ void scan_rays_warp(const TrainParams& p, const Tile& t, long long ray0, int n_valid) {
   const Field& f = p.f;
   const int S = f.S, lane = threadIdx.x & 31;
   const bool dist = p.dist_scale != 0.f;
-  for (int j = threadIdx.x >> 5; j < f.R; j += kWarps) {
+  for (int j = threadIdx.x >> 5; j < f.R; j += kNW) {
     const int r0 = j * S;
     if (j >= n_valid) {
       for (int s = lane; s < S; s += 32) t.dsig[r0 + s] = 0.f;
@@ -619,7 +631,7 @@ __global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainPara
   }
 }
 
-// The wide instance, for fields wider than kNarrowWidth (field.cuh): the
+// The mma.sync wide instance, past the cluster route (train_mode): the
 // streamed instance's per-sample values in the scratch and its warp scans,
 // with field_forward_wide's products, whose activations are the stashes
 // themselves: each forward epilogue writes its layer's stash, each backward
@@ -694,6 +706,386 @@ __global__ void __launch_bounds__(kThreads, 1) train_wide_kernel(const TrainPara
       __syncthreads();
     }
   }
+}
+
+// ---- the cluster instance: the wide route (field_cluster.cuh) ----
+
+struct TrainClusterParams {
+  TrainParams t;
+  cl::Geo geo;
+  cl::CSmem L;
+};
+
+// The pass's 128 rows of `cols` columns of a K-major tile (the act block,
+// or an encoding tile) to a row-major stash from dst (row stride ld):
+// 16-byte loads and evict-first stores, as stash_rows; then the consumers'
+// barrier, so that no epilogue overwrites a row another thread still reads.
+__device__ __forceinline__ void stash_block(const unsigned char* tile, bf16* dst, int ld, int cols,
+                                            int tid) {
+  const int vecs = cols / 8;
+  for (int i = tid; i < kRows * vecs; i += cl::kConsumerThreads) {
+    const int r = i / vecs, v = i % vecs;
+    __stcs(reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * ld + 8 * v),
+           *reinterpret_cast<const uint4*>(tile + wg::tile_off(r, 8 * v)));
+  }
+  cl::consumers_sync();
+}
+
+// store_block<true> (relu, bf16, into the act block) that also keeps the
+// relu bits (bf16 value > 0) as relu_bits does, from the registers: word w
+// of the block (its columns 32 w .. 32 w + 31, n8 tiles 4 w .. 4 w + 3) is
+// each quad's bits OR-ed over its four lanes, and lane w % 4 of the quad
+// stores it for both of the quad's rows (mask: the pass's first row's words
+// of this layer, mw a row, the block's first at w0; nw real words).
+__device__ __forceinline__ void relu_block_bits(const float* acc, unsigned char* act, int r0, int c0,
+                                                uint32_t* mask, int mw, int w0, int nw) {
+  const int q = threadIdx.x & 3;
+#pragma unroll
+  for (int w = 0; w < cl::kBlock / 32; ++w) {
+    uint32_t ma = 0, mb = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int jj = 4 * w + u, c = 8 * jj + c0;
+      const __nv_bfloat162 a = __floats2bfloat162_rn(fmaxf(acc[4 * jj], 0.f),
+                                                     fmaxf(acc[4 * jj + 1], 0.f));
+      const __nv_bfloat162 b = __floats2bfloat162_rn(fmaxf(acc[4 * jj + 2], 0.f),
+                                                     fmaxf(acc[4 * jj + 3], 0.f));
+      *reinterpret_cast<__nv_bfloat162*>(act + wg::tile_off(r0, c)) = a;
+      *reinterpret_cast<__nv_bfloat162*>(act + wg::tile_off(r0 + 8, c)) = b;
+      const uint32_t ua = *reinterpret_cast<const uint32_t*>(&a);
+      const uint32_t ub = *reinterpret_cast<const uint32_t*>(&b);
+      const int bit = 8 * u + c0;  // relu's output is >= 0: a value is > 0 where its magnitude is
+      ma |= ((ua & 0x7fffu) != 0u ? 1u : 0u) << bit | ((ua & 0x7fff0000u) != 0u ? 2u : 0u) << bit;
+      mb |= ((ub & 0x7fffu) != 0u ? 1u : 0u) << bit | ((ub & 0x7fff0000u) != 0u ? 2u : 0u) << bit;
+    }
+#pragma unroll
+    for (int o = 1; o < 4; o <<= 1) {
+      ma |= __shfl_xor_sync(0xffffffffu, ma, o);
+      mb |= __shfl_xor_sync(0xffffffffu, mb, o);
+    }
+    if ((w & 3) == q && w < nw) {
+      mask[static_cast<long long>(r0) * mw + w0 + w] = ma;
+      mask[static_cast<long long>(r0 + 8) * mw + w0 + w] = mb;
+    }
+  }
+}
+
+// GradStore on the warpgroup's sums: g = bf16((acc [+ dsig[r] srow[c]])
+// [bit]) into the act block, for the block's columns 8 jj + c0 (c = 256 j +
+// that); bits: the layer's relu bits from the pass's first row; zeros past
+// the n real columns. kTop: with d sigma (ds0, ds8: rows r0 and r0 + 8).
+template <bool kTop>
+__device__ __forceinline__ void grad_block(const float* acc, unsigned char* act, int r0, int c0,
+                                           int j, int n, const uint32_t* bits, int mw, float ds0,
+                                           float ds8, const float* srow) {
+  uint32_t wa = 0, wb = 0;  // the rows' bits of columns 32 (jj / 4) .. + 31
+#pragma unroll
+  for (int jj = 0; jj < cl::kBlock / 8; ++jj) {
+    const int cb = 8 * jj + c0, col = cl::kBlock * j + cb;
+    if ((jj & 3) == 0 && col < n) {  // a word a row every four n8 tiles
+      wa = bits[static_cast<long long>(r0) * mw + (col >> 5)];
+      wb = bits[static_cast<long long>(r0 + 8) * mw + (col >> 5)];
+    }
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[e] = acc[4 * jj + e];
+    if (col < n) {
+      if (kTop) {
+        const float s0 = srow[col], s1 = srow[col + 1];
+        v[0] = __fadd_rn(v[0], __fmul_rn(ds0, s0));
+        v[1] = __fadd_rn(v[1], __fmul_rn(ds0, s1));
+        v[2] = __fadd_rn(v[2], __fmul_rn(ds8, s0));
+        v[3] = __fadd_rn(v[3], __fmul_rn(ds8, s1));
+      }
+      const uint32_t a = wa >> (col & 31), b = wb >> (col & 31);
+      v[0] = (a & 1u) ? v[0] : 0.f;
+      v[1] = (a & 2u) ? v[1] : 0.f;
+      v[2] = (b & 1u) ? v[2] : 0.f;
+      v[3] = (b & 2u) ? v[3] : 0.f;
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+    cl::store_bf2(act, r0, cb, v[0], v[1]);
+    cl::store_bf2(act, r0 + 8, cb, v[2], v[3]);
+  }
+}
+
+// pass_drgb for the cluster instance: d rgb_raw of the pass at CTA row s0
+// into the K-major 16-column tile (columns 3-15 zero) the g_hv product
+// reads; with lead (CTA 0) also its rows of the grgb stash and the pass's
+// d sigma column of the gsf stash. The values the scans left in the
+// scratch, read through L2 (another CTA wrote them).
+__device__ __forceinline__ void drgb_block(const TrainParams& p, const Tile& t, unsigned char* tile,
+                                  long long ray0, int n_valid, int s0, bf16* grgb, bf16* gsf,
+                                  bool lead, int tid) {
+  const Field& f = p.f;
+  const float k = 2.f * p.loss_scale;
+  for (int i = tid; i < kRows * 16; i += cl::kConsumerThreads) {
+    const int r = i / 16, c = i % 16, cr = s0 + r, j = cr / f.S;
+    float v = 0.f;
+    if (c < 3 && j < n_valid) {
+      const long long ray = ray0 + j;
+      const float dc = k * (__ldcg(p.diag + ray * 8 + c) - p.gold[ray * 3 + c]);
+      const float rgb = __ldcg(t.rgb + cr * 4 + c);
+      v = __ldcg(t.w + cr) * dc * rgb * (1.f - rgb);
+    }
+    const bf16 b = __float2bfloat16_rn(v);
+    *reinterpret_cast<bf16*>(tile + wg::tile_off(r, c)) = b;
+    if (lead && c < 8) {
+      grgb[static_cast<long long>(cr) * 8 + c] = b;
+      gsf[static_cast<long long>(cr) * (f.F + 8) + f.F + c] =
+          __float2bfloat16_rn(c == 0 ? __ldcg(t.dsig + cr) : 0.f);
+    }
+  }
+  wg::fence_proxy_async();
+  cl::consumers_sync();
+}
+
+// The cluster instance's tile: its first ray, its rays in the batch, its
+// first stash row, and array k (ValOff) of its per-sample values.
+__device__ __forceinline__ long long ct_ray0(const TrainClusterParams& p) {
+  return cl::tile_of(p.geo) * p.t.f.R;
+}
+__device__ __forceinline__ int ct_rays(const TrainClusterParams& p) {
+  const long long left = p.t.f.n_rays - ct_ray0(p);
+  return left <= 0 ? 0 : (left < p.t.f.R ? static_cast<int>(left) : p.t.f.R);
+}
+__device__ __forceinline__ long long ct_row0(const TrainClusterParams& p) {
+  return cl::tile_of(p.geo) * p.t.f.rows;
+}
+__device__ __forceinline__ float* ct_vals(const TrainClusterParams& p, int k) {
+  return p.t.vals + k * p.t.rows_pad + ct_row0(p) * (k == kValRgb ? 4 : 1);
+}
+
+// The CTA's columns of an n-column layer: 256, or fewer in the last block.
+__device__ __forceinline__ int block_cols(int n, int j) {
+  return n - cl::kBlock * j < cl::kBlock ? n - cl::kBlock * j : cl::kBlock;
+}
+
+// The consumers of K2a's forward cluster kernel: every pass's encodings,
+// then its products in cl::prod_at's order (trunk, [feature | sigma], view:
+// each call site of one compile-time shape), each epilogue's block also to
+// its stash and its relu bits; CTA 0 writes the per-sample values to the
+// scratch and computes rgb (rgb_rows); then CTA 0 runs the scans. What a
+// product needs is recomputed from the parameters and the thread's index
+// rather than kept across it (the wgmma pipeline needs the registers).
+template <bool kContract>
+__device__ void consume_fwd(const TrainClusterParams& p) {
+  const TrainParams& tp = p.t;
+  const Field& f = tp.f;
+  const int j = __shfl_sync(0xffffffffu, cl::block_j(p.geo), 0);
+  const bool lead = j == 0;
+  const int L = f.n_layers, passes = f.rows / kRows;
+  unsigned char* act = cl::smem + cl::kActOff;
+  cl::Ring rg{0, 0};
+  float acc[cl::kBlock / 2];
+  float sig[4];
+  const int tid = threadIdx.x;
+  int q = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int s0 = pass * kRows;
+    cl::encode_pass<kContract>(f, p.L, ct_ray0(p), ct_rays(p), s0, tid);
+    if (lead) {
+      float* ts = ct_vals(p, kValTs);
+      float* dl = ct_vals(p, kValDl);
+      const long long r = ct_row0(p) + s0;  // the pass's first stash row
+      const int rows_valid = ct_rays(p) * f.S;
+      const long long g0 = ct_ray0(p) * f.S;
+      for (int i = tid; i < kRows; i += cl::kConsumerThreads) {
+        const int cr = s0 + i;
+        const bool ok = cr < rows_valid;
+        ts[cr] = ok ? f.ts[g0 + cr] : 0.f;
+        dl[cr] = ok ? f.deltas[g0 + cr] : 0.f;
+      }
+      stash_block(cl::smem + p.L.xs, tp.sx + r * f.P, f.P, f.P, tid);
+      stash_block(cl::smem + p.L.ds, tp.sdv + r * f.D, f.D, f.D, tid);
+    }
+    // ---- trunk ----
+    for (int i = 0; i < L; ++i, ++q) {
+      const cl::Prod pr = cl::prod_at(f, p.geo, q);
+      const bool part = j < pr.nblk;
+      cl::prefetch_bias(p.geo, cl::prod_at(f, p.geo, q + 1), j);
+      if (part)
+        cl::product<cl::kBlock, false>(rg, acc, sig, (pr.k1 + pr.k2) / 16, p.geo,
+                                       cl::bias_quads(p.geo, pr, j));
+      wg::mbar_wait_cluster(cl::sa(cl::kFreeOff), q & 1);
+      if (part)
+        relu_block_bits(acc, act, cl::frag_row(), cl::frag_col(),
+                        tp.mask + i * tp.rows_pad * tp.mw + (ct_row0(p) + s0) * tp.mw, tp.mw,
+                        8 * j, (block_cols(f.W, j) + 31) / 32);
+      cl::publish(p.geo);
+      if (part)
+        stash_block(act, tp.sh + i * tp.rows_pad * f.W + (ct_row0(p) + s0) * f.W + cl::kBlock * j,
+                    f.W, block_cols(f.W, j), tid);
+    }
+    // ---- [feature | sigma] ----
+    {
+      const cl::Prod pr = cl::prod_at(f, p.geo, q);
+      const bool part = j < pr.nblk;
+      cl::prefetch_bias(p.geo, cl::prod_at(f, p.geo, q + 1), j);
+      if (part)
+        cl::product<cl::kBlock, true>(rg, acc, sig, (pr.k1 + pr.k2) / 16, p.geo,
+                                      cl::bias_quads(p.geo, pr, j));
+      wg::mbar_wait_cluster(cl::sa(cl::kFreeOff), q & 1);
+      if (part) {
+        const int rr = cl::frag_row();
+        cl::store_block<false>(acc, act, rr, cl::frag_col());
+        if (lead) {
+          const int ld = (threadIdx.x & 31) & ~3;
+          const float s_a = __shfl_sync(0xffffffffu, sig[0], ld);
+          const float s_b = __shfl_sync(0xffffffffu, sig[2], ld);
+          const float bs = f.b[b_off(f, L) + f.F];
+          float* sig_raw = ct_vals(p, kValSig);
+          sig_raw[s0 + rr] = s_a + bs;
+          sig_raw[s0 + rr + 8] = s_b + bs;
+        }
+      }
+      cl::publish(p.geo);
+      if (part)
+        stash_block(act, tp.sfeat + (ct_row0(p) + s0) * f.F + cl::kBlock * j, f.F,
+                    block_cols(f.F, j), tid);
+      ++q;
+    }
+    // ---- view head ----
+    {
+      const cl::Prod pr = cl::prod_at(f, p.geo, q);
+      const bool part = j < pr.nblk;
+      cl::prefetch_bias(p.geo, cl::prod_at(f, p.geo, q + 1), j);
+      if (part)
+        cl::product<cl::kBlock, false>(rg, acc, sig, (pr.k1 + pr.k2) / 16, p.geo,
+                                       cl::bias_quads(p.geo, pr, j));
+      wg::mbar_wait_cluster(cl::sa(cl::kFreeOff), q & 1);
+      if (part)
+        relu_block_bits(acc, act, cl::frag_row(), cl::frag_col(),
+                        tp.mask + L * tp.rows_pad * tp.mw + (ct_row0(p) + s0) * tp.mw, tp.mw,
+                        8 * j, (block_cols(f.V, j) + 31) / 32);
+      cl::publish(p.geo);
+      if (part)
+        stash_block(act, tp.shv + (ct_row0(p) + s0) * f.V + cl::kBlock * j, f.V,
+                    block_cols(f.V, j), tid);
+      ++q;
+    }
+    // ---- CTA 0: rgb on the CUDA cores (the other CTAs' hv blocks, where
+    // there are any, after the view product's `ready`: see consume_cluster) ----
+    if (lead) {
+      if (p.geo.cv > 1) wg::mbar_wait_cluster(cl::sa(cl::kReadyOff), (q - 1) & 1);
+      cl::rgb_rows(f, p.geo, f.b + b_off(f, L + 2), ct_vals(p, kValRgb) + 4 * s0);
+      cl::hv_read(p.geo);
+    }
+  }
+
+  // ---- CTA 0: compositing, loss and the compositing VJP, a warp per ray ----
+  if (lead) {
+    cl::consumers_sync();
+    const Tile v = streamed_tile(Tile{}, tp, ct_row0(p));
+    scan_rays_warp<cl::kConsumerThreads / 32>(tp, v, ct_ray0(p), ct_rays(p));
+    cl::consumers_sync();
+    const long long g0 = ct_ray0(p) * f.S;
+    for (int i = tid; i < ct_rays(p) * f.S; i += cl::kConsumerThreads) tp.wts[g0 + i] = v.w[i];
+  }
+}
+
+// The consumers of K2a's backward cluster kernel, every pass: d rgb_raw
+// (the CTAs that take g_hv: drgb_block, from what the forward kernel's
+// scans left), then the products g_hv, dfeat, g_{L-1} and down the trunk to
+// g_0 through one call site (one compile-time shape), each epilogue's G
+// block to the act block and its stash.
+__device__ void consume_bwd(const TrainClusterParams& p) {
+  const TrainParams& tp = p.t;
+  const Field& f = tp.f;
+  const int j = __shfl_sync(0xffffffffu, cl::block_j(p.geo), 0);
+  const int passes = f.rows / kRows, nb = cl::bwd_products(f);
+  const int q0 = cl::fwd_products(f) * passes;
+  unsigned char* act = cl::smem + cl::kActOff;
+  cl::Ring rg{0, 0};
+  float acc[cl::kBlock / 2];
+  const int tid = threadIdx.x;
+  int q = q0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int s0 = pass * kRows;
+    const long long r = ct_row0(p) + s0, hs = tp.rows_pad * f.W, ms = tp.rows_pad * tp.mw;
+    if (j < p.geo.cv)
+      drgb_block(tp, streamed_tile(Tile{}, tp, ct_row0(p)), cl::smem + p.L.drgb, ct_ray0(p),
+                 ct_rays(p), s0, tp.grgb + ct_row0(p) * 8, tp.gsf + ct_row0(p) * (f.F + 8),
+                 j == 0, tid);
+    for (int i = 0; i < nb; ++i, ++q) {
+      const cl::Prod pr = cl::prod_at(f, p.geo, q);
+      const bool part = j < pr.nblk;
+      if (part && pr.kind != cl::kDfeat && threadIdx.x < kRows)  // the epilogue's relu bits
+        asm volatile("prefetch.global.L1 [%0];\n" ::"l"(tp.mask + pr.layer * ms +
+                                                         (r + threadIdx.x) * tp.mw + 8 * j));
+      if (part)
+        cl::product<cl::kBlock, false>(rg, acc, nullptr, (pr.k1 + pr.k2) / 16, p.geo, nullptr);
+      wg::mbar_wait_cluster(cl::sa(cl::kFreeOff), (q - q0) & 1);
+      if (part) {
+        const int rr = cl::frag_row(), cc = cl::frag_col();
+        if (pr.kind == cl::kDfeat) {  // dfeat = bf16(g_hv @ view_w^T)
+          cl::store_block<false>(acc, act, rr, cc);
+        } else if (pr.kind == cl::kGtop) {  // + dsigma sigma_row, [h_{L-1} > 0]
+          const float* dsig = ct_vals(p, kValDsig) + s0;
+          grad_block<true>(acc, act, rr, cc, j, f.W, tp.mask + pr.layer * ms + r * tp.mw, tp.mw,
+                           dsig[rr], dsig[rr + 8], tp.sigma_row);
+        } else {  // g_hv = (d rgb_raw @ rgb_w^T) [hv > 0]; g_{l-1} = (g_l W_l^T) [h_{l-1} > 0]
+          grad_block<false>(acc, act, rr, cc, j, pr.n, tp.mask + pr.layer * ms + r * tp.mw, tp.mw,
+                            0.f, 0.f, nullptr);
+        }
+      }
+      cl::publish(p.geo);
+      if (part) {
+        if (pr.kind == cl::kGhv)
+          stash_block(act, tp.ghv + r * f.V + cl::kBlock * j, f.V, block_cols(f.V, j), tid);
+        else if (pr.kind == cl::kDfeat)
+          stash_block(act, tp.gsf + r * (f.F + 8) + cl::kBlock * j, f.F + 8, block_cols(f.F, j),
+                      tid);
+        else
+          stash_block(act, tp.gh + pr.layer * hs + r * f.W + cl::kBlock * j, f.W,
+                      block_cols(f.W, j), tid);
+      }
+    }
+  }
+}
+
+// K2a's wide route, forward: a row group of C CTAs per tile (cluster of C
+// G CTAs), one tile a CTA, as train_tile_kernel's grid.
+template <bool kContract>
+__global__ void __launch_bounds__(cl::kThreads, 1) train_cluster_kernel(const TrainClusterParams p) {
+  const Field& f = p.t.f;
+  cl::init(p.geo);
+  const int q1 = f.rows / kRows * cl::fwd_products(f);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= cl::kProducerWarp) {
+    if (warp == cl::kProducerWarp) {
+      if ((threadIdx.x & 31) == 0) cl::produce(f, p.geo, 0, q1);
+    } else {
+      cl::load_a(f, p.geo, p.L, 0, q1, warp - cl::kLoaderWarp);
+    }
+  } else {
+    consume_fwd<kContract>(p);
+  }
+  wg::cluster_sync_any();  // no CTA leaves while another reads its shared memory
+}
+
+// K2a's wide route, backward: the same grid, after the forward kernel (its
+// stashes, relu bits and scans are what it reads). Its own kernel, so that
+// ptxas pipelines the wgmma of each (in one function the forward's and the
+// backward's call sites left it too few registers).
+__global__ void __launch_bounds__(cl::kThreads, 1) train_cluster_bwd_kernel(
+    const TrainClusterParams p) {
+  const Field& f = p.t.f;
+  cl::init(p.geo);
+  const int passes = f.rows / kRows;
+  const int q0 = cl::fwd_products(f) * passes, q1 = q0 + cl::bwd_products(f) * passes;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= cl::kProducerWarp) {
+    if (warp == cl::kProducerWarp) {
+      if ((threadIdx.x & 31) == 0) cl::produce(f, p.geo, q0, q1);
+    } else {
+      cl::load_a(f, p.geo, p.L, q0, q1, warp - cl::kLoaderWarp);
+    }
+  } else {
+    consume_bwd(p);
+  }
+  wg::cluster_sync_any();
 }
 
 // ---- K2b: dW = A^T G over rows, the bias sums db = sum_rows G folded in ----
@@ -912,36 +1304,61 @@ Scratch scratch_layout(unsigned char* base, long long rows_pad, long long rows, 
   return s;
 }
 
-// rows of every stash: the CTAs' whole tiles (R rays of S samples each)
-long long rows_padded(long long n_rays, int S) {
+// rows of every stash: the CTAs' whole tiles (R rays of S samples each),
+// a multiple of `group` tiles (the cluster instance's row groups a cluster)
+long long rows_padded(long long n_rays, int S, int group = 1) {
   const int rays = rays_per_cta(S);
-  return (n_rays + rays - 1) / rays * (rays * S);
+  const long long tiles = (n_rays + rays - 1) / rays;
+  return (tiles + group - 1) / group * group * (rays * S);
 }
 
-// K2a's instances: resident (kPasses = rows / 128), streamed (kPasses = 0)
-// or wide (train_wide_kernel).
-enum TrainMode { kResident, kStreamed, kWide };
+// K2a's instances: resident (kPasses = rows / 128), streamed (kPasses = 0),
+// wide (train_wide_kernel, mma.sync) or cluster (train_cluster_kernel).
+enum TrainMode { kResident, kStreamed, kWide, kCluster };
 
-// Which instance K2a takes: the wide one past kNarrowWidth, and where even
-// the streamed layout does not fit in the card's opt-in shared memory (wide
-// encodings: its tiles hold 256 (P + D) bytes of them beside two
-// activation tiles); else the streamed one past 256 samples or where the
-// resident layout does not fit; else the resident one. Sets *mode; returns
-// 0 or a cudaError_t.
+// Which instance K2a takes: up to kNarrowWidth the resident one where its
+// layout fits (and S <= 256), else the streamed one where its layout fits;
+// past that (wider fields, or encodings the streamed layout does not hold
+// beside two activation tiles) the cluster one where cl::takes, else the
+// mma.sync wide one (past 2,048 wide, or encodings too wide for the
+// cluster layout too). Sets *mode; returns 0 or a cudaError_t.
 int train_mode(const Field& f, TrainMode* mode) {
-  if (widest(f) > kNarrowWidth) {
-    *mode = kWide;
-    return 0;
-  }
   size_t optin = 0;
   const int rc = smem_optin(&optin);
   if (rc != 0) return rc;
-  if (f.S <= kMaxResident && smem_layout(f, false).total <= optin)
-    *mode = kResident;
-  else
-    *mode = smem_layout(f, true).total <= optin ? kStreamed : kWide;
+  if (widest(f) <= kNarrowWidth) {
+    if (f.S <= kMaxResident && smem_layout(f, false).total <= optin) {
+      *mode = kResident;
+      return 0;
+    }
+    if (smem_layout(f, true).total <= optin) {
+      *mode = kStreamed;
+      return 0;
+    }
+  }
+  *mode = cl::takes(f, true, optin) ? kCluster : kWide;
   return 0;
 }
+
+// The tiles a cluster of the mode's instance takes together (rows_padded's
+// group): the cluster instance's row groups, else 1.
+int tile_group(const Field& f, TrainMode mode) {
+  if (mode != kCluster) return 1;
+  long long w_elems = 0, b_elems = 0;
+  return cl::make_geo(f, true, &w_elems, &b_elems).G;
+}
+
+// Bytes of the cluster instance's repacked weights and biases, after the
+// scratch_layout's bytes (0 for the other modes).
+size_t pack_scratch(const Field& f, TrainMode mode, size_t* b_at) {
+  *b_at = 0;
+  if (mode != kCluster) return 0;
+  long long w_elems = 0, b_elems = 0;
+  cl::make_geo(f, true, &w_elems, &b_elems);
+  return cl::pack_bytes(w_elems, b_elems, b_at);
+}
+
+size_t align256(size_t bytes) { return (bytes + 255) & ~static_cast<size_t>(255); }
 
 }  // namespace
 
@@ -955,17 +1372,35 @@ long long nerf_fused_train_scratch_bytes(long long n_rays, int S, int depth_l, i
   if (!takes_samples(S)) return -1;
   Field f;
   set_layout(&f, S, W, F, V, P, D);
+  f.n_layers = depth_l;
   TrainMode mode = kResident;
   const int rc = train_mode(f, &mode);
   if (rc != 0) return -static_cast<long long>(rc);
-  return static_cast<long long>(scratch_layout(nullptr, rows_padded(n_rays, S), n_rays * S,
-                                               depth_l, W, F, V, P, D, total, mode != kResident)
-                                    .bytes);
+  size_t b_at = 0;
+  const size_t stash = scratch_layout(nullptr, rows_padded(n_rays, S, tile_group(f, mode)),
+                                      n_rays * S, depth_l, W, F, V, P, D, total, mode != kResident)
+                           .bytes;
+  const size_t packed = pack_scratch(f, mode, &b_at);
+  return static_cast<long long>(packed > 0 ? align256(stash) + packed : stash);
+}
+
+// The instance nerf_fused_train_grads takes for these shapes (TrainMode: 0
+// resident, 1 streamed, 2 mma.sync wide, 3 cluster); negative as
+// nerf_fused_train_scratch_bytes.
+int nerf_fused_train_route(int S, int W, int F, int V, int P, int D) {
+  if (!takes_samples(S)) return -1;
+  Field f;
+  set_layout(&f, S, W, F, V, P, D);
+  TrainMode mode = kResident;
+  const int rc = train_mode(f, &mode);
+  if (rc != 0) return -rc;
+  return static_cast<int>(mode);
 }
 
 // Padded rows of one launch at the padded S: the most whole tiles within
-// max_rows rows whose stashes (scratch_layout less the partials) take at
-// most max_bytes, one tile at least (fused_train.BLOCK_ROWS, BLOCK_BYTES).
+// max_rows rows whose scratch less the partials (the stashes, and on the
+// cluster route the repacked weights) takes at most max_bytes, one tile at
+// least (fused_train.BLOCK_ROWS, BLOCK_BYTES).
 // Negative: -1 for a sample count the kernels do not take, else a
 // cudaError_t negated.
 long long nerf_fused_train_block_rows(int S, int depth_l, int W, int F, int V, int P, int D,
@@ -973,14 +1408,22 @@ long long nerf_fused_train_block_rows(int S, int depth_l, int W, int F, int V, i
   if (!takes_samples(S)) return -1;
   Field f;
   set_layout(&f, S, W, F, V, P, D);
+  f.n_layers = depth_l;
   TrainMode mode = kResident;
   const int rc = train_mode(f, &mode);
   if (rc != 0) return -static_cast<long long>(rc);
   const long long tile = rows_padded(1, S);
+  const int group = tile_group(f, mode);
+  size_t b_at = 0;
+  const size_t packed = pack_scratch(f, mode, &b_at);
+  // nerf_fused_train_scratch_bytes less the partials: the stashes of the
+  // tiles rounded to the cluster's tiles, and the repacked weights
   auto stash = [&](long long tiles) {
-    return static_cast<long long>(scratch_layout(nullptr, tiles * tile, tiles * tile, depth_l,
-                                                 W, F, V, P, D, 0, mode != kResident)
-                                      .bytes);
+    const long long rows = (tiles + group - 1) / group * group * tile;
+    const size_t bytes = scratch_layout(nullptr, rows, rows, depth_l, W, F, V, P, D, 0,
+                                        mode != kResident)
+                             .bytes;
+    return static_cast<long long>(packed > 0 ? align256(bytes) + packed : bytes);
   };
   long long lo = 1, hi = max_rows / tile;  // the most tiles lies in [lo, hi]
   while (lo < hi) {
@@ -1020,11 +1463,11 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   const int L = depth_l;
   const long long total_w = w_off[L + 4] + static_cast<long long>(V) * 8;
   const long long total = total_w + b_off[L + 2] + 8;
-  const long long rows_pad = rows_padded(n_rays, S);
-  const long long rows = n_rays * S;
   TrainMode mode = kResident;
   rc = train_mode(p.f, &mode);
   if (rc != 0) return rc;
+  const long long rows_pad = rows_padded(n_rays, S, tile_group(p.f, mode));
+  const long long rows = n_rays * S;
   const bool streamed = mode != kResident;
   const Scratch s = scratch_layout(static_cast<unsigned char*>(scratch), rows_pad, rows, L, W,
                                    F, V, P, D, total, streamed);
@@ -1055,23 +1498,57 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   p.dist_b = dist_b;
   p.dist_disparity = dist_disparity;
 
-  const size_t smem = mode == kWide ? wide_layout(p.f).total : smem_layout(p.f, streamed).total;
-  const int passes = streamed ? 0 : p.f.rows / kRows;
-  auto tile = mode == kWide ? (contract ? train_wide_kernel<true> : train_wide_kernel<false>)
-              : passes == 3 ? (contract ? train_tile_kernel<3, true> : train_tile_kernel<3, false>)
-              : passes == 2 ? (contract ? train_tile_kernel<2, true> : train_tile_kernel<2, false>)
-              : passes == 1 ? (contract ? train_tile_kernel<1, true> : train_tile_kernel<1, false>)
-                            : (contract ? train_tile_kernel<0, true> : train_tile_kernel<0, false>);
-  rc = set_smem(tile, smem);
-  if (rc != 0) return rc;
-  rc = set_smem(dw_partial_kernel, kRedSmem);
-  if (rc != 0) return rc;
-  if (n_rays == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const unsigned ctas = static_cast<unsigned>(rows_pad / p.f.rows);
-  tile<<<ctas, kThreads, smem, st>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = cudaSuccess;
+  if (mode == kCluster) {  // PackedWeights.w and PackedWeightsT.w repacked after the stashes
+    TrainClusterParams q;
+    q.t = p;
+    long long w_elems = 0, b_elems = 0;
+    q.geo = cl::make_geo(p.f, true, &w_elems, &b_elems);
+    size_t b_at = 0;
+    cl::pack_bytes(w_elems, b_elems, &b_at);
+    unsigned char* at = static_cast<unsigned char*>(scratch) + align256(s.bytes);
+    q.geo.wp = reinterpret_cast<const bf16*>(at);
+    q.geo.bp = reinterpret_cast<const float*>(at + b_at);
+    size_t optin = 0;
+    rc = smem_optin(&optin);
+    if (rc != 0) return rc;
+    q.geo.stages = cl::fit_stages(p.f, true, optin);
+    q.L = cl::cluster_layout(p.f, true, q.geo.stages);
+    auto kernel = contract ? train_cluster_kernel<true> : train_cluster_kernel<false>;
+    rc = set_smem(kernel, q.L.total);
+    if (rc != 0) return rc;
+    rc = set_smem(train_cluster_bwd_kernel, q.L.total);
+    if (rc != 0) return rc;
+    rc = set_smem(dw_partial_kernel, kRedSmem);
+    if (rc != 0) return rc;
+    if (n_rays == 0) return 0;
+    rc = cl::pack(p.f, q.geo, p.f.w, w_off, p.f.b, b_off, p.wt, wt_off, st);
+    if (rc != 0) return rc;
+    const long long tiles = (n_rays + p.f.R - 1) / p.f.R;
+    rc = cl::launch(kernel, q, q.geo, tiles, q.L.total, st);
+    if (rc != 0) return rc;
+    rc = cl::launch(train_cluster_bwd_kernel, q, q.geo, tiles, q.L.total, st);
+    if (rc != 0) return rc;
+  } else {
+    const size_t smem =
+        mode == kWide ? wide_layout(p.f).total : smem_layout(p.f, streamed).total;
+    const int passes = streamed ? 0 : p.f.rows / kRows;
+    auto tile = mode == kWide ? (contract ? train_wide_kernel<true> : train_wide_kernel<false>)
+                : passes == 3 ? (contract ? train_tile_kernel<3, true> : train_tile_kernel<3, false>)
+                : passes == 2 ? (contract ? train_tile_kernel<2, true> : train_tile_kernel<2, false>)
+                : passes == 1 ? (contract ? train_tile_kernel<1, true> : train_tile_kernel<1, false>)
+                              : (contract ? train_tile_kernel<0, true> : train_tile_kernel<0, false>);
+    rc = set_smem(tile, smem);
+    if (rc != 0) return rc;
+    rc = set_smem(dw_partial_kernel, kRedSmem);
+    if (rc != 0) return rc;
+    if (n_rays == 0) return 0;
+    const unsigned ctas = static_cast<unsigned>(rows_pad / p.f.rows);
+    tile<<<ctas, kThreads, smem, st>>>(p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
 
   // K2b's jobs, in the packed order (depth + 4 or + 5 of them), launched
   // kJobs at a time (one launch up to depth 19); each job writes its own

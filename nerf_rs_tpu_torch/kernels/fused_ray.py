@@ -47,7 +47,7 @@ _SHAPE_ERRORS = {
         "every width to one)",
     -4: "the encoding does not fit its padded width",
     -5: "the CTA's layout needs more shared memory than the card gives a block, even the "
-        "wide instance's (which keeps the activations and encodings in device memory)",
+        "mma.sync wide instance's (which keeps the activations and encodings in device memory)",
     -6: "sigma_activation must be relu or softplus",
     -7: "radii must come with cfg.ipe and only with it",
     -8: "contract must be 0 or 1",
@@ -187,9 +187,9 @@ def fused_ray_render(
     samples, or where a CTA's per-sample values do not fit beside its tiles,
     the kernel's streamed instance composites pass by pass). Any widths
     (``pack_weights`` pads them to multiples of 16; past 256 the kernel's
-    wide instance runs on a scratch of activations), any depth and any
-    encoding (where no wgmma layout fits the encodings, the wide instance
-    runs too). Launches
+    cluster route runs, the packed weights repacked into a scratch:
+    ``route``), any depth and any encoding (where no wgmma layout fits the
+    encodings, the cluster route runs too). Launches
     on the current stream without synchronising.
     """
     _check(packed, origins, dirs, viewdirs, ts, deltas, cfg, num_samples, radii)
@@ -214,10 +214,10 @@ def fused_ray_render(
     w = torch.empty(n, S, device=dev)
     sigma = torch.empty(n, S, device=dev)
     lib = _library()
-    # the wgmma instances read K1's own layout; the wide instance, which the
+    # the wgmma instances read K1's own layout; the wide routes, which the
     # kernel takes where it asks for a scratch (past width 256, or where no
     # wgmma layout fits the encodings), the packed weights' (K2's)
-    nbytes = lib.nerf_fused_ray_scratch_bytes(n, S, packed.W, packed.F, packed.V,
+    nbytes = lib.nerf_fused_ray_scratch_bytes(n, S, packed.depth, packed.W, packed.F, packed.V,
                                               packed.P, packed.D)
     if nbytes < 0:
         raise ValueError(f"fused_ray kernel refused the call: {_SHAPE_ERRORS[-1]}"
@@ -269,11 +269,30 @@ def _library() -> ctypes.CDLL:
         )
         fn.restype = i32
         size = lib.nerf_fused_ray_scratch_bytes
-        size.argtypes = [i64] + [i32] * 6
+        size.argtypes = [i64] + [i32] * 7
         size.restype = i64
+        lib.nerf_fused_ray_route.argtypes = [i32] * 6
+        lib.nerf_fused_ray_route.restype = i32
         lib.nerf_cuda_error_string.argtypes = [i32]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+K1_ROUTES = ("wgmma", "cluster", "mma.sync wide")
+
+
+def route(packed: PackedWeights, num_samples: int) -> str:
+    """The K1 instance the kernel takes for ``packed``'s widths and encodings
+    at ``num_samples`` (C ``k1_route``, decided by shape on the card's shared
+    memory): "wgmma" (fields up to 256 wide), "cluster" (the wide route:
+    column blocks of 256 in clusters) or "mma.sync wide" (past 2,048 wide,
+    or encodings the cluster layout does not hold). Needs the built
+    library, so the card."""
+    rc = _library().nerf_fused_ray_route(padded_samples(num_samples), packed.W, packed.F,
+                                         packed.V, packed.P, packed.D)
+    if rc < 0:
+        raise ValueError(_SHAPE_ERRORS[-1] if rc == -1 else f"CUDA error {-rc} asking the route")
+    return K1_ROUTES[rc]
 
 
 def fused_ray_render_reference(

@@ -42,8 +42,9 @@ as the wgmma descriptors read it. A product's width is a compile-time wgmma
 shape, so each matrix's columns are padded with zeros to the next power of
 two from 16 (``k1_width``; the rgb head keeps its 8, and [feature | sigma]
 pads the feature block, sigma's 8 columns after it): no preset pads. A field
-wider than 256 runs K1's wide instance, which multiplies by
-``PackedWeights.w`` as K2 does (the kernel decides: ``fused_ray_render``).
+wider than 256 takes K1's and K2's wide routes, which read ``PackedWeights.w``
+(and ``PackedWeightsT.w``) and repack it on the card into their own blocks of
+256 columns (``csrc/field_cluster.cuh``; the kernel decides: ``fused_ray_render``).
 
 The kernels read the matrices' and biases' offsets from a small int64
 table in device memory (``build.device_table``; ``PackedWeights.offsets``,
@@ -177,7 +178,7 @@ class PackedWeights:
     @functools.cached_property
     def offsets(self) -> torch.Tensor:
         """``w_off`` then ``b_off`` on the weights' device (``build.device_table``):
-        K2's table, and K1's wide instance's."""
+        K2's table, and K1's wide routes'."""
         return build.device_table(self.w_off + self.b_off, self.w.device, torch.int64)
 
     @functools.cached_property

@@ -32,7 +32,7 @@ from ..config import ModelConfig
 
 from . import build
 from .fused_ray import (_SHAPE_ERRORS, _SIGMA_ACT, _check, _check_device, encode_samples,
-                        pad_samples, rays_per_cta)
+                        pad_samples, padded_samples, rays_per_cta)
 from .fused_render import PackedWeights, PackedWeightsT, padded_widths, pe_encode
 
 
@@ -198,10 +198,10 @@ def fused_train_grads(
     place, the blocks' gradients summed in block order), and
     ``fused_train_grads.launches`` counts each block's launch: a call
     within ``BLOCK_ROWS`` and ``BLOCK_BYTES`` adds 1. Any widths
-    (``pack_weights`` pads them to multiples of 16; past 256 the kernels'
-    wide instance keeps its activations in the stashes), any depth and any
-    encoding (where even the streamed layout does not fit the encodings,
-    the wide instance runs too).
+    (``pack_weights`` pads them to multiples of 16; past 256 K2a runs its
+    cluster route, a forward and a backward kernel, ``route``), any depth
+    and any encoding (where even the streamed layout does not fit the
+    encodings, the cluster route runs too).
     """
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
                  num_samples, radii)
@@ -301,9 +301,28 @@ def _library() -> ctypes.CDLL:
         rows = lib.nerf_fused_train_block_rows
         rows.argtypes = [i32] * 7 + [i64, i64]
         rows.restype = i64
+        lib.nerf_fused_train_route.argtypes = [i32] * 6
+        lib.nerf_fused_train_route.restype = i32
         lib.nerf_cuda_error_string.argtypes = [i32]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+K2_ROUTES = ("resident", "streamed", "mma.sync wide", "cluster")
+
+
+def route(packed: PackedWeights, num_samples: int) -> str:
+    """The K2a instance the kernels take for ``packed``'s widths and
+    encodings at ``num_samples`` (C ``train_mode``, decided by shape on the
+    card's shared memory): "resident", "streamed" (fields up to 256 wide),
+    "cluster" (the wide route: column blocks of 256 in clusters) or
+    "mma.sync wide" (past 2,048 wide, or encodings the cluster layout does
+    not hold). Needs the built library, so the card."""
+    rc = _library().nerf_fused_train_route(padded_samples(num_samples), packed.W, packed.F,
+                                           packed.V, packed.P, packed.D)
+    if rc < 0:
+        raise ValueError(_SHAPE_ERRORS[-1] if rc == -1 else f"CUDA error {-rc} asking the route")
+    return K2_ROUTES[rc]
 
 
 def fused_train_grads_reference(

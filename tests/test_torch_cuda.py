@@ -400,7 +400,7 @@ def test_wrappers_refuse_widths_above_256():
         pk = pack_weights(init_nerf_params(cfg, 0, dev), cfg)
         assert pk.widths == (w, w, w) and pk.W == -(-w // 16) * 16
         # K1's wide instance, and its layout, where the kernel asks for a scratch
-        assert (scratch_bytes(1, 16, pk.W, pk.F, pk.V, pk.P, pk.D) > 0) == (pk.W > 256)
+        assert (scratch_bytes(1, 16, pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D) > 0) == (pk.W > 256)
         k1, k2 = fused_ray_render.launches, fused_train_grads.launches
         fused_ray_render(pk, o, d, vd, ts, dl, cfg, 16)
         fused_train_grads(pk, pack_weights_t(pk), o, d, vd, ts, dl, gold, cfg, 16)
@@ -409,22 +409,39 @@ def test_wrappers_refuse_widths_above_256():
 
 
 # (net, feature, view head) widths the narrow instances did not take: not
-# multiples of 16 (padded: 40/40/24, 100/100/50) and past 256 (the wide
-# instances: 384/384/128, 512/512/256, 1024/256/128, mip-NeRF 360's trunk),
-# on PE and IPE, relu and softplus, the contraction with the distortion loss
-# in either space, S = 64, 192, 193 (-> 256) and 300 (the streamed passes),
-# ragged ray counts: (widths, sigma, IPE, distortion space or None, rays, S)
+# multiples of 16 (padded: 40/40/24, 100/100/50) and past 256 (the cluster
+# route: 384/384/128, 512/512/256, 1024/256/128, mip-NeRF 360's trunk; at its
+# edges a ragged last column block, 264, a padded width, 1000 -> 1008, and
+# the widest it holds, 2048, eight CTAs a row group; one past it, 2064, on
+# the mma.sync wide instances; view heads of two and three column blocks,
+# 384 and 520 -> 528, whose rgb reads the other CTAs' blocks, over several
+# passes a tile), on PE and IPE, relu and softplus, the
+# contraction with the distortion loss in either space, S = 64, 192, 193 (->
+# 256) and 300 (the streamed passes), ragged ray counts: (widths, sigma, IPE,
+# distortion space or None, rays, S)
 WIDTH_CASES = [
     ((40, 40, 24), "softplus", False, None, 37, 64),
     ((100, 100, 50), "relu", True, None, 37, 192),
     ((100, 100, 50), "softplus", False, "linear", 6, 193),
     ((384, 384, 128), "softplus", False, None, 37, 64),
     ((384, 384, 128), "relu", False, "linear", 37, 193),
+    ((384, 384, 384), "relu", False, None, 37, 192),
+    ((520, 256, 520), "softplus", True, None, 3, 300),
     ((512, 512, 256), "softplus", True, "disparity", 5, 300),
     ((512, 512, 256), "relu", False, None, 129, 64),
     ((1024, 256, 128), "softplus", False, "disparity", 37, 192),
     ((1024, 256, 128), "softplus", True, None, 3, 300),
+    ((264, 264, 128), "softplus", False, None, 37, 64),
+    ((1000, 256, 128), "relu", True, "linear", 9, 192),
+    ((2048, 256, 128), "softplus", False, None, 5, 64),
+    ((2064, 256, 128), "relu", False, None, 3, 64),
 ]
+
+
+# the route each of WIDTH_CASES' widths takes (C k1_route, train_mode)
+def _wide_route(widths) -> str:
+    return "mma.sync wide" if max(widths) > 2048 else "cluster"
+
 
 
 @pytest.mark.parametrize("widths,sigma_act,ipe,space,n,s", WIDTH_CASES)
@@ -433,13 +450,20 @@ def test_kernels_take_every_width(widths, sigma_act, ipe, space, n, s):
     13 and 14), random biases: each against its plain version (K1 at
     chip_smoke.TOL's bars; K2 also against its float64 witness, at KERNEL_TOL,
     with the contraction and the distortion loss in ``space`` when it is
-    given), one launch a call, reruns bit-identical."""
+    given), one launch a call, reruns bit-identical; past 256 on the route C
+    picks by shape (the cluster route up to 2048, the mma.sync wide
+    instances past it)."""
+    from nerf_rs_tpu_torch.kernels import fused_ray, fused_train
+
     dev = _device()
     w, f, v = widths
     contract = space is not None
     cfg = ModelConfig(net_depth=4, skip_layer=2, net_width=w, feature_width=f,
                       view_head_width=v, sigma_activation=sigma_act, ipe=ipe, contract=contract)
     pk = pack_weights(_biased_model(cfg, dev), cfg)
+    if max(widths) > 256:  # decided in C by shape
+        want = _wide_route(widths)
+        assert (fused_ray.route(pk, s), fused_train.route(pk, s)) == (want, want)
     rays, radii = _branch_rays(ipe, n, s, dev)
     if contract:  # samples from inside the unit ball to far outside it
         rays = (rays[0], rays[1], rays[2], rays[3] * 6.0, rays[4] * 6.0)
@@ -560,8 +584,8 @@ def test_kernels_take_any_depth_and_encoding(field, n, s):
     if cfg.net_depth > 100:
         _unit_variance_(model, cfg, rays[0], rays[1], rays[3])
     pk = pack_weights(model, cfg)
-    scratch = fused_ray._library().nerf_fused_ray_scratch_bytes(n, s, pk.W, pk.F, pk.V, pk.P,
-                                                                pk.D)
+    scratch = fused_ray._library().nerf_fused_ray_scratch_bytes(n, s, pk.depth, pk.W, pk.F, pk.V,
+                                                                pk.P, pk.D)
     assert (scratch > 0) == (cfg.pos_enc_levels >= 19), scratch
     args = (pk, *rays, cfg, s)
     before = fused_ray_render.launches

@@ -55,10 +55,11 @@ DEEPER = dataclasses.replace(DEEP, net_depth=130)
 WIDE = ModelConfig(net_depth=3, net_width=512, skip_layer=2, feature_width=512,
                    view_head_width=256, pos_enc_levels=4, dir_enc_levels=2)
 # (net, feature, view head) widths the port pads (pack_weights: to multiples
-# of 16) or runs on the kernels' wide instances (past 256): the odd ones and
-# mip-NeRF 360's 1024-wide trunk with this package's 256 / 128 heads
-WIDTHS = {"width40": (40, 40, 24), "width100": (100, 100, 50), "width384": (384, 384, 128),
-          "width1024": (1024, 256, 128)}
+# of 16) or runs on the kernels' wide routes (past 256): the odd ones, a
+# ragged last column block of the cluster route (264: 256 + 8) and mip-NeRF
+# 360's 1024-wide trunk with this package's 256 / 128 heads
+WIDTHS = {"width40": (40, 40, 24), "width100": (100, 100, 50), "width264": (264, 264, 128),
+          "width384": (384, 384, 128), "width1024": (1024, 256, 128)}
 FIELDS = {"depth21": DEEP, "depth130": DEEPER, "width512": WIDE,
           **{k: dataclasses.replace(MODEL, net_width=w, feature_width=f, view_head_width=v)
              for k, (w, f, v) in WIDTHS.items()}}
@@ -224,8 +225,8 @@ def test_plain_versions_of_deep_and_wide_fields_match_jax(name):
     at net_depth 21 and 130 (skip 4; the deeper at 64 samples and its trunk
     scaled to unit variance), at net_width 512 (feature 512, view head 256),
     at widths that are not multiples of 16 (40/40/24, 100/100/50: the port
-    pads them, the JAX package to its own lanes) and at 384/384/128 and
-    1024/256/128, 16 samples a ray, softplus density, white background for
+    pads them, the JAX package to its own lanes) and at 264/264/128,
+    384/384/128 and 1024/256/128, 16 samples a ray, softplus density, white background for
     K2. Up to width 256 the bars are the narrow cases'. Past it the f32 sums
     of 384 to 1024 products flip the bf16 rounding of some hidden activations
     with their order: at 512 the plain version and the JAX kernel each stand
