@@ -193,7 +193,7 @@ Phases, each fatal (any failure exits non-zero):
      for EMA_STEPS steps at 4096 x 64 (K2 exactly once a step), its EMA
      against the host's f32 recurrence from the weights of every step
      (EMA_TOL), a --profile_steps window whose Chrome trace names K2's
-     train_tile_kernel, a logging step's events; a resume of EMA_RESUME steps
+     train_narrow_kernel, a logging step's events; a resume of EMA_RESUME steps
      whose EMA keeps averaging from the restored one; `eval --max_views 2`
      and `render --depth --gif --frames 4` at 800x800 on the EMA weights (K1
      launches by the chunk plan; frame 0's depth PNG, decoded by the port,
@@ -235,17 +235,17 @@ Phases, each fatal (any failure exits non-zero):
      on the CPU (COMPAT_TOL; the head's gradient exactly 0); compat_predict
      against the reference's math in numpy (ORACLE_TOL); the compat step's
      time, best of 3 windows.
- 33. rays past 256 samples and fields past the resident layouts (run
+ 33. rays past 256 samples and fields past K1's resident layouts (run
      after phase 18): K1 and K2 vs their plain versions (K2 also vs the
      float64 witness; at S = 300 also vs autograd) at the flagship width on
      the 4,103 rays at S = 257, 300, 384, 512 and 640 (257 and 300 pad to
-     384: one ray a CTA in S / 128 passes, the streamed instances), on 64
-     rays at 2048, at S = 300 with IPE and with the contraction and the
-     disparity distortion loss, at depth 21 (skip 4, softplus; at S = 192 K1
-     no longer fits its resident layout: the streamed instance with two rays
-     a CTA spanning passes; under relu K2's gradients are held at
-     DEEP_RELU_GRADS: see deep_relu) and with IPE at 16 levels at S = 150
-     (both kernels streamed); each kernel twice, bit-identical, and once at
+     384: one ray a CTA in S / 128 passes; K1's streamed instance, K2's
+     narrow one), on 64 rays at 2048, at S = 300 with IPE and with the
+     contraction and the disparity distortion loss, at depth 21 (skip 4,
+     softplus; at S = 192 K1 no longer fits its resident layout: the
+     streamed instance with two rays a CTA spanning passes; under relu K2's
+     gradients are held at DEEP_RELU_GRADS: see deep_relu) and with IPE at 16
+     levels at S = 150 (K1 streamed); each kernel twice, bit-identical, and once at
      the padded S, whose pads' weights are 0 and whose other outputs equal
      the first call's bits; then one K2 call over 4096 x 512 (2,097,152
      rows: two launches of at most BLOCK_ROWS) against the same call in one
@@ -314,14 +314,17 @@ ptxas' report of every kernel instance, the flagship train step through
 K2, autograd and the plain version, one flagship K2 call and K1 chunk,
 every K1 and K2 call of phases 11 and 20 (K2 at S = 192 with 4096 rays
 among them) beside its library path, each K2 call's device time split by
-kernel, and the hierarchical train step through K2 and autograd; then the
+kernel, and every K2 preset's train step through K2 and autograd
+(TIMED_STEPS: hierarchical, mipnerf, unbounded, proposal, record, the
+flagship at 300 samples), each K2 step profiled; then the
 calls of phases 14 and 17: scatter_rows in both layouts (split into the
 sort and the reduce), K4's gathers, the ngp steps and frames, the
 factored step and K3's calls. Each K1 call also prints the bytes of
 weights that it must read from L2 by the kernel's design and the rate that
-implies: modelled, not measured. It also times the wide route's calls at
-512/512/256 and 1024/256/128 (width_calls: one K1 chunk and one K2 call
-beside the eager field and autograd, each K2 call split by kernel).
+implies: modelled, not measured. It also times the calls at 512/512/256
+and 1024/256/128 (the wide route) and at the padded widths 40/40/24 and
+100/100/50 (width_calls: one K1 chunk and one K2 call beside the eager
+field and autograd, each K2 call split by kernel).
 
     python3 chip_smoke.py --dp-cards N
 
@@ -410,6 +413,11 @@ LEARN_WORKERS = 4
 LEARN_VIEWS = 4
 PRESET_PSNR = {"hierarchical": 15.77, "mipnerf": 20.0}
 PRESETS = ("hierarchical", "mipnerf")
+# the train steps --time-step times (each through K2 and autograd, the K2 step
+# profiled for its device-idle share): every preset whose step runs K2, and
+# the flagship recipe at 300 samples (two K2 blocks a step)
+TIMED_STEPS = (("hierarchical", ()), ("mipnerf", ()), ("unbounded", ()), ("proposal", ()),
+               ("record", ()), ("full", ("--num_samples", "300")))
 PRESET_STEPS = 51
 # ragged (not a multiple of the kernel's 2-ray tile), and more than the
 # 4096 rays of a train step, so the branch checks cover its K2b splits
@@ -953,12 +961,14 @@ def k2_abs(got, want) -> float:
 
 def check_train_kernel(model, mcfg, rays, ts, gold, far) -> float:
     """K2 against its plain version, the float64 witness and autograd of
-    the eager path, at the flagship width; two launches bit-identical.
-    Returns the largest absolute difference from the plain version."""
+    the eager path, at the flagship width, on the narrow instance (the
+    route C takes up to 256 wide); two launches bit-identical. Returns the
+    largest absolute difference from the plain version."""
     import dataclasses
 
     import torch
 
+    from nerf_rs_tpu_torch.kernels import fused_train
     from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
     from nerf_rs_tpu_torch.kernels.fused_train import (
         KERNEL_TOL, fused_train_grads, fused_train_grads_reference, unpack_grads)
@@ -973,6 +983,8 @@ def check_train_kernel(model, mcfg, rays, ts, gold, far) -> float:
                              ("softplus, white bg", "softplus", True)):
         cfg = dataclasses.replace(mcfg, sigma_activation=act)
         pk = pack_weights(model, cfg)
+        if fused_train.route(pk, S) != "narrow wgmma":
+            fail(f"K2 [{case}]: route {fused_train.route(pk, S)}, want the narrow instance")
         args = (pk, pack_weights_t(pk), o, d, vd, ts, deltas, gold, cfg, S)
         got = fused_train_grads(*args, white_bg=white)
         torch.cuda.synchronize()
@@ -1081,7 +1093,7 @@ def plain_train_route():
 
 def kernel_name(key: str) -> str:
     """A profiler key's kernel name with its template arguments
-    ("train_tile_kernel<3, false>"), or the key's first 60 characters."""
+    ("train_narrow_kernel<false>"), or the key's first 60 characters."""
     m = re.search(r"(\w+kernel)(<[^()]*>)?", key)
     return m.group(1) + (m.group(2) or "") if m else key[:60]
 
@@ -1188,7 +1200,7 @@ def time_training(card: str) -> dict:
     if per is None:
         split = f"device time {NOT_PROFILED}"
     else:
-        k2a = sum(v for k, v in per.items() if "train_tile_kernel" in k)
+        k2a = sum(v for k, v in per.items() if re.search(r"train_\w*kernel", k))
         k2b = sum(v for k, v in per.items()
                   if re.search(r"dw_partial|colsum|reduce_kernel|feat_bias", k))
         split = (f"device time K2a {k2a:.3f} ms, K2b {k2b:.3f} ms ("
@@ -1304,6 +1316,16 @@ def check_render_branches(model, mcfg, rays, cam) -> float:
     return max_err
 
 
+def want_narrow(pk, S: int, label: str) -> None:
+    """Fails unless K2a takes its narrow instance ("narrow wgmma", C
+    train_mode) for ``pk`` at S, as every field up to 256 wide does."""
+    from nerf_rs_tpu_torch.kernels import fused_train
+
+    got = fused_train.route(pk, S)
+    if max(pk.widths) <= 256 and got != "narrow wgmma":
+        fail(f"{label}: K2a takes the {got} route, want the narrow instance")
+
+
 def check_train_branches(model, mcfg, rays, gold, cam) -> float:
     """K2's IPE and long-ray branches against the plain version and its
     float64 witness at the flagship width (white background); two
@@ -1319,6 +1341,7 @@ def check_train_branches(model, mcfg, rays, gold, cam) -> float:
     for name, ipe, s, ts, dl, radii in branch_inputs(cam, rays[0].device):
         cfg = branch_cfg(mcfg, name, ipe)
         pk = pack_weights(model, cfg)
+        want_narrow(pk, s, f"K2 [{name}]")
         args = (pk, pack_weights_t(pk), *rays, ts, dl, gold, cfg, s)
         got = fused_train_grads(*args, white_bg=True, radii=radii)
         torch.cuda.synchronize()
@@ -1355,6 +1378,7 @@ def check_union_rows(model, mcfg, rays, gold, cam) -> float:
 
     pk = pack_weights(model, mcfg)
     pkt = pack_weights_t(pk)
+    want_narrow(pk, 192, "K2 at S = 150-192")
     gen = torch_generator(rays[0].device, 13)
     max_err = 0.0
     for s in (150, 191, 192):
@@ -1820,7 +1844,7 @@ def learning_drive(pool, tmp: str, preset: str, extra=("--num_fine_samples", "64
     return finish
 
 
-# Rays past 256 samples and fields past the resident layouts (phase 33; the
+# Rays past 256 samples and fields past K1's resident layouts (phase 33; the
 # counterparts of the JAX kernels, which take any S and any depth): K1 and K2
 # against their plain versions (K2 also the float64 witness) on the N_RAYS
 # rays at LONG_S (257 and 300 pad to 384, one ray a CTA in S / 128 passes),
@@ -1828,8 +1852,8 @@ def learning_drive(pool, tmp: str, preset: str, extra=("--num_fine_samples", "64
 # distortion branches, at depth DEEP_DEPTH (skip DEEP_SKIP; at S = 192 K1's
 # resident layout, whose biases grow with depth, no longer fits: the
 # streamed instance, two rays a CTA spanning passes) and with IPE at
-# WIDE_PE_LEVELS levels at S = 150 (K2's resident layout does not fit
-# either: both streamed). Reruns bit-identical; the pads' weights exactly 0
+# WIDE_PE_LEVELS levels at S = 150 (K1 streamed; K2 takes every one of these
+# on its narrow instance). Reruns bit-identical; the pads' weights exactly 0
 # and the call at the padded S equal to the call on the rays as they are;
 # one K2 call over more than BLOCK_ROWS rows against its blocks called one
 # by one. Phase 34 drives the CLI's long-ray paths, LONG_STEPS steps each.
@@ -1918,6 +1942,7 @@ def check_long_case(label, model, cfg, rays, gold, ts, dl, radii=None, dist=None
         fail(f"K1 [{label}]: the call at the padded S = {sp} differs from the call at {s}")
     del got, again, padded
 
+    want_narrow(pk, s, f"K2 [{label}]")
     args = (pk, pack_weights_t(pk), o, d, vd, ts, dl, gold, cfg, s)
     got = fused_train_grads(*args, white_bg=True, radii=radii, **dist)
     torch.cuda.synchronize()
@@ -2533,6 +2558,7 @@ def check_deep_case(label, model, cfg, rays, gold, ts, dl) -> tuple:
 
     s = ts.shape[1]
     pk = pack_weights(model, cfg)
+    want_narrow(pk, s, f"K2 [{label}]")
     args = (pk, *rays, ts, dl, cfg, s)
     got = fused_ray_render(*args)
     if not all(torch.equal(a, b) for a, b in zip(got, fused_ray_render(*args))):
@@ -4685,13 +4711,13 @@ def drive_slice7(tmp: str, card: str) -> dict:
     gap = ema_gap(path, names, host)
     run_dir = os.path.join(ckdir, "run")
     traces = [f for f in os.listdir(run_dir) if f.startswith("trace-")]
-    trace_k2 = bool(traces) and "train_tile_kernel" in open(os.path.join(run_dir,
-                                                                       traces[0])).read()
+    trace_k2 = bool(traces) and "train_narrow_kernel" in open(os.path.join(run_dir,
+                                                                         traces[0])).read()
     events = [f for f in os.listdir(run_dir) if f.startswith("events.out.tfevents.")]
     logged = bool(events) and b"density" in open(os.path.join(run_dir, events[0]), "rb").read()
     print(f"EMA drive, {EMA_STEPS} steps: K2 launches {counts['K2']}, the EMA against the "
           f"host's recurrence {gap:.3g} (tol {EMA_TOL:g}); profiler trace {traces} names K2's "
-          f"train_tile_kernel: {trace_k2}; events {events} hold the logging step's "
+          f"train_narrow_kernel: {trace_k2}; events {events} hold the logging step's "
           f"diagnostics: {logged}")
     if not gap <= EMA_TOL or not trace_k2 or not logged:
         fail(f"EMA drive: EMA gap {gap} (tol {EMA_TOL}), trace names K2 {trace_k2}, "
@@ -5222,8 +5248,9 @@ def time_step(root: str) -> int:
     call of the main paths (BRANCH_SHAPES, UNB_SHAPES and RECORD_SHAPES: K2
     at S = 192 and 193 with 4096 rays among them) beside autograd's or the
     eager field's, each
-    K2 call split by kernel; the hierarchical step through K2 and through
-    autograd; then the hash grid's table gradient (scatter_rows at an ngp
+    K2 call split by kernel; the calls at the wide and padded widths
+    (WIDE_RUNS, PADDED_RUNS); the train steps of TIMED_STEPS through K2 and
+    through autograd, each K2 step's device-idle share; then the hash grid's table gradient (scatter_rows at an ngp
     step's fetches, both layouts, split into sort and reduce), K4's two
     gathers, both ngp steps and frames, and the factored step with K3's
     calls (forward at 524,288 points under bf16 and f32 and at 4,194,304,
@@ -5261,12 +5288,13 @@ def time_step(root: str) -> int:
     time_chunk(card, packed, mcfg, cfg.camera, flat_o, flat_d)
     time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d,
                   BRANCH_SHAPES + UNB_SHAPES + RECORD_SHAPES, plain_too=False)
-    for name in WIDE_RUNS:  # the wide route's calls beside the eager field and autograd
+    for name in WIDE_RUNS + PADDED_RUNS:  # calls at other widths beside the eager field and autograd
         wcfg = width_cfg(name, cfg.model)
         width_calls(name, seeded_model(wcfg, dev), wcfg, dataclasses.replace(cfg, model=wcfg),
                     flat_o, flat_d, card)
         wide_k2_split(sys.modules[__name__], name, dev, card)
-    preset_steps(card, "hierarchical", profiled=True)
+    for preset, extra in TIMED_STEPS:  # each preset's step through K2 and autograd, profiled
+        preset_steps(card, preset, profiled=True, extra=extra)
     del model, packed
     time_scatter(card, scatter_inputs(dev))
     time_gather(card, ngp_fetch_inputs(dev))
@@ -6375,6 +6403,8 @@ def main() -> int:
         "bound_by": k2_by,
         "library_ms": library["fused_train_grads"],
         "instances": instances["fused_train"],
+        "k2a": "train_narrow_kernel + train_narrow_bwd_kernel (route 'narrow wgmma', every "
+               "field up to 256 wide; past it the cluster and mma.sync wide routes)",
         "blocked_call_launches": blocked_launches,
         "branches": [r for r in branch_rows + unb_rows + rec_rows + long_rows
                      if r["kernel"] == "K2"],

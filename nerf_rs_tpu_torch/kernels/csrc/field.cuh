@@ -1,14 +1,11 @@
-// Device code of the whole-ray kernels. The training kernel K2
-// (fused_train.cu) runs all of it; the render kernel K1 (fused_ray.cu, on
-// wgmma: field_wgmma.cuh) takes only the field's description
-// (Field, init_field, takes_samples, rays_per_cta), the encodings, the IPE
-// moments, the contraction, smem_optin and set_smem.
-//
-// K2 evaluates the paper field on a CTA tile of 128 sample rows: PE (or
-// mip-NeRF's integrated encoding, IPE) of the points and view directions
-// into bf16 tiles in shared memory, then every layer as bf16 x bf16 -> f32
-// tensor-core products (mma.sync.m16n8k16) whose epilogues run in
-// registers.
+// Device code of the whole-ray kernels, K1 (fused_ray.cu) and K2
+// (fused_train.cu): the field's description (Field, init_field,
+// takes_samples, rays_per_cta), the encodings, the IPE moments, the
+// contraction, smem_optin and set_smem, which every instance takes; and the
+// mma.sync machinery (dense_layer, field_forward_wide) of the wide
+// instances past the cluster route. The narrow instances run on wgmma (K1:
+// fused_ray.cu with field_wgmma.cuh; K2: fused_train.cu's narrow section),
+// the wide route on field_cluster.cuh.
 //
 // Rays per CTA. A CTA takes whole rays: 128 / S of them when S divides
 // 128, two rays of S = 192 samples in three passes of 128 rows, or one ray
@@ -17,43 +14,31 @@
 // far end: a power of two up to 128, 192 for 129 to 192, 256 for 193 to
 // 256, else the next multiple of 128; kernels/fused_ray.padded_samples). A
 // pass may hold the end of one ray and the start of the next: every row
-// finds its ray as (CTA row) / S. The resident layout keeps the per-sample
-// values the compositing scan needs (raw sigma, rgb, ts, deltas; K2's
-// gradients) for the CTA's whole rays, `rows` = R * S of them, so a pass
-// writes its rows at offset s0 and the scan runs once over whole rays. Past
-// 256 samples, or where those values do not fit beside the tiles (IPE's
-// wide encoding at S = 192, a deep K1), the streamed instances keep only a
-// pass's worth on chip: K1 composites pass by pass, carrying each ray's
-// running sums, and K2 keeps the values in its global scratch.
+// finds its ray as (CTA row) / S.
 //
-// Layout of a product. 16 warps tile the 128 rows 4 ways (32 rows each)
-// and the output columns in chunks of 64. A operands come from shared
-// memory through ldmatrix; B operands (weights, pre-packed by
+// The mma.sync instances' products. 16 warps tile the 128 rows 4 ways (32
+// rows each) and the output columns in chunks of 64. A operands come
+// through ldmatrix; B operands (weights, pre-packed by
 // kernels/fused_render._swizzle so each lane's fragment is 8 contiguous
 // bytes) through a ring of k16 slices in shared memory that cp.async
 // fills two slices ahead of the products: each slice leaves L2 once per
 // CTA instead of once per row-group warp, and no warp waits on L2 for its
 // fragments.
-// Activations alternate between two buffers, so no warp overwrites rows
-// another warp still reads. K2's copies leave the SM from those buffers
-// after each layer's barrier (stash_rows: 16-byte stores with an
-// evict-first hint, row after row), its relu masks as bits (relu_bits:
-// one __ballot_sync per 32 columns).
 //
-// Wide fields. Past kNarrowWidth (256) a warpgroup's sums, and at 384 or
-// more K2's two activation tiles, no longer fit a CTA; the JAX kernels take
-// any width. Such fields, and fields whose encodings no narrow layout holds
-// beside its tiles, take the cluster route (field_cluster.cuh: wgmma, the
-// activations spread over a cluster's shared memory) up to 2,048 wide and
-// where its layout holds the encodings (fused_ray.cu k1_route, fused_train.cu
-// train_mode). Past that the mma.sync wide instances (K1's
-// fused_ray_wide_kernel, K2's train_wide_kernel) run field_forward_wide:
-// every activation and encoding tile lies in device memory (K2: its
-// stashes, which it writes anyway; K1: two buffers a CTA of a persistent
-// grid), each product stages its A operand's k-slices into shared memory
-// beside the weight slices, and the epilogues store to device memory.
-// Shared memory stays ~60 KB at any width, so no field is refused; the
-// products and their order are the narrow instances'.
+// Wide fields. Past kNarrowWidth (256) a warpgroup's sums and the act block
+// no longer fit a CTA; the JAX kernels take any width. Such fields, and
+// fields whose encodings no narrow layout holds beside its tiles, take the
+// cluster route (field_cluster.cuh: wgmma, the activations spread over a
+// cluster's shared memory) up to 2,048 wide and where its layout holds the
+// encodings (fused_ray.cu k1_route, fused_train.cu train_mode). Past that
+// the mma.sync wide instances (K1's fused_ray_wide_kernel, K2's
+// train_wide_kernel) run field_forward_wide: every activation and encoding
+// tile lies in device memory (K2: its stashes, which it writes anyway; K1:
+// two buffers a CTA of a persistent grid), each product stages its A
+// operand's k-slices into shared memory beside the weight slices, and the
+// epilogues store to device memory. Shared memory stays ~60 KB at any
+// width, so no field is refused; the products and their order are the
+// narrow instances'.
 //
 // Numerics: no fast math. sinf/cosf with exact ldexpf scales for the PE
 // (sin(2^9 x) loses its phase with a low-precision argument or sine);
@@ -87,15 +72,15 @@ constexpr int kWarpRows = kRows / kRowGroups;    // 32 rows per warp
 constexpr int kMT = kWarpRows / 16;              // m16 tiles per warp
 constexpr int kChunk = 8;                        // n8 tiles per warp pass (64 columns)
 constexpr int kLdr = 24;                         // row stride of K2's 16-wide rgb-gradient tile
-constexpr int kMaxResident = 256;                // longest padded ray of the resident layouts
+constexpr int kMaxResident = 256;                // longest padded ray of K1's resident layouts
 constexpr int kWStages = 3;                      // weight slices in the ring
 constexpr int kRoundTiles = kColGroups * kChunk; // n8 tiles of a product per round: 32
 constexpr int kWSlice = kRoundTiles * 32;        // uint2 per slice: 32 lanes a tile (8 KB)
 constexpr int kRayStride = 10;                   // per ray in shared memory: o, d, viewdir, radius
 constexpr int kParamOffs = 16;                   // leading offsets also in the parameters
-// the widest layer the narrow instances take: K1's warpgroup sums (64 x 256
-// f32) and K2's two activation tiles beside its encodings; wider fields
-// take the wide instances (below)
+// the widest layer the narrow instances take: K1's and K2's warpgroup sums
+// (64 x 256 f32) and their act block of 128 x 256 bf16; wider fields take
+// the wide instances (below)
 constexpr int kNarrowWidth = 256;
 constexpr int kALd = 24;                         // row stride of a staged A slice: 16 + 8 bf16
 constexpr int kASlice = kRows * kALd;            // bf16 per staged A slice (6 KB)
@@ -210,45 +195,10 @@ inline int init_field(Field* f, const void* o, const void* d, const void* vd, co
   return 0;
 }
 
-struct SmemLayout {
-  size_t buf0, buf1, xs, ds, mv, sig_raw, rgb, ts, dl, w, sg, ray, dpe, drgb, dsig, wring, total;
-};
-
 __host__ __device__ inline size_t take(size_t* at, size_t bytes) {
   const size_t here = *at;
   *at += (bytes + 15) & ~static_cast<size_t>(15);
   return here;
-}
-
-// The pass tiles (activations, encodings, moments) hold 128 rows. The
-// resident layout holds the per-sample values of the CTA's whole rays,
-// f.rows of them, and K2's rgb-gradient tile and dsigma column for as many;
-// the streamed one none of those values (K2's scratch holds them) and the
-// rgb-gradient tile for one pass. Then the weight ring. At paper width
-// K2's resident three-pass CTA takes 225,616 B of the 232,448 an H100 block
-// may have.
-__host__ __device__ inline SmemLayout smem_layout(const Field& f, bool streamed) {
-  const int rows = streamed ? 0 : f.rows;
-  SmemLayout L;
-  size_t at = 0;
-  L.buf0 = take(&at, sizeof(bf16) * kRows * f.ldb);
-  L.buf1 = take(&at, sizeof(bf16) * kRows * f.ldb);
-  L.xs = take(&at, sizeof(bf16) * kRows * f.ldx);
-  L.ds = take(&at, sizeof(bf16) * kRows * f.ldd);
-  L.mv = take(&at, sizeof(float) * kRows * 6);
-  L.sig_raw = take(&at, sizeof(float) * rows);
-  L.rgb = take(&at, sizeof(float) * rows * 4);
-  L.ts = take(&at, sizeof(float) * rows);
-  L.dl = take(&at, sizeof(float) * rows);
-  L.w = take(&at, sizeof(float) * rows);
-  L.sg = take(&at, sizeof(float) * rows);
-  L.ray = take(&at, sizeof(float) * f.R * kRayStride);
-  L.dpe = take(&at, sizeof(float) * f.R * f.D);
-  L.drgb = take(&at, sizeof(bf16) * (streamed ? kRows : rows) * kLdr);
-  L.dsig = take(&at, sizeof(float) * rows);
-  L.wring = take(&at, sizeof(uint2) * kWStages * kWSlice);
-  L.total = at;
-  return L;
 }
 
 // The CTA's shared-memory regions.
@@ -270,27 +220,6 @@ struct Tile {
   float* dsig;   // K2: d sigma_raw rounded to bf16
   uint2* wring;  // kWStages k16 slices of a product's packed weights
 };
-
-__device__ inline Tile carve(unsigned char* smem, const SmemLayout& L) {
-  Tile t;
-  t.buf0 = reinterpret_cast<bf16*>(smem + L.buf0);
-  t.buf1 = reinterpret_cast<bf16*>(smem + L.buf1);
-  t.xs = reinterpret_cast<bf16*>(smem + L.xs);
-  t.ds = reinterpret_cast<bf16*>(smem + L.ds);
-  t.mv = reinterpret_cast<float*>(smem + L.mv);
-  t.sig_raw = reinterpret_cast<float*>(smem + L.sig_raw);
-  t.rgb = reinterpret_cast<float*>(smem + L.rgb);
-  t.ts = reinterpret_cast<float*>(smem + L.ts);
-  t.dl = reinterpret_cast<float*>(smem + L.dl);
-  t.w = reinterpret_cast<float*>(smem + L.w);
-  t.sg = reinterpret_cast<float*>(smem + L.sg);
-  t.ray = reinterpret_cast<float*>(smem + L.ray);
-  t.dpe = reinterpret_cast<float*>(smem + L.dpe);
-  t.drgb = reinterpret_cast<bf16*>(smem + L.drgb);
-  t.dsig = reinterpret_cast<float*>(smem + L.dsig);
-  t.wring = reinterpret_cast<uint2*>(smem + L.wring);
-  return t;
-}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -581,199 +510,11 @@ struct RgbStore {
   }
 };
 
-// Global stashes of K2's forward, each offset to the pass's first row and
-// row-major at its own width: x (P), h_l (W, layer l at h + l * h_stride),
-// feat (F), hv (V), dv (D); and the relu masks as bits, mw 32-bit words
-// per row, trunk layer l at mask + l * mask_stride and hv at layer
-// n_layers.
-struct Stash {
-  bf16* x;
-  bf16* h;
-  long long h_stride;
-  bf16* feat;
-  bf16* hv;
-  bf16* dv;
-  uint32_t* mask;
-  long long mask_stride;
-  int mw;
-};
-
-// The pass's 128 rows of an smem tile (row stride lds, `cols` columns, a
-// multiple of 8) to a global stash (row stride ldd): 16-byte loads and
-// stores, consecutive threads on consecutive addresses, st.global.cs (the
-// stash is read back only after the whole grid, by K2b: it should not
-// push the masks out of L2).
-__device__ __forceinline__ void stash_rows(bf16* dst, int ldd, const bf16* src, int lds,
-                                           int cols) {
-  const int vecs = cols / 8;
-  for (int i = threadIdx.x; i < kRows * vecs; i += kThreads) {
-    const int r = i / vecs, v = (i % vecs) * 8;
-    __stcs(reinterpret_cast<uint4*>(dst + static_cast<long long>(r) * ldd + v),
-           *reinterpret_cast<const uint4*>(src + r * lds + v));
-  }
-}
-
-// The relu masks (value > 0) of the pass's 128 rows of an smem tile, `cols`
-// columns, as bits: word w of row r holds columns 32 w .. 32 w + 31, bit
-// j column 32 w + j. One __ballot_sync per word; lane w keeps word w of
-// its row and the mw words of a row leave in one coalesced store.
-__device__ __forceinline__ void relu_bits(uint32_t* mask, int mw, const bf16* src, int lds,
-                                          int cols) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < kRows; r += kWarps) {
-    uint32_t mine = 0;
-    for (int w = 0; w < mw; ++w) {
-      const int c = w * 32 + lane;
-      const bool on = c < cols && __bfloat162float(src[r * lds + c]) > 0.f;
-      const uint32_t word = __ballot_sync(0xffffffffu, on);
-      if (lane == w) mine = word;
-    }
-    if (lane < mw) mask[static_cast<long long>(r) * mw + lane] = mine;
-  }
-}
-
-// The field on one 128-row pass of the CTA's rays: inputs, encodings,
-// trunk and heads. CTA row s0 + r (ray (s0 + r) / S, sample (s0 + r) % S)
-// is the pass's row r. Leaves raw sigma and rgb in t.sig_raw / t.rgb and
-// ts and deltas in t.ts / t.dl, all at CTA row s0 + r, and returns the
-// buffers that hold hv and feat. The stashes `st` start at the pass's
-// first row. Rows of rays past the end of the batch compute on zero
-// inputs: finite values the callers never store. kContract: the point, or
-// the IPE Gaussian, is contracted before the encoding (a compile-time
-// switch, so the kernels without it are the ones they were).
-template <bool kContract>
-__device__ inline void field_forward(const Field& p, const Tile& t, long long ray0, int n_valid,
-                                     int s0, const Stash& st, bf16** hv_buf, bf16** feat_buf) {
-  const int S = p.S;
-  const int tid = threadIdx.x;
-
-  // ---- inputs; zeros past the last ray ----
-  for (int i = tid; i < p.R * kRayStride; i += kThreads) {
-    const int j = i / kRayStride, k = i % kRayStride;
-    float v = 0.f;
-    if (j < n_valid) {
-      if (k < 9) {
-        const float* src = k < 3 ? p.o : (k < 6 ? p.d : p.vd);
-        v = src[(ray0 + j) * 3 + k % 3];
-      } else if (p.ipe) {
-        v = p.radii[ray0 + j];
-      }
-    }
-    t.ray[i] = v;
-  }
-  for (int r = tid; r < kRows; r += kThreads) {
-    const int cr = s0 + r;
-    const bool ok = cr / S < n_valid;
-    t.ts[cr] = ok ? p.ts[ray0 * S + cr] : 0.f;
-    t.dl[cr] = ok ? p.deltas[ray0 * S + cr] : 0.f;
-  }
-  __syncthreads();
-
-  // ---- per row: the point o + t d, or (IPE) the frustum's mean and variance ----
-  for (int r = tid; r < kRows; r += kThreads) {
-    const int cr = s0 + r;
-    const float* ray = t.ray + (cr / S) * kRayStride;
-    float* mv = t.mv + r * 6;
-    if (p.ipe && cr / S < n_valid) {
-      ipe_moments(ray, ray + 3, t.ts[cr], t.dl[cr], ray[9], mv);
-    } else {
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        mv[k] = __fadd_rn(ray[k], __fmul_rn(t.ts[cr], ray[3 + k]));
-        mv[3 + k] = 0.f;
-      }
-    }
-    if (kContract) {
-      if (p.ipe)
-        contract_gaussian(mv);
-      else
-        contract_points(mv);
-    }
-  }
-  __syncthreads();
-
-  // ---- encodings: PE or IPE per row, PE(viewdir) once per ray ----
-  const int pos_dim = 3 + 6 * p.pos_levels;
-  for (int i = tid; i < kRows * p.P; i += kThreads) {
-    const int r = i / p.P, c = i % p.P;
-    float v = 0.f;
-    if (c < pos_dim) {
-      const float* mv = t.mv + r * 6;
-      const int dim = c < 3 ? c : (c - 3) % 3;
-      v = p.ipe ? ipe_value(mv[dim], mv[3 + dim], c) : pe_value(mv[dim], c);
-    }
-    t.xs[r * p.ldx + c] = __float2bfloat16_rn(v);
-  }
-  const int dir_dim = 3 + 6 * p.dir_levels;
-  for (int i = tid; i < p.R * p.D; i += kThreads) {
-    const int j = i / p.D, c = i % p.D;
-    float v = 0.f;
-    if (c < dir_dim) v = pe_value(t.ray[j * kRayStride + 6 + (c < 3 ? c : (c - 3) % 3)], c);
-    t.dpe[i] = v;
-  }
-  __syncthreads();
-  for (int i = tid; i < kRows * p.D; i += kThreads) {
-    const int r = i / p.D, c = i % p.D;
-    t.ds[r * p.ldd + c] = __float2bfloat16_rn(t.dpe[((s0 + r) / S) * p.D + c]);
-  }
-  __syncthreads();
-  // K2 always passes its stashes, so `stash` is always true; the branches
-  // stay because without them ptxas allocates every resident K2 instance
-  // differently (spills of 44/48 B become 92/140 B at one pass, 588/3160 B
-  // 652/3264 B at three; compiled side by side on the card)
-  const bool stash = st.h != nullptr;
-  if (stash) {
-    stash_rows(st.x, p.P, t.xs, p.ldx, p.P);
-    stash_rows(st.dv, p.D, t.ds, p.ldd, p.D);
-  }
-
-  // ---- trunk ----
-  const uint2* skip_w = reinterpret_cast<const uint2*>(p.w + w_off(p, p.n_layers));
-  const bf16* h = t.xs;
-  int ldh = p.ldx, kh = p.P;
-  for (int i = 0; i < p.n_layers; ++i) {
-    bf16* out = (i & 1) ? t.buf1 : t.buf0;
-    const bool skip = i == p.skip && i > 0;
-    dense_layer(h, ldh, kh, reinterpret_cast<const uint2*>(p.w + w_off(p, i)),
-                skip ? t.xs : nullptr, p.ldx, p.P, skip_w, p.W, t.wring,
-                ReluStore{out, p.ldb, p.b + b_off(p, i)});
-    __syncthreads();
-    if (stash) {
-      stash_rows(st.h + i * st.h_stride, p.W, out, p.ldb, p.W);
-      relu_bits(st.mask + i * st.mask_stride, st.mw, out, p.ldb, p.W);
-    }
-    h = out;
-    ldh = p.ldb;
-    kh = p.W;
-  }
-  bf16* hbuf = const_cast<bf16*>(h);
-  bf16* other = hbuf == t.buf0 ? t.buf1 : t.buf0;
-  const int m = p.n_layers;  // w_off[m] is skip; heads follow; b_off[m] is the first head's
-
-  // ---- heads ----
-  dense_layer(hbuf, p.ldb, p.W, reinterpret_cast<const uint2*>(p.w + w_off(p, m + 1)),
-              nullptr, 0, 0, nullptr, p.F + 8, t.wring,
-              FeatSigmaStore{other, p.ldb, p.b + b_off(p, m), t.sig_raw + s0, p.F});
-  __syncthreads();
-  if (stash) stash_rows(st.feat, p.F, other, p.ldb, p.F);
-  dense_layer(other, p.ldb, p.F, reinterpret_cast<const uint2*>(p.w + w_off(p, m + 2)),
-              t.ds, p.ldd, p.D, reinterpret_cast<const uint2*>(p.w + w_off(p, m + 3)), p.V,
-              t.wring, ReluStore{hbuf, p.ldb, p.b + b_off(p, m + 1)});
-  __syncthreads();
-  if (stash) {
-    stash_rows(st.hv, p.V, hbuf, p.ldb, p.V);
-    relu_bits(st.mask + m * st.mask_stride, st.mw, hbuf, p.ldb, p.V);
-  }
-  dense_layer(hbuf, p.ldb, p.V, reinterpret_cast<const uint2*>(p.w + w_off(p, m + 4)),
-              nullptr, 0, 0, nullptr, 8, t.wring, RgbStore{t.rgb + s0 * 4, p.b + b_off(p, m + 2)});
-  __syncthreads();
-  *hv_buf = hbuf;
-  *feat_buf = other;
-}
-
-// The wide instances' relu masks: relu_bits for a row of any number of
-// words, lane w % 32 keeping word w and each 32 words of a row leaving in
-// one coalesced store.
+// The mma.sync wide instances' relu masks (value > 0) of the pass's 128
+// rows of a tile, `cols` columns, as bits: word w of row r holds columns 32
+// w .. 32 w + 31, bit j column 32 w + j; one __ballot_sync per word, lane w
+// % 32 keeping word w and each 32 words of a row leaving in one coalesced
+// store.
 __device__ __forceinline__ void relu_bits_wide(uint32_t* mask, int mw, const bf16* src, int lds,
                                                int cols) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -795,8 +536,9 @@ __device__ __forceinline__ void relu_bits_wide(uint32_t* mask, int mw, const bf1
 // Where the wide forward leaves each product's bf16 output for the pass's
 // 128 rows, row-major at the output's own width from the pass's first row:
 // the encodings x (P) and dv (D), trunk layer l at h + (l % h_cycle) *
-// h_stride (W), feat (F) and hv (V); with mask, the relu bits as Stash
-// keeps them. K2's are its stashes (h_cycle = depth); K1's a CTA's two
+// h_stride (W), feat (F) and hv (V); with mask, the relu bits (mw words a
+// row, layer l at mask + l * mask_stride, hv at layer n_layers), as K2b reads
+// them. K2's are its stashes (h_cycle = depth); K1's a CTA's two
 // activation buffers in device memory (h_cycle = 2, feat and hv in the one
 // the last trunk layer did not write, then in the one it did).
 struct WideOut {
@@ -846,11 +588,11 @@ __device__ inline Tile carve_wide(unsigned char* smem, const WideSmem& L) {
   return t;
 }
 
-// field_forward for the wide instances (fields wider than kNarrowWidth):
-// the same inputs, moments, encodings and products in the same order, with
-// every product's A staged from device memory (dense_layer's kStageA, ring
-// `aring`) and its epilogue writing to device memory (WideOut), so no tile
-// grows with the width. A layer's output goes to another buffer than its
+// The field on one 128-row pass for the mma.sync wide instances (fields
+// wider than the cluster route takes): the inputs, moments, encodings and
+// products in the paper field's order, with every product's A staged from
+// device memory (dense_layer's kStageA, ring `aring`) and its epilogue
+// writing to device memory (WideOut), so no tile grows with the width. A layer's output goes to another buffer than its
 // input and the barrier after each product orders the two; the stores
 // reach the next product's cp.async reads through L2.
 template <bool kContract>

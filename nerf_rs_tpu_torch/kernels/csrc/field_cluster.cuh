@@ -667,7 +667,7 @@ __device__ __forceinline__ void store_block(const float* acc, unsigned char* act
 // viewdir, radius; zeros past the last ray), each row's point o + t d or
 // (IPE) conical-frustum Gaussian, contracted with kContract, then PE or IPE
 // into the xs tile and PE(viewdir) into the ds tile, K-major: the values of
-// field.cuh's field_forward (pe_value, ipe_value), rounded to bf16 once.
+// field.cuh's pe_value and ipe_value, rounded to bf16 once.
 template <bool kContract>
 __device__ __forceinline__ void encode_pass(const Field& f, const CSmem& L, long long ray0, int n_valid,
                                    int s0, int tid) {

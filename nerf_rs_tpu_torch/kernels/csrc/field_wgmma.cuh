@@ -1,8 +1,8 @@
-// Hopper primitives of the render kernel K1 (fused_ray.cu) and of both
-// kernels' wide route (field_cluster.cuh): warpgroup matrix products
-// (wgmma), mbarriers, bulk copies into shared memory (with cluster
-// multicast), named barriers, and reads of another cluster CTA's shared
-// memory. K2's narrow instances keep field.cuh's mma.sync machinery.
+// Hopper primitives of the render kernel K1 (fused_ray.cu), of both
+// kernels' wide route (field_cluster.cuh) and of K2a's narrow instance
+// (fused_train.cu): warpgroup matrix products (wgmma), mbarriers, bulk
+// copies into shared memory (with cluster multicast), named barriers, and
+// reads of another cluster CTA's shared memory.
 //
 // Operand layout. Every wgmma operand is K-major in shared memory without a
 // swizzle ("interleave"): 8 x 8 bf16 core matrices of 128 contiguous bytes,

@@ -26,84 +26,44 @@
 // near), or disparity, (1/near - 1/t) / (1/near - 1/far); under IPE the
 // interval's s-length is exact, dt / ((mid - dt/2)(mid + dt/2)). The pads'
 // repeated t keeps 1/t finite, and their w = 0 and dn = 0 add nothing. The
-// scans are sequential per ray already: the distortion adds ~15 scalar
-// operations per sample row to them.
+// scans run a warp per ray: the distortion adds ~15 scalar operations per
+// sample row to them.
 //
-// IPE and long rays. The forward is K1's (field.cuh): IPE moments and the
-// damped encoding per row, two rays of S = 192 (the wrapper's pad of 129
-// to 192 samples) in three 128-row passes, and one ray of S = 256 (193 to
-// 256) in two. The backward needs nothing new for IPE: positions carry no
-// gradient, and the first layer's dW uses the stashed encoding A. A long
-// ray's compositing VJP needs the whole ray (the suffix sums of u_i w_i
-// need the final colour), so K2a runs every pass's forward, then the
-// per-ray scans, then each pass's backward from its stashes. Zero-length
-// pad intervals have w = 0 and d sigma = da * 0 = 0, so every gradient row
-// they give is exactly 0.
-//
-// Rays past 256 samples (padded to a multiple of 128, one ray a CTA in S /
-// 128 passes), and any shape whose per-sample values do not fit in shared
-// memory beside the tiles (IPE's wide encoding at S = 192), take the
-// streamed instance (kPasses = 0): the passes are a runtime loop, the
-// per-sample values (raw sigma, rgb, ts, deltas, w, T, dsigma: 40 B a row)
-// live in the CTA's rows of the global scratch, where the scans find them
-// in L2, the scans run a warp per ray, 32 samples a step (shuffle prefix
-// and suffix sums carried between steps), and each pass's backward starts
-// by writing its 128 rows of d rgb_raw into the one-pass tile that
-// ldmatrix reads. Instances 1-3 are as they were. The wrapper
-// (kernels/fused_train.fused_train_grads) launches K2 over blocks of at
-// most 1,048,576 padded rows (4096 rays x 256 samples, ~10.7 GB of
-// stashes at paper width) and sums the blocks' gradients in order.
-//
-// Wide fields (fault 13): past kNarrowWidth = 256 the two activation tiles
-// of 128 rows no longer fit beside the encodings (at 512 they take 266 KB).
-// Such a field takes the cluster instance (train_cluster_kernel,
-// field_cluster.cuh): a row group of ceil(width / 256) CTAs of a cluster a
-// tile, each holding its 256 columns of every layer's output (forward) and
-// gradient (backward) in shared memory and computing those columns of each
-// wgmma product, the other columns' k-steps read from the other CTAs'
-// shared memory, each weight slot multicast to the cluster's two tiles; each
-// block also leaves for its stash (and its relu bits for the mask), where
-// K2b reads it; CTA 0 keeps the per-sample values in the scratch and runs
-// the streamed instance's warp scans. Past 2,048 wide, or where even its
-// layout does not hold the encodings, the mma.sync wide instance
-// (train_wide_kernel) runs: the streamed instance's per-sample values and
-// warp scans, with every activation in its stash: each epilogue stores its
-// output there and the next product stages its A operand's k-slices from
-// there into shared memory (field.cuh's field_forward_wide; dense_layer's
-// kStageA); its shared memory does not grow with the width. Both routes'
-// blocks are sized by the stashes' bytes too (nerf_fused_train_block_rows
-// under fused_train.BLOCK_BYTES): at width 1024 and depth 8 a sample row
-// stashes ~36 KB. Wide encodings (fault 17) take them too: where even the
-// streamed layout's tiles do not fit the card's opt-in shared memory beside
-// the encodings (P = 208 at the paper widths, pos_enc_levels 34 and more),
-// train_mode picks a wide route, whose encodings are stashes as well.
-//
-// The matrices' and biases' offsets, and the transposed matrices', lie in
-// device tables built once per layout by the wrapper (Field::off,
-// TrainParams::wt_off), not in the launch parameters, and K2b's jobs in a
-// host vector: a field of any depth launches. The first kParamOffs of each
-// also ride in the parameters (Field::w_head, b_head, TrainParams::wt_head),
-// read from the constant bank as before the tables: at the presets' depths
-// no offset comes from the tables.
+// Rays and passes. A tile is whole rays (field.cuh rays_per_cta): 128 / S
+// of them in one 128-row pass up to S = 128, two of S = 192 in three passes
+// (the wrapper pads 129-192 to 192), one of S = 256 in two (193-256), one of
+// any longer S, a multiple of 128, in S / 128 passes. A ray's compositing VJP
+// needs the whole ray (the suffix sums of u_i w_i need the final colour), so
+// K2a runs every pass's forward, then the per-ray scans, then each pass's
+// backward. Zero-length pad intervals have w = 0 and d sigma = da * 0 = 0,
+// so every gradient row they give is exactly 0. The wrapper
+// (kernels/fused_train.fused_train_grads) launches K2 over blocks of at most
+// 1,048,576 padded rows (4096 rays x 256 samples, ~11 GB of stashes at paper
+// width) and sums the blocks' gradients in order.
 //
 // Why two kernels. The TPU kernel keeps a ray block's activations and the
 // dW accumulators in VMEM (120 MB). An H100 SM has 227 KB of shared
 // memory: at flagship width a 128-row tile's 8 x 128 x 256 bf16 post-relu
 // activations are 512 KB, and the dW accumulators ~600 k f32 (2.4 MB).
 // Neither fits on chip, so:
-//  * K2a (train_tile_kernel): one 16-warp CTA per tile of whole rays (one
-//    128-row pass, three at S = 192, two at S = 256), K1's layout and
-//    forward. After each layer's barrier it copies the layer's bf16 tile
-//    from shared memory to its global stash (x, h_0..h_7, feat, hv, PE(d):
-//    each product's A) with 16-byte evict-first stores, and keeps each
-//    relu's mask as bits (one __ballot_sync per 32 columns: 272 B per row
-//    at paper width, ~14 MB for a wave of 384-row CTAs, so they stay in the
-//    50 MB L2). It composites, takes the loss and its compositing VJP in
-//    f32 (one sequential scan per ray each way), then runs the backward
-//    through the heads and the trunk as mma.sync products with the
-//    transposed packed weights (kernels/fused_render.pack_weights_t),
-//    masking with the bits, and copies every layer's bf16 output gradient
-//    G_l to its stash the same way. No epilogue touches device memory.
+//  * K2a computes the forward, the loss and every layer's input gradient,
+//    and leaves each product's A operand (x, h_0..h_{L-1}, feat, hv, PE(d))
+//    and output gradient (G_l, [dfeat | dsigma], g_hv, d rgb_raw) in global
+//    stashes, with every relu's mask as bits. Its instances, chosen in C by
+//    shape (train_mode, reported by fused_train.route):
+//     - narrow (fields up to kNarrowWidth = 256, the presets' route):
+//       train_narrow_kernel, then train_narrow_bwd_kernel, on wgmma with
+//       the act block in 128-byte-swizzled panels, four tiles a cluster
+//       sharing each weight slot, TMA stores of every product's output to
+//       its stash (the narrow section below);
+//     - cluster (wider fields, fault 13; field_cluster.cuh): a row
+//       group of ceil(width / 256) CTAs of a cluster a tile, each holding
+//       its 256 columns of every layer in shared memory;
+//     - mma.sync wide (past 2,048 wide, or encodings no wgmma layout holds):
+//       train_wide_kernel, every activation in its stash (field_forward_wide).
+//    Each scans a warp per ray (scan_rays_warp) over the per-sample values
+//    (raw sigma, rgb, ts, deltas, w, T, d sigma: 40 B a row in the scratch;
+//    the narrow forward keeps them in shared memory while it runs).
 //  * K2b (dw_partial_kernel): dW_l = A_l^T G_l as a hand-written mma.sync
 //    reduction over rows, 128 x 128 tiles of 8 warps fed by a 3-stage
 //    cp.async ring of 32-row slices (A^T and G fragments through
@@ -117,12 +77,18 @@
 // sample row each way, ~2.7 GB per call with the partials, on an 80 GB
 // card; the hierarchical union pass (4096 x 192 rows) takes ~8.3 GB.
 //
-// What bounds each. K2a is tensor-core-bound at about 3x K1's FLOPs per
-// row (the forward, then the backward products through the heads and the
-// trunk, which reuse the same tile machinery). K2b is bound by reading
-// the stashes (each A is read once per 128-column tile of G, and each G
-// once per 128-row tile of A). Left for later: weights staged in shared
-// memory, wgmma, TMA, dW folded into K2a.
+// What bounds each. K2a's products (the forward, then the input gradients:
+// ~2.3 MFLOP a sample row at paper width) and its stashes (~10 KB a row)
+// are about equal on an H100: at the flagship shape ~0.61 ms of bf16
+// operations and ~0.80 ms of bytes. K2b is bound by reading the stashes
+// (each A is read once per 128-column tile of G, and each G once per
+// 128-row tile of A).
+//
+// The matrices' and biases' offsets, and the transposed matrices', lie in
+// device tables built once per layout by the wrapper (Field::off,
+// TrainParams::wt_off), not in the launch parameters, and K2b's jobs in a
+// host vector: a field of any depth launches. The first kParamOffs of each
+// also ride in the parameters (Field::w_head, b_head, TrainParams::wt_head).
 //
 // Numerics, mirrored by kernels/fused_train.fused_train_grads_reference:
 // bf16 operands with f32 products and sums; compositing, the loss and
@@ -132,6 +98,8 @@
 // sigma (its selector matmul ran at bf16); every trunk layer's
 // g = dh [h_l > 0]. d feat_b sums dfeat in f32, computed here as
 // view_w @ (sum_rows g_hv), the same sum in another association.
+
+#include <cudaTypedefs.h>
 
 #include <vector>
 
@@ -161,9 +129,10 @@ struct TrainParams {
   bf16* gsf;                   // d rgb_raw (8)
   bf16* ghv;
   bf16* grgb;
-  uint32_t* mask;              // relu bits: (n_layers + 1) x rows_pad x mw words (field.cuh Stash)
+  uint32_t* mask;              // relu bits: (n_layers + 1) x rows_pad x mw words, bit j of
+                               // word w of a row: column 32 w + j > 0; hv at layer n_layers
   int mw;
-  float* vals;                 // streamed: per-sample values, kVals arrays of rows_pad (kValOff)
+  float* vals;                 // per-sample values, kVals arrays of rows_pad (ValOff)
   float loss_scale;            // d loss / d (sum of squared residuals) = 1 / (3 N)
   int white_bg;
   float dist_scale;            // distortion-loss weight / N rays; 0: off
@@ -227,8 +196,9 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// The streamed instance's per-sample values: kVals f32 arrays of rows_pad
-// rows in the scratch (p.vals), rgb four floats a row.
+// The per-sample values in the scratch (p.vals): kVals f32 arrays of
+// rows_pad rows, rgb four floats a row. Every instance keeps them there (the
+// narrow forward kernel in its shared memory while it runs, where they fit).
 constexpr int kVals = 10;
 enum ValOff { kValSig = 0, kValRgb = 1, kValTs = 5, kValDl = 6, kValW = 7, kValT = 8, kValDsig = 9 };
 
@@ -266,13 +236,12 @@ __device__ __forceinline__ float sigma_of(int act, float raw) {
   return act == 0 ? fmaxf(raw, 0.f) : fmaxf(raw, 0.f) + log1pf(expf(-fabsf(raw)));
 }
 
-// The streamed instance's per-ray scans, a warp per ray, 32 samples a
-// step, f32: the forward (weights, T, colour, acc, and with the distortion
-// loss its prefix sums and A_i) with the exclusive sum of sigma * delta
-// carried between steps, diag, then the backward from the far end with the
-// suffix sum of u w carried, each sample's d sigma into t.dsig. The same
-// arithmetic as the resident instances' thread-per-ray scans, summed in
-// another order. Rays past the end get d sigma = 0.
+// The per-ray scans, a warp per ray, 32 samples a step, f32: the forward
+// (weights, T, colour, acc, and with the distortion loss its prefix sums
+// and A_i) with the exclusive sum of sigma * delta carried between steps,
+// diag, then the backward from the far end with the suffix sum of u w
+// carried, each sample's d sigma into t.dsig. Rays past the end get d sigma
+// = 0.
 // kNW: the warps that share the rays (the cluster instance's consumers: 8).
 template <int kNW = kWarps>
 __device__ void scan_rays_warp(const TrainParams& p, const Tile& t, long long ray0, int n_valid) {
@@ -398,7 +367,7 @@ __device__ void scan_rays_warp(const TrainParams& p, const Tile& t, long long ra
   }
 }
 
-// The streamed instance's d rgb_raw = bf16(w dC rgb (1 - rgb)) for the pass
+// The mma.sync wide instance's d rgb_raw = bf16(w dC rgb (1 - rgb)) for the pass
 // at CTA row s0, into the one-pass tile (columns 0-7; 8-15 stay 0) and
 // its rows of the grgb stash, and the pass's dsigma column of the gsf
 // stash; dC from diag, as the scan formed it. Zeros past the last ray.
@@ -424,215 +393,8 @@ __device__ void pass_drgb(const TrainParams& p, const Tile& t, long long ray0, i
   __syncthreads();
 }
 
-// kPasses: 128-row passes per CTA, 1, 2 (S = 256) or 3 (S = 192), at
-// compile time (see fused_ray.cu: the one-pass kernel inlines the forward
-// and the backward once), or 0: the streamed instance, its passes a
-// runtime loop and its per-sample values in the scratch. kContract: the
-// contraction branch, also at compile time.
-template <int kPasses, bool kContract>
-__global__ void __launch_bounds__(kThreads, 1) train_tile_kernel(const TrainParams p) {
-  constexpr bool kStreamed = kPasses == 0;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Field& f = p.f;
-  const int S = f.S;
-  const int R = f.R;
-  const int rows = f.rows;
-  const int tid = threadIdx.x;
-  const long long ray0 = static_cast<long long>(blockIdx.x) * R;
-  const long long left = f.n_rays - ray0;
-  const int n_valid = left < R ? static_cast<int>(left) : R;
-  const int rows_valid = n_valid * S;
-  const long long row0 = static_cast<long long>(blockIdx.x) * rows;
-  const int W = f.W, F = f.F, V = f.V, L = f.n_layers;
-  const long long hs = p.rows_pad * W;  // layer stride of the h and G stashes
-
-  const Tile t = kStreamed ? streamed_tile(carve(smem, smem_layout(f, true)), p, row0)
-                           : carve(smem, smem_layout(f, false));
-  // the stashes of the pass that starts at CTA row s0
-  auto stash = [&](int s0) {
-    const long long r = row0 + s0;
-    return Stash{p.sx + r * f.P, p.sh + r * W, hs, p.sfeat + r * F, p.shv + r * V,
-                 p.sdv + r * f.D, p.mask + r * p.mw, p.rows_pad * p.mw, p.mw};
-  };
-  bf16* hv;
-  bf16* feat;
-  if (kStreamed) {
-    for (int s0 = 0; s0 < rows; s0 += kRows)
-      field_forward<kContract>(f, t, ray0, n_valid, s0, stash(s0), &hv, &feat);
-  } else {
-    field_forward<kContract>(f, t, ray0, n_valid, 0, stash(0), &hv, &feat);
-    if (kPasses >= 2)
-      field_forward<kContract>(f, t, ray0, n_valid, kRows, stash(kRows), &hv, &feat);
-    if (kPasses >= 3)
-      field_forward<kContract>(f, t, ray0, n_valid, 2 * kRows, stash(2 * kRows), &hv, &feat);
-  }
-
-  // ---- per ray: compositing, loss and the compositing VJP, f32 ----
-  // t.w holds the weights, t.sg the transmittance T; with the distortion
-  // loss, t.dsig holds A_i between the two scans
-  if (kStreamed) {
-    scan_rays_warp(p, t, ray0, n_valid);
-    for (int i = tid; i < kRows * 8; i += kThreads)  // the k16 pad of the one-pass tile
-      t.drgb[(i / 8) * kLdr + 8 + i % 8] = __float2bfloat16_rn(0.f);
-    __syncthreads();
-  } else {
-    const bool dist = p.dist_scale != 0.f;
-    if (tid < R) {
-      const int r0 = tid * S;
-      if (tid < n_valid) {
-        const long long ray = ray0 + tid;
-        float excl = 0.f, c0 = 0.f, c1 = 0.f, c2 = 0.f, acc = 0.f;
-        for (int s = 0; s < S; ++s) {
-          const int r = r0 + s;
-          const float raw = t.sig_raw[r];
-          const float sigma = f.sigma_act == 0
-                                  ? fmaxf(raw, 0.f)
-                                  : fmaxf(raw, 0.f) + log1pf(expf(-fabsf(raw)));
-          const float a = sigma * t.dl[r];
-          const float T = expf(-excl);
-          const float w = T * (1.f - expf(-a));
-          excl += a;
-          c0 += w * t.rgb[r * 4 + 0];
-          c1 += w * t.rgb[r * 4 + 1];
-          c2 += w * t.rgb[r * 4 + 2];
-          acc += w;
-          t.w[r] = w;
-          t.sg[r] = T;
-        }
-        if (p.white_bg) {
-          c0 += 1.f - acc;
-          c1 += 1.f - acc;
-          c2 += 1.f - acc;
-        }
-        const float e0 = c0 - p.gold[ray * 3 + 0];
-        const float e1 = c1 - p.gold[ray * 3 + 1];
-        const float e2 = c2 - p.gold[ray * 3 + 2];
-        float ldist = 0.f;
-        if (dist) {  // the distortion loss: prefix sums of w and w m over the whole ray
-          float wm_tot = 0.f;
-          for (int s = 0; s < S; ++s) {
-            float m, dn;
-            dist_coords(p, t.ts[r0 + s], t.dl[r0 + s], &m, &dn);
-            wm_tot += t.w[r0 + s] * m;
-          }
-          float cw = 0.f, cwm = 0.f;
-          for (int s = 0; s < S; ++s) {
-            const int r = r0 + s;
-            float m, dn;
-            dist_coords(p, t.ts[r], t.dl[r], &m, &dn);
-            const float w = t.w[r];
-            cw += w;
-            cwm += w * m;
-            const float A = m * (2.f * cw - acc) + wm_tot - 2.f * cwm;
-            ldist += w * A + w * w * dn * (1.f / 3.f);
-            t.dsig[r] = A;
-          }
-        }
-        float* dg = p.diag + ray * 8;
-        dg[0] = c0;
-        dg[1] = c1;
-        dg[2] = c2;
-        dg[3] = acc;
-        dg[4] = (e0 * e0 + e1 * e1 + e2 * e2) / 3.f;
-        dg[5] = ldist;
-        dg[6] = 0.f;
-        dg[7] = 0.f;
-
-        // dC = 2 res / (3 N); u_k = dL/dw_k; da_k = u_k (T_k - w_k) - sum_{i>k} u_i w_i
-        const float k = 2.f * p.loss_scale;
-        const float dc[3] = {k * e0, k * e1, k * e2};
-        const float dsum = dc[0] + dc[1] + dc[2];
-        float suffix = 0.f;
-        for (int s = S - 1; s >= 0; --s) {
-          const int r = r0 + s;
-          const float* rgb = t.rgb + r * 4;
-          float u = rgb[0] * dc[0] + rgb[1] * dc[1] + rgb[2] * dc[2];
-          if (p.white_bg) u -= dsum;
-          const float w = t.w[r];
-          if (dist) {  // d L_dist / d w = 2 A + (2/3) w dn, into the same cotangent
-            float m, dn;
-            dist_coords(p, t.ts[r], t.dl[r], &m, &dn);
-            u += p.dist_scale * (2.f * t.dsig[r] + (2.f / 3.f) * w * dn);
-          }
-          const float da = u * (t.sg[r] - w) - suffix;
-          suffix += u * w;
-          const float raw = t.sig_raw[r];
-          const float slope = f.sigma_act == 0 ? (raw > 0.f ? 1.f : 0.f) : 1.f / (1.f + expf(-raw));
-          t.dsig[r] = round_bf16(da * t.dl[r] * slope);
-#pragma unroll
-          for (int c = 0; c < 3; ++c)
-            t.drgb[r * kLdr + c] = __float2bfloat16_rn(w * dc[c] * rgb[c] * (1.f - rgb[c]));
-        }
-      } else {  // rays past the end: zero gradients, so their rows add nothing to dW
-        for (int s = 0; s < S; ++s) {
-          const int r = r0 + s;
-          t.dsig[r] = 0.f;
-          for (int c = 0; c < 3; ++c) t.drgb[r * kLdr + c] = __float2bfloat16_rn(0.f);
-        }
-      }
-    }
-    for (int i = tid; i < rows * 13; i += kThreads)  // the k16 pad of d rgb_raw
-      t.drgb[(i / 13) * kLdr + 3 + i % 13] = __float2bfloat16_rn(0.f);
-    __syncthreads();
-  }
-
-  for (int r = tid; r < rows_valid; r += kThreads) p.wts[ray0 * S + r] = t.w[r];
-  bf16* grgb = p.grgb + row0 * 8;
-  bf16* gsf = p.gsf + row0 * (F + 8);
-  if (!kStreamed) {
-    for (int i = tid; i < rows * 8; i += kThreads) {
-      const int r = i / 8, c = i % 8;
-      grgb[i] = c < 3 ? t.drgb[r * kLdr + c] : __float2bfloat16_rn(0.f);
-      gsf[r * (F + 8) + F + c] = __float2bfloat16_rn(c == 0 ? t.dsig[r] : 0.f);
-    }
-  }
-
-  // ---- backward products, heads then trunk, pass by pass ----
-  auto wt = [&](int i) { return reinterpret_cast<const uint2*>(p.wt + wt_at(p, i)); };
-  // each G leaves for its stash from the tile, after the product's barrier
-  auto backward = [&](int s0) {
-    const Stash st = stash(s0);
-    auto bits = [&](int l) { return st.mask + l * st.mask_stride; };
-    bf16* gh = p.gh + (row0 + s0) * W;
-    if (kStreamed) pass_drgb(p, t, ray0, n_valid, s0, grgb, gsf);
-    // g_hv = bf16((d rgb_raw @ rgb_w^T) [hv > 0]), over hv's buffer
-    dense_layer(t.drgb + (kStreamed ? 0 : s0 * kLdr), kLdr, 16, wt(L + 1), nullptr, 0, 0,
-                nullptr, V, t.wring,
-                GradStore{hv, f.ldb, bits(L), st.mw, nullptr, nullptr});
-    __syncthreads();
-    stash_rows(p.ghv + (row0 + s0) * V, V, hv, f.ldb, V);
-    // dfeat = bf16(g_hv @ view_w^T), over feat's buffer
-    dense_layer(hv, f.ldb, V, wt(L), nullptr, 0, 0, nullptr, F, t.wring, BfStore{feat, f.ldb});
-    __syncthreads();
-    stash_rows(gsf + s0 * (F + 8), F + 8, feat, f.ldb, F);
-    // g_{L-1} = bf16((dfeat @ feat_w^T + dsigma sigma_row) [h_{L-1} > 0])
-    dense_layer(feat, f.ldb, F, wt(L - 1), nullptr, 0, 0, nullptr, W, t.wring,
-                GradStore{hv, f.ldb, bits(L - 1), st.mw, t.dsig + s0, p.sigma_row});
-    __syncthreads();
-    stash_rows(gh + (L - 1) * hs, W, hv, f.ldb, W);
-    bf16* cur = hv;
-    bf16* nxt = feat;
-    for (int l = L - 1; l >= 1; --l) {  // g_{l-1} = bf16((g_l @ W_l^T) [h_{l-1} > 0])
-      dense_layer(cur, f.ldb, W, wt(l - 1), nullptr, 0, 0, nullptr, W, t.wring,
-                  GradStore{nxt, f.ldb, bits(l - 1), st.mw, nullptr, nullptr});
-      __syncthreads();
-      stash_rows(gh + (l - 1) * hs, W, nxt, f.ldb, W);
-      bf16* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-    }
-  };
-  if (kStreamed) {
-    for (int s0 = 0; s0 < rows; s0 += kRows) backward(s0);
-  } else {
-    backward(0);
-    if (kPasses >= 2) backward(kRows);
-    if (kPasses >= 3) backward(2 * kRows);
-  }
-}
-
 // The mma.sync wide instance, past the cluster route (train_mode): the
-// streamed instance's per-sample values in the scratch and its warp scans,
+// per-sample values in the scratch and the warp scans,
 // with field_forward_wide's products, whose activations are the stashes
 // themselves: each forward epilogue writes its layer's stash, each backward
 // one its G stash, and the next product stages its A from there. Only d
@@ -718,7 +480,7 @@ struct TrainClusterParams {
 
 // The pass's 128 rows of `cols` columns of a K-major tile (the act block,
 // or an encoding tile) to a row-major stash from dst (row stride ld):
-// 16-byte loads and evict-first stores, as stash_rows; then the consumers'
+// 16-byte loads and evict-first stores; then the consumers'
 // barrier, so that no epilogue overwrites a row another thread still reads.
 __device__ __forceinline__ void stash_block(const unsigned char* tile, bf16* dst, int ld, int cols,
                                             int tid) {
@@ -731,14 +493,31 @@ __device__ __forceinline__ void stash_block(const unsigned char* tile, bf16* dst
   cl::consumers_sync();
 }
 
+// Byte offset of element (r, c) of an act block: the cluster route's K-major
+// core-matrix tile (wg::tile_off), or with kSw the narrow instance's
+// 128-byte-swizzled panels (64 columns a panel of 16 KB, row r's 128 bytes
+// at 128 r, its 16-byte chunk j at chunk j ^ (r % 8)): the layout wgmma
+// reads with a 128-byte-swizzle descriptor and TMA stores row by row.
+template <bool kSw>
+__device__ __forceinline__ uint32_t act_off(int r, int c) {
+  if constexpr (kSw)
+    return ((c >> 6) << 14) + (r << 7) + ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1);
+  else
+    return wg::tile_off(r, c);
+}
+
 // store_block<true> (relu, bf16, into the act block) that also keeps the
 // relu bits (bf16 value > 0) as relu_bits does, from the registers: word w
 // of the block (its columns 32 w .. 32 w + 31, n8 tiles 4 w .. 4 w + 3) is
 // each quad's bits OR-ed over its four lanes, and lane w % 4 of the quad
 // stores it for both of the quad's rows (mask: the pass's first row's words
 // of this layer, mw a row, the block's first at w0; nw real words).
+// With kBias (the narrow instance) the bias is added first, in the plain
+// version's order (the sums, then the bias): bias[c] for c < n, 0 past it.
+template <bool kSw = false, bool kBias = false>
 __device__ __forceinline__ void relu_block_bits(const float* acc, unsigned char* act, int r0, int c0,
-                                                uint32_t* mask, int mw, int w0, int nw) {
+                                                uint32_t* mask, int mw, int w0, int nw,
+                                                const float* bias = nullptr, int n = 0) {
   const int q = threadIdx.x & 3;
 #pragma unroll
   for (int w = 0; w < cl::kBlock / 32; ++w) {
@@ -746,12 +525,20 @@ __device__ __forceinline__ void relu_block_bits(const float* acc, unsigned char*
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int jj = 4 * w + u, c = 8 * jj + c0;
-      const __nv_bfloat162 a = __floats2bfloat162_rn(fmaxf(acc[4 * jj], 0.f),
-                                                     fmaxf(acc[4 * jj + 1], 0.f));
-      const __nv_bfloat162 b = __floats2bfloat162_rn(fmaxf(acc[4 * jj + 2], 0.f),
-                                                     fmaxf(acc[4 * jj + 3], 0.f));
-      *reinterpret_cast<__nv_bfloat162*>(act + wg::tile_off(r0, c)) = a;
-      *reinterpret_cast<__nv_bfloat162*>(act + wg::tile_off(r0 + 8, c)) = b;
+      float b0 = 0.f, b1 = 0.f;
+      if constexpr (kBias) {
+        if (c < n) {
+          const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+          b0 = bb.x;
+          b1 = bb.y;
+        }
+      }
+      const __nv_bfloat162 a = __floats2bfloat162_rn(fmaxf(acc[4 * jj] + b0, 0.f),
+                                                     fmaxf(acc[4 * jj + 1] + b1, 0.f));
+      const __nv_bfloat162 b = __floats2bfloat162_rn(fmaxf(acc[4 * jj + 2] + b0, 0.f),
+                                                     fmaxf(acc[4 * jj + 3] + b1, 0.f));
+      *reinterpret_cast<__nv_bfloat162*>(act + act_off<kSw>(r0, c)) = a;
+      *reinterpret_cast<__nv_bfloat162*>(act + act_off<kSw>(r0 + 8, c)) = b;
       const uint32_t ua = *reinterpret_cast<const uint32_t*>(&a);
       const uint32_t ub = *reinterpret_cast<const uint32_t*>(&b);
       const int bit = 8 * u + c0;  // relu's output is >= 0: a value is > 0 where its magnitude is
@@ -774,7 +561,7 @@ __device__ __forceinline__ void relu_block_bits(const float* acc, unsigned char*
 // [bit]) into the act block, for the block's columns 8 jj + c0 (c = 256 j +
 // that); bits: the layer's relu bits from the pass's first row; zeros past
 // the n real columns. kTop: with d sigma (ds0, ds8: rows r0 and r0 + 8).
-template <bool kTop>
+template <bool kTop, bool kSw = false>
 __device__ __forceinline__ void grad_block(const float* acc, unsigned char* act, int r0, int c0,
                                            int j, int n, const uint32_t* bits, int mw, float ds0,
                                            float ds8, const float* srow) {
@@ -805,8 +592,9 @@ __device__ __forceinline__ void grad_block(const float* acc, unsigned char* act,
     } else {
       v[0] = v[1] = v[2] = v[3] = 0.f;
     }
-    cl::store_bf2(act, r0, cb, v[0], v[1]);
-    cl::store_bf2(act, r0 + 8, cb, v[2], v[3]);
+    *reinterpret_cast<__nv_bfloat162*>(act + act_off<kSw>(r0, cb)) = __floats2bfloat162_rn(v[0], v[1]);
+    *reinterpret_cast<__nv_bfloat162*>(act + act_off<kSw>(r0 + 8, cb)) =
+        __floats2bfloat162_rn(v[2], v[3]);
   }
 }
 
@@ -1046,7 +834,7 @@ __device__ void consume_bwd(const TrainClusterParams& p) {
 }
 
 // K2a's wide route, forward: a row group of C CTAs per tile (cluster of C
-// G CTAs), one tile a CTA, as train_tile_kernel's grid.
+// G CTAs), one tile a CTA.
 template <bool kContract>
 __global__ void __launch_bounds__(cl::kThreads, 1) train_cluster_kernel(const TrainClusterParams p) {
   const Field& f = p.t.f;
@@ -1086,6 +874,866 @@ __global__ void __launch_bounds__(cl::kThreads, 1) train_cluster_bwd_kernel(
     consume_bwd(p);
   }
   wg::cluster_sync_any();
+}
+
+// ---- the narrow instance: K2a on wgmma for fields up to kNarrowWidth ----
+//
+// The cluster route's products at C = 1 (one CTA holds every column of a
+// 128-row pass), redesigned around what bounds them at narrow widths: the
+// weight stream from L2 (8.4 KB a k16 step for 1 MFLOP of a 128-row tile)
+// and the stashes' bytes (~10 KB a sample row each call), both of which the
+// narrow instance keeps off the consumers' path:
+//  * four tiles a cluster (kNarrowG CTAs) share every weight slot: the
+//    producer thread of each bulk-copies a quarter of the slot, multicast to
+//    all four, so a weight byte read from L2 serves 512 rows;
+//  * two consumer warpgroups (warps 0-7) run the products, 64 rows each,
+//    through one call site a kernel (wgmma.m64n256k16, the sums in
+//    registers); each epilogue adds the bias after the sums, in the plain
+//    version's order (started from the bias, the sums' other association
+//    moved relu gates enough that a relu drive which stalls through the
+//    plain version learned through K2: chip_smoke.py's fault 6 check), and
+//    writes its rows of the act block, which lies in 128-byte-swizzled
+//    panels of 64 columns (act_off): wgmma reads it through a 128-byte-swizzle
+//    descriptor and TMA stores it in whole 128-byte rows. Relu bits come from
+//    the registers (relu_block_bits, a shuffle-OR a quad), raw sigma from the
+//    last trunk layer's sums on the CUDA cores (sigma_rows), and the
+//    backward masks with the bits (grad_block). setmaxnreg gives the
+//    consumers 224 registers, where the epilogues run without spills;
+//  * warp 9 hands each k16 step's A address over (all local at C = 1), with
+//    the act block's swizzle flag in its top bit;
+//  * the first thread of warps 10 and 11, one a consumer warpgroup, stores
+//    that warpgroup's rows of every product's output to its stash with TMA
+//    (cp.async.bulk.tensor, one tensor map a stash): four boxes of {64, 64}
+//    for a 256-column output, no warp copying; the pass's encodings
+//    (K-major, unswizzled) leave with its first trunk layer in {8, 128}
+//    boxes. A warpgroup's `ready` (its epilogue of product q written) starts
+//    them while it runs product q + 1; its `free` (the TMA engine has read
+//    its rows) lets its epilogue of q + 1 overwrite them. Neither warpgroup
+//    waits on the other's rows; the weight slots they share keep them in
+//    step.
+// The encodings (narrow_encode: a sincosf a level and coordinate, PE(viewdir)
+// once a ray), the scans (a warp per ray, the per-sample values in shared
+// memory where they fit), d rgb_raw (narrow_drgb, a row a thread) and the
+// rgb head (narrow_rgb) run on the consumers. K2b reads the stashes as
+// before.
+
+constexpr int kAddrWarp = 9;    // hands the consumers each step's A address
+constexpr int kStoreWarp = 10;  // the first threads of warps 10 and 11 issue the TMA stores
+constexpr int kBarWg = 2;       // named barriers 2 and 3: one a consumer warpgroup
+constexpr int kNarrowG = 4;     // tiles a cluster, every weight slot multicast to all
+// The narrow layout's fixed regions: the barriers and slot words as the
+// cluster route's (below cl::kActOff), the act block at a 1024-byte boundary
+// (the 128-byte swizzle's), the weight ring after it.
+constexpr uint32_t kNActOff = 1024;
+constexpr uint32_t kNRingOff = kNActOff + 2 * kRows * cl::kBlock;
+constexpr uint32_t kPanel = kRows * 128;  // bytes of a 64-column panel
+constexpr uint32_t kSwFlag = 0x80000000u; // an A address word's flag: the swizzled act block
+// Per consumer warpgroup w: `ready` (its epilogue of a product written) at
+// kNReadyOff + 16 w and `free` (its rows of that output read by TMA) at
+// kNFreeOff + 16 w; then each ring slot's A address word.
+constexpr uint32_t kNReadyOff = cl::kReadyOff, kNFreeOff = cl::kReadyOff + 8;
+constexpr uint32_t kNAddrOff = cl::kReadyOff + 64;
+static_assert(kNAddrOff + 4 * cl::kMaxStages <= kNActOff, "the slot words overlap the act block");
+
+// The stashes' tensor maps (bf16, row-major at their own widths over
+// rows_pad rows; boxes of 8 columns x 128 rows; the h and G stashes 3-D
+// over the layers), built on the host at every launch.
+enum StashMap { kMapX = 0, kMapDv, kMapH, kMapFeat, kMapHv, kMapGhv, kMapGsf, kMapGh, kMaps };
+
+// The narrow layout's regions past the cluster layout's (byte offsets).
+struct NarrowSmem {
+  uint32_t dpe;   // PE(viewdir) of the tile's rays, bf16
+  uint32_t vals;  // the tile's per-sample values (kVals arrays of f.rows), or 0: in the scratch
+  uint32_t rgbw;  // the rgb head's matrix (the repacked rgb block, V x 8 bf16)
+  uint32_t srow;  // the sigma column of [feature | sigma] (f32, zero past W to 256)
+  uint32_t bias;  // the forward's repacked biases (Geo::bp's first (L + 2) x 256), or 0: from L2
+};
+
+// The tile's rows in shared memory above which its per-sample values stay
+// in the scratch (long rays): 15 KB at 384 rows.
+constexpr int kSmemValRows = 384;
+
+struct NarrowParams {
+  TrainClusterParams c;
+  NarrowSmem s;
+  CUtensorMap map[kMaps];
+};
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+                   map),
+               "r"(src), "r"(c0), "r"(c1)
+               : "memory");
+}
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(map),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// the shared memory of every committed bulk store has been read
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// every committed bulk store has been written
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The narrow instance's shared memory: the act block and the weight ring at
+// fixed offsets (kNActOff, kNRingOff), then the cluster layout's tiles at C =
+// 1 without the A ring (every operand lies in this CTA), the encoding tiles
+// aligned to 128 bytes for TMA, then (into *ns) PE(viewdir) of the tile's
+// rays, its per-sample values where it has at most kSmemValRows rows, the
+// rgb head's matrix, the sigma column and (bias_floats > 0) the biases.
+inline cl::CSmem narrow_layout(const Field& f, int stages, NarrowSmem* ns = nullptr,
+                               int bias_floats = 0) {
+  cl::CSmem L;
+  size_t at = kNRingOff + static_cast<size_t>(stages) * cl::kSlotBytes;
+  at = (at + 127) & ~static_cast<size_t>(127);
+  L.aring = static_cast<uint32_t>(at);
+  L.xs = static_cast<uint32_t>(take(&at, sizeof(bf16) * kRows * f.P));
+  L.ds = static_cast<uint32_t>(take(&at, sizeof(bf16) * kRows * f.D));
+  L.drgb = static_cast<uint32_t>(take(&at, cl::kStep));
+  L.mv = static_cast<uint32_t>(take(&at, sizeof(float) * kRows * 6));
+  L.ray = static_cast<uint32_t>(take(&at, sizeof(float) * f.R * kRayStride));
+  NarrowSmem x;
+  x.dpe = static_cast<uint32_t>(take(&at, sizeof(bf16) * f.R * f.D));
+  x.vals = f.rows <= kSmemValRows ? static_cast<uint32_t>(take(&at, sizeof(float) * kVals * f.rows))
+                                  : 0u;
+  x.rgbw = static_cast<uint32_t>(take(&at, sizeof(bf16) * f.V * 8));
+  x.srow = static_cast<uint32_t>(take(&at, sizeof(float) * cl::kBlock));
+  x.bias = bias_floats > 0 ? static_cast<uint32_t>(take(&at, sizeof(float) * bias_floats)) : 0u;
+  if (ns != nullptr) *ns = x;
+  L.sig = L.rgb = L.carry = static_cast<uint32_t>(at);
+  L.total = static_cast<uint32_t>(at);
+  return L;
+}
+
+// The most ring stages (at most cl::kMaxStages) whose narrow layout (with
+// bias_floats of staged biases) fits the card's opt-in shared memory, or 0
+// where not even cl::kMinStages do. The route asks without the biases.
+inline int narrow_stages(const Field& f, size_t optin, int bias_floats = 0) {
+  for (int s = cl::kMaxStages; s >= cl::kMinStages; --s)
+    if (narrow_layout(f, s, nullptr, bias_floats).total <= optin) return s;
+  return 0;
+}
+
+// Inits the narrow instance's barriers: full (the producer's bytes and the
+// address warp's arrival), empty (both warpgroups of every tile it feeds),
+// and each warpgroup's ready (its leader's arrival) and free (its storing
+// thread's).
+__device__ inline void narrow_init(const cl::Geo& geo) {
+  if (threadIdx.x == 0) {
+    if (cl::sa(kNActOff) & 1023u) __trap();  // the 128-byte swizzle needs 1024-byte panels
+    for (int s = 0; s < geo.stages; ++s) {
+      wg::mbar_init(cl::sa(cl::kFullOff) + 8 * s, 2);
+      wg::mbar_init(cl::sa(cl::kEmptyOff) + 8 * s, 2 * kNarrowG);
+    }
+    for (int w = 0; w < 2; ++w) {
+      wg::mbar_init(cl::sa(kNReadyOff) + 16 * w, 1);
+      wg::mbar_init(cl::sa(kNFreeOff) + 16 * w, 1);
+    }
+    wg::mbar_init_fence();
+  }
+  __syncwarp();
+  wg::cluster_sync();
+}
+
+// The first thread of warp 8: every product's weight slots in cl::prod_at's
+// order (cl::produce at C = 1), each slot's quarter g (the CTA's rank in the
+// cluster) bulk-copied from L2 and multicast to the kNarrowG tiles' rings.
+__device__ inline void narrow_produce(const Field& f, const cl::Geo& geo, int q0, int q1) {
+  const uint32_t g = wg::cluster_rank();
+  constexpr uint16_t kAll = (1u << kNarrowG) - 1;
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int q = q0; q < q1; ++q) {
+    const cl::Prod pr = cl::prod_at(f, geo, q);
+    const uint32_t bytes = 32u * pr.ntot, part = bytes / kNarrowG;
+    for (int h = 0; h < 2; ++h) {
+      const int steps = (h ? pr.k2 : pr.k1) / 16;
+      const char* src = reinterpret_cast<const char*>(geo.wp + (h ? pr.w2 : pr.w1));
+      for (int t = 0; t < steps; ++t) {
+        wg::mbar_wait(cl::sa(cl::kEmptyOff) + 8 * slot, phase ^ 1);
+        wg::mbar_arrive_expect_tx(cl::sa(cl::kFullOff) + 8 * slot, bytes);
+        wg::bulk_copy_multicast(cl::sa(kNRingOff) + slot * cl::kSlotBytes + g * part,
+                                src + static_cast<size_t>(t) * bytes + g * part, part,
+                                cl::sa(cl::kFullOff) + 8 * slot, kAll);
+        if (++slot == geo.stages) {
+          slot = 0;
+          phase ^= 1;
+        }
+      }
+    }
+  }
+  // every slot freed by every consumer it feeds: no arrival from another
+  // tile is still on its way when the CTA exits
+  for (int i = 0; i < geo.stages; ++i) {
+    wg::mbar_wait(cl::sa(cl::kEmptyOff) + 8 * slot, phase ^ 1);
+    if (++slot == geo.stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// A wgmma descriptor of a K-major operand in 128-byte-swizzled rows, 8-row
+// groups 1024 bytes apart (layout type 1 in bits 62-63; the leading offset
+// unused).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (1ull << 62);
+}
+
+// cl::product for the narrow instance: acc = A1 B1 [+ A2 B2] over `steps`
+// k16 steps (the epilogues add the bias after the sums, as the plain
+// version does), each step's A address from its slot's word (swizzled
+// where kSwFlag is set: this warpgroup's rows 8 KB on; else 1 KB on), B from
+// the narrow ring (k groups lbo bytes apart: the slot's columns x 16); a
+// slot is released, in every tile of the cluster, once the next step's group
+// has started. One call site serves every product of a kernel.
+template <int N>
+__device__ __forceinline__ void narrow_product(cl::Ring& rg, float* acc, int steps,
+                                               const cl::Geo& geo, uint32_t lbo) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
+  const uint32_t w = static_cast<uint32_t>(__shfl_sync(0xffffffffu, threadIdx.x >> 7, 0));
+  const uint32_t signal = (threadIdx.x & 127) == 0;
+  int prev = -1;
+  for (int t = 0; t < steps; ++t) {
+    wg::mbar_wait(cl::sa(cl::kFullOff) + 8 * rg.slot, rg.phase);
+    wg::fence_regs<N / 2>(acc);
+    wg::fence();
+    const uint32_t word =
+        *reinterpret_cast<volatile const uint32_t*>(cl::smem + kNAddrOff + 4 * rg.slot);
+    const uint32_t a = word & ~kSwFlag;
+    const uint64_t da = (word & kSwFlag) ? desc_sw128(a + w * (kPanel / 2))
+                                         : wg::desc(a + w * 1024, 2048, 128);
+    const uint64_t db = wg::desc(cl::sa(kNRingOff) + rg.slot * cl::kSlotBytes, lbo, 128);
+    wg::mma<N>(acc, da, db, 1);
+    wg::commit();
+    wg::fence_regs<N / 2>(acc);
+    if (prev >= 0) {
+      wg::wait<1>();
+#pragma unroll
+      for (int c = 0; c < kNarrowG; ++c)
+        wg::mbar_arrive_cluster(cl::sa(cl::kEmptyOff) + 8 * prev, c, signal);
+    }
+    prev = rg.slot;
+    if (++rg.slot == geo.stages) {
+      rg.slot = 0;
+      rg.phase ^= 1;
+    }
+  }
+  wg::wait<0>();
+  wg::fence_regs<N / 2>(acc);
+#pragma unroll
+  for (int c = 0; c < kNarrowG; ++c)
+    wg::mbar_arrive_cluster(cl::sa(cl::kEmptyOff) + 8 * prev, c, signal);
+}
+
+// The warpgroup's sums (rows r0 and r0 + 8, columns 8 jj + c0) plus their
+// bias (bias[c] for c < n, after the sums as the plain version adds it; none
+// where bias is null) as bf16 into the swizzled act block
+// (cl::store_block<false>'s narrow counterpart).
+__device__ __forceinline__ void store_block_sw(const float* acc, unsigned char* act, int r0, int c0,
+                                               const float* bias, int n) {
+#pragma unroll
+  for (int jj = 0; jj < cl::kBlock / 8; ++jj) {
+    const int c = 8 * jj + c0;
+    float b0 = 0.f, b1 = 0.f;
+    if (bias != nullptr && c < n) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+      b0 = bb.x;
+      b1 = bb.y;
+    }
+    *reinterpret_cast<__nv_bfloat162*>(act + act_off<true>(r0, c)) =
+        __floats2bfloat162_rn(acc[4 * jj] + b0, acc[4 * jj + 1] + b1);
+    *reinterpret_cast<__nv_bfloat162*>(act + act_off<true>(r0 + 8, c)) =
+        __floats2bfloat162_rn(acc[4 * jj + 2] + b0, acc[4 * jj + 3] + b1);
+  }
+}
+
+// Warp 9: every k16 step's A address, in the producer's order, into its
+// slot's word (the act block's with kSwFlag); then one arrival on the
+// slot's full barrier.
+__device__ inline void narrow_hand_a(const Field& f, const cl::Geo& geo, const cl::CSmem& L,
+                                     int q0, int q1) {
+  const int lane = threadIdx.x & 31;
+  int t = 0;
+  for (int q = q0; q < q1; ++q) {
+    const cl::Prod pr = cl::prod_at(f, geo, q);
+    for (int h = 0; h < 2; ++h) {
+      const int src = h ? pr.a2 : pr.a1, steps = (h ? pr.k2 : pr.k1) / 16;
+      const uint32_t base = src == cl::kXs  ? cl::sa(L.xs)
+                            : src == cl::kDs  ? cl::sa(L.ds)
+                                              : cl::sa(L.drgb);
+      for (int k = 0; k < steps; ++k, ++t) {
+        const int slot = t % geo.stages;
+        // the act block's step k: panel k / 4, 32 bytes a step along its rows
+        const uint32_t a = src == cl::kAct
+                               ? (cl::sa(kNActOff) + (k >> 2) * kPanel + (k & 3) * 32) | kSwFlag
+                               : base + k * cl::kStep;
+        wg::mbar_wait(cl::sa(cl::kEmptyOff) + 8 * slot, ((t / geo.stages) & 1) ^ 1);
+        __syncwarp();
+        if (lane == 0) {
+          *reinterpret_cast<volatile uint32_t*>(cl::smem + kNAddrOff + 4 * slot) = a;
+          wg::mbar_arrive(cl::sa(cl::kFullOff) + 8 * slot);
+        }
+      }
+    }
+  }
+}
+
+// A tile's first `cols` columns to a stash through tensor map `map`
+// (`layer`: the 3-D maps' third coordinate, or -1), from stash row `row`
+// on: with kSw a warpgroup's 64 rows of the swizzled act block (tile: its
+// first panel's rows, 8 KB in), one {64, 64} box a 64-column panel (the map
+// swizzles 128 bytes and clips the last panel at the stash's width); else
+// an encoding tile's 128 rows (K-major core matrices), one {8, 128} box a
+// k-group, each a dense 2 KB run of the tile.
+template <bool kSw>
+__device__ __forceinline__ void store_tile(const CUtensorMap* map, uint32_t tile, int cols, int row,
+                                           int layer) {
+  constexpr int kCols = kSw ? 64 : 8;
+  constexpr uint32_t kBytes = kSw ? kPanel : cl::kStep / 2;
+  for (int b = 0; b < (cols + kCols - 1) / kCols; ++b) {
+    if (layer < 0)
+      tma_store_2d(map, tile + b * kBytes, kCols * b, row);
+    else
+      tma_store_3d(map, tile + b * kBytes, kCols * b, row, layer);
+  }
+}
+
+// The first thread of warp 10 + w, for consumer warpgroup w: for every
+// product q after the first, once the warpgroup has written its 64 rows of
+// product q - 1 (its `ready`), those rows from the act block to their stash
+// rows (and with a pass's first trunk layer, by warpgroup 0's thread, the
+// pass's encodings, which the consumers rewrite only after both
+// warpgroups' last epilogue of the pass); once the TMA engine has read
+// them, one arrival on the warpgroup's `free`, which lets its epilogue of q
+// overwrite them. Products q0 .. q1 - 1 (forward or backward), fwd_products
+// of them a pass. Every store has landed when it returns.
+__device__ inline void narrow_store(const NarrowParams& np, int q0, int q1, int w) {
+  const TrainClusterParams& p = np.c;
+  const TrainParams& tp = p.t;
+  const Field& f = tp.f;
+  const int per = cl::fwd_products(f);
+  const uint32_t act = cl::sa(kNActOff) + w * (kPanel / 2);
+  for (int q = q0; q <= q1; ++q) {
+    if (q > q0) {
+      wg::mbar_wait_cluster(cl::sa(kNReadyOff) + 16 * w, (q - 1 - q0) & 1);
+      const cl::Prod pr = cl::prod_at(f, p.geo, q - 1);
+      const int r = static_cast<int>(ct_row0(p)) + (q - 1 - q0) / per * kRows;
+      const int rw = r + 64 * w;  // the warpgroup's first row
+      switch (pr.kind) {
+        case cl::kTrunk:
+          if (pr.layer == 0 && w == 0) {
+            store_tile<false>(&np.map[kMapX], cl::sa(p.L.xs), f.P, r, -1);
+            store_tile<false>(&np.map[kMapDv], cl::sa(p.L.ds), f.D, r, -1);
+          }
+          store_tile<true>(&np.map[kMapH], act, f.W, rw, pr.layer);
+          break;
+        case cl::kFeat:
+          store_tile<true>(&np.map[kMapFeat], act, f.F, rw, -1);
+          break;
+        case cl::kView:
+          store_tile<true>(&np.map[kMapHv], act, f.V, rw, -1);
+          break;
+        case cl::kGhv:
+          store_tile<true>(&np.map[kMapGhv], act, f.V, rw, -1);
+          break;
+        case cl::kDfeat:
+          store_tile<true>(&np.map[kMapGsf], act, f.F, rw, -1);
+          break;
+        default:  // kGtop, kGtrunk
+          store_tile<true>(&np.map[kMapGh], act, f.W, rw, pr.layer);
+      }
+      bulk_commit();
+      bulk_wait_read();
+    }
+    if (q < q1) wg::mbar_arrive(cl::sa(kNFreeOff) + 16 * w);
+  }
+  bulk_wait();
+}
+
+// The consumer warpgroup of this thread (warp-uniform).
+__device__ __forceinline__ int narrow_wg() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) >> 7, 0);
+}
+
+// Before a warpgroup's epilogue of product q (its q - q0'th of the kernel):
+// its rows of product q - 1 have been read by TMA.
+__device__ __forceinline__ void narrow_wait_free(int i) {
+  wg::mbar_wait_cluster(cl::sa(kNFreeOff) + 16 * narrow_wg(), i & 1);
+}
+
+// After a warpgroup's epilogue: its rows visible to its own next wgmma and
+// to the TMA engine (the warpgroup's named barrier), and one arrival on its
+// `ready`.
+__device__ __forceinline__ void narrow_publish() {
+  wg::fence_proxy_async();
+  const int w = narrow_wg();
+  wg::named_sync(kBarWg + w, 128);
+  if ((threadIdx.x & 127) == 0) wg::mbar_arrive(cl::sa(kNReadyOff) + 16 * w);
+}
+
+// sigma_raw of the warpgroup's rows r0 and r0 + 8 from the last trunk
+// layer's sums (and its bias, bias[c] for c < n): the sigma bias bs plus
+// the bf16 relu values (as relu_block_bits stores them) dotted with the
+// sigma column (srow, f32 of its bf16 values,
+// zero past the width), each lane's 64 columns in order, then the quad's
+// four partial sums; on the CUDA cores, so that [feature | sigma] runs as a
+// 256-column product through the kernel's one call site.
+__device__ __forceinline__ void sigma_rows(const float* acc, const float* srow, int r0, int c0,
+                                           float bs, float* sig_raw, const float* bias, int n) {
+  float sa = 0.f, sb = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < cl::kBlock / 8; ++jj) {
+    const int c = 8 * jj + c0;
+    const float w0 = srow[c], w1 = srow[c + 1];
+    float b0 = 0.f, b1 = 0.f;
+    if (c < n) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + c);
+      b0 = bb.x;
+      b1 = bb.y;
+    }
+    sa = fmaf(round_bf16(fmaxf(acc[4 * jj] + b0, 0.f)), w0, sa);
+    sa = fmaf(round_bf16(fmaxf(acc[4 * jj + 1] + b1, 0.f)), w1, sa);
+    sb = fmaf(round_bf16(fmaxf(acc[4 * jj + 2] + b0, 0.f)), w0, sb);
+    sb = fmaf(round_bf16(fmaxf(acc[4 * jj + 3] + b1, 0.f)), w1, sb);
+  }
+#pragma unroll
+  for (int o = 1; o < 4; o <<= 1) {
+    sa += __shfl_xor_sync(0xffffffffu, sa, o);
+    sb += __shfl_xor_sync(0xffffffffu, sb, o);
+  }
+  if ((threadIdx.x & 3) == 0) {
+    sig_raw[r0] = sa + bs;
+    sig_raw[r0 + 8] = sb + bs;
+  }
+}
+
+// rgb = sigmoid(hv rgb_w + b) for the pass's 128 rows, by the consumers on
+// the CUDA cores: cl::rgb_rows reading hv from this CTA's act block and
+// rgb_w (w, the repacked rgb block) from its shared memory. Two
+// threads a row, each summing every other 8 columns in f32, then the pair's
+// two sums; rgb of row r at out[4 r + c].
+__device__ __forceinline__ void narrow_rgb(const Field& f, const bf16* w, const float* b,
+                                           float* out) {
+  const int r = threadIdx.x >> 1, half = threadIdx.x & 1;
+  const unsigned char* act = cl::smem + kNActOff;
+  float s[3] = {0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int c8 = half; c8 < f.V / 8; c8 += 2) {
+    const uint4 hv = *reinterpret_cast<const uint4*>(act + act_off<true>(r, 8 * c8));
+    const bf16* h = reinterpret_cast<const bf16*>(&hv);
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      const uint4 wv = *reinterpret_cast<const uint4*>(w + c8 * 64 + 8 * ch);
+      const bf16* wk = reinterpret_cast<const bf16*>(&wv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        s[ch] = fmaf(__bfloat162float(h[e]), __bfloat162float(wk[e]), s[ch]);
+    }
+  }
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float both = s[ch] + __shfl_xor_sync(0xffffffffu, s[ch], 1);
+    if (half == 0) out[4 * r + ch] = 1.f / (1.f + expf(-(both + b[ch])));
+  }
+}
+
+// drgb_block for the narrow instance, a row a thread: d rgb_raw of the pass
+// at CTA row s0 (w dC rgb (1 - rgb), bf16) into the K-major 16-column tile
+// the g_hv product reads (columns 3-15 zero) and the row's 8 columns of the
+// grgb stash, and [d sigma, 0 x 7] after the F dfeat columns of the gsf
+// stash row; each a 16-byte store. The values the forward kernel's scans
+// left in the scratch, read through L2.
+__device__ __forceinline__ void narrow_drgb(const TrainParams& p, const Tile& t, unsigned char* tile,
+                                            long long ray0, int n_valid, int s0, bf16* grgb,
+                                            bf16* gsf, int tid) {
+  const Field& f = p.f;
+  if (tid < kRows) {
+    const int cr = s0 + tid, j = cr / f.S;
+    const float k = 2.f * p.loss_scale;
+    const float ds = __ldcg(t.dsig + cr);
+    __align__(16) bf16 v[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) v[c] = __float2bfloat16_rn(0.f);
+    if (j < n_valid) {
+      const long long ray = ray0 + j;
+      const float4 rgb = __ldcg(reinterpret_cast<const float4*>(t.rgb + cr * 4));
+      const float w = __ldcg(t.w + cr);
+      const float c3[3] = {rgb.x, rgb.y, rgb.z};
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float dc = k * (__ldcg(p.diag + ray * 8 + c) - p.gold[ray * 3 + c]);
+        v[c] = __float2bfloat16_rn(w * dc * c3[c] * (1.f - c3[c]));
+      }
+    }
+    const uint4 row = *reinterpret_cast<const uint4*>(v);
+    *reinterpret_cast<uint4*>(tile + wg::tile_off(tid, 0)) = row;
+    *reinterpret_cast<uint4*>(tile + wg::tile_off(tid, 8)) = make_uint4(0u, 0u, 0u, 0u);
+    *reinterpret_cast<uint4*>(grgb + static_cast<long long>(cr) * 8) = row;
+    __align__(16) bf16 g[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) g[c] = __float2bfloat16_rn(c == 0 ? ds : 0.f);
+    *reinterpret_cast<uint4*>(gsf + static_cast<long long>(cr) * (f.F + 8) + f.F) =
+        *reinterpret_cast<const uint4*>(g);
+  }
+  wg::fence_proxy_async();
+  cl::consumers_sync();
+}
+
+// The per-sample values of the forward kernel's tile: in shared memory where
+// the layout holds them (NarrowSmem::vals; kVals arrays of f.rows, ValOff's
+// order), else in the scratch as the cluster route keeps them.
+__device__ __forceinline__ Tile narrow_vals(const NarrowParams& np) {
+  const TrainClusterParams& p = np.c;
+  if (np.s.vals == 0u) return streamed_tile(Tile{}, p.t, ct_row0(p));
+  float* v = reinterpret_cast<float*>(cl::smem + np.s.vals);
+  const int n = p.t.f.rows;
+  Tile t = {};
+  t.sig_raw = v + kValSig * n;
+  t.rgb = v + kValRgb * n;
+  t.ts = v + kValTs * n;
+  t.dl = v + kValDl * n;
+  t.w = v + kValW * n;
+  t.sg = v + kValT * n;
+  t.dsig = v + kValDsig * n;
+  return t;
+}
+
+// The pass's inputs and encodings for the narrow instance, by the
+// consumers: cl::encode_pass's values, computed as K1's encoder computes
+// them (one sincosf per level and coordinate from one scaled argument; IPE:
+// one damping factor), and PE(viewdir) once a ray (bf16, at np.s.dpe), then
+// copied to the pass's rows; ts and deltas into the per-sample values.
+template <bool kContract>
+__device__ void narrow_encode(const NarrowParams& np, const Tile& v, int s0, int tid) {
+  const TrainClusterParams& p = np.c;
+  const Field& f = p.t.f;
+  const cl::CSmem& L = p.L;
+  const int S = f.S, n_valid = ct_rays(p);
+  const long long ray0 = ct_ray0(p), g0 = ray0 * S;
+  float* ray = reinterpret_cast<float*>(cl::smem + L.ray);
+  float* mv_all = reinterpret_cast<float*>(cl::smem + L.mv);
+  bf16* dpe = reinterpret_cast<bf16*>(cl::smem + np.s.dpe);
+  unsigned char* xs = cl::smem + L.xs;
+  unsigned char* ds = cl::smem + L.ds;
+  const int rows_valid = n_valid * S;
+  float tv = 0.f, dv = 0.f;  // thread r's row: its loads in flight beside the rays'
+  if (tid < kRows && s0 + tid < rows_valid) {
+    tv = f.ts[g0 + s0 + tid];
+    dv = f.deltas[g0 + s0 + tid];
+  }
+  for (int i = tid; i < f.R * kRayStride; i += cl::kConsumerThreads) {
+    const int j = i / kRayStride, k = i % kRayStride;
+    float x = 0.f;
+    if (j < n_valid) {
+      if (k < 9) {
+        const float* src = k < 3 ? f.o : (k < 6 ? f.d : f.vd);
+        x = src[(ray0 + j) * 3 + k % 3];
+      } else if (f.ipe) {
+        x = f.radii[ray0 + j];
+      }
+    }
+    ray[i] = x;
+  }
+  cl::consumers_sync();
+  if (tid < kRows) {
+    const int r = tid, cr = s0 + r;
+    const float* ry = ray + (cr / S) * kRayStride;
+    float* mv = mv_all + r * 6;
+    const bool ok = cr < rows_valid;
+    v.ts[cr] = tv;
+    v.dl[cr] = dv;
+    if (f.ipe && ok) {
+      ipe_moments(ry, ry + 3, tv, dv, ry[9], mv);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        mv[k] = __fadd_rn(ry[k], __fmul_rn(tv, ry[3 + k]));
+        mv[3 + k] = 0.f;
+      }
+    }
+    if (kContract) {
+      if (f.ipe)
+        contract_gaussian(mv);
+      else
+        contract_points(mv);
+    }
+  }
+  // PE(viewdir) of the pass's rays (every ray of the tile: R of them)
+  const int dir_dim = 3 + 6 * f.dir_levels;
+  for (int i = tid; i < f.R * f.D; i += cl::kConsumerThreads) {
+    const int j = i / f.D, col = i % f.D;
+    float x = 0.f;
+    if (col < dir_dim) x = pe_value(ray[j * kRayStride + 6 + (col < 3 ? col : (col - 3) % 3)], col);
+    dpe[i] = __float2bfloat16_rn(x);
+  }
+  cl::consumers_sync();
+  // xs: the raw coordinates and the zero pad columns, then one sincosf per
+  // (row, level, axis) for its sin and cos columns (damped alike under IPE),
+  // as K1's encoder computes them
+  const int levels = f.pos_levels, pos_dim = 3 + 6 * levels;
+  for (int i = tid; i < kRows * (3 + f.P - pos_dim); i += cl::kConsumerThreads) {
+    const int r = i % kRows, u = i / kRows;
+    cl::store_bf1(xs, r, u < 3 ? u : pos_dim + u - 3, u < 3 ? mv_all[r * 6 + u] : 0.f);
+  }
+#pragma unroll 2
+  for (int i = tid; i < kRows * 3 * levels; i += cl::kConsumerThreads) {
+    const int r = i % kRows, u = i / kRows, l = u / 3, d = u % 3;
+    const float* mv = mv_all + r * 6;
+    float sn, cs;
+    sincosf(ldexpf(mv[d], l), &sn, &cs);
+    if (f.ipe) {
+      const float damp = expf(-ldexpf(mv[3 + d], 2 * l - 1));
+      sn = __fmul_rn(sn, damp);
+      cs = __fmul_rn(cs, damp);
+    }
+    cl::store_bf1(xs, r, 3 + 6 * l + d, sn);
+    cl::store_bf1(xs, r, 6 + 6 * l + d, cs);
+  }
+  for (int i = tid; i < kRows * f.D; i += cl::kConsumerThreads) {
+    const int r = i % kRows, col = i / kRows;
+    *reinterpret_cast<bf16*>(ds + wg::tile_off(r, col)) = dpe[((s0 + r) / S) * f.D + col];
+  }
+  wg::fence_proxy_async();
+  cl::consumers_sync();
+}
+
+// The consumers of the narrow forward kernel: every pass's encodings (and
+// its ts and deltas), its products in cl::prod_at's order through two call
+// sites (the trunk and the view head; [feature | sigma] with its sigma
+// tile), each epilogue waiting for `free` before it overwrites the act
+// block; rgb on the CUDA cores; then the scans, a warp per ray, on the
+// per-sample values in shared memory where the layout holds them (then
+// the values the backward kernel reads are copied to the scratch).
+template <bool kContract>
+__device__ void narrow_fwd(const NarrowParams& np) {
+  const TrainClusterParams& p = np.c;
+  const TrainParams& tp = p.t;
+  const Field& f = tp.f;
+  const int L = f.n_layers, passes = f.rows / kRows;
+  unsigned char* act = cl::smem + kNActOff;
+  bf16* rgbw = reinterpret_cast<bf16*>(cl::smem + np.s.rgbw);
+  float* srow = reinterpret_cast<float*>(cl::smem + np.s.srow);
+  cl::Ring rg{0, 0};
+  float acc[cl::kBlock / 2];
+  const int tid = threadIdx.x;
+  for (int i = tid; i < f.V; i += cl::kConsumerThreads)  // synced by the encode's barriers
+    reinterpret_cast<uint4*>(rgbw)[i] =
+        __ldg(reinterpret_cast<const uint4*>(p.geo.wp + p.geo.w_rgb) + i);
+  for (int i = tid; i < cl::kBlock; i += cl::kConsumerThreads)
+    srow[i] = i < f.W ? tp.sigma_row[i] : 0.f;
+  // the epilogues' biases, in column order: trunk layer i's at block i,
+  // the feature's at L, the view head's at L + 1, zero past each width, a
+  // copy in shared memory where the layout holds them (else from L2)
+  float* sbias = reinterpret_cast<float*>(cl::smem + np.s.bias);
+  if (np.s.bias != 0u)
+    for (int i = tid; i < (L + 2) * cl::kBlock; i += cl::kConsumerThreads) {
+      const int l = i / cl::kBlock, c = i % cl::kBlock;
+      const int n = l < L ? f.W : (l == L ? f.F : f.V);
+      sbias[i] = c < n ? f.b[b_off(f, l) + c] : 0.f;
+    }
+  int q = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int s0 = pass * kRows;
+    narrow_encode<kContract>(np, narrow_vals(np), s0, tid);
+    for (int i = 0; i < L + 2; ++i, ++q) {
+      {  // nothing of the product's description lives across its k-loop
+        const cl::Prod pr = cl::prod_at(f, p.geo, q);
+        narrow_product<cl::kBlock>(rg, acc, (pr.k1 + pr.k2) / 16, p.geo, 16u * pr.ntot);
+      }
+      narrow_wait_free(q);
+      // the epilogue's place, from i: trunk layer i < L, the feature at L, the
+      // view head at L + 1 (its bias block i, its relu bits' layer min(i, L))
+      const int n = i < L ? f.W : (i == L ? f.F : f.V);
+      const float* bias = np.s.bias != 0u ? sbias + i * cl::kBlock : f.b + b_off(f, i);
+      const int rr = cl::frag_row(), cc = cl::frag_col();
+      if (i == L) {  // the feature, bf16, no activation
+        store_block_sw(acc, act, rr, cc, bias, n);
+      } else {  // a trunk layer or the view head: relu and its bits
+        relu_block_bits<true, true>(
+            acc, act, rr, cc, tp.mask + ((i < L ? i : L) * tp.rows_pad + ct_row0(p) + s0) * tp.mw,
+            tp.mw, 0, (n + 31) / 32, bias, n);
+        if (i == L - 1)  // raw sigma from the last trunk layer
+          sigma_rows(acc, srow, rr, cc, f.b[b_off(f, L) + f.F], narrow_vals(np).sig_raw + s0,
+                     bias, n);
+      }
+      narrow_publish();
+    }
+    // ---- rgb on the CUDA cores, from both warpgroups' hv rows ----
+    cl::consumers_sync();
+    narrow_rgb(f, rgbw, f.b + b_off(f, L + 2), narrow_vals(np).rgb + 4 * s0);
+    cl::consumers_sync();
+  }
+
+  // ---- compositing, loss and the compositing VJP, a warp per ray ----
+  const Tile v = narrow_vals(np);
+  scan_rays_warp<cl::kConsumerThreads / 32>(tp, v, ct_ray0(p), ct_rays(p));
+  cl::consumers_sync();
+  const long long g0 = ct_ray0(p) * f.S;
+  for (int i = tid; i < ct_rays(p) * f.S; i += cl::kConsumerThreads) tp.wts[g0 + i] = v.w[i];
+  if (np.s.vals != 0u) {  // what the backward kernel reads: w, rgb and d sigma
+    const Tile g = streamed_tile(Tile{}, tp, ct_row0(p));
+    for (int i = tid; i < f.rows; i += cl::kConsumerThreads) {
+      g.w[i] = v.w[i];
+      g.dsig[i] = v.dsig[i];
+      reinterpret_cast<float4*>(g.rgb)[i] = reinterpret_cast<const float4*>(v.rgb)[i];
+    }
+  }
+}
+
+// The consumers of the narrow backward kernel, every pass: d rgb_raw
+// (narrow_drgb, from what the forward kernel's scans left), then g_hv,
+// dfeat, g_{L-1} (its sigma column from shared memory) and down the trunk
+// to g_0 through one call site.
+__device__ void narrow_bwd(const NarrowParams& np) {
+  const TrainClusterParams& p = np.c;
+  const TrainParams& tp = p.t;
+  const Field& f = tp.f;
+  float* srow = reinterpret_cast<float*>(cl::smem + np.s.srow);
+  for (int i = threadIdx.x; i < f.W; i += cl::kConsumerThreads)  // synced by d rgb_raw's barrier
+    srow[i] = tp.sigma_row[i];
+  const int passes = f.rows / kRows, nb = cl::bwd_products(f);
+  const int q0 = cl::fwd_products(f) * passes;
+  unsigned char* act = cl::smem + kNActOff;
+  cl::Ring rg{0, 0};
+  float acc[cl::kBlock / 2];
+  const int tid = threadIdx.x;
+  int q = q0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int s0 = pass * kRows;
+    const long long r = ct_row0(p) + s0, ms = tp.rows_pad * tp.mw;
+    narrow_drgb(tp, streamed_tile(Tile{}, tp, ct_row0(p)), cl::smem + p.L.drgb, ct_ray0(p),
+                ct_rays(p), s0, tp.grgb + ct_row0(p) * 8, tp.gsf + ct_row0(p) * (f.F + 8), tid);
+    for (int i = 0; i < nb; ++i, ++q) {
+      const cl::Prod pr = cl::prod_at(f, p.geo, q);
+      if (pr.kind != cl::kDfeat && threadIdx.x < kRows)  // the epilogue's relu bits
+        asm volatile("prefetch.global.L1 [%0];\n" ::"l"(tp.mask + pr.layer * ms +
+                                                         (r + threadIdx.x) * tp.mw));
+      narrow_product<cl::kBlock>(rg, acc, (pr.k1 + pr.k2) / 16, p.geo, 16u * pr.ntot);
+      narrow_wait_free(q - q0);
+      const int rr = cl::frag_row(), cc = cl::frag_col();
+      if (pr.kind == cl::kDfeat) {  // dfeat = bf16(g_hv @ view_w^T)
+        store_block_sw(acc, act, rr, cc, nullptr, 0);
+      } else if (pr.kind == cl::kGtop) {  // + dsigma sigma_row, [h_{L-1} > 0]
+        const float* dsig = ct_vals(p, kValDsig) + s0;
+        grad_block<true, true>(acc, act, rr, cc, 0, f.W, tp.mask + pr.layer * ms + r * tp.mw,
+                               tp.mw, dsig[rr], dsig[rr + 8], srow);
+      } else {  // g_hv = (d rgb_raw @ rgb_w^T) [hv > 0]; g_{l-1} = (g_l W_l^T) [h_{l-1} > 0]
+        grad_block<false, true>(acc, act, rr, cc, 0, pr.n, tp.mask + pr.layer * ms + r * tp.mw,
+                                tp.mw, 0.f, 0.f, nullptr);
+      }
+      narrow_publish();
+    }
+    cl::consumers_sync();  // both warpgroups past the pass's last product: d rgb_raw's tile is free
+  }
+}
+
+// The registers of the kernel's 384 threads (168 each at launch) moved to
+// the consumers: warps 8-11 (producer, address, stores) keep 56, the two
+// consumer warpgroups take 224, where the sums, the epilogue's values and
+// the bias fit without spills. Each runs once, by a whole warpgroup, at the
+// top of its role's path.
+__device__ __forceinline__ void narrow_regs_other() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+}
+__device__ __forceinline__ void narrow_regs_consumers() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+}
+
+// K2a's narrow instance, forward: a tile of whole rays a CTA (one to three
+// 128-row passes, or S / 128 for long rays), clusters of two tiles.
+template <bool kContract>
+__global__ void __launch_bounds__(cl::kThreads, 1)
+    train_narrow_kernel(const __grid_constant__ NarrowParams p) {
+  const Field& f = p.c.t.f;
+  narrow_init(p.c.geo);
+  const int q1 = f.rows / kRows * cl::fwd_products(f);
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= cl::kProducerWarp) {  // the paths never reconverge: setmaxnreg holds
+    narrow_regs_other();
+    if (warp == cl::kProducerWarp) {
+      if ((threadIdx.x & 31) == 0) narrow_produce(f, p.c.geo, 0, q1);
+    } else if (warp == kAddrWarp) {
+      narrow_hand_a(f, p.c.geo, p.c.L, 0, q1);
+    } else if ((threadIdx.x & 31) == 0) {
+      narrow_store(p, 0, q1, warp - kStoreWarp);
+    }
+    wg::cluster_sync_any();  // no CTA leaves while another tile's multicast may still land
+  } else {
+    narrow_regs_consumers();
+    narrow_fwd<kContract>(p);
+    wg::cluster_sync_any();
+  }
+}
+
+// K2a's narrow instance, backward: the same grid, after the forward kernel
+// (its own kernel, as the cluster route's, so that ptxas pipelines each).
+__global__ void __launch_bounds__(cl::kThreads, 1)
+    train_narrow_bwd_kernel(const __grid_constant__ NarrowParams p) {
+  const Field& f = p.c.t.f;
+  narrow_init(p.c.geo);
+  const int passes = f.rows / kRows;
+  const int q0 = cl::fwd_products(f) * passes, q1 = q0 + cl::bwd_products(f) * passes;
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= cl::kProducerWarp) {
+    narrow_regs_other();
+    if (warp == cl::kProducerWarp) {
+      if ((threadIdx.x & 31) == 0) narrow_produce(f, p.c.geo, q0, q1);
+    } else if (warp == kAddrWarp) {
+      narrow_hand_a(f, p.c.geo, p.c.L, q0, q1);
+    } else if ((threadIdx.x & 31) == 0) {
+      narrow_store(p, q0, q1, warp - kStoreWarp);
+    }
+    wg::cluster_sync_any();
+  } else {
+    narrow_regs_consumers();
+    narrow_bwd(p);
+    wg::cluster_sync_any();
+  }
+}
+
+// The tensor map of a bf16 stash at base: `cols` columns at row stride ld
+// elements over `rows` rows (and `layers` of them at a stride of rows x ld,
+// a 3-D map, where layers > 0), boxes of 64 rows and 64 columns swizzled by
+// 128 bytes (sw: a warpgroup's rows of the act block's panels) or of 128
+// rows and 8 columns (the encoding tiles' k-groups). Returns 0, or
+// cudaErrorUnknown where the CUDA library has no encoder or refuses.
+int stash_map(CUtensorMap* map, const bf16* base, long long cols, long long ld, long long rows,
+              long long layers, bool sw) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorUnknown);
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint32_t rank = layers > 0 ? 3 : 2;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(layers > 0 ? layers : 1)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld * 2),
+                                 static_cast<cuuint64_t>(rows * ld * 2)};
+  const cuuint32_t box[3] = {sw ? 64u : 8u, sw ? kRows / 2u : kRows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<bf16*>(base),
+                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             sw ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+                             CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorUnknown);
 }
 
 // ---- K2b: dW = A^T G over rows, the bias sums db = sum_rows G folded in ----
@@ -1259,7 +1907,7 @@ __global__ void feat_bias_kernel(const bf16* view_w, int F, int V, const float* 
 struct Scratch {
   bf16 *sx, *sh, *sfeat, *shv, *sdv, *gh, *gsf, *ghv, *grgb;
   uint32_t* mask;
-  float* vals;  // the streamed instance's per-sample values, else null
+  float* vals;  // the per-sample values
   float* partial;
   size_t bytes;
 };
@@ -1273,7 +1921,7 @@ long long splits_for(long long rows) {
 int mask_words(int W, int V) { return ((W > V ? W : V) + 31) / 32; }
 
 Scratch scratch_layout(unsigned char* base, long long rows_pad, long long rows, int L, int W,
-                       int F, int V, int P, int D, long long total, bool streamed) {
+                       int F, int V, int P, int D, long long total) {
   Scratch s;
   size_t at = 0;
   auto bf = [&](long long elems) {
@@ -1293,11 +1941,8 @@ Scratch scratch_layout(unsigned char* base, long long rows_pad, long long rows, 
   s.mask = reinterpret_cast<uint32_t*>(base + at);
   at += (static_cast<size_t>((L + 1) * rows_pad * mask_words(W, V)) * sizeof(uint32_t) + 255) &
         ~static_cast<size_t>(255);
-  s.vals = nullptr;
-  if (streamed) {
-    s.vals = reinterpret_cast<float*>(base + at);
-    at += (static_cast<size_t>(kVals * rows_pad) * sizeof(float) + 255) & ~static_cast<size_t>(255);
-  }
+  s.vals = reinterpret_cast<float*>(base + at);
+  at += (static_cast<size_t>(kVals * rows_pad) * sizeof(float) + 255) & ~static_cast<size_t>(255);
   s.partial = reinterpret_cast<float*>(base + at);
   at += static_cast<size_t>(splits_for(rows) * total) * sizeof(float);
   s.bytes = at;
@@ -1312,37 +1957,33 @@ long long rows_padded(long long n_rays, int S, int group = 1) {
   return (tiles + group - 1) / group * group * (rays * S);
 }
 
-// K2a's instances: resident (kPasses = rows / 128), streamed (kPasses = 0),
-// wide (train_wide_kernel, mma.sync) or cluster (train_cluster_kernel).
-enum TrainMode { kResident, kStreamed, kWide, kCluster };
+// K2a's instances: narrow (train_narrow_kernel, wgmma, up to kNarrowWidth),
+// cluster (train_cluster_kernel, the wide route) or mma.sync wide
+// (train_wide_kernel). fused_train.K2_ROUTES names them in this order.
+enum TrainMode { kNarrow, kCluster, kWide };
 
-// Which instance K2a takes: up to kNarrowWidth the resident one where its
-// layout fits (and S <= 256), else the streamed one where its layout fits;
-// past that (wider fields, or encodings the streamed layout does not hold
-// beside two activation tiles) the cluster one where cl::takes, else the
+// Which instance K2a takes: up to kNarrowWidth the narrow one where its
+// layout fits; past that (wider fields, or encodings the narrow layout
+// does not hold beside its ring) the cluster one where cl::takes, else the
 // mma.sync wide one (past 2,048 wide, or encodings too wide for the
 // cluster layout too). Sets *mode; returns 0 or a cudaError_t.
 int train_mode(const Field& f, TrainMode* mode) {
   size_t optin = 0;
   const int rc = smem_optin(&optin);
   if (rc != 0) return rc;
-  if (widest(f) <= kNarrowWidth) {
-    if (f.S <= kMaxResident && smem_layout(f, false).total <= optin) {
-      *mode = kResident;
-      return 0;
-    }
-    if (smem_layout(f, true).total <= optin) {
-      *mode = kStreamed;
-      return 0;
-    }
+  if (widest(f) <= kNarrowWidth && narrow_stages(f, optin) > 0) {
+    *mode = kNarrow;
+    return 0;
   }
   *mode = cl::takes(f, true, optin) ? kCluster : kWide;
   return 0;
 }
 
 // The tiles a cluster of the mode's instance takes together (rows_padded's
-// group): the cluster instance's row groups, else 1.
+// group): the cluster instance's row groups, the narrow instance's
+// kNarrowG, else 1.
 int tile_group(const Field& f, TrainMode mode) {
+  if (mode == kNarrow) return kNarrowG;
   if (mode != kCluster) return 1;
   long long w_elems = 0, b_elems = 0;
   return cl::make_geo(f, true, &w_elems, &b_elems).G;
@@ -1352,7 +1993,7 @@ int tile_group(const Field& f, TrainMode mode) {
 // scratch_layout's bytes (0 for the other modes).
 size_t pack_scratch(const Field& f, TrainMode mode, size_t* b_at) {
   *b_at = 0;
-  if (mode != kCluster) return 0;
+  if (mode != kCluster && mode != kNarrow) return 0;
   long long w_elems = 0, b_elems = 0;
   cl::make_geo(f, true, &w_elems, &b_elems);
   return cl::pack_bytes(w_elems, b_elems, b_at);
@@ -1373,25 +2014,25 @@ long long nerf_fused_train_scratch_bytes(long long n_rays, int S, int depth_l, i
   Field f;
   set_layout(&f, S, W, F, V, P, D);
   f.n_layers = depth_l;
-  TrainMode mode = kResident;
+  TrainMode mode = kNarrow;
   const int rc = train_mode(f, &mode);
   if (rc != 0) return -static_cast<long long>(rc);
   size_t b_at = 0;
   const size_t stash = scratch_layout(nullptr, rows_padded(n_rays, S, tile_group(f, mode)),
-                                      n_rays * S, depth_l, W, F, V, P, D, total, mode != kResident)
+                                      n_rays * S, depth_l, W, F, V, P, D, total)
                            .bytes;
   const size_t packed = pack_scratch(f, mode, &b_at);
   return static_cast<long long>(packed > 0 ? align256(stash) + packed : stash);
 }
 
 // The instance nerf_fused_train_grads takes for these shapes (TrainMode: 0
-// resident, 1 streamed, 2 mma.sync wide, 3 cluster); negative as
+// narrow, 1 cluster, 2 mma.sync wide); negative as
 // nerf_fused_train_scratch_bytes.
 int nerf_fused_train_route(int S, int W, int F, int V, int P, int D) {
   if (!takes_samples(S)) return -1;
   Field f;
   set_layout(&f, S, W, F, V, P, D);
-  TrainMode mode = kResident;
+  TrainMode mode = kNarrow;
   const int rc = train_mode(f, &mode);
   if (rc != 0) return -rc;
   return static_cast<int>(mode);
@@ -1409,7 +2050,7 @@ long long nerf_fused_train_block_rows(int S, int depth_l, int W, int F, int V, i
   Field f;
   set_layout(&f, S, W, F, V, P, D);
   f.n_layers = depth_l;
-  TrainMode mode = kResident;
+  TrainMode mode = kNarrow;
   const int rc = train_mode(f, &mode);
   if (rc != 0) return -static_cast<long long>(rc);
   const long long tile = rows_padded(1, S);
@@ -1420,9 +2061,7 @@ long long nerf_fused_train_block_rows(int S, int depth_l, int W, int F, int V, i
   // tiles rounded to the cluster's tiles, and the repacked weights
   auto stash = [&](long long tiles) {
     const long long rows = (tiles + group - 1) / group * group * tile;
-    const size_t bytes = scratch_layout(nullptr, rows, rows, depth_l, W, F, V, P, D, 0,
-                                        mode != kResident)
-                             .bytes;
+    const size_t bytes = scratch_layout(nullptr, rows, rows, depth_l, W, F, V, P, D, 0).bytes;
     return static_cast<long long>(packed > 0 ? align256(bytes) + packed : bytes);
   };
   long long lo = 1, hi = max_rows / tile;  // the most tiles lies in [lo, hi]
@@ -1463,14 +2102,13 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
   const int L = depth_l;
   const long long total_w = w_off[L + 4] + static_cast<long long>(V) * 8;
   const long long total = total_w + b_off[L + 2] + 8;
-  TrainMode mode = kResident;
+  TrainMode mode = kNarrow;
   rc = train_mode(p.f, &mode);
   if (rc != 0) return rc;
   const long long rows_pad = rows_padded(n_rays, S, tile_group(p.f, mode));
   const long long rows = n_rays * S;
-  const bool streamed = mode != kResident;
   const Scratch s = scratch_layout(static_cast<unsigned char*>(scratch), rows_pad, rows, L, W,
-                                   F, V, P, D, total, streamed);
+                                   F, V, P, D, total);
   p.gold = static_cast<const float*>(gold);
   p.wt = static_cast<const bf16*>(wt);
   p.wt_off = static_cast<const long long*>(wt_offsets);
@@ -1500,7 +2138,7 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
-  if (mode == kCluster) {  // PackedWeights.w and PackedWeightsT.w repacked after the stashes
+  if (mode == kCluster || mode == kNarrow) {  // the weights repacked after the stashes
     TrainClusterParams q;
     q.t = p;
     long long w_elems = 0, b_elems = 0;
@@ -1513,32 +2151,62 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
     size_t optin = 0;
     rc = smem_optin(&optin);
     if (rc != 0) return rc;
-    q.geo.stages = cl::fit_stages(p.f, true, optin);
-    q.L = cl::cluster_layout(p.f, true, q.geo.stages);
-    auto kernel = contract ? train_cluster_kernel<true> : train_cluster_kernel<false>;
-    rc = set_smem(kernel, q.L.total);
-    if (rc != 0) return rc;
-    rc = set_smem(train_cluster_bwd_kernel, q.L.total);
-    if (rc != 0) return rc;
-    rc = set_smem(dw_partial_kernel, kRedSmem);
-    if (rc != 0) return rc;
-    if (n_rays == 0) return 0;
-    rc = cl::pack(p.f, q.geo, p.f.w, w_off, p.f.b, b_off, p.wt, wt_off, st);
-    if (rc != 0) return rc;
-    const long long tiles = (n_rays + p.f.R - 1) / p.f.R;
-    rc = cl::launch(kernel, q, q.geo, tiles, q.L.total, st);
-    if (rc != 0) return rc;
-    rc = cl::launch(train_cluster_bwd_kernel, q, q.geo, tiles, q.L.total, st);
-    if (rc != 0) return rc;
+    const bool narrow = mode == kNarrow;
+    // the narrow forward's biases in shared memory where they fit at kMinStages or more
+    int bias_floats = (L + 2) * cl::kBlock;
+    q.geo.stages = narrow ? narrow_stages(p.f, optin, bias_floats) : 0;
+    if (narrow && q.geo.stages == 0) {
+      bias_floats = 0;
+      q.geo.stages = narrow_stages(p.f, optin);
+    }
+    if (!narrow) q.geo.stages = cl::fit_stages(p.f, true, optin);
+    NarrowSmem ns = {};
+    q.L = narrow ? narrow_layout(p.f, q.geo.stages, &ns, bias_floats)
+                 : cl::cluster_layout(p.f, true, q.geo.stages);
+    if (narrow) {
+      q.geo.G = kNarrowG;  // four tiles a cluster (rows_padded's group: tile_group)
+      auto kernel = contract ? train_narrow_kernel<true> : train_narrow_kernel<false>;
+      rc = set_smem(kernel, q.L.total);
+      if (rc == 0) rc = set_smem(train_narrow_bwd_kernel, q.L.total);
+      if (rc == 0) rc = set_smem(dw_partial_kernel, kRedSmem);
+      if (rc != 0 || n_rays == 0) return rc;
+      NarrowParams np;
+      np.c = q;
+      np.s = ns;
+      rc = stash_map(&np.map[kMapX], s.sx, P, P, rows_pad, 0, false);
+      if (rc == 0) rc = stash_map(&np.map[kMapDv], s.sdv, D, D, rows_pad, 0, false);
+      if (rc == 0) rc = stash_map(&np.map[kMapH], s.sh, W, W, rows_pad, L, true);
+      if (rc == 0) rc = stash_map(&np.map[kMapFeat], s.sfeat, F, F, rows_pad, 0, true);
+      if (rc == 0) rc = stash_map(&np.map[kMapHv], s.shv, V, V, rows_pad, 0, true);
+      if (rc == 0) rc = stash_map(&np.map[kMapGhv], s.ghv, V, V, rows_pad, 0, true);
+      if (rc == 0) rc = stash_map(&np.map[kMapGsf], s.gsf, F, F + 8, rows_pad, 0, true);
+      if (rc == 0) rc = stash_map(&np.map[kMapGh], s.gh, W, W, rows_pad, L, true);
+      if (rc == 0) rc = cl::pack(p.f, q.geo, p.f.w, w_off, p.f.b, b_off, p.wt, wt_off, st);
+      if (rc != 0) return rc;
+      const long long tiles = (n_rays + p.f.R - 1) / p.f.R;
+      rc = cl::launch(kernel, np, q.geo, tiles, q.L.total, st);
+      if (rc == 0) rc = cl::launch(train_narrow_bwd_kernel, np, q.geo, tiles, q.L.total, st);
+      if (rc != 0) return rc;
+    } else {
+      auto kernel = contract ? train_cluster_kernel<true> : train_cluster_kernel<false>;
+      rc = set_smem(kernel, q.L.total);
+      if (rc != 0) return rc;
+      rc = set_smem(train_cluster_bwd_kernel, q.L.total);
+      if (rc != 0) return rc;
+      rc = set_smem(dw_partial_kernel, kRedSmem);
+      if (rc != 0) return rc;
+      if (n_rays == 0) return 0;
+      rc = cl::pack(p.f, q.geo, p.f.w, w_off, p.f.b, b_off, p.wt, wt_off, st);
+      if (rc != 0) return rc;
+      const long long tiles = (n_rays + p.f.R - 1) / p.f.R;
+      rc = cl::launch(kernel, q, q.geo, tiles, q.L.total, st);
+      if (rc != 0) return rc;
+      rc = cl::launch(train_cluster_bwd_kernel, q, q.geo, tiles, q.L.total, st);
+      if (rc != 0) return rc;
+    }
   } else {
-    const size_t smem =
-        mode == kWide ? wide_layout(p.f).total : smem_layout(p.f, streamed).total;
-    const int passes = streamed ? 0 : p.f.rows / kRows;
-    auto tile = mode == kWide ? (contract ? train_wide_kernel<true> : train_wide_kernel<false>)
-                : passes == 3 ? (contract ? train_tile_kernel<3, true> : train_tile_kernel<3, false>)
-                : passes == 2 ? (contract ? train_tile_kernel<2, true> : train_tile_kernel<2, false>)
-                : passes == 1 ? (contract ? train_tile_kernel<1, true> : train_tile_kernel<1, false>)
-                              : (contract ? train_tile_kernel<0, true> : train_tile_kernel<0, false>);
+    const size_t smem = wide_layout(p.f).total;  // the mma.sync wide instance
+    auto tile = contract ? train_wide_kernel<true> : train_wide_kernel<false>;
     rc = set_smem(tile, smem);
     if (rc != 0) return rc;
     rc = set_smem(dw_partial_kernel, kRedSmem);

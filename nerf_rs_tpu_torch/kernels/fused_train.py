@@ -198,10 +198,10 @@ def fused_train_grads(
     place, the blocks' gradients summed in block order), and
     ``fused_train_grads.launches`` counts each block's launch: a call
     within ``BLOCK_ROWS`` and ``BLOCK_BYTES`` adds 1. Any widths
-    (``pack_weights`` pads them to multiples of 16; past 256 K2a runs its
-    cluster route, a forward and a backward kernel, ``route``), any depth
-    and any encoding (where even the streamed layout does not fit the
-    encodings, the cluster route runs too).
+    (``pack_weights`` pads them to multiples of 16; up to 256 K2a runs its
+    narrow instance, past 256 its cluster route, each a forward and a
+    backward kernel, ``route``), any depth and any encoding (where the
+    narrow layout does not hold the encodings, the cluster route runs too).
     """
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
                  num_samples, radii)
@@ -308,16 +308,45 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-K2_ROUTES = ("resident", "streamed", "mma.sync wide", "cluster")
+# K2a's instances by C's TrainMode (csrc/fused_train.cu), which route() reports
+K2_ROUTES = ("narrow wgmma", "cluster", "mma.sync wide")
+
+# The narrow instance's act block (csrc/fused_train.cu act_off<true>): panels
+# of 64 columns, 128 rows of 128 bytes each, row r's 16-byte chunk j at chunk
+# j ^ (r % 8) -- the layout wgmma reads through a 128-byte-swizzle descriptor
+# and TMA stores as one {64, 64} box a panel and consumer warpgroup
+# (store_tile; warpgroup w's rows 64 w .. 64 w + 63 start 8 KB into each
+# panel). Its encoding tiles stay K-major 8 x 8 core matrices
+# (csrc/field_wgmma.cuh), stored one {8, 128} box a k-group of 8 columns.
+PANEL_COLS = 64
+PANEL_BYTES = 128 * 128
+
+
+def narrow_act_offset(r: int, c: int) -> int:
+    """Byte offset of element (r, c) of the narrow instance's act block."""
+    return ((c >> 6) << 14) + (r << 7) + ((((c >> 3) & 7) ^ (r & 7)) << 4) + ((c & 7) << 1)
+
+
+def narrow_stash_boxes(cols: int, panels: bool = True) -> List[Tuple[int, int, int, int]]:
+    """The Python mirror of ``store_tile``: (tile byte offset, first column,
+    first row, rows) of every TMA box that stores a tile's first ``cols``
+    columns to its stash: the act block's 64-column panels, each as two
+    boxes of one warpgroup's 64 rows (``panels``; the last panel clipped at
+    the stash's width by its tensor map), or an encoding tile's 8-column
+    k-groups of 128 rows, 2 KB apart."""
+    if not panels:
+        return [(2048 * g, 8 * g, 0, 128) for g in range(cols // 8)]
+    return [(PANEL_BYTES * b + w * PANEL_BYTES // 2, PANEL_COLS * b, 64 * w, 64)
+            for w in range(2) for b in range(-(-cols // PANEL_COLS))]
 
 
 def route(packed: PackedWeights, num_samples: int) -> str:
     """The K2a instance the kernels take for ``packed``'s widths and
     encodings at ``num_samples`` (C ``train_mode``, decided by shape on the
-    card's shared memory): "resident", "streamed" (fields up to 256 wide),
-    "cluster" (the wide route: column blocks of 256 in clusters) or
-    "mma.sync wide" (past 2,048 wide, or encodings the cluster layout does
-    not hold). Needs the built library, so the card."""
+    card's shared memory): "narrow wgmma" (fields up to 256 wide whose
+    encodings its layout holds), "cluster" (the wide route: column blocks of
+    256 in clusters) or "mma.sync wide" (past 2,048 wide, or encodings the
+    cluster layout does not hold). Needs the built library, so the card."""
     rc = _library().nerf_fused_train_route(padded_samples(num_samples), packed.W, packed.F,
                                            packed.V, packed.P, packed.D)
     if rc < 0:

@@ -294,6 +294,64 @@ def test_train_kernel_is_deterministic(s, ipe):
         assert torch.equal(x, y)
 
 
+# K2a's narrow instance (train_narrow_kernel, then train_narrow_bwd_kernel: the
+# route C takes for every field up to 256 wide): (field, sigma, IPE, the
+# contraction with the disparity distortion loss, white background, rays, S):
+# one pass (64, 128), 150 and 192 as 192 (two rays a tile, three passes), 193
+# and 256 as 256, 300 as 384, 4,103 ragged rays (an odd tile count: a cluster's
+# second tile past the last ray), padded widths, the widest encoding of the
+# paper widths' tests (P = 128)
+NARROW_CASES = [
+    ({}, "relu", False, False, True, 4103, 64),
+    ({}, "softplus", False, False, False, 4103, 150),
+    ({}, "relu", False, False, True, 4103, 192),
+    ({}, "softplus", True, False, True, 1001, 193),
+    ({}, "relu", False, False, False, 37, 256),
+    ({}, "softplus", False, False, True, 37, 300),
+    ({}, "softplus", True, False, False, 4103, 128),
+    ({}, "softplus", False, True, False, 301, 64),
+    ({}, "relu", True, True, True, 37, 192),
+    (dict(net_width=40, feature_width=40, view_head_width=24), "softplus", False, False, True,
+     37, 64),
+    (dict(net_width=100, feature_width=100, view_head_width=50), "relu", True, False, True, 37,
+     192),
+    (dict(pos_enc_levels=20), "softplus", False, False, True, 37, 64),
+]
+
+
+@pytest.mark.parametrize("field,sigma_act,ipe,contract,white,n,s", NARROW_CASES)
+def test_narrow_instance_matches_plain_version(field, sigma_act, ipe, contract, white, n, s):
+    """K2 on its narrow instance, random biases: against the plain version
+    and the float64 witness at KERNEL_TOL (with the contraction, samples
+    from inside the unit ball to far outside it, the distortion loss in
+    disparity), one launch a call, reruns bit-identical, the route "narrow
+    wgmma"."""
+    from nerf_rs_tpu_torch.kernels import fused_train
+
+    dev = _device()
+    cfg = ModelConfig(sigma_activation=sigma_act, ipe=ipe, contract=contract, **field)
+    pk = pack_weights(_biased_model(cfg, dev), cfg)
+    assert fused_train.route(pk, s) == "narrow wgmma"
+    if contract:
+        rays, radii = _unbounded_rays(n, s, ipe, dev)
+        dist = dict(dist_weight=0.01, near=NEAR, far=FAR, dist_space="disparity")
+    else:
+        rays, radii = _branch_rays(ipe, n, s, dev)
+        dist = {}
+    gold = torch.from_numpy(np.random.default_rng(1).uniform(size=(n, 3))
+                            .astype(np.float32)).to(dev)
+    args = (pk, pack_weights_t(pk), *rays, gold, cfg, s)
+    before = fused_train_grads.launches
+    got = fused_train_grads(*args, white_bg=white, radii=radii, **dist)
+    again = fused_train_grads(*args, white_bg=white, radii=radii, **dist)
+    torch.cuda.synchronize()
+    assert fused_train_grads.launches == before + 2
+    _check_train(got, args, white, radii, **dist)
+    for x, y in zip((got.diag, got.weights, *got.dw, *got.db),
+                    (again.diag, again.weights, *again.dw, *again.db)):
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("s", [150, 191, 192])
 def test_union_rows_match_a_call_padded_to_256(s):
     """K2 at S = 150, 191 and 192 (run as 192: two rays a CTA, three
@@ -336,14 +394,20 @@ def test_blocked_train_call_equals_its_blocks(monkeypatch):
     dev = _device()
     n, s = 37, 300
     args, _ = _train_args({}, "relu", n, s, dev)
+    assert fused_train.route(args[0], s) == "narrow wgmma"
     before = fused_train_grads.launches
     whole = fused_train_grads(*args, white_bg=True)
     assert fused_train_grads.launches - before == 1
     monkeypatch.setattr(fused_train, "BLOCK_ROWS", 3072)
     before = fused_train_grads.launches
     got = fused_train_grads(*args, white_bg=True)
-    assert fused_train_grads.launches - before == len(fused_train.ray_blocks(n, 384, 3072)) == 5
+    again = fused_train_grads(*args, white_bg=True)
+    assert fused_train_grads.launches - before == 2 * len(fused_train.ray_blocks(n, 384, 3072))
+    assert len(fused_train.ray_blocks(n, 384, 3072)) == 5
     _check_train(got, args, True, None)
+    for x, y in zip((got.diag, got.weights, *got.dw, *got.db),
+                    (again.diag, again.weights, *again.dw, *again.db)):
+        assert torch.equal(x, y)
     assert torch.equal(got.diag, whole.diag)
     assert torch.equal(got.weights, whole.weights)
     for i, (g, w) in enumerate(zip(got.dw + got.db, whole.dw + whole.db)):
@@ -351,9 +415,9 @@ def test_blocked_train_call_equals_its_blocks(monkeypatch):
         assert float((g - w).abs().max()) / scale <= BLOCKED_TOL, i
 
 
-# fields past the resident layouts: depth 21 (K1's biases no longer fit
-# beside its tiles at S = 192) and IPE at 16 levels (112 encoding columns: at
-# S = 150 neither kernel's resident layout fits), softplus density. The deep
+# fields past K1's resident layouts (and K2's before its narrow instance):
+# depth 21 (K1's biases no longer fit beside its tiles at S = 192) and IPE at
+# 16 levels (112 encoding columns at S = 150), softplus density. The deep
 # field runs on 4,103 rays, as chip_smoke.py's phase 33: its first layers'
 # gradients are ~1e-5 of the heads' at this scale, and on 37 rays the bf16
 # rounding flips of 21 trunk G's put even the f32 plain version 3.2e-2 of
@@ -417,7 +481,7 @@ def test_wrappers_refuse_widths_above_256():
 # 384 and 520 -> 528, whose rgb reads the other CTAs' blocks, over several
 # passes a tile), on PE and IPE, relu and softplus, the
 # contraction with the distortion loss in either space, S = 64, 192, 193 (->
-# 256) and 300 (the streamed passes), ragged ray counts: (widths, sigma, IPE,
+# 256) and 300 (one ray of three passes a tile), ragged ray counts: (widths, sigma, IPE,
 # distortion space or None, rays, S)
 WIDTH_CASES = [
     ((40, 40, 24), "softplus", False, None, 37, 64),
@@ -518,8 +582,8 @@ def _unit_variance_(model, cfg, o, d, ts):
 
 # depths past the offset tables' former cap of 123 (fault 15), at width 64,
 # and position encodings that no wgmma layout of K1 holds beside its ring
-# (fault 17: 19 and 20 levels, P = 128; 34 levels, P = 208, where K2's
-# streamed layout is full too), at the paper widths: (field, rays, S)
+# (fault 17: 19 and 20 levels, P = 128; 34 levels, P = 208, which K2's
+# narrow layout holds), at the paper widths: (field, rays, S)
 DEPTH_ENC_CASES = [
     (dict(net_depth=124, skip_layer=4, net_width=64, feature_width=64, view_head_width=32),
      4103, 64),
@@ -575,7 +639,7 @@ def test_kernels_take_any_depth_and_encoding(field, n, s):
     DEEP_WITNESS_FACTOR times the plain version's own distance; K1's reruns
     bit-identical; one launch a call. K1 takes the wide instance (its
     scratch) exactly where the encodings outgrow the wgmma layouts."""
-    from nerf_rs_tpu_torch.kernels import fused_ray
+    from nerf_rs_tpu_torch.kernels import fused_ray, fused_train
 
     dev = _device()
     cfg = ModelConfig(sigma_activation="softplus", **field)
@@ -603,10 +667,15 @@ def test_kernels_take_any_depth_and_encoding(field, n, s):
     gold = torch.from_numpy(np.random.default_rng(1).uniform(size=(n, 3))
                             .astype(np.float32)).to(dev)
     targs = (pk, pack_weights_t(pk), *rays, gold, cfg, s)
+    assert fused_train.route(pk, s) == "narrow wgmma"  # every field up to 256 wide
     before = fused_train_grads.launches
     tg = fused_train_grads(*targs, white_bg=True)
+    tg2 = fused_train_grads(*targs, white_bg=True)
     torch.cuda.synchronize()
-    assert fused_train_grads.launches == before + 1
+    assert fused_train_grads.launches == before + 2
+    for x, y in zip((tg.diag, tg.weights, *tg.dw, *tg.db), (tg2.diag, tg2.weights, *tg2.dw,
+                                                            *tg2.db)):
+        assert torch.equal(x, y)
     if deep:
         _hold_deep(got, args, tg, targs)
     else:
