@@ -10,7 +10,8 @@ Phases, each fatal (any failure exits non-zero):
      sm_90a, all at once; prints build seconds and ptxas' registers, spills
      and shared memory of every kernel instance, and which instances ptxas
      left with serialized wgmma (K1's instance for widths other than the
-     paper's).
+     paper's); fails where K2b's dw_wgmma_kernel spills or has its wgmma
+     serialized.
   3. K1 vs its plain PyTorch version at the flagship width (8x256 trunk,
      skip 4, F 256, V 128, PE 10/4, S 64) on 4,103 rays of two poses,
      with midpoint and jittered samples, relu and softplus sigma. The
@@ -20,7 +21,8 @@ Phases, each fatal (any failure exits non-zero):
      jittered samples (relu, relu on white, softplus on white), and vs
      the plain version's float64 witness (the same bf16 rounding points,
      float64 sums); vs autograd of the eager path; two launches
-     bit-identical.
+     bit-identical; K2b alone against the float64 product of the stashes
+     K2a left (check_dw_stashes, at DW_TOL; again in phases 9 and 36).
   5. the render path through the CLI: `render --dataset sphere` of an
      800x800 view from a seed-0 checkpoint, counting K1 launches (one
      per 262,144-ray chunk), then a 4-frame 128x128 sweep.
@@ -313,8 +315,9 @@ times the kernels in the checkout at ROOT instead, with the helpers above:
 ptxas' report of every kernel instance, the flagship train step through
 K2, autograd and the plain version, one flagship K2 call and K1 chunk,
 every K1 and K2 call of phases 11 and 20 (K2 at S = 192 with 4096 rays
-among them) beside its library path, each K2 call's device time split by
-kernel, and every K2 preset's train step through K2 and autograd
+among them) and phase 35's K2 calls (300 and 512 samples, two blocks each)
+beside its library path, each K2 call's device time split by kernel with
+its K2b beside K2b's floor, and every K2 preset's train step through K2 and autograd
 (TIMED_STEPS: hierarchical, mipnerf, unbounded, proposal, record, the
 flagship at 300 samples), each K2 step profiled; then the
 calls of phases 14 and 17: scatter_rows in both layouts (split into the
@@ -777,37 +780,39 @@ def per_call_ms(fn, calls: int, reps: int = 3) -> float:
     return event_ms(loop, reps) / calls
 
 
-def ptxas_report(name: str, lib) -> list:
+def ptxas_report(name: str, lib) -> dict:
     """One line per kernel of a built library from its ptxas log
     (kernels/build.py keeps it): registers, spill stores and loads, and
     static shared memory, and whether ptxas serialized its wgmma. Returns
-    the instances' names."""
-    entry, spills, names, serial = None, "", [], set()
+    {instance: (registers, spill store bytes, spill load bytes, wgmma
+    serialized)} in the log's order."""
+    entry, spills, report, serial, spill_b = None, "", {}, set(), (0, 0)
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"([a-z][a-z_]*kernel)(I.*?EE)?", m.group(1))
             args = re.findall(r"L[a-z](\d+)E", k.group(2) or "") if k else []
             entry = (k.group(1) if k else m.group(1)) + (f"<{','.join(args)}>" if args else "")
-            spills = ""
+            spills, spill_b = "", (0, 0)
             continue
         m = re.search(r"wgmma.mma_async instructions are serialized due to (.*) in the function "
-                      r"'\S*?([a-z][a-z_]*kernel)I(.*?)EEvN", line)
-        if m:
-            args = re.findall(r"L[a-z](\d+)E", m.group(3) + "E")
-            serial.add(f"{m.group(2)}<{','.join(args)}>")
+                      r"'\S*?([a-z][a-z_]*kernel)(I(.*?)EEvN)?", line)
+        if m:  # named as the entries are: a template's arguments in <>, else the name alone
+            args = re.findall(r"L[a-z](\d+)E", (m.group(4) or "") + "E")
+            serial.add(m.group(2) + (f"<{','.join(args)}>" if args else ""))
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and entry:
             spills = f"spill stores {m.group(1)} B, spill loads {m.group(2)} B"
+            spill_b = (int(m.group(1)), int(m.group(2)))
         m = re.search(r"Used (\d+) registers(.*)", line)
         if m and entry:
             smem = re.search(r"(\d+) bytes smem", line)
             print(f"ptxas [{name}] {entry}: {m.group(1)} registers, {spills or 'no spills'}, "
                   f"static smem {smem.group(1) if smem else 0} B"
                   + (", wgmma serialized" if entry in serial else ""))
-            names.append(entry)
+            report[entry] = (int(m.group(1)), *spill_b, entry in serial)
             entry = None
-    return names
+    return report
 
 
 def run_cli(argv) -> tuple:
@@ -1017,6 +1022,53 @@ def check_train_kernel(model, mcfg, rays, ts, gold, far) -> float:
     return max_err
 
 
+def check_dw_stashes(label: str, model, mcfg, rays, ts, dl, gold) -> float:
+    """K2b alone: one K2 call through a scratch of the caller's, then every
+    job's dW (and its bias sums from ``bias_col0`` on) against the float64
+    product A^T G (sum_rows G) of the stashes K2a left there
+    (fused_train.stash_views), each leaf relative to its largest entry, at
+    DW_TOL. Prints and returns the largest gap."""
+    import torch
+
+    from nerf_rs_tpu_torch.kernels import fused_train
+    from nerf_rs_tpu_torch.kernels.fused_ray import padded_samples
+    from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
+
+    pk = pack_weights(model, mcfg)
+    n, s = ts.shape
+    S = padded_samples(s)
+    total = pk.w.numel() + pk.b.numel()
+    nbytes = fused_train._library().nerf_fused_train_scratch_bytes(
+        n, S, pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D, total)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=ts.device)
+    got = fused_train.fused_train_grads(pk, pack_weights_t(pk), *rays, ts, dl, gold, mcfg, s,
+                                        scratch=scratch)
+    views = fused_train.stash_views(scratch, pk, n, s)
+
+    def stash(name, layer):
+        t = views[name]
+        return (t[layer] if t.dim() == 3 else t)[:views["rows"]].double()
+
+    def gap(a, b):
+        return float((a.double() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    worst, worst_bias = 0.0, 0.0
+    for job in fused_train.dw_jobs(pk):
+        g = stash(job.g, job.g_layer)
+        worst = max(worst, gap(got.dw[pk.w_off.index(job.out)],
+                               stash(job.a, job.a_layer).t() @ g))
+        if job.bias_out >= 0:
+            db = got.db[pk.b_off.index(job.bias_out - pk.w.numel())]
+            worst_bias = max(worst_bias, gap(db[job.bias_col0:job.N], g[:, job.bias_col0:].sum(0)))
+    print(f"K2b alone [{label}]: dW within {worst:.3g} and the bias sums within "
+          f"{worst_bias:.3g} of the float64 product of its stashes (bar "
+          f"{fused_train.DW_TOL:g}; {len(fused_train.dw_jobs(pk))} jobs, {views['rows']} rows)")
+    if max(worst, worst_bias) > fused_train.DW_TOL:
+        fail(f"K2b alone [{label}]: {max(worst, worst_bias):.3g} from the float64 product of "
+             "its stashes")
+    return max(worst, worst_bias)
+
+
 def drive_training(tmp: str) -> int:
     """`cli train --preset full` for 201 steps, then a resume to 211;
     returns K2's launches on the first run."""
@@ -1197,17 +1249,19 @@ def time_training(card: str) -> dict:
     k2_ms = event_ms(lambda: fused_train_grads(*k2_args))
     plain_ms = event_ms(lambda: fused_train_grads_reference(*k2_args))
     per = profiled_split(lambda: fused_train_grads(*k2_args), 5, k2_ms, 0.0)
+    b2, by2, nb2 = k2b_floor(pk, samples)
+    k2b = None
     if per is None:
         split = f"device time {NOT_PROFILED}"
     else:
         k2a = sum(v for k, v in per.items() if re.search(r"train_\w*kernel", k))
-        k2b = sum(v for k, v in per.items()
-                  if re.search(r"dw_partial|colsum|reduce_kernel|feat_bias", k))
+        k2b = sum(v for k, v in per.items() if re.search(K2B_KERNELS, k))
         split = (f"device time K2a {k2a:.3f} ms, K2b {k2b:.3f} ms ("
                  + ", ".join(f"{kernel_name(k)} {v:.3f}" for k, v in
                              sorted(per.items(), key=lambda kv: -kv[1])) + ")")
     print(f"one K2 call, 4096 x 64 [{card}]: {k2_ms:.3f} ms (CUDA events), plain version "
-          f"{plain_ms:.3f} ms; {split}")
+          f"{plain_ms:.3f} ms; {split}; K2b's floor {b2:.3f} ms ({by2}: {nb2 / 1e9:.3f} GB, the "
+          "stashes read once and the gradient written once)")
 
     # where a K2 step's time goes: device time by kernel over 10 steps
     run = stepper(cfg)
@@ -1224,7 +1278,7 @@ def time_training(card: str) -> dict:
           f"{busy:.3f} ms/step, idle {100 * (1 - busy / wall):.1f}%")
     for v, k in per[:12]:
         print(f"  {v:8.3f} ms/step  {k[:100]}")
-    return {"k2_ms": k2_ms, "plain_ms": plain_ms}
+    return {"k2_ms": k2_ms, "plain_ms": plain_ms, "k2b_ms": k2b, "k2b_bound_ms": b2}
 
 
 def sample_inputs(n, s, ipe, cam, gen, near=None, far=None, space="linear"):
@@ -2351,12 +2405,14 @@ def wide_k2_split(smoke, name: str, dev, card: str):
               f"device time {NOT_PROFILED}")
         return None
     k2a = sum(v for k, v in per.items() if re.search(r"train_\w*kernel", k))
-    k2b = sum(v for k, v in per.items() if re.search(r"dw_partial|reduce_kernel|feat_bias", k))
+    k2b = sum(v for k, v in per.items() if re.search(K2B_KERNELS, k))
     rest = sum(per.values()) - k2a - k2b
+    b2, by2, nb2 = k2b_floor(pk, n * S)
     print(f"widths {name}: K2 call {n} x {S} [{card}]: {ms:.3f} ms (CUDA events), K2a {route}; "
           f"device time K2a {k2a:.3f} ms, K2b {k2b:.3f} ms, the rest {rest:.3f} ms ("
           + ", ".join(f"{kernel_name(k)} {v:.3f}" for k, v in
-                      sorted(per.items(), key=lambda kv: -kv[1])) + ")")
+                      sorted(per.items(), key=lambda kv: -kv[1]))
+          + f"); K2b's floor {b2:.3f} ms ({by2}: {nb2 / 1e9:.3f} GB)")
     del pk, args
     torch.cuda.empty_cache()
     return {"ms": ms, "k2a": k2a, "k2b": k2b, "rest": rest, "route": route}
@@ -2969,6 +3025,29 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_FLOPS) -> tup
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+# K2b's kernels in a profile: the dW reduction (this tree's dw_wgmma_kernel,
+# or an older checkout's dw_partial_kernel / colsum kernel), the splits'
+# reduce and d feat_b
+K2B_KERNELS = r"dw_wgmma|dw_partial|colsum|reduce_kernel|feat_bias"
+
+
+def k2b_floor(pk, rows: int) -> tuple:
+    """K2b's bound for a K2 call over ``rows`` stash rows (n rays x S, the
+    rows the function needs: a padded ray's pad rows carry a zero G and
+    count for nothing), from the packed widths alone (so it reads any
+    checkout): one read of every bf16 stash a row (PE(x), each trunk layer's h and G, the
+    feature, [dfeat | dsigma | 0], h_v and g_v, PE(d), d rgb_raw) and one
+    write of the f32 gradient, against the products dW = A^T G of every
+    weight matrix. (ms, what bounds it, bytes)."""
+    L, W, F, V, P, D = pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D
+    row = 2 * (P + 2 * L * W + F + (F + 8) + 2 * V + D + 8)
+    nbytes = rows * row + 4 * (pk.w.numel() + pk.b.numel())
+    skip = P * W if 0 < pk.skip_layer < L else 0
+    macs = P * W + (L - 1) * W * W + skip + W * (F + 8) + F * V + D * V + V * 8
+    ms, by = bound_ms(2.0 * rows * macs, nbytes)
+    return ms, by, nbytes
+
+
 def eager_field(model, cfg, o, d, vd, ts, edges=None, radius=None):
     """The eager field at bf16 (cuBLAS products) on every sample of the
     rays: at the points ts, or (IPE) on the conical Gaussians of the
@@ -3109,6 +3188,10 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
             split = row["split_ms"] = None if per is None else {}
             for k, v in (per or {}).items():
                 split[kernel_name(k)] = split.get(kernel_name(k), 0.0) + v
+            row["k2b_ms"] = (None if per is None else
+                             sum(v for k, v in per.items() if re.search(K2B_KERNELS, k)))
+            # over the rows the function needs: the pad rows' G is zero
+            row["k2b_bound_ms"], k2b_by, k2b_bytes = k2b_floor(pk, n * s)
         plain_txt = f"{plain_ms:.3f} ms" if plain_too else "not run"
         print(f"{kernel} {name}, {n} rays [{card}]: kernel {ms:.3f} ms, plain {plain_txt}, "
               f"library {library_ms:.3f} ms, bound {b:.3f} ms ({by}), "
@@ -3118,6 +3201,8 @@ def time_branches(card: str, model, mcfg, cam, flat_o, flat_d, shapes=BRANCH_SHA
               + (f", scratch {row['scratch_bytes'] / 1e9:.3f} GB; device time by kernel: "
                  + (", ".join(f"{k} {v:.3f}" for k, v in sorted(row["split_ms"].items(),
                                                                 key=lambda kv: -kv[1]))
+                    + f"; K2b {row['k2b_ms']:.3f} ms against its floor "
+                    f"{row['k2b_bound_ms']:.3f} ms ({k2b_by}: {k2b_bytes / 1e9:.3f} GB)"
                     if row["split_ms"] is not None else NOT_PROFILED)
                  if kernel == "K2" else ""))
         rows.append(row)
@@ -5246,9 +5331,10 @@ def time_step(root: str) -> int:
     of every kernel instance; the flagship train step through K2, autograd
     and the plain version, one K2 call and one K1 chunk; every K1 and K2
     call of the main paths (BRANCH_SHAPES, UNB_SHAPES and RECORD_SHAPES: K2
-    at S = 192 and 193 with 4096 rays among them) beside autograd's or the
-    eager field's, each
-    K2 call split by kernel; the calls at the wide and padded widths
+    at S = 192 and 193 with 4096 rays among them; LONG_SHAPES' K2 calls, the
+    300- and 512-sample calls in two blocks) beside autograd's or the eager
+    field's, each K2 call split by kernel, its K2b beside K2b's floor
+    (k2b_floor); the calls at the wide and padded widths
     (WIDE_RUNS, PADDED_RUNS); the train steps of TIMED_STEPS through K2 and
     through autograd, each K2 step's device-idle share; then the hash grid's table gradient (scatter_rows at an ngp
     step's fetches, both layouts, split into sort and reduce), K4's two
@@ -5287,7 +5373,8 @@ def time_step(root: str) -> int:
     packed = pack_weights(model, mcfg)
     time_chunk(card, packed, mcfg, cfg.camera, flat_o, flat_d)
     time_branches(card, model, mcfg, cfg.camera, flat_o, flat_d,
-                  BRANCH_SHAPES + UNB_SHAPES + RECORD_SHAPES, plain_too=False)
+                  BRANCH_SHAPES + UNB_SHAPES + RECORD_SHAPES
+                  + tuple(sh for sh in LONG_SHAPES if sh.kernel == "K2"), plain_too=False)
     for name in WIDE_RUNS + PADDED_RUNS:  # calls at other widths beside the eager field and autograd
         wcfg = width_cfg(name, cfg.model)
         width_calls(name, seeded_model(wcfg, dev), wcfg, dataclasses.replace(cfg, model=wcfg),
@@ -5983,6 +6070,10 @@ def main() -> int:
     for name, lib in libs.items():
         print(f"  {name} -> {lib.name}")
         instances[name] = ptxas_report(name, lib)
+    _, stores, loads, serialized = instances["fused_train"]["dw_wgmma_kernel"]  # K2b
+    if stores or loads or serialized:
+        fail(f"ptxas: dw_wgmma_kernel spills {stores}/{loads} B"
+             + (", its wgmma serialized" if serialized else ""))
     pool, warm = start_learning_pool()
 
     lap("phase 2")
@@ -6012,12 +6103,17 @@ def main() -> int:
     lap("phase 3")
     # ---- 4. K2 vs its plain version and vs autograd ----
     train_err = check_train_kernel(model, mcfg, (o, d, vd), ts_jit, gold, cam.far)
+    dw_err = check_dw_stashes(f"flagship, {N_RAYS} x {S}", model, mcfg, (o, d, vd), ts_jit,
+                              sampling.deltas_from_ts(ts_jit, cam.far), gold)
 
     lap("phase 4")
     # ---- 9. the hierarchical branches: IPE, rays longer than one tile ----
     max_err = max(max_err, check_render_branches(model, mcfg, (o, d, vd), cam))
     train_err = max(train_err, check_train_branches(model, mcfg, (o, d, vd), gold, cam))
     train_err = max(train_err, check_union_rows(model, mcfg, (o, d, vd), gold, cam))
+    ts192, dl192, _, _ = sample_inputs(N_RAYS, 192, False, cam, torch_generator(dev, 14))
+    dw_err = max(dw_err, check_dw_stashes(f"S = 192, {N_RAYS} rays", model, mcfg, (o, d, vd),
+                                          ts192, dl192, gold))
 
     lap("phase 9")
     # ---- 12. K3 vs its plain versions ----
@@ -6287,6 +6383,13 @@ def main() -> int:
     # ---- 36. fields of any width: checks, trains, frames, times ----
     width_k1_err, width_k2_err, width_checks = check_widths((o, d, vd), gold, cam)
     max_err, train_err = max(max_err, width_k1_err), max(train_err, width_k2_err)
+    n_w = WIDTH_ROWS // S
+    for name in ("40/40/24", "512/512/256", "1024/256/128"):  # clusters of 1, 4 and 8 CTAs
+        wcfg = width_cfg(name)
+        dw_err = max(dw_err, check_dw_stashes(
+            f"widths {name}, {n_w} x {S}", random_biases_(init_nerf_params(wcfg, 0, dev), 36),
+            wcfg, tuple(r[:n_w].contiguous() for r in (o, d, vd)), ts_jit[:n_w].contiguous(),
+            sampling.deltas_from_ts(ts_jit[:n_w].contiguous(), cam.far), gold[:n_w].contiguous()))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_widths_")
     try:
         wide_runs = drive_wide(tmp, card, dev)
@@ -6386,7 +6489,7 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": library["fused_ray_render"],
-        "instances": instances["fused_ray"],
+        "instances": list(instances["fused_ray"]),
         "branches": [r for r in branch_rows + unb_rows + rec_rows + long_rows
                      if r["kernel"] == "K1"],
     }, {
@@ -6402,9 +6505,14 @@ def main() -> int:
         "bound_ms": k2_bound,
         "bound_by": k2_by,
         "library_ms": library["fused_train_grads"],
-        "instances": instances["fused_train"],
+        "instances": list(instances["fused_train"]),
         "k2a": "train_narrow_kernel + train_narrow_bwd_kernel (route 'narrow wgmma', every "
                "field up to 256 wide; past it the cluster and mma.sync wide routes)",
+        "k2b": "dw_wgmma_kernel (TMA, clusters sharing G by multicast, wgmma on MN-major "
+               "operands) + reduce_kernel + feat_bias_kernel, every route",
+        "k2b_ms": train_times["k2b_ms"],
+        "k2b_bound_ms": train_times["k2b_bound_ms"],
+        "k2b_max_rel_err_vs_f64": dw_err,
         "blocked_call_launches": blocked_launches,
         "branches": [r for r in branch_rows + unb_rows + rec_rows + long_rows
                      if r["kernel"] == "K2"],

@@ -1,10 +1,10 @@
 // Hopper primitives of the render kernel K1 (fused_ray.cu), of both
-// kernels' wide route (field_cluster.cuh) and of K2a's narrow instance
-// (fused_train.cu): warpgroup matrix products (wgmma), mbarriers, bulk
-// copies into shared memory (with cluster multicast), named barriers, and
-// reads of another cluster CTA's shared memory.
+// kernels' wide route (field_cluster.cuh), of K2a's narrow instance and of
+// K2b (fused_train.cu): warpgroup matrix products (wgmma), mbarriers, bulk
+// and tensor (TMA) copies into shared memory (with cluster multicast),
+// named barriers, and reads of another cluster CTA's shared memory.
 //
-// Operand layout. Every wgmma operand is K-major in shared memory without a
+// Operand layout. Every wgmma operand but K2b's is K-major in shared memory without a
 // swizzle ("interleave"): 8 x 8 bf16 core matrices of 128 contiguous bytes,
 // a row's 8 k-values in 16 bytes. A tile of `rows` rows (128 for the
 // activations, N for a weight slice) keeps core matrix (row group rg, k
@@ -199,7 +199,9 @@ __device__ __forceinline__ void bulk_copy_multicast(uint32_t dst, const void* sr
 // columns 8 j + 2 (l % 4) + {0, 1}, and d[4j+2], d[4j+3] at the row 8 below.
 // acc = 0 overwrites d (the first k-step of a product).
 
-// D[64 x 256] (+)= A[64 x 16] B[16 x 256], both K-major in shared memory
+// D[64 x 256] (+)= A[64 x 16] B[16 x 256], both K-major in shared memory, or
+// both MN-major (transposed) where Tnsp = 1 (K2b's operands)
+template <int Tnsp = 0>
 __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -212,7 +214,7 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db, i
       "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
       "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
       "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -229,7 +231,7 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db, i
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(acc));
+      : "l"(da), "l"(db), "r"(acc), "n"(Tnsp));
 }
 
 // D[64 x 128] (+)= A[64 x 16] B[16 x 128], both K-major in shared memory
@@ -291,15 +293,52 @@ __device__ __forceinline__ void wgmma_n16(float* d, uint64_t da, uint64_t db, in
       : "l"(da), "l"(db), "r"(acc));
 }
 
-// D[64 x 8] (+)= A[64 x 16] B[16 x 8], both K-major in shared memory
+// D[64 x 8] (+)= A[64 x 16] B[16 x 8], both K-major in shared memory (or
+// both MN-major where Tnsp = 1)
+template <int Tnsp = 0>
 __device__ __forceinline__ void wgmma_n8(float* d, uint64_t da, uint64_t db, int acc) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      "}, %4, %5, p, 1, 1, %7, %7;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(da), "l"(db), "r"(acc));
+      : "l"(da), "l"(db), "r"(acc), "n"(Tnsp));
+}
+
+// ---- K2b's operands: MN-major, 128-byte swizzled (fused_train.cu) ----
+// A TMA box of 64 columns x r rows of a row-major bf16 matrix, loaded with
+// the 128-byte swizzle, lies as r rows of 128 bytes, row i's 16-byte chunk j
+// at chunk j ^ (i % 8), in 1024-byte atoms of 8 rows. Read as a wgmma
+// operand whose M (or N) runs along the columns and K along the rows, it is
+// the MN-major canonical layout ((8, 8, m), (8, k)) of 16-byte units with
+// strides ((1, 8, lbo), (8, sbo)): a 64-column panel is one swizzle atom
+// wide, the next 64 columns lie `lbo` bytes on (the next panel) and the next
+// 8 rows sbo = 1024 bytes on; a k16 step moves the start 16 rows (2 KB).
+// Layout type 1 (128-byte swizzle) in bits 62-63.
+__device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// A {64, 64, 1} box of a 3-D tensor map at (c0, c1, c2) into shared memory
+// at dst, completing on the barrier at bar: into this CTA only, or
+// (multicast) into every CTA of `mask` in the cluster at the same offsets.
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int c0, int c1, int c2,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const void* map, int c0, int c1,
+                                                      int c2, uint32_t bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(bar), "h"(mask)
+      : "memory");
 }
 
 // Pins n accumulator registers where they are: without it the compiler

@@ -64,15 +64,14 @@
 //    Each scans a warp per ray (scan_rays_warp) over the per-sample values
 //    (raw sigma, rgb, ts, deltas, w, T, d sigma: 40 B a row in the scratch;
 //    the narrow forward keeps them in shared memory while it runs).
-//  * K2b (dw_partial_kernel): dW_l = A_l^T G_l as a hand-written mma.sync
-//    reduction over rows, 128 x 128 tiles of 8 warps fed by a 3-stage
-//    cp.async ring of 32-row slices (A^T and G fragments through
-//    ldmatrix.trans), split over rows into per-split f32 partials that
-//    reduce_kernel sums in a fixed order. The blocks of a job's first
-//    m-tile also sum the staged G columns over their rows: the bias sums
-//    db_l = sum_rows G_l land in the same partials, so G is read once for
-//    them. No float atomics: two calls on the same inputs give
-//    bit-identical gradients.
+//  * K2b (dw_wgmma_kernel, the K2b section below): dW_l = A_l^T G_l as a
+//    reduction over rows on Hopper's TMA, clusters and wgmma, for every
+//    K2a route: a cluster of CTAs a G block, each owning 128 rows of dW,
+//    reads each stash byte once per split (its A columns into its own
+//    ring, G's panels multicast to the cluster), the bias sums db_l =
+//    sum_rows G_l from the same slots; per-split f32 partials that
+//    reduce_kernel sums in a fixed order. No float atomics: two calls on
+//    the same inputs give bit-identical gradients.
 // At flagship size (4096 rays x 64 samples) the stashes are ~5 KB per
 // sample row each way, ~2.7 GB per call with the partials, on an 80 GB
 // card; the hierarchical union pass (4096 x 192 rows) takes ~8.3 GB.
@@ -81,8 +80,8 @@
 // ~2.3 MFLOP a sample row at paper width) and its stashes (~10 KB a row)
 // are about equal on an H100: at the flagship shape ~0.61 ms of bf16
 // operations and ~0.80 ms of bytes. K2b is bound by reading the stashes
-// (each A is read once per 128-column tile of G, and each G once per
-// 128-row tile of A).
+// once (2.61 GB at the flagship shape, >= 0.78 ms at 3.35 TB/s, beside
+// ~0.32 ms of products).
 //
 // The matrices' and biases' offsets, and the transposed matrices', lie in
 // device tables built once per layout by the wrapper (Field::off,
@@ -101,6 +100,7 @@
 
 #include <cudaTypedefs.h>
 
+#include <algorithm>
 #include <vector>
 
 #include "field.cuh"
@@ -914,8 +914,8 @@ __global__ void __launch_bounds__(cl::kThreads, 1) train_cluster_bwd_kernel(
 // The encodings (narrow_encode: a sincosf a level and coordinate, PE(viewdir)
 // once a ray), the scans (a warp per ray, the per-sample values in shared
 // memory where they fit), d rgb_raw (narrow_drgb, a row a thread) and the
-// rgb head (narrow_rgb) run on the consumers. K2b reads the stashes as
-// before.
+// rgb head (narrow_rgb) run on the consumers. K2b then reads the stashes
+// (the K2b section).
 
 constexpr int kAddrWarp = 9;    // hands the consumers each step's A address
 constexpr int kStoreWarp = 10;  // the first threads of warps 10 and 11 issue the TMA stores
@@ -1652,7 +1652,7 @@ __device__ __forceinline__ void narrow_regs_consumers() {
 }
 
 // K2a's narrow instance, forward: a tile of whole rays a CTA (one to three
-// 128-row passes, or S / 128 for long rays), clusters of two tiles.
+// 128-row passes, or S / 128 for long rays), clusters of kNarrowG tiles.
 template <bool kContract>
 __global__ void __launch_bounds__(cl::kThreads, 1)
     train_narrow_kernel(const __grid_constant__ NarrowParams p) {
@@ -1704,13 +1704,14 @@ __global__ void __launch_bounds__(cl::kThreads, 1)
 }
 
 // The tensor map of a bf16 stash at base: `cols` columns at row stride ld
-// elements over `rows` rows (and `layers` of them at a stride of rows x ld,
-// a 3-D map, where layers > 0), boxes of 64 rows and 64 columns swizzled by
-// 128 bytes (sw: a warpgroup's rows of the act block's panels) or of 128
-// rows and 8 columns (the encoding tiles' k-groups). Returns 0, or
-// cudaErrorUnknown where the CUDA library has no encoder or refuses.
+// elements over `rows` rows (and `layers` of them at a stride of layer_rows
+// x ld, or rows x ld where layer_rows is 0, a 3-D map, where layers > 0),
+// boxes of 64 rows and 64 columns swizzled by 128 bytes (sw: a warpgroup's
+// rows of the act block's panels, K2b's k-block panels) or of 128 rows and
+// 8 columns (the encoding tiles' k-groups). Returns 0, or cudaErrorUnknown
+// where the CUDA library has no encoder or refuses.
 int stash_map(CUtensorMap* map, const bf16* base, long long cols, long long ld, long long rows,
-              long long layers, bool sw) {
+              long long layers, bool sw, long long layer_rows = 0) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -1725,7 +1726,8 @@ int stash_map(CUtensorMap* map, const bf16* base, long long cols, long long ld, 
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(layers > 0 ? layers : 1)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld * 2),
-                                 static_cast<cuuint64_t>(rows * ld * 2)};
+                                 static_cast<cuuint64_t>((layer_rows > 0 ? layer_rows : rows) *
+                                                         ld * 2)};
   const cuuint32_t box[3] = {sw ? 64u : 8u, sw ? kRows / 2u : kRows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<bf16*>(base),
@@ -1737,144 +1739,361 @@ int stash_map(CUtensorMap* map, const bf16* base, long long cols, long long ld, 
 }
 
 // ---- K2b: dW = A^T G over rows, the bias sums db = sum_rows G folded in ----
+//
+// dw_wgmma_kernel, for every K2a route. A job is one product's weight
+// gradient dW (K x N) = A^T G over the call's rows (A a stash of K columns,
+// G one of N), split over rows into per-split f32 partials that
+// reduce_kernel sums in split order. What bounds it is reading the stashes
+// (~10 KB a sample row at paper width, ~0.3 of the operations' time on the
+// tensor cores), so its design reads each stash byte from device memory
+// once per split and job:
+//  * a work item is a job's column block of G (all of N up to 256; wider G
+//    in blocks of 256, the last one taking an 8-column tail where N = 256 b
+//    + 8, as [dfeat | dsigma | 0] has at F = 256) over one split's rows
+//    (~kSplitRows). It is a cluster of ceil(K / 128) CTAs (at most
+//    kDwMaxCluster; a launch's clusters all take the widest job's size, and
+//    the CTAs past a job's K leave at once), CTA r owning dW rows [128 r,
+//    128 r + 128): A's columns [128 r, 128 r + 128) and every column of the
+//    block;
+//  * the first thread of warp 8 keeps TMA loads (cp.async.bulk.tensor, 3-D
+//    maps over the h and G stashes' layers) of 64-row k-blocks in flight
+//    into a ring of kDwMaxStages slots: its own CTA's two 64-column A
+//    panels, and a share of G's panels (panel p by CTA p % C) multicast to
+//    every CTA of the cluster, so a G byte is read once for all of A's
+//    columns. TMA's zero fill covers the ragged edges (rows past the call's,
+//    columns past a stash's width); the boxes land 128-byte swizzled;
+//  * two consumer warpgroups run wgmma.m64n256k16 (and m64n8k16 on the
+//    tail) with both operands MN-major from shared memory (A^T's M and G's
+//    N run along the stash rows' columns, K along the rows: the transpose
+//    bits set), 64 dW rows each, the sums in registers for the whole split;
+//    each slot is freed, in every CTA of the cluster, once the next k-block's
+//    group has started;
+//  * warps 9 and 10 of the item's first CTA sum the bias columns of G
+//    (db_l = sum_rows G_l) from the same slots on the CUDA cores, each warp
+//    over its half of every k-block, in a fixed order (dw_bias).
+// Each partial element is written by one CTA (no float atomics): two calls
+// on the same inputs give bit-identical gradients. Jobs launch in order of
+// their bytes a row (the heaviest first, so the light ones fill the last
+// wave), kJobs a launch, every item of a job over every split.
 
-constexpr int kBT = 128;     // dW tile: kBT x kBT, 8 warps of 64 x 32
-constexpr int kBK = 32;      // rows per stage
-constexpr int kStages = 3;   // the cp.async ring
-constexpr int kLdt = kBT + 8;
-constexpr int kStageElems = 2 * kBK * kLdt;  // A's rows, then G's
-constexpr size_t kRedSmem = sizeof(bf16) * kStages * kStageElems;  // 52,224 B
-constexpr int kRedThreads = 256;
-constexpr int kSplitRows = 8192;  // rows per split (at most kMaxSplits splits)
+constexpr int kDwRows = 64;        // stash rows a ring slot: a k-block
+constexpr int kDwM = 128;          // dW rows (A columns) a CTA: two warpgroups of 64
+constexpr int kDwN = 256;          // G columns a column block (wgmma n256) ...
+constexpr int kDwTail = 8;         // ... and the tail past them (wgmma n8) where N = 256 b + 8
+constexpr int kDwMaxCluster = 8;   // CTAs a cluster: the m-blocks a G block's multicast feeds
+constexpr int kDwMaxStages = 4;
+constexpr int kDwThreads = 384;    // warps 0-7 consumers, 8 producer, 9-10 the bias sums
+constexpr int kDwProducerWarp = 8, kDwBiasWarp = 9;
+constexpr uint32_t kDwPanel = kDwRows * 128;  // a 64-column panel of a k-block: 8 KB
+constexpr uint32_t kDwSlot = 7 * kDwPanel;    // A's two panels, G's four, the tail's one
+// the barriers (full at 0, empty at 64), the bias sums' second halves (33
+// chunks of 8 f32) at 128, the ring at a 1024-byte boundary (the swizzle's)
+constexpr uint32_t kDwFullOff = 0, kDwEmptyOff = 64, kDwHalfOff = 128, kDwRingOff = 2048;
+static_assert(kDwHalfOff + 4 * (kDwN + kDwTail) <= kDwRingOff, "the bias halves overlap the ring");
+constexpr int kSplitRows = 12288;  // rows per split (at most kMaxSplits splits)
 // a launch's rows: at most the wrapper's block of 1,048,576 (4096 rays x 256
-// samples), 128 splits of 8,192; a longer call would take longer splits
+// samples), 86 splits of ~12,288; a longer call would take longer splits
 constexpr int kMaxSplits = 128;
 constexpr int kJobs = 24;  // K2b jobs a launch: their table rides in the launch parameters
 
+// The stashes' tensor maps (3-D: columns, the call's rows, layers).
+enum DwMap { kDwX = 0, kDwH, kDwFeat, kDwHv, kDwDv, kDwGh, kDwGsf, kDwGhv, kDwRgb, kDwMaps };
+
 struct Job {  // dW (K, N) = A^T G over the rows; with bias_out >= 0 also db = sum_rows G
-  const bf16* a;
-  const bf16* g;
   long long out;       // offset of dW in the flat gradient
   long long bias_out;  // offset of db in the flat gradient, or -1
+  int a_map, a_layer;  // A: map and layer
+  int g_map, g_layer;  // G: map and layer
   int bias_col0;       // the first column of G whose sum is kept
-  int K, N, tiles_n, tile0;
+  int K, N;
+  int mgroups;  // clusters a column block (ceil(K / 128 / cluster))
+  int cblocks;  // column blocks (the tail rides on the last)
+  int unit0;    // the job's first item among the launch's (item: a column block's cluster)
 };
 
-struct ReduceParams {
+struct DwParams {
+  CUtensorMap map[kDwMaps];
   Job jobs[kJobs];
-  int n_jobs;
+  int n_jobs, cluster, stages, splits;
   long long rows, rows_per_split;
   long long total;  // elements of the flat gradient
   float* partial;   // (splits, total)
 };
 
-__global__ void __launch_bounds__(kRedThreads, 2) dw_partial_kernel(const ReduceParams p) {
-  extern __shared__ __align__(16) unsigned char red_smem[];
-  bf16* ring = reinterpret_cast<bf16*>(red_smem);
-  __shared__ float upper[kBT];  // the bias sums of the stages' upper 16 rows
-  int j = 0;
-  while (j + 1 < p.n_jobs && p.jobs[j + 1].tile0 <= static_cast<int>(blockIdx.x)) ++j;
-  const Job& job = p.jobs[j];
-  const int tile = blockIdx.x - job.tile0;
-  const int m0 = (tile / job.tiles_n) * kBT, n0 = (tile % job.tiles_n) * kBT;
-  const long long r_begin = blockIdx.y * p.rows_per_split;
-  const long long r_end = min(p.rows, r_begin + p.rows_per_split);
-  const int steps = r_end > r_begin ? static_cast<int>((r_end - r_begin + kBK - 1) / kBK) : 0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = (warp & 1) * 64, wn = (warp >> 1) * 32;
-  const bool busy = m0 + wm < job.K && n0 + wn < job.N;  // the warp's tile has real columns
-  const bool bias = m0 == 0 && job.bias_out >= 0;        // block-uniform
-  const int bc = tid % kBT, bh = tid / kBT;              // bias: column, half of the rows
+// G's column blocks of a job N columns wide: blocks of kDwN, the last one
+// taking the kDwTail columns past 256 b where N = 256 b + 8.
+inline int dw_cblocks(int N) {
+  return N > kDwN && N % kDwN == kDwTail ? N / kDwN : (N + kDwN - 1) / kDwN;
+}
 
-  // one stage: kBK rows x kBT columns of A and of G, zeros past the edges
-  auto load = [&](int step) {
-    bf16* as = ring + (step % kStages) * kStageElems;
-    bf16* gs = as + kBK * kLdt;
-    const long long r = r_begin + static_cast<long long>(step) * kBK;
-    for (int i = tid; i < kBK * (kBT / 8); i += kRedThreads) {
-      const int row = i / (kBT / 8), c8 = (i % (kBT / 8)) * 8;
-      const long long gr = r + row;
-      const bool a_ok = gr < r_end && m0 + c8 < job.K;
-      const bool g_ok = gr < r_end && n0 + c8 < job.N;
-      cp_async16(as + row * kLdt + c8, a_ok ? job.a + gr * job.K + m0 + c8 : job.a, a_ok);
-      cp_async16(gs + row * kLdt + c8, g_ok ? job.g + gr * job.N + n0 + c8 : job.g, g_ok);
+// The first thread of warp 8: k-block kb's loads into slot kb % stages,
+// once every consumer of every CTA of the cluster has freed the slot.
+__device__ inline void dw_produce(const DwParams& p, const Job& jb, int rank, int act, int m0,
+                                  int n0, bool tail, long long r0, int nk) {
+  const uint16_t mask = static_cast<uint16_t>((1u << act) - 1);
+  const int a_panels = jb.K - m0 > 64 ? 2 : 1;
+  const int g_panels = min(4, (jb.N - n0 + 63) / 64);
+  const uint32_t bytes = (a_panels + g_panels + (tail ? 1 : 0)) * kDwPanel;
+  const CUtensorMap* amap = &p.map[jb.a_map];
+  const CUtensorMap* gmap = &p.map[jb.g_map];
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    const int r = static_cast<int>(r0) + kb * kDwRows;
+    const uint32_t full = cl::sa(kDwFullOff) + 8 * slot;
+    const uint32_t base = cl::sa(kDwRingOff) + slot * kDwSlot;
+    wg::mbar_wait_cluster(cl::sa(kDwEmptyOff) + 8 * slot, phase ^ 1);
+    wg::mbar_arrive_expect_tx(full, bytes);
+    for (int q = 0; q < a_panels; ++q)
+      wg::tma_load_3d(base + q * kDwPanel, amap, m0 + 64 * q, r, jb.a_layer, full);
+    for (int q = 0; q < g_panels + (tail ? 1 : 0); ++q) {
+      if (q % act != rank) continue;
+      const uint32_t dst = base + (2 + q) * kDwPanel;  // the tail's panel follows G's four
+      if (act > 1)
+        wg::tma_load_3d_multicast(dst, gmap, n0 + 64 * q, r, jb.g_layer, full, mask);
+      else
+        wg::tma_load_3d(dst, gmap, n0 + 64 * q, r, jb.g_layer, full);
     }
-  };
-
-  float acc[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  float bsum = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) load(s);
-    cp_async_commit();
-  }
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kStages - 2>();  // this step's stage has landed (for this thread) ...
-    __syncthreads();               // ... and for all; the slot refilled below is free
-    if (step + kStages - 1 < steps) load(step + kStages - 1);
-    cp_async_commit();
-    const bf16* as = ring + (step % kStages) * kStageElems;
-    const bf16* gs = as + kBK * kLdt;
-    if (busy) {
-#pragma unroll
-      for (int ks = 0; ks < kBK; ks += 16) {
-        // A operand = A^T (m = A column, k = row): ldmatrix.trans of 8x8 blocks
-        // (rows k, columns m); lanes 8-15 take m + 8, lanes 16-31 k + 8
-        uint32_t a[4][4], b[2][4];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-          ldmatrix_x4_trans(a[mt], as + (ks + (lane & 7) + ((lane >> 4) << 3)) * kLdt + wm +
-                                       mt * 16 + ((lane >> 3) & 1) * 8);
-        // B operand = G (k = row, n = G column): lanes 8-15 take k + 8, lanes
-        // 16-31 the next n8 tile
-#pragma unroll
-        for (int np = 0; np < 2; ++np)
-          ldmatrix_x4_trans(b[np], gs + (ks + (lane & 7) + ((lane >> 3) & 1) * 8) * kLdt + wn +
-                                       np * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-            mma_16816(acc[mt][nt], a[mt], b[nt >> 1][(nt & 1) * 2], b[nt >> 1][(nt & 1) * 2 + 1]);
-      }
-    }
-    if (bias) {  // rows bh * 16 .. bh * 16 + 15 of the stage, in order
-#pragma unroll
-      for (int k = 0; k < kBK / 2; ++k)
-        bsum += __bfloat162float(gs[(bh * (kBK / 2) + k) * kLdt + bc]);
+    if (++slot == p.stages) {
+      slot = 0;
+      phase ^= 1;
     }
   }
+  // every slot freed by every consumer it feeds: no arrival from another
+  // CTA is still on its way when the CTA exits
+  for (int i = 0; i < p.stages; ++i) {
+    wg::mbar_wait_cluster(cl::sa(kDwEmptyOff) + 8 * slot, phase ^ 1);
+    if (++slot == p.stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+}
 
-  float* out = p.partial + blockIdx.y * p.total;
-  if (busy) {
-    const int g = lane >> 2, t4 = lane & 3;
+// The consumer warpgroups: warpgroup w's 64 dW rows (A's panel w) times the
+// block's 256 columns (and the tail's 8 where the block has them) over the
+// split's k-blocks, then into the split's partial. A warpgroup whose rows
+// lie past K (the second, where K - m0 <= 64: its panel is never loaded)
+// takes no part, and the slots' barriers do not count it (dw_consumers).
+__device__ inline void dw_consume(const DwParams& p, const Job& jb, int act, int split, int m0,
+                                  int n0, bool tail, int nk) {
+  const int w = threadIdx.x >> 7;
+  if (64 * w >= jb.K - m0) return;
+  const uint32_t signal = (threadIdx.x & 127) == 0;
+  float acc[128], tacc[4];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+  for (int i = 0; i < 4; ++i) tacc[i] = 0.f;
+  int slot = 0, prev = -1;
+  uint32_t phase = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    wg::mbar_wait_cluster(cl::sa(kDwFullOff) + 8 * slot, phase);
+    wg::fence_regs<128>(acc);
+    wg::fence_regs<4>(tacc);
+    wg::fence();
+    const uint32_t base = cl::sa(kDwRingOff) + slot * kDwSlot;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = m0 + wm + mt * 16 + g + 8 * h;
-          const int n = n0 + wn + nt * 8 + 2 * t4;
-          float* o = out + job.out + static_cast<long long>(m) * job.N + n;
-          if (m < job.K) {
-            if (n < job.N) o[0] = acc[mt][nt][2 * h];
-            if (n + 1 < job.N) o[1] = acc[mt][nt][2 * h + 1];
+    for (int ks = 0; ks < kDwRows / 16; ++ks) {
+      const uint64_t da = wg::desc_mn_sw128(base + w * kDwPanel + ks * 2048, kDwPanel);
+      wg::wgmma_n256<1>(acc, da, wg::desc_mn_sw128(base + 2 * kDwPanel + ks * 2048, kDwPanel), 1);
+      if (tail)
+        wg::wgmma_n8<1>(tacc, da, wg::desc_mn_sw128(base + 6 * kDwPanel + ks * 2048, kDwPanel), 1);
+    }
+    wg::commit();
+    wg::fence_regs<128>(acc);
+    wg::fence_regs<4>(tacc);
+    if (prev >= 0) {
+      wg::wait<1>();
+      for (int c = 0; c < act; ++c)
+        wg::mbar_arrive_cluster(cl::sa(kDwEmptyOff) + 8 * prev, c, signal);
+    }
+    prev = slot;
+    if (++slot == p.stages) {
+      slot = 0;
+      phase ^= 1;
+    }
+  }
+  wg::wait<0>();
+  wg::fence_regs<128>(acc);
+  wg::fence_regs<4>(tacc);
+  if (prev >= 0)
+    for (int c = 0; c < act; ++c)
+      wg::mbar_arrive_cluster(cl::sa(kDwEmptyOff) + 8 * prev, c, signal);
+
+  // the accumulator fragment (wg::wgmma_n256): rows 16 warp + lane / 4 (+ 8),
+  // columns 8 j + 2 (lane % 4) (+ 1)
+  const int lane = threadIdx.x & 31;
+  const int m = m0 + 64 * w + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+  const int c0 = n0 + 2 * (lane & 3);
+  const int K = jb.K, N = jb.N;
+  float* out = p.partial + static_cast<long long>(split) * p.total + jb.out;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (m + 8 * h >= K) continue;
+    float* row = out + static_cast<long long>(m + 8 * h) * N;
+#pragma unroll
+    for (int j = 0; j < kDwN / 8; ++j) {
+      const int n = c0 + 8 * j;
+      if (n < N) row[n] = acc[4 * j + 2 * h];
+      if (n + 1 < N) row[n + 1] = acc[4 * j + 2 * h + 1];
+    }
+    if (tail) {
+      row[c0 + kDwN] = tacc[2 * h];
+      row[c0 + kDwN + 1] = tacc[2 * h + 1];
+    }
+  }
+}
+
+// Warps 9 and 10 of the item's first CTA: the sums over the split's rows of
+// G's columns [max(n0, bias_col0), N) of the block, in 8-column chunks.
+// Warp h takes rows [32 h, 32 h + 32) of every k-block; where the block has
+// C <= 32 chunks, L = 32 / C (rounded down to a power of two) lanes share a
+// chunk, lane c L + t summing rows 32 h + t, 32 h + t + L, ... in row order
+// (past 32 chunks, lane l takes chunks l and l + 32: the tail's, past G's
+// four panels). At the end each chunk's L lanes are added by a shuffle
+// butterfly and warp 1's sums to warp 0's, in that order, into the split's
+// partial: a fixed order whatever the timing.
+__device__ inline void dw_bias(const DwParams& p, const Job& jb, int act, int split, int n0,
+                               bool tail, int nk) {
+  const int h = (threadIdx.x >> 5) - kDwBiasWarp, lane = threadIdx.x & 31;
+  const int cs = max(0, jb.bias_col0 - n0) / 8;
+  const int ce = (min(jb.N - n0, kDwN + (tail ? kDwTail : 0)) + 7) / 8;
+  int per = 1;  // lanes a chunk (a block with no bias columns: ce <= cs, no chunk)
+  if (ce > cs)
+    while (per * 2 * (ce - cs) <= 32) per *= 2;
+  const int sub = lane & (per - 1), c_lane = cs + lane / per;
+  float s[2][8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s[i][e] = 0.f;
+  int slot = 0;
+  uint32_t phase = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    wg::mbar_wait_cluster(cl::sa(kDwFullOff) + 8 * slot, phase);
+    const uint32_t base = kDwRingOff + slot * kDwSlot;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = c_lane + 32 * i;
+      if (c >= ce) continue;
+      const uint32_t panel = base + (2 + c / 8) * kDwPanel;  // chunk 32: the tail's panel
+      const int jc = c < 32 ? c % 8 : 0;
+      for (int r = 32 * h + sub; r < 32 * h + 32; r += 4 * per) {  // four rows' loads in flight
+        uint4 v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int rr = r + k * per;
+          v[k] = rr < 32 * h + 32 ? *reinterpret_cast<const uint4*>(
+                                        cl::smem + panel + rr * 128 + ((jc ^ (rr & 7)) << 4))
+                                  : make_uint4(0, 0, 0, 0);
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const uint32_t u[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[i][2 * e] += __uint_as_float(u[e] << 16);
+            s[i][2 * e + 1] += __uint_as_float(u[e] & 0xffff0000u);
           }
         }
+      }
+    }
+    __syncwarp();
+    for (int c = 0; c < act; ++c)
+      wg::mbar_arrive_cluster(cl::sa(kDwEmptyOff) + 8 * slot, c, lane == 0);
+    if (++slot == p.stages) {
+      slot = 0;
+      phase ^= 1;
+    }
   }
-  if (bias) {  // lower half + upper half, in that order
-    if (bh == 1) upper[bc] = bsum;
-    __syncthreads();
-    const int n = n0 + bc;
-    if (bh == 0 && n < job.N && n >= job.bias_col0) out[job.bias_out + n] = bsum + upper[bc];
+  for (int d = 1; d < per; d *= 2)  // the chunk's lanes, a butterfly
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s[i][e] += __shfl_xor_sync(0xffffffffu, s[i][e], d);
+  float* half = reinterpret_cast<float*>(cl::smem + kDwHalfOff);
+  const bool owner = sub == 0;
+  if (h == 1 && owner) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = c_lane + 32 * i;
+      if (c < ce)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) half[(c - cs) * 8 + e] = s[i][e];
+    }
+  }
+  wg::named_sync(1, 64);
+  if (h == 0 && owner) {
+    float* out = p.partial + static_cast<long long>(split) * p.total + jb.bias_out;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = c_lane + 32 * i;
+      if (c >= ce) continue;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int n = n0 + 8 * c + e;
+        if (n < jb.N) out[n] = s[i][e] + half[(c - cs) * 8 + e];
+      }
+    }
+  }
+}
+
+// The consumer warpgroups of a cluster of `act` live CTAs that take part
+// (dw_consume): two a CTA, less the last CTA's second where its rows of dW
+// past m0 are 64 or fewer. Each frees every slot of every CTA.
+__device__ inline int dw_consumers(const Job& jb, int act, int m_last) {
+  return 2 * act - (jb.K - m_last > 64 ? 0 : 1);
+}
+
+// One CTA of a work item: cluster c of the launch is item c / splits (its
+// job's column block and m-group) over split c % splits.
+__global__ void __launch_bounds__(kDwThreads, 1) dw_wgmma_kernel(const __grid_constant__ DwParams p) {
+  const int rank = static_cast<int>(blockIdx.x) % p.cluster;  // = %cluster_ctarank (1-D clusters)
+  const int cid = static_cast<int>(blockIdx.x) / p.cluster;
+  const int item = cid / p.splits, split = cid % p.splits;
+  int j = 0;
+  while (j + 1 < p.n_jobs && p.jobs[j + 1].unit0 <= item) ++j;
+  const Job& jb = p.jobs[j];
+  const int v = item - jb.unit0;
+  const int cb = v / jb.mgroups, mg = v % jb.mgroups;
+  const int mblocks = (jb.K + kDwM - 1) / kDwM;
+  const int act = min(p.cluster, mblocks - mg * p.cluster);  // the cluster's CTAs with rows of dW
+  const bool live = rank < act;
+  const int m0 = (mg * p.cluster + rank) * kDwM, n0 = cb * kDwN;
+  const bool tail = jb.N > kDwN && jb.N % kDwN == kDwTail && cb == jb.cblocks - 1;
+  const bool bias = jb.bias_out >= 0 && mg == 0;  // the first CTA sums G's bias columns
+  const long long r0 = static_cast<long long>(split) * p.rows_per_split;
+  const long long r1 = min(p.rows, r0 + p.rows_per_split);
+  const int nk = r1 > r0 ? static_cast<int>((r1 - r0 + kDwRows - 1) / kDwRows) : 0;
+  // a CTA past the job's m-blocks leaves at once, freeing its SM: the live
+  // CTAs never touch its shared memory, and the cluster barriers wait only
+  // for threads that have not exited
+  if (!live) return;
+  if (threadIdx.x == 0) {
+    if (cl::sa(kDwRingOff) & 1023u) __trap();  // the 128-byte swizzle needs 1024-byte panels
+    for (int s = 0; s < p.stages; ++s) {
+      wg::mbar_init(cl::sa(kDwFullOff) + 8 * s, 1);
+      wg::mbar_init(cl::sa(kDwEmptyOff) + 8 * s,
+                    dw_consumers(jb, act, (mg * p.cluster + act - 1) * kDwM) + (bias ? 2 : 0));
+    }
+    wg::mbar_init_fence();
+  }
+  __syncwarp();
+  wg::cluster_sync();  // every CTA's barriers exist before any remote arrival or multicast
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x / 32, 0);
+  if (warp >= kDwProducerWarp) {  // the paths never reconverge: setmaxnreg holds
+    narrow_regs_other();
+    if (warp == kDwProducerWarp) {
+      if ((threadIdx.x & 31) == 0) dw_produce(p, jb, rank, act, m0, n0, tail, r0, nk);
+    } else if (bias && rank == 0 && warp < kDwBiasWarp + 2) {
+      dw_bias(p, jb, act, split, n0, tail, nk);
+    }
+    wg::cluster_sync_any();  // no CTA leaves while another's multicast or arrival may still land
+  } else {
+    narrow_regs_consumers();
+    dw_consume(p, jb, act, split, m0, n0, tail, nk);
+    wg::cluster_sync_any();
   }
 }
 
@@ -1915,6 +2134,79 @@ struct Scratch {
 long long splits_for(long long rows) {
   long long s = (rows + kSplitRows - 1) / kSplitRows;
   return s < 1 ? 1 : (s > kMaxSplits ? kMaxSplits : s);
+}
+
+// Rows of a K2b split: splits_for's share rounded up to whole k-blocks (no
+// k-block crosses a split); ceil(rows / rows_per_split) splits launch, at
+// most splits_for(rows).
+long long rows_per_split(long long rows) {
+  const long long s = splits_for(rows);
+  return ((rows + s - 1) / s + kDwRows - 1) / kDwRows * kDwRows;
+}
+
+constexpr int kDwDevices = 64;  // devices whose K2b set-up is kept
+
+// K2b's ring stages (at most kDwMaxStages) in the card's opt-in shared
+// memory and its dynamic shared memory, set on the kernel once a device and
+// kept, as smem_optin keeps the opt-in size. Returns 0, -5 where not two
+// stages fit, or a cudaError_t.
+int dw_setup(int* stages, size_t* smem) {
+  static std::atomic<int> known[kDwDevices];  // the stages once set; 0: not yet
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int n = dev < kDwDevices ? known[dev].load(std::memory_order_relaxed) : 0;
+  if (n == 0) {
+    size_t optin = 0;
+    int rc = smem_optin(&optin);
+    if (rc != 0) return rc;
+    const long long fit = (static_cast<long long>(optin) - kDwRingOff) / kDwSlot;
+    if (fit < 2) return -5;
+    n = static_cast<int>(fit < kDwMaxStages ? fit : kDwMaxStages);
+    rc = set_smem(dw_wgmma_kernel, kDwRingOff + static_cast<size_t>(n) * kDwSlot);
+    if (rc != 0) return rc;
+    if (dev < kDwDevices) known[dev].store(n, std::memory_order_relaxed);
+  }
+  *stages = n;
+  *smem = kDwRingOff + static_cast<size_t>(n) * kDwSlot;
+  return 0;
+}
+
+// Launches K2b's `ctas` CTAs in clusters of p.cluster, after checking that
+// the card holds one such cluster at once (asked once a device and cluster
+// size, at dw_setup's shared memory). Returns 0 or a cudaError_t, or -5
+// where no cluster fits.
+int dw_launch(const DwParams& p, long long ctas, size_t smem, cudaStream_t stream) {
+  static std::atomic<int> fits[kDwDevices][kDwMaxCluster + 1];  // 1 fits, -1 not, 0 not asked
+  if (ctas == 0) return 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(kDwThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int fit = dev < kDwDevices ? fits[dev][p.cluster].load(std::memory_order_relaxed) : 0;
+  if (fit == 0) {
+    cfg.gridDim = dim3(p.cluster);
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, dw_wgmma_kernel, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fit = clusters >= 1 ? 1 : -1;
+    if (dev < kDwDevices) fits[dev][p.cluster].store(fit, std::memory_order_relaxed);
+  }
+  if (fit < 0) return -5;
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+  err = cudaLaunchKernelEx(&cfg, dw_wgmma_kernel, p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // 32-bit words of relu bits per row: the widest masked layer's columns
@@ -2038,6 +2330,30 @@ int nerf_fused_train_route(int S, int W, int F, int V, int P, int D) {
   return static_cast<int>(mode);
 }
 
+// The byte offsets in nerf_fused_train_grads's scratch of its stashes (sx,
+// sh, sfeat, shv, sdv, gh, gsf, ghv, grgb: fused_train.STASHES), then the
+// stashes' rows (rows_pad), into out[0..9], for the card tests that read
+// K2b's inputs back. Returns 0, or negative as
+// nerf_fused_train_scratch_bytes.
+int nerf_fused_train_stash_offsets(long long n_rays, int S, int depth_l, int W, int F, int V,
+                                   int P, int D, long long total, long long* out) {
+  if (!takes_samples(S)) return -1;
+  Field f;
+  set_layout(&f, S, W, F, V, P, D);
+  f.n_layers = depth_l;
+  TrainMode mode = kNarrow;
+  const int rc = train_mode(f, &mode);
+  if (rc != 0) return -rc;
+  const long long rows_pad = rows_padded(n_rays, S, tile_group(f, mode));
+  const Scratch s =
+      scratch_layout(nullptr, rows_pad, n_rays * S, depth_l, W, F, V, P, D, total);
+  const bf16* at[9] = {s.sx, s.sh, s.sfeat, s.shv, s.sdv, s.gh, s.gsf, s.ghv, s.grgb};
+  for (int i = 0; i < 9; ++i)  // the layout from a null base: offsets
+    out[i] = static_cast<long long>(reinterpret_cast<uintptr_t>(at[i]));
+  out[9] = rows_pad;
+  return 0;
+}
+
 // Padded rows of one launch at the padded S: the most whole tiles within
 // max_rows rows whose scratch less the partials (the stashes, and on the
 // cluster route the repacked weights) takes at most max_bytes, one tile at
@@ -2138,6 +2454,10 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaSuccess;
+  int dw_stages = 0;
+  size_t dw_smem = 0;
+  rc = dw_setup(&dw_stages, &dw_smem);
+  if (rc != 0) return rc;
   if (mode == kCluster || mode == kNarrow) {  // the weights repacked after the stashes
     TrainClusterParams q;
     q.t = p;
@@ -2168,7 +2488,6 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
       auto kernel = contract ? train_narrow_kernel<true> : train_narrow_kernel<false>;
       rc = set_smem(kernel, q.L.total);
       if (rc == 0) rc = set_smem(train_narrow_bwd_kernel, q.L.total);
-      if (rc == 0) rc = set_smem(dw_partial_kernel, kRedSmem);
       if (rc != 0 || n_rays == 0) return rc;
       NarrowParams np;
       np.c = q;
@@ -2193,8 +2512,6 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
       if (rc != 0) return rc;
       rc = set_smem(train_cluster_bwd_kernel, q.L.total);
       if (rc != 0) return rc;
-      rc = set_smem(dw_partial_kernel, kRedSmem);
-      if (rc != 0) return rc;
       if (n_rays == 0) return 0;
       rc = cl::pack(p.f, q.geo, p.f.w, w_off, p.f.b, b_off, p.wt, wt_off, st);
       if (rc != 0) return rc;
@@ -2209,8 +2526,6 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
     auto tile = contract ? train_wide_kernel<true> : train_wide_kernel<false>;
     rc = set_smem(tile, smem);
     if (rc != 0) return rc;
-    rc = set_smem(dw_partial_kernel, kRedSmem);
-    if (rc != 0) return rc;
     if (n_rays == 0) return 0;
     const unsigned ctas = static_cast<unsigned>(rows_pad / p.f.rows);
     tile<<<ctas, kThreads, smem, st>>>(p);
@@ -2218,55 +2533,81 @@ int nerf_fused_train_grads(const void* o, const void* d, const void* vd, const v
     if (err != cudaSuccess) return static_cast<int>(err);
   }
 
-  // K2b's jobs, in the packed order (depth + 4 or + 5 of them), launched
-  // kJobs at a time (one launch up to depth 19); each job writes its own
-  // slots of the partials
+  // K2b's jobs, in the packed order (depth + 4 or + 5 of them), each
+  // writing its own slots of the partials; launched heaviest first, kJobs
+  // at a time (one launch up to depth 19)
+  const bool skip_on = skip > 0 && skip < L;
   std::vector<Job> jobs;
   jobs.reserve(L + 5);
-  const long long hs = rows_pad * W;
-  const bool skip_on = skip > 0 && skip < L;
   // bias: the offset of db among the biases, or -1 where another job sums this G
-  auto job = [&](const bf16* a, int K, const bf16* g, int N, long long out, long long bias,
-                 int bias_col0) {
+  auto job = [&](int a_map, int a_layer, int K, int g_map, int g_layer, int N, long long out,
+                 long long bias, int bias_col0) {
     Job& jb = jobs.emplace_back();
-    jb.a = a;
-    jb.g = g;
     jb.out = out;
     jb.bias_out = bias < 0 ? -1 : total_w + bias;
+    jb.a_map = a_map;
+    jb.a_layer = a_layer;
+    jb.g_map = g_map;
+    jb.g_layer = g_layer;
     jb.bias_col0 = bias_col0;
     jb.K = K;
     jb.N = N;
-    jb.tiles_n = (N + kBT - 1) / kBT;
   };
   for (int l = 0; l < L; ++l)
-    job(l == 0 ? s.sx : s.sh + (l - 1) * hs, l == 0 ? P : W, s.gh + l * hs, W, w_off[l],
-        b_off[l], 0);
-  if (skip_on) job(s.sx, P, s.gh + skip * hs, W, w_off[L], -1, 0);
+    job(l == 0 ? kDwX : kDwH, l == 0 ? 0 : l - 1, l == 0 ? P : W, kDwGh, l, W, w_off[l], b_off[l],
+        0);
+  if (skip_on) job(kDwX, 0, P, kDwGh, skip, W, w_off[L], -1, 0);
   // the sigma block of [dfeat | dsigma | 0] only: no partial holds d feat_b,
   // which feat_bias_kernel writes over reduce_kernel's sum of those slots
-  job(s.sh + (L - 1) * hs, W, s.gsf, F + 8, w_off[L + 1], b_off[L], F);
-  job(s.sfeat, F, s.ghv, V, w_off[L + 2], b_off[L + 1], 0);
-  job(s.sdv, D, s.ghv, V, w_off[L + 3], -1, 0);
-  job(s.shv, V, s.grgb, 8, w_off[L + 4], b_off[L + 2], 0);
-  const long long splits = splits_for(rows);
-  ReduceParams q;
+  job(kDwH, L - 1, W, kDwGsf, 0, F + 8, w_off[L + 1], b_off[L], F);
+  job(kDwFeat, 0, F, kDwGhv, 0, V, w_off[L + 2], b_off[L + 1], 0);
+  job(kDwDv, 0, D, kDwGhv, 0, V, w_off[L + 3], -1, 0);
+  job(kDwHv, 0, V, kDwRgb, 0, 8, w_off[L + 4], b_off[L + 2], 0);
+  int cluster = 1;
+  for (const Job& jb : jobs) cluster = std::max(cluster, (jb.K + kDwM - 1) / kDwM);
+  cluster = std::min(cluster, kDwMaxCluster);
+  // a work item's bytes a row: its cluster's A columns and its G block's
+  auto cost = [&](const Job& jb) {
+    const int tail = jb.N > kDwN && jb.N % kDwN == kDwTail ? kDwTail : 0;
+    return std::min(jb.K, cluster * kDwM) + std::min(jb.N, kDwN) + tail;
+  };
+  std::stable_sort(jobs.begin(), jobs.end(),
+                   [&](const Job& x, const Job& y) { return cost(x) > cost(y); });
+
+  DwParams q;
+  const long long rows_pad_l = rows_pad;
+  rc = stash_map(&q.map[kDwX], s.sx, P, P, rows, 1, true, rows_pad_l);
+  if (rc == 0) rc = stash_map(&q.map[kDwH], s.sh, W, W, rows, L, true, rows_pad_l);
+  if (rc == 0) rc = stash_map(&q.map[kDwFeat], s.sfeat, F, F, rows, 1, true, rows_pad_l);
+  if (rc == 0) rc = stash_map(&q.map[kDwHv], s.shv, V, V, rows, 1, true, rows_pad_l);
+  if (rc == 0) rc = stash_map(&q.map[kDwDv], s.sdv, D, D, rows, 1, true, rows_pad_l);
+  if (rc == 0) rc = stash_map(&q.map[kDwGh], s.gh, W, W, rows, L, true, rows_pad_l);
+  if (rc == 0) rc = stash_map(&q.map[kDwGsf], s.gsf, F + 8, F + 8, rows, 1, true, rows_pad_l);
+  if (rc == 0) rc = stash_map(&q.map[kDwGhv], s.ghv, V, V, rows, 1, true, rows_pad_l);
+  if (rc == 0) rc = stash_map(&q.map[kDwRgb], s.grgb, 8, 8, rows, 1, true, rows_pad_l);
+  if (rc != 0) return rc;
   q.rows = rows;
-  q.rows_per_split = (rows + splits - 1) / splits;
+  q.rows_per_split = rows_per_split(rows);
+  const long long splits = (rows + q.rows_per_split - 1) / q.rows_per_split;
+  q.splits = static_cast<int>(splits);
+  q.cluster = cluster;
+  q.stages = dw_stages;
   q.total = total;
   q.partial = s.partial;
   const int n_jobs = static_cast<int>(jobs.size());
   for (int j0 = 0; j0 < n_jobs; j0 += kJobs) {
-    int tiles = 0;
+    int items = 0;
     q.n_jobs = n_jobs - j0 < kJobs ? n_jobs - j0 : kJobs;
     for (int i = 0; i < q.n_jobs; ++i) {
-      q.jobs[i] = jobs[j0 + i];
-      q.jobs[i].tile0 = tiles;
-      tiles += ((q.jobs[i].K + kBT - 1) / kBT) * q.jobs[i].tiles_n;
+      Job& jb = q.jobs[i];
+      jb = jobs[j0 + i];
+      jb.mgroups = ((jb.K + kDwM - 1) / kDwM + cluster - 1) / cluster;
+      jb.cblocks = dw_cblocks(jb.N);
+      jb.unit0 = items;
+      items += jb.mgroups * jb.cblocks;
     }
-    dw_partial_kernel<<<dim3(tiles, static_cast<unsigned>(splits)), kRedThreads, kRedSmem, st>>>(
-        q);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    rc = dw_launch(q, static_cast<long long>(items) * splits * cluster, dw_smem, st);
+    if (rc != 0) return rc;
   }
   float* out = static_cast<float*>(grads);
   reduce_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, st>>>(

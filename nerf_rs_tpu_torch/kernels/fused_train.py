@@ -58,6 +58,16 @@ from .fused_render import PackedWeights, PackedWeightsT, padded_widths, pe_encod
 # the last trunk layer's bias there.
 KERNEL_TOL = {"diag": 1.5e-3, "weights": 2e-3, "grads": 2.5e-2}
 
+# How far K2b alone may stand from the float64 product A^T G (and sum_rows G)
+# of the call's own stashes (``stash_views``), each leaf relative to its
+# largest entry (tests/test_torch_cuda.py and chip_smoke.py hold it there).
+# Both sum the same bf16 products, exact in f32; K2b's sums run on the tensor
+# cores over ~12,288 rows a split, 768 wgmma k16 steps into one f32 sum,
+# then over the splits in f32, and its bias sums on the CUDA cores. On an
+# H100 the largest reading, at 1024/256/128, stood at about half the bar
+# (chip_smoke.py prints each: check_dw_stashes).
+DW_TOL = 1e-4
+
 # How far a call launched in ray blocks may stand from the same call in one
 # launch, each gradient leaf normalised by its max: diag and weights are the
 # same bits, and K2b sums the same f32 rows in other groups.
@@ -177,6 +187,7 @@ def fused_train_grads(
     near: float = 0.0,
     far: float = 1.0,
     dist_space: str = "linear",
+    scratch: Optional[torch.Tensor] = None,
 ) -> TrainGrads:
     """One fused forward + backward over N rays: origins/dirs/viewdirs
     and gold (N, 3), ts/deltas (N, S) f32 (with ``cfg.ipe``: interval
@@ -202,6 +213,10 @@ def fused_train_grads(
     narrow instance, past 256 its cluster route, each a forward and a
     backward kernel, ``route``), any depth and any encoding (where the
     narrow layout does not hold the encodings, the cluster route runs too).
+    ``scratch``, a contiguous uint8 tensor on the rays' card of at least
+    the call's scratch bytes, holds the stashes and the dW partials instead
+    of a buffer of the call's own: after the call it holds the last block's
+    stashes (``stash_views``), which the card tests read K2b's inputs from.
     """
     _check_train(packed, packed_t, origins, dirs, viewdirs, ts, deltas, gold, cfg,
                  num_samples, radii)
@@ -239,7 +254,12 @@ def fused_train_grads(
     # block in stream order; freed on return while the kernels may still
     # run, which is safe: the caching allocator hands the block out again
     # only in this stream's order
-    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    if scratch is None:
+        scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    elif (scratch.device != dev or scratch.dtype != torch.uint8 or not scratch.is_contiguous()
+          or scratch.numel() < nbytes):
+        raise ValueError(f"scratch must be a contiguous uint8 tensor of at least {nbytes} "
+                         f"bytes on {dev}")
     part = torch.empty(total, device=dev) if len(blocks) > 1 else grads
     i64 = ctypes.c_longlong
     w_off = (i64 * len(packed.w_off))(*packed.w_off)
@@ -303,6 +323,9 @@ def _library() -> ctypes.CDLL:
         rows.restype = i64
         lib.nerf_fused_train_route.argtypes = [i32] * 6
         lib.nerf_fused_train_route.restype = i32
+        offs = lib.nerf_fused_train_stash_offsets
+        offs.argtypes = [i64] + [i32] * 7 + [i64, p64]
+        offs.restype = i32
         lib.nerf_cuda_error_string.argtypes = [i32]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -352,6 +375,236 @@ def route(packed: PackedWeights, num_samples: int) -> str:
     if rc < 0:
         raise ValueError(_SHAPE_ERRORS[-1] if rc == -1 else f"CUDA error {-rc} asking the route")
     return K2_ROUTES[rc]
+
+
+# ---- K2b (csrc/fused_train.cu, dw_wgmma_kernel): its schedule, mirrored ----
+# for the CPU tests (tests/test_torch_k2b.py holds these equal to the C
+# constants). A job is one weight gradient dW (K, N) = A^T G over the call's
+# rows; a work item is a cluster of CTAs over one column block of G (256
+# columns, the last one taking an 8-column tail where N = 256 b + 8) and one
+# split of the rows, CTA r owning A's columns [128 r, 128 r + 128); its
+# producer loads 64-row k-blocks of its own A columns and a share of G's
+# 64-column panels, multicast to the whole cluster.
+DW_ROWS = 64  # kDwRows: stash rows a k-block (a ring slot)
+DW_M = 128  # kDwM: dW rows (A columns) a CTA, two warpgroups of 64
+DW_N = 256  # kDwN: G columns a column block
+DW_TAIL = 8  # kDwTail
+DW_MAX_CLUSTER = 8  # kDwMaxCluster
+DW_MAX_STAGES = 4  # kDwMaxStages
+DW_PANEL = DW_ROWS * 128  # kDwPanel: bytes of a 64-column panel of a k-block
+SPLIT_ROWS = 12288  # kSplitRows
+MAX_SPLITS = 128  # kMaxSplits
+DW_JOBS = 24  # kJobs: jobs a launch
+
+# the stashes in the scratch's order, and their widths (columns)
+STASHES = ("sx", "sh", "sfeat", "shv", "sdv", "gh", "gsf", "ghv", "grgb")
+
+
+def stash_width(name: str, packed) -> int:
+    """Columns of stash ``name`` (STASHES) of a field packed as ``packed``."""
+    return {"sx": packed.P, "sh": packed.W, "sfeat": packed.F, "shv": packed.V,
+            "sdv": packed.D, "gh": packed.W, "gsf": packed.F + 8, "ghv": packed.V,
+            "grgb": 8}[name]
+
+
+class DwJob(NamedTuple):
+    """dW (K, N) = A^T G over the rows, A the stash ``a`` at layer
+    ``a_layer``, G the stash ``g`` at ``g_layer``; dW at ``out`` in the flat
+    gradient and, where ``bias_out`` >= 0, the sums of G's columns from
+    ``bias_col0`` on at ``bias_out``."""
+
+    a: str
+    a_layer: int
+    K: int
+    g: str
+    g_layer: int
+    N: int
+    out: int
+    bias_out: int
+    bias_col0: int
+
+
+def dw_jobs(packed) -> List[DwJob]:
+    """K2b's jobs in the packed order, as ``nerf_fused_train_grads`` builds
+    them: every trunk layer (layer 0 from PE(x)), the skip layer's PE(x)
+    block where it has one, the sigma block of [feature | sigma] (its bias
+    from column F: d feat_b is ``feat_bias_kernel``'s), the view head's
+    feature and PE(d) blocks (one bias) and the rgb head."""
+    L, skip, W, F, V, P, D = (packed.depth, packed.skip_layer, packed.W, packed.F, packed.V,
+                              packed.P, packed.D)
+    wo, bo, tw = packed.w_off, packed.b_off, packed.w.numel()
+    jobs = [DwJob("sx" if l == 0 else "sh", max(l - 1, 0), P if l == 0 else W, "gh", l, W,
+                  wo[l], tw + bo[l], 0) for l in range(L)]
+    if 0 < skip < L:
+        jobs.append(DwJob("sx", 0, P, "gh", skip, W, wo[L], -1, 0))
+    jobs += [DwJob("sh", L - 1, W, "gsf", 0, F + 8, wo[L + 1], tw + bo[L], F),
+             DwJob("sfeat", 0, F, "ghv", 0, V, wo[L + 2], tw + bo[L + 1], 0),
+             DwJob("sdv", 0, D, "ghv", 0, V, wo[L + 3], -1, 0),
+             DwJob("shv", 0, V, "grgb", 0, 8, wo[L + 4], tw + bo[L + 2], 0)]
+    return jobs
+
+
+def dw_splits(rows: int) -> Tuple[int, int]:
+    """(splits, rows a split) of K2b over ``rows`` rows (C ``splits_for``,
+    ``rows_per_split``): at most MAX_SPLITS shares of about SPLIT_ROWS rows,
+    each whole k-blocks."""
+    s = min(max(-(-rows // SPLIT_ROWS), 1), MAX_SPLITS)
+    rps = -(-(-(-rows // s)) // DW_ROWS) * DW_ROWS
+    return -(-rows // rps), rps
+
+
+def dw_cblocks(N: int) -> int:
+    """G's column blocks of a job N columns wide (C ``dw_cblocks``)."""
+    return N // DW_N if N > DW_N and N % DW_N == DW_TAIL else -(-N // DW_N)
+
+
+def dw_cluster(jobs: List[DwJob]) -> int:
+    """CTAs a cluster: the widest job's m-blocks, at most DW_MAX_CLUSTER."""
+    return min(max(-(-j.K // DW_M) for j in jobs), DW_MAX_CLUSTER)
+
+
+def dw_launches(jobs: List[DwJob]) -> List[List[Tuple[DwJob, int, int, int]]]:
+    """Each K2b launch's jobs in their order (the heaviest bytes a row
+    first, a stable sort; DW_JOBS a launch), each with (m-groups, column
+    blocks, first item)."""
+    c = dw_cluster(jobs)
+
+    def cost(j):
+        return (min(j.K, c * DW_M) + min(j.N, DW_N)
+                + (DW_TAIL if j.N > DW_N and j.N % DW_N == DW_TAIL else 0))
+
+    order = sorted(jobs, key=cost, reverse=True)
+    out = []
+    for j0 in range(0, len(order), DW_JOBS):
+        launch, item = [], 0
+        for j in order[j0:j0 + DW_JOBS]:
+            mg, cb = -(-(-(-j.K // DW_M)) // c), dw_cblocks(j.N)
+            launch.append((j, mg, cb, item))
+            item += mg * cb
+        out.append(launch)
+    return out
+
+
+class DwCta(NamedTuple):
+    """One K2b CTA as the kernel decodes its block index: its job, split and
+    rank in the cluster, the cluster's CTAs with rows of dW (``act``), its
+    dW rows [m0, m0 + 128) and G columns [n0, n0 + 256) (+ the tail), and
+    whether it sums G's bias columns."""
+
+    job: DwJob
+    split: int
+    rank: int
+    act: int
+    m0: int
+    n0: int
+    tail: bool
+    bias: bool
+    r0: int
+    r1: int
+
+
+def dw_ctas(jobs: List[DwJob], rows: int) -> List[List[DwCta]]:
+    """Every CTA of every K2b launch over ``rows`` rows, in block order:
+    cluster c is item c // splits over split c % splits."""
+    c = dw_cluster(jobs)
+    splits, rps = dw_splits(rows)
+    out = []
+    for launch in dw_launches(jobs):
+        items = sum(mg * cb for _, mg, cb, _ in launch)
+        ctas = []
+        for block in range(items * splits * c):
+            rank, cid = block % c, block // c
+            item, split = cid // splits, cid % splits
+            j, mg_n, cb_n, unit0 = [x for x in launch if x[3] <= item][-1]
+            v = item - unit0
+            cb, mg = v // mg_n, v % mg_n
+            act = min(c, -(-j.K // DW_M) - mg * c)
+            tail = j.N > DW_N and j.N % DW_N == DW_TAIL and cb == cb_n - 1
+            r0 = split * rps
+            ctas.append(DwCta(j, split, rank, act, (mg * c + rank) * DW_M, cb * DW_N, tail,
+                              j.bias_out >= 0 and mg == 0 and rank == 0, r0,
+                              min(rows, r0 + rps)))
+        out.append(ctas)
+    return out
+
+
+def dw_loads(cta: DwCta) -> List[Tuple[str, int, int]]:
+    """The TMA boxes a CTA's producer issues for each of its k-blocks (rows
+    [r, r + 64) for r in range(r0, r1, DW_ROWS)): (stash, layer, first
+    column) of each {64, 64} box, its own A panels then the G panels it
+    multicasts (panel q by rank q % act; the tail's at column n0 + 256).
+    None for a CTA past its job's m-blocks (it leaves at once)."""
+    if cta.rank >= cta.act:
+        return []
+    j = cta.job
+    a_panels = 2 if j.K - cta.m0 > 64 else 1
+    g_panels = min(4, -(-(j.N - cta.n0) // 64)) + (1 if cta.tail else 0)
+    return ([(j.a, j.a_layer, cta.m0 + 64 * q) for q in range(a_panels)]
+            + [(j.g, j.g_layer, cta.n0 + 64 * q) for q in range(g_panels)
+               if q % cta.act == cta.rank])
+
+
+def dw_warpgroups(cta: DwCta) -> List[int]:
+    """The consumer warpgroups of a CTA that take part (``dw_consume``):
+    warpgroup w multiplies A's panel w, dW rows [m0 + 64 w, m0 + 64 w + 64),
+    where those rows start below K; none for a CTA past its job's m-blocks."""
+    if cta.rank >= cta.act:
+        return []
+    return [w for w in range(DW_M // 64) if 64 * w < cta.job.K - cta.m0]
+
+
+def dw_consumers(K: int, act: int, m_last: int) -> int:
+    """The consumer arrivals each ring slot's `empty` barrier counts in a
+    cluster of ``act`` live CTAs, the last one's dW rows from ``m_last``
+    (``dw_consumers`` in the kernel; the bias warps add 2)."""
+    return 2 * act - (0 if K - m_last > 64 else 1)
+
+
+def dw_bias_lanes(cta: DwCta) -> List[Tuple[int, int, List[int]]]:
+    """The bias sums of a bias CTA (``dw_bias``): for each of warps 9 and 10
+    (h = 0, 1) and lane, (h, chunk, rows of each k-block) it adds, the chunk
+    an 8-column group of the block's columns from ``bias_col0`` on (chunk
+    32: the tail's). Where the block has C <= 32 chunks, ``per`` = 32 / C
+    rounded down to a power of two lanes share a chunk, each taking every
+    per-th row of its warp's 32; none where the block has no bias column."""
+    j = cta.job
+    cs = max(0, j.bias_col0 - cta.n0) // 8
+    ce = (min(j.N - cta.n0, DW_N + (DW_TAIL if cta.tail else 0)) + 7) // 8
+    per = 1
+    if ce > cs:
+        while per * 2 * (ce - cs) <= 32:
+            per *= 2
+    out = []
+    for h in range(2):
+        for lane in range(32):
+            sub, c_lane = lane & (per - 1), cs + lane // per
+            for c in (c_lane, c_lane + 32):
+                if c < ce:
+                    out.append((h, c, list(range(32 * h + sub, 32 * h + 32, per))))
+    return out
+
+
+def stash_views(scratch: torch.Tensor, packed: PackedWeights, n_rays: int, S: int) -> dict:
+    """The stashes of a one-block call's ``scratch`` (``fused_train_grads``'s
+    keyword) as bf16 tensors: (rows_pad, width) each, sh and gh (depth,
+    rows_pad, W); "rows" the call's rows (n_rays x the padded S, K2b's sum
+    runs over them). Card only: the offsets are the kernel library's."""
+    S = padded_samples(S)
+    out = (ctypes.c_longlong * (len(STASHES) + 1))()
+    total = packed.w.numel() + packed.b.numel()
+    rc = _library().nerf_fused_train_stash_offsets(n_rays, S, packed.depth, packed.W, packed.F,
+                                                   packed.V, packed.P, packed.D, total, out)
+    if rc != 0:
+        raise ValueError(f"fused_train kernel refused the shape (code {rc})")
+    rows_pad = out[len(STASHES)]
+    views = {"rows": n_rays * S}
+    for name, off in zip(STASHES, out):
+        width = stash_width(name, packed)
+        layered = name in ("sh", "gh")
+        layers = packed.depth if layered else 1
+        t = scratch[off:off + 2 * layers * rows_pad * width].view(torch.bfloat16)
+        views[name] = t.view(layers, rows_pad, width) if layered else t.view(rows_pad, width)
+    return views
 
 
 def fused_train_grads_reference(

@@ -34,7 +34,7 @@ from nerf_rs_tpu_torch.kernels.fused_ray import (
     fused_ray_render, fused_ray_render_reference)
 from nerf_rs_tpu_torch.kernels.fused_render import pack_weights, pack_weights_t
 from nerf_rs_tpu_torch.kernels.fused_train import (
-    BLOCKED_TOL, KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
+    BLOCKED_TOL, DW_TOL, KERNEL_TOL, fused_train_grads, fused_train_grads_reference)
 from nerf_rs_tpu_torch.models import hashgrid
 from nerf_rs_tpu_torch.models.factored import basis_dim
 from nerf_rs_tpu_torch.models.mlp import init_nerf_params
@@ -291,6 +291,88 @@ def test_train_kernel_is_deterministic(s, ipe):
     a = fused_train_grads(*args, radii=radii)
     b = fused_train_grads(*args, radii=radii)
     for x, y in zip((a.diag, a.weights, *a.dw, *a.db), (b.diag, b.weights, *b.dw, *b.db)):
+        assert torch.equal(x, y)
+
+
+
+# (net, feature, view head widths, rays, samples): the flagship call, the
+# hierarchical union pass (192), one block of the 300-sample call, 512 and
+# 1024 wide (clusters of four and eight CTAs), the padded widths
+K2B_CASES = [
+    ((256, 256, 128), 4096, 64),
+    ((256, 256, 128), 4096, 192),
+    ((256, 256, 128), 2048, 300),
+    ((512, 512, 256), 1024, 64),
+    ((1024, 256, 128), 1024, 64),
+    ((40, 40, 24), 4096, 64),
+    ((100, 100, 50), 1001, 192),
+]
+
+
+def _k2b_args(widths, n, s, dev):
+    w, f, v = widths
+    field = dict(net_width=w, feature_width=f, view_head_width=v)
+    cfg = ModelConfig(**field)
+    model = _biased_model(cfg, dev)
+    pk = pack_weights(model, cfg)
+    gold = torch.from_numpy(np.random.default_rng(1).uniform(size=(n, 3)).astype(np.float32))
+    rays, _ = _branch_rays(False, n, s, dev)
+    return (pk, pack_weights_t(pk), *rays, gold.to(dev), cfg, s)
+
+
+@pytest.mark.parametrize("widths,n,s", K2B_CASES)
+def test_dw_kernel_matches_the_float64_product_of_its_stashes(widths, n, s):
+    """K2b alone: every job's dW (and its bias sums from ``bias_col0`` on)
+    against the float64 A^T G (sum_rows G) of the stashes K2a left in the
+    call's scratch, read back through ``stash_views``, at DW_TOL."""
+    from nerf_rs_tpu_torch.kernels import fused_train
+    from nerf_rs_tpu_torch.kernels.fused_ray import padded_samples
+
+    dev = _device()
+    args = _k2b_args(widths, n, s, dev)
+    pk = args[0]
+    S = padded_samples(s)
+    assert len(fused_train.ray_blocks(n, S, fused_train.block_rows(pk, S))) == 1
+    total = pk.w.numel() + pk.b.numel()
+    nbytes = fused_train._library().nerf_fused_train_scratch_bytes(
+        n, S, pk.depth, pk.W, pk.F, pk.V, pk.P, pk.D, total)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    got = fused_train_grads(*args, scratch=scratch)
+    torch.cuda.synchronize()
+    views = fused_train.stash_views(scratch, pk, n, s)
+    rows = views["rows"]
+
+    def stash(name, layer):
+        t = views[name]
+        return (t[layer] if t.dim() == 3 else t)[:rows].double()
+
+    for job in fused_train.dw_jobs(pk):
+        a, g = stash(job.a, job.a_layer), stash(job.g, job.g_layer)
+        want = a.t() @ g
+        dw = got.dw[pk.w_off.index(job.out)]
+        assert dw.shape == want.shape, job
+        err = float((dw.double() - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+        assert err <= DW_TOL, (job, err)
+        if job.bias_out >= 0:
+            db = got.db[pk.b_off.index(job.bias_out - pk.w.numel())]
+            want_b = g[:, job.bias_col0:].sum(0)
+            err = (float((db[job.bias_col0:job.N].double() - want_b).abs().max())
+                   / max(float(want_b.abs().max()), 1e-30))
+            assert err <= DW_TOL, (job, "bias", err)
+
+
+@pytest.mark.parametrize("widths,n,s", K2B_CASES[:2] + [((256, 256, 128), 4096, 300)]
+                         + K2B_CASES[3:])
+def test_dw_kernel_reruns_bit_for_bit(widths, n, s):
+    """Two calls on the same inputs give the same gradient bits (no float
+    atomics: each partial element has one writer, the splits and blocks are
+    summed in a fixed order), at the flagship call, S = 192, the 300-sample
+    call in its two blocks, 512 and 1024 wide and the padded widths."""
+    dev = _device()
+    args = _k2b_args(widths, n, s, dev)
+    a = fused_train_grads(*args)
+    b = fused_train_grads(*args)
+    for x, y in zip((*a.dw, *a.db), (*b.dw, *b.db)):
         assert torch.equal(x, y)
 
 
